@@ -1,0 +1,257 @@
+"""The ACCL facade: the user-facing MPI-like API over the gang engine.
+
+The counterpart of ``accl_tpu/core.py``'s ``ACCL`` (:72) for the calls of
+this port: buffers, tuning registers, copy / combine, bcast, allgather,
+allreduce (with a wire dtype and ``run_async``), reduce_scatter and
+barrier.  Calls are synchronous unless ``run_async=True``, which returns
+the :class:`~accl_tpu_torch.request.Request`.
+
+:func:`cuda_group` builds N rank handles over one device — the
+counterpart of ``core.xla_group``.  Collectives are blocking per rank:
+drive each rank from its own thread, or use ``run_async=True``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+from .arithconfig import DEFAULT_ARITH_CONFIG
+from .backends.base import BaseEngine, CallOptions
+from .backends.cuda.engine import CudaEngine, CudaGangContext
+from .buffer import BaseBuffer, host_tensor
+from .communicator import Communicator, Rank
+from .constants import (
+    ACCLError,
+    AllreduceAlgorithm,
+    CompressionFlags,
+    ConfigFunction,
+    DataType,
+    DEFAULT_TIMEOUT_S,
+    ErrorCode,
+    Operation,
+    ReduceFunction,
+    TuningKey,
+    as_datatype,
+)
+from .ops.driver import resolve_device
+from .request import Request
+
+
+class ACCL:
+    """One rank's handle onto the collective engine."""
+
+    def __init__(
+        self,
+        engine: BaseEngine,
+        ranks: Sequence[Rank],
+        local_rank: int,
+        arith_config: Optional[dict] = None,
+        timeout_s: float = DEFAULT_TIMEOUT_S,
+    ):
+        self.engine = engine
+        self._arith = dict(arith_config or DEFAULT_ARITH_CONFIG)
+        self._world = Communicator(ranks, local_rank, comm_id=0)
+        self._timeout_s = float(timeout_s)
+        self._config(ConfigFunction.SET_TIMEOUT, timeout_s)
+        self._initialized = True
+
+    def _config(self, fn: ConfigFunction, value: float, key: int = 0) -> None:
+        req = self.engine.start(CallOptions(
+            op=Operation.CONFIG, cfg_function=int(fn), cfg_value=value,
+            cfg_key=int(key),
+        ))
+        req.check(f"config {fn.name}")
+
+    # -- introspection -------------------------------------------------------
+    @property
+    def comm(self) -> Communicator:
+        return self._world
+
+    @property
+    def rank(self) -> int:
+        return self._world.local_rank
+
+    @property
+    def size(self) -> int:
+        return self._world.size
+
+    def set_timeout(self, seconds: float) -> None:
+        self._config(ConfigFunction.SET_TIMEOUT, seconds)
+        self._timeout_s = float(seconds)
+
+    def set_tuning(self, key, value) -> None:
+        """Write a tuning register: ``allreduce_algorithm`` ("xla" /
+        "ring" / "pallas_ring" / "pallas_ring_bidir"), ``ring_segments``
+        or ``wire_dtype`` (a DataType value or name; 0 = off).  ``key`` is
+        a :class:`TuningKey`, its name, or its int value."""
+        if isinstance(key, str):
+            try:
+                key = TuningKey[key.upper()]
+            except KeyError:
+                raise ValueError(f"unknown tuning key {key!r}") from None
+        else:
+            key = TuningKey(key)
+        if isinstance(value, str):
+            if key == TuningKey.WIRE_DTYPE:
+                value = as_datatype(value)
+            else:
+                try:
+                    value = AllreduceAlgorithm[value.upper()]
+                except KeyError:
+                    raise ValueError(
+                        f"unknown algorithm {value!r}; valid: "
+                        f"{[a.name.lower() for a in AllreduceAlgorithm]}"
+                    ) from None
+        self._config(ConfigFunction.SET_TUNING, float(value), key=int(key))
+
+    # -- buffers -------------------------------------------------------------
+    def create_buffer(self, count: int, dtype) -> BaseBuffer:
+        """A zeroed buffer of ``count`` elements on this rank's device."""
+        return self.engine.create_buffer(count, as_datatype(dtype))
+
+    def create_buffer_from(self, array) -> BaseBuffer:
+        """Wrap a host array (numpy or a CPU tensor, flattened): the
+        buffer's host side ALIASES it when it is contiguous, and the device
+        side is synced on return."""
+        host = host_tensor(array)
+        return self.engine.create_buffer(
+            host.numel(), as_datatype(host.dtype), data=host
+        )
+
+    # -- call plumbing -------------------------------------------------------
+    def _resolve_arithcfg(self, dtype: DataType, compress_dtype) -> tuple:
+        cdt = dtype if compress_dtype is None else as_datatype(compress_dtype)
+        key = (dtype, cdt)
+        if key not in self._arith:
+            raise ACCLError(
+                ErrorCode.INVALID_DTYPE,
+                f"no arithmetic config for {dtype.name}->{cdt.name}",
+                details={"available": sorted(
+                    f"{u.name}->{c.name}" for u, c in self._arith
+                )},
+            )
+        flags = (CompressionFlags.ETH_COMPRESSED if cdt != dtype
+                 else CompressionFlags.NO_COMPRESSION)
+        return self._arith[key], flags
+
+    def _launch(self, options: CallOptions, run_async: bool,
+                context: str) -> Request:
+        req = self.engine.start(options)
+        if run_async:
+            return req
+        if not req.wait(timeout=self._timeout_s):
+            raise ACCLError(
+                ErrorCode.DEADLOCK_SUSPECTED, context,
+                details={"op": options.op.name, "timeout_s": self._timeout_s},
+            )
+        req.check(context)
+        return req
+
+    @staticmethod
+    def _count_of(buf: BaseBuffer, count: Optional[int]) -> int:
+        n = buf.count if count is None else int(count)
+        if n < 0:
+            raise ACCLError(ErrorCode.INVALID_COUNT, f"count {n}")
+        return n
+
+    def _check_rank(self, comm: Communicator, rank: int) -> None:
+        if not 0 <= rank < comm.size:
+            raise ACCLError(ErrorCode.INVALID_RANK, f"rank {rank}")
+
+    def _collective(self, op: Operation, comm, count: int, dtype: DataType,
+                    compress_dtype, run_async: bool, **fields):
+        cfg, flags = self._resolve_arithcfg(dtype, compress_dtype)
+        opts = CallOptions(op=op, comm=comm or self._world, count=count,
+                           arithcfg=cfg, compression=flags, **fields)
+        return self._launch(opts, run_async, op.name.lower())
+
+    # -- primitives ----------------------------------------------------------
+    def copy(self, srcbuf: BaseBuffer, dstbuf: BaseBuffer,
+             count: Optional[int] = None, run_async: bool = False):
+        n = self._count_of(srcbuf, count)
+        return self._collective(Operation.COPY, None, n, srcbuf.dtype, None,
+                                run_async, op0=srcbuf, res=dstbuf)
+
+    def combine(self, function: ReduceFunction, op0: BaseBuffer,
+                op1: BaseBuffer, res: BaseBuffer,
+                count: Optional[int] = None, run_async: bool = False):
+        """``res = function(op0, op1)`` on this rank's device (kernel K4),
+        cast to ``res``'s dtype; ``res`` may be ``op0`` (in place)."""
+        n = self._count_of(op0, count)
+        return self._collective(Operation.COMBINE, None, n, op0.dtype, None,
+                                run_async, reduce_function=function,
+                                op0=op0, op1=op1, res=res)
+
+    # -- collectives ---------------------------------------------------------
+    def bcast(self, buf: BaseBuffer, count: Optional[int] = None,
+              root: int = 0, comm: Optional[Communicator] = None,
+              compress_dtype=None, run_async: bool = False):
+        comm = comm or self._world
+        self._check_rank(comm, root)
+        n = self._count_of(buf, count)
+        return self._collective(Operation.BCAST, comm, n, buf.dtype,
+                                compress_dtype, run_async, root_src=root,
+                                op0=buf, res=buf)
+
+    def allgather(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
+                  count: Optional[int] = None,
+                  comm: Optional[Communicator] = None, compress_dtype=None,
+                  run_async: bool = False):
+        n = self._count_of(sendbuf, count)
+        return self._collective(Operation.ALLGATHER, comm, n, sendbuf.dtype,
+                                compress_dtype, run_async, op0=sendbuf,
+                                res=recvbuf)
+
+    def allreduce(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
+                  count: Optional[int] = None,
+                  function: ReduceFunction = ReduceFunction.SUM,
+                  comm: Optional[Communicator] = None, compress_dtype=None,
+                  run_async: bool = False):
+        """Every rank gets ``function`` over all ranks' ``sendbuf``.  The
+        lowering follows the ``allreduce_algorithm`` register; with no
+        ``compress_dtype`` the ``wire_dtype`` register picks the wire."""
+        n = self._count_of(sendbuf, count)
+        if compress_dtype is None:
+            wd = int(self.engine.gang.tuning.get("wire_dtype", 0))
+            if wd and (sendbuf.dtype, DataType(wd)) in self._arith:
+                compress_dtype = DataType(wd)
+        return self._collective(Operation.ALLREDUCE, comm, n, sendbuf.dtype,
+                                compress_dtype, run_async,
+                                reduce_function=function, op0=sendbuf,
+                                res=recvbuf)
+
+    def reduce_scatter(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
+                       count: Optional[int] = None,
+                       function: ReduceFunction = ReduceFunction.SUM,
+                       comm: Optional[Communicator] = None,
+                       compress_dtype=None, run_async: bool = False):
+        """``count`` is the per-rank RESULT count (``sendbuf`` holds
+        size * count)."""
+        n = self._count_of(recvbuf, count)
+        return self._collective(Operation.REDUCE_SCATTER, comm, n,
+                                recvbuf.dtype, compress_dtype, run_async,
+                                reduce_function=function, op0=sendbuf,
+                                res=recvbuf)
+
+    def barrier(self, comm: Optional[Communicator] = None,
+                run_async: bool = False):
+        return self._collective(Operation.BARRIER, comm, 0, DataType.FLOAT32,
+                                None, run_async)
+
+    def deinit(self) -> None:
+        if self._initialized:
+            self.engine.shutdown()
+            self._initialized = False
+
+
+def cuda_group(n: int, device=None, **accl_kwargs) -> List[ACCL]:
+    """N rank handles whose buffers share one device — on the card unless
+    ``device`` asks for another (tests pass ``device="cpu"``); raises when
+    there is no CUDA device to run on."""
+    dev = resolve_device(device)
+    gang = CudaGangContext()
+    ranks = [Rank(address=f"{dev}:{i}", session=i) for i in range(n)]
+    return [
+        ACCL(CudaEngine(gang, dev), ranks, i, **accl_kwargs)
+        for i in range(n)
+    ]

@@ -1,0 +1,278 @@
+// K1-K3: ring collectives over P ranks whose buffers share one device.
+//
+// Replace accl_tpu/ops/pallas/ring.py:
+//   K1 _allreduce_kernel :123       (pallas_call in _call :316, entry ring_allreduce :329)
+//   K2 _reduce_scatter_kernel :224  (entry ring_reduce_scatter :392)
+//   K3 _allgather_kernel :288 with relay_allgather_hops :259 (entry ring_allgather :418)
+//
+// On the TPU each hop is a remote DMA to the ring neighbour with slot-ack
+// semaphores.  Here every rank's buffer lies in the same device memory,
+// reached through a table of per-rank pointers, so no hop has a wire to
+// cross: each thread walks the ring's hop schedule for its own elements in
+// registers.  The ring's FOLD ORDER is kept exactly (it decides the float
+// result): in direction lane d (sign sg = +1, or -1 for the second half of
+// a bidirectional ring) block b starts at rank b+sg and visits ranks
+// b+2sg, ..., b+P*sg = b, each hop computing acc = op(wire(acc), x_r[b]);
+// rank b keeps its block at full precision and every other rank receives
+// it through the wire lane (narrow, then widen).  Blocks come from the
+// JAX package's padding rule, computed by the Python wrapper; elements
+// past n are read as zeros.  No block waits on another, so the kernels
+// cannot deadlock.
+//
+// Bound on the H100: bytes.  K1 reads P*n elements and writes P*n;
+// K2 reads P*n and writes the P padded blocks (P*L/P = L >= n); K3 reads
+// P*n and writes P*P*n.  Each does at most one operation per element read,
+// so the least time is those bytes over 3.35 TB/s.  The design reads each
+// input element once and writes each output element once, 16 bytes per
+// access where pointers are aligned.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMaxRanks = 64;
+
+struct RankPtrs {
+  const void* in[kMaxRanks];
+  void* out[kMaxRanks];
+};
+
+using accl::Arith;
+using accl::Convert;
+
+// round a value of the accumulate type T through the wire dtype and back
+template <typename T> __device__ __forceinline__ T wire_round(T v, int wire) {
+  if (wire == DT_BF16)
+    return Convert<T>::from(__float2bfloat16_rn(accl::to_float(v)));
+  if (wire == DT_F16)
+    return Convert<T>::from(__float2half_rn(accl::to_float(v)));
+  return v;
+}
+template <> __device__ __forceinline__ int32_t wire_round(int32_t v, int) {
+  return v;  // the wrapper refuses a wire lane on integer operands
+}
+
+template <typename T> __device__ __forceinline__ T zero() {
+  return Convert<T>::from(0.0f);
+}
+template <> __device__ __forceinline__ int32_t zero<int32_t>() { return 0; }
+
+// V consecutive elements starting at e (a multiple of V); elements at or
+// past n read as zero
+template <typename T, int V>
+__device__ __forceinline__ void load(T (&v)[V], const void* base, long long e,
+                                     long long n) {
+  const T* p = static_cast<const T*>(base);
+  if (V > 1 && e + V <= n) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p + e);
+    const T* pv = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = pv[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = e + k < n ? p[e + k] : zero<T>();
+  }
+}
+
+// store V elements at e, only those before `limit`
+template <typename T, int V>
+__device__ __forceinline__ void store(void* base, long long e, const T (&v)[V],
+                                      long long limit) {
+  T* p = static_cast<T*>(base);
+  if (V > 1 && e + V <= limit) {
+    uint4 raw;
+    T* pv = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < V; ++k) pv[k] = v[k];
+    *reinterpret_cast<uint4*>(p + e) = raw;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (e + k < limit) p[e + k] = v[k];
+  }
+}
+
+__device__ __forceinline__ int ring_mod(int r, int P) {
+  r %= P;
+  return r < 0 ? r + P : r;
+}
+
+// K1: `half` = padded elements per direction lane, `blk` = per block
+template <typename T, int V>
+__global__ void ring_allreduce_kernel(RankPtrs ptrs, int P, long long n,
+                                      long long half, long long blk, int op,
+                                      int wire) {
+  const long long stride = (long long)gridDim.x * blockDim.x * V;
+  for (long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+       e < n; e += stride) {
+    const int d = (int)(e / half);
+    const int b = (int)((e - d * half) / blk);
+    const int sg = d == 0 ? 1 : -1;
+    int r = ring_mod(b + sg, P);
+    T acc[V];
+    load<T, V>(acc, ptrs.in[r], e, n);
+    for (int s = 1; s < P; ++s) {
+      r = ring_mod(r + sg, P);
+      T x[V];
+      load<T, V>(x, ptrs.in[r], e, n);
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        acc[k] = Arith<T>::apply(op, wire_round(acc[k], wire), x[k]);
+    }
+    T sent[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) sent[k] = wire_round(acc[k], wire);
+    for (int q = 0; q < P; ++q) {
+      if (q == b)
+        store<T, V>(ptrs.out[q], e, acc, n);
+      else
+        store<T, V>(ptrs.out[q], e, sent, n);
+    }
+  }
+}
+
+// K2: rank b's output is the padded block b (`blk` elements)
+template <typename T, int V>
+__global__ void ring_reduce_scatter_kernel(RankPtrs ptrs, int P, long long n,
+                                           long long blk, int op) {
+  const long long total = (long long)P * blk;
+  const long long stride = (long long)gridDim.x * blockDim.x * V;
+  for (long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+       e < total; e += stride) {
+    const int b = (int)(e / blk);
+    int r = ring_mod(b + 1, P);
+    T acc[V];
+    load<T, V>(acc, ptrs.in[r], e, n);
+    for (int s = 1; s < P; ++s) {
+      r = ring_mod(r + 1, P);
+      T x[V];
+      load<T, V>(x, ptrs.in[r], e, n);
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[k] = Arith<T>::apply(op, acc[k], x[k]);
+    }
+    store<T, V>(ptrs.out[b], e - b * blk, acc, blk);
+  }
+}
+
+// K3: out_r[q*n + k] = in_q[k] for every rank r; blockIdx.y = q.  Pure
+// data movement, so only the element width matters.
+template <typename T, int V>
+__global__ void ring_allgather_kernel(RankPtrs ptrs, int P, long long n) {
+  const int q = blockIdx.y;
+  const long long stride = (long long)gridDim.x * blockDim.x * V;
+  for (long long k = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+       k < n; k += stride) {
+    T v[V];
+    load<T, V>(v, ptrs.in[q], k, n);
+    for (int r = 0; r < P; ++r)
+      store<T, V>(static_cast<T*>(ptrs.out[r]) + q * n, k, v, n);
+  }
+}
+
+RankPtrs table(const void* const* in, void* const* out, int n_in, int n_out) {
+  RankPtrs t = {};
+  for (int i = 0; i < n_in; ++i) t.in[i] = in[i];
+  for (int i = 0; i < n_out; ++i) t.out[i] = out[i];
+  return t;
+}
+
+constexpr int kThreads = 256;
+
+template <typename T>
+int allreduce_as(const RankPtrs& t, int P, long long n, long long half,
+                 long long blk, int op, int wire, int vec, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec)
+    ring_allreduce_kernel<T, V><<<accl::grid_for((n + V - 1) / V, kThreads),
+                                  kThreads, 0, s>>>(t, P, n, half, blk, op,
+                                                    wire);
+  else
+    ring_allreduce_kernel<T, 1><<<accl::grid_for(n, kThreads), kThreads, 0,
+                                  s>>>(t, P, n, half, blk, op, wire);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int reduce_scatter_as(const RankPtrs& t, int P, long long n, long long blk,
+                      int op, int vec, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const long long total = (long long)P * blk;
+  if (vec)
+    ring_reduce_scatter_kernel<T, V>
+        <<<accl::grid_for(total / V, kThreads), kThreads, 0, s>>>(t, P, n,
+                                                                  blk, op);
+  else
+    ring_reduce_scatter_kernel<T, 1>
+        <<<accl::grid_for(total, kThreads), kThreads, 0, s>>>(t, P, n, blk,
+                                                              op);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int allgather_as(const RankPtrs& t, int P, long long n, int vec,
+                 cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const int per_rank = vec ? (accl::grid_for((n + V - 1) / V, kThreads) + P - 1) / P
+                           : (accl::grid_for(n, kThreads) + P - 1) / P;
+  dim3 grid(per_rank < 1 ? 1 : per_rank, P);
+  if (vec)
+    ring_allgather_kernel<T, V><<<grid, kThreads, 0, s>>>(t, P, n);
+  else
+    ring_allgather_kernel<T, 1><<<grid, kThreads, 0, s>>>(t, P, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Each entry point returns cudaGetLastError() after its launch (0 on
+// success).  `in`/`out` are host arrays of P device pointers; `vec`
+// selects 16-byte accesses (every pointer 16-byte aligned, n a multiple
+// of the vector width).
+
+extern "C" int accl_ring_allreduce(const void* const* in, void* const* out,
+                                   int P, long long n, long long half,
+                                   long long blk, int dtype, int op,
+                                   int wire, int vec, void* stream) {
+  if (P < 1 || P > kMaxRanks) return static_cast<int>(cudaErrorInvalidValue);
+  const RankPtrs t = table(in, out, P, P);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case DT_F32: return allreduce_as<float>(t, P, n, half, blk, op, wire, vec, s);
+    case DT_BF16:
+      return allreduce_as<__nv_bfloat16>(t, P, n, half, blk, op, wire, vec, s);
+    case DT_F16: return allreduce_as<__half>(t, P, n, half, blk, op, wire, vec, s);
+    case DT_I32: return allreduce_as<int32_t>(t, P, n, half, blk, op, 0, vec, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int accl_ring_reduce_scatter(const void* const* in,
+                                        void* const* out, int P, long long n,
+                                        long long blk, int dtype, int op,
+                                        int vec, void* stream) {
+  if (P < 1 || P > kMaxRanks) return static_cast<int>(cudaErrorInvalidValue);
+  const RankPtrs t = table(in, out, P, P);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case DT_F32: return reduce_scatter_as<float>(t, P, n, blk, op, vec, s);
+    case DT_BF16:
+      return reduce_scatter_as<__nv_bfloat16>(t, P, n, blk, op, vec, s);
+    case DT_F16: return reduce_scatter_as<__half>(t, P, n, blk, op, vec, s);
+    case DT_I32: return reduce_scatter_as<int32_t>(t, P, n, blk, op, vec, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int accl_ring_allgather(const void* const* in, void* const* out,
+                                   int P, long long n, int elem_bytes,
+                                   int vec, void* stream) {
+  if (P < 1 || P > kMaxRanks) return static_cast<int>(cudaErrorInvalidValue);
+  const RankPtrs t = table(in, out, P, P);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (elem_bytes) {
+    case 1: return allgather_as<uint8_t>(t, P, n, vec, s);
+    case 2: return allgather_as<uint16_t>(t, P, n, vec, s);
+    case 4: return allgather_as<uint32_t>(t, P, n, vec, s);
+    case 8: return allgather_as<uint64_t>(t, P, n, vec, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,66 @@
+"""Carrying state across from the JAX package.
+
+The system holds no weights: its state is the ranks' operands and the
+gang's tuning registers.  :func:`stacked_from_numpy` builds the per-rank
+operand tensors from the host arrays a JAX caller stacks, and
+:func:`tuning_from_jax` maps the JAX gang's register dict
+(``XLAGangContext.tuning``, as a plain dict) onto this port's registers.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from .buffer import host_tensor
+from .constants import AllreduceAlgorithm, DataType, TUNING_DEFAULTS, WIRE_LANE_DTYPES
+
+#: the JAX gang's register defaults, which this port also starts from
+_JAX_DEFAULTS = {"allreduce_algorithm": "xla", "ring_segments": 1}
+
+
+def stacked_from_numpy(arrays, device) -> List[torch.Tensor]:
+    """One tensor per rank on ``device``, each its own allocation, from a
+    stacked ``(P, n)`` numpy array or a sequence of per-rank arrays
+    (bfloat16 arrays keep their bits)."""
+    return [
+        host_tensor(np.ascontiguousarray(a)).to(device, copy=True)
+        for a in arrays
+    ]
+
+
+def tuning_from_jax(tuning: dict) -> dict:
+    """This port's register dict for a JAX gang register dict.
+
+    Registers the port serves (``allreduce_algorithm``, ``ring_segments``,
+    ``wire_dtype``) carry across by name; any other register must still
+    hold its default, or this raises — the port cannot honour it."""
+    out = dict(TUNING_DEFAULTS)
+    for name, value in tuning.items():
+        if name == "allreduce_algorithm":
+            AllreduceAlgorithm[str(value).upper()]  # raises on an unknown name
+            out[name] = str(value)
+        elif name == "ring_segments":
+            if int(value) < 1:
+                raise ValueError(f"ring_segments {value} < 1")
+            out[name] = int(value)
+        elif name == "wire_dtype":
+            if int(value) and DataType(int(value)) not in WIRE_LANE_DTYPES:
+                raise ValueError(
+                    f"wire lane {DataType(int(value)).name} is not ported"
+                )
+            out[name] = int(value)
+        elif value not in (0, _JAX_DEFAULTS.get(name), "xla"):
+            raise ValueError(f"register {name}={value!r} is not ported")
+    return out
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of ``t``; bfloat16 widens (exactly) to float32,
+    since numpy has no bfloat16 of its own."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

@@ -1,0 +1,20 @@
+"""accl_tpu_torch.ops: collectives over ranks that share one device.
+
+* ``collectives`` — the plain stacked-rank forms (the ``xla`` lowering).
+* ``ring`` — the explicit segmented ring pipeline (the ``ring`` lowering).
+* ``cuda`` — the hand-written kernels (ring collectives, combine).
+* ``driver`` — stacked-in, stacked-out entry points over a :class:`Mesh`.
+"""
+
+from . import collectives, cuda, ring, wire  # noqa: F401
+from .driver import (  # noqa: F401
+    Mesh,
+    make_mesh,
+    run_allgather,
+    run_allreduce,
+    run_bcast,
+    run_compressed_allreduce,
+    run_pallas_allreduce,
+    run_reduce_scatter,
+    run_ring_allreduce,
+)

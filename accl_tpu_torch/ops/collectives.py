@@ -1,0 +1,80 @@
+"""Collective primitives over ranks that share one process — the ``xla``
+lowering.
+
+The counterpart of ``accl_tpu/ops/collectives.py``.  There XLA's
+collectives (psum, psum_scatter, all_gather) run inside ``shard_map``;
+here each function takes every rank's operand at once (a sequence of
+per-rank tensors) and returns one result tensor per rank, in plain
+PyTorch.  XLA's TPU kernels for these are the compiler's, not the
+repository's, so none of them has a hand-written kernel in the port.
+Reductions fold in rank order, which need not be XLA's order: results
+agree with the JAX package to rounding, not bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from ..arithconfig import reduce_op
+from ..constants import ReduceFunction
+
+
+def _fold(xs: Sequence[torch.Tensor], function: ReduceFunction) -> torch.Tensor:
+    op = reduce_op(function)
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = op(acc, x)
+    return acc if len(xs) > 1 else acc.clone()
+
+
+def allreduce(xs: Sequence[torch.Tensor],
+              function: ReduceFunction = ReduceFunction.SUM
+              ) -> List[torch.Tensor]:
+    """ref ``ACCL::allreduce`` — every rank gets the reduction."""
+    full = _fold(xs, function)
+    return [full.clone() for _ in xs]
+
+
+def reduce_scatter(xs: Sequence[torch.Tensor],
+                   function: ReduceFunction = ReduceFunction.SUM
+                   ) -> List[torch.Tensor]:
+    """ref ``ACCL::reduce_scatter`` — rank i gets block i of the
+    reduction along the leading axis (which must divide by the rank
+    count)."""
+    size = len(xs)
+    if xs[0].shape[0] % size:
+        raise ValueError(
+            f"reduce_scatter: leading length {xs[0].shape[0]} is not "
+            f"divisible by {size} ranks"
+        )
+    full = _fold(xs, function)
+    return [b.clone() for b in full.chunk(size)]
+
+
+def allgather(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """ref ``ACCL::allgather`` — every rank's block, concatenated."""
+    full = torch.cat(list(xs))
+    return [full.clone() for _ in xs]
+
+
+def bcast(xs: Sequence[torch.Tensor], root: int = 0) -> List[torch.Tensor]:
+    """ref ``ACCL::bcast`` — root's block everywhere."""
+    return [xs[root].clone() for _ in xs]
+
+
+def compressed_allreduce(
+    xs: Sequence[torch.Tensor],
+    wire_dtype: torch.dtype = torch.bfloat16,
+    function: ReduceFunction = ReduceFunction.SUM,
+) -> List[torch.Tensor]:
+    """Allreduce with operands cast to a narrow dtype before they cross
+    the wire (the f16 / bf16 cast lanes): the reduction runs in the wire
+    dtype, the reduced block is widened, then travels narrow once more to
+    every rank."""
+    orig = xs[0].dtype
+    narrow = [x.to(wire_dtype) for x in xs]
+    partial = _fold(narrow, function).to(orig)
+    full = partial.to(wire_dtype).to(orig)
+    return [full.clone() for _ in xs]

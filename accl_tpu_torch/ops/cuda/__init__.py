@@ -1,0 +1,32 @@
+"""The hand-written CUDA kernel tier — the counterpart of
+``accl_tpu/ops/pallas``.
+
+* ``combine`` — K4, the reduce_ops arithmetic plugin (elementwise SUM/MAX
+  with an optional result cast, in place or not).
+* ``ring`` — K1-K3, the segmented ring allreduce, reduce-scatter and
+  allgather over ranks that share one device.
+
+Kernels are built from ``accl_tpu_torch/csrc`` on first use
+(:func:`build_all` builds them all at once).  Every wrapper takes its
+plain PyTorch version for CPU tensors and launches its kernel for CUDA
+tensors, counting launches in ``<wrapper>.launches``.
+"""
+
+from ._build import build_all  # noqa: F401
+from .combine import combine, combine_plain  # noqa: F401
+from .ring import (  # noqa: F401
+    ring_allgather,
+    ring_allgather_plain,
+    ring_allreduce,
+    ring_allreduce_plain,
+    ring_reduce_scatter,
+    ring_reduce_scatter_plain,
+)
+
+#: every kernel wrapper of the tier (each carries a ``launches`` counter)
+KERNELS = {
+    "ring_allreduce": ring_allreduce,
+    "ring_reduce_scatter": ring_reduce_scatter,
+    "ring_allgather": ring_allgather,
+    "combine": combine,
+}

@@ -1,0 +1,120 @@
+"""Shared plumbing of the hand-written CUDA kernel tier.
+
+The counterpart of ``accl_tpu/ops/pallas/_common.py``.  What carries
+over is the PADDING RULE: the ring kernels cut each rank's operand into
+blocks whose boundaries come from the TPU tile packing (``pack_lanes``
+with a ``sublanes_for`` row multiple), and the block a given element falls
+in decides which ranks' fold order reduces it.  Keeping the same rule
+keeps every float result bit-identical to the JAX package's.
+
+The kernels never materialise that padding: they read elements past the
+operand's end as zeros and never write them.
+
+Every wrapper follows one rule: a CPU tensor takes the kernel's plain
+PyTorch version; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Sequence
+
+import torch
+
+# TPU lane width: the last dim of every packed tile (kept for the
+# padding rule; the CUDA kernels have no lane layout of their own)
+LANES = 128
+
+#: most ranks one kernel launch takes (the pointer table is a kernel
+#: argument: 2 x 64 pointers = 1 KiB of the 4 KiB parameter space)
+MAX_RANKS = 64
+
+
+def sublanes_for(dtype: torch.dtype) -> int:
+    """Minimum sublane multiple of a dtype's TPU tile: f32 8, bf16/f16
+    16, int8/fp8 32."""
+    return {4: 8, 2: 16, 1: 32}.get(dtype.itemsize, 8)
+
+
+def packed_len(n: int, min_rows: int) -> int:
+    """Element count of ``n`` elements packed into (rows, LANES) with rows
+    a positive multiple of ``min_rows`` (``pack_lanes``'s shape)."""
+    rows = -(-n // LANES)
+    rows = max(-(-rows // min_rows), 1) * min_rows
+    return rows * LANES
+
+
+def ring_len(n: int, parts: int, num_segments: int, dtype: torch.dtype,
+             wire_dtype=None) -> int:
+    """Padded per-rank length of a ring operand (``_pack_ring``): whole
+    tiles of both the operand's and the wire's sublane minimum, in
+    ``parts * num_segments`` equal row groups."""
+    sub = sublanes_for(dtype)
+    if wire_dtype is not None:
+        sub = max(sub, sublanes_for(wire_dtype))
+    return packed_len(n, parts * num_segments * sub)
+
+
+class LaunchCounter:
+    """How many times a wrapper launched its kernel (locked: rank threads
+    launch concurrently)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.count = 0
+
+    def bump(self) -> None:
+        with self._lock:
+            self.count += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
+
+
+def on_cuda(tensors: Sequence[torch.Tensor]) -> bool:
+    """True when every tensor lies on a CUDA device, False when every one
+    lies on the CPU; raises on a mix or any other device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(
+        f"kernel operands must all lie on the CPU or on one CUDA device, "
+        f"got {sorted(str(t.device) for t in tensors)}"
+    )
+
+
+def check_ranks(xs: Sequence[torch.Tensor], what: str) -> None:
+    """Per-rank operands: 1..MAX_RANKS contiguous 1-D tensors of one
+    length and dtype."""
+    if not 1 <= len(xs) <= MAX_RANKS:
+        raise ValueError(f"{what}: {len(xs)} ranks (1..{MAX_RANKS})")
+    x0 = xs[0]
+    for x in xs:
+        if x.dim() != 1 or not x.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous 1-D")
+        if x.shape != x0.shape or x.dtype != x0.dtype:
+            raise ValueError(f"{what}: operands must match in shape and dtype")
+
+
+def aligned16(tensors: Sequence[torch.Tensor]) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def pointer_table(tensors: Sequence[torch.Tensor]):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def stream_of(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_launch(lib, rc: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error (the C entry points return
+    ``cudaGetLastError()`` right after the launch)."""
+    if rc != 0:
+        msg = lib.accl_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")

@@ -1,0 +1,313 @@
+"""K1-K3: the segmented ring collectives over ranks that share one device.
+
+The counterpart of ``accl_tpu/ops/pallas/ring.py``.  Where the JAX entry
+points run inside ``shard_map`` on one rank's shard, these take every
+rank's operand at once — a sequence of per-rank tensors, each its own
+allocation — and return one result tensor per rank.  The kernels
+(``csrc/ring.cu``) reach the ranks through a table of per-rank pointers;
+nothing is stacked or copied on the way in.
+
+Each ``*_plain`` function is the kernel's plain PyTorch version: it walks
+the same hop schedule block by block with the same fold order and wire
+rounding points, so its float results equal the kernel's, and the JAX
+kernel's, exactly.  ``int8_allreduce`` arrives with the quantize kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Sequence
+
+import torch
+
+from ...arithconfig import reduce_op
+from ...constants import ReduceFunction, torch_to_dtype
+from ..wire import CAST_LANES
+from . import _build
+from ._common import (
+    LaunchCounter,
+    aligned16,
+    check_launch,
+    check_ranks,
+    on_cuda,
+    pointer_table,
+    ring_len,
+    stream_of,
+)
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
+
+
+def _wire_round(v: torch.Tensor, wire) -> torch.Tensor:
+    return v if wire is None else v.to(wire).to(v.dtype)
+
+
+def _resolve_wire(dtype: torch.dtype, wire_dtype) -> Optional[torch.dtype]:
+    if wire_dtype is None or wire_dtype == dtype:
+        return None  # no-op compression
+    if wire_dtype not in CAST_LANES or not dtype.is_floating_point:
+        raise ValueError(
+            f"wire dtype {wire_dtype} on {dtype} operands: the ring's wire "
+            "lanes are bfloat16 and float16 on float operands"
+        )
+    return wire_dtype
+
+
+def _flat(xs: Sequence[torch.Tensor], what: str) -> List[torch.Tensor]:
+    flat = [x.reshape(-1) for x in xs]
+    check_ranks(flat, what)
+    return flat
+
+
+def _outputs(flat, out, length: int, what: str) -> List[torch.Tensor]:
+    x0 = flat[0]
+    if out is None:
+        return [torch.empty(length, dtype=x0.dtype, device=x0.device)
+                for _ in flat]
+    out = [o.reshape(-1) for o in out]
+    if len(out) != len(flat) or any(
+        o.numel() != length or o.dtype != x0.dtype or not o.is_contiguous()
+        for o in out
+    ):
+        raise ValueError(f"{what}: out must be {len(flat)} contiguous "
+                         f"tensors of {length} {x0.dtype} elements")
+    return out
+
+
+def _vec(tensors, n: int, dtype: torch.dtype) -> int:
+    """16-byte accesses: every pointer aligned, n whole vectors."""
+    return int(aligned16(tensors) and n % (16 // dtype.itemsize) == 0)
+
+
+def _lib():
+    lib = _build.library("ring")
+    P = ctypes.c_void_p
+    L = ctypes.c_longlong
+    I = ctypes.c_int
+    lib.accl_ring_allreduce.argtypes = [P, P, I, L, L, L, I, I, I, I, P]
+    lib.accl_ring_reduce_scatter.argtypes = [P, P, I, L, L, I, I, I, P]
+    lib.accl_ring_allgather.argtypes = [P, P, I, L, I, I, P]
+    for f in (lib.accl_ring_allreduce, lib.accl_ring_reduce_scatter,
+              lib.accl_ring_allgather):
+        f.restype = I
+    return lib
+
+
+def _kernel_dtype(dtype: torch.dtype, what: str) -> None:
+    if dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{what} kernel takes {_KERNEL_DTYPES}, got {dtype}")
+
+
+# ---------------------------------------------------------------------------
+# K1: allreduce
+# ---------------------------------------------------------------------------
+
+
+def _allreduce_layout(n, P, dtype, num_segments, bidirectional, wire):
+    ndirs = 2 if bidirectional else 1
+    half = ring_len(n, ndirs * P, num_segments, dtype, wire) // ndirs
+    return ndirs, half, half // P
+
+
+def ring_allreduce_plain(
+    xs: Sequence[torch.Tensor],
+    function: ReduceFunction = ReduceFunction.SUM,
+    num_segments: int = 1,
+    *,
+    bidirectional: bool = False,
+    wire_dtype=None,
+) -> List[torch.Tensor]:
+    """The hop schedule of K1, block by block, in plain PyTorch."""
+    flat = _flat(xs, "ring_allreduce")
+    P, n, dtype = len(flat), flat[0].numel(), flat[0].dtype
+    if P == 1:
+        return [flat[0].clone().reshape(xs[0].shape)]
+    op = reduce_op(function)
+    wire = _resolve_wire(dtype, wire_dtype)
+    ndirs, half, blk = _allreduce_layout(
+        n, P, dtype, num_segments, bidirectional, wire
+    )
+    outs = [torch.empty_like(flat[0]) for _ in flat]
+    for d in range(ndirs):
+        sg = 1 if d == 0 else -1
+        for b in range(P):
+            lo = d * half + b * blk
+            hi = min(lo + blk, n)
+            if lo >= hi:
+                continue
+            r = (b + sg) % P
+            acc = flat[r][lo:hi]
+            for _ in range(1, P):
+                r = (r + sg) % P
+                acc = op(_wire_round(acc, wire), flat[r][lo:hi])
+            sent = _wire_round(acc, wire)
+            for q in range(P):
+                outs[q][lo:hi] = acc if q == b else sent
+    return [o.reshape(x.shape) for o, x in zip(outs, xs)]
+
+
+def ring_allreduce(
+    xs: Sequence[torch.Tensor],
+    function: ReduceFunction = ReduceFunction.SUM,
+    num_segments: int = 1,
+    *,
+    bidirectional: bool = False,
+    wire_dtype=None,
+    out: Optional[Sequence[torch.Tensor]] = None,
+) -> List[torch.Tensor]:
+    """Segmented-ring allreduce (reduce-scatter + allgather) over the
+    per-rank operands ``xs``; returns every rank's result (``out``, when
+    given, receives them — it may be ``xs`` itself: in place).
+
+    ``bidirectional`` sends the operand's two halves around the ring in
+    opposite directions; ``wire_dtype`` (bfloat16 / float16) rounds every
+    hop's payload through the narrow dtype while accumulating in the
+    operand dtype.  Both change the fold order and rounding exactly as the
+    JAX kernel's do."""
+    flat = _flat(xs, "ring_allreduce")
+    P, n, dtype = len(flat), flat[0].numel(), flat[0].dtype
+    wire = _resolve_wire(dtype, wire_dtype)
+    reduce_op(function)
+    if num_segments < 1:
+        raise ValueError("num_segments must be >= 1")
+    outs = _outputs(flat, out, n, "ring_allreduce")
+    if not on_cuda(flat + outs):
+        res = ring_allreduce_plain(
+            flat, function, num_segments,
+            bidirectional=bidirectional, wire_dtype=wire,
+        )
+        for o, r in zip(outs, res):
+            o.copy_(r)
+    elif P == 1:
+        if outs[0].data_ptr() != flat[0].data_ptr():
+            outs[0].copy_(flat[0])
+    elif n:
+        _kernel_dtype(dtype, "ring_allreduce")
+        _, half, blk = _allreduce_layout(
+            n, P, dtype, num_segments, bidirectional, wire
+        )
+        lib = _lib()
+        rc = lib.accl_ring_allreduce(
+            pointer_table(flat), pointer_table(outs), P, n, half, blk,
+            int(torch_to_dtype(dtype)), int(function),
+            int(torch_to_dtype(wire)) if wire is not None else 0,
+            _vec(flat + outs, n, dtype), stream_of(flat[0].device),
+        )
+        check_launch(lib, rc, "ring_allreduce")
+        ring_allreduce.launches.bump()
+    return [o.reshape(x.shape) for o, x in zip(outs, xs)]
+
+
+ring_allreduce.launches = LaunchCounter()
+
+
+# ---------------------------------------------------------------------------
+# K2: reduce-scatter
+# ---------------------------------------------------------------------------
+
+
+def ring_reduce_scatter_plain(
+    xs: Sequence[torch.Tensor],
+    function: ReduceFunction = ReduceFunction.SUM,
+    num_segments: int = 1,
+) -> List[torch.Tensor]:
+    """The hop schedule of K2 in plain PyTorch: rank b's padded block b."""
+    flat = _flat(xs, "ring_reduce_scatter")
+    P, n = len(flat), flat[0].numel()
+    op = reduce_op(function)
+    L = ring_len(n, P, num_segments, flat[0].dtype)
+    blk = L // P
+    padded = []
+    for x in flat:
+        p = torch.zeros(L, dtype=x.dtype, device=x.device)
+        p[:n] = x
+        padded.append(p)
+    outs = []
+    for b in range(P):
+        r = (b + 1) % P
+        acc = padded[r][b * blk:(b + 1) * blk]
+        for _ in range(1, P):
+            r = (r + 1) % P
+            acc = op(acc, padded[r][b * blk:(b + 1) * blk])
+        outs.append(acc.clone())
+    return outs
+
+
+def ring_reduce_scatter(
+    xs: Sequence[torch.Tensor],
+    function: ReduceFunction = ReduceFunction.SUM,
+    num_segments: int = 1,
+    *,
+    out: Optional[Sequence[torch.Tensor]] = None,
+) -> List[torch.Tensor]:
+    """Ring reduce-scatter: P-1 fused recv-reduce-send hops.  Returns
+    rank ``i``'s reduced block ``i`` of the PADDED operand (the JAX
+    kernel's packing), flattened."""
+    flat = _flat(xs, "ring_reduce_scatter")
+    P, n, dtype = len(flat), flat[0].numel(), flat[0].dtype
+    reduce_op(function)
+    if num_segments < 1:
+        raise ValueError("num_segments must be >= 1")
+    blk = ring_len(n, P, num_segments, dtype) // P
+    outs = _outputs(flat, out, blk, "ring_reduce_scatter")
+    if not on_cuda(flat + outs):
+        for o, r in zip(outs, ring_reduce_scatter_plain(
+                flat, function, num_segments)):
+            o.copy_(r)
+        return outs
+    _kernel_dtype(dtype, "ring_reduce_scatter")
+    lib = _lib()
+    rc = lib.accl_ring_reduce_scatter(
+        pointer_table(flat), pointer_table(outs), P, n, blk,
+        int(torch_to_dtype(dtype)), int(function),
+        _vec(flat + outs, n, dtype), stream_of(flat[0].device),
+    )
+    check_launch(lib, rc, "ring_reduce_scatter")
+    ring_reduce_scatter.launches.bump()
+    return outs
+
+
+ring_reduce_scatter.launches = LaunchCounter()
+
+
+# ---------------------------------------------------------------------------
+# K3: allgather
+# ---------------------------------------------------------------------------
+
+
+def ring_allgather_plain(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Every rank ends with all blocks concatenated in rank order."""
+    flat = _flat(xs, "ring_allgather")
+    full = torch.cat(flat)
+    shape = (len(flat) * xs[0].shape[0],) + tuple(xs[0].shape[1:])
+    return [full.clone().reshape(shape) for _ in flat]
+
+
+def ring_allgather(
+    xs: Sequence[torch.Tensor],
+    *,
+    out: Optional[Sequence[torch.Tensor]] = None,
+) -> List[torch.Tensor]:
+    """Ring allgather (store-and-relay): ``xs[i]`` is rank i's block;
+    every rank receives all blocks concatenated along the leading axis."""
+    flat = _flat(xs, "ring_allgather")
+    P, n = len(flat), flat[0].numel()
+    shape = (P * xs[0].shape[0],) + tuple(xs[0].shape[1:])
+    outs = _outputs(flat, out, P * n, "ring_allgather")
+    if not on_cuda(flat + outs):
+        for o, r in zip(outs, ring_allgather_plain(flat)):
+            o.copy_(r.reshape(-1))
+    elif n:
+        lib = _lib()
+        esize = flat[0].element_size()
+        rc = lib.accl_ring_allgather(
+            pointer_table(flat), pointer_table(outs), P, n, esize,
+            int(aligned16(flat + outs) and (n * esize) % 16 == 0),
+            stream_of(flat[0].device),
+        )
+        check_launch(lib, rc, "ring_allgather")
+        ring_allgather.launches.bump()
+    return [o.reshape(shape) for o in outs]
+
+
+ring_allgather.launches = LaunchCounter()
