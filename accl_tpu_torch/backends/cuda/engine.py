@@ -24,12 +24,14 @@ import torch
 from ...buffer import DeviceBuffer, make_buffer
 from ...communicator import Communicator
 from ...constants import (
+    ALGORITHM_TUNING_KEYS,
     AllreduceAlgorithm,
     CompressionFlags,
     ConfigFunction,
     DataType,
     ErrorCode,
     Operation,
+    ROOTED_ALGORITHMS,
     TUNING_DEFAULTS,
     TuningKey,
     WIRE_LANE_DTYPES,
@@ -51,12 +53,15 @@ def apply_tuning(tuning: dict, options: CallOptions) -> ErrorCode:
     val = options.cfg_value
     if val < 0:
         return ErrorCode.CONFIG_ERROR
-    if key == TuningKey.ALLREDUCE_ALGORITHM:
+    if key in ALGORITHM_TUNING_KEYS:
         try:
             algo = AllreduceAlgorithm(int(val))
         except ValueError:
             return ErrorCode.CONFIG_ERROR
-        tuning["allreduce_algorithm"] = algo.name.lower()
+        if (key != TuningKey.ALLREDUCE_ALGORITHM
+                and algo not in ROOTED_ALGORITHMS):
+            return ErrorCode.CONFIG_ERROR  # no ring form of a rooted op
+        tuning[key.name.lower()] = algo.name.lower()
     elif key == TuningKey.RING_SEGMENTS:
         if int(val) < 1:
             return ErrorCode.CONFIG_ERROR
@@ -95,6 +100,57 @@ def run_allreduce_with_tuning(xs, mesh, fn, wire: Optional[DataType],
             xs, mesh, fn, nseg, bidirectional=bidir, out=out
         )
     return opdriver.run_allreduce(xs, mesh, fn, out=out)
+
+
+def run_rooted_with_tuning(op, xs, mesh, lead: CallOptions, tuning: dict,
+                           out=None):
+    """Rooted collective with the lowering from its algorithm register:
+    the plain PyTorch form (``xla``) or the ring relay kernels
+    (``pallas_ring``).  ``out`` entries of None take no result."""
+    nseg = int(tuning.get("ring_segments", 1))
+    fn = lead.reduce_function
+    if op == Operation.REDUCE:
+        if tuning.get("reduce_algorithm", "xla") == "pallas_ring":
+            return opdriver.run_pallas_reduce(
+                xs, mesh, lead.root_dst, fn, nseg, out=out
+            )
+        return opdriver.run_reduce(xs, mesh, lead.root_dst, fn, out=out)
+    if op == Operation.BCAST:
+        if tuning.get("bcast_algorithm", "xla") == "pallas_ring":
+            return opdriver.run_pallas_bcast(
+                xs, mesh, lead.root_src, nseg, out=out
+            )
+        return opdriver.run_bcast(xs, mesh, lead.root_src, out=out)
+    if op == Operation.SCATTER:
+        if tuning.get("scatter_algorithm", "xla") == "pallas_ring":
+            return opdriver.run_pallas_scatter(
+                xs, mesh, lead.root_src, nseg, out=out
+            )
+        return opdriver.run_scatter(xs, mesh, lead.root_src, out=out)
+    if op == Operation.GATHER:
+        if tuning.get("gather_algorithm", "xla") == "pallas_ring":
+            return opdriver.run_pallas_gather(
+                xs, mesh, lead.root_src, nseg, out=out
+            )
+        return opdriver.run_gather(xs, mesh, lead.root_src, out=out)
+    raise ValueError(op)
+
+
+# per-op operand/result widths in units of ``count`` ('P' = size*count)
+IN_W = {
+    Operation.ALLREDUCE: 1, Operation.REDUCE: 1, Operation.BCAST: 1,
+    Operation.ALLGATHER: 1, Operation.GATHER: 1,
+    Operation.REDUCE_SCATTER: "P", Operation.SCATTER: "P",
+    Operation.ALLTOALL: "P",
+}
+OUT_W = {
+    Operation.ALLREDUCE: 1, Operation.REDUCE: 1, Operation.BCAST: 1,
+    Operation.SCATTER: 1, Operation.REDUCE_SCATTER: 1,
+    Operation.ALLGATHER: "P", Operation.GATHER: "P",
+    Operation.ALLTOALL: "P",
+}
+ROOTED_OPS = (Operation.REDUCE, Operation.BCAST, Operation.SCATTER,
+              Operation.GATHER)
 
 
 def _record_event(device: torch.device):
@@ -154,7 +210,8 @@ class CudaGangContext:
 
     @staticmethod
     def _sig(c: CallOptions) -> tuple:
-        return (c.op, c.count, c.reduce_function, c.root_src, c.compression)
+        return (c.op, c.count, c.reduce_function, c.root_src, c.root_dst,
+                c.compression)
 
     def _execute(self, comm: Communicator, slot) -> None:
         calls = [slot[r][0] for r in range(comm.size)]
@@ -182,25 +239,27 @@ class CudaGangContext:
         if op == Operation.BARRIER:
             # gang assembly IS the barrier: every rank posted the call
             return ErrorCode.OK, None
+        if op not in IN_W:
+            return ErrorCode.COLLECTIVE_NOT_IMPLEMENTED, None
         n, size = lead.count, comm.size
         dtype = lead.arithcfg.uncompressed
         wire = (
             lead.arithcfg.compressed
             if lead.compression & CompressionFlags.ETH_COMPRESSED else None
         )
-        widths = {
-            Operation.ALLREDUCE: (n, n),
-            Operation.BCAST: (n, n),
-            Operation.ALLGATHER: (n, size * n),
-            Operation.REDUCE_SCATTER: (size * n, n),
-        }
-        if op not in widths:
-            return ErrorCode.COLLECTIVE_NOT_IMPLEMENTED, None
-        in_w, out_w = widths[op]
-        xs = [_check(c.op0, in_w, dtype, f"{op.name} operand") for c in calls]
+        in_w = n * (size if IN_W[op] == "P" else 1)
+        out_w = n * (size if OUT_W[op] == "P" else 1)
+        root = lead.root_dst if op == Operation.REDUCE else lead.root_src
+        # only the root reads an operand for SCATTER and takes a result
+        # for REDUCE / GATHER; the other ranks may pass DummyBuffers
+        readers = {root} if op == Operation.SCATTER else range(size)
+        writers = ({root} if op in (Operation.REDUCE, Operation.GATHER)
+                   else range(size))
+        xs = [_check(c.op0, in_w, dtype, f"{op.name} operand")
+              if r in readers else None for r, c in enumerate(calls)]
         outs = [_check(c.res, out_w, dtype, f"{op.name} result")
-                for c in calls]
-        device = xs[0].device
+                if r in writers else None for r, c in enumerate(calls)]
+        device = xs[root].device
         mesh = opdriver.Mesh(size, device)
         _wait_operands(device, [c.op0 for c in calls])
         fn = lead.reduce_function
@@ -210,17 +269,23 @@ class CudaGangContext:
                                       out=outs)
         else:
             if wire is not None:
-                xs = [wire_lane_roundtrip(x, dtype_to_torch(wire))
+                xs = [x if x is None
+                      else wire_lane_roundtrip(x, dtype_to_torch(wire))
                       for x in xs]
-            if op == Operation.BCAST:
-                opdriver.run_bcast(xs, mesh, lead.root_src, out=outs)
+            if op == Operation.SCATTER:
+                xs = [xs[root]] * size  # only the root's operand is read
+            if op in ROOTED_OPS:
+                run_rooted_with_tuning(op, xs, mesh, lead, self.tuning,
+                                       out=outs)
             elif op == Operation.ALLGATHER:
                 opdriver.run_allgather(xs, mesh, out=outs)
+            elif op == Operation.ALLTOALL:
+                opdriver.run_alltoall(xs, mesh, out=outs)
             else:
                 opdriver.run_reduce_scatter(xs, mesh, fn, out=outs)
         event = _record_event(device)
-        for c in calls:
-            c.res.ready = event
+        for r in writers:
+            calls[r].res.ready = event
         return ErrorCode.OK, event
 
 

@@ -87,8 +87,16 @@ class DeviceBuffer(BaseBuffer):
         self._ready[0] = event
 
     @property
-    def data(self) -> torch.Tensor:
-        return self._host
+    def data(self):
+        """The host side as a numpy array sharing its memory, as the JAX
+        package's ``data`` is (bfloat16 through ``ml_dtypes``, the dtype
+        numpy bfloat16 arrays come from)."""
+        if self._host.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return self._host.view(torch.int16).numpy().view(
+                ml_dtypes.bfloat16)
+        return self._host.numpy()
 
     def host_view(self) -> torch.Tensor:
         """The host tensor (mutating it mutates host memory)."""

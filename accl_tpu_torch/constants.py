@@ -43,8 +43,10 @@ class ConfigFunction(enum.IntEnum):
 
 class TuningKey(enum.IntEnum):
     """Runtime tuning registers.  The port's gang engine honours
-    ALLREDUCE_ALGORITHM, RING_SEGMENTS and WIRE_DTYPE; the other values
-    are kept so register numbers stay the JAX package's."""
+    ALLREDUCE_ALGORITHM, the four rooted algorithm registers (BCAST,
+    REDUCE, SCATTER and GATHER_ALGORITHM), RING_SEGMENTS and WIRE_DTYPE;
+    the other values are kept so register numbers stay the JAX
+    package's."""
 
     GATHER_FLAT_TREE_MAX_FANIN = 0
     GATHER_FLAT_TREE_MAX_COUNT = 1
@@ -75,9 +77,26 @@ class AllreduceAlgorithm(enum.IntEnum):
     PALLAS_RING_BIDIR = 3  # the same kernel, halves in opposite directions
 
 
+#: lowerings valid for the ROOTED algorithm registers (no ppermute-ring /
+#: bidirectional form exists for rooted ops)
+ROOTED_ALGORITHMS = (AllreduceAlgorithm.XLA, AllreduceAlgorithm.PALLAS_RING)
+
+#: tuning keys that select a collective lowering (value: AllreduceAlgorithm)
+ALGORITHM_TUNING_KEYS = (
+    TuningKey.ALLREDUCE_ALGORITHM,
+    TuningKey.BCAST_ALGORITHM,
+    TuningKey.REDUCE_ALGORITHM,
+    TuningKey.SCATTER_ALGORITHM,
+    TuningKey.GATHER_ALGORITHM,
+)
+
 #: register names the port's gang engine accepts, with their defaults
 TUNING_DEFAULTS = {
     "allreduce_algorithm": "xla",
+    "bcast_algorithm": "xla",
+    "reduce_algorithm": "xla",
+    "scatter_algorithm": "xla",
+    "gather_algorithm": "xla",
     "ring_segments": 1,
     "wire_dtype": 0,
 }

@@ -1,10 +1,13 @@
 """The ACCL facade: the user-facing MPI-like API over the gang engine.
 
 The counterpart of ``accl_tpu/core.py``'s ``ACCL`` (:72) for the calls of
-this port: buffers, tuning registers, copy / combine, bcast, allgather,
-allreduce (with a wire dtype and ``run_async``), reduce_scatter and
-barrier.  Calls are synchronous unless ``run_async=True``, which returns
-the :class:`~accl_tpu_torch.request.Request`.
+this port: buffers, tuning registers, copy / combine, the rooted bcast,
+reduce, scatter and gather, allgather, allreduce (with a wire dtype and
+``run_async``), reduce_scatter, alltoall and barrier.  Calls are
+synchronous unless ``run_async=True``, which returns the
+:class:`~accl_tpu_torch.request.Request`.  A rank that contributes or
+takes no data in a rooted call passes None, which becomes a
+:class:`~accl_tpu_torch.buffer.DummyBuffer`, as in the JAX facade.
 
 :func:`cuda_group` builds N rank handles over one device — the
 counterpart of ``core.xla_group``.  Collectives are blocking per rank:
@@ -18,7 +21,7 @@ from typing import List, Optional, Sequence
 from .arithconfig import DEFAULT_ARITH_CONFIG
 from .backends.base import BaseEngine, CallOptions
 from .backends.cuda.engine import CudaEngine, CudaGangContext
-from .buffer import BaseBuffer, host_tensor
+from .buffer import BaseBuffer, DummyBuffer, host_tensor
 from .communicator import Communicator, Rank
 from .constants import (
     ACCLError,
@@ -81,7 +84,9 @@ class ACCL:
 
     def set_tuning(self, key, value) -> None:
         """Write a tuning register: ``allreduce_algorithm`` ("xla" /
-        "ring" / "pallas_ring" / "pallas_ring_bidir"), ``ring_segments``
+        "ring" / "pallas_ring" / "pallas_ring_bidir"), the rooted
+        ``bcast_algorithm`` / ``reduce_algorithm`` / ``scatter_algorithm``
+        / ``gather_algorithm`` ("xla" / "pallas_ring"), ``ring_segments``
         or ``wire_dtype`` (a DataType value or name; 0 = off).  ``key`` is
         a :class:`TuningKey`, its name, or its int value."""
         if isinstance(key, str):
@@ -193,6 +198,38 @@ class ACCL:
                                 compress_dtype, run_async, root_src=root,
                                 op0=buf, res=buf)
 
+    def scatter(self, sendbuf: Optional[BaseBuffer], recvbuf: BaseBuffer,
+                count: Optional[int] = None, root: int = 0,
+                comm: Optional[Communicator] = None, compress_dtype=None,
+                run_async: bool = False):
+        """Rank r gets block r of the root's ``sendbuf`` (size * count
+        elements); ``count`` is the per-rank RESULT count.  Only the
+        root's ``sendbuf`` is read (None elsewhere)."""
+        comm = comm or self._world
+        self._check_rank(comm, root)
+        n = self._count_of(recvbuf, count)
+        if sendbuf is None:
+            sendbuf = DummyBuffer(0, recvbuf.dtype)
+        return self._collective(Operation.SCATTER, comm, n, recvbuf.dtype,
+                                compress_dtype, run_async, root_src=root,
+                                op0=sendbuf, res=recvbuf)
+
+    def gather(self, sendbuf: BaseBuffer, recvbuf: Optional[BaseBuffer],
+               count: Optional[int] = None, root: int = 0,
+               comm: Optional[Communicator] = None, compress_dtype=None,
+               run_async: bool = False):
+        """The root's ``recvbuf`` gets every rank's ``sendbuf``
+        concatenated in rank order; the other ranks' ``recvbuf`` (None,
+        or a buffer) is left as it was."""
+        comm = comm or self._world
+        self._check_rank(comm, root)
+        n = self._count_of(sendbuf, count)
+        if recvbuf is None:
+            recvbuf = DummyBuffer(0, sendbuf.dtype)
+        return self._collective(Operation.GATHER, comm, n, sendbuf.dtype,
+                                compress_dtype, run_async, root_src=root,
+                                op0=sendbuf, res=recvbuf)
+
     def allgather(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
                   count: Optional[int] = None,
                   comm: Optional[Communicator] = None, compress_dtype=None,
@@ -200,6 +237,42 @@ class ACCL:
         n = self._count_of(sendbuf, count)
         return self._collective(Operation.ALLGATHER, comm, n, sendbuf.dtype,
                                 compress_dtype, run_async, op0=sendbuf,
+                                res=recvbuf)
+
+    def reduce(self, sendbuf: Optional[BaseBuffer],
+               recvbuf: Optional[BaseBuffer], count: Optional[int] = None,
+               root: int = 0, function: ReduceFunction = ReduceFunction.SUM,
+               comm: Optional[Communicator] = None, compress_dtype=None,
+               from_stream: bool = False, to_stream: bool = False,
+               stream_id: int = 0, dtype=None, run_async: bool = False):
+        """Reduce to ``root``: its ``recvbuf`` gets ``function`` over
+        every rank's ``sendbuf``; the other ranks' ``recvbuf`` (None, or a
+        buffer) is left as it was.  The lowering follows the
+        ``reduce_algorithm`` register.  The stream operands
+        (``from_stream`` / ``to_stream``, with ``stream_id`` and
+        ``dtype``) are not ported."""
+        if from_stream or to_stream:
+            raise ACCLError(
+                ErrorCode.COLLECTIVE_NOT_IMPLEMENTED,
+                "reduce from or to a stream port: the stream plane is not "
+                "ported",
+                details={"op": "reduce", "from_stream": from_stream,
+                         "to_stream": to_stream},
+            )
+        comm = comm or self._world
+        self._check_rank(comm, root)
+        if sendbuf is None:
+            raise ACCLError(
+                ErrorCode.INVALID_OPERATION,
+                "reduce needs sendbuf unless from_stream",
+                details={"op": "reduce", "from_stream": from_stream},
+            )
+        n = self._count_of(sendbuf, count)
+        if recvbuf is None:
+            recvbuf = DummyBuffer(0, sendbuf.dtype)
+        return self._collective(Operation.REDUCE, comm, n, sendbuf.dtype,
+                                compress_dtype, run_async, root_dst=root,
+                                reduce_function=function, op0=sendbuf,
                                 res=recvbuf)
 
     def allreduce(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
@@ -231,6 +304,19 @@ class ACCL:
         return self._collective(Operation.REDUCE_SCATTER, comm, n,
                                 recvbuf.dtype, compress_dtype, run_async,
                                 reduce_function=function, op0=sendbuf,
+                                res=recvbuf)
+
+    def alltoall(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
+                 count: Optional[int] = None,
+                 comm: Optional[Communicator] = None, compress_dtype=None,
+                 run_async: bool = False):
+        """Block transpose: rank r's block p of ``recvbuf`` is rank p's
+        block r of ``sendbuf``.  ``count`` is the elements per block
+        (``sendbuf.count // size`` by default)."""
+        comm = comm or self._world
+        n = sendbuf.count // comm.size if count is None else int(count)
+        return self._collective(Operation.ALLTOALL, comm, n, sendbuf.dtype,
+                                compress_dtype, run_async, op0=sendbuf,
                                 res=recvbuf)
 
     def barrier(self, comm: Optional[Communicator] = None,

@@ -122,6 +122,70 @@ inline int grid_for(long long items, int threads) {
   return blocks < 1 ? 1 : (int)blocks;
 }
 
+constexpr int kThreads = 256;
+constexpr int kMaxRanks = 64;
+
+// The per-rank pointer table of the ring kernels (a kernel argument:
+// 2 x 64 pointers = 1 KiB of the 4 KiB parameter space).  A null output
+// pointer means: that rank takes no result, skip its stores.
+struct RankPtrs {
+  const void* in[kMaxRanks];
+  void* out[kMaxRanks];
+};
+
+inline RankPtrs table(const void* const* in, void* const* out, int n_in,
+                      int n_out) {
+  RankPtrs t = {};
+  for (int i = 0; i < n_in; ++i) t.in[i] = in[i];
+  for (int i = 0; i < n_out; ++i) t.out[i] = out[i];
+  return t;
+}
+
+template <typename T> __device__ __forceinline__ T zero() {
+  return Convert<T>::from(0.0f);
+}
+template <> __device__ __forceinline__ int32_t zero<int32_t>() { return 0; }
+
+// V consecutive elements starting at e (a multiple of V); elements at or
+// past n read as zero.  V > 1 takes one 16-byte access when whole.
+template <typename T, int V>
+__device__ __forceinline__ void load(T (&v)[V], const void* base, long long e,
+                                     long long n) {
+  const T* p = static_cast<const T*>(base);
+  if (V > 1 && e + V <= n) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p + e);
+    const T* pv = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = pv[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = e + k < n ? p[e + k] : zero<T>();
+  }
+}
+
+// store V elements at e, only those before `limit`
+template <typename T, int V>
+__device__ __forceinline__ void store(void* base, long long e, const T (&v)[V],
+                                      long long limit) {
+  T* p = static_cast<T*>(base);
+  if (V > 1 && e + V <= limit) {
+    uint4 raw;
+    T* pv = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < V; ++k) pv[k] = v[k];
+    *reinterpret_cast<uint4*>(p + e) = raw;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (e + k < limit) p[e + k] = v[k];
+  }
+}
+
+__device__ __forceinline__ int ring_mod(int r, int P) {
+  r %= P;
+  return r < 0 ? r + P : r;
+}
+
 }  // namespace accl
 
 extern "C" const char* accl_error_string(int code) {

@@ -21,23 +21,25 @@
 //
 // Bound on the H100: bytes.  K1 reads P*n elements and writes P*n;
 // K2 reads P*n and writes the P padded blocks (P*L/P = L >= n); K3 reads
-// P*n and writes P*P*n.  Each does at most one operation per element read,
-// so the least time is those bytes over 3.35 TB/s.  The design reads each
+// P*n and writes P*n for each rank that takes the result (P*P*n as an
+// allgather, P*n as the root-only gather).  Each does at most one
+// operation per element read, so the least time is those bytes over
+// 3.35 TB/s.  The design reads each
 // input element once and writes each output element once, 16 bytes per
 // access where pointers are aligned.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxRanks = 64;
-
-struct RankPtrs {
-  const void* in[kMaxRanks];
-  void* out[kMaxRanks];
-};
-
 using accl::Arith;
 using accl::Convert;
+using accl::kMaxRanks;
+using accl::kThreads;
+using accl::load;
+using accl::RankPtrs;
+using accl::ring_mod;
+using accl::store;
+using accl::table;
 
 // round a value of the accumulate type T through the wire dtype and back
 template <typename T> __device__ __forceinline__ T wire_round(T v, int wire) {
@@ -49,51 +51,6 @@ template <typename T> __device__ __forceinline__ T wire_round(T v, int wire) {
 }
 template <> __device__ __forceinline__ int32_t wire_round(int32_t v, int) {
   return v;  // the wrapper refuses a wire lane on integer operands
-}
-
-template <typename T> __device__ __forceinline__ T zero() {
-  return Convert<T>::from(0.0f);
-}
-template <> __device__ __forceinline__ int32_t zero<int32_t>() { return 0; }
-
-// V consecutive elements starting at e (a multiple of V); elements at or
-// past n read as zero
-template <typename T, int V>
-__device__ __forceinline__ void load(T (&v)[V], const void* base, long long e,
-                                     long long n) {
-  const T* p = static_cast<const T*>(base);
-  if (V > 1 && e + V <= n) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p + e);
-    const T* pv = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = pv[k];
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = e + k < n ? p[e + k] : zero<T>();
-  }
-}
-
-// store V elements at e, only those before `limit`
-template <typename T, int V>
-__device__ __forceinline__ void store(void* base, long long e, const T (&v)[V],
-                                      long long limit) {
-  T* p = static_cast<T*>(base);
-  if (V > 1 && e + V <= limit) {
-    uint4 raw;
-    T* pv = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int k = 0; k < V; ++k) pv[k] = v[k];
-    *reinterpret_cast<uint4*>(p + e) = raw;
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k)
-      if (e + k < limit) p[e + k] = v[k];
-  }
-}
-
-__device__ __forceinline__ int ring_mod(int r, int P) {
-  r %= P;
-  return r < 0 ? r + P : r;
 }
 
 // K1: `half` = padded elements per direction lane, `blk` = per block
@@ -153,8 +110,9 @@ __global__ void ring_reduce_scatter_kernel(RankPtrs ptrs, int P, long long n,
   }
 }
 
-// K3: out_r[q*n + k] = in_q[k] for every rank r; blockIdx.y = q.  Pure
-// data movement, so only the element width matters.
+// K3: out_r[q*n + k] = in_q[k] for every rank r whose output pointer is
+// not null (the rooted gather passes the root's alone); blockIdx.y = q.
+// Pure data movement, so only the element width matters.
 template <typename T, int V>
 __global__ void ring_allgather_kernel(RankPtrs ptrs, int P, long long n) {
   const int q = blockIdx.y;
@@ -164,18 +122,10 @@ __global__ void ring_allgather_kernel(RankPtrs ptrs, int P, long long n) {
     T v[V];
     load<T, V>(v, ptrs.in[q], k, n);
     for (int r = 0; r < P; ++r)
-      store<T, V>(static_cast<T*>(ptrs.out[r]) + q * n, k, v, n);
+      if (ptrs.out[r])
+        store<T, V>(static_cast<T*>(ptrs.out[r]) + q * n, k, v, n);
   }
 }
-
-RankPtrs table(const void* const* in, void* const* out, int n_in, int n_out) {
-  RankPtrs t = {};
-  for (int i = 0; i < n_in; ++i) t.in[i] = in[i];
-  for (int i = 0; i < n_out; ++i) t.out[i] = out[i];
-  return t;
-}
-
-constexpr int kThreads = 256;
 
 template <typename T>
 int allreduce_as(const RankPtrs& t, int P, long long n, long long half,

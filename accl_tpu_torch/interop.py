@@ -15,10 +15,21 @@ import numpy as np
 import torch
 
 from .buffer import host_tensor
-from .constants import AllreduceAlgorithm, DataType, TUNING_DEFAULTS, WIRE_LANE_DTYPES
+from .constants import (
+    ALGORITHM_TUNING_KEYS,
+    AllreduceAlgorithm,
+    DataType,
+    ROOTED_ALGORITHMS,
+    TUNING_DEFAULTS,
+    TuningKey,
+    WIRE_LANE_DTYPES,
+)
 
 #: the JAX gang's register defaults, which this port also starts from
 _JAX_DEFAULTS = {"allreduce_algorithm": "xla", "ring_segments": 1}
+
+_ROOTED_REGISTERS = tuple(k.name.lower() for k in ALGORITHM_TUNING_KEYS
+                          if k != TuningKey.ALLREDUCE_ALGORITHM)
 
 
 def stacked_from_numpy(arrays, device) -> List[torch.Tensor]:
@@ -34,13 +45,21 @@ def stacked_from_numpy(arrays, device) -> List[torch.Tensor]:
 def tuning_from_jax(tuning: dict) -> dict:
     """This port's register dict for a JAX gang register dict.
 
-    Registers the port serves (``allreduce_algorithm``, ``ring_segments``,
-    ``wire_dtype``) carry across by name; any other register must still
-    hold its default, or this raises — the port cannot honour it."""
+    Registers the port serves (``allreduce_algorithm``, the four rooted
+    algorithm registers, ``ring_segments``, ``wire_dtype``) carry across
+    by name; any other register must still hold its default, or this
+    raises — the port cannot honour it."""
     out = dict(TUNING_DEFAULTS)
     for name, value in tuning.items():
         if name == "allreduce_algorithm":
             AllreduceAlgorithm[str(value).upper()]  # raises on an unknown name
+            out[name] = str(value)
+        elif name in _ROOTED_REGISTERS:
+            if AllreduceAlgorithm[str(value).upper()] not in ROOTED_ALGORITHMS:
+                raise ValueError(
+                    f"{name}={value!r}: a rooted register takes "
+                    f"{[a.name.lower() for a in ROOTED_ALGORITHMS]}"
+                )
             out[name] = str(value)
         elif name == "ring_segments":
             if int(value) < 1:

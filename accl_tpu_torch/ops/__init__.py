@@ -2,7 +2,8 @@
 
 * ``collectives`` — the plain stacked-rank forms (the ``xla`` lowering).
 * ``ring`` — the explicit segmented ring pipeline (the ``ring`` lowering).
-* ``cuda`` — the hand-written kernels (ring collectives, combine).
+* ``cuda`` — the hand-written kernels (ring collectives, rooted relays,
+  combine).
 * ``driver`` — stacked-in, stacked-out entry points over a :class:`Mesh`.
 """
 
@@ -12,9 +13,17 @@ from .driver import (  # noqa: F401
     make_mesh,
     run_allgather,
     run_allreduce,
+    run_alltoall,
     run_bcast,
     run_compressed_allreduce,
+    run_gather,
     run_pallas_allreduce,
+    run_pallas_bcast,
+    run_pallas_gather,
+    run_pallas_reduce,
+    run_pallas_scatter,
+    run_reduce,
     run_reduce_scatter,
     run_ring_allreduce,
+    run_scatter,
 )

@@ -37,6 +37,22 @@ def allreduce(xs: Sequence[torch.Tensor],
     return [full.clone() for _ in xs]
 
 
+def _zeros_like(t: torch.Tensor) -> torch.Tensor:
+    """A zero tensor of ``t``'s shape that allocates no memory (a
+    stride-0 view): copying it out writes zeros, discarding it costs
+    nothing."""
+    return t.new_zeros(()).expand(t.shape)
+
+
+def reduce(xs: Sequence[torch.Tensor], root: int = 0,
+           function: ReduceFunction = ReduceFunction.SUM
+           ) -> List[torch.Tensor]:
+    """ref ``ACCL::reduce`` — the full reduction on ``root``, zeros
+    elsewhere (the JAX lowering's stand-in for a non-root DummyBuffer)."""
+    full = _fold(xs, function)
+    return [full if r == root else _zeros_like(full) for r in range(len(xs))]
+
+
 def reduce_scatter(xs: Sequence[torch.Tensor],
                    function: ReduceFunction = ReduceFunction.SUM
                    ) -> List[torch.Tensor]:
@@ -62,6 +78,37 @@ def allgather(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 def bcast(xs: Sequence[torch.Tensor], root: int = 0) -> List[torch.Tensor]:
     """ref ``ACCL::bcast`` — root's block everywhere."""
     return [xs[root].clone() for _ in xs]
+
+
+def _blocks(x: torch.Tensor, size: int, what: str) -> List[torch.Tensor]:
+    if x.shape[0] % size:
+        raise ValueError(
+            f"{what}: leading length {x.shape[0]} is not divisible by "
+            f"{size} ranks"
+        )
+    return list(x.chunk(size))
+
+
+def scatter(xs: Sequence[torch.Tensor], root: int = 0) -> List[torch.Tensor]:
+    """ref ``ACCL::scatter`` — rank r gets block r of the root's operand
+    (the other ranks' operands are not read)."""
+    return [b.clone() for b in _blocks(xs[root], len(xs), "scatter")]
+
+
+def gather(xs: Sequence[torch.Tensor], root: int = 0) -> List[torch.Tensor]:
+    """ref ``ACCL::gather`` — every rank's block, concatenated in rank
+    order, on ``root``; zeros elsewhere."""
+    full = torch.cat(list(xs))
+    return [full if r == root else _zeros_like(full) for r in range(len(xs))]
+
+
+def alltoall(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """ref ``ACCL::alltoall`` — block transpose: rank r's block p is rank
+    p's block r."""
+    size = len(xs)
+    blocks = [_blocks(x, size, "alltoall") for x in xs]
+    return [torch.cat([blocks[p][r] for p in range(size)])
+            for r in range(size)]
 
 
 def compressed_allreduce(

@@ -5,6 +5,8 @@
   with an optional result cast, in place or not).
 * ``ring`` — K1-K3, the segmented ring allreduce, reduce-scatter and
   allgather over ranks that share one device.
+* ``rooted`` — rows 9-11, the rooted ring relays (bcast, reduce,
+  scatter), and the rooted gather over K3.
 
 Kernels are built from ``accl_tpu_torch/csrc`` on first use
 (:func:`build_all` builds them all at once).  Every wrapper takes its
@@ -22,11 +24,25 @@ from .ring import (  # noqa: F401
     ring_reduce_scatter,
     ring_reduce_scatter_plain,
 )
+from .rooted import (  # noqa: F401
+    ring_bcast,
+    ring_bcast_plain,
+    ring_gather,
+    ring_gather_plain,
+    ring_reduce,
+    ring_reduce_plain,
+    ring_scatter,
+    ring_scatter_plain,
+)
 
-#: every kernel wrapper of the tier (each carries a ``launches`` counter)
+#: every kernel wrapper of the tier (each carries a ``launches`` counter;
+#: ``ring_gather`` launches K3 and counts under ``ring_allgather``)
 KERNELS = {
     "ring_allreduce": ring_allreduce,
     "ring_reduce_scatter": ring_reduce_scatter,
     "ring_allgather": ring_allgather,
     "combine": combine,
+    "ring_bcast": ring_bcast,
+    "ring_reduce": ring_reduce,
+    "ring_scatter": ring_scatter,
 }

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -73,17 +73,19 @@ class LaunchCounter:
             self.count = 0
 
 
-def on_cuda(tensors: Sequence[torch.Tensor]) -> bool:
+def on_cuda(tensors: Sequence[Optional[torch.Tensor]]) -> bool:
     """True when every tensor lies on a CUDA device, False when every one
-    lies on the CPU; raises on a mix or any other device."""
-    kinds = {t.device.type for t in tensors}
+    lies on the CPU; raises on a mix or any other device.  None entries
+    (ranks that take no result) are skipped."""
+    devices = {t.device for t in tensors if t is not None}
+    kinds = {d.type for d in devices}
     if kinds == {"cpu"}:
         return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+    if kinds == {"cuda"} and len(devices) == 1:
         return True
     raise ValueError(
         f"kernel operands must all lie on the CPU or on one CUDA device, "
-        f"got {sorted(str(t.device) for t in tensors)}"
+        f"got {sorted(str(d) for d in devices)}"
     )
 
 
@@ -100,12 +102,25 @@ def check_ranks(xs: Sequence[torch.Tensor], what: str) -> None:
             raise ValueError(f"{what}: operands must match in shape and dtype")
 
 
-def aligned16(tensors: Sequence[torch.Tensor]) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in tensors)
+def aligned16(tensors: Sequence[Optional[torch.Tensor]]) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
 
 
-def pointer_table(tensors: Sequence[torch.Tensor]):
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+def pointer_table(tensors: Sequence[Optional[torch.Tensor]]):
+    """A C array of the tensors' device pointers; a None entry is a null
+    pointer (the kernel skips that rank's stores)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors]
+    )
+
+
+def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two contiguous tensors share any byte of memory."""
+    if not a.numel() or not b.numel():
+        return False
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
 
 
 def stream_of(device: torch.device) -> ctypes.c_void_p:

@@ -59,19 +59,25 @@ def _flat(xs: Sequence[torch.Tensor], what: str) -> List[torch.Tensor]:
     return flat
 
 
-def _outputs(flat, out, length: int, what: str) -> List[torch.Tensor]:
+def _outputs(flat, out, length: int, what: str,
+             optional: bool = False) -> List[Optional[torch.Tensor]]:
+    """The per-rank output tensors, flattened (allocated when ``out`` is
+    None).  With ``optional`` an ``out`` entry may be None: that rank
+    takes no result."""
     x0 = flat[0]
     if out is None:
         return [torch.empty(length, dtype=x0.dtype, device=x0.device)
                 for _ in flat]
-    out = [o.reshape(-1) for o in out]
+    out = list(out)
     if len(out) != len(flat) or any(
-        o.numel() != length or o.dtype != x0.dtype or not o.is_contiguous()
+        (o is None and not optional) or (o is not None and (
+            o.numel() != length or o.dtype != x0.dtype
+            or not o.is_contiguous()))
         for o in out
     ):
         raise ValueError(f"{what}: out must be {len(flat)} contiguous "
                          f"tensors of {length} {x0.dtype} elements")
-    return out
+    return [None if o is None else o.reshape(-1) for o in out]
 
 
 def _vec(tensors, n: int, dtype: torch.dtype) -> int:
@@ -286,17 +292,20 @@ def ring_allgather_plain(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 def ring_allgather(
     xs: Sequence[torch.Tensor],
     *,
-    out: Optional[Sequence[torch.Tensor]] = None,
-) -> List[torch.Tensor]:
+    out: Optional[Sequence[Optional[torch.Tensor]]] = None,
+) -> List[Optional[torch.Tensor]]:
     """Ring allgather (store-and-relay): ``xs[i]`` is rank i's block;
-    every rank receives all blocks concatenated along the leading axis."""
+    every rank receives all blocks concatenated along the leading axis.
+    A None entry of ``out`` is a rank that takes no result: the kernel
+    skips its stores (the rooted gather passes the root's alone)."""
     flat = _flat(xs, "ring_allgather")
     P, n = len(flat), flat[0].numel()
     shape = (P * xs[0].shape[0],) + tuple(xs[0].shape[1:])
-    outs = _outputs(flat, out, P * n, "ring_allgather")
+    outs = _outputs(flat, out, P * n, "ring_allgather", optional=True)
     if not on_cuda(flat + outs):
         for o, r in zip(outs, ring_allgather_plain(flat)):
-            o.copy_(r.reshape(-1))
+            if o is not None:
+                o.copy_(r.reshape(-1))
     elif n:
         lib = _lib()
         esize = flat[0].element_size()
@@ -307,7 +316,7 @@ def ring_allgather(
         )
         check_launch(lib, rc, "ring_allgather")
         ring_allgather.launches.bump()
-    return [o.reshape(shape) for o in outs]
+    return [None if o is None else o.reshape(shape) for o in outs]
 
 
 ring_allgather.launches = LaunchCounter()

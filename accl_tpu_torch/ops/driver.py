@@ -8,6 +8,11 @@ gang engine passes, so no rank's buffer is copied into a stack.  A 2-D
 operand gives a 2-D result; a sequence gives a list.  ``out`` names the
 per-rank tensors to write the results into.
 
+An ``out`` entry of None is a rank that takes no result: the rooted
+reduce and gather write the root's alone, as the JAX engine does (its
+``xla`` lowering computes zeros for the other ranks, its Pallas lowering
+partials or full copies; a caller with no ``out`` gets those rows).
+
 A :class:`Mesh` is the rank count and the one device every rank's tensors
 lie on.  :func:`make_mesh` runs on the card unless the caller asks for
 the CPU, and raises when there is no card.
@@ -23,6 +28,7 @@ import torch
 from ..constants import ReduceFunction, as_datatype, dtype_to_torch
 from . import collectives, ring
 from .cuda import ring as kring
+from .cuda import rooted as krooted
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +92,11 @@ def _run(stacked, mesh: Mesh, width: int,
 
 
 def _copy_into(outs, results) -> None:
+    """Copy each rank's result into its output; a None output is a rank
+    that takes no result (the engine's non-root reduce and gather)."""
     for o, r in zip(outs, results):
-        o.copy_(r)
+        if o is not None:
+            o.copy_(r)
 
 
 def _torch_dtype(name) -> torch.dtype:
@@ -157,6 +166,82 @@ def run_bcast(stacked, mesh: Mesh, root: int = 0, out=None):
         _copy_into(outs, collectives.bcast(xs, root))
 
     return _run(stacked, mesh, _width(stacked), compute, out)
+
+
+def run_reduce(stacked, mesh: Mesh, root: int = 0,
+               function=ReduceFunction.SUM, out=None):
+    """The ``xla`` lowering: a rank-order fold on the root, zeros
+    elsewhere."""
+    def compute(xs, outs):
+        _copy_into(outs, collectives.reduce(xs, root, function))
+
+    return _run(stacked, mesh, _width(stacked), compute, out)
+
+
+def run_pallas_reduce(stacked, mesh: Mesh, root: int = 0,
+                      function=ReduceFunction.SUM, num_segments: int = 1,
+                      out=None):
+    """Reduce-to-root as the ring relay kernel (row 10); the root's row is
+    the reduction, the others hold partials."""
+    def compute(xs, outs):
+        krooted.ring_reduce(xs, root, function, num_segments, out=outs)
+
+    return _run(stacked, mesh, _width(stacked), compute, out)
+
+
+def run_pallas_bcast(stacked, mesh: Mesh, root: int = 0,
+                     num_segments: int = 1, out=None):
+    """Bcast as the ring relay kernel (row 9); ``out`` may be the operands
+    themselves (in place)."""
+    def compute(xs, outs):
+        krooted.ring_bcast(xs, root, num_segments, out=outs)
+
+    return _run(stacked, mesh, _width(stacked), compute, out)
+
+
+def run_scatter(stacked, mesh: Mesh, root: int = 0, out=None):
+    """Rank r gets block r of the root's operand (width ``size * n``)."""
+    def compute(xs, outs):
+        _copy_into(outs, collectives.scatter(xs, root))
+
+    return _run(stacked, mesh, _width(stacked) // mesh.size, compute, out)
+
+
+def run_pallas_scatter(stacked, mesh: Mesh, root: int = 0,
+                       num_segments: int = 1, out=None):
+    """Scatter as the ring relay kernel (row 11)."""
+    def compute(xs, outs):
+        krooted.ring_scatter(xs, root, num_segments, out=outs)
+
+    return _run(stacked, mesh, _width(stacked) // mesh.size, compute, out)
+
+
+def run_gather(stacked, mesh: Mesh, root: int = 0, out=None):
+    """The rank-order concatenation on the root, zeros elsewhere."""
+    def compute(xs, outs):
+        _copy_into(outs, collectives.gather(xs, root))
+
+    return _run(stacked, mesh, _width(stacked) * mesh.size, compute, out)
+
+
+def run_pallas_gather(stacked, mesh: Mesh, root: int = 0,
+                      num_segments: int = 1, out=None):
+    """Gather through K3 (store-and-relay).  Every output it is given
+    receives the gather (with no ``out``, every row, as in JAX); the
+    engine gives the root's alone."""
+    def compute(xs, outs):
+        krooted.ring_gather(xs, root, num_segments, out=outs)
+
+    return _run(stacked, mesh, _width(stacked) * mesh.size, compute, out)
+
+
+def run_alltoall(stacked, mesh: Mesh, out=None):
+    """Block transpose: rank r's block p is rank p's block r."""
+    def compute(xs, outs):
+        _copy_into(outs, collectives.alltoall(xs))
+
+    return _run(stacked, mesh, _width(stacked), compute, out)
+
 
 
 def _width(stacked) -> int:

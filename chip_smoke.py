@@ -9,21 +9,36 @@ Phases (any failure exits non-zero):
    kernel from ``accl_tpu_torch/csrc`` (one nvcc per source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes — float results must match EXACTLY (same operation
-   order, same round-to-nearest-even; NaN positions must agree);
-3. the main path: ``cuda_group(4)``, one thread per rank, 16M float32
-   (64 MiB) per rank — three ``pallas_ring`` allreduces (4 segments), one
-   with a bfloat16 wire, one ``pallas_ring_bidir``, one ``xla``, a facade
-   ``combine``, and the kernel tier's ring reduce-scatter and allgather on
-   the ranks' buffers — each result checked against a float64 numpy
-   reference; every kernel's launch counter is zeroed just before and read
-   just after, and each must have launched;
+   order, same round-to-nearest-even; NaN positions must agree).  The
+   rooted relays (bcast in place and out of place, reduce with every
+   rank's partial and with the root's output alone, scatter) and the
+   root-only gather over K3 run at P in {2, 4, 8} x root in {0, P-1} x
+   f32/bf16/f16/i32, SUM and MAX with NaNs, 16M per rank, plus a ragged
+   1,000,003 and views misaligned by one element (the scalar path);
+3. the main paths, each with every kernel's launch counter zeroed just
+   before and read just after:
+   a. the allreduce path: ``cuda_group(4)``, one thread per rank, 16M
+      float32 (64 MiB) per rank — three ``pallas_ring`` allreduces
+      (4 segments), one with a bfloat16 wire, one ``pallas_ring_bidir``,
+      one ``xla``, a facade ``combine``, and the kernel tier's ring
+      reduce-scatter and allgather on the ranks' buffers — each result
+      checked against a float64 numpy reference; K1-K4 must have launched;
+   b. the rooted path: the same group and size, roots 0 and 3, ``reduce``
+      (SUM, and MAX under the ring), ``bcast``, ``scatter`` and ``gather``
+      under ``pallas_ring`` and under ``xla``, and ``alltoall`` — each
+      result checked exactly against numpy (the ``xla`` SUM reduce within
+      1e-5 of float64), non-root result buffers shown untouched; each
+      rooted kernel's launches must equal its ``pallas_ring`` calls;
 4. time each kernel at those shapes beside its bound, its plain version
-   and one PyTorch library call computing the same function;
-5. time the facade allreduce end to end (host clock around each
-   synchronous call on rank 0's thread, rendezvous included) for the
-   ``xla``, ``pallas_ring`` and ``pallas_ring_bidir`` registers at 256 KiB,
-   4 MiB and 64 MiB per rank: p50 latency and bus bandwidth
-   (bytes per rank x 2(P-1)/P over the p50).
+   and one PyTorch library call computing the same function (the
+   root-only gather as extra keys of K3's entry);
+5. time the facade end to end (host clock around each synchronous call
+   on rank 0's thread, rendezvous included) at 256 KiB, 4 MiB and 64 MiB
+   per rank: the allreduce under ``xla``, ``pallas_ring`` and
+   ``pallas_ring_bidir`` (p50 and bus bandwidth, bytes per rank x
+   2(P-1)/P over the p50), then reduce / bcast / scatter / gather under
+   ``xla`` and ``pallas_ring`` and alltoall (p50 and p90), each set as a
+   JSON line of its own.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -46,6 +61,10 @@ N_RANK = 16 * 1024 * 1024  # elements per rank on the main path (64 MiB f32)
 N_COMBINE = 64 * 1024 * 1024  # combine operand elements (256 MB f32)
 P_MAIN = 4
 SEED = 1234
+ROOTED_REGISTERS = ("reduce_algorithm", "bcast_algorithm",
+                    "scatter_algorithm", "gather_algorithm")
+SLICE1_KERNELS = ("ring_allreduce", "ring_reduce_scatter", "ring_allgather",
+                  "combine")
 
 
 def fail(msg: str) -> None:
@@ -88,6 +107,27 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def run_ranks(group, rank_main, what: str) -> None:
+    """``rank_main(accl, rank)`` on one thread per rank; fails on any
+    rank's exception or a hung thread."""
+    errors = []
+
+    def runner(a, r):
+        try:
+            rank_main(a, r)
+        except BaseException as e:  # reported by the main thread
+            errors.append(f"rank {r}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=runner, args=(group[r], r))
+               for r in range(len(group))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"{what} failed: {errors or 'a rank thread hung'}")
+
+
 def facade_latency(sizes, algos, iters: int = 20) -> list:
     """p50 and p90 of the facade allreduce per (register, elements per
     rank), and the p50 of the gang's launch time (the host time from the
@@ -100,39 +140,30 @@ def facade_latency(sizes, algos, iters: int = 20) -> list:
     import accl_tpu_torch as at
 
     samples = {}
-    errors = []
 
     def rank_main(a, r):
-        try:
-            a.set_tuning("ring_segments", 4)
-            bufs = {n: (a.create_buffer(n, np.float32),
-                        a.create_buffer(n, np.float32)) for n in sizes}
-            for _pass in range(2):
-                for n, (s, d) in bufs.items():
-                    for algo in algos:
-                        a.set_tuning("allreduce_algorithm", algo)
-                        times, launch = [], []
-                        for _ in range(iters):
-                            t = time.perf_counter()
-                            req = a.allreduce(s, d)
-                            times.append(time.perf_counter() - t)
-                            launch.append(req.get_duration_ns() * 1e-9)
-                        if r == 0:
-                            samples[(algo, n)] = (times, launch)
-        except BaseException as e:  # reported by the main thread
-            errors.append(f"rank {r}: {type(e).__name__}: {e}")
+        a.set_tuning("ring_segments", 4)
+        bufs = {n: (a.create_buffer(n, np.float32),
+                    a.create_buffer(n, np.float32)) for n in sizes}
+        for _pass in range(2):
+            for n, (s, d) in bufs.items():
+                for algo in algos:
+                    a.set_tuning("allreduce_algorithm", algo)
+                    times, launch = [], []
+                    for _ in range(iters):
+                        t = time.perf_counter()
+                        req = a.allreduce(s, d)
+                        times.append(time.perf_counter() - t)
+                        launch.append(req.get_duration_ns() * 1e-9)
+                    if r == 0:
+                        samples[(algo, n)] = (times, launch)
 
     group = at.cuda_group(P_MAIN)
-    threads = [threading.Thread(target=rank_main, args=(group[r], r))
-               for r in range(P_MAIN)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(600)
-    for a in group:
-        a.deinit()
-    if errors or any(t.is_alive() for t in threads):
-        fail(f"facade timing failed: {errors or 'a rank thread hung'}")
+    try:
+        run_ranks(group, rank_main, "facade timing")
+    finally:
+        for a in group:
+            a.deinit()
     rows = []
     for (algo, n), (times, launch) in samples.items():
         p50 = float(np.median(times))
@@ -144,6 +175,290 @@ def facade_latency(sizes, algos, iters: int = 20) -> list:
             "busbw_GBps": nbytes * 2 * (P_MAIN - 1) / P_MAIN / p50 / 1e9,
         })
     return rows
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time for moving ``nbytes`` and doing ``ops`` float32
+    operations on the card, and which of the two bounds it."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def time_rooted(xs, rand) -> dict:
+    """Phase 4 for rows 9-11 and the root-only gather, on the main
+    path's forms: ``xs`` are the P ranks' 16M float32 operands, root 0."""
+    import torch
+
+    from accl_tpu_torch.ops import cuda as kc
+
+    P, n, f4 = len(xs), xs[0].numel(), 4
+    bc = [x.clone() for x in xs]  # the facade's in-place bcast
+    red = [None] * P
+    red[0] = torch.empty_like(xs[0])  # the facade's root-only reduce
+    big = rand(P * n, torch.float32)
+    sc_in = [big] * P  # only the root's operand is read
+    sc_out = [torch.empty_like(x) for x in xs]
+    gat = [None] * P
+    gat[0] = torch.empty(P * n, device=xs[0].device)
+
+    def copies(dst, srcs):
+        for d, s in zip(dst, srcs):
+            d.copy_(s)
+
+    return {
+        "ring_bcast": dict(
+            ms=time_ms(lambda: kc.ring_bcast(bc, 0, out=bc)),
+            plain_ms=time_ms(lambda: kc.ring_bcast_plain(xs, 0)),
+            library_ms=time_ms(lambda: copies(bc[1:], [bc[0]] * (P - 1))),
+            bytes=P * n * f4, ops=0,  # read the root once, write P-1
+        ),
+        "ring_reduce": dict(
+            ms=time_ms(lambda: kc.ring_reduce(xs, 0, 0, out=red)),
+            plain_ms=time_ms(lambda: kc.ring_reduce_plain(xs, 0, 0)),
+            library_ms=time_ms(lambda: torch.stack(xs).sum(0)),
+            bytes=(P + 1) * n * f4, ops=(P - 1) * n,
+        ),
+        "ring_scatter": dict(
+            ms=time_ms(lambda: kc.ring_scatter(sc_in, 0, out=sc_out)),
+            plain_ms=time_ms(lambda: kc.ring_scatter_plain(sc_in, 0)),
+            library_ms=time_ms(lambda: copies(sc_out, big.chunk(P))),
+            bytes=2 * P * n * f4, ops=0,
+        ),
+        "ring_gather": dict(
+            ms=time_ms(lambda: kc.ring_gather(xs, 0, out=gat)),
+            plain_ms=time_ms(lambda: kc.ring_gather_plain(xs, 0)),
+            library_ms=time_ms(lambda: torch.cat(xs, out=gat[0])),
+            bytes=2 * P * n * f4, ops=0,
+        ),
+    }
+
+
+def check_rooted_kernels(rand, err) -> None:
+    """Rows 9-11 and the root-only K3 gather against their plain versions
+    (phase 2)."""
+    import torch
+
+    from accl_tpu_torch.ops import cuda as kc
+
+    F32, BF16, F16, I32 = (torch.float32, torch.bfloat16, torch.float16,
+                           torch.int32)
+    SUM, MAX = 0, 1
+    cases = [(P, root, dtype, N_RANK, 0) for P in (2, 4, 8)
+             for root in (0, P - 1) for dtype in (F32, BF16, F16, I32)]
+    cases += [(4, 3, F32, 1_000_003, 0), (4, 0, BF16, 1_000_003, 0),
+              (4, 3, F32, N_RANK, 1), (3, 1, F16, N_RANK, 1)]
+    for P, root, dtype, n, offset in cases:
+        tag = f"P={P} root={root} {dtype} n={n} offset={offset}"
+
+        def operand(numel):
+            x = rand(numel + offset, dtype)[offset:]  # offset: misaligned
+            if dtype.is_floating_point:
+                x[::997] = float("nan")
+            return x
+
+        def held(name, got, want, ranks):
+            for r in ranks:
+                err[name] = max(err[name], compare(
+                    f"{name} {tag} rank {r}", got[r], want[r]))
+
+        xs = [operand(n) for _ in range(P)]
+        for fn in (SUM, MAX):
+            want = kc.ring_reduce_plain(xs, root, fn)
+            held("ring_reduce", kc.ring_reduce(xs, root, fn), want,
+                 range(P))
+            out = [None] * P
+            out[root] = torch.empty(n, dtype=dtype, device=xs[0].device)
+            kc.ring_reduce(xs, root, fn, out=out)
+            held("ring_reduce", out, want, [root])
+        want = kc.ring_bcast_plain(xs, root)
+        held("ring_bcast", kc.ring_bcast(xs, root), want, range(P))
+        ys = [x.clone() for x in xs]
+        kc.ring_bcast(ys, root, out=ys)
+        held("ring_bcast", ys, want, range(P))
+        held("ring_allgather", kc.ring_gather(xs, root),
+             kc.ring_gather_plain(xs, root), [root])
+        big = [operand(P * n)] * P  # only the root's operand is read
+        held("ring_scatter", kc.ring_scatter(big, root),
+             kc.ring_scatter_plain(big, root), range(P))
+        del xs, ys, big, want, out
+        torch.cuda.synchronize()
+
+
+def rooted_main_path(kc) -> dict:
+    """Phase 3b: the facade's rooted calls and alltoall, 4 ranks x 64 MiB,
+    roots 0 and 3, under ``pallas_ring`` and ``xla``.  Returns the kernel
+    launch counts of the run."""
+    import numpy as np
+
+    import accl_tpu_torch as at
+
+    P, n = P_MAIN, N_RANK
+    rng = np.random.default_rng(SEED + 1)
+    data = rng.standard_normal((P, n), dtype=np.float32)
+    big = data.reshape(-1)  # the scatter operand: rank r's block is data[r]
+    exact = data.astype(np.float64).sum(0)
+    roots = (0, 3)
+
+    def relay_sum(root):  # the ring relay's fold order, in float32
+        acc = data[(root + P - 1) % P].copy()
+        for rel in range(P - 2, -1, -1):
+            acc = data[(root + rel) % P] + acc
+        return acc
+
+    relayed = {root: relay_sum(root) for root in roots}
+    maxed = np.maximum.reduce(data)
+    m = n // P  # alltoall block: rank r's operand is data[r]
+    calls = {"ring_reduce": 0, "ring_bcast": 0, "ring_scatter": 0,
+             "ring_allgather": 0}
+    wrong = []  # a rank records what it got wrong and goes on calling
+
+    def rank_main(a, r):
+        F32 = np.float32
+        s = a.create_buffer_from(data[r])
+        recv = a.create_buffer(n, F32)
+        bc = a.create_buffer(n, F32)
+        sc = a.create_buffer_from(big) if r in roots else None
+        gat = a.create_buffer(P * n, F32)
+        a2r = a.create_buffer(n, F32)
+
+        def host(buf):
+            buf.sync_from_device()
+            return buf.data
+
+        def sentinel(buf):
+            buf.host_view().fill_(7.0)
+            buf.sync_to_device()
+            return buf
+
+        def check(ok, what):
+            if not ok:
+                wrong.append(f"rank {r}: {what}")
+
+        for algo in ("pallas_ring", "xla"):
+            for key in ROOTED_REGISTERS:
+                a.set_tuning(key, algo)
+            a.set_tuning("ring_segments", 4)
+            ring = algo == "pallas_ring"
+            for root in roots:
+                tag = f"{algo} root {root}"
+                is_root = r == root
+                # a non-root passes None at root 0, a buffer at root 3
+                other = None if root == 0 else sentinel(recv)
+                for fn in ((0, 1) if ring else (0,)):
+                    a.reduce(s, recv if is_root else other, root=root,
+                             function=fn)
+                    if r == 0 and ring:
+                        calls["ring_reduce"] += 1
+                    got = host(recv)
+                    if not is_root:
+                        check(other is None or (got == 7.0).all(),
+                              f"reduce {tag}: non-root result written")
+                    elif fn == 1:
+                        check(np.array_equal(got, maxed), f"reduce MAX {tag}")
+                    elif ring:
+                        check(np.array_equal(got, relayed[root]),
+                              f"reduce SUM {tag}")
+                    else:
+                        check(np.allclose(got, exact, rtol=1e-5, atol=1e-5),
+                              f"reduce SUM {tag}")
+                bc.host_view().copy_(s.host_view())
+                bc.sync_to_device()
+                a.bcast(bc, root=root)
+                check(np.array_equal(host(bc), data[root]), f"bcast {tag}")
+                a.scatter(sc if is_root else None, recv, n, root=root)
+                check(np.array_equal(host(recv), data[r]), f"scatter {tag}")
+                gother = None if root == 0 else sentinel(gat)
+                a.gather(s, gat if is_root else gother, root=root)
+                got = host(gat)
+                if is_root:
+                    check(np.array_equal(got, big), f"gather {tag}")
+                else:
+                    check(gother is None or (got == 7.0).all(),
+                          f"gather {tag}: non-root result written")
+                if r == 0 and ring:
+                    for k in ("ring_bcast", "ring_scatter", "ring_allgather"):
+                        calls[k] += 1
+        a.alltoall(s, a2r)
+        want = np.concatenate([data[p][r * m:(r + 1) * m] for p in range(P)])
+        check(np.array_equal(host(a2r), want), "alltoall")
+
+    for k in kc.KERNELS.values():
+        k.launches.reset()
+    group = at.cuda_group(P)
+    try:
+        run_ranks(group, rank_main, "rooted main path")
+    finally:
+        for a in group:
+            a.deinit()
+    launches = {k: f.launches.count for k, f in kc.KERNELS.items()}
+    if wrong:
+        fail(f"rooted path: {wrong}")
+    for k, want in calls.items():
+        if launches[k] != want:
+            fail(f"rooted path: {k} launched {launches[k]} times for "
+                 f"{want} pallas_ring calls")
+    return launches
+
+
+def facade_rooted_latency(sizes, iters: int = 20) -> list:
+    """p50 and p90 of the facade's rooted calls (root 0) and alltoall per
+    (op, register, elements per rank), and the p50 of the gang's launch
+    time; every pair runs twice over and only the second pass is kept."""
+    import numpy as np
+
+    import accl_tpu_torch as at
+
+    P = P_MAIN
+    samples = {}
+    plan = [(op, algo) for op in ("reduce", "bcast", "scatter", "gather")
+            for algo in ("xla", "pallas_ring")] + [("alltoall", "xla")]
+
+    def rank_main(a, r):
+        a.set_tuning("ring_segments", 4)
+        root = r == 0
+        bufs = {}
+        for n in sizes:
+            bufs[n] = dict(
+                s=a.create_buffer(n, np.float32),
+                recv=a.create_buffer(n, np.float32),
+                big=a.create_buffer(P * n, np.float32) if root else None,
+            )
+        calls = {
+            "reduce": lambda b: a.reduce(b["s"], b["recv"] if root else None,
+                                         root=0),
+            "bcast": lambda b: a.bcast(b["recv"], root=0),
+            "scatter": lambda b: a.scatter(b["big"], b["recv"], root=0),
+            "gather": lambda b: a.gather(b["s"], b["big"], root=0),
+            "alltoall": lambda b: a.alltoall(b["s"], b["recv"]),
+        }
+        for _pass in range(2):
+            for n in sizes:
+                for op, algo in plan:
+                    for key in ROOTED_REGISTERS:
+                        a.set_tuning(key, algo)
+                    times, launch = [], []
+                    for _ in range(iters):
+                        t = time.perf_counter()
+                        req = calls[op](bufs[n])
+                        times.append(time.perf_counter() - t)
+                        launch.append(req.get_duration_ns() * 1e-9)
+                    if root:
+                        samples[(op, algo, n)] = (times, launch)
+
+    group = at.cuda_group(P)
+    try:
+        run_ranks(group, rank_main, "rooted facade timing")
+    finally:
+        for a in group:
+            a.deinit()
+    return [{
+        "op": op, "algo": algo, "bytes_per_rank": 4 * n,
+        "p50_ms": float(np.median(times)) * 1e3,
+        "p90_ms": float(np.percentile(times, 90)) * 1e3,
+        "launch_p50_ms": float(np.median(launch)) * 1e3,
+    } for (op, algo, n), (times, launch) in samples.items()]
 
 
 def main() -> int:
@@ -250,6 +565,7 @@ def main() -> int:
                 f"ring_allgather {dtype} n={n} rank {r}", got[r], want[r]))
     del xs, got, want
     torch.cuda.synchronize()
+    check_rooted_kernels(rand, err)
     print(f"kernels agree with their plain versions exactly "
           f"({time.time() - t0:.1f} s)", flush=True)
 
@@ -260,48 +576,37 @@ def main() -> int:
     other = rng.standard_normal((P_MAIN, N_RANK), dtype=np.float32)
     exact = data.astype(np.float64).sum(0)
     results = {}
-    errors = []
 
     def rank_main(a, r):
-        try:
-            s = a.create_buffer_from(data[r])
-            d = a.create_buffer(N_RANK, np.float32)
-            o = a.create_buffer_from(other[r])
-            c = a.create_buffer(N_RANK, np.float32)
-            outs = []
+        s = a.create_buffer_from(data[r])
+        d = a.create_buffer(N_RANK, np.float32)
+        o = a.create_buffer_from(other[r])
+        c = a.create_buffer(N_RANK, np.float32)
+        outs = []
 
-            def allreduce(**kw):
-                a.allreduce(s, d, **kw)
-                d.sync_from_device()
-                outs.append(d.data.numpy().copy())
+        def allreduce(**kw):
+            a.allreduce(s, d, **kw)
+            d.sync_from_device()
+            outs.append(d.data.copy())
 
-            a.set_tuning("allreduce_algorithm", "pallas_ring")
-            a.set_tuning("ring_segments", 4)
-            for _ in range(3):
-                allreduce()
-            allreduce(compress_dtype="bfloat16")
-            a.set_tuning("allreduce_algorithm", "pallas_ring_bidir")
+        a.set_tuning("allreduce_algorithm", "pallas_ring")
+        a.set_tuning("ring_segments", 4)
+        for _ in range(3):
             allreduce()
-            a.set_tuning("allreduce_algorithm", "xla")
-            allreduce()
-            a.combine(SUM, s, o, c)
-            c.sync_from_device()
-            outs.append(c.data.numpy().copy())
-            results[r] = (outs, s, o)
-        except BaseException as e:  # reported by the main thread
-            errors.append(f"rank {r}: {type(e).__name__}: {e}")
+        allreduce(compress_dtype="bfloat16")
+        a.set_tuning("allreduce_algorithm", "pallas_ring_bidir")
+        allreduce()
+        a.set_tuning("allreduce_algorithm", "xla")
+        allreduce()
+        a.combine(SUM, s, o, c)
+        c.sync_from_device()
+        outs.append(c.data.copy())
+        results[r] = (outs, s, o)
 
     for k in kc.KERNELS.values():
         k.launches.reset()
     group = at.cuda_group(P_MAIN)
-    threads = [threading.Thread(target=rank_main, args=(group[r], r))
-               for r in range(P_MAIN)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(600)
-    if errors or any(t.is_alive() for t in threads):
-        fail(f"main path failed: {errors or 'a rank thread hung'}")
+    run_ranks(group, rank_main, "main path")
     # the kernel tier's ring reduce-scatter and allgather on the same
     # per-rank buffers
     srcs = [results[r][1].tensor for r in range(P_MAIN)]
@@ -334,11 +639,17 @@ def main() -> int:
             fail(f"ring_reduce_scatter rank {r} off the reference")
         if not torch.equal(ag[r], torch.cat(rs)):
             fail(f"ring_allgather rank {r} differs from the blocks")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in SLICE1_KERNELS if launches[k] == 0]
     if missing:
         fail(f"main path never launched {missing}: {launches}")
-    print(f"main path ok ({time.time() - t0:.1f} s): launches {launches}",
+    print(f"allreduce path ok ({time.time() - t0:.1f} s): launches "
+          f"{launches}", flush=True)
+    t0 = time.time()
+    rooted = rooted_main_path(kc)
+    print(f"rooted path ok ({time.time() - t0:.1f} s): launches {rooted}",
           flush=True)
+    # each kernel's launches over both paths' runs
+    launches = {k: launches[k] + rooted[k] for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
     xs = [rand(N_RANK, F32) for _ in range(P_MAIN)]
@@ -378,6 +689,7 @@ def main() -> int:
             ops=N_COMBINE,
         ),
     }
+    timing.update(time_rooted(xs, rand))
     meta = {
         "ring_allreduce": ("accl_tpu_torch/csrc/ring.cu",
                            "accl_tpu/ops/pallas/ring.py:123"),
@@ -387,25 +699,38 @@ def main() -> int:
                            "accl_tpu/ops/pallas/ring.py:288"),
         "combine": ("accl_tpu_torch/csrc/combine.cu",
                     "accl_tpu/ops/pallas/combine.py:40"),
+        "ring_bcast": ("accl_tpu_torch/csrc/rooted.cu",
+                       "accl_tpu/ops/pallas/rooted.py:59"),
+        "ring_reduce": ("accl_tpu_torch/csrc/rooted.cu",
+                        "accl_tpu/ops/pallas/rooted.py:95"),
+        "ring_scatter": ("accl_tpu_torch/csrc/rooted.cu",
+                         "accl_tpu/ops/pallas/rooted.py:133"),
     }
     kernels = []
     for name in kc.KERNELS:
         t = timing[name]
-        bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = t["ops"] / F32_OPS_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
             "max_abs_err": err[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "plain_ms": t["plain_ms"], **bound(t["bytes"], t["ops"]),
             "library_ms": t["library_ms"],
         })
+        if name == "ring_allgather":  # the rooted gather: root output only
+            g = timing["ring_gather"]
+            kernels[-1].update({
+                "gather_ms": g["ms"], "gather_plain_ms": g["plain_ms"],
+                "gather_bound_ms": bound(g["bytes"], g["ops"])["bound_ms"],
+                "gather_library_ms": g["library_ms"],
+            })
     for k in kernels:
         print(f"{k['name']}: kernel_ms={k['ms']:.4f} "
               f"bound_ms={k['bound_ms']:.4f} plain_ms={k['plain_ms']:.4f} "
               f"library_ms={k['library_ms']:.4f}")
+    g = timing["ring_gather"]
+    print(f"ring_gather (K3, root only): kernel_ms={g['ms']:.4f} "
+          f"bound_ms={bound(g['bytes'], 0)['bound_ms']:.4f} "
+          f"plain_ms={g['plain_ms']:.4f} library_ms={g['library_ms']:.4f}")
     del xs, outs, gathered, blocks, a, b, c
     torch.cuda.synchronize()
 
@@ -413,6 +738,8 @@ def main() -> int:
     facade = facade_latency([64 * 1024, 1024 * 1024, N_RANK],
                             ["xla", "pallas_ring", "pallas_ring_bidir"])
     print(json.dumps({"facade_allreduce": facade}))
+    facade = facade_rooted_latency([64 * 1024, 1024 * 1024, N_RANK])
+    print(json.dumps({"facade_rooted": facade}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -353,15 +353,19 @@ def test_tuning_from_jax():
     assert interop.tuning_from_jax(
         {"allreduce_algorithm": "pallas_ring_bidir", "ring_segments": 4,
          "wire_dtype": int(at.DataType.FLOAT16)}
-    ) == {"allreduce_algorithm": "pallas_ring_bidir", "ring_segments": 4,
-          "wire_dtype": int(at.DataType.FLOAT16)}
+    ) == dict(at.constants.TUNING_DEFAULTS,
+              allreduce_algorithm="pallas_ring_bidir", ring_segments=4,
+              wire_dtype=int(at.DataType.FLOAT16))
     # registers the port does not serve may only hold their defaults
     assert interop.tuning_from_jax(
         {"allreduce_algorithm": "xla", "ring_segments": 1,
          "bcast_algorithm": "xla", "pipeline_threshold": 0}
     )["allreduce_algorithm"] == "xla"
-    with pytest.raises(ValueError, match="not ported"):
-        interop.tuning_from_jax({"bcast_algorithm": "pallas_ring"})
+    # the rooted registers carry across; they have no ring form
+    assert interop.tuning_from_jax(
+        {"bcast_algorithm": "pallas_ring"})["bcast_algorithm"] == "pallas_ring"
+    with pytest.raises(ValueError, match="rooted"):
+        interop.tuning_from_jax({"bcast_algorithm": "pallas_ring_bidir"})
     with pytest.raises(ValueError, match="not ported"):
         interop.tuning_from_jax({"wire_dtype": int(at.DataType.INT8)})
     with pytest.raises(KeyError):
