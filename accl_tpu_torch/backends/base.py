@@ -1,6 +1,6 @@
 """Backend interface: what the facade needs from a collective engine.
 The port's copy of ``accl_tpu/backends/base.py`` (a subset of
-``CallOptions``: no stream ports, host flags, plans or fused slots)."""
+``CallOptions``: no stream ports, host flags or plans)."""
 
 from __future__ import annotations
 
@@ -29,6 +29,10 @@ class CallOptions:
     op0: Optional[BaseBuffer] = None
     op1: Optional[BaseBuffer] = None
     res: Optional[BaseBuffer] = None
+    # fused compute slots: which epilogue rides the call (FusedCompute)
+    # and its scalar (alpha / lr / scale)
+    fuse: int = 0
+    fuse_param: float = 0.0
     # Operation.CONFIG only:
     cfg_function: int = 0
     cfg_value: float = 0.0
@@ -40,6 +44,11 @@ class BaseEngine:
 
     def start(self, options: CallOptions):
         """Start a call; returns a Request."""
+        raise NotImplementedError
+
+    def start_batch(self, items) -> None:
+        """Dispatch a flushed batch of ``(options, request)`` pairs (the
+        requests were made by the facade), preserving issue order."""
         raise NotImplementedError
 
     def create_buffer(self, count: int, dtype, data=None):

@@ -11,6 +11,11 @@ Streams: the collective launches on the executing thread's current
 stream, after that stream waits on every operand's last-writer event; it
 then records one event, which every rank's request and result buffer
 carry, so a waiter synchronises on that event and not on the device.
+
+Batches: a flushed ``with accl.batch():`` run arrives as one gang event
+(``submit_batch``); the command ring (``cmdring.GangCommandRing``) runs it
+as windows of one sequencer launch each, or refuses it with a counted
+reason, and then each position runs in order through the per-call path.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ...arithconfig import reduce_op
 from ...buffer import DeviceBuffer, make_buffer
+from ...cmdring import ring_widths
 from ...communicator import Communicator
 from ...constants import (
     ALGORITHM_TUNING_KEYS,
@@ -30,6 +37,7 @@ from ...constants import (
     ConfigFunction,
     DataType,
     ErrorCode,
+    FusedCompute,
     Operation,
     ROOTED_ALGORITHMS,
     TUNING_DEFAULTS,
@@ -42,6 +50,7 @@ from ...ops.cuda.combine import combine as kernel_combine
 from ...ops.wire import wire_lane_roundtrip
 from ...request import Request
 from ..base import BaseEngine, CallOptions
+from .cmdring import GangCommandRing
 
 
 def apply_tuning(tuning: dict, options: CallOptions) -> ErrorCode:
@@ -185,23 +194,37 @@ def _check(buf, width: int, dtype: DataType, what: str) -> torch.Tensor:
 
 
 class CudaGangContext:
-    """Shared per-process rendezvous point of every rank handle."""
+    """Shared per-process rendezvous point of every rank handle; every
+    rank's buffers lie on ``device``."""
 
-    def __init__(self):
+    def __init__(self, device=None):
         self._lock = threading.Lock()
-        self._slots: Dict[tuple, Dict[int, Tuple[CallOptions, Request]]] = {}
+        self._slots: Dict[tuple, Dict[int, tuple]] = {}
         self._seq: Dict[Tuple[int, int], int] = {}
         self.tuning = dict(TUNING_DEFAULTS)
+        self.device = torch.device("cpu" if device is None else device)
+        self.cmdring = GangCommandRing(self)
 
     def submit(self, comm: Communicator, options: CallOptions,
                request: Request) -> None:
+        self._submit_entry(comm, (options, request))
+
+    def submit_batch(self, comm: Communicator,
+                     options_list: List[CallOptions],
+                     requests: List[Request]) -> None:
+        """A whole flushed batch as ONE gang event: every rank of the
+        communicator must flush a batch of the same length at the same
+        point of its call sequence."""
+        self._submit_entry(comm, (list(options_list), list(requests)))
+
+    def _submit_entry(self, comm: Communicator, entry: tuple) -> None:
         with self._lock:
             seq_key = (comm.id, comm.local_rank)
             seq = self._seq.get(seq_key, 0)
             self._seq[seq_key] = seq + 1
             slot_key = (comm.id, seq)
             slot = self._slots.setdefault(slot_key, {})
-            slot[comm.local_rank] = (options, request)
+            slot[comm.local_rank] = entry
             ready = len(slot) == comm.size
             if ready:
                 del self._slots[slot_key]
@@ -211,11 +234,27 @@ class CudaGangContext:
     @staticmethod
     def _sig(c: CallOptions) -> tuple:
         return (c.op, c.count, c.reduce_function, c.root_src, c.root_dst,
-                c.compression)
+                c.compression, c.fuse, c.fuse_param)
 
     def _execute(self, comm: Communicator, slot) -> None:
-        calls = [slot[r][0] for r in range(comm.size)]
-        reqs = [slot[r][1] for r in range(comm.size)]
+        entries = [slot[r] for r in range(comm.size)]
+        batched = [isinstance(e[0], list) for e in entries]
+        if any(batched) and not all(batched):
+            # one rank flushed a batch where another posted a single
+            # call: the gang sequence is torn, fail every request
+            for opts, reqs in entries:
+                for req in (reqs if isinstance(reqs, list) else [reqs]):
+                    req.complete(ErrorCode.INVALID_OPERATION, context={
+                        "error": "torn gang: batched and unbatched calls"})
+            return
+        if all(batched):
+            self._execute_batch(comm, entries)
+            return
+        self._execute_calls(comm, [e[0] for e in entries],
+                            [e[1] for e in entries])
+
+    def _execute_calls(self, comm: Communicator, calls: List[CallOptions],
+                       reqs: List[Request]) -> None:
         lead = calls[0]
         t0 = time.perf_counter_ns()
         event, context = None, None
@@ -223,6 +262,15 @@ class CudaGangContext:
             if any(self._sig(c) != self._sig(lead) for c in calls[1:]):
                 code = ErrorCode.INVALID_OPERATION  # mismatched gang calls
                 context = {"op": lead.op.name, "error": "mismatched calls"}
+            elif lead.fuse:
+                # a fused call off the ring: its operand is packed for the
+                # slot, so the plain base op has no correct spelling
+                code, event = self._execute_fused_decomposed(comm, calls)
+            elif (self.cmdring.eager and self.cmdring.supports(lead.op)
+                  and self.cmdring.run_batch(
+                      comm, [([c], [q]) for c, q in zip(calls, reqs)], 1,
+                      t0=t0)):
+                return  # a one-slot window: the ring completed the calls
             else:
                 code, event = self._run_op(comm, calls, lead)
         except Exception as e:  # the gang boundary: fail every rank's call
@@ -232,6 +280,134 @@ class CudaGangContext:
         dt = time.perf_counter_ns() - t0
         for req in reqs:
             req.complete(code, dt, context=context, event=event)
+
+    def _execute_batch(self, comm: Communicator, entries: List[tuple]) -> None:
+        """A fully matched batch: ``entries[r]`` is rank r's
+        ``(options_list, requests_list)``.  The command ring first; else
+        every position in order through the per-call path."""
+        if len({len(e[0]) for e in entries}) != 1:
+            for _, batch_reqs in entries:
+                for req in batch_reqs:
+                    req.complete(ErrorCode.INVALID_OPERATION, context={
+                        "error": "batches of different lengths"})
+            return
+        npos = len(entries[0][0])
+        try:
+            handled = self.cmdring.run_batch(comm, entries, npos)
+        except Exception:
+            import traceback
+
+            traceback.print_exc()
+            handled = False
+        if handled:
+            return
+        for i in range(npos):
+            self._execute_calls(comm, [e[0][i] for e in entries],
+                                [e[1][i] for e in entries])
+
+    def _execute_fused_decomposed(self, comm: Communicator,
+                                  calls: List[CallOptions]):
+        """The fused semantics off the ring, in plain PyTorch on the
+        operands' device, as the JAX engine's host reference computes
+        them (rank-order fold, the scalar as given, not its Q16.16 word);
+        counted as the ``fused_decomposed`` ring fallback."""
+        lead = calls[0]
+        size = len(calls)
+        try:
+            fuse = FusedCompute(int(lead.fuse))
+        except ValueError:
+            return ErrorCode.INVALID_OPERATION, None
+        n = int(lead.count)
+        if n <= 0 or fuse == FusedCompute.NONE:
+            return ErrorCode.INVALID_OPERATION, None
+        in_w, _ = ring_widths(lead.op, n, size, fuse=fuse)
+        rows = []
+        for c in calls:
+            if (not isinstance(c.op0, DeviceBuffer)
+                    or c.op0.count < in_w):
+                return ErrorCode.INVALID_OPERATION, None
+            rows.append(c.op0.tensor[:in_w])
+        self.cmdring.note_fallback("fused_decomposed")
+        device = rows[0].device
+        _wait_operands(device, [c.op0 for c in calls])
+        fp = float(lead.fuse_param)
+        outs = []
+        if fuse == FusedCompute.ATTN_HOP:
+            hop = int(lead.root_src)
+            for r in range(size):
+                src = (r - hop + size) % size
+                outs.append(fp * (rows[r][n:2 * n] * rows[src][:n]))
+        else:
+            op = reduce_op(lead.reduce_function)
+            reduced = rows[0][:n * size]
+            for row in rows[1:]:
+                reduced = op(reduced, row[:n * size])
+            for r in range(size):
+                chunk = reduced[r * n:(r + 1) * n]
+                if fuse == FusedCompute.MATMUL_RS:
+                    outs.append(fp * chunk)
+                else:  # APPLY: the param tail minus the scaled chunk
+                    outs.append(rows[r][size * n:(size + 1) * n] - fp * chunk)
+        writers = [r for r, c in enumerate(calls)
+                   if c.res is not None and not c.res.is_dummy]
+        for r in writers:
+            _check(calls[r].res, n, lead.arithcfg.uncompressed,
+                   "fused result").copy_(outs[r])
+        event = _record_event(device)
+        for r in writers:
+            calls[r].res.ready = event
+        return ErrorCode.OK, event
+
+    def _plan_device_call(self, comm: Communicator, calls: List[CallOptions],
+                          lead: CallOptions) -> Optional[dict]:
+        """Validate a gang call for the ring BEFORE any device work, as the
+        JAX engine's ``_plan_device_call`` does: operands and results must
+        be device buffers on the gang's device, of the call's dtype and at
+        least its widths, and BCAST in place.  None: the call cannot ride
+        a ring slot (``host_operands``)."""
+        op = lead.op
+        if op not in IN_W:
+            return None
+        size, n = comm.size, lead.count
+        if n <= 0:
+            return None
+        in_w = n * (size if IN_W[op] == "P" else 1)
+        out_w = n * (size if OUT_W[op] == "P" else 1)
+        dtype = lead.arithcfg.uncompressed
+        compressed = bool(lead.compression & CompressionFlags.ETH_COMPRESSED)
+        if op in (Operation.REDUCE, Operation.GATHER):
+            writers = {lead.root_dst if op == Operation.REDUCE
+                       else lead.root_src}
+        else:
+            writers = set(range(size))
+
+        def on_device(buf, width):
+            return (isinstance(buf, DeviceBuffer)
+                    and buf.device == self.device
+                    and buf.count >= width and buf.dtype == dtype)
+
+        any_device = False
+        for r, call in enumerate(calls):
+            buf = call.op0
+            if buf is not None and not buf.is_dummy:
+                if not on_device(buf, in_w):
+                    return None
+                any_device = True
+            res = call.res
+            if (r in writers and res is not None and not res.is_dummy
+                    and not on_device(res, out_w)):
+                return None
+        if not any_device:
+            return None
+        if op == Operation.BCAST and any(c.op0 is not c.res for c in calls):
+            return None
+        return {
+            "op": op, "n": n, "dtype": dtype_to_torch(dtype),
+            "compressed": compressed,
+            "wire": (dtype_to_torch(lead.arithcfg.compressed)
+                     if compressed else None),
+            "writers": writers,
+        }
 
     def _run_op(self, comm: Communicator, calls: List[CallOptions],
                 lead: CallOptions):
@@ -301,6 +477,36 @@ class CudaEngine(BaseEngine):
     def start(self, options: CallOptions) -> Request:
         req = Request(op_name=options.op.name)
         req.mark_executing()
+        self._start_with(options, req)
+        return req
+
+    def start_batch(self, items) -> None:
+        """Dispatch a flushed batch.  Maximal runs of gang collectives on
+        one communicator submit as ONE gang batch event; local ops and
+        config calls break the run and run on their own, in issue order."""
+        run: list = []
+        run_comm = None
+
+        def flush_run():
+            nonlocal run, run_comm
+            if run:
+                self.gang.submit_batch(run_comm, [o for o, _ in run],
+                                       [r for _, r in run])
+            run, run_comm = [], None
+
+        for options, req in items:
+            req.mark_executing()
+            if options.op in IN_W or options.op == Operation.BARRIER:
+                if run_comm is not None and options.comm is not run_comm:
+                    flush_run()
+                run_comm = options.comm
+                run.append((options, req))
+            else:
+                flush_run()
+                self._start_with(options, req)
+        flush_run()
+
+    def _start_with(self, options: CallOptions, req: Request) -> None:
         op = options.op
         if op == Operation.CONFIG:
             req.complete(self._apply_config(options))
@@ -318,7 +524,6 @@ class CudaEngine(BaseEngine):
                 })
         else:
             self.gang.submit(options.comm, options, req)
-        return req
 
     def _local_op(self, options: CallOptions):
         n = options.count

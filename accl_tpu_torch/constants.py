@@ -240,3 +240,102 @@ class ACCLError(RuntimeError):
 
 
 DEFAULT_TIMEOUT_S = 30.0
+
+
+# ---------------------------------------------------------------------------
+# the command ring (the JAX package's ``CmdOpcode`` ... ``CMDRING_*``)
+# ---------------------------------------------------------------------------
+
+
+class CmdOpcode(enum.IntEnum):
+    """Opcode space of a command-ring slot: the sequencer's dispatch
+    vocabulary (the reference CCLO's run-loop opcode set)."""
+
+    NOP = 0        # padding slot: decoded, skipped, status OK
+    ALLREDUCE = 1
+    BCAST = 2
+    HALT = 3       # teardown marker (the persistent run; not ported)
+    REDUCE_SCATTER = 4
+    ALLGATHER = 5
+    ALLTOALL = 6
+    BARRIER = 7    # the gather IS the sync; orders the slots around it
+    SEND = 8       # matched p2p pair as one slot (root=src, peer=dst)
+    RECV = 9       # the complementary spelling of the same pair slot
+    FUSED_MATMUL_RS = 10   # scaled GEMM-partial epilogue feeding a
+                           # reduce-scatter (alpha in fparam)
+    FUSED_APPLY = 11       # optimizer apply-on-arrival: p - lr * g, the
+                           # param chunk riding the operand tail
+    FUSED_ATTN_HOP = 12    # ring-attention hop: (q * kv) * scale, hop
+                           # offset in peer
+
+
+class FusedCompute(enum.IntEnum):
+    """Fuse hint of a call (``CallOptions.fuse``): which compute epilogue
+    rides the collective's ring slot.  Fused calls that miss the ring run
+    the host decomposition (the packed operand has no plain spelling)."""
+
+    NONE = 0
+    MATMUL_RS = 1
+    APPLY = 2
+    ATTN_HOP = 3
+
+
+#: Operation -> CmdOpcode: the sequencer's warm-path subset.  Fused
+#: opcodes are keyed by their fuse-hint name (they share a base Operation
+#: with a plain entry).  SEND/RECV keep their entries so the table stays
+#: the JAX package's; the port's ring refuses them (no p2p channel yet).
+CMDRING_OPCODES = {
+    Operation.ALLREDUCE: CmdOpcode.ALLREDUCE,
+    Operation.BCAST: CmdOpcode.BCAST,
+    Operation.REDUCE_SCATTER: CmdOpcode.REDUCE_SCATTER,
+    Operation.ALLGATHER: CmdOpcode.ALLGATHER,
+    Operation.ALLTOALL: CmdOpcode.ALLTOALL,
+    Operation.BARRIER: CmdOpcode.BARRIER,
+    Operation.SEND: CmdOpcode.SEND,
+    Operation.RECV: CmdOpcode.RECV,
+    "fused_matmul_rs": CmdOpcode.FUSED_MATMUL_RS,
+    "fused_apply": CmdOpcode.FUSED_APPLY,
+    "fused_attn_hop": CmdOpcode.FUSED_ATTN_HOP,
+}
+
+#: FusedCompute -> the CmdOpcode a fuse hint encodes as
+CMDRING_FUSED_OPCODES = {
+    FusedCompute.MATMUL_RS: CmdOpcode.FUSED_MATMUL_RS,
+    FusedCompute.APPLY: CmdOpcode.FUSED_APPLY,
+    FusedCompute.ATTN_HOP: CmdOpcode.FUSED_ATTN_HOP,
+}
+
+#: Q16.16 unit of the fparam slot word (a fused epilogue's scalar)
+CMDRING_FPARAM_ONE = 65536
+
+#: int32 words per slot
+CMDRING_SLOT_WORDS = 11
+
+#: field name -> word index within a slot
+CMDRING_FIELDS = {
+    "seqn": 0,      # monotone completion sequence number (mod 2^31)
+    "opcode": 1,    # CmdOpcode
+    "count": 2,     # element count of the collective
+    "dtype": 3,     # DataType of the operand
+    "function": 4,  # ReduceFunction
+    "root": 5,      # comm-relative root rank (BCAST)
+    "flags": 6,     # stochastic-rounding seed of the wire lane (0 here)
+    "nseg": 7,      # ring segmentation register snapshot
+    "peer": 8,      # hop OFFSET for FUSED_ATTN_HOP (SPMD-uniform)
+    "wire": 9,      # DataType of the compressed wire lane (0 = none)
+    "fparam": 10,   # Q16.16 scalar of a fused epilogue (0 for plain slots)
+}
+
+#: per-slot status-word retcodes the sequencer writes back
+CMDRING_ST_OK = 1
+CMDRING_ST_BAD_OP = 2
+
+#: ring knobs: ACCL_CMDRING=0 disables the ring, =eager also routes single
+#: calls through one-slot windows; ACCL_CMDRING_DEPTH sizes a window;
+#: payloads above ACCL_CMDRING_MAX_BYTES per rank take the per-call path
+CMDRING_ENV = "ACCL_CMDRING"
+CMDRING_DEPTH_ENV = "ACCL_CMDRING_DEPTH"
+CMDRING_MAX_BYTES_ENV = "ACCL_CMDRING_MAX_BYTES"
+CMDRING_DEPTH_DEFAULT = 8
+CMDRING_MAX_DEPTH = 64
+CMDRING_MAX_PAYLOAD_BYTES = 4 * 1024 * 1024

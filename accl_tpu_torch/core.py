@@ -3,9 +3,13 @@
 The counterpart of ``accl_tpu/core.py``'s ``ACCL`` (:72) for the calls of
 this port: buffers, tuning registers, copy / combine, the rooted bcast,
 reduce, scatter and gather, allgather, allreduce (with a wire dtype and
-``run_async``), reduce_scatter, alltoall and barrier.  Calls are
-synchronous unless ``run_async=True``, which returns the
-:class:`~accl_tpu_torch.request.Request`.  A rank that contributes or
+``run_async``), reduce_scatter, alltoall, barrier and the fused compute
+slots (``fused_matmul_reduce_scatter``, ``fused_apply``,
+``fused_attn_hop``).  Calls are synchronous unless ``run_async=True``,
+which returns the :class:`~accl_tpu_torch.request.Request`.  Inside
+``with accl.batch():`` calls queue and dispatch together at the end (or
+when a queued request is waited on): the gang runs the batch as command-
+ring windows, one sequencer launch each.  A rank that contributes or
 takes no data in a rooted call passes None, which becomes a
 :class:`~accl_tpu_torch.buffer.DummyBuffer`, as in the JAX facade.
 
@@ -31,13 +35,14 @@ from .constants import (
     DataType,
     DEFAULT_TIMEOUT_S,
     ErrorCode,
+    FusedCompute,
     Operation,
     ReduceFunction,
     TuningKey,
     as_datatype,
 )
 from .ops.driver import resolve_device
-from .request import Request
+from .request import CommandQueue, Request
 
 
 class ACCL:
@@ -55,6 +60,10 @@ class ACCL:
         self._arith = dict(arith_config or DEFAULT_ARITH_CONFIG)
         self._world = Communicator(ranks, local_rank, comm_id=0)
         self._timeout_s = float(timeout_s)
+        # the open batch (None outside one); nested batch() contexts only
+        # count depth
+        self._pending: Optional[CommandQueue] = None
+        self._batch_depth = 0
         self._config(ConfigFunction.SET_TIMEOUT, timeout_s)
         self._initialized = True
 
@@ -139,9 +148,82 @@ class ACCL:
                  else CompressionFlags.NO_COMPRESSION)
         return self._arith[key], flags
 
+    # -- batched dispatch (the command ring) --------------------------------
+    def begin_batch(self) -> None:
+        """Open a batch: later calls queue instead of dispatching until
+        :meth:`flush` (explicit, or on waiting for a queued request, a
+        synchronous call, or :meth:`end_batch`).  The gang runs a flushed
+        batch of collectives as command-ring windows, one sequencer launch
+        per window.  Collective by contract: every rank of the
+        communicator opens and flushes its batches at the same points."""
+        self._batch_depth += 1
+        if self._pending is None:
+            self._pending = CommandQueue()
+
+    def flush(self) -> None:
+        """Dispatch everything queued in the open batch; the batch stays
+        open.  When it returns, every call of the batch that has been
+        launched has finished on the device (a call whose peers have not
+        flushed yet is not launched)."""
+        for req in self._dispatch_pending():
+            if req.done() and req.event is not None:
+                req.event.synchronize()
+
+    def _dispatch_pending(self) -> list:
+        """Dispatch the open batch without waiting (the hook behind
+        ``Request.wait`` / ``test`` on a queued call); returns its
+        requests."""
+        q = self._pending
+        items = q.drain() if q is not None else []
+        if items:
+            for _, req in items:
+                req._pre_wait = None  # dispatched: a later wait must not
+                # flush whatever unrelated batch is open then
+            self.engine.start_batch(items)
+        return [req for _, req in items]
+
+    def end_batch(self) -> None:
+        """Close the outermost batch: flush and return to immediate
+        dispatch (an inner ``batch()`` only decrements the depth)."""
+        if self._batch_depth > 1:
+            self._batch_depth -= 1
+            return
+        self._batch_depth = 0
+        self.flush()
+        self._pending = None
+
+    def batch(self):
+        """Context manager form::
+
+            with accl.batch():
+                accl.allreduce(a, b, n, run_async=True)
+                accl.allgather(c, d, n, run_async=True)
+            # the exit flushes: both ride one command-ring window
+        """
+        import contextlib
+
+        @contextlib.contextmanager
+        def _cm():
+            self.begin_batch()
+            try:
+                yield self
+            finally:
+                self.end_batch()
+
+        return _cm()
+
     def _launch(self, options: CallOptions, run_async: bool,
                 context: str) -> Request:
-        req = self.engine.start(options)
+        if self._pending is not None:
+            req = Request(op_name=options.op.name)
+            req._pre_wait = self._dispatch_pending  # dispatch on wait
+            self._pending.push((options, req))
+            if run_async:
+                return req
+            # a synchronous call inside a batch dispatches the whole run
+            self._dispatch_pending()
+        else:
+            req = self.engine.start(options)
         if run_async:
             return req
         if not req.wait(timeout=self._timeout_s):
@@ -319,6 +401,82 @@ class ACCL:
                                 compress_dtype, run_async, op0=sendbuf,
                                 res=recvbuf)
 
+    # -- fused compute slots -------------------------------------------------
+    def _fused_launch(self, op, fuse, sendbuf, recvbuf, n, function, comm,
+                      fuse_param, root_src, run_async, context):
+        cfg, flags = self._resolve_arithcfg(recvbuf.dtype, None)
+        opts = CallOptions(
+            op=op, comm=comm, count=n, reduce_function=function,
+            root_src=root_src, arithcfg=cfg, compression=flags,
+            op0=sendbuf, res=recvbuf, fuse=int(fuse),
+            fuse_param=float(fuse_param),
+        )
+        return self._launch(opts, run_async, context)
+
+    @staticmethod
+    def _fused_operand_check(sendbuf, need: int, what: str) -> None:
+        if sendbuf.count < need:
+            raise ValueError(
+                f"{what} needs a packed operand of at least {need} "
+                f"elements, got {sendbuf.count}"
+            )
+
+    def fused_matmul_reduce_scatter(
+        self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
+        count: Optional[int] = None, scale: float = 1.0,
+        function: ReduceFunction = ReduceFunction.SUM,
+        comm: Optional[Communicator] = None, run_async: bool = False,
+    ):
+        """GEMM partials straight into a reduce-scatter slot: ``sendbuf``
+        holds this rank's ``size*count`` partials as ``size`` destination
+        chunks; ``recvbuf`` gets ``scale *`` this rank's reduced chunk."""
+        comm = comm or self._world
+        n = self._count_of(recvbuf, count)
+        self._fused_operand_check(sendbuf, n * comm.size,
+                                  "fused_matmul_reduce_scatter")
+        return self._fused_launch(
+            Operation.REDUCE_SCATTER, FusedCompute.MATMUL_RS, sendbuf,
+            recvbuf, n, function, comm, scale, 0, run_async,
+            "fused_matmul_reduce_scatter",
+        )
+
+    def fused_apply(
+        self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
+        count: Optional[int] = None, lr: float = 1.0,
+        function: ReduceFunction = ReduceFunction.SUM,
+        comm: Optional[Communicator] = None, run_async: bool = False,
+    ):
+        """Optimizer apply on arrival: ``sendbuf`` packs this rank's
+        gradient (``size*count``, as ``size`` chunks) followed by its own
+        ``count``-wide parameter shard; ``recvbuf`` gets
+        ``param - lr * reduced_grad_chunk``."""
+        comm = comm or self._world
+        n = self._count_of(recvbuf, count)
+        self._fused_operand_check(sendbuf, n * (comm.size + 1), "fused_apply")
+        return self._fused_launch(
+            Operation.ALLREDUCE, FusedCompute.APPLY, sendbuf, recvbuf, n,
+            function, comm, lr, 0, run_async, "fused_apply",
+        )
+
+    def fused_attn_hop(
+        self, sendbuf: BaseBuffer, recvbuf: BaseBuffer, hop: int,
+        count: Optional[int] = None, scale: float = 1.0,
+        comm: Optional[Communicator] = None, run_async: bool = False,
+    ):
+        """One ring-attention hop as a slot: ``sendbuf`` packs this rank's
+        KV block (``count``) then its Q block (``count``); ``recvbuf``
+        gets ``scale * q * kv`` against the KV block of the rank ``hop``
+        positions behind on the ring (``hop`` is the same on every
+        rank)."""
+        comm = comm or self._world
+        n = self._count_of(recvbuf, count)
+        self._fused_operand_check(sendbuf, 2 * n, "fused_attn_hop")
+        hop = int(hop) % max(comm.size, 1)
+        return self._fused_launch(
+            Operation.ALLREDUCE, FusedCompute.ATTN_HOP, sendbuf, recvbuf, n,
+            ReduceFunction.SUM, comm, scale, hop, run_async, "fused_attn_hop",
+        )
+
     def barrier(self, comm: Optional[Communicator] = None,
                 run_async: bool = False):
         return self._collective(Operation.BARRIER, comm, 0, DataType.FLOAT32,
@@ -335,7 +493,7 @@ def cuda_group(n: int, device=None, **accl_kwargs) -> List[ACCL]:
     ``device`` asks for another (tests pass ``device="cpu"``); raises when
     there is no CUDA device to run on."""
     dev = resolve_device(device)
-    gang = CudaGangContext()
+    gang = CudaGangContext(dev)
     ranks = [Rank(address=f"{dev}:{i}", session=i) for i in range(n)]
     return [
         ACCL(CudaEngine(gang, dev), ranks, i, **accl_kwargs)

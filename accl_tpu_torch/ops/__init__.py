@@ -3,11 +3,13 @@
 * ``collectives`` — the plain stacked-rank forms (the ``xla`` lowering).
 * ``ring`` — the explicit segmented ring pipeline (the ``ring`` lowering).
 * ``cuda`` — the hand-written kernels (ring collectives, rooted relays,
-  combine).
+  combine, the command-ring sequencer).
+* ``cmdring`` — the command ring's device half: ``slot_epilogue`` and
+  ``run_window``.
 * ``driver`` — stacked-in, stacked-out entry points over a :class:`Mesh`.
 """
 
-from . import collectives, cuda, ring, wire  # noqa: F401
+from . import cmdring, collectives, cuda, ring, wire  # noqa: F401
 from .driver import (  # noqa: F401
     Mesh,
     make_mesh,

@@ -7,6 +7,8 @@
   allgather over ranks that share one device.
 * ``rooted`` — rows 9-11, the rooted ring relays (bcast, reduce,
   scatter), and the rooted gather over K3.
+* ``cmdring`` — row 14, the command-ring sequencer: one launch runs a
+  window of collectives whose slot words it decodes on the device.
 
 Kernels are built from ``accl_tpu_torch/csrc`` on first use
 (:func:`build_all` builds them all at once).  Every wrapper takes its
@@ -15,6 +17,7 @@ tensors, counting launches in ``<wrapper>.launches``.
 """
 
 from ._build import build_all  # noqa: F401
+from .cmdring import sequencer, sequencer_plain  # noqa: F401
 from .combine import combine, combine_plain  # noqa: F401
 from .ring import (  # noqa: F401
     ring_allgather,
@@ -45,4 +48,5 @@ KERNELS = {
     "ring_bcast": ring_bcast,
     "ring_reduce": ring_reduce,
     "ring_scatter": ring_scatter,
+    "sequencer": sequencer,
 }

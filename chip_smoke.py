@@ -14,7 +14,16 @@ Phases (any failure exits non-zero):
    rank's partial and with the root's output alone, scatter) and the
    root-only gather over K3 run at P in {2, 4, 8} x root in {0, P-1} x
    f32/bf16/f16/i32, SUM and MAX with NaNs, 16M per rank, plus a ragged
-   1,000,003 and views misaligned by one element (the scalar path);
+   1,000,003 and views misaligned by one element (the scalar path).  The
+   command-ring sequencer (row 14) is held against ``sequencer_plain``,
+   results and status words, over P in {2, 4, 8}, windows of depth 1, 8
+   and 64 mixing every opcode class (bcast at roots 0 and P-1, the
+   attention hop at offsets 1 and P-1, an opcode outside the enum),
+   f32/bf16/f16/i32, SUM and MAX with NaNs, bf16/f16 wire lanes, 1M
+   elements per rank, a ragged 1,000,003, misaligned views, and the
+   aliasing hazards (in-place allreduce, reduce-scatter, allgather,
+   alltoall and bcast; write after read and write after write across
+   slots);
 3. the main paths, each with every kernel's launch counter zeroed just
    before and read just after:
    a. the allreduce path: ``cuda_group(4)``, one thread per rank, 16M
@@ -29,16 +38,27 @@ Phases (any failure exits non-zero):
       result checked exactly against numpy (the ``xla`` SUM reduce within
       1e-5 of float64), non-root result buffers shown untouched; each
       rooted kernel's launches must equal its ``pallas_ring`` calls;
+   c. the batch path: ``with a.batch():`` windows at 256 KiB and 4 MiB per
+      rank — eight slots (allreduce SUM and MAX, bcast root 2,
+      reduce_scatter, allgather, alltoall, barrier, fused_apply), then
+      fused_matmul_reduce_scatter and fused_attn_hop — each checked
+      exactly against numpy and each one refill, no fallback, one
+      sequencer launch and no other kernel launch; then windows the ring
+      refuses (oversized, a reduce inside, ``pallas_ring`` registered),
+      correct with their reason counted;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (the
-   root-only gather as extra keys of K3's entry);
+   root-only gather as extra keys of K3's entry; the sequencer on 8
+   allreduces of 1M float32 per rank, with 8 x 64K and the facade's mix at
+   4 MiB per rank as extra keys of its entry);
 5. time the facade end to end (host clock around each synchronous call
    on rank 0's thread, rendezvous included) at 256 KiB, 4 MiB and 64 MiB
    per rank: the allreduce under ``xla``, ``pallas_ring`` and
    ``pallas_ring_bidir`` (p50 and bus bandwidth, bytes per rank x
    2(P-1)/P over the p50), then reduce / bcast / scatter / gather under
-   ``xla`` and ``pallas_ring`` and alltoall (p50 and p90), each set as a
-   JSON line of its own.
+   ``xla`` and ``pallas_ring`` and alltoall (p50 and p90), and one
+   batched window of 8 allreduces beside the same 8 calls unbatched at
+   256 KiB, 1 MiB and 4 MiB per rank, each set as a JSON line of its own.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -99,6 +119,27 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device time alone: a sleep kernel holds the stream while the host
+    enqueues the launches, so the events bracket the kernels and not the
+    host's launch path (``time_ms`` includes it when the host is the
+    slower side)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms of clock cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -461,6 +502,533 @@ def facade_rooted_latency(sizes, iters: int = 20) -> list:
     } for (op, algo, n), (times, launch) in samples.items()]
 
 
+# -- the command-ring sequencer (row 14) -----------------------------------
+
+SEQ_N = 1 << 20  # elements per rank of the sequencer checks (4 MiB f32)
+
+
+def seq_counts(op: int, N: int, P: int):
+    """(count, fuse) of a slot whose operand per rank stays within N."""
+    from accl_tpu_torch.constants import CmdOpcode as Op
+
+    if op in (Op.REDUCE_SCATTER, Op.FUSED_MATMUL_RS, Op.ALLTOALL,
+              Op.ALLGATHER):
+        return max(N // P, 1), 1 if op == Op.FUSED_MATMUL_RS else 0
+    if op == Op.FUSED_APPLY:
+        return max(N // (P + 1), 1), 2
+    if op == Op.FUSED_ATTN_HOP:
+        return max(N // 2, 1), 3
+    return N, 0
+
+
+def seq_window(P, dtype, ops, N, seed, wires=None, offset=0):
+    """A window of ``ops`` ((opcode, root, peer) per slot), every slot with
+    its own operands and results, made from ``seed`` (the same seed makes
+    the same window).  SUM and MAX alternate by slot; floats carry NaNs.
+    ``offset`` misaligns every operand by that many elements."""
+    import torch
+
+    from accl_tpu_torch.cmdring import (WindowShape, encode_fparam,
+                                        encode_slot, ring_widths)
+    from accl_tpu_torch.constants import (CmdOpcode as Op, Operation,
+                                          torch_to_dtype)
+    from accl_tpu_torch.ops.cuda.cmdring import result_width
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rand(n):
+        if dtype == torch.int32:
+            x = torch.randint(-2**31, 2**31 - 1, (n + offset,),
+                              generator=gen, device=dev, dtype=dtype)
+        else:
+            x = torch.randn(n + offset, generator=gen, device=dev).to(dtype)
+            x[::997] = float("nan")
+        return x[offset:]
+
+    base = {Op.ALLGATHER: Operation.ALLGATHER,
+            Op.REDUCE_SCATTER: Operation.REDUCE_SCATTER,
+            Op.FUSED_MATMUL_RS: Operation.REDUCE_SCATTER,
+            Op.ALLTOALL: Operation.ALLTOALL, Op.BARRIER: Operation.BARRIER}
+    slots, xs, outs, in_ws, out_ws, wl = [], [], [], [], [], []
+    for i, (op, root, peer) in enumerate(ops):
+        n, fuse = seq_counts(op, N, P)
+        if op == Op.BARRIER:
+            n = 1
+        in_w, out_w = ring_widths(base.get(op, Operation.ALLREDUCE), n, P,
+                                  fuse)
+        wire = wires[i % len(wires)] if wires else None
+        slots.append(encode_slot(
+            100 + i, op, n, dtype=int(torch_to_dtype(dtype)),
+            function=i % 2, root=root, peer=peer,
+            wire=0 if wire is None else int(torch_to_dtype(wire)),
+            fparam=encode_fparam(0.375) if fuse else 0))
+        if op == Op.BARRIER:
+            xs.append([None] * P)
+            outs.append([None] * P)
+        else:
+            xs.append([rand(in_w) for _ in range(P)])
+            outs.append([torch.zeros(result_width(in_w, out_w, P),
+                                     dtype=dtype, device=dev)
+                         for _ in range(P)])
+        in_ws.append(in_w)
+        out_ws.append(out_w)
+        wl.append(wire)
+    import numpy as np
+
+    return (np.stack(slots), xs, outs,
+            WindowShape(len(ops), in_ws, out_ws, wl, dtype))
+
+
+def hazard_window(P, dtype, N, seed):
+    """In-place allreduce, reduce-scatter, MPI allgather, alltoall and
+    bcast, then a slot writing what an earlier one reads (WAR) and two
+    slots writing one buffer (WAW).  Returns the window and every buffer
+    it touches."""
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch.cmdring import WindowShape, encode_slot
+    from accl_tpu_torch.constants import CmdOpcode as Op
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = N // P
+
+    def rand(m):
+        return torch.randn(m, generator=gen, device=dev).to(dtype)
+
+    ar, rs, ag, a2a, bc, c, d, e, f, x = (
+        [rand(m) for _ in range(P)]
+        for m in (N, P * n, P * n, P * n, N, N, N, N, N, N))
+    slots = [encode_slot(i, op, cnt, root=root) for i, (op, cnt, root) in
+             enumerate([(Op.ALLREDUCE, N, 0), (Op.REDUCE_SCATTER, n, 0),
+                        (Op.ALLGATHER, n, 0), (Op.ALLTOALL, n, 0),
+                        (Op.BCAST, N, P - 1), (Op.ALLREDUCE, N, 0),
+                        (Op.ALLREDUCE, N, 0), (Op.ALLREDUCE, N, 0),
+                        (Op.BCAST, N, 1)])]
+    xs = [ar, rs, [g[r * n:(r + 1) * n] for r, g in enumerate(ag)], a2a,
+          bc, c, e, x, e]
+    outs = [ar, [t[:n] for t in rs], ag, a2a, bc, d,
+            c,   # WAR: slot 5 read c
+            f, f]  # WAW: slots 7 and 8 both write f
+    shape = WindowShape(9, (N, P * n, n, P * n, N, N, N, N, N),
+                        (N, n, P * n, P * n, N, N, N, N, N), (None,) * 9,
+                        dtype)
+    return (np.stack(slots), xs, outs, shape,
+            ar + rs + ag + a2a + bc + c + d + e + f + x)
+
+
+def check_sequencer(err) -> None:
+    """Phase 2 for row 14: the sequencer kernel against sequencer_plain,
+    exactly, results and status words, over P {2,4,8}, windows of depth 1,
+    8 and 64 mixing every opcode class, four dtypes, SUM and MAX with
+    NaNs, bf16/f16 wire lanes, ragged and misaligned operands and the
+    aliasing hazards."""
+    import torch
+
+    from accl_tpu_torch.constants import CmdOpcode as Op
+    from accl_tpu_torch.ops.cuda import cmdring as kseq
+
+    F32, BF16, F16, I32 = (torch.float32, torch.bfloat16, torch.float16,
+                           torch.int32)
+
+    def mix(P, floats=True):
+        ops = [(Op.ALLREDUCE, 0, 0), (Op.ALLREDUCE, 0, 0),
+               (Op.BCAST, 0, 0), (Op.BCAST, P - 1, 0),
+               (Op.REDUCE_SCATTER, 0, 0), (Op.ALLGATHER, 0, 0),
+               (Op.ALLTOALL, 0, 0), (Op.BARRIER, 0, 0), (Op.NOP, 0, 0),
+               (0x7F, 0, 0)]  # an opcode outside the enum: BAD_OP
+        if floats:
+            ops += [(Op.FUSED_APPLY, 0, 0), (Op.FUSED_MATMUL_RS, 0, 0),
+                    (Op.FUSED_ATTN_HOP, 0, 1),
+                    (Op.FUSED_ATTN_HOP, 0, P - 1)]
+        return ops
+
+    cases = []  # (tag, window maker)
+    for P in (2, 4, 8):
+        for dtype in (F32, BF16, F16, I32):
+            ops = mix(P, dtype != I32)
+            cases.append((f"P={P} {dtype} depth 8 x2",
+                          lambda s, P=P, d=dtype, o=ops: seq_window(
+                              P, d, o[:8], SEQ_N, s)))
+            cases.append((f"P={P} {dtype} depth 8 tail",
+                          lambda s, P=P, d=dtype, o=ops: seq_window(
+                              P, d, o[8:] + o[:8 - len(o[8:])], SEQ_N, s)))
+        for dtype in (F32, I32):
+            ops = mix(P, dtype != I32)
+            cases.append((f"P={P} {dtype} depth 64",
+                          lambda s, P=P, d=dtype, o=ops: seq_window(
+                              P, d, (o * 7)[:64], 4096, s)))
+    for op in mix(4):
+        cases.append((f"P=4 f32 depth 1 opcode {op[0]} peer {op[2]}",
+                      lambda s, op=op: seq_window(4, F32, [op], SEQ_N, s)))
+    for P, wires in ((4, [BF16]), (4, [F16]), (8, [BF16, F16])):
+        cases.append((f"P={P} f32 wires {wires}",
+                      lambda s, P=P, w=wires: seq_window(
+                          P, F32, mix(P, False)[:8], SEQ_N, s, wires=w)))
+    cases += [
+        ("P=4 f32 ragged", lambda s: seq_window(4, F32, mix(4)[:8],
+                                                 1_000_003, s)),
+        ("P=4 bf16 ragged", lambda s: seq_window(4, BF16, mix(4)[6:],
+                                                  1_000_003, s)),
+        ("P=4 f32 misaligned", lambda s: seq_window(4, F32, mix(4)[4:12],
+                                                     SEQ_N, s, offset=1)),
+        ("P=2 f16 misaligned", lambda s: seq_window(2, F16, mix(2)[:8],
+                                                     SEQ_N, s, offset=1)),
+    ]
+    for P, dtype in ((4, F32), (8, F32), (4, BF16), (2, F16)):
+        cases.append((f"P={P} {dtype} hazards",
+                      lambda s, P=P, d=dtype: hazard_window(P, d, SEQ_N, s)))
+    for k, (tag, build) in enumerate(cases):
+        got = build(SEED + k)
+        want = build(SEED + k)
+        before = kseq.sequencer.launches.count
+        st = kseq.sequencer(*got[:4], device=torch.device("cuda", 0))
+        if kseq.sequencer.launches.count == before:
+            fail(f"sequencer {tag}: the kernel did not launch")
+        st_plain = kseq.sequencer_plain(*want[:4])
+        torch.cuda.synchronize()
+        if not torch.equal(st.cpu(), st_plain.cpu()):
+            fail(f"sequencer {tag}: status words {st.tolist()} vs "
+                 f"{st_plain.tolist()}")
+        if len(got) > 4:  # the hazard windows: every buffer they touch
+            pairs = zip(got[4], want[4])
+        else:
+            pairs = ((o, w) for rg, rw in zip(got[2], want[2])
+                     for o, w in zip(rg, rw) if o is not None)
+        for i, (o, w) in enumerate(pairs):
+            err["sequencer"] = max(err["sequencer"], compare(
+                f"sequencer {tag} tensor {i}", o, w))
+        del got, want
+        torch.cuda.synchronize()
+    print(f"sequencer: {len(cases)} windows agree with sequencer_plain",
+          flush=True)
+
+
+def batch_main_path(kc) -> dict:
+    """Phase 3c: ``with a.batch():`` windows on ``cuda_group(4)`` at 256 KiB
+    and 4 MiB per rank.  Window A: allreduce SUM and MAX, bcast root 2,
+    reduce_scatter, allgather, alltoall, barrier, fused_apply; window B:
+    fused_matmul_reduce_scatter, fused_attn_hop.  Each is checked against
+    numpy and must show one refill of all its slots, no fallback, one
+    sequencer launch and no other kernel launch.  Returns the launch
+    counts over the windows."""
+    import numpy as np
+
+    import accl_tpu_torch as at
+
+    P = P_MAIN
+    totals = {k: 0 for k in kc.KERNELS}
+    group = at.cuda_group(P)
+    ring = group[0].engine.gang.cmdring
+    try:
+        for nbytes in (256 * 1024, 4 * 1024 * 1024):
+            N = nbytes // 4
+            n_rs, n_ap, n_at = N // P, N // (P + 1), N // 2
+            rng = np.random.default_rng(SEED + 2)
+            data = rng.standard_normal((P, N), dtype=np.float32)
+            grads = rng.standard_normal((P, P * n_ap), dtype=np.float32)
+            params = rng.standard_normal((P, n_ap), dtype=np.float32)
+            kvq = rng.standard_normal((P, 2 * n_at), dtype=np.float32)
+
+            def fold(rows):
+                acc = rows[0].copy()
+                for row in rows[1:]:
+                    acc = acc + row
+                return acc
+
+            total = fold(data)
+            gsum = fold(grads)
+            bufs = {}
+
+            def window_a(a, r):
+                b = bufs[r] = dict(
+                    s=a.create_buffer_from(data[r]),
+                    ar=a.create_buffer(N, np.float32),
+                    mx=a.create_buffer(N, np.float32),
+                    bc=a.create_buffer_from(data[r].copy()),
+                    rs=a.create_buffer(n_rs, np.float32),
+                    ag=a.create_buffer(P * n_rs, np.float32),
+                    a2=a.create_buffer(N, np.float32),
+                    fa=a.create_buffer_from(
+                        np.concatenate([grads[r], params[r]])),
+                    fo=a.create_buffer(n_ap, np.float32),
+                )
+                with a.batch():
+                    reqs = [
+                        a.allreduce(b["s"], b["ar"], run_async=True),
+                        a.allreduce(b["s"], b["mx"], function=1,
+                                    run_async=True),
+                        a.bcast(b["bc"], root=2, run_async=True),
+                        a.reduce_scatter(b["s"], b["rs"], n_rs,
+                                         run_async=True),
+                        a.allgather(b["s"], b["ag"], n_rs, run_async=True),
+                        a.alltoall(b["s"], b["a2"], run_async=True),
+                        a.barrier(run_async=True),
+                        a.fused_apply(b["fa"], b["fo"], n_ap, lr=0.5,
+                                      run_async=True),
+                    ]
+                for q in reqs:
+                    if not q.wait(120) or not q.ring_resident:
+                        raise RuntimeError(f"{q.op_name} off the ring")
+                    q.check()
+
+            def window_b(a, r):
+                b = bufs[r]
+                b["mm"] = a.create_buffer_from(data[r][:P * n_rs])
+                b["mo"] = a.create_buffer(n_rs, np.float32)
+                b["at"] = a.create_buffer_from(kvq[r])
+                b["ao"] = a.create_buffer(n_at, np.float32)
+                with a.batch():
+                    reqs = [
+                        a.fused_matmul_reduce_scatter(
+                            b["mm"], b["mo"], n_rs, scale=0.25,
+                            run_async=True),
+                        a.fused_attn_hop(b["at"], b["ao"], hop=1,
+                                         count=n_at, scale=2.0,
+                                         run_async=True),
+                    ]
+                for q in reqs:
+                    if not q.wait(120) or not q.ring_resident:
+                        raise RuntimeError(f"{q.op_name} off the ring")
+                    q.check()
+
+            for name, work, nslots in (("A", window_a, 8),
+                                       ("B", window_b, 2)):
+                for k in kc.KERNELS.values():
+                    k.launches.reset()
+                st0 = ring.stats()
+                run_ranks(group, work, f"batch window {name}")
+                launches = {k: f.launches.count
+                            for k, f in kc.KERNELS.items()}
+                st1 = ring.stats()
+                delta = {k: st1[k] - st0[k] for k in ("refills", "slots")}
+                fb = {k: v - st0["fallbacks"].get(k, 0)
+                      for k, v in st1["fallbacks"].items()
+                      if v != st0["fallbacks"].get(k, 0)}
+                print(f"batch window {name} at {nbytes} B/rank: {delta}, "
+                      f"fallbacks {fb}, launches {launches}", flush=True)
+                others = {k: v for k, v in launches.items()
+                          if k != "sequencer" and v}
+                if (delta != {"refills": 1, "slots": nslots} or fb
+                        or launches["sequencer"] != 1 or others):
+                    fail(f"batch window {name}: {delta} {fb} {launches}")
+                for k, v in launches.items():
+                    totals[k] += v
+
+            def host(buf):
+                buf.sync_from_device()
+                return buf.data
+
+            chunk = lambda x, r, m: x[r * m:(r + 1) * m]  # noqa: E731
+            for r in range(P):
+                b = bufs[r]
+                checks = {
+                    "allreduce": (host(b["ar"]), total),
+                    "allreduce MAX": (host(b["mx"]),
+                                      np.maximum.reduce(data)),
+                    "bcast": (host(b["bc"]), data[2]),
+                    "reduce_scatter": (host(b["rs"]), chunk(total, r, n_rs)),
+                    "allgather": (host(b["ag"]),
+                                  data[:, :n_rs].reshape(-1)),
+                    "alltoall": (host(b["a2"]), np.concatenate(
+                        [chunk(data[j], r, n_rs) for j in range(P)])),
+                    "fused_apply": (host(b["fo"]), params[r] - np.float32(
+                        0.5) * chunk(gsum, r, n_ap)),
+                    "fused_matmul_reduce_scatter": (
+                        host(b["mo"]),
+                        np.float32(0.25) * chunk(fold(data[:, :P * n_rs]),
+                                                 r, n_rs)),
+                    "fused_attn_hop": (
+                        host(b["ao"]), (kvq[r][n_at:] * kvq[(r - 1) % P][
+                            :n_at]) * np.float32(2.0)),
+                }
+                for what, (got, want) in checks.items():
+                    if not np.array_equal(got, want):
+                        fail(f"batch {what} rank {r} at {nbytes} B/rank "
+                             f"differs from numpy")
+    finally:
+        for a in group:
+            a.deinit()
+    return totals
+
+
+def refused_windows() -> dict:
+    """Phase 3d: windows the ring refuses (oversized at 8 MiB per rank, a
+    reduce inside the batch, an allreduce_algorithm register of
+    pallas_ring) give correct results with their reason counted."""
+    import numpy as np
+
+    import accl_tpu_torch as at
+
+    P = P_MAIN
+    group = at.cuda_group(P)
+    ring = group[0].engine.gang.cmdring
+    counted = {}
+    try:
+        for reason in ("oversized", "unsupported_op", "tuning_override"):
+            N = 2 * 1024 * 1024 if reason == "oversized" else 64 * 1024
+            rng = np.random.default_rng(SEED + 3)
+            data = rng.standard_normal((P, N), dtype=np.float32)
+            exact = data.astype(np.float64).sum(0)
+            got = {}
+
+            def work(a, r):
+                if reason == "tuning_override":
+                    a.set_tuning("allreduce_algorithm", "pallas_ring")
+                s = a.create_buffer_from(data[r])
+                d1 = a.create_buffer(N, np.float32)
+                d2 = a.create_buffer(N, np.float32)
+                with a.batch():
+                    reqs = [a.allreduce(s, d1, run_async=True)]
+                    if reason == "unsupported_op":
+                        reqs.append(a.reduce(s, d2 if r == 0 else None,
+                                             root=0, run_async=True))
+                    else:
+                        reqs.append(a.allreduce(s, d2, run_async=True))
+                for q in reqs:
+                    q.wait(120)
+                    q.check()
+                a.set_tuning("allreduce_algorithm", "xla")
+                d1.sync_from_device()
+                d2.sync_from_device()
+                got[r] = (d1.data.copy(), d2.data.copy())
+
+            before = dict(ring.stats()["fallbacks"])
+            run_ranks(group, work, f"refused window {reason}")
+            after = ring.stats()["fallbacks"]
+            counted[reason] = after.get(reason, 0) - before.get(reason, 0)
+            if counted[reason] != 1:
+                fail(f"refused window {reason}: counted {after}")
+            for r in range(P):
+                outs = got[r] if (reason != "unsupported_op" or r == 0) \
+                    else got[r][:1]
+                for o in outs:
+                    if not np.allclose(o, exact, rtol=1e-5, atol=1e-5):
+                        fail(f"refused window {reason} rank {r}: wrong")
+    finally:
+        for a in group:
+            a.deinit()
+    print(f"refused windows counted: {counted}", flush=True)
+    return counted
+
+
+def time_sequencer(rand) -> dict:
+    """Phase 4 for row 14: the windows of the bounds table at P = 4."""
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch.cmdring import WindowShape, encode_slot
+    from accl_tpu_torch.constants import CmdOpcode as Op
+    from accl_tpu_torch.ops.cuda import cmdring as kseq
+
+    P, F32 = P_MAIN, torch.float32
+
+    def allreduce_window(N):
+        xs = [[rand(N, F32) for _ in range(P)] for _ in range(8)]
+        outs = [[torch.empty(N, device=x[0].device) for x in xs[0]]
+                for _ in range(8)]
+        slots = np.stack([encode_slot(i, Op.ALLREDUCE, N) for i in range(8)])
+        shape = WindowShape(8, (N,) * 8, (N,) * 8, (None,) * 8, F32)
+        return slots, xs, outs, shape
+
+    def window_bytes(slots, xs, outs, shape):
+        """Each operand the slots read once, each result written once."""
+        read = write = ops = 0
+        for w, row_x, row_o, in_w in zip(slots, xs, outs, shape.in_ws):
+            op = int(w[1])
+            if op == Op.BARRIER:
+                continue
+            used = 1 if op == Op.BCAST else P
+            read += used * in_w * 4
+            write += sum(o.numel() for o in row_o if o is not None) * 4
+            if op in (Op.ALLREDUCE, Op.REDUCE_SCATTER, Op.FUSED_APPLY,
+                      Op.FUSED_MATMUL_RS):
+                ops += (P - 1) * in_w
+        return read + write, ops
+
+    def library(xs, outs):
+        for row_x, row_o in zip(xs, outs):
+            acc = torch.stack(row_x).sum(0)
+            for o in row_o:
+                o.copy_(acc)
+
+    out = {}
+    for key, win in (("", allreduce_window(SEQ_N)),
+                     ("window_64k_", allreduce_window(64 * 1024))):
+        nbytes, ops = window_bytes(*win)
+        out[key + "ms"] = time_ms(lambda: kseq.sequencer(*win))
+        out[key + "device_ms"] = device_ms(lambda: kseq.sequencer(*win))
+        out[key + "plain_ms"] = time_ms(lambda: kseq.sequencer_plain(*win))
+        out[key + "library_ms"] = time_ms(lambda: library(win[1], win[2]))
+        out[key + "bound"] = bound(nbytes, ops)
+        del win
+    mix_ops = [(Op.ALLREDUCE, 0, 0), (Op.ALLREDUCE, 0, 0), (Op.BCAST, 2, 0),
+               (Op.REDUCE_SCATTER, 0, 0), (Op.ALLGATHER, 0, 0),
+               (Op.ALLTOALL, 0, 0), (Op.BARRIER, 0, 0),
+               (Op.FUSED_APPLY, 0, 0)]
+    win = seq_window(P, F32, mix_ops, SEQ_N, SEED + 4)
+    nbytes, ops = window_bytes(*win)
+    out["mix_4mib_ms"] = time_ms(lambda: kseq.sequencer(*win))
+    out["mix_4mib_device_ms"] = device_ms(lambda: kseq.sequencer(*win))
+    out["mix_4mib_plain_ms"] = time_ms(lambda: kseq.sequencer_plain(*win))
+    out["mix_4mib_bound"] = bound(nbytes, ops)
+    return out
+
+
+def facade_batch_latency(sizes, iters: int = 20) -> list:
+    """p50 and p90 of one batched window of 8 allreduces per rank, and of
+    the same 8 calls unbatched, on rank 0's host clock (rendezvous and
+    device time included); every pair runs twice over, the second pass
+    kept."""
+    import numpy as np
+
+    import accl_tpu_torch as at
+
+    samples = {}
+
+    def rank_main(a, r):
+        bufs = {n: (a.create_buffer(n, np.float32),
+                    [a.create_buffer(n, np.float32) for _ in range(8)])
+                for n in sizes}
+        for _pass in range(2):
+            for n, (s, ds) in bufs.items():
+                for mode in ("batched", "unbatched"):
+                    times = []
+                    for _ in range(iters):
+                        t = time.perf_counter()
+                        if mode == "batched":
+                            with a.batch():
+                                reqs = [a.allreduce(s, d, run_async=True)
+                                        for d in ds]
+                            for q in reqs:
+                                q.wait(60)
+                                q.check()
+                        else:
+                            for d in ds:
+                                a.allreduce(s, d)
+                        times.append(time.perf_counter() - t)
+                    if r == 0:
+                        samples[(mode, n)] = times
+
+    group = at.cuda_group(P_MAIN)
+    try:
+        run_ranks(group, rank_main, "facade batch timing")
+        if group[0].engine.gang.cmdring.stats()["fallbacks"]:
+            fail("facade batch timing: a window fell back")
+    finally:
+        for a in group:
+            a.deinit()
+    return [{
+        "mode": mode, "calls": 8, "bytes_per_rank": 4 * n,
+        "p50_ms": float(np.median(t)) * 1e3,
+        "p90_ms": float(np.percentile(t, 90)) * 1e3,
+    } for (mode, n), t in samples.items()]
+
+
 def main() -> int:
     import torch
 
@@ -566,6 +1134,7 @@ def main() -> int:
     del xs, got, want
     torch.cuda.synchronize()
     check_rooted_kernels(rand, err)
+    check_sequencer(err)
     print(f"kernels agree with their plain versions exactly "
           f"({time.time() - t0:.1f} s)", flush=True)
 
@@ -648,8 +1217,13 @@ def main() -> int:
     rooted = rooted_main_path(kc)
     print(f"rooted path ok ({time.time() - t0:.1f} s): launches {rooted}",
           flush=True)
-    # each kernel's launches over both paths' runs
-    launches = {k: launches[k] + rooted[k] for k in launches}
+    t0 = time.time()
+    batched = batch_main_path(kc)
+    print(f"batch path ok ({time.time() - t0:.1f} s): launches {batched}",
+          flush=True)
+    refused_windows()
+    # each kernel's launches over the three paths' runs
+    launches = {k: launches[k] + rooted[k] + batched[k] for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
     xs = [rand(N_RANK, F32) for _ in range(P_MAIN)]
@@ -690,6 +1264,11 @@ def main() -> int:
         ),
     }
     timing.update(time_rooted(xs, rand))
+    del xs, outs, gathered, blocks
+    torch.cuda.synchronize()
+    seq = time_sequencer(rand)
+    timing["sequencer"] = dict(ms=seq["ms"], plain_ms=seq["plain_ms"],
+                               library_ms=seq["library_ms"])
     meta = {
         "ring_allreduce": ("accl_tpu_torch/csrc/ring.cu",
                            "accl_tpu/ops/pallas/ring.py:123"),
@@ -705,6 +1284,8 @@ def main() -> int:
                         "accl_tpu/ops/pallas/rooted.py:95"),
         "ring_scatter": ("accl_tpu_torch/csrc/rooted.cu",
                          "accl_tpu/ops/pallas/rooted.py:133"),
+        "sequencer": ("accl_tpu_torch/csrc/cmdring.cu",
+                      "accl_tpu/ops/pallas/cmdring.py:534"),
     }
     kernels = []
     for name in kc.KERNELS:
@@ -713,9 +1294,24 @@ def main() -> int:
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
             "max_abs_err": err[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], **bound(t["bytes"], t["ops"]),
+            "plain_ms": t["plain_ms"],
+            **(seq["bound"] if name == "sequencer"
+               else bound(t["bytes"], t["ops"])),
             "library_ms": t["library_ms"],
         })
+        if name == "sequencer":  # the other windows of the bounds table
+            kernels[-1].update({
+                "device_ms": seq["device_ms"],
+                "window_64k_ms": seq["window_64k_ms"],
+                "window_64k_device_ms": seq["window_64k_device_ms"],
+                "window_64k_plain_ms": seq["window_64k_plain_ms"],
+                "window_64k_bound_ms": seq["window_64k_bound"]["bound_ms"],
+                "window_64k_library_ms": seq["window_64k_library_ms"],
+                "mix_4mib_ms": seq["mix_4mib_ms"],
+                "mix_4mib_device_ms": seq["mix_4mib_device_ms"],
+                "mix_4mib_plain_ms": seq["mix_4mib_plain_ms"],
+                "mix_4mib_bound_ms": seq["mix_4mib_bound"]["bound_ms"],
+            })
         if name == "ring_allgather":  # the rooted gather: root output only
             g = timing["ring_gather"]
             kernels[-1].update({
@@ -731,7 +1327,16 @@ def main() -> int:
     print(f"ring_gather (K3, root only): kernel_ms={g['ms']:.4f} "
           f"bound_ms={bound(g['bytes'], 0)['bound_ms']:.4f} "
           f"plain_ms={g['plain_ms']:.4f} library_ms={g['library_ms']:.4f}")
-    del xs, outs, gathered, blocks, a, b, c
+    s_ = kernels[-1]
+    print(f"sequencer device_ms={s_['device_ms']:.4f}; 8 x allreduce 64K: "
+          f"kernel_ms={s_['window_64k_ms']:.4f} "
+          f"device_ms={s_['window_64k_device_ms']:.4f} "
+          f"bound_ms={s_['window_64k_bound_ms']:.4f}; facade mix at 4 MiB:"
+          f" kernel_ms={s_['mix_4mib_ms']:.4f} "
+          f"device_ms={s_['mix_4mib_device_ms']:.4f} "
+          f"bound_ms={s_['mix_4mib_bound_ms']:.4f} "
+          f"plain_ms={s_['mix_4mib_plain_ms']:.4f}")
+    del a, b, c
     torch.cuda.synchronize()
 
     # -- phase 5: the facade allreduce end to end ----------------------------
@@ -740,6 +1345,8 @@ def main() -> int:
     print(json.dumps({"facade_allreduce": facade}))
     facade = facade_rooted_latency([64 * 1024, 1024 * 1024, N_RANK])
     print(json.dumps({"facade_rooted": facade}))
+    facade = facade_batch_latency([64 * 1024, 256 * 1024, 1024 * 1024])
+    print(json.dumps({"facade_batch": facade}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
