@@ -7,9 +7,11 @@
 * ``cmdring`` — the command ring's device half: ``slot_epilogue`` and
   ``run_window``.
 * ``driver`` — stacked-in, stacked-out entry points over a :class:`Mesh`.
+* ``attention`` — the blockwise online-softmax fold (the transformer's
+  ``attention="blockwise"`` lowering).
 """
 
-from . import cmdring, collectives, cuda, ring, wire  # noqa: F401
+from . import attention, cmdring, collectives, cuda, ring, wire  # noqa: F401
 from .driver import (  # noqa: F401
     Mesh,
     make_mesh,

@@ -9,6 +9,8 @@
   scatter), and the rooted gather over K3.
 * ``cmdring`` — row 14, the command-ring sequencer: one launch runs a
   window of collectives whose slot words it decodes on the device.
+* ``attention`` — row 16, the single-device flash-attention forward (the
+  transformer's ``attention="flash"`` lowering).
 
 Kernels are built from ``accl_tpu_torch/csrc`` on first use
 (:func:`build_all` builds them all at once).  Every wrapper takes its
@@ -17,6 +19,7 @@ tensors, counting launches in ``<wrapper>.launches``.
 """
 
 from ._build import build_all  # noqa: F401
+from .attention import flash_attention, flash_attention_plain  # noqa: F401
 from .cmdring import sequencer, sequencer_plain  # noqa: F401
 from .combine import combine, combine_plain  # noqa: F401
 from .ring import (  # noqa: F401
@@ -49,4 +52,5 @@ KERNELS = {
     "ring_reduce": ring_reduce,
     "ring_scatter": ring_scatter,
     "sequencer": sequencer,
+    "flash_attention": flash_attention,
 }

@@ -9,7 +9,9 @@ Phases (any failure exits non-zero):
    kernel from ``accl_tpu_torch/csrc`` (one nvcc per source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes — float results must match EXACTLY (same operation
-   order, same round-to-nearest-even; NaN positions must agree).  The
+   order, same round-to-nearest-even; NaN positions must agree), except
+   flash attention (row 16), whose fold order differs from its plain
+   version's and which is held within stated tolerances (``check_flash``).  The
    rooted relays (bcast in place and out of place, reduce with every
    rank's partial and with the root's output alone, scatter) and the
    root-only gather over K3 run at P in {2, 4, 8} x root in {0, P-1} x
@@ -46,11 +48,23 @@ Phases (any failure exits non-zero):
       sequencer launch and no other kernel launch; then windows the ring
       refuses (oversized, a reduce inside, ``pallas_ring`` registered),
       correct with their reason counted;
+   d. the serving path: the transformer at bench.py's serving width
+      (vocab 32768, d_model 2048, 16 heads, 8 layers, d_ff 8192, bfloat16,
+      random weights from a seeded generator) — run A, ``generate`` of
+      128 steps from an (8, 128) prompt under ``attention="flash"``, and
+      run B, ``prefill`` of (8, 1024) under ``"auto"``, each launching
+      ``flash_attention`` once a layer and no other kernel; run B's
+      logits under flash against naive (float32 within 1e-4 relative,
+      bfloat16 within ``BF16_LOGIT_ATOL``) and 32 float32 greedy steps of
+      2 layers under flash against naive, tie-aware;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (the
    root-only gather as extra keys of K3's entry; the sequencer on 8
    allreduces of 1M float32 per rank, with 8 x 64K and the facade's mix at
-   4 MiB per rank as extra keys of its entry);
+   4 MiB per rank as extra keys of its entry; flash attention at run A's
+   (8, 16, 128, 128) bf16 causal, with run B's T = 1024 as extra keys,
+   beside ``scaled_dot_product_attention``, bounded by the tensor cores'
+   bf16 rate);
 5. time the facade end to end (host clock around each synchronous call
    on rank 0's thread, rendezvous included) at 256 KiB, 4 MiB and 64 MiB
    per rank: the allreduce under ``xla``, ``pallas_ring`` and
@@ -58,7 +72,10 @@ Phases (any failure exits non-zero):
    2(P-1)/P over the p50), then reduce / bcast / scatter / gather under
    ``xla`` and ``pallas_ring`` and alltoall (p50 and p90), and one
    batched window of 8 allreduces beside the same 8 calls unbatched at
-   256 KiB, 1 MiB and 4 MiB per rank, each set as a JSON line of its own.
+   256 KiB, 1 MiB and 4 MiB per rank, each set as a JSON line of its own;
+   then the serving path (``serve_generate``): run A's prefill ms, the
+   decode step p50, decode tokens/s over ``generate``'s wall time, and
+   run B's prefill ms.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -77,6 +94,9 @@ import time
 # outside the tensor cores (the kernels' folds are scalar float32 adds)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# and bf16/f16 operations/s on the tensor cores, dense (the flash kernel's
+# products)
+TC16_OPS_PER_S = 989e12
 N_RANK = 16 * 1024 * 1024  # elements per rank on the main path (64 MiB f32)
 N_COMBINE = 64 * 1024 * 1024  # combine operand elements (256 MB f32)
 P_MAIN = 4
@@ -218,11 +238,12 @@ def facade_latency(sizes, algos, iters: int = 20) -> list:
     return rows
 
 
-def bound(nbytes: int, ops: int) -> dict:
-    """The least time for moving ``nbytes`` and doing ``ops`` float32
-    operations on the card, and which of the two bounds it."""
+def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> dict:
+    """The least time for moving ``nbytes`` and doing ``ops`` operations
+    at ``ops_per_s`` (float32 outside the tensor cores unless told
+    otherwise) on the card, and which of the two bounds it."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -1029,6 +1050,311 @@ def facade_batch_latency(sizes, iters: int = 20) -> list:
     } for (mode, n), t in samples.items()]
 
 
+# -- the transformer's serving path (row 16) --------------------------------
+
+#: bench.py's serving configuration (bench.py:681-685): tp = 1 on one card
+SERVE = dict(vocab=32768, d_model=2048, n_heads=16, n_layers=8, d_ff=8192,
+             max_seq=1024)
+SERVE_B, SERVE_T, SERVE_STEPS, SERVE_LONG = 8, 128, 128, 1024
+#: run B's bfloat16 logits, flash against naive: the two lowerings round
+#: the attention output to bfloat16 after different fold orders, and 8
+#: layers carry those one-ulp differences to the logits
+BF16_LOGIT_ATOL = 0.1
+#: (B, H, Hkv, T, D, dtype name, causal, with_lse): phase 2's flash cases
+FLASH_CASES = [
+    (8, 16, 16, 128, 128, "bfloat16", True, True),    # run A's prefill
+    (8, 16, 16, 1024, 128, "bfloat16", True, False),  # run B
+    (2, 16, 4, 1024, 128, "bfloat16", True, False),   # GQA
+    (2, 4, 4, 1000, 128, "float32", True, True),      # ragged
+    (2, 4, 4, 512, 64, "float32", False, False),      # full
+    (1, 2, 2, 50, 24, "float16", True, False),        # ragged T and D
+]
+
+
+def reset_launches(kc) -> None:
+    for k in kc.KERNELS.values():
+        k.launches.reset()
+
+
+def read_launches(kc) -> dict:
+    return {k: f.launches.count for k, f in kc.KERNELS.items()}
+
+
+def flash_launched_alone(launches: dict, want: int, what: str) -> None:
+    """``want`` flash launches in the run and no other kernel's."""
+    others = {k: v for k, v in launches.items()
+              if k != "flash_attention" and v}
+    if launches["flash_attention"] != want or others:
+        fail(f"{what}: launches {launches}, want {want} flash_attention "
+             f"and no other kernel")
+
+
+def check_flash(err) -> None:
+    """Phase 2 for row 16: the kernel against flash_attention_plain on the
+    card.  Tolerances: float32 atol = rtol = 2e-5 (the JAX tests' own,
+    tests/test_pallas.py:689-691: the two fold in other orders); bf16/f16
+    atol = rtol = 1e-2 on o (the kernel folds 64-key tiles, the plain
+    version the TPU kernel's 512-key tiles, so an output may round to the
+    neighbouring 16-bit value); lse atol 1e-4."""
+    import torch
+
+    from accl_tpu_torch.ops.cuda import attention as ka
+
+    dev = torch.device("cuda", 0)
+    for i, (B, H, Hkv, T, D, dt, causal, lse) in enumerate(FLASH_CASES):
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 10 + i)
+        q, k, v = (torch.randn(B, h, T, D, generator=gen, device=dev)
+                   .to(dtype) for h in (H, Hkv, Hkv))
+        tag = f"flash (B,H,Hkv,T,D)={(B, H, Hkv, T, D)} {dt} causal={causal}"
+        before = ka.flash_attention.launches.count
+        got = ka.flash_attention(q, k, v, causal, with_lse=lse)
+        if ka.flash_attention.launches.count != before + 1:
+            fail(f"{tag}: the kernel did not launch")
+        want = ka.flash_attention_plain(q, k, v, causal, with_lse=lse)
+        torch.cuda.synchronize()
+        if lse:
+            (got, got_lse), (want, want_lse) = got, want
+            d = float((got_lse - want_lse).abs().max())
+            if not d <= 1e-4:
+                fail(f"{tag}: lse differs by {d}")
+        tol = 2e-5 if dtype == torch.float32 else 1e-2
+        if got.shape != want.shape or not torch.isfinite(got).all() or \
+                not torch.allclose(got.float(), want.float(), rtol=tol,
+                                   atol=tol):
+            fail(f"{tag}: max abs err "
+                 f"{float((got.float() - want.float()).abs().max())}")
+        err["flash_attention"] = max(
+            err["flash_attention"],
+            float((got.float() - want.float()).abs().max()))
+        del q, k, v, got, want
+    # no backward kernels yet: a call that would need a gradient raises
+    # before it launches
+    q = torch.randn(1, 2, 32, 16, device=dev, requires_grad=True)
+    before = ka.flash_attention.launches.count
+    try:
+        ka.flash_attention(q, q.detach(), q.detach())
+    except RuntimeError as e:
+        if "no backward kernels" not in str(e) or \
+                ka.flash_attention.launches.count != before:
+            fail(f"flash_attention with a gradient: {e}")
+    else:
+        fail("flash_attention took a tensor that needs a gradient")
+    torch.cuda.synchronize()
+    print(f"flash_attention: {len(FLASH_CASES)} cases agree with "
+          f"flash_attention_plain (max abs err {err['flash_attention']})",
+          flush=True)
+
+
+def serve_main_path(kc) -> dict:
+    """Phase 3d: the serving path at bench.py's width (472M parameters,
+    bfloat16, random weights from a seeded generator).  Run A: ``generate``
+    under ``attention="flash"``, prompt (8, 128), 128 steps; run B:
+    ``prefill`` of (8, 1024) under ``"auto"``.  Each launches flash 8 times
+    (once a layer) and no other kernel, counters zeroed before and read
+    after.  Then the checks: run B's logits under flash against naive (the
+    same weights in float32 within 1e-4 relative, and in bfloat16), and 32
+    greedy float32 steps of the first 2 layers under flash against naive,
+    tie-aware.  Returns the launches and what phase 5 needs."""
+    import dataclasses
+
+    import torch
+
+    from accl_tpu_torch.models import (TransformerConfig, forward,
+                                       generate, init_params, prefill)
+
+    dev = torch.device("cuda", 0)
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash", **SERVE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen)
+    prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_T), generator=gen,
+                           device=dev, dtype=torch.int32)
+    long = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LONG), generator=gen,
+                         device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+
+    reset_launches(kc)
+    tokens = generate(params, prompt, SERVE_STEPS, cfg)
+    torch.cuda.synchronize()
+    run_a = read_launches(kc)
+    flash_launched_alone(run_a, cfg.n_layers, "run A (generate)")
+    if tokens.shape != (SERVE_B, SERVE_STEPS) or tokens.dtype != torch.int32 \
+            or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab:
+        fail(f"run A: tokens {tokens.dtype}{tuple(tokens.shape)} in "
+             f"[{int(tokens.min())}, {int(tokens.max())}]")
+
+    auto = dataclasses.replace(cfg, attention="auto")
+    reset_launches(kc)
+    with torch.no_grad():
+        logits_b, _ = prefill(params, long, auto)
+    torch.cuda.synchronize()
+    run_b = read_launches(kc)
+    flash_launched_alone(run_b, cfg.n_layers, "run B (prefill, auto)")
+    print(f"serving path ok: run A {run_a['flash_attention']} and run B "
+          f"{run_b['flash_attention']} flash launches, no other kernel",
+          flush=True)
+
+    # run B's logits, flash against naive: bfloat16 as run, then the same
+    # weights in float32
+    naive = dataclasses.replace(cfg, attention="naive")
+    with torch.no_grad():
+        ref_b, _ = prefill(params, long, naive)
+        if not torch.isfinite(logits_b).all():
+            fail("run B: non-finite logits")
+        bf16_err = float((logits_b.float() - ref_b.float()).abs().max())
+        bf16_scale = float(ref_b.float().abs().max())
+        p32 = {k: ([{n: w.float() for n, w in lp.items()} for lp in v]
+                   if k == "layers" else v.float())
+               for k, v in params.items()}
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        l32, _ = prefill(p32, long, c32)
+        r32, _ = prefill(p32, long, dataclasses.replace(c32,
+                                                        attention="naive"))
+        f32_rel = float((l32 - r32).abs().max() / r32.abs().max())
+    print(f"run B logits, flash vs naive: bfloat16 max abs diff {bf16_err} "
+          f"(max |logit| {bf16_scale}); float32 max rel diff {f32_rel}",
+          flush=True)
+    if not f32_rel <= 1e-4:
+        fail(f"run B float32 logits: flash vs naive {f32_rel} > 1e-4 rel")
+    if not bf16_err <= BF16_LOGIT_ATOL:
+        fail(f"run B bfloat16 logits: flash vs naive {bf16_err} > "
+             f"{BF16_LOGIT_ATOL}")
+    del ref_b, l32, r32
+
+    # greedy float32, 2 layers: tokens equal, or at the first step where a
+    # row's tokens differ its two top naive logits lie within 1e-5
+    c2 = dataclasses.replace(c32, n_layers=2)
+    p2 = dict(p32, layers=p32["layers"][:2])
+    steps = 32
+    got = generate(p2, prompt, steps, c2)
+    want = generate(p2, prompt, steps, dataclasses.replace(
+        c2, attention="naive"))
+    ties = 0
+    for r in range(SERVE_B):
+        diff = (got[r] != want[r]).nonzero()
+        if not len(diff):
+            continue
+        i = int(diff[0])
+        seq = torch.cat([prompt[r], want[r, :i]])[None]
+        with torch.no_grad():
+            top = forward(p2, seq, dataclasses.replace(
+                c2, attention="naive"))[0, -1].topk(2).values
+        gap = float(top[0] - top[1])
+        if not gap <= 1e-5:
+            fail(f"float32 greedy row {r}: step {i} differs, top-2 gap {gap}")
+        ties += 1
+    print(f"float32 greedy, 2 layers x {steps} steps: flash == naive on "
+          f"{SERVE_B - ties} rows, {ties} rows part at a tie", flush=True)
+    del p32, p2
+    torch.cuda.synchronize()
+    return dict(launches={k: run_a[k] + run_b[k] for k in run_a},
+                run_a=run_a["flash_attention"],
+                run_b=run_b["flash_attention"], params=params, cfg=cfg,
+                prompt=prompt, long=long, bf16_logit_err=bf16_err,
+                bf16_logit_scale=bf16_scale, f32_logit_rel=f32_rel,
+                greedy_f32_ties=ties)
+
+
+def time_flash() -> dict:
+    """Phase 4 for row 16 at the serving shapes: (8, 16, T, 128) bf16
+    causal at T = 128 (run A's prefill) and T = 1024 (run B)."""
+    import torch
+    import torch.nn.functional as F
+
+    from accl_tpu_torch.ops.cuda import attention as ka
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for T in (SERVE_T, SERVE_LONG):
+        q, k, v = (torch.randn(8, 16, T, 128, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        pairs = T * (T + 1) // 2  # the causal (q, k) pairs this run needs
+        out[T] = dict(
+            ms=time_ms(lambda: ka.flash_attention(q, k, v), iters=20),
+            plain_ms=time_ms(lambda: ka.flash_attention_plain(q, k, v)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), iters=20),
+            bytes=4 * q.numel() * q.element_size(),  # q, k, v read, o written
+            ops=4 * 8 * 16 * 128 * pairs,  # QK^T and PV, 2 ops a product
+        )
+        del q, k, v
+    return out
+
+
+def serve_timing(serve) -> dict:
+    """Phase 5 for the serving path: run A's prefill ms and decode step
+    p50 (host clock around each synchronised call), decode tokens/s (8 x
+    128 over ``generate``'s wall time, 3 timed runs with distinct prompts
+    after a warm-up), and run B's prefill ms."""
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch.models import generate, prefill
+    from accl_tpu_torch.models.transformer import _decode_step
+
+    params, cfg = serve["params"], serve["cfg"]
+    prompt, long = serve["prompt"], serve["long"]
+
+    def wall(fn, reps):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return times
+
+    with torch.no_grad():
+        prefill(params, prompt, cfg, cache_len=SERVE_T + SERVE_STEPS)
+        pre_a = wall(lambda: prefill(params, prompt, cfg,
+                                     cache_len=SERVE_T + SERVE_STEPS), 10)
+        logits, caches = prefill(params, prompt, cfg,
+                                 cache_len=SERVE_T + SERVE_STEPS)
+        tok = logits.argmax(-1)
+        steps = []
+        for i in range(SERVE_STEPS - 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tok = _decode_step(params, caches, tok, SERVE_T + i,
+                               cfg).argmax(-1)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t)
+        prefill(params, long, cfg)
+        pre_b = wall(lambda: prefill(params, long, cfg), 5)
+    generate(params, prompt, SERVE_STEPS, cfg)  # warm-up
+    prompts = [torch.full_like(prompt, i + 1) for i in range(3)]
+    gen_s = []
+    for p in prompts:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        generate(params, p, SERVE_STEPS, cfg)
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t)
+    mean_s = float(np.mean(gen_s))
+    return {
+        "batch": SERVE_B, "prompt": SERVE_T, "steps": SERVE_STEPS,
+        "params": sum(w.numel() for w in [params["embed"], params["pos"],
+                                          params["ln_f"]]
+                      + [w for lp in params["layers"] for w in lp.values()]),
+        "dtype": "bfloat16", "attention": "flash",
+        "prefill_ms": float(np.median(pre_a)) * 1e3,
+        "decode_step_p50_ms": float(np.median(steps)) * 1e3,
+        "decode_step_p90_ms": float(np.percentile(steps, 90)) * 1e3,
+        "generate_s": gen_s,
+        "decode_tokens_per_s": SERVE_B * SERVE_STEPS / mean_s,
+        "prefill_1024_ms": float(np.median(pre_b)) * 1e3,
+        "prefill_1024_tokens_per_s": SERVE_B * SERVE_LONG
+        / float(np.median(pre_b)),
+        "run_b_bf16_logit_max_abs_diff": serve["bf16_logit_err"],
+        "run_b_max_abs_logit": serve["bf16_logit_scale"],
+        "run_b_f32_logit_max_rel_diff": serve["f32_logit_rel"],
+        "greedy_f32_rows_parted_at_a_tie": serve["greedy_f32_ties"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1046,6 +1372,10 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     )
     print(smi.stdout.strip().splitlines()[0])
+    # float32 references must not drop to TF32: the port's float32 matmuls
+    # (the plain versions, the naive lowering) run in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.time()
     built = kc.build_all()
@@ -1135,8 +1465,10 @@ def main() -> int:
     torch.cuda.synchronize()
     check_rooted_kernels(rand, err)
     check_sequencer(err)
-    print(f"kernels agree with their plain versions exactly "
-          f"({time.time() - t0:.1f} s)", flush=True)
+    check_flash(err)
+    print(f"kernels agree with their plain versions ({time.time() - t0:.1f}"
+          f" s; exactly, but flash_attention within its tolerances)",
+          flush=True)
 
     # -- phase 3: the main path ----------------------------------------------
     t0 = time.time()
@@ -1222,8 +1554,12 @@ def main() -> int:
     print(f"batch path ok ({time.time() - t0:.1f} s): launches {batched}",
           flush=True)
     refused_windows()
-    # each kernel's launches over the three paths' runs
-    launches = {k: launches[k] + rooted[k] + batched[k] for k in launches}
+    t0 = time.time()
+    serve = serve_main_path(kc)
+    print(f"serving path checks done ({time.time() - t0:.1f} s)", flush=True)
+    # each kernel's launches over the four paths' runs
+    launches = {k: launches[k] + rooted[k] + batched[k] + serve["launches"][k]
+                for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
     xs = [rand(N_RANK, F32) for _ in range(P_MAIN)]
@@ -1269,6 +1605,10 @@ def main() -> int:
     seq = time_sequencer(rand)
     timing["sequencer"] = dict(ms=seq["ms"], plain_ms=seq["plain_ms"],
                                library_ms=seq["library_ms"])
+    flash = time_flash()
+    timing["flash_attention"] = flash[SERVE_T]
+    flash_bounds = {T: bound(f["bytes"], f["ops"], TC16_OPS_PER_S)
+                    for T, f in flash.items()}
     meta = {
         "ring_allreduce": ("accl_tpu_torch/csrc/ring.cu",
                            "accl_tpu/ops/pallas/ring.py:123"),
@@ -1286,6 +1626,8 @@ def main() -> int:
                          "accl_tpu/ops/pallas/rooted.py:133"),
         "sequencer": ("accl_tpu_torch/csrc/cmdring.cu",
                       "accl_tpu/ops/pallas/cmdring.py:534"),
+        "flash_attention": ("accl_tpu_torch/csrc/attention.cu",
+                            "accl_tpu/ops/pallas/attention.py:293"),
     }
     kernels = []
     for name in kc.KERNELS:
@@ -1296,6 +1638,7 @@ def main() -> int:
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             **(seq["bound"] if name == "sequencer"
+               else flash_bounds[SERVE_T] if name == "flash_attention"
                else bound(t["bytes"], t["ops"])),
             "library_ms": t["library_ms"],
         })
@@ -1312,6 +1655,17 @@ def main() -> int:
                 "mix_4mib_plain_ms": seq["mix_4mib_plain_ms"],
                 "mix_4mib_bound_ms": seq["mix_4mib_bound"]["bound_ms"],
             })
+        if name == "flash_attention":  # run B's shape, and where it ran
+            f = flash[SERVE_LONG]
+            kernels[-1].update({
+                "shape": [SERVE_B, 16, SERVE_T, 128],
+                "launches_generate": serve["run_a"],
+                "launches_prefill_1024": serve["run_b"],
+                "t1024_ms": f["ms"], "t1024_plain_ms": f["plain_ms"],
+                "t1024_bound_ms": flash_bounds[SERVE_LONG]["bound_ms"],
+                "t1024_bound_by": flash_bounds[SERVE_LONG]["bound_by"],
+                "t1024_library_ms": f["library_ms"],
+            })
         if name == "ring_allgather":  # the rooted gather: root output only
             g = timing["ring_gather"]
             kernels[-1].update({
@@ -1327,7 +1681,8 @@ def main() -> int:
     print(f"ring_gather (K3, root only): kernel_ms={g['ms']:.4f} "
           f"bound_ms={bound(g['bytes'], 0)['bound_ms']:.4f} "
           f"plain_ms={g['plain_ms']:.4f} library_ms={g['library_ms']:.4f}")
-    s_ = kernels[-1]
+    by_name = {k["name"]: k for k in kernels}
+    s_ = by_name["sequencer"]
     print(f"sequencer device_ms={s_['device_ms']:.4f}; 8 x allreduce 64K: "
           f"kernel_ms={s_['window_64k_ms']:.4f} "
           f"device_ms={s_['window_64k_device_ms']:.4f} "
@@ -1336,6 +1691,11 @@ def main() -> int:
           f"device_ms={s_['mix_4mib_device_ms']:.4f} "
           f"bound_ms={s_['mix_4mib_bound_ms']:.4f} "
           f"plain_ms={s_['mix_4mib_plain_ms']:.4f}")
+    f = by_name["flash_attention"]
+    print(f"flash_attention (8,16,1024,128) bf16 causal: "
+          f"kernel_ms={f['t1024_ms']:.4f} bound_ms={f['t1024_bound_ms']:.4f}"
+          f" ({f['t1024_bound_by']}) plain_ms={f['t1024_plain_ms']:.4f} "
+          f"library_ms={f['t1024_library_ms']:.4f}")
     del a, b, c
     torch.cuda.synchronize()
 
@@ -1347,6 +1707,10 @@ def main() -> int:
     print(json.dumps({"facade_rooted": facade}))
     facade = facade_batch_latency([64 * 1024, 256 * 1024, 1024 * 1024])
     print(json.dumps({"facade_batch": facade}))
+    served = serve_timing(serve)
+    del serve
+    print(json.dumps({"serve_generate": {
+        "card": smi.stdout.strip().splitlines()[0], **served}}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -231,6 +231,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running soaks excluded from the tier-1 fast run",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device; skips with its reason where there is none",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

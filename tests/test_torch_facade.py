@@ -105,7 +105,8 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 def test_import_is_free_of_jax_and_the_jax_package():
     code = (
         "import sys, accl_tpu_torch, accl_tpu_torch.ops, "
-        "accl_tpu_torch.interop\n"
+        "accl_tpu_torch.interop, accl_tpu_torch.models, "
+        "accl_tpu_torch.ops.attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'accl_tpu'))\n"
         "print(','.join(bad))\n"
