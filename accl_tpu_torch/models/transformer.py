@@ -1,5 +1,5 @@
-"""The transformer LM's single-device serving path: forward, prefill and
-KV-cache generate.
+"""The transformer LM on one device: forward, prefill and KV-cache
+generate, the loss and the SGD train step.
 
 The counterpart of ``accl_tpu/models/transformer.py`` on one card (tp = 1,
 replicated activations).  Parameters are a plain dict with the JAX tree's
@@ -12,14 +12,18 @@ Python-float scales (so bfloat16 activations stay bfloat16).
 
 Attention lowers as ``cfg.attention`` says: ``"naive"`` (materialized
 scores), ``"blockwise"`` (``ops.attention.blockwise_attention``),
-``"flash"`` (the hand-written kernel, ``ops.cuda.attention``) or
+``"flash"`` (the hand-written kernels, ``ops.cuda.attention``: the
+forward, and the dQ and dK/dV backward when a gradient is taken) or
 ``"auto"`` (:func:`_resolve_attention`).  Unlike the JAX module, decode
-writes each step's k/v into the cache IN PLACE.
+writes each step's k/v into the cache IN PLACE, and the train step
+writes the updated parameters into their own storage (the port's form
+of JAX's ``donate_argnums``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, or tensors already on the CPU); without a card they
-raise.  Sharded serving, MoE, sequence, vocab and context parallelism
-come with later slices, and a config that asks for them is refused.
+raise.  Sharded serving and training, MoE, sequence, vocab and context
+parallelism come with later slices, and a config or mesh that asks for
+them is refused.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import torch.nn.functional as F
 from ..buffer import host_tensor
 from ..ops.attention import blockwise_attention
 from ..ops.cuda.attention import MAX_HEAD_DIM, flash_attention
-from ..ops.driver import resolve_device
+from ..ops.driver import Mesh, make_mesh, resolve_device
 
 #: the JAX module's crossover (``_AUTO_FUSED_MIN_T``): "auto" runs naive
 #: below this sequence length and a fused form from it up
@@ -94,8 +98,7 @@ class TransformerConfig:
                 )
         if not isinstance(self.dtype, torch.dtype):
             raise TypeError(f"dtype must be a torch dtype, got {self.dtype!r}")
-        if self.attention not in ("auto", "naive", "blockwise", "flash"):
-            raise ValueError(f"unknown attention impl {self.attention!r}")
+        _reject_untrainable_attention(self)
 
     def kv_heads(self) -> int:
         n_kv = self.n_heads if self.n_kv_heads is None else self.n_kv_heads
@@ -153,6 +156,22 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
+def _tree_map(fn, tree):
+    """``fn`` on every tensor or array of a parameter tree (dicts, lists
+    and tuples), keeping its keys and nesting."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _tree_leaves(tree) -> List[torch.Tensor]:
+    leaves = []
+    _tree_map(leaves.append, tree)
+    return leaves
+
+
 def params_from_numpy(tree, device=None):
     """The port's tree for a JAX parameter tree given as numpy arrays
     (``jax.tree.map(np.asarray, params)``): same keys and nesting, each
@@ -161,14 +180,26 @@ def params_from_numpy(tree, device=None):
     dev = resolve_device(device)
 
     def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return type(x)(conv(v) for v in x)
         arr = np.array(x)  # a writable host copy (JAX arrays are not)
         return host_tensor(arr).reshape(arr.shape).to(dev)
 
-    return conv(tree)
+    return _tree_map(conv, tree)
+
+
+def params_to_numpy(params):
+    """The inverse of :func:`params_from_numpy`: the tree as host numpy
+    arrays, same keys and nesting; bfloat16 tensors keep their bits (as
+    ``ml_dtypes.bfloat16`` arrays, the dtype JAX's numpy arrays have)."""
+
+    def conv(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+
+    return _tree_map(conv, params)
 
 
 def _layernorm(x, scale):
@@ -470,3 +501,79 @@ def generate(params, prompt, steps: int, cfg: TransformerConfig,
     if steps <= 0:
         return torch.empty((B, 0), dtype=prompt.dtype, device=prompt.device)
     return torch.stack(toks, dim=1).to(prompt.dtype)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def _token_nll(logits, targets):
+    """Per-token next-token NLL from full-vocab logits, the softmax
+    statistics in float32 (bfloat16 logits overflow exp quickly)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets[..., None].long()).squeeze(-1)
+
+
+def loss_fn(params, tokens, targets, cfg: TransformerConfig):
+    """Mean next-token NLL of a token batch (B, T) against ``targets``
+    (B, T), at tp = 1 (the JAX function's non-vocab-parallel branch;
+    vocab and context parallelism and experts are refused by the
+    config)."""
+    return _token_nll(forward(params, tokens, cfg), targets).mean()
+
+
+def _reject_untrainable_attention(cfg) -> None:
+    """Reject an attention lowering the model does not have.  Every one
+    it has is trainable: ``"flash"`` differentiates through the dQ and
+    dK/dV kernels."""
+    if cfg.attention not in ("auto", "naive", "blockwise", "flash"):
+        raise ValueError(f"unknown attention impl {cfg.attention!r}")
+
+
+def make_sharded_train_step(cfg: TransformerConfig, lr: float = 1e-2,
+                            mesh: Optional[Mesh] = None):
+    """One SGD train step, JAX's return shape: ``(step, shard)``.
+
+    ``shard(tree)`` copies a parameter tree onto the mesh's device (the
+    card unless ``mesh`` says otherwise); ``step(params, tokens,
+    targets)`` takes the mean loss's gradient with respect to every
+    parameter and returns ``(params, loss)``, the parameters updated to
+    ``p - lr * g`` IN PLACE (``lr * g`` rounded to the parameter dtype,
+    then the difference, as JAX rounds it) and the same tree returned.
+
+    Only one device so far: a mesh of more than one raises
+    NotImplementedError (data and tensor parallelism come with the
+    multi-GPU slice, ROADMAP B14)."""
+    _reject_untrainable_attention(cfg)
+    if not isinstance(lr, (int, float)):
+        raise TypeError(f"lr must be a number, got {type(lr).__name__} "
+                        f"(the mesh is the third argument)")
+    if mesh is None:
+        mesh = make_mesh(1)
+    if mesh.size != 1:
+        raise NotImplementedError(
+            f"a mesh of {mesh.size} devices is not ported yet: sharded "
+            f"training comes with the multi-GPU slice (ROADMAP B14)"
+        )
+
+    def shard(tree):
+        return _tree_map(lambda p: p.to(mesh.device, copy=True), tree)
+
+    def step(params, tokens, targets):
+        leaves = _tree_leaves(params)
+        if tokens.device != leaves[0].device:
+            raise ValueError(
+                f"tokens on {tokens.device}, params on {leaves[0].device}"
+            )
+        # gradients of aliases: the caller's tensors keep their flags
+        live = [p.detach().requires_grad_() for p in leaves]
+        it = iter(live)
+        loss = loss_fn(_tree_map(lambda _: next(it), params), tokens,
+                       targets, cfg)
+        grads = torch.autograd.grad(loss, live)
+        with torch.no_grad():
+            torch._foreach_sub_(leaves, torch._foreach_mul(grads, lr))
+        return params, loss.detach()
+
+    return step, shard

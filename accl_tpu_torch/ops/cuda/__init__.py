@@ -9,8 +9,9 @@
   scatter), and the rooted gather over K3.
 * ``cmdring`` — row 14, the command-ring sequencer: one launch runs a
   window of collectives whose slot words it decodes on the device.
-* ``attention`` — row 16, the single-device flash-attention forward (the
-  transformer's ``attention="flash"`` lowering).
+* ``attention`` — rows 16-18, the single-device flash attention: the
+  forward (the transformer's ``attention="flash"`` lowering) and the
+  backward's dQ and dK/dV kernels behind its ``torch.autograd.Function``.
 
 Kernels are built from ``accl_tpu_torch/csrc`` on first use
 (:func:`build_all` builds them all at once).  Every wrapper takes its
@@ -19,7 +20,14 @@ tensors, counting launches in ``<wrapper>.launches``.
 """
 
 from ._build import build_all  # noqa: F401
-from .attention import flash_attention, flash_attention_plain  # noqa: F401
+from .attention import (  # noqa: F401
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
+    flash_attention_plain,
+)
 from .cmdring import sequencer, sequencer_plain  # noqa: F401
 from .combine import combine, combine_plain  # noqa: F401
 from .ring import (  # noqa: F401
@@ -53,4 +61,6 @@ KERNELS = {
     "ring_scatter": ring_scatter,
     "sequencer": sequencer,
     "flash_attention": flash_attention,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
 }

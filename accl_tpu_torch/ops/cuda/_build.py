@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds).  Libraries land in ``csrc/build/`` named by a hash
 of their sources, so an edited source rebuilds and an unchanged one is
-reused.  :func:`build_all` starts one ``nvcc`` per source at once.
+reused; beside each, ``lib<name>-<hash>.log`` keeps nvcc's output (with
+ptxas's register and spill counts, :func:`build_log`).  :func:`build_all` starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # registers and spills per kernel, into the build log
 ]
 
 _lock = threading.Lock()
@@ -93,6 +95,11 @@ def build_all() -> List[str]:
         if errors:
             raise RuntimeError("\n".join(errors))
         return sorted(jobs)
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for ``csrc/<name>.cu``'s current library."""
+    return _lib_path(name).with_suffix(".log").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

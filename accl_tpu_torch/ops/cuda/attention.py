@@ -1,14 +1,18 @@
-"""Row 16: the single-device flash-attention forward.
+"""Rows 16-18: the single-device flash attention, forward and backward.
 
 The counterpart of ``accl_tpu/ops/pallas/attention.py::flash_attention``
-(:656, forward ``_flash_fwd_impl`` :396, kernel ``_flash_kernel`` :293).
-The kernel is ``csrc/attention.cu``; :func:`flash_attention_plain` is its
-plain PyTorch version, the fold of the TPU kernel written with torch
-operations, which CPU tensors take and the card's checks compare
-against.
+(:656): the forward ``_flash_fwd_impl`` :396 (kernel ``_flash_kernel``
+:293) and the custom_vjp backward ``_flash_bwd_impl`` :562 (kernels
+``_flash_bwd_dq_kernel`` :451 and ``_flash_bwd_dkv_kernel`` :503).  The
+kernels are ``csrc/attention.cu`` and ``csrc/attention_bwd.cu``;
+:func:`flash_attention_plain`, :func:`flash_attention_bwd_dq_plain` and
+:func:`flash_attention_bwd_dkv_plain` are their plain PyTorch versions,
+the folds of the TPU kernels written with torch operations, which CPU
+tensors take and the card's checks compare against.
 
-The backward kernels (rows 17-18) come with the training slice: until
-then a call on CUDA tensors that would need a gradient raises.
+A call that needs a gradient runs through :class:`_Flash`, a
+``torch.autograd.Function`` whose forward keeps the logsumexp and whose
+backward launches the dQ and dK/dV kernels, on either device.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ...constants import torch_to_dtype
 from . import _build
@@ -108,6 +113,135 @@ def _check(q, k, v) -> None:
             f"from q), got {q.dtype}/{k.dtype}/{v.dtype}")
 
 
+def _check_bwd(q, do, lse, delta) -> None:
+    """The backward's residuals: dO like q, lse and delta (B, H, T)
+    float32."""
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(
+            f"dO must match q, got {do.dtype}{tuple(do.shape)} for "
+            f"{q.dtype}{tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32:
+            raise ValueError(
+                f"{name} must be float32 {tuple(q.shape[:3])}, got "
+                f"{t.dtype}{tuple(t.shape)}")
+
+
+def _grouped(B, H, Hkv, T, D):
+    """Shapes of the per-group views: (B, Hkv, G, T, D) for q-shaped
+    tensors, (B, Hkv, G, T, 1) for per-row statistics."""
+    G = H // Hkv
+    return (B, Hkv, G, T, D), (B, Hkv, G, T, 1)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                 causal: bool = True):
+    """What the dQ kernel computes, in plain PyTorch: the TPU kernel's
+    fold over key tiles of ``_flash_block(T, dtype, 512)`` keys, with p =
+    ``where(mask, exp(s - lse), 0)`` (mask: keys and queries below T, and
+    query >= key when causal), dp = dO V^T and ds = p (dp - delta) scale
+    in float32, ds rounded to k's dtype before ds K.  Every query row
+    folds every tile (the tiles a causal row would skip add exact
+    zeros)."""
+    _check(q, k, v)
+    _check_bwd(q, do, lse, delta)
+    B, H, T, D = q.shape
+    rows, stats = _grouped(B, H, k.shape[1], T, D)
+    scale = 1.0 / D ** 0.5
+    qf, dof = q.reshape(rows).float(), do.reshape(rows).float()
+    lse, delta = lse.reshape(stats), delta.reshape(stats)
+    q_pos = torch.arange(T, device=q.device)[:, None]
+    acc = torch.zeros(rows, dtype=torch.float32, device=q.device)
+    block = _flash_block(T, q.dtype, 512)
+    for k0 in range(0, T, block):
+        kb = k[:, :, None, k0:k0 + block].float()
+        vb = v[:, :, None, k0:k0 + block].float()
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        k_pos = torch.arange(k0, k0 + kb.shape[-2], device=q.device)
+        p = torch.exp(s - lse)
+        if causal:
+            p = torch.where(q_pos >= k_pos[None, :], p, 0.0)
+        dp = torch.matmul(dof, vb.transpose(-1, -2))
+        ds = p * (dp - delta) * scale
+        acc = acc + torch.matmul(ds.to(k.dtype).float(), kb)
+    return acc.to(q.dtype).reshape(B, H, T, D)
+
+
+def _group_sum(x, Hkv: int, dtype):
+    """Per-q-head dK or dV (B, H, T, D) summed over each group of H / Hkv
+    heads in float32, then cast (``_flash_bwd_impl`` :627-631)."""
+    B, H, T, D = x.shape
+    if H == Hkv:
+        return x
+    return x.reshape(B, Hkv, H // Hkv, T, D).float().sum(2).to(dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                  causal: bool = True):
+    """What the dK/dV kernel computes, in plain PyTorch: the TPU kernel's
+    fold over query tiles of ``_flash_block(T, dtype, 512)`` rows, with p
+    and ds as in :func:`flash_attention_bwd_dq_plain`, p rounded to dO's
+    dtype before p^T dO and ds to q's dtype before ds^T Q; dK and dV per
+    q head in q's dtype, then summed over each kv group (:func:`_group_sum`).
+    Returns ``(dk, dv)`` shaped like k."""
+    _check(q, k, v)
+    _check_bwd(q, do, lse, delta)
+    B, H, T, D = q.shape
+    Hkv = k.shape[1]
+    rows, stats = _grouped(B, H, Hkv, T, D)
+    scale = 1.0 / D ** 0.5
+    qg, dog = q.reshape(rows), do.reshape(rows)
+    lse, delta = lse.reshape(stats), delta.reshape(stats)
+    kf, vf = k[:, :, None].float(), v[:, :, None].float()
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    dk = torch.zeros(rows, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    block = _flash_block(T, q.dtype, 512)
+    for q0 in range(0, T, block):
+        qb = qg[..., q0:q0 + block, :]
+        dob = dog[..., q0:q0 + block, :]
+        s = torch.matmul(qb.float(), kf.transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[..., q0:q0 + block, :])
+        if causal:
+            q_pos = torch.arange(q0, q0 + qb.shape[-2], device=q.device)
+            p = torch.where(q_pos[:, None] >= k_pos, p, 0.0)
+        dv = dv + torch.matmul(p.to(do.dtype).float().transpose(-1, -2),
+                               dob.float())
+        dp = torch.matmul(dob.float(), vf.transpose(-1, -2))
+        ds = p * (dp - delta[..., q0:q0 + block, :]) * scale
+        dk = dk + torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                               qb.float())
+    dk, dv = (t.to(q.dtype).reshape(B, H, T, D) for t in (dk, dv))
+    return _group_sum(dk, Hkv, k.dtype), _group_sum(dv, Hkv, v.dtype)
+
+
+def _kernel_operands(what: str, q, *others):
+    """The kernels' contract: float32, bfloat16 or float16, D <=
+    ``MAX_HEAD_DIM``, at most 65535 blocks of 64 rows, each operand's head
+    dim contiguous (else it is copied).  Returns the operands and whether
+    every one allows 16-byte loads."""
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{what} takes f32/bf16/f16, got {q.dtype}")
+    T, D = q.shape[2], q.shape[3]
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}, the kernel's limit")
+    if -(-T // 64) > 65535:
+        raise ValueError(f"sequence length {T} exceeds the kernel's grid")
+    ts = tuple(t if t.stride(-1) == 1 else t.contiguous()
+               for t in (q, *others))
+    width = 16 // q.element_size()
+    vec = D % width == 0 and all(
+        t.data_ptr() % 16 == 0 and all(s % width == 0 for s in t.stride()[:3])
+        for t in ts)
+    return ts, vec
+
+
+def _strides(*ts):
+    """The (b, h, t) element strides of each tensor, as a C array."""
+    return (ctypes.c_longlong * (3 * len(ts)))(
+        *[s for t in ts for s in t.stride()[:3]])
+
+
 def _lib():
     lib = _build.library("attention")
     lib.accl_flash_attention.restype = ctypes.c_int
@@ -121,46 +255,32 @@ def _lib():
     return lib
 
 
-def flash_attention(q, k, v, causal: bool = True, *, with_lse: bool = False):
-    """Fused attention, ``(B, H, T, D) -> (B, H, T, D)``, with the (T, T)
-    scores never leaving the chip: q (B, H, T, D), k and v (B, Hkv, T, D)
-    with ``H % Hkv == 0`` (q head h reads kv head h // (H // Hkv)).
-    ``with_lse=True`` returns ``(out, lse)`` with the float32 per-row
-    logsumexp (B, H, T), the residual the backward kernels will read.
+def _bwd_lib():
+    lib = _build.library("attention_bwd")
+    shape_args = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    lib.accl_flash_bwd_dq.restype = ctypes.c_int
+    lib.accl_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + shape_args
+    lib.accl_flash_bwd_dkv.restype = ctypes.c_int
+    lib.accl_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + shape_args
+    return lib
 
-    CPU tensors take :func:`flash_attention_plain`.  CUDA tensors launch
-    the kernel (float32, bfloat16 or float16, D <= ``MAX_HEAD_DIM``, the
-    head dim contiguous; the output takes q's strides) or raise."""
-    _check(q, k, v)
+
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """The forward on either device: the plain version for CPU tensors,
+    the kernel for CUDA ones."""
     if not on_cuda([q, k, v]):
         return flash_attention_plain(q, k, v, causal, with_lse=with_lse)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention on the card has no backward kernels yet (they "
-            "come with the training slice): call it under torch.no_grad()")
-    if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"flash_attention takes f32/bf16/f16, got {q.dtype}")
+    (q, k, v), vec = _kernel_operands("flash_attention", q, k, v)
     B, H, T, D = q.shape
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}, the kernel's limit")
-    if -(-T // 64) > 65535:
-        raise ValueError(f"sequence length {T} exceeds the kernel's grid")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)  # q's strides when dense, else contiguous
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if B * H * T * D == 0:
         return (out, lse) if with_lse else out
-    width = 16 // q.element_size()
-    vec = D % width == 0 and all(
-        t.data_ptr() % 16 == 0 and all(s % width == 0 for s in t.stride()[:3])
-        for t in (q, k, v))
-    strides = (ctypes.c_longlong * 12)(
-        *[s for t in (q, k, v, out) for s in t.stride()[:3]])
     lib = _lib()
     rc = lib.accl_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), strides,
+        None if lse is None else lse.data_ptr(), _strides(q, k, v, out),
         B, H, k.shape[1], T, D, int(torch_to_dtype(q.dtype)), int(causal),
         int(vec), 1.0 / D ** 0.5, stream_of(q.device),
     )
@@ -169,4 +289,119 @@ def flash_attention(q, k, v, causal: bool = True, *, with_lse: bool = False):
     return (out, lse) if with_lse else out
 
 
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True):
+    """dQ (B, H, T, D) of attention from the forward's operands, the
+    output gradient ``do`` (like q), its float32 logsumexp ``lse`` and
+    ``delta = rowsum(dO * O)`` (both (B, H, T)).
+
+    CPU tensors take :func:`flash_attention_bwd_dq_plain`.  CUDA tensors
+    launch the kernel (the forward's dtypes and head dims; dQ takes q's
+    strides) or raise."""
+    _check(q, k, v)
+    _check_bwd(q, do, lse, delta)
+    if not on_cuda([q, k, v, do, lse, delta]):
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+    (q, k, v, do), vec = _kernel_operands("flash_attention_bwd_dq",
+                                          q, k, v, do)
+    B, H, T, D = q.shape
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    lse, delta = lse.contiguous(), delta.contiguous()
+    lib = _bwd_lib()
+    rc = lib.accl_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        _strides(q, k, v, do, dq), B, H, k.shape[1], T, D,
+        int(torch_to_dtype(q.dtype)), int(causal), int(vec), 1.0 / D ** 0.5,
+        stream_of(q.device),
+    )
+    check_launch(lib, rc, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches.bump()
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
+    """``(dk, dv)``, each shaped like k, from the same inputs as
+    :func:`flash_attention_bwd_dq`.  The kernel writes them per q head;
+    under grouped-query attention each group of H / Hkv heads is then
+    summed in float32 (PyTorch, as the TPU form sums it in XLA).
+
+    CPU tensors take :func:`flash_attention_bwd_dkv_plain`.  CUDA tensors
+    launch the kernel or raise."""
+    _check(q, k, v)
+    _check_bwd(q, do, lse, delta)
+    if not on_cuda([q, k, v, do, lse, delta]):
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+    (q, k, v, do), vec = _kernel_operands("flash_attention_bwd_dkv",
+                                          q, k, v, do)
+    B, H, T, D = q.shape
+    Hkv = k.shape[1]
+    if H == Hkv:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+    else:
+        dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(2))
+    if dk.numel() == 0:
+        return _group_sum(dk, Hkv, k.dtype), _group_sum(dv, Hkv, v.dtype)
+    lse, delta = lse.contiguous(), delta.contiguous()
+    lib = _bwd_lib()
+    rc = lib.accl_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _strides(q, k, v, do, dk, dv), B, H, Hkv, T, D,
+        int(torch_to_dtype(q.dtype)), int(causal), int(vec), 1.0 / D ** 0.5,
+        stream_of(q.device),
+    )
+    check_launch(lib, rc, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches.bump()
+    return _group_sum(dk, Hkv, k.dtype), _group_sum(dv, Hkv, v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """The TPU entry's custom_vjp (:635-653): the forward saves q, k, v,
+    the output and its logsumexp; the backward forms delta = rowsum(dO *
+    O) in PyTorch (XLA's, outside any kernel, :570-572), then runs the dQ
+    and dK/dV wrappers."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, with_lse):
+        out, lse = _forward(q, k, v, causal, True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        if with_lse:
+            ctx.mark_non_differentiable(lse)
+            return out, lse
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do, *_):
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = (do.float() * out.float()).sum(-1)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, *, with_lse: bool = False):
+    """Fused attention, ``(B, H, T, D) -> (B, H, T, D)``, with the (T, T)
+    scores never leaving the chip: q (B, H, T, D), k and v (B, Hkv, T, D)
+    with ``H % Hkv == 0`` (q head h reads kv head h // (H // Hkv)).
+    ``with_lse=True`` returns ``(out, lse)`` with the float32 per-row
+    logsumexp (B, H, T), which takes no gradient.
+
+    Differentiable: when q, k or v needs a gradient the call runs through
+    :class:`_Flash`, whose backward launches the dQ and dK/dV kernels.
+    CPU tensors take the plain versions.  CUDA tensors launch the kernels
+    (float32, bfloat16 or float16, D <= ``MAX_HEAD_DIM``, the head dim
+    contiguous; the output takes q's strides) or raise."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, causal, with_lse)
+    return _forward(q, k, v, causal, with_lse)
+
+
 flash_attention.launches = LaunchCounter()
+flash_attention_bwd_dq.launches = LaunchCounter()
+flash_attention_bwd_dkv.launches = LaunchCounter()

@@ -10,8 +10,9 @@ Phases (any failure exits non-zero):
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes — float results must match EXACTLY (same operation
    order, same round-to-nearest-even; NaN positions must agree), except
-   flash attention (row 16), whose fold order differs from its plain
-   version's and which is held within stated tolerances (``check_flash``).  The
+   flash attention (rows 16-18), whose fold order differs from its plain
+   versions' and which is held within stated tolerances
+   (``check_flash``, ``check_flash_bwd``).  The
    rooted relays (bcast in place and out of place, reduce with every
    rank's partial and with the root's output alone, scatter) and the
    root-only gather over K3 run at P in {2, 4, 8} x root in {0, P-1} x
@@ -57,6 +58,18 @@ Phases (any failure exits non-zero):
       logits under flash against naive (float32 within 1e-4 relative,
       bfloat16 within ``BF16_LOGIT_ATOL``) and 32 float32 greedy steps of
       2 layers under flash against naive, tie-aware;
+   e. the training path: the transformer at bench.py's training width
+      (vocab 32768, d_model 4096, 32 heads, 6 layers, d_ff 16384,
+      bfloat16, 1,346M parameters, random weights and an (8, 1024) token
+      batch from a seeded generator, targets the tokens rolled by one) —
+      3 steps of ``make_sharded_train_step`` (lr 0.01) under ``"auto"``,
+      each launching the flash forward, dQ and dK/dV kernels once a layer
+      and no other kernel, with finite losses and weights; ``loss_fn``
+      and its gradients under flash against naive, in bfloat16 at full
+      width (within ``BF16_LOSS_RTOL`` and ``BF16_GRAD_RTOL``) and in
+      float32 with 2 layers and batch 2 (loss within 1e-5, every gradient
+      within 1e-4 relative), and the float32 step's updated weights
+      against p - lr g;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (the
    root-only gather as extra keys of K3's entry; the sequencer on 8
@@ -64,7 +77,11 @@ Phases (any failure exits non-zero):
    4 MiB per rank as extra keys of its entry; flash attention at run A's
    (8, 16, 128, 128) bf16 causal, with run B's T = 1024 as extra keys,
    beside ``scaled_dot_product_attention``, bounded by the tensor cores'
-   bf16 rate);
+   bf16 rate, and with its LSE at the training shape (8, 32, 1024, 128));
+   dQ and dK/dV (rows 17-18) at that shape beside their plain versions
+   and the backward of ``scaled_dot_product_attention``, which computes
+   dQ, dK and dV in one call (beside the sum of rows 17 + 18 and the
+   delta pass);
 5. time the facade end to end (host clock around each synchronous call
    on rank 0's thread, rendezvous included) at 256 KiB, 4 MiB and 64 MiB
    per rank: the allreduce under ``xla``, ``pallas_ring`` and
@@ -75,7 +92,11 @@ Phases (any failure exits non-zero):
    256 KiB, 1 MiB and 4 MiB per rank, each set as a JSON line of its own;
    then the serving path (``serve_generate``): run A's prefill ms, the
    decode step p50, decode tokens/s over ``generate``'s wall time, and
-   run B's prefill ms.
+   run B's prefill ms; then the training path (``train_step``): the step
+   time (bench.py's mean over 10 steps, p50 and p90 beside it),
+   tokens/s, bench.py's 6 N B T count over the step as ``train_tflops``
+   and over 989 TFLOP/s as ``train_mfu``, peak memory, and the three
+   kernels' launches per step.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -85,6 +106,7 @@ result when no CUDA device is present or the package is missing.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -1089,7 +1111,7 @@ def flash_launched_alone(launches: dict, want: int, what: str) -> None:
              f"and no other kernel")
 
 
-def check_flash(err) -> None:
+def check_flash(kc, err) -> None:
     """Phase 2 for row 16: the kernel against flash_attention_plain on the
     card.  Tolerances: float32 atol = rtol = 2e-5 (the JAX tests' own,
     tests/test_pallas.py:689-691: the two fold in other orders); bf16/f16
@@ -1129,22 +1151,42 @@ def check_flash(err) -> None:
             err["flash_attention"],
             float((got.float() - want.float()).abs().max()))
         del q, k, v, got, want
-    # no backward kernels yet: a call that would need a gradient raises
-    # before it launches
+    # a call that needs a gradient runs the autograd Function: the
+    # forward with its LSE, then the dQ and dK/dV kernels once each
     q = torch.randn(1, 2, 32, 16, device=dev, requires_grad=True)
-    before = ka.flash_attention.launches.count
-    try:
-        ka.flash_attention(q, q.detach(), q.detach())
-    except RuntimeError as e:
-        if "no backward kernels" not in str(e) or \
-                ka.flash_attention.launches.count != before:
-            fail(f"flash_attention with a gradient: {e}")
-    else:
-        fail("flash_attention took a tensor that needs a gradient")
+    before = read_launches(kc)
+    ka.flash_attention(q, q, q).sum().backward()
+    moved = {k: n - before[k] for k, n in read_launches(kc).items()
+             if n != before[k]}
+    if moved != dict.fromkeys(TRAIN_KERNELS, 1) or \
+            not torch.isfinite(q.grad).all():
+        fail(f"flash_attention with a gradient launched {moved}")
     torch.cuda.synchronize()
     print(f"flash_attention: {len(FLASH_CASES)} cases agree with "
           f"flash_attention_plain (max abs err {err['flash_attention']})",
           flush=True)
+
+
+def serve_setup():
+    """The serving configuration, its random weights from the seed, and
+    the two prompts: ``(cfg, params, prompt (8, 128), long (8, 1024))``.
+    Phase 3d frees them before the training path takes the card, and
+    phase 5 makes them again, equal, from the same seed."""
+    import torch
+
+    from accl_tpu_torch.models import TransformerConfig, init_params
+
+    dev = torch.device("cuda", 0)
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash", **SERVE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen)
+    prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_T), generator=gen,
+                           device=dev, dtype=torch.int32)
+    long = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LONG), generator=gen,
+                         device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    return cfg, params, prompt, long
 
 
 def serve_main_path(kc) -> dict:
@@ -1161,19 +1203,9 @@ def serve_main_path(kc) -> dict:
 
     import torch
 
-    from accl_tpu_torch.models import (TransformerConfig, forward,
-                                       generate, init_params, prefill)
+    from accl_tpu_torch.models import forward, generate, prefill
 
-    dev = torch.device("cuda", 0)
-    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash", **SERVE)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    params = init_params(cfg, gen)
-    prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_T), generator=gen,
-                           device=dev, dtype=torch.int32)
-    long = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LONG), generator=gen,
-                         device=dev, dtype=torch.int32)
-    torch.cuda.synchronize()
+    cfg, params, prompt, long = serve_setup()
 
     reset_launches(kc)
     tokens = generate(params, prompt, SERVE_STEPS, cfg)
@@ -1247,12 +1279,11 @@ def serve_main_path(kc) -> dict:
         ties += 1
     print(f"float32 greedy, 2 layers x {steps} steps: flash == naive on "
           f"{SERVE_B - ties} rows, {ties} rows part at a tie", flush=True)
-    del p32, p2
+    del p32, p2, params
     torch.cuda.synchronize()
     return dict(launches={k: run_a[k] + run_b[k] for k in run_a},
                 run_a=run_a["flash_attention"],
-                run_b=run_b["flash_attention"], params=params, cfg=cfg,
-                prompt=prompt, long=long, bf16_logit_err=bf16_err,
+                run_b=run_b["flash_attention"], bf16_logit_err=bf16_err,
                 bf16_logit_scale=bf16_scale, f32_logit_rel=f32_rel,
                 greedy_f32_ties=ties)
 
@@ -1284,7 +1315,8 @@ def time_flash() -> dict:
 
 
 def serve_timing(serve) -> dict:
-    """Phase 5 for the serving path: run A's prefill ms and decode step
+    """Phase 5 for the serving path, on weights made again from the seed:
+    run A's prefill ms and decode step
     p50 (host clock around each synchronised call), decode tokens/s (8 x
     128 over ``generate``'s wall time, 3 timed runs with distinct prompts
     after a warm-up), and run B's prefill ms."""
@@ -1294,8 +1326,7 @@ def serve_timing(serve) -> dict:
     from accl_tpu_torch.models import generate, prefill
     from accl_tpu_torch.models.transformer import _decode_step
 
-    params, cfg = serve["params"], serve["cfg"]
-    prompt, long = serve["prompt"], serve["long"]
+    cfg, params, prompt, long = serve_setup()
 
     def wall(fn, reps):
         times = []
@@ -1355,6 +1386,426 @@ def serve_timing(serve) -> dict:
     }
 
 
+# -- the transformer's training path (rows 16-18) ---------------------------
+
+#: bench.py's training configuration (bench.py:310-317): tp = 1 on one card
+TRAIN = dict(vocab=32768, d_model=4096, n_heads=32, n_layers=6, d_ff=16384,
+             max_seq=1024)
+TRAIN_B, TRAIN_T, TRAIN_LR, TRAIN_STEPS = 8, 1024, 0.01, 3
+#: the kernels a train step launches, each once a layer
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+#: bfloat16 at full width, flash against naive: the two lowerings round
+#: the attention output and its gradients to bfloat16 after different
+#: fold orders, and 6 layers carry those one-ulp differences through the
+#: backward pass
+BF16_LOSS_RTOL = 1e-2
+BF16_GRAD_RTOL = 5e-2  # relative Frobenius, per gradient tensor
+#: phase 2's backward cases: FLASH_CASES and the training shape
+FLASH_BWD_CASES = FLASH_CASES + [
+    (8, 32, 32, 1024, 128, "bfloat16", True, True),
+    (2, 4, 1, 200, 64, "bfloat16", False, True),   # MQA
+]
+
+
+def ptxas_report(kc) -> list:
+    """Registers and spill-store bytes of the flash kernels that the
+    training path runs (bf16, head dim 128), from ptxas's lines in the
+    build logs: ``[[kernel, registers, spill bytes], ...]``."""
+    import re
+
+    found, entry = {}, None
+    for lib in ("attention", "attention_bwd"):
+        for line in kc._build.build_log(lib).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+                found[entry] = [None, None]
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                found[entry][0] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and entry:
+                found[entry][1] = int(m.group(1))
+    rows = [[re.search(r"(flash_\w+?)I", e).group(1), *v]
+            for e, v in found.items() if "13__nv_bfloat16Li128E" in e]
+    if not rows:
+        fail("no ptxas register counts in the flash kernels' build logs")
+    return rows
+
+
+def check_flash_bwd(err) -> None:
+    """Phase 2 for rows 17-18: the dQ and dK/dV kernels against their
+    plain versions on the card, on the kernel forward's o and lse.
+    Tolerances: float32 rtol 2e-4, atol 2e-5 (the JAX gradient tests'
+    own, tests/test_pallas.py:771: the kernels fold 64-key tiles in other
+    orders than the plain versions' 512); bf16/f16 max abs difference
+    within 1e-2 of the plain gradient's largest entry and relative
+    Frobenius difference within 1e-3 (a rounding of p or ds to the 16-bit
+    dtype may land one ulp apart and carry into the product)."""
+    import torch
+
+    from accl_tpu_torch.ops.cuda import attention as ka
+
+    dev = torch.device("cuda", 0)
+    for i, (B, H, Hkv, T, D, dt, causal, _) in enumerate(FLASH_BWD_CASES):
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 30 + i)
+        q, k, v = (torch.randn(B, h, T, D, generator=gen, device=dev)
+                   .to(dtype) for h in (H, Hkv, Hkv))
+        do = torch.randn(B, H, T, D, generator=gen, device=dev).to(dtype)
+        o, lse = ka.flash_attention(q, k, v, causal, with_lse=True)
+        delta = (do.float() * o.float()).sum(-1)
+        tag = (f"flash backward (B,H,Hkv,T,D)={(B, H, Hkv, T, D)} {dt} "
+               f"causal={causal}")
+        before = (ka.flash_attention_bwd_dq.launches.count,
+                  ka.flash_attention_bwd_dkv.launches.count)
+        got = (ka.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
+               *ka.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+        if (ka.flash_attention_bwd_dq.launches.count,
+                ka.flash_attention_bwd_dkv.launches.count) != (
+                before[0] + 1, before[1] + 1):
+            fail(f"{tag}: the kernels did not launch once each")
+        want = (ka.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                causal),
+                *ka.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  causal))
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dkv", "dkv"), got, want):
+            g, w = g.float(), w.float()
+            d = float((g - w).abs().max())
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                fail(f"{tag}: {name} {tuple(g.shape)} non-finite or "
+                     f"misshapen")
+            if dtype == torch.float32:
+                ok = torch.allclose(g, w, rtol=2e-4, atol=2e-5)
+            else:
+                ok = (d <= 1e-2 * float(w.abs().max())
+                      and float((g - w).norm() / w.norm()) <= 1e-3)
+            if not ok:
+                fail(f"{tag}: {name} max abs err {d}")
+            key = f"flash_attention_bwd_{name}"
+            err[key] = max(err[key], d)
+        del q, k, v, do, o, lse, delta, got, want
+    torch.cuda.synchronize()
+    print(f"flash backward: {len(FLASH_BWD_CASES)} cases agree with the "
+          f"plain versions (max abs err dq {err['flash_attention_bwd_dq']},"
+          f" dk/dv {err['flash_attention_bwd_dkv']})", flush=True)
+
+
+def loss_and_grads(params, tokens, targets, cfg):
+    """``loss_fn`` and its gradient with respect to every parameter, in
+    the tree's leaf order (the parameters are left untouched)."""
+    import torch
+
+    from accl_tpu_torch.models import loss_fn
+    from accl_tpu_torch.models.transformer import _tree_leaves, _tree_map
+
+    live = [p.detach().requires_grad_() for p in _tree_leaves(params)]
+    it = iter(live)
+    loss = loss_fn(_tree_map(lambda _: next(it), params), tokens, targets,
+                   cfg)
+    grads = torch.autograd.grad(loss, live)
+    return float(loss.detach()), grads
+
+
+def leaf_names(tree, prefix="") -> list:
+    """The dotted names of a parameter tree's leaves, in leaf order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def grad_gap(loss_a, grads_a, loss_b, grads_b, names) -> tuple:
+    """(relative loss difference, the largest relative Frobenius
+    difference over the gradient tensors, that tensor's name), b the
+    reference."""
+    rel = [float((a.float() - b.float()).norm() / b.float().norm())
+           for a, b in zip(grads_a, grads_b)]
+    i = max(range(len(rel)), key=rel.__getitem__)
+    return abs(loss_a - loss_b) / abs(loss_b), rel[i], names[i]
+
+
+def train_main_path(kc) -> dict:
+    """Phase 3e: the training path at bench.py's training width (1,346M
+    parameters, bfloat16, random weights and tokens from a seeded
+    generator, targets the tokens rolled by one), ``TRAIN_STEPS`` steps of
+    ``make_sharded_train_step`` under ``attention="auto"`` (flash on the
+    card at T = 1024).  Each step launches the flash forward, dQ and dK/dV
+    kernels once a layer and no other kernel, counters zeroed before and
+    read after.  Then the checks: ``loss_fn`` and its gradients under
+    flash against naive, in bfloat16 at full width and in float32 at
+    bench's widths with 2 layers and batch 2 (TF32 off), and the float32
+    step's update against p - lr g.  Returns what phases 4 and 5 need."""
+    import dataclasses
+
+    import torch
+
+    from accl_tpu_torch.models import (TransformerConfig, init_params,
+                                       make_sharded_train_step)
+    from accl_tpu_torch.models.transformer import _tree_leaves, _tree_map
+
+    dev = torch.device("cuda", 0)
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="auto", **TRAIN)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    step, shard = make_sharded_train_step(cfg, lr=TRAIN_LR)
+    params = shard(init_params(cfg, gen))
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_T), generator=gen,
+                           device=dev, dtype=torch.int32)
+    targets = tokens.roll(-1, dims=1)
+    n_params = sum(p.numel() for p in _tree_leaves(params))
+    torch.cuda.synchronize()
+
+    reset_launches(kc)
+    losses, per_step = [], []
+    for _ in range(TRAIN_STEPS):
+        before = read_launches(kc)
+        params, loss = step(params, tokens, targets)
+        losses.append(float(loss))
+        per_step.append({k: n - before[k]
+                         for k, n in read_launches(kc).items()})
+    torch.cuda.synchronize()
+    launches = read_launches(kc)
+    want = {k: (cfg.n_layers if k in TRAIN_KERNELS else 0)
+            for k in kc.KERNELS}
+    for i, got in enumerate(per_step):
+        if got != want:
+            fail(f"train step {i}: launches {got}, want {want}")
+    if not all(map(math.isfinite, losses)) or not all(
+            bool(torch.isfinite(p).all()) for p in _tree_leaves(params)):
+        fail(f"train steps: losses {losses} or parameters not finite")
+    print(f"training path ok: {TRAIN_STEPS} steps, losses {losses}, "
+          f"{cfg.n_layers} launches a step of each of {TRAIN_KERNELS}, "
+          f"no other kernel", flush=True)
+
+    # bfloat16 at full width: flash against naive on the trained weights
+    naive = dataclasses.replace(cfg, attention="naive")
+    lf, gf = loss_and_grads(params, tokens, targets, cfg)
+    if not all(bool(torch.isfinite(g).all()) for g in gf):
+        fail("bfloat16 flash gradients not finite")
+    ln, gn = loss_and_grads(params, tokens, targets, naive)
+    bf16_loss_rel, bf16_grad_rel, worst = grad_gap(lf, gf, ln, gn,
+                                                   leaf_names(params))
+    del gf, gn
+    print(f"bfloat16 loss_fn, flash vs naive at full width: loss {lf} vs "
+          f"{ln} ({bf16_loss_rel} rel), gradients max rel (Frobenius) "
+          f"{bf16_grad_rel} ({worst})", flush=True)
+    if not bf16_loss_rel <= BF16_LOSS_RTOL:
+        fail(f"bfloat16 loss: flash vs naive {bf16_loss_rel} > "
+             f"{BF16_LOSS_RTOL} rel")
+    if not bf16_grad_rel <= BF16_GRAD_RTOL:
+        fail(f"bfloat16 gradients: flash vs naive {bf16_grad_rel} > "
+             f"{BF16_GRAD_RTOL} rel")
+
+    # float32 at bench's widths, 2 layers, batch 2
+    c32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=2)
+    p32 = _tree_map(lambda p: p.float(),
+                    dict(params, layers=params["layers"][:2]))
+    t2, y2 = tokens[:2], targets[:2]
+    lf, gf = loss_and_grads(p32, t2, y2, c32)
+    ln, gn = loss_and_grads(p32, t2, y2,
+                            dataclasses.replace(c32, attention="naive"))
+    f32_loss_rel, f32_grad_rel, worst = grad_gap(lf, gf, ln, gn,
+                                                 leaf_names(p32))
+    del gn
+    print(f"float32 loss_fn, flash vs naive, 2 layers x batch 2: loss "
+          f"{lf} vs {ln} ({f32_loss_rel} rel), gradients max rel "
+          f"(Frobenius) {f32_grad_rel} ({worst})", flush=True)
+    if not f32_loss_rel <= 1e-5:
+        fail(f"float32 loss: flash vs naive {f32_loss_rel} > 1e-5 rel")
+    if not f32_grad_rel <= 1e-4:
+        fail(f"float32 gradients: flash vs naive {f32_grad_rel} > 1e-4 rel")
+    # the step's update is p - lr g of those gradients, computed the same
+    # way: equal but for run-to-run sums (the embedding's gradient adds
+    # rows with atomics, and a changed last bit of g may flip the rounding
+    # of p - lr g by one ulp of p), so within 1e-3 of the update's norm
+    step32, shard32 = make_sharded_train_step(c32, lr=TRAIN_LR)
+    new32, _ = step32(shard32(p32), t2, y2)
+    upd_rel = max(
+        float((n - (p - TRAIN_LR * g)).norm() / (TRAIN_LR * g).norm())
+        for n, p, g in zip(_tree_leaves(new32), _tree_leaves(p32), gf)
+        if float(g.norm()) > 0)
+    print(f"float32 step: updated params vs p - lr g, max rel {upd_rel}",
+          flush=True)
+    if not upd_rel <= 1e-3:
+        fail(f"float32 step: updated params differ from p - lr g by "
+             f"{upd_rel} of the update")
+    del p32, gf, new32
+    torch.cuda.synchronize()
+    return dict(launches=launches, step=step, params=params, tokens=tokens,
+                targets=targets, cfg=cfg, n_params=n_params, losses=losses,
+                per_step={k: per_step[0][k] for k in TRAIN_KERNELS},
+                bf16_loss_rel=bf16_loss_rel, bf16_grad_rel=bf16_grad_rel,
+                f32_loss_rel=f32_loss_rel, f32_grad_rel=f32_grad_rel,
+                f32_update_rel=upd_rel)
+
+
+def time_flash_bwd() -> dict:
+    """Phase 4 for rows 16-18 at the training shape (8, 32, 1024, 128)
+    bf16 causal: the forward with LSE, dQ and dK/dV, each beside its plain
+    version; the delta pass; and ``scaled_dot_product_attention``'s
+    forward and its backward (dQ, dK and dV in one call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from accl_tpu_torch.ops.cuda import attention as ka
+
+    dev = torch.device("cuda", 0)
+    B, H, T, D = TRAIN_B, TRAIN["n_heads"], TRAIN_T, 128
+    q, k, v, do = (torch.randn(B, H, T, D, device=dev, dtype=torch.bfloat16)
+                   for _ in range(4))
+    o, lse = ka.flash_attention(q, k, v, True, with_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    sq, sk, sv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    pairs = B * H * T * (T + 1) // 2  # the causal (q, k) pairs, all heads
+    act = q.numel() * q.element_size()  # bytes of one (B, H, T, D) tensor
+    stats = 4 * B * H * T  # bytes of lse or delta
+    out = {
+        "fwd": dict(
+            ms=time_ms(lambda: ka.flash_attention(q, k, v, True,
+                                                  with_lse=True), iters=20),
+            plain_ms=time_ms(lambda: ka.flash_attention_plain(
+                q, k, v, True, with_lse=True)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), iters=20),
+            bytes=4 * act + stats, ops=4 * D * pairs),
+        "flash_attention_bwd_dq": dict(
+            ms=time_ms(lambda: ka.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, True), iters=20),
+            plain_ms=time_ms(lambda: ka.flash_attention_bwd_dq_plain(
+                q, k, v, do, lse, delta, True)),
+            bytes=5 * act + 2 * stats, ops=3 * 2 * D * pairs),
+        "flash_attention_bwd_dkv": dict(
+            ms=time_ms(lambda: ka.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, True), iters=20),
+            plain_ms=time_ms(lambda: ka.flash_attention_bwd_dkv_plain(
+                q, k, v, do, lse, delta, True)),
+            bytes=6 * act + 2 * stats, ops=4 * 2 * D * pairs),
+        "delta_ms": time_ms(lambda: (do.float() * o.float()).sum(-1),
+                            iters=20),
+        "library_bwd_ms": time_ms(lambda: torch.autograd.grad(
+            so, (sq, sk, sv), do, retain_graph=True), iters=20),
+    }
+    del q, k, v, do, o, lse, delta, sq, sk, sv, so
+    return out
+
+
+#: kernel-name fragments (lower case) -> the class a profiled step's
+#: device time is counted under; the first match wins, "other" takes the
+#: rest (layer norms, gelu, residual adds, casts, the embedding, the
+#: delta pass)
+KERNEL_CLASSES = (
+    ("flash", ("flash_fwd", "flash_bwd")),
+    ("matmul", ("gemm", "xmma", "nvjet", "cutlass")),
+    ("log_softmax", ("softmax",)),
+    ("sgd_update", ("foreach", "multi_tensor")),
+)
+
+
+def train_profile(train) -> dict:
+    """One train step under ``torch.profiler`` (CPU and CUDA activities):
+    the device's kernel time summed by ``KERNEL_CLASSES``, its busy time
+    against the step's wall time (host clock, synchronised), the idle
+    share, and the ten costliest kernels.  Device times are None when the
+    profiler records no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step, params = train["step"], train["params"]
+    tokens, targets = train["tokens"], train["targets"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(params, tokens, targets)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    by_class["other"] = 0.0
+    kernels = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        kernels[e.name] = kernels.get(e.name, 0.0) + ms
+        low = e.name.lower()
+        cls = next((name for name, keys in KERNEL_CLASSES
+                    if any(key in low for key in keys)), "other")
+        by_class[cls] += ms
+    busy = sum(by_class.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "wall_ms": wall_ms,
+        "device_ms_by_class": by_class if busy else None,
+        "device_busy_ms": busy or None,
+        "idle_share": 1.0 - busy / wall_ms if busy else None,
+        "top_kernels_ms": [[name[:80], ms] for name, ms in top],
+    }
+
+
+def train_timing(train) -> dict:
+    """Phase 5 for the training path: bench.py's measure
+    (bench.py:343-350), one warm-up step, then the mean of 10 steps timed
+    together with one synchronise at the end; then 10 steps each
+    synchronised for p50 and p90, and one more under the profiler
+    (:func:`train_profile`).  ``train_tflops`` counts bench.py's 6 N B T
+    operations a step (bench.py:337-341) over the mean, ``train_mfu``
+    that over 989 TFLOP/s."""
+    import numpy as np
+    import torch
+
+    step, params = train["step"], train["params"]
+    tokens, targets, cfg = train["tokens"], train["targets"], train["cfg"]
+    params, loss = step(params, tokens, targets)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(10):
+        params, loss = step(params, tokens, targets)
+    float(loss)
+    mean_s = (time.perf_counter() - t) / 10
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, loss = step(params, tokens, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    flops = 6.0 * train["n_params"] * TRAIN_B * TRAIN_T
+    profiled = train_profile(train)
+    return {
+        "batch": TRAIN_B, "seq": TRAIN_T, "params": train["n_params"],
+        "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "dtype": "bfloat16", "attention": "auto", "lr": TRAIN_LR,
+        "step_ms": mean_s * 1e3,
+        "step_p50_ms": float(np.median(times)) * 1e3,
+        "step_p90_ms": float(np.percentile(times, 90)) * 1e3,
+        "tokens_per_s": TRAIN_B * TRAIN_T / mean_s,
+        "train_tflops": flops / mean_s / 1e12,
+        "train_mfu": flops / mean_s / TC16_OPS_PER_S,
+        "peak_memory_gb": peak / 1e9,
+        "launches_per_step": train["per_step"],
+        "main_path_losses": train["losses"], "last_loss": float(loss),
+        "bf16_flash_vs_naive_loss_rel": train["bf16_loss_rel"],
+        "bf16_flash_vs_naive_grad_rel": train["bf16_grad_rel"],
+        "f32_flash_vs_naive_loss_rel": train["f32_loss_rel"],
+        "f32_flash_vs_naive_grad_rel": train["f32_grad_rel"],
+        "f32_update_vs_lr_grad_rel": train["f32_update_rel"],
+        "profiled_step": profiled,
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1380,6 +1831,8 @@ def main() -> int:
     t0 = time.time()
     built = kc.build_all()
     print(f"built {built} in {time.time() - t0:.1f} s", flush=True)
+    print(f"ptxas, flash kernels at bf16 D 128 [kernel, registers, spill "
+          f"bytes]: {ptxas_report(kc)}", flush=True)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1465,7 +1918,8 @@ def main() -> int:
     torch.cuda.synchronize()
     check_rooted_kernels(rand, err)
     check_sequencer(err)
-    check_flash(err)
+    check_flash(kc, err)
+    check_flash_bwd(err)
     print(f"kernels agree with their plain versions ({time.time() - t0:.1f}"
           f" s; exactly, but flash_attention within its tolerances)",
           flush=True)
@@ -1557,9 +2011,13 @@ def main() -> int:
     t0 = time.time()
     serve = serve_main_path(kc)
     print(f"serving path checks done ({time.time() - t0:.1f} s)", flush=True)
-    # each kernel's launches over the four paths' runs
+    t0 = time.time()
+    train = train_main_path(kc)
+    print(f"training path checks done ({time.time() - t0:.1f} s)",
+          flush=True)
+    # each kernel's launches over the five paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k] + serve["launches"][k]
-                for k in launches}
+                + train["launches"][k] for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
     xs = [rand(N_RANK, F32) for _ in range(P_MAIN)]
@@ -1609,6 +2067,9 @@ def main() -> int:
     timing["flash_attention"] = flash[SERVE_T]
     flash_bounds = {T: bound(f["bytes"], f["ops"], TC16_OPS_PER_S)
                     for T, f in flash.items()}
+    bwd = time_flash_bwd()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        timing[name] = dict(bwd[name], library_ms=bwd["library_bwd_ms"])
     meta = {
         "ring_allreduce": ("accl_tpu_torch/csrc/ring.cu",
                            "accl_tpu/ops/pallas/ring.py:123"),
@@ -1628,6 +2089,10 @@ def main() -> int:
                       "accl_tpu/ops/pallas/cmdring.py:534"),
         "flash_attention": ("accl_tpu_torch/csrc/attention.cu",
                             "accl_tpu/ops/pallas/attention.py:293"),
+        "flash_attention_bwd_dq": ("accl_tpu_torch/csrc/attention_bwd.cu",
+                                   "accl_tpu/ops/pallas/attention.py:451"),
+        "flash_attention_bwd_dkv": ("accl_tpu_torch/csrc/attention_bwd.cu",
+                                    "accl_tpu/ops/pallas/attention.py:503"),
     }
     kernels = []
     for name in kc.KERNELS:
@@ -1639,6 +2104,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             **(seq["bound"] if name == "sequencer"
                else flash_bounds[SERVE_T] if name == "flash_attention"
+               else bound(t["bytes"], t["ops"], TC16_OPS_PER_S)
+               if name in TRAIN_KERNELS
                else bound(t["bytes"], t["ops"])),
             "library_ms": t["library_ms"],
         })
@@ -1665,6 +2132,24 @@ def main() -> int:
                 "t1024_bound_ms": flash_bounds[SERVE_LONG]["bound_ms"],
                 "t1024_bound_by": flash_bounds[SERVE_LONG]["bound_by"],
                 "t1024_library_ms": f["library_ms"],
+            })
+            f = bwd["fwd"]  # the training shape, with LSE
+            b = bound(f["bytes"], f["ops"], TC16_OPS_PER_S)
+            kernels[-1].update({
+                "launches_train": train["launches"][name],
+                "train_shape": [TRAIN_B, TRAIN["n_heads"], TRAIN_T, 128],
+                "train_ms": f["ms"], "train_plain_ms": f["plain_ms"],
+                "train_bound_ms": b["bound_ms"],
+                "train_bound_by": b["bound_by"],
+                "train_library_ms": f["library_ms"],
+            })
+        if name in TRAIN_KERNELS[1:]:  # the library call's whole backward
+            kernels[-1].update({
+                "shape": [TRAIN_B, TRAIN["n_heads"], TRAIN_T, 128],
+                "library_computes": "dq, dk and dv (one backward call)",
+                "delta_ms": bwd["delta_ms"],
+                "bwd_sum_ms": bwd["flash_attention_bwd_dq"]["ms"]
+                + bwd["flash_attention_bwd_dkv"]["ms"] + bwd["delta_ms"],
             })
         if name == "ring_allgather":  # the rooted gather: root output only
             g = timing["ring_gather"]
@@ -1696,6 +2181,14 @@ def main() -> int:
           f"kernel_ms={f['t1024_ms']:.4f} bound_ms={f['t1024_bound_ms']:.4f}"
           f" ({f['t1024_bound_by']}) plain_ms={f['t1024_plain_ms']:.4f} "
           f"library_ms={f['t1024_library_ms']:.4f}")
+    print(f"flash_attention with LSE (8,32,1024,128) bf16 causal: "
+          f"kernel_ms={f['train_ms']:.4f} bound_ms={f['train_bound_ms']:.4f}"
+          f" ({f['train_bound_by']}) plain_ms={f['train_plain_ms']:.4f} "
+          f"library_ms={f['train_library_ms']:.4f}")
+    d = by_name["flash_attention_bwd_dkv"]
+    print(f"flash backward (8,32,1024,128) bf16 causal: dq + dk/dv + delta "
+          f"= {d['bwd_sum_ms']:.4f} ms against scaled_dot_product_attention"
+          f"'s backward {d['library_ms']:.4f} ms")
     del a, b, c
     torch.cuda.synchronize()
 
@@ -1711,6 +2204,10 @@ def main() -> int:
     del serve
     print(json.dumps({"serve_generate": {
         "card": smi.stdout.strip().splitlines()[0], **served}}))
+    trained = train_timing(train)
+    del train
+    print(json.dumps({"train_step": {
+        "card": smi.stdout.strip().splitlines()[0], **trained}}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

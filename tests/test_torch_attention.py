@@ -1,16 +1,19 @@
 """The port's attention lowerings against the JAX package's.
 
 ``accl_tpu_torch.ops.cuda.attention.flash_attention`` holds the
-hand-written flash-attention forward (row 16); on a CPU tensor it runs
-``flash_attention_plain``, the TPU kernel's fold in plain PyTorch.  Here
-the same numpy-seeded operands go through the JAX package's Pallas
-``flash_attention`` (interpreted on the CPU, as ``tests/test_pallas.py``
-runs it) and through the port: float32 results agree within 2e-5, the
-JAX tests' own tolerance; the logsumexp residual within 2e-5 of
-``_flash_fwd_impl(..., with_lse=True)``.  ``blockwise_attention`` is
-held against the JAX XLA fold the same way.  The kernel itself runs only
-on the card (``chip_smoke.py`` phase 2 holds it against the plain
-version there).
+hand-written flash-attention forward (row 16) and, behind its
+``torch.autograd.Function``, the dQ and dK/dV backward kernels (rows
+17-18); on CPU tensors it runs their plain versions, the TPU kernels'
+folds in plain PyTorch.  Here the same numpy-seeded operands go through
+the JAX package's Pallas ``flash_attention`` (interpreted on the CPU, as
+``tests/test_pallas.py`` runs it, default ``block=512``) and through the
+port: float32 results agree within 2e-5, the JAX tests' own tolerance;
+the logsumexp residual within 2e-5 of ``_flash_fwd_impl(...,
+with_lse=True)``; float32 gradients within rtol 2e-4, atol 2e-5, the
+JAX gradient tests' own.  ``blockwise_attention`` is held against the
+JAX XLA fold the same way.  The kernels themselves run only on the card
+(``chip_smoke.py`` phase 2 holds them against the plain versions there;
+the ``gpu``-marked tests below do too).
 """
 
 import jax
@@ -21,16 +24,23 @@ import torch
 
 from accl_tpu.ops import pallas as pk
 from accl_tpu.ops.attention import blockwise_attention as jax_blockwise
-from accl_tpu.ops.pallas.attention import _flash_fwd_impl
+from accl_tpu.ops.pallas.attention import _flash_bwd_impl, _flash_fwd_impl
 from accl_tpu_torch import interop
 from accl_tpu_torch.ops.attention import blockwise_attention
 from accl_tpu_torch.ops.cuda import KERNELS
 from accl_tpu_torch.ops.cuda.attention import (
     flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
     flash_attention_plain,
 )
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
+BWD_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
 
 
 @pytest.fixture
@@ -144,28 +154,146 @@ def test_flash_validates():
 
 
 def test_flash_plain_is_differentiable_on_the_cpu():
-    """The CPU form is plain autograd-able PyTorch; only the card's call
-    refuses a gradient until the backward kernels land."""
+    """On CPU tensors the autograd Function runs the plain forward and the
+    plain dQ and dK/dV backward, launching no kernel."""
     q, k, v = (torch.from_numpy(a).requires_grad_()
                for a in _operands(5, 1, 2, 2, 20, 8))
+    before = {n: KERNELS[n].launches.count for n in BWD_KERNELS}
     flash_attention(q, k, v).square().sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (q, k, v))
+    assert before == {n: KERNELS[n].launches.count for n in BWD_KERNELS}
+
+
+def _jax_grads(jq, jk, jv, jw, causal):
+    """jax.grad of sum(flash(q, k, v) * w) through the interpreted Pallas
+    kernels (forward with LSE, then the dQ and dK/dV kernels)."""
+    return jax.grad(
+        lambda q, k, v: (pk.flash_attention(q, k, v, causal=causal)
+                         * jw).sum(),
+        argnums=(0, 1, 2),
+    )(jq, jk, jv)
+
+
+def _torch_grads(q, k, v, w, causal):
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    (flash_attention(q, k, v, causal) * w).sum().backward()
+    return q.grad, k.grad, v.grad
+
+
+FLASH_GRAD_CASES = [
+    # (B, H, Hkv, T, D, causal): tests/test_pallas.py's gradient cases
+    # (:742, :776, :941) and an MQA one
+    (2, 2, 2, 96, 32, True),
+    (2, 2, 2, 96, 32, False),
+    (1, 2, 2, 50, 24, True),   # ragged T, D below the lane width
+    (2, 4, 2, 64, 32, True),   # GQA
+    (1, 4, 1, 40, 8, False),   # MQA
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,D,causal", FLASH_GRAD_CASES)
+def test_flash_grads_equal_jax(interpreted, B, H, Hkv, T, D, causal):
+    ops = _operands(6, B, H, Hkv, T, D)
+    w = np.random.default_rng(7).standard_normal((B, H, T, D)).astype(
+        np.float32)
+    (jq, jk, jv, jw), (q, k, v, tw) = _both(ops + (w,))
+    want = _jax_grads(jq, jk, jv, jw, causal)
+    got = _torch_grads(q, k, v, tw, causal)
+    for g, x, name in zip(got, want, "qkv"):
+        assert g.shape == (q, k, v)["qkv".index(name)].shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(x), **GRAD_TOL,
+                                   err_msg=f"d{name}")
+
+
+def test_flash_grads_bfloat16_near_jax(interpreted):
+    """bfloat16 operands: both sides round p to bfloat16 before p^T dO,
+    ds before ds K and ds^T Q, and each gradient at the end, but their
+    float32 sums run in other orders, so a rounding may land one bf16 ulp
+    (2^-8 relative) apart.  Held within rtol 1e-2 (two ulps) and atol
+    1e-3; on this case dK and dV come out equal bit for bit and dQ within
+    2e-7 of JAX's."""
+    ops = _operands(8, 2, 4, 2, 48, 32)
+    w = np.random.default_rng(9).standard_normal((2, 4, 48, 32)).astype(
+        np.float32)
+    (jq, jk, jv, jw), (q, k, v, tw) = _both(ops + (w,), jnp.bfloat16)
+    want = _jax_grads(jq, jk, jv, jw, True)
+    got = _torch_grads(q, k, v, tw, True)
+    for g, x, name in zip(got, want, "qkv"):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(interop.to_numpy(g),
+                                   np.asarray(x).astype(np.float32),
+                                   rtol=1e-2, atol=1e-3, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,D,causal", [(1, 4, 2, 50, 24, True),
+                                                (2, 2, 2, 40, 16, False)])
+def test_flash_bwd_plain_equals_jax(interpreted, B, H, Hkv, T, D, causal):
+    """The plain dQ and dK/dV functions against ``_flash_bwd_impl`` given
+    the same o, lse and output gradient."""
+    q, k, v = _operands(10, B, H, Hkv, T, D)
+    g = np.random.default_rng(11).standard_normal((B, H, T, D)).astype(
+        np.float32)
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _both((q, k, v, g))
+    jo, jlse = _flash_fwd_impl(jq, jk, jv, causal, 512, None, with_lse=True)
+    want = _flash_bwd_impl(jq, jk, jv, jo, jlse, jg, causal, 512, None)
+    o = torch.from_numpy(np.array(jo))
+    lse = torch.from_numpy(np.array(jlse))
+    delta = (tg * o).sum(-1)
+    dq = flash_attention_bwd_dq_plain(tq, tk, tv, tg, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv_plain(tq, tk, tv, tg, lse, delta,
+                                           causal)
+    for got, x, name in zip((dq, dk, dv), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(x), **GRAD_TOL,
+                                   err_msg=f"d{name}")
+    # the wrappers take the plain versions on CPU tensors
+    torch.testing.assert_close(
+        flash_attention_bwd_dq(tq, tk, tv, tg, lse, delta, causal), dq,
+        rtol=0, atol=0)
+    for a, b in zip(flash_attention_bwd_dkv(tq, tk, tv, tg, lse, delta,
+                                            causal), (dk, dv)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_flash_bwd_validates():
+    z = torch.zeros
+    q = z(1, 2, 8, 4)
+    stats = z(1, 2, 8)
+    with pytest.raises(ValueError, match="dO must match q"):
+        flash_attention_bwd_dq(q, q, q, z(1, 2, 8, 5), stats, stats)
+    with pytest.raises(ValueError, match="lse must be float32"):
+        flash_attention_bwd_dkv(q, q, q, q, stats.double(), stats)
+    with pytest.raises(ValueError, match="delta must be float32"):
+        flash_attention_bwd_dq(q, q, q, q, stats, z(1, 2, 7))
 
 
 @pytest.mark.gpu
-def test_flash_on_the_card_refuses_a_gradient():
+def test_flash_gradient_on_the_card_runs_the_kernels():
+    """On CUDA tensors that need a gradient the forward kernel runs with
+    its LSE and the backward launches the dQ and dK/dV kernels once each;
+    the gradients equal the plain backward's on the same residuals
+    (float32: FFMA kernels, no TF32; rows 16-18 fold in other orders than
+    the plain versions, so within 2e-4 relative)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    q, k, v = (torch.from_numpy(a).to(dev).requires_grad_()
-               for a in _operands(6, 1, 2, 2, 32, 16))
-    before = KERNELS["flash_attention"].launches.count
-    with pytest.raises(RuntimeError, match="no backward kernels"):
-        flash_attention(q, k, v)
-    assert KERNELS["flash_attention"].launches.count == before
-    with torch.no_grad():
-        out = flash_attention(q, k, v)
-    assert KERNELS["flash_attention"].launches.count == before + 1
-    torch.testing.assert_close(out, flash_attention_plain(q, k, v).detach(),
-                               rtol=2e-5, atol=2e-5)
+    for causal, (B, H, Hkv, T, D) in ((True, (1, 4, 2, 72, 32)),
+                                      (False, (2, 2, 2, 64, 16))):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_()
+                   for a in _operands(12, B, H, Hkv, T, D))
+        w = torch.randn(B, H, T, D, device=dev)
+        before = {n: KERNELS[n].launches.count for n in BWD_KERNELS}
+        out = flash_attention(q, k, v, causal)
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        assert {n: KERNELS[n].launches.count - before[n]
+                for n in BWD_KERNELS} == dict.fromkeys(BWD_KERNELS, 1)
+        with torch.no_grad():
+            o, lse = flash_attention_plain(q, k, v, causal, with_lse=True)
+            delta = (w * o).sum(-1)
+            want = (flash_attention_bwd_dq_plain(q, k, v, w, lse, delta,
+                                                 causal),
+                    *flash_attention_bwd_dkv_plain(q, k, v, w, lse, delta,
+                                                   causal))
+        for t, x in zip((q, k, v), want):
+            torch.testing.assert_close(t.grad, x, rtol=2e-4, atol=2e-5)

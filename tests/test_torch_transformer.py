@@ -28,6 +28,7 @@ from accl_tpu_torch.models import (
     forward,
     generate,
     init_params,
+    make_sharded_train_step,
     params_from_numpy,
     prefill,
 )
@@ -253,5 +254,7 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
         init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"embed": np.zeros((4, 2), np.float32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_sharded_train_step(cfg)  # no mesh: the card's
     assert init_params(cfg, torch.Generator().manual_seed(0),
                        device="cpu")["embed"].device.type == "cpu"
