@@ -55,8 +55,10 @@ def _identity(dt: DataType) -> ArithConfig:
     return ArithConfig(dt, dt)
 
 
-#: identity configs for every dtype plus the f32 -> f16 / bf16 wire pairs
-#: (the fp8 and int8 pairs arrive with their wire lanes)
+#: identity configs for every dtype plus the wire pairs: f32 -> f16 /
+#: bf16, f32 and bf16 -> fp8 e4m3 / e5m2, and f32 and bf16 -> int8
+#: (blockwise absmax-scaled, SUM only: MAX over differently scaled
+#: blocks is not order-independent)
 DEFAULT_ARITH_CONFIG: Dict[Tuple[DataType, DataType], ArithConfig] = {
     (DataType.FLOAT16, DataType.FLOAT16): _identity(DataType.FLOAT16),
     (DataType.FLOAT32, DataType.FLOAT32): _identity(DataType.FLOAT32),
@@ -69,6 +71,26 @@ DEFAULT_ARITH_CONFIG: Dict[Tuple[DataType, DataType], ArithConfig] = {
     ),
     (DataType.FLOAT32, DataType.BFLOAT16): ArithConfig(
         DataType.FLOAT32, DataType.BFLOAT16
+    ),
+    (DataType.FLOAT32, DataType.FLOAT8_E4M3): ArithConfig(
+        DataType.FLOAT32, DataType.FLOAT8_E4M3
+    ),
+    (DataType.FLOAT32, DataType.FLOAT8_E5M2): ArithConfig(
+        DataType.FLOAT32, DataType.FLOAT8_E5M2
+    ),
+    (DataType.BFLOAT16, DataType.FLOAT8_E4M3): ArithConfig(
+        DataType.BFLOAT16, DataType.FLOAT8_E4M3
+    ),
+    (DataType.BFLOAT16, DataType.FLOAT8_E5M2): ArithConfig(
+        DataType.BFLOAT16, DataType.FLOAT8_E5M2
+    ),
+    (DataType.FLOAT32, DataType.INT8): ArithConfig(
+        DataType.FLOAT32, DataType.INT8,
+        reduce_functions=(ReduceFunction.SUM,),
+    ),
+    (DataType.BFLOAT16, DataType.INT8): ArithConfig(
+        DataType.BFLOAT16, DataType.INT8,
+        reduce_functions=(ReduceFunction.SUM,),
     ),
 }
 

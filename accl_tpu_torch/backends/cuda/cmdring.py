@@ -56,6 +56,9 @@ from ...ops.cuda.cmdring import launches_for
 #: ops whose operand/result widths scale with world size
 _P_WIDE = (Operation.REDUCE_SCATTER, Operation.ALLTOALL)
 
+#: wire lanes the sequencer decodes (None: an uncompressed slot)
+SEQUENCER_WIRES = (None, torch.float16, torch.bfloat16)
+
 #: the algorithm registers whose non-default value keeps its meaning
 #: (the ring is its own lowering and must not shadow a requested one)
 BATCH_TUNING_KEYS = (
@@ -250,6 +253,9 @@ class GangCommandRing:
             plan = gang._plan_device_call(comm, calls, lead)
             if plan is None:
                 return self._fallback("host_operands")
+            if plan["wire"] not in SEQUENCER_WIRES:
+                # the sequencer's fp8 / int8 slots are not ported yet
+                return self._fallback("wire_lane")
             if fuse:
                 plan = self._plan_fused(comm, calls, lead, plan, fuse)
                 if isinstance(plan, str):

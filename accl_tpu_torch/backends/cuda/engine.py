@@ -47,7 +47,8 @@ from ...constants import (
 )
 from ...ops import driver as opdriver
 from ...ops.cuda.combine import combine as kernel_combine
-from ...ops.wire import wire_lane_roundtrip
+from ...ops.wire import wire_lane_roundtrip_rows
+from ...wire import is_wire_dtype
 from ...request import Request
 from ..base import BaseEngine, CallOptions
 from .cmdring import GangCommandRing
@@ -76,7 +77,7 @@ def apply_tuning(tuning: dict, options: CallOptions) -> ErrorCode:
             return ErrorCode.CONFIG_ERROR
         tuning["ring_segments"] = int(val)
     elif key == TuningKey.WIRE_DTYPE:
-        if int(val) != 0 and int(val) not in WIRE_LANE_DTYPES:
+        if int(val) != 0 and not is_wire_dtype(int(val)):
             return ErrorCode.CONFIG_ERROR
         tuning["wire_dtype"] = int(val)
     else:
@@ -87,13 +88,15 @@ def apply_tuning(tuning: dict, options: CallOptions) -> ErrorCode:
 def run_allreduce_with_tuning(xs, mesh, fn, wire: Optional[DataType],
                               tuning: dict, out=None):
     """Allreduce with algorithm, segmentation and wire lane from the
-    tuning registers."""
+    tuning registers: under ``pallas_ring*`` the lane runs inside K1 (as
+    JAX's kernel casts each hop, int8 included), otherwise through the
+    compressed allreduce's codec."""
     algo = tuning.get("allreduce_algorithm", "xla")
     nseg = int(tuning.get("ring_segments", 1))
     bidir = algo == "pallas_ring_bidir"
     pallas = algo in ("pallas_ring", "pallas_ring_bidir")
     if wire is not None:
-        wire_name = wire.name.lower()
+        wire_name = WIRE_LANE_DTYPES[wire.name]
         if pallas:  # the wire lane runs inside the kernel
             return opdriver.run_pallas_allreduce(
                 xs, mesh, fn, nseg, wire_dtype=wire_name,
@@ -445,9 +448,15 @@ class CudaGangContext:
                                       out=outs)
         else:
             if wire is not None:
-                xs = [x if x is None
-                      else wire_lane_roundtrip(x, dtype_to_torch(wire))
-                      for x in xs]
+                # each contribution rounded once through the wire, every
+                # rank's row in one launch per kernel; deterministic, as
+                # the JAX gang's in-program lane (its per-call seeds are
+                # read by the facade's error feedback, not here)
+                live = [r for r, x in enumerate(xs) if x is not None]
+                rounded = wire_lane_roundtrip_rows([xs[r] for r in live],
+                                                   wire)
+                for r, x in zip(live, rounded):
+                    xs[r] = x
             if op == Operation.SCATTER:
                 xs = [xs[root]] * size  # only the root's operand is read
             if op in ROOTED_OPS:

@@ -19,6 +19,7 @@ class Rank:
 
 
 _comm_ids = itertools.count(0)
+_comm_epochs = itertools.count(1)
 
 
 class Communicator:
@@ -33,6 +34,10 @@ class Communicator:
         self.ranks: List[Rank] = list(ranks)
         self.local_rank = int(local_rank)
         self.id = next(_comm_ids) if comm_id is None else comm_id
+        # a fresh epoch per communicator, from one process-wide counter as
+        # in the JAX package (the per-call wire seeds are keyed by it; the
+        # port has no membership cutovers that would start another)
+        self.epoch = next(_comm_epochs)
 
     @property
     def size(self) -> int:

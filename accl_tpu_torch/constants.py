@@ -120,9 +120,29 @@ class DataType(enum.IntEnum):
     FLOAT8_E5M2 = 9
 
 
-#: the cast wire lanes this slice runs (the scaled int8 and fp8 lanes
-#: come with the quantize kernels)
-WIRE_LANE_DTYPES = (DataType.FLOAT16, DataType.BFLOAT16)
+#: the registered wire lanes: DataType member name -> torch dtype name
+#: (the JAX package's table, with its numpy names read as torch's)
+WIRE_LANE_DTYPES = {
+    "FLOAT16": "float16",
+    "BFLOAT16": "bfloat16",
+    "FLOAT8_E4M3": "float8_e4m3fn",
+    "FLOAT8_E5M2": "float8_e5m2",
+    "INT8": "int8",
+}
+
+#: wire lanes that carry a per-segment absmax scale beside the payload
+#: (blockwise quantization) instead of a plain dtype cast
+SCALED_WIRE_DTYPES = ("INT8",)
+
+#: elements per int8 scale block: one float32 scale (absmax / 127) per
+#: WIRE_SEGMENT_ELEMS elements of payload
+WIRE_SEGMENT_ELEMS = 256
+
+#: wire lanes rounded stochastically by default (the facade derives a
+#: nonzero call seed for them); float16 / bfloat16 round to nearest even
+STOCHASTIC_WIRE_DTYPES = (
+    "FLOAT8_E4M3", "FLOAT8_E5M2", "INT8",
+)
 
 _DTYPE_ITEMSIZE = {
     DataType.FLOAT16: 2,
@@ -212,6 +232,7 @@ class ErrorCode(enum.IntFlag):
     INVALID_OPERATION = 1 << 11
     INVALID_DTYPE = 1 << 12
     ARITH_ERROR = 1 << 13
+    COMPRESSION_ERROR = 1 << 14
     DEADLOCK_SUSPECTED = 1 << 20
     CONFIG_ERROR = 1 << 21
 

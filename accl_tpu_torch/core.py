@@ -5,8 +5,12 @@ this port: buffers, tuning registers, copy / combine, the rooted bcast,
 reduce, scatter and gather, allgather, allreduce (with a wire dtype and
 ``run_async``), reduce_scatter, alltoall, barrier and the fused compute
 slots (``fused_matmul_reduce_scatter``, ``fused_apply``,
-``fused_attn_hop``).  Calls are synchronous unless ``run_async=True``,
-which returns the :class:`~accl_tpu_torch.request.Request`.  Inside
+``fused_attn_hop``).  Compressed collectives take any registered wire
+lane (float16, bfloat16, fp8 e4m3 / e5m2, int8), by ``compress_dtype``
+or the ``wire_dtype`` register, and the allreduce error feedback
+(:meth:`ACCL.set_error_feedback`).  Calls are synchronous unless
+``run_async=True``, which returns the
+:class:`~accl_tpu_torch.request.Request`.  Inside
 ``with accl.batch():`` calls queue and dispatch together at the end (or
 when a queued request is waited on): the gang runs the batch as command-
 ring windows, one sequencer launch each.  A rank that contributes or
@@ -20,12 +24,16 @@ drive each rank from its own thread, or use ``run_async=True``.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence
 
+import torch
+
+from . import wire as _wire
 from .arithconfig import DEFAULT_ARITH_CONFIG
 from .backends.base import BaseEngine, CallOptions
 from .backends.cuda.engine import CudaEngine, CudaGangContext
-from .buffer import BaseBuffer, DummyBuffer, host_tensor
+from .buffer import BaseBuffer, DeviceBuffer, DummyBuffer, host_tensor
 from .communicator import Communicator, Rank
 from .constants import (
     ACCLError,
@@ -41,8 +49,24 @@ from .constants import (
     TuningKey,
     as_datatype,
 )
+from .errorfeedback import ResidualStore
 from .ops.driver import resolve_device
 from .request import CommandQueue, Request
+
+#: the collectives whose compressed calls take a per-call stochastic-
+#: rounding seed (the JAX facade derives one for these three)
+_SEEDED_OPS = (Operation.ALLREDUCE, Operation.REDUCE,
+               Operation.REDUCE_SCATTER)
+
+
+def _wire_dtype_value(name: str) -> int:
+    """The ``wire_dtype`` register's value for a name: "off" (0), a
+    DataType name (``FLOAT8_E4M3``) or a dtype name (``float8_e4m3fn``)."""
+    if name.lower() in ("off", "none"):
+        return 0
+    if name.upper() in DataType.__members__:
+        return int(DataType[name.upper()])
+    return int(as_datatype(name))
 
 
 class ACCL:
@@ -64,6 +88,14 @@ class ACCL:
         # count depth
         self._pending: Optional[CommandQueue] = None
         self._batch_depth = 0
+        # the quantized wire: per-comm stochastic-rounding call counters
+        # (SPMD-uniform: every rank issues the same compressed calls, so
+        # the derived seeds match) and the error-feedback residuals,
+        # opt-in (ACCL_ERROR_FEEDBACK=1 or set_error_feedback)
+        self._wire_ctr: dict = {}
+        self._residuals = ResidualStore()
+        self._error_feedback = (
+            os.environ.get("ACCL_ERROR_FEEDBACK", "0") == "1")
         self._config(ConfigFunction.SET_TIMEOUT, timeout_s)
         self._initialized = True
 
@@ -96,7 +128,8 @@ class ACCL:
         "ring" / "pallas_ring" / "pallas_ring_bidir"), the rooted
         ``bcast_algorithm`` / ``reduce_algorithm`` / ``scatter_algorithm``
         / ``gather_algorithm`` ("xla" / "pallas_ring"), ``ring_segments``
-        or ``wire_dtype`` (a DataType value or name; 0 = off).  ``key`` is
+        or ``wire_dtype`` (a DataType value or name, a dtype name, or
+        "off" / 0).  ``key`` is
         a :class:`TuningKey`, its name, or its int value."""
         if isinstance(key, str):
             try:
@@ -107,7 +140,7 @@ class ACCL:
             key = TuningKey(key)
         if isinstance(value, str):
             if key == TuningKey.WIRE_DTYPE:
-                value = as_datatype(value)
+                value = _wire_dtype_value(value)
             else:
                 try:
                     value = AllreduceAlgorithm[value.upper()]
@@ -117,6 +150,74 @@ class ACCL:
                         f"{[a.name.lower() for a in AllreduceAlgorithm]}"
                     ) from None
         self._config(ConfigFunction.SET_TUNING, float(value), key=int(key))
+        # a register write may change the wire a residual was kept for
+        self._residuals.invalidate("set_tuning")
+
+    # -- the quantized wire --------------------------------------------------
+    @property
+    def sr_calls(self) -> int:
+        """Compressed calls that drew a stochastic-rounding seed."""
+        return sum(self._wire_ctr.values())
+
+    @property
+    def residuals(self) -> ResidualStore:
+        """The error-feedback residual store (``stats()`` reports it)."""
+        return self._residuals
+
+    def _derive_wire_seed(self, comm: Communicator, op: Operation,
+                          wire: Optional[DataType]) -> int:
+        """The per-call stochastic-rounding seed of a compressed
+        collective (0 for the f16 / bf16 lanes and uncompressed calls):
+        from the comm id, its epoch and a per-comm counter every rank
+        advances for the same calls, so every rank holds the same seed;
+        each rank mixes its own rank in where it rounds
+        (``wire.rank_seed``)."""
+        if wire is None or op not in _SEEDED_OPS or not _wire.is_stochastic(
+                wire):
+            return 0
+        ctr = self._wire_ctr.get(comm.id, 0)
+        self._wire_ctr[comm.id] = ctr + 1
+        return _wire.call_seed(comm.id, comm.epoch, ctr, int(wire))
+
+    def set_error_feedback(self, enabled: bool = True) -> None:
+        """Arm (or disarm) error feedback for the compressed allreduce on
+        this handle: each contribution carries the previous call's
+        compression residual (``compress(grad + residual)``, ``residual
+        = grad_eff - decompress(wire)``).  Collective by contract: every
+        rank arms it at the same point.  Also armed by
+        ``ACCL_ERROR_FEEDBACK=1`` at handle construction."""
+        was = self._error_feedback
+        self._error_feedback = bool(enabled)
+        if was and not enabled:
+            self._residuals.invalidate("error_feedback_off")
+
+    def _error_feedback_operand(self, comm: Communicator,
+                                sendbuf: BaseBuffer, n: int,
+                                function: ReduceFunction,
+                                wire: Optional[DataType],
+                                seed: int) -> Optional[DeviceBuffer]:
+        """A staging buffer holding ``grad + residual`` for one allreduce
+        contribution, or None when error feedback does not apply (not
+        armed, no wire, or not SUM).  The residual is keyed as the JAX
+        facade keys it — (comm, epoch, op, count, segment position, link
+        class) — with the port's segment 0 and no link class (-1); the
+        roundtrip uses this rank's mixed seed."""
+        if (not self._error_feedback or wire is None
+                or function != ReduceFunction.SUM):
+            return None
+        key = (comm.id, comm.epoch, Operation.ALLREDUCE, n, 0, -1)
+        x = sendbuf.tensor[:n]
+        if sendbuf.ready is not None:
+            torch.cuda.current_stream(x.device).wait_event(sendbuf.ready)
+        x_eff = self._residuals.apply(
+            key, _wire.widen(x), wire, _wire.rank_seed(seed, comm.local_rank))
+        staged = _wire.astype(x_eff, x.dtype)
+        buf = DeviceBuffer(n, sendbuf.dtype, x.device, tensor=staged,
+                           host=staged.new_zeros((), device="cpu").expand(n))
+        if x.device.type == "cuda":
+            buf.ready = torch.cuda.Event()
+            buf.ready.record(torch.cuda.current_stream(x.device))
+        return buf
 
     # -- buffers -------------------------------------------------------------
     def create_buffer(self, count: int, dtype) -> BaseBuffer:
@@ -147,6 +248,15 @@ class ACCL:
         flags = (CompressionFlags.ETH_COMPRESSED if cdt != dtype
                  else CompressionFlags.NO_COMPRESSION)
         return self._arith[key], flags
+
+    def _advance_wire_seed(self, comm: Communicator, op: Operation,
+                           dtype: DataType, compress_dtype) -> None:
+        """Draw the call's seed for a compressed reduce or reduce-scatter:
+        the gang rounds those deterministically, but the per-comm counter
+        advances as on every rank of the JAX facade, so later seeds
+        match it."""
+        cfg, flags = self._resolve_arithcfg(dtype, compress_dtype)
+        self._derive_wire_seed(comm, op, cfg.compressed if flags else None)
 
     # -- batched dispatch (the command ring) --------------------------------
     def begin_batch(self) -> None:
@@ -352,6 +462,8 @@ class ACCL:
         n = self._count_of(sendbuf, count)
         if recvbuf is None:
             recvbuf = DummyBuffer(0, sendbuf.dtype)
+        self._advance_wire_seed(comm, Operation.REDUCE, sendbuf.dtype,
+                                compress_dtype)
         return self._collective(Operation.REDUCE, comm, n, sendbuf.dtype,
                                 compress_dtype, run_async, root_dst=root,
                                 reduce_function=function, op0=sendbuf,
@@ -365,14 +477,26 @@ class ACCL:
         """Every rank gets ``function`` over all ranks' ``sendbuf``.  The
         lowering follows the ``allreduce_algorithm`` register; with no
         ``compress_dtype`` the ``wire_dtype`` register picks the wire."""
+        comm = comm or self._world
         n = self._count_of(sendbuf, count)
         if compress_dtype is None:
+            # the wire_dtype register's verdict, unless the lane's arith
+            # pair cannot run this reduce function (int8 under MAX keeps
+            # the uncompressed wire)
             wd = int(self.engine.gang.tuning.get("wire_dtype", 0))
-            if wd and (sendbuf.dtype, DataType(wd)) in self._arith:
+            pair = (sendbuf.dtype, DataType(wd)) if wd else None
+            if pair in self._arith and self._arith[pair].supports(
+                    ReduceFunction(int(function))):
                 compress_dtype = DataType(wd)
+        cfg, flags = self._resolve_arithcfg(sendbuf.dtype, compress_dtype)
+        wire = cfg.compressed if flags else None
+        seed = self._derive_wire_seed(comm, Operation.ALLREDUCE, wire)
+        staged = self._error_feedback_operand(comm, sendbuf, n, function,
+                                              wire, seed)
         return self._collective(Operation.ALLREDUCE, comm, n, sendbuf.dtype,
                                 compress_dtype, run_async,
-                                reduce_function=function, op0=sendbuf,
+                                reduce_function=function,
+                                op0=sendbuf if staged is None else staged,
                                 res=recvbuf)
 
     def reduce_scatter(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
@@ -382,7 +506,10 @@ class ACCL:
                        compress_dtype=None, run_async: bool = False):
         """``count`` is the per-rank RESULT count (``sendbuf`` holds
         size * count)."""
+        comm = comm or self._world
         n = self._count_of(recvbuf, count)
+        self._advance_wire_seed(comm, Operation.REDUCE_SCATTER,
+                                recvbuf.dtype, compress_dtype)
         return self._collective(Operation.REDUCE_SCATTER, comm, n,
                                 recvbuf.dtype, compress_dtype, run_async,
                                 reduce_function=function, op0=sendbuf,
@@ -400,6 +527,45 @@ class ACCL:
         return self._collective(Operation.ALLTOALL, comm, n, sendbuf.dtype,
                                 compress_dtype, run_async, op0=sendbuf,
                                 res=recvbuf)
+
+    # -- point-to-point ------------------------------------------------------
+    def _p2p(self, what: str, buf: Optional[BaseBuffer], peer: int,
+             comm: Optional[Communicator], compress_dtype) -> None:
+        """The intake checks of ``send`` / ``recv``, then the refusal:
+        the point-to-point channel is not ported yet (ROADMAP A3c).  A
+        scaled wire lane (int8) is refused first, as the JAX facade
+        refuses it: its per-segment frame is a reduction lane."""
+        comm = comm or self._world
+        self._check_rank(comm, peer)
+        dtype = buf.dtype if buf is not None else DataType.FLOAT32
+        cfg, flags = self._resolve_arithcfg(dtype, compress_dtype)
+        if flags & CompressionFlags.ETH_COMPRESSED and _wire.is_scaled(
+                cfg.compressed):
+            raise ACCLError(
+                ErrorCode.COMPRESSION_ERROR,
+                f"{what}: scaled wire lane {cfg.compressed.name} is "
+                "collective-only",
+                details={"op": what, "wire": cfg.compressed.name},
+            )
+        raise ACCLError(
+            ErrorCode.COLLECTIVE_NOT_IMPLEMENTED,
+            f"{what}: the point-to-point channel is not ported",
+            details={"op": what},
+        )
+
+    def send(self, srcbuf: BaseBuffer, count: Optional[int], dst: int,
+             tag: int = 0, comm: Optional[Communicator] = None,
+             compress_dtype=None, from_stream: bool = False,
+             stream_id: int = 0, run_async: bool = False):
+        """ref ``ACCL::send`` — refused (see :meth:`_p2p`)."""
+        self._p2p("send", srcbuf, dst, comm, compress_dtype)
+
+    def recv(self, dstbuf: BaseBuffer, count: Optional[int], src: int,
+             tag: int = 0, comm: Optional[Communicator] = None,
+             compress_dtype=None, to_stream: bool = False,
+             stream_id: int = 0, run_async: bool = False):
+        """ref ``ACCL::recv`` — refused (see :meth:`_p2p`)."""
+        self._p2p("recv", dstbuf, src, comm, compress_dtype)
 
     # -- fused compute slots -------------------------------------------------
     def _fused_launch(self, op, fuse, sendbuf, recvbuf, n, function, comm,

@@ -17,6 +17,7 @@
 // DataType codes, shared with accl_tpu_torch/constants.py
 enum : int {
   DT_F16 = 1, DT_F32 = 2, DT_F64 = 3, DT_I32 = 4, DT_I64 = 5, DT_BF16 = 6,
+  DT_I8 = 7, DT_E4M3 = 8, DT_E5M2 = 9,
 };
 // ReduceFunction codes
 enum : int { OP_SUM = 0, OP_MAX = 1 };

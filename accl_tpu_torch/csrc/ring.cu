@@ -27,7 +27,7 @@
 // 3.35 TB/s.  The design reads each
 // input element once and writes each output element once, 16 bytes per
 // access where pointers are aligned.
-#include "common.cuh"
+#include "wire.cuh"
 
 namespace {
 
@@ -41,12 +41,22 @@ using accl::ring_mod;
 using accl::store;
 using accl::table;
 
+template <typename T> struct Code;
+template <> struct Code<float> { static constexpr int value = DT_F32; };
+template <> struct Code<__nv_bfloat16> { static constexpr int value = DT_BF16; };
+template <> struct Code<__half> { static constexpr int value = DT_F16; };
+
 // round a value of the accumulate type T through the wire dtype and back
+// (the fp8 lanes and the raw int8 cast as JAX's astype computes them,
+// wire.cuh)
 template <typename T> __device__ __forceinline__ T wire_round(T v, int wire) {
   if (wire == DT_BF16)
     return Convert<T>::from(__float2bfloat16_rn(accl::to_float(v)));
   if (wire == DT_F16)
     return Convert<T>::from(__float2half_rn(accl::to_float(v)));
+  if (wire)
+    return Convert<T>::from(
+        accl::wire_roundtrip(accl::to_float(v), wire, Code<T>::value));
   return v;
 }
 template <> __device__ __forceinline__ int32_t wire_round(int32_t v, int) {

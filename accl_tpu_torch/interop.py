@@ -22,8 +22,8 @@ from .constants import (
     ROOTED_ALGORITHMS,
     TUNING_DEFAULTS,
     TuningKey,
-    WIRE_LANE_DTYPES,
 )
+from .wire import is_wire_dtype
 
 #: the JAX gang's register defaults, which this port also starts from
 _JAX_DEFAULTS = {"allreduce_algorithm": "xla", "ring_segments": 1}
@@ -66,9 +66,9 @@ def tuning_from_jax(tuning: dict) -> dict:
                 raise ValueError(f"ring_segments {value} < 1")
             out[name] = int(value)
         elif name == "wire_dtype":
-            if int(value) and DataType(int(value)) not in WIRE_LANE_DTYPES:
+            if int(value) and not is_wire_dtype(int(value)):
                 raise ValueError(
-                    f"wire lane {DataType(int(value)).name} is not ported"
+                    f"{DataType(int(value)).name} is not a wire lane"
                 )
             out[name] = int(value)
         elif value not in (0, _JAX_DEFAULTS.get(name), "xla"):

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import struct
 from functools import partial
 from typing import Dict, List, Optional, Tuple
 
@@ -531,6 +532,70 @@ def _reject_untrainable_attention(cfg) -> None:
         raise ValueError(f"unknown attention impl {cfg.attention!r}")
 
 
+def _lr_scalar(lr) -> Tuple[float, Optional[torch.dtype]]:
+    """``(value, dtype)`` of a learning rate: dtype None for a Python
+    number (weakly typed: it takes the parameter's dtype, as in JAX);
+    a NumPy scalar or a 0-d tensor keeps its dtype, 64-bit ones narrowed
+    to 32 as JAX without x64 narrows them.  Anything the in-place update
+    cannot hold (a tensor of more than one element, a complex number, a
+    non-number) is refused."""
+    if isinstance(lr, torch.Tensor) or isinstance(lr, (np.generic,
+                                                       np.ndarray)):
+        t = lr if isinstance(lr, torch.Tensor) else torch.from_numpy(
+            np.asarray(lr))
+        if t.dim() != 0:
+            raise TypeError(f"lr must be a number: a scalar, got a "
+                            f"{tuple(t.shape)} array")
+        if t.is_complex() or t.dtype == torch.bool:
+            raise TypeError(f"lr must be a real number, got {t.dtype}")
+        dtype = {torch.float64: torch.float32,
+                 torch.int64: torch.int32}.get(t.dtype, t.dtype)
+        return t.item(), dtype
+    if isinstance(lr, (int, float)) and not isinstance(lr, bool):
+        return float(lr), None
+    raise TypeError(f"lr must be a number (a real scalar: Python, NumPy "
+                    f"or a 0-d tensor), got {type(lr).__name__}")
+
+
+def _weak_scalar(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """A Python number as a 0-d tensor of ``dtype``, rounded once from the
+    double (JAX's conversion of a weakly typed scalar)."""
+    if dtype == torch.bfloat16:  # round the double's mantissa to 7 bits
+        u = struct.unpack("<Q", struct.pack("<d", value))[0]
+        u = (u + (1 << 44) - 1 + ((u >> 45) & 1)) >> 45 << 45
+        value = struct.unpack("<d", struct.pack("<Q", u))[0]
+    elif dtype in (torch.float16, torch.float32):
+        return torch.from_numpy(np.array(value, dtype=str(dtype)[6:]))
+    return torch.tensor(value, dtype=torch.float64).to(dtype)
+
+
+def sgd_update_(leaves: List[torch.Tensor], grads: List[torch.Tensor],
+                lr) -> None:
+    """``p <- p - lr * g`` in place, rounded as JAX rounds ``p - lr * g``
+    for this lr's type: a Python number takes each parameter's dtype; a
+    typed scalar promotes with it (a float32 lr on bfloat16 weights
+    computes in float32, where JAX would return float32 weights; the
+    in-place update rounds that result to the weights' dtype)."""
+    value, lr_dtype = _lr_scalar(lr)
+    by_dtype: Dict[torch.dtype, Tuple[list, list]] = {}
+    for p, g in zip(leaves, grads):
+        ps, gs = by_dtype.setdefault(p.dtype, ([], []))
+        ps.append(p)
+        gs.append(g)
+    for dtype, (ps, gs) in by_dtype.items():
+        if lr_dtype is None:
+            cdt, lr_t = dtype, _weak_scalar(value, dtype)
+        else:
+            cdt = torch.promote_types(dtype, lr_dtype)
+            lr_t = torch.tensor(value, dtype=lr_dtype).to(cdt)
+        lr_t = lr_t.to(ps[0].device)
+        if cdt == dtype:
+            torch._foreach_sub_(ps, torch._foreach_mul(gs, lr_t))
+            continue
+        for p, g in zip(ps, gs):
+            p.copy_(p.to(cdt) - lr_t * g.to(cdt))
+
+
 def make_sharded_train_step(cfg: TransformerConfig, lr: float = 1e-2,
                             mesh: Optional[Mesh] = None):
     """One SGD train step, JAX's return shape: ``(step, shard)``.
@@ -539,16 +604,15 @@ def make_sharded_train_step(cfg: TransformerConfig, lr: float = 1e-2,
     card unless ``mesh`` says otherwise); ``step(params, tokens,
     targets)`` takes the mean loss's gradient with respect to every
     parameter and returns ``(params, loss)``, the parameters updated to
-    ``p - lr * g`` IN PLACE (``lr * g`` rounded to the parameter dtype,
-    then the difference, as JAX rounds it) and the same tree returned.
+    ``p - lr * g`` IN PLACE (rounded as JAX rounds it for this lr's
+    type, :func:`sgd_update_`) and the same tree returned.  ``lr`` is any
+    real scalar: a Python number, a NumPy scalar or a 0-d tensor.
 
     Only one device so far: a mesh of more than one raises
     NotImplementedError (data and tensor parallelism come with the
     multi-GPU slice, ROADMAP B14)."""
     _reject_untrainable_attention(cfg)
-    if not isinstance(lr, (int, float)):
-        raise TypeError(f"lr must be a number, got {type(lr).__name__} "
-                        f"(the mesh is the third argument)")
+    _lr_scalar(lr)  # refuse what the update cannot hold, before any work
     if mesh is None:
         mesh = make_mesh(1)
     if mesh.size != 1:
@@ -573,7 +637,7 @@ def make_sharded_train_step(cfg: TransformerConfig, lr: float = 1e-2,
                        targets, cfg)
         grads = torch.autograd.grad(loss, live)
         with torch.no_grad():
-            torch._foreach_sub_(leaves, torch._foreach_mul(grads, lr))
+            sgd_update_(leaves, grads, lr)
         return params, loss.detach()
 
     return step, shard

@@ -18,7 +18,10 @@ from typing import List, Sequence
 import torch
 
 from ..arithconfig import reduce_op
-from ..constants import ReduceFunction
+from ..constants import ReduceFunction, as_datatype
+from ..wire import dropped_mantissa_bits, is_scaled
+from .cuda.compression import cast_rows
+from .wire import wire_lane_roundtrip_rows
 
 
 def _fold(xs: Sequence[torch.Tensor], function: ReduceFunction) -> torch.Tensor:
@@ -116,12 +119,21 @@ def compressed_allreduce(
     wire_dtype: torch.dtype = torch.bfloat16,
     function: ReduceFunction = ReduceFunction.SUM,
 ) -> List[torch.Tensor]:
-    """Allreduce with operands cast to a narrow dtype before they cross
-    the wire (the f16 / bf16 cast lanes): the reduction runs in the wire
-    dtype, the reduced block is widened, then travels narrow once more to
-    every rank."""
+    """Allreduce with operands narrowed to ``wire_dtype`` on the wire.
+
+    The f16 / bf16 lanes reduce in the wire dtype and the reduced block
+    is widened (its trip back to every rank through the wire is exact:
+    it already holds wire values).  The fp8 lanes (20+ dropped mantissa
+    bits) and the scaled int8 lane round each CONTRIBUTION through the
+    wire once, then reduce in the operand dtype, as the JAX program and
+    the command ring's decode loop do; the rounding is deterministic
+    (the JAX program carries no per-call seed).  On the card the casts
+    are row 5, the fp8 narrowing row 6 at seed 0, the int8 lane rows
+    7-8, each one launch for all ranks."""
+    dt = as_datatype(wire_dtype)
+    if is_scaled(dt) or (dropped_mantissa_bits(dt) or 0) >= 20:
+        return allreduce(wire_lane_roundtrip_rows(xs, dt), function)
     orig = xs[0].dtype
-    narrow = [x.to(wire_dtype) for x in xs]
-    partial = _fold(narrow, function).to(orig)
-    full = partial.to(wire_dtype).to(orig)
+    narrow = cast_rows(xs, wire_dtype)
+    full = cast_rows([_fold(narrow, function)], orig)[0]
     return [full.clone() for _ in xs]

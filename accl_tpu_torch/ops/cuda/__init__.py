@@ -12,6 +12,9 @@
 * ``attention`` — rows 16-18, the single-device flash attention: the
   forward (the transformer's ``attention="flash"`` lowering) and the
   backward's dQ and dK/dV kernels behind its ``torch.autograd.Function``.
+* ``compression`` — rows 5-8, the wire compression kernels (cast,
+  stochastic cast, int8 quantize and dequantize) under the compressed
+  collectives' wire lanes, the error feedback and ``ring.int8_allreduce``.
 
 Kernels are built from ``accl_tpu_torch/csrc`` on first use
 (:func:`build_all` builds them all at once).  Every wrapper takes its
@@ -30,7 +33,21 @@ from .attention import (  # noqa: F401
 )
 from .cmdring import sequencer, sequencer_plain  # noqa: F401
 from .combine import combine, combine_plain  # noqa: F401
+from .compression import (  # noqa: F401
+    cast,
+    cast_plain,
+    cast_rows,
+    dequantize_int8,
+    dequantize_plain,
+    dequantize_rows,
+    quantize_int8,
+    quantize_plain,
+    quantize_rows,
+    stochastic_cast_plain,
+    stochastic_cast_rows,
+)
 from .ring import (  # noqa: F401
+    int8_allreduce,
     ring_allgather,
     ring_allgather_plain,
     ring_allreduce,
@@ -63,4 +80,8 @@ KERNELS = {
     "flash_attention": flash_attention,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+    "cast": cast_rows,
+    "stochastic_cast": stochastic_cast_rows,
+    "quantize_int8": quantize_rows,
+    "dequantize_int8": dequantize_rows,
 }

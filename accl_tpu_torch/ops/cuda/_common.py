@@ -22,6 +22,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from ...wire import astype
+
 # TPU lane width: the last dim of every packed tile (kept for the
 # padding rule; the CUDA kernels have no lane layout of their own)
 LANES = 128
@@ -35,6 +37,40 @@ def sublanes_for(dtype: torch.dtype) -> int:
     """Minimum sublane multiple of a dtype's TPU tile: f32 8, bf16/f16
     16, int8/fp8 32."""
     return {4: 8, 2: 16, 1: 32}.get(dtype.itemsize, 8)
+
+
+#: ``pack_lanes``' default row multiple (the JAX tier's SUBLANES)
+SUBLANES = 32
+
+
+def pack_lanes(x: torch.Tensor, min_rows: int = SUBLANES):
+    """Flatten ``x`` and zero-pad it into a ``(rows, LANES)`` tile-aligned
+    2-D tensor, rows a positive multiple of ``min_rows``; returns
+    ``(packed, n)`` with ``n`` the original element count."""
+    flat = x.reshape(-1)
+    n = flat.numel()
+    packed = torch.zeros(packed_len(n, min_rows), dtype=x.dtype,
+                         device=x.device)
+    packed[:n] = flat
+    return packed.view(-1, LANES), n
+
+
+def unpack_lanes(packed: torch.Tensor, n: int, shape,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    out = packed.reshape(-1)[:n].reshape(shape)
+    return out if dtype is None else astype(out, dtype)
+
+
+def block_rows(total_rows: int, want: int = 512) -> int:
+    """A grid block height: the divisor of ``total_rows`` nearest below
+    ``want`` that keeps tiles sublane-aligned (all of them when
+    ``total_rows <= want``)."""
+    if total_rows <= want:
+        return total_rows
+    for cand in range(want, SUBLANES - 1, -SUBLANES):
+        if total_rows % cand == 0:
+            return cand
+    return total_rows
 
 
 def packed_len(n: int, min_rows: int) -> int:

@@ -10,7 +10,8 @@ nothing is stacked or copied on the way in.
 Each ``*_plain`` function is the kernel's plain PyTorch version: it walks
 the same hop schedule block by block with the same fold order and wire
 rounding points, so its float results equal the kernel's, and the JAX
-kernel's, exactly.  ``int8_allreduce`` arrives with the quantize kernels.
+kernel's, exactly.  ``int8_allreduce`` composes K3 with the quantize and
+dequantize kernels (rows 7-8).
 """
 
 from __future__ import annotations
@@ -21,10 +22,12 @@ from typing import List, Optional, Sequence
 import torch
 
 from ...arithconfig import reduce_op
-from ...constants import ReduceFunction, torch_to_dtype
-from ..wire import CAST_LANES
+from ...constants import ReduceFunction, as_datatype, torch_to_dtype
+from ...wire import astype, is_wire_dtype, widen
 from . import _build
+from . import compression as kcomp
 from ._common import (
+    LANES,
     LaunchCounter,
     aligned16,
     check_launch,
@@ -39,16 +42,28 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 
 
 def _wire_round(v: torch.Tensor, wire) -> torch.Tensor:
-    return v if wire is None else v.to(wire).to(v.dtype)
+    """``v`` through the wire dtype and back, as the JAX kernel's
+    ``astype`` pair rounds it; the int8 lane is XLA's raw conversion
+    (toward zero, saturating, NaN to 0) with no scale."""
+    if wire is None:
+        return v
+    if wire == torch.int8:
+        q = widen(v).trunc().clamp(-128, 127)
+        return torch.where(torch.isnan(q), 0.0, q).to(v.dtype)
+    return astype(astype(v, wire), v.dtype)
 
 
 def _resolve_wire(dtype: torch.dtype, wire_dtype) -> Optional[torch.dtype]:
+    """The hop payload's dtype: any registered wire lane on float
+    operands, as the JAX kernel casts each hop's partial with ``astype``
+    (int8 included: a raw cast, not the scaled lane)."""
     if wire_dtype is None or wire_dtype == dtype:
         return None  # no-op compression
-    if wire_dtype not in CAST_LANES or not dtype.is_floating_point:
+    if not is_wire_dtype(as_datatype(wire_dtype)) or dtype not in (
+            torch.float32, torch.bfloat16, torch.float16):
         raise ValueError(
             f"wire dtype {wire_dtype} on {dtype} operands: the ring's wire "
-            "lanes are bfloat16 and float16 on float operands"
+            "lanes are the registered wire dtypes on float operands"
         )
     return wire_dtype
 
@@ -166,10 +181,11 @@ def ring_allreduce(
     given, receives them — it may be ``xs`` itself: in place).
 
     ``bidirectional`` sends the operand's two halves around the ring in
-    opposite directions; ``wire_dtype`` (bfloat16 / float16) rounds every
-    hop's payload through the narrow dtype while accumulating in the
-    operand dtype.  Both change the fold order and rounding exactly as the
-    JAX kernel's do."""
+    opposite directions; ``wire_dtype`` (any registered wire lane: f16,
+    bf16, fp8 e4m3 / e5m2, or int8 as a raw cast) rounds every hop's
+    payload through the narrow dtype while accumulating in the operand
+    dtype.  Both change the fold order and rounding exactly as the JAX
+    kernel's do."""
     flat = _flat(xs, "ring_allreduce")
     P, n, dtype = len(flat), flat[0].numel(), flat[0].dtype
     wire = _resolve_wire(dtype, wire_dtype)
@@ -320,3 +336,49 @@ def ring_allgather(
 
 
 ring_allgather.launches = LaunchCounter()
+
+
+# ---------------------------------------------------------------------------
+# int8_allreduce: rows 7-8 around K3
+# ---------------------------------------------------------------------------
+
+
+def int8_allreduce(
+    xs: Sequence[torch.Tensor],
+    *,
+    out: Optional[Sequence[torch.Tensor]] = None,
+) -> List[torch.Tensor]:
+    """Allreduce over a blockwise-int8 wire (ref ``ring.int8_allreduce``):
+    every rank quantizes its operand once (row 7, one absmax / 127 scale
+    per ``block_rows x 128`` tile, round half to even), K3 allgathers the
+    int8 values and the float32 scales, one batched dequantize (row 8)
+    turns the P blocks back into float32, and a rank-order sum gives the
+    result, cast to the operand dtype.  Each contribution is rounded
+    exactly once, so the error is bounded by the sum of the ranks' own
+    tile scales.
+
+    With every rank on one card, each rank's gathered copy holds the same
+    bytes (K3 relays them unchanged), so one dequantize of the P blocks
+    and one sum serve every rank."""
+    flat = _flat(xs, "int8_allreduce")
+    P, n = len(flat), flat[0].numel()
+    outs = _outputs(flat, out, n, "int8_allreduce")
+    if P == 1:
+        if outs[0].data_ptr() != flat[0].data_ptr():
+            outs[0].copy_(flat[0])
+        return [o.reshape(x.shape) for o, x in zip(outs, xs)]
+    rows, br, nblk = kcomp.tiles(n)
+    seg = br * LANES
+    values, scales = kcomp.quantize_rows(flat, [0] * P, seg,
+                                         out_len=rows * LANES)
+    all_v = ring_allgather(list(values.unbind(0)))
+    all_s = ring_allgather(list(scales.unbind(0)))
+    blocks = kcomp.dequantize_rows(all_v[0].view(P, rows * LANES),
+                                   all_s[0].view(P, nblk), n, seg)
+    acc = blocks[0] + blocks[1]
+    for b in blocks[2:]:
+        acc = acc + b
+    acc = astype(acc, flat[0].dtype)
+    for o in outs:
+        o.copy_(acc)
+    return [o.reshape(x.shape) for o, x in zip(outs, xs)]

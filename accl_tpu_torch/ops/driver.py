@@ -137,7 +137,8 @@ def run_pallas_allreduce(stacked, mesh: Mesh, function=ReduceFunction.SUM,
 
 def run_compressed_allreduce(stacked, mesh: Mesh, function=ReduceFunction.SUM,
                              wire_dtype: str = "bfloat16", out=None):
-    """Allreduce with operands narrowed to ``wire_dtype`` on the wire."""
+    """Allreduce with operands narrowed to ``wire_dtype`` (any registered
+    lane, by dtype name) on the wire."""
     wire = _torch_dtype(wire_dtype)
 
     def compute(xs, outs):

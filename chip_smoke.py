@@ -26,7 +26,18 @@ Phases (any failure exits non-zero):
    elements per rank, a ragged 1,000,003, misaligned views, and the
    aliasing hazards (in-place allreduce, reduce-scatter, allgather,
    alltoall and bcast; write after read and write after write across
-   slots);
+   slots).  K1 also runs its fp8 lanes and its raw int8 cast.  Rows 5-8
+   (the compression kernels) are held BIT FOR BIT (NaN bits included,
+   but for the NaN of an int8 segment's scale): the cast over every
+   pair of float32 / bfloat16 / float16 / fp8 e4m3 / e5m2, the
+   stochastic cast from float32 and bfloat16 to each lane, seeds 0 and
+   nonzero, and row 6 proper (float32 -> bfloat16, always stochastic),
+   quantize in the wire's 256-element segments and the Pallas tier's
+   tiles, seeds 0 and nonzero, and dequantize to float32 / bfloat16 /
+   float16, at n = 1, 255, 257, 1,000,003 and 32 Mi, on operands with
+   NaN, infinities, signed zeros, subnormals, fp8 overflow and an
+   all-zero segment; then the device wire codec on the card against the
+   host codec (numpy) per lane and seed;
 3. the main paths, each with every kernel's launch counter zeroed just
    before and read just after:
    a. the allreduce path: ``cuda_group(4)``, one thread per rank, 16M
@@ -70,6 +81,16 @@ Phases (any failure exits non-zero):
       float32 with 2 layers and batch 2 (loss within 1e-5, every gradient
       within 1e-4 relative), and the float32 step's updated weights
       against p - lr g;
+   f. the compressed path: ``cuda_group(4)``, 64 MiB float32 per rank,
+      the facade allreduce on every wire lane under ``xla``,
+      ``pallas_ring`` and ``pallas_ring_bidir`` (and bfloat16 operands on
+      the fp8 and int8 lanes under ``xla``), each held exactly against
+      the plain computation on the card (each contribution's wire
+      roundtrip, then the rank-order fold; or the ring's plain hop
+      schedule), then ``int8_allreduce`` on the ranks' buffers; rows 5-8
+      and K1 must have launched; then bench.py's convergence leg on
+      ``cuda_group(2)`` (f32 wire, fp8 raw, fp8 with error feedback;
+      ``delta_pct`` at most 10 %), which must launch the wire casts;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (the
    root-only gather as extra keys of K3's entry; the sequencer on 8
@@ -81,7 +102,10 @@ Phases (any failure exits non-zero):
    dQ and dK/dV (rows 17-18) at that shape beside their plain versions
    and the backward of ``scaled_dot_product_attention``, which computes
    dQ, dK and dV in one call (beside the sum of rows 17 + 18 and the
-   delta pass);
+   delta pass); rows 5-8 at 32 Mi float32 elements (cast and stochastic
+   cast to bfloat16, the cast beside ``Tensor.to``; quantize and
+   dequantize in the Pallas tier's tiles, the wire's 256-element
+   segments as extra keys);
 5. time the facade end to end (host clock around each synchronous call
    on rank 0's thread, rendezvous included) at 256 KiB, 4 MiB and 64 MiB
    per rank: the allreduce under ``xla``, ``pallas_ring`` and
@@ -96,7 +120,10 @@ Phases (any failure exits non-zero):
    time (bench.py's mean over 10 steps, p50 and p90 beside it),
    tokens/s, bench.py's 6 N B T count over the step as ``train_tflops``
    and over 989 TFLOP/s as ``train_mfu``, peak memory, and the three
-   kernels' launches per step.
+   kernels' launches per step; then ``facade_compressed`` (p50 and p90
+   per wire lane and register at 4 MiB and 64 MiB per rank, beside the
+   uncompressed call) and ``compression_convergence`` (the leg's losses
+   and ``delta_pct``).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -1806,6 +1833,461 @@ def train_timing(train) -> dict:
     }
 
 
+# -- the compressed wire (rows 5-8) -----------------------------------------
+
+N_COMP = 32 * 1024 * 1024  # the Pallas tier's timing size (bench.py:153)
+WIRE_LANES = ("float16", "bfloat16", "float8_e4m3fn", "float8_e5m2", "int8")
+COMP_KERNELS = ("cast", "stochastic_cast", "quantize_int8", "dequantize_int8")
+_BITS = {1: "uint8", 2: "int16", 4: "int32"}
+
+
+def compare_bits(name: str, got, want) -> float:
+    """Bit-for-bit agreement (NaN bits included); returns the max abs
+    difference, 0 when equal."""
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{name}: {got.dtype}{tuple(got.shape)} vs "
+             f"{want.dtype}{tuple(want.shape)}")
+    bits = getattr(torch, _BITS[got.element_size()])
+    same = got.contiguous().view(bits) == want.contiguous().view(bits)
+    if not bool(same.all()):
+        fail(f"{name}: {int((~same).sum())} elements differ in their bits "
+             f"from the plain version")
+    return 0.0
+
+
+def special_values(dev):
+    """NaN of both signs, infinities, signed zeros, float32 and target
+    subnormals, the fp8 overflow edges and ties."""
+    import torch
+
+    return torch.tensor([
+        float("nan"), -float("nan"), float("inf"), -float("inf"), 0.0, -0.0,
+        1e-40, -1e-40, 2.0 ** -9, 2.0 ** -10, 2.0 ** -16, 2.0 ** -17,
+        448.0, 464.0, 464.0001, 480.0, -1e6, 57344.0, 61439.0, 61440.0,
+        65504.0, 65520.0, 1.0 + 2.0 ** -8, 3e38,
+    ], device=dev)
+
+
+def comp_operand(n, dtype, gen, dev, specials=True):
+    """n elements of ``dtype``: normals at several scales, an all-zero
+    segment (scale 1e-30) and, where there is room, the special values;
+    fp8 operands are random bytes (every encoding, NaN included)."""
+    import torch
+
+    if dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return torch.randint(0, 256, (n,), generator=gen, device=dev,
+                             dtype=torch.uint8).view(dtype)
+    scale = torch.tensor([1e-6, 1e-3, 1.0, 40.0], device=dev)
+    x = torch.randn(n, generator=gen, device=dev) * scale[
+        torch.randint(0, 4, (n,), generator=gen, device=dev)]
+    if n >= 1024:
+        x[512:768] = 0.0
+    if specials:
+        sv = special_values(dev)
+        x[:min(n, sv.numel())] = sv[:min(n, sv.numel())]
+    return x.to(dtype)
+
+
+def check_compression(kc, err, gen, dev) -> None:
+    """Phase 2 for rows 5-8: each kernel against its plain version bit for
+    bit at n = 1, 255, 257, 1,000,003 and 32Mi, every lane pair, seeds 0
+    and nonzero; then the device wire codec on the card against the host
+    codec (``accl_tpu_torch.wire``, numpy), byte for byte, per lane and
+    seed."""
+    import torch
+
+    from accl_tpu_torch import wire as hw
+    from accl_tpu_torch.ops import wire as dw
+
+    kc_ = kc.compression
+    F32, BF16 = torch.float32, torch.bfloat16
+    lanes = kc_.CAST_DTYPES
+    for n in (1, 255, 257, 1_000_003, N_COMP):
+        big = n == N_COMP
+        for src in lanes:
+            x = comp_operand(n, src, gen, dev)
+            for dst in lanes:
+                if dst == src or (big and src != F32):
+                    continue
+                for un in ((False, True) if src == torch.float8_e5m2
+                           else (False,)):
+                    tag = f"cast {src}->{dst} n={n} e5m2_nan_unsigned={un}"
+                    err["cast"] = max(err["cast"], compare_bits(
+                        tag, kc_.cast_rows([x], dst, e5m2_nan_unsigned=un)[0],
+                        kc_.cast_plain(x, dst, un)))
+        for src in kc_.SR_SOURCES:
+            x = comp_operand(n, src, gen, dev)
+            for dst in kc_.SR_TARGETS:
+                dt = at_dtype(dst)
+                drop, tiny = hw.dropped_mantissa_bits(dt), hw.lane_tiny(dt)
+                for seed in (0, 0x9E3779B9):
+                    if big and (src != F32 or dst != BF16 and not seed):
+                        continue
+                    tag = f"stochastic_cast {src}->{dst} n={n} seed={seed}"
+                    err["stochastic_cast"] = max(
+                        err["stochastic_cast"], compare_bits(
+                            tag, kc_.stochastic_cast_rows(
+                                [x], dst, [seed], drop, tiny)[0],
+                            kc_.stochastic_cast_plain(x, dst, seed, drop,
+                                                      tiny)))
+            if src == F32:  # row 6 proper: f32 -> bf16, 16 bits, always
+                err["stochastic_cast"] = max(
+                    err["stochastic_cast"], compare_bits(
+                        f"stochastic_cast (row 6) n={n}",
+                        kc_.cast(x, BF16, stochastic=True, seed=7),
+                        kc_.stochastic_cast_plain(x, BF16, 7, 16, 0.0,
+                                                  always=True)))
+        if n > 1:  # NaN and infinities: their segments' scales are NaN
+            # or infinite and every output there NaN or 0; NaN bits are
+            # the arithmetic's, so those are held with NaN where NaN
+            x = comp_operand(n, F32, gen, dev)
+            for seed in (0, 12345):
+                v, s = kc_.quantize_rows([x], [seed], 256)
+                pv, ps = kc_.quantize_plain(x, seed, 256)
+                compare_bits(f"quantize specials n={n} values", v[0], pv)
+                compare(f"quantize specials n={n} scales", s[0], ps)
+                compare(f"dequantize specials n={n}",
+                        kc_.dequantize_rows(v, s, n, 256)[0],
+                        kc_.dequantize_plain(pv, ps, n, 256))
+        for src in kc_.QUANT_SOURCES:
+            x = comp_operand(n, src, gen, dev, specials=False)
+            rows, br, nblk = kc_.tiles(n)
+            for seg, out_len in ((256, n), (br * 128, rows * 128)):
+                for seed in (0, 12345):
+                    if big and (src != F32 or seed and seg != 256):
+                        continue
+                    tag = f"quantize {src} n={n} seg={seg} seed={seed}"
+                    v, s = kc_.quantize_rows([x], [seed], seg, out_len)
+                    pv, ps = kc_.quantize_plain(x, seed, seg, out_len)
+                    compare_bits(tag + " values", v[0], pv)
+                    err["quantize_int8"] = max(err["quantize_int8"],
+                                               compare_bits(tag + " scales",
+                                                            s[0], ps))
+                    for dst in kc_.DEQUANT_TARGETS:
+                        if big and dst != F32:
+                            continue
+                        err["dequantize_int8"] = max(
+                            err["dequantize_int8"], compare_bits(
+                                f"dequantize {tag} -> {dst}",
+                                kc_.dequantize_rows(v, s, n, seg, dst)[0],
+                                kc_.dequantize_plain(pv, ps, n, seg, dst)))
+        sync(dev)
+    # the codec on the card against the numpy codec, byte for byte
+    x = comp_operand(1_000_003, F32, gen, dev)
+    finite = comp_operand(1_000_003, F32, gen, dev, specials=False)
+    host = x.cpu()
+    for lane in WIRE_LANES:
+        for seed in (0, 99, 2 ** 31 + 5):
+            got = dw.wire_lane_roundtrip(x, lane, seed).cpu()
+            want = hw.roundtrip(host, hw.DataType[_LANE_NAMES[lane]], seed)
+            # a NaN operand makes its int8 segment's scale NaN, whose
+            # payload bits are the arithmetic's, not the codec's: that
+            # lane is held bit for bit with NaN where NaN
+            (compare if lane == "int8" else compare_bits)(
+                f"wire_lane_roundtrip {lane} seed={seed}", got, want)
+            if lane == "int8":  # the frame: int8 payload, then scales
+                q, s = dw.quantize_int8(finite, seed)
+                raw = hw.encode_bytes(finite.cpu(), hw.DataType.INT8, seed)
+                if (q.cpu().numpy().tobytes() + s.cpu().numpy().tobytes()
+                        != raw):
+                    fail(f"int8 wire frame seed={seed} differs from the "
+                         f"host codec's bytes")
+    sync(dev)
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+_LANE_NAMES = {"float16": "FLOAT16", "bfloat16": "BFLOAT16",
+               "float8_e4m3fn": "FLOAT8_E4M3", "float8_e5m2": "FLOAT8_E5M2",
+               "int8": "INT8"}
+
+
+def at_dtype(tdt):
+    from accl_tpu_torch.constants import torch_to_dtype
+
+    return torch_to_dtype(tdt)
+
+
+def wire_expected(xs, lane: str, algo: str, nseg: int):
+    """The plain computation of the facade's compressed allreduce on the
+    card: the ring's plain hop schedule with the wire lane inside it, or,
+    under ``xla``, each contribution's wire roundtrip (the fp8 and int8
+    lanes) folded in rank order, or the narrow fold widened (f16 / bf16)."""
+    import torch
+
+    from accl_tpu_torch import wire as hw
+    from accl_tpu_torch.ops.cuda import compression as kcp
+    from accl_tpu_torch.ops.cuda import ring as kr
+
+    dt = hw.DataType[_LANE_NAMES[lane]]
+    wire = getattr(torch, lane)
+    if algo != "xla":
+        return kr.ring_allreduce_plain(
+            xs, num_segments=nseg, bidirectional=algo.endswith("bidir"),
+            wire_dtype=wire)[0]
+    if lane == "int8":
+        rounded = []
+        for x in xs:
+            q, s = kcp.quantize_plain(x, 0, 256)
+            rounded.append(kcp.dequantize_plain(q, s, x.numel(), 256,
+                                                x.dtype))
+    elif hw.dropped_mantissa_bits(dt) >= 20:
+        rounded = [kcp.cast_plain(kcp.stochastic_cast_plain(
+            x, wire, 0, hw.dropped_mantissa_bits(dt), hw.lane_tiny(dt)),
+            x.dtype) for x in xs]
+    else:
+        narrow = [kcp.cast_plain(x, wire) for x in xs]
+        acc = narrow[0]
+        for v in narrow[1:]:
+            acc = acc + v
+        return kcp.cast_plain(acc, xs[0].dtype)
+    acc = rounded[0]
+    for v in rounded[1:]:
+        acc = acc + v
+    return acc
+
+
+def compressed_main_path(kc) -> dict:
+    """Phase 3f: ``cuda_group(4)`` on the card, 64 MiB of float32 per rank:
+    the facade allreduce on every wire lane under ``xla``,
+    ``pallas_ring`` and ``pallas_ring_bidir`` (4 segments), and bfloat16
+    operands on the fp8 and int8 lanes under ``xla``, each result held
+    exactly against the plain computation on the card; then
+    ``int8_allreduce`` on the ranks' buffers (exactly against its plain
+    composition, and within JAX's analytic bound).  Returns the kernel
+    launch counts of the run."""
+    import numpy as np
+    import torch
+
+    import accl_tpu_torch as at
+    from accl_tpu_torch.ops.cuda import compression as kcp
+
+    P, n = P_MAIN, N_RANK
+    rng = np.random.default_rng(SEED + 6)
+    data = rng.standard_normal((P, n), dtype=np.float32)
+    algos = ("xla", "pallas_ring", "pallas_ring_bidir")
+    cases = [(algo, lane, "float32") for algo in algos for lane in WIRE_LANES]
+    cases += [("xla", lane, "bfloat16")
+              for lane in ("float8_e4m3fn", "float8_e5m2", "int8")]
+    outs = {}
+
+    def rank_main(a, r):
+        a.set_tuning("ring_segments", 4)
+        srcs = {"float32": a.create_buffer_from(data[r])}
+        srcs["bfloat16"] = a.create_buffer(n, "bfloat16")
+        srcs["bfloat16"].tensor.copy_(srcs["float32"].tensor)
+        dsts = {k: a.create_buffer(n, k) for k in srcs}
+        for algo, lane, dtype in cases:
+            a.set_tuning("allreduce_algorithm", algo)
+            a.allreduce(srcs[dtype], dsts[dtype], n, compress_dtype=lane)
+            if r == 0:
+                outs[(algo, lane, dtype)] = dsts[dtype].tensor.clone()
+        results[r] = srcs
+
+    results = {}
+    reset_launches(kc)
+    group = at.cuda_group(P)
+    try:
+        run_ranks(group, rank_main, "compressed path")
+        xs = [results[r]["float32"].tensor for r in range(P)]
+        ix = kc.int8_allreduce(xs)
+        sync(xs[0].device)
+        launches = read_launches(kc)
+    finally:
+        for a in group:
+            a.deinit()
+    for (algo, lane, dtype), got in outs.items():
+        rows = [results[r][dtype].tensor for r in range(P)]
+        compare(f"compressed allreduce {algo} {lane} {dtype}", got,
+                wire_expected(rows, lane, algo, 4))
+    # int8_allreduce: quantize, gather, dequantize, rank-order sum
+    rows_, br, nblk = kcp.tiles(n)
+    blocks = []
+    for x in xs:
+        q, s = kcp.quantize_plain(x, 0, br * 128, rows_ * 128)
+        blocks.append(kcp.dequantize_plain(q, s, n, br * 128))
+    want = blocks[0] + blocks[1]
+    for b in blocks[2:]:
+        want = want + b
+    for r in range(P):
+        compare(f"int8_allreduce rank {r}", ix[r], want)
+    exact = torch.stack(xs).double().sum(0)
+    scales = torch.stack([x.abs().reshape(nblk, -1).amax(1) for x in
+                          [torch.nn.functional.pad(x, (0, rows_ * 128 - n))
+                           for x in xs]]).double() / 127.0
+    bound_ = scales.sum(0).repeat_interleave(br * 128)[:n] / 2 + 1e-4
+    if bool(((ix[0].double() - exact).abs() > bound_).any()):
+        fail("int8_allreduce exceeds its analytic error bound")
+    missing = [k for k in COMP_KERNELS + ("ring_allreduce",)
+               if launches[k] == 0]
+    if missing:
+        fail(f"compressed path never launched {missing}: {launches}")
+    return launches
+
+
+def convergence_leg() -> dict:
+    """bench.py's convergence leg (``_compression_convergence``,
+    bench.py:2072-2140) on ``cuda_group(2)``: 2-rank DP-SGD linear
+    regression, dim 512, batch 64, 40 steps, the gradients allreduced
+    through the facade on a float32 wire, a raw fp8-e4m3 wire and an
+    fp8-e4m3 wire with error feedback.  Returns the losses, the launch
+    counts of the run, and ``delta_pct`` (JAX documents <= 10 %)."""
+    import numpy as np
+
+    import accl_tpu_torch as at
+
+    steps, dim, batch = 40, 512, 64
+    rng = np.random.default_rng(42)
+    w_true = rng.standard_normal(dim).astype(np.float32)
+    X = [rng.standard_normal((batch, dim)).astype(np.float32)
+         for _ in range(2)]
+    y = [x @ w_true for x in X]
+
+    def train(wire, ef: bool) -> float:
+        g = at.cuda_group(2)
+        losses = [None, None]
+        try:
+            if ef:
+                for a in g:
+                    a.set_error_feedback(True)
+
+            def rank_main(a, r):
+                w = np.zeros(dim, np.float32)
+                gbuf = a.create_buffer(dim, np.float32)
+                obuf = a.create_buffer(dim, np.float32)
+                for _ in range(steps):
+                    err = X[r] @ w - y[r]
+                    gbuf.data[:] = (X[r].T @ err / batch).astype(np.float32)
+                    gbuf.sync_to_device()
+                    a.allreduce(gbuf, obuf, dim, compress_dtype=wire)
+                    obuf.sync_from_device()
+                    w -= 0.05 * obuf.data / 2.0
+                losses[r] = float(np.mean((X[r] @ w - y[r]) ** 2))
+
+            run_ranks(g, rank_main, "convergence leg")
+        finally:
+            for a in g:
+                a.deinit()
+        return max(losses)
+
+    loss_f32 = train(None, False)
+    loss_raw = train("float8_e4m3fn", False)
+    loss_ef = train("float8_e4m3fn", True)
+    base = max(loss_f32, 1e-12)
+    out = {
+        "wire": "float8_e4m3", "steps": steps, "dim": dim, "batch": batch,
+        "loss_f32": loss_f32, "loss_raw_compressed": loss_raw,
+        "loss_error_feedback": loss_ef,
+        "delta_pct": (loss_ef - loss_f32) / base * 100.0,
+        "raw_delta_pct": (loss_raw - loss_f32) / base * 100.0,
+    }
+    if not all(math.isfinite(v) for v in (loss_f32, loss_raw, loss_ef)):
+        fail(f"convergence leg: a loss is not finite: {out}")
+    if out["delta_pct"] > 10.0:
+        fail(f"convergence leg: error feedback {out['delta_pct']:.3f} % "
+             f"above the float32 wire (bound 10 %)")
+    return out
+
+
+def time_compression(kc, dev) -> dict:
+    """Phase 4 for rows 5-8 at 32 Mi float32 elements (bench.py:153, :187):
+    cast f32 -> bf16 (beside ``Tensor.to``), the stochastic cast f32 ->
+    bf16, quantize in the Pallas tier's tiles (and the wire's 256-element
+    segments as extra keys) and dequantize, each beside its plain version
+    and its bound (bytes over the HBM rate)."""
+    import torch
+
+    kcp = kc.compression
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    n = N_COMP
+    x = torch.randn(n, generator=gen, device=dev)
+    bf = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    rows, br, nblk = kcp.tiles(n)
+    seg = br * 128
+    v, s = kcp.quantize_rows([x], [0], seg, rows * 128)
+    wv, ws = kcp.quantize_rows([x], [0], 256)
+    nseg = ws.shape[1]
+    out = {
+        "cast": dict(
+            ms=time_ms(lambda: kcp.cast_rows([x], torch.bfloat16, out=[bf])),
+            plain_ms=time_ms(lambda: kcp.cast_plain(x, torch.bfloat16)),
+            library_ms=time_ms(lambda: x.to(torch.bfloat16)),
+            bytes=6 * n, ops=n),
+        "stochastic_cast": dict(
+            ms=time_ms(lambda: kcp.stochastic_cast_rows(
+                [x], torch.bfloat16, [7], 16, 0.0, always=True, out=[bf])),
+            plain_ms=time_ms(lambda: kcp.stochastic_cast_plain(
+                x, torch.bfloat16, 7, 16, 0.0, always=True)),
+            library_ms=None, bytes=6 * n, ops=12 * n),
+        "quantize_int8": dict(
+            ms=time_ms(lambda: kcp.quantize_rows([x], [0], seg, rows * 128)),
+            plain_ms=time_ms(lambda: kcp.quantize_plain(x, 0, seg,
+                                                        rows * 128)),
+            library_ms=None, bytes=4 * n + rows * 128 + 4 * nblk, ops=4 * n,
+            wire_seg_ms=time_ms(lambda: kcp.quantize_rows([x], [0], 256)),
+            wire_seg_plain_ms=time_ms(lambda: kcp.quantize_plain(x, 0, 256)),
+            wire_seg_bound_ms=bound(5 * n + 4 * nseg, 4 * n)["bound_ms"],
+            wire_seg_sr_ms=time_ms(lambda: kcp.quantize_rows([x], [9], 256))),
+        "dequantize_int8": dict(
+            ms=time_ms(lambda: kcp.dequantize_rows(v, s, n, seg)),
+            plain_ms=time_ms(lambda: kcp.dequantize_plain(v[0], s[0], n,
+                                                          seg)),
+            library_ms=None, bytes=rows * 128 + 4 * nblk + 4 * n, ops=n,
+            wire_seg_ms=time_ms(lambda: kcp.dequantize_rows(wv, ws, n, 256)),
+            wire_seg_bound_ms=bound(5 * n + 4 * nseg, n)["bound_ms"]),
+    }
+    sync(dev)
+    return out
+
+
+def facade_compressed_latency(sizes, iters: int = 20) -> list:
+    """p50 and p90 of the facade allreduce per wire lane (and the
+    uncompressed call, in the same run) and register, at ``sizes``
+    float32 elements per rank; the second of two passes is kept."""
+    import numpy as np
+
+    import accl_tpu_torch as at
+
+    algos = ("xla", "pallas_ring", "pallas_ring_bidir")
+    samples = {}
+
+    def rank_main(a, r):
+        a.set_tuning("ring_segments", 4)
+        bufs = {n: (a.create_buffer(n, np.float32),
+                    a.create_buffer(n, np.float32)) for n in sizes}
+        for _pass in range(2):
+            for n, (s, d) in bufs.items():
+                for algo in algos:
+                    a.set_tuning("allreduce_algorithm", algo)
+                    for lane in (None,) + WIRE_LANES:
+                        times = []
+                        for _ in range(iters):
+                            t = time.perf_counter()
+                            a.allreduce(s, d, compress_dtype=lane)
+                            times.append(time.perf_counter() - t)
+                        if r == 0:
+                            samples[(algo, lane, n)] = times
+
+    group = at.cuda_group(P_MAIN)
+    try:
+        run_ranks(group, rank_main, "compressed facade timing")
+    finally:
+        for a in group:
+            a.deinit()
+    return [{"algo": algo, "wire": lane or "none", "bytes_per_rank": 4 * n,
+             "p50_ms": float(np.median(t)) * 1e3,
+             "p90_ms": float(np.percentile(t, 90)) * 1e3}
+            for (algo, lane, n), t in samples.items()]
+
+
 def main() -> int:
     import torch
 
@@ -1885,6 +2367,13 @@ def main() -> int:
         (4, 4, False, None, MAX, I32, N_RANK),
         (3, 4, True, BF16, SUM, F32, 1_000_003),  # ragged: scalar path
     ]
+    # the ring's fp8 lanes and its raw int8 cast (JAX's astype per hop)
+    E4M3, E5M2, I8 = torch.float8_e4m3fn, torch.float8_e5m2, torch.int8
+    cases += [(4, 4, bidir, wire, SUM, F32, N_RANK)
+              for wire in (E4M3, E5M2, I8) for bidir in (False, True)]
+    cases += [(4, 2, False, E5M2, SUM, BF16, N_RANK),
+              (4, 1, True, E4M3, MAX, F32, N_RANK),
+              (3, 4, True, I8, SUM, F32, 1_000_003)]
     for P, S, bidir, wire, fn, dtype, n in cases:
         xs = [rand(n, dtype) for _ in range(P)]
         got = kc.ring_allreduce(xs, fn, S, bidirectional=bidir,
@@ -1920,6 +2409,7 @@ def main() -> int:
     check_sequencer(err)
     check_flash(kc, err)
     check_flash_bwd(err)
+    check_compression(kc, err, gen, dev)
     print(f"kernels agree with their plain versions ({time.time() - t0:.1f}"
           f" s; exactly, but flash_attention within its tolerances)",
           flush=True)
@@ -2015,9 +2505,22 @@ def main() -> int:
     train = train_main_path(kc)
     print(f"training path checks done ({time.time() - t0:.1f} s)",
           flush=True)
-    # each kernel's launches over the five paths' runs
+    t0 = time.time()
+    compressed = compressed_main_path(kc)
+    print(f"compressed path ok ({time.time() - t0:.1f} s): launches "
+          f"{compressed}", flush=True)
+    t0 = time.time()
+    reset_launches(kc)
+    convergence = convergence_leg()
+    converged = read_launches(kc)
+    if not converged["stochastic_cast"] or not converged["cast"]:
+        fail(f"convergence leg never launched the wire casts: {converged}")
+    print(f"convergence leg ok ({time.time() - t0:.1f} s): launches "
+          f"{converged}", flush=True)
+    # each kernel's launches over the seven paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k] + serve["launches"][k]
-                + train["launches"][k] for k in launches}
+                + train["launches"][k] + compressed[k] + converged[k]
+                for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
     xs = [rand(N_RANK, F32) for _ in range(P_MAIN)]
@@ -2070,6 +2573,7 @@ def main() -> int:
     bwd = time_flash_bwd()
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         timing[name] = dict(bwd[name], library_ms=bwd["library_bwd_ms"])
+    timing.update(time_compression(kc, dev))
     meta = {
         "ring_allreduce": ("accl_tpu_torch/csrc/ring.cu",
                            "accl_tpu/ops/pallas/ring.py:123"),
@@ -2093,6 +2597,14 @@ def main() -> int:
                                    "accl_tpu/ops/pallas/attention.py:451"),
         "flash_attention_bwd_dkv": ("accl_tpu_torch/csrc/attention_bwd.cu",
                                     "accl_tpu/ops/pallas/attention.py:503"),
+        "cast": ("accl_tpu_torch/csrc/compression.cu",
+                 "accl_tpu/ops/pallas/compression.py:35"),
+        "stochastic_cast": ("accl_tpu_torch/csrc/compression.cu",
+                            "accl_tpu/ops/pallas/compression.py:42"),
+        "quantize_int8": ("accl_tpu_torch/csrc/compression.cu",
+                          "accl_tpu/ops/pallas/compression.py:129"),
+        "dequantize_int8": ("accl_tpu_torch/csrc/compression.cu",
+                            "accl_tpu/ops/pallas/compression.py:141"),
     }
     kernels = []
     for name in kc.KERNELS:
@@ -2151,6 +2663,10 @@ def main() -> int:
                 "bwd_sum_ms": bwd["flash_attention_bwd_dq"]["ms"]
                 + bwd["flash_attention_bwd_dkv"]["ms"] + bwd["delta_ms"],
             })
+        if name in COMP_KERNELS:  # at 32 Mi float32 elements
+            kernels[-1]["elements"] = N_COMP
+            kernels[-1].update({k: v for k, v in t.items()
+                                if k.startswith("wire_seg")})
         if name == "ring_allgather":  # the rooted gather: root output only
             g = timing["ring_gather"]
             kernels[-1].update({
@@ -2159,9 +2675,10 @@ def main() -> int:
                 "gather_library_ms": g["library_ms"],
             })
     for k in kernels:
+        lib = k["library_ms"]
         print(f"{k['name']}: kernel_ms={k['ms']:.4f} "
               f"bound_ms={k['bound_ms']:.4f} plain_ms={k['plain_ms']:.4f} "
-              f"library_ms={k['library_ms']:.4f}")
+              f"library_ms={'-' if lib is None else f'{lib:.4f}'}")
     g = timing["ring_gather"]
     print(f"ring_gather (K3, root only): kernel_ms={g['ms']:.4f} "
           f"bound_ms={bound(g['bytes'], 0)['bound_ms']:.4f} "
@@ -2200,6 +2717,11 @@ def main() -> int:
     print(json.dumps({"facade_rooted": facade}))
     facade = facade_batch_latency([64 * 1024, 256 * 1024, 1024 * 1024])
     print(json.dumps({"facade_batch": facade}))
+    facade = facade_compressed_latency([1024 * 1024, N_RANK])
+    print(json.dumps({"facade_compressed": {
+        "card": smi.stdout.strip().splitlines()[0], "rows": facade}}))
+    print(json.dumps({"compression_convergence": {
+        "card": smi.stdout.strip().splitlines()[0], **convergence}}))
     served = serve_timing(serve)
     del serve
     print(json.dumps({"serve_generate": {

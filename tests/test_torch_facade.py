@@ -318,8 +318,8 @@ def test_bad_registers_and_calls_raise():
             g[0].set_timeout(0)
         assert ei.value.code == at.ErrorCode.CONFIG_ERROR
         buf = g[0].create_buffer(4, np.float32)
-        with pytest.raises(at.ACCLError) as ei:
-            g[0].allreduce(buf, buf, compress_dtype="int8")
+        with pytest.raises(at.ACCLError) as ei:  # no float32 -> f64 pair
+            g[0].allreduce(buf, buf, compress_dtype="float64")
         assert ei.value.code == at.ErrorCode.INVALID_DTYPE
 
         def mismatched(a, r):
@@ -367,8 +367,11 @@ def test_tuning_from_jax():
         {"bcast_algorithm": "pallas_ring"})["bcast_algorithm"] == "pallas_ring"
     with pytest.raises(ValueError, match="rooted"):
         interop.tuning_from_jax({"bcast_algorithm": "pallas_ring_bidir"})
-    with pytest.raises(ValueError, match="not ported"):
-        interop.tuning_from_jax({"wire_dtype": int(at.DataType.INT8)})
+    assert interop.tuning_from_jax(
+        {"wire_dtype": int(at.DataType.INT8)})["wire_dtype"] == int(
+            at.DataType.INT8)
+    with pytest.raises(ValueError, match="not a wire lane"):
+        interop.tuning_from_jax({"wire_dtype": int(at.DataType.FLOAT64)})
     with pytest.raises(KeyError):
         interop.tuning_from_jax({"allreduce_algorithm": "tree"})
 

@@ -503,7 +503,10 @@ def test_ranks_disagreeing_on_the_root_all_fail(op):
 @pytest.mark.parametrize(
     "name",
     ["bcast_roots", "bcast_rendezvous_tree", "bcast_compressed",
-     "scatter_roots", "gather_roots", "reduce_roots", "alltoall"],
+     "scatter_roots", "gather_roots", "reduce_roots", "alltoall",
+     "allreduce_fp8_wire", "allreduce", "allgather", "reduce_scatter",
+     "allreduce_int_dtypes", "barrier_then_allreduce",
+     "tuning_allreduce_algorithm", "tuning_invalid"],
 )
 @pytest.mark.parametrize("algo", ["xla", "pallas_ring"])
 def test_shared_scenario_on_port(name, algo):

@@ -31,6 +31,7 @@ from accl_tpu_torch.models import (
     params_from_numpy,
     params_to_numpy,
 )
+from accl_tpu_torch.models.transformer import sgd_update_
 from accl_tpu_torch.ops.driver import make_mesh
 
 GRAD_TOL = dict(rtol=2e-3, atol=2e-5)
@@ -219,6 +220,63 @@ def test_train_step_refusals():
         # a config built elsewhere (the JAX one does not validate it)
         make_sharded_train_step(jt.TransformerConfig(attention="dave"),
                                 mesh=_cpu_mesh())
+
+
+@pytest.mark.parametrize(
+    "lr", [np.float32(0.05), np.float64(0.05), torch.tensor(0.05),
+           torch.tensor(0.05, dtype=torch.float64)],
+    ids=["np.float32", "np.float64", "tensor", "tensor-f64"])
+def test_train_step_takes_any_real_scalar_lr(lr):
+    """A NumPy or 0-d tensor learning rate takes the same float32 step as
+    the Python float, bit for bit (JAX takes any scalar too)."""
+    jcfg, cfg = _configs()
+    tree = jax.tree.map(np.asarray, jt.init_params(jax.random.PRNGKey(9),
+                                                   jcfg))
+    tokens, targets = _batch(10)
+    want = _one_step(cfg, tree, tokens, targets, lr=0.05)
+    got = _one_step(cfg, tree, tokens, targets, lr=lr)
+    assert got[0] == want[0]
+    for a, b in zip(got[1], want[1]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["python", "np.float32", "np.float64",
+                                  "bf16 scalar"])
+def test_bfloat16_update_rounds_as_jax(kind):
+    """The bfloat16 update against JAX's ``p - lr * g`` on the same
+    weights and gradients: a Python lr is weakly typed (it becomes
+    bfloat16); a float32 lr promotes the update to float32, where JAX
+    returns float32 weights: the in-place update holds that result
+    rounded to bfloat16."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(11)
+    p = rng.standard_normal(4096).astype(ml_dtypes.bfloat16)
+    g = rng.standard_normal(4096).astype(ml_dtypes.bfloat16)
+    lr = {"python": 0.0123, "np.float32": np.float32(0.0123),
+          "np.float64": np.float64(0.0123),
+          "bf16 scalar": jnp.asarray(0.0123, jnp.bfloat16)}[kind]
+    want = np.asarray(jax.jit(lambda p, g: p - lr * g)(jnp.asarray(p),
+                                                        jnp.asarray(g)))
+    assert want.dtype == (np.float32 if kind.startswith("np")
+                          else ml_dtypes.bfloat16)
+    port_lr = (torch.tensor(0.0123, dtype=torch.bfloat16)
+               if kind == "bf16 scalar" else lr)
+    tp = torch.from_numpy(p.view(np.int16)).view(torch.bfloat16).clone()
+    tg = torch.from_numpy(g.view(np.int16)).view(torch.bfloat16)
+    sgd_update_([tp], [tg], port_lr)
+    np.testing.assert_array_equal(
+        tp.view(torch.int16).numpy(),
+        want.astype(ml_dtypes.bfloat16).view(np.int16))
+
+
+@pytest.mark.parametrize("lr", [torch.ones(2), np.ones(3), 1j, 0.1 + 0j,
+                                np.complex64(1), "0.1", None])
+def test_train_step_refuses_lr_by_name(lr):
+    _, cfg = _configs()
+    with pytest.raises(TypeError, match="lr must be a") as ei:
+        make_sharded_train_step(cfg, lr=lr, mesh=_cpu_mesh())
+    assert "mesh" not in str(ei.value)
 
 
 def test_params_to_numpy_inverts_params_from_numpy():
