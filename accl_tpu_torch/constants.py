@@ -218,14 +218,43 @@ def as_datatype(dt) -> DataType:
         raise ValueError(f"unsupported dtype {dt!r}") from None
 
 
+def dtype_to_numpy(dt: DataType):
+    """The numpy dtype of a DataType (bfloat16 and the fp8 dtypes through
+    ``ml_dtypes``, imported only for them)."""
+    import numpy as np
+
+    name = WIRE_LANE_DTYPES.get(DataType(dt).name, DataType(dt).name.lower())
+    if name in ("bfloat16", "float8_e4m3fn", "float8_e5m2"):
+        import ml_dtypes
+
+        return np.dtype(getattr(ml_dtypes, name))
+    return np.dtype(name)
+
+
+class StreamFlags(enum.IntFlag):
+    """Whether an operand comes from, or the result goes to, the rank's
+    device stream port instead of a buffer."""
+
+    NO_STREAM = 0
+    OP0_STREAM = 1
+    RES_STREAM = 2
+
+
 class CompressionFlags(enum.IntFlag):
+    """Which operands are in the compressed dtype (ETH: on the wire)."""
+
     NO_COMPRESSION = 0
+    OP0_COMPRESSED = 1
+    OP1_COMPRESSED = 2
+    RES_COMPRESSED = 4
     ETH_COMPRESSED = 8
 
 
 class ErrorCode(enum.IntFlag):
     OK = 0
+    DMA_TIMEOUT = 1 << 2
     RECEIVE_TIMEOUT = 1 << 3
+    SEND_TIMEOUT = 1 << 4
     COLLECTIVE_NOT_IMPLEMENTED = 1 << 5
     INVALID_RANK = 1 << 8
     INVALID_COUNT = 1 << 9
@@ -233,6 +262,7 @@ class ErrorCode(enum.IntFlag):
     INVALID_DTYPE = 1 << 12
     ARITH_ERROR = 1 << 13
     COMPRESSION_ERROR = 1 << 14
+    TRANSPORT_ERROR = 1 << 18
     DEADLOCK_SUSPECTED = 1 << 20
     CONFIG_ERROR = 1 << 21
 
@@ -261,6 +291,14 @@ class ACCLError(RuntimeError):
 
 
 DEFAULT_TIMEOUT_S = 30.0
+
+
+def drain_deadline_s(timeout_s: float) -> float:
+    """How long the facade waits on a synchronous call: 4x the engine
+    timeout with a 60 s floor (the JAX package's ``drain_deadline_s``), so
+    the engine's own deadlines (a parked send or recv, a stream pop) fire
+    first and a first build of the kernels does not trip it."""
+    return max(60.0, 4.0 * float(timeout_s))
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,11 @@ this port: buffers, tuning registers, copy / combine, the rooted bcast,
 reduce, scatter and gather, allgather, allreduce (with a wire dtype and
 ``run_async``), reduce_scatter, alltoall, barrier and the fused compute
 slots (``fused_matmul_reduce_scatter``, ``fused_apply``,
-``fused_attn_hop``).  Compressed collectives take any registered wire
+``fused_attn_hop``), point-to-point ``send`` / ``recv`` (tag-matched,
+with the cast wire lanes), the stream ports (``stream_push`` /
+``stream_pop``, ``stream_put`` into a peer's port, ``copy_from_stream``
+/ ``copy_to_stream`` / ``copy_from_to_stream`` and ``reduce`` with
+stream operands).  Compressed collectives take any registered wire
 lane (float16, bfloat16, fp8 e4m3 / e5m2, int8), by ``compress_dtype``
 or the ``wire_dtype`` register, and the allreduce error feedback
 (:meth:`ACCL.set_error_feedback`).  Calls are synchronous unless
@@ -31,7 +35,7 @@ import torch
 
 from . import wire as _wire
 from .arithconfig import DEFAULT_ARITH_CONFIG
-from .backends.base import BaseEngine, CallOptions
+from .backends.base import BaseEngine, CallOptions, tensor_bytes
 from .backends.cuda.engine import CudaEngine, CudaGangContext
 from .buffer import BaseBuffer, DeviceBuffer, DummyBuffer, host_tensor
 from .communicator import Communicator, Rank
@@ -46,8 +50,11 @@ from .constants import (
     FusedCompute,
     Operation,
     ReduceFunction,
+    StreamFlags,
     TuningKey,
     as_datatype,
+    drain_deadline_s,
+    dtype_to_numpy,
 )
 from .errorfeedback import ResidualStore
 from .ops.driver import resolve_device
@@ -336,10 +343,11 @@ class ACCL:
             req = self.engine.start(options)
         if run_async:
             return req
-        if not req.wait(timeout=self._timeout_s):
+        deadline = drain_deadline_s(self._timeout_s)
+        if not req.wait(timeout=deadline):
             raise ACCLError(
                 ErrorCode.DEADLOCK_SUSPECTED, context,
-                details={"op": options.op.name, "timeout_s": self._timeout_s},
+                details={"op": options.op.name, "timeout_s": deadline},
             )
         req.check(context)
         return req
@@ -356,11 +364,12 @@ class ACCL:
             raise ACCLError(ErrorCode.INVALID_RANK, f"rank {rank}")
 
     def _collective(self, op: Operation, comm, count: int, dtype: DataType,
-                    compress_dtype, run_async: bool, **fields):
+                    compress_dtype, run_async: bool, context=None,
+                    **fields):
         cfg, flags = self._resolve_arithcfg(dtype, compress_dtype)
         opts = CallOptions(op=op, comm=comm or self._world, count=count,
                            arithcfg=cfg, compression=flags, **fields)
-        return self._launch(opts, run_async, op.name.lower())
+        return self._launch(opts, run_async, context or op.name.lower())
 
     # -- primitives ----------------------------------------------------------
     def copy(self, srcbuf: BaseBuffer, dstbuf: BaseBuffer,
@@ -368,6 +377,40 @@ class ACCL:
         n = self._count_of(srcbuf, count)
         return self._collective(Operation.COPY, None, n, srcbuf.dtype, None,
                                 run_async, op0=srcbuf, res=dstbuf)
+
+    def copy_from_stream(self, dstbuf: BaseBuffer,
+                         count: Optional[int] = None, stream_id: int = 0,
+                         run_async: bool = False):
+        """Pull ``count`` elements from this rank's stream port into
+        ``dstbuf`` (ref ``copy_from_stream``)."""
+        n = self._count_of(dstbuf, count)
+        return self._collective(
+            Operation.COPY, None, n, dstbuf.dtype, None, run_async,
+            stream=StreamFlags.OP0_STREAM, stream_id=stream_id,
+            op0=DummyBuffer(n, dstbuf.dtype), res=dstbuf,
+            context="copy_from_stream")
+
+    def copy_to_stream(self, srcbuf: BaseBuffer, count: Optional[int] = None,
+                       stream_id: int = 0, run_async: bool = False):
+        """Push ``count`` elements of ``srcbuf`` into this rank's stream
+        port (ref ``copy_to_stream``)."""
+        n = self._count_of(srcbuf, count)
+        return self._collective(
+            Operation.COPY, None, n, srcbuf.dtype, None, run_async,
+            stream=StreamFlags.RES_STREAM, stream_id=stream_id, op0=srcbuf,
+            res=DummyBuffer(n, srcbuf.dtype), context="copy_to_stream")
+
+    def copy_from_to_stream(self, dtype, count: int, stream_id: int = 0,
+                            run_async: bool = False):
+        """Relay ``count`` elements of ``dtype`` through the engine from
+        the stream port back to it (ref ``copy_from_to_stream``)."""
+        dt = as_datatype(dtype)
+        n = int(count)
+        return self._collective(
+            Operation.COPY, None, n, dt, None, run_async,
+            stream=StreamFlags.OP0_STREAM | StreamFlags.RES_STREAM,
+            stream_id=stream_id, op0=DummyBuffer(n, dt),
+            res=DummyBuffer(n, dt), context="copy_from_to_stream")
 
     def combine(self, function: ReduceFunction, op0: BaseBuffer,
                 op1: BaseBuffer, res: BaseBuffer,
@@ -440,34 +483,49 @@ class ACCL:
         """Reduce to ``root``: its ``recvbuf`` gets ``function`` over
         every rank's ``sendbuf``; the other ranks' ``recvbuf`` (None, or a
         buffer) is left as it was.  The lowering follows the
-        ``reduce_algorithm`` register.  The stream operands
-        (``from_stream`` / ``to_stream``, with ``stream_id`` and
-        ``dtype``) are not ported."""
-        if from_stream or to_stream:
-            raise ACCLError(
-                ErrorCode.COLLECTIVE_NOT_IMPLEMENTED,
-                "reduce from or to a stream port: the stream plane is not "
-                "ported",
-                details={"op": "reduce", "from_stream": from_stream,
-                         "to_stream": to_stream},
-            )
+        ``reduce_algorithm`` register.  ``from_stream`` takes this rank's
+        operand from its stream port ``stream_id`` (``sendbuf`` None, the
+        operand's ``dtype`` and ``count`` given or read off ``recvbuf``);
+        ``to_stream`` delivers the root's result to its stream port
+        (``recvbuf`` None) — the reference's four reduce overloads."""
         comm = comm or self._world
         self._check_rank(comm, root)
-        if sendbuf is None:
-            raise ACCLError(
-                ErrorCode.INVALID_OPERATION,
-                "reduce needs sendbuf unless from_stream",
-                details={"op": "reduce", "from_stream": from_stream},
-            )
-        n = self._count_of(sendbuf, count)
-        if recvbuf is None:
-            recvbuf = DummyBuffer(0, sendbuf.dtype)
-        self._advance_wire_seed(comm, Operation.REDUCE, sendbuf.dtype,
+        if sendbuf is not None:
+            op_dtype = sendbuf.dtype
+            n = self._count_of(sendbuf, count)
+        else:
+            if not from_stream:
+                raise ACCLError(
+                    ErrorCode.INVALID_OPERATION,
+                    "reduce needs sendbuf unless from_stream",
+                    details={"op": "reduce", "from_stream": from_stream},
+                )
+            op_dtype = (as_datatype(dtype) if dtype is not None
+                        else recvbuf.dtype if recvbuf is not None
+                        else DataType.FLOAT32)
+            if count is None and recvbuf is not None:
+                n = self._count_of(recvbuf, count)
+            elif count is None:
+                raise ACCLError(
+                    ErrorCode.INVALID_COUNT,
+                    "stream reduce needs an explicit count without recvbuf",
+                    details={"op": "reduce", "from_stream": from_stream},
+                )
+            else:
+                n = int(count)
+        stream = StreamFlags.NO_STREAM
+        if from_stream:
+            stream |= StreamFlags.OP0_STREAM
+        if to_stream:
+            stream |= StreamFlags.RES_STREAM
+        self._advance_wire_seed(comm, Operation.REDUCE, op_dtype,
                                 compress_dtype)
-        return self._collective(Operation.REDUCE, comm, n, sendbuf.dtype,
-                                compress_dtype, run_async, root_dst=root,
-                                reduce_function=function, op0=sendbuf,
-                                res=recvbuf)
+        return self._collective(
+            Operation.REDUCE, comm, n, op_dtype, compress_dtype, run_async,
+            root_dst=root, reduce_function=function, stream=stream,
+            stream_id=stream_id,
+            op0=sendbuf if sendbuf is not None else DummyBuffer(n, op_dtype),
+            res=recvbuf if recvbuf is not None else DummyBuffer(0, op_dtype))
 
     def allreduce(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
                   count: Optional[int] = None,
@@ -529,43 +587,118 @@ class ACCL:
                                 res=recvbuf)
 
     # -- point-to-point ------------------------------------------------------
-    def _p2p(self, what: str, buf: Optional[BaseBuffer], peer: int,
-             comm: Optional[Communicator], compress_dtype) -> None:
-        """The intake checks of ``send`` / ``recv``, then the refusal:
-        the point-to-point channel is not ported yet (ROADMAP A3c).  A
-        scaled wire lane (int8) is refused first, as the JAX facade
-        refuses it: its per-segment frame is a reduction lane."""
-        comm = comm or self._world
-        self._check_rank(comm, peer)
-        dtype = buf.dtype if buf is not None else DataType.FLOAT32
-        cfg, flags = self._resolve_arithcfg(dtype, compress_dtype)
+    @staticmethod
+    def _check_p2p_wire(cfg, flags, opname: str) -> None:
+        """Scaled wire lanes (int8) are reduction lanes, refused on a
+        point-to-point call at intake, as the JAX facade refuses them;
+        the cast lanes (float16, bfloat16, fp8) work."""
         if flags & CompressionFlags.ETH_COMPRESSED and _wire.is_scaled(
                 cfg.compressed):
             raise ACCLError(
                 ErrorCode.COMPRESSION_ERROR,
-                f"{what}: scaled wire lane {cfg.compressed.name} is "
+                f"{opname}: scaled wire lane {cfg.compressed.name} is "
                 "collective-only",
-                details={"op": what, "wire": cfg.compressed.name},
+                details={
+                    "op": opname, "wire": cfg.compressed.name,
+                    "hint": "use a cast lane (float16/bfloat16/fp8) for "
+                            "p2p, scaled int8 for allreduce",
+                },
             )
-        raise ACCLError(
-            ErrorCode.COLLECTIVE_NOT_IMPLEMENTED,
-            f"{what}: the point-to-point channel is not ported",
-            details={"op": what},
-        )
 
-    def send(self, srcbuf: BaseBuffer, count: Optional[int], dst: int,
-             tag: int = 0, comm: Optional[Communicator] = None,
+    def send(self, srcbuf: Optional[BaseBuffer], count: Optional[int],
+             dst: int, tag: int = 0, comm: Optional[Communicator] = None,
              compress_dtype=None, from_stream: bool = False,
              stream_id: int = 0, run_async: bool = False):
-        """ref ``ACCL::send`` — refused (see :meth:`_p2p`)."""
-        self._p2p("send", srcbuf, dst, comm, compress_dtype)
+        """Send ``count`` elements of ``srcbuf`` to rank ``dst``'s receive
+        of the same ``tag`` (or, ``from_stream``, the next ``count``
+        elements of this rank's stream port ``stream_id``, with
+        ``srcbuf`` None).  A synchronous send returns when the receiver
+        has taken the data, or fails with SEND_TIMEOUT after the engine
+        timeout (``set_timeout``); the buffer may be overwritten as soon
+        as the call returns, asynchronous or not."""
+        comm = comm or self._world
+        self._check_rank(comm, dst)
+        dtype = srcbuf.dtype if srcbuf is not None else DataType.FLOAT32
+        n = (self._count_of(srcbuf, count) if srcbuf is not None
+             else int(count))
+        cfg, flags = self._resolve_arithcfg(dtype, compress_dtype)
+        self._check_p2p_wire(cfg, flags, "send")
+        opts = CallOptions(
+            op=Operation.SEND, comm=comm, count=n, root_dst=dst, tag=tag,
+            arithcfg=cfg, compression=flags,
+            stream=(StreamFlags.OP0_STREAM if from_stream
+                    else StreamFlags.NO_STREAM),
+            stream_id=stream_id,
+            op0=srcbuf if srcbuf is not None else DummyBuffer(n, dtype),
+        )
+        return self._launch(opts, run_async, "send")
 
-    def recv(self, dstbuf: BaseBuffer, count: Optional[int], src: int,
-             tag: int = 0, comm: Optional[Communicator] = None,
+    def recv(self, dstbuf: Optional[BaseBuffer], count: Optional[int],
+             src: int, tag: int = 0, comm: Optional[Communicator] = None,
              compress_dtype=None, to_stream: bool = False,
              stream_id: int = 0, run_async: bool = False):
-        """ref ``ACCL::recv`` — refused (see :meth:`_p2p`)."""
-        self._p2p("recv", dstbuf, src, comm, compress_dtype)
+        """Receive ``count`` elements from rank ``src``'s send of the same
+        ``tag`` into ``dstbuf`` (or, ``to_stream``, into this rank's
+        stream port ``stream_id``, in the wire dtype, with ``dstbuf``
+        None).  Fails with RECEIVE_TIMEOUT after the engine timeout."""
+        comm = comm or self._world
+        self._check_rank(comm, src)
+        dtype = dstbuf.dtype if dstbuf is not None else DataType.FLOAT32
+        n = (self._count_of(dstbuf, count) if dstbuf is not None
+             else int(count))
+        cfg, flags = self._resolve_arithcfg(dtype, compress_dtype)
+        self._check_p2p_wire(cfg, flags, "recv")
+        opts = CallOptions(
+            op=Operation.RECV, comm=comm, count=n, root_src=src, tag=tag,
+            arithcfg=cfg, compression=flags,
+            stream=(StreamFlags.RES_STREAM if to_stream
+                    else StreamFlags.NO_STREAM),
+            stream_id=stream_id,
+            res=dstbuf if dstbuf is not None else DummyBuffer(n, dtype),
+        )
+        return self._launch(opts, run_async, "recv")
+
+    def stream_put(self, srcbuf: BaseBuffer, count: Optional[int], dst: int,
+                   stream_id: int, tag: int = 0,
+                   comm: Optional[Communicator] = None,
+                   run_async: bool = False):
+        """Send straight into rank ``dst``'s stream port ``stream_id``, with
+        no tag matching (the reference's ``stream_put``).  The port holds
+        host bytes, so the payload crosses to the host."""
+        comm = comm or self._world
+        self._check_rank(comm, dst)
+        n = self._count_of(srcbuf, count)
+        cfg, flags = self._resolve_arithcfg(srcbuf.dtype, None)
+        opts = CallOptions(
+            op=Operation.SEND, comm=comm, count=n, root_dst=dst, tag=tag,
+            arithcfg=cfg, compression=flags, stream=StreamFlags.RES_STREAM,
+            stream_id=stream_id, op0=srcbuf,
+        )
+        return self._launch(opts, run_async, "stream_put")
+
+    # -- device stream ports -------------------------------------------------
+    def stream_push(self, data, stream_id: int = 0) -> None:
+        """Push ``data`` (numpy, or a tensor on any device: a CUDA tensor
+        is copied to the host) into this rank's stream port."""
+        import numpy as np
+
+        raw = (tensor_bytes(data) if isinstance(data, torch.Tensor)
+               else np.ascontiguousarray(data).tobytes())
+        self.engine.stream_push(stream_id, raw)
+
+    def stream_pop(self, count: int, dtype, stream_id: int = 0,
+                   timeout: float = 30.0):
+        """Pop ``count`` elements of ``dtype`` from this rank's stream port
+        as a numpy array; raises TimeoutError when the port stays empty
+        for ``timeout`` seconds."""
+        import numpy as np
+
+        npdt = dtype_to_numpy(as_datatype(dtype))
+        need = int(count) * npdt.itemsize
+        out = b""
+        while len(out) < need:
+            out += self.engine.stream_pop(stream_id, timeout=timeout)
+        return np.frombuffer(out[:need], dtype=npdt).copy()
 
     # -- fused compute slots -------------------------------------------------
     def _fused_launch(self, op, fuse, sendbuf, recvbuf, n, function, comm,
@@ -662,6 +795,6 @@ def cuda_group(n: int, device=None, **accl_kwargs) -> List[ACCL]:
     gang = CudaGangContext(dev)
     ranks = [Rank(address=f"{dev}:{i}", session=i) for i in range(n)]
     return [
-        ACCL(CudaEngine(gang, dev), ranks, i, **accl_kwargs)
+        ACCL(CudaEngine(gang, dev, session=i), ranks, i, **accl_kwargs)
         for i in range(n)
     ]

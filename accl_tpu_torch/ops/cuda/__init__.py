@@ -15,6 +15,11 @@
 * ``compression`` — rows 5-8, the wire compression kernels (cast,
   stochastic cast, int8 quantize and dequantize) under the compressed
   collectives' wire lanes, the error feedback and ``ring.int8_allreduce``.
+* ``put`` — row 13, the fused compute-and-put (``fused_shift``: every
+  rank's ``compute(x)`` stored into the rank ``distance`` away, one
+  launch), the kernel of ``examples.vadd_put.vadd_put_kernel``.
+* ``probe`` — row 19, the copy kernel behind ``accl_tpu_torch.compat``'s
+  kernel-load probe.
 
 Kernels are built from ``accl_tpu_torch/csrc`` on first use
 (:func:`build_all` builds them all at once).  Every wrapper takes its
@@ -46,6 +51,8 @@ from .compression import (  # noqa: F401
     stochastic_cast_plain,
     stochastic_cast_rows,
 )
+from .probe import probe_copy, probe_copy_plain  # noqa: F401
+from .put import Add, Mul, fused_shift, fused_shift_plain  # noqa: F401
 from .ring import (  # noqa: F401
     int8_allreduce,
     ring_allgather,
@@ -84,4 +91,6 @@ KERNELS = {
     "stochastic_cast": stochastic_cast_rows,
     "quantize_int8": quantize_rows,
     "dequantize_int8": dequantize_rows,
+    "fused_shift": fused_shift,
+    "probe_copy": probe_copy,
 }

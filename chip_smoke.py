@@ -5,8 +5,13 @@
 
 Phases (any failure exits non-zero):
 
-1. print the card's name and power limit (nvidia-smi), build every
-   kernel from ``accl_tpu_torch/csrc`` (one nvcc per source, in parallel);
+0. print the card's name and power limit (nvidia-smi), then row 19's
+   kernel-load probe (``accl_tpu_torch.compat.has_kernels``): build
+   ``csrc/probe.cu``, copy an (8, 128) float32 block on the card and hold
+   the copy against its input; a false probe fails the run with its
+   reason, before anything else is built or run;
+1. build every kernel from ``accl_tpu_torch/csrc`` (one nvcc per source,
+   in parallel);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes — float results must match EXACTLY (same operation
    order, same round-to-nearest-even; NaN positions must agree), except
@@ -37,7 +42,13 @@ Phases (any failure exits non-zero):
    float16, at n = 1, 255, 257, 1,000,003 and 32 Mi, on operands with
    NaN, infinities, signed zeros, subnormals, fp8 overflow and an
    all-zero segment; then the device wire codec on the card against the
-   host codec (numpy) per lane and seed;
+   host codec (numpy) per lane and seed.  Row 13 (``fused_shift``, the
+   fused compute-and-put) over float32 / bfloat16 / float16 / int32,
+   counts 1, 700, 16Mi + 3 and 16Mi per rank, distances 1, -1, 3 and 5
+   at P = 4 and P = 1, identity / + 1.0 / * 2.0 with +-0, +-inf and NaN
+   among the float operands, and a misaligned view (identity bit for
+   bit, the computed forms exactly, NaN where NaN); row 19's copy
+   against ``clone``;
 3. the main paths, each with every kernel's launch counter zeroed just
    before and read just after:
    a. the allreduce path: ``cuda_group(4)``, one thread per rank, 16M
@@ -91,6 +102,19 @@ Phases (any failure exits non-zero):
       and K1 must have launched; then bench.py's convergence leg on
       ``cuda_group(2)`` (f32 wire, fp8 raw, fp8 with error feedback;
       ``delta_pct`` at most 10 %), which must launch the wire casts;
+   g. the point-to-point path: ``cuda_group(4)``, 64 MiB of float32 a
+      message — send/recv 0 -> 1, the bidirectional exchange, a ring
+      shift through the facade, sends on the bf16 / f16 / fp8 e4m3 /
+      e5m2 wire lanes (equal to ``wire.astype``'s roundtrip), facade
+      ``copy`` from float32 into a buffer of each lane and a stream
+      result in bfloat16 (RES_COMPRESSED), each equal to
+      ``wire.astype``, ``stream_put``, send from a stream port and recv
+      into one,
+      ``reduce`` from and to stream ports under ``xla`` and
+      ``pallas_ring`` (equal to the buffer reduce), and the three
+      ``vadd_put`` forms around the ring (equal to ``roll(x + 1.0)``),
+      all bit for bit; the run must launch row 5 13 times, row 10
+      three times and row 13 once, and no other kernel;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (the
    root-only gather as extra keys of K3's entry; the sequencer on 8
@@ -105,7 +129,9 @@ Phases (any failure exits non-zero):
    delta pass); rows 5-8 at 32 Mi float32 elements (cast and stochastic
    cast to bfloat16, the cast beside ``Tensor.to``; quantize and
    dequantize in the Pallas tier's tiles, the wire's 256-element
-   segments as extra keys);
+   segments as extra keys); row 13 at 4 x 64 MiB float32 with + 1.0
+   beside 4 x ``torch.add(x, 1.0, out=)``; row 19 on its block beside
+   ``Tensor.clone``;
 5. time the facade end to end (host clock around each synchronous call
    on rank 0's thread, rendezvous included) at 256 KiB, 4 MiB and 64 MiB
    per rank: the allreduce under ``xla``, ``pallas_ring`` and
@@ -122,8 +148,11 @@ Phases (any failure exits non-zero):
    and over 989 TFLOP/s as ``train_mfu``, peak memory, and the three
    kernels' launches per step; then ``facade_compressed`` (p50 and p90
    per wire lane and register at 4 MiB and 64 MiB per rank, beside the
-   uncompressed call) and ``compression_convergence`` (the leg's losses
-   and ``delta_pct``).
+   uncompressed call), ``facade_p2p`` (p50 and p90 of send -> recv
+   completed, the P = 4 ring shift and ``stream_put`` -> ``stream_pop``
+   at 256 KiB, 4 MiB and 64 MiB, and the three ``vadd_put`` forms at
+   64 MiB) and ``compression_convergence`` (the leg's losses and
+   ``delta_pct``).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -1857,6 +1886,25 @@ def compare_bits(name: str, got, want) -> float:
     return 0.0
 
 
+def compare_bits_nan(name: str, got, want) -> float:
+    """Bit for bit where neither side is NaN (signed zeros included), NaN
+    where NaN: a NaN's payload, rounded to 16 bits, differs between
+    PyTorch's conversion and the _rn intrinsics.  Returns 0."""
+    import torch
+
+    if not got.is_floating_point():
+        return compare_bits(name, got, want)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{name}: {got.dtype}{tuple(got.shape)} vs "
+             f"{want.dtype}{tuple(want.shape)}")
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    if not bool((gn == wn).all()):
+        fail(f"{name}: {int((gn != wn).sum())} elements NaN on one side "
+             f"only")
+    keep = ~gn
+    return compare_bits(name, got[keep], want[keep])
+
+
 def special_values(dev):
     """NaN of both signs, infinities, signed zeros, float32 and target
     subnormals, the fp8 overflow edges and ties."""
@@ -2288,6 +2336,427 @@ def facade_compressed_latency(sizes, iters: int = 20) -> list:
             for (algo, lane, n), t in samples.items()]
 
 
+# ---------------------------------------------------------------------------
+# slice 7: point-to-point, the stream ports, rows 13 and 19
+# ---------------------------------------------------------------------------
+
+# the facade's point-to-point sizes: the rendezvous size of
+# tests/test_sendrecv.py:47 (256 KiB), 4 MiB and the main path's 64 MiB
+P2P_SIZES = (64 * 1024, 1024 * 1024, N_RANK)
+P2P_LANES = ("bfloat16", "float16", "float8_e4m3fn", "float8_e5m2")
+PUT_COUNTS = (1, 700, N_RANK + 3, N_RANK)
+#: (ranks, distance) of row 13's checks: Python's modulus both ways, a
+#: distance past P, and P = 1
+PUT_SHIFTS = ((4, 1), (4, -1), (4, 3), (4, 5), (1, 3))
+
+
+def probe_phase(kc) -> dict:
+    """Phase 0: row 19's kernel-load probe, before anything else is built
+    or run: build ``csrc/probe.cu``, copy an (8, 128) float32 block on the
+    card, hold the copy against its input.  Fails with the probe's reason
+    when it is false; returns the kernel launch counts of the phase (the
+    probe's one)."""
+    from accl_tpu_torch import compat
+
+    reset_launches(kc)
+    if not compat.has_kernels():
+        fail(f"the kernel probe failed: {compat.kernels_reason()}")
+    launches = read_launches(kc)
+    if launches["probe_copy"] != 1 or sum(launches.values()) != 1:
+        fail(f"the probe launched {launches}, want probe_copy once")
+    return launches
+
+
+def check_put(kc, err, dev) -> None:
+    """Phase 2 for rows 13 and 19: ``fused_shift`` against
+    ``fused_shift_plain`` over float32 / bfloat16 / float16 / int32, counts
+    1, 700, 16Mi + 3 (rows past the first misaligned: the scalar path)
+    and 16Mi per rank, ``PUT_SHIFTS``, identity / + 1.0 / * 2.0 (the float
+    operands carry +-0, +-inf and NaN), plus a misaligned view; identity
+    bit for bit, the computed forms bit for bit but for NaN payloads
+    (``compare_bits_nan``: a lost sign of zero shows); any other callable
+    (its own PyTorch pass, counted in ``fused_shift.compute_passes``, then
+    an identity put) on every dtype; then the probe's copy against
+    ``clone``."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    sv = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                       float("nan"), -float("nan")], device=dev)
+    computes = (None, kc.Add(1.0), kc.Mul(2.0))
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.int32):
+        for n in PUT_COUNTS:
+            if dtype == torch.int32:
+                x = torch.randint(-2**31, 2**31 - 1, (P_MAIN, n),
+                                  generator=gen, device=dev, dtype=dtype)
+            else:
+                x = torch.randn(P_MAIN, n, generator=gen, device=dev)
+                k = min(n, sv.numel())
+                x[:, :k] = sv[:k]
+                x = x.to(dtype)
+            for P, d in PUT_SHIFTS:
+                xs = list(x[:P].unbind(0))
+                for comp in computes:
+                    tag = f"fused_shift {dtype} n={n} P={P} d={d} {comp!r}"
+                    got = kc.fused_shift(xs, d, comp)
+                    want = kc.fused_shift_plain(xs, d, comp)
+                    for r in range(P):
+                        check = (compare_bits if comp is None
+                                 else compare_bits_nan)
+                        err["fused_shift"] = max(err["fused_shift"], check(
+                            f"{tag} rank {r}", got[r], want[r]))
+            del x, xs, got, want
+            sync(dev)
+    x = torch.randn(P_MAIN, 1_000_004, generator=gen, device=dev)
+    views = [row[1:] for row in x.unbind(0)]
+    for comp in computes:
+        got = kc.fused_shift(views, 3, comp)
+        want = kc.fused_shift_plain(views, 3, comp)
+        for r in range(P_MAIN):
+            err["fused_shift"] = max(err["fused_shift"], compare_bits_nan(
+                f"fused_shift misaligned {comp!r} rank {r}", got[r], want[r]))
+
+    def minus3(v):  # no fused form: a PyTorch pass before the put
+        return v - 3
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.int32):
+        x = (torch.randint(-2**31, 2**31 - 1, (P_MAIN, 700), generator=gen,
+                           device=dev, dtype=dtype) if dtype == torch.int32
+             else torch.randn(P_MAIN, 700, generator=gen,
+                              device=dev).to(dtype))
+        passes = kc.fused_shift.compute_passes.count
+        launches = kc.fused_shift.launches.count
+        got = kc.fused_shift(x, 1, minus3)
+        if (kc.fused_shift.compute_passes.count - passes,
+                kc.fused_shift.launches.count - launches) != (1, 1):
+            fail(f"fused_shift {dtype} with a callable: not one pass and "
+                 f"one launch")
+        compare_bits(f"fused_shift {dtype} callable", got,
+                     kc.fused_shift_plain(x, 1, minus3))
+    for shape in ((8, 128), (1_000_003,)):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        compare_bits(f"probe_copy {shape}", kc.probe_copy(x),
+                     kc.probe_copy_plain(x))
+    sync(dev)
+
+
+def p2p_main_path(kc) -> dict:
+    """Phase 3g: the point-to-point and stream calls on ``cuda_group(4)``,
+    64 MiB of float32 per message: send/recv 0 -> 1; the bidirectional
+    exchange 0 <-> 1; a ring shift through the facade (rank r sends to
+    r + 1, receives from r - 1); sends on each cast wire lane, equal to
+    ``wire.astype``'s roundtrip (row 5 twice a send); facade ``copy``
+    from float32 into a buffer of each lane and a bfloat16 stream result
+    (RES_COMPRESSED), each one launch of row 5; ``stream_put``,
+    send from a stream port and recv into one; ``reduce`` with
+    ``from_stream`` and with ``to_stream`` under ``xla`` and
+    ``pallas_ring``, equal to the buffer reduce of the same run; the
+    three ``vadd_put`` forms around the ring, each equal to
+    ``roll(x + 1.0)``.  Everything bit for bit.  Returns the kernel
+    launch counts of the run: row 5 13 times, row 10 three times and
+    row 13 once, no other kernel."""
+    import numpy as np
+    import torch
+
+    import accl_tpu_torch as at
+    from accl_tpu_torch import wire as twire
+    from accl_tpu_torch.backends.base import CallOptions, bytes_tensor
+    from accl_tpu_torch.buffer import DummyBuffer
+    from accl_tpu_torch.constants import (CompressionFlags, DataType,
+                                          Operation, StreamFlags)
+    from accl_tpu_torch.examples import vadd_put as ex
+
+    P, n = P_MAIN, N_RANK
+    rng = np.random.default_rng(SEED + 70)
+    data = rng.standard_normal((P, n), dtype=np.float32)
+    plus1 = data + np.float32(1.0)
+    got = {}
+
+    def rank_main(a, r):
+        F32 = np.float32
+        nxt, prv = (r + 1) % P, (r - 1) % P
+        s = a.create_buffer_from(data[r])
+        d = a.create_buffer(n, F32)
+
+        def host(buf):
+            buf.sync_from_device()
+            return buf.data.copy()
+
+        if r == 0:  # send/recv 0 -> 1
+            a.send(s, n, dst=1, tag=1)
+        elif r == 1:
+            a.recv(d, n, src=0, tag=1)
+            got["send"] = host(d)
+        if r < 2:  # the bidirectional exchange (test_sendrecv.py:100)
+            sreq = a.send(s, n, dst=1 - r, tag=9, run_async=True)
+            a.recv(d, n, src=1 - r, tag=9)
+            if not sreq.wait(600):
+                fail("bidirectional send never completed")
+            sreq.check()
+            got[("bidir", r)] = host(d)
+        sreq = a.send(s, n, dst=nxt, tag=2, run_async=True)  # ring shift
+        a.recv(d, n, src=prv, tag=2)
+        if not sreq.wait(600):
+            fail("ring shift send never completed")
+        sreq.check()
+        got[("ring", r)] = host(d)
+        for lane in P2P_LANES:  # the cast wire lanes, 0 -> 1
+            if r == 0:
+                a.send(s, n, dst=1, tag=3, compress_dtype=lane)
+            elif r == 1:
+                a.recv(d, n, src=0, tag=3, compress_dtype=lane)
+                got[("wire", lane)] = host(d)
+        if r == 0:  # facade copies between dtypes: row 5 on the card
+            for lane in P2P_LANES:
+                c = a.create_buffer(n, getattr(torch, lane))
+                a.copy(s, c, n)
+                got[("copy", lane)] = c.tensor[:n].cpu()
+            # a stream result in the compressed dtype (RES_COMPRESSED)
+            cfg, _ = a._resolve_arithcfg(DataType.FLOAT32, "bfloat16")
+            a._launch(CallOptions(
+                op=Operation.COPY, comm=a.comm, count=n, arithcfg=cfg,
+                compression=CompressionFlags.RES_COMPRESSED,
+                stream=StreamFlags.RES_STREAM, stream_id=13, op0=s,
+                res=DummyBuffer(n, DataType.FLOAT32)), False,
+                "copy_to_stream")
+            got["res_compressed"] = bytes_tensor(
+                a.engine.stream_pop(13, timeout=60), torch.bfloat16)
+        if r == 0:  # stream_put; send from a stream; recv into a stream
+            a.stream_put(s, n, dst=1, stream_id=6)
+            a.stream_push(data[0], stream_id=11)
+            a.send(None, n, dst=1, tag=11, from_stream=True, stream_id=11)
+            a.send(s, n, dst=1, tag=12)
+        elif r == 1:
+            got["stream_put"] = a.stream_pop(n, F32, stream_id=6)
+            a.recv(d, n, src=0, tag=11)
+            got["from_stream"] = host(d)
+            a.recv(None, n, src=0, tag=12, to_stream=True, stream_id=7)
+            got["to_stream"] = a.stream_pop(n, F32, stream_id=7)
+        for algo in ("xla", "pallas_ring"):  # reduce with stream operands
+            a.set_tuning("reduce_algorithm", algo)
+            a.reduce(s, d if r == 1 else None, n, root=1)
+            if r == 1:
+                got[("reduce", algo)] = host(d)
+            a.stream_push(data[r], stream_id=21)
+            a.reduce(None, d if r == 1 else None, n, root=1,
+                     from_stream=True, stream_id=21, dtype=F32)
+            if r == 1:
+                got[("reduce from_stream", algo)] = host(d)
+            a.reduce(s, None, n, root=1, to_stream=True, stream_id=22)
+            if r == 1:
+                got[("reduce to_stream", algo)] = a.stream_pop(
+                    n, F32, stream_id=22)
+        a.set_tuning("reduce_algorithm", "xla")
+        # vadd_put around the ring (the receive posted first: every
+        # rank's send waits for its receiver)
+        rreq = a.recv(d, n, src=prv, tag=3, run_async=True)
+        ex.vadd_put(a, data[r], nxt, stream_id=3)
+        if not rreq.wait(600):
+            fail("vadd_put receive never completed")
+        rreq.check()
+        got[("vadd_put", r)] = host(d)
+        # a port per sender: the local push and the delivery share the id
+        ex.vadd_put_streamed(a, data[r], nxt, stream_id=30 + r)
+        got[("vadd_put_streamed", r)] = a.stream_pop(n, F32,
+                                                     stream_id=30 + prv)
+
+    reset_launches(kc)
+    group = at.cuda_group(P)
+    try:
+        run_ranks(group, rank_main, "p2p path")
+        dev = group[0].engine.device
+        xs = [torch.from_numpy(row).to(dev) for row in data]
+        fused = ex.vadd_put_kernel(xs, 1.0, 1)
+        sync(dev)
+        launches = read_launches(kc)
+    finally:
+        for a in group:
+            a.deinit()
+
+    def same(name, a_, b_):
+        if not np.array_equal(np.asarray(a_).view(np.uint32),
+                              np.asarray(b_).view(np.uint32)):
+            fail(f"p2p path: {name} differs")
+
+    same("send 0 -> 1", got["send"], data[0])
+    same("bidirectional to 0", got[("bidir", 0)], data[1])
+    same("bidirectional to 1", got[("bidir", 1)], data[0])
+    for r in range(P):
+        same(f"ring shift rank {r}", got[("ring", r)], data[(r - 1) % P])
+    x0 = torch.from_numpy(data[0])
+    for lane in P2P_LANES:
+        wdt = getattr(torch, lane)
+        want = twire.astype(twire.astype(x0, wdt), torch.float32).numpy()
+        same(f"{lane} wire send", got[("wire", lane)], want)
+        compare_bits(f"{lane} facade copy", got[("copy", lane)],
+                     twire.astype(x0, wdt))
+    compare_bits("RES_COMPRESSED stream result", got["res_compressed"],
+                 twire.astype(x0, torch.bfloat16))
+    for key in ("stream_put", "from_stream", "to_stream"):
+        same(key, got[key], data[0])
+    for algo in ("xla", "pallas_ring"):
+        ref = got[("reduce", algo)]
+        if not np.allclose(ref, data.astype(np.float64).sum(0), rtol=1e-5,
+                           atol=1e-5):
+            fail(f"reduce {algo} off the float64 sum")
+        for form in ("from_stream", "to_stream"):
+            same(f"reduce {form} {algo}", got[(f"reduce {form}", algo)], ref)
+    for r in range(P):
+        want = plus1[(r - 1) % P]
+        same(f"vadd_put rank {r}", got[("vadd_put", r)], want)
+        same(f"vadd_put_streamed rank {r}", got[("vadd_put_streamed", r)],
+             want)
+        same(f"vadd_put_kernel rank {r}", fused[r].cpu().numpy(), want)
+    want = dict.fromkeys(kc.KERNELS, 0)
+    # row 5: both casts of each compressed send, each copy between
+    # dtypes, the compressed stream result
+    want.update(cast=3 * len(P2P_LANES) + 1, ring_reduce=3, fused_shift=1)
+    if launches != want:
+        fail(f"p2p path launched {launches}, want {want}")
+    return launches
+
+
+def time_put(kc, dev) -> dict:
+    """Phase 4 for rows 13 and 19: row 13 on 4 ranks x 64 MiB of float32
+    with ``+ 1.0`` (``vadd_put_kernel``'s shape) beside 4 x
+    ``torch.add(x, 1.0, out=)``; row 19 on its (8, 128) block beside
+    ``Tensor.clone``."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    xs = [torch.randn(N_RANK, generator=gen, device=dev)
+          for _ in range(P_MAIN)]
+    outs = [torch.empty_like(x) for x in xs]
+    add = kc.Add(1.0)
+
+    def library():
+        for x, o in zip(xs, outs):
+            torch.add(x, 1.0, out=o)
+
+    block = torch.randn(8, 128, generator=gen, device=dev)
+    out = {
+        "fused_shift": dict(
+            ms=time_ms(lambda: kc.fused_shift(xs, 1, add, out=outs)),
+            plain_ms=time_ms(lambda: kc.fused_shift_plain(xs, 1, add)),
+            library_ms=time_ms(library),
+            bytes=2 * P_MAIN * N_RANK * 4, ops=P_MAIN * N_RANK),
+        "probe_copy": dict(
+            ms=time_ms(lambda: kc.probe_copy(block), iters=100),
+            plain_ms=time_ms(lambda: kc.probe_copy_plain(block), iters=100),
+            library_ms=time_ms(lambda: block.clone(), iters=100),
+            bytes=2 * block.numel() * 4, ops=0),
+    }
+    del xs, outs
+    sync(dev)
+    return out
+
+
+def facade_p2p_latency(sizes, iters: int = 20, host_iters: int = 5) -> list:
+    """Phase 5 (``facade_p2p``): host-clock p50 / p90 on ``cuda_group(4)``
+    per size (float32 elements a message): send -> recv completed, rank
+    0 -> 1 (from rank 0's call to rank 1's return, the data on the card);
+    the ring shift (every rank sends to r + 1 and receives from r - 1,
+    from the first rank's start to the last rank's end); ``stream_put``
+    -> ``stream_pop`` 0 -> 1; at the largest size the ``vadd_put`` and
+    ``vadd_put_streamed`` forms 0 -> 1 (numpy operand in, received data
+    out) and ``vadd_put_kernel`` over the 4 ranks' rows (to its
+    synchronise).  A barrier starts every sample; a warm-up pass of two
+    samples a form comes first.  The forms that copy 64 MiB through the
+    host (``stream_put`` and both ``vadd_put`` forms at the largest size,
+    100-200 ms a sample) keep ``host_iters`` samples, the others
+    ``iters``."""
+    import numpy as np
+    import torch
+
+    import accl_tpu_torch as at
+    from accl_tpu_torch.examples import vadd_put as ex
+
+    P = P_MAIN
+    stamps = {}  # (what, n) -> {rank: [(start, end)]}
+    big = max(sizes)
+    host = np.random.default_rng(SEED + 71).standard_normal(big).astype(
+        np.float32)
+
+    def rank_main(a, r):
+        F32 = np.float32
+        bufs = {n: (a.create_buffer_from(np.full(n, r, F32)),
+                    a.create_buffer(n, F32)) for n in sizes}
+        for warm in (True, False):
+            keep = {}
+            for n, (s, d) in bufs.items():
+                forms = ["send_recv", "ring_shift", "stream_put"]
+                if n == big:
+                    forms += ["vadd_put", "vadd_put_streamed"]
+                for what in forms:
+                    rows = []
+                    through_host = n == big and what not in (
+                        "send_recv", "ring_shift")
+                    for _ in range(2 if warm else host_iters if through_host
+                                   else iters):
+                        a.barrier()
+                        t0 = time.perf_counter()
+                        if what == "ring_shift":
+                            sreq = a.send(s, n, dst=(r + 1) % P, tag=2,
+                                          run_async=True)
+                            a.recv(d, n, src=(r - 1) % P, tag=2)
+                            sreq.wait()
+                            sreq.check()
+                        elif r == 0 and what == "send_recv":
+                            a.send(s, n, dst=1, tag=1)
+                        elif r == 1 and what == "send_recv":
+                            a.recv(d, n, src=0, tag=1)
+                        elif r == 0 and what == "stream_put":
+                            a.stream_put(s, n, dst=1, stream_id=6)
+                        elif r == 1 and what == "stream_put":
+                            a.stream_pop(n, F32, stream_id=6)
+                        elif r == 0 and what == "vadd_put":
+                            ex.vadd_put(a, host, 1, stream_id=3)
+                        elif r == 1 and what == "vadd_put":
+                            a.recv(d, n, src=0, tag=3)
+                        elif r == 0 and what == "vadd_put_streamed":
+                            ex.vadd_put_streamed(a, host, 1, stream_id=4)
+                        elif r == 1 and what == "vadd_put_streamed":
+                            a.stream_pop(n, F32, stream_id=4)
+                        rows.append((t0, time.perf_counter()))
+                    keep[(what, n)] = rows
+            for key, rows in keep.items():
+                stamps.setdefault(key, {})[r] = rows
+
+    group = at.cuda_group(P)
+    try:
+        run_ranks(group, rank_main, "p2p facade timing")
+        dev = group[0].engine.device
+    finally:
+        for a in group:
+            a.deinit()
+    rows = []
+    for (what, n), by_rank in stamps.items():
+        k = len(by_rank[0])
+        if what == "ring_shift":
+            lat = [max(by_rank[r][i][1] for r in range(P))
+                   - min(by_rank[r][i][0] for r in range(P))
+                   for i in range(k)]
+        else:  # rank 0's start to rank 1's end
+            lat = [by_rank[1][i][1] - by_rank[0][i][0] for i in range(k)]
+        rows.append({"call": what, "bytes": 4 * n, "samples": k,
+                     "p50_ms": float(np.median(lat)) * 1e3,
+                     "p90_ms": float(np.percentile(lat, 90)) * 1e3})
+    xs = [torch.from_numpy(host).to(dev) for _ in range(P)]
+    lat = []
+    for _ in range(2 * iters):
+        t0 = time.perf_counter()
+        ex.vadd_put_kernel(xs, 1.0, 1)
+        sync(dev)
+        lat.append(time.perf_counter() - t0)
+    lat = lat[iters:]
+    rows.append({"call": "vadd_put_kernel", "bytes": 4 * big,
+                 "ranks": P, "p50_ms": float(np.median(lat)) * 1e3,
+                 "p90_ms": float(np.percentile(lat, 90)) * 1e3})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2310,6 +2779,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t0 = time.time()
+    probed = probe_phase(kc)
+    print(f"kernel probe ok ({time.time() - t0:.1f} s): row 19 built, "
+          f"launched and copied its block", flush=True)
     t0 = time.time()
     built = kc.build_all()
     print(f"built {built} in {time.time() - t0:.1f} s", flush=True)
@@ -2410,6 +2883,7 @@ def main() -> int:
     check_flash(kc, err)
     check_flash_bwd(err)
     check_compression(kc, err, gen, dev)
+    check_put(kc, err, dev)
     print(f"kernels agree with their plain versions ({time.time() - t0:.1f}"
           f" s; exactly, but flash_attention within its tolerances)",
           flush=True)
@@ -2517,12 +2991,17 @@ def main() -> int:
         fail(f"convergence leg never launched the wire casts: {converged}")
     print(f"convergence leg ok ({time.time() - t0:.1f} s): launches "
           f"{converged}", flush=True)
-    # each kernel's launches over the seven paths' runs
+    t0 = time.time()
+    p2p = p2p_main_path(kc)
+    print(f"p2p path ok ({time.time() - t0:.1f} s): launches {p2p}",
+          flush=True)
+    # each kernel's launches over the probe's and the eight paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k] + serve["launches"][k]
                 + train["launches"][k] + compressed[k] + converged[k]
-                for k in launches}
+                + p2p[k] + probed[k] for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
+    t0 = time.time()
     xs = [rand(N_RANK, F32) for _ in range(P_MAIN)]
     outs = [torch.empty_like(x) for x in xs]
     gathered = [torch.empty(N_RANK, device=dev) for _ in range(P_MAIN)]
@@ -2574,6 +3053,7 @@ def main() -> int:
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         timing[name] = dict(bwd[name], library_ms=bwd["library_bwd_ms"])
     timing.update(time_compression(kc, dev))
+    timing.update(time_put(kc, dev))
     meta = {
         "ring_allreduce": ("accl_tpu_torch/csrc/ring.cu",
                            "accl_tpu/ops/pallas/ring.py:123"),
@@ -2605,6 +3085,10 @@ def main() -> int:
                           "accl_tpu/ops/pallas/compression.py:129"),
         "dequantize_int8": ("accl_tpu_torch/csrc/compression.cu",
                             "accl_tpu/ops/pallas/compression.py:141"),
+        "fused_shift": ("accl_tpu_torch/csrc/put.cu",
+                        "accl_tpu/ops/pallas/put.py:66"),
+        "probe_copy": ("accl_tpu_torch/csrc/probe.cu",
+                       "accl_tpu/compat.py:248"),
     }
     kernels = []
     for name in kc.KERNELS:
@@ -2708,8 +3192,10 @@ def main() -> int:
           f"'s backward {d['library_ms']:.4f} ms")
     del a, b, c
     torch.cuda.synchronize()
+    print(f"kernel timing done ({time.time() - t0:.1f} s)", flush=True)
 
     # -- phase 5: the facade allreduce end to end ----------------------------
+    t0 = time.time()
     facade = facade_latency([64 * 1024, 1024 * 1024, N_RANK],
                             ["xla", "pallas_ring", "pallas_ring_bidir"])
     print(json.dumps({"facade_allreduce": facade}))
@@ -2720,14 +3206,24 @@ def main() -> int:
     facade = facade_compressed_latency([1024 * 1024, N_RANK])
     print(json.dumps({"facade_compressed": {
         "card": smi.stdout.strip().splitlines()[0], "rows": facade}}))
+    print(f"facade timing before facade_p2p ({time.time() - t0:.1f} s)",
+          flush=True)
+    t0 = time.time()
+    facade = facade_p2p_latency(P2P_SIZES)
+    print(f"facade_p2p timing ({time.time() - t0:.1f} s)", flush=True)
+    print(json.dumps({"facade_p2p": {
+        "card": smi.stdout.strip().splitlines()[0], "rows": facade}}))
     print(json.dumps({"compression_convergence": {
         "card": smi.stdout.strip().splitlines()[0], **convergence}}))
+    t0 = time.time()
     served = serve_timing(serve)
     del serve
     print(json.dumps({"serve_generate": {
         "card": smi.stdout.strip().splitlines()[0], **served}}))
     trained = train_timing(train)
     del train
+    print(f"serving and training timing ({time.time() - t0:.1f} s)",
+          flush=True)
     print(json.dumps({"train_step": {
         "card": smi.stdout.strip().splitlines()[0], **trained}}))
     print(smi.stdout.strip().splitlines()[0])

@@ -459,13 +459,33 @@ def test_rooted_registers_refuse_ring_forms(key):
 
 @pytest.mark.parametrize("stream", ["from_stream", "to_stream"])
 def test_reduce_stream_operands_not_ported(stream):
+    """The reduce's stream operands, refused until the stream ports were
+    ported, now run on both ranks' ports (root 1): ``from_stream`` takes
+    each rank's operand from its port, ``to_stream`` hands the root's
+    result to its port.  A reduce with neither ``sendbuf`` nor
+    ``from_stream`` still fails with INVALID_OPERATION."""
+    rows = np.random.default_rng(5).standard_normal((2, 6)).astype(
+        np.float32)
     g = at.cuda_group(2, device="cpu")
     try:
+        def work(a, r):
+            if stream == "from_stream":
+                a.stream_push(rows[r], stream_id=2)
+                out = a.create_buffer(6, np.float32) if r == 1 else None
+                a.reduce(None, out, 6, root=1, from_stream=True,
+                         stream_id=2, dtype=np.float32)
+                if out is None:
+                    return None
+                out.sync_from_device()
+                return out.data.copy()
+            a.reduce(a.create_buffer_from(rows[r]), None, 6, root=1,
+                     to_stream=True, stream_id=2)
+            return a.stream_pop(6, np.float32, stream_id=2) if r else None
+
+        got = run_parallel(g, work)
+        assert got[0] is None
+        np.testing.assert_array_equal(got[1], rows[0] + rows[1])
         buf = g[0].create_buffer(4, np.float32)
-        with pytest.raises(at.ACCLError) as ei:
-            g[0].reduce(buf, buf, **{stream: True})
-        assert ei.value.code == at.ErrorCode.COLLECTIVE_NOT_IMPLEMENTED
-        assert "stream plane is not ported" in str(ei.value)
         with pytest.raises(at.ACCLError) as ei:
             g[0].reduce(None, buf)
         assert ei.value.code == at.ErrorCode.INVALID_OPERATION
@@ -506,7 +526,8 @@ def test_ranks_disagreeing_on_the_root_all_fail(op):
      "scatter_roots", "gather_roots", "reduce_roots", "alltoall",
      "allreduce_fp8_wire", "allreduce", "allgather", "reduce_scatter",
      "allreduce_int_dtypes", "barrier_then_allreduce",
-     "tuning_allreduce_algorithm", "tuning_invalid"],
+     "tuning_allreduce_algorithm", "tuning_invalid", "sendrecv",
+     "streams_local", "stream_put_remote"],
 )
 @pytest.mark.parametrize("algo", ["xla", "pallas_ring"])
 def test_shared_scenario_on_port(name, algo):

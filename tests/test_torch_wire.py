@@ -336,7 +336,8 @@ def test_int8_scale_divergence():
 
 def test_compressed_refusals_equal_jax(jax_group, port_group):
     """The same refusals: no f16 lane for bfloat16 operands, no scaled
-    lane on a point-to-point call, no float64 wire register."""
+    lane on a point-to-point call, no float64 wire register; a cast lane
+    (fp8) on a point-to-point call is no refusal, and delivers."""
     for group, err in ((jax_group, None), (port_group, at.ACCLError)):
         a = group[0]
         buf = a.create_buffer(8, ml_dtypes.bfloat16)
@@ -352,9 +353,14 @@ def test_compressed_refusals_equal_jax(jax_group, port_group):
         assert int(ei.value.code) & int(at.ErrorCode.CONFIG_ERROR)
         if err is not None:
             assert isinstance(ei.value, err)
-    with pytest.raises(at.ACCLError) as ei:
-        port_group[0].send(src, 8, dst=1, compress_dtype="float8_e4m3fn")
-    assert ei.value.code == at.ErrorCode.COLLECTIVE_NOT_IMPLEMENTED
+    sreq = port_group[0].send(src, 8, dst=1, compress_dtype="float8_e4m3fn",
+                              run_async=True)
+    got = port_group[1].create_buffer(8, np.float32)
+    port_group[1].recv(got, 8, src=0, compress_dtype="float8_e4m3fn")
+    assert sreq.wait(30)
+    sreq.check()
+    got.sync_from_device()
+    np.testing.assert_array_equal(got.data, np.ones(8, np.float32))
 
 
 def test_wire_verdict_register_dispatch_equals_jax(jax_group, port_group):
