@@ -5,6 +5,11 @@ gang's tuning registers.  :func:`stacked_from_numpy` builds the per-rank
 operand tensors from the host arrays a JAX caller stacks, and
 :func:`tuning_from_jax` maps the JAX gang's register dict
 (``XLAGangContext.tuning``, as a plain dict) onto this port's registers.
+The sequence-parallel models take a JAX caller's sequence-sharded
+operands: :func:`shards_from_numpy` cuts a global array into the per-rank
+shards a ``PartitionSpec`` naming the mesh axis on one dim makes (e.g.
+``P(None, None, "sp", None)``), and :func:`shards_to_numpy` reassembles
+them as ``shard_map``'s out_specs do.
 """
 
 from __future__ import annotations
@@ -40,6 +45,28 @@ def stacked_from_numpy(arrays, device) -> List[torch.Tensor]:
         host_tensor(np.ascontiguousarray(a)).to(device, copy=True)
         for a in arrays
     ]
+
+
+def shards_from_numpy(array, parts: int, axis: int = 2,
+                      device="cpu") -> List[torch.Tensor]:
+    """The ``parts`` contiguous shards of ``array`` along ``axis``, in
+    rank order, each its own allocation on ``device`` (bfloat16 arrays
+    keep their bits); the dim must divide by ``parts``."""
+    arr = np.asarray(array)
+    if arr.shape[axis] % parts:
+        raise ValueError(
+            f"dim {axis} of {arr.shape} does not divide into {parts} shards")
+    return [
+        host_tensor(np.ascontiguousarray(a)).reshape(a.shape).to(
+            device, copy=True)
+        for a in np.split(arr, parts, axis=axis)
+    ]
+
+
+def shards_to_numpy(shards, axis: int = 2) -> np.ndarray:
+    """The global host array of per-rank shards (the inverse of
+    :func:`shards_from_numpy`); bfloat16 widens exactly to float32."""
+    return np.concatenate([to_numpy(t) for t in shards], axis=axis)
 
 
 def tuning_from_jax(tuning: dict) -> dict:

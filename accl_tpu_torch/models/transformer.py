@@ -49,11 +49,11 @@ _AUTO_FUSED_MIN_T = 1024
 
 #: the fields the port refuses, and the slice each waits for
 _LATER = {
-    "n_experts": "the MoE slice (ROADMAP A9 moe.py, with the alltoall "
-                 "kernel B11)",
+    "n_experts": "the MoE slice (ROADMAP A9d, models/moe.py)",
     "seq_parallel": "the multi-GPU tensor-parallel slice (ROADMAP B14)",
     "vocab_parallel": "the multi-GPU tensor-parallel slice (ROADMAP B14)",
-    "context_parallel": "the ring-attention slice (ROADMAP B12)",
+    "context_parallel": "the flagship's context-parallel slice (ROADMAP "
+                        "A9e)",
 }
 
 

@@ -20,6 +20,10 @@
   launch), the kernel of ``examples.vadd_put.vadd_put_kernel``.
 * ``probe`` — row 19, the copy kernel behind ``accl_tpu_torch.compat``'s
   kernel-load probe.
+* ``alltoall`` — row 12, the all-to-all block transpose across P ranks
+  (``models.ulysses_attention``'s ``use_pallas_alltoall`` re-shard).
+* ``attention.ring_attention`` — row 15, ring attention's forward over P
+  ranks, contiguous or striped shards (``models.ring_attention_pallas``).
 
 Kernels are built from ``accl_tpu_torch/csrc`` on first use
 (:func:`build_all` builds them all at once).  Every wrapper takes its
@@ -28,6 +32,7 @@ tensors, counting launches in ``<wrapper>.launches``.
 """
 
 from ._build import build_all  # noqa: F401
+from .alltoall import alltoall, alltoall_plain  # noqa: F401
 from .attention import (  # noqa: F401
     flash_attention,
     flash_attention_bwd_dkv,
@@ -35,6 +40,8 @@ from .attention import (  # noqa: F401
     flash_attention_bwd_dq,
     flash_attention_bwd_dq_plain,
     flash_attention_plain,
+    ring_attention,
+    ring_attention_plain,
 )
 from .cmdring import sequencer, sequencer_plain  # noqa: F401
 from .combine import combine, combine_plain  # noqa: F401
@@ -93,4 +100,6 @@ KERNELS = {
     "dequantize_int8": dequantize_rows,
     "fused_shift": fused_shift,
     "probe_copy": probe_copy,
+    "alltoall": alltoall,
+    "ring_attention": ring_attention,
 }

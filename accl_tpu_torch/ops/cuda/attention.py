@@ -1,4 +1,5 @@
-"""Rows 16-18: the single-device flash attention, forward and backward.
+"""Rows 16-18: the single-device flash attention, forward and backward;
+row 15: ring attention over P ranks.
 
 The counterpart of ``accl_tpu/ops/pallas/attention.py::flash_attention``
 (:656): the forward ``_flash_fwd_impl`` :396 (kernel ``_flash_kernel``
@@ -13,6 +14,12 @@ tensors take and the card's checks compare against.
 A call that needs a gradient runs through :class:`_Flash`, a
 ``torch.autograd.Function`` whose forward keeps the logsumexp and whose
 backward launches the dQ and dK/dV kernels, on either device.
+
+Row 15, :func:`ring_attention` (the TPU entry ``ring_attention`` :216,
+kernel ``_attention_kernel`` :111), is ``csrc/ring_attention.cu`` with
+:func:`ring_attention_plain` beside it.  Its ranks are virtual: each
+rank's shard is its own tensor on one device, and one launch folds every
+rank's query tiles over every rank's K/V through pointer tables.
 """
 
 from __future__ import annotations
@@ -24,7 +31,15 @@ from torch.autograd.function import once_differentiable
 
 from ...constants import torch_to_dtype
 from . import _build
-from ._common import LaunchCounter, check_launch, on_cuda, stream_of
+from ._common import (
+    MAX_RANKS,
+    LaunchCounter,
+    aligned16,
+    check_launch,
+    on_cuda,
+    pointer_table,
+    stream_of,
+)
 
 #: widest head dim the kernel takes (its register tiles hold D <= 128)
 MAX_HEAD_DIM = 128
@@ -405,3 +420,143 @@ def flash_attention(q, k, v, causal: bool = True, *, with_lse: bool = False):
 flash_attention.launches = LaunchCounter()
 flash_attention_bwd_dq.launches = LaunchCounter()
 flash_attention_bwd_dkv.launches = LaunchCounter()
+
+
+# ---------------------------------------------------------------------------
+# row 15: ring attention over P ranks (accl_tpu/ops/pallas/attention.py
+# ``ring_attention`` :216, kernel ``_attention_kernel`` :111)
+# ---------------------------------------------------------------------------
+
+
+def _ring_check(qs, ks, vs) -> int:
+    """The TPU entry's checks (:242-256) on every rank, and the ranks'
+    agreement; returns P."""
+    P = len(qs)
+    if not 1 <= P <= MAX_RANKS or len(ks) != P or len(vs) != P:
+        raise ValueError(
+            f"ring_attention takes 1..{MAX_RANKS} ranks of q, k and v, got "
+            f"{len(qs)}/{len(ks)}/{len(vs)}")
+    q0 = qs[0]
+    if q0.dim() != 4:
+        raise ValueError(f"q must be (B, H, T_local, D), got {tuple(q0.shape)}")
+    for q, k, v in zip(qs, ks, vs):
+        if k.shape != q.shape or v.shape != q.shape:
+            raise ValueError(
+                f"q/k/v shapes must match, got {tuple(q.shape)}/"
+                f"{tuple(k.shape)}/{tuple(v.shape)}")
+        if k.dtype != q.dtype or v.dtype != q.dtype:
+            raise ValueError(
+                f"q/k/v dtypes must match (every rank's tiles are typed from "
+                f"q), got {q.dtype}/{k.dtype}/{v.dtype}")
+        if q.shape != q0.shape or q.dtype != q0.dtype:
+            raise ValueError("every rank's q/k/v must match rank 0's shape "
+                             "and dtype")
+    if q0.shape[2] % 8:
+        raise ValueError("T_local must be a multiple of 8")
+    return P
+
+
+def _ring_mask(T: int, me: int, origin: int, causal: bool, striped: bool,
+               device) -> torch.Tensor:
+    """The TPU kernel's ``mask_for(origin)`` on rank ``me`` (:128-141), a
+    (T, T) bool mask, True = attend: all keys when not causal; striped,
+    triangular when me >= origin and strictly triangular otherwise;
+    contiguous, triangular when origin == me, all keys when origin < me,
+    none when origin > me."""
+    ones = torch.ones(T, T, dtype=torch.bool, device=device)
+    if not causal:
+        return ones
+    if striped:
+        return torch.tril(ones, diagonal=0 if me >= origin else -1)
+    return torch.tril(ones) if origin == me else ones if origin < me \
+        else torch.zeros_like(ones)
+
+
+def ring_attention_plain(qs, ks, vs, causal: bool = True, *,
+                         striped: bool = False):
+    """What the kernel computes, in plain PyTorch: the TPU kernel's fold
+    (``_fold`` :77) hop by hop on every rank — own block first, then the
+    block of origin (me - s) mod P for s = 1..P-1; scores in float32 (16-bit
+    operands widened exactly), masked to -1e30; (o, m, l) float32 from m =
+    -1e30; p rounded to v's dtype before P @ V while l sums the unrounded
+    p; out = o / max(l, 1e-30) in q's dtype.  Returns one (B, H, T_local, D)
+    tensor per rank."""
+    P = _ring_check(qs, ks, vs)
+    B, H, T, D = qs[0].shape
+    scale = 1.0 / D ** 0.5
+    outs = []
+    for me in range(P):
+        q = qs[me].float()
+        o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        m = torch.full((B, H, T, 1), _NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        for s in range(P):
+            origin = (me - s) % P
+            k, v = ks[origin], vs[origin]
+            mask = _ring_mask(T, me, origin, causal, striped, q.device)
+            scores = torch.matmul(q, k.float().transpose(-1, -2)) * scale
+            scores = torch.where(mask, scores, _NEG)
+            m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
+            p = torch.exp(scores - m_new)
+            alpha = torch.exp(m - m_new)
+            o = o * alpha + torch.matmul(p.to(v.dtype).float(), v.float())
+            l = l * alpha + p.sum(-1, keepdim=True)
+            m = m_new
+        outs.append((o / l.clamp_min(1e-30)).to(qs[me].dtype))
+    return outs
+
+
+def _ring_lib():
+    lib = _build.library("ring_attention")
+    lib.accl_ring_attention.restype = ctypes.c_int
+    lib.accl_ring_attention.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    return lib
+
+
+def ring_attention(qs, ks, vs, causal: bool = True, *, striped: bool = False):
+    """Sequence-parallel attention over P ranks in one launch (row 15):
+    ``qs``, ``ks`` and ``vs`` hold each rank's ``(B, H, T_local, D)``
+    shard of one sequence (contiguous shards in rank order, or the striped
+    shards of ``models.stripe_sequence`` with ``striped=True``), every
+    rank the same shape and dtype; T_local a multiple of 8.  Returns one
+    ``(B, H, T_local, D)`` tensor per rank: its query rows attended over
+    every rank's keys.  Forward only, as the TPU kernel.
+
+    CPU tensors take :func:`ring_attention_plain`.  CUDA tensors launch
+    the kernel (float32, bfloat16 or float16, D <= ``MAX_HEAD_DIM``; a
+    larger D raises) or raise."""
+    P = _ring_check(qs, ks, vs)
+    if not on_cuda(list(qs) + list(ks) + list(vs)):
+        return ring_attention_plain(qs, ks, vs, causal, striped=striped)
+    q0 = qs[0]
+    if q0.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"ring_attention takes f32/bf16/f16, got {q0.dtype}")
+    B, H, T, D = q0.shape
+    if D > MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {D} > {MAX_HEAD_DIM}, the ring_attention kernel's "
+            f"limit (MAX_HEAD_DIM)")
+    if P * -(-T // 64) > 65535 or B * H >= 2**31:
+        raise ValueError(f"shape {tuple(q0.shape)} over {P} ranks exceeds "
+                         f"the kernel's grid")
+    qs, ks, vs = ([t.contiguous() for t in ts] for ts in (qs, ks, vs))
+    outs = [torch.empty_like(q) for q in qs]
+    if B * H * T * D == 0:
+        return outs
+    width = 16 // q0.element_size()
+    vec = D % width == 0 and aligned16(qs + ks + vs + outs)
+    lib = _ring_lib()
+    rc = lib.accl_ring_attention(
+        pointer_table(qs), pointer_table(ks), pointer_table(vs),
+        pointer_table(outs), P, B, H, T, D, int(torch_to_dtype(q0.dtype)),
+        int(causal), int(striped), int(vec), 1.0 / D ** 0.5,
+        stream_of(q0.device),
+    )
+    check_launch(lib, rc, "ring_attention")
+    ring_attention.launches.bump()
+    return outs
+
+
+ring_attention.launches = LaunchCounter()

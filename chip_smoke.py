@@ -48,7 +48,14 @@ Phases (any failure exits non-zero):
    at P = 4 and P = 1, identity / + 1.0 / * 2.0 with +-0, +-inf and NaN
    among the float operands, and a misaligned view (identity bit for
    bit, the computed forms exactly, NaN where NaN); row 19's copy
-   against ``clone``;
+   against ``clone``.  Row 12 (``alltoall``) bit for bit over P in
+   {2, 3, 4, 8} x float32 / bfloat16 / float16 / int32 / int8 / fp8
+   e4m3 / e5m2, blocks of 16-byte multiples and not, and a misaligned
+   view; row 15 (``ring_attention``) over contiguous and striped shards,
+   causal and full, bf16 / f16 / f32, D 24, 64 and 128, T_local 200, 64
+   and 136 over P 4, 3 and 1, and the main path's 4 x (2, 32, 1024, 128)
+   bf16, within 2e-5 (float32) or 1e-2 (16-bit) of its plain version;
+   each of these calls launches its kernel exactly once;
 3. the main paths, each with every kernel's launch counter zeroed just
    before and read just after:
    a. the allreduce path: ``cuda_group(4)``, one thread per rank, 16M
@@ -115,6 +122,18 @@ Phases (any failure exits non-zero):
       ``vadd_put`` forms around the ring (equal to ``roll(x + 1.0)``),
       all bit for bit; the run must launch row 5 13 times, row 10
       three times and row 13 once, and no other kernel;
+   h. the sequence-parallel path: bench.py's long-context training
+      record's attention (d_model 4096, 32 heads, D 128, seq 4096, batch
+      2, bfloat16), q, k, v (2, 32, 4096, 128) from the seed, sharded
+      over 4 virtual ranks (T_local 1024), contiguous and striped —
+      ``ulysses_attention`` with the tiled ``_a2a`` and with row 12,
+      ``ring_attention_pallas`` (row 15) over both layouts, and the
+      ppermute ``ring_attention`` / ``striped_attention``; Ulysses with
+      row 12 equal to the ``_a2a`` form bit for bit, row 15 within 1e-2
+      of the ppermute forms, every form within 1e-2 of
+      ``reference_attention`` on the full sequence (chunked over batch
+      and 8 heads); the run must launch row 12 four times and row 15
+      twice, and no other kernel;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (the
    root-only gather as extra keys of K3's entry; the sequencer on 8
@@ -131,7 +150,11 @@ Phases (any failure exits non-zero):
    dequantize in the Pallas tier's tiles, the wire's 256-element
    segments as extra keys); row 13 at 4 x 64 MiB float32 with + 1.0
    beside 4 x ``torch.add(x, 1.0, out=)``; row 19 on its block beside
-   ``Tensor.clone``;
+   ``Tensor.clone``; row 12 on Ulysses' q re-shard (4 x 16 MiB bf16)
+   beside P x ``torch.cat``; row 15 at the main path's contiguous causal
+   shards (striped and full as extra keys) beside
+   ``scaled_dot_product_attention(is_causal=True)`` on the full sequence,
+   bounded by the tensor cores' bf16 rate;
 5. time the facade end to end (host clock around each synchronous call
    on rank 0's thread, rendezvous included) at 256 KiB, 4 MiB and 64 MiB
    per rank: the allreduce under ``xla``, ``pallas_ring`` and
@@ -152,7 +175,11 @@ Phases (any failure exits non-zero):
    completed, the P = 4 ring shift and ``stream_put`` -> ``stream_pop``
    at 256 KiB, 4 MiB and 64 MiB, and the three ``vadd_put`` forms at
    64 MiB) and ``compression_convergence`` (the leg's losses and
-   ``delta_pct``).
+   ``delta_pct``); then ``seq_parallel_attention``: host-clock p50 /
+   p90 of one call at the main path's width (20 calls after 2 warm-ups)
+   for Ulysses (``_a2a``), Ulysses with row 12, the ppermute
+   ``ring_attention`` and row 15 over contiguous and striped shards,
+   with each form's peak memory and phase 3h's gaps.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -2757,6 +2784,316 @@ def facade_p2p_latency(sizes, iters: int = 20, host_iters: int = 5) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# slice 8: sequence-parallel attention over P virtual ranks, rows 12 and 15
+# ---------------------------------------------------------------------------
+
+#: bench.py's long-context training record: the training model's
+#: attention (bench.py:310-313, d_model 4096 over 32 heads, D = 128,
+#: bf16) at seq 4096 (train_mfu_t4096, bench.py:3046-3054), batch
+#: 8 * 1024 // 4096 = 2 (bench.py:315); over P = 4 virtual ranks,
+#: T_local 1024.  Nothing is cut.
+SP_B, SP_H, SP_T, SP_D, SP_P = 2, 32, 4096, 128, 4
+#: bf16 outputs of two fold orders (64-key tiles, whole hops, the
+#: reference's normalised softmax) round to neighbouring bf16 values
+SP_TOL = 1e-2
+#: row 12's phase 2 cases: (P, per-rank shape); every dtype runs each
+A2A_CASES = [(2, (2 * 4096, 256)), (3, (3 * 7, 5)), (4, (4 * 2048, 1024)),
+             (8, (8 * 33, 3)), (4, (32, 2 * 1024 * 128))]
+A2A_DTYPES = ("float32", "bfloat16", "float16", "int32", "int8",
+              "float8_e4m3fn", "float8_e5m2")
+#: row 15's phase 2 cases beside the full width: (P, B, H, T_local);
+#: T_local 200 is a multiple of 8, not of 64
+RING_SMALL = [(4, 1, 2, 200), (3, 2, 1, 64), (1, 1, 2, 136)]
+
+
+def sp_layouts():
+    """(striped, causal) of row 15's four forms."""
+    return [(s, c) for s in (False, True) for c in (True, False)]
+
+
+def launched_once(kern, before: int, what: str) -> None:
+    if kern.launches.count != before + 1:
+        fail(f"{what}: {kern.launches.count - before} launches, want 1")
+
+
+def check_seq_parallel(kc, err, dev) -> None:
+    """Phase 2 for rows 12 and 15.  Row 12 against ``alltoall_plain`` bit
+    for bit over ``A2A_CASES`` x ``A2A_DTYPES`` (P 2, 3, 4, 8; blocks of
+    16-byte multiples and not; the last case Ulysses' q at full width)
+    and a misaligned view.  Row 15 against ``ring_attention_plain`` over
+    contiguous and striped shards, causal and full, bf16 / f16 / f32, D
+    24, 64 and 128, T_local 200 (ragged tiles), 64 and 136 over P 4, 3
+    and 1, and the main path's 4 x (2, 32, 1024, 128) bf16: float32
+    within 2e-5 (the kernel folds with FFMA in 64-key tiles, the plain
+    version whole hops), 16-bit within 1e-2.  Every call must launch its
+    kernel exactly once."""
+    import torch
+
+    from accl_tpu_torch.ops.cuda import attention as ka
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    a2a = kc.KERNELS["alltoall"]
+    for P, shape in A2A_CASES:
+        for name in A2A_DTYPES:
+            dtype = getattr(torch, name)
+            xs = [torch.randint(-120, 120, shape, generator=gen, device=dev,
+                                dtype=torch.int32).to(dtype)
+                  if name in ("int32", "int8") else
+                  torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for _ in range(P)]
+            before = a2a.launches.count
+            got = kc.alltoall(xs)
+            launched_once(a2a, before, f"alltoall P={P} {shape} {name}")
+            for r, (g, w) in enumerate(zip(got, kc.alltoall_plain(xs))):
+                compare_bits(f"alltoall P={P} {shape} {name} rank {r}", g, w)
+        del xs, got
+    x = torch.randn(4, 4 * 1000 + 1, generator=gen, device=dev)
+    views = [row[1:] for row in x.unbind(0)]  # 4-byte aligned only
+    for r, (g, w) in enumerate(zip(kc.alltoall(views),
+                                   kc.alltoall_plain(views))):
+        compare_bits(f"alltoall misaligned rank {r}", g, w)
+
+    ring = kc.KERNELS["ring_attention"]
+    cases = [(P, (B, H, T, D), dt)
+             for dt in ("bfloat16", "float16", "float32")
+             for D in (24, 64, 128) for P, B, H, T in RING_SMALL]
+    cases.append((SP_P, (SP_B, SP_H, SP_T // SP_P, SP_D), "bfloat16"))
+    worst = 0.0
+    for P, shape, dt in cases:
+        dtype = getattr(torch, dt)
+        qs, ks, vs = ([torch.randn(shape, generator=gen, device=dev)
+                       .to(dtype) for _ in range(P)] for _ in range(3))
+        tol = 2e-5 if dtype == torch.float32 else 1e-2
+        for striped, causal in sp_layouts():
+            tag = (f"ring_attention P={P} {shape} {dt} striped={striped} "
+                   f"causal={causal}")
+            before = ring.launches.count
+            got = ka.ring_attention(qs, ks, vs, causal, striped=striped)
+            launched_once(ring, before, tag)
+            want = ka.ring_attention_plain(qs, ks, vs, causal,
+                                           striped=striped)
+            for r, (g, w) in enumerate(zip(got, want)):
+                d = float((g.float() - w.float()).abs().max())
+                if g.shape != w.shape or not torch.isfinite(g).all() or \
+                        not torch.allclose(g.float(), w.float(), rtol=tol,
+                                           atol=tol):
+                    fail(f"{tag} rank {r}: max abs err {d}")
+                worst = max(worst, d)
+        del qs, ks, vs, got, want
+    big = [torch.zeros(1, 1, 8, ka.MAX_HEAD_DIM + 8, device=dev)]
+    try:
+        ka.ring_attention(big, big, big)
+    except ValueError as e:
+        if str(ka.MAX_HEAD_DIM) not in str(e):
+            fail(f"ring_attention's head-dim refusal names no cap: {e}")
+    else:
+        fail("ring_attention took a head dim over MAX_HEAD_DIM")
+    err["ring_attention"] = worst
+    sync(dev)
+    print(f"alltoall: {len(A2A_CASES) * len(A2A_DTYPES) + 1} cases bit for "
+          f"bit; ring_attention: {len(cases) * 4} cases within tolerance "
+          f"(max abs err {worst})", flush=True)
+
+
+def sp_operands(dev):
+    """The main path's global q, k, v (2, 32, 4096, 128) bf16 from the
+    seed, and their per-rank shards: contiguous and striped, each shard
+    its own allocation."""
+    import torch
+
+    from accl_tpu_torch.models import stripe_sequence
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 16)
+    glob = [torch.randn(SP_B, SP_H, SP_T, SP_D, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(3)]
+
+    def shards(x):
+        return [c.contiguous() for c in torch.chunk(x, SP_P, dim=2)]
+
+    contig = [shards(x) for x in glob]
+    striped = [shards(stripe_sequence(x, SP_P)) for x in glob]
+    return glob, contig, striped
+
+
+def sp_close(name: str, got, want) -> float:
+    import torch
+
+    d = float((got.float() - want.float()).abs().max())
+    if got.shape != want.shape or not torch.isfinite(got).all() or \
+            not torch.allclose(got.float(), want.float(), rtol=SP_TOL,
+                               atol=SP_TOL):
+        fail(f"{name}: max abs err {d} (tolerance {SP_TOL})")
+    return d
+
+
+def seq_parallel_main_path(kc, dev) -> dict:
+    """Phase 3h: the sequence-parallel path at full width, 4 ranks x
+    (2, 32, 1024, 128) bf16 shards of one 4096-token sequence:
+    ``ulysses_attention`` with the tiled ``_a2a`` and with row 12,
+    ``ring_attention_pallas`` (row 15) over contiguous and striped shards,
+    and the ppermute ``ring_attention`` / ``striped_attention``.  Ulysses
+    with row 12 equals the ``_a2a`` form bit for bit; row 15's outputs
+    (striped ones after ``unstripe_sequence``) agree with the ppermute
+    forms and with ``reference_attention`` on the full sequence (chunked
+    over batch and 8 heads) within ``SP_TOL``, as do Ulysses' and the
+    ppermute forms'.  Returns the launches of the run (row 12 four times,
+    row 15 twice, no other kernel) and the largest gaps."""
+    import torch
+
+    from accl_tpu_torch import models as tm
+
+    glob, contig, striped = sp_operands(dev)
+    reset_launches(kc)
+    uly = tm.ulysses_attention(*contig)
+    uly12 = tm.ulysses_attention(*contig, use_pallas_alltoall=True)
+    ring15 = tm.ring_attention_pallas(*contig)
+    ring15s = tm.ring_attention_pallas(*striped, striped=True)
+    ring_pp = tm.ring_attention(*contig)
+    striped_pp = tm.striped_attention(*striped)
+    sync(dev)
+    launches = read_launches(kc)
+    want = dict.fromkeys(kc.KERNELS, 0)
+    want.update(alltoall=4, ring_attention=2)
+    if launches != want:
+        fail(f"sequence-parallel path launched {launches}, want {want}")
+    for r in range(SP_P):
+        compare_bits(f"ulysses row 12 vs _a2a rank {r}", uly12[r], uly[r])
+    full = {
+        "ulysses": torch.cat(uly, 2),
+        "ring_attention_pallas": torch.cat(ring15, 2),
+        "ring_attention_pallas_striped": tm.unstripe_sequence(
+            torch.cat(ring15s, 2), SP_P),
+        "ring_attention": torch.cat(ring_pp, 2),
+        "striped_attention": tm.unstripe_sequence(
+            torch.cat(striped_pp, 2), SP_P),
+    }
+    gaps = {
+        "row15_vs_ring_attention": sp_close(
+            "ring_attention_pallas vs ring_attention",
+            full["ring_attention_pallas"], full["ring_attention"]),
+        "row15_striped_vs_striped_attention": sp_close(
+            "ring_attention_pallas striped vs striped_attention",
+            full["ring_attention_pallas_striped"], full["striped_attention"]),
+    }
+    q, k, v = glob
+    for name, out in full.items():
+        worst = 0.0
+        for b in range(SP_B):
+            for h in range(0, SP_H, 8):
+                ref = tm.reference_attention(q[b:b + 1, h:h + 8],
+                                             k[b:b + 1, h:h + 8],
+                                             v[b:b + 1, h:h + 8])
+                worst = max(worst, sp_close(
+                    f"{name} vs reference_attention b={b} h={h}",
+                    out[b:b + 1, h:h + 8], ref))
+        gaps[f"{name}_vs_reference"] = worst
+    del glob, contig, striped, uly, uly12, ring15, ring15s, ring_pp
+    del striped_pp, full
+    sync(dev)
+    return {"launches": launches, "gaps": gaps}
+
+
+def time_seq_parallel(kc, dev) -> dict:
+    """Phase 4 for rows 12 and 15 at the main path's shapes.  Row 12 on
+    Ulysses' q re-shard: 4 ranks x (32, 2 x 1024 x 128) bf16, 16 MiB a
+    rank, beside P x ``torch.cat`` of the ranks' blocks; bound 2 x 64 MiB
+    over the HBM rate.  Row 15 over contiguous causal shards (striped and
+    full as extra keys), beside ``scaled_dot_product_attention(is_causal=
+    True)`` on the full (2, 32, 4096, 128) sequence; bound 4 B H D
+    T(T+1)/2 operations at 989 TFLOP/s (both layouts fold the same
+    T(T+1)/2 causal pairs), against 4 x 64 MiB of bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from accl_tpu_torch.ops.cuda import attention as ka
+
+    glob, contig, striped = sp_operands(dev)
+    flat = [x.transpose(0, 1).reshape(SP_H, -1) for x in contig[0]]
+    P = SP_P
+
+    def library_a2a():
+        blocks = [x.view(P, -1) for x in flat]
+        return [torch.cat([b[r] for b in blocks]) for r in range(P)]
+
+    q, k, v = glob
+    pairs = SP_T * (SP_T + 1) // 2
+    out = {
+        "alltoall": dict(
+            ms=time_ms(lambda: kc.alltoall(flat), iters=20),
+            plain_ms=time_ms(lambda: kc.alltoall_plain(flat), iters=20),
+            library_ms=time_ms(library_a2a, iters=20),
+            bytes=2 * sum(x.numel() * x.element_size() for x in flat),
+            ops=0, shape=[P] + list(flat[0].shape)),
+        "ring_attention": dict(
+            ms=time_ms(lambda: ka.ring_attention(*contig), iters=20),
+            plain_ms=time_ms(lambda: ka.ring_attention_plain(*contig),
+                             iters=3, warmup=1),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), iters=20),
+            bytes=4 * q.numel() * q.element_size(),
+            ops=4 * SP_B * SP_H * SP_D * pairs,
+            shape=[P, SP_B, SP_H, SP_T // P, SP_D],
+            striped_ms=time_ms(lambda: ka.ring_attention(
+                *striped, striped=True), iters=20),
+            striped_plain_ms=time_ms(lambda: ka.ring_attention_plain(
+                *striped, striped=True), iters=3, warmup=1),
+            full_ms=time_ms(lambda: ka.ring_attention(*contig, causal=False),
+                            iters=20),
+            full_ops=4 * SP_B * SP_H * SP_D * SP_T * SP_T),
+    }
+    del glob, contig, striped, flat, q, k, v
+    sync(dev)
+    return out
+
+
+def seq_parallel_latency(dev, iters: int = 20, warmup: int = 2) -> dict:
+    """Phase 5 (``seq_parallel_attention``): host-clock p50 / p90 of one
+    call, to its synchronise, over ``iters`` calls after ``warmup``, at
+    the main path's width, for each form: Ulysses with the tiled
+    ``_a2a``, Ulysses with row 12, the ppermute ``ring_attention``, and
+    ``ring_attention_pallas`` over contiguous and striped shards (all
+    causal); beside each, the peak memory its calls allocated over what
+    the run held before them (``work_gib``)."""
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch import models as tm
+
+    _, contig, striped = sp_operands(dev)
+    forms = {
+        "ulysses": lambda: tm.ulysses_attention(*contig),
+        "ulysses_row12": lambda: tm.ulysses_attention(
+            *contig, use_pallas_alltoall=True),
+        "ring_attention": lambda: tm.ring_attention(*contig),
+        "ring_attention_pallas": lambda: tm.ring_attention_pallas(*contig),
+        "ring_attention_pallas_striped": lambda: tm.ring_attention_pallas(
+            *striped, striped=True),
+    }
+    rows = []
+    for name, fn in forms.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        lat = []
+        for i in range(warmup + iters):
+            t0 = time.perf_counter()
+            fn()
+            sync(dev)
+            if i >= warmup:
+                lat.append(time.perf_counter() - t0)
+        rows.append({"form": name, "p50_ms": float(np.median(lat)) * 1e3,
+                     "p90_ms": float(np.percentile(lat, 90)) * 1e3,
+                     "work_gib": (torch.cuda.max_memory_allocated(dev)
+                                  - held) / 2**30})
+    del contig, striped
+    sync(dev)
+    return {"shape": [SP_B, SP_H, SP_T, SP_D], "ranks": SP_P,
+            "dtype": "bfloat16", "causal": True, "calls": iters,
+            "tokens": SP_B * SP_T, "rows": rows}
+
+
 def main() -> int:
     import torch
 
@@ -2884,6 +3221,7 @@ def main() -> int:
     check_flash_bwd(err)
     check_compression(kc, err, gen, dev)
     check_put(kc, err, dev)
+    check_seq_parallel(kc, err, dev)
     print(f"kernels agree with their plain versions ({time.time() - t0:.1f}"
           f" s; exactly, but flash_attention within its tolerances)",
           flush=True)
@@ -2995,10 +3333,14 @@ def main() -> int:
     p2p = p2p_main_path(kc)
     print(f"p2p path ok ({time.time() - t0:.1f} s): launches {p2p}",
           flush=True)
-    # each kernel's launches over the probe's and the eight paths' runs
+    t0 = time.time()
+    seqp = seq_parallel_main_path(kc, dev)
+    print(f"sequence-parallel path ok ({time.time() - t0:.1f} s): launches "
+          f"{seqp['launches']}; gaps {seqp['gaps']}", flush=True)
+    # each kernel's launches over the probe's and the nine paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k] + serve["launches"][k]
                 + train["launches"][k] + compressed[k] + converged[k]
-                + p2p[k] + probed[k] for k in launches}
+                + p2p[k] + seqp["launches"][k] + probed[k] for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
     t0 = time.time()
@@ -3054,6 +3396,7 @@ def main() -> int:
         timing[name] = dict(bwd[name], library_ms=bwd["library_bwd_ms"])
     timing.update(time_compression(kc, dev))
     timing.update(time_put(kc, dev))
+    timing.update(time_seq_parallel(kc, dev))
     meta = {
         "ring_allreduce": ("accl_tpu_torch/csrc/ring.cu",
                            "accl_tpu/ops/pallas/ring.py:123"),
@@ -3089,6 +3432,10 @@ def main() -> int:
                         "accl_tpu/ops/pallas/put.py:66"),
         "probe_copy": ("accl_tpu_torch/csrc/probe.cu",
                        "accl_tpu/compat.py:248"),
+        "alltoall": ("accl_tpu_torch/csrc/alltoall.cu",
+                     "accl_tpu/ops/pallas/alltoall.py:38"),
+        "ring_attention": ("accl_tpu_torch/csrc/ring_attention.cu",
+                           "accl_tpu/ops/pallas/attention.py:111"),
     }
     kernels = []
     for name in kc.KERNELS:
@@ -3101,7 +3448,7 @@ def main() -> int:
             **(seq["bound"] if name == "sequencer"
                else flash_bounds[SERVE_T] if name == "flash_attention"
                else bound(t["bytes"], t["ops"], TC16_OPS_PER_S)
-               if name in TRAIN_KERNELS
+               if name in TRAIN_KERNELS + ("ring_attention",)
                else bound(t["bytes"], t["ops"])),
             "library_ms": t["library_ms"],
         })
@@ -3151,6 +3498,16 @@ def main() -> int:
             kernels[-1]["elements"] = N_COMP
             kernels[-1].update({k: v for k, v in t.items()
                                 if k.startswith("wire_seg")})
+        if name == "alltoall":  # Ulysses' q re-shard at full width
+            kernels[-1]["shape"] = t["shape"]
+        if name == "ring_attention":  # the other layouts at full width
+            kernels[-1].update({
+                "shape": t["shape"], "striped_ms": t["striped_ms"],
+                "striped_plain_ms": t["striped_plain_ms"],
+                "full_ms": t["full_ms"],
+                "full_bound_ms": bound(t["bytes"], t["full_ops"],
+                                       TC16_OPS_PER_S)["bound_ms"],
+            })
         if name == "ring_allgather":  # the rooted gather: root output only
             g = timing["ring_gather"]
             kernels[-1].update({
@@ -3187,6 +3544,11 @@ def main() -> int:
           f" ({f['train_bound_by']}) plain_ms={f['train_plain_ms']:.4f} "
           f"library_ms={f['train_library_ms']:.4f}")
     d = by_name["flash_attention_bwd_dkv"]
+    r_ = by_name["ring_attention"]
+    print(f"ring_attention 4 x (2,32,1024,128) bf16: striped_ms="
+          f"{r_['striped_ms']:.4f} striped_plain_ms="
+          f"{r_['striped_plain_ms']:.4f} full (not causal) ms="
+          f"{r_['full_ms']:.4f} bound_ms={r_['full_bound_ms']:.4f}")
     print(f"flash backward (8,32,1024,128) bf16 causal: dq + dk/dv + delta "
           f"= {d['bwd_sum_ms']:.4f} ms against scaled_dot_product_attention"
           f"'s backward {d['library_ms']:.4f} ms")
@@ -3226,6 +3588,13 @@ def main() -> int:
           flush=True)
     print(json.dumps({"train_step": {
         "card": smi.stdout.strip().splitlines()[0], **trained}}))
+    t0 = time.time()
+    seq_lat = seq_parallel_latency(dev)
+    print(f"seq_parallel_attention timing ({time.time() - t0:.1f} s)",
+          flush=True)
+    print(json.dumps({"seq_parallel_attention": {
+        "card": smi.stdout.strip().splitlines()[0], **seq_lat,
+        "gaps": seqp["gaps"]}}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -107,7 +107,10 @@ def test_import_is_free_of_jax_and_the_jax_package():
         "import sys, accl_tpu_torch, accl_tpu_torch.ops, "
         "accl_tpu_torch.interop, accl_tpu_torch.models, "
         "accl_tpu_torch.ops.attention, accl_tpu_torch.examples.vadd_put, "
-        "accl_tpu_torch.compat, accl_tpu_torch.ops.cuda.put\n"
+        "accl_tpu_torch.compat, accl_tpu_torch.ops.cuda.put, "
+        "accl_tpu_torch.models.ring_attention, "
+        "accl_tpu_torch.models.ulysses_attention, "
+        "accl_tpu_torch.ops.cuda.alltoall, accl_tpu_torch.ops.cuda.attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'accl_tpu'))\n"
         "print(','.join(bad))\n"
