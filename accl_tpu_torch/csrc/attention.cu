@@ -14,20 +14,32 @@
 // Bound on the H100: at the serving shapes (T 128 and 1024, D 128) the
 // causal product is 2 T^2 D operations per head against 8 T D bytes, so
 // at T = 1024 operations and bytes bound it about equally (0.035 ms and
-// 0.040 ms for 8 x 16 heads).  The design keeps every score and
-// probability in registers: one block of 4 warps owns 64 query rows, each
-// warp 16 of them; Q K^T and P V go through mma.sync m16n8k16 (bf16 or
-// f16 in, f32 accumulate), the probabilities pass from the score
-// accumulators to the A operand without touching shared memory, and K/V
-// tiles of 64 keys are double-buffered in padded shared memory (cp.async
-// copies of the next tile overlap the fold of this one; ldmatrix
-// fragment loads without bank conflicts).  Causal blocks stop at the
-// diagonal tile and the heaviest query blocks are scheduled first.  Not
-// yet used: wgmma, TMA, warp specialisation.
+// 0.040 ms for 8 x 16 heads); the training shape's 68.8 GFLOP take 0.070
+// ms at 989 TFLOP/s against 0.080 ms for its bytes.  What held the first
+// port (mma.sync m16n8k16 tiles of 64 x 64 issued by the warps that also
+// copied with cp.async, 122 TFLOP/s) back, and what the design does:
+//  * only wgmma reaches the tensor cores' rate: Q K^T and P V are wgmma
+//    m64n128k16 on 128-key tiles (the shared fold core, flash_sm90.cuh),
+//    P passing from the score accumulators to the A operand in registers;
+//  * copies compete with the products: one producer warp keeps the K/V
+//    stage ring full with TMA (the operand's own 4-D strides, so the
+//    transformer's transposed head views need no copy), and the consumer
+//    warpgroups only fold;
+//  * short sequences pay a block's start-up per query tile: the kernel is
+//    persistent (one block per SM), a block's next tile loads while it
+//    stores this one, and its work items, head by head, keep each head's
+//    K/V in L2 (ordered across heads, every item reread its K/V from HBM);
+//  * the softmax competes with the products for issue slots: scale and
+//    log2(e) fold into one FFMA before one EX2 per score.
+// Causal items stop at the diagonal tile, whose mask (and the ragged last
+// tile's) is the only one applied; the heaviest items of each head come
+// first and blocks draw items from a shared counter, so the light ones
+// fill in at the end.
 //
 // float32 operands never go through the tensor cores (no TF32): a
 // separate kernel folds with FFMA, 4 threads per query row.
 #include "flash.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -44,166 +56,80 @@ struct Args {
   float scale;
 };
 
-// Per block: batch-head blockIdx.x, query block (gridDim.y - 1 -
-// blockIdx.y).  Warp w owns rows 16w..16w+15 of the block; in the mma
-// fragments lane (g = lane / 4, t = lane % 4) holds rows g and g + 8 and
-// columns 2t, 2t + 1 of each 8-wide tile.  K/V tiles are double-buffered:
-// the copy of tile j + 1 runs while tile j is folded.
+// The 16-bit kernel's arguments: the three operands' tensor maps (by
+// value: a __grid_constant__ parameter), the output's element strides.
+struct TmaArgs {
+  CUtensorMap q, k, v;
+  void* o;
+  float* lse;  // (B, H, T) contiguous, or null
+  Strides so;
+  int* sched;  // the work counters (sm90::next_item), zero at launch
+  int H, Hkv, T, D, causal, pairs, nq, items;
+  float scale2;  // scale * log2(e)
+};
+
+// Persistent: one block per SM draws work items (sm90::next_item) from
+// the B H nq (batch-head, 128-row query tile) items, item w the batch-head
+// w / nq and its query tile nq - 1 - w % nq: the blocks in flight at once
+// share a few heads' K/V, which stay in L2 (ordered by query tile across
+// all heads, every item reread its K/V from HBM), and each head's heaviest
+// causal tiles come first.  Warpgroup 0 loads each item's Q and its K/V
+// tiles (kv head h / (H / Hkv)) ahead into the Q and stage rings, across
+// items; warpgroups 1 and 2 fold rows 0-63 and 64-127 of the item's tile,
+// and store it while the next item's tiles load.  A causal item stops at
+// its diagonal tile; the mask is applied only there and on the ragged last
+// tile.
 template <typename E, int DP>
-__global__ void __launch_bounds__(128) flash_fwd_mma(Args a) {
-  constexpr int SD = DP + 8;  // padded row: ldmatrix rows hit 32 banks
-  constexpr int TILE = kBK * SD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  E* buf = reinterpret_cast<E*>(smem);  // [2][K tile, V tile]
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ TmaArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const sm90::Smem<DP> sm(smem);
+  sm.init();
+  const int T = a.T;
+  const int nkt = (T + sm90::kBN - 1) / sm90::kBN;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int lr = lane & 7, lm = lane >> 3;  // ldmatrix row, matrix
-  const int iq = gridDim.y - 1 - blockIdx.y;  // heaviest causal blocks first
-  const int bh = blockIdx.x;
-  const int b = bh / a.H, h = bh % a.H;
-  const int kvh = h / (a.H / a.Hkv);
-  const int T = a.T, D = a.D, q0 = iq * kBQ;
-  const E* qb = static_cast<const E*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const E* kb = static_cast<const E*>(a.k) + b * a.sk.b + kvh * a.sk.h;
-  const E* vb = static_cast<const E*>(a.v) + b * a.sv.b + kvh * a.sv.h;
-  const int nkt = (T + kBK - 1) / kBK;
-  const int ntiles = a.causal ? min(iq + 1, nkt) : nkt;
-
-  // tile 0 into buffer 0 while Q stages through buffer 1's K tile into A
-  // fragments kept for the whole fold
-  tile_async<E, DP, SD>(buf, kb, a.sk.t, 0, T, D, a.vec);
-  tile_async<E, DP, SD>(buf + TILE, vb, a.sv.t, 0, T, D, a.vec);
-  cp_async_commit();
-  load_tile<E, DP, SD, 128>(buf + 2 * TILE, qb, a.sq.t, q0, T, D, a.vec);
-  __syncthreads();
-  uint32_t qf[DP / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk)
-    ldsm4(qf[kk], buf + 2 * TILE + (warp * 16 + lr + (lm & 1) * 8) * SD +
-                      kk * 16 + (lm >> 1) * 8);
-  __syncthreads();  // Q read by every warp before buffer 1 is refilled
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  for (int j = 0; j < ntiles; ++j) {
-    const int k0 = j * kBK;
-    if (j + 1 < ntiles) {
-      E* nxt = buf + ((j + 1) & 1) * 2 * TILE;
-      tile_async<E, DP, SD>(nxt, kb, a.sk.t, k0 + kBK, T, D, a.vec);
-      tile_async<E, DP, SD>(nxt + TILE, vb, a.sv.t, k0 + kBK, T, D, a.vec);
-      cp_async_commit();
-      cp_async_wait<1>();  // tile j has landed, tile j + 1 may be in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const E* Ks = buf + (j & 1) * 2 * TILE;
-    const E* Vs = Ks + TILE;
-
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kBK / 8; n += 2) {  // key tiles n and n + 1
-        uint32_t kf[4];
-        ldsm4(kf, Ks + (n * 8 + lr + (lm >> 1) * 8) * SD + kk * 16 +
-                      (lm & 1) * 8);
-        mma<E>(s[n], qf[kk], kf[0], kf[1]);
-        mma<E>(s[n + 1], qf[kk], kf[2], kf[3]);
+  if (threadIdx.x < 128) {  // the producer
+    sm90::regs_down<sm90::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::Ring qr, kv;
+      for (int w; (w = sm90::next_item(a.sched, a.items)) >= 0;) {
+        const int bh = w / a.nq, iq = a.nq - 1 - w % a.nq;
+        const int b = bh / a.H, h = bh % a.H, kvh = h / (a.H / a.Hkv);
+        const int ntiles = a.causal ? min(iq + 1, nkt) : nkt;
+        sm.load_q(qr, &a.q, w, iq * sm90::kBM, h, b);
+        for (int j = 0; j < ntiles; ++j)
+          sm.load_kv(kv, &a.k, &a.v, j * sm90::kBN, kvh, b, nullptr);
       }
+      sm.end_items(qr);
     }
-
-    // scale, mask (only the diagonal tile and the ragged last tile)
-    const bool edge = (a.causal && j == iq) || k0 + kBK > T;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * a.scale;
-        if (edge) {
-          const int key = k0 + n * 8 + 2 * t + (e & 1);
-          if (key >= T || (a.causal && row[e >> 1] < key)) x = kNeg;
-        }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
+  } else {  // the consumers
+    sm90::regs_up<sm90::kConsumerRegs>();
+    // the consumer warpgroup, warp-uniform (shuffled from lane 0) so that
+    // its shared addresses and wgmma descriptors live in uniform registers
+    const int cw = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) - 1;
+    const int tid = threadIdx.x % 128;
+    const int causal = a.causal;
+    sm90::Ring qr, kv;
+    for (int w; (w = sm.wait_item(qr)) >= 0; qr.next<2>()) {
+      const int bh = w / a.nq, iq = a.nq - 1 - w % a.nq;
+      const int b = bh / a.H, h = bh % a.H;
+      const int ntiles = causal ? min(iq + 1, nkt) : nkt;
+      sm90::Fold<E, DP> f;
+      f.init(iq * sm90::kBM + cw * 64 + (tid / 32) * 16 + (tid % 32) / 4);
+      sm90::consume(
+          sm, f, kv, qr, cw, a.scale2,
+          [=](int j, int, int& k0, bool& edge, int& kind) {
+            k0 = j * sm90::kBN;
+            edge = (causal && j == iq) || k0 + sm90::kBN > T;
+            kind = 0;
+            return j == ntiles - 1;
+          },
+          [=](int, int row, int key) {
+            return key >= T || (causal && row < key);
+          });
+      f.store(static_cast<E*>(a.o) + b * a.so.b + h * a.so.h, a.so.t, T,
+              a.D, a.pairs, a.lse ? a.lse + (long long)bh * T : nullptr);
     }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = expf(m[r] - mx[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        sum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * alpha[r] + sum[r];
-    }
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // acc += P V: the score accumulators of key tiles 2c and 2c + 1 are
-    // the A fragment of keys 16c..16c+15 (rounded to the operand dtype)
-#pragma unroll
-    for (int c = 0; c < kBK / 16; ++c) {
-      const uint32_t pa[4] = {
-          pack<E>(s[2 * c][0], s[2 * c][1]),
-          pack<E>(s[2 * c][2], s[2 * c][3]),
-          pack<E>(s[2 * c + 1][0], s[2 * c + 1][1]),
-          pack<E>(s[2 * c + 1][2], s[2 * c + 1][3]),
-      };
-#pragma unroll
-      for (int n = 0; n < DP / 8; n += 2) {  // head-dim tiles n and n + 1
-        uint32_t vf[4];
-        ldsm4_t(vf, Vs + (c * 16 + lr + (lm & 1) * 8) * SD + n * 8 +
-                        (lm >> 1) * 8);
-        mma<E>(acc[n], pa, vf[0], vf[1]);
-        mma<E>(acc[n + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer
-  }
-
-  // epilogue: rows past T are never written
-  E* ob = static_cast<E*>(a.o) + b * a.so.b + h * a.so.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= T) continue;
-    const float den = fmaxf(l[r], 1e-30f);
-    E* orow = ob + row[r] * a.so.t;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      if (c < D) orow[c] = accl::from_float<E>(acc[n][2 * r] / den);
-      if (c + 1 < D) orow[c + 1] = accl::from_float<E>(acc[n][2 * r + 1] / den);
-    }
-    if (a.lse && t == 0) a.lse[(long long)bh * T + row[r]] = m[r] + logf(den);
   }
 }
 
@@ -300,12 +226,6 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Args a) {
   if (a.lse && u == 0) a.lse[(long long)bh * T + row] = m + logf(den);
 }
 
-template <typename E, int DP>
-int launch_mma(dim3 grid, const Args& a, cudaStream_t s) {
-  return launch(flash_fwd_mma<E, DP>, grid, 128,
-                4 * kBK * (DP + 8) * sizeof(E), a, s);
-}
-
 template <int DP>
 int launch_f32(dim3 grid, const Args& a, cudaStream_t s) {
   const size_t smem =
@@ -313,60 +233,99 @@ int launch_f32(dim3 grid, const Args& a, cudaStream_t s) {
   return launch(flash_fwd_f32<DP>, grid, 256, smem, a, s);
 }
 
+template <typename E, int DP>
+int launch_wgmma(dim3 grid, const TmaArgs& a, cudaStream_t s) {
+  return launch(flash_fwd_wgmma<E, DP>, grid, sm90::kThreads,
+                sm90::Layout<DP>::kDynamic, a, s);
+}
+
 template <typename E>
-int launch_dtype(int dp, dim3 grid, const Args& a, cudaStream_t s) {
-  switch (dp) {
-    case 32: return launch_mma<E, 32>(grid, a, s);
-    case 64: return launch_mma<E, 64>(grid, a, s);
-    case 128: return launch_mma<E, 128>(grid, a, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+int launch_16bit(int dp, dim3 grid, const TmaArgs& a, cudaStream_t s) {
+  return dp <= 64 ? launch_wgmma<E, 64>(grid, a, s)
+                  : launch_wgmma<E, 128>(grid, a, s);
 }
 
 }  // namespace
 
-// q (B, H, T, D), k and v (B, Hkv, T, D), o like q, each with its head
-// dim contiguous; strides = 12 element strides (b, h, t) of q, k, v, o.
-// lse: (B, H, T) float32 or null.  D <= 128; T < 64 * 65536.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// q (B, H, T, D), k and v (B, Hkv, T, D), o like q; strides = 12 element
+// strides (b, h, t) of q, k, v, o.  float32: each operand's head dim
+// contiguous, tma null.  bfloat16 / float16: tma = the geometry of q, k
+// and v (9 values each, ops/cuda/attention.py::_tma_geometry), whose maps
+// may hold a head dim padded with zeros past D, and sched two int32 work
+// counters, zero, which the launch leaves zero (one pair per stream: two
+// launches at once must not share them).  lse: (B, H, T) float32 or null.  D <= 128; float32 T < 64 * 65536, 16-bit T < 128 * 65536.
+// Returns 0 or a cudaError_t (after the launch, cudaGetLastError()).
 extern "C" int accl_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, float* lse,
-                                    const long long* strides, int B, int H,
+                                    const long long* strides,
+                                    const long long* tma, int* sched, int B,
+                                    int H,
                                     int Hkv, int T, int D, int dtype,
                                     int causal, int vec, float scale,
                                     void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || T <= 0 || D <= 0 || D > 128)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long nq = (T + kBQ - 1) / kBQ;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32) {
+    const long long nq = (T + kBQ - 1) / kBQ;
+    if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    Args a;
+    a.q = q;
+    a.k = k;
+    a.v = v;
+    a.o = o;
+    a.lse = lse;
+    Strides* ss[4] = {&a.sq, &a.sk, &a.sv, &a.so};
+    for (int i = 0; i < 4; ++i) *ss[i] = {strides[3 * i], strides[3 * i + 1],
+                                          strides[3 * i + 2]};
+    a.H = H;
+    a.Hkv = Hkv;
+    a.T = T;
+    a.D = D;
+    const int dp = padded_dim(D);
+    a.causal = causal;
+    a.vec = vec && D == dp;  // the vector path reads whole padded rows
+    a.scale = scale;
+    const dim3 grid((unsigned)(B * H), (unsigned)nq);
+    switch (dp) {
+      case 32: return launch_f32<32>(grid, a, s);
+      case 64: return launch_f32<64>(grid, a, s);
+      case 128: return launch_f32<128>(grid, a, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((dtype != DT_BF16 && dtype != DT_F16) || !tma || !sched)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nq = (T + sm90::kBM - 1) / sm90::kBM;
   if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
+  TmaArgs a;
+  a.sched = sched;
+  CUtensorMap* maps[3] = {&a.q, &a.k, &a.v};
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const long long* g = tma + 9 * i;
+    if (!sm90::standard_box(g) || g[0] < D || g[0] > 128)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int e = sm90::encode(maps[i], ptrs[i], g, dtype);
+    if (e) return e;
+  }
   a.o = o;
   a.lse = lse;
-  Strides* ss[4] = {&a.sq, &a.sk, &a.sv, &a.so};
-  for (int i = 0; i < 4; ++i) *ss[i] = {strides[3 * i], strides[3 * i + 1],
-                                        strides[3 * i + 2]};
+  a.so = {strides[9], strides[10], strides[11]};
   a.H = H;
   a.Hkv = Hkv;
   a.T = T;
   a.D = D;
-  const int dp = padded_dim(D);
   a.causal = causal;
-  a.vec = vec && D == dp;  // the vector path reads whole padded rows
-  a.scale = scale;
-  const dim3 grid((unsigned)(B * H), (unsigned)nq);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case DT_BF16: return launch_dtype<__nv_bfloat16>(dp, grid, a, s);
-    case DT_F16: return launch_dtype<__half>(dp, grid, a, s);
-    case DT_F32:
-      switch (dp) {
-        case 32: return launch_f32<32>(grid, a, s);
-        case 64: return launch_f32<64>(grid, a, s);
-        case 128: return launch_f32<128>(grid, a, s);
-      }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  a.pairs = reinterpret_cast<uintptr_t>(o) % 4 == 0 && D % 2 == 0 &&
+            a.so.b % 2 == 0 && a.so.h % 2 == 0 && a.so.t % 2 == 0;
+  a.scale2 = scale * sm90::kLog2e;
+  a.nq = static_cast<int>(nq);
+  const long long items = (long long)B * H * nq;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  a.items = static_cast<int>(items);
+  const int dp = tma[0] > 64 || tma[9] > 64 || tma[18] > 64 ? 128 : 64;
+  const dim3 grid(sm90::persistent_grid(items));
+  return dtype == DT_BF16 ? launch_16bit<__nv_bfloat16>(dp, grid, a, s)
+                          : launch_16bit<__half>(dp, grid, a, s);
 }

@@ -1,7 +1,10 @@
-// Tile helpers shared by the flash-attention kernels (attention.cu, the
-// forward; attention_bwd.cu, the dQ and dK/dV backward): tile loads into
-// padded shared memory (cp.async when rows are 16-byte aligned),
-// ldmatrix fragment loads and mma.sync m16n8k16 with f32 accumulation.
+// Tile helpers of the flash-attention kernels that run on mma.sync and
+// FFMA: the backward's dQ and dK/dV (attention_bwd.cu) and the float32
+// forwards (attention.cu, ring_attention.cu): tile loads into padded
+// shared memory (cp.async when rows are 16-byte aligned), ldmatrix
+// fragment loads, mma.sync m16n8k16 with f32 accumulation, and the
+// rounding of P to a 16-bit operand (pack, shared with the 16-bit
+// forwards' wgmma core, flash_sm90.cuh).
 //
 // Fragment layout (PTX m16n8k16): lane (g = lane / 4, t = lane % 4) of a
 // warp holds rows g and g + 8 and columns 2t, 2t + 1 of each 8-wide tile

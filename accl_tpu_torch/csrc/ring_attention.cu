@@ -21,8 +21,9 @@
 // slots double-buffered behind a slot-ack protocol, while the MXU folds
 // the block that arrived.  On one card no hop is a transfer: a block
 // reads each visiting rank's K/V tiles straight from that rank's
-// allocation through the pointer table, so no slot and no ack exist.
-// The table is what peer pointers across NVLink fill later (ROADMAP B14).
+// allocation (its tensor map; the float32 kernel's pointer table), so no
+// slot and no ack exist.  Maps and table are what peer pointers across
+// NVLink fill later (ROADMAP B14).
 //
 // Work that changes no bit is skipped.  A hop whose mask is all false (a
 // contiguous causal hop from a later rank) and, inside a causal hop, the
@@ -35,22 +36,24 @@
 // allows, 4 D flops a (query, key) pair (Q K^T and P V); at the long-
 // context width (4 ranks x (2, 32, 1024, 128) bf16, causal) both layouts
 // fold T (T + 1) / 2 pairs of the global T = 4096, 2.75e11 operations,
-// 0.278 ms at 989 TFLOP/s, against 0.080 ms for the bytes.  The design is
-// row 16's (csrc/attention.cu): one block of 4 warps per (rank, batch-
-// head, 64-row query tile) keeps its (o, m, l) in registers across every
-// hop; Q K^T and P V go through mma.sync m16n8k16 (bf16 / f16 in, f32
-// accumulate) with the probabilities passed from the score accumulators
-// to the A operand in registers; the K/V tiles of the walk over (hop,
-// tile) are double-buffered in padded shared memory (cp.async copies the
-// next tile, whichever rank it belongs to, while this one folds).  The
-// heaviest blocks are scheduled first: the last query tiles of the last
-// ranks for contiguous causal shards, the last query tiles for striped.
-// Not yet used: wgmma, TMA, warp specialisation.
+// 0.278 ms at 989 TFLOP/s, against 0.080 ms for the bytes.  The first
+// port folded them with row 16's mma.sync tiles (154 TFLOP/s); now the
+// 16-bit kernel is row 16's redesign on the same fold core
+// (flash_sm90.cuh): a persistent block of a TMA producer and two wgmma
+// consumer warpgroups per SM keeps a work item's (o, m, l) in registers
+// across every hop, while the producer walks (hop, key tile) and loads
+// each tile of the visiting rank's K/V through that rank's tensor map
+// into the stage ring, which never drains across hops or items.  Work
+// items go head by head, so the blocks in flight share a few heads' K/V
+// in L2, the heaviest (rank, query tile) of each head first (the last
+// query tiles of the last ranks for contiguous causal shards, the last
+// query tiles for striped), drawn from a shared counter.
 //
 // float32 operands never go through the tensor cores (no TF32, the TPU
 // kernel's _mxu_precision rule): a separate kernel folds with FFMA, 4
 // threads per query row, as row 16's does.
 #include "flash.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -69,9 +72,11 @@ struct Args {
   float scale;
 };
 
-// the rank and query tile of this block, heaviest first (blockIdx.y 0)
-__device__ __forceinline__ void block_task(const Args& a, int& me, int& iq) {
-  const int y = blockIdx.y;
+// the rank and query tile of block row y, heaviest first (y = 0); A is
+// either kernel's arguments
+template <typename A>
+__device__ __forceinline__ void block_task(const A& a, int y, int& me,
+                                           int& iq) {
   if (a.causal && !a.striped) {  // rank me folds me full hops + its own
     me = a.P - 1 - y / a.nq;
     iq = a.nq - 1 - y % a.nq;
@@ -81,7 +86,8 @@ __device__ __forceinline__ void block_task(const Args& a, int& me, int& iq) {
   }
 }
 
-__device__ __forceinline__ int hop_kind(const Args& a, int me, int origin) {
+template <typename A>
+__device__ __forceinline__ int hop_kind(const A& a, int me, int origin) {
   if (!a.causal) return HOP_FULL;
   if (a.striped) return me >= origin ? HOP_TRI : HOP_STRICT;
   return origin == me ? HOP_TRI : origin < me ? HOP_FULL : HOP_SKIP;
@@ -94,8 +100,9 @@ struct Walk {
   int s, j, origin, kind, ntiles;
 };
 
-__device__ __forceinline__ void enter_hop(const Args& a, int me, int iq,
-                                          int nkt, Walk& w) {
+template <typename A>
+__device__ __forceinline__ void enter_hop(const A& a, int me, int iq, int nkt,
+                                          Walk& w) {
   w.j = 0;
   for (; w.s < a.P; ++w.s) {
     w.origin = accl::ring_mod(me - w.s, a.P);
@@ -106,8 +113,9 @@ __device__ __forceinline__ void enter_hop(const Args& a, int me, int iq,
 }
 
 // the step after w; w.s == P past the last tile
-__device__ __forceinline__ Walk advance(const Args& a, int me, int iq,
-                                        int nkt, Walk w) {
+template <typename A>
+__device__ __forceinline__ Walk advance(const A& a, int me, int iq, int nkt,
+                                        Walk w) {
   if (++w.j < w.ntiles) return w;
   ++w.s;
   enter_hop(a, me, iq, nkt, w);
@@ -120,165 +128,86 @@ __device__ __forceinline__ bool masked(int kind, int row, int key, int T) {
          (kind == HOP_STRICT && row <= key);
 }
 
+// The 16-bit kernel's arguments: every rank's q, k and v tensor maps (by
+// value, a __grid_constant__ parameter: 3 x 64 maps of 128 bytes, 24 KiB
+// of the 32 KiB a kernel's parameters may take since CUDA 12.1) and
+// output pointers.
+struct TmaArgs {
+  CUtensorMap q[accl::kMaxRanks], k[accl::kMaxRanks], v[accl::kMaxRanks];
+  void* o[accl::kMaxRanks];
+  int* sched;  // the work counters (sm90::next_item), zero at launch
+  int P, H, T, D, nq, causal, striped, pairs, items;
+  float scale2;  // scale * log2(e)
+};
+
+// Persistent: one block per SM draws work items (sm90::next_item) from
+// the B H P nq (batch-head, rank, 128-row query tile) items, item w the
+// batch-head w / (P nq) and block_task's row w % (P nq), heaviest first:
+// the blocks in flight at once share a few heads' K/V, which stay in L2.
+// The producer loads the item's Q from rank me once, then walks (hop, key
+// tile) and loads each tile of the visiting rank's K/V into the stage
+// ring, across hops and items without draining it; the stage's record
+// tells the consumers the hop's mask kind, the tile's first key and
+// whether it is the item's last.  The consumers fold as row 16's do.
 template <typename E, int DP>
-__global__ void __launch_bounds__(128) ring_attention_mma(Args a) {
-  constexpr int SD = DP + 8;  // padded row: ldmatrix rows hit 32 banks
-  constexpr int TILE = kBK * SD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  E* buf = reinterpret_cast<E*>(smem);  // [2][K tile, V tile]
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    ring_attention_wgmma(const __grid_constant__ TmaArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const sm90::Smem<DP> sm(smem);
+  sm.init();
+  const int T = a.T, NY = a.nq * a.P;  // (rank, query tile) rows
+  const int nkt = (T + sm90::kBN - 1) / sm90::kBN;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int lr = lane & 7, lm = lane >> 3;  // ldmatrix row, matrix
-  int me, iq;
-  block_task(a, me, iq);
-  const int T = a.T, D = a.D, q0 = iq * kBQ;
-  const long long head = (long long)blockIdx.x * T * D;  // b * H + h
-  const int nkt = (T + kBK - 1) / kBK;
-
-  Walk w;
-  w.s = 0;
-  enter_hop(a, me, iq, nkt, w);  // the own hop: never skipped
-  const E* kb = static_cast<const E*>(a.k[w.origin]) + head;
-  const E* vb = static_cast<const E*>(a.v[w.origin]) + head;
-  tile_async<E, DP, SD>(buf, kb, D, 0, T, D, a.vec);
-  tile_async<E, DP, SD>(buf + TILE, vb, D, 0, T, D, a.vec);
-  cp_async_commit();
-  // Q stages through buffer 1's K tile into A fragments kept for the walk
-  const E* qb = static_cast<const E*>(a.q[me]) + head;
-  load_tile<E, DP, SD, 128>(buf + 2 * TILE, qb, D, q0, T, D, a.vec);
-  __syncthreads();
-  uint32_t qf[DP / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk)
-    ldsm4(qf[kk], buf + 2 * TILE + (warp * 16 + lr + (lm & 1) * 8) * SD +
-                      kk * 16 + (lm >> 1) * 8);
-  __syncthreads();  // Q read by every warp before buffer 1 is refilled
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  for (int it = 0;; ++it) {
-    const Walk nx = advance(a, me, iq, nkt, w);
-    const bool more = nx.s < a.P;
-    if (more) {
-      E* nbuf = buf + ((it + 1) & 1) * 2 * TILE;
-      const E* nk = static_cast<const E*>(a.k[nx.origin]) + head;
-      const E* nv = static_cast<const E*>(a.v[nx.origin]) + head;
-      tile_async<E, DP, SD>(nbuf, nk, D, nx.j * kBK, T, D, a.vec);
-      tile_async<E, DP, SD>(nbuf + TILE, nv, D, nx.j * kBK, T, D, a.vec);
-      cp_async_commit();
-      cp_async_wait<1>();  // this tile has landed, the next may be in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const E* Ks = buf + (it & 1) * 2 * TILE;
-    const E* Vs = Ks + TILE;
-    const int k0 = w.j * kBK;
-
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kBK / 8; n += 2) {  // key tiles n and n + 1
-        uint32_t kf[4];
-        ldsm4(kf, Ks + (n * 8 + lr + (lm >> 1) * 8) * SD + kk * 16 +
-                      (lm & 1) * 8);
-        mma<E>(s[n], qf[kk], kf[0], kf[1]);
-        mma<E>(s[n + 1], qf[kk], kf[2], kf[3]);
+  if (threadIdx.x < 128) {  // the producer
+    sm90::regs_down<sm90::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::Ring qr, kv;
+      for (int w; (w = sm90::next_item(a.sched, a.items)) >= 0;) {
+        int me, iq;
+        block_task(a, w % NY, me, iq);
+        const int b = (w / NY) / a.H, h = (w / NY) % a.H;
+        sm.load_q(qr, &a.q[me], w, iq * sm90::kBM, h, b);
+        Walk wk;
+        wk.s = 0;
+        enter_hop(a, me, iq, nkt, wk);  // the own hop: never skipped
+        while (wk.s < a.P) {
+          const Walk nx = advance(a, me, iq, nkt, wk);
+          const sm90::Record rec = {wk.kind, wk.j * sm90::kBN, nx.s >= a.P,
+                                    0};
+          sm.load_kv(kv, &a.k[wk.origin], &a.v[wk.origin],
+                     wk.j * sm90::kBN, h, b, &rec);
+          wk = nx;
+        }
       }
+      sm.end_items(qr);
     }
-
-    // scale, mask (only the diagonal tile of a causal hop and the ragged
-    // last tile)
-    const bool edge = (w.kind >= HOP_TRI && w.j == iq) || k0 + kBK > T;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * a.scale;
-        if (edge && masked(w.kind, row[e >> 1], k0 + n * 8 + 2 * t + (e & 1),
-                           T))
-          x = kNeg;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = expf(m[r] - mx[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        sum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * alpha[r] + sum[r];
-    }
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // acc += P V: the score accumulators of key tiles 2c and 2c + 1 are
-    // the A fragment of keys 16c..16c+15 (rounded to the operand dtype)
-#pragma unroll
-    for (int c = 0; c < kBK / 16; ++c) {
-      const uint32_t pa[4] = {
-          pack<E>(s[2 * c][0], s[2 * c][1]),
-          pack<E>(s[2 * c][2], s[2 * c][3]),
-          pack<E>(s[2 * c + 1][0], s[2 * c + 1][1]),
-          pack<E>(s[2 * c + 1][2], s[2 * c + 1][3]),
-      };
-#pragma unroll
-      for (int n = 0; n < DP / 8; n += 2) {  // head-dim tiles n and n + 1
-        uint32_t vf[4];
-        ldsm4_t(vf, Vs + (c * 16 + lr + (lm & 1) * 8) * SD + n * 8 +
-                        (lm >> 1) * 8);
-        mma<E>(acc[n], pa, vf[0], vf[1]);
-        mma<E>(acc[n + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer
-    if (!more) break;
-    w = nx;
-  }
-
-  // epilogue: rows past T are never written
-  E* ob = static_cast<E*>(a.o[me]) + head;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= T) continue;
-    const float den = fmaxf(l[r], 1e-30f);
-    E* orow = ob + (long long)row[r] * D;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      if (c < D) orow[c] = accl::from_float<E>(acc[n][2 * r] / den);
-      if (c + 1 < D) orow[c + 1] = accl::from_float<E>(acc[n][2 * r + 1] / den);
+  } else {  // the consumers
+    sm90::regs_up<sm90::kConsumerRegs>();
+    // the consumer warpgroup, warp-uniform (shuffled from lane 0) so that
+    // its shared addresses and wgmma descriptors live in uniform registers
+    const int cw = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) - 1;
+    const int tid = threadIdx.x % 128;
+    sm90::Ring qr, kv;
+    for (int w; (w = sm.wait_item(qr)) >= 0; qr.next<2>()) {
+      int me, iq;
+      block_task(a, w % NY, me, iq);
+      sm90::Fold<E, DP> f;
+      f.init(iq * sm90::kBM + cw * 64 + (tid / 32) * 16 + (tid % 32) / 4);
+      sm90::consume(
+          sm, f, kv, qr, cw, a.scale2,
+          [=](int, int stage, int& k0, bool& edge, int& kind) {
+            const sm90::Record r = sm.recs[stage];
+            k0 = r.k0;
+            kind = r.kind;
+            edge = (kind >= HOP_TRI && k0 == iq * sm90::kBN) ||
+                   k0 + sm90::kBN > T;
+            return r.last != 0;
+          },
+          [=](int kind, int row, int key) {
+            return masked(kind, row, key, T);
+          });
+      f.store(static_cast<E*>(a.o[me]) + (long long)(w / NY) * T * a.D, a.D,
+              T, a.D, a.pairs, nullptr);
     }
   }
 }
@@ -299,7 +228,7 @@ __global__ void __launch_bounds__(256) ring_attention_f32(Args a) {
 
   const int r = threadIdx.x >> 2, u = threadIdx.x & 3;
   int me, iq;
-  block_task(a, me, iq);
+  block_task(a, blockIdx.y, me, iq);
   const int T = a.T, D = a.D, q0 = iq * kBQ, row = q0 + r;
   const long long head = (long long)blockIdx.x * T * D;
   const int nkt = (T + kBK - 1) / kBK;
@@ -377,12 +306,6 @@ __global__ void __launch_bounds__(256) ring_attention_f32(Args a) {
   }
 }
 
-template <typename E, int DP>
-int launch_mma(dim3 grid, const Args& a, cudaStream_t s) {
-  return launch(ring_attention_mma<E, DP>, grid, 128,
-                4 * kBK * (DP + 8) * sizeof(E), a, s);
-}
-
 template <int DP>
 int launch_f32(dim3 grid, const Args& a, cudaStream_t s) {
   const size_t smem =
@@ -390,59 +313,103 @@ int launch_f32(dim3 grid, const Args& a, cudaStream_t s) {
   return launch(ring_attention_f32<DP>, grid, 256, smem, a, s);
 }
 
+template <typename E, int DP>
+int launch_wgmma(dim3 grid, const TmaArgs& a, cudaStream_t s) {
+  return launch(ring_attention_wgmma<E, DP>, grid, sm90::kThreads,
+                sm90::Layout<DP>::kDynamic, a, s);
+}
+
 template <typename E>
-int launch_dtype(int dp, dim3 grid, const Args& a, cudaStream_t s) {
-  switch (dp) {
-    case 32: return launch_mma<E, 32>(grid, a, s);
-    case 64: return launch_mma<E, 64>(grid, a, s);
-    case 128: return launch_mma<E, 128>(grid, a, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+int launch_16bit(int dp, dim3 grid, const TmaArgs& a, cudaStream_t s) {
+  return dp <= 64 ? launch_wgmma<E, 64>(grid, a, s)
+                  : launch_wgmma<E, 128>(grid, a, s);
 }
 
 }  // namespace
 
-// q[r], k[r], v[r], o[r]: rank r's (B, H, T, D) tensors, contiguous, all
-// ranks one shape and dtype.  D <= 128; P * ceil(T / 64) <= 65535.
-// Returns cudaGetLastError() after the launch (0 on success).
+// q[r], k[r], v[r], o[r]: rank r's (B, H, T, D) tensors, all ranks one
+// shape and dtype.  float32: contiguous, tma null.  bfloat16 / float16: o
+// contiguous; tma = the geometry of every rank's q, then k, then v (3 P x
+// 9 values, ops/cuda/attention.py::_tma_geometry), whose maps may hold a
+// head dim padded with zeros past D, and sched two int32 work counters,
+// zero, which the launch leaves zero.  D <= 128; P * ceil(T / 64) <= 65535
+// (float32), P * ceil(T / 128) <= 65535 (16-bit).  Returns 0 or a
+// cudaError_t (after the launch, cudaGetLastError()).
 extern "C" int accl_ring_attention(const void* const* q, const void* const* k,
                                    const void* const* v, void* const* o,
-                                   int P, int B, int H, int T, int D,
-                                   int dtype, int causal, int striped,
-                                   int vec, float scale, void* stream) {
+                                   const long long* tma, int* sched, int P,
+                                   int B, int H,
+                                   int T, int D, int dtype, int causal,
+                                   int striped, int vec, float scale,
+                                   void* stream) {
   if (P < 1 || P > accl::kMaxRanks || B <= 0 || H <= 0 || T <= 0 || D <= 0 ||
-      D > 128)
+      D > 128 || (long long)B * H > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long nq = (T + kBQ - 1) / kBQ;
-  if (nq * P > 65535 || (long long)B * H > 0x7fffffffLL)
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32) {
+    const long long nq = (T + kBQ - 1) / kBQ;
+    if (nq * P > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    Args a;
+    for (int r = 0; r < P; ++r) {
+      a.q[r] = q[r];
+      a.k[r] = k[r];
+      a.v[r] = v[r];
+      a.o[r] = o[r];
+    }
+    a.P = P;
+    a.T = T;
+    a.D = D;
+    a.nq = static_cast<int>(nq);
+    a.causal = causal;
+    a.striped = striped;
+    const int dp = padded_dim(D);
+    a.vec = vec && D == dp;  // the vector path reads whole padded rows
+    a.scale = scale;
+    const dim3 grid((unsigned)(B * H), (unsigned)(nq * P));
+    switch (dp) {
+      case 32: return launch_f32<32>(grid, a, s);
+      case 64: return launch_f32<64>(grid, a, s);
+      case 128: return launch_f32<128>(grid, a, s);
+    }
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
+  }
+  if ((dtype != DT_BF16 && dtype != DT_F16) || !tma || !sched)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nq = (T + sm90::kBM - 1) / sm90::kBM;
+  if (nq * P > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  TmaArgs a;
+  a.sched = sched;
+  const void* const* ptrs[3] = {q, k, v};
+  CUtensorMap* maps[3] = {a.q, a.k, a.v};
+  int dp = 64;
+  for (int i = 0; i < 3; ++i) {
+    for (int r = 0; r < P; ++r) {
+      const long long* g = tma + 9 * (i * P + r);
+      if (!sm90::standard_box(g) || g[0] < D || g[0] > 128)
+        return static_cast<int>(cudaErrorInvalidValue);
+      if (g[0] > 64) dp = 128;
+      const int e = sm90::encode(&maps[i][r], ptrs[i][r], g, dtype);
+      if (e) return e;
+    }
+  }
+  bool pairs = D % 2 == 0;
   for (int r = 0; r < P; ++r) {
-    a.q[r] = q[r];
-    a.k[r] = k[r];
-    a.v[r] = v[r];
     a.o[r] = o[r];
+    pairs = pairs && reinterpret_cast<uintptr_t>(o[r]) % 4 == 0;
   }
   a.P = P;
+  a.H = H;
   a.T = T;
   a.D = D;
   a.nq = static_cast<int>(nq);
   a.causal = causal;
   a.striped = striped;
-  const int dp = padded_dim(D);
-  a.vec = vec && D == dp;  // the vector path reads whole padded rows
-  a.scale = scale;
-  const dim3 grid((unsigned)(B * H), (unsigned)(nq * P));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case DT_BF16: return launch_dtype<__nv_bfloat16>(dp, grid, a, s);
-    case DT_F16: return launch_dtype<__half>(dp, grid, a, s);
-    case DT_F32:
-      switch (dp) {
-        case 32: return launch_f32<32>(grid, a, s);
-        case 64: return launch_f32<64>(grid, a, s);
-        case 128: return launch_f32<128>(grid, a, s);
-      }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  a.pairs = pairs;
+  a.scale2 = scale * sm90::kLog2e;
+  const long long items = (long long)B * H * nq * P;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  a.items = static_cast<int>(items);
+  const dim3 grid(sm90::persistent_grid(items));
+  return dtype == DT_BF16 ? launch_16bit<__nv_bfloat16>(dp, grid, a, s)
+                          : launch_16bit<__half>(dp, grid, a, s);
 }

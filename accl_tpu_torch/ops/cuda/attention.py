@@ -19,12 +19,20 @@ Row 15, :func:`ring_attention` (the TPU entry ``ring_attention`` :216,
 kernel ``_attention_kernel`` :111), is ``csrc/ring_attention.cu`` with
 :func:`ring_attention_plain` beside it.  Its ranks are virtual: each
 rank's shard is its own tensor on one device, and one launch folds every
-rank's query tiles over every rank's K/V through pointer tables.
+rank's query tiles over every rank's K/V.
+
+The 16-bit forwards of rows 16 and 15 share one fold core
+(``csrc/flash_sm90.cuh``: wgmma tiles fed by TMA) and read each operand
+through a 4-D tensor map, whose geometry :func:`_tma_geometry` works out
+here; an operand TMA cannot address where it lies is copied first
+(:func:`_tma_operand`, counted in :data:`tma_copies`).  float32 operands
+take FFMA kernels (no TF32).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -43,6 +51,11 @@ from ._common import (
 
 #: widest head dim the kernel takes (its register tiles hold D <= 128)
 MAX_HEAD_DIM = 128
+#: the 16-bit kernels' tiles: 128 rows (query rows of a block, keys of a
+#: K/V tile), loaded by TMA in boxes of 64 columns (one 128-byte swizzle
+#: row of 16-bit elements)
+TILE_ROWS = 128
+BOX_COLS = 64
 
 _NEG = -1e30
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -57,9 +70,11 @@ def _flash_block(T: int, dtype: torch.dtype, block: int) -> int:
     return min(max(block // sub * sub, sub), (T + sub - 1) // sub * sub)
 
 
-def online_softmax_fold(q, k, v, causal: bool, block: int):
+def online_softmax_fold(q, k, v, causal: bool, block: int,
+                        scale: float | None = None):
     """The online-softmax fold over key tiles of ``block`` keys: q
-    (..., T, D), k/v broadcastable to q's leading dims.  Scores and the
+    (..., T, D), k/v broadcastable to q's leading dims, scores scaled by
+    ``scale`` (default ``1/sqrt(D)``).  Scores and the
     (m, l, acc) state in float32 (16-bit operands are widened exactly, so
     each product is the one an f32-accumulating matmul forms), masked
     scores -1e30, probabilities rounded to v's dtype before P @ V.
@@ -69,7 +84,8 @@ def online_softmax_fold(q, k, v, causal: bool, block: int):
     are wholly masked, and after the first tile (key 0 is always visible)
     they add exact zeros."""
     T, D = q.shape[-2], q.shape[-1]
-    scale = 1.0 / D ** 0.5
+    if scale is None:
+        scale = 1.0 / D ** 0.5
     qf = q.float()
     q_pos = torch.arange(T, device=q.device)[:, None]
     m = torch.full(q.shape[:-1] + (1,), _NEG, dtype=torch.float32,
@@ -230,17 +246,30 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
     return _group_sum(dk, Hkv, k.dtype), _group_sum(dv, Hkv, v.dtype)
 
 
-def _kernel_operands(what: str, q, *others):
+def _fwd_rows(dtype: torch.dtype) -> int:
+    """Query rows of one block of the forward kernels: 128 for the 16-bit
+    wgmma kernels (rows 15 and 16), 64 for the float32 FFMA kernels (and
+    the backward kernels, whatever the dtype)."""
+    return 64 if dtype == torch.float32 else TILE_ROWS
+
+
+def _grid_fits(T: int, rows: int, ranks: int = 1) -> bool:
+    """Whether ``ranks`` x ceil(T / rows) query blocks fit the kernels'
+    grid (its y dimension, at most 65535)."""
+    return ranks * -(-T // rows) <= 65535
+
+
+def _kernel_operands(what: str, q, *others, rows: int = 64):
     """The kernels' contract: float32, bfloat16 or float16, D <=
-    ``MAX_HEAD_DIM``, at most 65535 blocks of 64 rows, each operand's head
-    dim contiguous (else it is copied).  Returns the operands and whether
-    every one allows 16-byte loads."""
+    ``MAX_HEAD_DIM``, at most 65535 blocks of ``rows`` rows, each
+    operand's head dim contiguous (else it is copied).  Returns the
+    operands and whether every one allows 16-byte loads."""
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{what} takes f32/bf16/f16, got {q.dtype}")
     T, D = q.shape[2], q.shape[3]
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}, the kernel's limit")
-    if -(-T // 64) > 65535:
+    if not _grid_fits(T, rows):
         raise ValueError(f"sequence length {T} exceeds the kernel's grid")
     ts = tuple(t if t.stride(-1) == 1 else t.contiguous()
                for t in (q, *others))
@@ -251,18 +280,113 @@ def _kernel_operands(what: str, q, *others):
     return ts, vec
 
 
+def _tma_geometry(t, box_rows: int, box_cols: int):
+    """The 4-D tensor map of a (B, H, T, D) operand, as the C side encodes
+    it: ``(dims, strides, box)`` with dims ``(D, T, H, B)`` innermost
+    first, the byte strides of T, H and B, and the box ``(box_cols,
+    box_rows, 1, 1)``.  T stays a real boundary (TMA zero-fills the rows
+    of a tile at or past it, and the columns at or past D), and the
+    operand's own strides are kept (a transposed view needs no copy).  A
+    dimension of extent 1 is never stepped over, so its stride is given
+    as the whole extent inside it, rounded up to 16 bytes."""
+    B, H, T, D = t.shape
+    es = t.element_size()
+    strides, inner = [], D * es
+    for size, stride in ((T, t.stride(2)), (H, t.stride(1)),
+                         (B, t.stride(0))):
+        s = stride * es if size > 1 else -(-inner // 16) * 16
+        strides.append(s)
+        inner = s * size
+    return (D, T, H, B), tuple(strides), (box_cols, box_rows, 1, 1)
+
+
+def _tma_ready(t) -> bool:
+    """Whether TMA can address the operand where it lies: a 16-byte
+    aligned base, the head dim contiguous, every stride a multiple of 16
+    bytes."""
+    _, strides, _ = _tma_geometry(t, TILE_ROWS, BOX_COLS)
+    return (t.data_ptr() % 16 == 0 and t.stride(3) == 1
+            and all(s % 16 == 0 for s in strides))
+
+
+def _tma_operand(t):
+    """The operand, or, where TMA cannot address it (:func:`_tma_ready`),
+    a contiguous copy with the head dim padded with zeros to a multiple of
+    8 (16 bytes), counted in :data:`tma_copies`.  The zero columns add
+    nothing to a score or an output column below D, and the scale stays
+    that of the logical head dim."""
+    if _tma_ready(t):
+        return t
+    B, H, T, D = t.shape
+    out = t.new_zeros((B, H, T, -(-D // 8) * 8))
+    out[..., :D] = t
+    tma_copies.bump()
+    return out
+
+
+def _tma_table(ts):
+    """The geometries of the operands, 9 values each, as a C array."""
+    vals = []
+    for t in ts:
+        dims, strides, box = _tma_geometry(t, TILE_ROWS, BOX_COLS)
+        vals += [*dims, *strides, *box[:2]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+#: the C arrays of the 16-bit kernels' host arguments by the operands'
+#: layout (see :func:`_tma_args`): a serving or training loop calls with
+#: the same few layouts over and over, and the host path is what a short
+#: sequence waits for
+_TMA_ARGS: dict = {}
+
+
+def _tma_args(ts, out, key):
+    """The operands as the 16-bit kernels read them (each through
+    :func:`_tma_operand`) and ``(table, strides)``: the C array of their
+    geometries and, when ``out`` is given, of the (b, h, t) strides of
+    the first three and ``out`` (:func:`_strides`).  When every operand
+    is read where it lies, the arrays are kept under ``key``, the
+    caller's statement of the layout (dtype, shapes, strides), for the
+    next call with a 16-byte-aligned base."""
+    copied = [_tma_operand(t) for t in ts]
+    arrays = (_tma_table(copied),
+              None if out is None else _strides(*copied[:3], out))
+    if all(a is b for a, b in zip(copied, ts)):
+        if len(_TMA_ARGS) >= 256:
+            _TMA_ARGS.clear()
+        _TMA_ARGS[key] = arrays
+    return copied, arrays
+
+
+#: the 16-bit kernels' work counters by (device, stream): two int32 that
+#: every launch's blocks draw their work items from and leave at zero, so
+#: launches in turn on one stream share them and other streams get theirs
+_COUNTERS: dict = {}
+
+
+def _work_counters(device, stream) -> int:
+    """The device pointer of ``stream``'s work counters on ``device``."""
+    key = (device, stream.value)
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        buf = _COUNTERS[key] = torch.zeros(2, dtype=torch.int32,
+                                           device=device)
+    return buf.data_ptr()
+
+
 def _strides(*ts):
     """The (b, h, t) element strides of each tensor, as a C array."""
     return (ctypes.c_longlong * (3 * len(ts)))(
         *[s for t in ts for s in t.stride()[:3]])
 
 
+@functools.cache
 def _lib():
     lib = _build.library("attention")
     lib.accl_flash_attention.restype = ctypes.c_int
     lib.accl_flash_attention.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_void_p,
@@ -270,6 +394,7 @@ def _lib():
     return lib
 
 
+@functools.cache
 def _bwd_lib():
     lib = _build.library("attention_bwd")
     shape_args = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
@@ -282,25 +407,40 @@ def _bwd_lib():
 
 def _forward(q, k, v, causal: bool, with_lse: bool):
     """The forward on either device: the plain version for CPU tensors,
-    the kernel for CUDA ones."""
+    the kernel for CUDA ones (float32: the FFMA kernel; 16-bit: the wgmma
+    kernel, its operands read through TMA)."""
     if not on_cuda([q, k, v]):
         return flash_attention_plain(q, k, v, causal, with_lse=with_lse)
-    (q, k, v), vec = _kernel_operands("flash_attention", q, k, v)
+    (q, k, v), vec = _kernel_operands("flash_attention", q, k, v,
+                                      rows=_fwd_rows(q.dtype))
     B, H, T, D = q.shape
     out = torch.empty_like(q)  # q's strides when dense, else contiguous
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if B * H * T * D == 0:
         return (out, lse) if with_lse else out
+    stream = stream_of(q.device)
+    if q.dtype == torch.float32:
+        tma, strides, sched = None, _strides(q, k, v, out), None
+    else:
+        sched = _work_counters(q.device, stream)
+        key = (q.dtype, q.shape, q.stride(), k.shape, k.stride(), v.stride(),
+               out.stride())
+        hit = _TMA_ARGS.get(key)
+        if hit is None or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+            (q, k, v), hit = _tma_args((q, k, v), out, key)
+        tma, strides = hit
     lib = _lib()
     rc = lib.accl_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), _strides(q, k, v, out),
+        None if lse is None else lse.data_ptr(), strides, tma, sched,
         B, H, k.shape[1], T, D, int(torch_to_dtype(q.dtype)), int(causal),
-        int(vec), 1.0 / D ** 0.5, stream_of(q.device),
+        int(vec), 1.0 / D ** 0.5, stream,
     )
     check_launch(lib, rc, "flash_attention")
     flash_attention.launches.bump()
+    if tma is not None:
+        flash_attention.wgmma_launches.bump()
     return (out, lse) if with_lse else out
 
 
@@ -410,7 +550,8 @@ def flash_attention(q, k, v, causal: bool = True, *, with_lse: bool = False):
     :class:`_Flash`, whose backward launches the dQ and dK/dV kernels.
     CPU tensors take the plain versions.  CUDA tensors launch the kernels
     (float32, bfloat16 or float16, D <= ``MAX_HEAD_DIM``, the head dim
-    contiguous; the output takes q's strides) or raise."""
+    contiguous, else copied; the output takes q's strides) or raise; a
+    16-bit operand TMA cannot read where it lies is copied first."""
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _Flash.apply(q, k, v, causal, with_lse)
@@ -418,6 +559,11 @@ def flash_attention(q, k, v, causal: bool = True, *, with_lse: bool = False):
 
 
 flash_attention.launches = LaunchCounter()
+#: of those, the 16-bit launches: the wgmma kernel
+flash_attention.wgmma_launches = LaunchCounter()
+#: operands the 16-bit kernels (rows 15 and 16) could not read through TMA
+#: where they lay, and so copied first (:func:`_tma_operand`)
+tma_copies = LaunchCounter()
 flash_attention_bwd_dq.launches = LaunchCounter()
 flash_attention_bwd_dkv.launches = LaunchCounter()
 
@@ -507,10 +653,11 @@ def ring_attention_plain(qs, ks, vs, causal: bool = True, *,
     return outs
 
 
+@functools.cache
 def _ring_lib():
     lib = _build.library("ring_attention")
     lib.accl_ring_attention.restype = ctypes.c_int
-    lib.accl_ring_attention.argtypes = [ctypes.c_void_p] * 4 + [
+    lib.accl_ring_attention.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     return lib
 
@@ -538,25 +685,40 @@ def ring_attention(qs, ks, vs, causal: bool = True, *, striped: bool = False):
         raise ValueError(
             f"head dim {D} > {MAX_HEAD_DIM}, the ring_attention kernel's "
             f"limit (MAX_HEAD_DIM)")
-    if P * -(-T // 64) > 65535 or B * H >= 2**31:
+    if not _grid_fits(T, _fwd_rows(q0.dtype), P) or B * H >= 2**31:
         raise ValueError(f"shape {tuple(q0.shape)} over {P} ranks exceeds "
                          f"the kernel's grid")
     qs, ks, vs = ([t.contiguous() for t in ts] for ts in (qs, ks, vs))
-    outs = [torch.empty_like(q) for q in qs]
+    outs = [torch.empty((B, H, T, D), dtype=q0.dtype, device=q0.device)
+            for _ in qs]
     if B * H * T * D == 0:
         return outs
     width = 16 // q0.element_size()
     vec = D % width == 0 and aligned16(qs + ks + vs + outs)
+    stream = stream_of(q0.device)
+    tma = sched = None
+    if q0.dtype != torch.float32:  # the wgmma kernel reads through TMA
+        sched = _work_counters(q0.device, stream)
+        key = (q0.dtype, q0.shape, P)  # every operand contiguous, one shape
+        hit = _TMA_ARGS.get(key)
+        if hit is None or any(t.data_ptr() % 16 for t in qs + ks + vs):
+            ts, hit = _tma_args(qs + ks + vs, None, key)
+            qs, ks, vs = ts[:P], ts[P:2 * P], ts[2 * P:]
+        tma = hit[0]
     lib = _ring_lib()
     rc = lib.accl_ring_attention(
         pointer_table(qs), pointer_table(ks), pointer_table(vs),
-        pointer_table(outs), P, B, H, T, D, int(torch_to_dtype(q0.dtype)),
-        int(causal), int(striped), int(vec), 1.0 / D ** 0.5,
-        stream_of(q0.device),
+        pointer_table(outs), tma, sched, P, B, H, T, D,
+        int(torch_to_dtype(q0.dtype)), int(causal), int(striped), int(vec),
+        1.0 / D ** 0.5, stream,
     )
     check_launch(lib, rc, "ring_attention")
     ring_attention.launches.bump()
+    if tma is not None:
+        ring_attention.wgmma_launches.bump()
     return outs
 
 
 ring_attention.launches = LaunchCounter()
+#: of those, the 16-bit launches: the wgmma kernel
+ring_attention.wgmma_launches = LaunchCounter()

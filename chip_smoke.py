@@ -11,7 +11,11 @@ Phases (any failure exits non-zero):
    the copy against its input; a false probe fails the run with its
    reason, before anything else is built or run;
 1. build every kernel from ``accl_tpu_torch/csrc`` (one nvcc per source,
-   in parallel);
+   in parallel) and report the attention kernels at bf16 D 128 (ptxas's
+   registers and spills, and the wgmma kernels' dynamic shared memory);
+   fail if a wgmma kernel (rows 16 and 15) spills, if ptxas serialised
+   its wgmmas (C7513), or if ``cuobjdump -sass`` finds no HGMMA in
+   ``attention`` or ``ring_attention``;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes — float results must match EXACTLY (same operation
    order, same round-to-nearest-even; NaN positions must agree), except
@@ -55,9 +59,15 @@ Phases (any failure exits non-zero):
    causal and full, bf16 / f16 / f32, D 24, 64 and 128, T_local 200, 64
    and 136 over P 4, 3 and 1, and the main path's 4 x (2, 32, 1024, 128)
    bf16, within 2e-5 (float32) or 1e-2 (16-bit) of its plain version;
-   each of these calls launches its kernel exactly once;
+   each of these calls launches its kernel exactly once, every 16-bit one
+   through the wgmma kernel (``wgmma_launches``) and every float32 one
+   through the FFMA kernel; row 16 also reads the transformer's
+   transposed head views in place (no copy) and copies a misaligned and a
+   head-dim-20 operand first (``attention.tma_copies``, 3 each);
 3. the main paths, each with every kernel's launch counter zeroed just
-   before and read just after:
+   before and read just after (rows 16 and 15: every launch of the
+   serving, training and sequence-parallel paths through the wgmma
+   kernel, ``all_wgmma``):
    a. the allreduce path: ``cuda_group(4)``, one thread per rank, 16M
       float32 (64 MiB) per rank — three ``pallas_ring`` allreduces
       (4 segments), one with a bfloat16 wire, one ``pallas_ring_bidir``,
@@ -154,7 +164,12 @@ Phases (any failure exits non-zero):
    beside P x ``torch.cat``; row 15 at the main path's contiguous causal
    shards (striped and full as extra keys) beside
    ``scaled_dot_product_attention(is_causal=True)`` on the full sequence,
-   bounded by the tensor cores' bf16 rate;
+   bounded by the tensor cores' bf16 rate; rows 16 and 15 at each of those
+   shapes also by device time alone (``device_ms``), with their rate over
+   the pairs the run needs, the share of the bound they reach and SDPA's
+   time on the same work (non-causal SDPA beside row 15's full layout);
+   K3's library figure writes every rank's gathered output (P x
+   ``torch.cat(blocks, out=)``), as the kernel does;
 5. time the facade end to end (host clock around each synchronous call
    on rank 0's thread, rendezvous included) at 256 KiB, 4 MiB and 64 MiB
    per rank: the allreduce under ``xla``, ``pallas_ring`` and
@@ -1176,9 +1191,29 @@ FLASH_CASES = [
 ]
 
 
+#: the kernels whose 16-bit launches take a wgmma kernel (rows 16 and 15),
+#: each counting those in ``wgmma_launches`` beside ``launches``
+WGMMA_KERNELS = ("flash_attention", "ring_attention")
+
+
 def reset_launches(kc) -> None:
     for k in kc.KERNELS.values():
         k.launches.reset()
+    for name in WGMMA_KERNELS:
+        kc.KERNELS[name].wgmma_launches.reset()
+
+
+def all_wgmma(kc, what: str) -> dict:
+    """Every launch of rows 15 and 16 since the counters were zeroed was
+    16-bit and took the wgmma kernel; returns the wgmma launches."""
+    got = {}
+    for name in WGMMA_KERNELS:
+        f = kc.KERNELS[name]
+        got[name] = f.wgmma_launches.count
+        if got[name] != f.launches.count:
+            fail(f"{what}: {f.launches.count} {name} launches, "
+                 f"{got[name]} of them through the wgmma kernel")
+    return got
 
 
 def read_launches(kc) -> dict:
@@ -1214,9 +1249,14 @@ def check_flash(kc, err) -> None:
                    .to(dtype) for h in (H, Hkv, Hkv))
         tag = f"flash (B,H,Hkv,T,D)={(B, H, Hkv, T, D)} {dt} causal={causal}"
         before = ka.flash_attention.launches.count
+        wgmma = ka.flash_attention.wgmma_launches.count
         got = ka.flash_attention(q, k, v, causal, with_lse=lse)
         if ka.flash_attention.launches.count != before + 1:
             fail(f"{tag}: the kernel did not launch")
+        if ka.flash_attention.wgmma_launches.count != wgmma + (
+                dtype != torch.float32):
+            fail(f"{tag}: 16-bit launches take the wgmma kernel, float32 "
+                 f"ones the FFMA kernel")
         want = ka.flash_attention_plain(q, k, v, causal, with_lse=lse)
         torch.cuda.synchronize()
         if lse:
@@ -1234,6 +1274,7 @@ def check_flash(kc, err) -> None:
             err["flash_attention"],
             float((got.float() - want.float()).abs().max()))
         del q, k, v, got, want
+    flash_views(ka, dev, err)
     # a call that needs a gradient runs the autograd Function: the
     # forward with its LSE, then the dQ and dK/dV kernels once each
     q = torch.randn(1, 2, 32, 16, device=dev, requires_grad=True)
@@ -1247,6 +1288,57 @@ def check_flash(kc, err) -> None:
     torch.cuda.synchronize()
     print(f"flash_attention: {len(FLASH_CASES)} cases agree with "
           f"flash_attention_plain (max abs err {err['flash_attention']})",
+          flush=True)
+
+
+def flash_views(ka, dev, err) -> None:
+    """Phase 2 for row 16's operands: the wgmma kernel reads them through
+    TMA where they lie.  The transformer's head tensors, (B, T, H D)
+    projections viewed as (B, H, T, D) (``models/transformer.py``
+    ``heads``), take no copy; a base misaligned by one element, and a head
+    dim of 20 (40-byte rows), are copied first, one counted copy
+    (``attention.tma_copies``) an operand.  Each within the 16-bit
+    tolerances of ``check_flash`` of the plain version."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    x = randn(2, 1024, 3 * 16 * 128)
+    heads = [t.reshape(2, 1024, 16, 128).transpose(1, 2)
+             for t in x.split(16 * 128, dim=2)]
+    misaligned = [randn(2, 4, 200, 129)[..., 1:] for _ in range(3)]
+    narrow = [randn(1, 4, 200, 20, dtype=torch.float16) for _ in range(3)]
+    for tag, (q, k, v), copies in (("transposed view", heads, 0),
+                                   ("misaligned view", misaligned, 3),
+                                   ("head dim 20", narrow, 3)):
+        counts = (ka.flash_attention.launches.count,
+                  ka.flash_attention.wgmma_launches.count,
+                  ka.tma_copies.count)
+        got, got_lse = ka.flash_attention(q, k, v, True, with_lse=True)
+        moved = (ka.flash_attention.launches.count - counts[0],
+                 ka.flash_attention.wgmma_launches.count - counts[1],
+                 ka.tma_copies.count - counts[2])
+        if moved != (1, 1, copies):
+            fail(f"flash {tag}: (launches, wgmma launches, copies) {moved}, "
+                 f"want (1, 1, {copies})")
+        want, want_lse = ka.flash_attention_plain(q, k, v, True,
+                                                  with_lse=True)
+        torch.cuda.synchronize()
+        d = float((got_lse - want_lse).abs().max())
+        if not d <= 1e-4:
+            fail(f"flash {tag}: lse differs by {d}")
+        e = float((got.float() - want.float()).abs().max())
+        if got.shape != want.shape or not torch.isfinite(got).all() or \
+                not torch.allclose(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2):
+            fail(f"flash {tag}: max abs err {e}")
+        err["flash_attention"] = max(err["flash_attention"], e)
+    print("flash_attention: transposed views read in place, misaligned and "
+          "narrow operands copied (3 copies each), all within tolerance",
           flush=True)
 
 
@@ -1295,6 +1387,7 @@ def serve_main_path(kc) -> dict:
     torch.cuda.synchronize()
     run_a = read_launches(kc)
     flash_launched_alone(run_a, cfg.n_layers, "run A (generate)")
+    all_wgmma(kc, "run A (generate)")
     if tokens.shape != (SERVE_B, SERVE_STEPS) or tokens.dtype != torch.int32 \
             or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab:
         fail(f"run A: tokens {tokens.dtype}{tuple(tokens.shape)} in "
@@ -1307,9 +1400,10 @@ def serve_main_path(kc) -> dict:
     torch.cuda.synchronize()
     run_b = read_launches(kc)
     flash_launched_alone(run_b, cfg.n_layers, "run B (prefill, auto)")
+    all_wgmma(kc, "run B (prefill, auto)")
     print(f"serving path ok: run A {run_a['flash_attention']} and run B "
-          f"{run_b['flash_attention']} flash launches, no other kernel",
-          flush=True)
+          f"{run_b['flash_attention']} flash launches, every one through the "
+          f"wgmma kernel, no other kernel", flush=True)
 
     # run B's logits, flash against naive: bfloat16 as run, then the same
     # weights in float32
@@ -1387,14 +1481,54 @@ def time_flash() -> dict:
         pairs = T * (T + 1) // 2  # the causal (q, k) pairs this run needs
         out[T] = dict(
             ms=time_ms(lambda: ka.flash_attention(q, k, v), iters=20),
+            device_ms=device_ms(lambda: ka.flash_attention(q, k, v),
+                                iters=20),
             plain_ms=time_ms(lambda: ka.flash_attention_plain(q, k, v)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True), iters=20),
+            library_device_ms=device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+                iters=20),
             bytes=4 * q.numel() * q.element_size(),  # q, k, v read, o written
             ops=4 * 8 * 16 * 128 * pairs,  # QK^T and PV, 2 ops a product
         )
         del q, k, v
     return out
+
+
+def print_attention_fwd(by_name, t1024, train, ring) -> None:
+    """Phase 4's lines for rows 16 and 15 at the main paths' shapes: the
+    wrapper's time (CUDA events around the calls, host path included), the
+    kernel's device time (``device_ms``), its rate over the causal pairs
+    the run needs, its bound and the share of the bound it reaches, and
+    ``scaled_dot_product_attention`` on the same work in the same run."""
+    f, r = by_name["flash_attention"], ring
+    rows = [
+        ("row 16 (8,32,1024,128) bf16 causal + LSE", train["ms"],
+         train["device_ms"], train["ops"], f["train_bound_ms"],
+         train["library_ms"], train["library_device_ms"]),
+        ("row 16 (8,16,1024,128) bf16 causal", t1024["ms"],
+         t1024["device_ms"], t1024["ops"], f["t1024_bound_ms"],
+         t1024["library_ms"], t1024["library_device_ms"]),
+        ("row 16 (8,16,128,128) bf16 causal", f["ms"], f["device_ms"],
+         4 * SERVE_B * 16 * 128 * SERVE_T * (SERVE_T + 1) // 2,
+         f["bound_ms"], f["library_ms"], f["library_device_ms"]),
+        ("row 15 4 x (2,32,1024,128) bf16 contiguous causal", r["ms"],
+         r["device_ms"], r["ops"], by_name["ring_attention"]["bound_ms"],
+         r["library_ms"], r["library_device_ms"]),
+        ("row 15 striped causal", r["striped_ms"], r["striped_device_ms"],
+         r["ops"], by_name["ring_attention"]["bound_ms"], r["library_ms"],
+         r["library_device_ms"]),
+        ("row 15 contiguous full", r["full_ms"], r["full_device_ms"],
+         r["full_ops"], by_name["ring_attention"]["full_bound_ms"],
+         r["full_library_ms"], r["full_library_device_ms"]),
+    ]
+    for name, ms, dms, ops, bnd, lib, lib_d in rows:
+        print(f"{name}: kernel_ms={ms:.4f} device_ms={dms:.4f} "
+              f"tflops={ops / dms / 1e9:.1f} bound_ms={bnd:.4f} "
+              f"of_bound={bnd / dms:.3f} sdpa_ms={lib:.4f} "
+              f"sdpa_device_ms={lib_d:.4f}", flush=True)
 
 
 def serve_timing(serve) -> dict:
@@ -1493,12 +1627,18 @@ FLASH_BWD_CASES = FLASH_CASES + [
 
 def ptxas_report(kc) -> list:
     """Registers and spill-store bytes of the flash kernels that the
-    training path runs (bf16, head dim 128), from ptxas's lines in the
-    build logs: ``[[kernel, registers, spill bytes], ...]``."""
+    training and sequence-parallel paths run (bf16, head dim 128), from
+    ptxas's lines in the build logs, and, for the two wgmma kernels (rows
+    16 and 15), their dynamic shared memory: ``[[kernel, registers, spill
+    bytes(, shared bytes)], ...]``.  Fails when a wgmma kernel spills, or
+    ptxas serialised its wgmmas (C7513), or its library's SASS holds no
+    HGMMA (``cuobjdump -sass``)."""
+    import ctypes
+    import os
     import re
 
     found, entry = {}, None
-    for lib in ("attention", "attention_bwd"):
+    for lib in ("attention", "attention_bwd", "ring_attention"):
         for line in kc._build.build_log(lib).splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
@@ -1510,10 +1650,32 @@ def ptxas_report(kc) -> list:
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and entry:
                 found[entry][1] = int(m.group(1))
-    rows = [[re.search(r"(flash_\w+?)I", e).group(1), *v]
+            if "C7513" in line and "wgmma" in line:
+                fail(f"ptxas serialised the wgmmas of csrc/{lib}.cu: {line}")
+    rows = [[re.search(r"\d((?:flash|ring_attention)_[a-z0-9_]+?)I",
+                       e).group(1), *v]
             for e, v in found.items() if "13__nv_bfloat16Li128E" in e]
     if not rows:
         fail("no ptxas register counts in the flash kernels' build logs")
+    cuobjdump = os.path.join(os.path.dirname(kc._build.nvcc()), "cuobjdump")
+    for lib, kernel in (("attention", "flash_fwd_wgmma"),
+                        ("ring_attention", "ring_attention_wgmma")):
+        smem = ctypes.CDLL(str(kc._build._lib_path(lib))).accl_wgmma_smem(128)
+        for r in rows:
+            if r[0] == kernel:
+                r.append(smem)
+                if r[2] != 0:
+                    fail(f"{kernel} spills {r[2]} bytes")
+        if not any(r[0] == kernel for r in rows):
+            fail(f"no ptxas line for {kernel}")
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(kc._build._lib_path(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        n = sass.count("HGMMA")
+        if not n:
+            fail(f"csrc/{lib}.cu's SASS holds no HGMMA")
+        rows.append([f"{lib}: HGMMA in SASS", n])
     return rows
 
 
@@ -1655,6 +1817,7 @@ def train_main_path(kc) -> dict:
                          for k, n in read_launches(kc).items()})
     torch.cuda.synchronize()
     launches = read_launches(kc)
+    all_wgmma(kc, "train steps")
     want = {k: (cfg.n_layers if k in TRAIN_KERNELS else 0)
             for k in kc.KERNELS}
     for i, got in enumerate(per_step):
@@ -1754,10 +1917,16 @@ def time_flash_bwd() -> dict:
         "fwd": dict(
             ms=time_ms(lambda: ka.flash_attention(q, k, v, True,
                                                   with_lse=True), iters=20),
+            device_ms=device_ms(lambda: ka.flash_attention(
+                q, k, v, True, with_lse=True), iters=20),
             plain_ms=time_ms(lambda: ka.flash_attention_plain(
                 q, k, v, True, with_lse=True)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True), iters=20),
+            library_device_ms=device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+                iters=20),
             bytes=4 * act + stats, ops=4 * D * pairs),
         "flash_attention_bwd_dq": dict(
             ms=time_ms(lambda: ka.flash_attention_bwd_dq(
@@ -2870,8 +3039,12 @@ def check_seq_parallel(kc, err, dev) -> None:
             tag = (f"ring_attention P={P} {shape} {dt} striped={striped} "
                    f"causal={causal}")
             before = ring.launches.count
+            wgmma = ring.wgmma_launches.count
             got = ka.ring_attention(qs, ks, vs, causal, striped=striped)
             launched_once(ring, before, tag)
+            if ring.wgmma_launches.count != wgmma + (dtype != torch.float32):
+                fail(f"{tag}: 16-bit launches take the wgmma kernel, float32 "
+                     f"ones the FFMA kernel")
             want = ka.ring_attention_plain(qs, ks, vs, causal,
                                            striped=striped)
             for r, (g, w) in enumerate(zip(got, want)):
@@ -2959,6 +3132,7 @@ def seq_parallel_main_path(kc, dev) -> dict:
     want.update(alltoall=4, ring_attention=2)
     if launches != want:
         fail(f"sequence-parallel path launched {launches}, want {want}")
+    all_wgmma(kc, "sequence-parallel path")
     for r in range(SP_P):
         compare_bits(f"ulysses row 12 vs _a2a rank {r}", uly12[r], uly[r])
     full = {
@@ -3029,19 +3203,33 @@ def time_seq_parallel(kc, dev) -> dict:
             ops=0, shape=[P] + list(flat[0].shape)),
         "ring_attention": dict(
             ms=time_ms(lambda: ka.ring_attention(*contig), iters=20),
+            device_ms=device_ms(lambda: ka.ring_attention(*contig),
+                                iters=20),
             plain_ms=time_ms(lambda: ka.ring_attention_plain(*contig),
                              iters=3, warmup=1),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True), iters=20),
+            library_device_ms=device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+                iters=20),
             bytes=4 * q.numel() * q.element_size(),
             ops=4 * SP_B * SP_H * SP_D * pairs,
             shape=[P, SP_B, SP_H, SP_T // P, SP_D],
             striped_ms=time_ms(lambda: ka.ring_attention(
                 *striped, striped=True), iters=20),
+            striped_device_ms=device_ms(lambda: ka.ring_attention(
+                *striped, striped=True), iters=20),
             striped_plain_ms=time_ms(lambda: ka.ring_attention_plain(
                 *striped, striped=True), iters=3, warmup=1),
             full_ms=time_ms(lambda: ka.ring_attention(*contig, causal=False),
                             iters=20),
+            full_device_ms=device_ms(lambda: ka.ring_attention(
+                *contig, causal=False), iters=20),
+            full_library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v), iters=20),
+            full_library_device_ms=device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v), iters=20),
             full_ops=4 * SP_B * SP_H * SP_D * SP_T * SP_T),
     }
     del glob, contig, striped, flat, q, k, v
@@ -3123,8 +3311,9 @@ def main() -> int:
     t0 = time.time()
     built = kc.build_all()
     print(f"built {built} in {time.time() - t0:.1f} s", flush=True)
-    print(f"ptxas, flash kernels at bf16 D 128 [kernel, registers, spill "
-          f"bytes]: {ptxas_report(kc)}", flush=True)
+    print(f"ptxas, attention kernels at bf16 D 128 [kernel, registers, "
+          f"spill bytes(, dynamic shared bytes)]: {ptxas_report(kc)}",
+          flush=True)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3369,7 +3558,9 @@ def main() -> int:
         "ring_allgather": dict(
             ms=time_ms(lambda: kc.ring_allgather(blocks, out=gathered)),
             plain_ms=time_ms(lambda: kc.ring_allgather_plain(blocks)),
-            library_ms=time_ms(lambda: torch.cat(blocks)),
+            # every rank's gathered output, as the kernel writes them
+            library_ms=time_ms(lambda: [torch.cat(blocks, out=g)
+                                        for g in gathered]),
             bytes=(P_MAIN + P_MAIN * P_MAIN) * (N_RANK // P_MAIN) * f4,
             ops=0,
         ),
@@ -3471,10 +3662,14 @@ def main() -> int:
                 "shape": [SERVE_B, 16, SERVE_T, 128],
                 "launches_generate": serve["run_a"],
                 "launches_prefill_1024": serve["run_b"],
+                "device_ms": flash[SERVE_T]["device_ms"],
+                "library_device_ms": flash[SERVE_T]["library_device_ms"],
                 "t1024_ms": f["ms"], "t1024_plain_ms": f["plain_ms"],
+                "t1024_device_ms": f["device_ms"],
                 "t1024_bound_ms": flash_bounds[SERVE_LONG]["bound_ms"],
                 "t1024_bound_by": flash_bounds[SERVE_LONG]["bound_by"],
                 "t1024_library_ms": f["library_ms"],
+                "t1024_library_device_ms": f["library_device_ms"],
             })
             f = bwd["fwd"]  # the training shape, with LSE
             b = bound(f["bytes"], f["ops"], TC16_OPS_PER_S)
@@ -3482,9 +3677,11 @@ def main() -> int:
                 "launches_train": train["launches"][name],
                 "train_shape": [TRAIN_B, TRAIN["n_heads"], TRAIN_T, 128],
                 "train_ms": f["ms"], "train_plain_ms": f["plain_ms"],
+                "train_device_ms": f["device_ms"],
                 "train_bound_ms": b["bound_ms"],
                 "train_bound_by": b["bound_by"],
                 "train_library_ms": f["library_ms"],
+                "train_library_device_ms": f["library_device_ms"],
             })
         if name in TRAIN_KERNELS[1:]:  # the library call's whole backward
             kernels[-1].update({
@@ -3502,11 +3699,16 @@ def main() -> int:
             kernels[-1]["shape"] = t["shape"]
         if name == "ring_attention":  # the other layouts at full width
             kernels[-1].update({
-                "shape": t["shape"], "striped_ms": t["striped_ms"],
+                "shape": t["shape"], "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"],
+                "striped_ms": t["striped_ms"],
+                "striped_device_ms": t["striped_device_ms"],
                 "striped_plain_ms": t["striped_plain_ms"],
-                "full_ms": t["full_ms"],
+                "full_ms": t["full_ms"], "full_device_ms": t["full_device_ms"],
                 "full_bound_ms": bound(t["bytes"], t["full_ops"],
                                        TC16_OPS_PER_S)["bound_ms"],
+                "full_library_ms": t["full_library_ms"],
+                "full_library_device_ms": t["full_library_device_ms"],
             })
         if name == "ring_allgather":  # the rooted gather: root output only
             g = timing["ring_gather"]
@@ -3534,21 +3736,9 @@ def main() -> int:
           f"device_ms={s_['mix_4mib_device_ms']:.4f} "
           f"bound_ms={s_['mix_4mib_bound_ms']:.4f} "
           f"plain_ms={s_['mix_4mib_plain_ms']:.4f}")
-    f = by_name["flash_attention"]
-    print(f"flash_attention (8,16,1024,128) bf16 causal: "
-          f"kernel_ms={f['t1024_ms']:.4f} bound_ms={f['t1024_bound_ms']:.4f}"
-          f" ({f['t1024_bound_by']}) plain_ms={f['t1024_plain_ms']:.4f} "
-          f"library_ms={f['t1024_library_ms']:.4f}")
-    print(f"flash_attention with LSE (8,32,1024,128) bf16 causal: "
-          f"kernel_ms={f['train_ms']:.4f} bound_ms={f['train_bound_ms']:.4f}"
-          f" ({f['train_bound_by']}) plain_ms={f['train_plain_ms']:.4f} "
-          f"library_ms={f['train_library_ms']:.4f}")
+    print_attention_fwd(by_name, flash[SERVE_LONG], bwd["fwd"],
+                        timing["ring_attention"])
     d = by_name["flash_attention_bwd_dkv"]
-    r_ = by_name["ring_attention"]
-    print(f"ring_attention 4 x (2,32,1024,128) bf16: striped_ms="
-          f"{r_['striped_ms']:.4f} striped_plain_ms="
-          f"{r_['striped_plain_ms']:.4f} full (not causal) ms="
-          f"{r_['full_ms']:.4f} bound_ms={r_['full_bound_ms']:.4f}")
     print(f"flash backward (8,32,1024,128) bf16 causal: dq + dk/dv + delta "
           f"= {d['bwd_sum_ms']:.4f} ms against scaled_dot_product_attention"
           f"'s backward {d['library_ms']:.4f} ms")

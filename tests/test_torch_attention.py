@@ -28,6 +28,7 @@ from accl_tpu.ops.pallas.attention import _flash_bwd_impl, _flash_fwd_impl
 from accl_tpu_torch import interop
 from accl_tpu_torch.ops.attention import blockwise_attention
 from accl_tpu_torch.ops.cuda import KERNELS
+from accl_tpu_torch.ops.cuda import attention as ka
 from accl_tpu_torch.ops.cuda.attention import (
     flash_attention,
     flash_attention_bwd_dkv,
@@ -273,7 +274,9 @@ def test_flash_gradient_on_the_card_runs_the_kernels():
     its LSE and the backward launches the dQ and dK/dV kernels once each;
     the gradients equal the plain backward's on the same residuals
     (float32: FFMA kernels, no TF32; rows 16-18 fold in other orders than
-    the plain versions, so within 2e-4 relative)."""
+    the plain versions, so within 2e-4 relative).  bfloat16 forwards at
+    the main paths' shapes and on the transformer's head views take the
+    wgmma kernel, with no copy."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -297,3 +300,144 @@ def test_flash_gradient_on_the_card_runs_the_kernels():
                                                    causal))
         for t, x in zip((q, k, v), want):
             torch.testing.assert_close(t.grad, x, rtol=2e-4, atol=2e-5)
+    # bfloat16 forwards go through the wgmma kernel (rows 16's 16-bit
+    # route), at the main paths' shapes and on the transformer's head
+    # views, which it reads in place: within 1e-2 (the output) and 1e-4
+    # (the LSE) of the plain version
+    kern = KERNELS["flash_attention"]
+    x = torch.randn(2, 1024, 3 * 16 * 128, device=dev).to(torch.bfloat16)
+    heads = [t.reshape(2, 1024, 16, 128).transpose(1, 2)
+             for t in x.split(16 * 128, dim=2)]
+    shapes = [(8, 16, 128), (8, 16, 1024), (8, 32, 1024)]
+    cases = [heads] + [[torch.randn(B, H, T, 128, device=dev).to(
+        torch.bfloat16) for _ in range(3)] for B, H, T in shapes]
+    for q, k, v in cases:
+        before = (kern.launches.count, kern.wgmma_launches.count,
+                  ka.tma_copies.count)
+        out, lse = flash_attention(q, k, v, True, with_lse=True)
+        torch.cuda.synchronize()
+        assert (kern.launches.count, kern.wgmma_launches.count,
+                ka.tma_copies.count) == (before[0] + 1, before[1] + 1,
+                                         before[2])
+        want, want_lse = flash_attention_plain(q, k, v, True, with_lse=True)
+        torch.testing.assert_close(out.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)
+        torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the 16-bit kernels' tensor maps (rows 15 and 16 read their operands
+# through TMA): geometry, the copy rule and the grid caps, all host-side
+# ---------------------------------------------------------------------------
+
+
+def _heads(B, T, n, hd, dtype=torch.bfloat16):
+    """The transformer's head tensors: a (B, T, n * hd) projection viewed
+    as (B, n, T, hd) (``models/transformer.py`` ``heads``), no copy."""
+    return torch.zeros(B, T, n * hd, dtype=dtype).reshape(
+        B, T, n, hd).transpose(1, 2)
+
+
+TMA_GEOMETRY = [
+    # (name, tensor, dims (D, T, H, B), byte strides of T, H, B)
+    ("contiguous", torch.zeros(2, 4, 1024, 128, dtype=torch.bfloat16),
+     (128, 1024, 4, 2), (256, 1024 * 256, 4 * 1024 * 256)),
+    ("transposed view", _heads(2, 1024, 16, 128),
+     (128, 1024, 16, 2), (16 * 256, 256, 1024 * 16 * 256)),
+    ("gqa k", _heads(2, 1024, 4, 128),  # Hkv = 4 under H = 16
+     (128, 1024, 4, 2), (4 * 256, 256, 1024 * 4 * 256)),
+    ("T 200", torch.zeros(1, 2, 200, 64, dtype=torch.float16),
+     (64, 200, 2, 1), (128, 200 * 128, 2 * 200 * 128)),
+    ("T 50", torch.zeros(1, 2, 50, 24, dtype=torch.float16),
+     (24, 50, 2, 1), (48, 50 * 48, 2 * 50 * 48)),
+    ("one row, one head", torch.zeros(3, 1, 1, 24, dtype=torch.bfloat16),
+     (24, 1, 1, 3), (48, 48, 48)),
+]
+
+
+@pytest.mark.parametrize("name,t,dims,strides", TMA_GEOMETRY,
+                         ids=[c[0] for c in TMA_GEOMETRY])
+def test_tma_geometry(name, t, dims, strides):
+    """Each map is 4-D (D, T, H, B) with the operand's own byte strides
+    (a transposed view needs no copy), T a real boundary, and the box 64
+    columns (one 128-byte swizzle row) by 128 rows: a tile of T 200 is
+    one whole box and a ragged one, T 50 one box of 78 zero-filled rows,
+    D 24 one box of 40 zero-filled columns, D 128 two boxes a row."""
+    got_dims, got_strides, box = ka._tma_geometry(t, ka.TILE_ROWS,
+                                                  ka.BOX_COLS)
+    assert got_dims == dims and got_strides == strides
+    assert box == (64, 128, 1, 1)
+    assert ka._tma_ready(t)
+    assert list(ka._tma_table([t])) == [*dims, *strides, 64, 128]
+    D, T = dims[0], dims[1]
+    assert -(-D // box[0]) == (2 if D == 128 else 1)  # boxes a tile row
+    assert -(-T // box[1]) * box[1] - T == {1024: 0, 200: 56, 50: 78,
+                                            1: 127}[T]  # zero-filled rows
+
+
+def test_tma_operand_copies_only_what_tma_cannot_read():
+    """An operand TMA can read is passed as it is; a misaligned base or a
+    row stride that is no multiple of 16 bytes is copied, contiguous, its
+    head dim padded with zeros to a multiple of 8, and counted."""
+    ok = _heads(1, 64, 2, 128)
+    before = ka.tma_copies.count
+    assert ka._tma_operand(ok) is ok and ka.tma_copies.count == before
+    misaligned = torch.randn(1, 2, 64, 129).to(torch.bfloat16)[..., 1:]
+    assert not ka._tma_ready(misaligned)
+    ragged = torch.randn(1, 2, 50, 20).to(torch.float16)  # 40-byte rows
+    assert not ka._tma_ready(ragged)
+    for t, width in ((misaligned, 128), (ragged, 24)):
+        c = ka._tma_operand(t)
+        assert c.shape == t.shape[:3] + (width,) and c.is_contiguous()
+        assert ka._tma_ready(c)
+        torch.testing.assert_close(c[..., :t.shape[-1]], t, rtol=0, atol=0)
+        assert not c[..., t.shape[-1]:].any()
+    assert ka.tma_copies.count == before + 2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tma_copy_keeps_the_result(interpreted, causal):
+    """bfloat16 operands of head dim 20 (40-byte rows) and a misaligned
+    q: all three are copied, D padded to 24 with zeros.  The copies' fold
+    (the scale of the logical D 20, the output cut back to 20 columns)
+    equals the plain version on the operands as given within the card
+    checks' 16-bit tolerance, 1e-2, and JAX's kernel within the bfloat16
+    tolerance of ``test_flash_bfloat16_equals_jax``."""
+    (jq, jk, jv), (q, k, v) = _both(_operands(21, 1, 2, 2, 50, 20),
+                                    jnp.bfloat16)
+    q = torch.cat([torch.zeros(1, 2, 50, 1, dtype=q.dtype), q], -1)[..., 1:]
+    before = ka.tma_copies.count
+    qc, kc, vc = (ka._tma_operand(t) for t in (q, k, v))
+    assert ka.tma_copies.count == before + 3
+    assert qc.shape[-1] == kc.shape[-1] == vc.shape[-1] == 24
+    out, lse = ka.online_softmax_fold(
+        qc, kc, vc, causal, ka._flash_block(50, q.dtype, 512),
+        scale=1.0 / 20 ** 0.5)
+    want, want_lse = flash_attention_plain(q, k, v, causal, with_lse=True)
+    torch.testing.assert_close(out[..., :20], want, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(
+        interop.to_numpy(out[..., :20]),
+        np.asarray(pk.flash_attention(jq, jk, jv, causal=causal)).astype(
+            np.float32), rtol=2e-2, atol=2e-2)
+
+
+def test_grid_caps():
+    """The forward's grid: 16-bit kernels take 128 query rows a block,
+    float32 ones 64; at most 65535 blocks (times the ranks for row 15)
+    along the grid's y, and the wrappers refuse more."""
+    assert ka._fwd_rows(torch.bfloat16) == ka._fwd_rows(torch.float16) == 128
+    assert ka._fwd_rows(torch.float32) == 64
+    assert ka._grid_fits(128 * 65535, 128)
+    assert not ka._grid_fits(128 * 65535 + 1, 128)
+    assert ka._grid_fits(64 * 65535, 64)
+    assert not ka._grid_fits(64 * 65535 + 1, 64)
+    assert ka._grid_fits(128 * 16383, 128, ranks=4)
+    assert not ka._grid_fits(128 * 16384 - 127, 128, ranks=4)
+    long = torch.zeros(1, 1, 64 * 65535 + 1, 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="exceeds the kernel's grid"):
+        ka._kernel_operands("flash_attention", long.float(),
+                            rows=ka._fwd_rows(torch.float32))
+    (got,), _ = ka._kernel_operands("flash_attention", long,
+                                    rows=ka._fwd_rows(long.dtype))
+    assert got is long  # 32768 blocks of 128 rows

@@ -395,10 +395,11 @@ def test_fused_hop_partial_equals_jax(hop, scale):
 
 @pytest.mark.gpu
 def test_ring_attention_kernel_on_the_card():
-    """On CUDA tensors one launch, within 2e-5 (float32: FFMA, no TF32)
-    or 1e-2 (16-bit) of the plain version; a head dim over the cap
-    raises, never the plain version; Ulysses with row 12 launches it four
-    times and equals the ``_a2a`` form bit for bit."""
+    """On CUDA tensors one launch (16-bit ones through the wgmma kernel,
+    also at the sequence-parallel path's width), within 2e-5 (float32:
+    FFMA, no TF32) or 1e-2 (16-bit) of the plain version; a head dim over
+    the cap raises, never the plain version; Ulysses with row 12 launches
+    it four times and equals the ``_a2a`` form bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -406,13 +407,18 @@ def test_ring_attention_kernel_on_the_card():
     for P, (B, H, T, D), dtype, causal, striped in (
             (4, (2, 2, 72, 24), torch.float32, True, False),
             (3, (1, 3, 128, 64), torch.bfloat16, True, True),
-            (2, (1, 2, 64, 128), torch.float16, False, False)):
+            (2, (1, 2, 64, 128), torch.float16, False, False),
+            # the sequence-parallel path's width, both layouts
+            (4, (2, 32, 1024, 128), torch.bfloat16, True, False),
+            (4, (2, 32, 1024, 128), torch.bfloat16, True, True)):
         qs, ks, vs = ([torch.randn(B, H, T, D, device=dev).to(dtype)
                        for _ in range(P)] for _ in range(3))
-        before = kern.launches.count
+        before = (kern.launches.count, kern.wgmma_launches.count)
         got = tm.ring_attention_pallas(qs, ks, vs, causal, striped=striped)
         torch.cuda.synchronize()
-        assert kern.launches.count - before == 1
+        assert kern.launches.count - before[0] == 1
+        assert kern.wgmma_launches.count - before[1] == (
+            dtype != torch.float32)  # 16-bit: the wgmma kernel
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         for g, w in zip(got, ring_attention_plain(qs, ks, vs, causal,
                                                   striped=striped)):
