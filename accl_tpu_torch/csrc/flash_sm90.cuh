@@ -1,6 +1,10 @@
-// The attention forward's fold core for Hopper (sm_90a), shared by row 16
-// (csrc/attention.cu, flash attention) and row 15 (csrc/ring_attention.cu,
-// ring attention over P ranks): what both fold is the TPU kernels' online
+// The fold core of the 16-bit attention kernels for Hopper (sm_90a): the
+// forwards of row 16 (csrc/attention.cu, flash attention) and row 15
+// (csrc/ring_attention.cu, ring attention over P ranks), and the pieces
+// the backward's dQ and dK/dV kernels (rows 17 and 18,
+// csrc/attention_bwd.cu) build on: mbarriers, TMA tile loads, wgmma
+// descriptors and products, register rebalancing, the work counter and
+// the tensor maps.  What the forwards fold is the TPU kernels' online
 // softmax (accl_tpu/ops/pallas/attention.py::_fold :77 and _flash_kernel
 // :293) in float32 over 16-bit operands.
 //
@@ -20,12 +24,12 @@
 //    layout of wgmma's A operand, and adds P V with wgmma reading A from
 //    registers and V, stored (key, d), as the transposed B operand.
 //
-// Every tile in shared memory is 128 rows of 128-byte swizzle atoms: a
-// row of DP 16-bit columns is DP / 64 atoms, each 64-column block of a
-// tile stored whole ([rows][64], 128 bytes a row, 1024-byte aligned), as
-// TMA's 128-byte swizzle writes a box of 64 columns.  TMA zero-fills rows
-// at or past T (each map keeps T as a real boundary) and columns at or
-// past D.
+// Every tile in shared memory is a block of rows (128 here; the
+// backward also streams 64-row tiles) of 128-byte swizzle atoms: a row
+// of DP 16-bit columns is DP / 64 atoms, each 64-column block of a tile
+// stored whole ([rows][64], 128 bytes a row, 1024-byte aligned), as TMA's
+// 128-byte swizzle writes a box of 64 columns.  TMA zero-fills rows at or
+// past T (each map keeps T as a real boundary) and columns at or past D.
 //
 // Accumulator layout (wgmma m64nN, f32): lane (g = lane / 4, t = lane % 4)
 // of warp w of the warpgroup holds rows 16w + g and 16w + g + 8, columns
@@ -44,7 +48,6 @@ namespace sm90 {
 constexpr int kBM = 128;             // query rows per block
 constexpr int kBN = 128;             // keys per K/V tile
 constexpr int kAtom = 64;            // 16-bit columns per 128-byte swizzle row
-constexpr int kAtomBytes = 128 * 128;  // one 64-column block of a 128-row tile
 constexpr int kStages = 2;
 constexpr int kThreads = 384;        // producer + two consumer warpgroups
 constexpr int kProducerRegs = 40;
@@ -138,15 +141,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A 128-row tile of DP columns: DP / 64 boxes of (64 columns, 128 rows),
-// each into its own 16 KB block.
-template <int DP>
+// A tile of ROWS rows of DP columns: DP / 64 boxes of (64 columns, ROWS
+// rows; the map's box), each into its own block of ROWS x 128 bytes.
+template <int DP, int ROWS = kBM>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int row0, int h,
                                          int b) {
 #pragma unroll
   for (int c = 0; c < DP / kAtom; ++c)
-    tma_load(dst + c * kAtomBytes, map, bar, c * kAtom, row0, h, b);
+    tma_load(dst + c * ROWS * 128, map, bar, c * kAtom, row0, h, b);
 }
 
 // -- warpgroup MMA -----------------------------------------------------------
@@ -160,17 +163,20 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
 }
 
-// K-major (Q as A, K as B): 8-row groups 1024 bytes apart; the leading
-// offset is unused.  Step k16 of a row is 32 bytes into its atom.
+// K-major (Q as A, K as B) in a tile of ROWS rows: 8-row groups 1024
+// bytes apart; the leading offset is unused.  Step k16 of a row is 32
+// bytes into its atom, and the atoms of a row are ROWS x 128 bytes apart.
+template <int ROWS = kBM>
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return desc(tile + (kk / 4) * kAtomBytes + (kk % 4) * 32, 16, 1024);
+  return desc(tile + (kk / 4) * ROWS * 128 + (kk % 4) * 32, 16, 1024);
 }
 
-// MN-major (V as the transposed B of P V): 64-column atoms kAtomBytes
-// apart (leading), 8-key groups 1024 bytes apart (stride).  Step k16 is
-// 16 keys, 2048 bytes.
+// MN-major (V as the transposed B of P V) in a tile of ROWS rows:
+// 64-column atoms ROWS x 128 bytes apart (leading), 8-row groups 1024
+// bytes apart (stride).  Step k16 is 16 rows, 2048 bytes.
+template <int ROWS = kBM>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return desc(tile + kk * 2048, kAtomBytes, 1024);
+  return desc(tile + kk * 2048, ROWS * 128, 1024);
 }
 
 // v, computed here: the compiler may not sink its computation past this
@@ -255,6 +261,46 @@ __device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da,
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+}
+
+// d (+)= A (smem, K-major) * B (smem, K-major), m64n64k16, f32
+// accumulate; accumulate == 0 overwrites d
+template <typename E>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  if constexpr (std::is_same<E, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(accumulate));
   }
 }
@@ -749,18 +795,20 @@ inline PFN_cuTensorMapEncodeTiled encoder() {
 
 // Encode the 4-D map of a 16-bit (B, H, T, D) operand at base from its
 // geometry g, 9 values from ops/cuda/attention.py::_tma_geometry: dims
-// (D, T, H, B), the byte strides of T, H and B, the box (columns, rows).
-// 128-byte swizzle; out-of-bounds elements read as zero.  Returns 0 or a
-// cudaError_t.
+// (D, T, H, B), the byte strides of T, H and B, the box (columns, rows),
+// the box's rows replaced by `rows` when it is not 0 (the backward's
+// 64-row tiles).  128-byte swizzle; out-of-bounds elements read as zero.
+// Returns 0 or a cudaError_t.
 inline int encode(CUtensorMap* map, const void* base, const long long* g,
-                  int dtype) {
+                  int dtype, int rows = 0) {
   const PFN_cuTensorMapEncodeTiled fn = encoder();
   if (!fn) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[4] = {(cuuint64_t)g[0], (cuuint64_t)g[1],
                               (cuuint64_t)g[2], (cuuint64_t)g[3]};
   const cuuint64_t strides[3] = {(cuuint64_t)g[4], (cuuint64_t)g[5],
                                  (cuuint64_t)g[6]};
-  const cuuint32_t box[4] = {(cuuint32_t)g[7], (cuuint32_t)g[8], 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)g[7],
+                             (cuuint32_t)(rows ? rows : g[8]), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(
       map,

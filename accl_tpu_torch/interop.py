@@ -28,6 +28,7 @@ from .constants import (
     TUNING_DEFAULTS,
     TuningKey,
 )
+from .ops.driver import resolve_device
 from .wire import is_wire_dtype
 
 #: the JAX gang's register defaults, which this port also starts from
@@ -48,10 +49,13 @@ def stacked_from_numpy(arrays, device) -> List[torch.Tensor]:
 
 
 def shards_from_numpy(array, parts: int, axis: int = 2,
-                      device="cpu") -> List[torch.Tensor]:
+                      device=None) -> List[torch.Tensor]:
     """The ``parts`` contiguous shards of ``array`` along ``axis``, in
-    rank order, each its own allocation on ``device`` (bfloat16 arrays
-    keep their bits); the dim must divide by ``parts``."""
+    rank order, each its own allocation on ``device`` (the card unless
+    ``device="cpu"``; raises when there is no card, as the other entry
+    points do); bfloat16 arrays keep their bits; the dim must divide by
+    ``parts``."""
+    device = resolve_device(device)
     arr = np.asarray(array)
     if arr.shape[axis] % parts:
         raise ValueError(

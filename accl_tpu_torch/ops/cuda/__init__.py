@@ -11,7 +11,8 @@
   window of collectives whose slot words it decodes on the device.
 * ``attention`` — rows 16-18, the single-device flash attention: the
   forward (the transformer's ``attention="flash"`` lowering) and the
-  backward's dQ and dK/dV kernels behind its ``torch.autograd.Function``.
+  backward's delta pass and dQ and dK/dV kernels behind its
+  ``torch.autograd.Function``.
 * ``compression`` — rows 5-8, the wire compression kernels (cast,
   stochastic cast, int8 quantize and dequantize) under the compressed
   collectives' wire lanes, the error feedback and ``ring.int8_allreduce``.
@@ -35,6 +36,8 @@ from ._build import build_all  # noqa: F401
 from .alltoall import alltoall, alltoall_plain  # noqa: F401
 from .attention import (  # noqa: F401
     flash_attention,
+    flash_attention_bwd_delta,
+    flash_attention_bwd_delta_plain,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dkv_plain,
     flash_attention_bwd_dq,
@@ -94,6 +97,7 @@ KERNELS = {
     "flash_attention": flash_attention,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+    "flash_attention_bwd_delta": flash_attention_bwd_delta,
     "cast": cast_rows,
     "stochastic_cast": stochastic_cast_rows,
     "quantize_int8": quantize_rows,

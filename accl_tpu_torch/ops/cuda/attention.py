@@ -4,16 +4,18 @@ row 15: ring attention over P ranks.
 The counterpart of ``accl_tpu/ops/pallas/attention.py::flash_attention``
 (:656): the forward ``_flash_fwd_impl`` :396 (kernel ``_flash_kernel``
 :293) and the custom_vjp backward ``_flash_bwd_impl`` :562 (kernels
-``_flash_bwd_dq_kernel`` :451 and ``_flash_bwd_dkv_kernel`` :503).  The
-kernels are ``csrc/attention.cu`` and ``csrc/attention_bwd.cu``;
-:func:`flash_attention_plain`, :func:`flash_attention_bwd_dq_plain` and
+``_flash_bwd_dq_kernel`` :451 and ``_flash_bwd_dkv_kernel`` :503, after
+the delta pass :570-572).  The kernels are ``csrc/attention.cu`` and
+``csrc/attention_bwd.cu``; :func:`flash_attention_plain`,
+:func:`flash_attention_bwd_delta_plain`,
+:func:`flash_attention_bwd_dq_plain` and
 :func:`flash_attention_bwd_dkv_plain` are their plain PyTorch versions,
 the folds of the TPU kernels written with torch operations, which CPU
 tensors take and the card's checks compare against.
 
 A call that needs a gradient runs through :class:`_Flash`, a
 ``torch.autograd.Function`` whose forward keeps the logsumexp and whose
-backward launches the dQ and dK/dV kernels, on either device.
+backward launches the delta, dQ and dK/dV kernels, on either device.
 
 Row 15, :func:`ring_attention` (the TPU entry ``ring_attention`` :216,
 kernel ``_attention_kernel`` :111), is ``csrc/ring_attention.cu`` with
@@ -21,7 +23,7 @@ kernel ``_attention_kernel`` :111), is ``csrc/ring_attention.cu`` with
 rank's shard is its own tensor on one device, and one launch folds every
 rank's query tiles over every rank's K/V.
 
-The 16-bit forwards of rows 16 and 15 share one fold core
+The 16-bit kernels of rows 15-18 share one core
 (``csrc/flash_sm90.cuh``: wgmma tiles fed by TMA) and read each operand
 through a 4-D tensor map, whose geometry :func:`_tma_geometry` works out
 here; an operand TMA cannot address where it lies is copied first
@@ -52,8 +54,8 @@ from ._common import (
 #: widest head dim the kernel takes (its register tiles hold D <= 128)
 MAX_HEAD_DIM = 128
 #: the 16-bit kernels' tiles: 128 rows (query rows of a block, keys of a
-#: K/V tile), loaded by TMA in boxes of 64 columns (one 128-byte swizzle
-#: row of 16-bit elements)
+#: K/V tile; the backward also streams tiles of 64), loaded by TMA in
+#: boxes of 64 columns (one 128-byte swizzle row of 16-bit elements)
 TILE_ROWS = 128
 BOX_COLS = 64
 
@@ -247,9 +249,9 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
 
 
 def _fwd_rows(dtype: torch.dtype) -> int:
-    """Query rows of one block of the forward kernels: 128 for the 16-bit
-    wgmma kernels (rows 15 and 16), 64 for the float32 FFMA kernels (and
-    the backward kernels, whatever the dtype)."""
+    """Rows of one block of the kernels: 128 for the 16-bit wgmma kernels
+    (rows 15 and 16's query rows, row 17's work items of query rows and
+    row 18's of keys), 64 for the float32 FFMA kernels."""
     return 64 if dtype == torch.float32 else TILE_ROWS
 
 
@@ -302,11 +304,11 @@ def _tma_geometry(t, box_rows: int, box_cols: int):
 
 def _tma_ready(t) -> bool:
     """Whether TMA can address the operand where it lies: a 16-byte
-    aligned base, the head dim contiguous, every stride a multiple of 16
-    bytes."""
+    aligned base, the head dim contiguous, every stride a positive
+    multiple of 16 bytes (an expanded gradient's stride 0 is copied)."""
     _, strides, _ = _tma_geometry(t, TILE_ROWS, BOX_COLS)
     return (t.data_ptr() % 16 == 0 and t.stride(3) == 1
-            and all(s % 16 == 0 for s in strides))
+            and all(s > 0 and s % 16 == 0 for s in strides))
 
 
 def _tma_operand(t):
@@ -399,9 +401,12 @@ def _bwd_lib():
     lib = _build.library("attention_bwd")
     shape_args = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     lib.accl_flash_bwd_dq.restype = ctypes.c_int
-    lib.accl_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + shape_args
+    lib.accl_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 10 + shape_args
     lib.accl_flash_bwd_dkv.restype = ctypes.c_int
-    lib.accl_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + shape_args
+    lib.accl_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 11 + shape_args
+    lib.accl_flash_bwd_delta.restype = ctypes.c_int
+    lib.accl_flash_bwd_delta.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
@@ -444,35 +449,60 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
     return (out, lse) if with_lse else out
 
 
+def _bwd_tma(q, k, v, do):
+    """The backward kernels' operands as they read them and the C array
+    of their geometries: float32 operands as given, with None; 16-bit
+    ones each read through TMA, copied first where it cannot read them
+    (:func:`_tma_args`).  The kernels load each map's tiles in boxes of
+    64 columns by 128 rows (a work item's operands: dQ's q and do, dK/dV's
+    k and v) or 64 rows (the streamed ones)."""
+    if q.dtype == torch.float32:
+        return (q, k, v, do), None
+    key = ("bwd", q.dtype, q.shape, q.stride(), k.shape, k.stride(),
+           v.stride(), do.stride())
+    hit = _TMA_ARGS.get(key)
+    if hit is None or (q.data_ptr() | k.data_ptr() | v.data_ptr()
+                       | do.data_ptr()) % 16:
+        (q, k, v, do), hit = _tma_args((q, k, v, do), None, key)
+    return (q, k, v, do), hit[0]
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True):
     """dQ (B, H, T, D) of attention from the forward's operands, the
     output gradient ``do`` (like q), its float32 logsumexp ``lse`` and
     ``delta = rowsum(dO * O)`` (both (B, H, T)).
 
     CPU tensors take :func:`flash_attention_bwd_dq_plain`.  CUDA tensors
-    launch the kernel (the forward's dtypes and head dims; dQ takes q's
-    strides) or raise."""
+    launch the kernel (the forward's dtypes and head dims: float32 the
+    FFMA kernel, 16-bit the wgmma kernel, its operands read through TMA;
+    dQ takes q's strides) or raise."""
     _check(q, k, v)
     _check_bwd(q, do, lse, delta)
     if not on_cuda([q, k, v, do, lse, delta]):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
     (q, k, v, do), vec = _kernel_operands("flash_attention_bwd_dq",
-                                          q, k, v, do)
+                                          q, k, v, do,
+                                          rows=_fwd_rows(q.dtype))
     B, H, T, D = q.shape
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
+    (q, k, v, do), tma = _bwd_tma(q, k, v, do)
+    stream = stream_of(q.device)
+    sched = None if tma is None else _work_counters(q.device, stream)
     lse, delta = lse.contiguous(), delta.contiguous()
     lib = _bwd_lib()
     rc = lib.accl_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        _strides(q, k, v, do, dq), B, H, k.shape[1], T, D,
+        _strides(q, k, v, do, dq), tma, sched, B, H, k.shape[1], T, D,
         int(torch_to_dtype(q.dtype)), int(causal), int(vec), 1.0 / D ** 0.5,
-        stream_of(q.device),
+        stream,
     )
     check_launch(lib, rc, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches.bump()
+    if tma is not None:
+        flash_attention_bwd_dq.wgmma_launches.bump()
     return dq
 
 
@@ -489,7 +519,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
     if not on_cuda([q, k, v, do, lse, delta]):
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
     (q, k, v, do), vec = _kernel_operands("flash_attention_bwd_dkv",
-                                          q, k, v, do)
+                                          q, k, v, do,
+                                          rows=_fwd_rows(q.dtype))
     B, H, T, D = q.shape
     Hkv = k.shape[1]
     if H == Hkv:
@@ -499,25 +530,73 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
                   for _ in range(2))
     if dk.numel() == 0:
         return _group_sum(dk, Hkv, k.dtype), _group_sum(dv, Hkv, v.dtype)
+    (q, k, v, do), tma = _bwd_tma(q, k, v, do)
+    stream = stream_of(q.device)
+    sched = None if tma is None else _work_counters(q.device, stream)
     lse, delta = lse.contiguous(), delta.contiguous()
     lib = _bwd_lib()
     rc = lib.accl_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _strides(q, k, v, do, dk, dv), B, H, Hkv, T, D,
+        _strides(q, k, v, do, dk, dv), tma, sched, B, H, Hkv, T, D,
         int(torch_to_dtype(q.dtype)), int(causal), int(vec), 1.0 / D ** 0.5,
-        stream_of(q.device),
+        stream,
     )
     check_launch(lib, rc, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches.bump()
+    if tma is not None:
+        flash_attention_bwd_dkv.wgmma_launches.bump()
     return _group_sum(dk, Hkv, k.dtype), _group_sum(dv, Hkv, v.dtype)
+
+
+def flash_attention_bwd_delta_plain(do, out):
+    """What the delta kernel computes, in plain PyTorch: ``rowsum(dO *
+    O)`` (B, H, T) in float32, both widened first, as JAX forms it
+    (``_flash_bwd_impl`` :570-572)."""
+    return (do.float() * out.float()).sum(-1)
+
+
+def flash_attention_bwd_delta(do, out):
+    """``delta = rowsum(dO * O)``, (B, H, T) float32, from the output
+    gradient and the forward's output, (B, H, T, D) of one dtype: one
+    read of each.
+
+    CPU tensors take :func:`flash_attention_bwd_delta_plain`.  CUDA
+    tensors launch the kernel (float32, bfloat16 or float16, the head dim
+    contiguous, else copied) or raise."""
+    if do.dim() != 4 or do.shape != out.shape or do.dtype != out.dtype:
+        raise ValueError(
+            f"dO and O must match, (B, H, T, D), got {do.dtype}"
+            f"{tuple(do.shape)} and {out.dtype}{tuple(out.shape)}")
+    if not on_cuda([do, out]):
+        return flash_attention_bwd_delta_plain(do, out)
+    if do.dtype not in _KERNEL_DTYPES:
+        raise ValueError(
+            f"flash_attention_bwd_delta takes f32/bf16/f16, got {do.dtype}")
+    do, out = (t if t.stride(-1) == 1 else t.contiguous() for t in (do, out))
+    B, H, T, D = do.shape
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=do.device)
+    if delta.numel() == 0 or D == 0:
+        return delta.zero_()
+    vec = D % 4 == 0 and all(
+        t.data_ptr() % (4 * t.element_size()) == 0
+        and all(s % 4 == 0 for s in t.stride()[:3]) for t in (do, out))
+    lib = _bwd_lib()
+    rc = lib.accl_flash_bwd_delta(
+        do.data_ptr(), out.data_ptr(), delta.data_ptr(), _strides(do, out),
+        B, H, T, D, int(torch_to_dtype(do.dtype)), int(vec),
+        stream_of(do.device),
+    )
+    check_launch(lib, rc, "flash_attention_bwd_delta")
+    flash_attention_bwd_delta.launches.bump()
+    return delta
 
 
 class _Flash(torch.autograd.Function):
     """The TPU entry's custom_vjp (:635-653): the forward saves q, k, v,
     the output and its logsumexp; the backward forms delta = rowsum(dO *
-    O) in PyTorch (XLA's, outside any kernel, :570-572), then runs the dQ
-    and dK/dV wrappers."""
+    O) (:570-572, XLA's fused pass there, the delta kernel here), then
+    runs the dQ and dK/dV wrappers."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, with_lse):
@@ -533,7 +612,7 @@ class _Flash(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do, *_):
         q, k, v, out, lse = ctx.saved_tensors
-        delta = (do.float() * out.float()).sum(-1)
+        delta = flash_attention_bwd_delta(do, out)
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
         return dq, dk, dv, None, None
@@ -561,11 +640,15 @@ def flash_attention(q, k, v, causal: bool = True, *, with_lse: bool = False):
 flash_attention.launches = LaunchCounter()
 #: of those, the 16-bit launches: the wgmma kernel
 flash_attention.wgmma_launches = LaunchCounter()
-#: operands the 16-bit kernels (rows 15 and 16) could not read through TMA
+#: operands the 16-bit kernels (rows 15-18) could not read through TMA
 #: where they lay, and so copied first (:func:`_tma_operand`)
 tma_copies = LaunchCounter()
 flash_attention_bwd_dq.launches = LaunchCounter()
 flash_attention_bwd_dkv.launches = LaunchCounter()
+#: of those, the 16-bit launches: the wgmma kernels
+flash_attention_bwd_dq.wgmma_launches = LaunchCounter()
+flash_attention_bwd_dkv.wgmma_launches = LaunchCounter()
+flash_attention_bwd_delta.launches = LaunchCounter()
 
 
 # ---------------------------------------------------------------------------

@@ -13,15 +13,17 @@ Phases (any failure exits non-zero):
 1. build every kernel from ``accl_tpu_torch/csrc`` (one nvcc per source,
    in parallel) and report the attention kernels at bf16 D 128 (ptxas's
    registers and spills, and the wgmma kernels' dynamic shared memory);
-   fail if a wgmma kernel (rows 16 and 15) spills, if ptxas serialised
-   its wgmmas (C7513), or if ``cuobjdump -sass`` finds no HGMMA in
-   ``attention`` or ``ring_attention``;
+   fail if a wgmma kernel (rows 15-18) spills, if ptxas serialised its
+   wgmmas (C7513, C7512), or if ``cuobjdump -sass`` finds no HGMMA in
+   ``attention``, ``ring_attention`` or ``attention_bwd``;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes — float results must match EXACTLY (same operation
    order, same round-to-nearest-even; NaN positions must agree), except
-   flash attention (rows 16-18), whose fold order differs from its plain
-   versions' and which is held within stated tolerances
-   (``check_flash``, ``check_flash_bwd``).  The
+   flash attention (rows 16-18 and the backward's delta pass), whose
+   fold order differs from its plain versions' and which is held within
+   stated tolerances (``check_flash``, ``check_flash_bwd``: every 16-bit
+   dQ and dK/dV through their wgmma kernels, a bfloat16 backward repeated
+   bit for bit).  The
    rooted relays (bcast in place and out of place, reduce with every
    rank's partial and with the root's output alone, scatter) and the
    root-only gather over K3 run at P in {2, 4, 8} x root in {0, P-1} x
@@ -65,9 +67,9 @@ Phases (any failure exits non-zero):
    transposed head views in place (no copy) and copies a misaligned and a
    head-dim-20 operand first (``attention.tma_copies``, 3 each);
 3. the main paths, each with every kernel's launch counter zeroed just
-   before and read just after (rows 16 and 15: every launch of the
-   serving, training and sequence-parallel paths through the wgmma
-   kernel, ``all_wgmma``):
+   before and read just after (rows 15-18: every launch of the serving,
+   training and sequence-parallel paths through the wgmma kernels,
+   ``all_wgmma``):
    a. the allreduce path: ``cuda_group(4)``, one thread per rank, 16M
       float32 (64 MiB) per rank — three ``pallas_ring`` allreduces
       (4 segments), one with a bfloat16 wire, one ``pallas_ring_bidir``,
@@ -102,8 +104,9 @@ Phases (any failure exits non-zero):
       bfloat16, 1,346M parameters, random weights and an (8, 1024) token
       batch from a seeded generator, targets the tokens rolled by one) —
       3 steps of ``make_sharded_train_step`` (lr 0.01) under ``"auto"``,
-      each launching the flash forward, dQ and dK/dV kernels once a layer
-      and no other kernel, with finite losses and weights; ``loss_fn``
+      each launching the flash forward, the delta, dQ and dK/dV kernels
+      once a layer and no other kernel, with finite losses and weights;
+      ``loss_fn``
       and its gradients under flash against naive, in bfloat16 at full
       width (within ``BF16_LOSS_RTOL`` and ``BF16_GRAD_RTOL``) and in
       float32 with 2 layers and batch 2 (loss within 1e-5, every gradient
@@ -152,15 +155,15 @@ Phases (any failure exits non-zero):
    (8, 16, 128, 128) bf16 causal, with run B's T = 1024 as extra keys,
    beside ``scaled_dot_product_attention``, bounded by the tensor cores'
    bf16 rate, and with its LSE at the training shape (8, 32, 1024, 128));
-   dQ and dK/dV (rows 17-18) at that shape beside their plain versions
-   and the backward of ``scaled_dot_product_attention``, which computes
-   dQ, dK and dV in one call (beside the sum of rows 17 + 18 and the
-   delta pass); rows 5-8 at 32 Mi float32 elements (cast and stochastic
+   the delta pass, dQ and dK/dV (rows 17-18) at that shape beside their
+   plain versions and the backward of ``scaled_dot_product_attention``,
+   which computes dQ, dK and dV in one call (beside the sum of rows 17 +
+   18 and the delta pass), each also by device time alone; rows 5-8 at 32 Mi float32 elements (cast and stochastic
    cast to bfloat16, the cast beside ``Tensor.to``; quantize and
    dequantize in the Pallas tier's tiles, the wire's 256-element
    segments as extra keys); row 13 at 4 x 64 MiB float32 with + 1.0
    beside 4 x ``torch.add(x, 1.0, out=)``; row 19 on its block beside
-   ``Tensor.clone``; row 12 on Ulysses' q re-shard (4 x 16 MiB bf16)
+   ``Tensor.clone``, both also by device time alone; row 12 on Ulysses' q re-shard (4 x 16 MiB bf16)
    beside P x ``torch.cat``; row 15 at the main path's contiguous causal
    shards (striped and full as extra keys) beside
    ``scaled_dot_product_attention(is_causal=True)`` on the full sequence,
@@ -1191,9 +1194,10 @@ FLASH_CASES = [
 ]
 
 
-#: the kernels whose 16-bit launches take a wgmma kernel (rows 16 and 15),
-#: each counting those in ``wgmma_launches`` beside ``launches``
-WGMMA_KERNELS = ("flash_attention", "ring_attention")
+#: the kernels whose 16-bit launches take a wgmma kernel (rows 16, 15, 17
+#: and 18), each counting those in ``wgmma_launches`` beside ``launches``
+WGMMA_KERNELS = ("flash_attention", "ring_attention",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
 def reset_launches(kc) -> None:
@@ -1204,7 +1208,7 @@ def reset_launches(kc) -> None:
 
 
 def all_wgmma(kc, what: str) -> dict:
-    """Every launch of rows 15 and 16 since the counters were zeroed was
+    """Every launch of rows 15-18 since the counters were zeroed was
     16-bit and took the wgmma kernel; returns the wgmma launches."""
     got = {}
     for name in WGMMA_KERNELS:
@@ -1610,8 +1614,12 @@ TRAIN = dict(vocab=32768, d_model=4096, n_heads=32, n_layers=6, d_ff=16384,
              max_seq=1024)
 TRAIN_B, TRAIN_T, TRAIN_LR, TRAIN_STEPS = 8, 1024, 0.01, 3
 #: the kernels a train step launches, each once a layer
-TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv")
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_delta",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+#: the kernels bounded by the tensor cores' bf16 rate (the rest by the
+#: float32 rate outside them, or by their bytes)
+TC_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv", "ring_attention")
 #: bfloat16 at full width, flash against naive: the two lowerings round
 #: the attention output and its gradients to bfloat16 after different
 #: fold orders, and 6 layers carry those one-ulp differences through the
@@ -1628,11 +1636,11 @@ FLASH_BWD_CASES = FLASH_CASES + [
 def ptxas_report(kc) -> list:
     """Registers and spill-store bytes of the flash kernels that the
     training and sequence-parallel paths run (bf16, head dim 128), from
-    ptxas's lines in the build logs, and, for the two wgmma kernels (rows
-    16 and 15), their dynamic shared memory: ``[[kernel, registers, spill
-    bytes(, shared bytes)], ...]``.  Fails when a wgmma kernel spills, or
-    ptxas serialised its wgmmas (C7513), or its library's SASS holds no
-    HGMMA (``cuobjdump -sass``)."""
+    ptxas's lines in the build logs, and, for the four wgmma kernels (rows
+    16, 15, 17 and 18), their dynamic shared memory: ``[[kernel,
+    registers, spill bytes(, shared bytes)], ...]``.  Fails when a wgmma
+    kernel spills, or ptxas serialised its wgmmas (C7513, C7512), or its
+    library's SASS holds no HGMMA (``cuobjdump -sass``)."""
     import ctypes
     import os
     import re
@@ -1650,7 +1658,7 @@ def ptxas_report(kc) -> list:
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and entry:
                 found[entry][1] = int(m.group(1))
-            if "C7513" in line and "wgmma" in line:
+            if ("C7513" in line or "C7512" in line) and "wgmma" in line:
                 fail(f"ptxas serialised the wgmmas of csrc/{lib}.cu: {line}")
     rows = [[re.search(r"\d((?:flash|ring_attention)_[a-z0-9_]+?)I",
                        e).group(1), *v]
@@ -1658,16 +1666,21 @@ def ptxas_report(kc) -> list:
     if not rows:
         fail("no ptxas register counts in the flash kernels' build logs")
     cuobjdump = os.path.join(os.path.dirname(kc._build.nvcc()), "cuobjdump")
-    for lib, kernel in (("attention", "flash_fwd_wgmma"),
-                        ("ring_attention", "ring_attention_wgmma")):
-        smem = ctypes.CDLL(str(kc._build._lib_path(lib))).accl_wgmma_smem(128)
-        for r in rows:
-            if r[0] == kernel:
-                r.append(smem)
-                if r[2] != 0:
-                    fail(f"{kernel} spills {r[2]} bytes")
-        if not any(r[0] == kernel for r in rows):
-            fail(f"no ptxas line for {kernel}")
+    for lib, kernels, smem_fn in (
+            ("attention", ("flash_fwd_wgmma",), "accl_wgmma_smem"),
+            ("ring_attention", ("ring_attention_wgmma",), "accl_wgmma_smem"),
+            ("attention_bwd", ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"),
+             "accl_flash_bwd_smem")):
+        so = ctypes.CDLL(str(kc._build._lib_path(lib)))
+        smem = getattr(so, smem_fn)(128)
+        for kernel in kernels:
+            for r in rows:
+                if r[0] == kernel:
+                    r.append(smem)
+                    if r[2] != 0:
+                        fail(f"{kernel} spills {r[2]} bytes")
+            if not any(r[0] == kernel for r in rows):
+                fail(f"no ptxas line for {kernel}")
         sass = subprocess.run([cuobjdump, "-sass",
                                str(kc._build._lib_path(lib))],
                               capture_output=True, text=True, timeout=300,
@@ -1680,19 +1693,28 @@ def ptxas_report(kc) -> list:
 
 
 def check_flash_bwd(err) -> None:
-    """Phase 2 for rows 17-18: the dQ and dK/dV kernels against their
-    plain versions on the card, on the kernel forward's o and lse.
-    Tolerances: float32 rtol 2e-4, atol 2e-5 (the JAX gradient tests'
-    own, tests/test_pallas.py:771: the kernels fold 64-key tiles in other
-    orders than the plain versions' 512); bf16/f16 max abs difference
-    within 1e-2 of the plain gradient's largest entry and relative
-    Frobenius difference within 1e-3 (a rounding of p or ds to the 16-bit
-    dtype may land one ulp apart and carry into the product)."""
+    """Phase 2 for rows 17-18 and the delta pass: the delta, dQ and dK/dV
+    kernels against their plain versions on the card, on the kernel
+    forward's o and lse, each launching once a call, the 16-bit dQ and
+    dK/dV through their wgmma kernels (``wgmma_launches``); a bf16 case
+    twice, the same bits both times (every output written by one block,
+    no atomics).  Tolerances: delta within 1e-5 of each row's sum of
+    magnitudes (float32 sums in another order); dQ, dK, dV float32 rtol
+    2e-4, atol 2e-5 (the JAX gradient tests' own, tests/test_pallas.py:771:
+    the kernels fold 64-row tiles in other orders than the plain versions'
+    512); bf16/f16 max abs difference within 1e-2 of the plain gradient's
+    largest entry and relative Frobenius difference within 1e-3 (a
+    rounding of p or ds to the 16-bit dtype may land one ulp apart and
+    carry into the product)."""
     import torch
 
     from accl_tpu_torch.ops.cuda import attention as ka
 
     dev = torch.device("cuda", 0)
+    kernels = (ka.flash_attention_bwd_delta, ka.flash_attention_bwd_dq,
+               ka.flash_attention_bwd_dkv)
+    wgmma = (ka.flash_attention_bwd_dq, ka.flash_attention_bwd_dkv)
+    repeated = False
     for i, (B, H, Hkv, T, D, dt, causal, _) in enumerate(FLASH_BWD_CASES):
         dtype = getattr(torch, dt)
         gen = torch.Generator(device=dev)
@@ -1701,17 +1723,36 @@ def check_flash_bwd(err) -> None:
                    .to(dtype) for h in (H, Hkv, Hkv))
         do = torch.randn(B, H, T, D, generator=gen, device=dev).to(dtype)
         o, lse = ka.flash_attention(q, k, v, causal, with_lse=True)
-        delta = (do.float() * o.float()).sum(-1)
         tag = (f"flash backward (B,H,Hkv,T,D)={(B, H, Hkv, T, D)} {dt} "
                f"causal={causal}")
-        before = (ka.flash_attention_bwd_dq.launches.count,
-                  ka.flash_attention_bwd_dkv.launches.count)
+        before = [f.launches.count for f in kernels]
+        wbefore = [f.wgmma_launches.count for f in wgmma]
+        delta = ka.flash_attention_bwd_delta(do, o)
         got = (ka.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
                *ka.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
-        if (ka.flash_attention_bwd_dq.launches.count,
-                ka.flash_attention_bwd_dkv.launches.count) != (
-                before[0] + 1, before[1] + 1):
+        if [f.launches.count for f in kernels] != [n + 1 for n in before]:
             fail(f"{tag}: the kernels did not launch once each")
+        if [f.wgmma_launches.count for f in wgmma] != [
+                n + (dtype != torch.float32) for n in wbefore]:
+            fail(f"{tag}: 16-bit launches take the wgmma kernels, float32 "
+                 f"ones the FFMA kernels")
+        plain = ka.flash_attention_bwd_delta_plain(do, o)
+        mag = (do.float() * o.float()).abs().sum(-1)
+        d = float((delta - plain).abs().max())
+        if delta.shape != plain.shape or not bool(
+                ((delta - plain).abs() <= 1e-5 * mag).all()):
+            fail(f"{tag}: delta differs from its plain version by {d}")
+        err["flash_attention_bwd_delta"] = max(
+            err["flash_attention_bwd_delta"], d)
+        if dtype == torch.bfloat16 and not repeated:
+            again = (ka.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                               causal),
+                     *ka.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 causal))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{tag}: a repeated backward gave other bits")
+            repeated = True
+            del again
         want = (ka.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
                                                 causal),
                 *ka.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
@@ -1732,11 +1773,17 @@ def check_flash_bwd(err) -> None:
                 fail(f"{tag}: {name} max abs err {d}")
             key = f"flash_attention_bwd_{name}"
             err[key] = max(err[key], d)
-        del q, k, v, do, o, lse, delta, got, want
+        del q, k, v, do, o, lse, delta, plain, mag, got, want
+    if not repeated:
+        fail("flash backward: no bfloat16 case ran twice")
     torch.cuda.synchronize()
     print(f"flash backward: {len(FLASH_BWD_CASES)} cases agree with the "
-          f"plain versions (max abs err dq {err['flash_attention_bwd_dq']},"
-          f" dk/dv {err['flash_attention_bwd_dkv']})", flush=True)
+          f"plain versions (max abs err delta "
+          f"{err['flash_attention_bwd_delta']}, dq "
+          f"{err['flash_attention_bwd_dq']}, dk/dv "
+          f"{err['flash_attention_bwd_dkv']}); 16-bit cases through the "
+          f"wgmma kernels; a bfloat16 backward repeated bit for bit",
+          flush=True)
 
 
 def loss_and_grads(params, tokens, targets, cfg):
@@ -1817,7 +1864,7 @@ def train_main_path(kc) -> dict:
                          for k, n in read_launches(kc).items()})
     torch.cuda.synchronize()
     launches = read_launches(kc)
-    all_wgmma(kc, "train steps")
+    wgmma = all_wgmma(kc, "train steps")
     want = {k: (cfg.n_layers if k in TRAIN_KERNELS else 0)
             for k in kc.KERNELS}
     for i, got in enumerate(per_step):
@@ -1884,8 +1931,9 @@ def train_main_path(kc) -> dict:
              f"{upd_rel} of the update")
     del p32, gf, new32
     torch.cuda.synchronize()
-    return dict(launches=launches, step=step, params=params, tokens=tokens,
-                targets=targets, cfg=cfg, n_params=n_params, losses=losses,
+    return dict(launches=launches, wgmma=wgmma, step=step, params=params,
+                tokens=tokens, targets=targets, cfg=cfg, n_params=n_params,
+                losses=losses,
                 per_step={k: per_step[0][k] for k in TRAIN_KERNELS},
                 bf16_loss_rel=bf16_loss_rel, bf16_grad_rel=bf16_grad_rel,
                 f32_loss_rel=f32_loss_rel, f32_grad_rel=f32_grad_rel,
@@ -1894,8 +1942,9 @@ def train_main_path(kc) -> dict:
 
 def time_flash_bwd() -> dict:
     """Phase 4 for rows 16-18 at the training shape (8, 32, 1024, 128)
-    bf16 causal: the forward with LSE, dQ and dK/dV, each beside its plain
-    version; the delta pass; and ``scaled_dot_product_attention``'s
+    bf16 causal: the forward with LSE, the delta pass, dQ and dK/dV, each
+    beside its plain version, by CUDA events around the wrapper and by
+    device time alone (``device_ms``); and ``scaled_dot_product_attention``'s
     forward and its backward (dQ, dK and dV in one call)."""
     import torch
     import torch.nn.functional as F
@@ -1907,7 +1956,7 @@ def time_flash_bwd() -> dict:
     q, k, v, do = (torch.randn(B, H, T, D, device=dev, dtype=torch.bfloat16)
                    for _ in range(4))
     o, lse = ka.flash_attention(q, k, v, True, with_lse=True)
-    delta = (do.float() * o.float()).sum(-1)
+    delta = ka.flash_attention_bwd_delta(do, o)
     sq, sk, sv = (t.detach().clone().requires_grad_() for t in (q, k, v))
     so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
     pairs = B * H * T * (T + 1) // 2  # the causal (q, k) pairs, all heads
@@ -1931,18 +1980,32 @@ def time_flash_bwd() -> dict:
         "flash_attention_bwd_dq": dict(
             ms=time_ms(lambda: ka.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, True), iters=20),
+            device_ms=device_ms(lambda: ka.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, True), iters=20),
             plain_ms=time_ms(lambda: ka.flash_attention_bwd_dq_plain(
                 q, k, v, do, lse, delta, True)),
             bytes=5 * act + 2 * stats, ops=3 * 2 * D * pairs),
         "flash_attention_bwd_dkv": dict(
             ms=time_ms(lambda: ka.flash_attention_bwd_dkv(
                 q, k, v, do, lse, delta, True), iters=20),
+            device_ms=device_ms(lambda: ka.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, True), iters=20),
             plain_ms=time_ms(lambda: ka.flash_attention_bwd_dkv_plain(
                 q, k, v, do, lse, delta, True)),
             bytes=6 * act + 2 * stats, ops=4 * 2 * D * pairs),
-        "delta_ms": time_ms(lambda: (do.float() * o.float()).sum(-1),
-                            iters=20),
+        # no one PyTorch call forms rowsum(dO O) in float32 from 16-bit
+        # operands (its products would round to bfloat16 first)
+        "flash_attention_bwd_delta": dict(
+            ms=time_ms(lambda: ka.flash_attention_bwd_delta(do, o),
+                       iters=20),
+            device_ms=device_ms(lambda: ka.flash_attention_bwd_delta(do, o),
+                                iters=20),
+            plain_ms=time_ms(lambda: ka.flash_attention_bwd_delta_plain(
+                do, o), iters=20),
+            library_ms=None, bytes=2 * act + stats, ops=2 * B * H * T * D),
         "library_bwd_ms": time_ms(lambda: torch.autograd.grad(
+            so, (sq, sk, sv), do, retain_graph=True), iters=20),
+        "library_bwd_device_ms": device_ms(lambda: torch.autograd.grad(
             so, (sq, sk, sv), do, retain_graph=True), iters=20),
     }
     del q, k, v, do, o, lse, delta, sq, sk, sv, so
@@ -1963,10 +2026,13 @@ KERNEL_CLASSES = (
 
 def train_profile(train) -> dict:
     """One train step under ``torch.profiler`` (CPU and CUDA activities):
-    the device's kernel time summed by ``KERNEL_CLASSES``, its busy time
-    against the step's wall time (host clock, synchronised), the idle
-    share, and the ten costliest kernels.  Device times are None when the
-    profiler records no device event."""
+    the device's kernel time summed by ``KERNEL_CLASSES``, the flash class
+    by kernel (forward, delta, dQ, dK/dV), its busy time against the
+    step's wall time (host clock, synchronised), the idle share, and the
+    ten costliest kernels.  Device times are None when the profiler
+    records no device event."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1982,7 +2048,7 @@ def train_profile(train) -> dict:
         wall_ms = (time.perf_counter() - t) * 1e3
     by_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
     by_class["other"] = 0.0
-    kernels = {}
+    kernels, flash = {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -1992,11 +2058,16 @@ def train_profile(train) -> dict:
         cls = next((name for name, keys in KERNEL_CLASSES
                     if any(key in low for key in keys)), "other")
         by_class[cls] += ms
+        if cls == "flash":
+            m = re.search(r"(flash_\w+?)[<(]", e.name)
+            key = m.group(1) if m else e.name[:40]
+            flash[key] = flash.get(key, 0.0) + ms
     busy = sum(by_class.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     return {
         "wall_ms": wall_ms,
         "device_ms_by_class": by_class if busy else None,
+        "flash_kernels_ms": flash if busy else None,
         "device_busy_ms": busy or None,
         "idle_share": 1.0 - busy / wall_ms if busy else None,
         "top_kernels_ms": [[name[:80], ms] for name, ms in top],
@@ -2817,7 +2888,8 @@ def time_put(kc, dev) -> dict:
     """Phase 4 for rows 13 and 19: row 13 on 4 ranks x 64 MiB of float32
     with ``+ 1.0`` (``vadd_put_kernel``'s shape) beside 4 x
     ``torch.add(x, 1.0, out=)``; row 19 on its (8, 128) block beside
-    ``Tensor.clone``."""
+    ``Tensor.clone``, both also by device time alone (``device_ms``: the
+    wrapper's host path, ctypes and ``empty_like``, hidden)."""
     import torch
 
     gen = torch.Generator(device=dev)
@@ -2840,8 +2912,10 @@ def time_put(kc, dev) -> dict:
             bytes=2 * P_MAIN * N_RANK * 4, ops=P_MAIN * N_RANK),
         "probe_copy": dict(
             ms=time_ms(lambda: kc.probe_copy(block), iters=100),
+            device_ms=device_ms(lambda: kc.probe_copy(block), iters=100),
             plain_ms=time_ms(lambda: kc.probe_copy_plain(block), iters=100),
             library_ms=time_ms(lambda: block.clone(), iters=100),
+            library_device_ms=device_ms(lambda: block.clone(), iters=100),
             bytes=2 * block.numel() * 4, ops=0),
     }
     del xs, outs
@@ -3585,6 +3659,7 @@ def main() -> int:
     bwd = time_flash_bwd()
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         timing[name] = dict(bwd[name], library_ms=bwd["library_bwd_ms"])
+    timing["flash_attention_bwd_delta"] = bwd["flash_attention_bwd_delta"]
     timing.update(time_compression(kc, dev))
     timing.update(time_put(kc, dev))
     timing.update(time_seq_parallel(kc, dev))
@@ -3611,6 +3686,9 @@ def main() -> int:
                                    "accl_tpu/ops/pallas/attention.py:451"),
         "flash_attention_bwd_dkv": ("accl_tpu_torch/csrc/attention_bwd.cu",
                                     "accl_tpu/ops/pallas/attention.py:503"),
+        # not a TPU kernel: the XLA pass of _flash_bwd_impl :570-572
+        "flash_attention_bwd_delta": ("accl_tpu_torch/csrc/attention_bwd.cu",
+                                      "accl_tpu/ops/pallas/attention.py:570"),
         "cast": ("accl_tpu_torch/csrc/compression.cu",
                  "accl_tpu/ops/pallas/compression.py:35"),
         "stochastic_cast": ("accl_tpu_torch/csrc/compression.cu",
@@ -3639,8 +3717,7 @@ def main() -> int:
             **(seq["bound"] if name == "sequencer"
                else flash_bounds[SERVE_T] if name == "flash_attention"
                else bound(t["bytes"], t["ops"], TC16_OPS_PER_S)
-               if name in TRAIN_KERNELS + ("ring_attention",)
-               else bound(t["bytes"], t["ops"])),
+               if name in TC_KERNELS else bound(t["bytes"], t["ops"])),
             "library_ms": t["library_ms"],
         })
         if name == "sequencer":  # the other windows of the bounds table
@@ -3683,18 +3760,33 @@ def main() -> int:
                 "train_library_ms": f["library_ms"],
                 "train_library_device_ms": f["library_device_ms"],
             })
-        if name in TRAIN_KERNELS[1:]:  # the library call's whole backward
+        if name in TRAIN_KERNELS[1:]:  # the backward at the training shape
             kernels[-1].update({
                 "shape": [TRAIN_B, TRAIN["n_heads"], TRAIN_T, 128],
+                "device_ms": t["device_ms"],
+            })
+        if name in TRAIN_KERNELS[2:]:  # the library call's whole backward
+            dl = bwd["flash_attention_bwd_delta"]
+            kernels[-1].update({
+                "wgmma_launches_train": train["wgmma"][name],
                 "library_computes": "dq, dk and dv (one backward call)",
-                "delta_ms": bwd["delta_ms"],
+                "library_device_ms": bwd["library_bwd_device_ms"],
+                "delta_ms": dl["ms"], "delta_device_ms": dl["device_ms"],
                 "bwd_sum_ms": bwd["flash_attention_bwd_dq"]["ms"]
-                + bwd["flash_attention_bwd_dkv"]["ms"] + bwd["delta_ms"],
+                + bwd["flash_attention_bwd_dkv"]["ms"] + dl["ms"],
+                "bwd_sum_device_ms": bwd["flash_attention_bwd_dq"]["device_ms"]
+                + bwd["flash_attention_bwd_dkv"]["device_ms"]
+                + dl["device_ms"],
             })
         if name in COMP_KERNELS:  # at 32 Mi float32 elements
             kernels[-1]["elements"] = N_COMP
             kernels[-1].update({k: v for k, v in t.items()
                                 if k.startswith("wire_seg")})
+        if name == "probe_copy":  # device time alone, beside clone's
+            kernels[-1].update({
+                "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"],
+            })
         if name == "alltoall":  # Ulysses' q re-shard at full width
             kernels[-1]["shape"] = t["shape"]
         if name == "ring_attention":  # the other layouts at full width
@@ -3740,8 +3832,14 @@ def main() -> int:
                         timing["ring_attention"])
     d = by_name["flash_attention_bwd_dkv"]
     print(f"flash backward (8,32,1024,128) bf16 causal: dq + dk/dv + delta "
-          f"= {d['bwd_sum_ms']:.4f} ms against scaled_dot_product_attention"
-          f"'s backward {d['library_ms']:.4f} ms")
+          f"= {d['bwd_sum_ms']:.4f} ms (device {d['bwd_sum_device_ms']:.4f})"
+          f" against scaled_dot_product_attention's backward "
+          f"{d['library_ms']:.4f} ms (device {d['library_device_ms']:.4f}); "
+          f"device ms dq {by_name['flash_attention_bwd_dq']['device_ms']:.4f}"
+          f" dk/dv {d['device_ms']:.4f} delta {d['delta_device_ms']:.4f}")
+    p_ = by_name["probe_copy"]
+    print(f"probe_copy device_ms={p_['device_ms']:.4f} against "
+          f"Tensor.clone's {p_['library_device_ms']:.4f}")
     del a, b, c
     torch.cuda.synchronize()
     print(f"kernel timing done ({time.time() - t0:.1f} s)", flush=True)

@@ -56,7 +56,8 @@ def _port_operands(data):
     """rank r's operand ``data[r]``, carried across by ``interop``."""
     P = data.shape[0]
     return interop.shards_from_numpy(
-        data.reshape((P * data.shape[1],) + data.shape[2:]), P, axis=0)
+        data.reshape((P * data.shape[1],) + data.shape[2:]), P, axis=0,
+        device="cpu")
 
 
 def _operands(P, rest, dtype, seed):

@@ -2,10 +2,11 @@
 
 ``accl_tpu_torch.ops.cuda.attention.flash_attention`` holds the
 hand-written flash-attention forward (row 16) and, behind its
-``torch.autograd.Function``, the dQ and dK/dV backward kernels (rows
-17-18); on CPU tensors it runs their plain versions, the TPU kernels'
-folds in plain PyTorch.  Here the same numpy-seeded operands go through
-the JAX package's Pallas ``flash_attention`` (interpreted on the CPU, as
+``torch.autograd.Function``, the delta pass and the dQ and dK/dV
+backward kernels (rows 17-18); on CPU tensors it runs their plain
+versions, the TPU kernels' folds in plain PyTorch.  Here the same
+numpy-seeded operands go through the JAX package's Pallas
+``flash_attention`` (interpreted on the CPU, as
 ``tests/test_pallas.py`` runs it, default ``block=512``) and through the
 port: float32 results agree within 2e-5, the JAX tests' own tolerance;
 the logsumexp residual within 2e-5 of ``_flash_fwd_impl(...,
@@ -31,6 +32,8 @@ from accl_tpu_torch.ops.cuda import KERNELS
 from accl_tpu_torch.ops.cuda import attention as ka
 from accl_tpu_torch.ops.cuda.attention import (
     flash_attention,
+    flash_attention_bwd_delta,
+    flash_attention_bwd_delta_plain,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dkv_plain,
     flash_attention_bwd_dq,
@@ -40,8 +43,10 @@ from accl_tpu_torch.ops.cuda.attention import (
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
-BWD_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
-               "flash_attention_bwd_dkv")
+BWD_KERNELS = ("flash_attention", "flash_attention_bwd_delta",
+               "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+#: rows 17-18, whose 16-bit launches take the wgmma kernels
+WGMMA_BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
 @pytest.fixture
@@ -266,17 +271,50 @@ def test_flash_bwd_validates():
         flash_attention_bwd_dkv(q, q, q, q, stats.double(), stats)
     with pytest.raises(ValueError, match="delta must be float32"):
         flash_attention_bwd_dq(q, q, q, q, stats, z(1, 2, 7))
+    with pytest.raises(ValueError, match="dO and O must match"):
+        flash_attention_bwd_delta(q, z(1, 2, 8, 5))
+    with pytest.raises(ValueError, match="dO and O must match"):
+        flash_attention_bwd_delta(q, q.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("B,H,T,D", [(2, 4, 50, 24), (1, 2, 64, 128)])
+def test_flash_bwd_delta_plain_equals_jax(dtype, B, H, T, D):
+    """The delta pass, rowsum(dO * O) in float32, against JAX's form in
+    ``_flash_bwd_impl`` (:572), ``(g.astype(f32) * o.astype(f32)).sum(-1)``,
+    on the same numpy-seeded operands.  The two sum in other orders, so
+    each row within 1e-6 of its sum of magnitudes (a float32 reordering
+    moves a sum by a few ulps of its largest partial, not of a result
+    that cancels).  The wrapper takes the plain version on CPU tensors
+    and launches nothing."""
+    rng = np.random.default_rng(13)
+    g, o = (rng.standard_normal((B, H, T, D)).astype(np.float32)
+            for _ in range(2))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    (jg, jo), (tg, to) = _both((g, o), jdt)
+    want = np.asarray((jg.astype(jnp.float32) * jo.astype(jnp.float32))
+                      .sum(-1))
+    got = flash_attention_bwd_delta_plain(tg, to)
+    assert got.shape == (B, H, T) and got.dtype == torch.float32
+    mag = np.asarray((jnp.abs(jg.astype(jnp.float32)
+                              * jo.astype(jnp.float32))).sum(-1))
+    assert np.all(np.abs(got.numpy() - want) <= 1e-6 * mag)
+    before = KERNELS["flash_attention_bwd_delta"].launches.count
+    torch.testing.assert_close(flash_attention_bwd_delta(tg, to), got,
+                               rtol=0, atol=0)
+    assert KERNELS["flash_attention_bwd_delta"].launches.count == before
 
 
 @pytest.mark.gpu
 def test_flash_gradient_on_the_card_runs_the_kernels():
     """On CUDA tensors that need a gradient the forward kernel runs with
-    its LSE and the backward launches the dQ and dK/dV kernels once each;
-    the gradients equal the plain backward's on the same residuals
-    (float32: FFMA kernels, no TF32; rows 16-18 fold in other orders than
-    the plain versions, so within 2e-4 relative).  bfloat16 forwards at
-    the main paths' shapes and on the transformer's head views take the
-    wgmma kernel, with no copy."""
+    its LSE and the backward launches the delta, dQ and dK/dV kernels
+    once each; the gradients equal the plain backward's on the same
+    residuals (float32: FFMA kernels, no TF32; rows 16-18 fold in other
+    orders than the plain versions, so within 2e-4 relative).  A bfloat16
+    gradient takes rows 17-18's wgmma kernels.  bfloat16 forwards at the
+    main paths' shapes and on the transformer's head views take the wgmma
+    kernel, with no copy."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -300,6 +338,17 @@ def test_flash_gradient_on_the_card_runs_the_kernels():
                                                    causal))
         for t, x in zip((q, k, v), want):
             torch.testing.assert_close(t.grad, x, rtol=2e-4, atol=2e-5)
+    q, k, v = (torch.randn(2, 4, 256, 128, device=dev).to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    before = {n: KERNELS[n].launches.count for n in BWD_KERNELS}
+    wgmma = {n: KERNELS[n].wgmma_launches.count for n in WGMMA_BWD}
+    flash_attention(q, k, v).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert {n: KERNELS[n].launches.count - before[n]
+            for n in BWD_KERNELS} == dict.fromkeys(BWD_KERNELS, 1)
+    assert {n: KERNELS[n].wgmma_launches.count - wgmma[n]
+            for n in WGMMA_BWD} == dict.fromkeys(WGMMA_BWD, 1)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
     # bfloat16 forwards go through the wgmma kernel (rows 16's 16-bit
     # route), at the main paths' shapes and on the transformer's head
     # views, which it reads in place: within 1e-2 (the output) and 1e-4
@@ -420,6 +469,107 @@ def test_tma_copy_keeps_the_result(interpreted, causal):
         interop.to_numpy(out[..., :20]),
         np.asarray(pk.flash_attention(jq, jk, jv, causal=causal)).astype(
             np.float32), rtol=2e-2, atol=2e-2)
+
+
+def _bwd_close(got, want):
+    """The card checks' 16-bit tolerance for a gradient: max abs
+    difference within 1e-2 of the plain gradient's largest entry and
+    relative Frobenius difference within 1e-3 (a rounding of p or ds to
+    the 16-bit dtype may land one ulp apart and carry into the
+    product)."""
+    g, w = got.float(), want.float()
+    assert g.shape == w.shape and torch.isfinite(g).all()
+    assert float((g - w).abs().max()) <= 1e-2 * float(w.abs().max())
+    assert float((g - w).norm() / w.norm()) <= 1e-3
+
+
+def _card_bwd_case(dev, B, H, Hkv, T, D, dtype, causal, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, h, T, D, generator=gen, device=dev).to(dtype)
+               for h in (H, Hkv, Hkv))
+    do = torch.randn(B, H, T, D, generator=gen, device=dev).to(dtype)
+    o, lse = flash_attention(q, k, v, causal, with_lse=True)
+    return q, k, v, do, lse, flash_attention_bwd_delta(do, o)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,T,D,dtype,causal", [
+    (1, 2, 2, 50, 24, torch.bfloat16, True),    # ragged T and D
+    (2, 3, 3, 77, 40, torch.float16, False),    # ragged T and D, full
+    (2, 4, 1, 200, 64, torch.bfloat16, True),   # MQA
+])
+def test_flash_bwd_wgmma_kernels_on_the_card(B, H, Hkv, T, D, dtype, causal):
+    """Rows 17-18's wgmma kernels against their plain versions on ragged
+    T and D (TMA zero-fills the rows at or past T and the columns at or
+    past D; a head dim that TMA cannot read in place is copied) and under
+    MQA (dK and dV per q head, summed over the group), one wgmma launch
+    each; the delta kernel against its plain version within 1e-5 of each
+    row's sum of magnitudes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    q, k, v, do, lse, delta = _card_bwd_case(dev, B, H, Hkv, T, D, dtype,
+                                             causal, 31)
+    o = flash_attention(q, k, v, causal)
+    plain = flash_attention_bwd_delta_plain(do, o)
+    mag = (do.float() * o.float()).abs().sum(-1)
+    assert bool(((delta - plain).abs() <= 1e-5 * mag).all())
+    wgmma = {n: KERNELS[n].wgmma_launches.count for n in WGMMA_BWD}
+    got = (flash_attention_bwd_dq(q, k, v, do, lse, plain, causal),
+           *flash_attention_bwd_dkv(q, k, v, do, lse, plain, causal))
+    torch.cuda.synchronize()
+    assert {n: KERNELS[n].wgmma_launches.count - wgmma[n]
+            for n in WGMMA_BWD} == dict.fromkeys(WGMMA_BWD, 1)
+    want = (flash_attention_bwd_dq_plain(q, k, v, do, lse, plain, causal),
+            *flash_attention_bwd_dkv_plain(q, k, v, do, lse, plain, causal))
+    for g, w in zip(got, want):
+        _bwd_close(g, w)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_is_deterministic_on_the_card():
+    """Every output of rows 17-18 is written by one block, without
+    atomics: two backward calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    args = _card_bwd_case(dev, 2, 8, 2, 512, 128, torch.bfloat16, True, 32)
+    first = (flash_attention_bwd_dq(*args),
+             *flash_attention_bwd_dkv(*args))
+    again = (flash_attention_bwd_dq(*args),
+             *flash_attention_bwd_dkv(*args))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_bwd_tma_operands_copy_only_what_tma_cannot_read():
+    """The backward reads q, k, v and dO through TMA as the forward reads
+    q, k and v: the transformer's head views in place, a misaligned base,
+    a 40-byte row and an expanded gradient (stride 0) copied, one counted
+    copy each; the C array holds each operand's geometry as it is read.
+    float32 operands take no maps and no copies."""
+    q, k, v = _heads(2, 64, 4, 128), _heads(2, 64, 2, 128), \
+        _heads(2, 64, 2, 128)
+    do = torch.randn(2, 4, 64, 129).to(torch.bfloat16)[..., 1:]
+    assert not ka._tma_ready(do)
+    before = ka.tma_copies.count
+    (q2, k2, v2, do2), table = ka._bwd_tma(q, k, v, do)
+    assert (q2, k2, v2) == (q, k, v) and do2 is not do
+    assert ka.tma_copies.count == before + 1
+    torch.testing.assert_close(do2, do, rtol=0, atol=0)
+    assert list(table) == list(ka._tma_table([q, k, v, do2]))
+    assert len(table) == 4 * 9
+    grad = torch.ones(1, 1, 1, 1, dtype=torch.bfloat16).expand(2, 4, 64, 128)
+    assert not ka._tma_ready(grad)  # stride 0: copied
+    ragged = torch.zeros(2, 4, 64, 20, dtype=torch.float16)  # 40-byte rows
+    before = ka.tma_copies.count
+    ops, table = ka._bwd_tma(ragged, ragged[:, :2], ragged[:, :2], ragged)
+    assert ka.tma_copies.count == before + 4
+    assert all(t.shape[-1] == 24 and ka._tma_ready(t) for t in ops)
+    assert [table[9 * i] for i in range(4)] == [24] * 4  # D padded to 24
+    f32 = torch.zeros(1, 2, 16, 8)
+    before = ka.tma_copies.count
+    assert ka._bwd_tma(f32, f32, f32, f32) == ((f32,) * 4, None)
+    assert ka.tma_copies.count == before
 
 
 def test_grid_caps():

@@ -79,7 +79,7 @@ def _jax_sp(body, arrays, P):
 def _port_sp(fn, arrays, P, **kw):
     """``fn`` over the port's per-rank shards of ``arrays``; returns the
     reassembled global result."""
-    shards = [interop.shards_from_numpy(a, P) for a in arrays]
+    shards = [interop.shards_from_numpy(a, P, device="cpu") for a in arrays]
     outs = fn(*shards, **kw)
     assert len(outs) == P
     return interop.shards_to_numpy(outs)
@@ -142,7 +142,8 @@ def test_ring_attention_gradients_equal_jax():
     jgrads = jax.jit(jax.grad(
         lambda q, k, v: (ring(q, k, v) * w).sum(), argnums=(0, 1, 2)))(
             *(jnp.asarray(a) for a in (q, k, v)))
-    shards = [[t.requires_grad_() for t in interop.shards_from_numpy(a, P)]
+    shards = [[t.requires_grad_()
+               for t in interop.shards_from_numpy(a, P, device="cpu")]
               for a in (q, k, v)]
     out = torch.cat(tm.ring_attention(*shards, block_k=2), dim=2)
     (out * torch.from_numpy(w)).sum().backward()
@@ -215,7 +216,8 @@ def test_ulysses_forms_agree_bit_for_bit():
     """Row 12's re-shard and the tiled ``_a2a`` move the same bytes."""
     q, k, v = _global(45, [(2, 8, 8, 16)] * 3)
     for P in (2, 4, 8):
-        shards = [interop.shards_from_numpy(a, P) for a in (q, k, v)]
+        shards = [interop.shards_from_numpy(a, P, device="cpu")
+                  for a in (q, k, v)]
         a = tm.ulysses_attention(*shards)
         b = tm.ulysses_attention(*shards, use_pallas_alltoall=True)
         assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -295,6 +297,19 @@ def test_the_slice_against_the_full_sequence(P):
 # ---------------------------------------------------------------------------
 # refusals
 # ---------------------------------------------------------------------------
+
+
+def test_shards_from_numpy_never_falls_back_to_cpu(monkeypatch):
+    """``interop.shards_from_numpy`` goes to the card unless asked for the
+    CPU, as ``params_from_numpy`` does: without a card, ``device=None``
+    raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    q = np.arange(2 * 3 * 8 * 4, dtype=np.float32).reshape(2, 3, 8, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.shards_from_numpy(q, 2)
+    shards = interop.shards_from_numpy(q, 2, device="cpu")
+    assert [t.device.type for t in shards] == ["cpu", "cpu"]
+    np.testing.assert_array_equal(interop.shards_to_numpy(shards), q)
 
 
 def test_refusals():
