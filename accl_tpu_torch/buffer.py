@@ -10,11 +10,14 @@ is a view that aliases its parent's storage on both sides.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
 from .constants import DataType, dtype_size, dtype_to_torch
+
+if TYPE_CHECKING:
+    import numpy as np
 
 
 class BaseBuffer:
@@ -49,7 +52,9 @@ class BaseBuffer:
     def slice(self, start: int, stop: int) -> "BaseBuffer":
         raise NotImplementedError
 
-    def host_view(self) -> torch.Tensor:
+    def host_view(self) -> np.ndarray:
+        """The host side as a numpy array sharing its memory (mutating it
+        mutates host memory)."""
         raise NotImplementedError
 
 
@@ -98,9 +103,11 @@ class DeviceBuffer(BaseBuffer):
                 ml_dtypes.bfloat16)
         return self._host.numpy()
 
-    def host_view(self) -> torch.Tensor:
-        """The host tensor (mutating it mutates host memory)."""
-        return self._host
+    def host_view(self) -> np.ndarray:
+        """The host side as a numpy array sharing its memory, as the JAX
+        package's ``host_view`` returns it: :attr:`data` (bfloat16 through
+        ``ml_dtypes``)."""
+        return self.data
 
     def sync_to_device(self) -> None:
         self.wait_ready()
@@ -150,7 +157,7 @@ class DummyBuffer(BaseBuffer):
     def slice(self, start: int, stop: int) -> "DummyBuffer":
         return DummyBuffer(stop - start, self._dtype)
 
-    def host_view(self) -> torch.Tensor:
+    def host_view(self) -> np.ndarray:
         raise RuntimeError("dummy buffer has no storage")
 
 

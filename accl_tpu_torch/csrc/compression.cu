@@ -42,11 +42,21 @@
 // reduction included), far below the card's operations-per-byte line:
 // cast f32 -> bf16 moves 6 bytes an element, quantize 5 (+ 4 per
 // segment), dequantize 5, so their least time is those bytes over
-// 3.35 TB/s.  The design moves 16 bytes a thread per access where the
-// row pointers are aligned, in one grid-stride pass (quantize: one warp
-// per segment of up to 8192 elements, one block of 256 threads above,
-// with a second read of the segment that L1/L2 serve; dequantize: 16
-// bytes written a thread, so a warp's stores are contiguous).
+// 3.35 TB/s.  The cast (redesigned for Hopper's memory system) keeps
+// every access a whole, warp-contiguous one and enough bytes in flight:
+// lane l moves bytes [16 l, 16 l + 16) of each 512-byte chunk of the
+// wider side, four (or, widening, up to sixteen) loads a lane are issued
+// before any conversion (64 source bytes in flight), the narrower output
+// is traded between 2 or 4 lanes with warp shuffles so every store is 16
+// bytes, and each warp takes one tile of 512-2048 elements.  (On the
+// H100, `.cs` / `.nc` cache hints and a persistent grid of whole waves
+// measured slower than plain accesses and a tile a warp.)  The
+// others move 16 bytes a thread per access where the row pointers are
+// aligned, in one grid-stride pass (quantize: one warp per segment of up
+// to 8192 elements, one block of 256 threads above, with a second read
+// of the segment that L1/L2 serve; dequantize: 16 bytes written a thread,
+// so a warp's stores are contiguous).  Unaligned rows take every kernel's
+// scalar path.
 #include <type_traits>
 
 #include "wire.cuh"
@@ -78,9 +88,6 @@ __device__ __forceinline__ bool aligned(const X* p) {
 // row 5: cast
 // ---------------------------------------------------------------------------
 
-// 16 elements a thread where both row pointers are 16-byte aligned
-constexpr int kChunk = 16;
-
 // `unsigned_nan`: NaN loses its sign on the way (the Pallas tier's cast
 // from float8_e5m2, as JAX's interpreted kernel computes it)
 template <typename S, typename D>
@@ -95,47 +102,131 @@ __device__ __forceinline__ typename D::T convert(typename S::T v, int src,
   }
 }
 
+// A B-byte word: one lane's access
+template <int B> struct Word;
+template <> struct Word<4> { using T = uint32_t; };
+template <> struct Word<8> { using T = uint2; };
+template <> struct Word<16> { using T = uint4; };
+
+// The cast's access shape, source S to target D.  A chunk is 512 bytes of
+// the WIDER side: lane l takes its bytes [16 l, 16 l + 16), so each
+// warp-wide access of that side covers four whole 128-byte lines, and the
+// narrower side's access of the same V elements a lane is one 16 / G or
+// 16 * SB / DB byte word, as warp-contiguous.  A tile is U chunks, one
+// warp's work, whose U loads are issued before any conversion: 64 bytes of
+// the source in flight a lane.  Narrowing by G (2: f32 -> 16-bit, 16-bit
+// -> fp8; 4: f32 -> fp8), G lanes trade their converted words so that each
+// stores 16 bytes.
 template <typename S, typename D>
-__global__ void cast_kernel(RowPtrs t, long long n, int src,
-                            bool unsigned_nan) {
+struct CastShape {
+  static constexpr int SB = sizeof(typename S::T);
+  static constexpr int DB = sizeof(typename D::T);
+  static constexpr int V = 16 / (SB > DB ? SB : DB);  // elements a lane, a chunk
+  static constexpr int IN = V * SB;   // bytes a lane loads, a chunk
+  static constexpr int OUT = V * DB;  // bytes a lane converts, a chunk
+  static constexpr int G = IN > OUT ? IN / OUT : 1;
+  static constexpr int U = 64 / IN;       // chunks a tile
+  static constexpr int E = 32 * V * U;    // elements a warp's tile
+  static_assert(U % G == 0, "a tile holds whole groups of G chunks");
+};
+
+// The G lanes of a group (lane / G the same) hold, for G consecutive
+// chunks c0.., the converted words `w[c][*]` of their own V elements.
+// Lane g = lane % G gathers chunk c0 + g's words of the whole group, in
+// lane order (its 16 contiguous bytes), and stores them: G - 1 exchanges,
+// in each of which a lane sends the word its partner lane ^ r gathers.
+template <int G, int PW, int U>
+__device__ __forceinline__ void store_group(uint4* dst, int c0, int lane,
+                                            const uint32_t (&w)[U][PW]) {
+  const int g = lane % G;
+  uint32_t out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    const int k = g ^ r;  // the chunk c0 + k the partner gathers
+#pragma unroll
+    for (int q = 0; q < PW; ++q) {
+      uint32_t mine = w[c0][q];
+#pragma unroll
+      for (int j = 1; j < G; ++j)
+        if (k == j) mine = w[c0 + j][q];
+      const uint32_t got = r ? __shfl_xor_sync(0xFFFFFFFFu, mine, r) : mine;
+#pragma unroll
+      for (int j = 0; j < G; ++j)  // the partner's place in the group
+        if (k == j) out[j * PW + q] = got;
+    }
+  }
+  *dst = make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+template <typename S, typename D>
+__global__ void __launch_bounds__(kThreads)
+    cast_kernel(RowPtrs t, long long n, int src, bool unsigned_nan) {
   using TS = typename S::T;
   using TD = typename D::T;
+  using C = CastShape<S, D>;
+  using WIn = typename Word<C::IN>::T;
+  constexpr int PW = C::OUT / 4;  // 32-bit words a lane converts, a chunk
   const int row = blockIdx.y;
   const TS* x = static_cast<const TS*>(t.in[row]);
   TD* y = static_cast<TD*>(t.out[row]);
+  const int lane = threadIdx.x % 32;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long done = 0;
   if (aligned(x) && aligned(y)) {
-    const long long nchunk = n / kChunk;
-    for (long long c = tid; c < nchunk; c += stride) {
-      alignas(16) TS vs[kChunk];
-      alignas(16) TD vd[kChunk];
-      const uint4* src4 = reinterpret_cast<const uint4*>(x + c * kChunk);
+    const long long tiles = n / C::E;
+    for (long long w = tid / 32; w < tiles; w += stride / 32) {
+      const long long base = w * C::E;
+      WIn in[C::U];
 #pragma unroll
-      for (int k = 0; k < (int)(kChunk * sizeof(TS) / 16); ++k)
-        reinterpret_cast<uint4*>(vs)[k] = src4[k];
+      for (int u = 0; u < C::U; ++u)  // every load before any conversion
+        in[u] = reinterpret_cast<const WIn*>(x + base + u * 32 * C::V)[lane];
+      uint32_t words[C::U][PW];
 #pragma unroll
-      for (int k = 0; k < kChunk; ++k)
-        vd[k] = convert<S, D>(vs[k], src, unsigned_nan);
-      uint4* dst4 = reinterpret_cast<uint4*>(y + c * kChunk);
+      for (int u = 0; u < C::U; ++u) {
+        alignas(16) TS vs[C::V];
+        alignas(16) TD vd[C::V];
+        *reinterpret_cast<WIn*>(vs) = in[u];
 #pragma unroll
-      for (int k = 0; k < (int)(kChunk * sizeof(TD) / 16); ++k)
-        dst4[k] = reinterpret_cast<const uint4*>(vd)[k];
+        for (int k = 0; k < C::V; ++k)
+          vd[k] = convert<S, D>(vs[k], src, unsigned_nan);
+        if constexpr (C::G == 1) {  // 16 bytes a lane already
+          reinterpret_cast<uint4*>(y + base + u * 32 * C::V)[lane] =
+              *reinterpret_cast<const uint4*>(vd);
+        } else {
+#pragma unroll
+          for (int q = 0; q < PW; ++q)
+            words[u][q] = reinterpret_cast<const uint32_t*>(vd)[q];
+        }
+      }
+      if constexpr (C::G > 1) {
+#pragma unroll
+        for (int c0 = 0; c0 < C::U; c0 += C::G)
+          store_group<C::G, PW, C::U>(
+              reinterpret_cast<uint4*>(y + base +
+                                       (c0 + lane % C::G) * 32 * C::V) +
+                  lane / C::G,
+              c0, lane, words);
+      }
     }
-    done = nchunk * kChunk;
+    done = tiles * C::E;
   }
   for (long long i = done + tid; i < n; i += stride)
     y[i] = convert<S, D>(x[i], src, unsigned_nan);
 }
 
+// One tile a warp: the block scheduler spreads the tiles over the SMs as
+// they free up, which measured faster on the H100 than a persistent grid
+// of whole waves (its last wave runs part-empty).
 template <typename S, typename D>
 int cast_as(const RowPtrs& t, int R, long long n, int src, bool unsigned_nan,
             cudaStream_t s) {
-  const int per_row = (accl::grid_for((n + kChunk - 1) / kChunk, kThreads) +
-                       R - 1) / R;
-  dim3 grid(per_row < 1 ? 1 : per_row, R);
-  cast_kernel<S, D><<<grid, kThreads, 0, s>>>(t, n, src, unsigned_nan);
+  constexpr int kWarps = kThreads / 32;
+  constexpr long long E = CastShape<S, D>::E;
+  long long blocks = ((n + E - 1) / E + kWarps - 1) / kWarps;
+  if (blocks > (1LL << 30)) blocks = 1LL << 30;  // then warps take several
+  cast_kernel<S, D><<<dim3((unsigned)blocks, R), kThreads, 0, s>>>(
+      t, n, src, unsigned_nan);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -155,6 +246,9 @@ int cast_to(const RowPtrs& t, int R, long long n, int src, int dst,
 // ---------------------------------------------------------------------------
 // row 6: stochastic cast (mask-add-truncate)
 // ---------------------------------------------------------------------------
+
+// 16 elements a thread where both row pointers are 16-byte aligned
+constexpr int kChunk = 16;
 
 template <typename S, typename D>
 __device__ __forceinline__ typename D::T sr_convert(typename S::T v,

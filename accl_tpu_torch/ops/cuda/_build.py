@@ -6,6 +6,13 @@ build takes seconds).  Libraries land in ``csrc/build/`` named by a hash
 of their sources, so an edited source rebuilds and an unchanged one is
 reused; beside each, ``lib<name>-<hash>.log`` keeps nvcc's output (with
 ptxas's register and spill counts, :func:`build_log`).  :func:`build_all` starts one ``nvcc`` per source at once.
+
+Each wrapper module holds a table of its libraries' C prototypes
+(``PROTOTYPES``: library name -> entry point -> ctypes argument types;
+every entry point returns its launch's ``cudaError_t`` as an ``int``).
+:func:`library` declares them once, when it loads the library, so no
+launch re-declares them (``tests/test_torch_launch_path.py`` holds each table
+against the ``extern "C"`` signatures in ``csrc``).
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Mapping, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -26,6 +33,15 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers and spills per kernel, into the build log
 ]
+
+# the ctypes kinds of the C parameters: a pointer, long long, int, float
+# and double
+PTR, LL, INT, FLOAT, DOUBLE = (ctypes.c_void_p, ctypes.c_longlong,
+                               ctypes.c_int, ctypes.c_float, ctypes.c_double)
+
+#: the entry point every library has (``common.cuh``): its restype and
+#: argument types
+ERROR_STRING = ("accl_error_string", ctypes.c_char_p, (INT,))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -102,8 +118,11 @@ def build_log(name: str) -> str:
     return _lib_path(name).with_suffix(".log").read_text()
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def library(name: str,
+            prototypes: Mapping[str, Sequence[type]]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use, with
+    ``prototypes`` (entry point -> argument types, each returning an
+    ``int``) declared when it loads."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
@@ -114,7 +133,11 @@ def library(name: str) -> ctypes.CDLL:
             if job is not None:
                 _finish(name, job)
             lib = ctypes.CDLL(str(_lib_path(name)))
-            lib.accl_error_string.restype = ctypes.c_char_p
-            lib.accl_error_string.argtypes = [ctypes.c_int]
+            fn, restype, argtypes = ERROR_STRING
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+            for fn, argtypes in prototypes.items():
+                getattr(lib, fn).restype = INT
+                getattr(lib, fn).argtypes = argtypes
             _libs[name] = lib
     return lib

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -101,8 +101,10 @@ class LaunchCounter:
         self.count = 0
 
     def bump(self) -> None:
-        with self._lock:
-            self.count += 1
+        lock = self._lock  # acquire / release: cheaper than ``with``
+        lock.acquire()
+        self.count += 1
+        lock.release()
 
     def reset(self) -> None:
         with self._lock:
@@ -110,18 +112,28 @@ class LaunchCounter:
 
 
 def on_cuda(tensors: Sequence[Optional[torch.Tensor]]) -> bool:
-    """True when every tensor lies on a CUDA device, False when every one
+    """True when every tensor lies on one CUDA device, False when every one
     lies on the CPU; raises on a mix or any other device.  None entries
-    (ranks that take no result) are skipped."""
-    devices = {t.device for t in tensors if t is not None}
-    kinds = {d.type for d in devices}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len(devices) == 1:
-        return True
+    (ranks that take no result) are skipped.  One pass, one ``device``
+    read a tensor: the launch path's only device check (and no
+    ``torch.device.type``, which costs a launch path more than the read)."""
+    first = dev = None
+    for t in tensors:
+        if t is None:
+            continue
+        if first is None:
+            first, dev = t, t.device
+        elif t.device != dev:
+            first = None
+            break
+    if first is not None:
+        if first.is_cuda:
+            return True
+        if first.is_cpu:
+            return False
     raise ValueError(
         f"kernel operands must all lie on the CPU or on one CUDA device, "
-        f"got {sorted(str(d) for d in devices)}"
+        f"got {sorted({str(t.device) for t in tensors if t is not None})}"
     )
 
 
@@ -138,16 +150,22 @@ def check_ranks(xs: Sequence[torch.Tensor], what: str) -> None:
             raise ValueError(f"{what}: operands must match in shape and dtype")
 
 
-def aligned16(tensors: Sequence[Optional[torch.Tensor]]) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+def pointers(tensors: Sequence[Optional[torch.Tensor]]
+             ) -> List[Optional[int]]:
+    """The tensors' device pointers, one ``data_ptr()`` call a tensor (None
+    stays None: a rank that takes no result)."""
+    return [None if t is None else t.data_ptr() for t in tensors]
 
 
-def pointer_table(tensors: Sequence[Optional[torch.Tensor]]):
-    """A C array of the tensors' device pointers; a None entry is a null
+def aligned16(ptrs: Sequence[Optional[int]]) -> bool:
+    """Whether every pointer of :func:`pointers` is 16-byte aligned."""
+    return not any(p % 16 for p in ptrs if p is not None)
+
+
+def pointer_table(ptrs: Sequence[Optional[int]]):
+    """A C array of :func:`pointers`' values; a None entry is a null
     pointer (the kernel skips that rank's stores)."""
-    return (ctypes.c_void_p * len(tensors))(
-        *[None if t is None else t.data_ptr() for t in tensors]
-    )
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
 def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -159,8 +177,13 @@ def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
             and b0 < a0 + a.numel() * a.element_size())
 
 
-def stream_of(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_of(device: torch.device) -> int:
+    """The pointer of PyTorch's current stream on ``device`` (an int, which
+    the prototypes' ``c_void_p`` takes as it is).  ``torch.accelerator``
+    reads it without building a ``torch.cuda.Stream``, several times
+    faster on the H100's host than ``torch.cuda.current_stream(device)``
+    (``chip_smoke.py``'s ``launch_path`` times both)."""
+    return torch.accelerator.current_stream(device.index).native_handle
 
 
 def check_launch(lib, rc: int, what: str) -> None:

@@ -12,12 +12,12 @@ each rank's blocks); CPU tensors take it.
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, Sequence
 
 import torch
 
 from . import _build
+from ._build import INT, LL, PTR
 from ._common import (
     LaunchCounter,
     MAX_RANKS,
@@ -25,8 +25,13 @@ from ._common import (
     check_launch,
     on_cuda,
     pointer_table,
+    pointers,
     stream_of,
 )
+
+#: ``csrc/alltoall.cu``'s C prototypes (declared once, at load)
+PROTOTYPES = {"alltoall": {
+    "accl_alltoall": (PTR, PTR, INT, LL, INT, INT, PTR)}}
 
 
 def _check(xs: Sequence[torch.Tensor]) -> int:
@@ -57,16 +62,6 @@ def alltoall_plain(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
             for r in range(P)]
 
 
-def _lib():
-    lib = _build.library("alltoall")
-    lib.accl_alltoall.restype = ctypes.c_int
-    lib.accl_alltoall.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    return lib
-
-
 def alltoall(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Block transpose across the ranks (row 12): ``xs`` holds P operands
     of one shape ``(P * b, ...)`` and dtype, one per rank; returns P new
@@ -85,10 +80,11 @@ def alltoall(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     m = xs[0].numel() // P
     if m:
         itemsize = xs[0].element_size()
-        vec = aligned16(xs + outs) and (m * itemsize) % 16 == 0
-        lib = _lib()
+        pin, pout = pointers(xs), pointers(outs)
+        vec = aligned16(pin + pout) and (m * itemsize) % 16 == 0
+        lib = _build.library("alltoall", PROTOTYPES["alltoall"])
         rc = lib.accl_alltoall(
-            pointer_table(xs), pointer_table(outs), P, m, itemsize,
+            pointer_table(pin), pointer_table(pout), P, m, itemsize,
             int(vec), stream_of(xs[0].device),
         )
         check_launch(lib, rc, "alltoall")

@@ -34,13 +34,13 @@ take FFMA kernels (no TF32).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ...constants import torch_to_dtype
 from . import _build
+from ._build import FLOAT, INT, PTR
 from ._common import (
     MAX_RANKS,
     LaunchCounter,
@@ -48,8 +48,35 @@ from ._common import (
     check_launch,
     on_cuda,
     pointer_table,
+    pointers,
     stream_of,
 )
+
+#: the C prototypes of ``csrc/attention.cu``, ``csrc/attention_bwd.cu``
+#: and ``csrc/ring_attention.cu`` (declared once, at load); each library
+#: also exports ``flash_sm90.cuh``'s ``accl_wgmma_smem``
+_SHAPE = (INT,) * 8 + (FLOAT, PTR)  # B, H, Hkv, T, D, dtype, causal, vec
+PROTOTYPES = {
+    "attention": {
+        "accl_flash_attention": (PTR,) * 8 + _SHAPE,
+        "accl_wgmma_smem": (INT,),
+    },
+    "attention_bwd": {
+        "accl_flash_bwd_dq": (PTR,) * 10 + _SHAPE,
+        "accl_flash_bwd_dkv": (PTR,) * 11 + _SHAPE,
+        "accl_flash_bwd_delta": (PTR,) * 4 + (INT,) * 6 + (PTR,),
+        "accl_flash_bwd_smem": (INT,),
+        "accl_wgmma_smem": (INT,),
+    },
+    "ring_attention": {
+        "accl_ring_attention": (PTR,) * 6 + (INT,) * 9 + (FLOAT, PTR),
+        "accl_wgmma_smem": (INT,),
+    },
+}
+
+
+def _lib(name: str = "attention"):
+    return _build.library(name, PROTOTYPES[name])
 
 #: widest head dim the kernel takes (its register tiles hold D <= 128)
 MAX_HEAD_DIM = 128
@@ -368,7 +395,7 @@ _COUNTERS: dict = {}
 
 def _work_counters(device, stream) -> int:
     """The device pointer of ``stream``'s work counters on ``device``."""
-    key = (device, stream.value)
+    key = (device, stream)
     buf = _COUNTERS.get(key)
     if buf is None:
         buf = _COUNTERS[key] = torch.zeros(2, dtype=torch.int32,
@@ -380,34 +407,6 @@ def _strides(*ts):
     """The (b, h, t) element strides of each tensor, as a C array."""
     return (ctypes.c_longlong * (3 * len(ts)))(
         *[s for t in ts for s in t.stride()[:3]])
-
-
-@functools.cache
-def _lib():
-    lib = _build.library("attention")
-    lib.accl_flash_attention.restype = ctypes.c_int
-    lib.accl_flash_attention.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p,
-    ]
-    return lib
-
-
-@functools.cache
-def _bwd_lib():
-    lib = _build.library("attention_bwd")
-    shape_args = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-    lib.accl_flash_bwd_dq.restype = ctypes.c_int
-    lib.accl_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 10 + shape_args
-    lib.accl_flash_bwd_dkv.restype = ctypes.c_int
-    lib.accl_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 11 + shape_args
-    lib.accl_flash_bwd_delta.restype = ctypes.c_int
-    lib.accl_flash_bwd_delta.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
-    return lib
 
 
 def _forward(q, k, v, causal: bool, with_lse: bool):
@@ -425,6 +424,7 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
     if B * H * T * D == 0:
         return (out, lse) if with_lse else out
     stream = stream_of(q.device)
+    ptrs = pointers((q, k, v))
     if q.dtype == torch.float32:
         tma, strides, sched = None, _strides(q, k, v, out), None
     else:
@@ -432,13 +432,14 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
         key = (q.dtype, q.shape, q.stride(), k.shape, k.stride(), v.stride(),
                out.stride())
         hit = _TMA_ARGS.get(key)
-        if hit is None or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        if hit is None or not aligned16(ptrs):
             (q, k, v), hit = _tma_args((q, k, v), out, key)
+            ptrs = pointers((q, k, v))
         tma, strides = hit
     lib = _lib()
     rc = lib.accl_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), strides, tma, sched,
+        *ptrs, out.data_ptr(), None if lse is None else lse.data_ptr(),
+        strides, tma, sched,
         B, H, k.shape[1], T, D, int(torch_to_dtype(q.dtype)), int(causal),
         int(vec), 1.0 / D ** 0.5, stream,
     )
@@ -491,10 +492,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True):
     stream = stream_of(q.device)
     sched = None if tma is None else _work_counters(q.device, stream)
     lse, delta = lse.contiguous(), delta.contiguous()
-    lib = _bwd_lib()
+    lib = _lib("attention_bwd")
     rc = lib.accl_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *pointers((q, k, v, do)), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(),
         _strides(q, k, v, do, dq), tma, sched, B, H, k.shape[1], T, D,
         int(torch_to_dtype(q.dtype)), int(causal), int(vec), 1.0 / D ** 0.5,
         stream,
@@ -534,10 +535,10 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
     stream = stream_of(q.device)
     sched = None if tma is None else _work_counters(q.device, stream)
     lse, delta = lse.contiguous(), delta.contiguous()
-    lib = _bwd_lib()
+    lib = _lib("attention_bwd")
     rc = lib.accl_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *pointers((q, k, v, do)), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
         _strides(q, k, v, do, dk, dv), tma, sched, B, H, Hkv, T, D,
         int(torch_to_dtype(q.dtype)), int(causal), int(vec), 1.0 / D ** 0.5,
         stream,
@@ -581,7 +582,7 @@ def flash_attention_bwd_delta(do, out):
     vec = D % 4 == 0 and all(
         t.data_ptr() % (4 * t.element_size()) == 0
         and all(s % 4 == 0 for s in t.stride()[:3]) for t in (do, out))
-    lib = _bwd_lib()
+    lib = _lib("attention_bwd")
     rc = lib.accl_flash_bwd_delta(
         do.data_ptr(), out.data_ptr(), delta.data_ptr(), _strides(do, out),
         B, H, T, D, int(torch_to_dtype(do.dtype)), int(vec),
@@ -736,15 +737,6 @@ def ring_attention_plain(qs, ks, vs, causal: bool = True, *,
     return outs
 
 
-@functools.cache
-def _ring_lib():
-    lib = _build.library("ring_attention")
-    lib.accl_ring_attention.restype = ctypes.c_int
-    lib.accl_ring_attention.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    return lib
-
-
 def ring_attention(qs, ks, vs, causal: bool = True, *, striped: bool = False):
     """Sequence-parallel attention over P ranks in one launch (row 15):
     ``qs``, ``ks`` and ``vs`` hold each rank's ``(B, H, T_local, D)``
@@ -777,21 +769,23 @@ def ring_attention(qs, ks, vs, causal: bool = True, *, striped: bool = False):
     if B * H * T * D == 0:
         return outs
     width = 16 // q0.element_size()
-    vec = D % width == 0 and aligned16(qs + ks + vs + outs)
+    pin, pout = pointers(qs + ks + vs), pointers(outs)
+    vec = D % width == 0 and aligned16(pin + pout)
     stream = stream_of(q0.device)
     tma = sched = None
     if q0.dtype != torch.float32:  # the wgmma kernel reads through TMA
         sched = _work_counters(q0.device, stream)
         key = (q0.dtype, q0.shape, P)  # every operand contiguous, one shape
         hit = _TMA_ARGS.get(key)
-        if hit is None or any(t.data_ptr() % 16 for t in qs + ks + vs):
+        if hit is None or not aligned16(pin):
             ts, hit = _tma_args(qs + ks + vs, None, key)
-            qs, ks, vs = ts[:P], ts[P:2 * P], ts[2 * P:]
+            pin = pointers(ts)
         tma = hit[0]
-    lib = _ring_lib()
+    lib = _lib("ring_attention")
     rc = lib.accl_ring_attention(
-        pointer_table(qs), pointer_table(ks), pointer_table(vs),
-        pointer_table(outs), tma, sched, P, B, H, T, D,
+        pointer_table(pin[:P]), pointer_table(pin[P:2 * P]),
+        pointer_table(pin[2 * P:]), pointer_table(pout), tma, sched, P, B,
+        H, T, D,
         int(torch_to_dtype(q0.dtype)), int(causal), int(striped), int(vec),
         1.0 / D ** 0.5, stream,
     )

@@ -38,6 +38,7 @@ from ...constants import (
     torch_to_dtype,
 )
 from . import _build
+from ._build import INT, PTR
 from ._common import LaunchCounter, check_launch, on_cuda, stream_of
 
 _F = CMDRING_FIELDS
@@ -94,13 +95,9 @@ def launches_for(P: int, n_slots: int) -> int:
     return -(-n_slots // per)
 
 
-def _lib():
-    lib = _build.library("cmdring")
-    Pt = ctypes.c_void_p
-    I = ctypes.c_int
-    lib.accl_sequencer.argtypes = [Pt] * 9 + [I, I, I, Pt, Pt, Pt]
-    lib.accl_sequencer.restype = I
-    return lib
+#: ``csrc/cmdring.cu``'s C prototypes (declared once, at load)
+PROTOTYPES = {"cmdring": {
+    "accl_sequencer": (PTR,) * 9 + (INT, INT, INT, PTR, PTR, PTR)}}
 
 
 def _words(slots) -> np.ndarray:
@@ -277,7 +274,7 @@ def sequencer(slots, xs: Sequence[Sequence[Optional[torch.Tensor]]],
     n = words.shape[0]
     scratch = torch.empty(2 * n + 1, dtype=torch.int32, device=device)
     status = scratch[:2 * n].view(n, 2)
-    lib = _lib()
+    lib = _build.library("cmdring", PROTOTYPES["cmdring"])
     per = max(1, min(MAX_SLOTS, MAX_RANK_SLOTS // P))
     for lo in range(0, n, per):
         hi = min(n, lo + per)
@@ -300,10 +297,8 @@ def sequencer(slots, xs: Sequence[Sequence[Optional[torch.Tensor]]],
                    for i in idx for t in cut_x[i]]),
             ptrs(*[None if t is None else t.data_ptr()
                    for i in idx for t in cut_o[i]]),
-            k, P, int(torch_to_dtype(dtype)),
-            ctypes.c_void_p(status[lo:].data_ptr()),
-            ctypes.c_void_p(scratch[2 * n:].data_ptr()),
-            stream_of(device),
+            k, P, int(torch_to_dtype(dtype)), status[lo:].data_ptr(),
+            scratch[2 * n:].data_ptr(), stream_of(device),
         )
         check_launch(lib, rc, "sequencer")
         sequencer.launches.bump()

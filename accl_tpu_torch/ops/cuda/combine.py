@@ -7,7 +7,6 @@ which CPU tensors take and the card's checks compare against.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -15,7 +14,12 @@ import torch
 from ...arithconfig import reduce_op
 from ...constants import ReduceFunction, torch_to_dtype
 from . import _build
-from ._common import LaunchCounter, aligned16, check_launch, on_cuda, stream_of
+from ._build import INT, LL, PTR
+from ._common import LaunchCounter, check_launch, on_cuda, stream_of
+
+#: ``csrc/combine.cu``'s C prototypes (declared once, at load)
+PROTOTYPES = {"combine": {
+    "accl_combine": (PTR, PTR, PTR, LL, INT, INT, INT, INT, PTR)}}
 
 
 def combine_plain(a: torch.Tensor, b: torch.Tensor,
@@ -24,17 +28,6 @@ def combine_plain(a: torch.Tensor, b: torch.Tensor,
     """``function(a, b)`` in ``a``'s dtype, then cast to ``out_dtype``."""
     out = reduce_op(function)(a, b)
     return out if out_dtype is None else out.to(out_dtype)
-
-
-def _lib():
-    lib = _build.library("combine")
-    lib.accl_combine.restype = ctypes.c_int
-    lib.accl_combine.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    return lib
 
 
 def combine(
@@ -81,11 +74,12 @@ def combine(
     n = a.numel()
     if n == 0:
         return out
-    lib = _lib()
+    lib = _build.library("combine", PROTOTYPES["combine"])
+    pa, pb, po = a.data_ptr(), b.data_ptr(), out.data_ptr()
     rc = lib.accl_combine(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-        int(torch_to_dtype(a.dtype)), int(torch_to_dtype(out_dtype)),
-        int(function), int(aligned16([a, b, out])), stream_of(a.device),
+        pa, pb, po, n, int(torch_to_dtype(a.dtype)),
+        int(torch_to_dtype(out_dtype)), int(function),
+        int(not (pa | pb | po) % 16), stream_of(a.device),
     )
     check_launch(lib, rc, "combine")
     combine.launches.bump()

@@ -32,6 +32,7 @@ import torch
 from ...constants import torch_to_dtype
 from ...wire import astype, widen
 from . import _build
+from ._build import FLOAT, INT, LL, PTR
 from ._common import (
     LANES,
     MAX_RANKS,
@@ -42,6 +43,7 @@ from ._common import (
     on_cuda,
     packed_len,
     pointer_table,
+    pointers,
     stream_of,
     unpack_lanes,
 )
@@ -83,20 +85,19 @@ def sr_bits(n: int, seed, device=None) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
+#: ``csrc/compression.cu``'s C prototypes (declared once, at load)
+PROTOTYPES = {"compression": {
+    "accl_cast": (PTR, PTR, INT, LL, INT, INT, INT, PTR),
+    "accl_stochastic_cast": (PTR, PTR, PTR, INT, LL, INT, INT, INT, FLOAT,
+                             INT, PTR),
+    "accl_quantize_int8": (PTR, PTR, INT, LL, LL, LL, LL, PTR, PTR, INT,
+                           PTR),
+    "accl_dequantize_int8": (PTR, LL, PTR, LL, PTR, INT, LL, LL, INT, PTR),
+}}
+
+
 def _lib():
-    lib = _build.library("compression")
-    P = ctypes.c_void_p
-    L = ctypes.c_longlong
-    I = ctypes.c_int
-    lib.accl_cast.argtypes = [P, P, I, L, I, I, I, P]
-    lib.accl_stochastic_cast.argtypes = [P, P, P, I, L, I, I, I,
-                                         ctypes.c_float, I, P]
-    lib.accl_quantize_int8.argtypes = [P, P, I, L, L, L, L, P, P, I, P]
-    lib.accl_dequantize_int8.argtypes = [P, L, P, L, P, I, L, L, I, P]
-    for f in (lib.accl_cast, lib.accl_stochastic_cast,
-              lib.accl_quantize_int8, lib.accl_dequantize_int8):
-        f.restype = I
-    return lib
+    return _build.library("compression", PROTOTYPES["compression"])
 
 
 def _rows(xs: Sequence[torch.Tensor], what: str) -> List[torch.Tensor]:
@@ -173,7 +174,8 @@ def cast_rows(xs: Sequence[torch.Tensor], dtype: torch.dtype,
     if n:
         lib = _lib()
         rc = lib.accl_cast(
-            pointer_table(rows), pointer_table(outs), len(rows), n,
+            pointer_table(pointers(rows)), pointer_table(pointers(outs)),
+            len(rows), n,
             int(torch_to_dtype(rows[0].dtype)), int(torch_to_dtype(dtype)),
             int(e5m2_nan_unsigned), stream_of(rows[0].device),
         )
@@ -235,7 +237,8 @@ def stochastic_cast_rows(xs: Sequence[torch.Tensor], dtype: torch.dtype,
     if n:
         lib = _lib()
         rc = lib.accl_stochastic_cast(
-            pointer_table(rows), pointer_table(outs), _seed_array(seeds),
+            pointer_table(pointers(rows)), pointer_table(pointers(outs)),
+            _seed_array(seeds),
             len(rows), n, int(torch_to_dtype(rows[0].dtype)),
             int(torch_to_dtype(dtype)), int(drop), float(tiny),
             int(bool(always)), stream_of(rows[0].device),
@@ -314,7 +317,8 @@ def quantize_rows(xs: Sequence[torch.Tensor], seeds, seg: int,
     scales = torch.empty((len(rows), nseg), dtype=torch.float32, device=dev)
     lib = _lib()
     rc = lib.accl_quantize_int8(
-        pointer_table(rows), _seed_array(seeds), len(rows), n, seg, nseg,
+        pointer_table(pointers(rows)), _seed_array(seeds), len(rows), n,
+        seg, nseg,
         out_len, values.data_ptr(), scales.data_ptr(),
         int(torch_to_dtype(rows[0].dtype)), stream_of(dev),
     )

@@ -10,27 +10,19 @@ against its input).  The kernel is ``csrc/probe.cu``;
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
-from ._common import LaunchCounter, aligned16, check_launch, on_cuda, stream_of
+from ._build import LL, PTR
+from ._common import LaunchCounter, check_launch, on_cuda, stream_of
+
+#: ``csrc/probe.cu``'s C prototypes (declared once, at load)
+PROTOTYPES = {"probe": {"accl_probe_copy": (PTR, PTR, LL, PTR)}}
 
 
 def probe_copy_plain(x: torch.Tensor) -> torch.Tensor:
     """A copy of ``x``."""
     return x.clone()
-
-
-def _lib():
-    lib = _build.library("probe")
-    lib.accl_probe_copy.restype = ctypes.c_int
-    lib.accl_probe_copy.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    return lib
 
 
 def probe_copy(x: torch.Tensor) -> torch.Tensor:
@@ -40,10 +32,10 @@ def probe_copy(x: torch.Tensor) -> torch.Tensor:
     if not on_cuda([x]):
         return probe_copy_plain(x)
     out = torch.empty_like(x)
-    if x.numel():
-        lib = _lib()
-        rc = lib.accl_probe_copy(x.data_ptr(), out.data_ptr(), x.numel(),
-                                 int(aligned16([x, out])),
+    n = x.numel()
+    if n:
+        lib = _build.library("probe", PROTOTYPES["probe"])
+        rc = lib.accl_probe_copy(x.data_ptr(), out.data_ptr(), n,
                                  stream_of(x.device))
         check_launch(lib, rc, "probe_copy")
         probe_copy.launches.bump()

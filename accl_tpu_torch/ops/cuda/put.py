@@ -19,13 +19,13 @@ over the stacked rows); CPU tensors take it.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
 from ...constants import torch_to_dtype
 from . import _build
+from ._build import DOUBLE, INT, LL, PTR
 from ._common import (
     LaunchCounter,
     aligned16,
@@ -34,8 +34,13 @@ from ._common import (
     on_cuda,
     overlaps,
     pointer_table,
+    pointers,
     stream_of,
 )
+
+#: ``csrc/put.cu``'s C prototypes (declared once, at load)
+PROTOTYPES = {"put": {"accl_fused_put": (
+    PTR, PTR, INT, INT, LL, INT, INT, INT, DOUBLE, LL, INT, PTR)}}
 
 #: dtypes the kernel computes ``v + c`` and ``v * c`` in (identity takes
 #: any dtype)
@@ -108,17 +113,6 @@ def fused_shift_plain(xs: Operand, distance: int = 1,
     return _result(xs, list(torch.roll(done, int(distance), 0).unbind(0)))
 
 
-def _lib():
-    lib = _build.library("put")
-    lib.accl_fused_put.restype = ctypes.c_int
-    lib.accl_fused_put.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_double, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-    ]
-    return lib
-
-
 def fused_shift(xs: Operand, distance: int = 1,
                 compute: Optional[Callable] = None,
                 out: Optional[Sequence[torch.Tensor]] = None):
@@ -162,12 +156,13 @@ def fused_shift(xs: Operand, distance: int = 1,
         rows = [r.contiguous() for r in rows]
     n = x0.numel()
     if n:
-        lib = _lib()
+        lib = _build.library("put", PROTOTYPES["put"])
+        pin, pout = pointers(rows), pointers(outs)
         rc = lib.accl_fused_put(
-            pointer_table(rows), pointer_table(outs), P, int(distance) % P,
+            pointer_table(pin), pointer_table(pout), P, int(distance) % P,
             n, int(torch_to_dtype(x0.dtype)) if op else 0, x0.element_size(),
             op, c, 0 if x0.is_floating_point() else int(c),
-            int(aligned16(rows + outs)), stream_of(x0.device),
+            int(aligned16(pin + pout)), stream_of(x0.device),
         )
         check_launch(lib, rc, "fused_shift")
         fused_shift.launches.bump()

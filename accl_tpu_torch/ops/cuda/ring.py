@@ -16,7 +16,6 @@ dequantize kernels (rows 7-8).
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, Optional, Sequence
 
 import torch
@@ -26,6 +25,7 @@ from ...constants import ReduceFunction, as_datatype, torch_to_dtype
 from ...wire import astype, is_wire_dtype, widen
 from . import _build
 from . import compression as kcomp
+from ._build import INT, LL, PTR
 from ._common import (
     LANES,
     LaunchCounter,
@@ -34,9 +34,18 @@ from ._common import (
     check_ranks,
     on_cuda,
     pointer_table,
+    pointers,
     ring_len,
     stream_of,
 )
+
+#: ``csrc/ring.cu``'s C prototypes (declared once, at load)
+PROTOTYPES = {"ring": {
+    "accl_ring_allreduce": (PTR, PTR, INT, LL, LL, LL, INT, INT, INT, INT,
+                            PTR),
+    "accl_ring_reduce_scatter": (PTR, PTR, INT, LL, LL, INT, INT, INT, PTR),
+    "accl_ring_allgather": (PTR, PTR, INT, LL, INT, INT, PTR),
+}}
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 
@@ -95,23 +104,14 @@ def _outputs(flat, out, length: int, what: str,
     return [None if o is None else o.reshape(-1) for o in out]
 
 
-def _vec(tensors, n: int, dtype: torch.dtype) -> int:
-    """16-byte accesses: every pointer aligned, n whole vectors."""
-    return int(aligned16(tensors) and n % (16 // dtype.itemsize) == 0)
+def _vec(ptrs, n: int, dtype: torch.dtype) -> int:
+    """16-byte accesses: every pointer (:func:`pointers`) aligned, n whole
+    vectors."""
+    return int(aligned16(ptrs) and n % (16 // dtype.itemsize) == 0)
 
 
 def _lib():
-    lib = _build.library("ring")
-    P = ctypes.c_void_p
-    L = ctypes.c_longlong
-    I = ctypes.c_int
-    lib.accl_ring_allreduce.argtypes = [P, P, I, L, L, L, I, I, I, I, P]
-    lib.accl_ring_reduce_scatter.argtypes = [P, P, I, L, L, I, I, I, P]
-    lib.accl_ring_allgather.argtypes = [P, P, I, L, I, I, P]
-    for f in (lib.accl_ring_allreduce, lib.accl_ring_reduce_scatter,
-              lib.accl_ring_allgather):
-        f.restype = I
-    return lib
+    return _build.library("ring", PROTOTYPES["ring"])
 
 
 def _kernel_dtype(dtype: torch.dtype, what: str) -> None:
@@ -209,11 +209,12 @@ def ring_allreduce(
             n, P, dtype, num_segments, bidirectional, wire
         )
         lib = _lib()
+        pin, pout = pointers(flat), pointers(outs)
         rc = lib.accl_ring_allreduce(
-            pointer_table(flat), pointer_table(outs), P, n, half, blk,
+            pointer_table(pin), pointer_table(pout), P, n, half, blk,
             int(torch_to_dtype(dtype)), int(function),
             int(torch_to_dtype(wire)) if wire is not None else 0,
-            _vec(flat + outs, n, dtype), stream_of(flat[0].device),
+            _vec(pin + pout, n, dtype), stream_of(flat[0].device),
         )
         check_launch(lib, rc, "ring_allreduce")
         ring_allreduce.launches.bump()
@@ -279,10 +280,11 @@ def ring_reduce_scatter(
         return outs
     _kernel_dtype(dtype, "ring_reduce_scatter")
     lib = _lib()
+    pin, pout = pointers(flat), pointers(outs)
     rc = lib.accl_ring_reduce_scatter(
-        pointer_table(flat), pointer_table(outs), P, n, blk,
+        pointer_table(pin), pointer_table(pout), P, n, blk,
         int(torch_to_dtype(dtype)), int(function),
-        _vec(flat + outs, n, dtype), stream_of(flat[0].device),
+        _vec(pin + pout, n, dtype), stream_of(flat[0].device),
     )
     check_launch(lib, rc, "ring_reduce_scatter")
     ring_reduce_scatter.launches.bump()
@@ -325,9 +327,10 @@ def ring_allgather(
     elif n:
         lib = _lib()
         esize = flat[0].element_size()
+        pin, pout = pointers(flat), pointers(outs)
         rc = lib.accl_ring_allgather(
-            pointer_table(flat), pointer_table(outs), P, n, esize,
-            int(aligned16(flat + outs) and (n * esize) % 16 == 0),
+            pointer_table(pin), pointer_table(pout), P, n, esize,
+            int(aligned16(pin + pout) and (n * esize) % 16 == 0),
             stream_of(flat[0].device),
         )
         check_launch(lib, rc, "ring_allgather")

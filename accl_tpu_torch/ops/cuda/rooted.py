@@ -26,7 +26,6 @@ and gather) is a rank that takes no result: the kernel skips its stores.
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, Optional, Sequence
 
 import torch
@@ -34,6 +33,7 @@ import torch
 from ...arithconfig import reduce_op
 from ...constants import ReduceFunction, torch_to_dtype
 from . import _build
+from ._build import INT, LL, PTR
 from ._common import (
     LaunchCounter,
     aligned16,
@@ -41,23 +41,21 @@ from ._common import (
     on_cuda,
     overlaps,
     pointer_table,
+    pointers,
     stream_of,
 )
 from .ring import _flat, _kernel_dtype, _outputs, _vec, ring_allgather
 
+#: ``csrc/rooted.cu``'s C prototypes (declared once, at load)
+PROTOTYPES = {"rooted": {
+    "accl_ring_bcast": (PTR, PTR, INT, INT, LL, INT, INT, PTR),
+    "accl_ring_reduce": (PTR, PTR, INT, INT, LL, INT, INT, INT, PTR),
+    "accl_ring_scatter": (PTR, PTR, INT, INT, LL, INT, INT, PTR),
+}}
+
 
 def _lib():
-    lib = _build.library("rooted")
-    P = ctypes.c_void_p
-    L = ctypes.c_longlong
-    I = ctypes.c_int
-    lib.accl_ring_bcast.argtypes = [P, P, I, I, L, I, I, P]
-    lib.accl_ring_reduce.argtypes = [P, P, I, I, L, I, I, I, P]
-    lib.accl_ring_scatter.argtypes = [P, P, I, I, L, I, I, P]
-    for f in (lib.accl_ring_bcast, lib.accl_ring_reduce,
-              lib.accl_ring_scatter):
-        f.restype = I
-    return lib
+    return _build.library("rooted", PROTOTYPES["rooted"])
 
 
 def _check(P: int, root: int, num_segments: int, what: str) -> None:
@@ -138,9 +136,10 @@ def ring_bcast(
     if n and any(d is not None for d in dst):
         lib = _lib()
         esize = src.element_size()
+        pin, pout = pointers(flat), pointers(dst)
         rc = lib.accl_ring_bcast(
-            pointer_table(flat), pointer_table(dst), P, root, n, esize,
-            int(aligned16([src] + dst) and (n * esize) % 16 == 0),
+            pointer_table(pin), pointer_table(pout), P, root, n, esize,
+            int(aligned16([pin[root]] + pout) and (n * esize) % 16 == 0),
             stream_of(src.device),
         )
         check_launch(lib, rc, "ring_bcast")
@@ -207,10 +206,11 @@ def ring_reduce(
     elif n and any(o is not None for o in outs):
         _kernel_dtype(dtype, "ring_reduce")
         lib = _lib()
+        pin, pout = pointers(flat), pointers(outs)
         rc = lib.accl_ring_reduce(
-            pointer_table(flat), pointer_table(outs), P, root, n,
+            pointer_table(pin), pointer_table(pout), P, root, n,
             int(torch_to_dtype(dtype)), int(function),
-            _vec(flat + outs, n, dtype), stream_of(flat[0].device),
+            _vec(pin + pout, n, dtype), stream_of(flat[0].device),
         )
         check_launch(lib, rc, "ring_reduce")
         ring_reduce.launches.bump()
@@ -266,9 +266,10 @@ def ring_scatter(
     elif n:
         lib = _lib()
         esize = src.element_size()
+        pin, pout = pointers(flat), pointers(outs)
         rc = lib.accl_ring_scatter(
-            pointer_table(flat), pointer_table(outs), P, root, n, esize,
-            int(aligned16([src] + outs) and (n * esize) % 16 == 0),
+            pointer_table(pin), pointer_table(pout), P, root, n, esize,
+            int(aligned16([pin[root]] + pout) and (n * esize) % 16 == 0),
             stream_of(src.device),
         )
         check_launch(lib, rc, "ring_scatter")

@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``accl_tpu_torch``) once on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --launch-path   # phase 4's launch path alone
 
 Phases (any failure exits non-zero):
 
@@ -47,14 +48,19 @@ Phases (any failure exits non-zero):
    tiles, seeds 0 and nonzero, and dequantize to float32 / bfloat16 /
    float16, at n = 1, 255, 257, 1,000,003 and 32 Mi, on operands with
    NaN, infinities, signed zeros, subnormals, fp8 overflow and an
-   all-zero segment; then the device wire codec on the card against the
-   host codec (numpy) per lane and seed.  Row 13 (``fused_shift``, the
+   all-zero segment; the cast also over R = 4 rows in one launch at n =
+   257 and 1,000,003 for every pair, aligned and with the input, the
+   output or both one element past 16-byte alignment, and on the
+   compressed facade's 4 x 16 Mi float32 rows to every lane; then the
+   device wire codec on the card against the host codec (numpy) per lane
+   and seed.  Row 13 (``fused_shift``, the
    fused compute-and-put) over float32 / bfloat16 / float16 / int32,
    counts 1, 700, 16Mi + 3 and 16Mi per rank, distances 1, -1, 3 and 5
    at P = 4 and P = 1, identity / + 1.0 / * 2.0 with +-0, +-inf and NaN
    among the float operands, and a misaligned view (identity bit for
    bit, the computed forms exactly, NaN where NaN); row 19's copy
-   against ``clone``.  Row 12 (``alltoall``) bit for bit over P in
+   against ``clone``, and on a side stream inside its context (the
+   wrappers' ``stream_of`` is PyTorch's current stream).  Row 12 (``alltoall``) bit for bit over P in
    {2, 3, 4, 8} x float32 / bfloat16 / float16 / int32 / int8 / fp8
    e4m3 / e5m2, blocks of 16-byte multiples and not, and a misaligned
    view; row 15 (``ring_attention``) over contiguous and striped shards,
@@ -159,11 +165,18 @@ Phases (any failure exits non-zero):
    plain versions and the backward of ``scaled_dot_product_attention``,
    which computes dQ, dK and dV in one call (beside the sum of rows 17 +
    18 and the delta pass), each also by device time alone; rows 5-8 at 32 Mi float32 elements (cast and stochastic
-   cast to bfloat16, the cast beside ``Tensor.to``; quantize and
+   cast to bfloat16, the cast beside ``Tensor.to``, also by device time
+   alone, on the compressed facade's 4 x 16 Mi rows to bfloat16 and fp8
+   e4m3 and widening bfloat16 -> float32, with its cast kernels'
+   registers and spills from ptxas; quantize and
    dequantize in the Pallas tier's tiles, the wire's 256-element
    segments as extra keys); row 13 at 4 x 64 MiB float32 with + 1.0
    beside 4 x ``torch.add(x, 1.0, out=)``; row 19 on its block beside
-   ``Tensor.clone``, both also by device time alone; row 12 on Ulysses' q re-shard (4 x 16 MiB bf16)
+   ``Tensor.clone``, both also by device time alone, and its launch path
+   (``launch_path``: ``probe_copy`` and ``cast_rows`` on 4 KiB beside
+   ``clone`` and ``Tensor.to``, then each host step of the path alone,
+   the dropped ones beside them); row 12 on Ulysses' q re-shard (4 x 16
+   MiB bf16)
    beside P x ``torch.cat``; row 15 at the main path's contiguous causal
    shards (striped and full as extra keys) beside
    ``scaled_dot_product_attention(is_causal=True)`` on the full sequence,
@@ -513,7 +526,7 @@ def rooted_main_path(kc) -> dict:
             return buf.data
 
         def sentinel(buf):
-            buf.host_view().fill_(7.0)
+            buf.host_view()[:] = 7.0
             buf.sync_to_device()
             return buf
 
@@ -548,7 +561,7 @@ def rooted_main_path(kc) -> dict:
                     else:
                         check(np.allclose(got, exact, rtol=1e-5, atol=1e-5),
                               f"reduce SUM {tag}")
-                bc.host_view().copy_(s.host_view())
+                bc.host_view()[:] = s.host_view()
                 bc.sync_to_device()
                 a.bcast(bc, root=root)
                 check(np.array_equal(host(bc), data[root]), f"bcast {tag}")
@@ -1641,7 +1654,6 @@ def ptxas_report(kc) -> list:
     registers, spill bytes(, shared bytes)], ...]``.  Fails when a wgmma
     kernel spills, or ptxas serialised its wgmmas (C7513, C7512), or its
     library's SASS holds no HGMMA (``cuobjdump -sass``)."""
-    import ctypes
     import os
     import re
 
@@ -1671,7 +1683,7 @@ def ptxas_report(kc) -> list:
             ("ring_attention", ("ring_attention_wgmma",), "accl_wgmma_smem"),
             ("attention_bwd", ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"),
              "accl_flash_bwd_smem")):
-        so = ctypes.CDLL(str(kc._build._lib_path(lib)))
+        so = kc._build.library(lib, kc.attention.PROTOTYPES[lib])
         smem = getattr(so, smem_fn)(128)
         for kernel in kernels:
             for r in rows:
@@ -1690,6 +1702,38 @@ def ptxas_report(kc) -> list:
             fail(f"csrc/{lib}.cu's SASS holds no HGMMA")
         rows.append([f"{lib}: HGMMA in SASS", n])
     return rows
+
+
+def cast_ptxas(kc) -> dict:
+    """Row 5's cast kernels (one per source/target pair) in ptxas's lines
+    of ``csrc/compression.cu``'s build log: their count, the least and
+    most registers, the most spill-store bytes, and float32 -> bfloat16's
+    registers."""
+    import re
+
+    found, entry = {}, None
+    for line in kc._build.build_log("compression").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if "11cast_kernel" in m.group(1) else None
+            if entry:
+                found[entry] = [0, 0]
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry:
+            found[entry][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            found[entry][0] = int(m.group(1))
+    if not found:
+        fail("no ptxas lines for row 5's cast kernels")
+    regs = [v[0] for v in found.values()]
+    f32_bf16 = [v[0] for e, v in found.items()
+                if "3F32E" in e and "4BF16E" in e
+                and e.index("3F32E") < e.index("4BF16E")]
+    return {"kernels": len(found), "registers_min": min(regs),
+            "registers_max": max(regs),
+            "spill_bytes_max": max(v[1] for v in found.values()),
+            "f32_bf16_registers": f32_bf16[0] if f32_bf16 else None}
 
 
 def check_flash_bwd(err) -> None:
@@ -2289,6 +2333,7 @@ def check_compression(kc, err, gen, dev) -> None:
                                 kc_.dequantize_rows(v, s, n, seg, dst)[0],
                                 kc_.dequantize_plain(pv, ps, n, seg, dst)))
         sync(dev)
+    check_cast_rows(kc_, err, gen, dev)
     # the codec on the card against the numpy codec, byte for byte
     x = comp_operand(1_000_003, F32, gen, dev)
     finite = comp_operand(1_000_003, F32, gen, dev, specials=False)
@@ -2310,6 +2355,48 @@ def check_compression(kc, err, gen, dev) -> None:
                     fail(f"int8 wire frame seed={seed} differs from the "
                          f"host codec's bytes")
     sync(dev)
+
+
+def check_cast_rows(kc_, err, gen, dev) -> None:
+    """Phase 2 for row 5's paths beside the single rows above: R = 4 rows
+    in one launch at n = 257 and 1,000,003 over every pair, aligned and
+    with the input, the output or both one element past 16-byte alignment
+    (a view ``t[1:]``: the scalar path); then the compressed facade's
+    4 x 16 Mi float32 rows to every lane; each call one launch, every row
+    bit for bit with ``cast_plain``."""
+    import torch
+
+    lanes = kc_.CAST_DTYPES
+    for n in (257, 1_000_003):
+        for src in lanes:
+            xs = [comp_operand(n + 1, src, gen, dev) for _ in range(P_MAIN)]
+            for dst in lanes:
+                if dst == src:
+                    continue
+                for off_in, off_out in ((0, 0), (1, 1), (1, 0), (0, 1)):
+                    rows = [x[off_in:off_in + n] for x in xs]
+                    outs = [torch.empty(n + 1, dtype=dst, device=dev)[
+                        off_out:off_out + n] for _ in rows]
+                    tag = (f"cast R={P_MAIN} {src}->{dst} n={n} "
+                           f"offsets {off_in}/{off_out}")
+                    before = kc_.cast_rows.launches.count
+                    got = kc_.cast_rows(rows, dst, out=outs)
+                    if kc_.cast_rows.launches.count - before != 1:
+                        fail(f"{tag}: not one launch")
+                    for r, (g, x) in enumerate(zip(got, rows)):
+                        err["cast"] = max(err["cast"], compare_bits(
+                            f"{tag} row {r}", g, kc_.cast_plain(x, dst)))
+        sync(dev)
+    rows = [comp_operand(N_RANK, torch.float32, gen, dev)
+            for _ in range(P_MAIN)]
+    for dst in lanes[1:]:
+        got = kc_.cast_rows(rows, dst)
+        for r, (g, x) in enumerate(zip(got, rows)):
+            err["cast"] = max(err["cast"], compare_bits(
+                f"cast {P_MAIN} x {N_RANK} float32->{dst} row {r}", g,
+                kc_.cast_plain(x, dst)))
+        del got
+        sync(dev)
 
 
 def sync(dev) -> None:
@@ -2533,9 +2620,12 @@ def time_compression(kc, dev) -> dict:
     out = {
         "cast": dict(
             ms=time_ms(lambda: kcp.cast_rows([x], torch.bfloat16, out=[bf])),
+            device_ms=device_ms(lambda: kcp.cast_rows([x], torch.bfloat16,
+                                                      out=[bf])),
             plain_ms=time_ms(lambda: kcp.cast_plain(x, torch.bfloat16)),
             library_ms=time_ms(lambda: x.to(torch.bfloat16)),
-            bytes=6 * n, ops=n),
+            library_device_ms=device_ms(lambda: x.to(torch.bfloat16)),
+            bytes=6 * n, ops=n, **time_cast_rows(kcp, x, bf, dev)),
         "stochastic_cast": dict(
             ms=time_ms(lambda: kcp.stochastic_cast_rows(
                 [x], torch.bfloat16, [7], 16, 0.0, always=True, out=[bf])),
@@ -2560,6 +2650,135 @@ def time_compression(kc, dev) -> dict:
             wire_seg_bound_ms=bound(5 * n + 4 * nseg, n)["bound_ms"]),
     }
     sync(dev)
+    return out
+
+
+def time_cast_rows(kcp, x, bf, dev) -> dict:
+    """Phase 4's other shapes of row 5 (extra keys of its entry): the
+    compressed facade's 4 rows x 16 Mi float32 (64 MiB a rank) in one
+    launch to bfloat16 and to fp8 e4m3, beside ``Tensor.to`` on each row
+    (4 calls), and the widening bfloat16 -> float32 of the delivery path
+    at 32 Mi; each by the wrapper and by device time alone, with its
+    bound."""
+    import torch
+
+    out = {}
+    rows = [x[:N_RANK].clone() for _ in range(P_MAIN)]
+    m = N_RANK
+    for name, dt in (("rows4_bf16", torch.bfloat16),
+                     ("rows4_e4m3", torch.float8_e4m3fn)):
+        outs = [torch.empty(m, dtype=dt, device=dev) for _ in rows]
+        out.update({
+            f"{name}_ms": time_ms(lambda: kcp.cast_rows(rows, dt, out=outs)),
+            f"{name}_device_ms": device_ms(
+                lambda: kcp.cast_rows(rows, dt, out=outs)),
+            f"{name}_library_ms": time_ms(lambda: [r.to(dt) for r in rows]),
+            f"{name}_library_device_ms": device_ms(
+                lambda: [r.to(dt) for r in rows]),
+            f"{name}_bound_ms": bound(P_MAIN * m * (4 + dt.itemsize),
+                                      P_MAIN * m)["bound_ms"],
+        })
+        del outs
+    del rows
+    n = x.numel()
+    wide = torch.empty(n, dtype=torch.float32, device=dev)
+    out.update({
+        "widen_ms": time_ms(lambda: kcp.cast_rows([bf], torch.float32,
+                                                  out=[wide])),
+        "widen_device_ms": device_ms(lambda: kcp.cast_rows(
+            [bf], torch.float32, out=[wide])),
+        "widen_library_ms": time_ms(lambda: bf.to(torch.float32)),
+        "widen_library_device_ms": device_ms(lambda: bf.to(torch.float32)),
+        "widen_bound_ms": bound(6 * n, n)["bound_ms"],
+    })
+    sync(dev)
+    return out
+
+
+def launch_path(kc) -> dict:
+    """Row 19's launch path (phase 4; ``--launch-path`` runs it alone):
+    the wrapper ms of ``probe_copy`` on its (8, 128) block and of
+    ``cast_rows`` on 4 KiB of float32 (1,024 elements to bfloat16), beside
+    ``Tensor.clone`` and ``Tensor.to`` on the same tensors (CUDA events
+    over 1,000 calls); then, where the package declares its prototypes at
+    load (``_build.PTR``), each step of ``probe_copy``'s path alone in
+    host microseconds a call (``perf_counter`` over 5,000 calls), the
+    steps the path dropped beside them (``argtypes`` and ``restype`` set
+    on every call, ``torch.cuda.current_stream``'s stream object, a set of
+    devices, the alignment test the C entry now makes), and the whole
+    wrapper and ``clone`` the same way."""
+    import ctypes
+
+    import torch
+
+    dev = torch.device("cuda", 0)
+    block = torch.randn(8, 128, device=dev)
+    small = torch.randn(1024, device=dev)
+    sbf = torch.empty(1024, dtype=torch.bfloat16, device=dev)
+    cast = kc.compression.cast_rows
+    out = {
+        "probe_copy_ms": time_ms(lambda: kc.probe_copy(block), iters=1000),
+        "clone_ms": time_ms(lambda: block.clone(), iters=1000),
+        "cast_4kib_ms": time_ms(lambda: cast([small], torch.bfloat16,
+                                             out=[sbf]), iters=1000),
+        "to_4kib_ms": time_ms(lambda: small.to(torch.bfloat16), iters=1000),
+    }
+    b = kc._build
+    if not hasattr(b, "PTR"):  # a tree from before the prototype tables
+        return out
+    from accl_tpu_torch.ops.cuda import _common as cm
+    from accl_tpu_torch.ops.cuda import probe as pr
+
+    lib = b.library("probe", pr.PROTOTYPES["probe"])
+    fn = lib.accl_probe_copy
+    o = torch.empty_like(block)
+    src, dst = block.data_ptr(), o.data_ptr()
+    stream = cm.stream_of(dev)
+    counter = cm.LaunchCounter()
+
+    def host_us(f, iters: int = 5000) -> float:
+        for _ in range(100):
+            f()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            f()
+        us = (time.perf_counter() - t) / iters * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def redeclare():  # what the wrappers did on every launch before
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(pr.PROTOTYPES["probe"]["accl_probe_copy"])
+
+    steps = {
+        "dtype_and_layout_checks": lambda: (
+            block.dtype != torch.float32 or not block.is_contiguous()),
+        "on_cuda": lambda: cm.on_cuda([block]),
+        "empty_like": lambda: torch.empty_like(block),
+        "library_lookup": lambda: b.library("probe", pr.PROTOTYPES["probe"]),
+        "data_ptr": lambda: (block.data_ptr(), o.data_ptr()),
+        "stream_of": lambda: cm.stream_of(block.device),
+        "ctypes_call_and_launch": lambda: fn(src, dst, 1024, stream),
+        "check_launch_and_count": lambda: (
+            cm.check_launch(lib, 0, "probe_copy"), counter.bump()),
+    }
+    dropped = {
+        "argtypes_every_call": redeclare,
+        "cuda_current_stream_object": lambda: ctypes.c_void_p(
+            torch.cuda.current_stream(block.device).cuda_stream),
+        "set_of_devices": lambda: {t.device for t in [block]},
+        "alignment_in_python": lambda: int(all(
+            t.data_ptr() % 16 == 0 for t in (block, o))),
+    }
+    us = {k: host_us(f) for k, f in steps.items()}
+    out.update({
+        "steps_us": us,
+        "steps_sum_us": sum(us.values()),
+        "dropped_us": {k: host_us(f) for k, f in dropped.items()},
+        "probe_copy_us": host_us(lambda: kc.probe_copy(block)),
+        "clone_us": host_us(lambda: block.clone()),
+    })
     return out
 
 
@@ -2705,6 +2924,21 @@ def check_put(kc, err, dev) -> None:
         x = torch.randn(*shape, generator=gen, device=dev)
         compare_bits(f"probe_copy {shape}", kc.probe_copy(x),
                      kc.probe_copy_plain(x))
+    # the wrappers launch on PyTorch's current stream (``stream_of``), a
+    # side stream's inside its context
+    from accl_tpu_torch.ops.cuda._common import stream_of
+
+    if stream_of(dev) != torch.cuda.current_stream(dev).cuda_stream:
+        fail("stream_of is not the current stream's pointer")
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        if stream_of(dev) != side.cuda_stream:
+            fail("stream_of inside a stream context is not that stream")
+        x = torch.randn(8, 128, generator=gen, device=dev)
+        got = kc.probe_copy(x)
+    side.synchronize()
+    compare_bits("probe_copy on a side stream", got, x)
     sync(dev)
 
 
@@ -2911,11 +3145,11 @@ def time_put(kc, dev) -> dict:
             library_ms=time_ms(library),
             bytes=2 * P_MAIN * N_RANK * 4, ops=P_MAIN * N_RANK),
         "probe_copy": dict(
-            ms=time_ms(lambda: kc.probe_copy(block), iters=100),
-            device_ms=device_ms(lambda: kc.probe_copy(block), iters=100),
-            plain_ms=time_ms(lambda: kc.probe_copy_plain(block), iters=100),
-            library_ms=time_ms(lambda: block.clone(), iters=100),
-            library_device_ms=device_ms(lambda: block.clone(), iters=100),
+            ms=time_ms(lambda: kc.probe_copy(block), iters=1000),
+            device_ms=device_ms(lambda: kc.probe_copy(block), iters=200),
+            plain_ms=time_ms(lambda: kc.probe_copy_plain(block), iters=1000),
+            library_ms=time_ms(lambda: block.clone(), iters=1000),
+            library_device_ms=device_ms(lambda: block.clone(), iters=200),
             bytes=2 * block.numel() * 4, ops=0),
     }
     del xs, outs
@@ -3378,6 +3612,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--launch-path"]:  # the launch path alone
+        if not kc.probe_copy(torch.ones(8, 128, device=dev)).eq(1).all():
+            fail("the probe's copy differs from its input")
+        print(json.dumps({"launch_path": {
+            "card": smi.stdout.strip().splitlines()[0], **launch_path(kc)}}))
+        return 0
     t0 = time.time()
     probed = probe_phase(kc)
     print(f"kernel probe ok ({time.time() - t0:.1f} s): row 19 built, "
@@ -3388,6 +3628,8 @@ def main() -> int:
     print(f"ptxas, attention kernels at bf16 D 128 [kernel, registers, "
           f"spill bytes(, dynamic shared bytes)]: {ptxas_report(kc)}",
           flush=True)
+    cast_regs = cast_ptxas(kc)
+    print(f"ptxas, row 5's cast kernels: {cast_regs}", flush=True)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3781,7 +4023,11 @@ def main() -> int:
         if name in COMP_KERNELS:  # at 32 Mi float32 elements
             kernels[-1]["elements"] = N_COMP
             kernels[-1].update({k: v for k, v in t.items()
-                                if k.startswith("wire_seg")})
+                                if k.startswith(("wire_seg", "rows4_",
+                                                 "widen_", "device_ms",
+                                                 "library_device_ms"))})
+        if name == "cast":
+            kernels[-1]["ptxas"] = cast_regs
         if name == "probe_copy":  # device time alone, beside clone's
             kernels[-1].update({
                 "device_ms": t["device_ms"],
@@ -3840,6 +4086,19 @@ def main() -> int:
     p_ = by_name["probe_copy"]
     print(f"probe_copy device_ms={p_['device_ms']:.4f} against "
           f"Tensor.clone's {p_['library_device_ms']:.4f}")
+    c_ = by_name["cast"]
+    print(f"cast (row 5) f32->bf16 32Mi: device_ms={c_['device_ms']:.4f} "
+          f"against Tensor.to's {c_['library_device_ms']:.4f}, "
+          f"{c_['bound_ms'] / c_['device_ms']:.3f} of the bound; 4 x 16Mi "
+          f"->bf16 device_ms={c_['rows4_bf16_device_ms']:.4f} (Tensor.to "
+          f"{c_['rows4_bf16_library_device_ms']:.4f}), ->e4m3 "
+          f"{c_['rows4_e4m3_device_ms']:.4f} (Tensor.to "
+          f"{c_['rows4_e4m3_library_device_ms']:.4f}); bf16->f32 32Mi "
+          f"{c_['widen_device_ms']:.4f} (Tensor.to "
+          f"{c_['widen_library_device_ms']:.4f})")
+    lp = launch_path(kc)
+    print(json.dumps({"launch_path": {
+        "card": smi.stdout.strip().splitlines()[0], **lp}}))
     del a, b, c
     torch.cuda.synchronize()
     print(f"kernel timing done ({time.time() - t0:.1f} s)", flush=True)

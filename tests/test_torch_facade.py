@@ -15,6 +15,7 @@ import subprocess
 import sys
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -189,6 +190,77 @@ def test_wire_dtype_register_rides_allreduce(groups):
         np.testing.assert_array_equal(e, i)
 
 
+@pytest.mark.parametrize("algo", ["xla", "pallas_ring", "pallas_ring_bidir"])
+def test_bfloat16_host_view_equals_jax(groups, algo):
+    """``host_view()`` is the host side as a numpy array, as the JAX
+    package's is: on a bfloat16 buffer ``np.asarray`` of it is the
+    ml_dtypes bfloat16 array, equal bit for bit to the JAX gang's after
+    a 4-rank allreduce (count 17) under each register.  The operands are
+    halves in [-8, 8], whose every partial sum bfloat16 holds exactly, so
+    the bits do not hang on the fold order (the rounding of other sums is
+    held by ``test_bfloat16_sums_within_the_fold_of_jax``)."""
+    if algo.startswith("pallas") and not has_pallas_interpret():
+        pytest.skip("the JAX pallas lowering off-chip needs the interpreter")
+    _tune_both(groups, allreduce_algorithm=algo)
+    count = 17
+    rows = (np.random.default_rng(17).integers(-16, 17, (P, count)) / 2
+            ).astype(ml_dtypes.bfloat16)
+
+    def work(a, r):
+        send = a.create_buffer_from(rows[r].copy())
+        recv = a.create_buffer(count, ml_dtypes.bfloat16)
+        a.allreduce(send, recv, count)
+        recv.sync_from_device()
+        return np.asarray(recv.host_view()).copy()
+
+    want, got = _run_both(groups, work)
+    for r in range(P):
+        assert got[r].dtype == want[r].dtype == ml_dtypes.bfloat16
+        np.testing.assert_array_equal(got[r].view(np.uint16),
+                                      want[r].view(np.uint16))
+
+
+@pytest.mark.parametrize("algo",
+                         ["xla", "ring", "pallas_ring", "pallas_ring_bidir"])
+def test_bfloat16_sums_within_the_fold_of_jax(groups, algo):
+    """A recorded divergence, pinned: the port's bfloat16 sums add rank by
+    rank in bfloat16 (``ops/collectives.py::_fold``, the ring kernels hop
+    by hop), where XLA's CPU psum may accumulate in float32 and round
+    once.  So the reduce_scatter at count 333 over 4 ranks, and the
+    allreduce of the same rows, agree with JAX's under each register
+    within the fold's rounding: each of the port's P - 1 additions and
+    JAX's one rounding errs by at most bfloat16's unit roundoff 2^-8 of a
+    partial sum, and every partial sum is at most sum_r |x_r|, so
+    |port - jax| <= P * 2^-8 * sum_r |x_r| element by element."""
+    if algo.startswith("pallas") and not has_pallas_interpret():
+        pytest.skip("the JAX pallas lowering off-chip needs the interpreter")
+    _tune_both(groups, allreduce_algorithm=algo)
+    count = 333
+    big = (np.random.default_rng(18).standard_normal((P, P * count)) * 8
+           ).astype(ml_dtypes.bfloat16)
+
+    def work(a, r):
+        send = a.create_buffer_from(big[r].copy())
+        rs = a.create_buffer(count, ml_dtypes.bfloat16)
+        a.reduce_scatter(send, rs, count)
+        ar = a.create_buffer(P * count, ml_dtypes.bfloat16)
+        a.allreduce(send, ar, P * count)
+        out = []
+        for buf in (rs, ar):
+            buf.sync_from_device()
+            out.append(np.asarray(buf.host_view()).astype(np.float64))
+        return out
+
+    want, got = _run_both(groups, work)
+    mag = np.abs(big.astype(np.float64)).sum(0)
+    tol = P * 2.0 ** -8 * mag + 1e-30
+    for r in range(P):
+        block = slice(r * count, (r + 1) * count)
+        np.testing.assert_array_less(np.abs(got[r][0] - want[r][0]),
+                                     tol[block])
+        np.testing.assert_array_less(np.abs(got[r][1] - want[r][1]), tol)
+
+
 # ---------------------------------------------------------------------------
 # the other collectives and the local ops
 # ---------------------------------------------------------------------------
@@ -296,7 +368,7 @@ def test_run_async_and_buffer_views():
             half.host_view()[:] = 0
             half.sync_to_device()
             assert float(recv.tensor[4:].abs().sum()) == 0.0
-            return recv.host_view().numpy().copy()
+            return recv.host_view().copy()
 
         for got in run_parallel(g, work):
             np.testing.assert_array_equal(got[:4], rows[0][:4] * 3)

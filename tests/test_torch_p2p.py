@@ -490,7 +490,7 @@ def test_send_buffer_may_be_overwritten_after_send_returns(port2):
     src = a.create_buffer_from(data.copy())
     req = a.send(src, 1000, dst=1, tag=8, run_async=True)
     src.tensor.fill_(-1.0)
-    src.host_view().fill_(-1.0)
+    src.host_view()[:] = -1.0
     dst = b.create_buffer(1000, np.float32)
     b.recv(dst, 1000, src=0, tag=8)
     assert req.wait(30)
