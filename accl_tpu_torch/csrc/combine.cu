@@ -9,57 +9,83 @@
 // outputs and does one operation per element, far below the card's
 // operations-per-byte line, so its least time is
 // (2 * sizeof(T) + sizeof(O)) * n / 3.35 TB/s.  The design moves only
-// those bytes, with 16-byte vector loads (and stores, where the output
-// element is as wide as the input) from a grid-stride loop.
+// those bytes, on the streaming tile core (common.cuh): each warp owns one
+// tile, issues all of both operands' loads of it (64 bytes of each a lane)
+// before the first operation, and stores whole warp-contiguous 16-byte
+// words: an output as wide as the input stores the words it computed, a
+// wider one reads the operands as 8- or 4-byte words, and a narrower one
+// (f32 -> bf16 / f16, 64-bit -> 32- or 16-bit) trades halves or quarters
+// between 2 or 4 lanes by shuffles.  Each element is one Arith<T>::apply
+// and one Convert<O>, as in the plain version; the in-place form (out is
+// a) stays exact because each lane stores only the elements it loaded
+// (the trade happens only when the output is narrower, which the in-place
+// form refuses).
 #include "common.cuh"
 
 namespace {
 
 using accl::Arith;
 using accl::Convert;
+using accl::kThreads;
 
 template <typename T, typename O>
-__global__ void combine_kernel(const T* a, const T* b, O* out, long long n,
-                               int op, int vec) {
-  constexpr int V = 16 / sizeof(T);
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long done = 0;
-  if (vec) {
-    const long long nvec = n / V;
-    for (long long i = tid; i < nvec; i += stride) {
-      const uint4 ra = reinterpret_cast<const uint4*>(a)[i];
-      const uint4 rb = reinterpret_cast<const uint4*>(b)[i];
-      const T* va = reinterpret_cast<const T*>(&ra);
-      const T* vb = reinterpret_cast<const T*>(&rb);
-      if constexpr (sizeof(O) == sizeof(T)) {
-        uint4 ro;
-        O* vo = reinterpret_cast<O*>(&ro);
+__global__ void __launch_bounds__(kThreads)
+    combine_kernel(const T* a, const T* b, O* out, long long n, int op,
+                   bool vec) {
+  using S = accl::TileShape<sizeof(T), sizeof(O)>;
+  using WIn = typename accl::Word<S::IN>::T;
+  constexpr int PW = S::OUT / 4;  // 32-bit words a lane computes, a chunk
+  accl::tile_walk<S::E>(
+      n, vec,
+      [&](long long e, int lane) {
+        WIn wa[S::U], wb[S::U];  // both operands in flight before any add
+        accl::tile_load<S::V>(wa, a + e, lane);
+        accl::tile_load<S::V>(wb, b + e, lane);
+        uint4 full[S::G == 1 ? S::U : 1];
+        uint32_t words[S::U][PW];
 #pragma unroll
-        for (int k = 0; k < V; ++k)
-          vo[k] = Convert<O>::from(Arith<T>::apply(op, va[k], vb[k]));
-        reinterpret_cast<uint4*>(out)[i] = ro;
-      } else {
+        for (int u = 0; u < S::U; ++u) {
+          alignas(16) T xa[S::V];
+          alignas(16) T xb[S::V];
+          alignas(16) O y[S::V];
+          *reinterpret_cast<WIn*>(xa) = wa[u];
+          *reinterpret_cast<WIn*>(xb) = wb[u];
 #pragma unroll
-        for (int k = 0; k < V; ++k)
-          out[i * V + k] = Convert<O>::from(Arith<T>::apply(op, va[k], vb[k]));
-      }
-    }
-    done = nvec * V;
-  }
-  for (long long i = done + tid; i < n; i += stride)
-    out[i] = Convert<O>::from(Arith<T>::apply(op, a[i], b[i]));
+          for (int k = 0; k < S::V; ++k)
+            y[k] = Convert<O>::from(Arith<T>::apply(op, xa[k], xb[k]));
+          if constexpr (S::G == 1) {
+            full[u] = *reinterpret_cast<const uint4*>(y);
+          } else {
+#pragma unroll
+            for (int q = 0; q < PW; ++q)
+              words[u][q] = reinterpret_cast<const uint32_t*>(y)[q];
+          }
+        }
+        if constexpr (S::G == 1) {
+          accl::tile_store<S::V>(out + e, lane, full);
+        } else {
+#pragma unroll
+          for (int c0 = 0; c0 < S::U; c0 += S::G)
+            accl::store_group<S::G, PW, S::U>(
+                reinterpret_cast<uint4*>(out + e +
+                                         (c0 + lane % S::G) * 32 * S::V) +
+                    lane / S::G,
+                c0, lane, words);
+        }
+      },
+      [&](long long i) {
+        out[i] = Convert<O>::from(Arith<T>::apply(op, a[i], b[i]));
+      });
 }
 
 template <typename T, typename O>
 int launch(const void* a, const void* b, void* out, long long n, int op,
            int vec, cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  const int threads = 256;
-  combine_kernel<T, O><<<accl::grid_for(vec ? n / V + 1 : n, threads),
-                         threads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<O*>(out), n, op, vec);
+  using S = accl::TileShape<sizeof(T), sizeof(O)>;
+  combine_kernel<T, O><<<accl::tile_blocks(n, S::E, vec != 0), kThreads, 0,
+                         stream>>>(static_cast<const T*>(a),
+                                   static_cast<const T*>(b),
+                                   static_cast<O*>(out), n, op, vec != 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -187,6 +187,123 @@ __device__ __forceinline__ int ring_mod(int r, int P) {
   return r < 0 ? r + P : r;
 }
 
+// -- the streaming tile core of the byte-bound kernels -----------------------
+//
+// A kernel that moves each byte once (a copy, an elementwise combine) is
+// bound by HBM, and on the H100 it reaches its rate only with every access
+// whole and warp-contiguous and enough bytes in flight.  So a warp owns one
+// TILE of the tensor: U chunks, a chunk being 32 lanes x one word of each
+// stream, lane l at bytes [16 l, 16 l + 16) of each 512-byte chunk of the
+// widest stream (and at the same elements, a 4- or 8-byte word, of a
+// narrower one).  The kernel issues all U loads of every input stream of
+// its tile (64 bytes of each input a lane, TileShape::U) before it uses
+// any, then computes and stores.  The grid gives each warp one tile
+// (tile_blocks: no grid-stride cap, the block scheduler spreads the tiles
+// over the SMs as they free up); the elements past the last whole tile, and
+// every element of a view not aligned to 16 bytes, take the kernel's scalar
+// path (tile_walk).
+
+template <typename X> __device__ __forceinline__ bool aligned(const X* p) {
+  return ((uintptr_t)p & 15u) == 0;
+}
+
+// A B-byte word: one lane's access of a chunk
+template <int B> struct Word;
+template <> struct Word<4> { using T = uint32_t; };
+template <> struct Word<8> { using T = uint2; };
+template <> struct Word<16> { using T = uint4; };
+
+// The tile of a stream pair whose elements are SB bytes (read) and DB
+// bytes (written): V elements a lane a chunk, IN and OUT bytes of them,
+// G lanes that trade a narrower output into 16-byte stores (store_group),
+// U chunks a tile (64 bytes of the read side in flight a lane), E elements
+// a tile.
+template <int SB, int DB> struct TileShape {
+  static constexpr int V = 16 / (SB > DB ? SB : DB);
+  static constexpr int IN = V * SB;
+  static constexpr int OUT = V * DB;
+  static constexpr int G = IN > OUT ? IN / OUT : 1;
+  static constexpr int U = 64 / IN;
+  static constexpr long long E = 32LL * V * U;
+  static_assert(U % G == 0, "a tile holds whole groups of G chunks");
+};
+
+// Load the U words of lane `lane` of the tile starting at `base` (a typed
+// pointer to the tile's first element of a stream with V elements a lane a
+// chunk): chunk u's word lies 32 V elements after chunk u - 1's.
+template <int V, int U, typename W, typename X>
+__device__ __forceinline__ void tile_load(W (&w)[U], const X* base,
+                                          int lane) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    w[u] = reinterpret_cast<const W*>(base + u * 32 * V)[lane];
+}
+
+template <int V, int U, typename W, typename X>
+__device__ __forceinline__ void tile_store(X* base, int lane,
+                                           const W (&w)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    reinterpret_cast<W*>(base + u * 32 * V)[lane] = w[u];
+}
+
+// Walk this thread's share of n elements: `tile(first_element, lane)` for
+// each whole tile of E elements its warp owns (when `vec`: every stream
+// 16-byte aligned), then `scalar(i)` for the elements past the whole tiles
+// (every element when !vec), spread over all of the grid's threads.
+template <long long E, typename Tile, typename Scalar>
+__device__ __forceinline__ void tile_walk(long long n, bool vec, Tile&& tile,
+                                          Scalar&& scalar) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long threads = (long long)gridDim.x * blockDim.x;
+  long long done = 0;
+  if (vec) {
+    const long long tiles = n / E;
+    for (long long w = tid / 32; w < tiles; w += threads / 32)
+      tile(w * E, (int)(threadIdx.x % 32));
+    done = tiles * E;
+  }
+  for (long long i = done + tid; i < n; i += threads) scalar(i);
+}
+
+// Blocks of kThreads for tile_walk: one tile a warp when `vec` (at least
+// one block, for the scalar rest), else one element a thread; above the
+// grid's limit threads take several.
+inline unsigned tile_blocks(long long n, long long E, bool vec) {
+  const long long per_block = vec ? E * (kThreads / 32) : kThreads;
+  long long blocks = (n + per_block - 1) / per_block;
+  if (blocks > 0x7FFFFFFFLL) blocks = 0x7FFFFFFFLL;
+  return blocks < 1 ? 1u : (unsigned)blocks;
+}
+
+// The G lanes of a group (lane / G the same) hold, for G consecutive
+// chunks c0.., the converted words `w[c][*]` of their own V elements.
+// Lane g = lane % G gathers chunk c0 + g's words of the whole group, in
+// lane order (its 16 contiguous bytes), and stores them: G - 1 exchanges,
+// in each of which a lane sends the word its partner lane ^ r gathers.
+template <int G, int PW, int U>
+__device__ __forceinline__ void store_group(uint4* dst, int c0, int lane,
+                                            const uint32_t (&w)[U][PW]) {
+  const int g = lane % G;
+  uint32_t out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    const int k = g ^ r;  // the chunk c0 + k the partner gathers
+#pragma unroll
+    for (int q = 0; q < PW; ++q) {
+      uint32_t mine = w[c0][q];
+#pragma unroll
+      for (int j = 1; j < G; ++j)
+        if (k == j) mine = w[c0 + j][q];
+      const uint32_t got = r ? __shfl_xor_sync(0xFFFFFFFFu, mine, r) : mine;
+#pragma unroll
+      for (int j = 0; j < G; ++j)  // the partner's place in the group
+        if (k == j) out[j * PW + q] = got;
+    }
+  }
+  *dst = make_uint4(out[0], out[1], out[2], out[3]);
+}
+
 }  // namespace accl
 
 extern "C" const char* accl_error_string(int code) {

@@ -63,6 +63,7 @@
 
 namespace {
 
+using accl::aligned;
 using accl::BF16;
 using accl::E4M3;
 using accl::E5M2;
@@ -72,17 +73,14 @@ using accl::kMaxRanks;
 using accl::kThreads;
 using accl::max_nan;
 using accl::sr_bits;
+using accl::store_group;
+using accl::Word;
 
 struct RowPtrs {
   const void* in[kMaxRanks];
   void* out[kMaxRanks];
   uint32_t seed[kMaxRanks];
 };
-
-template <typename X>
-__device__ __forceinline__ bool aligned(const X* p) {
-  return ((uintptr_t)p & 15u) == 0;
-}
 
 // ---------------------------------------------------------------------------
 // row 5: cast
@@ -101,12 +99,6 @@ __device__ __forceinline__ typename D::T convert(typename S::T v, int src,
     return D::narrow(x, src);
   }
 }
-
-// A B-byte word: one lane's access
-template <int B> struct Word;
-template <> struct Word<4> { using T = uint32_t; };
-template <> struct Word<8> { using T = uint2; };
-template <> struct Word<16> { using T = uint4; };
 
 // The cast's access shape, source S to target D.  A chunk is 512 bytes of
 // the WIDER side: lane l takes its bytes [16 l, 16 l + 16), so each
@@ -129,34 +121,6 @@ struct CastShape {
   static constexpr int E = 32 * V * U;    // elements a warp's tile
   static_assert(U % G == 0, "a tile holds whole groups of G chunks");
 };
-
-// The G lanes of a group (lane / G the same) hold, for G consecutive
-// chunks c0.., the converted words `w[c][*]` of their own V elements.
-// Lane g = lane % G gathers chunk c0 + g's words of the whole group, in
-// lane order (its 16 contiguous bytes), and stores them: G - 1 exchanges,
-// in each of which a lane sends the word its partner lane ^ r gathers.
-template <int G, int PW, int U>
-__device__ __forceinline__ void store_group(uint4* dst, int c0, int lane,
-                                            const uint32_t (&w)[U][PW]) {
-  const int g = lane % G;
-  uint32_t out[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int r = 0; r < G; ++r) {
-    const int k = g ^ r;  // the chunk c0 + k the partner gathers
-#pragma unroll
-    for (int q = 0; q < PW; ++q) {
-      uint32_t mine = w[c0][q];
-#pragma unroll
-      for (int j = 1; j < G; ++j)
-        if (k == j) mine = w[c0 + j][q];
-      const uint32_t got = r ? __shfl_xor_sync(0xFFFFFFFFu, mine, r) : mine;
-#pragma unroll
-      for (int j = 0; j < G; ++j)  // the partner's place in the group
-        if (k == j) out[j * PW + q] = got;
-    }
-  }
-  *dst = make_uint4(out[0], out[1], out[2], out[3]);
-}
 
 template <typename S, typename D>
 __global__ void __launch_bounds__(kThreads)

@@ -26,7 +26,10 @@
 // operation per element read, so the least time is those bytes over
 // 3.35 TB/s.  The design reads each
 // input element once and writes each output element once, 16 bytes per
-// access where pointers are aligned.
+// access where pointers are aligned; K3's two forms (every rank's result,
+// and the root's alone) move their bytes on the streaming tile core
+// (common.cuh), which on the H100 beat a bulk copy (cp.async.bulk through
+// shared memory) of the same bytes (PERF.md).
 #include "wire.cuh"
 
 namespace {
@@ -121,20 +124,66 @@ __global__ void ring_reduce_scatter_kernel(RankPtrs ptrs, int P, long long n,
 }
 
 // K3: out_r[q*n + k] = in_q[k] for every rank r whose output pointer is
-// not null (the rooted gather passes the root's alone); blockIdx.y = q.
-// Pure data movement, so only the element width matters.
-template <typename T, int V>
-__global__ void ring_allgather_kernel(RankPtrs ptrs, int P, long long n) {
-  const int q = blockIdx.y;
-  const long long stride = (long long)gridDim.x * blockDim.x * V;
-  for (long long k = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
-       k < n; k += stride) {
-    T v[V];
-    load<T, V>(v, ptrs.in[q], k, n);
-    for (int r = 0; r < P; ++r)
-      if (ptrs.out[r])
-        store<T, V>(static_cast<T*>(ptrs.out[r]) + q * n, k, v, n);
-  }
+// not null; blockIdx.y = q.  Pure data movement, so only the element width
+// matters.  On the streaming tile core (common.cuh): each warp loads one
+// 2 KiB tile of rank q's input (four 16-byte words a lane, all in flight
+// before any store) and stores it into every output; a rank whose input
+// or any output slot is not 16-byte aligned takes the scalar path.
+// __grid_constant__ lets the block index the pointer table by rank in
+// place, without a copy into local memory.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ring_allgather_kernel(const __grid_constant__ RankPtrs ptrs, int P,
+                          long long n) {
+  using S = accl::TileShape<sizeof(T), sizeof(T)>;
+  const T* src = static_cast<const T*>(ptrs.in[blockIdx.y]);
+  const long long slot = blockIdx.y * n;
+  bool vec = accl::aligned(src);
+  for (int r = 0; r < P; ++r)
+    if (ptrs.out[r])
+      vec = vec && accl::aligned(static_cast<const T*>(ptrs.out[r]) + slot);
+  accl::tile_walk<S::E>(
+      n, vec,
+      [&](long long e, int lane) {
+        uint4 w[S::U];
+        accl::tile_load<S::V>(w, src + e, lane);
+        for (int r = 0; r < P; ++r)
+          if (ptrs.out[r])
+            accl::tile_store<S::V>(static_cast<T*>(ptrs.out[r]) + slot + e,
+                                   lane, w);
+      },
+      [&](long long i) {
+        const T v = src[i];
+        for (int r = 0; r < P; ++r)
+          if (ptrs.out[r]) static_cast<T*>(ptrs.out[r])[slot + i] = v;
+      });
+}
+
+// The ranks' input pointers of the root-only gather (512 bytes of the
+// parameter space, indexed in place as K3's table is).
+struct RankIn {
+  const void* in[kMaxRanks];
+};
+
+// K3, root only (the rooted gather): out[q*n + k] = in_q[k]; blockIdx.y =
+// q.  K3's copy with one output, a plain argument: no table of P outputs
+// to walk and test for null.  A block reads its rank's input pointer
+// once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ring_gather_root_kernel(const __grid_constant__ RankIn ranks, T* out,
+                            long long n) {
+  using S = accl::TileShape<sizeof(T), sizeof(T)>;
+  const T* src = static_cast<const T*>(ranks.in[blockIdx.y]);
+  T* dst = out + blockIdx.y * n;
+  accl::tile_walk<S::E>(
+      n, accl::aligned(src) && accl::aligned(dst),
+      [&](long long e, int lane) {
+        uint4 w[S::U];
+        accl::tile_load<S::V>(w, src + e, lane);
+        accl::tile_store<S::V>(dst + e, lane, w);
+      },
+      [&](long long i) { dst[i] = src[i]; });
 }
 
 template <typename T>
@@ -168,16 +217,19 @@ int reduce_scatter_as(const RankPtrs& t, int P, long long n, long long blk,
 }
 
 template <typename T>
-int allgather_as(const RankPtrs& t, int P, long long n, int vec,
-                 cudaStream_t s) {
-  constexpr int V = 16 / sizeof(T);
-  const int per_rank = vec ? (accl::grid_for((n + V - 1) / V, kThreads) + P - 1) / P
-                           : (accl::grid_for(n, kThreads) + P - 1) / P;
-  dim3 grid(per_rank < 1 ? 1 : per_rank, P);
-  if (vec)
-    ring_allgather_kernel<T, V><<<grid, kThreads, 0, s>>>(t, P, n);
-  else
-    ring_allgather_kernel<T, 1><<<grid, kThreads, 0, s>>>(t, P, n);
+int allgather_as(const RankPtrs& t, int P, long long n, cudaStream_t s) {
+  using S = accl::TileShape<sizeof(T), sizeof(T)>;
+  ring_allgather_kernel<T><<<dim3(accl::tile_blocks(n, S::E, true), P),
+                             kThreads, 0, s>>>(t, P, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int gather_root_as(const RankIn& t, void* out, int P, long long n,
+                   cudaStream_t s) {
+  using S = accl::TileShape<sizeof(T), sizeof(T)>;
+  ring_gather_root_kernel<T><<<dim3(accl::tile_blocks(n, S::E, true), P),
+                               kThreads, 0, s>>>(t, static_cast<T*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -224,15 +276,33 @@ extern "C" int accl_ring_reduce_scatter(const void* const* in,
 
 extern "C" int accl_ring_allgather(const void* const* in, void* const* out,
                                    int P, long long n, int elem_bytes,
-                                   int vec, void* stream) {
+                                   void* stream) {
   if (P < 1 || P > kMaxRanks) return static_cast<int>(cudaErrorInvalidValue);
   const RankPtrs t = table(in, out, P, P);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (elem_bytes) {
-    case 1: return allgather_as<uint8_t>(t, P, n, vec, s);
-    case 2: return allgather_as<uint16_t>(t, P, n, vec, s);
-    case 4: return allgather_as<uint32_t>(t, P, n, vec, s);
-    case 8: return allgather_as<uint64_t>(t, P, n, vec, s);
+    case 1: return allgather_as<uint8_t>(t, P, n, s);
+    case 2: return allgather_as<uint16_t>(t, P, n, s);
+    case 4: return allgather_as<uint32_t>(t, P, n, s);
+    case 8: return allgather_as<uint64_t>(t, P, n, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The root-only gather: `out` (the root's result) receives the P ranks'
+// n-element inputs `in` in rank order.
+extern "C" int accl_ring_gather_root(const void* const* in, void* out, int P,
+                                     long long n, int elem_bytes,
+                                     void* stream) {
+  if (P < 1 || P > kMaxRanks) return static_cast<int>(cudaErrorInvalidValue);
+  RankIn t = {};
+  for (int i = 0; i < P; ++i) t.in[i] = in[i];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (elem_bytes) {
+    case 1: return gather_root_as<uint8_t>(t, out, P, n, s);
+    case 2: return gather_root_as<uint16_t>(t, out, P, n, s);
+    case 4: return gather_root_as<uint32_t>(t, out, P, n, s);
+    case 8: return gather_root_as<uint64_t>(t, out, P, n, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

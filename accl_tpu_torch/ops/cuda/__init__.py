@@ -84,11 +84,13 @@ from .rooted import (  # noqa: F401
 )
 
 #: every kernel wrapper of the tier (each carries a ``launches`` counter;
-#: ``ring_gather`` launches K3 and counts under ``ring_allgather``)
+#: ``ring_gather`` counts K3's root-only kernel, and its all-rank tables
+#: count under ``ring_allgather``)
 KERNELS = {
     "ring_allreduce": ring_allreduce,
     "ring_reduce_scatter": ring_reduce_scatter,
     "ring_allgather": ring_allgather,
+    "ring_gather": ring_gather,
     "combine": combine,
     "ring_bcast": ring_bcast,
     "ring_reduce": ring_reduce,

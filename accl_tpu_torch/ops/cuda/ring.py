@@ -44,7 +44,8 @@ PROTOTYPES = {"ring": {
     "accl_ring_allreduce": (PTR, PTR, INT, LL, LL, LL, INT, INT, INT, INT,
                             PTR),
     "accl_ring_reduce_scatter": (PTR, PTR, INT, LL, LL, INT, INT, INT, PTR),
-    "accl_ring_allgather": (PTR, PTR, INT, LL, INT, INT, PTR),
+    "accl_ring_allgather": (PTR, PTR, INT, LL, INT, PTR),
+    "accl_ring_gather_root": (PTR, PTR, INT, LL, INT, PTR),
 }}
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
@@ -315,7 +316,8 @@ def ring_allgather(
     """Ring allgather (store-and-relay): ``xs[i]`` is rank i's block;
     every rank receives all blocks concatenated along the leading axis.
     A None entry of ``out`` is a rank that takes no result: the kernel
-    skips its stores (the rooted gather passes the root's alone)."""
+    skips its stores (``rooted.ring_gather`` with a root-only table has
+    a kernel of its own)."""
     flat = _flat(xs, "ring_allgather")
     P, n = len(flat), flat[0].numel()
     shape = (P * xs[0].shape[0],) + tuple(xs[0].shape[1:])
@@ -326,12 +328,9 @@ def ring_allgather(
                 o.copy_(r.reshape(-1))
     elif n:
         lib = _lib()
-        esize = flat[0].element_size()
-        pin, pout = pointers(flat), pointers(outs)
         rc = lib.accl_ring_allgather(
-            pointer_table(pin), pointer_table(pout), P, n, esize,
-            int(aligned16(pin + pout) and (n * esize) % 16 == 0),
-            stream_of(flat[0].device),
+            pointer_table(pointers(flat)), pointer_table(pointers(outs)), P,
+            n, flat[0].element_size(), stream_of(flat[0].device),
         )
         check_launch(lib, rc, "ring_allgather")
         ring_allgather.launches.bump()

@@ -5,9 +5,9 @@ The counterpart of ``accl_tpu/ops/pallas/rooted.py``.  Where the JAX
 entry points run inside ``shard_map`` on one rank's shard, these take
 every rank's operand at once (per-rank tensors, each its own allocation)
 and return one result per rank.  The kernels (``csrc/rooted.cu``) reach
-the ranks through the per-rank pointer table; ``ring_gather`` is K3
-(``ring.ring_allgather``) with a null output for every rank but the root,
-so only the root's result is written.
+the ranks through the per-rank pointer table; ``ring_gather`` is K3's
+root-only form (``csrc/ring.cu``'s ``accl_ring_gather_root``: the root's
+output is its one output pointer, so only the root's result is written).
 
 The relays fold ELEMENTWISE: no element's value depends on the block or
 segment it lies in, so neither ``num_segments`` nor the TPU's lane
@@ -21,7 +21,7 @@ suffix partial, as the JAX kernel leaves them.
 Each ``*_plain`` function is the kernel's plain PyTorch version, walking
 the same hop schedule with the same fold order; CPU tensors take it, and
 the card's checks compare against it.  An ``out`` entry of None (reduce
-and gather) is a rank that takes no result: the kernel skips its stores.
+and gather) is a rank that takes no result: no kernel writes it.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from ._common import (
     stream_of,
 )
 from .ring import _flat, _kernel_dtype, _outputs, _vec, ring_allgather
+from .ring import _lib as ring_lib
 
 #: ``csrc/rooted.cu``'s C prototypes (declared once, at load)
 PROTOTYPES = {"rooted": {
@@ -305,17 +306,45 @@ def ring_gather(
     out: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> List[Optional[torch.Tensor]]:
     """Gather every rank's block to ``root`` through K3.  With ``out``
-    None only the root's result is allocated and written (None for the
-    other ranks); an ``out`` table writes every rank it names, and must
-    name the root (the facade names the root alone)."""
+    None, or an ``out`` table that names the root alone (the facade's
+    form), the root-only kernel writes the root's result (None for the
+    other ranks); a table that names other ranks too writes each of them
+    through the all-rank allgather, and must name the root."""
     P = len(xs)
     _check(P, root, num_segments, "ring_gather")
+    if out is not None:
+        out = list(out)
+        if len(out) != P:
+            raise ValueError(f"ring_gather: out must be {P} entries")
+        if out[root] is None:
+            raise ValueError("ring_gather: out[root] is None, the root "
+                             "takes the result")
+        if any(o is not None for r, o in enumerate(out) if r != root):
+            return ring_allgather(xs, out=out)
+    flat = _flat(xs, "ring_gather")
+    x0, n = flat[0], flat[0].numel()
+    shape = (P * xs[0].shape[0],) + tuple(xs[0].shape[1:])
     if out is None:
-        x0 = xs[0]
-        out = [None] * P
-        out[root] = torch.empty((P * x0.shape[0],) + tuple(x0.shape[1:]),
-                                dtype=x0.dtype, device=x0.device)
-    elif out[root] is None:
-        raise ValueError("ring_gather: out[root] is None, the root takes "
-                         "the result")
-    return ring_allgather(xs, out=out)
+        res = torch.empty(shape, dtype=x0.dtype, device=x0.device)
+    else:
+        res = out[root]
+        if (res.numel() != P * n or res.dtype != x0.dtype
+                or not res.is_contiguous()):
+            raise ValueError(f"ring_gather: out[root] must be a contiguous "
+                             f"tensor of {P * n} {x0.dtype} elements")
+    if not on_cuda(flat + [res]):
+        res.reshape(-1).copy_(torch.cat(flat))  # ring_gather_plain's value
+    elif n:
+        lib = ring_lib()
+        rc = lib.accl_ring_gather_root(
+            pointer_table(pointers(flat)), res.data_ptr(), P, n,
+            x0.element_size(), stream_of(x0.device),
+        )
+        check_launch(lib, rc, "ring_gather")
+        ring_gather.launches.bump()
+    outs: List[Optional[torch.Tensor]] = [None] * P
+    outs[root] = res.reshape(shape)
+    return outs
+
+
+ring_gather.launches = LaunchCounter()

@@ -16,7 +16,11 @@ Phases (any failure exits non-zero):
    registers and spills, and the wgmma kernels' dynamic shared memory);
    fail if a wgmma kernel (rows 15-18) spills, if ptxas serialised its
    wgmmas (C7513, C7512), or if ``cuobjdump -sass`` finds no HGMMA in
-   ``attention``, ``ring_attention`` or ``attention_bwd``;
+   ``attention``, ``ring_attention`` or ``attention_bwd``; then report the
+   streaming tile core's kernels (K3's allgather and root-only gather,
+   K4's combine: ptxas's registers, spill bytes and stack frame) and fail
+   if one spills or keeps a stack frame (the pointer tables are indexed
+   in place, ``__grid_constant__``);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes — float results must match EXACTLY (same operation
    order, same round-to-nearest-even; NaN positions must agree), except
@@ -26,10 +30,16 @@ Phases (any failure exits non-zero):
    dQ and dK/dV through their wgmma kernels, a bfloat16 backward repeated
    bit for bit).  The
    rooted relays (bcast in place and out of place, reduce with every
-   rank's partial and with the root's output alone, scatter) and the
-   root-only gather over K3 run at P in {2, 4, 8} x root in {0, P-1} x
-   f32/bf16/f16/i32, SUM and MAX with NaNs, 16M per rank, plus a ragged
-   1,000,003 and views misaligned by one element (the scalar path).  The
+   rank's partial and with the root's output alone, scatter) and K3's
+   root-only gather (its own kernel, with the result allocated and into
+   the facade's root-only ``out`` table) run at P in {2, 4, 8} x root in
+   {0, P-1} x f32/bf16/f16/i32, SUM and MAX with NaNs, 16M per rank, plus
+   a ragged 1,000,003 and views misaligned by one element (the scalar
+   path).  K4 (``combine``) runs f32/bf16/f16/i32, SUM and MAX with NaNs,
+   in place and not, at 64M elements, and every operand dtype (f16, f32,
+   f64, i32, i64, bf16) into every ``out_dtype`` at n = 1, 255, 257 and
+   1,000,003, aligned and misaligned by one element, SUM and MAX, in
+   place where the dtypes allow it.  The
    command-ring sequencer (row 14) is held against ``sequencer_plain``,
    results and status words, over P in {2, 4, 8}, windows of depth 1, 8
    and 64 mixing every opcode class (bcast at roots 0 and P-1, the
@@ -154,8 +164,9 @@ Phases (any failure exits non-zero):
       and 8 heads); the run must launch row 12 four times and row 15
       twice, and no other kernel;
 4. time each kernel at those shapes beside its bound, its plain version
-   and one PyTorch library call computing the same function (the
-   root-only gather as extra keys of K3's entry; the sequencer on 8
+   and one PyTorch library call computing the same function (K3's
+   allgather and root-only gather and K4 also by device time alone,
+   their library calls too; the sequencer on 8
    allreduces of 1M float32 per rank, with 8 x 64K and the facade's mix at
    4 MiB per rank as extra keys of its entry; flash attention at run A's
    (8, 16, 128, 128) bf16 causal, with run B's T = 1024 as extra keys,
@@ -241,6 +252,8 @@ ROOTED_REGISTERS = ("reduce_algorithm", "bcast_algorithm",
                     "scatter_algorithm", "gather_algorithm")
 SLICE1_KERNELS = ("ring_allreduce", "ring_reduce_scatter", "ring_allgather",
                   "combine")
+# the kernels on the streaming tile core (common.cuh), by KERNELS name
+TILE_KERNELS = ("ring_allgather", "ring_gather", "combine")
 
 
 def fail(msg: str) -> None:
@@ -385,7 +398,7 @@ def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> dict:
 
 
 def time_rooted(xs, rand) -> dict:
-    """Phase 4 for rows 9-11 and the root-only gather, on the main
+    """Phase 4 for rows 9-11 and K3's root-only gather, on the main
     path's forms: ``xs`` are the P ranks' 16M float32 operands, root 0."""
     import torch
 
@@ -426,15 +439,17 @@ def time_rooted(xs, rand) -> dict:
         ),
         "ring_gather": dict(
             ms=time_ms(lambda: kc.ring_gather(xs, 0, out=gat)),
+            device_ms=device_ms(lambda: kc.ring_gather(xs, 0, out=gat)),
             plain_ms=time_ms(lambda: kc.ring_gather_plain(xs, 0)),
             library_ms=time_ms(lambda: torch.cat(xs, out=gat[0])),
+            library_device_ms=device_ms(lambda: torch.cat(xs, out=gat[0])),
             bytes=2 * P * n * f4, ops=0,
         ),
     }
 
 
 def check_rooted_kernels(rand, err) -> None:
-    """Rows 9-11 and the root-only K3 gather against their plain versions
+    """Rows 9-11 and K3's root-only gather against their plain versions
     (phase 2)."""
     import torch
 
@@ -475,8 +490,12 @@ def check_rooted_kernels(rand, err) -> None:
         ys = [x.clone() for x in xs]
         kc.ring_bcast(ys, root, out=ys)
         held("ring_bcast", ys, want, range(P))
-        held("ring_allgather", kc.ring_gather(xs, root),
-             kc.ring_gather_plain(xs, root), [root])
+        want = kc.ring_gather_plain(xs, root)
+        held("ring_gather", kc.ring_gather(xs, root), want, [root])
+        out = [None] * P  # the facade's form: the root's output alone
+        out[root] = torch.full((P * n,), 7, dtype=dtype, device=xs[0].device)
+        kc.ring_gather(xs, root, out=out)
+        held("ring_gather", out, want, [root])
         big = [operand(P * n)] * P  # only the root's operand is read
         held("ring_scatter", kc.ring_scatter(big, root),
              kc.ring_scatter_plain(big, root), range(P))
@@ -509,7 +528,7 @@ def rooted_main_path(kc) -> dict:
     maxed = np.maximum.reduce(data)
     m = n // P  # alltoall block: rank r's operand is data[r]
     calls = {"ring_reduce": 0, "ring_bcast": 0, "ring_scatter": 0,
-             "ring_allgather": 0}
+             "ring_gather": 0}
     wrong = []  # a rank records what it got wrong and goes on calling
 
     def rank_main(a, r):
@@ -576,7 +595,7 @@ def rooted_main_path(kc) -> dict:
                     check(gother is None or (got == 7.0).all(),
                           f"gather {tag}: non-root result written")
                 if r == 0 and ring:
-                    for k in ("ring_bcast", "ring_scatter", "ring_allgather"):
+                    for k in ("ring_bcast", "ring_scatter", "ring_gather"):
                         calls[k] += 1
         a.alltoall(s, a2r)
         want = np.concatenate([data[p][r * m:(r + 1) * m] for p in range(P)])
@@ -1734,6 +1753,107 @@ def cast_ptxas(kc) -> dict:
             "registers_max": max(regs),
             "spill_bytes_max": max(v[1] for v in found.values()),
             "f32_bf16_registers": f32_bf16[0] if f32_bf16 else None}
+
+
+def tile_ptxas(kc) -> dict:
+    """The streaming tile core's kernels in ptxas's lines of their build
+    logs, by ``TILE_KERNELS`` name: the count of instantiations, the least
+    and most registers, and the most spill-store bytes and stack frame
+    bytes, which must both be 0 (phase 1)."""
+    import re
+
+    mangled = {"ring_allgather": ("ring", "21ring_allgather_kernel"),
+               "ring_gather": ("ring", "23ring_gather_root_kernel"),
+               "combine": ("combine", "14combine_kernel")}
+    out = {}
+    for name, (lib, tag) in mangled.items():
+        found, entry = [], None
+        for line in kc._build.build_log(lib).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = tag in m.group(1)
+                if entry:
+                    found.append([0, 0, 0])
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores", line)
+            if m and entry:
+                found[-1][1:] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                found[-1][0] = int(m.group(1))
+        if not found:
+            fail(f"no ptxas lines for {name}'s kernels")
+        regs = [f[0] for f in found]
+        out[name] = {"kernels": len(found), "registers_min": min(regs),
+                     "registers_max": max(regs),
+                     "stack_bytes_max": max(f[1] for f in found),
+                     "spill_bytes_max": max(f[2] for f in found)}
+        if out[name]["stack_bytes_max"] or out[name]["spill_bytes_max"]:
+            fail(f"{name}'s kernels keep a stack frame or spill: "
+                 f"{out[name]}")
+    return out
+
+
+def check_combine(rand, err) -> None:
+    """K4 against its plain version, exactly (phase 2): the main path's
+    64M elements per dtype, SUM and MAX with NaNs, in place and not, and
+    float32 into bfloat16 / float16; then every operand dtype into every
+    ``out_dtype`` at odd and ragged lengths, aligned and misaligned by one
+    element (the tile core's scalar path and its tail)."""
+    import torch
+
+    from accl_tpu_torch.ops import cuda as kc
+
+    SUM, MAX = 0, 1
+    F32, BF16, F16, I32 = (torch.float32, torch.bfloat16, torch.float16,
+                           torch.int32)
+    every = (F16, F32, torch.float64, I32, torch.int64, BF16)
+
+    def operand(n, dtype, nans=slice(None, None, 997)):
+        if dtype in (I32, torch.int64):
+            return rand(n, I32).to(dtype)
+        x = rand(n, F32).to(dtype)
+        x[nans] = float("nan")
+        return x
+
+    b_nans = slice(5, None, 1009)  # NaNs where ``a`` has none, for MAX
+
+    def held(tag, got, want):
+        err["combine"] = max(err["combine"], compare(tag, got, want))
+
+    for dtype in (F32, BF16, F16, I32):
+        a, b = operand(N_COMBINE, dtype), operand(N_COMBINE, dtype, b_nans)
+        for fn in (SUM, MAX):
+            tag = f"combine {dtype} {fn}"
+            want = kc.combine_plain(a, b, fn)
+            held(tag, kc.combine(a, b, fn), want)
+            acc = a.clone()
+            kc.combine(acc, b, fn, accumulate=True)
+            held(tag + " accumulate", acc, want)
+        if dtype == F32:
+            for out_dtype in (BF16, F16):
+                held(f"combine f32->{out_dtype}",
+                     kc.combine(a, b, SUM, out_dtype),
+                     kc.combine_plain(a, b, SUM, out_dtype))
+        del a, b, acc, want
+        torch.cuda.synchronize()
+    for dtype in every:
+        for n in (1, 255, 257, 1_000_003):
+            base_a = operand(n + 1, dtype)
+            base_b = operand(n + 1, dtype, b_nans)
+            for offset in (0, 1):
+                a, b = base_a[offset:offset + n], base_b[offset:offset + n]
+                for fn in (SUM, MAX):
+                    for out_dtype in every:
+                        held(f"combine {dtype}->{out_dtype} n={n} "
+                             f"offset={offset} {fn}",
+                             kc.combine(a, b, fn, out_dtype),
+                             kc.combine_plain(a, b, fn, out_dtype))
+                    acc = base_a.clone()[offset:offset + n]
+                    kc.combine(acc, b, fn, accumulate=True)
+                    held(f"combine {dtype} n={n} offset={offset} "
+                         f"accumulate {fn}", acc, kc.combine_plain(a, b, fn))
+    torch.cuda.synchronize()
 
 
 def check_flash_bwd(err) -> None:
@@ -3630,6 +3750,8 @@ def main() -> int:
           flush=True)
     cast_regs = cast_ptxas(kc)
     print(f"ptxas, row 5's cast kernels: {cast_regs}", flush=True)
+    tile_regs = tile_ptxas(kc)
+    print(f"ptxas, the tile core's kernels: {tile_regs}", flush=True)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3646,28 +3768,7 @@ def main() -> int:
 
     # -- phase 2: every kernel against its plain version ---------------------
     t0 = time.time()
-    for dtype in (F32, BF16, F16, I32):
-        a, b = rand(N_COMBINE, dtype), rand(N_COMBINE, dtype)
-        if dtype.is_floating_point:
-            a[::997] = float("nan")
-            b[5::1009] = float("nan")
-        for fn in (SUM, MAX):
-            tag = f"combine {dtype} {fn.name}"
-            err["combine"] = max(err["combine"], compare(
-                tag, kc.combine(a, b, fn), kc.combine_plain(a, b, fn)))
-            acc = a.clone()
-            kc.combine(acc, b, fn, accumulate=True)
-            err["combine"] = max(err["combine"], compare(
-                tag + " accumulate", acc, kc.combine_plain(a, b, fn)))
-        torch.cuda.synchronize()
-    a, b = rand(N_COMBINE, F32), rand(N_COMBINE, F32)
-    for out_dtype in (BF16, F16):
-        err["combine"] = max(err["combine"], compare(
-            f"combine f32->{out_dtype}",
-            kc.combine(a, b, SUM, out_dtype),
-            kc.combine_plain(a, b, SUM, out_dtype)))
-    del a, b, acc
-    torch.cuda.synchronize()
+    check_combine(rand, err)
 
     cases = [
         (P, S, bidir, wire, SUM, F32, N_RANK)
@@ -3873,17 +3974,23 @@ def main() -> int:
         ),
         "ring_allgather": dict(
             ms=time_ms(lambda: kc.ring_allgather(blocks, out=gathered)),
+            device_ms=device_ms(
+                lambda: kc.ring_allgather(blocks, out=gathered)),
             plain_ms=time_ms(lambda: kc.ring_allgather_plain(blocks)),
             # every rank's gathered output, as the kernel writes them
             library_ms=time_ms(lambda: [torch.cat(blocks, out=g)
                                         for g in gathered]),
+            library_device_ms=device_ms(lambda: [torch.cat(blocks, out=g)
+                                                 for g in gathered]),
             bytes=(P_MAIN + P_MAIN * P_MAIN) * (N_RANK // P_MAIN) * f4,
             ops=0,
         ),
         "combine": dict(
             ms=time_ms(lambda: kc.combine(a, b, SUM, out=c)),
+            device_ms=device_ms(lambda: kc.combine(a, b, SUM, out=c)),
             plain_ms=time_ms(lambda: kc.combine_plain(a, b, SUM)),
             library_ms=time_ms(lambda: torch.add(a, b, out=c)),
+            library_device_ms=device_ms(lambda: torch.add(a, b, out=c)),
             bytes=3 * N_COMBINE * f4,
             ops=N_COMBINE,
         ),
@@ -3912,6 +4019,9 @@ def main() -> int:
                                 "accl_tpu/ops/pallas/ring.py:224"),
         "ring_allgather": ("accl_tpu_torch/csrc/ring.cu",
                            "accl_tpu/ops/pallas/ring.py:288"),
+        # K3 as the rooted gather reaches it (rooted.py:280-297)
+        "ring_gather": ("accl_tpu_torch/csrc/ring.cu",
+                        "accl_tpu/ops/pallas/ring.py:288"),
         "combine": ("accl_tpu_torch/csrc/combine.cu",
                     "accl_tpu/ops/pallas/combine.py:40"),
         "ring_bcast": ("accl_tpu_torch/csrc/rooted.cu",
@@ -4048,23 +4158,24 @@ def main() -> int:
                 "full_library_ms": t["full_library_ms"],
                 "full_library_device_ms": t["full_library_device_ms"],
             })
-        if name == "ring_allgather":  # the rooted gather: root output only
-            g = timing["ring_gather"]
+        if name in TILE_KERNELS:  # the tile core's rows, by device time
             kernels[-1].update({
-                "gather_ms": g["ms"], "gather_plain_ms": g["plain_ms"],
-                "gather_bound_ms": bound(g["bytes"], g["ops"])["bound_ms"],
-                "gather_library_ms": g["library_ms"],
+                "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"],
+                "ptxas": tile_regs[name],
             })
     for k in kernels:
         lib = k["library_ms"]
         print(f"{k['name']}: kernel_ms={k['ms']:.4f} "
               f"bound_ms={k['bound_ms']:.4f} plain_ms={k['plain_ms']:.4f} "
               f"library_ms={'-' if lib is None else f'{lib:.4f}'}")
-    g = timing["ring_gather"]
-    print(f"ring_gather (K3, root only): kernel_ms={g['ms']:.4f} "
-          f"bound_ms={bound(g['bytes'], 0)['bound_ms']:.4f} "
-          f"plain_ms={g['plain_ms']:.4f} library_ms={g['library_ms']:.4f}")
     by_name = {k["name"]: k for k in kernels}
+    for name in TILE_KERNELS:
+        k = by_name[name]
+        print(f"{name} (tile core): device_ms={k['device_ms']:.4f} "
+              f"({k['bound_ms'] / k['device_ms']:.3f} of the bound) against "
+              f"the library call's {k['library_device_ms']:.4f} "
+              f"({k['bound_ms'] / k['library_device_ms']:.3f})")
     s_ = by_name["sequencer"]
     print(f"sequencer device_ms={s_['device_ms']:.4f}; 8 x allreduce 64K: "
           f"kernel_ms={s_['window_64k_ms']:.4f} "

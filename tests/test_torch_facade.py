@@ -261,6 +261,108 @@ def test_bfloat16_sums_within_the_fold_of_jax(groups, algo):
         np.testing.assert_array_less(np.abs(got[r][1] - want[r][1]), tol)
 
 
+def _jax_paths(monkeypatch, jg):
+    """Count the JAX gang's calls by path: ``device`` lists the calls its
+    device program ran (``_run_op_device`` returned a code), ``host`` the
+    calls staged through host numpy (``_run_op_host``: the rank-order
+    fold and the per-rank seeded ``wire_cast``, taken when the gang has
+    no mesh of its ranks' devices).  The instance's methods are wrapped;
+    the gang's code is not changed."""
+    gang = jg[0].engine.gang
+    paths = {"device": [], "host": []}
+    run_device, run_host = gang._run_op_device, gang._run_op_host
+
+    def on_device(comm, calls, lead, *args, **kw):
+        code = run_device(comm, calls, lead, *args, **kw)
+        if code is not None:
+            paths["device"].append(lead.op)
+        return code
+
+    def on_host(comm, calls, lead, *args, **kw):
+        paths["host"].append(lead.op)
+        return run_host(comm, calls, lead, *args, **kw)
+
+    monkeypatch.setattr(gang, "_run_op_device", on_device)
+    monkeypatch.setattr(gang, "_run_op_host", on_host)
+    return paths
+
+
+@pytest.mark.parametrize("algo", ["ring", "pallas_ring", "pallas_ring_bidir"])
+def test_bfloat16_ring_allreduce_equals_jax_bit_for_bit(groups, algo,
+                                                        monkeypatch):
+    """The bfloat16 allreduce under the ring registers, on the JAX gang's
+    device path (the conftest's 8 virtual devices give it a mesh of its 4
+    ranks): the port's ring fold equals JAX's bit for bit, count 1,332
+    (8 x standard normals, seed 18).  With one device the JAX gang stages
+    through the host and folds in rank order instead, which differs; so
+    the test asserts that no call took that path."""
+    if algo.startswith("pallas") and not has_pallas_interpret():
+        pytest.skip("the JAX pallas lowering off-chip needs the interpreter")
+    _tune_both(groups, allreduce_algorithm=algo)
+    paths = _jax_paths(monkeypatch, groups[0])
+    count = P * 333
+    rows = (np.random.default_rng(18).standard_normal((P, count)) * 8
+            ).astype(ml_dtypes.bfloat16)
+
+    def work(a, r):
+        send = a.create_buffer_from(rows[r].copy())
+        recv = a.create_buffer(count, ml_dtypes.bfloat16)
+        a.allreduce(send, recv, count)
+        recv.sync_from_device()
+        return np.asarray(recv.host_view()).copy()
+
+    want, got = _run_both(groups, work)
+    assert paths["host"] == [] and len(paths["device"]) == 1, paths
+    for r in range(P):
+        assert got[r].dtype == want[r].dtype == ml_dtypes.bfloat16
+        np.testing.assert_array_equal(got[r].view(np.uint16),
+                                      want[r].view(np.uint16))
+
+
+@pytest.mark.parametrize("dtype,lane", [
+    (np.float32, "float8_e4m3fn"), (np.float32, "float8_e5m2"),
+    (np.float32, "float16"), (np.float32, "bfloat16"),
+    (np.float32, "int8"),
+    (ml_dtypes.bfloat16, "float8_e4m3fn"), (ml_dtypes.bfloat16, "float8_e5m2"),
+    (ml_dtypes.bfloat16, "int8"),
+], ids=lambda v: getattr(v, "__name__", v))
+def test_compressed_reduce_scatter_equals_jax(groups, dtype, lane,
+                                              monkeypatch):
+    """The compressed reduce_scatter at count 333 over 4 ranks (seed 32,
+    default registers) on every lane and operand dtype the arithmetic
+    table takes, against the JAX gang's device program (asserted: no
+    call staged through the host, whose per-rank seeded ``wire_cast``
+    rounds otherwise).  float32 operands on the float lanes agree bit for
+    bit; on int8 within 1e-6, the recorded ``absmax / 127`` scale
+    divergence (``test_torch_wire.py::test_int8_scale_divergence``);
+    bfloat16 operands within the fold bound P * 2^-8 * sum_r |x_r| of
+    ``test_bfloat16_sums_within_the_fold_of_jax`` (XLA's CPU psum adds
+    bfloat16 in float32 and rounds once)."""
+    paths = _jax_paths(monkeypatch, groups[0])
+    count = 333
+    rows = np.random.default_rng(32).standard_normal((P, P * count)).astype(
+        dtype)
+
+    def work(a, r):
+        send = a.create_buffer_from(rows[r].copy())
+        recv = a.create_buffer(count, dtype)
+        a.reduce_scatter(send, recv, count, compress_dtype=lane)
+        recv.sync_from_device()
+        return np.asarray(recv.host_view()).astype(np.float64)
+
+    want, got = _run_both(groups, work)
+    assert paths["host"] == [] and len(paths["device"]) == 1, paths
+    mag = np.abs(rows.astype(np.float64)).sum(0)
+    for r in range(P):
+        if dtype == ml_dtypes.bfloat16:
+            tol = P * 2.0 ** -8 * mag[r * count:(r + 1) * count] + 1e-30
+            np.testing.assert_array_less(np.abs(got[r] - want[r]), tol)
+        elif lane == "int8":
+            np.testing.assert_allclose(got[r], want[r], rtol=1e-6, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(got[r], want[r])
+
+
 # ---------------------------------------------------------------------------
 # the other collectives and the local ops
 # ---------------------------------------------------------------------------

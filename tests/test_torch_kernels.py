@@ -204,6 +204,31 @@ def test_ring_allgather_equals_pallas():
         np.testing.assert_array_equal(got[r].numpy(), want[r])
 
 
+@interpreted
+@pytest.mark.parametrize("bad", [None, "shape", "noncontiguous"])
+def test_ring_allgather_null_outputs_equal_pallas(bad):
+    """An ``out`` table with None entries: the ranks it names receive the
+    JAX kernel's result, the others none; a named output of the wrong
+    length, or a non-contiguous one, is refused before anything is
+    written."""
+    data = np.random.default_rng(10).standard_normal((4, 1000)).astype(
+        np.float32)
+    want = _jax_ring(lambda x: pk.ring_allgather(x, "x"), data)
+    xs = interop.stacked_from_numpy(data, "cpu")
+    out = [torch.full((4000,), 7.0), None, torch.full((4000,), 7.0), None]
+    if bad is None:
+        got = kc.ring_allgather(xs, out=out)
+        assert got[1] is None and got[3] is None
+        for r in (0, 2):
+            np.testing.assert_array_equal(out[r].numpy(), want[r])
+        return
+    out[2] = (torch.full((3999,), 7.0) if bad == "shape"
+              else torch.full((8000,), 7.0)[::2])
+    with pytest.raises(ValueError, match="out must be"):
+        kc.ring_allgather(xs, out=out)
+    assert bool((out[0] == 7.0).all()) and bool((out[2] == 7.0).all())
+
+
 def test_ring_allgather_keeps_trailing_dims():
     xs = [torch.full((2, 3), float(r)) for r in range(3)]
     got = kc.ring_allgather(xs)
@@ -258,6 +283,47 @@ def test_combine_out_dtype_equals_pallas(out_dtype):
     assert got.dtype == getattr(torch, out_dtype)
     np.testing.assert_array_equal(interop.to_numpy(got),
                                   want.astype(np.float32))
+
+
+@interpreted
+@pytest.mark.parametrize("n", [1, 255, 257])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_combine_odd_lengths_equal_pallas(n, dtype):
+    """Lengths shorter than one tile of the card's kernel, and past it
+    by one element (its scalar path)."""
+    np_dtype = jnp.dtype(dtype)
+    a, b = _combine_inputs(np_dtype, n=n, seed=3)
+    want = np.asarray(pk.combine(jnp.asarray(a), jnp.asarray(b)))
+    ta, tb = interop.stacked_from_numpy([a, b], "cpu")
+    np.testing.assert_array_equal(interop.to_numpy(kc.combine(ta, tb)),
+                                  want.astype(np.float32)
+                                  if dtype == "bfloat16" else want)
+
+
+@interpreted
+@pytest.mark.parametrize("bad", [None, "shape", "noncontiguous", "dtype"])
+def test_combine_out_refusals_equal_pallas(bad):
+    """``out=``: a contiguous output of ``out_dtype`` and ``a``'s shape
+    receives the JAX kernel's result; one of another shape or dtype, or a
+    non-contiguous one, is refused before anything is written."""
+    a, b = _combine_inputs(np.float32, seed=4)
+    want = np.asarray(pk.combine(jnp.asarray(a), jnp.asarray(b),
+                                 out_dtype=jnp.bfloat16))
+    ta, tb = interop.stacked_from_numpy([a, b], "cpu")
+    n = ta.numel()
+    out = {None: torch.full((n,), 7.0, dtype=torch.bfloat16),
+           "shape": torch.full((n - 1,), 7.0, dtype=torch.bfloat16),
+           "noncontiguous": torch.full((2 * n,), 7.0,
+                                       dtype=torch.bfloat16)[::2],
+           "dtype": torch.full((n,), 7.0)}[bad]
+    if bad is None:
+        assert kc.combine(ta, tb, SUM, torch.bfloat16, out=out) is out
+        np.testing.assert_array_equal(interop.to_numpy(out),
+                                      want.astype(np.float32))
+        return
+    with pytest.raises(ValueError, match="out"):
+        kc.combine(ta, tb, SUM, torch.bfloat16, out=out)
+    assert bool((out == 7.0).all())
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.int64])

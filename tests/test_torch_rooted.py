@@ -155,6 +155,56 @@ def test_ring_gather_equals_pallas(P, root, S):
     assert torch.equal(plain[root], got[root])
 
 
+@interpreted
+@pytest.mark.parametrize("P,root,S", RINGS)
+def test_ring_gather_root_only_table_equals_pallas(P, root, S):
+    """The facade's form: an ``out`` table naming the root alone takes
+    K3's root-only kernel (on the CPU its plain version), which writes
+    into that tensor and no other; a table naming every rank takes the
+    all-rank allgather into each.  Both equal the JAX kernel's result."""
+    data = _data(P * 50 + root, (P, N), "float32")
+    want = _jax_ring(lambda x: pk.ring_gather(x, "x", root, S), data)
+    xs = _ranks(data)
+    out = [None] * P
+    out[root] = torch.full((P * N,), 7.0)
+    got = kc.ring_gather(xs, root, S, out=out)
+    assert got[root].data_ptr() == out[root].data_ptr()
+    assert [r for r in range(P) if got[r] is not None] == [root]
+    np.testing.assert_array_equal(out[root].numpy(), want[root])
+    every = [torch.full((P * N,), 7.0) for _ in range(P)]
+    kc.ring_gather(xs, root, S, out=every)
+    for r in range(P):
+        np.testing.assert_array_equal(every[r].numpy(), want[root])
+
+
+@interpreted
+@pytest.mark.parametrize("bad", ["root_none", "shape", "noncontiguous",
+                                 "dtype"])
+def test_ring_gather_refuses_bad_root_output(bad):
+    """The root-only gather's argument checks: ``out[root]`` None, an
+    output of the wrong length or dtype, or a non-contiguous one, is
+    refused before anything is written; the same call with a good output
+    equals the JAX kernel."""
+    P, root = 4, 3
+    data = _data(61, (P, N), "float32")
+    want = _jax_ring(lambda x: pk.ring_gather(x, "x", root, 1), data)
+    xs = _ranks(data)
+    good = [None] * P
+    good[root] = torch.empty(P * N)
+    kc.ring_gather(xs, root, out=good)
+    np.testing.assert_array_equal(good[root].numpy(), want[root])
+    wrong = {"root_none": None,
+             "shape": torch.full((P * N - 1,), 7.0),
+             "noncontiguous": torch.full((2 * P * N,), 7.0)[::2],
+             "dtype": torch.full((P * N,), 7.0, dtype=torch.float64)}[bad]
+    out = [None] * P
+    out[root] = wrong
+    with pytest.raises(ValueError, match="out\\[root\\]"):
+        kc.ring_gather(xs, root, out=out)
+    if wrong is not None:
+        assert bool((wrong == 7.0).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_ring_reduce_plain_16bit_rounds_each_hop(dtype):
     """16-bit partials round after every fold, in the relay's order."""
