@@ -134,6 +134,17 @@ struct RankPtrs {
   void* out[kMaxRanks];
 };
 
+// One side of the table alone (512 bytes): the ranks' inputs of the
+// root-only gather, the ranks' outputs of the scatter.  Passed as a
+// __grid_constant__ argument, a block indexes it by rank in place, with
+// no copy into local memory.
+struct RankIn {
+  const void* in[kMaxRanks];
+};
+struct RankOut {
+  void* out[kMaxRanks];
+};
+
 inline RankPtrs table(const void* const* in, void* const* out, int n_in,
                       int n_out) {
   RankPtrs t = {};

@@ -39,6 +39,7 @@ using accl::Convert;
 using accl::kMaxRanks;
 using accl::kThreads;
 using accl::load;
+using accl::RankIn;
 using accl::RankPtrs;
 using accl::ring_mod;
 using accl::store;
@@ -158,12 +159,6 @@ __global__ void __launch_bounds__(kThreads)
           if (ptrs.out[r]) static_cast<T*>(ptrs.out[r])[slot + i] = v;
       });
 }
-
-// The ranks' input pointers of the root-only gather (512 bytes of the
-// parameter space, indexed in place as K3's table is).
-struct RankIn {
-  const void* in[kMaxRanks];
-};
 
 // K3, root only (the rooted gather): out[q*n + k] = in_q[k]; blockIdx.y =
 // q.  K3's copy with one output, a plain argument: no table of P outputs

@@ -12,9 +12,11 @@
 // rank sending its carry each hop and adopting / folding / keeping what
 // arrives by its distance from the root.  With every rank's buffer in
 // one device memory, reached through the per-rank pointer table, no hop
-// has a wire to cross: each thread owns a column of 16-byte vectors
-// (scalar where a pointer is unaligned or n ragged) and walks the
-// relay's hop schedule for it in registers.  No block waits on another.
+// has a wire to cross: in the bcast and the reduce each thread owns a
+// column of 16-byte vectors (scalar where a pointer is unaligned or n
+// ragged) and walks the relay's hop schedule for it in registers; the
+// scatter is a copy of P blocks on the streaming tile core (common.cuh).
+// No block waits on another.
 // Only the REDUCE fold order decides a value: the rank at root-distance
 // rel ends with op(x_rel, partial_{rel+1}) (op(own, incoming), as
 // rooted.py:125 folds), partial_{P-1} = x_{root+P-1}; so the root holds
@@ -28,10 +30,12 @@
 //
 // Bound on the H100: bytes.  bcast reads n and writes n per output;
 // reduce reads P*n, does (P-1)*n operations and writes n per output;
-// scatter reads P*n and writes n per output.  Far below the card's
-// operations-per-byte line, so the least time is those bytes over
-// 3.35 TB/s.  The design reads each input element once and writes each
-// output element once, 16 bytes per access where pointers are aligned.
+// scatter reads P*n and writes n per output (0.1603 ms for 4 x 64 MiB).
+// Far below the card's operations-per-byte line, so the least time is
+// those bytes over 3.35 TB/s.  The design reads each input element once
+// and writes each output element once, 16 bytes per access where
+// pointers are aligned; the scatter's warps each load a whole tile (64
+// bytes a lane in flight) before they store it.
 #include "common.cuh"
 
 namespace {
@@ -40,6 +44,7 @@ using accl::Arith;
 using accl::kMaxRanks;
 using accl::kThreads;
 using accl::load;
+using accl::RankOut;
 using accl::RankPtrs;
 using accl::store;
 using accl::table;
@@ -84,21 +89,28 @@ __global__ void ring_reduce_kernel(RankPtrs ptrs, int P, int root,
   }
 }
 
-// row 11: out_q[k] = in_root[q*n + k]; blockIdx.y = q.  The TPU injects
-// the blocks farthest-first, one per hop; here each destination's copy is
-// independent of the others.  Only the root's operand pointer is read.
-template <typename T, int V>
-__global__ void ring_scatter_kernel(RankPtrs ptrs, int root, long long n) {
-  const int q = blockIdx.y;
-  if (!ptrs.out[q]) return;
-  const T* src = static_cast<const T*>(ptrs.in[root]) + q * n;
-  const long long stride = (long long)gridDim.x * blockDim.x * V;
-  for (long long k = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
-       k < n; k += stride) {
-    T v[V];
-    load<T, V>(v, src, k, n);
-    store<T, V>(ptrs.out[q], k, v, n);
-  }
+// row 11: out_q[k] = src[q*n + k], src the root's operand; blockIdx.y =
+// q.  The TPU injects the blocks farthest-first, one per hop; here each
+// destination's copy is independent of the others: the mirror of K3's
+// root-only gather (ring.cu), one operand read at P offsets into P
+// outputs, on the streaming tile core.  Each row decides its alignment
+// (its block of src and its output), so a ragged n sends only the rows
+// it misaligns to the scalar path.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ring_scatter_kernel(const T* src, const __grid_constant__ RankOut ranks,
+                        long long n) {
+  using S = accl::TileShape<sizeof(T), sizeof(T)>;
+  const T* from = src + blockIdx.y * n;
+  T* dst = static_cast<T*>(ranks.out[blockIdx.y]);
+  accl::tile_walk<S::E>(
+      n, accl::aligned(from) && accl::aligned(dst),
+      [&](long long e, int lane) {
+        uint4 w[S::U];
+        accl::tile_load<S::V>(w, from + e, lane);
+        accl::tile_store<S::V>(dst + e, lane, w);
+      },
+      [&](long long i) { dst[i] = from[i]; });
 }
 
 template <typename T>
@@ -128,17 +140,12 @@ int reduce_as(const RankPtrs& t, int P, int root, long long n, int op,
 }
 
 template <typename T>
-int scatter_as(const RankPtrs& t, int P, int root, long long n, int vec,
+int scatter_as(const void* src, const RankOut& t, int P, long long n,
                cudaStream_t s) {
-  constexpr int V = 16 / sizeof(T);
-  const int per_rank =
-      vec ? (accl::grid_for((n + V - 1) / V, kThreads) + P - 1) / P
-          : (accl::grid_for(n, kThreads) + P - 1) / P;
-  dim3 grid(per_rank < 1 ? 1 : per_rank, P);
-  if (vec)
-    ring_scatter_kernel<T, V><<<grid, kThreads, 0, s>>>(t, root, n);
-  else
-    ring_scatter_kernel<T, 1><<<grid, kThreads, 0, s>>>(t, root, n);
+  using S = accl::TileShape<sizeof(T), sizeof(T)>;
+  ring_scatter_kernel<T><<<dim3(accl::tile_blocks(n, S::E, true), P),
+                           kThreads, 0, s>>>(static_cast<const T*>(src), t,
+                                             n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -150,10 +157,11 @@ bool bad_ranks(int P, int root) {
 
 // Each entry point returns cudaGetLastError() after its launch (0 on
 // success).  `in`/`out` are host arrays of P device pointers (an out entry
-// may be null: that rank's stores are skipped); `vec` selects 16-byte
-// accesses (every pointer used 16-byte aligned, n a multiple of the
-// vector width).  `n` is the element count per rank (for scatter: per
-// destination block of the root's P*n operand).
+// of the bcast and the reduce may be null: that rank's stores are
+// skipped); `vec` selects 16-byte accesses (every pointer used 16-byte
+// aligned, n a multiple of the vector width).  `n` is the element count
+// per rank (for scatter: per destination block of the root's P*n
+// operand).
 
 extern "C" int accl_ring_bcast(const void* const* in, void* const* out,
                                int P, int root, long long n, int elem_bytes,
@@ -185,17 +193,19 @@ extern "C" int accl_ring_reduce(const void* const* in, void* const* out,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int accl_ring_scatter(const void* const* in, void* const* out,
-                                 int P, int root, long long n,
-                                 int elem_bytes, int vec, void* stream) {
-  if (bad_ranks(P, root)) return static_cast<int>(cudaErrorInvalidValue);
-  const RankPtrs t = table(in, out, P, P);
+// The scatter: `src` (the root's P*n-element operand) sends block q to
+// `out[q]`, P device pointers, none null.
+extern "C" int accl_ring_scatter(const void* src, void* const* out, int P,
+                                 long long n, int elem_bytes, void* stream) {
+  if (P < 1 || P > kMaxRanks) return static_cast<int>(cudaErrorInvalidValue);
+  RankOut t = {};
+  for (int i = 0; i < P; ++i) t.out[i] = out[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (elem_bytes) {
-    case 1: return scatter_as<uint8_t>(t, P, root, n, vec, s);
-    case 2: return scatter_as<uint16_t>(t, P, root, n, vec, s);
-    case 4: return scatter_as<uint32_t>(t, P, root, n, vec, s);
-    case 8: return scatter_as<uint64_t>(t, P, root, n, vec, s);
+    case 1: return scatter_as<uint8_t>(src, t, P, n, s);
+    case 2: return scatter_as<uint16_t>(src, t, P, n, s);
+    case 4: return scatter_as<uint32_t>(src, t, P, n, s);
+    case 8: return scatter_as<uint64_t>(src, t, P, n, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,6 +15,14 @@ row before an identity put; such a pass is counted in
 ``fused_shift.compute_passes``, not in ``fused_shift.launches``.
 :func:`fused_shift_plain` is the plain version (a roll of ``compute``
 over the stacked rows); CPU tensors take it.
+
+The constant ``c`` follows JAX's weak-typed Python scalar (one rule,
+:func:`_constant`, for the plain version and the kernel alike): on a
+float16 or bfloat16 operand it is first rounded to the operand's dtype
+through float32 (``1 + 2**-8 + 2**-30`` becomes ``1 + 2**-8``, then 1.0
+in bfloat16), and the operation then computes in float32 and rounds
+once; on a float32 operand it rounds to float32, on float64 it stays; on
+an integer operand it is the integer and the arithmetic wraps.
 """
 
 from __future__ import annotations
@@ -28,7 +36,6 @@ from . import _build
 from ._build import DOUBLE, INT, LL, PTR
 from ._common import (
     LaunchCounter,
-    aligned16,
     check_launch,
     check_ranks,
     on_cuda,
@@ -40,7 +47,7 @@ from ._common import (
 
 #: ``csrc/put.cu``'s C prototypes (declared once, at load)
 PROTOTYPES = {"put": {"accl_fused_put": (
-    PTR, PTR, INT, INT, LL, INT, INT, INT, DOUBLE, LL, INT, PTR)}}
+    PTR, PTR, INT, INT, LL, INT, INT, INT, DOUBLE, LL, PTR)}}
 
 #: dtypes the kernel computes ``v + c`` and ``v * c`` in (identity takes
 #: any dtype)
@@ -50,11 +57,15 @@ COMPUTE_DTYPES = (torch.float32, torch.float16, torch.bfloat16,
 _IDENTITY, _ADD, _MUL = 0, 1, 2
 
 
-def _constant(v: torch.Tensor, c: float):
-    """The constant as an operand of ``v``'s dtype takes it: a float for
-    floating operands; an integer for integer operands, whose arithmetic
-    stays in their dtype and wraps (a fractional constant is refused)."""
-    if v.is_floating_point():
+def _constant(dtype: torch.dtype, c: float):
+    """The constant as JAX's weak-typed Python scalar meets an operand of
+    ``dtype``: rounded to a 16-bit float dtype through float32 (exact as
+    a Python float); unchanged for float32 (the float cast rounds it) and
+    float64; an integer for integer operands, whose arithmetic stays in
+    their dtype and wraps (a fractional constant is refused)."""
+    if dtype in (torch.float16, torch.bfloat16):
+        return torch.tensor(c, dtype=torch.float32).to(dtype).item()
+    if dtype.is_floating_point:
         return c
     if not float(c).is_integer():
         raise ValueError(f"constant {c} on an integer operand")
@@ -70,7 +81,7 @@ class Add:
         self.c = float(c)
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        return v + _constant(v, self.c)
+        return v + _constant(v.dtype, self.c)
 
     def __repr__(self) -> str:
         return f"Add({self.c})"
@@ -85,7 +96,7 @@ class Mul:
         self.c = float(c)
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        return v * _constant(v, self.c)
+        return v * _constant(v.dtype, self.c)
 
     def __repr__(self) -> str:
         return f"Mul({self.c})"
@@ -146,8 +157,7 @@ def fused_shift(xs: Operand, distance: int = 1,
         if x0.dtype not in COMPUTE_DTYPES:
             raise ValueError(f"fused_shift computes no {compute!r} on "
                              f"{x0.dtype}")
-        op, c = compute.op, compute.c
-        _constant(x0, c)  # refuses a fractional constant on integers
+        op, c = compute.op, _constant(x0.dtype, compute.c)
     elif compute is not None:
         rows = [compute(x) for x in rows]
         fused_shift.compute_passes.bump()
@@ -157,12 +167,12 @@ def fused_shift(xs: Operand, distance: int = 1,
     n = x0.numel()
     if n:
         lib = _build.library("put", PROTOTYPES["put"])
-        pin, pout = pointers(rows), pointers(outs)
         rc = lib.accl_fused_put(
-            pointer_table(pin), pointer_table(pout), P, int(distance) % P,
-            n, int(torch_to_dtype(x0.dtype)) if op else 0, x0.element_size(),
+            pointer_table(pointers(rows)), pointer_table(pointers(outs)), P,
+            int(distance) % P, n,
+            int(torch_to_dtype(x0.dtype)) if op else 0, x0.element_size(),
             op, c, 0 if x0.is_floating_point() else int(c),
-            int(aligned16(pin + pout)), stream_of(x0.device),
+            stream_of(x0.device),
         )
         check_launch(lib, rc, "fused_shift")
         fused_shift.launches.bump()

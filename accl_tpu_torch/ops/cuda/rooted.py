@@ -4,10 +4,17 @@ bcast, reduce and scatter — and the rooted gather over K3.
 The counterpart of ``accl_tpu/ops/pallas/rooted.py``.  Where the JAX
 entry points run inside ``shard_map`` on one rank's shard, these take
 every rank's operand at once (per-rank tensors, each its own allocation)
-and return one result per rank.  The kernels (``csrc/rooted.cu``) reach
-the ranks through the per-rank pointer table; ``ring_gather`` is K3's
-root-only form (``csrc/ring.cu``'s ``accl_ring_gather_root``: the root's
-output is its one output pointer, so only the root's result is written).
+and return one result per rank.  The bcast and reduce kernels
+(``csrc/rooted.cu``) reach the ranks through the per-rank pointer table
+of inputs and outputs.  The two rooted copies take one side of it alone,
+with the root's side a plain pointer: ``ring_gather`` is K3's root-only
+form (``csrc/ring.cu``'s ``accl_ring_gather_root``: the ranks' inputs in
+a table, the root's output its one output pointer, so only the root's
+result is written), and ``ring_scatter`` its mirror (the root's operand
+the one input pointer, the ranks' outputs in a table; only the root's
+operand is read).  Both copy on the streaming tile core
+(``csrc/common.cuh``) and decide per rank whether its block and output
+are 16-byte aligned, so a misaligned rank takes the scalar path alone.
 
 The relays fold ELEMENTWISE: no element's value depends on the block or
 segment it lies in, so neither ``num_segments`` nor the TPU's lane
@@ -51,7 +58,7 @@ from .ring import _lib as ring_lib
 PROTOTYPES = {"rooted": {
     "accl_ring_bcast": (PTR, PTR, INT, INT, LL, INT, INT, PTR),
     "accl_ring_reduce": (PTR, PTR, INT, INT, LL, INT, INT, INT, PTR),
-    "accl_ring_scatter": (PTR, PTR, INT, INT, LL, INT, INT, PTR),
+    "accl_ring_scatter": (PTR, PTR, INT, LL, INT, PTR),
 }}
 
 
@@ -266,12 +273,9 @@ def ring_scatter(
             o.copy_(r)
     elif n:
         lib = _lib()
-        esize = src.element_size()
-        pin, pout = pointers(flat), pointers(outs)
         rc = lib.accl_ring_scatter(
-            pointer_table(pin), pointer_table(pout), P, root, n, esize,
-            int(aligned16([pin[root]] + pout) and (n * esize) % 16 == 0),
-            stream_of(src.device),
+            src.data_ptr(), pointer_table(pointers(outs)), P, n,
+            src.element_size(), stream_of(src.device),
         )
         check_launch(lib, rc, "ring_scatter")
         ring_scatter.launches.bump()

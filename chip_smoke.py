@@ -18,7 +18,8 @@ Phases (any failure exits non-zero):
    wgmmas (C7513, C7512), or if ``cuobjdump -sass`` finds no HGMMA in
    ``attention``, ``ring_attention`` or ``attention_bwd``; then report the
    streaming tile core's kernels (K3's allgather and root-only gather,
-   K4's combine: ptxas's registers, spill bytes and stack frame) and fail
+   K4's combine, row 11's scatter, row 13's put: ptxas's registers, spill
+   bytes and stack frame) and fail
    if one spills or keeps a stack frame (the pointer tables are indexed
    in place, ``__grid_constant__``);
 2. hold each kernel against its plain PyTorch version on the card, at the
@@ -35,7 +36,8 @@ Phases (any failure exits non-zero):
    the facade's root-only ``out`` table) run at P in {2, 4, 8} x root in
    {0, P-1} x f32/bf16/f16/i32, SUM and MAX with NaNs, 16M per rank, plus
    a ragged 1,000,003 and views misaligned by one element (the scalar
-   path).  K4 (``combine``) runs f32/bf16/f16/i32, SUM and MAX with NaNs,
+   path), the scatter also into outputs of which every other one is
+   misaligned (each row decides its own alignment).  K4 (``combine``) runs f32/bf16/f16/i32, SUM and MAX with NaNs,
    in place and not, at 64M elements, and every operand dtype (f16, f32,
    f64, i32, i64, bf16) into every ``out_dtype`` at n = 1, 255, 257 and
    1,000,003, aligned and misaligned by one element, SUM and MAX, in
@@ -66,8 +68,10 @@ Phases (any failure exits non-zero):
    and seed.  Row 13 (``fused_shift``, the
    fused compute-and-put) over float32 / bfloat16 / float16 / int32,
    counts 1, 700, 16Mi + 3 and 16Mi per rank, distances 1, -1, 3 and 5
-   at P = 4 and P = 1, identity / + 1.0 / * 2.0 with +-0, +-inf and NaN
-   among the float operands, and a misaligned view (identity bit for
+   at P = 4 and P = 1, identity / + 1.0 / * 2.0, and + 0.1 / * 1.3 on the
+   float operands (the constant rounded to a 16-bit operand as JAX
+   rounds it), with +-0, +-inf and NaN among the float operands, and a
+   misaligned view (identity bit for
    bit, the computed forms exactly, NaN where NaN); row 19's copy
    against ``clone``, and on a side stream inside its context (the
    wrappers' ``stream_of`` is PyTorch's current stream).  Row 12 (``alltoall``) bit for bit over P in
@@ -165,8 +169,8 @@ Phases (any failure exits non-zero):
       twice, and no other kernel;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (K3's
-   allgather and root-only gather and K4 also by device time alone,
-   their library calls too; the sequencer on 8
+   allgather and root-only gather, K4, row 11 and row 13 also by device
+   time alone, their library calls too; the sequencer on 8
    allreduces of 1M float32 per rank, with 8 x 64K and the facade's mix at
    4 MiB per rank as extra keys of its entry; flash attention at run A's
    (8, 16, 128, 128) bf16 causal, with run B's T = 1024 as extra keys,
@@ -253,7 +257,8 @@ ROOTED_REGISTERS = ("reduce_algorithm", "bcast_algorithm",
 SLICE1_KERNELS = ("ring_allreduce", "ring_reduce_scatter", "ring_allgather",
                   "combine")
 # the kernels on the streaming tile core (common.cuh), by KERNELS name
-TILE_KERNELS = ("ring_allgather", "ring_gather", "combine")
+TILE_KERNELS = ("ring_allgather", "ring_gather", "combine", "ring_scatter",
+                "fused_shift")
 
 
 def fail(msg: str) -> None:
@@ -433,8 +438,12 @@ def time_rooted(xs, rand) -> dict:
         ),
         "ring_scatter": dict(
             ms=time_ms(lambda: kc.ring_scatter(sc_in, 0, out=sc_out)),
+            device_ms=device_ms(lambda: kc.ring_scatter(sc_in, 0,
+                                                        out=sc_out)),
             plain_ms=time_ms(lambda: kc.ring_scatter_plain(sc_in, 0)),
             library_ms=time_ms(lambda: copies(sc_out, big.chunk(P))),
+            library_device_ms=device_ms(lambda: copies(sc_out,
+                                                       big.chunk(P))),
             bytes=2 * P * n * f4, ops=0,
         ),
         "ring_gather": dict(
@@ -450,7 +459,8 @@ def time_rooted(xs, rand) -> dict:
 
 def check_rooted_kernels(rand, err) -> None:
     """Rows 9-11 and K3's root-only gather against their plain versions
-    (phase 2)."""
+    (phase 2); the scatter also into outputs of which every other one is
+    misaligned."""
     import torch
 
     from accl_tpu_torch.ops import cuda as kc
@@ -497,8 +507,14 @@ def check_rooted_kernels(rand, err) -> None:
         kc.ring_gather(xs, root, out=out)
         held("ring_gather", out, want, [root])
         big = [operand(P * n)] * P  # only the root's operand is read
-        held("ring_scatter", kc.ring_scatter(big, root),
-             kc.ring_scatter_plain(big, root), range(P))
+        want = kc.ring_scatter_plain(big, root)
+        held("ring_scatter", kc.ring_scatter(big, root), want, range(P))
+        # every other rank's output a view one element in: each row
+        # decides its own alignment
+        out = [torch.full((n + q % 2,), 7, dtype=dtype,
+                          device=xs[0].device)[q % 2:] for q in range(P)]
+        kc.ring_scatter(big, root, out=out)
+        held("ring_scatter", out, want, range(P))
         del xs, ys, big, want, out
         torch.cuda.synchronize()
 
@@ -1764,7 +1780,9 @@ def tile_ptxas(kc) -> dict:
 
     mangled = {"ring_allgather": ("ring", "21ring_allgather_kernel"),
                "ring_gather": ("ring", "23ring_gather_root_kernel"),
-               "combine": ("combine", "14combine_kernel")}
+               "combine": ("combine", "14combine_kernel"),
+               "ring_scatter": ("rooted", "19ring_scatter_kernel"),
+               "fused_shift": ("put", "16fused_put_kernel")}
     out = {}
     for name, (lib, tag) in mangled.items():
         found, entry = [], None
@@ -2977,8 +2995,10 @@ def check_put(kc, err, dev) -> None:
     """Phase 2 for rows 13 and 19: ``fused_shift`` against
     ``fused_shift_plain`` over float32 / bfloat16 / float16 / int32, counts
     1, 700, 16Mi + 3 (rows past the first misaligned: the scalar path)
-    and 16Mi per rank, ``PUT_SHIFTS``, identity / + 1.0 / * 2.0 (the float
-    operands carry +-0, +-inf and NaN), plus a misaligned view; identity
+    and 16Mi per rank, ``PUT_SHIFTS``, identity / + 1.0 / * 2.0, and on
+    the float operands + 0.1 / * 1.3 (constants a 16-bit operand cannot
+    hold: the wrapper rounds them as JAX does; the float operands carry
+    +-0, +-inf and NaN), plus a misaligned view; identity
     bit for bit, the computed forms bit for bit but for NaN payloads
     (``compare_bits_nan``: a lost sign of zero shows); any other callable
     (its own PyTorch pass, counted in ``fused_shift.compute_passes``, then
@@ -2991,7 +3011,9 @@ def check_put(kc, err, dev) -> None:
     sv = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
                        float("nan"), -float("nan")], device=dev)
     computes = (None, kc.Add(1.0), kc.Mul(2.0))
+    rounded = (kc.Add(0.1), kc.Mul(1.3))
     for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.int32):
+        forms = computes if dtype == torch.int32 else computes + rounded
         for n in PUT_COUNTS:
             if dtype == torch.int32:
                 x = torch.randint(-2**31, 2**31 - 1, (P_MAIN, n),
@@ -3003,7 +3025,7 @@ def check_put(kc, err, dev) -> None:
                 x = x.to(dtype)
             for P, d in PUT_SHIFTS:
                 xs = list(x[:P].unbind(0))
-                for comp in computes:
+                for comp in forms:
                     tag = f"fused_shift {dtype} n={n} P={P} d={d} {comp!r}"
                     got = kc.fused_shift(xs, d, comp)
                     want = kc.fused_shift_plain(xs, d, comp)
@@ -3016,7 +3038,7 @@ def check_put(kc, err, dev) -> None:
             sync(dev)
     x = torch.randn(P_MAIN, 1_000_004, generator=gen, device=dev)
     views = [row[1:] for row in x.unbind(0)]
-    for comp in computes:
+    for comp in computes + rounded:
         got = kc.fused_shift(views, 3, comp)
         want = kc.fused_shift_plain(views, 3, comp)
         for r in range(P_MAIN):
@@ -3242,7 +3264,7 @@ def time_put(kc, dev) -> dict:
     """Phase 4 for rows 13 and 19: row 13 on 4 ranks x 64 MiB of float32
     with ``+ 1.0`` (``vadd_put_kernel``'s shape) beside 4 x
     ``torch.add(x, 1.0, out=)``; row 19 on its (8, 128) block beside
-    ``Tensor.clone``, both also by device time alone (``device_ms``: the
+    ``Tensor.clone``; each also by device time alone (``device_ms``: the
     wrapper's host path, ctypes and ``empty_like``, hidden)."""
     import torch
 
@@ -3261,8 +3283,11 @@ def time_put(kc, dev) -> dict:
     out = {
         "fused_shift": dict(
             ms=time_ms(lambda: kc.fused_shift(xs, 1, add, out=outs)),
+            device_ms=device_ms(lambda: kc.fused_shift(xs, 1, add,
+                                                       out=outs)),
             plain_ms=time_ms(lambda: kc.fused_shift_plain(xs, 1, add)),
             library_ms=time_ms(library),
+            library_device_ms=device_ms(library),
             bytes=2 * P_MAIN * N_RANK * 4, ops=P_MAIN * N_RANK),
         "probe_copy": dict(
             ms=time_ms(lambda: kc.probe_copy(block), iters=1000),

@@ -1,8 +1,8 @@
-// Access-pattern variants of the streaming tile core's three byte-bound
+// Access-pattern variants of the streaming tile core's byte-bound
 // kernels (K3's root-only gather and all-rank allgather, K4's float32
-// combine), timed beside the port's kernels by scripts/tile_variants.py.
-// None of them is on a path of the port: they record what the tile core
-// was chosen over.
+// combine, row 11's scatter, row 13's float32 put with + c), timed beside
+// the port's kernels by scripts/tile_variants.py.  None of them is on a
+// path of the port: they record what the tile core was chosen over.
 //
 //  * parent: the port's first design, one 16-byte access a thread an
 //    iteration in a grid-stride loop over at most 132 x 8 blocks;
@@ -20,9 +20,9 @@
 
 namespace {
 
-struct RankIn {
-  const void* in[accl::kMaxRanks];
-};
+using accl::RankIn;
+using accl::RankOut;
+using accl::RankPtrs;
 
 __device__ __forceinline__ uint32_t smem(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -163,11 +163,6 @@ __global__ void combine_blockstride(const float4* a, const float4* b,
   }
 }
 
-struct RankPtrs {
-  const void* in[accl::kMaxRanks];
-  void* out[accl::kMaxRanks];
-};
-
 __global__ void allgather_parent(const __grid_constant__ RankPtrs t, int P,
                                  long long nvec) {
   const uint4* src = static_cast<const uint4*>(t.in[blockIdx.y]);
@@ -195,6 +190,67 @@ __global__ void allgather_tile(const __grid_constant__ RankPtrs t, int P,
 #pragma unroll
     for (int u = 0; u < U; ++u) dst[(w * U + u) * 32 + lane] = v[u];
   }
+}
+
+// row 11: block q of the root's operand into out[q]
+__global__ void scatter_parent(const uint4* src,
+                               const __grid_constant__ RankOut t,
+                               long long nvec) {
+  const uint4* from = src + blockIdx.y * nvec;
+  uint4* dst = static_cast<uint4*>(t.out[blockIdx.y]);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < nvec; i += stride)
+    dst[i] = from[i];
+}
+
+template <int U>
+__global__ void scatter_tile(const uint4* src,
+                             const __grid_constant__ RankOut t,
+                             long long nvec) {
+  const uint4* from = src + blockIdx.y * nvec;
+  uint4* dst = static_cast<uint4*>(t.out[blockIdx.y]);
+  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if ((w + 1) * 32 * U > nvec) return;
+  uint4 v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) v[u] = from[(w * U + u) * 32 + lane];
+#pragma unroll
+  for (int u = 0; u < U; ++u) dst[(w * U + u) * 32 + lane] = v[u];
+}
+
+// row 13: out[(r + distance) % P] = in[r] + c, float32
+__device__ __forceinline__ float4 addc(float4 a, float c) {
+  return make_float4(__fadd_rn(a.x, c), __fadd_rn(a.y, c), __fadd_rn(a.z, c),
+                     __fadd_rn(a.w, c));
+}
+
+__global__ void put_parent(RankPtrs t, int P, int distance, long long nvec,
+                           float c) {
+  const int r = blockIdx.y;
+  const float4* in = static_cast<const float4*>(t.in[r]);
+  float4* out = static_cast<float4*>(t.out[(r + distance) % P]);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < nvec; i += stride)
+    out[i] = addc(in[i], c);
+}
+
+template <int U>
+__global__ void put_tile(const __grid_constant__ RankPtrs t, int P,
+                         int distance, long long nvec, float c) {
+  const int r = blockIdx.y;
+  const float4* in = static_cast<const float4*>(t.in[r]);
+  float4* out = static_cast<float4*>(t.out[(r + distance) % P]);
+  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if ((w + 1) * 32 * U > nvec) return;
+  float4 v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) v[u] = in[(w * U + u) * 32 + lane];
+#pragma unroll
+  for (int u = 0; u < U; ++u) out[(w * U + u) * 32 + lane] = addc(v[u], c);
 }
 
 // one tile a warp, 256 threads a block
@@ -306,6 +362,54 @@ extern "C" int tv_allgather(const void* const* in, void* const* out, int P,
     case 1: allgather_tile<1><<<dim3(tile_grid(nvec, 1), P), 256, 0, s>>>(t, P, nvec); break;
     case 2: allgather_tile<2><<<dim3(tile_grid(nvec, 2), P), 256, 0, s>>>(t, P, nvec); break;
     case 4: allgather_tile<4><<<dim3(tile_grid(nvec, 4), P), 256, 0, s>>>(t, P, nvec); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return done();
+}
+
+extern "C" int tv_scatter(const void* src, void* const* out, int P,
+                          long long nbytes, int variant, void* stream) {
+  RankOut t = {};
+  for (int i = 0; i < P; ++i) t.out[i] = out[i];
+  const long long nvec = nbytes / 16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint4* x = static_cast<const uint4*>(src);
+  switch (variant) {
+    case 0:  // the parent's grid: 132 x 8 blocks shared by the P rows
+      scatter_parent<<<dim3((accl::grid_for(nvec, 256) + P - 1) / P, P), 256,
+                       0, s>>>(x, t, nvec);
+      break;
+    case 1: scatter_tile<1><<<dim3(tile_grid(nvec, 1), P), 256, 0, s>>>(x, t, nvec); break;
+    case 2: scatter_tile<2><<<dim3(tile_grid(nvec, 2), P), 256, 0, s>>>(x, t, nvec); break;
+    case 4: scatter_tile<4><<<dim3(tile_grid(nvec, 4), P), 256, 0, s>>>(x, t, nvec); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return done();
+}
+
+// n float32 elements a rank, a multiple of 4 x 32 x 4
+extern "C" int tv_put(const void* const* in, void* const* out, int P,
+                      int distance, long long n, float c, int variant,
+                      void* stream) {
+  RankPtrs t = {};
+  for (int i = 0; i < P; ++i) {
+    t.in[i] = in[i];
+    t.out[i] = out[i];
+  }
+  const long long nvec = n / 4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 0: {  // the parent's grid: 132 x 8 blocks shared by the P rows
+      int x = accl::grid_for((nvec + 4) * P, 256) / P;
+      const long long need = (nvec + 4 + 255) / 256;
+      if (x > need) x = static_cast<int>(need);
+      if (x < 1) x = 1;
+      put_parent<<<dim3(x, P), 256, 0, s>>>(t, P, distance, nvec, c);
+      break;
+    }
+    case 1: put_tile<1><<<dim3(tile_grid(nvec, 1), P), 256, 0, s>>>(t, P, distance, nvec, c); break;
+    case 2: put_tile<2><<<dim3(tile_grid(nvec, 2), P), 256, 0, s>>>(t, P, distance, nvec, c); break;
+    case 4: put_tile<4><<<dim3(tile_grid(nvec, 4), P), 256, 0, s>>>(t, P, distance, nvec, c); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return done();

@@ -5,13 +5,15 @@ over, on one GPU.
 
 At the main path's shapes (``chip_smoke.py`` phase 4): K3's root-only
 gather of 4 x 16 Mi float32 into one 256 MiB output, K3's all-rank
-allgather of 4 x 4 Mi into 4 x 16 Mi, and K4's combine of 64 Mi float32.
-For each: the port's kernel (through its wrapper), the library call
-``chip_smoke.py`` sets beside it, and the variants of
-``scripts/tile_variants.cu`` (the parent tree's grid-stride pattern, one
-tile a warp at U = 1, 2, 4 and 8 chunks, PyTorch's elementwise shape for
-the combine, and Hopper's 1-D bulk copy through shared memory for the
-gather at four stage geometries).  Every variant's result is held
+allgather of 4 x 4 Mi into 4 x 16 Mi, K4's combine of 64 Mi float32, row
+11's scatter of a 4 x 16 Mi float32 operand into 4 outputs and row 13's
+put of 4 x 16 Mi float32 with + 1.0.  For each: the port's kernel
+(through its wrapper), the library call ``chip_smoke.py`` sets beside
+it, and the variants of ``scripts/tile_variants.cu`` (the grid-stride
+pattern each kernel had before the tile core, one tile a warp at U = 1,
+2, 4 (and 8) chunks, PyTorch's elementwise shape for the combine, and
+Hopper's 1-D bulk copy through shared memory for the gather at four
+stage geometries).  Every variant's result is held
 against the library call's first; then each is timed by device time
 alone (``chip_smoke.device_ms``, 20 launches) in three rounds, the order
 reversed each round.  Prints one line a variant (the median, its share
@@ -70,6 +72,9 @@ def main() -> int:
     lib.tv_gather_bulk.argtypes = (PTR, PTR, INT, LL, INT, INT, INT, PTR)
     lib.tv_combine.argtypes = (PTR, PTR, PTR, LL, INT, PTR)
     lib.tv_allgather.argtypes = (PTR, PTR, INT, LL, INT, PTR)
+    lib.tv_scatter.argtypes = (PTR, PTR, INT, LL, INT, PTR)
+    lib.tv_put.argtypes = (PTR, PTR, INT, INT, LL, ctypes.c_float, INT,
+                           PTR)
     lib.accl_error_string.restype = ctypes.c_char_p
 
     def run(rc):
@@ -136,11 +141,42 @@ def main() -> int:
         combine[f"PyTorch's shape, U={u}"] = (lambda u=u: run(lib.tv_combine(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), m, 100 + u, stream())))
 
+    big = torch.randn(P * n, generator=gen, device=dev)
+    sc_out = [torch.empty(n, device=dev) for _ in range(P)]
+    sct = table(sc_out)
+    scatter = {
+        "kernel": lambda: kc.ring_scatter([big] * P, 0, out=sc_out),
+        "4 x copy_": lambda: [o.copy_(s) for o, s in
+                              zip(sc_out, big.chunk(P))],
+        "parent": lambda: run(lib.tv_scatter(big.data_ptr(), sct, P, 4 * n,
+                                             0, stream())),
+    }
+    for u in (1, 2, 4):
+        scatter[f"tile U={u}"] = (lambda u=u: run(lib.tv_scatter(
+            big.data_ptr(), sct, P, 4 * n, u, stream())))
+
+    put_out = [torch.empty(n, device=dev) for _ in range(P)]
+    pit, pot = table(xs), table(put_out)
+    add = kc.Add(1.0)
+    put = {
+        "kernel": lambda: kc.fused_shift(xs, 1, add, out=put_out),
+        "4 x torch.add(out=)": lambda: [
+            torch.add(x, 1.0, out=put_out[(r + 1) % P])
+            for r, x in enumerate(xs)],
+        "parent": lambda: run(lib.tv_put(pit, pot, P, 1, n, 1.0, 0,
+                                         stream())),
+    }
+    for u in (1, 2, 4):
+        put[f"tile U={u}"] = (lambda u=u: run(lib.tv_put(
+            pit, pot, P, 1, n, 1.0, u, stream())))
+
     f4 = 4
     groups = {
         "ring_gather": (gather, [gat], 2 * P * n * f4),
         "ring_allgather": (allgather, outs, (P + P * P) * (n // P) * f4),
         "combine": (combine, [c], 3 * m * f4),
+        "ring_scatter": (scatter, sc_out, 2 * P * n * f4),
+        "fused_shift": (put, put_out, 2 * P * n * f4),
     }
     for name, (variants, results, _) in groups.items():
         fns = list(variants.values())

@@ -5,7 +5,9 @@ runs unedited on the port's groups (``cuda_group(n, device="cpu")`` in
 place of the ``group2`` / ``group4`` / ``gang4`` fixtures).  Row 13's
 plain version (``ops.cuda.put.fused_shift_plain``) is held bit for bit
 against JAX's ``fused_shift``, run by the Pallas TPU interpreter on the
-4-device CPU mesh as ``tests/test_pallas.py`` runs it; the three
+4-device CPU mesh as ``tests/test_pallas.py`` runs it (16-bit operands
+with constants they cannot hold, rounded as JAX rounds a weak-typed
+scalar, and lengths around one tile of the card's kernel too); the three
 ``vadd_put`` forms, the compressed sends (every cast lane) and the
 timeout contexts against the JAX gang (``xla_group``) on the same
 seeded numpy data, exactly; so are a facade ``copy`` into a buffer of
@@ -42,7 +44,7 @@ from accl_tpu.ops import pallas as pk
 from helpers import run_parallel
 
 import accl_tpu_torch as at
-from accl_tpu_torch import compat
+from accl_tpu_torch import compat, interop
 from accl_tpu_torch.backends.cuda.engine import Payload, p2p_device_deliver
 from accl_tpu_torch.examples import vadd_put as tvadd
 from accl_tpu_torch.ops import cuda as kc
@@ -167,6 +169,56 @@ def test_fused_shift_plain_equals_pallas(form, distance):
                                   want.view(np.uint32))
     got = kc.fused_shift(list(torch.from_numpy(data)), distance, port)
     np.testing.assert_array_equal(torch.stack(got).numpy(), want)
+
+
+def _bits16(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+#: constants a 16-bit operand cannot hold: JAX converts the weak-typed
+#: Python float to the operand's dtype through float32 before it computes
+#: (1 + 2**-8 + 2**-30 is 1 + 2**-8 in float32, then 1.0 in bfloat16)
+CONSTANTS_16 = [("mul", 1.3), ("add", 0.1), ("mul", 1 + 2**-8 + 2**-30)]
+
+
+@interpreted
+@pytest.mark.parametrize("form,c", CONSTANTS_16)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_fused_shift_16bit_constant_equals_pallas(dtype, form, c):
+    """``v * c`` and ``v + c`` on 16-bit operands over n = 700 on 4 ranks,
+    bit for bit: the constant rounds to the operand's dtype as JAX's
+    weak-typed scalar does."""
+    data = np.random.default_rng(7).normal(size=(4, 700)).astype(
+        jnp.dtype(dtype))
+    jfn = (lambda v: v * c) if form == "mul" else (lambda v: v + c)
+    port = kc.Mul(c) if form == "mul" else kc.Add(c)
+    want = _jax_fused_shift(data, 1, jfn).view(np.uint16)
+    xs = interop.stacked_from_numpy(data, "cpu")
+    np.testing.assert_array_equal(
+        _bits16(torch.stack(kc.fused_shift(xs, 1, port))), want)
+    np.testing.assert_array_equal(
+        _bits16(kc.fused_shift_plain(torch.stack(xs), 1, port)), want)
+
+
+@interpreted
+@pytest.mark.parametrize("n", [1, 255, 257])
+@pytest.mark.parametrize("dtype", ["int32", "bfloat16"])
+def test_fused_shift_odd_lengths_equal_pallas(n, dtype):
+    """Lengths shorter than one tile of the card's kernel and past it by
+    one element (its scalar path): int32 ``v * 3`` wrapping, bfloat16
+    ``v * 1.3``, distance -1."""
+    rng = np.random.default_rng(n)
+    if dtype == "int32":
+        data = rng.integers(-2**31, 2**31, size=(4, n)).astype(np.int32)
+        jfn, port = (lambda v: v * 3), kc.Mul(3)
+    else:
+        data = rng.standard_normal((4, n)).astype(jnp.bfloat16)
+        jfn, port = (lambda v: v * 1.3), kc.Mul(1.3)
+    want = _jax_fused_shift(data, -1, jfn)
+    got = kc.fused_shift(interop.stacked_from_numpy(data, "cpu"), -1, port)
+    np.testing.assert_array_equal(interop.to_numpy(torch.stack(got)),
+                                  want.astype(np.float32)
+                                  if dtype == "bfloat16" else want)
 
 
 def test_fused_shift_forms_and_refusals():

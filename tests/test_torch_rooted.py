@@ -178,6 +178,26 @@ def test_ring_gather_root_only_table_equals_pallas(P, root, S):
 
 
 @interpreted
+@pytest.mark.parametrize("n", [1, 255, 257])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_scatter_odd_blocks_equal_pallas(n, dtype):
+    """Per-rank blocks shorter than one tile of the card's kernel and past
+    it by one element (its scalar path), written into an ``out`` table of
+    views at an element offset (every row misaligned on the card)."""
+    P, root = 4, 2
+    data = _data(70 + n, (P, P * n), "float32").astype(jnp.dtype(dtype))
+    want = _jax_ring(lambda x: pk.ring_scatter(x, "x", root, 1), data)
+    base = torch.full((P, n + 1), 7.0, dtype=getattr(torch, dtype))
+    out = [row[1:] for row in base.unbind(0)]
+    got = kc.ring_scatter(_ranks(data), root, out=out)
+    for r in range(P):
+        assert got[r].data_ptr() == out[r].data_ptr()
+        np.testing.assert_array_equal(interop.to_numpy(out[r]),
+                                      want[r].astype(np.float32))
+    assert torch.equal(base[:, 0], torch.full((P,), 7.0, dtype=base.dtype))
+
+
+@interpreted
 @pytest.mark.parametrize("bad", ["root_none", "shape", "noncontiguous",
                                  "dtype"])
 def test_ring_gather_refuses_bad_root_output(bad):
