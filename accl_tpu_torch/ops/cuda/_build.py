@@ -32,6 +32,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers and spills per kernel, into the build log
+    "--split-compile=0",  # a source's kernels optimised on every core
 ]
 
 # the ctypes kinds of the C parameters: a pointer, long long, int, float

@@ -52,7 +52,7 @@ _F8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 CAST_DTYPES = (torch.float32, torch.bfloat16, torch.float16) + _F8
 SR_SOURCES = (torch.float32, torch.bfloat16)
 SR_TARGETS = (torch.bfloat16, torch.float16) + _F8
-QUANT_SOURCES = (torch.float32, torch.bfloat16)
+QUANT_SOURCES = (torch.float32, torch.bfloat16, torch.float16)
 DEQUANT_TARGETS = (torch.float32, torch.bfloat16, torch.float16)
 
 _M32 = 0xFFFFFFFF
@@ -91,7 +91,7 @@ PROTOTYPES = {"compression": {
     "accl_stochastic_cast": (PTR, PTR, PTR, INT, LL, INT, INT, INT, FLOAT,
                              INT, PTR),
     "accl_quantize_int8": (PTR, PTR, INT, LL, LL, LL, LL, PTR, PTR, INT,
-                           PTR),
+                           INT, INT, INT, PTR),
     "accl_dequantize_int8": (PTR, LL, PTR, LL, PTR, INT, LL, LL, INT, PTR),
 }}
 
@@ -292,6 +292,42 @@ def quantize_plain(x: torch.Tensor, seed: int, seg: int,
     return q[:out_len].clone(), scales
 
 
+#: row 7's segment paths (``csrc/compression.cu``)
+QP_LANES, QP_CLUSTER, QP_TWO_PASS = 0, 1, 2
+#: elements a lane of the LANES path; elements a CTA of the CLUSTER path
+#: holds at most, its threads a CTA and most CTAs a cluster
+QUANT_LANE_ELEMS = 16
+QUANT_CTA_ELEMS = 8192
+QUANT_CTA_THREADS = 256
+QUANT_MAX_CLUSTER = 8
+#: the largest segment one cluster holds; longer ones take TWO_PASS
+QUANT_CLUSTER_CAP = QUANT_MAX_CLUSTER * QUANT_CTA_ELEMS
+
+
+def quantize_geometry(seg: int, dtype: torch.dtype = torch.float32
+                      ) -> Tuple[int, int, int]:
+    """Row 7's path for segments of ``seg`` elements of ``dtype``: ``(path,
+    cluster, threads)``.  LANES (``seg`` <= 512: a half-warp of 16 lanes
+    holds a segment, a warp above 256, 16 elements a lane), CLUSTER
+    (``seg`` <= ``QUANT_CLUSTER_CAP``: a cluster of the fewest CTAs of
+    256 threads, at most 8192 elements each, holds it in shared memory)
+    or TWO_PASS (longer: one block reads the segment twice).  Every
+    element is read from HBM once but on TWO_PASS.  The same for every
+    source dtype."""
+    if dtype not in QUANT_SOURCES:
+        raise ValueError(f"quantize_int8 takes {QUANT_SOURCES}, got {dtype}")
+    if seg < 1:
+        raise ValueError(f"quantize_int8: segment {seg}")
+    if seg <= 32 * QUANT_LANE_ELEMS:
+        return QP_LANES, 1, 16 if seg <= 16 * QUANT_LANE_ELEMS else 32
+    if seg <= QUANT_CLUSTER_CAP:
+        cluster = 1
+        while cluster * QUANT_CTA_ELEMS < seg:
+            cluster *= 2
+        return QP_CLUSTER, cluster, QUANT_CTA_THREADS
+    return QP_TWO_PASS, 1, 256
+
+
 def quantize_rows(xs: Sequence[torch.Tensor], seeds, seg: int,
                   out_len: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -312,15 +348,16 @@ def quantize_rows(xs: Sequence[torch.Tensor], seeds, seg: int,
         return (torch.stack([p[0] for p in parts]),
                 torch.stack([p[1] for p in parts]))
     _check_dtype(rows[0].dtype, QUANT_SOURCES, "quantize_int8")
+    path, cluster, threads = quantize_geometry(seg, rows[0].dtype)
     dev = rows[0].device
     values = torch.empty((len(rows), out_len), dtype=torch.int8, device=dev)
     scales = torch.empty((len(rows), nseg), dtype=torch.float32, device=dev)
     lib = _lib()
     rc = lib.accl_quantize_int8(
         pointer_table(pointers(rows)), _seed_array(seeds), len(rows), n,
-        seg, nseg,
-        out_len, values.data_ptr(), scales.data_ptr(),
-        int(torch_to_dtype(rows[0].dtype)), stream_of(dev),
+        seg, nseg, out_len, values.data_ptr(), scales.data_ptr(),
+        int(torch_to_dtype(rows[0].dtype)), path, cluster, threads,
+        stream_of(dev),
     )
     check_launch(lib, rc, "quantize_int8")
     quantize_rows.launches.bump()

@@ -18,8 +18,9 @@ Phases (any failure exits non-zero):
    wgmmas (C7513, C7512), or if ``cuobjdump -sass`` finds no HGMMA in
    ``attention``, ``ring_attention`` or ``attention_bwd``; then report the
    streaming tile core's kernels (K3's allgather and root-only gather,
-   K4's combine, row 11's scatter, row 13's put: ptxas's registers, spill
-   bytes and stack frame) and fail
+   K4's combine, row 11's scatter, row 13's put) and rows 14 and 7 (the
+   sequencer, the quantize's LANES and CLUSTER paths): ptxas's
+   registers, spill bytes and stack frame, and fail
    if one spills or keeps a stack frame (the pointer tables are indexed
    in place, ``__grid_constant__``);
 2. hold each kernel against its plain PyTorch version on the card, at the
@@ -43,21 +44,25 @@ Phases (any failure exits non-zero):
    1,000,003, aligned and misaligned by one element, SUM and MAX, in
    place where the dtypes allow it.  The
    command-ring sequencer (row 14) is held against ``sequencer_plain``,
-   results and status words, over P in {2, 4, 8}, windows of depth 1, 8
-   and 64 mixing every opcode class (bcast at roots 0 and P-1, the
-   attention hop at offsets 1 and P-1, an opcode outside the enum),
-   f32/bf16/f16/i32, SUM and MAX with NaNs, bf16/f16 wire lanes, 1M
-   elements per rank, a ragged 1,000,003, misaligned views, and the
-   aliasing hazards (in-place allreduce, reduce-scatter, allgather,
-   alltoall and bcast; write after read and write after write across
-   slots).  K1 also runs its fp8 lanes and its raw int8 cast.  Rows 5-8
+   results and status words, over P in {2, 3, 4, 8, 12, 16}, windows of
+   depth 1, 8 and 64 (512 rank-slots at P = 8) mixing every opcode class
+   (bcast at roots 0 and P-1, send / recv, the attention hop at offsets 1
+   and P-1, an opcode outside the enum), f32/bf16/f16/i32 each under no
+   wire and the bf16 and f16 wire lanes, SUM and MAX with NaNs, 1M
+   elements per rank, ragged counts (1,000,003; columns past the last
+   whole tile), misaligned views (every rank, or one rank's operands and
+   results), the aliasing hazards (in-place allreduce, reduce-scatter,
+   allgather, alltoall and bcast; write after read and write after write
+   across slots: the cooperative launch) and every in-place form
+   (``inplace_window``).  K1 also runs its fp8 lanes and its raw int8 cast.  Rows 5-8
    (the compression kernels) are held BIT FOR BIT (NaN bits included,
    but for the NaN of an int8 segment's scale): the cast over every
    pair of float32 / bfloat16 / float16 / fp8 e4m3 / e5m2, the
    stochastic cast from float32 and bfloat16 to each lane, seeds 0 and
    nonzero, and row 6 proper (float32 -> bfloat16, always stochastic),
    quantize in the wire's 256-element segments and the Pallas tier's
-   tiles, seeds 0 and nonzero, and dequantize to float32 / bfloat16 /
+   tiles, seeds 0 and nonzero (and each of its three paths over 3 rows,
+   ``check_quantize_paths``), and dequantize to float32 / bfloat16 /
    float16, at n = 1, 255, 257, 1,000,003 and 32 Mi, on operands with
    NaN, infinities, signed zeros, subnormals, fp8 overflow and an
    all-zero segment; the cast also over R = 4 rows in one launch at n =
@@ -171,8 +176,9 @@ Phases (any failure exits non-zero):
    and one PyTorch library call computing the same function (K3's
    allgather and root-only gather, K4, row 11 and row 13 also by device
    time alone, their library calls too; the sequencer on 8
-   allreduces of 1M float32 per rank, with 8 x 64K and the facade's mix at
-   4 MiB per rank as extra keys of its entry; flash attention at run A's
+   allreduces of 1M float32 per rank, by device time too, beside its
+   library call's, with 8 x 64K and the facade's mix at 4 MiB per rank as
+   extra keys of its entry; flash attention at run A's
    (8, 16, 128, 128) bf16 causal, with run B's T = 1024 as extra keys,
    beside ``scaled_dot_product_attention``, bounded by the tensor cores'
    bf16 rate, and with its LSE at the training shape (8, 32, 1024, 128));
@@ -185,7 +191,8 @@ Phases (any failure exits non-zero):
    e4m3 and widening bfloat16 -> float32, with its cast kernels'
    registers and spills from ptxas; quantize and
    dequantize in the Pallas tier's tiles, the wire's 256-element
-   segments as extra keys); row 13 at 4 x 64 MiB float32 with + 1.0
+   segments as extra keys, quantize also by device time, at seeds 0 and
+   9 on the wire's segments); row 13 at 4 x 64 MiB float32 with + 1.0
    beside 4 x ``torch.add(x, 1.0, out=)``; row 19 on its block beside
    ``Tensor.clone``, both also by device time alone, and its launch path
    (``launch_path``: ``probe_copy`` and ``cast_rows`` on 4 KiB beside
@@ -713,11 +720,14 @@ def seq_counts(op: int, N: int, P: int):
     return N, 0
 
 
-def seq_window(P, dtype, ops, N, seed, wires=None, offset=0):
+def seq_window(P, dtype, ops, N, seed, wires=None, offset=0,
+               skew_rank=None):
     """A window of ``ops`` ((opcode, root, peer) per slot), every slot with
     its own operands and results, made from ``seed`` (the same seed makes
     the same window).  SUM and MAX alternate by slot; floats carry NaNs.
-    ``offset`` misaligns every operand by that many elements."""
+    ``offset`` misaligns every operand by that many elements; with
+    ``skew_rank`` only that rank's operands and results, by one element
+    (each rank decides its own alignment in the kernel)."""
     import torch
 
     from accl_tpu_torch.cmdring import (WindowShape, encode_fparam,
@@ -730,14 +740,17 @@ def seq_window(P, dtype, ops, N, seed, wires=None, offset=0):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
-    def rand(n):
+    def rand(n, off=offset):
         if dtype == torch.int32:
-            x = torch.randint(-2**31, 2**31 - 1, (n + offset,),
+            x = torch.randint(-2**31, 2**31 - 1, (n + off,),
                               generator=gen, device=dev, dtype=dtype)
         else:
-            x = torch.randn(n + offset, generator=gen, device=dev).to(dtype)
+            x = torch.randn(n + off, generator=gen, device=dev).to(dtype)
             x[::997] = float("nan")
-        return x[offset:]
+        return x[off:]
+
+    def skew(r):
+        return 1 if r == skew_rank else 0
 
     base = {Op.ALLGATHER: Operation.ALLGATHER,
             Op.REDUCE_SCATTER: Operation.REDUCE_SCATTER,
@@ -760,10 +773,10 @@ def seq_window(P, dtype, ops, N, seed, wires=None, offset=0):
             xs.append([None] * P)
             outs.append([None] * P)
         else:
-            xs.append([rand(in_w) for _ in range(P)])
-            outs.append([torch.zeros(result_width(in_w, out_w, P),
-                                     dtype=dtype, device=dev)
-                         for _ in range(P)])
+            xs.append([rand(in_w, offset + skew(r)) for r in range(P)])
+            outs.append([torch.zeros(result_width(in_w, out_w, P) + skew(r),
+                                     dtype=dtype, device=dev)[skew(r):]
+                         for r in range(P)])
         in_ws.append(in_w)
         out_ws.append(out_w)
         wl.append(wire)
@@ -813,12 +826,60 @@ def hazard_window(P, dtype, N, seed):
             ar + rs + ag + a2a + bc + c + d + e + f + x)
 
 
+def inplace_window(P, dtype, N, seed):
+    """Every result in place over its rank's operand, in the forms the
+    kernel keeps: reduce-scatter, fused apply, matmul-reduce-scatter and
+    the attention hop at their chunk 0, send / recv, the MPI in-place
+    allgather and alltoall (above 4 ranks the wrapper stages the hop's
+    operands).  Returns the window and every buffer it touches."""
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch.cmdring import (WindowShape, encode_fparam,
+                                        encode_slot)
+    from accl_tpu_torch.constants import CmdOpcode as Op
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = N // (P + 1)
+
+    def rand(m):
+        x = torch.randn(m, generator=gen, device=dev).to(dtype)
+        x[::991] = float("nan")
+        return x
+
+    fp = encode_fparam(0.375)
+    rs, ap, mm, at_, sr, ag, a2a = ([rand(m) for _ in range(P)] for m in (
+        P * n, (P + 1) * n, P * n, 2 * n, n, P * n, P * n))
+    spec = [(Op.REDUCE_SCATTER, n, P * n, n, 0, 0),
+            (Op.FUSED_APPLY, n, (P + 1) * n, n, fp, 0),
+            (Op.FUSED_MATMUL_RS, n, P * n, n, fp, 0),
+            (Op.FUSED_ATTN_HOP, n, 2 * n, n, fp, 1),
+            (Op.SEND, n, n, n, 0, P - 1),
+            (Op.ALLGATHER, n, n, P * n, 0, 0),
+            (Op.ALLTOALL, n, P * n, P * n, 0, 0)]
+    slots = [encode_slot(i, op, cnt, function=i % 2, root=1, peer=peer,
+                         fparam=f)
+             for i, (op, cnt, _, _, f, peer) in enumerate(spec)]
+    xs = [rs, ap, mm, at_, sr,
+          [g[r * n:(r + 1) * n] for r, g in enumerate(ag)], a2a]
+    outs = [[t[:n] for t in rs], [t[:n] for t in ap], [t[:n] for t in mm],
+            [t[:n] for t in at_], sr, ag, a2a]
+    shape = WindowShape(len(spec), [s_[2] for s_ in spec],
+                        [s_[3] for s_ in spec], (None,) * len(spec), dtype)
+    return (np.stack(slots), xs, outs, shape,
+            rs + ap + mm + at_ + sr + ag + a2a)
+
+
 def check_sequencer(err) -> None:
     """Phase 2 for row 14: the sequencer kernel against sequencer_plain,
-    exactly, results and status words, over P {2,4,8}, windows of depth 1,
-    8 and 64 mixing every opcode class, four dtypes, SUM and MAX with
-    NaNs, bf16/f16 wire lanes, ragged and misaligned operands and the
-    aliasing hazards."""
+    exactly, results and status words, over P {2, 3, 4, 8, 12, 16},
+    windows of depth 1, 8 and 64 (512 rank-slots) mixing every opcode
+    class, four dtypes under each wire (none, bf16, f16), SUM and MAX
+    with NaNs, ragged and misaligned operands (every rank, or one rank's
+    operands and results), the aliasing hazards (a barrier: the
+    cooperative launch) and every in-place form."""
     import torch
 
     from accl_tpu_torch.constants import CmdOpcode as Op
@@ -832,7 +893,8 @@ def check_sequencer(err) -> None:
                (Op.BCAST, 0, 0), (Op.BCAST, P - 1, 0),
                (Op.REDUCE_SCATTER, 0, 0), (Op.ALLGATHER, 0, 0),
                (Op.ALLTOALL, 0, 0), (Op.BARRIER, 0, 0), (Op.NOP, 0, 0),
-               (0x7F, 0, 0)]  # an opcode outside the enum: BAD_OP
+               (0x7F, 0, 0),  # an opcode outside the enum: BAD_OP
+               (Op.SEND, 1, P - 1), (Op.RECV, 0, 1)]
         if floats:
             ops += [(Op.FUSED_APPLY, 0, 0), (Op.FUSED_MATMUL_RS, 0, 0),
                     (Op.FUSED_ATTN_HOP, 0, 1),
@@ -874,6 +936,35 @@ def check_sequencer(err) -> None:
     for P, dtype in ((4, F32), (8, F32), (4, BF16), (2, F16)):
         cases.append((f"P={P} {dtype} hazards",
                       lambda s, P=P, d=dtype: hazard_window(P, d, SEQ_N, s)))
+    # the tile redesign's paths: P = 3 and above 8 ranks (the folds take
+    # ranks in groups of 8), every class under every wire and payload, one
+    # rank's views off 16 bytes, columns past the last whole tile, every
+    # in-place form
+    for dtype in (F32, BF16, F16, I32):
+        ops = mix(3, dtype != I32)
+        cases.append((f"P=3 {dtype} every class",
+                      lambda s, d=dtype, o=ops: seq_window(
+                          3, d, o, SEQ_N + 5, s)))
+        for wire in (BF16, F16):
+            ops = mix(4, dtype != I32)
+            cases.append((f"P=4 {dtype} wire {wire} every class",
+                          lambda s, d=dtype, o=ops, w=wire: seq_window(
+                              4, d, o, SEQ_N, s, wires=[w])))
+    for P, dtype, skew in ((4, F32, 2), (3, BF16, 0), (8, F16, 7),
+                           (2, I32, 1)):
+        cases.append((f"P={P} {dtype} rank {skew} off 16 bytes",
+                      lambda s, P=P, d=dtype, k=skew: seq_window(
+                          P, d, mix(P, d != I32), 4099, s, skew_rank=k)))
+    for P in (16, 12):
+        cases.append((f"P={P} f32 every class",
+                      lambda s, P=P: seq_window(P, F32, mix(P), 65_536 + 7,
+                                                s, wires=[None, BF16])))
+    for P, dtype, N in ((2, F32, SEQ_N // 4 + 3), (3, BF16, SEQ_N // 4 + 3),
+                        (4, F32, 5 * 65_536), (4, F32, SEQ_N // 4 + 3),
+                        (8, F16, SEQ_N // 4 + 3), (16, F32, 17 * 4096)):
+        cases.append((f"P={P} {dtype} N={N} in place",
+                      lambda s, P=P, d=dtype, N=N: inplace_window(P, d, N,
+                                                                  s)))
     for k, (tag, build) in enumerate(cases):
         got = build(SEED + k)
         want = build(SEED + k)
@@ -1156,6 +1247,8 @@ def time_sequencer(rand) -> dict:
         out[key + "device_ms"] = device_ms(lambda: kseq.sequencer(*win))
         out[key + "plain_ms"] = time_ms(lambda: kseq.sequencer_plain(*win))
         out[key + "library_ms"] = time_ms(lambda: library(win[1], win[2]))
+        out[key + "library_device_ms"] = device_ms(
+            lambda: library(win[1], win[2]))
         out[key + "bound"] = bound(nbytes, ops)
         del win
     mix_ops = [(Op.ALLREDUCE, 0, 0), (Op.ALLREDUCE, 0, 0), (Op.BCAST, 2, 0),
@@ -1773,7 +1866,8 @@ def cast_ptxas(kc) -> dict:
 
 def tile_ptxas(kc) -> dict:
     """The streaming tile core's kernels in ptxas's lines of their build
-    logs, by ``TILE_KERNELS`` name: the count of instantiations, the least
+    logs, by ``TILE_KERNELS`` name, and the sequencer's and the quantize's
+    (its LANES and CLUSTER paths): the count of instantiations, the least
     and most registers, and the most spill-store bytes and stack frame
     bytes, which must both be 0 (phase 1)."""
     import re
@@ -1782,7 +1876,12 @@ def tile_ptxas(kc) -> dict:
                "ring_gather": ("ring", "23ring_gather_root_kernel"),
                "combine": ("combine", "14combine_kernel"),
                "ring_scatter": ("rooted", "19ring_scatter_kernel"),
-               "fused_shift": ("put", "16fused_put_kernel")}
+               "fused_shift": ("put", "16fused_put_kernel"),
+               # rows 14 and 7, redesigned on the same access shape
+               "sequencer": ("cmdring", "16sequencer_kernel"),
+               "quantize_lanes": ("compression", "21quantize_lanes_kernel"),
+               "quantize_cluster": ("compression",
+                                    "23quantize_cluster_kernel")}
     out = {}
     for name, (lib, tag) in mangled.items():
         found, entry = [], None
@@ -2471,6 +2570,7 @@ def check_compression(kc, err, gen, dev) -> None:
                                 kc_.dequantize_rows(v, s, n, seg, dst)[0],
                                 kc_.dequantize_plain(pv, ps, n, seg, dst)))
         sync(dev)
+    check_quantize_paths(kc_, err, gen, dev)
     check_cast_rows(kc_, err, gen, dev)
     # the codec on the card against the numpy codec, byte for byte
     x = comp_operand(1_000_003, F32, gen, dev)
@@ -2493,6 +2593,45 @@ def check_compression(kc, err, gen, dev) -> None:
                     fail(f"int8 wire frame seed={seed} differs from the "
                          f"host codec's bytes")
     sync(dev)
+
+
+def check_quantize_paths(kc_, err, gen, dev) -> None:
+    """Phase 2 for row 7's three paths (``quantize_geometry``): segments
+    of L = 256 (a half-warp), 4096, 16,384 and 65,536 (a cluster of 1, 2
+    and 8 CTAs) and 69,632 (above a cluster: two passes), each with n not a
+    multiple of L, over R = 3 rows in one launch (rows of out_len int8
+    off 16 bytes), an input view off 16 bytes, seeds 0 and 9, from
+    float32, bfloat16 and float16, with NaN, infinities and a segment of
+    zeros: values and scales bit for bit (NaN where NaN for a scale)
+    against ``quantize_plain``."""
+    import torch
+
+    F32 = torch.float32
+    # more segments than clusters fit at 4096, 16384 and 65,536: the
+    # persistent clusters' second register set is used
+    for L, k in ((256, 3), (4096, 2001), (16_384, 301), (65_536, 101),
+                 (69_632, 2)):
+        path = kc_.quantize_geometry(L)
+        n = k * L + 1001
+        for src in kc_.QUANT_SOURCES:
+            x = comp_operand(n + 1, F32, gen, dev)
+            x[L:2 * L] = 0.0  # a whole segment of zeros
+            x = x.to(src)
+            rows = [x[1:], x[:n], comp_operand(n, src, gen, dev,
+                                               specials=False)]
+            for seed in (0, 9):
+                if src != F32 and seed:
+                    continue
+                tag = f"quantize L={L} {path} {src} n={n} seed={seed}"
+                out_len = n + 3  # rows 1 and 2 off 16 bytes
+                v, s = kc_.quantize_rows(rows, [seed, 9, 0], L, out_len)
+                for r, (row, rs) in enumerate(zip(rows, (seed, 9, 0))):
+                    pv, ps = kc_.quantize_plain(row, rs, L, out_len)
+                    compare_bits(f"{tag} row {r} values", v[r], pv)
+                    err["quantize_int8"] = max(err["quantize_int8"], compare(
+                        f"{tag} row {r} scales", s[r], ps))
+        sync(dev)
+    print("quantize: every path agrees with quantize_plain", flush=True)
 
 
 def check_cast_rows(kc_, err, gen, dev) -> None:
@@ -2772,13 +2911,20 @@ def time_compression(kc, dev) -> dict:
             library_ms=None, bytes=6 * n, ops=12 * n),
         "quantize_int8": dict(
             ms=time_ms(lambda: kcp.quantize_rows([x], [0], seg, rows * 128)),
+            device_ms=device_ms(lambda: kcp.quantize_rows([x], [0], seg,
+                                                          rows * 128)),
             plain_ms=time_ms(lambda: kcp.quantize_plain(x, 0, seg,
                                                         rows * 128)),
             library_ms=None, bytes=4 * n + rows * 128 + 4 * nblk, ops=4 * n,
+            geometry=list(kcp.quantize_geometry(seg)),
             wire_seg_ms=time_ms(lambda: kcp.quantize_rows([x], [0], 256)),
+            wire_seg_device_ms=device_ms(
+                lambda: kcp.quantize_rows([x], [0], 256)),
             wire_seg_plain_ms=time_ms(lambda: kcp.quantize_plain(x, 0, 256)),
             wire_seg_bound_ms=bound(5 * n + 4 * nseg, 4 * n)["bound_ms"],
-            wire_seg_sr_ms=time_ms(lambda: kcp.quantize_rows([x], [9], 256))),
+            wire_seg_sr_ms=time_ms(lambda: kcp.quantize_rows([x], [9], 256)),
+            wire_seg_sr_device_ms=device_ms(
+                lambda: kcp.quantize_rows([x], [9], 256))),
         "dequantize_int8": dict(
             ms=time_ms(lambda: kcp.dequantize_rows(v, s, n, seg)),
             plain_ms=time_ms(lambda: kcp.dequantize_plain(v[0], s[0], n,
@@ -3776,7 +3922,8 @@ def main() -> int:
     cast_regs = cast_ptxas(kc)
     print(f"ptxas, row 5's cast kernels: {cast_regs}", flush=True)
     tile_regs = tile_ptxas(kc)
-    print(f"ptxas, the tile core's kernels: {tile_regs}", flush=True)
+    print(f"ptxas, the tile core's kernels, the sequencer's and the "
+          f"quantize's: {tile_regs}", flush=True)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -4100,11 +4247,15 @@ def main() -> int:
         if name == "sequencer":  # the other windows of the bounds table
             kernels[-1].update({
                 "device_ms": seq["device_ms"],
+                "library_device_ms": seq["library_device_ms"],
+                "ptxas": tile_regs["sequencer"],
                 "window_64k_ms": seq["window_64k_ms"],
                 "window_64k_device_ms": seq["window_64k_device_ms"],
                 "window_64k_plain_ms": seq["window_64k_plain_ms"],
                 "window_64k_bound_ms": seq["window_64k_bound"]["bound_ms"],
                 "window_64k_library_ms": seq["window_64k_library_ms"],
+                "window_64k_library_device_ms":
+                    seq["window_64k_library_device_ms"],
                 "mix_4mib_ms": seq["mix_4mib_ms"],
                 "mix_4mib_device_ms": seq["mix_4mib_device_ms"],
                 "mix_4mib_plain_ms": seq["mix_4mib_plain_ms"],
@@ -4163,6 +4314,11 @@ def main() -> int:
                                                  "library_device_ms"))})
         if name == "cast":
             kernels[-1]["ptxas"] = cast_regs
+        if name == "quantize_int8":
+            kernels[-1].update({
+                "geometry": t["geometry"],
+                "ptxas": {k: tile_regs[k] for k in ("quantize_lanes",
+                                                    "quantize_cluster")}})
         if name == "probe_copy":  # device time alone, beside clone's
             kernels[-1].update({
                 "device_ms": t["device_ms"],
@@ -4202,7 +4358,10 @@ def main() -> int:
               f"the library call's {k['library_device_ms']:.4f} "
               f"({k['bound_ms'] / k['library_device_ms']:.3f})")
     s_ = by_name["sequencer"]
-    print(f"sequencer device_ms={s_['device_ms']:.4f}; 8 x allreduce 64K: "
+    print(f"sequencer device_ms={s_['device_ms']:.4f} "
+          f"({s_['bound_ms'] / s_['device_ms']:.3f} of the bound) against "
+          f"the library call's {s_['library_device_ms']:.4f}; "
+          f"8 x allreduce 64K: "
           f"kernel_ms={s_['window_64k_ms']:.4f} "
           f"device_ms={s_['window_64k_device_ms']:.4f} "
           f"bound_ms={s_['window_64k_bound_ms']:.4f}; facade mix at 4 MiB:"
@@ -4232,6 +4391,15 @@ def main() -> int:
           f"{c_['rows4_e4m3_library_device_ms']:.4f}); bf16->f32 32Mi "
           f"{c_['widen_device_ms']:.4f} (Tensor.to "
           f"{c_['widen_library_device_ms']:.4f})")
+    q_ = by_name["quantize_int8"]
+    print(f"quantize (row 7) f32 32Mi: Pallas tiles {q_['geometry']} "
+          f"device_ms={q_['device_ms']:.4f} "
+          f"({q_['bound_ms'] / q_['device_ms']:.3f} of the bound), "
+          f"kernel_ms={q_['ms']:.4f}; wire L=256 device_ms "
+          f"{q_['wire_seg_device_ms']:.4f} (seed 9: "
+          f"{q_['wire_seg_sr_device_ms']:.4f}; "
+          f"{q_['wire_seg_bound_ms'] / q_['wire_seg_device_ms']:.3f} of the "
+          f"bound)")
     lp = launch_path(kc)
     print(json.dumps({"launch_path": {
         "card": smi.stdout.strip().splitlines()[0], **lp}}))

@@ -14,11 +14,27 @@ pattern each kernel had before the tile core, one tile a warp at U = 1,
 2, 4 (and 8) chunks, PyTorch's elementwise shape for the combine, and
 Hopper's 1-D bulk copy through shared memory for the gather at four
 stage geometries).  Every variant's result is held
-against the library call's first; then each is timed by device time
-alone (``chip_smoke.device_ms``, 20 launches) in three rounds, the order
-reversed each round.  Prints one line a variant (the median, its share
-of the bound, every round) and, last, one JSON object with the card's
-name and power limit.
+against the library call's first.
+
+Then row 14's window of 8 allreduces of 1 Mi float32 a rank at P = 4:
+the port's sequencer (its wrapper), the library call, the parent's
+scalar grid-stride kernel, and the port's kernel at U = 1, 2 and 4
+chunks a tile (the port's: U = 4); and row 7 at 32 Mi float32, in the Pallas tier's
+segments of 65,536 (the wrapper: a cluster of 8 CTAs holding the
+segment in shared memory filled by ``cp.async.bulk``; the same with
+persistent clusters holding two segments; the parent's two-read kernel; the segment held in registers by a
+cluster of CTAs x threads x elements a thread, 8 x 512 x 16 with one
+cluster a segment and persistent clusters that load the next segment
+into a second register set first, 4 x 512 x 32 and 8 x 256 x 32
+persistent) and
+in the wire's segments of 256 (the wrapper at seeds 0 and 9, the
+parent's).  Each is held against the port's kernel (row 14, which
+``chip_smoke.py`` holds against ``sequencer_plain``) or against
+``quantize_plain`` (row 7) first, bit for bit.  Then every variant is
+timed by device time alone (``chip_smoke.device_ms``, 20 launches) in
+three rounds, the order reversed each round.  Prints one line a variant
+(the median, its share of the bound, every round) and, last, one JSON
+object with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -192,6 +208,8 @@ def main() -> int:
                 raise RuntimeError(f"{name} {label}: wrong result")
         del want
 
+    groups.update(row14_and_row7(lib, run, stream, dev, gen))
+
     report = {}
     for name, (variants, _, nbytes) in groups.items():
         bound_ms = nbytes / cs.HBM_BYTES_PER_S * 1e3
@@ -212,6 +230,142 @@ def main() -> int:
         report[name] = {"bound_ms": bound_ms, "variants": rows}
     print(json.dumps({"tile_variants": {"card": card, **report}}))
     return 0
+
+
+def row14_and_row7(lib, run, stream, dev, gen) -> dict:
+    """Row 14's and row 7's variants, each held against its reference
+    here; returns their groups (variants, results, bytes) for the timing
+    rounds."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from accl_tpu_torch.cmdring import WindowShape, encode_slot
+    from accl_tpu_torch.constants import CmdOpcode as Op
+    from accl_tpu_torch.ops.cuda import cmdring as kseq
+    from accl_tpu_torch.ops.cuda import compression as kcomp
+
+    PTR, LL, INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.tv_sequencer_parent.argtypes = (PTR, PTR, PTR, PTR, INT, INT, PTR,
+                                        PTR)
+    lib.tv_sequencer.argtypes = (PTR, PTR, INT, PTR)
+    lib.tv_quantize_parent.argtypes = (PTR, PTR, INT, LL, LL, LL, LL, PTR,
+                                       PTR, PTR)
+    lib.tv_quantize_cluster.argtypes = (PTR, PTR, INT, LL, LL, LL, LL, PTR,
+                                        PTR, INT, INT, INT, INT, PTR)
+    lib.tv_quantize_persistent.argtypes = (PTR, PTR, INT, LL, LL, LL, LL,
+                                           PTR, PTR, PTR)
+
+    P, N, S = cs.P_MAIN, cs.SEQ_N, 8
+    xs = [[torch.randn(N, generator=gen, device=dev) for _ in range(P)]
+          for _ in range(S)]
+    outs = [[torch.empty(N, device=dev) for _ in range(P)] for _ in range(S)]
+    slots = np.stack([encode_slot(i, Op.ALLREDUCE, N) for i in range(S)])
+    shape = WindowShape(S, (N,) * S, (N,) * S, (None,) * S, torch.float32)
+    win = (slots, xs, outs, shape)
+    flat_in = [t.data_ptr() for row in xs for t in row]
+    flat_out = [t.data_ptr() for row in outs for t in row]
+    desc = kseq.pack_window(kseq._words(slots), shape, P, [False] * S,
+                            flat_in, flat_out).reshape(1).view(np.int32)
+    status = torch.empty((S, 2), dtype=torch.int32, device=dev)
+    ins = (ctypes.c_void_p * (S * P))(*flat_in)
+    ous = (ctypes.c_void_p * (S * P))(*flat_out)
+    cols = (ctypes.c_longlong * S)(*([N] * S))
+    fops = (ctypes.c_int * S)(*([0] * S))
+    word = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def library():
+        for row_x, row_o in zip(xs, outs):
+            acc = torch.stack(row_x).sum(0)
+            for o in row_o:
+                o.copy_(acc)
+
+    seq = {
+        "kernel": lambda: kseq.sequencer(*win),
+        "library": library,
+        "parent": lambda: run(lib.tv_sequencer_parent(
+            ins, ous, cols, fops, S, P, word.data_ptr(), stream())),
+    }
+    for u in (1, 2, 4):  # the port's: U = 4
+        seq[f"U={u}"] = (lambda u=u: run(lib.tv_sequencer(
+            desc.ctypes.data, status.data_ptr(), u, stream())))
+    results = [o for row in outs for o in row]
+    seq["kernel"]()
+    torch.cuda.synchronize()
+    want = [r.clone() for r in results]
+    ref = [[torch.empty(N, device=dev) for _ in range(P)] for _ in range(S)]
+    kseq.sequencer_plain(slots, xs, ref, shape)
+    if not all(torch.equal(a, b) for a, b in zip(
+            want, [o for row in ref for o in row])):
+        raise RuntimeError("sequencer: the kernel differs from "
+                           "sequencer_plain")
+    for label, fn in seq.items():
+        if label == "library":  # another fold order: timed, not held
+            continue
+        for r in results:
+            r.zero_()
+        fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(r, w) for r, w in zip(results, want)):
+            raise RuntimeError(f"sequencer {label}: wrong result")
+    del want, ref
+
+    n = cs.N_COMP
+    x = torch.randn(n, generator=gen, device=dev)
+    rows, br, nblk = kcomp.tiles(n)
+    L = br * 128
+    xt = (ctypes.c_void_p * 1)(x.data_ptr())
+    seeds = (ctypes.c_uint32 * 1)(0)
+    v = torch.empty(rows * 128, dtype=torch.int8, device=dev)
+    sc = torch.empty(nblk, dtype=torch.float32, device=dev)
+    wv = torch.empty(n, dtype=torch.int8, device=dev)
+    ws = torch.empty(n // 256, dtype=torch.float32, device=dev)
+
+    def tv(fn, *extra, seg=L, nseg=nblk, out_len=rows * 128, q=v, s=sc):
+        return lambda: run(fn(xt, seeds, 1, n, seg, nseg, out_len,
+                              q.data_ptr(), s.data_ptr(), *extra, stream()))
+
+    tiles = {
+        "kernel": lambda: kcomp.quantize_rows([x], [0], L, rows * 128),
+        "parent": tv(lib.tv_quantize_parent),
+        "shared memory, persistent, 2 stages": tv(
+            lib.tv_quantize_persistent),
+        "registers 8 x 512 x 16, persistent": tv(
+            lib.tv_quantize_cluster, 8, 16, 512, 1),
+        "registers 8 x 512 x 16": tv(lib.tv_quantize_cluster, 8, 16, 512, 0),
+        "registers 4 x 512 x 32, persistent": tv(
+            lib.tv_quantize_cluster, 4, 32, 512, 1),
+        "registers 8 x 256 x 32, persistent": tv(
+            lib.tv_quantize_cluster, 8, 32, 256, 1),
+    }
+    wire = {
+        "kernel": lambda: kcomp.quantize_rows([x], [0], 256),
+        "kernel, seed 9": lambda: kcomp.quantize_rows([x], [9], 256),
+        "parent": tv(lib.tv_quantize_parent, seg=256, nseg=n // 256,
+                     out_len=n, q=wv, s=ws),
+    }
+    for label, variants, seg, q, s_, out_len in (
+            ("quantize_tiles", tiles, L, v, sc, rows * 128),
+            ("quantize_wire", wire, 256, wv, ws, n)):
+        pv, ps = kcomp.quantize_plain(x, 0, seg, out_len)
+        for name, fn in variants.items():
+            seed = 9 if "seed 9" in name else 0
+            if seed:
+                pv9, ps9 = kcomp.quantize_plain(x, 9, seg, out_len)
+            q.zero_()
+            got = fn()
+            torch.cuda.synchronize()
+            gv, gs = (got[0][0], got[1][0]) if got is not None else (q, s_)
+            wv_, ws_ = (pv9, ps9) if seed else (pv, ps)
+            if not (torch.equal(gv, wv_) and torch.equal(gs, ws_)):
+                raise RuntimeError(f"{label} {name}: differs from "
+                                   f"quantize_plain")
+    f4 = 4
+    return {
+        "sequencer": (seq, results, 2 * S * P * N * f4),
+        "quantize_tiles": (tiles, [v, sc], 5 * n + 4 * nblk),
+        "quantize_wire": (wire, [wv, ws], 5 * n + 4 * (n // 256)),
+    }
 
 
 if __name__ == "__main__":

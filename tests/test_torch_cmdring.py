@@ -386,6 +386,202 @@ def test_sequencer_wrapper_runs_plain_on_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the card's launch path on the host: the packed descriptor, the cached
+# hazard verdicts
+# ---------------------------------------------------------------------------
+
+
+def _tensors(rows, in_ws, out_ws, P):
+    xs = [interop.stacked_from_numpy(r, "cpu") for r in rows]
+    outs = [[torch.empty(kseq.result_width(in_ws[i], out_ws[i], P),
+                         dtype=xs[i][0].dtype) for _ in range(P)]
+            for i in range(len(rows))]
+    return xs, outs
+
+
+def _unpack_window(d: np.ndarray) -> dict:
+    """A descriptor's fields as Python values (the slots and rank-slots it
+    holds; pointers 0 read as None)."""
+    k, P = int(d["n_slots"]), int(d["P"])
+    per_slot = ("in_w", "out_w", "chunk", "cols", "cls", "wire", "sync",
+                "parts")
+    out = {f: [int(v) for v in d[f][:k]] for f in per_slot}
+    out["words"] = np.array(d["words"][:k])
+    out["n_slots"], out["P"], out["dtype"] = k, P, int(d["dtype"])
+    for f in ("in", "out"):
+        out[f] = [int(p) or None for p in d[f][:k * P]]
+    return out
+
+
+
+@pytest.mark.parametrize("dtype,wire", [
+    ("float32", None), ("float32", "bfloat16"), ("float32", "float16"),
+    ("int32", None),
+])
+def test_packed_descriptor_round_trips(dtype, wire):
+    """``pack_window`` keeps the window's words, widths, width classes,
+    wires, barrier flags, work geometry and pointers, in the place the
+    kernel's ``Window`` reads them, for the windows of
+    ``test_run_window_equals_jax_run_windows``; the barrier rank's results
+    (none) give its slot no work."""
+    P, n = 4, 12
+    slots, rows, (depth, in_ws, out_ws, wires) = _window(P, n, dtype, wire)
+    shape = tring.WindowShape(depth, in_ws, out_ws, wires, dtype)
+    xs, outs = _tensors(rows, in_ws, out_ws, P)
+    outs[-1][1] = None  # a rank that takes no result
+    barrier = [i for i, w in enumerate(slots) if w[1] == Op.BARRIER][0]
+    outs[barrier] = [None] * P
+    words = kseq._words(slots)
+    spans = kseq.spans_of(xs, outs, shape, P)
+    sync = [i % 3 == 1 for i in range(depth)]
+    in_ptrs = [t.data_ptr() for row in xs for t in row]
+    out_ptrs = [None if t is None else t.data_ptr()
+                for row in outs for t in row]
+    assert spans[0::2] == tuple(
+        p or 0 for i in range(depth) for p in
+        in_ptrs[i * P:(i + 1) * P] + out_ptrs[i * P:(i + 1) * P])
+    got = _unpack_window(kseq.pack_window(words, shape, P, sync,
+                                              in_ptrs, out_ptrs))
+    np.testing.assert_array_equal(got["words"], slots)
+    assert (got["n_slots"], got["P"]) == (depth, P)
+    assert got["dtype"] == int(tconst.torch_to_dtype(shape.dtype))
+    assert got["in_w"] == list(in_ws) and got["out_w"] == list(out_ws)
+    assert got["cls"] == [kseq.slot_class(a, b, P)
+                          for a, b in zip(in_ws, out_ws)]
+    assert got["wire"] == [0 if w is None else
+                           int(tconst.torch_to_dtype(w))
+                           for w in shape.wires]
+    assert got["sync"] == [int(f and i > 0) for i, f in enumerate(sync)]
+    assert got["in"] == in_ptrs
+    assert got["out"] == out_ptrs
+    split = (Op.REDUCE_SCATTER, Op.FUSED_MATMUL_RS, Op.FUSED_APPLY)
+    for i, w in enumerate(slots):  # every result apart from the operands
+        cls, chunk, cols, parts = kseq.geometry(in_ws[i], out_ws[i], P,
+                                                w[1], i != barrier, True)
+        assert (got["chunk"][i], got["cols"][i], got["parts"][i]) == (
+            chunk, cols, parts)
+        if i == barrier:
+            assert parts == 0
+        elif w[1] == Op.ALLTOALL:
+            assert (cols, parts) == (n, P * (P + 1) // 2)
+        else:
+            assert parts == (P if w[1] in split else 1)
+            assert cols == kseq.result_width(in_ws[i], out_ws[i], P) // (
+                P if cls == kseq.CLS_AG else 1)
+    # a reduce-scatter in place (rank 0's result over its operand) takes
+    # every rank's result an item
+    rs = [i for i, w in enumerate(slots) if w[1] == Op.REDUCE_SCATTER][0]
+    in_place = list(out_ptrs)
+    in_place[rs * P] = in_ptrs[rs * P]
+    assert _unpack_window(kseq.pack_window(
+        words, shape, P, sync, in_ptrs, in_place))["parts"][rs] == 1
+    # slots 3: of the window, as the second launch of a split window
+    part = _unpack_window(kseq.pack_window(words, shape, P, sync,
+                                               in_ptrs, out_ptrs, 3, 6))
+    np.testing.assert_array_equal(part["words"], slots[3:6])
+    assert part["in"] == in_ptrs[3 * P:6 * P]
+    assert part["sync"] == [0, int(sync[4]), int(sync[5])]
+
+
+def test_window_layout_equals_the_kernel_struct():
+    """``WINDOW``'s offsets and size are those ``csrc/cmdring.cu`` asserts
+    of its ``Window``."""
+    import re
+
+    from accl_tpu_torch.ops.cuda import _build
+
+    src = (_build.CSRC / "cmdring.cu").read_text()
+    asserted = dict(re.findall(
+        r"static_assert\(offsetof\(Window, (\w+)\) == (\d+)", src))
+    assert asserted and all(kseq.WINDOW.fields[f][1] == int(v)
+                            for f, v in asserted.items())
+    size = re.search(r"static_assert\(sizeof\(Window\) == (\d+)", src)
+    assert kseq.WINDOW.itemsize == int(size.group(1))
+
+
+def _hazard_case(P, n):
+    """In-place allreduce and reduce-scatter, a bcast writing what slot 0
+    reads and writes (WAR, WAW), and an allreduce whose rank-0 result lies
+    over rank 1's operand (staged)."""
+    rng = np.random.default_rng(11)
+
+    def t(m):
+        return torch.from_numpy(rng.standard_normal(m).astype(np.float32))
+
+    a = [t(P * n) for _ in range(P)]
+    b, c, f = ([t(n) for _ in range(P)] for _ in range(3))
+    slots = np.stack([
+        tring.encode_slot(0, Op.ALLREDUCE, n),
+        tring.encode_slot(1, Op.REDUCE_SCATTER, n),
+        tring.encode_slot(2, Op.BCAST, n, root=1),
+        tring.encode_slot(3, Op.ALLREDUCE, n),
+    ])
+    xs = [b, a, c, f]
+    outs = [b, [x[:n] for x in a], b[:1] + [t(n) for _ in range(P - 1)],
+            f[1:2] + [t(n) for _ in range(P - 1)]]
+    shape = tring.WindowShape(4, (n, P * n, n, n), (n, n, n, n),
+                              (None,) * 4, torch.float32)
+    return slots, xs, outs, shape
+
+
+def test_hazard_cache_equals_uncached_hazards():
+    """The cached verdict equals ``_hazards`` on fresh buffers, again on
+    the same buffers (a hit), and where a buffer is freed and another of
+    another size takes its address (a new key: here slot 3's larger
+    results reach into slot 0's operand, a write after read)."""
+    P, n = 4, 8
+    kseq._verdicts.clear()
+    slots, xs, outs, shape = _hazard_case(P, n)
+    words = kseq._words(slots)
+
+    def both(xs_, outs_, shape_):
+        spans = kseq.spans_of(xs_, outs_, shape_, P)
+        sync, stage = kseq._hazards(words, spans, shape_, P)
+        assert kseq._cached(words, spans, shape_, P)[:2] == (
+            sync, frozenset(stage))
+        return sync, stage
+
+    sync, stage = both(xs, outs, shape)
+    assert sync == [False, False, True, False] and stage == {(3, 1)}
+    assert (kseq._verdicts.hits, kseq._verdicts.misses) == (0, 1)
+    assert both(xs, outs, shape) == (sync, stage)
+    assert (kseq._verdicts.hits, kseq._verdicts.misses) == (1, 1)
+    base = torch.zeros(3 * n)  # slot 0's rank-0 operand at its end
+    xs2 = [[base[2 * n:]] + xs[0][1:]] + xs[1:3] + [
+        [torch.zeros(2 * n) for _ in range(P)]]
+    assert both(xs2, outs[:3] + [[torch.empty(n) for _ in range(P)]],
+                shape) == (sync, set())
+    # the buffer at slot 3's rank-0 result, now twice the size
+    outs2 = outs[:3] + [[base[n:]] + [torch.empty(2 * n)
+                                      for _ in range(P - 1)]]
+    shape2 = tring.WindowShape(4, (n, P * n, n, 2 * n), (n, n, n, 2 * n),
+                               (None,) * 4, torch.float32)
+    assert both(xs2, outs2, shape2) == ([False, False, True, True], set())
+    assert (kseq._verdicts.hits, kseq._verdicts.misses) == (1, 3)
+
+
+def test_cached_refusal_raises_the_same_message():
+    P, n = 4, 6
+    kseq._verdicts.clear()
+    b = [torch.zeros(n) for _ in range(P)]
+    b2 = [torch.zeros(n) for _ in range(P)]
+    raw = kseq._words(np.stack([tring.encode_slot(0, Op.ALLREDUCE, n),
+                                tring.encode_slot(1, Op.ALLREDUCE, n)]))
+    shape = tring.WindowShape(2, (n, n), (n, n), (None, None),
+                              torch.float32)
+    spans = kseq.spans_of([b, b2], [b2, [torch.zeros(n) for _ in range(P)]],
+                          shape, P)
+    with pytest.raises(ValueError) as first:
+        kseq._hazards(raw, spans, shape, P)
+    for _ in range(2):
+        with pytest.raises(ValueError) as cached:
+            kseq._cached(raw, spans, shape, P)
+        assert str(cached.value) == str(first.value)
+        assert "reads what slot" in str(cached.value)
+    assert (kseq._verdicts.hits, kseq._verdicts.misses) == (1, 1)
+
+
+# ---------------------------------------------------------------------------
 # the facade: batched windows on both gangs
 # ---------------------------------------------------------------------------
 

@@ -211,6 +211,56 @@ def test_quantize_bfloat16_operand_equals_pallas():
     np.testing.assert_array_equal(_bits(gs), _bits(ws))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+@pytest.mark.parametrize("n", [1, 255, 257])
+def test_quantize_whole_operand_segment_equals_pallas(n, dtype):
+    """Where ``block_rows`` falls back to ``total_rows`` (an operand of at
+    most 512 packed rows is one block), the segment is the whole padded
+    operand, 32 x 128 elements here: the wrapper's plain version equals
+    the interpreted kernel bit for bit, values and scales, from float32
+    and from float16 (widened exactly), and the card takes a cluster of
+    one CTA for it."""
+    rng = np.random.default_rng(1000 + n)
+    x = (rng.standard_normal(n) * 5.0).astype(_NUMPY[dtype])
+    x[n // 2] = 0.0
+    rows = pack_lanes(torch.zeros(n))[0].shape[0]
+    assert block_rows(rows) == rows == 32
+    wv, ws, wn = pk.quantize_int8(jnp.asarray(x), interpret=True)
+    gv, gs, gn = kcomp.quantize_int8(_to_torch(x))
+    assert gn == wn == n and tuple(gs.shape) == ws.shape == (1, 1)
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(_bits(gs), _bits(ws))
+    assert kcomp.quantize_geometry(rows * 128, _TORCH[dtype]) == (
+        kcomp.QP_CLUSTER, 1, 256)
+
+
+def test_quantize_geometry_table():
+    """Row 7's choice of path is a pure function of (L, dtype) and this is
+    its table: LANES up to 512 (a half-warp a segment up to 256),
+    CLUSTER up to 8 CTAs x 8192 elements (the fewest CTAs of 256
+    threads), TWO_PASS above, whatever the source dtype.  The Pallas tier's
+    segments (block_rows x 128) always fit one cluster."""
+    L_, C, T = kcomp.QP_LANES, kcomp.QP_CLUSTER, kcomp.QP_TWO_PASS
+    table = {
+        1: (L_, 1, 16), 100: (L_, 1, 16), 256: (L_, 1, 16),
+        257: (L_, 1, 32), 512: (L_, 1, 32), 513: (C, 1, 256),
+        4096: (C, 1, 256), 8192: (C, 1, 256), 8193: (C, 2, 256),
+        32768: (C, 4, 256), 49152: (C, 8, 256), 65536: (C, 8, 256),
+        65537: (T, 1, 256), 1 << 22: (T, 1, 256),
+    }
+    assert kcomp.QUANT_CLUSTER_CAP == 65536
+    for dtype in kcomp.QUANT_SOURCES:
+        assert {L: kcomp.quantize_geometry(L, dtype) for L in table} == table
+    for path, cluster, threads in table.values():
+        assert threads % 16 == 0 and cluster in (1, 2, 4, 8)
+    for rows in (32, 64, 512, 544, 32 * 17 * 31, 1 << 17, 131072 + 32):
+        seg = block_rows(rows) * 128
+        assert kcomp.quantize_geometry(seg)[0] == C, rows
+    for bad in ((0, torch.float32), (256, torch.int32)):
+        with pytest.raises(ValueError):
+            kcomp.quantize_geometry(*bad)
+
+
 def test_pack_lanes_equals_jax():
     from accl_tpu.ops.pallas._common import pack_lanes as jpack
 
