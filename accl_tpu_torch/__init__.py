@@ -8,7 +8,7 @@ share the current CUDA device, ``cuda_group(4, device="cpu")`` runs the
 same path on the CPU with each kernel's plain PyTorch version.
 """
 
-from .buffer import DeviceBuffer, DummyBuffer  # noqa: F401
+from .buffer import DeviceBuffer, DummyBuffer, HostBuffer  # noqa: F401
 from .constants import (  # noqa: F401
     ACCLError,
     AllreduceAlgorithm,

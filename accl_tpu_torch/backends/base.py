@@ -1,7 +1,8 @@
 """Backend interface: what the facade needs from a collective engine.
 The port's copy of ``accl_tpu/backends/base.py`` (a subset of
-``CallOptions``: no host flags or plans), with the device stream ports
-(:class:`StreamPortMixin`)."""
+``CallOptions``: no tuning overlay or trace fields), with the device
+interaction counter (:class:`InteractionCounter`) and the device stream
+ports (:class:`StreamPortMixin`)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from ..buffer import BaseBuffer
 from ..communicator import Communicator
 from ..constants import (
     CompressionFlags,
+    HostFlags,
     Operation,
     ReduceFunction,
     StreamFlags,
@@ -40,6 +42,7 @@ class CallOptions:
     arithcfg: Optional[ArithConfig] = None
     compression: CompressionFlags = CompressionFlags.NO_COMPRESSION
     stream: StreamFlags = StreamFlags.NO_STREAM
+    host: HostFlags = HostFlags.NO_HOST  # which operands are host-only
     op0: Optional[BaseBuffer] = None
     op1: Optional[BaseBuffer] = None
     res: Optional[BaseBuffer] = None
@@ -48,10 +51,39 @@ class CallOptions:
     # and its scalar (alpha / lr / scale)
     fuse: int = 0
     fuse_param: float = 0.0
+    # the facade's cached plan (accl_tpu_torch.plans): the gang parks its
+    # prepared state in plan.engine
+    plan: Optional[object] = None
+    # the per-call stochastic-rounding seed of a compressed collective
+    # (the host-staged path mixes each rank in; the device path rounds
+    # deterministically)
+    wire_seed: int = 0
     # Operation.CONFIG only:
     cfg_function: int = 0
     cfg_value: float = 0.0
     cfg_key: int = 0  # tuning register selector for SET_TUNING
+
+
+class InteractionCounter:
+    """Counts DEVICE INTERACTIONS: the dispatches and host<->device copies
+    an engine issues on the data path (the JAX package's counter).  A
+    warm gang collective is one; a flushed batch is one, on the command
+    ring or as a fused batch; buffer creation is not counted.  Rank
+    threads (and waiters running a deferred placement) bump it
+    concurrently, so the increment is locked."""
+
+    __slots__ = ("count", "_lock")
+
+    def __init__(self):
+        self.count = 0
+        self._lock = threading.Lock()
+
+    def bump(self, n: int = 1) -> None:
+        with self._lock:
+            self.count += n
+
+    def read(self) -> int:
+        return self.count
 
 
 class BaseEngine:
@@ -66,8 +98,14 @@ class BaseEngine:
         requests were made by the facade), preserving issue order."""
         raise NotImplementedError
 
-    def create_buffer(self, count: int, dtype, data=None):
+    def create_buffer(self, count: int, dtype, data=None,
+                      host_only: bool = False):
         raise NotImplementedError
+
+    def device_interactions(self) -> Optional[int]:
+        """The engine's device-interaction count (None on a tier without
+        a device)."""
+        return None
 
     def shutdown(self) -> None:
         raise NotImplementedError

@@ -369,6 +369,9 @@ class GangCommandRing:
                     row_x.append(None)
                     row_o.append(None)
                     continue
+                for b in (call.op0, call.res):
+                    if b is not None and not b.is_dummy:
+                        b.resolve_pending()  # parked placements land first
                 buf = call.op0
                 dummy = buf is None or buf.is_dummy
                 row_x.append(None if dummy else buf.tensor[:in_w])
@@ -382,6 +385,7 @@ class GangCommandRing:
             outs.append(row_o)
         device = gang.device
         _wait_operands(device, bufs)
+        gang.interactions.bump()  # THE refill: one launch of the window
         status = run_window(slots_np, xs, outs, shape, device=device)
         if device.type == "cuda":
             host = torch.empty(status.shape, dtype=torch.int32,

@@ -12,15 +12,27 @@ stream, after that stream waits on every operand's last-writer event; it
 then records one event, which every rank's request and result buffer
 carry, so a waiter synchronises on that event and not on the device.
 
+Dispatch: a call whose facade plan (``accl_tpu_torch.plans``) holds the
+gang's prepared state takes the warm path -- its operands held against
+the template, then ONE prepared handle (``ops.driver.prepare``: the
+resolved lowering and its pointer tables); otherwise the full path runs
+and parks that state on the plan.  A call with a host-only operand or
+result is staged through the host (:meth:`CudaGangContext._run_op_host`).
+Every dispatch bumps the gang's :class:`InteractionCounter` once.
+
 Batches: a flushed ``with accl.batch():`` run arrives as one gang event
 (``submit_batch``); the command ring (``cmdring.GangCommandRing``) runs it
 as windows of one sequencer launch each, or refuses it with a counted
-reason, and then each position runs in order through the per-call path.
+reason; a refused batch runs as one fused dispatch of the plain
+lowerings when it qualifies (:meth:`CudaGangContext._run_batch_fused`),
+and otherwise each position in order through the per-call path.
 
 Point-to-point: a send and a recv meet in the gang's tag-matched
 :class:`P2PChannel`; the send posts a fresh device copy of its operand
-(narrowed to the wire dtype by row 5 when compressed), and the match
-copies it into the receiver's buffer (widened by row 5).  Every rank
+(narrowed to the wire dtype by row 5 when compressed).  The match checks
+the pair and parks the copy into the receiver's buffer (widened by row
+5) on that buffer: it runs at the receiver's ``wait()`` or first device
+read, as the JAX engine's ``defer_store`` delivery does.  Every rank
 shares the device, so the hop is a device copy; a hop between two
 devices is not ported (ROADMAP B14 / A6) and fails the pair.  The stream
 ports hold host bytes, as in the JAX package (:class:`StreamPortMixin`).
@@ -36,7 +48,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ...arithconfig import reduce_op
-from ...buffer import DeviceBuffer, DummyBuffer, make_buffer
+from ...buffer import DeviceBuffer, DummyBuffer, HostBuffer, make_buffer
 from ...cmdring import ring_widths
 from ...communicator import Communicator
 from ...constants import (
@@ -50,6 +62,7 @@ from ...constants import (
     FusedCompute,
     Operation,
     ROOTED_ALGORITHMS,
+    ReduceFunction,
     StreamFlags,
     TUNING_DEFAULTS,
     TuningKey,
@@ -60,16 +73,17 @@ from ...constants import (
 from ...ops import driver as opdriver
 from ...ops.cuda.combine import combine as kernel_combine
 from ...ops.wire import wire_lane_roundtrip_rows
-from ...wire import is_wire_dtype
+from ...wire import astype, is_wire_dtype, rank_seed, roundtrip, widen
 from ...request import Request
 from ..base import (
     BaseEngine,
     CallOptions,
+    InteractionCounter,
     StreamPortMixin,
     convert,
     tensor_bytes,
 )
-from .cmdring import GangCommandRing
+from .cmdring import BATCH_TUNING_KEYS, GangCommandRing, buffer_root
 
 
 def apply_tuning(tuning: dict, options: CallOptions) -> ErrorCode:
@@ -166,6 +180,52 @@ def run_rooted_with_tuning(op, xs, mesh, lead: CallOptions, tuning: dict,
     raise ValueError(op)
 
 
+def resolve_lowering(op, lead: CallOptions, tuning: dict,
+                     wire: Optional[DataType]):
+    """``(driver op name, extra)`` of the prepared handle a plan caches:
+    the selection :func:`run_allreduce_with_tuning` and
+    :func:`run_rooted_with_tuning` make per call, resolved once (the JAX
+    engine's ``resolve_lowering``).  ``wire`` is the call's wire lane
+    (it rides the allreduce's lowering; the other ops round their
+    operands through it in the handle's ``prep``)."""
+    nseg = int(tuning.get("ring_segments", 1))
+    wire_name = WIRE_LANE_DTYPES[wire.name] if wire is not None else None
+    if op == Operation.ALLREDUCE:
+        algo = tuning.get("allreduce_algorithm", "xla")
+        if algo in ("pallas_ring", "pallas_ring_bidir"):
+            return "pallas_allreduce", (nseg, wire_name,
+                                        algo == "pallas_ring_bidir")
+        if wire_name is not None:
+            return "compressed_allreduce", wire_name
+        if algo == "ring":
+            return "ring_allreduce", nseg
+        return "allreduce", None
+    rooted = {Operation.REDUCE: ("reduce", lead.root_dst),
+              Operation.SCATTER: ("scatter", lead.root_src),
+              Operation.GATHER: ("gather", lead.root_src)}
+    if op in rooted:
+        name, root = rooted[op]
+        if tuning.get(f"{name}_algorithm", "xla") == "pallas_ring":
+            return f"pallas_{name}", (root, nseg)
+        return name, root
+    if op == Operation.ALLGATHER:
+        return "allgather", None
+    if op == Operation.REDUCE_SCATTER:
+        return "reduce_scatter", None
+    if op == Operation.ALLTOALL:
+        return "alltoall", None
+    raise ValueError(op)  # callers gate on _FAST_OPS
+
+
+#: ops of the prepared warm path (BCAST stays on the full path, as in
+#: the JAX engine)
+_FAST_OPS = frozenset((
+    Operation.ALLREDUCE, Operation.REDUCE, Operation.SCATTER,
+    Operation.GATHER, Operation.ALLGATHER, Operation.REDUCE_SCATTER,
+    Operation.ALLTOALL,
+))
+
+
 # per-op operand/result widths in units of ``count`` ('P' = size*count)
 IN_W = {
     Operation.ALLREDUCE: 1, Operation.REDUCE: 1, Operation.BCAST: 1,
@@ -204,8 +264,12 @@ def _wait_operands(device: torch.device, bufs) -> None:
 
 
 def _check(buf, width: int, dtype: DataType, what: str) -> torch.Tensor:
-    if not isinstance(buf, DeviceBuffer):
-        raise ValueError(f"{what}: not a device buffer")
+    """``buf``'s first ``width`` elements, after any placement parked on
+    it (a later call reads or writes it in issue order)."""
+    if isinstance(buf, DeviceBuffer):
+        buf.resolve_pending()
+    elif not isinstance(buf, HostBuffer):
+        raise ValueError(f"{what}: not a buffer with storage")
     if buf.count < width or buf.dtype != dtype:
         raise ValueError(
             f"{what}: needs {width} {dtype.name} elements, buffer holds "
@@ -236,34 +300,49 @@ class Payload:
         return tensor_bytes(self.tensor)
 
 
-def p2p_device_deliver(payload: Payload, res, count: int):
-    """Copy a matched send's payload into the receiver's buffer and return
-    the event recorded after it (the counterpart of the JAX engine's
-    ``_p2p_device_deliver``).  Every rank shares one device, so this is
-    JAX's self-device branch, a device copy; host bytes from a stream
-    port cross to the device first.  A compressed payload widens to the
-    buffer's dtype by row 5 on the receiving side.  Raises on a payload
-    that does not fit, and on a hop between two devices, which the port
-    does not have yet (ROADMAP B14 / A6)."""
+def p2p_check(payload: Payload, res, count: int) -> None:
+    """Refuse, at match time, a payload the receiver cannot take: one that
+    does not fit, a result buffer that is too small, and a hop between
+    two devices, which the port does not have yet (ROADMAP B14 / A6)."""
     t = payload.tensor
     if t.dim() != 1 or t.numel() < count:
         raise ValueError(
             f"p2p payload of shape {tuple(t.shape)} into count {count}")
-    if not isinstance(res, DeviceBuffer) or res.count < count:
+    if not isinstance(res, (DeviceBuffer, HostBuffer)) or res.count < count:
         raise ValueError(f"p2p result buffer too small for {count} elements")
+    dst = res.tensor.device
+    # host bytes cross to any device, and a host-only receiver takes a
+    # payload from any; a hop between two devices is refused
+    if (t.device != dst and t.device.type != "cpu"
+            and not isinstance(res, HostBuffer)):
+        raise NotImplementedError(
+            f"a p2p hop from {t.device} to {dst}: transfers between "
+            "devices are not ported (ROADMAP B14 / A6)")
+
+
+def p2p_device_deliver(payload: Payload, res, count: int):
+    """Copy a matched send's payload into the receiver's buffer and return
+    the event recorded after it (the counterpart of the JAX engine's
+    ``_p2p_device_deliver``).  Every rank shares one device, so this is
+    JAX's self-device branch, a device copy; host bytes (a stream port's,
+    or a host-only sender's) cross to the device first, and a host-only
+    receiver takes the payload on the host.  A compressed payload widens
+    to the buffer's dtype by row 5 on the receiving side."""
+    p2p_check(payload, res, count)
     dst = res.tensor[:count]
+    t = payload.tensor
     if t.device != dst.device:
-        if t.device.type != "cpu":
-            raise NotImplementedError(
-                f"a p2p hop from {t.device} to {dst.device}: transfers "
-                "between devices are not ported (ROADMAP B14 / A6)")
+        if payload.event is not None:
+            payload.event.synchronize()
         t = t.to(dst.device)
+    else:
+        payload.wait(dst.device)
     src = t[:count]
-    payload.wait(dst.device)
     _wait_operands(dst.device, [res])
     convert(src, dst.dtype, out=dst)  # row 5 widens a compressed payload
     event = _record_event(dst.device)
-    res.ready = event
+    if isinstance(res, DeviceBuffer):
+        res.ready = event
     return event
 
 
@@ -403,14 +482,24 @@ class P2PChannel:
 
 class CudaGangContext:
     """Shared per-process rendezvous point of every rank handle; every
-    rank's buffers lie on ``device``."""
+    rank's buffers lie on ``device`` (the card unless the caller asks for
+    another: ``ops.driver.resolve_device``, which raises without one).
+
+    A communicator's rank i is the rank whose ``Rank.session`` it names
+    (JAX's ``submesh``); on one card every member's buffers share the
+    device, so a sub-communicator of P members runs the same lowerings
+    over P rows.  Slots and sequence numbers are keyed by ``comm.id``."""
 
     def __init__(self, device=None):
         self._lock = threading.Lock()
         self._slots: Dict[tuple, Dict[int, tuple]] = {}
         self._seq: Dict[Tuple[int, int], int] = {}
         self.tuning = dict(TUNING_DEFAULTS)
-        self.device = torch.device("cpu" if device is None else device)
+        # bumped by every register write: prepared state parked on a plan
+        # under an older register set is rebuilt, never served
+        self.tuning_epoch = 0
+        self.device = opdriver.resolve_device(device)
+        self.interactions = InteractionCounter()
         self.cmdring = GangCommandRing(self)
         # point-to-point: the tag-matched channel, and each rank's engine
         # by session (the destination of a stream_put)
@@ -495,8 +584,9 @@ class CudaGangContext:
 
     def _execute_batch(self, comm: Communicator, entries: List[tuple]) -> None:
         """A fully matched batch: ``entries[r]`` is rank r's
-        ``(options_list, requests_list)``.  The command ring first; else
-        every position in order through the per-call path."""
+        ``(options_list, requests_list)``.  The command ring first, then
+        one fused dispatch of the plain lowerings (:meth:`_run_batch_fused`),
+        else every position in order through the per-call path."""
         if len({len(e[0]) for e in entries}) != 1:
             for _, batch_reqs in entries:
                 for req in batch_reqs:
@@ -511,6 +601,8 @@ class CudaGangContext:
 
             traceback.print_exc()
             handled = False
+        if not handled:
+            handled = self._run_batch_fused(comm, entries, npos)
         if handled:
             return
         for i in range(npos):
@@ -538,8 +630,9 @@ class CudaGangContext:
             if (not isinstance(c.op0, DeviceBuffer)
                     or c.op0.count < in_w):
                 return ErrorCode.INVALID_OPERATION, None
-            rows.append(c.op0.tensor[:in_w])
+            rows.append(_check(c.op0, in_w, c.op0.dtype, "fused operand"))
         self.cmdring.note_fallback("fused_decomposed")
+        self.interactions.bump()  # the decomposition's device work
         device = rows[0].device
         _wait_operands(device, [c.op0 for c in calls])
         fp = float(lead.fuse_param)
@@ -614,21 +707,186 @@ class CudaGangContext:
         if op == Operation.BCAST and any(c.op0 is not c.res for c in calls):
             return None
         return {
-            "op": op, "n": n, "dtype": dtype_to_torch(dtype),
-            "compressed": compressed,
+            "op": op, "n": n, "in_w": in_w, "out_w": out_w,
+            "dtype": dtype_to_torch(dtype), "compressed": compressed,
             "wire": (dtype_to_torch(lead.arithcfg.compressed)
                      if compressed else None),
             "writers": writers,
         }
 
+    def _run_batch_fused(self, comm: Communicator, entries: List[tuple],
+                         npos: int) -> bool:
+        """A batch the command ring refused (``oversized``, ``wire_lane``),
+        as ONE gang dispatch: every position runs its plain ``xla``
+        lowering, in position order, and every request completes with the
+        batch's one event (the JAX engine's ``_run_batch_fused``).
+        Returns False, having launched nothing, when a position
+        disqualifies: a non-``xla`` algorithm register, a fused slot, a
+        torn gang signature, operands off the device path, or a position
+        reading what an earlier one writes (JAX's fused program reads
+        every operand before it writes any result).  Once it runs, it
+        owns the requests' completion: a failure fails the rest, and no
+        position runs twice."""
+        if npos == 0 or any(self.tuning.get(k, "xla") != "xla"
+                            for k in BATCH_TUNING_KEYS):
+            return False
+        positions = []
+        written: set = set()  # result roots of earlier positions
+        for i in range(npos):
+            calls = [e[0][i] for e in entries]
+            lead = calls[0]
+            if lead.fuse or any(self._sig(c) != self._sig(lead)
+                                for c in calls[1:]):
+                return False
+            plan = self._plan_device_call(comm, calls, lead)
+            if plan is None:
+                return False
+            for call in calls:
+                buf = call.op0
+                if (buf is not None and not buf.is_dummy
+                        and buffer_root(buf) in written):
+                    return False
+            for r in plan["writers"]:
+                res = calls[r].res
+                if res is not None and not res.is_dummy:
+                    written.add(buffer_root(res))
+            positions.append((calls, lead))
+        t0 = time.perf_counter_ns()
+        done = 0
+        try:
+            self.interactions.bump()  # ONE dispatch for the whole batch
+            writers = []
+            for calls, lead in positions:
+                writers += [calls[r].res for r in self._lower(comm, calls, lead)]
+                done += 1
+            event = _record_event(self.device)
+            for res in writers:
+                res.ready = event
+            code, context = ErrorCode.OK, None
+        except Exception as e:
+            event = None
+            code = ErrorCode.INVALID_OPERATION
+            context = {"comm": comm.id, "position": done,
+                       "error": f"{type(e).__name__}: {e}"[:300]}
+        dt = time.perf_counter_ns() - t0
+        for _, batch_reqs in entries:
+            for req in batch_reqs:
+                req.complete(code, dt, context=context, event=event)
+        return True
+
     def _run_op(self, comm: Communicator, calls: List[CallOptions],
                 lead: CallOptions):
+        """One gang call: the prepared warm path when the call's plan holds
+        its state, else the full device path (which parks that state on
+        the plan), or the host-staged path when an operand or result is
+        host-only."""
         op = lead.op
         if op == Operation.BARRIER:
             # gang assembly IS the barrier: every rank posted the call
             return ErrorCode.OK, None
         if op not in IN_W:
             return ErrorCode.COLLECTIVE_NOT_IMPLEMENTED, None
+        if any(isinstance(b, HostBuffer) for c in calls
+               for b in (c.op0, c.res)):
+            return self._run_op_host(comm, calls, lead)
+        fp = lead.plan
+        if fp is not None and op in _FAST_OPS:
+            # prepared state is keyed by the exact count: the plan is
+            # bucket-keyed, and counts within one bucket keep their own
+            states = fp.engine.get("gang")
+            state = states.get(lead.count) if states else None
+            if state is not None and state["tuning_epoch"] == self.tuning_epoch:
+                done = self._run_op_device_prepared(calls, lead, state)
+                if done is not None:
+                    return done
+            elif all(type(c.op0) is DeviceBuffer for c in calls):
+                # a shape the warm path can take (every rank an operand):
+                # park its template on the plan
+                tmpl = self._plan_device_call(comm, calls, lead)
+                if tmpl is not None:
+                    states = fp.engine.setdefault("gang", {})
+                    if len(states) > 8 and lead.count not in states:
+                        states.clear()  # count churn within one bucket
+                    states[lead.count] = {
+                        "tmpl": tmpl, "tuning_epoch": self.tuning_epoch,
+                        "mesh": opdriver.Mesh(comm.size, self.device),
+                        "handles": {},
+                    }
+        self.interactions.bump()  # THE dispatch
+        writers = self._lower(comm, calls, lead)
+        event = _record_event(self.device)
+        for r in writers:
+            calls[r].res.ready = event
+        return ErrorCode.OK, event
+
+    def _run_op_device_prepared(self, calls: List[CallOptions],
+                                lead: CallOptions, state: dict):
+        """The warm path of a planned call (the JAX engine's
+        ``_run_op_device_prepared``): per call only the operands are held
+        against the template -- the same refusals as JAX's: a view, a
+        dummy, another device, another dtype, ranks of unequal width, a
+        width below ``in_w`` -- and the ONE prepared handle runs.  None
+        takes the full path."""
+        tmpl = state["tmpl"]
+        dev, tdt = self.device, tmpl["dtype"]
+        xs, bufs = [], []
+        w = None
+        for call in calls:
+            buf = call.op0
+            if (type(buf) is not DeviceBuffer or buf._parent is not None
+                    or buf.device != dev or buf.tensor.dtype != tdt):
+                return None
+            buf.resolve_pending()
+            if w is None:
+                w = buf.count
+            elif buf.count != w:
+                return None
+            xs.append(buf.tensor)
+            bufs.append(buf)
+        if w < tmpl["in_w"]:
+            return None
+        out_w = tmpl["out_w"]
+        writers = tmpl["writers"]
+        outs = []
+        for r, call in enumerate(calls):
+            res = call.res
+            if r not in writers or res is None or res.is_dummy:
+                outs.append(None)
+                continue
+            if not (type(res) is DeviceBuffer and res.device == dev
+                    and res.count >= out_w and res.tensor.dtype == tdt):
+                return None
+            res.resolve_pending()
+            outs.append(res.tensor if res.count == out_w
+                        else res.tensor[:out_w])
+        handle = state["handles"].get(w)
+        if handle is None:
+            op, wire = tmpl["op"], (lead.arithcfg.compressed
+                                    if tmpl["compressed"] else None)
+            name, extra = resolve_lowering(op, lead, self.tuning, wire)
+            prep_wire = (WIRE_LANE_DTYPES[wire.name]
+                         if wire is not None and op != Operation.ALLREDUCE
+                         else None)
+            # as JAX's: a prep step only for width slack or a wire
+            prep = ((tmpl["in_w"], prep_wire)
+                    if w != tmpl["in_w"] or prep_wire is not None else None)
+            handle = opdriver.prepare(
+                name, state["mesh"], lead.reduce_function, extra, prep)
+            state["handles"][w] = handle
+        _wait_operands(dev, bufs)
+        self.interactions.bump()  # THE dispatch: one prepared handle
+        handle(xs, outs)
+        event = _record_event(dev)
+        for r, o in enumerate(outs):
+            if o is not None:
+                calls[r].res.ready = event
+        return ErrorCode.OK, event
+
+    def _lower(self, comm: Communicator, calls: List[CallOptions],
+               lead: CallOptions):
+        """Run one gang call's device lowering on the current stream (the
+        registers pick it); returns the ranks whose results it wrote."""
+        op = lead.op
         n, size = lead.count, comm.size
         dtype = lead.arithcfg.uncompressed
         wire = (
@@ -655,32 +913,140 @@ class CudaGangContext:
             # the wire lane runs inside the allreduce (one rounding)
             run_allreduce_with_tuning(xs, mesh, fn, wire, self.tuning,
                                       out=outs)
+            return writers
+        if wire is not None:
+            # each contribution rounded once through the wire, every
+            # rank's row in one launch per kernel; deterministic, as the
+            # JAX gang's in-program lane (its per-call seeds feed the
+            # host-staged path and the facade's error feedback)
+            live = [r for r, x in enumerate(xs) if x is not None]
+            rounded = wire_lane_roundtrip_rows([xs[r] for r in live], wire)
+            for r, x in zip(live, rounded):
+                xs[r] = x
+        if op == Operation.SCATTER:
+            xs = [xs[root]] * size  # only the root's operand is read
+        if op in ROOTED_OPS:
+            run_rooted_with_tuning(op, xs, mesh, lead, self.tuning, out=outs)
+        elif op == Operation.ALLGATHER:
+            opdriver.run_allgather(xs, mesh, out=outs)
+        elif op == Operation.ALLTOALL:
+            opdriver.run_alltoall(xs, mesh, out=outs)
         else:
-            if wire is not None:
-                # each contribution rounded once through the wire, every
-                # rank's row in one launch per kernel; deterministic, as
-                # the JAX gang's in-program lane (its per-call seeds are
-                # read by the facade's error feedback, not here)
-                live = [r for r, x in enumerate(xs) if x is not None]
-                rounded = wire_lane_roundtrip_rows([xs[r] for r in live],
-                                                   wire)
-                for r, x in zip(live, rounded):
-                    xs[r] = x
-            if op == Operation.SCATTER:
-                xs = [xs[root]] * size  # only the root's operand is read
-            if op in ROOTED_OPS:
-                run_rooted_with_tuning(op, xs, mesh, lead, self.tuning,
-                                       out=outs)
-            elif op == Operation.ALLGATHER:
-                opdriver.run_allgather(xs, mesh, out=outs)
-            elif op == Operation.ALLTOALL:
-                opdriver.run_alltoall(xs, mesh, out=outs)
+            opdriver.run_reduce_scatter(xs, mesh, fn, out=outs)
+        return writers
+
+    # -- the host-staged path ------------------------------------------------
+    def _run_op_host(self, comm: Communicator, calls: List[CallOptions],
+                     lead: CallOptions):
+        """A call with a host-only operand or result, staged through the
+        host (the JAX engine's ``_run_op_host`` where its ranks have no
+        device mesh): every rank's operand read to the host (one counted
+        interaction a device operand), the collective computed there with
+        the rank-order fold of ``_host_reduce`` (NaN-propagating MAX),
+        compressed contributions rounded by the host codec with each
+        rank's mixed seed (the allreduce: one cast of every operand
+        through the wire, as JAX's ``_allreduce`` has it), and every
+        result written back (one counted interaction a device result)."""
+        op = lead.op
+        size, n = comm.size, lead.count
+        fn = lead.reduce_function
+        tdt = dtype_to_torch(lead.arithcfg.uncompressed)
+        compressed = bool(lead.compression & CompressionFlags.ETH_COMPRESSED)
+        wire = lead.arithcfg.compressed if compressed else None
+        ic = self.interactions
+
+        def stack(width: int) -> List[torch.Tensor]:
+            rows = []
+            for call in calls:
+                buf = call.op0
+                row = torch.zeros(width, dtype=tdt)
+                if buf is not None and not buf.is_dummy:
+                    if isinstance(buf, DeviceBuffer):
+                        ic.bump()  # the device-to-host read of the operand
+                        buf.resolve_pending()
+                        buf.wait_ready()
+                    src = buf.tensor[:width].to("cpu")
+                    row[:src.numel()] = src
+                rows.append(row)
+            return rows
+
+        def wire_cast(rows):
+            if wire is None:
+                return rows
+            return [astype(roundtrip(row, wire,
+                                     rank_seed(lead.wire_seed, r)), tdt)
+                    for r, row in enumerate(rows)]
+
+        def host_reduce(rows) -> torch.Tensor:
+            # numpy's fold: each step computed in float32 and rounded to
+            # a 16-bit dtype as its astype rounds it; its maximum hands
+            # on the NaN operand itself (torch's makes a NaN of its own)
+            red = reduce_op(fn)
+            if fn == ReduceFunction.MAX and tdt.is_floating_point:
+                def red(a, b):
+                    return torch.where(a.isnan(), a, torch.where(
+                        b.isnan(), b, torch.maximum(a, b)))
+            narrow = tdt in (torch.float16, torch.bfloat16)
+            acc = rows[0]
+            for row in rows[1:]:
+                acc = (astype(red(widen(acc), widen(row)), tdt) if narrow
+                       else red(acc, row))
+            return acc
+
+        def write(call, row, width: int) -> None:
+            buf = call.res
+            if buf is None or buf.is_dummy:
+                return
+            if buf.count < width:
+                raise ValueError(f"{op.name} result: needs {width} elements, "
+                                 f"buffer holds {buf.count}")
+            val = convert(row[:width], buf.tensor.dtype)
+            if isinstance(buf, DeviceBuffer):
+                buf.store(val, width)
+                ic.bump()  # the host-to-device write of the result
             else:
-                opdriver.run_reduce_scatter(xs, mesh, fn, out=outs)
-        event = _record_event(device)
-        for r in writers:
-            calls[r].res.ready = event
-        return ErrorCode.OK, event
+                buf.tensor[:width].copy_(val)
+
+        if op == Operation.ALLREDUCE:
+            rows = stack(n)
+            if wire is not None:
+                # JAX's host _allreduce: every operand cast through the
+                # wire and back (numpy's astype, no seed; an int8 wire is
+                # the C cast, not the scaled lane)
+                wdt = dtype_to_torch(wire)
+                rows = [astype(astype(row, wdt), tdt) for row in rows]
+            full = host_reduce(rows)
+            for call in calls:
+                write(call, full, n)
+        elif op in (Operation.REDUCE, Operation.BCAST, Operation.GATHER,
+                    Operation.ALLGATHER):
+            rows = wire_cast(stack(n))
+            if op == Operation.REDUCE:
+                write(calls[lead.root_dst], host_reduce(rows), n)
+            elif op == Operation.BCAST:
+                for call in calls:
+                    write(call, rows[lead.root_src], n)
+            elif op == Operation.GATHER:
+                write(calls[lead.root_src], torch.cat(rows), size * n)
+            else:
+                full = torch.cat(rows)
+                for call in calls:
+                    write(call, full, size * n)
+        else:  # the ops whose operands hold size * n elements
+            rows = wire_cast(stack(size * n))
+            if op == Operation.REDUCE_SCATTER:
+                full = host_reduce(rows)
+                for r, call in enumerate(calls):
+                    write(call, full[r * n:(r + 1) * n], n)
+            elif op == Operation.SCATTER:
+                blocks = rows[lead.root_src]
+                for r, call in enumerate(calls):
+                    write(call, blocks[r * n:(r + 1) * n], n)
+            else:  # ALLTOALL
+                for r, call in enumerate(calls):
+                    write(call, torch.cat([rows[p][r * n:(r + 1) * n]
+                                           for p in range(size)]), size * n)
+        return ErrorCode.OK, None
 
 
 class CudaEngine(StreamPortMixin, BaseEngine):
@@ -781,9 +1147,25 @@ class CudaEngine(StreamPortMixin, BaseEngine):
             def sink(payload):
                 self.stream_push(options.stream_id, payload.host_bytes())
         else:
-            def sink(payload):
-                return p2p_device_deliver(payload, options.res,
-                                          options.count)
+            ic = self.gang.interactions
+
+            def sink(payload, res=options.res, n=options.count):
+                # checked now, so a pair that cannot match fails both
+                # sides at the channel; the copy itself is parked on the
+                # result buffer and runs at the receiver's wait() or
+                # first device read (JAX's lazy delivery)
+                p2p_check(payload, res, n)
+
+                def deliver():
+                    req.event = p2p_device_deliver(payload, res, n)
+                    ic.bump()  # the delivery copy
+
+                if isinstance(res, HostBuffer):
+                    deliver()  # a host-only receiver takes it at once
+                    return req.event
+                res.defer_store(deliver)
+                req.defer_result(res.resolve_pending, handle=payload.tensor)
+                return None
         self.gang.p2p.post_recv(key, sink, req, timeout_s=self.timeout_s)
 
     def _start_send(self, options: CallOptions, req: Request) -> None:
@@ -809,6 +1191,8 @@ class CudaEngine(StreamPortMixin, BaseEngine):
                 src = _check(options.op0, options.count, cfg.uncompressed,
                              "send operand")
                 _wait_operands(src.device, [options.op0])
+                if isinstance(options.op0, DeviceBuffer):
+                    self.gang.interactions.bump()  # the payload copy
                 if wire is not None:
                     # row 5 narrows on the sending side: the wire (and the
                     # copy the receiver makes) carries the narrow dtype
@@ -924,10 +1308,13 @@ class CudaEngine(StreamPortMixin, BaseEngine):
             waits = [options.op0, options.op1]
         if not options.stream & StreamFlags.RES_STREAM:
             res = options.res
-            if not isinstance(res, DeviceBuffer) or res.count < n:
+            if (not isinstance(res, (DeviceBuffer, HostBuffer))
+                    or res.count < n):
                 raise ValueError(f"result buffer too small for {n} elements")
             waits.append(res)
-        _wait_operands(src.device, waits)
+            _wait_operands(res.tensor.device, waits)
+        else:
+            _wait_operands(src.device, waits)
         if options.stream & StreamFlags.RES_STREAM:
             out = src
             if combine:
@@ -937,8 +1324,15 @@ class CudaEngine(StreamPortMixin, BaseEngine):
             self._push_stream_result(options, out)
             return ErrorCode.OK, None
         dst = res.tensor[:n]
+        if src.device != dst.device:  # a host-only side: stage the operand
+            _wait_operands(src.device, waits)
+            src = src.to(dst.device)
+        if isinstance(res, DeviceBuffer):
+            self.gang.interactions.bump()  # the device copy or combine
         if combine:
             other = _check(options.op1, n, dtype, "second operand")
+            if other.device != dst.device:
+                other = other.to(dst.device)
             # K4: op(a, b) cast to the result buffer's dtype, in place
             # when the result is the first operand
             kernel_combine(src, other, options.reduce_function,
@@ -946,7 +1340,8 @@ class CudaEngine(StreamPortMixin, BaseEngine):
         else:
             convert(src, dst.dtype, out=dst)  # row 5 between wire dtypes
         event = _record_event(dst.device)
-        res.ready = event
+        if isinstance(res, DeviceBuffer):
+            res.ready = event
         return ErrorCode.OK, event
 
     def _apply_config(self, options: CallOptions) -> ErrorCode:
@@ -957,11 +1352,19 @@ class CudaEngine(StreamPortMixin, BaseEngine):
                 return ErrorCode.CONFIG_ERROR
             self.timeout_s = float(options.cfg_value)
         elif fn == ConfigFunction.SET_TUNING:
-            return apply_tuning(self.gang.tuning, options)
+            code = apply_tuning(self.gang.tuning, options)
+            if code == ErrorCode.OK:
+                self.gang.tuning_epoch += 1
+            return code
         return ErrorCode.OK
 
-    def create_buffer(self, count: int, dtype, data=None) -> DeviceBuffer:
-        return make_buffer(self.device, count, dtype, data=data)
+    def create_buffer(self, count: int, dtype, data=None,
+                      host_only: bool = False):
+        return make_buffer(self.device, count, dtype, data=data,
+                           host_only=host_only)
+
+    def device_interactions(self) -> int:
+        return self.gang.interactions.read()
 
     def shutdown(self) -> None:
         """Cancel this rank's parked sends and recvs (their watchdogs stop

@@ -240,6 +240,16 @@ class StreamFlags(enum.IntFlag):
     RES_STREAM = 2
 
 
+class HostFlags(enum.IntFlag):
+    """Which operands are host-only buffers (no device side): such a call
+    takes the gang's host-staged path."""
+
+    NO_HOST = 0
+    OP0_HOST = 1
+    OP1_HOST = 2
+    RES_HOST = 4
+
+
 class CompressionFlags(enum.IntFlag):
     """Which operands are in the compressed dtype (ETH: on the wire)."""
 

@@ -20,6 +20,12 @@ when a queued request is waited on): the gang runs the batch as command-
 ring windows, one sequencer launch each.  A rank that contributes or
 takes no data in a rooted call passes None, which becomes a
 :class:`~accl_tpu_torch.buffer.DummyBuffer`, as in the JAX facade.
+:meth:`ACCL.create_communicator` gives sub-communicators (the JAX
+facade's ids) that every collective takes as ``comm``.  Each collective
+resolves its plan once (:meth:`ACCL._plan_for`, ``accl_tpu_torch.plans``),
+and :meth:`ACCL.capabilities` reports the plan pool's counters and the
+engine's device interactions.  ``create_buffer(..., host_only=True)``
+makes a host-only buffer, which the gang stages through the host.
 
 :func:`cuda_group` builds N rank handles over one device — the
 counterpart of ``core.xla_group``.  Collectives are blocking per rank:
@@ -29,6 +35,7 @@ drive each rank from its own thread, or use ``run_async=True``.
 from __future__ import annotations
 
 import os
+import zlib
 from typing import List, Optional, Sequence
 
 import torch
@@ -37,7 +44,13 @@ from . import wire as _wire
 from .arithconfig import DEFAULT_ARITH_CONFIG
 from .backends.base import BaseEngine, CallOptions, tensor_bytes
 from .backends.cuda.engine import CudaEngine, CudaGangContext
-from .buffer import BaseBuffer, DeviceBuffer, DummyBuffer, host_tensor
+from .buffer import (
+    BaseBuffer,
+    DeviceBuffer,
+    DummyBuffer,
+    HostBuffer,
+    host_tensor,
+)
 from .communicator import Communicator, Rank
 from .constants import (
     ACCLError,
@@ -48,6 +61,7 @@ from .constants import (
     DEFAULT_TIMEOUT_S,
     ErrorCode,
     FusedCompute,
+    HostFlags,
     Operation,
     ReduceFunction,
     StreamFlags,
@@ -58,6 +72,7 @@ from .constants import (
 )
 from .errorfeedback import ResidualStore
 from .ops.driver import resolve_device
+from .plans import CollectivePlan, PlanCache, size_bucket
 from .request import CommandQueue, Request
 
 #: the collectives whose compressed calls take a per-call stochastic-
@@ -90,6 +105,7 @@ class ACCL:
         self.engine = engine
         self._arith = dict(arith_config or DEFAULT_ARITH_CONFIG)
         self._world = Communicator(ranks, local_rank, comm_id=0)
+        self._communicators: List[Communicator] = [self._world]
         self._timeout_s = float(timeout_s)
         # the open batch (None outside one); nested batch() contexts only
         # count depth
@@ -101,10 +117,20 @@ class ACCL:
         # opt-in (ACCL_ERROR_FEEDBACK=1 or set_error_feedback)
         self._wire_ctr: dict = {}
         self._residuals = ResidualStore()
+        # the cached per-call plans (accl_tpu_torch.plans): a warm
+        # collective is pool lookup -> dispatch; a register write clears
+        # the pool, and the residuals share its lifecycle (a cleared pool
+        # may change the wire a residual was kept for)
+        self._plans = PlanCache()
+        self._plans.add_invalidation_hook(self._residuals.invalidate)
         self._error_feedback = (
             os.environ.get("ACCL_ERROR_FEEDBACK", "0") == "1")
         self._config(ConfigFunction.SET_TIMEOUT, timeout_s)
         self._initialized = True
+
+    #: config writes that clear the plan pool (JAX's also clear on RESET
+    #: and SET_MAX_EAGER_SIZE, which the port does not serve yet: A11)
+    _PLAN_INVALIDATING = frozenset((ConfigFunction.SET_TUNING,))
 
     def _config(self, fn: ConfigFunction, value: float, key: int = 0) -> None:
         req = self.engine.start(CallOptions(
@@ -112,6 +138,8 @@ class ACCL:
             cfg_key=int(key),
         ))
         req.check(f"config {fn.name}")
+        if fn in self._PLAN_INVALIDATING:
+            self._plans.invalidate(fn.name.lower())
 
     # -- introspection -------------------------------------------------------
     @property
@@ -156,9 +184,9 @@ class ACCL:
                         f"unknown algorithm {value!r}; valid: "
                         f"{[a.name.lower() for a in AllreduceAlgorithm]}"
                     ) from None
+        # clears the plan pool, and with it the residuals (a register
+        # write may change the wire a residual was kept for)
         self._config(ConfigFunction.SET_TUNING, float(value), key=int(key))
-        # a register write may change the wire a residual was kept for
-        self._residuals.invalidate("set_tuning")
 
     # -- the quantized wire --------------------------------------------------
     @property
@@ -219,6 +247,8 @@ class ACCL:
         x_eff = self._residuals.apply(
             key, _wire.widen(x), wire, _wire.rank_seed(seed, comm.local_rank))
         staged = _wire.astype(x_eff, x.dtype)
+        if sendbuf.is_host_only:
+            return HostBuffer(n, sendbuf.dtype, host=staged)
         buf = DeviceBuffer(n, sendbuf.dtype, x.device, tensor=staged,
                            host=staged.new_zeros((), device="cpu").expand(n))
         if x.device.type == "cuda":
@@ -227,18 +257,64 @@ class ACCL:
         return buf
 
     # -- buffers -------------------------------------------------------------
-    def create_buffer(self, count: int, dtype) -> BaseBuffer:
-        """A zeroed buffer of ``count`` elements on this rank's device."""
-        return self.engine.create_buffer(count, as_datatype(dtype))
+    def create_buffer(self, count: int, dtype,
+                      host_only: bool = False) -> BaseBuffer:
+        """A zeroed buffer of ``count`` elements on this rank's device, or
+        in host memory alone (``host_only``: a call with such an operand
+        or result is staged through the host)."""
+        return self.engine.create_buffer(count, as_datatype(dtype),
+                                         host_only=host_only)
 
-    def create_buffer_from(self, array) -> BaseBuffer:
+    def create_buffer_from(self, array, host_only: bool = False) -> BaseBuffer:
         """Wrap a host array (numpy or a CPU tensor, flattened): the
         buffer's host side ALIASES it when it is contiguous, and the device
-        side is synced on return."""
+        side is synced on return (``host_only``: the array is the whole
+        buffer)."""
         host = host_tensor(array)
         return self.engine.create_buffer(
-            host.numel(), as_datatype(host.dtype), data=host
+            host.numel(), as_datatype(host.dtype), data=host,
+            host_only=host_only,
         )
+
+    # -- communicators -------------------------------------------------------
+    def create_communicator(self, members: Sequence[int],
+                            base: Optional[Communicator] = None
+                            ) -> Optional[Communicator]:
+        """A sub-communicator over ``members`` (ranks of ``base``, the
+        world by default, in their new order); None on a rank that is not
+        a member.  Collective: every member calls with the same list.  The
+        id derives from the parent's id and the membership, as the JAX
+        package derives it, so every rank agrees without exchanging it;
+        a re-created same-membership communicator keeps the id and gets a
+        fresh epoch (its first call re-plans)."""
+        base = base or self._world
+        comm_id = zlib.crc32(
+            repr((base.id, tuple(members))).encode()) & 0x7FFFFFFF
+        comm = base.split(members, comm_id=comm_id)
+        if comm is not None:
+            self._communicators.append(comm)
+        return comm
+
+    # -- capabilities --------------------------------------------------------
+    def capabilities(self) -> dict:
+        """What this handle's engine can do, and its dispatch counters:
+        the keys of the JAX facade's report that the port can fill
+        truthfully (the rest -- health, telemetry, monitor, the in-flight
+        window, tuning plans -- come with their planes, ROADMAP A11)."""
+        engine = type(self.engine).__name__
+        return {
+            "engine": engine,
+            # by name, as JAX decides it; the port's gang engine is the
+            # device tier
+            "device_tier": engine == "CudaEngine",
+            "wire_compression": sorted(
+                f"{u.name}->{c.name}" for (u, c) in self._arith if u != c),
+            "arithmetic": [f.name for f in ReduceFunction],
+            "world_size": self._world.size,
+            # one warm gang collective moves it by exactly 1
+            "device_interactions": self.engine.device_interactions(),
+            "plan_cache": self._plans.stats(),
+        }
 
     # -- call plumbing -------------------------------------------------------
     def _resolve_arithcfg(self, dtype: DataType, compress_dtype) -> tuple:
@@ -256,14 +332,88 @@ class ACCL:
                  else CompressionFlags.NO_COMPRESSION)
         return self._arith[key], flags
 
-    def _advance_wire_seed(self, comm: Communicator, op: Operation,
-                           dtype: DataType, compress_dtype) -> None:
-        """Draw the call's seed for a compressed reduce or reduce-scatter:
-        the gang rounds those deterministically, but the per-comm counter
-        advances as on every rank of the JAX facade, so later seeds
-        match it."""
-        cfg, flags = self._resolve_arithcfg(dtype, compress_dtype)
-        self._derive_wire_seed(comm, op, cfg.compressed if flags else None)
+    @staticmethod
+    def _host_flags(*bufs: Optional[BaseBuffer]) -> HostFlags:
+        flags = HostFlags.NO_HOST
+        slots = (HostFlags.OP0_HOST, HostFlags.OP1_HOST, HostFlags.RES_HOST)
+        for slot, buf in zip(slots, bufs):
+            if buf is not None and buf.is_host_only:
+                flags |= slot
+        return flags
+
+    def _algorithm_snapshot(self, op: Operation):
+        """The algorithm register steering ``op`` now (read once a plan)."""
+        tuning = self.engine.gang.tuning
+        if op == Operation.ALLREDUCE:
+            return tuning.get("allreduce_algorithm")
+        return tuning.get(f"{op.name.lower()}_algorithm")
+
+    #: collectives the ``wire_dtype`` register's verdict may compress (an
+    #: explicit ``compress_dtype`` works on every op that takes one)
+    _WIRE_VERDICT_OPS = frozenset((Operation.ALLREDUCE,))
+
+    def _plan_for(self, op: Operation, comm: Communicator, dtype: DataType,
+                  count: int, compress_dtype, host: HostFlags,
+                  extra: tuple = ()) -> CollectivePlan:
+        """The cached plan of a collective (the JAX facade's ``_plan_for``):
+        one per ``(op, comm id, comm epoch, dtype, size bucket, compress
+        dtype, host flags, topology signature, extra)``.  The topology
+        signature stays None until the port has a topology plane and the
+        tuning-plan overlay until it has tuning plans (A11).  A hit
+        returns what an earlier call resolved: the arithmetic config, the
+        compression flags, the ``wire_dtype`` verdict and the algorithm
+        snapshot, and the gang's prepared state in ``plan.engine``."""
+        cdt = None if compress_dtype is None else as_datatype(compress_dtype)
+        bucket = size_bucket(count)
+        key = (op, comm.id, comm.epoch, dtype, bucket, cdt, int(host), None,
+               extra)
+        plan, _ = self._plans.get_with_flag(key)
+        if plan is not None:
+            return plan
+        if (cdt is None and op in self._WIRE_VERDICT_OPS
+                and "fuse" not in extra):
+            # the wire_dtype register's verdict, unless the lane's arith
+            # pair cannot run this call's reduce function (int8 under MAX
+            # keeps the uncompressed wire); the verdict ops carry the
+            # function as extra[0].  Fused slots keep the plain wire.
+            try:
+                verdict = DataType(int(
+                    self.engine.gang.tuning.get("wire_dtype", 0) or 0))
+            except ValueError:
+                verdict = DataType.NONE
+            pair = (dtype, verdict)
+            if (verdict not in (DataType.NONE, dtype)
+                    and _wire.is_wire_dtype(verdict) and pair in self._arith
+                    and (not extra or self._arith[pair].supports(
+                        ReduceFunction(int(extra[0]))))):
+                cdt = verdict
+        cfg, flags = self._resolve_arithcfg(dtype, cdt)
+        plan = CollectivePlan(
+            key, cfg, flags,
+            wire_dtype=(cfg.compressed
+                        if flags & CompressionFlags.ETH_COMPRESSED else None),
+            bucket=bucket, eager=None,
+            algorithm=self._algorithm_snapshot(op),
+        )
+        return self._plans.store(plan)
+
+    def _planned(self, op: Operation, comm: Communicator, count: int,
+                 dtype: DataType, compress_dtype, run_async: bool, context: str,
+                 extra: tuple = (), seeded: bool = False, **fields):
+        """Plan, build the call's options and launch it (``seeded``: draw
+        the per-call wire seed, for the reduce, allreduce and
+        reduce_scatter)."""
+        host = self._host_flags(fields.get("op0"), None, fields.get("res"))
+        plan = self._plan_for(op, comm, dtype, count, compress_dtype, host,
+                              extra)
+        if seeded:
+            fields["wire_seed"] = self._derive_wire_seed(
+                comm, op, plan.wire_dtype)
+        opts = CallOptions(op=op, comm=comm, count=count,
+                           arithcfg=plan.arithcfg,
+                           compression=plan.compression, host=host,
+                           plan=plan, **fields)
+        return self._launch(opts, run_async, context)
 
     # -- batched dispatch (the command ring) --------------------------------
     def begin_batch(self) -> None:
@@ -429,9 +579,9 @@ class ACCL:
         comm = comm or self._world
         self._check_rank(comm, root)
         n = self._count_of(buf, count)
-        return self._collective(Operation.BCAST, comm, n, buf.dtype,
-                                compress_dtype, run_async, root_src=root,
-                                op0=buf, res=buf)
+        return self._planned(Operation.BCAST, comm, n, buf.dtype,
+                             compress_dtype, run_async, "bcast", (root,),
+                             root_src=root, op0=buf, res=buf)
 
     def scatter(self, sendbuf: Optional[BaseBuffer], recvbuf: BaseBuffer,
                 count: Optional[int] = None, root: int = 0,
@@ -445,9 +595,9 @@ class ACCL:
         n = self._count_of(recvbuf, count)
         if sendbuf is None:
             sendbuf = DummyBuffer(0, recvbuf.dtype)
-        return self._collective(Operation.SCATTER, comm, n, recvbuf.dtype,
-                                compress_dtype, run_async, root_src=root,
-                                op0=sendbuf, res=recvbuf)
+        return self._planned(Operation.SCATTER, comm, n, recvbuf.dtype,
+                             compress_dtype, run_async, "scatter", (root,),
+                             root_src=root, op0=sendbuf, res=recvbuf)
 
     def gather(self, sendbuf: BaseBuffer, recvbuf: Optional[BaseBuffer],
                count: Optional[int] = None, root: int = 0,
@@ -461,18 +611,19 @@ class ACCL:
         n = self._count_of(sendbuf, count)
         if recvbuf is None:
             recvbuf = DummyBuffer(0, sendbuf.dtype)
-        return self._collective(Operation.GATHER, comm, n, sendbuf.dtype,
-                                compress_dtype, run_async, root_src=root,
-                                op0=sendbuf, res=recvbuf)
+        return self._planned(Operation.GATHER, comm, n, sendbuf.dtype,
+                             compress_dtype, run_async, "gather", (root,),
+                             root_src=root, op0=sendbuf, res=recvbuf)
 
     def allgather(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
                   count: Optional[int] = None,
                   comm: Optional[Communicator] = None, compress_dtype=None,
                   run_async: bool = False):
+        comm = comm or self._world
         n = self._count_of(sendbuf, count)
-        return self._collective(Operation.ALLGATHER, comm, n, sendbuf.dtype,
-                                compress_dtype, run_async, op0=sendbuf,
-                                res=recvbuf)
+        return self._planned(Operation.ALLGATHER, comm, n, sendbuf.dtype,
+                             compress_dtype, run_async, "allgather",
+                             op0=sendbuf, res=recvbuf)
 
     def reduce(self, sendbuf: Optional[BaseBuffer],
                recvbuf: Optional[BaseBuffer], count: Optional[int] = None,
@@ -518,10 +669,9 @@ class ACCL:
             stream |= StreamFlags.OP0_STREAM
         if to_stream:
             stream |= StreamFlags.RES_STREAM
-        self._advance_wire_seed(comm, Operation.REDUCE, op_dtype,
-                                compress_dtype)
-        return self._collective(
+        return self._planned(
             Operation.REDUCE, comm, n, op_dtype, compress_dtype, run_async,
+            "reduce", (root, int(function), int(stream)), seeded=True,
             root_dst=root, reduce_function=function, stream=stream,
             stream_id=stream_id,
             op0=sendbuf if sendbuf is not None else DummyBuffer(n, op_dtype),
@@ -537,25 +687,21 @@ class ACCL:
         ``compress_dtype`` the ``wire_dtype`` register picks the wire."""
         comm = comm or self._world
         n = self._count_of(sendbuf, count)
-        if compress_dtype is None:
-            # the wire_dtype register's verdict, unless the lane's arith
-            # pair cannot run this reduce function (int8 under MAX keeps
-            # the uncompressed wire)
-            wd = int(self.engine.gang.tuning.get("wire_dtype", 0))
-            pair = (sendbuf.dtype, DataType(wd)) if wd else None
-            if pair in self._arith and self._arith[pair].supports(
-                    ReduceFunction(int(function))):
-                compress_dtype = DataType(wd)
-        cfg, flags = self._resolve_arithcfg(sendbuf.dtype, compress_dtype)
-        wire = cfg.compressed if flags else None
+        host = self._host_flags(sendbuf, None, recvbuf)
+        # the plan carries the wire_dtype register's verdict
+        plan = self._plan_for(Operation.ALLREDUCE, comm, sendbuf.dtype, n,
+                              compress_dtype, host, (int(function),))
+        wire = plan.wire_dtype
         seed = self._derive_wire_seed(comm, Operation.ALLREDUCE, wire)
         staged = self._error_feedback_operand(comm, sendbuf, n, function,
                                               wire, seed)
-        return self._collective(Operation.ALLREDUCE, comm, n, sendbuf.dtype,
-                                compress_dtype, run_async,
-                                reduce_function=function,
-                                op0=sendbuf if staged is None else staged,
-                                res=recvbuf)
+        opts = CallOptions(
+            op=Operation.ALLREDUCE, comm=comm, count=n,
+            reduce_function=function, arithcfg=plan.arithcfg,
+            compression=plan.compression, host=host,
+            op0=sendbuf if staged is None else staged, res=recvbuf,
+            plan=plan, wire_seed=seed)
+        return self._launch(opts, run_async, "allreduce")
 
     def reduce_scatter(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
                        count: Optional[int] = None,
@@ -566,12 +712,11 @@ class ACCL:
         size * count)."""
         comm = comm or self._world
         n = self._count_of(recvbuf, count)
-        self._advance_wire_seed(comm, Operation.REDUCE_SCATTER,
-                                recvbuf.dtype, compress_dtype)
-        return self._collective(Operation.REDUCE_SCATTER, comm, n,
-                                recvbuf.dtype, compress_dtype, run_async,
-                                reduce_function=function, op0=sendbuf,
-                                res=recvbuf)
+        return self._planned(Operation.REDUCE_SCATTER, comm, n,
+                             recvbuf.dtype, compress_dtype, run_async,
+                             "reduce_scatter", (int(function),), seeded=True,
+                             reduce_function=function, op0=sendbuf,
+                             res=recvbuf)
 
     def alltoall(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
                  count: Optional[int] = None,
@@ -582,9 +727,9 @@ class ACCL:
         (``sendbuf.count // size`` by default)."""
         comm = comm or self._world
         n = sendbuf.count // comm.size if count is None else int(count)
-        return self._collective(Operation.ALLTOALL, comm, n, sendbuf.dtype,
-                                compress_dtype, run_async, op0=sendbuf,
-                                res=recvbuf)
+        return self._planned(Operation.ALLTOALL, comm, n, sendbuf.dtype,
+                             compress_dtype, run_async, "alltoall",
+                             op0=sendbuf, res=recvbuf)
 
     # -- point-to-point ------------------------------------------------------
     @staticmethod
@@ -703,14 +848,14 @@ class ACCL:
     # -- fused compute slots -------------------------------------------------
     def _fused_launch(self, op, fuse, sendbuf, recvbuf, n, function, comm,
                       fuse_param, root_src, run_async, context):
-        cfg, flags = self._resolve_arithcfg(recvbuf.dtype, None)
-        opts = CallOptions(
-            op=op, comm=comm, count=n, reduce_function=function,
-            root_src=root_src, arithcfg=cfg, compression=flags,
-            op0=sendbuf, res=recvbuf, fuse=int(fuse),
-            fuse_param=float(fuse_param),
-        )
-        return self._launch(opts, run_async, context)
+        """Plan (the fuse folded into the key: a fused plan never aliases
+        its plain base op's) and launch a fused slot; the uncompressed
+        wire."""
+        return self._planned(
+            op, comm, n, recvbuf.dtype, None, run_async, context,
+            (int(function), "fuse", int(fuse)), reduce_function=function,
+            root_src=root_src, op0=sendbuf, res=recvbuf, fuse=int(fuse),
+            fuse_param=float(fuse_param))
 
     @staticmethod
     def _fused_operand_check(sendbuf, need: int, what: str) -> None:

@@ -78,6 +78,15 @@ def allgather(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [full.clone() for _ in xs]
 
 
+def allgather_invariant(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """ref ``allgather_invariant`` — the allgather whose result JAX's
+    ``shard_map`` accepts as replicated across the axis.  Over a list of
+    ranks every result is the same concatenation already, so it is
+    :func:`allgather` (kept for the ZeRO and model code that calls it by
+    this name)."""
+    return allgather(xs)
+
+
 def bcast(xs: Sequence[torch.Tensor], root: int = 0) -> List[torch.Tensor]:
     """ref ``ACCL::bcast`` — root's block everywhere."""
     return [xs[root].clone() for _ in xs]

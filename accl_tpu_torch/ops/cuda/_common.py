@@ -186,6 +186,48 @@ def stream_of(device: torch.device) -> int:
     return torch.accelerator.current_stream(device.index).native_handle
 
 
+class PreparedLaunch:
+    """A kernel wrapper with its arguments resolved once (a planned call
+    of the gang's warm path, ``ops.driver.prepare``).  The first call
+    with a set of per-rank pointers runs the wrapper itself, checks and
+    all; on the card the launch's C arguments (the pointer tables and
+    the layout) are then kept by those pointers, the element count and
+    the dtype, and a later call with the same ones launches with them
+    alone.  Subclasses give :meth:`_full` (the wrapper's call) and
+    :meth:`_entry`: ``(lib, C function, arguments before the stream,
+    the wrapper's launch counter, what)``, or None when the wrapper
+    would launch nothing there."""
+
+    LIMIT = 64  # pointer sets kept (cleared when full)
+
+    def __init__(self):
+        self._entries: dict = {}
+
+    def _full(self, xs, out) -> None:
+        raise NotImplementedError
+
+    def _entry(self, xs, out):
+        raise NotImplementedError
+
+    def __call__(self, xs: Sequence[torch.Tensor],
+                 out: Sequence[Optional[torch.Tensor]]) -> None:
+        x0 = xs[0]
+        key = (*pointers(xs), *pointers(out), x0.numel(), x0.dtype)
+        entry = self._entries.get(key)
+        if entry is None:
+            self._full(xs, out)
+            if x0.is_cuda:
+                entry = self._entry(xs, out)
+                if entry is not None:
+                    if len(self._entries) >= self.LIMIT:
+                        self._entries.clear()
+                    self._entries[key] = entry + (x0.device,)
+            return
+        lib, fn, args, counter, what, device = entry
+        check_launch(lib, fn(*args, stream_of(device)), what)
+        counter.bump()
+
+
 def check_launch(lib, rc: int, what: str) -> None:
     """Raise when a launch returned a CUDA error (the C entry points return
     ``cudaGetLastError()`` right after the launch)."""

@@ -29,6 +29,7 @@ from ._build import INT, LL, PTR
 from ._common import (
     LANES,
     LaunchCounter,
+    PreparedLaunch,
     aligned16,
     check_launch,
     check_ranks,
@@ -223,6 +224,42 @@ def ring_allreduce(
 
 
 ring_allreduce.launches = LaunchCounter()
+
+
+class PreparedAllreduce(PreparedLaunch):
+    """K1 with its reduce function, segments, direction and wire resolved
+    (:class:`PreparedLaunch`: its pointer tables and layout kept by
+    pointers).  CPU tensors, P = 1 and empty operands take
+    :func:`ring_allreduce` every time."""
+
+    def __init__(self, function=ReduceFunction.SUM, num_segments: int = 1,
+                 bidirectional: bool = False, wire_dtype=None):
+        super().__init__()
+        self.function = function
+        self.num_segments = int(num_segments)
+        self.bidirectional = bool(bidirectional)
+        self.wire_dtype = wire_dtype
+
+    def _full(self, xs, out) -> None:
+        ring_allreduce(xs, self.function, self.num_segments,
+                       bidirectional=self.bidirectional,
+                       wire_dtype=self.wire_dtype, out=out)
+
+    def _entry(self, xs, out):
+        P, n, dtype = len(xs), xs[0].numel(), xs[0].dtype
+        if P == 1 or not n:
+            return None
+        wire = _resolve_wire(dtype, self.wire_dtype)
+        _, half, blk = _allreduce_layout(
+            n, P, dtype, self.num_segments, self.bidirectional, wire)
+        pin, pout = pointers(xs), pointers(out)
+        lib = _lib()
+        return (lib, lib.accl_ring_allreduce, (
+            pointer_table(pin), pointer_table(pout), P, n, half, blk,
+            int(torch_to_dtype(dtype)), int(self.function),
+            int(torch_to_dtype(wire)) if wire is not None else 0,
+            _vec(pin + pout, n, dtype)), ring_allreduce.launches,
+            "ring_allreduce")
 
 
 # ---------------------------------------------------------------------------

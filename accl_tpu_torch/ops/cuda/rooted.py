@@ -43,6 +43,7 @@ from . import _build
 from ._build import INT, LL, PTR
 from ._common import (
     LaunchCounter,
+    PreparedLaunch,
     aligned16,
     check_launch,
     on_cuda,
@@ -352,3 +353,78 @@ def ring_gather(
 
 
 ring_gather.launches = LaunchCounter()
+
+
+# ---------------------------------------------------------------------------
+# prepared forms (the gang's warm path)
+# ---------------------------------------------------------------------------
+
+
+class PreparedReduce(PreparedLaunch):
+    """Row 10 with its root, function and segments resolved; its pointer
+    tables kept by pointers (:class:`PreparedLaunch`)."""
+
+    def __init__(self, root: int = 0, function=ReduceFunction.SUM,
+                 num_segments: int = 1):
+        super().__init__()
+        self.root, self.function = int(root), function
+        self.num_segments = int(num_segments)
+
+    def _full(self, xs, out) -> None:
+        ring_reduce(xs, self.root, self.function, self.num_segments, out=out)
+
+    def _entry(self, xs, out):
+        n, dtype = xs[0].numel(), xs[0].dtype
+        if not n or all(o is None for o in out):
+            return None
+        pin, pout = pointers(xs), pointers(out)
+        lib = _lib()
+        return (lib, lib.accl_ring_reduce, (
+            pointer_table(pin), pointer_table(pout), len(xs), self.root, n,
+            int(torch_to_dtype(dtype)), int(self.function),
+            _vec(pin + pout, n, dtype)), ring_reduce.launches, "ring_reduce")
+
+
+class PreparedScatter(PreparedLaunch):
+    """Row 11 with its root and segments resolved; the root's operand
+    pointer and the output table kept by pointers."""
+
+    def __init__(self, root: int = 0, num_segments: int = 1):
+        super().__init__()
+        self.root, self.num_segments = int(root), int(num_segments)
+
+    def _full(self, xs, out) -> None:
+        ring_scatter(xs, self.root, self.num_segments, out=out)
+
+    def _entry(self, xs, out):
+        src = xs[self.root]
+        n = src.numel() // len(xs)
+        if not n:
+            return None
+        lib = _lib()
+        return (lib, lib.accl_ring_scatter, (
+            src.data_ptr(), pointer_table(pointers(out)), len(xs), n,
+            src.element_size()), ring_scatter.launches, "ring_scatter")
+
+
+class PreparedGather(PreparedLaunch):
+    """K3's root-only gather with its root and segments resolved; the
+    input table and the root's output pointer kept by pointers."""
+
+    def __init__(self, root: int = 0, num_segments: int = 1):
+        super().__init__()
+        self.root, self.num_segments = int(root), int(num_segments)
+
+    def _full(self, xs, out) -> None:
+        ring_gather(xs, self.root, self.num_segments, out=out)
+
+    def _entry(self, xs, out):
+        n = xs[0].numel()
+        if not n or any(o is not None for r, o in enumerate(out)
+                        if r != self.root):
+            return None  # the all-rank table runs the allgather
+        lib = ring_lib()
+        return (lib, lib.accl_ring_gather_root, (
+            pointer_table(pointers(xs)), out[self.root].data_ptr(), len(xs),
+            n, xs[0].element_size()), ring_gather.launches, "ring_gather")
+

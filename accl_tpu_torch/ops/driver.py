@@ -21,6 +21,7 @@ the CPU, and raises when there is no card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Optional, Sequence
 
 import torch
@@ -29,6 +30,7 @@ from ..constants import ReduceFunction, as_datatype, dtype_to_torch
 from . import collectives, ring
 from .cuda import ring as kring
 from .cuda import rooted as krooted
+from .wire import wire_lane_roundtrip_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,3 +250,103 @@ def run_alltoall(stacked, mesh: Mesh, out=None):
 def _width(stacked) -> int:
     return (stacked.shape[1] if isinstance(stacked, torch.Tensor)
             else stacked[0].shape[0])
+
+
+# ---------------------------------------------------------------------------
+# prepared handles (the gang's warm path)
+# ---------------------------------------------------------------------------
+
+
+class Prepared:
+    """A resolved lowering for one planned call shape: ``handle(xs,
+    outs)`` runs it over the per-rank operand tensors ``xs`` (each at
+    least ``prep``'s width) into ``outs`` (None: a rank that takes no
+    result).  The kernel routes (K1, rows 10 and 11, K3's root-only
+    gather) are the kernels' prepared forms, which keep their pointer
+    tables by pointers (``ops.cuda._common.PreparedLaunch``).  ``prep = (in_w, wire name or None)`` cuts each operand to
+    the call's width and rounds it through the wire (the rooted and
+    data-movement ops' compressed lane; the allreduce keeps its lane in
+    its lowering)."""
+
+    __slots__ = ("op", "run", "in_w", "wire", "root")
+
+    def __init__(self, op: str, run, in_w: Optional[int], wire, root):
+        self.op, self.run, self.in_w, self.wire = op, run, in_w, wire
+        self.root = root
+
+    def __call__(self, xs, outs) -> None:
+        if self.in_w is not None:
+            xs = [x[:self.in_w] for x in xs]
+        if self.wire is not None:
+            xs = wire_lane_roundtrip_rows(xs, as_datatype(self.wire))
+        if self.root is not None:  # the scatter reads the root's alone
+            xs = [xs[self.root]] * len(xs)
+        self.run(xs, outs)
+
+
+def prepare(op: str, mesh: Mesh, function=ReduceFunction.SUM, extra=None,
+            prep=None) -> Prepared:
+    """The prepared handle of a driver op (the JAX driver's ``prepare``):
+    ``op`` names the lowering (``allreduce``, ``pallas_allreduce``,
+    ``compressed_allreduce``, ``ring_allreduce``, ``reduce`` /
+    ``pallas_reduce``, ``scatter`` / ``pallas_scatter``, ``gather`` /
+    ``pallas_gather``, ``allgather``, ``reduce_scatter``, ``alltoall``)
+    and ``extra`` its resolved arguments.  Handles are cached by the whole
+    argument list, so the call form must stay the same between callers:
+    ``extra`` omitted here is ``extra=None`` there, as in JAX (whose
+    ``lru_cache`` keys tell the two forms apart)."""
+    if extra is None:
+        return _prepared(op, mesh, function, prep=prep)
+    return _prepared(op, mesh, function, extra, prep=prep)
+
+
+@functools.lru_cache(maxsize=256)
+def _prepared(op: str, mesh: Mesh, function=ReduceFunction.SUM, extra=None,
+              prep=None) -> Prepared:
+    in_w, wire = prep if prep is not None else (None, None)
+    fn = ReduceFunction(int(function))
+    root = None
+    if op == "pallas_allreduce":
+        nseg, wire_name, bidir = extra
+        run = kring.PreparedAllreduce(
+            fn, nseg, bidirectional=bidir,
+            wire_dtype=_torch_dtype(wire_name) if wire_name else None)
+    elif op == "allreduce":
+        def run(xs, outs):
+            run_allreduce(xs, mesh, fn, out=outs)
+    elif op == "compressed_allreduce":
+        def run(xs, outs):
+            run_compressed_allreduce(xs, mesh, fn, wire_dtype=extra, out=outs)
+    elif op == "ring_allreduce":
+        def run(xs, outs):
+            run_ring_allreduce(xs, mesh, fn, extra, out=outs)
+    elif op == "reduce":
+        def run(xs, outs):
+            run_reduce(xs, mesh, extra, fn, out=outs)
+    elif op in ("scatter", "gather"):
+        lowering = run_scatter if op == "scatter" else run_gather
+        root = extra if op == "scatter" else None
+
+        def run(xs, outs):
+            lowering(xs, mesh, extra, out=outs)
+    elif op in ("pallas_reduce", "pallas_scatter", "pallas_gather"):
+        r, nseg = extra
+        if op == "pallas_reduce":
+            run = krooted.PreparedReduce(r, fn, nseg)
+        elif op == "pallas_scatter":
+            run, root = krooted.PreparedScatter(r, nseg), r
+        else:
+            run = krooted.PreparedGather(r, nseg)
+    elif op == "allgather":
+        def run(xs, outs):
+            run_allgather(xs, mesh, out=outs)
+    elif op == "reduce_scatter":
+        def run(xs, outs):
+            run_reduce_scatter(xs, mesh, fn, out=outs)
+    elif op == "alltoall":
+        def run(xs, outs):
+            run_alltoall(xs, mesh, out=outs)
+    else:
+        raise ValueError(f"no prepared lowering {op!r}")
+    return Prepared(op, run, in_w, wire, root)
+

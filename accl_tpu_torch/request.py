@@ -4,6 +4,9 @@ An engine completes a request when it has LAUNCHED the call's device
 work; on a CUDA device it also hands over the event recorded on the
 launching stream right after the launch.  ``wait()`` then blocks on that
 event alone, so waiting on one call never synchronises the whole device.
+An engine may also park the call's result placement on the request
+(:meth:`Request.defer_result`: a received payload's copy into the
+receiver's buffer); ``wait()`` / ``test()`` / ``check()`` run it first.
 
 :class:`CommandQueue` holds the facade's open batch: calls queue there
 between ``begin_batch()`` and ``flush()``, and ``drain()`` hands the run
@@ -46,6 +49,12 @@ class Request:
         self._pre_wait = None
         #: True when the call ran as a slot of a command-ring window
         self.ring_resident: Optional[bool] = None
+        #: a parked result placement (:meth:`defer_result`), run once by
+        #: the first wait / test / check after completion
+        self._resolver = None
+        self._cb_lock = threading.Lock()
+        #: the payload the parked placement reads (dropped once it ran)
+        self.device_handle = None
 
     # -- engine side --------------------------------------------------------
     def mark_executing(self) -> None:
@@ -65,7 +74,34 @@ class Request:
         self._status = RequestStatus.COMPLETED
         self._done.set()
 
+    def defer_result(self, resolver, handle=None) -> None:
+        """Engine side: park the result placement (the device copy that
+        delivers the result into the user's buffer) until the user waits
+        or tests.  Must be called BEFORE ``complete()``."""
+        self._resolver = resolver
+        self.device_handle = handle
+
     # -- user side ----------------------------------------------------------
+    def materialize(self) -> None:
+        """Run the parked result placement, once (safe from concurrent
+        waiters: the locked swap runs it exactly once).  A placement that
+        fails downgrades an OK retcode to INVALID_OPERATION, so
+        ``check()`` raises it as an ACCLError."""
+        with self._cb_lock:
+            resolver, self._resolver = self._resolver, None
+        if resolver is None:
+            return
+        try:
+            resolver()
+        except Exception as e:
+            if self._retcode == ErrorCode.OK:
+                self._retcode = ErrorCode.INVALID_OPERATION
+                self.error_context = {
+                    "op": self.op_name,
+                    "error": f"{type(e).__name__}: {e}"[:300]}
+        finally:
+            self.device_handle = None
+
     def done(self) -> bool:
         """Engine-side completion probe: no batch flush, no device wait."""
         return self._done.is_set()
@@ -85,6 +121,7 @@ class Request:
         self._auto_flush()
         if not self._done.is_set():
             return False
+        self.materialize()
         return self.event is None or self.event.query()
 
     def wait(self, timeout: Optional[float] = None) -> bool:
@@ -94,6 +131,7 @@ class Request:
         self._auto_flush()
         if not self._done.wait(timeout):
             return False
+        self.materialize()
         if self.event is not None:
             self.event.synchronize()
         return True
@@ -106,6 +144,8 @@ class Request:
         return self._duration_ns
 
     def check(self, context: str = "") -> None:
+        if self._done.is_set():
+            self.materialize()
         if self._retcode != ErrorCode.OK:
             raise ACCLError(
                 self._retcode, context or self.op_name,

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-path   # phase 4's launch path alone
+    python3 chip_smoke.py --dispatch      # phase 3i and facade_dispatch
 
 Phases (any failure exits non-zero):
 
@@ -172,6 +173,16 @@ Phases (any failure exits non-zero):
       ``reference_attention`` on the full sequence (chunked over batch
       and 8 heads); the run must launch row 12 four times and row 15
       twice, and no other kernel;
+   i. the dispatch path (``dispatch_main_path``; ``--dispatch`` runs it
+      and ``facade_dispatch`` alone): sub-communicators at P = 1, 2 and
+      3 of ``cuda_group(4)`` at 64 MiB a rank under every allreduce
+      register, a bcast and a reduce rooted at rank 1 of [2, 3], a
+      gather rooted at rank 1 of [1, 3] (K3), a batched window of 8 on
+      [0, 1], the warm call (1 device interaction, a plan hit), a
+      register write (one re-plan), 8 x 16 MiB refused by the ring and
+      run as one fused dispatch, and a host-only bfloat16 allreduce;
+      each step's launches counted alone, each result held against its
+      plain version (the host path against numpy's fold, bit for bit);
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (K3's
    allgather and root-only gather, K4, row 11 and row 13 also by device
@@ -232,7 +243,11 @@ Phases (any failure exits non-zero):
    p90 of one call at the main path's width (20 calls after 2 warm-ups)
    for Ulysses (``_a2a``), Ulysses with row 12, the ppermute
    ``ring_attention`` and row 15 over contiguous and striped shards,
-   with each form's peak memory and phase 3h's gaps.
+   with each form's peak memory and phase 3h's gaps; and
+   ``facade_dispatch`` (after ``facade_batch``): the warm
+   ``pallas_ring`` allreduce at 256 KiB and 4 MiB on the world and on a
+   2-rank sub-communicator (p50, p90, launch p50, interactions a call,
+   the plan hit rate) and 8 x 16 MiB fused against one by one.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -259,6 +274,9 @@ N_RANK = 16 * 1024 * 1024  # elements per rank on the main path (64 MiB f32)
 N_COMBINE = 64 * 1024 * 1024  # combine operand elements (256 MB f32)
 P_MAIN = 4
 SEED = 1234
+#: phase 3i's batch the ring refuses: 16 MiB float32 a rank, over the
+#: ring's 4 MiB payload limit
+FUSED_BATCH_N = 4 * 1024 * 1024
 ROOTED_REGISTERS = ("reduce_algorithm", "bcast_algorithm",
                     "scatter_algorithm", "gather_algorithm")
 SLICE1_KERNELS = ("ring_allreduce", "ring_reduce_scatter", "ring_allgather",
@@ -1199,6 +1217,386 @@ def refused_windows() -> dict:
     return counted
 
 
+def bf16_fold_bits(rows) -> "np.ndarray":
+    """The rank-order bfloat16 fold in numpy alone (no ``ml_dtypes``):
+    each step adds in float32 and rounds to nearest even; ``rows`` and
+    the result are uint16 bit patterns."""
+    import numpy as np
+
+    def widen(bits):
+        return (bits.astype(np.uint32) << 16).view(np.float32)
+
+    def narrow(f):
+        u = f.view(np.uint32)
+        return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+    acc = rows[0]
+    for row in rows[1:]:
+        acc = narrow(widen(acc) + widen(row))
+    return acc
+
+
+def dispatch_main_path(kc) -> dict:
+    """Phase 3i: the dispatch path on ``cuda_group(4)`` at the main path's
+    width (64 MiB float32 a rank), each step's launches counted alone and
+    every result held against its plain version:
+
+    * a one-member communicator [3] (K1's P = 1 branch: a copy, no
+      launch);
+    * sub-communicators [0, 1] and [2, 3] at once: allreduce under
+      ``xla``, ``pallas_ring`` and ``pallas_ring_bidir`` (K1 at P = 2),
+      then [0, 1, 2] (P = 3, ``pallas_ring_bidir``), each three times
+      (cold, prepared, warm: the third launches with the kept pointer
+      tables);
+    * on [2, 3] a bcast and a reduce rooted at its rank 1 (session 3)
+      under ``pallas_ring`` (rows 9, 10; the reduce three times); on
+      [1, 3] an allgather (the plain lowering, as JAX's is XLA's) and a
+      gather rooted at its rank 1 under ``pallas_ring`` (K3's root-only
+      form, three times);
+    * a batched window of 8 allreduces at 256 KiB on [0, 1]: one refill,
+      one sequencer launch, no fallback;
+    * a warm allreduce: exactly 1 device interaction and a plan hit; a
+      ``set_tuning`` write: exactly one re-plan;
+    * 8 allreduces at 16 MiB a rank in one batch: the ring refuses them
+      (``oversized``), ``_run_batch_fused`` runs them as 1 interaction
+      with no sequencer launch, equal bit for bit to the calls one by one;
+    * a bfloat16 allreduce on host-only buffers: the host path (no
+      interaction, no launch), bit for bit with numpy's rank-order fold.
+
+    Returns the launch counts over the phase."""
+    import numpy as np
+    import torch
+
+    import accl_tpu_torch as at
+
+    P, n = P_MAIN, N_RANK
+    SUM = at.ReduceFunction.SUM
+    totals = {k: 0 for k in kc.KERNELS}
+    rng = np.random.default_rng(SEED + 9)
+    data = rng.standard_normal((P, n), dtype=np.float32)
+    group = at.cuda_group(P)
+    gang = group[0].engine.gang
+
+    def step(what, rank_main, ranks, want, reps=1):
+        """Run ``rank_main`` on ``ranks``, ``reps`` times over (the third
+        time on, a planned call takes its prepared handle with its kept
+        pointer tables); the kernels it launched must be ``want`` (a
+        dict) and nothing else."""
+        for k in kc.KERNELS.values():
+            k.launches.reset()
+        sub = [group[r] for r in ranks]
+        for _ in range(reps):
+            run_ranks(sub, lambda a, i: rank_main(a, ranks[i]), what)
+        torch.cuda.synchronize()
+        got = {k: f.launches.count for k, f in kc.KERNELS.items()}
+        if {k: v for k, v in got.items() if v} != want:
+            fail(f"phase 3i {what}: launches {got}, want {want}")
+        for k, v in got.items():
+            totals[k] += v
+
+    try:
+        send = [a.create_buffer_from(data[r]) for r, a in enumerate(group)]
+        recv = [a.create_buffer(n, np.float32) for a in group]
+        xs = [b.tensor for b in send]
+        halves = [[0, 1], [2, 3]]
+        comms = {}
+        for a in group:
+            a.set_tuning("ring_segments", 4)
+        for r, a in enumerate(group):
+            comms[r] = a.create_communicator(halves[r // 2])
+        for algo in ("xla", "pallas_ring", "pallas_ring_bidir"):
+            for a in group:
+                a.set_tuning("allreduce_algorithm", algo)
+
+            def halves_main(a, r):
+                a.allreduce(send[r], recv[r], comm=comms[r])
+
+            step(f"allreduce on [0, 1] and [2, 3] under {algo}",
+                 halves_main, [0, 1, 2, 3],
+                 {} if algo == "xla" else {"ring_allreduce": 6}, reps=3)
+            for pair in halves:
+                rows = [xs[r] for r in pair]
+                want = (rows[0] + rows[1] if algo == "xla"
+                        else kc.ring_allreduce_plain(
+                            rows, SUM, 4,
+                            bidirectional=algo == "pallas_ring_bidir")[0])
+                for r in pair:
+                    compare(f"3i allreduce {pair} {algo} rank {r}",
+                            recv[r].device_array(), want)
+        solo = group[3].create_communicator([3])
+        step("allreduce on [3] under pallas_ring_bidir",
+             lambda a, r: a.allreduce(send[r], recv[r], comm=solo), [3], {})
+        compare("3i allreduce P=1", recv[3].device_array(), xs[3])
+        trio = {r: group[r].create_communicator([0, 1, 2]) for r in range(3)}
+        step("allreduce on [0, 1, 2] under pallas_ring_bidir",
+             lambda a, r: a.allreduce(send[r], recv[r], comm=trio[r]),
+             [0, 1, 2], {"ring_allreduce": 3}, reps=3)
+        want = kc.ring_allreduce_plain(xs[:3], SUM, 4, bidirectional=True)
+        for r in range(3):
+            compare(f"3i allreduce P=3 rank {r}", recv[r].device_array(),
+                    want[r])
+        for a in group:
+            a.set_tuning("allreduce_algorithm", "xla")
+            a.set_tuning("bcast_algorithm", "pallas_ring")
+            a.set_tuning("reduce_algorithm", "pallas_ring")
+        bc = {r: group[r].create_buffer_from(data[r]) for r in (2, 3)}
+        step("bcast root 1 on [2, 3]",
+             lambda a, r: a.bcast(bc[r], root=1, comm=comms[r]), [2, 3],
+             {"ring_bcast": 1})
+        for r in (2, 3):
+            compare(f"3i bcast rank {r}", bc[r].device_array(), xs[3])
+        step("reduce root 1 on [2, 3]",
+             lambda a, r: a.reduce(send[r], recv[r] if r == 3 else None,
+                                   root=1, comm=comms[r]), [2, 3],
+             {"ring_reduce": 3}, reps=3)
+        compare("3i reduce root", recv[3].device_array(),
+                kc.ring_reduce_plain(xs[2:], 1, SUM, 4)[1])
+        for a in group:
+            a.set_tuning("bcast_algorithm", "xla")
+            a.set_tuning("reduce_algorithm", "xla")
+        # on [1, 3]: the allgather (its lowering is the plain one, as
+        # JAX's is XLA's all_gather) and the gather rooted at its rank 1
+        # under pallas_ring, K3's root-only form
+        odd = {r: group[r].create_communicator([1, 3]) for r in (1, 3)}
+        m = n // 2
+        gathered = {r: group[r].create_buffer(n, np.float32) for r in (1, 3)}
+        step("allgather on [1, 3]",
+             lambda a, r: a.allgather(send[r], gathered[r], m, comm=odd[r]),
+             [1, 3], {})
+        for r in (1, 3):
+            compare(f"3i allgather rank {r}", gathered[r].device_array(),
+                    torch.cat([xs[1][:m], xs[3][:m]]))
+        for a in group:
+            a.set_tuning("gather_algorithm", "pallas_ring")
+        rooted = group[3].create_buffer(n, np.float32)
+        step("gather root 1 on [1, 3]",
+             lambda a, r: a.gather(send[r], rooted if r == 3 else None, m,
+                                   root=1, comm=odd[r]),
+             [1, 3], {"ring_gather": 3}, reps=3)
+        compare("3i gather root", rooted.device_array(),
+                torch.cat([xs[1][:m], xs[3][:m]]))
+        for a in group:
+            a.set_tuning("gather_algorithm", "xla")
+
+        # a batched window of 8 allreduces at 256 KiB on [0, 1]
+        w = 64 * 1024
+        outs = {r: [group[r].create_buffer(w, np.float32) for _ in range(8)]
+                for r in (0, 1)}
+        small = {r: send[r].slice(0, w) for r in (0, 1)}
+        st0 = gang.cmdring.stats()
+        ic0 = group[0].capabilities()["device_interactions"]
+
+        def window(a, r):
+            with a.batch():
+                reqs = [a.allreduce(small[r], o, w, comm=comms[r],
+                                    run_async=True) for o in outs[r]]
+            for q in reqs:
+                if not q.wait(120) or not q.ring_resident:
+                    raise RuntimeError(f"{q.op_name} off the ring")
+                q.check()
+
+        step("window of 8 on [0, 1]", window, [0, 1], {"sequencer": 1})
+        st1 = gang.cmdring.stats()
+        ic1 = group[0].capabilities()["device_interactions"]
+        if (st1["refills"] - st0["refills"] != 1 or ic1 - ic0 != 1
+                or st1["fallbacks"] != st0["fallbacks"]):
+            fail(f"phase 3i window: {st0} -> {st1}, interactions "
+                 f"{ic1 - ic0}")
+        for r in (0, 1):
+            for o in outs[r]:
+                compare(f"3i window rank {r}", o.device_array(),
+                        xs[0][:w] + xs[1][:w])
+
+        # the warm call and the register write
+        for a in group:
+            a.set_tuning("allreduce_algorithm", "pallas_ring")
+
+        def world(a, r):
+            a.allreduce(send[r], recv[r])
+
+        for _ in range(2):
+            run_ranks(group, world, "3i warm-up")
+        ic0 = group[0].capabilities()["device_interactions"]
+        pc0 = group[0].capabilities()["plan_cache"]
+        step("warm allreduce", world, [0, 1, 2, 3], {"ring_allreduce": 1})
+        ic1 = group[0].capabilities()["device_interactions"]
+        pc1 = group[0].capabilities()["plan_cache"]
+        if ic1 - ic0 != 1 or pc1["hits"] - pc0["hits"] != 1 or (
+                pc1["misses"] != pc0["misses"]):
+            fail(f"phase 3i warm call: interactions {ic1 - ic0}, plan "
+                 f"cache {pc0} -> {pc1}")
+        want = kc.ring_allreduce_plain(xs, SUM, 4)
+        for r in range(P):
+            compare(f"3i warm allreduce rank {r}", recv[r].device_array(),
+                    want[r])
+        for a in group:
+            a.set_tuning("ring_segments", 4)
+        pc0 = group[0].capabilities()["plan_cache"]
+        step("allreduce after set_tuning", world, [0, 1, 2, 3],
+             {"ring_allreduce": 1})
+        pc1 = group[0].capabilities()["plan_cache"]
+        if pc1["misses"] - pc0["misses"] != 1 or pc0["size"] != 0:
+            fail(f"phase 3i set_tuning: plan cache {pc0} -> {pc1}")
+        for a in group:
+            a.set_tuning("allreduce_algorithm", "xla")
+
+        # 8 allreduces at 16 MiB a rank: refused as oversized, fused
+        big = FUSED_BATCH_N
+        src = {r: send[r].slice(0, big) for r in range(P)}
+        res = {mode: {r: [group[r].create_buffer(big, np.float32)
+                          for _ in range(8)] for r in range(P)}
+               for mode in ("fused", "single")}
+        st0 = gang.cmdring.stats()["fallbacks"].get("oversized", 0)
+        ic0 = group[0].capabilities()["device_interactions"]
+
+        def fused(a, r):
+            with a.batch():
+                reqs = [a.allreduce(src[r], o, big, run_async=True)
+                        for o in res["fused"][r]]
+            for q in reqs:
+                if not q.wait(120) or q.ring_resident:
+                    raise RuntimeError(f"{q.op_name} rode the ring")
+                q.check()
+
+        step("fused batch of 8 at 16 MiB", fused, [0, 1, 2, 3], {})
+        ic1 = group[0].capabilities()["device_interactions"]
+        st1 = gang.cmdring.stats()["fallbacks"].get("oversized", 0)
+        if ic1 - ic0 != 1 or st1 - st0 != 1:
+            fail(f"phase 3i fused batch: {ic1 - ic0} interactions, "
+                 f"{st1 - st0} oversized refusals")
+        step("8 allreduces at 16 MiB one by one",
+             lambda a, r: [a.allreduce(src[r], o, big)
+                           for o in res["single"][r]], [0, 1, 2, 3], {})
+        for r in range(P):
+            for f, o in zip(res["fused"][r], res["single"][r]):
+                compare(f"3i fused batch rank {r}", f.device_array(),
+                        o.device_array())
+        del res
+
+        # a bfloat16 allreduce on host-only buffers
+        hn = 1024 * 1024
+        f = rng.standard_normal((P, hn), dtype=np.float32) * 8
+        u = f.view(np.uint32)
+        bits = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+        hs = {r: group[r].create_buffer(hn, at.DataType.BFLOAT16,
+                                        host_only=True) for r in range(P)}
+        hd = {r: group[r].create_buffer(hn, at.DataType.BFLOAT16,
+                                        host_only=True) for r in range(P)}
+        for r in range(P):
+            hs[r].tensor.view(torch.int16).copy_(
+                torch.from_numpy(bits[r].view(np.int16)))
+        ic0 = group[0].capabilities()["device_interactions"]
+        step("host-only bfloat16 allreduce",
+             lambda a, r: a.allreduce(hs[r], hd[r]), [0, 1, 2, 3], {})
+        if group[0].capabilities()["device_interactions"] != ic0:
+            fail("phase 3i host path counted a device interaction")
+        fold = bf16_fold_bits(list(bits))
+        for r in range(P):
+            got = hd[r].tensor.view(torch.int16).numpy().view(np.uint16)
+            if not np.array_equal(got, fold):
+                fail(f"phase 3i host-only bfloat16 rank {r}: "
+                     f"{int((got != fold).sum())} elements differ from the "
+                     f"numpy fold")
+    finally:
+        for a in group:
+            a.deinit()
+    return totals
+
+
+def facade_dispatch_latency(sizes, iters: int = 30) -> dict:
+    """Phase 5's dispatch record: the warm allreduce under ``pallas_ring``
+    at each size on the world and on the sub-communicator [0, 1] (its two
+    ranks alone): p50 / p90 of rank 0's call, the p50 of the gang's launch
+    time (``Request.get_duration_ns``), device interactions per warm call
+    and the plan-cache hit rate over the timed calls; then 8 allreduces
+    at 16 MiB a rank in one batch (the ring refuses them; one fused
+    dispatch) against the same calls one by one.  Every measurement runs
+    twice over, the second pass kept."""
+    import numpy as np
+
+    import accl_tpu_torch as at
+
+    group = at.cuda_group(P_MAIN)
+    rows, stats = [], {}
+    try:
+        subs = {r: group[r].create_communicator([0, 1]) for r in (0, 1)}
+        for a in group:
+            a.set_tuning("allreduce_algorithm", "pallas_ring")
+            a.set_tuning("ring_segments", 4)
+        for where, ranks in (("world", list(range(P_MAIN))),
+                             ("subcomm [0, 1]", [0, 1])):
+            for n in sizes:
+                samples = {}
+
+                def rank_main(a, i, n=n, where=where):
+                    r = ranks[i]
+                    s = a.create_buffer(n, np.float32)
+                    d = a.create_buffer(n, np.float32)
+                    comm = subs[r] if where != "world" else None
+                    for _pass in range(2):
+                        if r == 0 and _pass == 1:
+                            stats["ic"] = a.capabilities()[
+                                "device_interactions"]
+                            stats["pc"] = a.capabilities()["plan_cache"]
+                        times, launch = [], []
+                        for _ in range(iters):
+                            t = time.perf_counter()
+                            req = a.allreduce(s, d, comm=comm)
+                            times.append(time.perf_counter() - t)
+                            launch.append(req.get_duration_ns() * 1e-9)
+                        if r == 0:
+                            samples["t"], samples["l"] = times, launch
+
+                run_ranks([group[r] for r in ranks], rank_main,
+                          f"facade dispatch {where} {n}")
+                a0 = group[0]
+                ic = a0.capabilities()["device_interactions"] - stats["ic"]
+                pc = a0.capabilities()["plan_cache"]
+                hits = pc["hits"] - stats["pc"]["hits"]
+                misses = pc["misses"] - stats["pc"]["misses"]
+                rows.append({
+                    "comm": where, "ranks": len(ranks), "algo": "pallas_ring",
+                    "bytes_per_rank": 4 * n,
+                    "p50_ms": float(np.median(samples["t"])) * 1e3,
+                    "p90_ms": float(np.percentile(samples["t"], 90)) * 1e3,
+                    "launch_p50_ms": float(np.median(samples["l"])) * 1e3,
+                    "interactions_per_call": ic / iters,
+                    "plan_hit_rate": hits / max(1, hits + misses),
+                })
+        for a in group:
+            a.set_tuning("allreduce_algorithm", "xla")
+        big = FUSED_BATCH_N
+        batch = {}
+
+        def batch_main(a, r):
+            s = a.create_buffer(big, np.float32)
+            ds = [a.create_buffer(big, np.float32) for _ in range(8)]
+            for _pass in range(2):
+                for mode in ("fused", "one_by_one"):
+                    times = []
+                    for _ in range(5):
+                        t = time.perf_counter()
+                        if mode == "fused":
+                            with a.batch():
+                                reqs = [a.allreduce(s, d, run_async=True)
+                                        for d in ds]
+                            for q in reqs:
+                                q.wait(60)
+                                q.check()
+                        else:
+                            for d in ds:
+                                a.allreduce(s, d)
+                        times.append(time.perf_counter() - t)
+                    if r == 0:
+                        batch[mode] = float(np.median(times)) * 1e3
+
+        run_ranks(group, batch_main, "facade dispatch 16 MiB batch")
+    finally:
+        for a in group:
+            a.deinit()
+    return {"rows": rows, "batch_16mib_x8_p50_ms": batch}
+
+
 def time_sequencer(rand) -> dict:
     """Phase 4 for row 14: the windows of the bounds table at P = 4."""
     import numpy as np
@@ -1282,7 +1680,7 @@ def facade_batch_latency(sizes, iters: int = 20) -> list:
         for _pass in range(2):
             for n, (s, ds) in bufs.items():
                 for mode in ("batched", "unbatched"):
-                    times = []
+                    times, launch = [], []
                     for _ in range(iters):
                         t = time.perf_counter()
                         if mode == "batched":
@@ -1293,11 +1691,16 @@ def facade_batch_latency(sizes, iters: int = 20) -> list:
                                 q.wait(60)
                                 q.check()
                         else:
-                            for d in ds:
-                                a.allreduce(s, d)
+                            reqs = [a.allreduce(s, d) for d in ds]
                         times.append(time.perf_counter() - t)
+                        # the window's launch (its requests share it), or
+                        # the eight calls' launches
+                        launch.append(1e-9 * (
+                            max(q.get_duration_ns() for q in reqs)
+                            if mode == "batched" else
+                            sum(q.get_duration_ns() for q in reqs)))
                     if r == 0:
-                        samples[(mode, n)] = times
+                        samples[(mode, n)] = (times, launch)
 
     group = at.cuda_group(P_MAIN)
     try:
@@ -1311,7 +1714,8 @@ def facade_batch_latency(sizes, iters: int = 20) -> list:
         "mode": mode, "calls": 8, "bytes_per_rank": 4 * n,
         "p50_ms": float(np.median(t)) * 1e3,
         "p90_ms": float(np.percentile(t, 90)) * 1e3,
-    } for (mode, n), t in samples.items()]
+        "launch_p50_ms": float(np.median(lt)) * 1e3,
+    } for (mode, n), (t, lt) in samples.items()]
 
 
 # -- the transformer's serving path (row 16) --------------------------------
@@ -3903,6 +4307,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--dispatch"]:  # phase 3i and facade_dispatch alone
+        probe_phase(kc)
+        print(f"built {kc.build_all()}", flush=True)
+        t0 = time.time()
+        dispatched = dispatch_main_path(kc)
+        print(f"dispatch path ok ({time.time() - t0:.1f} s): launches "
+              f"{ {k: v for k, v in dispatched.items() if v} }", flush=True)
+        print(json.dumps({"facade_dispatch": {
+            "card": smi.stdout.strip().splitlines()[0],
+            **facade_dispatch_latency([64 * 1024, 1024 * 1024])}}))
+        return 0
     if sys.argv[1:] == ["--launch-path"]:  # the launch path alone
         if not kc.probe_copy(torch.ones(8, 128, device=dev)).eq(1).all():
             fail("the probe's copy differs from its input")
@@ -4115,10 +4530,15 @@ def main() -> int:
     seqp = seq_parallel_main_path(kc, dev)
     print(f"sequence-parallel path ok ({time.time() - t0:.1f} s): launches "
           f"{seqp['launches']}; gaps {seqp['gaps']}", flush=True)
-    # each kernel's launches over the probe's and the nine paths' runs
+    t0 = time.time()
+    dispatched = dispatch_main_path(kc)
+    print(f"dispatch path ok ({time.time() - t0:.1f} s): launches "
+          f"{ {k: v for k, v in dispatched.items() if v} }", flush=True)
+    # each kernel's launches over the probe's and the ten paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k] + serve["launches"][k]
                 + train["launches"][k] + compressed[k] + converged[k]
-                + p2p[k] + seqp["launches"][k] + probed[k] for k in launches}
+                + p2p[k] + seqp["launches"][k] + dispatched[k] + probed[k]
+                for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
     t0 = time.time()
@@ -4416,6 +4836,11 @@ def main() -> int:
     print(json.dumps({"facade_rooted": facade}))
     facade = facade_batch_latency([64 * 1024, 256 * 1024, 1024 * 1024])
     print(json.dumps({"facade_batch": facade}))
+    t1 = time.time()
+    facade = facade_dispatch_latency([64 * 1024, 1024 * 1024])
+    print(json.dumps({"facade_dispatch": {
+        "card": smi.stdout.strip().splitlines()[0], **facade}}))
+    print(f"facade_dispatch timing ({time.time() - t1:.1f} s)", flush=True)
     facade = facade_compressed_latency([1024 * 1024, N_RANK])
     print(json.dumps({"facade_compressed": {
         "card": smi.stdout.strip().splitlines()[0], "rows": facade}}))

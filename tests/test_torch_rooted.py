@@ -42,7 +42,7 @@ from accl_tpu.core import xla_group
 from accl_tpu.ops import driver as jdriver
 from accl_tpu.ops import pallas as pk
 from helpers import run_parallel
-from shared_scenarios import SCENARIOS
+from shared_scenarios import SCENARIOS, names_for_tier
 
 import accl_tpu_torch as at
 from accl_tpu_torch import interop
@@ -590,15 +590,24 @@ def test_ranks_disagreeing_on_the_root_all_fail(op):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize(
-    "name",
-    ["bcast_roots", "bcast_rendezvous_tree", "bcast_compressed",
-     "scatter_roots", "gather_roots", "reduce_roots", "alltoall",
-     "allreduce_fp8_wire", "allreduce", "allgather", "reduce_scatter",
-     "allreduce_int_dtypes", "barrier_then_allreduce",
-     "tuning_allreduce_algorithm", "tuning_invalid", "sendrecv",
-     "streams_local", "stream_put_remote"],
-)
+PORT_SCENARIOS = [
+    "bcast_roots", "bcast_rendezvous_tree", "bcast_compressed",
+    "scatter_roots", "gather_roots", "reduce_roots", "alltoall",
+    "allreduce_fp8_wire", "allreduce", "allgather", "reduce_scatter",
+    "allreduce_int_dtypes", "barrier_then_allreduce",
+    "tuning_allreduce_algorithm", "tuning_invalid", "sendrecv",
+    "streams_local", "stream_put_remote", "subset_comm_allgather",
+    "split_comm_allreduce",
+]
+
+
+def test_every_gang_scenario_runs_on_port():
+    """The port runs every scenario of the gang tier (sub-communicators
+    included)."""
+    assert sorted(PORT_SCENARIOS) == names_for_tier("gang")
+
+
+@pytest.mark.parametrize("name", PORT_SCENARIOS)
 @pytest.mark.parametrize("algo", ["xla", "pallas_ring"])
 def test_shared_scenario_on_port(name, algo):
     work, check, tiers = SCENARIOS[name]
