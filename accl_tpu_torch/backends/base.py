@@ -107,6 +107,10 @@ class BaseEngine:
         a device)."""
         return None
 
+    def drain_windows(self) -> None:
+        """A facade drain point for batched windows (no-op without a
+        command ring)."""
+
     def shutdown(self) -> None:
         raise NotImplementedError
 

@@ -22,10 +22,13 @@ Every dispatch bumps the gang's :class:`InteractionCounter` once.
 
 Batches: a flushed ``with accl.batch():`` run arrives as one gang event
 (``submit_batch``); the command ring (``cmdring.GangCommandRing``) runs it
-as windows of one sequencer launch each, or refuses it with a counted
-reason; a refused batch runs as one fused dispatch of the plain
-lowerings when it qualifies (:meth:`CudaGangContext._run_batch_fused`),
-and otherwise each position in order through the per-call path.
+as windows, one sequencer launch each or posts into a persistent run, or
+refuses it with a counted reason; a refused batch runs as one fused
+dispatch of the plain lowerings when it qualifies
+(:meth:`CudaGangContext._run_batch_fused`), and otherwise each position
+in order through the per-call path.  On a world-2 gang a batched send and
+recv join the run: a matched pair rides one ring slot, or delivers
+directly off the ring, and any other p2p position takes the channel.
 
 Point-to-point: a send and a recv meet in the gang's tag-matched
 :class:`P2PChannel`; the send posts a fresh device copy of its operand
@@ -49,10 +52,11 @@ import torch
 
 from ...arithconfig import reduce_op
 from ...buffer import DeviceBuffer, DummyBuffer, HostBuffer, make_buffer
-from ...cmdring import ring_widths
+from ...cmdring import complementary_pair, ring_widths
 from ...communicator import Communicator
 from ...constants import (
     ALGORITHM_TUNING_KEYS,
+    CMDRING_MAX_RUN_WINDOWS,
     AllreduceAlgorithm,
     CompressionFlags,
     ConfigFunction,
@@ -112,6 +116,16 @@ def apply_tuning(tuning: dict, options: CallOptions) -> ErrorCode:
         if int(val) != 0 and not is_wire_dtype(int(val)):
             return ErrorCode.CONFIG_ERROR
         tuning["wire_dtype"] = int(val)
+    elif key == TuningKey.CMDRING_RUN_WINDOWS:
+        # the persistent run's posture (0: the env default), clamped as
+        # the env knob is: an unbounded run would hold the device
+        if int(val) > CMDRING_MAX_RUN_WINDOWS:
+            return ErrorCode.CONFIG_ERROR
+        tuning["cmdring_run_windows"] = int(val)
+    elif key == TuningKey.CMDRING_LINGER_US:
+        if int(val) > 1_000_000:  # above 1 s a run would hold the device
+            return ErrorCode.CONFIG_ERROR
+        tuning["cmdring_linger_us"] = int(val)
     else:
         return ErrorCode.CONFIG_ERROR  # a register this engine does not serve
     return ErrorCode.OK
@@ -494,6 +508,11 @@ class CudaGangContext:
         self._lock = threading.Lock()
         self._slots: Dict[tuple, Dict[int, tuple]] = {}
         self._seq: Dict[Tuple[int, int], int] = {}
+        # a communicator's gang events run in their sequence order, one at
+        # a time (the last rank to arrive at event k may come before the
+        # one of event k - 1 has finished it)
+        self._executed: Dict[int, int] = {}
+        self._order = threading.Condition()
         self.tuning = dict(TUNING_DEFAULTS)
         # bumped by every register write: prepared state parked on a plan
         # under an older register set is rebuilt, never served
@@ -530,7 +549,15 @@ class CudaGangContext:
             if ready:
                 del self._slots[slot_key]
         if ready:
-            self._execute(comm, slot)
+            with self._order:
+                while self._executed.get(comm.id, 0) != seq:
+                    self._order.wait()
+            try:
+                self._execute(comm, slot)
+            finally:
+                with self._order:
+                    self._executed[comm.id] = seq + 1
+                    self._order.notify_all()
 
     @staticmethod
     def _sig(c: CallOptions) -> tuple:
@@ -559,8 +586,24 @@ class CudaGangContext:
         lead = calls[0]
         t0 = time.perf_counter_ns()
         event, context = None, None
+        p2p = [c.op in (Operation.SEND, Operation.RECV) for c in calls]
         try:
-            if any(self._sig(c) != self._sig(lead) for c in calls[1:]):
+            if all(p2p):
+                # a batched p2p position off the ring: a complementary pair
+                # delivers directly, any other shape takes the channel as
+                # unbatched calls would (the channel then completes them)
+                code, event = self._execute_p2p_pair(comm, calls, reqs)
+                if code is None:
+                    return
+            elif any(p2p):
+                # p2p beside a collective in one position: a torn gang,
+                # failed at once on every rank (the channel must not take
+                # a collective as a recv)
+                code = ErrorCode.INVALID_OPERATION
+                context = {"op": lead.op.name,
+                           "error": "torn gang: p2p and a collective at "
+                                    "one batch position"}
+            elif any(self._sig(c) != self._sig(lead) for c in calls[1:]):
                 code = ErrorCode.INVALID_OPERATION  # mismatched gang calls
                 context = {"op": lead.op.name, "error": "mismatched calls"}
             elif lead.fuse:
@@ -608,6 +651,38 @@ class CudaGangContext:
         for i in range(npos):
             self._execute_calls(comm, [e[0][i] for e in entries],
                                 [e[1][i] for e in entries])
+
+    def _execute_p2p_pair(self, comm: Communicator, calls: List[CallOptions],
+                          reqs: List[Request]):
+        """A batched p2p position that did not ride the ring.  A
+        complementary SEND/RECV pair delivers directly (the position is
+        the rendezvous): one copy of the source operand into the
+        receiver's result.  Any other shape (the cross exchange, whose
+        pairs meet ACROSS positions, a mismatched tag, a compressed end)
+        goes to the tag-matched channel call by call, as unbatched calls
+        do; returns ``(None, None)`` then (the channel completes them),
+        else ``(code, event)``."""
+        pair = complementary_pair(calls)
+        if pair is not None:
+            src, dst = pair
+            snd, rcv = calls[src], calls[dst]
+            res = rcv.res
+            if res is not None and not res.is_dummy:
+                n = snd.count
+                op0 = snd.op0
+                src_t = _check(op0, n, snd.arithcfg.uncompressed,
+                               "send operand")
+                _wait_operands(src_t.device, [op0])
+                self.interactions.bump()  # the delivery copy
+                return ErrorCode.OK, p2p_device_deliver(
+                    Payload(src_t), res, n)
+        for call, req in zip(calls, reqs):
+            engine = self.peers[comm.ranks[call.comm.local_rank].session]
+            if call.op == Operation.SEND:
+                engine._start_send(call, req)
+            else:
+                engine._start_recv(call, req)
+        return None, None
 
     def _execute_fused_decomposed(self, comm: Communicator,
                                   calls: List[CallOptions]):
@@ -730,6 +805,9 @@ class CudaGangContext:
         if npos == 0 or any(self.tuning.get(k, "xla") != "xla"
                             for k in BATCH_TUNING_KEYS):
             return False
+        if any(c.op in (Operation.SEND, Operation.RECV)
+               for e in entries for c in e[0]):
+            return False  # p2p positions run position by position
         positions = []
         written: set = set()  # result roots of earlier positions
         for i in range(npos):
@@ -1086,8 +1164,17 @@ class CudaEngine(StreamPortMixin, BaseEngine):
 
         for options, req in items:
             req.mark_executing()
-            if ((options.op in IN_W or options.op == Operation.BARRIER)
-                    and options.stream == StreamFlags.NO_STREAM):
+            gang_eligible = ((options.op in IN_W
+                              or options.op == Operation.BARRIER)
+                             and options.stream == StreamFlags.NO_STREAM)
+            # a batched SEND / RECV on a world-2 gang joins the run, so a
+            # matched pair can ride one ring slot (root = src, peer =
+            # dst); unpaired positions fall back per position
+            if (options.op in (Operation.SEND, Operation.RECV)
+                    and options.stream == StreamFlags.NO_STREAM
+                    and self.gang.cmdring.p2p_eligible(options)):
+                gang_eligible = True
+            if gang_eligible:
                 if run_comm is not None and options.comm is not run_comm:
                     flush_run()
                 run_comm = options.comm
@@ -1366,8 +1453,14 @@ class CudaEngine(StreamPortMixin, BaseEngine):
     def device_interactions(self) -> int:
         return self.gang.interactions.read()
 
+    def drain_windows(self) -> None:
+        """A facade drain point: wait for the gang's command-ring windows
+        not yet drained."""
+        self.gang.cmdring.drain(self.session)
+
     def shutdown(self) -> None:
         """Cancel this rank's parked sends and recvs (their watchdogs stop
-        and their requests fail); the gang itself runs on its callers'
-        threads and has nothing to stop."""
+        and their requests fail), and halt and join every command-ring run
+        (no thread or kernel outlives the engine)."""
         self.gang.p2p.cancel(self.session)
+        self.gang.cmdring.halt_sessions()

@@ -323,7 +323,7 @@ class CmdOpcode(enum.IntEnum):
     NOP = 0        # padding slot: decoded, skipped, status OK
     ALLREDUCE = 1
     BCAST = 2
-    HALT = 3       # teardown marker (the persistent run; not ported)
+    HALT = 3       # teardown marker of a persistent run
     REDUCE_SCATTER = 4
     ALLGATHER = 5
     ALLTOALL = 6
@@ -351,8 +351,8 @@ class FusedCompute(enum.IntEnum):
 
 #: Operation -> CmdOpcode: the sequencer's warm-path subset.  Fused
 #: opcodes are keyed by their fuse-hint name (they share a base Operation
-#: with a plain entry).  SEND/RECV keep their entries so the table stays
-#: the JAX package's; the port's ring refuses them (no p2p channel yet).
+#: with a plain entry).  SEND/RECV ride as matched pairs on world-2 gangs
+#: (one slot, root = src, peer = dst).
 CMDRING_OPCODES = {
     Operation.ALLREDUCE: CmdOpcode.ALLREDUCE,
     Operation.BCAST: CmdOpcode.BCAST,
@@ -388,7 +388,7 @@ CMDRING_FIELDS = {
     "dtype": 3,     # DataType of the operand
     "function": 4,  # ReduceFunction
     "root": 5,      # comm-relative root rank (BCAST)
-    "flags": 6,     # stochastic-rounding seed of the wire lane (0 here)
+    "flags": 6,     # stochastic-rounding seed of the wire lane
     "nseg": 7,      # ring segmentation register snapshot
     "peer": 8,      # hop OFFSET for FUSED_ATTN_HOP (SPMD-uniform)
     "wire": 9,      # DataType of the compressed wire lane (0 = none)
@@ -408,3 +408,15 @@ CMDRING_MAX_BYTES_ENV = "ACCL_CMDRING_MAX_BYTES"
 CMDRING_DEPTH_DEFAULT = 8
 CMDRING_MAX_DEPTH = 64
 CMDRING_MAX_PAYLOAD_BYTES = 4 * 1024 * 1024
+
+#: persistent-sequencer knobs: one run drains up to ACCL_CMDRING_RUN_WINDOWS
+#: refill windows (later windows of a stream are mailbox posts, not
+#: launches) and halts once its mailbox stays empty for
+#: ACCL_CMDRING_LINGER_MS; ACCL_CMDRING_LOWERING=pallas keeps every
+#: window inline (one launch each), =xla (the default) arms runs
+CMDRING_RUN_WINDOWS_ENV = "ACCL_CMDRING_RUN_WINDOWS"
+CMDRING_LINGER_ENV = "ACCL_CMDRING_LINGER_MS"
+CMDRING_LOWERING_ENV = "ACCL_CMDRING_LOWERING"
+CMDRING_RUN_WINDOWS_DEFAULT = 16
+CMDRING_MAX_RUN_WINDOWS = 128
+CMDRING_LINGER_MS_DEFAULT = 2.0

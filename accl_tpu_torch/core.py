@@ -458,6 +458,7 @@ class ACCL:
         self._batch_depth = 0
         self.flush()
         self._pending = None
+        self.engine.drain_windows()  # a drain point of the command ring
 
     def batch(self):
         """Context manager form::

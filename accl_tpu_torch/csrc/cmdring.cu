@@ -64,6 +64,33 @@
 //    that walks each phase's items and meets at a grid barrier whose
 //    counter the last block to arrive resets, so no memset is launched.
 //
+// The fp8 and int8 wire lanes (and a 16-bit lane under a nonzero seed) take
+// their own instantiation (LANES), chosen on the host from the window's
+// wires, so the plain and 16-bit windows keep their kernel and registers.
+// There, rank r's contribution to a slot rounds as JAX's _decode_slot_xla
+// rounds it (accl_tpu/ops/pallas/cmdring.py:320-375): its seed is
+// rank_seed(flags, r), flags the slot's seed word (0: round to nearest
+// even), and the counter of element e of r's operand row is e itself, so a
+// chunk at a * n keeps its offset; fp8 rounds stochastically through
+// wire.cuh's sr_round and JAX's conversions (e4m3 overflows to NaN); int8
+// quantizes with one absmax / 127 scale per 256 elements of the whole row,
+// anchored at element 0.  A window with an int8 slot starts with a scale
+// phase: every (slot, rank, segment) scale into a device scratch buffer,
+// then a grid barrier (the co-resident grid), then the fold.
+//
+// The persistent form (persistent_kernel, the counterpart of JAX's xla
+// lowering session, accl_tpu/ops/pallas/cmdring.py:30-37) is one
+// cooperative launch that drains a stream of windows from host-mapped
+// memory: block 0's thread 0 polls the doorbell (ld.acquire.sys) until a
+// window is posted, the HALT doorbell rings, the window budget is spent or
+// %globaltimer shows the mailbox idle for the linger; block 0 copies the
+// posted descriptor into a device staging buffer once, a grid barrier
+// publishes it, every block copies it into its shared memory and runs the
+// window as the one-shot kernel does, and after a last barrier the run
+// writes the window's count of done windows with __threadfence_system()
+// and a release store.  An idle run so holds the device for the linger at
+// most.
+//
 // Results that keep their operand's column (in place: allreduce, bcast,
 // send / recv, the MPI in-place allgather, reduce-scatter, fused apply and
 // matmul-reduce-scatter at the result's chunk 0, alltoall, the attention
@@ -78,15 +105,22 @@
 // were before the window).
 #include <cstddef>
 #include <cstring>
+#include <type_traits>
 
-#include "common.cuh"
+#include "wire.cuh"
 
 namespace {
 
 using accl::aligned;
 using accl::Arith;
+using accl::BF16;
 using accl::Convert;
+using accl::E4M3;
+using accl::E5M2;
+using accl::F16;
+using accl::F32;
 using accl::kThreads;
+using accl::max_nan;
 using accl::zero;
 
 constexpr int kMaxSlots = 64;   // CMDRING_MAX_DEPTH
@@ -94,10 +128,11 @@ constexpr int kMaxPtrs = 512;   // rank-slots per launch (64 slots x 8 ranks)
 constexpr int kWords = 11;      // CMDRING_SLOT_WORDS
 constexpr int kMaxP = 64;       // ranks of one window (common.cuh kMaxRanks)
 constexpr int kWarps = kThreads / 32;
+constexpr int kSeg = 256;       // WIRE_SEGMENT_ELEMS: the int8 lane's segment
 
 // slot word indices (CMDRING_FIELDS)
 enum : int { W_SEQN = 0, W_OPCODE = 1, W_FUNCTION = 4, W_ROOT = 5,
-             W_PEER = 8, W_FPARAM = 10 };
+             W_FLAGS = 6, W_PEER = 8, W_FPARAM = 10 };
 // CmdOpcode values used by the epilogue
 enum : int { OPC_ALLREDUCE = 1, OPC_BCAST = 2, OPC_REDUCE_SCATTER = 4,
              OPC_ALLGATHER = 5, OPC_ALLTOALL = 6, OPC_SEND = 8, OPC_RECV = 9,
@@ -112,7 +147,9 @@ enum : int { CLS_SAME = 0, CLS_AG = 1, CLS_APPLY = 2, CLS_RS = 3,
 // the columns of one part and the parts (rank pairs of an alltoall,
 // else 1), the width class, wire DataType (0: none) and barrier flag.
 // `in` / `out` hold slot s, rank r at s * P + r (null operand: zeros;
-// null result: that rank takes none).  `first` is filled by the launch.
+// null result: that rank takes none).  `first` and `maxseg` (the most
+// int8 segments of one slot's operand row, 0 without an int8 slot) are
+// filled by the launch, or by accl_sequencer_plan for a posted window.
 struct Window {
   int32_t words[kMaxSlots][kWords];
   int64_t in_w[kMaxSlots], out_w[kMaxSlots], chunk[kMaxSlots],
@@ -120,7 +157,7 @@ struct Window {
   int64_t first[kMaxSlots + 1];
   int32_t cls[kMaxSlots], wire[kMaxSlots], sync[kMaxSlots],
       parts[kMaxSlots];
-  int32_t n_slots, P, dtype, pad;
+  int32_t n_slots, P, dtype, maxseg;
   const void* in[kMaxPtrs];
   void* out[kMaxPtrs];
 };
@@ -130,6 +167,7 @@ static_assert(offsetof(Window, cls) == 5384, "descriptor layout");
 static_assert(offsetof(Window, n_slots) == 6408, "descriptor layout");
 static_assert(offsetof(Window, in) == 6424, "descriptor layout");
 static_assert(sizeof(Window) == 14616, "descriptor layout");
+static_assert(sizeof(Window) % 8 == 0, "copied in 8-byte words");
 
 template <typename T> struct Mul {  // float: no contraction into an FMA
   static __device__ __forceinline__ T mul(T a, T b) { return __fmul_rn(a, b); }
@@ -180,12 +218,85 @@ template <> struct Mul<int64_t> {
   }
 };
 
+
 // one contribution through the slot's wire lane (0 = none)
 template <typename T>
 __device__ __forceinline__ T wire_round(T v, int wire) {
   if (wire == DT_BF16) return Convert<T>::from(Convert<__nv_bfloat16>::from(v));
   if (wire == DT_F16) return Convert<T>::from(Convert<__half>::from(v));
   return v;
+}
+
+// The float operand types as wire.cuh's conversions take them: widened to
+// float32 and narrowed back as JAX's astype computes them (NaN bits kept).
+template <typename T> struct Wide;
+template <> struct Wide<float> {
+  static __device__ __forceinline__ float widen(float v) { return v; }
+  static __device__ __forceinline__ float narrow(float x) { return x; }
+};
+template <> struct Wide<__nv_bfloat16> {
+  static __device__ __forceinline__ float widen(__nv_bfloat16 v) {
+    return BF16::widen(__bfloat16_as_ushort(v));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 narrow(float x) {
+    return __ushort_as_bfloat16(BF16::narrow(x, DT_F32));
+  }
+};
+template <> struct Wide<__half> {
+  static __device__ __forceinline__ float widen(__half v) {
+    return F16::widen(__half_as_ushort(v));
+  }
+  static __device__ __forceinline__ __half narrow(float x) {
+    return __ushort_as_half(F16::narrow(x, DT_F32));
+  }
+};
+
+// Element e of one rank's operand row through the slot's lane, in the
+// LANES instantiation: `seed` is rank_seed(flags, rank), `sc` that rank's
+// int8 segment scales.  As JAX's wire_lane_roundtrip: the value widened
+// to float32, stochastically rounded (seed != 0) or rounded to nearest
+// even into the wire dtype, or quantized against its segment's scale and
+// dequantized, then narrowed back to the operand type.  A 16-bit lane
+// under seed 0 is the plain instantiation's cast.
+template <typename T>
+__device__ __forceinline__ T lane_value(T v, int wire, uint32_t seed, int e,
+                                        const float* sc) {
+  const float x = Wide<T>::widen(v);
+  const uint32_t i = (uint32_t)e;
+  float y;
+  switch (wire) {
+    case DT_I8: {
+      const float scale = sc[e / kSeg];
+      y = __fmul_rn((float)accl::quantize_one(x, scale, i, seed), scale);
+      break;
+    }
+    case DT_E4M3:  // 20 dropped mantissa bits, SR above 2^-6
+      y = E4M3::widen(E4M3::narrow(
+          accl::sr_round(x, i, seed, (1u << 20) - 1, 0.015625f, seed != 0),
+          DT_F32));
+      break;
+    case DT_E5M2:  // 21 dropped bits, SR above 2^-14
+      y = E5M2::widen(E5M2::narrow(
+          accl::sr_round(x, i, seed, (1u << 21) - 1, 6.103515625e-05f,
+                         seed != 0),
+          DT_F32));
+      break;
+    case DT_BF16:
+      if (seed == 0) return wire_round(v, wire);
+      y = BF16::widen(BF16::narrow(
+          accl::sr_round(x, i, seed, 0xFFFFu, 1.1754943508222875e-38f, true),
+          DT_F32));
+      break;
+    case DT_F16:
+      if (seed == 0) return wire_round(v, wire);
+      y = F16::widen(F16::narrow(
+          accl::sr_round(x, i, seed, (1u << 13) - 1, 6.103515625e-05f, true),
+          DT_F32));
+      break;
+    default:
+      return v;
+  }
+  return Wide<T>::narrow(y);
 }
 
 // -- one lane's 16-byte word of V elements ----------------------------------
@@ -254,7 +365,44 @@ struct Item {
   int n;   // columns of one part (the item's bound); every offset of
   int c0;  // a slot is below 2^31 elements (the wrapper checks)
   int part, P, op, fop, root, peer, wire, cls;
+  // LANES only: the slot's seed word, and its ranks' int8 scales (rank r
+  // at sc + r * maxseg)
+  uint32_t flags;
+  int maxseg;
+  const float* sc;
 };
+
+// Rank `rank`'s contribution through the slot's lane: the word of
+// elements [e, e + V) of its operand row, or its element e
+template <typename T, bool LANES>
+__device__ __forceinline__ uint4 round_word(uint4 a, const Item& it,
+                                            int rank, int e) {
+  if constexpr (!LANES) {
+    return Lane<T>::rounded(a, it.wire);
+  } else {
+    if (it.wire == 0) return a;
+    const uint32_t seed = accl::rank_seed(it.flags, (uint32_t)rank);
+    const float* sc = it.sc + rank * it.maxseg;
+    alignas(16) T x[Lane<T>::V];
+    *reinterpret_cast<uint4*>(x) = a;
+#pragma unroll
+    for (int k = 0; k < Lane<T>::V; ++k)
+      x[k] = lane_value<T>(x[k], it.wire, seed, e + k, sc);
+    return *reinterpret_cast<const uint4*>(x);
+  }
+}
+template <typename T, bool LANES>
+__device__ __forceinline__ T round_elem(T v, const Item& it, int rank,
+                                        int e) {
+  if constexpr (!LANES) {
+    return wire_round(v, it.wire);
+  } else {
+    if (it.wire == 0) return v;
+    return lane_value<T>(v, it.wire,
+                         accl::rank_seed(it.flags, (uint32_t)rank), e,
+                         it.sc + rank * it.maxseg);
+  }
+}
 
 // -- the 16-byte path: a whole tile of aligned operands and results --------
 // Lane l takes elements [V l, V l + V) of each of the tile's U chunks of
@@ -269,7 +417,7 @@ __device__ __forceinline__ int col(const Item& it, int lane, int u) {
 // acc[u] = the rank-order fold of every rank's wire-rounded word u at
 // element off + column: the loads of NP ranks at a time are all issued
 // before they are folded
-template <typename T, int NP, int U>
+template <typename T, int NP, int U, bool LANES>
 __device__ __forceinline__ void fold_v(uint4 (&acc)[U], const Item& it,
                                        int lane, int off) {
   using L = Lane<T>;
@@ -287,7 +435,8 @@ __device__ __forceinline__ void fold_v(uint4 (&acc)[U], const Item& it,
 #pragma unroll
       for (int u = 0; u < U; ++u)
         if (g + j < it.P) {
-          const uint4 v = L::rounded(b[j][u], it.wire);
+          const uint4 v = round_word<T, LANES>(b[j][u], it, g + j,
+                                               off + col<T, U>(it, lane, u));
           acc[u] = g + j == 0 ? v : L::apply(it.fop, acc[u], v);
         }
   }
@@ -325,7 +474,7 @@ __device__ __forceinline__ void own_v(const Item& it, int lane,
   }
 }
 
-template <typename T, int NP, int U>
+template <typename T, int NP, int U, bool LANES>
 __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
   using L = Lane<T>;
   const int P = it.P;
@@ -343,9 +492,11 @@ __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
       for (int j = 0; j < NP; ++j)
 #pragma unroll
         for (int u = 0; u < U; ++u)
-          if (g + j < P)
-            b[j][u] = L::rounded(L::load(it.in[g + j], col<T, U>(it, lane, u)),
-                                 gather ? it.wire : 0);
+          if (g + j < P) {
+            const int c = col<T, U>(it, lane, u);
+            b[j][u] = L::load(it.in[g + j], c);
+            if (gather) b[j][u] = round_word<T, LANES>(b[j][u], it, g + j, c);
+          }
 #pragma unroll
       for (int j = 0; j < NP; ++j) {
         if (g + j >= P) continue;
@@ -368,7 +519,7 @@ __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
     for (int me = all ? 0 : it.part; me < (all ? P : it.part + 1); ++me) {
       if (it.out[me] == nullptr) continue;
       uint4 r[U];
-      fold_v<T, NP, U>(r, it, lane, me * it.n);
+      fold_v<T, NP, U, LANES>(r, it, lane, me * it.n);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (it.op == OPC_APPLY)
@@ -403,7 +554,11 @@ __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
         for (int j = 0; j < NP; ++j)
           if (g + j < P && it.out[g + j] != nullptr)
             L::store(it.out[g + j], c,
-                     L::hop(own[j], L::rounded(vis[j], it.wire), fp));
+                     L::hop(own[j],
+                            round_word<T, LANES>(
+                                vis[j], it,
+                                accl::ring_mod(g + j - it.peer, P), c),
+                            fp));
       }
     }
   } else if (it.cls != CLS_SAME) {  // a mis-encoded slot: its own chunk
@@ -418,22 +573,26 @@ __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int c = col<T, U>(it, lane, u);
-      x[u] = L::rounded(L::load(it.in[b], a * it.n + c), it.wire);
-      y[u] = L::rounded(L::load(it.in[a], b * it.n + c), it.wire);
+      x[u] = round_word<T, LANES>(L::load(it.in[b], a * it.n + c), it, b,
+                                  a * it.n + c);
+      y[u] = round_word<T, LANES>(L::load(it.in[a], b * it.n + c), it, a,
+                                  b * it.n + c);
     }
     store_v<T, U>(it.out[a], b * it.n, it, lane, x);
     if (a != b) store_v<T, U>(it.out[b], a * it.n, it, lane, y);
   } else if (it.op == OPC_ALLREDUCE) {
     uint4 acc[U];
-    fold_v<T, NP, U>(acc, it, lane, 0);
+    fold_v<T, NP, U, LANES>(acc, it, lane, 0);
 #pragma unroll 1
     for (int me = 0; me < P; ++me) store_v<T, U>(it.out[me], 0, it, lane, acc);
   } else if (it.op == OPC_BCAST || it.op == OPC_SEND || it.op == OPC_RECV) {
     uint4 v[U];  // the root's word, loaded before any store
 #pragma unroll
-    for (int u = 0; u < U; ++u)
-      v[u] = L::rounded(L::load(it.in[it.root], col<T, U>(it, lane, u)),
-                        it.wire);
+    for (int u = 0; u < U; ++u) {
+      const int c = col<T, U>(it, lane, u);
+      v[u] = round_word<T, LANES>(L::load(it.in[it.root], c), it, it.root,
+                                  c);
+    }
 #pragma unroll 1
     for (int me = 0; me < P; ++me) {
       if (it.op == OPC_BCAST || me == it.peer) {
@@ -455,11 +614,11 @@ __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
 // loads all U chunks of every rank before its fold; every other class
 // takes the tile one chunk at a time (U = 1), which keeps the kernel's
 // registers to those of the allreduce.
-template <typename T, int NP, int U>
+template <typename T, int NP, int U, bool LANES>
 __device__ __forceinline__ void tile_v(const Item& it, int lane, T fp) {
   if (it.cls == CLS_SAME && it.op == OPC_ALLREDUCE) {
     uint4 acc[U];
-    fold_v<T, NP, U>(acc, it, lane, 0);
+    fold_v<T, NP, U, LANES>(acc, it, lane, 0);
 #pragma unroll 1
     for (int me = 0; me < it.P; ++me)
       store_v<T, U>(it.out[me], 0, it, lane, acc);
@@ -469,7 +628,7 @@ __device__ __forceinline__ void tile_v(const Item& it, int lane, T fp) {
   for (int q = 0; q < U; ++q) {
     Item chunk = it;
     chunk.c0 = it.c0 + q * 32 * Lane<T>::V;
-    item_v<T, NP, 1>(chunk, lane, fp);
+    item_v<T, NP, 1, LANES>(chunk, lane, fp);
   }
 }
 
@@ -482,7 +641,7 @@ __device__ __forceinline__ void tile_v(const Item& it, int lane, T fp) {
 // acc[k] = the rank-order fold at element off + c + 32 k (k < K, those
 // before `end`): the loads of NP ranks' K elements are all issued before
 // they are folded, each warp-wide load one contiguous 32-element run
-template <typename T, int NP, int K>
+template <typename T, int NP, int K, bool LANES>
 __device__ __forceinline__ void fold_ek(T (&acc)[K], const Item& it, int off,
                                         int c, int end) {
 #pragma unroll 1
@@ -499,7 +658,8 @@ __device__ __forceinline__ void fold_ek(T (&acc)[K], const Item& it, int off,
 #pragma unroll
       for (int k = 0; k < K; ++k)
         if (g + j < it.P && c + 32 * k < end) {
-          const T v = wire_round(b[j][k], it.wire);
+          const T v = round_elem<T, LANES>(b[j][k], it, g + j,
+                                           off + c + 32 * k);
           acc[k] = g + j == 0 ? v : Arith<T>::apply(it.fop, acc[k], v);
         }
   }
@@ -507,12 +667,12 @@ __device__ __forceinline__ void fold_ek(T (&acc)[K], const Item& it, int off,
 
 // the element path's reductions, K columns c + 32 k a lane: allreduce,
 // reduce-scatter, matmul-reduce-scatter and fused apply (as item_v's)
-template <typename T, int NP, int K>
+template <typename T, int NP, int K, bool LANES>
 __device__ __forceinline__ void fold_item_e(const Item& it, int c, int end,
                                             T fp) {
   T r[K];
   if (it.op == OPC_ALLREDUCE && it.cls == CLS_SAME) {
-    fold_ek<T, NP, K>(r, it, 0, c, end);
+    fold_ek<T, NP, K, LANES>(r, it, 0, c, end);
 #pragma unroll 1
     for (int me = 0; me < it.P; ++me)
 #pragma unroll
@@ -525,7 +685,7 @@ __device__ __forceinline__ void fold_item_e(const Item& it, int c, int end,
 #pragma unroll 1
   for (int me = all ? 0 : it.part; me < (all ? it.P : it.part + 1); ++me) {
     if (it.out[me] == nullptr) continue;
-    fold_ek<T, NP, K>(r, it, me * it.n, c, end);
+    fold_ek<T, NP, K, LANES>(r, it, me * it.n, c, end);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int e = c + 32 * k;
@@ -546,7 +706,7 @@ __device__ __forceinline__ void fold_item_e(const Item& it, int c, int end,
 }
 
 // every other class of the element path, one column
-template <typename T, int NP>
+template <typename T, int NP, bool LANES>
 __device__ __forceinline__ void item_e(const Item& it, int c, T fp) {
   const int P = it.P;
   if (it.cls == CLS_SOLO) {
@@ -554,7 +714,7 @@ __device__ __forceinline__ void item_e(const Item& it, int c, T fp) {
   } else if (it.cls == CLS_AG) {
     for (int j = 0; j < P; ++j) {
       if (it.op == OPC_ALLGATHER) {
-        const T v = wire_round(ld<T>(it.in[j], c), it.wire);
+        const T v = round_elem<T, LANES>(ld<T>(it.in[j], c), it, j, c);
         for (int q = 0; q < P; ++q) st<T>(it.out[q], j * it.n + c, v);
       } else {
         const T v = ld<T>(it.in[j], c);
@@ -567,9 +727,10 @@ __device__ __forceinline__ void item_e(const Item& it, int c, T fp) {
       T vis[NP];
 #pragma unroll
       for (int j = 0; j < NP; ++j)
-        if (g + j < P)
-          vis[j] = wire_round(
-              ld<T>(it.in[accl::ring_mod(g + j - it.peer, P)], c), it.wire);
+        if (g + j < P) {
+          const int src = accl::ring_mod(g + j - it.peer, P);
+          vis[j] = round_elem<T, LANES>(ld<T>(it.in[src], c), it, src, c);
+        }
 #pragma unroll
       for (int j = 0; j < NP; ++j)
         if (g + j < P && it.out[g + j] != nullptr)
@@ -586,12 +747,15 @@ __device__ __forceinline__ void item_e(const Item& it, int c, T fp) {
     int a = 0, p = it.part;
     while (p >= P - a) p -= P - a++;
     const int b = a + p;
-    const T x = wire_round(ld<T>(it.in[b], a * it.n + c), it.wire);
-    const T y = wire_round(ld<T>(it.in[a], b * it.n + c), it.wire);
+    const T x = round_elem<T, LANES>(ld<T>(it.in[b], a * it.n + c), it, b,
+                                     a * it.n + c);
+    const T y = round_elem<T, LANES>(ld<T>(it.in[a], b * it.n + c), it, a,
+                                     b * it.n + c);
     st<T>(it.out[a], b * it.n + c, x);
     if (a != b) st<T>(it.out[b], a * it.n + c, y);
   } else if (it.op == OPC_BCAST || it.op == OPC_SEND || it.op == OPC_RECV) {
-    const T v = wire_round(ld<T>(it.in[it.root], c), it.wire);
+    const T v = round_elem<T, LANES>(ld<T>(it.in[it.root], c), it, it.root,
+                                     c);
     for (int me = 0; me < P; ++me)
       st<T>(it.out[me], c,
             (it.op == OPC_BCAST || me == it.peer) ? v : ld<T>(it.in[me], c));
@@ -622,9 +786,9 @@ __device__ __forceinline__ int slot_of(const Window& w, long long item) {
   return lo;
 }
 
-template <typename T, int NP, int U>
+template <typename T, int NP, int U, bool LANES>
 __device__ __forceinline__ void run_item(const Window& w, long long item,
-                                         int lane) {
+                                         int lane, const float* scales) {
   constexpr long long E = 32LL * Lane<T>::V * U;
   const int s = slot_of(w, item);
   const long long t = item - w.first[s];
@@ -645,6 +809,11 @@ __device__ __forceinline__ void run_item(const Window& w, long long item,
   it.peer = words[W_PEER];
   it.wire = w.wire[s];
   it.cls = w.cls[s];
+  if constexpr (LANES) {
+    it.flags = (uint32_t)words[W_FLAGS];
+    it.maxseg = w.maxseg;
+    it.sc = scales + (long long)s * P * w.maxseg;
+  }
   // an alltoall's items are rank pairs; a reduce-scatter's or fused
   // apply's of `parts` P are one rank's result each; else all ranks'
   const bool pairs = it.cls == CLS_SAME && it.op == OPC_ALLTOALL &&
@@ -658,7 +827,7 @@ __device__ __forceinline__ void run_item(const Window& w, long long item,
       __fmul_rn((float)words[W_FPARAM], 1.0f / 65536.0f));
   const bool chunked = (it.cls != CLS_SAME && it.cls != CLS_SOLO) || pairs;
   if (it.c0 + E <= it.n && aligned_slot<T>(it, chunked)) {
-    tile_v<T, NP, U>(it, lane, fp);
+    tile_v<T, NP, U, LANES>(it, lane, fp);
   } else {
     const int end = it.c0 + E < it.n ? (int)(it.c0 + E) : it.n;
     constexpr int K = 4;  // columns a lane a step of the reductions
@@ -668,10 +837,11 @@ __device__ __forceinline__ void run_item(const Window& w, long long item,
         (it.cls == CLS_APPLY && it.op == OPC_APPLY)) {
 #pragma unroll 1
       for (int c = it.c0 + lane; c < end; c += 32 * K)
-        fold_item_e<T, NP, K>(it, c, end, fp);
+        fold_item_e<T, NP, K, LANES>(it, c, end, fp);
     } else {
 #pragma unroll 1
-      for (int c = it.c0 + lane; c < end; c += 32) item_e<T, NP>(it, c, fp);
+      for (int c = it.c0 + lane; c < end; c += 32)
+        item_e<T, NP, LANES>(it, c, fp);
     }
   }
 }
@@ -697,14 +867,45 @@ __device__ void grid_barrier(unsigned* bar) {
   __syncthreads();
 }
 
-// coop: a co-resident grid walks each phase's items and meets at a grid
-// barrier between phases; else the window is one phase and the grid has
-// one warp an item.  One loop for both, so the item's code is inlined
-// once.
-template <typename T, int NP, int U>
-__global__ void __launch_bounds__(kThreads)
-sequencer_kernel(const __grid_constant__ Window w, int* status,
-                 unsigned* bar, int coop) {
+// The int8 lane's scale phase: one warp a (slot, rank, segment) of every
+// int8 slot, the segment's absmax over its 256 elements (those past the
+// operand row, and a null operand's, read as 0), its scale written to
+// scales[(s * P + r) * maxseg + segment].
+template <typename T>
+__device__ void scale_phase(const Window& w, float* scales, long long warp,
+                            long long warps, int lane) {
+  const int P = w.P, ms = w.maxseg;
+  const long long total = (long long)w.n_slots * P * ms;
+  for (long long item = warp; item < total; item += warps) {
+    const int g = (int)(item % ms);
+    const int sr = (int)(item / ms);
+    const int s = sr / P;
+    if (w.wire[s] != DT_I8) continue;
+    const long long in_w = w.in_w[s];
+    if (g > 0 && (long long)g * kSeg >= in_w) continue;
+    const T* x = static_cast<const T*>(w.in[sr]);
+    float amax = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kSeg / 32; ++k) {
+      const long long e = (long long)g * kSeg + k * 32 + lane;
+      if (x != nullptr && e < in_w)
+        amax = max_nan(amax, fabsf(Wide<T>::widen(x[e])));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = max_nan(amax, __shfl_xor_sync(0xFFFFFFFFu, amax, o));
+    if (lane == 0) scales[item] = accl::segment_scale(amax);
+  }
+}
+
+// One window's work on the calling grid: the status words (block 0), the
+// scale phase of an int8 window, then each phase's items, a grid barrier
+// between phases when `coop`.  One loop for every form, so the item's code
+// is inlined once a kernel.
+template <typename T, int NP, int U, bool LANES>
+__device__ __forceinline__ void run_window(const Window& w, int* status,
+                                           float* scales, unsigned* bar,
+                                           int coop) {
   if (blockIdx.x == 0) {  // status words, as status_words computes them
     for (int s = threadIdx.x; s < w.n_slots; s += blockDim.x) {
       const int op = w.words[s][W_OPCODE];
@@ -715,16 +916,181 @@ sequencer_kernel(const __grid_constant__ Window w, int* status,
   const int lane = threadIdx.x % 32;
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const long long warps = (long long)gridDim.x * kWarps;
+  if constexpr (LANES) {
+    if (w.maxseg > 0) {
+      scale_phase<T>(w, scales, warp, warps, lane);
+      grid_barrier(bar);
+    }
+  }
   int s = 0;
   while (s < w.n_slots) {
     int e = s + 1;
     while (e < w.n_slots && !(coop && w.sync[e])) ++e;
     for (long long item = w.first[s] + warp; item < w.first[e];
          item += warps)
-      run_item<T, NP, U>(w, item, lane);
+      run_item<T, NP, U, LANES>(w, item, lane, scales);
     if (e < w.n_slots) grid_barrier(bar);
     s = e;
   }
+}
+
+// coop: a co-resident grid walks each phase's items and meets at a grid
+// barrier between phases; else the window is one phase and the grid has
+// one warp an item.
+template <typename T, int NP, int U>
+__global__ void __launch_bounds__(kThreads)
+sequencer_kernel(const __grid_constant__ Window w, int* status,
+                 unsigned* bar, int coop, float* scales) {
+  run_window<T, NP, U, false>(w, status, scales, bar, coop);
+}
+
+// The LANES instantiation, two blocks an SM: its per-element rounding
+// spills a little at 128 registers (224-370 bytes), and measured faster
+// so than at one block an SM without a spill (190 registers: an int8
+// window of 8 allreduces 0.684 ms on an H100 against 0.388 ms).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+sequencer_lanes_kernel(const __grid_constant__ Window w, int* status,
+                       unsigned* bar, int coop, float* scales) {
+  run_window<T, 4, 1, true>(w, status, scales, bar, coop);
+}
+
+template <typename T, int NP, int U, bool LANES>
+auto sequencer_of() {
+  if constexpr (LANES) return sequencer_lanes_kernel<T>;
+  else return sequencer_kernel<T, NP, U>;
+}
+
+// -- the persistent form -----------------------------------------------------
+
+// A run's control words, in host-mapped memory: the host's (`posted`, the
+// windows posted, each written after its descriptor; `halt`, the HALT
+// doorbell) and, on their own 128-byte line, the run's (`done`, the
+// windows completed; `exited`, 0 while the run lives, then why it returned:
+// 1 the HALT doorbell, 2 the window budget, 3 the linger; `closing`, k + 1
+// while the run decides to close at window k, 0 once it took the window).
+struct RunCtl {
+  int posted, halt;
+  int pad0[30];
+  int done, exited, closing;
+  int pad1[29];
+};
+static_assert(sizeof(RunCtl) == 256, "run control layout");
+enum : int { EXIT_HALT = 1, EXIT_BUDGET = 2, EXIT_LINGER = 3 };
+
+__device__ __forceinline__ int ld_acquire_sys(const int* p) {
+  int v;
+  asm volatile("ld.acquire.sys.global.b32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release_sys(int* p, int v) {
+  asm volatile("st.release.sys.global.b32 [%0], %1;" :: "l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ void fence_sc_sys() {
+  asm volatile("fence.sc.sys;" ::: "memory");
+}
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// One run: up to `run_windows` windows posted into `descs` (host-mapped,
+// descriptor k for window k), each run as the one-shot kernel runs it,
+// its status words into status + k * 2 * kMaxSlots (host-mapped).  Block
+// 0's thread 0 polls for window k and copies it into `stage` (device)
+// with block 0; bar[2] carries the decision to every block.
+//
+// Closing at the linger is a handshake with the host's post (Dekker's):
+// the run stores closing = k + 1, fences, and reads `posted` again; the
+// host stores `posted`, fences, and reads `closing` (accl_sequencer_ring).
+// At least one of the two sees the other's store, so either the run takes
+// window k (and clears `closing`), or the host learns that the run closed
+// without reading it and posts the window elsewhere.
+template <typename T, int NP, int U, bool LANES>
+__device__ __forceinline__ void persistent_body(
+    RunCtl* ctl, const Window* descs, int* status, Window* stage,
+    unsigned* bar, float* scales, int run_windows, long long linger_ns) {
+  __shared__ Window w;
+  int reason = EXIT_BUDGET;
+  for (int k = 0; k < run_windows; ++k) {
+    if (blockIdx.x == 0) {
+      __shared__ int live;
+      if (threadIdx.x == 0) {
+        int d = 0;
+        const unsigned long long t0 = globaltimer();
+        for (;;) {
+          if (ld_acquire_sys(&ctl->posted) > k) { d = 1; break; }
+          if (ld_acquire_sys(&ctl->halt)) { reason = EXIT_HALT; break; }
+          if ((long long)(globaltimer() - t0) > linger_ns) {
+            *(volatile int*)&ctl->closing = k + 1;
+            fence_sc_sys();
+            if (ld_acquire_sys(&ctl->posted) > k) {
+              st_release_sys(&ctl->closing, 0);
+              d = 1;
+              break;
+            }
+            reason = EXIT_LINGER;
+            break;
+          }
+          __nanosleep(256);
+        }
+        live = d;
+        *(volatile unsigned*)(bar + 2) = (unsigned)d;
+      }
+      __syncthreads();
+      if (live) {  // the descriptor crosses the bus once, uncached
+        const uint2* src = reinterpret_cast<const uint2*>(descs + k);
+        uint2* dst = reinterpret_cast<uint2*>(stage);
+        for (int i = threadIdx.x; i < (int)(sizeof(Window) / 8);
+             i += blockDim.x)
+          dst[i] = __ldcv(src + i);
+      }
+    }
+    grid_barrier(bar);
+    if (*(volatile unsigned*)(bar + 2) == 0u) break;
+    {  // every block's own copy, from L2 (8-byte words: a Window is
+       // 14,616 bytes, not a whole number of 16-byte ones)
+      const uint2* src = reinterpret_cast<const uint2*>(stage);
+      uint2* dst = reinterpret_cast<uint2*>(&w);
+      for (int i = threadIdx.x; i < (int)(sizeof(Window) / 8);
+           i += blockDim.x)
+        dst[i] = __ldcg(src + i);
+      __syncthreads();
+    }
+    run_window<T, NP, U, LANES>(w, status + (long long)k * 2 * kMaxSlots,
+                                scales, bar, 1);
+    grid_barrier(bar);  // every item of window k has finished
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      __threadfence_system();
+      st_release_sys(&ctl->done, k + 1);
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    __threadfence_system();
+    st_release_sys(&ctl->exited, reason);
+  }
+}
+
+template <typename T, int NP, int U>
+__global__ void __launch_bounds__(kThreads)
+persistent_kernel(RunCtl* ctl, const Window* descs, int* status,
+                  Window* stage, unsigned* bar, float* scales,
+                  int run_windows, long long linger_ns) {
+  persistent_body<T, NP, U, false>(ctl, descs, status, stage, bar, scales,
+                                   run_windows, linger_ns);
+}
+
+// the LANES persistent form, two blocks an SM (as sequencer_lanes_kernel)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+persistent_lanes_kernel(RunCtl* ctl, const Window* descs, int* status,
+                        Window* stage, unsigned* bar, float* scales,
+                        int run_windows, long long linger_ns) {
+  persistent_body<T, 4, 1, true>(ctl, descs, status, stage, bar, scales,
+                                 run_windows, linger_ns);
 }
 
 // Fill the item prefix; returns whether any slot after the first waits at
@@ -748,34 +1114,70 @@ bool plan(Window& w, long long* widest) {
   return sync;
 }
 
-template <typename T, int NP, int U>
-int launch(Window& w, int* status, unsigned* bar, cudaStream_t s) {
+// the most int8 segments of one slot's operand row (0: no int8 slot)
+int max_segments(const Window& w) {
+  long long m = 0;
+  for (int s = 0; s < w.n_slots; ++s)
+    if (w.wire[s] == DT_I8) {
+      const long long nseg = w.in_w[s] > 0 ? (w.in_w[s] + kSeg - 1) / kSeg : 1;
+      if (nseg > m) m = nseg;
+    }
+  return (int)m;
+}
+
+// whether the window takes the LANES instantiation: an fp8 or int8 wire,
+// or a 16-bit wire under a nonzero seed
+bool lanes_of(const Window& w) {
+  for (int s = 0; s < w.n_slots; ++s) {
+    const int wire = w.wire[s];
+    if (wire == DT_E4M3 || wire == DT_E5M2 || wire == DT_I8) return true;
+    if ((wire == DT_BF16 || wire == DT_F16) && w.words[s][W_FLAGS] != 0)
+      return true;
+  }
+  return false;
+}
+
+// co-resident blocks of a kernel (the grid barrier's limit), once a kernel
+template <typename K>
+int co_resident(K kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  return per_sm * sms;
+}
+
+template <typename T, int NP, int U, bool LANES = false>
+int launch(Window& w, int* status, unsigned* bar, cudaStream_t s,
+           float* scales = nullptr, long long scales_len = 0) {
   long long widest = 0;
-  const bool coop = plan<T, U>(w, &widest);
+  bool coop = plan<T, U>(w, &widest);
+  w.maxseg = LANES ? max_segments(w) : 0;
+  if (w.maxseg > 0) {
+    coop = true;  // the scale phase ends at a grid barrier
+    if (scales == nullptr ||
+        scales_len < (long long)w.n_slots * w.P * w.maxseg)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   long long blocks = (widest + kWarps - 1) / kWarps;
   if (blocks < 1) blocks = 1;
   if (!coop) {
     if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-    sequencer_kernel<T, NP, U>
-        <<<(unsigned)blocks, kThreads, 0, s>>>(w, status, nullptr, 0);
+    sequencer_of<T, NP, U, LANES>()
+        <<<(unsigned)blocks, kThreads, 0, s>>>(w, status, nullptr, 0, scales);
     return static_cast<int>(cudaGetLastError());
   }
   if (bar == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   static int max_blocks = 0;  // co-resident blocks: the barrier's limit
   if (max_blocks == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sequencer_kernel<T, NP, U>, kThreads, 0);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    max_blocks = per_sm * sms;
+    max_blocks = co_resident(sequencer_of<T, NP, U, LANES>());
+    if (max_blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   if (blocks > max_blocks) blocks = max_blocks;
   int one = 1;
-  void* args[] = {&w, &status, &bar, &one};
+  void* args[] = {&w, &status, &bar, &one, &scales};
   const cudaError_t rc = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(sequencer_kernel<T, NP, U>),
+      reinterpret_cast<const void*>(sequencer_of<T, NP, U, LANES>()),
       dim3((unsigned)blocks), dim3(kThreads), args, 0, s);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
@@ -785,10 +1187,56 @@ int launch(Window& w, int* status, unsigned* bar, cudaStream_t s) {
 // (more ranks fold in groups of 4), U = 4 for 4-byte elements (16 words
 // a lane; at P = 4 timed against 1 and 2 by scripts/tile_variants.py)
 // and 2 for the others, whose per-element arithmetic (16-bit floats
-// through float, 8-byte words) spilled at 4.
+// through float, 8-byte words) spilled at 4.  The LANES instantiation
+// (float operands alone) takes U = 1: its per-element rounding would
+// spill at the plain kernel's tile.
+template <typename T> constexpr int tile_u() { return sizeof(T) == 4 ? 4 : 2; }
+
+// the operand types of the LANES instantiation
 template <typename T>
-int launch_for(Window& w, int* status, unsigned* bar, cudaStream_t s) {
-  return launch<T, 4, sizeof(T) == 4 ? 4 : 2>(w, status, bar, s);
+constexpr bool kFloatLanes = std::is_same<T, float>::value ||
+                             std::is_same<T, __half>::value ||
+                             std::is_same<T, __nv_bfloat16>::value;
+
+template <typename T>
+int launch_for(Window& w, int* status, unsigned* bar, float* scales,
+               long long scales_len, cudaStream_t s) {
+  if (lanes_of(w)) {
+    if constexpr (kFloatLanes<T>)
+      return launch<T, 4, 1, true>(w, status, bar, s, scales, scales_len);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);  // float lanes only
+  }
+  return launch<T, 4, tile_u<T>()>(w, status, bar, s);
+}
+
+// the persistent kernel of a dtype, plain or LANES
+template <typename T>
+int launch_run(bool lanes, RunCtl* ctl, const Window* descs, int* status,
+               Window* stage, unsigned* bar, float* scales, int run_windows,
+               long long linger_ns, cudaStream_t s) {
+  const void* fn;
+  int blocks;
+  if (lanes) {
+    if constexpr (kFloatLanes<T>) {
+      static int b = co_resident(persistent_lanes_kernel<T>);
+      fn = reinterpret_cast<const void*>(persistent_lanes_kernel<T>);
+      blocks = b;
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    static int b = co_resident(persistent_kernel<T, 4, tile_u<T>()>);
+    fn = reinterpret_cast<const void*>(persistent_kernel<T, 4, tile_u<T>()>);
+    blocks = b;
+  }
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  void* args[] = {&ctl, &descs, &status, &stage, &bar, &scales, &run_windows,
+                  &linger_ns};
+  const cudaError_t rc = cudaLaunchCooperativeKernel(
+      fn, dim3((unsigned)blocks), dim3(kThreads), args, 0, s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int check(const Window& w) {
@@ -802,6 +1250,19 @@ int check(const Window& w) {
   return 0;
 }
 
+// the tile of a dtype's instantiation, plain or LANES
+template <typename T>
+void plan_for(Window& w) {
+  long long widest = 0;
+  if (lanes_of(w)) {
+    plan<T, 1>(w, &widest);
+    w.maxseg = max_segments(w);
+  } else {
+    plan<T, tile_u<T>()>(w, &widest);
+    w.maxseg = 0;
+  }
+}
+
 }  // namespace
 
 #ifndef ACCL_KERNELS_ONLY  // scripts/tile_variants.cu includes the kernels
@@ -809,24 +1270,127 @@ int check(const Window& w) {
 // out; copied into the parameter block).  `status` receives (seqn,
 // retcode) per slot; `barrier` is two device words, zero between
 // launches, used only by a window with a barrier flag after its first
-// slot (may be null otherwise).  Returns cudaGetLastError() after the
-// launch (0 on success).
+// slot or an int8 slot (may be null otherwise); `scales` is a device
+// scratch buffer of `scales_len` floats, at least n_slots * P * the most
+// 256-element segments of an int8 slot's operand row (null without an
+// int8 slot).  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int accl_sequencer(const void* desc, int* status, void* barrier,
+                              void* scales, long long scales_len,
                               void* stream) {
   Window w;
   memcpy(&w, desc, sizeof(Window));
   const int rc = check(w);
   if (rc) return rc;
   unsigned* bar = static_cast<unsigned*>(barrier);
+  float* sc = static_cast<float*>(scales);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (w.dtype) {
-    case DT_F32: return launch_for<float>(w, status, bar, s);
-    case DT_BF16: return launch_for<__nv_bfloat16>(w, status, bar, s);
-    case DT_F16: return launch_for<__half>(w, status, bar, s);
-    case DT_I32: return launch_for<int32_t>(w, status, bar, s);
-    case DT_F64: return launch_for<double>(w, status, bar, s);
-    case DT_I64: return launch_for<int64_t>(w, status, bar, s);
+    case DT_F32: return launch_for<float>(w, status, bar, sc, scales_len, s);
+    case DT_BF16:
+      return launch_for<__nv_bfloat16>(w, status, bar, sc, scales_len, s);
+    case DT_F16: return launch_for<__half>(w, status, bar, sc, scales_len, s);
+    case DT_I32: return launch_for<int32_t>(w, status, bar, sc, scales_len, s);
+    case DT_F64: return launch_for<double>(w, status, bar, sc, scales_len, s);
+    case DT_I64: return launch_for<int64_t>(w, status, bar, sc, scales_len, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Check the window `desc` and fill its item prefix and maxseg in place, as
+// a launch would: a window posted to a persistent run travels planned.
+// Returns 0, or cudaErrorInvalidValue for a window no kernel takes.
+extern "C" int accl_sequencer_plan(void* desc) {
+  Window* w = static_cast<Window*>(desc);
+  const int rc = check(*w);
+  if (rc) return rc;
+  const bool lanes = lanes_of(*w);
+  switch (w->dtype) {
+    case DT_F32: plan_for<float>(*w); return 0;
+    case DT_BF16: plan_for<__nv_bfloat16>(*w); return 0;
+    case DT_F16: plan_for<__half>(*w); return 0;
+    case DT_I32: if (lanes) break; plan_for<int32_t>(*w); return 0;
+    case DT_F64: if (lanes) break; plan_for<double>(*w); return 0;
+    case DT_I64: if (lanes) break; plan_for<int64_t>(*w); return 0;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launch one persistent run on `stream`: `ctl` (a RunCtl, zeroed), `descs`
+// (run_windows Windows) and `status` (run_windows x 64 x 2 ints) in
+// host-mapped memory; `stage` one Window and `barrier` three zeroed words
+// of device memory; `scales` as for accl_sequencer (the largest window's
+// need; may be null for a run without int8 slots).  `lanes` picks the
+// LANES instantiation for every window of the run.
+extern "C" int accl_sequencer_run(void* ctl, const void* descs, int* status,
+                                  void* stage, void* barrier, void* scales,
+                                  int dtype, int lanes, int run_windows,
+                                  long long linger_ns, void* stream) {
+  if (run_windows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  RunCtl* c = static_cast<RunCtl*>(ctl);
+  const Window* d = static_cast<const Window*>(descs);
+  Window* st = static_cast<Window*>(stage);
+  unsigned* bar = static_cast<unsigned*>(barrier);
+  float* sc = static_cast<float*>(scales);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool l = lanes != 0;
+  switch (dtype) {
+    case DT_F32:
+      return launch_run<float>(l, c, d, status, st, bar, sc, run_windows,
+                               linger_ns, s);
+    case DT_BF16:
+      return launch_run<__nv_bfloat16>(l, c, d, status, st, bar, sc,
+                                       run_windows, linger_ns, s);
+    case DT_F16:
+      return launch_run<__half>(l, c, d, status, st, bar, sc, run_windows,
+                                linger_ns, s);
+    case DT_I32:
+      return launch_run<int32_t>(l, c, d, status, st, bar, sc, run_windows,
+                                 linger_ns, s);
+    case DT_F64:
+      return launch_run<double>(l, c, d, status, st, bar, sc, run_windows,
+                                linger_ns, s);
+    case DT_I64:
+      return launch_run<int64_t>(l, c, d, status, st, bar, sc, run_windows,
+                                 linger_ns, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The host's doorbells of a run: `posted` windows posted (each after its
+// descriptor was written), or with `halt` the HALT doorbell.  Sequentially
+// consistent stores, so a descriptor is visible before its doorbell.  A
+// post returns the run's `closing` word read after a full fence: when it
+// is `posted` (the run is closing at that window) the host waits for the
+// run's decision (see persistent_body); any other value means the run
+// will read the window.
+extern "C" int accl_sequencer_ring(void* ctl, int posted, int halt) {
+  RunCtl* c = static_cast<RunCtl*>(ctl);
+  if (halt) {
+    __atomic_store_n(&c->halt, 1, __ATOMIC_SEQ_CST);
+    return 0;
+  }
+  __atomic_store_n(&c->posted, posted, __ATOMIC_SEQ_CST);
+  __atomic_thread_fence(__ATOMIC_SEQ_CST);
+  return __atomic_load_n(&c->closing, __ATOMIC_SEQ_CST);
+}
+
+// Host memory of `bytes` mapped into the device's address space (UVA: the
+// host pointer is the device pointer), zeroed; its address into *out.
+extern "C" int accl_mapped_alloc(void* out, long long bytes) {
+  void* p = nullptr;
+  const cudaError_t rc = cudaHostAlloc(&p, (size_t)bytes,
+                                       cudaHostAllocMapped |
+                                           cudaHostAllocPortable);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  memset(p, 0, (size_t)bytes);
+  void* dev = nullptr;
+  const cudaError_t rc2 = cudaHostGetDevicePointer(&dev, p, 0);
+  if (rc2 != cudaSuccess || dev != p) {
+    cudaFreeHost(p);
+    return static_cast<int>(rc2 != cudaSuccess ? rc2 : cudaErrorInvalidValue);
+  }
+  *static_cast<void**>(out) = p;
+  return 0;
 }
 #endif  // ACCL_KERNELS_ONLY

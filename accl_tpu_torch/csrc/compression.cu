@@ -75,7 +75,10 @@ using accl::F32;
 using accl::kMaxRanks;
 using accl::kThreads;
 using accl::max_nan;
+using accl::quantize_one;
+using accl::segment_scale;
 using accl::sr_bits;
+using accl::sr_convert;
 using accl::store_group;
 using accl::Word;
 
@@ -218,19 +221,6 @@ int cast_to(const RowPtrs& t, int R, long long n, int src, int dst,
 constexpr int kChunk = 16;
 
 template <typename S, typename D>
-__device__ __forceinline__ typename D::T sr_convert(typename S::T v,
-                                                    uint32_t i, uint32_t seed,
-                                                    uint32_t mask, float tiny,
-                                                    bool sr) {
-  float x = S::widen(v);
-  if (sr && isfinite(x) && fabsf(x) >= tiny) {
-    const uint32_t u = __float_as_uint(x);
-    x = __uint_as_float((u + (sr_bits(i, seed) & mask)) & ~mask);
-  }
-  return D::narrow(x, DT_F32);  // the rounded value is a float32 value
-}
-
-template <typename S, typename D>
 __global__ void stochastic_cast_kernel(RowPtrs t, long long n, uint32_t mask,
                                        float tiny, int always) {
   using TS = typename S::T;
@@ -342,24 +332,6 @@ __device__ __forceinline__ float group_max(float v, float* smem) {
 #pragma unroll
   for (int w = 1; w < G / 32; ++w) v = max_nan(v, smem[w]);
   return v;
-}
-
-__device__ __forceinline__ int8_t quantize_one(float x, float scale,
-                                               uint32_t i, uint32_t seed) {
-  float q = __fdiv_rn(x, scale);
-  if (seed) {
-    const float u = __fmul_rn(__uint2float_rn(sr_bits(i, seed)),
-                              2.3283064365386963e-10f);  // 2^-32
-    q = floorf(__fadd_rn(q, u));
-  } else {
-    q = rintf(q);
-  }
-  if (q != q) return 0;
-  return (int8_t)fminf(fmaxf(q, -127.0f), 127.0f);
-}
-
-__device__ __forceinline__ float segment_scale(float amax) {
-  return max_nan(__fdiv_rn(amax, 127.0f), 1e-30f);
 }
 
 // V consecutive elements of a row as float32 (one 16-byte load)

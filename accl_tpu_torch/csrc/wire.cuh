@@ -126,6 +126,66 @@ __device__ __forceinline__ uint32_t sr_bits(uint32_t i, uint32_t seed) {
   return h;
 }
 
+// Mix a rank into a call seed (accl_tpu_torch/wire.py::rank_seed): ranks
+// draw independent streams from one slot's seed; seed 0 stays 0 (round to
+// nearest even)
+__device__ __forceinline__ uint32_t rank_seed(uint32_t seed, uint32_t rank) {
+  if (seed == 0) return 0;
+  uint32_t h = seed ^ (rank * 0x9E3779B9u);
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h ? h : 1u;
+}
+
+// Stochastic rounding, mask-add-truncate: where x is finite, |x| >= tiny
+// and `sr`, add the counter bits of element i to the `mask` low mantissa
+// bits the target drops and truncate them (the narrowing cast of the
+// result is then exact); else x as it is
+__device__ __forceinline__ float sr_round(float x, uint32_t i, uint32_t seed,
+                                          uint32_t mask, float tiny,
+                                          bool sr) {
+  if (sr && isfinite(x) && fabsf(x) >= tiny) {
+    const uint32_t u = __float_as_uint(x);
+    x = __uint_as_float((u + (sr_bits(i, seed) & mask)) & ~mask);
+  }
+  return x;
+}
+
+template <typename S, typename D>
+__device__ __forceinline__ typename D::T sr_convert(typename S::T v,
+                                                    uint32_t i, uint32_t seed,
+                                                    uint32_t mask, float tiny,
+                                                    bool sr) {
+  // the rounded value is a float32 value
+  return D::narrow(sr_round(S::widen(v), i, seed, mask, tiny, sr), DT_F32);
+}
+
+// The int8 lane's value of element i (of a row) under its segment's
+// scale: x / scale rounded to nearest even, or floor(x / scale + u) with
+// u = sr_bits(i, seed) * 2^-32 under a nonzero seed, clipped to +-127; a
+// NaN quotient is 0
+__device__ __forceinline__ int8_t quantize_one(float x, float scale,
+                                               uint32_t i, uint32_t seed) {
+  float q = __fdiv_rn(x, scale);
+  if (seed) {
+    const float u = __fmul_rn(__uint2float_rn(sr_bits(i, seed)),
+                              2.3283064365386963e-10f);  // 2^-32
+    q = floorf(__fadd_rn(q, u));
+  } else {
+    q = rintf(q);
+  }
+  if (q != q) return 0;
+  return (int8_t)fminf(fmaxf(q, -127.0f), 127.0f);
+}
+
+// a segment's scale from its absmax: max(absmax / 127, 1e-30), NaN kept
+__device__ __forceinline__ float segment_scale(float amax) {
+  return max_nan(__fdiv_rn(amax, 127.0f), 1e-30f);
+}
+
 // round a float32 value of source dtype `src` through wire dtype `wire`
 // and back to float32 (the fp8 and raw int8 lanes of the ring)
 __device__ __forceinline__ float wire_roundtrip(float v, int wire, int src) {

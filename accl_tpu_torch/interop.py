@@ -77,7 +77,8 @@ def tuning_from_jax(tuning: dict) -> dict:
     """This port's register dict for a JAX gang register dict.
 
     Registers the port serves (``allreduce_algorithm``, the four rooted
-    algorithm registers, ``ring_segments``, ``wire_dtype``) carry across
+    algorithm registers, ``ring_segments``, ``wire_dtype``, the command
+    ring's ``cmdring_run_windows`` / ``cmdring_linger_us``) carry across
     by name; any other register must still hold its default, or this
     raises — the port cannot honour it."""
     out = dict(TUNING_DEFAULTS)
@@ -102,6 +103,9 @@ def tuning_from_jax(tuning: dict) -> dict:
                     f"{DataType(int(value)).name} is not a wire lane"
                 )
             out[name] = int(value)
+        elif name in ("cmdring_run_windows", "cmdring_linger_us"):
+            if int(value):  # 0 is the env default, which needs no write
+                out[name] = int(value)
         elif value not in (0, _JAX_DEFAULTS.get(name), "xla"):
             raise ValueError(f"register {name}={value!r} is not ported")
     return out

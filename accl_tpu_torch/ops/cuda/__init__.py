@@ -8,7 +8,10 @@
 * ``rooted`` — rows 9-11, the rooted ring relays (bcast, reduce,
   scatter), and the rooted gather over K3.
 * ``cmdring`` — row 14, the command-ring sequencer: one launch runs a
-  window of collectives whose slot words it decodes on the device.
+  window of collectives whose slot words it decodes on the device
+  (``sequencer_lanes`` counts its fp8 / int8 instantiation), and
+  ``PersistentRun`` its persistent form, one launch draining a stream of
+  windows posted into host-mapped memory.
 * ``attention`` — rows 16-18, the single-device flash attention: the
   forward (the transformer's ``attention="flash"`` lowering) and the
   backward's delta pass and dQ and dK/dV kernels behind its
@@ -46,7 +49,12 @@ from .attention import (  # noqa: F401
     ring_attention,
     ring_attention_plain,
 )
-from .cmdring import sequencer, sequencer_plain  # noqa: F401
+from .cmdring import (  # noqa: F401
+    PersistentRun,
+    sequencer,
+    sequencer_lanes,
+    sequencer_plain,
+)
 from .combine import combine, combine_plain  # noqa: F401
 from .compression import (  # noqa: F401
     cast,
@@ -85,7 +93,8 @@ from .rooted import (  # noqa: F401
 
 #: every kernel wrapper of the tier (each carries a ``launches`` counter;
 #: ``ring_gather`` counts K3's root-only kernel, and its all-rank tables
-#: count under ``ring_allgather``)
+#: count under ``ring_allgather``; ``sequencer_run`` counts persistent
+#: runs, one launch each)
 KERNELS = {
     "ring_allreduce": ring_allreduce,
     "ring_reduce_scatter": ring_reduce_scatter,
@@ -96,6 +105,8 @@ KERNELS = {
     "ring_reduce": ring_reduce,
     "ring_scatter": ring_scatter,
     "sequencer": sequencer,
+    "sequencer_lanes": sequencer_lanes,
+    "sequencer_run": PersistentRun,
     "flash_attention": flash_attention,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,

@@ -26,12 +26,24 @@ and the launch's descriptors (``WINDOW``, one host buffer a launch) are
 kept by the window's shape, opcode column and every tensor's (pointer,
 bytes) in its place, so a warm window reads each tensor's pointer and
 size, copies its slot words into the cached descriptor and launches.
+
+A window with an fp8 or int8 wire (or a 16-bit wire under a nonzero
+seed) takes the kernel's LANES instantiation, counted apart in
+:func:`sequencer_lanes`; an int8 window's launch also takes a scratch
+buffer for its segment scales.  :class:`PersistentRun` is the persistent
+form: one cooperative launch that drains up to ``run_windows`` windows
+posted into host-mapped memory, each window's completion a
+:class:`RunTicket` in place of a CUDA event.
 """
 
 from __future__ import annotations
 
+import atexit
+import ctypes
 import functools
 import threading
+import time
+import weakref
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -40,13 +52,17 @@ import torch
 from ...cmdring import WindowShape
 from ...constants import (
     CMDRING_FIELDS,
+    CMDRING_MAX_RUN_WINDOWS,
     CMDRING_SLOT_WORDS,
+    WIRE_SEGMENT_ELEMS,
     CmdOpcode,
     torch_to_dtype,
 )
+from ...wire import astype, dropped_mantissa_bits, is_scaled, lane_tiny, rank_seed
 from . import _build
-from ._build import PTR
+from ._build import INT, LL, PTR
 from ._common import LaunchCounter, check_launch, on_cuda, stream_of
+from .compression import dequantize_plain, quantize_plain, stochastic_cast_plain
 
 _F = CMDRING_FIELDS
 
@@ -64,6 +80,9 @@ CLS_SAME, CLS_AG, CLS_APPLY, CLS_RS, CLS_ATTN, CLS_SOLO = range(6)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32,
                   torch.float64, torch.int64)
+#: the wires of the LANES instantiation, and the operand dtypes it takes
+LANE_WIRES = (torch.float8_e4m3fn, torch.float8_e5m2, torch.int8)
+LANE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def slot_class(in_w: int, out_w: int, P: int) -> int:
@@ -106,7 +125,14 @@ def launches_for(P: int, n_slots: int) -> int:
 
 
 #: ``csrc/cmdring.cu``'s C prototypes (declared once, at load)
-PROTOTYPES = {"cmdring": {"accl_sequencer": (PTR, PTR, PTR, PTR)}}
+PROTOTYPES = {"cmdring": {
+    "accl_sequencer": (PTR, PTR, PTR, PTR, LL, PTR),
+    "accl_sequencer_plan": (PTR,),
+    "accl_sequencer_run": (PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, LL,
+                           PTR),
+    "accl_sequencer_ring": (PTR, INT, INT),
+    "accl_mapped_alloc": (PTR, LL),
+}}
 
 #: ``csrc/cmdring.cu``'s ``Window``, field for field: the descriptor one
 #: launch takes, packed into one host buffer (``first``, the per-slot
@@ -125,7 +151,7 @@ WINDOW = np.dtype([
     ("n_slots", np.int32),
     ("P", np.int32),
     ("dtype", np.int32),
-    ("pad", np.int32),
+    ("maxseg", np.int32),
     ("in", np.uint64, (MAX_RANK_SLOTS,)),
     ("out", np.uint64, (MAX_RANK_SLOTS,)),
 ])
@@ -393,11 +419,54 @@ def _cached(words, spans, shape, P, xs=None, outs=None):
     return entry
 
 
+def takes_lanes(words, wires) -> bool:
+    """Whether a window's slots take the kernel's LANES instantiation: an
+    fp8 or int8 wire, or a 16-bit wire under a nonzero seed word."""
+    for i, wire in enumerate(wires):
+        if wire in LANE_WIRES:
+            return True
+        if wire is not None and int(words[i, _F["flags"]]):
+            return True
+    return False
+
+
+def scale_segments(shape: WindowShape, lo: int = 0,
+                   hi: Optional[int] = None) -> int:
+    """The most int8 segments of one operand row among slots ``lo:hi``
+    (0: no int8 slot), as the kernel counts them."""
+    return max((max(1, -(-shape.in_ws[i] // WIRE_SEGMENT_ELEMS))
+                for i in range(lo, len(shape.in_ws) if hi is None else hi)
+                if shape.wires[i] == torch.int8), default=0)
+
+
+def lane_roundtrip(x: torch.Tensor, wire: Optional[torch.dtype],
+                   seed: int) -> torch.Tensor:
+    """One rank's contribution through a slot's wire lane, as JAX's
+    ``_decode_slot_xla`` rounds it: the int8 lane quantizes with one
+    absmax / 127 scale per 256 elements of the whole row and dequantizes;
+    the float lanes round stochastically with the element's index as the
+    counter under a nonzero ``seed`` (the rank's mixed seed), else to
+    nearest even.  A 16-bit lane under seed 0 is the plain cast."""
+    if wire is None:
+        return x
+    dt = torch_to_dtype(wire)
+    if is_scaled(dt):
+        q, scales = quantize_plain(x, seed, WIRE_SEGMENT_ELEMS)
+        return dequantize_plain(q, scales, x.numel(), WIRE_SEGMENT_ELEMS,
+                                x.dtype)
+    if not seed and wire in (torch.float16, torch.bfloat16):
+        return x.to(wire).to(x.dtype)
+    return astype(stochastic_cast_plain(x, wire, seed,
+                                        dropped_mantissa_bits(dt),
+                                        lane_tiny(dt)), x.dtype)
+
+
 def sequencer_plain(slots, xs, outs, shape: WindowShape) -> torch.Tensor:
     """The sequencer in plain PyTorch: slot by slot, every rank's result
-    from :func:`slot_epilogue` over the wire-rounded operand rows (None
-    rows read as zeros), all of a slot's results computed before any is
-    written.  Returns the status words."""
+    from :func:`slot_epilogue` over the operand rows rounded through the
+    slot's wire lane (:func:`lane_roundtrip`, rank r's seed
+    ``rank_seed(flags, r)``; None rows read as zeros), all of a slot's
+    results computed before any is written.  Returns the status words."""
     from ..cmdring import slot_epilogue, status_words
 
     words = _words(slots)
@@ -410,8 +479,9 @@ def sequencer_plain(slots, xs, outs, shape: WindowShape) -> torch.Tensor:
         own = [x if x is not None
                else torch.zeros(in_w, dtype=shape.dtype, device=device)
                for x in xs[i]]
-        blocks = [x.to(wire).to(x.dtype) if wire is not None else x
-                  for x in own]
+        flags = int(w[_F["flags"]]) & 0xFFFFFFFF
+        blocks = [lane_roundtrip(x, wire, rank_seed(flags, r))
+                  for r, x in enumerate(own)]
         chunk = in_w // P if in_w % P == 0 else None
         results = [
             None if outs[i][me] is None else slot_epilogue(
@@ -522,6 +592,58 @@ _barriers = {}
 _barrier_lock = threading.Lock()
 
 
+def _packed(words, xs, outs, shape: WindowShape, device=None):
+    """The window's checked spans, verdict and descriptors (built once a
+    key): ``(P, dev, stage, packed, per)``, ``dev`` the window's device
+    (``device`` for a window of barriers alone) and ``packed[lo]`` the
+    descriptor template of slots ``lo:lo + per`` and whether any of them
+    waits at a barrier; ``packed`` is None off the card."""
+    P, spans, first = _checked_spans(words, xs, outs, shape)
+    n = words.shape[0]
+    per = max(1, min(MAX_SLOTS, MAX_RANK_SLOTS // P))
+    dev = (first.device if first is not None
+           else torch.device(device if device is not None else "cpu"))
+    if dev.type != "cuda":
+        return P, dev, None, None, per
+    if shape.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"sequencer kernel takes {_KERNEL_DTYPES}, "
+                         f"got {shape.dtype}")
+    sync, stage, packed = _cached(words, spans, shape, P, xs, outs)
+    if not packed:  # the descriptors of this key, built once
+        in_ptrs = [spans[2 * (i * 2 * P + r)] for i in range(n)
+                   for r in range(P)]
+        out_ptrs = [spans[2 * (i * 2 * P + P + r)] for i in range(n)
+                    for r in range(P)]
+        built = {}
+        for lo in range(0, n, per):
+            hi = min(n, lo + per)
+            d = pack_window(words, shape, P, sync, in_ptrs, out_ptrs, lo, hi)
+            built[lo] = (d.reshape(1).view(np.int32), any(sync[lo + 1:hi]))
+        packed.update(built)  # at once: another thread may read it
+    return P, dev, stage, packed, per
+
+
+def _descriptor(packed, words, lo: int, hi: int, P: int, staged):
+    """A launch's descriptor: the cached template of slots ``lo:hi`` with
+    their slot words, and the staged copies' pointers in place of the
+    operands they copy."""
+    tmpl, has_sync = packed[lo]
+    d = tmpl.copy()
+    d[:(hi - lo) * CMDRING_SLOT_WORDS] = words[lo:hi].reshape(-1)
+    if staged:
+        ptrs = d.view(np.uint64)
+        for (i, r), t in staged.items():
+            if lo <= i < hi:
+                ptrs[_IN + (i - lo) * P + r] = t.data_ptr()
+    return d, has_sync
+
+
+def _check_lanes(shape: WindowShape) -> None:
+    if shape.dtype not in LANE_DTYPES:
+        raise ValueError(f"sequencer: the fp8 / int8 lanes take "
+                         f"{LANE_DTYPES} operands, got {shape.dtype}")
+
+
 def sequencer(slots, xs: Sequence[Sequence[Optional[torch.Tensor]]],
               outs: Sequence[Sequence[Optional[torch.Tensor]]],
               shape: WindowShape, device=None) -> torch.Tensor:
@@ -534,32 +656,14 @@ def sequencer(slots, xs: Sequence[Sequence[Optional[torch.Tensor]]],
     The launch path reads each tensor's pointer and size (no view of it),
     looks the window's hazard verdict and descriptors up by them
     (:func:`_cached`), copies the slot words into a copy of the
-    cached descriptor and passes it as one pointer."""
+    cached descriptor and passes it as one pointer.  A launch whose slots
+    take the LANES instantiation counts in ``sequencer_lanes.launches``,
+    the others in ``sequencer.launches``."""
     words = _words(slots)
-    P, spans, first = _checked_spans(words, xs, outs, shape)
-    if first is None:
-        first = torch.empty(0, device=device or "cpu")
-    if not first.is_cuda:
+    P, dev, stage, packed, per = _packed(words, xs, outs, shape, device)
+    if packed is None:
         return sequencer_plain(words, xs, outs, shape)
-    dev = first.device
-    dtype = shape.dtype
-    if dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"sequencer kernel takes {_KERNEL_DTYPES}, "
-                         f"got {dtype}")
-    sync, stage, packed = _cached(words, spans, shape, P, xs, outs)
     n = words.shape[0]
-    per = max(1, min(MAX_SLOTS, MAX_RANK_SLOTS // P))
-    if not packed:  # the descriptors of this key, built once
-        in_ptrs = [spans[2 * (i * 2 * P + r)] for i in range(n)
-                   for r in range(P)]
-        out_ptrs = [spans[2 * (i * 2 * P + P + r)] for i in range(n)
-                    for r in range(P)]
-        built = {}
-        for lo in range(0, n, per):
-            hi = min(n, lo + per)
-            d = pack_window(words, shape, P, sync, in_ptrs, out_ptrs, lo, hi)
-            built[lo] = (d.reshape(1).view(np.int32), any(sync[lo + 1:hi]))
-        packed.update(built)  # at once: another thread may read it
     status = torch.empty((n, 2), dtype=torch.int32, device=dev)
     stream = stream_of(dev)
     lib = _build.library("cmdring", PROTOTYPES["cmdring"])
@@ -570,20 +674,326 @@ def sequencer(slots, xs: Sequence[Sequence[Optional[torch.Tensor]]],
     base = status.data_ptr()
     for lo in range(0, n, per):
         hi = min(n, lo + per)
-        tmpl, has_sync = packed[lo]
-        d = tmpl.copy()
-        d[:(hi - lo) * CMDRING_SLOT_WORDS] = words[lo:hi].reshape(-1)
-        if staged:
-            ptrs = d.view(np.uint64)
-            for (i, r), t in staged.items():
-                if lo <= i < hi:
-                    ptrs[_IN + (i - lo) * P + r] = t.data_ptr()
+        d, has_sync = _descriptor(packed, words, lo, hi, P, staged)
+        lanes = takes_lanes(words[lo:hi], shape.wires[lo:hi])
+        maxseg = scale_segments(shape, lo, hi) if lanes else 0
+        scales = None
+        if lanes:
+            _check_lanes(shape)
+            if maxseg:
+                scales = torch.empty((hi - lo) * P * maxseg,
+                                     dtype=torch.float32, device=dev)
         rc = lib.accl_sequencer(
             d.ctypes.data, base + 8 * lo,
-            _barrier(dev, stream) if has_sync else None, stream)
+            _barrier(dev, stream) if has_sync or maxseg else None,
+            None if scales is None else scales.data_ptr(),
+            0 if scales is None else scales.numel(), stream)
         check_launch(lib, rc, "sequencer")
-        sequencer.launches.bump()
+        (sequencer_lanes if lanes else sequencer).launches.bump()
     return status
 
 
 sequencer.launches = LaunchCounter()
+
+
+def sequencer_lanes(slots, xs, outs, shape: WindowShape,
+                    device=None) -> torch.Tensor:
+    """Row 14's fp8 / int8 instantiation: :func:`sequencer` on a window
+    whose wires take it (raises for any other window)."""
+    if not takes_lanes(_words(slots), shape.wires):
+        raise ValueError("sequencer_lanes: the window has no fp8 or int8 "
+                         "wire and no seeded 16-bit wire")
+    return sequencer(slots, xs, outs, shape, device=device)
+
+
+sequencer_lanes.launches = LaunchCounter()
+
+
+# ---------------------------------------------------------------------------
+# the persistent form
+# ---------------------------------------------------------------------------
+
+#: the run's host-mapped block: its control words (``RunCtl``, 256 bytes:
+#: ``posted`` and ``halt`` at words 0-1, ``done``, ``exited`` and
+#: ``closing`` at words 32-34), then the status words and the descriptors
+#: of up to CMDRING_MAX_RUN_WINDOWS windows
+_CTL_BYTES = 256
+_STATUS_BYTES = MAX_SLOTS * 2 * 4
+_DESCS = _CTL_BYTES + CMDRING_MAX_RUN_WINDOWS * _STATUS_BYTES
+_MAPPED_BYTES = _DESCS + CMDRING_MAX_RUN_WINDOWS * WINDOW.itemsize
+_DONE, _EXITED, _CLOSING = 32, 33, 34
+#: why a run returned (``exited``)
+EXIT_HALT, EXIT_BUDGET, EXIT_LINGER = 1, 2, 3
+
+_mapped_free: List[int] = []
+_mapped_lock = threading.Lock()
+
+
+def _mapped_block() -> int:
+    """A zeroed host-mapped block for one run (kept in a pool: each block
+    is pinned memory the card reads over the bus)."""
+    with _mapped_lock:
+        if _mapped_free:
+            return _mapped_free.pop()
+    lib = _build.library("cmdring", PROTOTYPES["cmdring"])
+    out = ctypes.c_void_p()
+    rc = lib.accl_mapped_alloc(ctypes.byref(out), _MAPPED_BYTES)
+    check_launch(lib, rc, "mapped memory for a sequencer run")
+    return out.value
+
+
+class RunTicket:
+    """The completion of window ``k`` of a :class:`PersistentRun`, in
+    place of the CUDA event a one-shot launch records: ``query()``,
+    ``synchronize()`` and ``wait(stream)`` (the host waits: a stream
+    cannot wait on a window inside a running kernel)."""
+
+    __slots__ = ("run", "k")
+
+    def __init__(self, run: "PersistentRun", k: int):
+        self.run = run
+        self.k = k
+
+    def query(self) -> bool:
+        return self.run.done() > self.k or self.run.failed is not None
+
+    def synchronize(self) -> None:
+        self.run.wait_window(self.k)
+
+    def wait(self, stream=None) -> None:
+        self.synchronize()
+
+
+class PersistentRun:
+    """Row 14's persistent form on the card: ONE cooperative launch of
+    ``csrc/cmdring.cu``'s ``persistent_kernel`` that drains up to
+    ``run_windows`` windows of one shape posted into host-mapped memory.
+
+    :meth:`post` packs a window's descriptor as a one-shot launch would,
+    plans it (``accl_sequencer_plan``), writes it into the window's slot
+    of the mapped block and rings the doorbell; :meth:`launch` starts the
+    run (after its first post, whose staged operand copies, if any, go on
+    the stream before it).  The run returns on the HALT doorbell
+    (:meth:`halt`), once its budget is spent, or when its mailbox stays
+    idle for ``linger_s`` by the card's clock.  Closing at the linger is a
+    handshake with the post (``csrc/cmdring.cu``, ``persistent_body``):
+    a post the run closed on without reading returns None, and the
+    caller runs the window elsewhere; it never reaches the run.
+    ``launches`` counts the runs, ``closed_posts`` the posts a closing
+    run refused."""
+
+    launches = LaunchCounter()
+    closed_posts = LaunchCounter()
+
+    def __init__(self, shape: WindowShape, P: int, device: torch.device,
+                 run_windows: int, linger_s: float, lanes: bool):
+        if not 1 <= run_windows <= CMDRING_MAX_RUN_WINDOWS:
+            raise ValueError(f"run_windows {run_windows} not in 1.."
+                             f"{CMDRING_MAX_RUN_WINDOWS}")
+        if lanes:
+            _check_lanes(shape)
+        self.shape, self.P, self.device = shape, int(P), device
+        self.run_windows, self.linger_s = int(run_windows), float(linger_s)
+        self.lanes = bool(lanes)
+        self.ptr = _mapped_block()
+        self.ctl = np.ctypeslib.as_array(
+            (ctypes.c_int32 * (_CTL_BYTES // 4)).from_address(self.ptr))
+        self.stage = torch.empty(WINDOW.itemsize, dtype=torch.uint8,
+                                 device=device)
+        self.bar = torch.zeros(4, dtype=torch.int32, device=device)
+        maxseg = scale_segments(shape)
+        self.scales = (torch.empty(shape.depth * self.P * maxseg,
+                                   dtype=torch.float32, device=device)
+                       if maxseg else None)
+        self.posted = 0
+        self.keep: list = []  # staged copies the descriptors point at
+        self.launched = False
+        self.halted = False
+        self.failed: Optional[str] = None
+        self.fault: Optional[str] = None  # a CUDA error seen by ended()
+        self.on_fail = None  # callback(reason), once, on a failure
+        self.end_event = None
+        self._final = (0, 0)  # (done, exited) once the block is returned
+        self._lock = threading.Lock()
+        _live_runs.add(self)
+
+    # -- the host side -------------------------------------------------------
+    def done(self) -> int:
+        """Windows the run has completed (its release store)."""
+        ctl = self.ctl
+        return self._final[0] if ctl is None else int(ctl[_DONE])
+
+    def exited(self) -> int:
+        """0 while the run lives, else why it returned (EXIT_*)."""
+        ctl = self.ctl
+        return self._final[1] if ctl is None else int(ctl[_EXITED])
+
+    @property
+    def accepting(self) -> bool:
+        return (not self.halted and self.failed is None
+                and self.posted < self.run_windows and not self.exited())
+
+    def post(self, words, xs, outs) -> Optional[int]:
+        """Post one window (slot words, operand and result rows, as for
+        :func:`sequencer`); returns its index in the run, or None when the
+        run cannot take it (halted, spent, lingered out, another
+        instantiation, more than one descriptor, or, once launched, an
+        operand to stage, or the run closed at the linger before it read
+        the window).  Raises what a one-shot launch would."""
+        words = _words(words)
+        n = words.shape[0]
+        with self._lock:
+            if not self.accepting or launches_for(self.P, n) != 1:
+                return None
+            if takes_lanes(words, self.shape.wires) != self.lanes:
+                return None
+            P, _, stage, packed, _ = _packed(words, xs, outs, self.shape,
+                                             self.device)
+            if packed is None or P != self.P:
+                return None
+            if stage and self.launched:
+                return None
+            staged = {(i, r): xs[i][r].reshape(-1)[:self.shape.in_ws[i]]
+                      .clone() for i, r in stage}
+            d, _ = _descriptor(packed, words, 0, n, P, staged)
+            lib = _build.library("cmdring", PROTOTYPES["cmdring"])
+            check_launch(lib, lib.accl_sequencer_plan(d.ctypes.data),
+                         "sequencer plan")
+            k = self.posted
+            ctypes.memmove(self.ptr + _DESCS + k * WINDOW.itemsize,
+                           d.ctypes.data, WINDOW.itemsize)
+            closing = lib.accl_sequencer_ring(self.ptr, k + 1, 0)
+            if self.launched and closing == k + 1 and not self._took(k):
+                PersistentRun.closed_posts.bump()
+                return None
+            if staged:
+                self.keep.append(staged)
+            self.posted = k + 1
+            return k
+
+    def _took(self, k: int) -> bool:
+        """The host's side of the closing handshake: the run was closing
+        at window k when the doorbell rang, so wait for its decision: it
+        clears ``closing`` once it took the window, or returns without
+        it."""
+        ctl = self.ctl
+        while int(ctl[_CLOSING]) == k + 1 and not int(ctl[_EXITED]):
+            if self.ended():
+                break
+            time.sleep(0)
+        return self.done() > k or not self.exited()
+
+    def launch(self) -> None:
+        """Start the run on the device's current stream."""
+        lib = _build.library("cmdring", PROTOTYPES["cmdring"])
+        stream = stream_of(self.device)
+        rc = lib.accl_sequencer_run(
+            self.ptr, self.ptr + _DESCS, self.ptr + _CTL_BYTES,
+            self.stage.data_ptr(), self.bar.data_ptr(),
+            None if self.scales is None else self.scales.data_ptr(),
+            int(torch_to_dtype(self.shape.dtype)), int(self.lanes),
+            self.run_windows, int(self.linger_s * 1e9), stream)
+        check_launch(lib, rc, "persistent sequencer")
+        PersistentRun.launches.bump()
+        self.end_event = torch.cuda.Event()
+        self.end_event.record(torch.cuda.current_stream(self.device))
+        self.launched = True
+
+    def ticket(self, k: int) -> RunTicket:
+        return RunTicket(self, k)
+
+    def status(self, k: int, n: int) -> np.ndarray:
+        """Window k's status words, as the run wrote them."""
+        words = np.ctypeslib.as_array(
+            (ctypes.c_int32 * (2 * n)).from_address(
+                self.ptr + _CTL_BYTES + k * _STATUS_BYTES))
+        return words.reshape(n, 2).copy()
+
+    def halt(self) -> None:
+        """The HALT doorbell: the run finishes what was posted and
+        returns."""
+        with self._lock:
+            if self.halted or self.ptr is None:
+                return
+            self.halted = True
+            lib = _build.library("cmdring", PROTOTYPES["cmdring"])
+            lib.accl_sequencer_ring(self.ptr, 0, 1)
+
+    def ended(self) -> bool:
+        """Whether the run's kernel has returned (or never launched, or
+        faulted: the fault is kept for :meth:`wait_window` to latch, as
+        callers may hold the ring's lock here)."""
+        if not self.launched:
+            return True
+        try:
+            return bool(self.end_event.query())
+        except RuntimeError as e:  # a fault in the run
+            self.fault = f"{type(e).__name__}: {e}"
+            return True
+
+    def fail(self, reason: str) -> None:
+        """Latch a failure once: the callback fails every window the run
+        has not completed."""
+        with self._lock:
+            if self.failed is not None:
+                return
+            self.failed = reason[:300]
+            cb = self.on_fail
+        self.halt()
+        if cb is not None:
+            cb(self.failed)
+
+    def wait_window(self, k: int, timeout: float = 60.0) -> bool:
+        """Block the host until window k is done (True), or latch the
+        run's failure (False): it returned without the window, its kernel
+        faulted, or the deadline passed."""
+        deadline = time.monotonic() + timeout
+        while self.done() <= k:
+            if self.failed is not None:
+                return False
+            if self.exited() or (self.launched and self.ended()):
+                if self.done() > k:
+                    break
+                self.fail(self.fault or f"the run returned before window {k}")
+                return False
+            if time.monotonic() > deadline:
+                self.fail(f"window {k} not done within {timeout} s")
+                return False
+            time.sleep(2e-5)
+        return True
+
+    def join(self, timeout: float = 10.0) -> bool:
+        """Halt the run and wait until its kernel returned; its mapped
+        block then goes back to the pool.  False when it did not within
+        ``timeout``."""
+        self.halt()
+        deadline = time.monotonic() + timeout
+        while not self.ended():
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(1e-4)
+        with self._lock:
+            ptr, self.ptr = self.ptr, None
+            if ptr is not None:
+                self._final = (self.done(), self.exited())
+                self.ctl = None
+        if ptr is not None:
+            ctypes.memset(ptr, 0, _CTL_BYTES)
+            with _mapped_lock:
+                _mapped_free.append(ptr)
+        self.keep = []
+        _live_runs.discard(self)
+        return True
+
+
+_live_runs: "weakref.WeakSet[PersistentRun]" = weakref.WeakSet()
+
+
+@atexit.register
+def _halt_live_runs() -> None:
+    """At interpreter exit no run may keep a kernel spinning."""
+    for run in list(_live_runs):
+        try:
+            run.join(timeout=5.0)
+        except Exception:
+            pass

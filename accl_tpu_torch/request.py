@@ -55,6 +55,9 @@ class Request:
         self._cb_lock = threading.Lock()
         #: the payload the parked placement reads (dropped once it ran)
         self.device_handle = None
+        #: called once by the first wait that returns: a command-ring
+        #: window is drained there
+        self._drain_hook = None
 
     # -- engine side --------------------------------------------------------
     def mark_executing(self) -> None:
@@ -134,6 +137,9 @@ class Request:
         self.materialize()
         if self.event is not None:
             self.event.synchronize()
+        hook, self._drain_hook = self._drain_hook, None
+        if hook is not None:
+            hook()
         return True
 
     def get_retcode(self) -> ErrorCode:

@@ -55,7 +55,14 @@ Phases (any failure exits non-zero):
    results), the aliasing hazards (in-place allreduce, reduce-scatter,
    allgather, alltoall and bcast; write after read and write after write
    across slots: the cooperative launch) and every in-place form
-   (``inplace_window``).  K1 also runs its fp8 lanes and its raw int8 cast.  Rows 5-8
+   (``inplace_window``); the fp8 (e4m3, e5m2) and int8 lanes, seed 0 and
+   seeded, at P 2, 3, 4, 8 over every class (a per-rank count off the
+   256-element segments), bfloat16 and float16 operands, misaligned and
+   ragged windows and a seeded 16-bit wire, through the fp8 / int8
+   instantiation; the persistent form (``check_persistent``) over six
+   streams of 4 windows, one launch each, against the same plain
+   version with its mapped status words, and its budget and linger
+   exits.  K1 also runs its fp8 lanes and its raw int8 cast.  Rows 5-8
    (the compression kernels) are held BIT FOR BIT (NaN bits included,
    but for the NaN of an int8 segment's scale): the cast over every
    pair of float32 / bfloat16 / float16 / fp8 e4m3 / e5m2, the
@@ -113,7 +120,14 @@ Phases (any failure exits non-zero):
       reduce_scatter, allgather, alltoall, barrier, fused_apply), then
       fused_matmul_reduce_scatter and fused_attn_hop — each checked
       exactly against numpy and each one refill, no fallback, one
-      sequencer launch and no other kernel launch; then windows the ring
+      sequencer launch and no other kernel launch; then the rest of the
+      ring (``ring_main_path``): an int8 and an fp8 window (one launch
+      of the fp8 / int8 instantiation, equal to ``sequencer_plain`` on
+      the slot words the ring encoded, seeds included), a sustained
+      stream of 8 windows of 8 allreduces (warm: at most one dispatch,
+      at least 7 mailbox posts, then parked), a pair-slot window on the
+      sub-communicator [0, 1], and a kernel on another stream behind a
+      lingering run (within the linger + 1 ms); then windows the ring
       refuses (oversized, a reduce inside, ``pallas_ring`` registered),
       correct with their reason counted;
    d. the serving path: the transformer at bench.py's serving width
@@ -226,7 +240,12 @@ Phases (any failure exits non-zero):
    2(P-1)/P over the p50), then reduce / bcast / scatter / gather under
    ``xla`` and ``pallas_ring`` and alltoall (p50 and p90), and one
    batched window of 8 allreduces beside the same 8 calls unbatched at
-   256 KiB, 1 MiB and 4 MiB per rank, each set as a JSON line of its own;
+   256 KiB, 1 MiB and 4 MiB per rank, and the stream form (8 such windows
+   a sample posted into one persistent run: per window p50 / p90, launch
+   p50, dispatches and posts), each set as a JSON line of its own;
+   ``facade_ring``: a batched send -> recv pair on ``cuda_group(2)`` (one
+   ring slot) at 256 KiB and 4 MiB, and phase 3c's stream and
+   starvation figures;
    then the serving path (``serve_generate``): run A's prefill ms, the
    decode step p50, decode tokens/s over ``generate``'s wall time, and
    run B's prefill ms; then the training path (``train_step``): the step
@@ -722,6 +741,10 @@ def facade_rooted_latency(sizes, iters: int = 20) -> list:
 # -- the command-ring sequencer (row 14) -----------------------------------
 
 SEQ_N = 1 << 20  # elements per rank of the sequencer checks (4 MiB f32)
+#: clock cycles of the sleep kernel that holds the stream before a stream
+#: of windows (~0.1 s): the host posts the second window while the first
+#: is still in flight, as behind a busy card, and the stream arms a run
+STREAM_SLEEP = 200_000_000
 
 
 def seq_counts(op: int, N: int, P: int):
@@ -739,13 +762,14 @@ def seq_counts(op: int, N: int, P: int):
 
 
 def seq_window(P, dtype, ops, N, seed, wires=None, offset=0,
-               skew_rank=None):
+               skew_rank=None, flags=0):
     """A window of ``ops`` ((opcode, root, peer) per slot), every slot with
     its own operands and results, made from ``seed`` (the same seed makes
     the same window).  SUM and MAX alternate by slot; floats carry NaNs.
     ``offset`` misaligns every operand by that many elements; with
     ``skew_rank`` only that rank's operands and results, by one element
-    (each rank decides its own alignment in the kernel)."""
+    (each rank decides its own alignment in the kernel).  A nonzero
+    ``flags`` seeds the wire lanes, slot i with ``flags + 7 i``."""
     import torch
 
     from accl_tpu_torch.cmdring import (WindowShape, encode_fparam,
@@ -786,6 +810,7 @@ def seq_window(P, dtype, ops, N, seed, wires=None, offset=0,
             100 + i, op, n, dtype=int(torch_to_dtype(dtype)),
             function=i % 2, root=root, peer=peer,
             wire=0 if wire is None else int(torch_to_dtype(wire)),
+            flags=flags + 7 * i if flags else 0,
             fparam=encode_fparam(0.375) if fuse else 0))
         if op == Op.BARRIER:
             xs.append([None] * P)
@@ -897,7 +922,8 @@ def check_sequencer(err) -> None:
     class, four dtypes under each wire (none, bf16, f16), SUM and MAX
     with NaNs, ragged and misaligned operands (every rank, or one rank's
     operands and results), the aliasing hazards (a barrier: the
-    cooperative launch) and every in-place form."""
+    cooperative launch) and every in-place form; then the fp8 and int8
+    lanes (the LANES instantiation), seeded and not."""
     import torch
 
     from accl_tpu_torch.constants import CmdOpcode as Op
@@ -906,18 +932,7 @@ def check_sequencer(err) -> None:
     F32, BF16, F16, I32 = (torch.float32, torch.bfloat16, torch.float16,
                            torch.int32)
 
-    def mix(P, floats=True):
-        ops = [(Op.ALLREDUCE, 0, 0), (Op.ALLREDUCE, 0, 0),
-               (Op.BCAST, 0, 0), (Op.BCAST, P - 1, 0),
-               (Op.REDUCE_SCATTER, 0, 0), (Op.ALLGATHER, 0, 0),
-               (Op.ALLTOALL, 0, 0), (Op.BARRIER, 0, 0), (Op.NOP, 0, 0),
-               (0x7F, 0, 0),  # an opcode outside the enum: BAD_OP
-               (Op.SEND, 1, P - 1), (Op.RECV, 0, 1)]
-        if floats:
-            ops += [(Op.FUSED_APPLY, 0, 0), (Op.FUSED_MATMUL_RS, 0, 0),
-                    (Op.FUSED_ATTN_HOP, 0, 1),
-                    (Op.FUSED_ATTN_HOP, 0, P - 1)]
-        return ops
+    mix = seq_mix
 
     cases = []  # (tag, window maker)
     for P in (2, 4, 8):
@@ -983,12 +998,41 @@ def check_sequencer(err) -> None:
         cases.append((f"P={P} {dtype} N={N} in place",
                       lambda s, P=P, d=dtype, N=N: inplace_window(P, d, N,
                                                                   s)))
+    # the fp8 and int8 lanes (the LANES instantiation), unseeded and
+    # seeded, every width class; a per-rank count off the 256-element
+    # segments (a reduce-scatter's or alltoall's chunk at a * n starts
+    # inside one), ragged and misaligned, 16-bit operands
+    E4M3, E5M2, I8 = torch.float8_e4m3fn, torch.float8_e5m2, torch.int8
+    n_off = SEQ_N // 4 + 1003
+    for wire in (E4M3, E5M2, I8):
+        for seed in (0, 1234567):
+            for P in (2, 3, 4, 8):
+                cases.append((f"P={P} f32 wire {wire} seed {seed}",
+                              lambda s, P=P, w=wire, f=seed: seq_window(
+                                  P, F32, mix(P), n_off, s, wires=[w],
+                                  flags=f)))
+        for dtype in (BF16, F16):
+            cases.append((f"P=4 {dtype} wire {wire} seed 99",
+                          lambda s, d=dtype, w=wire: seq_window(
+                              4, d, mix(4), 100_003, s, wires=[w],
+                              flags=99)))
+        cases.append((f"P=3 f32 wire {wire} misaligned, unwired slots",
+                      lambda s, w=wire: seq_window(
+                          3, F32, mix(3)[:8], 100_003, s,
+                          wires=[w, None], flags=5, offset=1)))
+    # a 16-bit wire under a nonzero seed rounds stochastically (LANES)
+    cases.append(("P=4 f32 wire bf16 seed 3", lambda s: seq_window(
+        4, F32, mix(4)[:8], n_off, s, wires=[BF16, F16], flags=3)))
+    lanes_cases = 0
     for k, (tag, build) in enumerate(cases):
         got = build(SEED + k)
         want = build(SEED + k)
-        before = kseq.sequencer.launches.count
+        lanes = kseq.takes_lanes(got[0], got[3].wires)
+        lanes_cases += lanes
+        counter = kseq.sequencer_lanes if lanes else kseq.sequencer
+        before = counter.launches.count
         st = kseq.sequencer(*got[:4], device=torch.device("cuda", 0))
-        if kseq.sequencer.launches.count == before:
+        if counter.launches.count == before:
             fail(f"sequencer {tag}: the kernel did not launch")
         st_plain = kseq.sequencer_plain(*want[:4])
         torch.cuda.synchronize()
@@ -1000,13 +1044,226 @@ def check_sequencer(err) -> None:
         else:
             pairs = ((o, w) for rg, rw in zip(got[2], want[2])
                      for o, w in zip(rg, rw) if o is not None)
+        key = "sequencer_lanes" if lanes else "sequencer"
         for i, (o, w) in enumerate(pairs):
-            err["sequencer"] = max(err["sequencer"], compare(
+            err[key] = max(err[key], compare(
                 f"sequencer {tag} tensor {i}", o, w))
         del got, want
         torch.cuda.synchronize()
-    print(f"sequencer: {len(cases)} windows agree with sequencer_plain",
+    print(f"sequencer: {len(cases)} windows agree with sequencer_plain "
+          f"({lanes_cases} through the fp8 / int8 instantiation)",
           flush=True)
+
+
+def seq_mix(P, floats=True):
+    """check_sequencer's mix of every opcode class at world size P."""
+    from accl_tpu_torch.constants import CmdOpcode as Op
+
+    ops = [(Op.ALLREDUCE, 0, 0), (Op.ALLREDUCE, 0, 0),
+           (Op.BCAST, 0, 0), (Op.BCAST, P - 1, 0),
+           (Op.REDUCE_SCATTER, 0, 0), (Op.ALLGATHER, 0, 0),
+           (Op.ALLTOALL, 0, 0), (Op.BARRIER, 0, 0), (Op.NOP, 0, 0),
+           (0x7F, 0, 0),  # an opcode outside the enum: BAD_OP
+           (Op.SEND, 1, P - 1), (Op.RECV, 0, 1)]
+    if floats:
+        ops += [(Op.FUSED_APPLY, 0, 0), (Op.FUSED_MATMUL_RS, 0, 0),
+                (Op.FUSED_ATTN_HOP, 0, 1), (Op.FUSED_ATTN_HOP, 0, P - 1)]
+    return ops
+
+
+def check_persistent(err) -> dict:
+    """Phase 2 for row 14's persistent form: streams of 4 windows, each
+    stream one ``PersistentRun`` (one launch) of its shape, launched after
+    its first post and fed the rest while it runs, held exactly against
+    ``sequencer_plain`` window by window, status words included (read from
+    the run's mapped memory), over P 2, 3, 4 and 8, plain, fp8 and int8
+    windows of every class; then the three ways a run returns: the HALT
+    doorbell, its window budget and its linger."""
+    import torch
+
+    from accl_tpu_torch.ops.cmdring import status_words
+    from accl_tpu_torch.ops.cuda import cmdring as kseq
+
+    F32, BF16, I32 = torch.float32, torch.bfloat16, torch.int32
+    E4M3, E5M2, I8 = torch.float8_e4m3fn, torch.float8_e5m2, torch.int8
+    dev = torch.device("cuda", 0)
+    n_off = SEQ_N // 4 + 1003
+    streams = [
+        ("P=4 f32 every class", lambda s: seq_window(
+            4, F32, seq_mix(4), n_off, s)),
+        ("P=4 f32 int8 seeded", lambda s: seq_window(
+            4, F32, seq_mix(4), n_off, s, wires=[I8], flags=77)),
+        ("P=2 bf16 e4m3 seeded", lambda s: seq_window(
+            2, BF16, seq_mix(2)[:8], 100_003, s, wires=[E4M3], flags=9)),
+        ("P=8 f32 e5m2 seed 0", lambda s: seq_window(
+            8, F32, seq_mix(8)[:8], n_off, s, wires=[E5M2])),
+        ("P=3 i32 plain", lambda s: seq_window(
+            3, I32, seq_mix(3, False), 100_003, s)),
+        ("P=4 f32 8 x allreduce", lambda s: seq_window(
+            4, F32, [seq_mix(4)[0]] * 8, SEQ_N, s)),
+    ]
+    for j, (tag, build) in enumerate(streams):
+        got = [build(SEED + 600 + 10 * j + k) for k in range(4)]
+        want = [build(SEED + 600 + 10 * j + k) for k in range(4)]
+        slots, xs, _, shape = got[0]
+        P = len(xs[0])
+        before = kseq.PersistentRun.launches.count
+        run = kseq.PersistentRun(shape, P, dev, 8, 0.5,
+                                 kseq.takes_lanes(slots, shape.wires))
+        ks = []
+        for i, win in enumerate(got):
+            k = run.post(*win[:3])
+            if k is None:
+                fail(f"persistent {tag}: window {i} refused")
+            ks.append(k)
+            if i == 0:
+                run.launch()
+        for k in ks:
+            if not run.wait_window(k, 60.0):
+                fail(f"persistent {tag}: window {k}: {run.failed}")
+        statuses = [run.status(k, got[0][0].shape[0]) for k in ks]
+        if not run.join(10.0) or run.exited() != kseq.EXIT_HALT:
+            fail(f"persistent {tag}: the run did not return on HALT "
+                 f"(exited {run.exited()})")
+        if kseq.PersistentRun.launches.count != before + 1:
+            fail(f"persistent {tag}: not one launch for the stream")
+        torch.cuda.synchronize()
+        key = ("sequencer_lanes" if kseq.takes_lanes(slots, shape.wires)
+               else "sequencer")
+        for i, (g, w) in enumerate(zip(got, want)):
+            kseq.sequencer_plain(*w[:4])
+            if (statuses[i] != status_words(g[0])).any():
+                fail(f"persistent {tag}: window {i} status words")
+            for rg, rw in zip(g[2], w[2]):
+                for o, ref in zip(rg, rw):
+                    if o is not None:
+                        err["sequencer_run"] = max(
+                            err["sequencer_run"],
+                            compare(f"persistent {tag} window {i}", o, ref))
+        del got, want
+        torch.cuda.synchronize()
+    # the budget and the linger
+    win = seq_window(4, F32, seq_mix(4)[:2], 4096, SEED + 700)
+    run = kseq.PersistentRun(win[3], 4, dev, 2, 0.5, False)
+    run.post(*win[:3])
+    run.launch()
+    run.post(*win[:3])
+    run.wait_window(1, 60.0)
+    t0 = time.time()
+    while not run.ended() and time.time() - t0 < 10:
+        time.sleep(1e-3)
+    if run.exited() != kseq.EXIT_BUDGET or run.post(*win[:3]) is not None:
+        fail(f"persistent: the window budget did not end the run "
+             f"(exited {run.exited()})")
+    run.join(1.0)
+    run = kseq.PersistentRun(win[3], 4, dev, 8, 0.002, False)
+    run.post(*win[:3])
+    run.launch()
+    run.wait_window(0, 60.0)
+    t0 = time.time()
+    while not run.ended() and time.time() - t0 < 10:
+        time.sleep(1e-4)
+    lingered = time.time() - t0
+    if run.exited() != kseq.EXIT_LINGER:
+        fail(f"persistent: the linger did not end the run "
+             f"(exited {run.exited()})")
+    run.join(1.0)
+    closed = check_closing(kseq, dev, win, err)
+    print(f"persistent sequencer: {len(streams)} streams of 4 windows agree "
+          f"with sequencer_plain, one launch each; budget and linger "
+          f"(2 ms: returned {lingered * 1e3:.2f} ms after its window) end "
+          f"a run; closing handshake: {closed}", flush=True)
+    return closed
+
+
+def check_closing(kseq, dev, win, err) -> dict:
+    """The closing handshake between a post and a run lingering out: (a) a
+    post held up inside ``post`` (its descriptor step delayed 100 ms)
+    past a 20 ms linger is refused with None, the run having closed
+    without it (``closed_posts``), and the window then runs on a fresh
+    run, equal to ``sequencer_plain``; (b) 96 posts at random intervals
+    of 0-2 ms into runs of a 1 ms linger, each refused one re-posted to a
+    fresh run: every window's status words right and every result equal
+    to ``sequencer_plain``'s, no window lost."""
+    import random
+
+    import torch
+
+    from accl_tpu_torch.ops.cmdring import status_words
+
+    slots, xs, outs, shape = win
+    want = [[None if o is None else torch.empty_like(o) for o in row]
+            for row in outs]
+    kseq.sequencer_plain(slots, xs, want, shape)
+    n = slots.shape[0]
+
+    def check(tag, run, k):
+        if not run.wait_window(k, 60.0):
+            fail(f"closing {tag}: window {k}: {run.failed}")
+        if (run.status(k, n) != status_words(slots)).any():
+            fail(f"closing {tag}: window {k}'s status words")
+
+    def results(tag):
+        torch.cuda.synchronize()
+        for row, ref in zip(outs, want):
+            for o, w in zip(row, ref):
+                if o is not None:
+                    err["sequencer_run"] = max(err["sequencer_run"],
+                                               compare(tag, o, w))
+
+    out = {}
+    # (a) a post delayed past the linger inside post()
+    run = kseq.PersistentRun(shape, len(xs[0]), dev, 8, 0.02, False)
+    run.post(slots, xs, outs)
+    run.launch()
+    check("(a)", run, 0)
+    closed0 = kseq.PersistentRun.closed_posts.count
+    real = kseq._descriptor
+
+    def slow(*a, **kw):
+        time.sleep(0.1)
+        return real(*a, **kw)
+
+    kseq._descriptor = slow
+    try:
+        k = run.post(slots, xs, outs)
+    finally:
+        kseq._descriptor = real
+    if (k is not None or run.exited() != kseq.EXIT_LINGER
+            or kseq.PersistentRun.closed_posts.count != closed0 + 1):
+        fail(f"closing (a): a post delayed past the linger gave {k}, "
+             f"exited {run.exited()}, closed posts "
+             f"{kseq.PersistentRun.closed_posts.count - closed0}")
+    run.join(5.0)
+    for o in (o for row in outs for o in row if o is not None):
+        o.zero_()
+    run = kseq.PersistentRun(shape, len(xs[0]), dev, 8, 0.02, False)
+    run.post(slots, xs, outs)
+    run.launch()
+    check("(a) re-posted", run, 0)
+    run.join(5.0)
+    results("closing (a) re-posted window")
+    # (b) posts at random intervals around a 1 ms linger
+    rnd = random.Random(SEED)
+    runs, closed0 = 0, kseq.PersistentRun.closed_posts.count
+    run = None
+    for i in range(96):
+        time.sleep(rnd.uniform(0.0, 0.002))
+        k = None if run is None else run.post(slots, xs, outs)
+        if k is None:
+            if run is not None:
+                run.join(5.0)
+            run = kseq.PersistentRun(shape, len(xs[0]), dev, 128, 0.001,
+                                     False)
+            runs += 1
+            k = run.post(slots, xs, outs)
+            run.launch()
+        check(f"(b) post {i}", run, k)
+    run.join(5.0)
+    results("closing (b) stream")
+    out.update(runs=runs, posts=96,
+               closed_posts=kseq.PersistentRun.closed_posts.count - closed0)
+    return out
 
 
 def batch_main_path(kc) -> dict:
@@ -1155,6 +1412,297 @@ def batch_main_path(kc) -> dict:
         for a in group:
             a.deinit()
     return totals
+
+
+def ring_main_path(kc) -> dict:
+    """Phase 3c, the rest of the command ring (ROADMAP A5) on
+    ``cuda_group(4)``: (a) a batched int8 and an fp8 (e4m3) window of an
+    allreduce, a reduce_scatter and an alltoall at 256 KiB a rank, each
+    one refill with the fallbacks unchanged, one launch of the LANES
+    instantiation and no other kernel, its results equal to
+    ``sequencer_plain`` on the same operands and the slot words the ring
+    encoded (seeds included); (b) a sustained stream of K = 8 windows of 8
+    allreduces at 1 MiB a rank, posted without a drain between them, a
+    cold pass then a warm one: the warm pass at most one dispatch and at
+    least K - 1 mailbox posts, the ring ``parked`` once the linger has
+    passed, the sums exact; (c) a window of a matched send / recv pair
+    and an allreduce on the 2-rank sub-communicator [0, 1]: one refill,
+    the pair one slot; (d) the starvation bound: a kernel launched on
+    another stream while a run lingers finishes within the linger plus
+    1 ms; (e) a post held up past the linger (its descriptor step delayed
+    300 ms inside ``PersistentRun.post``): the run closes without it, the
+    window arms a fresh run, every request completes and the sums are
+    exact.  The card's default lowering is ``pallas`` (every window
+    inline); (b), (d) and (e) set ``xla``, which arms runs.  Returns the
+    launch counts over (a) to (e)."""
+    import numpy as np
+    import torch
+
+    import accl_tpu_torch as at
+    from accl_tpu_torch.cmdring import WindowShape, ring_widths
+    from accl_tpu_torch.constants import Operation
+    from accl_tpu_torch.ops.cuda import cmdring as kseq
+    from accl_tpu_torch.ops.cuda.cmdring import result_width
+
+    P = P_MAIN
+    for k in kc.KERNELS.values():
+        k.launches.reset()
+    group = at.cuda_group(P)
+    ring = group[0].engine.gang.cmdring
+    out = {}
+    try:
+        if ring.lowering != "pallas":
+            fail(f"the card's default lowering is {ring.lowering}")
+        # (a) the fp8 / int8 windows
+        N = 256 * 1024 // 4
+        n = N // P
+        rng = np.random.default_rng(SEED + 31)
+        data = rng.standard_normal((P, N), dtype=np.float32)
+        for lane in ("int8", "float8_e4m3fn"):
+            bufs = {}
+
+            def window(a, r, lane=lane):
+                b = bufs[r] = dict(
+                    s=a.create_buffer_from(data[r]),
+                    ar=a.create_buffer(n, np.float32),
+                    rs=a.create_buffer(n, np.float32),
+                    a2=a.create_buffer(N, np.float32))
+                with a.batch():
+                    reqs = [a.allreduce(b["s"], b["ar"], n,
+                                        compress_dtype=lane, run_async=True),
+                            a.reduce_scatter(b["s"], b["rs"], n,
+                                             compress_dtype=lane,
+                                             run_async=True),
+                            a.alltoall(b["s"], b["a2"], n,
+                                       compress_dtype=lane, run_async=True)]
+                for q in reqs:
+                    if not q.wait(120) or not q.ring_resident:
+                        raise RuntimeError(f"{q.op_name} off the ring")
+                    q.check()
+
+            st0 = ring.stats()
+            before = {k: f.launches.count for k, f in kc.KERNELS.items()}
+            run_ranks(group, window, f"{lane} window")
+            moved = {k: f.launches.count - before[k]
+                     for k, f in kc.KERNELS.items()
+                     if f.launches.count != before[k]}
+            st1 = ring.stats()
+            if (st1["refills"] - st0["refills"] != 1
+                    or st1["fallbacks"] != st0["fallbacks"]
+                    or moved != {"sequencer_lanes": 1}):
+                fail(f"{lane} window: refills {st1['refills'] - st0['refills']}"
+                     f", fallbacks {st1['fallbacks']}, launches {moved}")
+            sess = ring._sessions[group[0].comm.id]
+            slots = np.stack([sess.ring[(sess.head - 3 + k) % ring.depth]
+                              for k in range(3)])
+            ops = (Operation.ALLREDUCE, Operation.REDUCE_SCATTER,
+                   Operation.ALLTOALL)
+            widths = [ring_widths(op, n, P) for op in ops]
+            wire = getattr(torch, lane)
+            shape = WindowShape(3, [w[0] for w in widths],
+                                [w[1] for w in widths], [wire] * 3,
+                                torch.float32)
+            xs = [[bufs[r]["s"].tensor[:w[0]] for r in range(P)]
+                  for w in widths]
+            want = [[torch.empty(result_width(w[0], w[1], P),
+                                 device=xs[0][0].device) for _ in range(P)]
+                    for w in widths]
+            kseq.sequencer_plain(slots, xs, want, shape)
+            for k, key in enumerate(("ar", "rs", "a2")):
+                for r in range(P):
+                    err_ = compare(f"facade {lane} {key} rank {r}",
+                                   bufs[r][key].tensor, want[k][r])
+                    out[f"{lane}_err"] = max(out.get(f"{lane}_err", 0.0),
+                                             err_)
+            if int(slots[0][6]) == 0:
+                fail(f"{lane} window: the allreduce's slot carries no seed")
+        print(f"fp8 / int8 windows ride the ring, equal to sequencer_plain "
+              f"on the encoded slots", flush=True)
+
+        # (b) the sustained stream
+        K, N = 8, 1024 * 1024 // 4
+        send = {}
+        outs = {}
+
+        def setup(a, r):  # before the sleep: a buffer's fill syncs
+            send[r] = a.create_buffer_from(np.full(N, r + 1.0, np.float32))
+            outs[r] = [a.create_buffer(N, np.float32) for _ in range(8)]
+
+        def stream(a, r):
+            reqs = []
+            a.begin_batch()
+            try:
+                for _ in range(K):
+                    reqs += [a.allreduce(send[r], d, run_async=True)
+                             for d in outs[r]]
+                    a._dispatch_pending()
+            finally:
+                a.end_batch()
+            for q in reqs:
+                if not q.wait(120):
+                    raise RuntimeError("a stream window never completed")
+                q.check()
+
+        run_ranks(group, setup, "stream buffers")
+        ring.lowering = "xla"
+        saved = ring.linger_s
+        ring.linger_s = 0.5
+        try:
+            # the card runs ahead of the host by nature; a sleep kernel
+            # holds the stream so the cold pass's second window finds the
+            # first still in flight, as a busy card would
+            torch.cuda.synchronize()
+            torch.cuda._sleep(STREAM_SLEEP)
+            run_ranks(group, stream, "cold stream")
+            st0 = ring.stats()
+            run_ranks(group, stream, "warm stream")
+            st1 = ring.stats()
+        finally:
+            ring.linger_s = saved
+        warm = {k: st1[k] - st0[k] for k in ("refills", "dispatches",
+                                             "mailbox_posts")}
+        out["stream"] = dict(warm, cold_dispatches=st0["dispatches"])
+        if (warm["refills"] != K or warm["dispatches"] > 1
+                or warm["mailbox_posts"] < K - 1):
+            fail(f"sustained stream of {K} windows: {warm}")
+        for r in range(P):
+            for d in outs[r]:
+                d.sync_from_device()
+                if not np.array_equal(d.data, np.full(N, 10.0, np.float32)):
+                    fail(f"stream result rank {r} differs from the sum")
+        t0 = time.time()
+        while not ring.parked and time.time() - t0 < 5:
+            time.sleep(0.01)
+        out["stream"]["parked_after_s"] = time.time() - t0
+        if not ring.parked or ring.stats()["state"] != "parked":
+            fail(f"the ring did not park after the linger: {ring.stats()}")
+        print(f"sustained stream of {K} windows: warm pass {warm}, parked "
+              f"{out['stream']['parked_after_s']:.3f} s after it", flush=True)
+
+        # (e) a post held up past the linger inside PersistentRun.post
+        held = []
+        real = kseq._descriptor
+
+        def slow(*a_, **kw):
+            f = sys._getframe(1)
+            if (not held and f.f_code.co_name == "post"
+                    and f.f_locals["self"].launched):
+                held.append(f.f_locals["self"])
+                time.sleep(0.3)
+            return real(*a_, **kw)
+
+        for r in range(P):
+            for d in outs[r]:
+                d.tensor.zero_()
+        closed0 = kseq.PersistentRun.closed_posts.count
+        ring.linger_s = 0.02
+        kseq._descriptor = slow
+        try:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(STREAM_SLEEP)
+            st0 = ring.stats()
+            run_ranks(group, stream, "stream with a delayed post")
+            st1 = ring.stats()
+        finally:
+            kseq._descriptor = real
+            ring.linger_s = saved
+        out["delayed_post"] = dict(
+            {k: st1[k] - st0[k] for k in ("refills", "dispatches",
+                                          "mailbox_posts")},
+            closed_posts=kseq.PersistentRun.closed_posts.count - closed0,
+            held_run_exited=held[0].exited() if held else None)
+        if (not held or out["delayed_post"]["closed_posts"] != 1
+                or held[0].exited() != kseq.EXIT_LINGER):
+            fail(f"delayed post: {out['delayed_post']}")
+        for r in range(P):
+            for d in outs[r]:
+                d.sync_from_device()
+                if not np.array_equal(d.data, np.full(N, 10.0, np.float32)):
+                    fail(f"delayed post: rank {r}'s sum differs")
+        print(f"a post delayed past the linger: the run closed without it, "
+              f"the window re-armed: {out['delayed_post']}", flush=True)
+
+        # (c) a pair-slot window on the sub-communicator [0, 1]
+        n2 = 64 * 1024
+        sub = {}
+
+        def pair(a, r):
+            c = a.create_communicator([0, 1]) if r < 2 else None
+            if c is None:
+                return
+            sub[r] = dict(c=c, s=a.create_buffer_from(
+                np.arange(n2, dtype=np.float32) + 1000.0 * r),
+                d=a.create_buffer(n2, np.float32),
+                ar=a.create_buffer(n2, np.float32))
+            b = sub[r]
+            with a.batch():
+                if r == 0:
+                    q1 = a.send(b["s"], n2, dst=1, tag=4, comm=c,
+                                run_async=True)
+                else:
+                    q1 = a.recv(b["d"], n2, src=0, tag=4, comm=c,
+                                run_async=True)
+                q2 = a.allreduce(b["s"], b["ar"], n2, comm=c,
+                                 run_async=True)
+            for q in (q1, q2):
+                if not q.wait(120) or not q.ring_resident:
+                    raise RuntimeError(f"{q.op_name} off the ring")
+                q.check()
+
+        st0 = ring.stats()
+        run_ranks(group, pair, "pair-slot window")
+        st1 = ring.stats()
+        sent = st1["ops"].get("SEND", 0) - st0["ops"].get("SEND", 0)
+        if st1["refills"] - st0["refills"] != 1 or sent != 1:
+            fail(f"pair-slot window: {st1['refills'] - st0['refills']} "
+                 f"refills, {sent} pair slots")
+        sub[1]["d"].sync_from_device()
+        if not np.array_equal(sub[1]["d"].data,
+                              np.arange(n2, dtype=np.float32)):
+            fail("pair-slot window: the receiver's data differ")
+
+        # (d) the starvation bound: a kernel on another stream launched
+        # while a run lingers (a 50 ms linger, so the run is surely still
+        # there when the kernel comes)
+        x = torch.ones(1024, device="cuda")
+        other = torch.cuda.Stream()
+        ring.linger_s = 0.05
+        try:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(STREAM_SLEEP)
+            run_ranks(group, stream, "stream before the starvation check")
+        finally:
+            ring.linger_s = saved
+        runs = [s.run.device_run for s in ring._sessions.values()
+                if s.run is not None]
+        lingering = any(not r.ended() for r in runs)
+        linger = max(r.linger_s for r in runs) if runs else 0.0
+        t0 = time.perf_counter()
+        with torch.cuda.stream(other):
+            x.add_(1.0)
+            ev = torch.cuda.Event()
+            ev.record(other)
+        ev.synchronize()
+        waited = time.perf_counter() - t0
+        out["starvation_ms"] = waited * 1e3
+        out["starvation_linger_ms"] = linger * 1e3
+        if not lingering:
+            fail("starvation check: no run lingered when the kernel came")
+        if waited > linger + 1e-3:
+            fail(f"a kernel on another stream waited {waited * 1e3:.3f} ms "
+                 f"behind a lingering run (linger {linger * 1e3} ms)")
+        print(f"starvation bound: a kernel on another stream finished "
+              f"{waited * 1e3:.3f} ms after its launch behind a lingering "
+              f"run (linger {linger * 1e3:.1f} ms)", flush=True)
+    finally:
+        for a in group:
+            a.deinit()
+    out["launches"] = {k: f.launches.count for k, f in kc.KERNELS.items()}
+    missing = [k for k in ("sequencer", "sequencer_lanes", "sequencer_run")
+               if not out["launches"][k]]
+    if missing:
+        fail(f"the ring's path never launched {missing}: {out['launches']}")
+    return out
 
 
 def refused_windows() -> dict:
@@ -1649,6 +2197,26 @@ def time_sequencer(rand) -> dict:
             lambda: library(win[1], win[2]))
         out[key + "bound"] = bound(nbytes, ops)
         del win
+    # the fp8 / int8 instantiation on the main path's window (8 x
+    # allreduce 1 Mi, seeded), by device time; its bound counts each
+    # operand read once, each result written once and the int8 scales
+    # written and read once
+    for lane in ("int8", "float8_e4m3fn"):
+        wire = getattr(torch, lane)
+        win = seq_window(P, F32, [(Op.ALLREDUCE, 0, 0)] * 8, SEQ_N,
+                         SEED + 5, wires=[wire], flags=12345)
+        nbytes, ops = window_bytes(*win)
+        if lane == "int8":
+            nbytes += 8 * P * (-(-SEQ_N // 256)) * 4 * 2
+        key = f"{lane}_"
+        out[key + "ms"] = time_ms(lambda: kseq.sequencer(*win))
+        out[key + "device_ms"] = device_ms(lambda: kseq.sequencer(*win))
+        out[key + "plain_ms"] = time_ms(lambda: kseq.sequencer_plain(*win))
+        out[key + "bound"] = bound(nbytes, ops)
+        del win
+    # the persistent form: 16 windows of 8 x allreduce 1 Mi posted into one
+    # run, from the first post to the last window's completion, a window
+    out.update(time_persistent(P, kseq, Op))
     mix_ops = [(Op.ALLREDUCE, 0, 0), (Op.ALLREDUCE, 0, 0), (Op.BCAST, 2, 0),
                (Op.REDUCE_SCATTER, 0, 0), (Op.ALLGATHER, 0, 0),
                (Op.ALLTOALL, 0, 0), (Op.BARRIER, 0, 0),
@@ -1659,6 +2227,193 @@ def time_sequencer(rand) -> dict:
     out["mix_4mib_device_ms"] = device_ms(lambda: kseq.sequencer(*win))
     out["mix_4mib_plain_ms"] = time_ms(lambda: kseq.sequencer_plain(*win))
     out["mix_4mib_bound"] = bound(nbytes, ops)
+    return out
+
+
+def time_persistent(P, kseq, Op, windows: int = 16) -> dict:
+    """Row 14's persistent form on the main path's window: ``windows``
+    windows of 8 x allreduce 1 Mi posted into one run (launched after the
+    first post), timed from the first post to the last window's
+    completion on the host clock, per window; twice over, the second
+    kept.  Beside it the one-shot kernel launched once a window over the
+    same windows, the same way."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    win = seq_window(P, torch.float32, [(Op.ALLREDUCE, 0, 0)] * 8, SEQ_N,
+                     SEED + 6)
+    out = {}
+    for _pass in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = kseq.PersistentRun(win[3], P, dev, windows, 0.002, False)
+        for i in range(windows):
+            if run.post(*win[:3]) is None:
+                fail("time_persistent: a post was refused")
+            if i == 0:
+                run.launch()
+        if not run.wait_window(windows - 1, 60.0):
+            fail(f"time_persistent: {run.failed}")
+        out["run_ms"] = (time.perf_counter() - t0) * 1e3 / windows
+        run.join(5.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            kseq.sequencer(*win)
+        torch.cuda.synchronize()
+        out["oneshot_ms"] = (time.perf_counter() - t0) * 1e3 / windows
+    return out
+
+
+#: the stream form's postures: (name, lowering, cmdring_run_windows,
+#: cmdring_linger_us (0: the env default), a sleep kernel before the
+#: warm-up); "default" is the card's default, "run_default" the ``xla``
+#: lowering at the defaults (16 windows, 2 ms), "run_tuned" a run armed
+#: behind a busy card that the timed samples post into
+STREAM_POSTURES = (("default", "pallas", 0, 0, False),
+                   ("run_default", "xla", 0, 0, False),
+                   ("run_tuned", "xla", 128, 200_000, True))
+
+
+def facade_stream_latency(sizes, K: int = 8, iters: int = 10) -> list:
+    """The stream form of ``facade_batch``: K windows of 8 allreduces a
+    rank posted without a drain between them (``_dispatch_pending``), one
+    ``end_batch``, every request waited; per window on rank 0's host
+    clock (the K windows' time over K) p50 and p90, the launch p50 (a
+    window's requests' longest duration: at post time for a run's
+    windows) and the dispatches and mailbox posts of the timed samples,
+    under each of ``STREAM_POSTURES``.  Per size a warm-up sample first
+    (for "run_tuned" begun behind a sleep kernel on the stream, so that
+    its second window finds the first in flight and arms the run the
+    timed samples post into)."""
+    import numpy as np
+    import torch
+
+    import accl_tpu_torch as at
+
+    samples = {}
+    bufs = {}
+
+    def setup(a, r):
+        bufs[r] = {n: (a.create_buffer(n, np.float32),
+                       [a.create_buffer(n, np.float32) for _ in range(8)])
+                   for n in sizes}
+
+    def posture(a, r, run_windows, linger_us):
+        a.set_tuning("cmdring_run_windows", run_windows)
+        a.set_tuning("cmdring_linger_us", linger_us)
+
+    def sample(a, r, n, count):
+        s, ds = bufs[r][n]
+        times, launch = [], []
+        for _ in range(count):
+            t = time.perf_counter()
+            reqs = []
+            a.begin_batch()
+            for _ in range(K):
+                reqs.append([a.allreduce(s, d, run_async=True) for d in ds])
+                a._dispatch_pending()
+            a.end_batch()
+            for window in reqs:
+                for q in window:
+                    q.wait(60)
+                    q.check()
+            times.append((time.perf_counter() - t) / K)
+            launch += [1e-9 * max(q.get_duration_ns() for q in w)
+                       for w in reqs]
+        if r == 0:
+            samples[n] = (times, launch)
+
+    group = at.cuda_group(P_MAIN)
+    ring = group[0].engine.gang.cmdring
+    rows = []
+    try:
+        if ring.lowering != "pallas":
+            fail(f"the card's default lowering is {ring.lowering}")
+        run_ranks(group, setup, "facade stream buffers")
+        for name, lowering, rw, lus, sleep in STREAM_POSTURES:
+            ring.lowering = lowering
+            run_ranks(group, lambda a, r: posture(a, r, rw, lus),
+                      f"facade stream posture {name}")
+            run_windows, linger_s = ring._window_posture()
+            for n in sizes:
+                torch.cuda.synchronize()
+                if sleep:
+                    torch.cuda._sleep(STREAM_SLEEP)
+                run_ranks(group, lambda a, r: sample(a, r, n, 1),
+                          "facade stream warm-up")
+                st0 = ring.stats()
+                run_ranks(group, lambda a, r: sample(a, r, n, iters),
+                          "facade stream timing")
+                st1 = ring.stats()
+                t, lt = samples[n]
+                rows.append({
+                    "mode": "stream", "posture": name, "lowering": lowering,
+                    "run_windows": run_windows, "linger_us": linger_s * 1e6,
+                    "sleep_kernel": sleep, "windows": K, "calls": 8,
+                    "bytes_per_rank": 4 * n,
+                    "p50_ms": float(np.median(t)) * 1e3,
+                    "p90_ms": float(np.percentile(t, 90)) * 1e3,
+                    "launch_p50_ms": float(np.median(lt)) * 1e3,
+                    "dispatches": st1["dispatches"] - st0["dispatches"],
+                    "mailbox_posts": (st1["mailbox_posts"]
+                                      - st0["mailbox_posts"]),
+                    "refills": st1["refills"] - st0["refills"],
+                })
+            ring.halt_sessions()
+        if ring.stats()["fallbacks"]:
+            fail("facade stream timing: a window fell back")
+    finally:
+        for a in group:
+            a.deinit()
+    return rows
+
+
+def facade_pair_latency(sizes, iters: int = 20) -> list:
+    """A batched send -> recv pair on ``cuda_group(2)`` (one ring slot):
+    p50 and p90 from rank 0's batch to rank 1's wait returning, the data
+    on the card, a barrier before each sample; beside ``facade_p2p``'s
+    unbatched send -> recv."""
+    import numpy as np
+
+    import accl_tpu_torch as at
+
+    stamps = {}
+
+    def rank_main(a, r):
+        bufs = {n: (a.create_buffer_from(np.full(n, r, np.float32)),
+                    a.create_buffer(n, np.float32)) for n in sizes}
+        for n, (s, d) in bufs.items():
+            rows = []
+            for it in range(iters + 2):
+                a.barrier()
+                t0 = time.perf_counter()
+                with a.batch():
+                    q = (a.send(s, n, dst=1, tag=8, run_async=True) if r == 0
+                         else a.recv(d, n, src=0, tag=8, run_async=True))
+                q.wait(60)
+                q.check()
+                if not q.ring_resident:
+                    raise RuntimeError("the batched pair left the ring")
+                if it >= 2:
+                    rows.append((t0, time.perf_counter()))
+            stamps.setdefault(n, {})[r] = rows
+
+    group = at.cuda_group(2)
+    try:
+        run_ranks(group, rank_main, "batched pair timing")
+        sent = group[0].engine.gang.cmdring.stats()["ops"].get("SEND", 0)
+    finally:
+        for a in group:
+            a.deinit()
+    if sent != len(sizes) * (iters + 2):
+        fail(f"batched pair timing: {sent} pair slots")
+    out = []
+    for n, by_rank in stamps.items():
+        lat = [e1 - s0 for (s0, _), (_, e1) in zip(by_rank[0], by_rank[1])]
+        out.append({"call": "batched_send_recv", "bytes": 4 * n,
+                    "p50_ms": float(np.median(lat)) * 1e3,
+                    "p90_ms": float(np.percentile(lat, 90)) * 1e3})
     return out
 
 
@@ -2281,8 +3036,14 @@ def tile_ptxas(kc) -> dict:
                "combine": ("combine", "14combine_kernel"),
                "ring_scatter": ("rooted", "19ring_scatter_kernel"),
                "fused_shift": ("put", "16fused_put_kernel"),
-               # rows 14 and 7, redesigned on the same access shape
+               # rows 14 and 7, redesigned on the same access shape; row
+               # 14's fp8 / int8 instantiation (LANES true) and persistent
+               # form apart
                "sequencer": ("cmdring", "16sequencer_kernel"),
+               "sequencer_lanes": ("cmdring", "22sequencer_lanes_kernel"),
+               "sequencer_run": ("cmdring", "17persistent_kernel"),
+               "sequencer_run_lanes": ("cmdring",
+                                       "23persistent_lanes_kernel"),
                "quantize_lanes": ("compression", "21quantize_lanes_kernel"),
                "quantize_cluster": ("compression",
                                     "23quantize_cluster_kernel")}
@@ -2309,6 +3070,11 @@ def tile_ptxas(kc) -> dict:
                      "registers_max": max(regs),
                      "stack_bytes_max": max(f[1] for f in found),
                      "spill_bytes_max": max(f[2] for f in found)}
+        # row 14's fp8 / int8 kernels run two blocks an SM at 128
+        # registers, with a spill measured cheaper than one block an SM
+        # (csrc/cmdring.cu): reported, not refused
+        if name in ("sequencer_lanes", "sequencer_run_lanes"):
+            continue
         if out[name]["stack_bytes_max"] or out[name]["spill_bytes_max"]:
             fail(f"{name}'s kernels keep a stack frame or spill: "
                  f"{out[name]}")
@@ -4410,6 +5176,7 @@ def main() -> int:
     torch.cuda.synchronize()
     check_rooted_kernels(rand, err)
     check_sequencer(err)
+    closing = check_persistent(err)
     check_flash(kc, err)
     check_flash_bwd(err)
     check_compression(kc, err, gen, dev)
@@ -4502,6 +5269,11 @@ def main() -> int:
     batched = batch_main_path(kc)
     print(f"batch path ok ({time.time() - t0:.1f} s): launches {batched}",
           flush=True)
+    t0 = time.time()
+    ringed = ring_main_path(kc)
+    print(f"ring path ok ({time.time() - t0:.1f} s): launches "
+          f"{ {k: v for k, v in ringed['launches'].items() if v} }",
+          flush=True)
     refused_windows()
     t0 = time.time()
     serve = serve_main_path(kc)
@@ -4535,7 +5307,8 @@ def main() -> int:
     print(f"dispatch path ok ({time.time() - t0:.1f} s): launches "
           f"{ {k: v for k, v in dispatched.items() if v} }", flush=True)
     # each kernel's launches over the probe's and the ten paths' runs
-    launches = {k: launches[k] + rooted[k] + batched[k] + serve["launches"][k]
+    launches = {k: launches[k] + rooted[k] + batched[k]
+                + ringed["launches"][k] + serve["launches"][k]
                 + train["launches"][k] + compressed[k] + converged[k]
                 + p2p[k] + seqp["launches"][k] + dispatched[k] + probed[k]
                 for k in launches}
@@ -4593,6 +5366,12 @@ def main() -> int:
     seq = time_sequencer(rand)
     timing["sequencer"] = dict(ms=seq["ms"], plain_ms=seq["plain_ms"],
                                library_ms=seq["library_ms"])
+    # the stochastic and scaled lanes: no PyTorch call rounds so
+    timing["sequencer_lanes"] = dict(ms=seq["int8_ms"],
+                                     plain_ms=seq["int8_plain_ms"],
+                                     library_ms=None)
+    timing["sequencer_run"] = dict(ms=seq["run_ms"], plain_ms=seq["plain_ms"],
+                                   library_ms=seq["library_ms"])
     flash = time_flash()
     timing["flash_attention"] = flash[SERVE_T]
     flash_bounds = {T: bound(f["bytes"], f["ops"], TC16_OPS_PER_S)
@@ -4624,6 +5403,12 @@ def main() -> int:
                          "accl_tpu/ops/pallas/rooted.py:133"),
         "sequencer": ("accl_tpu_torch/csrc/cmdring.cu",
                       "accl_tpu/ops/pallas/cmdring.py:534"),
+        # its fp8 / int8 lanes (_pallas_windows :706-725, _decode_slot_xla
+        # :320-375) and its persistent session (run_session :541-565)
+        "sequencer_lanes": ("accl_tpu_torch/csrc/cmdring.cu",
+                            "accl_tpu/ops/pallas/cmdring.py:534"),
+        "sequencer_run": ("accl_tpu_torch/csrc/cmdring.cu",
+                          "accl_tpu/ops/pallas/cmdring.py:534"),
         "flash_attention": ("accl_tpu_torch/csrc/attention.cu",
                             "accl_tpu/ops/pallas/attention.py:293"),
         "flash_attention_bwd_dq": ("accl_tpu_torch/csrc/attention_bwd.cu",
@@ -4658,7 +5443,8 @@ def main() -> int:
             "replaces": meta[name][1], "launches": launches[name],
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"],
-            **(seq["bound"] if name == "sequencer"
+            **(seq["bound"] if name in ("sequencer", "sequencer_run")
+               else seq["int8_bound"] if name == "sequencer_lanes"
                else flash_bounds[SERVE_T] if name == "flash_attention"
                else bound(t["bytes"], t["ops"], TC16_OPS_PER_S)
                if name in TC_KERNELS else bound(t["bytes"], t["ops"])),
@@ -4680,6 +5466,24 @@ def main() -> int:
                 "mix_4mib_device_ms": seq["mix_4mib_device_ms"],
                 "mix_4mib_plain_ms": seq["mix_4mib_plain_ms"],
                 "mix_4mib_bound_ms": seq["mix_4mib_bound"]["bound_ms"],
+            })
+        if name == "sequencer_lanes":  # int8 above; e4m3 beside it
+            kernels[-1].update({
+                "window": "8 x allreduce 1 Mi f32, P = 4, seeded",
+                "device_ms": seq["int8_device_ms"],
+                "plain_device_window_ms": seq["device_ms"],
+                "ptxas": tile_regs["sequencer_lanes"],
+                "e4m3_ms": seq["float8_e4m3fn_ms"],
+                "e4m3_device_ms": seq["float8_e4m3fn_device_ms"],
+                "e4m3_plain_ms": seq["float8_e4m3fn_plain_ms"],
+                "e4m3_bound_ms": seq["float8_e4m3fn_bound"]["bound_ms"],
+            })
+        if name == "sequencer_run":  # a window of a stream of 16, one run
+            kernels[-1].update({
+                "window": "8 x allreduce 1 Mi f32, P = 4, 16 a run",
+                "oneshot_ms": seq["oneshot_ms"],
+                "ptxas": tile_regs["sequencer_run"],
+                "ptxas_lanes": tile_regs["sequencer_run_lanes"],
             })
         if name == "flash_attention":  # run B's shape, and where it ran
             f = flash[SERVE_LONG]
@@ -4777,6 +5581,15 @@ def main() -> int:
               f"({k['bound_ms'] / k['device_ms']:.3f} of the bound) against "
               f"the library call's {k['library_device_ms']:.4f} "
               f"({k['bound_ms'] / k['library_device_ms']:.3f})")
+    for name in ("sequencer_lanes", "sequencer_run"):
+        k = by_name[name]
+        extra = (f"e4m3 device_ms={k['e4m3_device_ms']:.4f} "
+                 f"bound_ms={k['e4m3_bound_ms']:.4f}"
+                 if name == "sequencer_lanes" else
+                 f"one-shot launches {k['oneshot_ms']:.4f} a window")
+        print(f"{name}: ms={k['ms']:.4f} "
+              f"{'device_ms=%.4f ' % k['device_ms'] if 'device_ms' in k else ''}"
+              f"bound_ms={k['bound_ms']:.4f}; {extra}")
     s_ = by_name["sequencer"]
     print(f"sequencer device_ms={s_['device_ms']:.4f} "
           f"({s_['bound_ms'] / s_['device_ms']:.3f} of the bound) against "
@@ -4835,7 +5648,16 @@ def main() -> int:
     facade = facade_rooted_latency([64 * 1024, 1024 * 1024, N_RANK])
     print(json.dumps({"facade_rooted": facade}))
     facade = facade_batch_latency([64 * 1024, 256 * 1024, 1024 * 1024])
+    facade += facade_stream_latency([64 * 1024, 256 * 1024, 1024 * 1024])
     print(json.dumps({"facade_batch": facade}))
+    print(json.dumps({"facade_ring": {
+        "card": smi.stdout.strip().splitlines()[0],
+        "batched_pair": facade_pair_latency([64 * 1024, 1024 * 1024]),
+        "stream_check": ringed["stream"],
+        "delayed_post": ringed["delayed_post"],
+        "closing_handshake": closing,
+        "starvation_ms": ringed["starvation_ms"],
+        "starvation_linger_ms": ringed["starvation_linger_ms"]}}))
     t1 = time.time()
     facade = facade_dispatch_latency([64 * 1024, 1024 * 1024])
     print(json.dumps({"facade_dispatch": {

@@ -14,11 +14,17 @@ The same numpy-seeded inputs go through both packages:
 * the facade's batched windows on ``xla_group(4)`` and
   ``cuda_group(4, device="cpu")`` must agree exactly in results, status
   words and ring counter deltas, and every fallback reason must be
-  counted alike.
+  counted alike;
+* the fp8 and int8 lanes (seeded from the slot's flags word), the
+  mailbox of the persistent run, the SEND/RECV pair definition and the
+  JAX package's own persistence tests (``tests/test_cmdring.py``) on the
+  port's group.
 
 The CUDA sequencer kernel itself is held against its plain version on the
 card by ``chip_smoke.py``.
 """
+
+import time
 
 import jax
 import jax.numpy as jnp
@@ -55,7 +61,9 @@ SUM, MAX = 0, 1
     "CMDRING_FPARAM_ONE", "CMDRING_ST_OK", "CMDRING_ST_BAD_OP",
     "CMDRING_ENV", "CMDRING_DEPTH_ENV", "CMDRING_MAX_BYTES_ENV",
     "CMDRING_DEPTH_DEFAULT", "CMDRING_MAX_DEPTH",
-    "CMDRING_MAX_PAYLOAD_BYTES",
+    "CMDRING_MAX_PAYLOAD_BYTES", "CMDRING_RUN_WINDOWS_ENV",
+    "CMDRING_LINGER_ENV", "CMDRING_RUN_WINDOWS_DEFAULT",
+    "CMDRING_MAX_RUN_WINDOWS", "CMDRING_LINGER_MS_DEFAULT",
 ])
 def test_ring_vocabulary_equals_jax(name):
     mine, theirs = getattr(tconst, name), getattr(jconst, name)
@@ -911,6 +919,502 @@ def test_disabled_ring_stays_off(monkeypatch):
         for got in run_parallel(g, work):
             np.testing.assert_array_equal(got, np.full(8, 3.0, np.float32))
         assert _ring_of(g).stats()["refills"] == 0
+    finally:
+        for a in g:
+            a.deinit()
+
+
+# ---------------------------------------------------------------------------
+# the fp8 and int8 lanes
+# ---------------------------------------------------------------------------
+
+_LANES = ("float8_e4m3fn", "float8_e5m2", "int8")
+
+
+def _jax_eager_slot(rows, op, n, wire, flags, out_w, P):
+    """A slot's per-rank results from JAX's EAGER codec (each rank's row
+    through ``wire_lane_roundtrip`` with ``rank_seed(flags, r)``) and
+    JAX's ``slot_epilogue``: the port's int8 reference, since JAX's jitted
+    ring divides by 127 as a multiply
+    (``test_torch_wire.py::test_int8_scale_divergence``)."""
+    from accl_tpu.ops import wire as jdw
+
+    own = [jnp.asarray(r) for r in rows]
+    blocks = [jdw.wire_lane_roundtrip(
+        x, jnp.dtype(wire), jdw.rank_seed(jnp.uint32(flags), r))
+        for r, x in enumerate(own)]
+    in_w = rows.shape[1]
+    chunk = in_w // P if in_w % P == 0 else None
+    return [np.asarray(jdev.slot_epilogue(
+        blocks, own[me], me, int(op), 0, P - 1, 1, out_w, chunk=chunk))
+        for me in range(P)]
+
+
+@pytest.mark.parametrize("wire", _LANES)
+@pytest.mark.parametrize("seed", [0, 12345])
+@pytest.mark.parametrize("P", [2, 3, 4])
+def test_sequencer_plain_lanes_equal_jax_decode_slot(wire, seed, P):
+    """Every opcode class under the fp8 / int8 lanes, seeded from the
+    flags word, against JAX's ``run_windows(..., lowering="xla")`` (its
+    ``_decode_slot_xla``): fp8 bit for bit; int8 bit for bit against
+    JAX's eager codec and within one ulp of the scale of JAX's jitted
+    ring.  The reduce-scatter and alltoall chunks of n = 300 start off
+    the 256-element segments."""
+    if len(jax.devices()) < P:
+        pytest.skip(f"needs {P} devices")
+    n = 300
+    specs = [(Op.ALLREDUCE, n, n), (Op.BCAST, n, n),
+             (Op.REDUCE_SCATTER, n * P, n), (Op.ALLGATHER, n, n * P),
+             (Op.ALLTOALL, n * P, n * P)]
+    rng = np.random.default_rng(40 + P)
+    mesh = jdriver.make_mesh(P)
+    sharding = NamedSharding(mesh, PS(jdriver.AXIS))
+    for i, (op, in_w, out_w) in enumerate(specs):
+        rows = rng.standard_normal((P, in_w)).astype(np.float32) * 3
+        slots = np.stack([tring.encode_slot(9 + i, op, n, root=P - 1,
+                                            flags=seed, wire=7)])
+        st, res = jdev.run_windows(
+            [(slots, [jax.device_put(rows.reshape(-1), sharding)])], mesh,
+            jring.WindowShape(1, (in_w,), (out_w,), (wire,), jnp.float32),
+            lowering="xla")
+        shape = tring.WindowShape(1, (in_w,), (out_w,), (wire,), "float32")
+        xs = [interop.stacked_from_numpy(rows, "cpu")]
+        outs = [[torch.empty(kseq.result_width(in_w, out_w, P))
+                 for _ in range(P)]]
+        status = tdev.run_window(slots, xs, outs, shape)
+        np.testing.assert_array_equal(status.numpy(), jdev.status_view(st))
+        want = np.asarray(res[0][0]).reshape(P, -1)
+        if wire == "int8":
+            eager = _jax_eager_slot(rows, op, n, wire, seed, out_w, P)
+        for r in range(P):
+            got = outs[0][r].numpy()
+            if wire == "int8":
+                np.testing.assert_array_equal(got, eager[r])
+                np.testing.assert_allclose(got, want[r], rtol=0,
+                                           atol=4 * 2.0 ** -23 * 9)
+            else:
+                np.testing.assert_array_equal(got, want[r])
+
+
+def test_lane_selection_and_scale_segments():
+    """The LANES instantiation takes fp8 / int8 wires and a 16-bit wire
+    under a nonzero seed; the scale scratch holds the widest int8 row's
+    segments, 256 elements each, the last one partial."""
+    f16, i8, e4 = torch.float16, torch.int8, torch.float8_e4m3fn
+    words = np.stack([tring.encode_slot(0, Op.ALLREDUCE, 4),
+                      tring.encode_slot(1, Op.ALLREDUCE, 4, flags=3)])
+    assert not kseq.takes_lanes(words, (None, None))
+    assert not kseq.takes_lanes(words, (f16, None))
+    assert kseq.takes_lanes(words, (None, f16))
+    assert kseq.takes_lanes(words, (e4, None))
+    assert kseq.takes_lanes(words, (i8, None))
+    shape = tring.WindowShape(3, (257, 2048, 10), (257, 512, 10),
+                              (i8, e4, i8), "float32")
+    assert kseq.scale_segments(shape) == 2
+    assert kseq.scale_segments(shape, 1, 2) == 0
+    assert kseq.scale_segments(shape, 2, 3) == 1
+
+
+def test_lane_sequencer_refuses_other_dtypes_only_on_the_card():
+    """On the CPU the plain sequencer takes an int8 lane on any float
+    operand; the kernel's LANES instantiation takes float32, bfloat16 and
+    float16 (its wrapper raises for others before any launch)."""
+    with pytest.raises(ValueError, match="fp8 / int8 lanes"):
+        kseq._check_lanes(tring.WindowShape(1, (8,), (8,), (torch.int8,),
+                                            torch.float64))
+    kseq._check_lanes(tring.WindowShape(1, (8,), (8,), (torch.int8,),
+                                        torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# the persistent run's host half
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["default_run_windows", "default_linger_s"])
+@pytest.mark.parametrize("env", [None, "7", "1000", "0.5", "junk", "-3"])
+def test_run_knobs_equal_jax(monkeypatch, name, env):
+    for key in (jconst.CMDRING_RUN_WINDOWS_ENV, jconst.CMDRING_LINGER_ENV):
+        if env is None:
+            monkeypatch.delenv(key, raising=False)
+        else:
+            monkeypatch.setenv(key, env)
+    try:
+        want = getattr(jring, name)()
+    except ValueError:  # JAX's int() of "0.5"
+        with pytest.raises(ValueError):
+            getattr(tring, name)()
+        return
+    assert getattr(tring, name)() == want
+
+
+class _Call:
+    """The fields of a call the pair definition reads."""
+
+    def __init__(self, op, root_src=0, root_dst=0, count=8, tag=0,
+                 dtype=2, compression=0):
+        from types import SimpleNamespace
+
+        self.op, self.root_src, self.root_dst = op, root_src, root_dst
+        self.count, self.tag, self.compression = count, tag, compression
+        self.arithcfg = SimpleNamespace(uncompressed=dtype)
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_complementary_pair_equals_jax(case):
+    S, R = tconst.Operation.SEND, tconst.Operation.RECV
+    pairs = [
+        [_Call(S, root_dst=1), _Call(R, root_src=0)],
+        [_Call(R, root_src=1), _Call(S, root_dst=0)],
+        [_Call(S, root_dst=1), _Call(S, root_dst=0)],          # cross
+        [_Call(S, root_dst=1, tag=3), _Call(R, root_src=0)],   # tag
+        [_Call(S, root_dst=1, count=9), _Call(R, root_src=0)],
+        [_Call(S, root_dst=1, dtype=6), _Call(R, root_src=0)],
+        [_Call(S, root_dst=1, compression=1), _Call(R, root_src=0)],
+        [_Call(S, root_dst=1)],
+    ]
+    calls = pairs[case]
+    jcalls = [_Call(jconst.Operation(int(c.op)), c.root_src, c.root_dst,
+                    c.count, c.tag, c.arithcfg.uncompressed, c.compression)
+              for c in calls]
+    assert tring.complementary_pair(calls) == jring.complementary_pair(
+        jcalls)
+
+
+def test_mailbox_protocol_equals_jax():
+    """The same posts, pulls, pushes and halt through the port's
+    SequencerMailbox and JAX's: the same decisions per step on every
+    rank (the first pull decides), the same completions in order, the
+    same depth, budget and drain."""
+
+    def drive(module, dtype):
+        done = []
+        shape = module.WindowShape(2, (3, 1), (3, 1), (None, None), dtype)
+        mb = module.SequencerMailbox(
+            2, shape, run_windows=3, linger_s=0.01,
+            on_window_done=lambda wid, st, res: done.append(
+                (wid, np.asarray(st).tolist(), sorted(res))))
+        slots = np.arange(2 * tconst.CMDRING_SLOT_WORDS, dtype=np.int32
+                          ).reshape(2, -1)
+        log = [mb.post(10, slots, [[np.ones(3), None], None]),
+               mb.post(11, slots + 1, [[None, np.ones(3)], None]),
+               mb.depth(), mb.accepting]
+        for step in range(3):
+            for r in (1, 0):
+                live, sl, rows = mb.pull(r)
+                log.append((int(live), np.asarray(sl).sum(),
+                            [float(np.asarray(x).sum()) for x in rows]))
+                mb.push(r, live, np.full((2, 2), step), [rows[0]])
+        log += [mb.post(12, slots, [None, None]), mb.accepting,
+                mb.drained.is_set(), mb.depth(),
+                sorted(mb.take_timing(10) or {})]
+        return log, done
+
+    want = drive(jring, np.float32)
+    got = drive(tring, torch.float32)
+    assert got == want
+    assert got[1] == [(10, [[0, 0], [0, 0]], [0, 1]),
+                      (11, [[1, 1], [1, 1]], [0, 1])]
+
+
+def test_registry_round_trip():
+    mb = object()
+    mid = tring.register_mailbox(mb)
+    assert tring.mailbox_for(mid) is mb
+    tring.unregister_mailbox(mid)
+    assert tring.mailbox_for(mid) is None
+
+
+# ---------------------------------------------------------------------------
+# the facade: fp8 / int8 windows, the stream of windows, teardown
+# ---------------------------------------------------------------------------
+
+
+def _align_epochs(gangs):
+    """The per-call seeds key on the communicator's id, its epoch and its
+    count of seeded calls so far: take JAX's epoch and count."""
+    jg, tg = gangs
+    for j, t in zip(jg, tg):
+        t.comm.epoch = j.comm.epoch
+        t._wire_ctr = dict(j._wire_ctr)
+
+
+def _slot_flags(group, comm_id, n):
+    """The flags words of the last ``n`` slots the ring encoded."""
+    s = _ring_of(group)._sessions[comm_id]
+    idx = [(s.head - n + k) % s.ring.shape[0] for k in range(n)]
+    return [int(s.ring[i][tconst.CMDRING_FIELDS["flags"]]) for i in idx]
+
+
+@pytest.mark.parametrize("wire", _LANES)
+def test_lane_windows_ride_the_ring_as_jax(gangs, wire):
+    """Two batched windows of an allreduce, a reduce_scatter and an
+    alltoall under an fp8 / int8 lane on both gangs, seeds aligned: no
+    fallback, the same counters and slot seeds, a new seed for the second
+    window (the per-comm counter advancing); fp8 results bit for bit,
+    int8 bit for bit against JAX's eager codec on the same seeds and
+    within an ulp of the scale of JAX's ring.  The seeded results differ
+    from the same calls unbatched in both packages."""
+    _align_epochs(gangs)
+    n = 600
+    rng = np.random.default_rng(50)
+    data = rng.standard_normal((P4, P4 * n)).astype(np.float32)
+
+    def work(a, r):
+        s = a.create_buffer_from(data[r].copy())
+        outs = []
+        for _ in range(2):
+            o = [a.create_buffer(n, np.float32), a.create_buffer(
+                n, np.float32), a.create_buffer(P4 * n, np.float32)]
+            with a.batch():
+                reqs = [a.allreduce(s, o[0], n, compress_dtype=wire,
+                                    run_async=True),
+                        a.reduce_scatter(s, o[1], n, compress_dtype=wire,
+                                         run_async=True),
+                        a.alltoall(s, o[2], n, compress_dtype=wire,
+                                   run_async=True)]
+            for q in reqs:
+                assert q.wait(60)
+                q.check()
+                assert q.ring_resident is True
+            outs += [_host(b) for b in o]
+        single = a.create_buffer(n, np.float32)
+        a.allreduce(s, single, n, compress_dtype=wire)
+        return outs + [_host(single)]
+
+    want, got, dj, dt = _both(gangs, work)
+    jg, tg = gangs
+    fj = _slot_flags(jg, jg[0].comm.id, 6)
+    ft = _slot_flags(tg, tg[0].comm.id, 6)
+    assert ft == fj
+    assert dj[0] == dt[0] and dt[0]["refills"] == 2
+    assert dj[2] == dt[2] == {}
+    assert dt[1] == {"ALLREDUCE": 2, "REDUCE_SCATTER": 2, "ALLTOALL": 2}
+    # the second window's allreduce draws the next seed of the counter
+    assert ft[0] != ft[3] and ft[0] != 0
+    for r in range(P4):
+        assert not np.array_equal(got[r][0], got[r][6])
+        assert not np.array_equal(want[r][0], want[r][6])
+        assert not np.array_equal(got[r][0], got[r][3])
+    if wire != "int8":
+        _assert_same(want, got)
+        return
+    specs = [(Op.ALLREDUCE, n, n, data[:, :n]),
+             (Op.REDUCE_SCATTER, P4 * n, n, data),
+             (Op.ALLTOALL, P4 * n, P4 * n, data)]
+    for w in range(2):
+        for k, (op, in_w, out_w, rows) in enumerate(specs):
+            eager = _jax_eager_slot(rows, op, n, wire, ft[3 * w + k],
+                                    out_w, P4)
+            for r in range(P4):
+                np.testing.assert_array_equal(got[r][3 * w + k], eager[r])
+                np.testing.assert_allclose(got[r][3 * w + k],
+                                           want[r][3 * w + k], rtol=0,
+                                           atol=2.0 ** -20)
+
+
+def test_halt_sessions_parks_the_ring(gangs):
+    """``halt_sessions`` (an engine's shutdown) halts and joins every run:
+    the ring is parked after it."""
+    _ring_of(gangs[1]).halt_sessions()
+    assert _ring_of(gangs[1]).parked
+    assert _ring_of(gangs[1]).stats()["state"] == "parked"
+
+
+@pytest.fixture(scope="module")
+def g4():
+    """A port gang for the JAX package's own ring tests."""
+    g = at.cuda_group(P4, device="cpu")
+    yield g
+    for a in g:
+        a.deinit()
+
+
+@pytest.mark.parametrize("name", [
+    "test_warm_window_is_one_refill_interaction",
+    "test_mixed_opcode_window_rides_ring",
+    "test_sustained_stream_zero_redispatch",
+    "test_refill_underrun_parks_sequencer",
+])
+def test_jax_ring_tests_on_the_port(g4, name):
+    """``tests/test_cmdring.py``'s own tests, unedited, on the port's
+    group (its ``_ring`` and ``_interactions`` helpers read the port's
+    ring and interaction counter as they read JAX's)."""
+    import test_cmdring
+
+    getattr(test_cmdring, name)(g4)
+
+
+def _stream(group, windows, calls=3, n=32, linger=0.5):
+    """``windows`` windows of ``calls`` allreduces posted without a drain
+    between them, then one ``end_batch``: returns the ring's stats before
+    and after."""
+    ring = _ring_of(group)
+    send = [a.create_buffer_from(np.full(n, r + 1.0, np.float32))
+            for r, a in enumerate(group)]
+    out = [a.create_buffer(n, np.float32) for a in group]
+
+    def work(a, r):
+        reqs = []
+        a.begin_batch()
+        try:
+            for _ in range(windows):
+                reqs += [a.allreduce(send[r], out[r], n, run_async=True)
+                         for _ in range(calls)]
+                a._dispatch_pending()
+        finally:
+            a.end_batch()
+        for q in reqs:
+            assert q.wait(60)
+            q.check()
+
+    saved = ring.linger_s
+    ring.linger_s = linger
+    try:
+        before = ring.stats()
+        run_parallel(group, work)
+        after = ring.stats()
+    finally:
+        ring.linger_s = saved
+    for buf in out:
+        np.testing.assert_array_equal(_host(buf), np.full(
+            n, sum(range(1, len(group) + 1)), np.float32))
+    return before, after
+
+
+def _run_threads():
+    import threading
+
+    return [t for t in threading.enumerate() if t.name == "accl-cmdring-run"]
+
+
+def test_reset_and_deinit_leave_no_run_thread():
+    """A stream arms a run (one ``accl-cmdring-run`` thread); ``reset()``
+    halts it and its thread ends; a second run ends at ``deinit``."""
+    g = at.cuda_group(2, device="cpu")
+    try:
+        ring = _ring_of(g)
+        before, after = _stream(g, 4, linger=5.0)
+        assert after["dispatches"] - before["dispatches"] == 2
+        assert after["mailbox_posts"] - before["mailbox_posts"] == 2
+        assert after["state"] == "resident" and _run_threads()
+        ring.reset()
+        deadline = time.monotonic() + 10
+        while _run_threads() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert not _run_threads() and ring.stats()["resets"] == 1
+        _stream(g, 3, linger=5.0)
+        assert _run_threads()
+    finally:
+        for a in g:
+            a.deinit()
+    assert not _run_threads()
+    assert ring.stats()["state"] == "parked"
+
+
+def test_lowering_pallas_keeps_windows_inline(monkeypatch):
+    """``ACCL_CMDRING_LOWERING=pallas``: a stream of windows runs inline,
+    one dispatch a window and no run."""
+    monkeypatch.setenv("ACCL_CMDRING_LOWERING", "pallas")
+    g = at.cuda_group(2, device="cpu")
+    try:
+        assert _ring_of(g).stats()["lowering"] == "pallas"
+        before, after = _stream(g, 4)
+        assert after["dispatches"] - before["dispatches"] == 4
+        assert after["mailbox_posts"] == before["mailbox_posts"]
+        assert not _run_threads()
+    finally:
+        for a in g:
+            a.deinit()
+
+
+def test_default_lowering_follows_the_device(monkeypatch):
+    """As JAX's ``default_lowering``: the persistent session (``xla``)
+    off the accelerator, every window inline (``pallas``) on it; the env
+    var overrides both, and the CPU gang's ring reports JAX's choice."""
+    from accl_tpu.backends.xla.cmdring import default_lowering as jlowering
+    from accl_tpu_torch.backends.cuda.cmdring import default_lowering
+
+    monkeypatch.delenv("ACCL_CMDRING_LOWERING", raising=False)
+    assert default_lowering(torch.device("cpu")) == jlowering() == "xla"
+    assert default_lowering(torch.device("cuda", 0)) == "pallas"
+    g = at.cuda_group(2, device="cpu")
+    try:
+        assert _ring_of(g).stats()["lowering"] == "xla"
+    finally:
+        for a in g:
+            a.deinit()
+    for mode in ("xla", "pallas"):
+        monkeypatch.setenv("ACCL_CMDRING_LOWERING", mode)
+        for dev in (torch.device("cpu"), torch.device("cuda", 0)):
+            assert default_lowering(dev) == mode
+
+
+class _PendingEnd:
+    """A run's end event that has not passed."""
+
+    def query(self):
+        return False
+
+
+@pytest.mark.parametrize("device_says", ["took", "closed", "closed_late"])
+def test_run_closing_handshake_host_side(device_says):
+    """The host's half of a card run's closing handshake
+    (``PersistentRun._took``), on control words written as the kernel
+    writes them: a post that found the run closing at its window waits for
+    the run's decision; the window was taken when the run cleared
+    ``closing`` (or has completed it), and not when the run returned with
+    ``done`` at most the window's index."""
+    import threading
+
+    k = 3
+    ctl = np.zeros(64, np.int32)
+    ctl[kseq._CLOSING] = k + 1
+    ctl[kseq._DONE] = k
+    run = object.__new__(kseq.PersistentRun)
+    run.ctl, run.launched, run.end_event, run.fault = (ctl, True,
+                                                       _PendingEnd(), None)
+
+    def decide():
+        time.sleep(0.02)
+        if device_says == "took":
+            ctl[kseq._CLOSING] = 0
+        else:
+            ctl[kseq._EXITED] = kseq.EXIT_LINGER
+
+    if device_says == "closed":
+        ctl[kseq._EXITED] = kseq.EXIT_LINGER
+        assert run._took(k) is False
+        return
+    t = threading.Thread(target=decide)
+    t.start()
+    try:
+        assert run._took(k) is (device_says == "took")
+    finally:
+        t.join()
+    ctl[kseq._DONE] = k + 1  # a window the run completed was taken
+    assert run._took(k) is True
+
+
+def test_run_posture_registers():
+    """``cmdring_run_windows`` / ``cmdring_linger_us`` (0: the env
+    default) give the arming window's run its budget and linger; the
+    registers refuse a budget above CMDRING_MAX_RUN_WINDOWS and a linger
+    above 1 s."""
+    g = at.cuda_group(2, device="cpu")
+    try:
+        ring = _ring_of(g)
+        assert ring._window_posture() == (ring.run_windows, ring.linger_s)
+        for a in g:
+            a.set_tuning("cmdring_run_windows", 3)
+            a.set_tuning("cmdring_linger_us", 900000)
+        assert ring._window_posture() == (3, 0.9)
+        with pytest.raises(Exception):
+            g[0].set_tuning("cmdring_run_windows",
+                            tconst.CMDRING_MAX_RUN_WINDOWS + 1)
+        _stream(g, 3, linger=0.001)  # the register's linger wins
+        run = ring._sessions[g[0].comm.id].run
+        assert run.mbox.run_windows == 3 and run.mbox.linger_s == 0.9
     finally:
         for a in g:
             a.deinit()

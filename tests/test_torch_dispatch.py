@@ -479,24 +479,29 @@ class _nullcontext:
         return False
 
 
-@pytest.mark.parametrize("reason", ["oversized", "wire_lane"])
+@pytest.mark.parametrize("reason", ["oversized", "unsupported_op"])
 def test_fused_batch_equals_calls_one_by_one(port, reason):
     """A batch the ring refuses runs as ONE fused dispatch of the plain
-    lowerings and equals the same calls one by one."""
+    lowerings and equals the same calls one by one (a reduce has no
+    sequencer opcode; the fp8 lane that the ring refused before rides it
+    now)."""
     n, npos = 64, 8
     rng = np.random.default_rng(5)
     data = [rng.standard_normal(n).astype(np.float32) for _ in range(P)]
     if reason == "oversized":
         port[0].engine.gang.cmdring.max_bytes = 4 * n - 4
-    wire = "float8_e4m3fn" if reason == "wire_lane" else None
     res = {b: [[a.create_buffer(n, np.float32) for _ in range(npos)]
                for a in port] for b in (True, False)}
     send = [a.create_buffer_from(data[r] * (r + 1)) for r, a in
             enumerate(port)]
 
     def calls(a, r, batched):
-        return [a.allreduce(send[r], res[batched][r][i], n,
-                            compress_dtype=wire, run_async=True)
+        if reason == "unsupported_op":
+            return [a.reduce(send[r], res[batched][r][0], n, root=0,
+                             run_async=True)] + [
+                a.allreduce(send[r], res[batched][r][i], n, run_async=True)
+                for i in range(1, npos)]
+        return [a.allreduce(send[r], res[batched][r][i], n, run_async=True)
                 for i in range(npos)]
 
     counts, fallbacks = _batch_then_single(port, calls, npos)

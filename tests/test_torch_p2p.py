@@ -467,8 +467,9 @@ def test_stream_deadlines(port2):
 
 
 def test_batched_pair_delivers(port2):
-    """A send and a recv queued in batches (around an allreduce) dispatch
-    on their own in issue order and deliver."""
+    """A send and a recv queued in batches beside an allreduce join the
+    gang's run: the matched pair rides one command-ring slot (root = src,
+    peer = dst) in the allreduce's window, and delivers."""
     data = np.arange(64, dtype=np.float32)
 
     def work(a, r):
@@ -633,3 +634,193 @@ def test_put_and_probe_kernels_on_the_card():
                                rtol=0, atol=0, equal_nan=True)
     block = torch.randn(8, 128, device=dev)
     assert torch.equal(kc.probe_copy(block), kc.probe_copy_plain(block))
+
+
+# ---------------------------------------------------------------------------
+# batched SEND / RECV on the command ring: twins of tests/test_cmdring.py's
+# xla_group(2) tests, each body run on both packages' world-2 gangs
+# ---------------------------------------------------------------------------
+
+
+def _ring_counts(g):
+    st = g[0].engine.gang.cmdring.stats()
+    return ({k: st[k] for k in ("refills", "slots")}, dict(st["ops"]),
+            dict(st["fallbacks"]))
+
+
+def _moved(before, after):
+    """The counters that moved, and by how much."""
+    return tuple({k: v - b.get(k, 0) for k, v in a.items()
+                  if v != b.get(k, 0)} for b, a in zip(before, after))
+
+
+def _on_both(body):
+    """``body(group)`` on ``xla_group(2)`` and the port's
+    ``cuda_group(2)``: ``[(result, ring counters moved), ...]``, JAX's
+    first."""
+    out = []
+    for make in (xla_group, lambda n: at.cuda_group(n, device="cpu")):
+        g = make(2)
+        try:
+            before = _ring_counts(g)
+            res = body(g)
+            out.append((res, _moved(before, _ring_counts(g))))
+        finally:
+            for a in g:
+                a.deinit()
+    return out
+
+
+def _host(buf):
+    buf.sync_from_device()
+    return np.asarray(buf.data).copy()
+
+
+def test_sendrecv_pair_rides_ring_slots_as_jax():
+    """Twin of ``test_sendrecv_pair_rides_ring_slots``: matched pairs in
+    both orientations beside an allreduce ride one window (one slot per
+    pair, root = src, peer = dst): one refill interaction warm, the
+    same counters, results and ring residency in both packages."""
+    n = 16
+    payload = [np.arange(n, dtype=np.float32) + 1000.0 * (r + 1)
+               for r in range(2)]
+
+    def body(g):
+        send = [a.create_buffer_from(payload[r]) for r, a in enumerate(g)]
+        got = [a.create_buffer(n, np.float32) for a in g]
+        arr_in = [a.create_buffer_from(np.full(n, r + 1.0, np.float32))
+                  for r, a in enumerate(g)]
+        arr_out = [a.create_buffer(n, np.float32) for a in g]
+
+        def work(a, r):
+            peer = 1 - r
+            with a.batch():
+                if r == 0:
+                    r1 = a.send(send[r], n, dst=peer, tag=7, run_async=True)
+                    r2 = a.recv(got[r], n, src=peer, tag=9, run_async=True)
+                else:
+                    r1 = a.recv(got[r], n, src=peer, tag=7, run_async=True)
+                    r2 = a.send(send[r], n, dst=peer, tag=9, run_async=True)
+                r3 = a.allreduce(arr_in[r], arr_out[r], n, run_async=True)
+            for req in (r1, r2, r3):
+                assert req.wait(60)
+                req.check()
+            return [req.ring_resident for req in (r1, r2, r3)]
+
+        run_parallel(g, work)  # cold
+        ic0 = g[0].capabilities()["device_interactions"]
+        resident = run_parallel(g, work)
+        ic = g[0].capabilities()["device_interactions"] - ic0
+        return (ic, resident, [_host(b) for b in got],
+                [_host(b) for b in arr_out])
+
+    (want, dj), (got, dt) = _on_both(body)
+    assert dj == dt
+    assert got[0] == want[0] == 1
+    assert got[1] == want[1] == [[True] * 3] * 2
+    assert dt[0] == {"refills": 2, "slots": 6}
+    # a pair slot counts under its SEND, as in JAX
+    assert dt[1] == {"SEND": 4, "ALLREDUCE": 2} and dt[2] == {}
+    for g_, w_ in zip(got[2] + got[3], want[2] + want[3]):
+        np.testing.assert_array_equal(g_, w_)
+    np.testing.assert_array_equal(got[2][1], payload[0])
+    np.testing.assert_array_equal(got[2][0], payload[1])
+
+
+def test_torn_p2p_collective_position_fails_fast_as_jax():
+    """Twin of ``test_torn_p2p_collective_position_fails_fast``: a batch
+    position holding a SEND on one rank and an allreduce on the other
+    fails both ranks at once with INVALID_OPERATION, in both packages."""
+    n = 16
+
+    def body(g):
+        send = [a.create_buffer_from(np.full(n, r + 1.0, np.float32))
+                for r, a in enumerate(g)]
+        out = [a.create_buffer(n, np.float32) for a in g]
+
+        def work(a, r):
+            with a.batch():
+                if r == 0:
+                    req = a.send(send[r], n, dst=1, tag=3, run_async=True)
+                else:
+                    req = a.allreduce(send[r], out[r], n, run_async=True)
+            assert req.wait(60)
+            return int(req.get_retcode())
+
+        t0 = time.monotonic()
+        codes = run_parallel(g, work)
+        return codes, time.monotonic() - t0 < 20
+
+    (want, dj), (got, dt) = _on_both(body)
+    assert got == want
+    assert got[0] == [int(at.ErrorCode.INVALID_OPERATION)] * 2 and got[1]
+    assert dj == dt
+
+
+def test_batched_cross_exchange_falls_back_to_channel_as_jax():
+    """Twin of ``test_batched_cross_exchange_falls_back_to_channel``: both
+    ranks batch ``[send, recv]``, so a position holds two sends, then two
+    recvs: counted ``p2p_unpaired``, and the channel pairs them across
+    positions, in both packages."""
+    n = 16
+    payload = [np.arange(n, dtype=np.float32) + 100.0 * (r + 1)
+               for r in range(2)]
+
+    def body(g):
+        send = [a.create_buffer_from(payload[r]) for r, a in enumerate(g)]
+        got = [a.create_buffer(n, np.float32) for a in g]
+
+        def work(a, r):
+            peer = 1 - r
+            with a.batch():
+                r1 = a.send(send[r], n, dst=peer, tag=5, run_async=True)
+                r2 = a.recv(got[r], n, src=peer, tag=5, run_async=True)
+            for req in (r1, r2):
+                assert req.wait(60)
+                req.check()
+
+        run_parallel(g, work)
+        return [_host(b) for b in got]
+
+    (want, dj), (got, dt) = _on_both(body)
+    assert dj == dt and dt[2] == {"p2p_unpaired": 1}
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(g_, w_)
+    np.testing.assert_array_equal(got[0], payload[1])
+    np.testing.assert_array_equal(got[1], payload[0])
+
+
+def test_batched_compressed_pair_routes_to_channel_as_jax():
+    """Twin of ``test_batched_compressed_pair_routes_to_channel``: a
+    compressed pair is no ring slot; it takes the channel with the
+    unbatched path's compress-on-send rounding, off the ring, in both
+    packages."""
+    n = 16
+    vals = np.arange(n, dtype=np.float32) + 0.1  # rounds in float16
+
+    def body(g):
+        send = [a.create_buffer_from(vals.copy()) for a in g]
+        got = [a.create_buffer(n, np.float32) for a in g]
+
+        def work(a, r):
+            peer = 1 - r
+            with a.batch():
+                if r == 0:
+                    req = a.send(send[r], n, dst=peer, tag=11,
+                                 compress_dtype=np.float16, run_async=True)
+                else:
+                    req = a.recv(got[r], n, src=peer, tag=11,
+                                 compress_dtype=np.float16, run_async=True)
+            assert req.wait(60)
+            req.check()
+            return req.ring_resident
+
+        resident = run_parallel(g, work)
+        return resident, _host(got[1])
+
+    (want, dj), (got, dt) = _on_both(body)
+    assert got[0] == want[0] == [None, None]
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(
+        got[1], vals.astype(np.float16).astype(np.float32))
+    assert dj == dt

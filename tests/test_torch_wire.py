@@ -470,26 +470,67 @@ def test_convergence_leg_equals_jax(wire, ef):
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-def test_fp8_and_int8_batches_run_call_by_call(port_group):
-    """The command ring's fp8 / int8 slots are not ported (ROADMAP A5):
-    a batched window holding such a call is refused with the reason
-    ``wire_lane`` and runs call by call, with the per-call result."""
+def test_fp8_and_int8_batches_run_call_by_call():
+    """Once refused with ``wire_lane`` and run call by call, a batched
+    fp8 / int8 window now rides the command ring as in JAX (ROADMAP A5):
+    with the communicators' epochs aligned, the same calls on both gangs
+    take one refill each, count no fallback, seed their slots alike and
+    give JAX's ring result (fp8 bit for bit; int8 within an ulp of its
+    scale, ``test_int8_scale_divergence``), which differs from the same
+    call unbatched in both packages; the unbatched calls equal JAX's as
+    the batched ones do (int8 also the codec's fold, as before the ring
+    took the lanes)."""
     rows = np.random.default_rng(35).standard_normal((P, 512)).astype(
         np.float32)
+    # fresh gangs: the seeds key on each communicator's epoch (aligned
+    # here) and its count of seeded calls so far
+    jax_group, port_group = xla_group(P), at.cuda_group(P, device="cpu")
+    for j, t in zip(jax_group, port_group):
+        t.comm.epoch = j.comm.epoch
 
     def work(a, r):
         s = a.create_buffer_from(rows[r].copy())
-        d = a.create_buffer(512, np.float32)
-        with a.batch():
-            req = a.allreduce(s, d, 512, compress_dtype="int8",
-                              run_async=True)
-        req.wait()
-        req.check()
-        d.sync_from_device()
-        return np.asarray(d.data).copy()
+        out = []
+        for lane in ("int8", "float8_e4m3fn", "float8_e5m2"):
+            d = a.create_buffer(512, np.float32)
+            with a.batch():
+                req = a.allreduce(s, d, 512, compress_dtype=lane,
+                                  run_async=True)
+            req.wait()
+            req.check()
+            assert req.ring_resident is True
+            d.sync_from_device()
+            single = a.create_buffer(512, np.float32)
+            a.allreduce(s, single, 512, compress_dtype=lane)
+            single.sync_from_device()
+            out += [np.asarray(d.data).copy(), np.asarray(single.data).copy()]
+        return out
 
-    got = run_parallel(port_group, work)
-    stats = port_group[0].engine.gang.cmdring.stats()
-    assert stats["fallbacks"].get("wire_lane", 0) >= 1
+    try:
+        stats = [g[0].engine.gang.cmdring.stats() for g in (jax_group,
+                                                             port_group)]
+        want = run_parallel(jax_group, work)
+        got = run_parallel(port_group, work)
+        after = [g[0].engine.gang.cmdring.stats() for g in (jax_group,
+                                                            port_group)]
+    finally:
+        for a in jax_group + port_group:
+            a.deinit()
+    for s0, s1 in zip(stats, after):
+        assert s1["refills"] - s0["refills"] == 3
+        assert s1["fallbacks"] == s0["fallbacks"]
     for r in range(P):
-        np.testing.assert_array_equal(got[r], _codec_fold(rows, "int8"))
+        np.testing.assert_allclose(got[r][0], want[r][0], rtol=0,
+                                   atol=2.0 ** -20)
+        for k in (2, 4):
+            np.testing.assert_array_equal(got[r][k], want[r][k])
+        # the unbatched calls: int8 the codec's fold, and JAX's within an
+        # ulp of its scale as above; fp8 JAX's bit for bit
+        np.testing.assert_array_equal(got[r][1], _codec_fold(rows, "int8"))
+        np.testing.assert_allclose(got[r][1], want[r][1], rtol=0,
+                                   atol=2.0 ** -20)
+        for k in (3, 5):
+            np.testing.assert_array_equal(got[r][k], want[r][k])
+        for k in (0, 2, 4):
+            assert not np.array_equal(got[r][k], got[r][k + 1])
+            assert not np.array_equal(want[r][k], want[r][k + 1])
