@@ -1,9 +1,11 @@
 """accl_tpu_torch.models: the transformer LM on one device — forward,
-prefill, KV-cache generate, the loss and the SGD train step — the
-counterpart of ``accl_tpu/models/transformer.py`` at tp = 1; and the
-sequence-parallel attention over P ranks on one device (ring, striped and
-Ulysses attention, and row 15's kernel as ``ring_attention_pallas``), the
-counterpart of ``accl_tpu/models/__init__.py:23-33``."""
+prefill, KV-cache generate, the loss, the SGD train step and the sharded
+forward and generate, with context parallelism over virtual ranks — the
+counterpart of ``accl_tpu/models/transformer.py`` at tp = 1 or a cp ring;
+and the sequence-parallel attention over P ranks on one device (ring,
+striped and Ulysses attention, and row 15's kernel as
+``ring_attention_pallas``), the counterpart of
+``accl_tpu/models/__init__.py:23-33``."""
 
 from .transformer import (  # noqa: F401
     TransformerConfig,
@@ -11,6 +13,8 @@ from .transformer import (  # noqa: F401
     generate,
     init_params,
     loss_fn,
+    make_sharded_forward,
+    make_sharded_generate,
     make_sharded_train_step,
     params_from_numpy,
     params_to_numpy,

@@ -19,9 +19,16 @@ writes each step's k/v into the cache IN PLACE, and the train step
 writes the updated parameters into their own storage (the port's form
 of JAX's ``donate_argnums``).
 
+Context parallelism (``context_parallel``) runs the ring's ranks on the
+one device: the makers take a mesh with JAX's axes ``("dp", "tp")``
+(:func:`~accl_tpu_torch.ops.driver.make_mesh`), ``dp`` splitting the
+batch and ``tp`` the ring over which the sequence is striped; inside,
+the ranks' striped shards are held as one sequence, and only attention
+splits them (:func:`_block_cp`).
+
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, or tensors already on the CPU); without a card they
-raise.  Sharded serving and training, MoE, sequence, vocab and context
+raise.  Tensor parallelism across cards, MoE, sequence and vocab
 parallelism come with later slices, and a config or mesh that asks for
 them is refused.
 """
@@ -42,6 +49,8 @@ from ..buffer import host_tensor
 from ..ops.attention import blockwise_attention
 from ..ops.cuda.attention import MAX_HEAD_DIM, flash_attention
 from ..ops.driver import Mesh, make_mesh, resolve_device
+from .ring_attention import (stripe_sequence, striped_attention,
+                             unstripe_sequence)
 
 #: the JAX module's crossover (``_AUTO_FUSED_MIN_T``): "auto" runs naive
 #: below this sequence length and a fused form from it up
@@ -52,19 +61,21 @@ _LATER = {
     "n_experts": "the MoE slice (ROADMAP A9d, models/moe.py)",
     "seq_parallel": "the multi-GPU tensor-parallel slice (ROADMAP B14)",
     "vocab_parallel": "the multi-GPU tensor-parallel slice (ROADMAP B14)",
-    "context_parallel": "the flagship's context-parallel slice (ROADMAP "
-                        "A9e)",
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Every field of the JAX ``TransformerConfig``; ``dtype`` is a torch
-    dtype.  ``n_experts > 0``, ``seq_parallel``, ``vocab_parallel`` and
-    ``context_parallel`` raise NotImplementedError naming the slice that
-    ports them; the ``moe_*`` and ``ep_extends_dp`` fields only matter
-    with experts or a mesh.  ``remat`` recomputes each block on the
-    backward pass (``torch.utils.checkpoint``) when a gradient is taken.
+    dtype.  ``n_experts > 0``, ``seq_parallel`` and ``vocab_parallel``
+    raise NotImplementedError naming the slice that ports them (after
+    JAX's ValueError for ``context_parallel`` with either of the last
+    two); the ``moe_*`` and ``ep_extends_dp`` fields only matter with
+    experts or a mesh.  ``context_parallel`` stripes the sequence over
+    the mesh's ``tp`` ring (a plain ``forward`` / ``loss_fn`` of token
+    tensors runs the dense path, as JAX's with no tp axis).  ``remat``
+    recomputes each block on the backward pass
+    (``torch.utils.checkpoint``) when a gradient is taken.
     ``attention``: "auto", "naive", "blockwise" or "flash"."""
 
     vocab: int = 256
@@ -91,6 +102,7 @@ class TransformerConfig:
     attention: str = "auto"
 
     def __post_init__(self):
+        _check_axis_compat(self)
         for name, slice_ in _LATER.items():
             if getattr(self, name):
                 raise NotImplementedError(
@@ -117,6 +129,18 @@ class TransformerConfig:
         if self.pos_embedding == "rope" and (self.d_model // self.n_heads) % 2:
             raise ValueError("rope needs an even head dim")
         return self.pos_embedding == "rope"
+
+
+def _check_axis_compat(cfg) -> None:
+    """context_parallel turns the tp axis into the sequence ring: JAX's
+    ``_check_axis_compat`` (:165) refuses the strategies that give tp
+    other jobs."""
+    if cfg.context_parallel and (cfg.seq_parallel or cfg.vocab_parallel):
+        raise ValueError(
+            "context_parallel is incompatible with seq_parallel and "
+            "vocab_parallel: the tp mesh axis becomes the sequence ring "
+            "(weights replicated over it)"
+        )
 
 
 Params = Dict
@@ -214,12 +238,15 @@ def _embed_rows(embed, ids):
     return embed[ids]
 
 
-def _embed_tokens(params, tokens, cfg):
+def _embed_tokens(params, tokens, cfg, positions=None):
     """Token embeddings, plus the learned position table unless the config
-    uses rotary embeddings."""
+    uses rotary embeddings: its first rows, or its rows at ``positions``
+    (the striped shards' global positions under context parallelism)."""
     x = _embed_rows(params["embed"], tokens)
     if not cfg.uses_rope():
-        x = x + params["pos"][: tokens.shape[1]]
+        pos = params["pos"]
+        x = x + (pos[: tokens.shape[1]] if positions is None
+                 else pos[positions])
     return x
 
 
@@ -303,10 +330,13 @@ def _mlp(x, lp):
 
 
 def _attn_partial(h, lp, n_heads, attn_impl="naive", causal=True,
-                  rope_base=None):
+                  rope_base=None, positions=None, attention_fn=None):
     """Attention on a full-sequence activation: returns the output
     projection and the (k, v) head tensors (B, Hkv, T, hd) for the
-    KV-cache prefill (rotated keys under rope)."""
+    KV-cache prefill (rotated keys under rope).  ``positions`` overrides
+    the rope positions and ``attention_fn`` the :func:`_attention`
+    lowering (context parallelism passes the striped shards' global
+    positions and the ring)."""
     B, T, _ = h.shape
     q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
     hd = q.shape[-1] // n_heads
@@ -317,11 +347,15 @@ def _attn_partial(h, lp, n_heads, attn_impl="naive", causal=True,
 
     q, k, v = heads(q, n_heads), heads(k, n_kv), heads(v, n_kv)
     if rope_base is not None:
-        tables = _rope_tables(torch.arange(T, device=h.device), hd // 2,
-                              rope_base)
+        pos = torch.arange(T, device=h.device) if positions is None \
+            else positions
+        tables = _rope_tables(pos, hd // 2, rope_base)
         q = _rope_rotate(q, tables)
         k = _rope_rotate(k, tables)
-    attn = _attention(q, k, v, impl=attn_impl, causal=causal)
+    if attention_fn is not None:
+        attn = attention_fn(q, k, v)
+    else:
+        attn = _attention(q, k, v, impl=attn_impl, causal=causal)
     attn = attn.transpose(1, 2).reshape(B, T, -1)
     return attn @ lp["wo"], (k, v)
 
@@ -336,20 +370,100 @@ def _block(x, lp, n_heads, return_kv=False, attn_impl="naive", causal=True,
     return (out, kv) if return_kv else out
 
 
-def _enter_block_layout(x, cfg, return_kv=False, causal=True):
-    """The replicated layout of the JAX function (:773): activations stay
-    whole on the card, blocks run :func:`_block`.  Returns ``(x,
-    block_fn)``."""
+def _cp_active(cfg, ring: Optional[int]) -> bool:
+    return bool(cfg.context_parallel) and ring is not None
+
+
+def _cp_positions(t_local: int, size: int, rank: int, device=None):
+    """Global token positions of rank ``rank``'s STRIPED shard of a ring
+    of ``size`` (JAX's ``_cp_positions`` :379, whose axis gives both):
+    local position ``t`` holds global token ``t * size + rank``."""
+    return torch.arange(t_local, device=device) * size + rank
+
+
+def _striped_positions(T: int, size: int, device=None):
+    """The positions of the ring's striped shards held as one sequence
+    (rank order)."""
+    return torch.cat([_cp_positions(T // size, size, r, device)
+                      for r in range(size)])
+
+
+def _cp_block_k(t_local: int, attn_impl: str) -> Optional[int]:
+    """The ring fold's within-hop key chunk (JAX's ``_cp_block_k`` :691):
+    whole hops under "naive"; under "blockwise" and "flash", and under
+    "auto" from ``_AUTO_FUSED_MIN_T`` up, the largest of 512, 256, 128
+    and 64 that divides the shard and is shorter than it."""
+    if attn_impl == "naive":
+        return None
+    if attn_impl == "auto" and t_local < _AUTO_FUSED_MIN_T:
+        return None
+    for b in (512, 256, 128, 64):
+        if t_local % b == 0 and b < t_local:
+            return b
+    return None  # tiny or ragged shard: whole-hop folds are small
+
+
+def _block_cp(x, lp, n_heads, ring: int, rope_base=None, attn_impl="auto"):
+    """The context-parallel block (JAX's ``_block_cp`` :708) on the
+    ``ring`` ranks' STRIPED shards held as one sequence: ``x`` (B, T, D)
+    is their (B, T / ring, D) shards concatenated in rank order.  The
+    layer norms, the projections and the MLP mix no tokens, so they run
+    on the whole; attention cuts q, k and v into the ranks' shards for
+    the striped causal ring (:func:`striped_attention`, kv heads rotating
+    unexpanded under GQA, ``block_k`` from :func:`_cp_block_k`), and rope
+    rotates by each shard's global positions."""
+    T = x.shape[1]
+    t_local = T // ring
+    block_k = _cp_block_k(t_local, attn_impl)
+
+    def attention(q, k, v):
+        shards = (t.split(t_local, dim=2) for t in (q, k, v))
+        return torch.cat(striped_attention(*shards, causal=True,
+                                           block_k=block_k), dim=2)
+
+    h = _layernorm(x, lp["ln1"])
+    o, _ = _attn_partial(h, lp, n_heads, rope_base=rope_base,
+                         positions=_striped_positions(T, ring, x.device),
+                         attention_fn=attention)
+    return _mlp(x + o, lp)
+
+
+def _enter_block_layout(x, cfg, return_kv=False, causal=True,
+                        ring: Optional[int] = None):
+    """The block stack's layout and block (JAX's :773): under context
+    parallelism with a ring, ``x`` is ALREADY the ranks' striped shards
+    (held as one sequence) and blocks run :func:`_block_cp`; otherwise
+    activations stay whole and blocks run :func:`_block`.  Returns
+    ``(x, block_fn)``."""
     cfg.kv_heads()  # validates n_kv_heads
+    rope_base = cfg.rope_base if cfg.uses_rope() else None
+    if _cp_active(cfg, ring):
+        if return_kv:
+            raise ValueError(
+                "context_parallel has no serving path: decode with "
+                "dataclasses.replace(cfg, context_parallel=False) — cp "
+                "params are replicated over tp and re-shard directly"
+            )
+        if not causal:
+            raise ValueError(
+                "context_parallel is causal/decoder-only (the striped "
+                "ring's load balance argument is the causal mask)"
+            )
+        return x, partial(_block_cp, n_heads=cfg.n_heads, ring=ring,
+                          rope_base=rope_base, attn_impl=cfg.attention)
     return x, partial(_block, n_heads=cfg.n_heads, return_kv=return_kv,
                       attn_impl=cfg.attention, causal=causal,
-                      rope_base=cfg.rope_base if cfg.uses_rope() else None)
+                      rope_base=rope_base)
 
 
-def _final_hidden(params, tokens, cfg):
-    """Embed, blocks, final layer norm."""
-    x = _embed_tokens(params, tokens, cfg)
-    x, block = _enter_block_layout(x, cfg)
+def _final_hidden(params, tokens, cfg, ring: Optional[int] = None):
+    """Embed, blocks, final layer norm; with a ``ring``, ``tokens`` (B, T)
+    are its ranks' striped shards held as one sequence."""
+    positions = None
+    if _cp_active(cfg, ring):
+        positions = _striped_positions(tokens.shape[1], ring, tokens.device)
+    x = _embed_tokens(params, tokens, cfg, positions)
+    x, block = _enter_block_layout(x, cfg, ring=ring)
     for lp in params["layers"]:
         if cfg.remat and torch.is_grad_enabled():
             from torch.utils.checkpoint import checkpoint
@@ -360,9 +474,35 @@ def _final_hidden(params, tokens, cfg):
     return _layernorm(x, params["ln_f"])
 
 
+def _ring_of(tokens, cfg) -> Optional[int]:
+    """The ring size when ``tokens`` are the ranks' shards (a list or
+    tuple, rank order), else None."""
+    if not isinstance(tokens, (list, tuple)):
+        return None
+    if not cfg.context_parallel:
+        raise ValueError("per-rank token shards need context_parallel")
+    if len({tuple(t.shape) for t in tokens}) != 1:
+        raise ValueError(f"the ranks' shards differ in shape: "
+                         f"{[tuple(t.shape) for t in tokens]}")
+    return len(tokens)
+
+
 def forward(params, tokens, cfg: TransformerConfig):
-    """Logits (B, T, vocab) for a token batch (B, T)."""
-    return _lm_logits(_final_hidden(params, tokens, cfg), params["embed"])
+    """Logits (B, T, vocab) for a token batch (B, T).
+
+    Under ``cfg.context_parallel``, ``tokens`` given as the ring's ranks
+    (a list of P striped shards (B, T / P), rank order, as
+    :func:`stripe_sequence` and a contiguous split cut them) returns each
+    rank's striped (B, T / P, vocab) logits shard, as JAX's forward does
+    inside the makers' ``shard_map``; a (B, T) tensor runs the dense
+    path, as JAX's with no tp axis."""
+    ring = _ring_of(tokens, cfg)
+    if ring is None:
+        return _lm_logits(_final_hidden(params, tokens, cfg),
+                          params["embed"])
+    z = _lm_logits(_final_hidden(params, torch.cat(tokens, 1), cfg, ring),
+                   params["embed"])
+    return list(z.split(z.shape[1] // ring, dim=1))
 
 
 # ---------------------------------------------------------------------------
@@ -516,12 +656,41 @@ def _token_nll(logits, targets):
     return -logp.gather(-1, targets[..., None].long()).squeeze(-1)
 
 
+def _nll(params, tokens, targets, cfg, ring: Optional[int] = None):
+    """Per-token NLL (B, T); with a ``ring``, of its ranks' striped
+    shards held as one sequence."""
+    return _token_nll(_lm_logits(_final_hidden(params, tokens, cfg, ring),
+                                 params["embed"]), targets)
+
+
+def _ring_mean(nll, dp: int = 1, ring: Optional[int] = None):
+    """JAX's reduction of the per-token NLL (B, T) over a (dp, ring) mesh:
+    each rank's local mean (rows of its dp group, its striped shard), the
+    ring's mean of those (``loss_fn``'s psum / tp, :923-937), then the dp
+    mean (``_mean_over_axes`` :242)."""
+    if dp == 1 and ring is None:
+        return nll.mean()
+    B, T = nll.shape
+    r = ring or 1
+    local = nll.reshape(dp, B // dp, r, T // r).mean((1, 3))
+    return (local.sum(1) / r).sum(0) / dp
+
+
 def loss_fn(params, tokens, targets, cfg: TransformerConfig):
     """Mean next-token NLL of a token batch (B, T) against ``targets``
     (B, T), at tp = 1 (the JAX function's non-vocab-parallel branch;
-    vocab and context parallelism and experts are refused by the
-    config)."""
-    return _token_nll(forward(params, tokens, cfg), targets).mean()
+    vocab parallelism and experts are refused by the config).
+
+    Under ``cfg.context_parallel``, ``tokens`` and ``targets`` given as
+    the ring's ranks (lists of striped shards, as :func:`forward` takes
+    them) give the ring mean of each rank's local mean, JAX's cp
+    branch."""
+    ring = _ring_of(tokens, cfg)
+    if ring is None:
+        return _ring_mean(_nll(params, tokens, targets, cfg))
+    return _ring_mean(_nll(params, torch.cat(tokens, 1),
+                           torch.cat(targets, 1), cfg, ring),
+                      ring=ring)
 
 
 def _reject_untrainable_attention(cfg) -> None:
@@ -596,48 +765,132 @@ def sgd_update_(leaves: List[torch.Tensor], grads: List[torch.Tensor],
             p.copy_(p.to(cdt) - lr_t * g.to(cdt))
 
 
+def _mesh_dp_tp(cfg, mesh: Optional[Mesh]) -> Tuple[Mesh, int, int]:
+    """``(mesh, dp, tp)`` of a model mesh (None: one rank on the card).
+    A mesh names JAX's axes ``("dp", "tp")``: dp splits the batch, and
+    tp is 1 or, under ``cfg.context_parallel``, the ring.  Dense tensor
+    parallelism and a mesh of more than one rank without axis names come
+    with the multi-GPU slice."""
+    mesh = make_mesh(1) if mesh is None else mesh
+    if not mesh.axis_names:
+        if mesh.size != 1:
+            raise NotImplementedError(
+                f"a mesh of {mesh.size} devices is not ported yet: sharded "
+                f"models come with the multi-GPU slice (ROADMAP B14); "
+                f"name the axes (\"dp\", \"tp\") for data or context "
+                f"parallelism on one device"
+            )
+        return mesh, 1, 1
+    if sorted(mesh.axis_names) != ["dp", "tp"]:
+        raise ValueError(f"a model mesh has the axes ('dp', 'tp'), got "
+                         f"{mesh.axis_names}")
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    if tp > 1 and not cfg.context_parallel:
+        raise NotImplementedError(
+            f"tensor parallelism over tp = {tp} is not ported yet: it comes "
+            f"with the multi-GPU slice (ROADMAP B14, queue item A9c)"
+        )
+    return mesh, dp, tp
+
+
+def _check_batch(tokens, device, dp: int) -> None:
+    """Tokens on the parameters' device, their rows split evenly over
+    dp."""
+    if tokens.device != device:
+        raise ValueError(f"tokens on {tokens.device}, params on {device}")
+    if tokens.shape[0] % dp:
+        raise ValueError(f"batch {tokens.shape[0]} must divide by dp {dp}")
+
+
+def _sharder(mesh: Mesh):
+    """The makers' ``shard``: a copy of a parameter tree on the mesh's
+    device (every weight is replicated over the mesh)."""
+    return lambda tree: _tree_map(lambda p: p.to(mesh.device, copy=True),
+                                  tree)
+
+
 def make_sharded_train_step(cfg: TransformerConfig, lr: float = 1e-2,
                             mesh: Optional[Mesh] = None):
     """One SGD train step, JAX's return shape: ``(step, shard)``.
 
     ``shard(tree)`` copies a parameter tree onto the mesh's device (the
     card unless ``mesh`` says otherwise); ``step(params, tokens,
-    targets)`` takes the mean loss's gradient with respect to every
-    parameter and returns ``(params, loss)``, the parameters updated to
-    ``p - lr * g`` IN PLACE (rounded as JAX rounds it for this lr's
-    type, :func:`sgd_update_`) and the same tree returned.  ``lr`` is any
-    real scalar: a Python number, a NumPy scalar or a 0-d tensor.
+    targets)`` takes the gradient of the global mean loss (JAX's: each
+    rank's local mean, the ring's mean, the dp mean) with respect to
+    every parameter and returns ``(params, loss)``, the parameters
+    updated to ``p - lr * g`` IN PLACE (rounded as JAX rounds it for
+    this lr's type, :func:`sgd_update_`) and the same tree returned.
+    ``lr`` is any real scalar: a Python number, a NumPy scalar or a 0-d
+    tensor.
 
-    Only one device so far: a mesh of more than one raises
-    NotImplementedError (data and tensor parallelism come with the
-    multi-GPU slice, ROADMAP B14)."""
+    ``mesh`` is one rank, or a ``("dp", "tp")`` mesh of virtual ranks on
+    one device (:func:`_mesh_dp_tp`): each dp group takes its rows of
+    the batch; under ``cfg.context_parallel`` the tokens and targets are
+    striped over the tp ring outside the step (``stripe_sequence``) and
+    the ranks run :func:`_block_cp`."""
     _reject_untrainable_attention(cfg)
     _lr_scalar(lr)  # refuse what the update cannot hold, before any work
-    if mesh is None:
-        mesh = make_mesh(1)
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"a mesh of {mesh.size} devices is not ported yet: sharded "
-            f"training comes with the multi-GPU slice (ROADMAP B14)"
-        )
-
-    def shard(tree):
-        return _tree_map(lambda p: p.to(mesh.device, copy=True), tree)
+    mesh, dp, tp = _mesh_dp_tp(cfg, mesh)
+    ring = tp if cfg.context_parallel else None
 
     def step(params, tokens, targets):
         leaves = _tree_leaves(params)
-        if tokens.device != leaves[0].device:
-            raise ValueError(
-                f"tokens on {tokens.device}, params on {leaves[0].device}"
-            )
+        _check_batch(tokens, leaves[0].device, dp)
+        if ring is not None:
+            tokens = stripe_sequence(tokens, ring, axis=1)
+            targets = stripe_sequence(targets, ring, axis=1)
         # gradients of aliases: the caller's tensors keep their flags
         live = [p.detach().requires_grad_() for p in leaves]
         it = iter(live)
-        loss = loss_fn(_tree_map(lambda _: next(it), params), tokens,
-                       targets, cfg)
+        loss = _ring_mean(_nll(_tree_map(lambda _: next(it), params),
+                               tokens, targets, cfg, ring), dp, ring)
         grads = torch.autograd.grad(loss, live)
         with torch.no_grad():
             sgd_update_(leaves, grads, lr)
         return params, loss.detach()
 
-    return step, shard
+    return step, _sharder(mesh)
+
+
+def make_sharded_forward(cfg: TransformerConfig, mesh: Optional[Mesh] = None):
+    """The forward over a mesh (JAX's :1310): ``(fn, shard)``, ``fn(params,
+    tokens)`` giving the (B, T, vocab) logits of a (B, T) token batch.
+    Dense on a mesh whose tp is 1; under ``cfg.context_parallel`` the
+    tokens are striped over the tp ring on the way in and the logits
+    unstriped on the way out, so the caller sees token order."""
+    mesh, dp, tp = _mesh_dp_tp(cfg, mesh)
+
+    def fn(params, tokens):
+        _check_batch(tokens, params["embed"].device, dp)
+        if not cfg.context_parallel:
+            return forward(params, tokens, cfg)
+        shards = stripe_sequence(tokens, tp, axis=1).split(
+            tokens.shape[1] // tp, dim=1)
+        return unstripe_sequence(torch.cat(forward(params, shards, cfg), 1),
+                                 tp, axis=1)
+
+    return fn, _sharder(mesh)
+
+
+def make_sharded_generate(cfg: TransformerConfig, mesh: Optional[Mesh],
+                          steps: int, temperature: float = 0.0,
+                          top_k: Optional[int] = None):
+    """Generation over a mesh whose tp is 1 (JAX's :1203): ``(fn,
+    shard)``, ``fn(params, prompt)`` giving the (B, steps) generated
+    tokens of :func:`generate` (``fn(params, prompt, generator)`` when
+    ``temperature > 0``).  Context parallelism has no serving path:
+    decode with ``context_parallel=False``, on the same parameters."""
+    if cfg.context_parallel:
+        raise ValueError(
+            "context_parallel has no serving path: decode with "
+            "dataclasses.replace(cfg, context_parallel=False) — cp "
+            "params are replicated over tp and re-shard directly"
+        )
+    mesh, dp, _ = _mesh_dp_tp(cfg, mesh)
+
+    def fn(params, prompt, generator=None):
+        _check_batch(prompt, params["embed"].device, dp)
+        return generate(params, prompt, steps, cfg, temperature=temperature,
+                        top_k=top_k, generator=generator)
+
+    return fn, _sharder(mesh)

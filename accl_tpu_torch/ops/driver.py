@@ -14,15 +14,18 @@ reduce and gather write the root's alone, as the JAX engine does (its
 partials or full copies; a caller with no ``out`` gets those rows).
 
 A :class:`Mesh` is the rank count and the one device every rank's tensors
-lie on.  :func:`make_mesh` runs on the card unless the caller asks for
-the CPU, and raises when there is no card.
+lie on; a mesh for the models also names its axes, as JAX's ``("dp",
+"tp")`` mesh does, every rank still virtual on the one device.
+:func:`make_mesh` runs on the card unless the caller asks for the CPU,
+and raises when there is no card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, List, Optional, Sequence
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -35,8 +38,18 @@ from .wire import wire_lane_roundtrip_rows
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
+    """``size`` ranks on ``device``; ``axis_names`` and ``axis_sizes``
+    name the axes of a model mesh (empty for the collectives' 1-D one)."""
+
     size: int
     device: torch.device
+    axis_names: Tuple[str, ...] = ()
+    axis_sizes: Tuple[int, ...] = ()
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.axis_sizes))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -54,10 +67,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def make_mesh(n: int, device=None) -> Mesh:
-    if n < 1:
+def make_mesh(n: Union[int, Sequence[int]], device=None, *,
+              axes: Sequence[str] = ()) -> Mesh:
+    """``n`` ranks, or a mesh of the shape ``n`` with one name in ``axes``
+    for each of its axes (``make_mesh((dp, tp), axes=("dp", "tp"))``)."""
+    shape = (int(n),) if isinstance(n, int) else tuple(int(d) for d in n)
+    if (axes or not isinstance(n, int)) and len(axes) != len(shape):
+        raise ValueError(f"a mesh of shape {shape} names each of its "
+                         f"axes, got {tuple(axes)}")
+    if not shape or min(shape) < 1:
         raise ValueError(f"a mesh needs at least one rank, got {n}")
-    return Mesh(int(n), resolve_device(device))
+    return Mesh(math.prod(shape), resolve_device(device), tuple(axes),
+                shape if axes else ())
 
 
 def _rows(stacked, mesh: Mesh) -> List[torch.Tensor]:

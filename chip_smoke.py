@@ -197,6 +197,19 @@ Phases (any failure exits non-zero):
       run as one fused dispatch, and a host-only bfloat16 allreduce;
       each step's launches counted alone, each result held against its
       plain version (the host path against numpy's fold, bit for bit);
+   j. the context-parallel path (``--cp`` runs it, rows 16-18 at T =
+      4096 and ``train_cp`` alone): bench.py's long-context training
+      record (the training width at T = 4096, batch 2, bfloat16, lr
+      0.01) with ``context_parallel`` and ``remat`` on a ``("dp", "tp")``
+      mesh of (1, 4), ``CP_STEPS`` steps of ``make_sharded_train_step``
+      that launch no kernel (the striped ring is plain PyTorch, as JAX's
+      is ``jnp``) and whose loss falls; one dense step on the same
+      weights (``auto``: flash at T = 4096, 6 launches a step of each of
+      rows 16-18's four kernels and no other); the cp and the dense
+      ``loss_fn`` and gradients in bfloat16 at full width (within
+      ``BF16_LOSS_RTOL`` and ``BF16_GRAD_RTOL``), and one cp step against
+      one dense step in float32 with 2 layers (loss within 1e-5, updated
+      weights within rtol 2e-4, atol 2e-5, JAX's cp test's bounds);
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (K3's
    allgather and root-only gather, K4, row 11 and row 13 also by device
@@ -210,7 +223,10 @@ Phases (any failure exits non-zero):
    the delta pass, dQ and dK/dV (rows 17-18) at that shape beside their
    plain versions and the backward of ``scaled_dot_product_attention``,
    which computes dQ, dK and dV in one call (beside the sum of rows 17 +
-   18 and the delta pass), each also by device time alone; rows 5-8 at 32 Mi float32 elements (cast and stochastic
+   18 and the delta pass), each also by device time alone, and rows
+   16-18 and the delta pass again at phase 3j's dense (2, 32, 4096, 128)
+   as ``t4096_*`` keys (no plain version there); rows 5-8 at 32 Mi
+   float32 elements (cast and stochastic
    cast to bfloat16, the cast beside ``Tensor.to``, also by device time
    alone, on the compressed facade's 4 x 16 Mi rows to bfloat16 and fp8
    e4m3 and widening bfloat16 -> float32, with its cast kernels'
@@ -252,7 +268,11 @@ Phases (any failure exits non-zero):
    time (bench.py's mean over 10 steps, p50 and p90 beside it),
    tokens/s, bench.py's 6 N B T count over the step as ``train_tflops``
    and over 989 TFLOP/s as ``train_mfu``, peak memory, and the three
-   kernels' launches per step; then ``facade_compressed`` (p50 and p90
+   kernels' launches per step; then ``train_cp``: the same figures for
+   phase 3j's cp step and for the dense T = 4096 step beside it, each
+   with a profiled step's device time by class (the float32 fold
+   matmuls, the bf16 dense matmuls, the rest) and idle share, and phase
+   3j's gaps; then ``facade_compressed`` (p50 and p90
    per wire lane and register at 4 MiB and 64 MiB per rank, beside the
    uncompressed call), ``facade_p2p`` (p50 and p90 of send -> recv
    completed, the P = 4 ring shift and ``stream_put`` -> ``stream_pop``
@@ -3391,19 +3411,22 @@ def train_main_path(kc) -> dict:
                 f32_update_rel=upd_rel)
 
 
-def time_flash_bwd() -> dict:
-    """Phase 4 for rows 16-18 at the training shape (8, 32, 1024, 128)
-    bf16 causal: the forward with LSE, the delta pass, dQ and dK/dV, each
-    beside its plain version, by CUDA events around the wrapper and by
-    device time alone (``device_ms``); and ``scaled_dot_product_attention``'s
-    forward and its backward (dQ, dK and dV in one call)."""
+def time_flash_bwd(B: int = TRAIN_B, T: int = TRAIN_T,
+                   plain: bool = True) -> dict:
+    """Phase 4 for rows 16-18 at (B, 32, T, 128) bf16 causal (the
+    training shape by default): the forward with LSE, the delta pass, dQ
+    and dK/dV, each beside its plain version (None unless ``plain``), by
+    CUDA events around the wrapper and by device time alone
+    (``device_ms``); and ``scaled_dot_product_attention``'s forward and
+    its backward (dQ, dK and dV in one call)."""
     import torch
     import torch.nn.functional as F
 
     from accl_tpu_torch.ops.cuda import attention as ka
 
     dev = torch.device("cuda", 0)
-    B, H, T, D = TRAIN_B, TRAIN["n_heads"], TRAIN_T, 128
+    H, D = TRAIN["n_heads"], 128
+    time_plain = time_ms if plain else (lambda fn, **kw: None)
     q, k, v, do = (torch.randn(B, H, T, D, device=dev, dtype=torch.bfloat16)
                    for _ in range(4))
     o, lse = ka.flash_attention(q, k, v, True, with_lse=True)
@@ -3419,7 +3442,7 @@ def time_flash_bwd() -> dict:
                                                   with_lse=True), iters=20),
             device_ms=device_ms(lambda: ka.flash_attention(
                 q, k, v, True, with_lse=True), iters=20),
-            plain_ms=time_ms(lambda: ka.flash_attention_plain(
+            plain_ms=time_plain(lambda: ka.flash_attention_plain(
                 q, k, v, True, with_lse=True)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True), iters=20),
@@ -3433,7 +3456,7 @@ def time_flash_bwd() -> dict:
                 q, k, v, do, lse, delta, True), iters=20),
             device_ms=device_ms(lambda: ka.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, True), iters=20),
-            plain_ms=time_ms(lambda: ka.flash_attention_bwd_dq_plain(
+            plain_ms=time_plain(lambda: ka.flash_attention_bwd_dq_plain(
                 q, k, v, do, lse, delta, True)),
             bytes=5 * act + 2 * stats, ops=3 * 2 * D * pairs),
         "flash_attention_bwd_dkv": dict(
@@ -3441,7 +3464,7 @@ def time_flash_bwd() -> dict:
                 q, k, v, do, lse, delta, True), iters=20),
             device_ms=device_ms(lambda: ka.flash_attention_bwd_dkv(
                 q, k, v, do, lse, delta, True), iters=20),
-            plain_ms=time_ms(lambda: ka.flash_attention_bwd_dkv_plain(
+            plain_ms=time_plain(lambda: ka.flash_attention_bwd_dkv_plain(
                 q, k, v, do, lse, delta, True)),
             bytes=6 * act + 2 * stats, ops=4 * 2 * D * pairs),
         # no one PyTorch call forms rowsum(dO O) in float32 from 16-bit
@@ -3451,7 +3474,7 @@ def time_flash_bwd() -> dict:
                        iters=20),
             device_ms=device_ms(lambda: ka.flash_attention_bwd_delta(do, o),
                                 iters=20),
-            plain_ms=time_ms(lambda: ka.flash_attention_bwd_delta_plain(
+            plain_ms=time_plain(lambda: ka.flash_attention_bwd_delta_plain(
                 do, o), iters=20),
             library_ms=None, bytes=2 * act + stats, ops=2 * B * H * T * D),
         "library_bwd_ms": time_ms(lambda: torch.autograd.grad(
@@ -3475,13 +3498,13 @@ KERNEL_CLASSES = (
 )
 
 
-def train_profile(train) -> dict:
+def train_profile(train, classes=KERNEL_CLASSES) -> dict:
     """One train step under ``torch.profiler`` (CPU and CUDA activities):
-    the device's kernel time summed by ``KERNEL_CLASSES``, the flash class
-    by kernel (forward, delta, dQ, dK/dV), its busy time against the
-    step's wall time (host clock, synchronised), the idle share, and the
-    ten costliest kernels.  Device times are None when the profiler
-    records no device event."""
+    the device's kernel time summed by ``classes``, the flash class by
+    kernel (forward, delta, dQ, dK/dV), its busy time against the step's
+    wall time (host clock, synchronised), the idle share, and the ten
+    costliest kernels.  Device times are None when the profiler records
+    no device event."""
     import re
 
     import torch
@@ -3497,7 +3520,7 @@ def train_profile(train) -> dict:
         step(params, tokens, targets)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    by_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    by_class = {name: 0.0 for name, _ in classes}
     by_class["other"] = 0.0
     kernels, flash = {}, {}
     for e in prof.events():
@@ -3506,7 +3529,7 @@ def train_profile(train) -> dict:
         ms = e.time_range.elapsed_us() / 1e3
         kernels[e.name] = kernels.get(e.name, 0.0) + ms
         low = e.name.lower()
-        cls = next((name for name, keys in KERNEL_CLASSES
+        cls = next((name for name, keys in classes
                     if any(key in low for key in keys)), "other")
         by_class[cls] += ms
         if cls == "flash":
@@ -3536,8 +3559,38 @@ def train_timing(train) -> dict:
     import numpy as np
     import torch
 
+    cfg = train["cfg"]
+    measured = step_timing(train, TRAIN_B, TRAIN_T)
+    return {
+        "batch": TRAIN_B, "seq": TRAIN_T, "params": train["n_params"],
+        "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "dtype": "bfloat16", "attention": "auto", "lr": TRAIN_LR,
+        **measured,
+        "launches_per_step": train["per_step"],
+        "main_path_losses": train["losses"],
+        "bf16_flash_vs_naive_loss_rel": train["bf16_loss_rel"],
+        "bf16_flash_vs_naive_grad_rel": train["bf16_grad_rel"],
+        "f32_flash_vs_naive_loss_rel": train["f32_loss_rel"],
+        "f32_flash_vs_naive_grad_rel": train["f32_grad_rel"],
+        "f32_update_vs_lr_grad_rel": train["f32_update_rel"],
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+    }
+
+
+def step_timing(train, B: int, T: int, classes=KERNEL_CLASSES) -> dict:
+    """bench.py's measure of a train step (bench.py:343-350) on
+    ``train``'s step, parameters and batch: one warm-up step, then the
+    mean of 10 steps timed together with one synchronise at the end; then
+    10 steps each synchronised for p50 and p90, and one more under the
+    profiler (:func:`train_profile`).  ``train_tflops`` counts bench.py's
+    6 N B T operations a step (bench.py:337-341) over the mean,
+    ``train_mfu`` that over 989 TFLOP/s; peak memory over the 10."""
+    import numpy as np
+    import torch
+
     step, params = train["step"], train["params"]
-    tokens, targets, cfg = train["tokens"], train["targets"], train["cfg"]
+    tokens, targets = train["tokens"], train["targets"]
     params, loss = step(params, tokens, targets)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3554,28 +3607,205 @@ def train_timing(train) -> dict:
         params, loss = step(params, tokens, targets)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-    flops = 6.0 * train["n_params"] * TRAIN_B * TRAIN_T
-    profiled = train_profile(train)
+    flops = 6.0 * train["n_params"] * B * T
     return {
-        "batch": TRAIN_B, "seq": TRAIN_T, "params": train["n_params"],
-        "layers": cfg.n_layers, "d_model": cfg.d_model,
-        "n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
-        "dtype": "bfloat16", "attention": "auto", "lr": TRAIN_LR,
         "step_ms": mean_s * 1e3,
         "step_p50_ms": float(np.median(times)) * 1e3,
         "step_p90_ms": float(np.percentile(times, 90)) * 1e3,
-        "tokens_per_s": TRAIN_B * TRAIN_T / mean_s,
+        "tokens_per_s": B * T / mean_s,
         "train_tflops": flops / mean_s / 1e12,
         "train_mfu": flops / mean_s / TC16_OPS_PER_S,
         "peak_memory_gb": peak / 1e9,
-        "launches_per_step": train["per_step"],
-        "main_path_losses": train["losses"], "last_loss": float(loss),
-        "bf16_flash_vs_naive_loss_rel": train["bf16_loss_rel"],
-        "bf16_flash_vs_naive_grad_rel": train["bf16_grad_rel"],
-        "f32_flash_vs_naive_loss_rel": train["f32_loss_rel"],
-        "f32_flash_vs_naive_grad_rel": train["f32_grad_rel"],
-        "f32_update_vs_lr_grad_rel": train["f32_update_rel"],
-        "profiled_step": profiled,
+        "last_loss": float(loss),
+        "profiled_step": train_profile(train, classes),
+    }
+
+
+# -- the context-parallel training path (no kernel; rows 16-18 beside it) --
+
+#: bench.py's long-context training record, ``train_mfu_t4096``
+#: (bench.py:310-317, :3046-3050): the training model at T = 4096 (its
+#: position table 4096 rows, as bench.py's max_seq = seq), batch 8 x 1024
+#: / 4096, striped over a cp ring of 4 (T / cp = 1024, block_k 512)
+CP = dict(TRAIN, max_seq=4096)
+CP_B, CP_T, CP_RING, CP_STEPS = 2, 4096, 4, 3
+#: a profiled cp step's device time by class: the float32 GEMMs are the
+#: ring fold's (TF32 off, so not on the tensor cores), the rest of the
+#: GEMMs the bfloat16 projections, MLP and LM head
+CP_KERNEL_CLASSES = (
+    ("fold_matmul_f32", ("sgemm", "f32f32", "simt")),
+) + KERNEL_CLASSES
+#: float32, 2 layers: one cp step against one dense step, JAX's cp test's
+#: bounds (tests/test_models.py:1077-1083)
+CP_F32_LOSS_RTOL, CP_F32_RTOL, CP_F32_ATOL = 1e-5, 2e-4, 2e-5
+
+
+def cp_setup():
+    """Phase 3j's configuration, weights from the seed, the batch, and
+    the cp and dense steps over them (the dense one on one rank)."""
+    import dataclasses
+
+    import torch
+
+    from accl_tpu_torch.models import (TransformerConfig, init_params,
+                                       make_sharded_train_step)
+    from accl_tpu_torch.models.transformer import _tree_leaves
+    from accl_tpu_torch.ops.driver import make_mesh
+
+    dev = torch.device("cuda", 0)
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="auto",
+                            context_parallel=True, remat=True, **CP)
+    dense = dataclasses.replace(cfg, context_parallel=False, remat=False)
+    mesh = make_mesh((1, CP_RING), axes=("dp", "tp"))
+    step, shard = make_sharded_train_step(cfg, lr=TRAIN_LR, mesh=mesh)
+    dense_step, _ = make_sharded_train_step(dense, lr=TRAIN_LR)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    params = shard(init_params(cfg, gen))
+    tokens = torch.randint(0, cfg.vocab, (CP_B, CP_T), generator=gen,
+                           device=dev, dtype=torch.int32)
+    return dict(cfg=cfg, dense=dense, mesh=mesh, step=step,
+                dense_step=dense_step, params=params, tokens=tokens,
+                targets=tokens.roll(-1, dims=1),
+                n_params=sum(p.numel() for p in _tree_leaves(params)))
+
+
+def cp_main_path(kc) -> dict:
+    """Phase 3j: ``CP_STEPS`` cp steps at the full width, then one dense
+    step on the same weights, each with the launch counters zeroed
+    before and read after: a cp step launches no kernel, a dense one 6
+    of each of ``TRAIN_KERNELS`` and no other.  Then the cp and the
+    dense ``loss_fn`` and gradients on those weights in bfloat16, and a
+    cp step against a dense step in float32 with 2 layers.  Frees what
+    it built; returns the launches, losses and gaps."""
+    import dataclasses
+
+    import torch
+
+    from accl_tpu_torch.models import make_sharded_train_step, stripe_sequence
+    from accl_tpu_torch.models.transformer import (_cp_block_k,
+                                                   _tree_leaves, _tree_map)
+
+    cp = cp_setup()
+    cfg, params = cp["cfg"], cp["params"]
+    tokens, targets = cp["tokens"], cp["targets"]
+    torch.cuda.synchronize()
+    reset_launches(kc)
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(CP_STEPS):
+        params, loss = cp["step"](params, tokens, targets)
+        losses.append(float(loss))
+        if any(read_launches(kc).values()):
+            fail(f"cp step launched a kernel: "
+                 f"{ {k: v for k, v in read_launches(kc).items() if v} }")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, losses)) or not all(
+            bool(torch.isfinite(p).all()) for p in _tree_leaves(params)):
+        fail(f"cp steps: losses {losses} or parameters not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"cp steps: the loss did not fall, {losses}")
+    params, dense_loss = cp["dense_step"](params, tokens, targets)
+    torch.cuda.synchronize()
+    dense_launches = read_launches(kc)
+    want = {k: (cfg.n_layers if k in TRAIN_KERNELS else 0)
+            for k in kc.KERNELS}
+    if dense_launches != want:
+        fail(f"dense T = {CP_T} step: launches {dense_launches}, want {want}")
+    wgmma = all_wgmma(kc, f"dense T = {CP_T} step")
+    print(f"context-parallel path ok: {CP_STEPS} cp steps (cp {CP_RING}, "
+          f"remat, block_k {_cp_block_k(CP_T // CP_RING, cfg.attention)}), "
+          f"losses {losses}, no kernel launched, peak "
+          f"{peak / 1e9:.2f} GB; a dense T = {CP_T} step: loss "
+          f"{float(dense_loss)}, {cfg.n_layers} launches of each of "
+          f"{TRAIN_KERNELS}, no other kernel", flush=True)
+
+    # bfloat16 at full width: the cp loss and gradients against the dense
+    def shards(t):
+        return list(stripe_sequence(t, CP_RING, axis=1).split(
+            CP_T // CP_RING, dim=1))
+
+    names = leaf_names(params)
+    lc, gc = loss_and_grads(params, shards(tokens), shards(targets), cfg)
+    ld, gd = loss_and_grads(params, tokens, targets, cp["dense"])
+    bf16_loss_rel, bf16_grad_rel, worst = grad_gap(lc, gc, ld, gd, names)
+    del gc, gd
+    print(f"bfloat16 loss_fn, cp vs dense (flash) at full width: loss {lc} "
+          f"vs {ld} ({bf16_loss_rel} rel), gradients max rel (Frobenius) "
+          f"{bf16_grad_rel} ({worst})", flush=True)
+    if not bf16_loss_rel <= BF16_LOSS_RTOL:
+        fail(f"bfloat16 loss: cp vs dense {bf16_loss_rel} > {BF16_LOSS_RTOL}"
+             f" rel")
+    if not bf16_grad_rel <= BF16_GRAD_RTOL:
+        fail(f"bfloat16 gradients: cp vs dense {bf16_grad_rel} > "
+             f"{BF16_GRAD_RTOL} rel")
+
+    # float32 at bench's widths, 2 layers: one cp step against one dense
+    c32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=2)
+    d32 = dataclasses.replace(cp["dense"], dtype=torch.float32, n_layers=2)
+    p32 = _tree_map(lambda p: p.float(),
+                    dict(params, layers=params["layers"][:2]))
+    step_c, shard_c = make_sharded_train_step(c32, lr=TRAIN_LR,
+                                              mesh=cp["mesh"])
+    step_d, _ = make_sharded_train_step(d32, lr=TRAIN_LR)
+    del params, cp
+    new_c, loss_c = step_c(shard_c(p32), tokens, targets)
+    new_d, loss_d = step_d(p32, tokens, targets)
+    f32_loss_rel = abs(float(loss_c) - float(loss_d)) / abs(float(loss_d))
+    # the worst |a - b| over atol + rtol |b| of any weight (<= 1: within)
+    f32_param_gap = max(
+        float(((a - b).abs() / (CP_F32_ATOL + CP_F32_RTOL * b.abs())).max())
+        for a, b in zip(_tree_leaves(new_c), _tree_leaves(new_d)))
+    del new_c, new_d
+    print(f"float32 step, cp vs dense, 2 layers x batch {CP_B}: loss "
+          f"{float(loss_c)} vs {float(loss_d)} ({f32_loss_rel} rel), "
+          f"weights at {f32_param_gap} of rtol {CP_F32_RTOL}, atol "
+          f"{CP_F32_ATOL}", flush=True)
+    if not f32_loss_rel <= CP_F32_LOSS_RTOL:
+        fail(f"float32 cp loss {f32_loss_rel} > {CP_F32_LOSS_RTOL} rel")
+    if not f32_param_gap <= 1.0:
+        fail(f"float32 cp step: weights beyond rtol {CP_F32_RTOL}, atol "
+             f"{CP_F32_ATOL} of the dense step's ({f32_param_gap})")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(launches=dense_launches, wgmma=wgmma, losses=losses,
+                main_path_peak_gb=peak / 1e9,
+                block_k=_cp_block_k(CP_T // CP_RING, cfg.attention),
+                gaps=dict(bf16_loss_rel=bf16_loss_rel,
+                          bf16_grad_rel=bf16_grad_rel, bf16_grad_worst=worst,
+                          f32_loss_rel=f32_loss_rel,
+                          f32_param_gap=f32_param_gap))
+
+
+def cp_timing(cp_run) -> dict:
+    """Phase 5's ``train_cp``: phase 3j's weights and batch built again
+    from the seed, then :func:`step_timing` of the cp step and of the
+    dense T = 4096 step beside it (each with its launches a step), and
+    phase 3j's gaps."""
+    import torch
+
+    cp = cp_setup()
+    cfg = cp["cfg"]
+    common = dict(batch=CP_B, seq=CP_T, params=cp["n_params"],
+                  layers=cfg.n_layers, d_model=cfg.d_model,
+                  n_heads=cfg.n_heads, d_ff=cfg.d_ff, vocab=cfg.vocab,
+                  dtype="bfloat16", attention="auto", lr=TRAIN_LR)
+    ring = step_timing(cp, CP_B, CP_T, CP_KERNEL_CLASSES)
+    dense = step_timing(dict(cp, step=cp["dense_step"]), CP_B, CP_T,
+                        CP_KERNEL_CLASSES)
+    del cp
+    torch.cuda.empty_cache()
+    return {
+        **common,
+        "cp": dict(ring, cp=CP_RING, mesh={"dp": 1, "tp": CP_RING},
+                   remat=True, block_k=cp_run["block_k"],
+                   launches_per_step={}),
+        "dense": dict(dense, cp=1, remat=False, block_k=None,
+                      launches_per_step={k: v for k, v in
+                                         cp_run["launches"].items() if v}),
+        "main_path_losses": cp_run["losses"],
+        "main_path_peak_memory_gb": cp_run["main_path_peak_gb"],
+        "gaps": cp_run["gaps"],
         "torch": torch.__version__, "cuda": torch.version.cuda,
     }
 
@@ -5084,6 +5314,17 @@ def main() -> int:
             "card": smi.stdout.strip().splitlines()[0],
             **facade_dispatch_latency([64 * 1024, 1024 * 1024])}}))
         return 0
+    if sys.argv[1:] == ["--cp"]:  # phase 3j, rows 16-18 at T = 4096, train_cp
+        probe_phase(kc)
+        t0 = time.time()
+        cp = cp_main_path(kc)
+        print(f"context-parallel path checks done ({time.time() - t0:.1f} s)",
+              flush=True)
+        print(json.dumps({"flash_t4096": time_flash_bwd(CP_B, CP_T,
+                                                        plain=False)}))
+        print(json.dumps({"train_cp": {
+            "card": smi.stdout.strip().splitlines()[0], **cp_timing(cp)}}))
+        return 0
     if sys.argv[1:] == ["--launch-path"]:  # the launch path alone
         if not kc.probe_copy(torch.ones(8, 128, device=dev)).eq(1).all():
             fail("the probe's copy differs from its input")
@@ -5283,6 +5524,10 @@ def main() -> int:
     print(f"training path checks done ({time.time() - t0:.1f} s)",
           flush=True)
     t0 = time.time()
+    cp = cp_main_path(kc)
+    print(f"context-parallel path checks done ({time.time() - t0:.1f} s)",
+          flush=True)
+    t0 = time.time()
     compressed = compressed_main_path(kc)
     print(f"compressed path ok ({time.time() - t0:.1f} s): launches "
           f"{compressed}", flush=True)
@@ -5306,10 +5551,11 @@ def main() -> int:
     dispatched = dispatch_main_path(kc)
     print(f"dispatch path ok ({time.time() - t0:.1f} s): launches "
           f"{ {k: v for k, v in dispatched.items() if v} }", flush=True)
-    # each kernel's launches over the probe's and the ten paths' runs
+    # each kernel's launches over the probe's and the eleven paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k]
                 + ringed["launches"][k] + serve["launches"][k]
-                + train["launches"][k] + compressed[k] + converged[k]
+                + train["launches"][k] + cp["launches"][k] + compressed[k]
+                + converged[k]
                 + p2p[k] + seqp["launches"][k] + dispatched[k] + probed[k]
                 for k in launches}
 
@@ -5380,6 +5626,7 @@ def main() -> int:
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         timing[name] = dict(bwd[name], library_ms=bwd["library_bwd_ms"])
     timing["flash_attention_bwd_delta"] = bwd["flash_attention_bwd_delta"]
+    bwd4k = time_flash_bwd(CP_B, CP_T, plain=False)  # phase 3j's dense step
     timing.update(time_compression(kc, dev))
     timing.update(time_put(kc, dev))
     timing.update(time_seq_parallel(kc, dev))
@@ -5511,6 +5758,23 @@ def main() -> int:
                 "train_bound_by": b["bound_by"],
                 "train_library_ms": f["library_ms"],
                 "train_library_device_ms": f["library_device_ms"],
+            })
+        if name in TRAIN_KERNELS:  # phase 3j's dense step at T = 4096
+            f = bwd4k["fwd" if name == "flash_attention" else name]
+            b = bound(f["bytes"], f["ops"], TC16_OPS_PER_S
+                      if name in TC_KERNELS else F32_OPS_PER_S)
+            lib = ("library_ms", "library_device_ms")
+            lib = ([f[k] for k in lib] if name == "flash_attention"
+                   else [None, None] if name == "flash_attention_bwd_delta"
+                   else [bwd4k[k.replace("library", "library_bwd")]
+                         for k in lib])
+            kernels[-1].update({
+                "t4096_shape": [CP_B, TRAIN["n_heads"], CP_T, 128],
+                "t4096_launches": cp["launches"][name],
+                "t4096_ms": f["ms"], "t4096_device_ms": f["device_ms"],
+                "t4096_bound_ms": b["bound_ms"],
+                "t4096_bound_by": b["bound_by"],
+                "t4096_library_ms": lib[0], "t4096_library_device_ms": lib[1],
             })
         if name in TRAIN_KERNELS[1:]:  # the backward at the training shape
             kernels[-1].update({
@@ -5685,6 +5949,12 @@ def main() -> int:
     print(f"serving and training timing ({time.time() - t0:.1f} s)",
           flush=True)
     print(json.dumps({"train_step": {
+        "card": smi.stdout.strip().splitlines()[0], **trained}}))
+    t0 = time.time()
+    trained = cp_timing(cp)
+    print(f"context-parallel training timing ({time.time() - t0:.1f} s)",
+          flush=True)
+    print(json.dumps({"train_cp": {
         "card": smi.stdout.strip().splitlines()[0], **trained}}))
     t0 = time.time()
     seq_lat = seq_parallel_latency(dev)

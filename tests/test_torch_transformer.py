@@ -183,11 +183,24 @@ def test_auto_on_the_cpu_runs_blockwise_from_1024():
 
 @pytest.mark.parametrize("field,value", [
     ("n_experts", 4), ("seq_parallel", True), ("vocab_parallel", True),
-    ("context_parallel", True),
 ])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TransformerConfig(**{field: value})
+
+
+def test_context_parallel_config_constructs():
+    """context_parallel is ported: the config constructs, and with no ring
+    its plain forward is the dense one."""
+    cfg = TransformerConfig(**BASE, context_parallel=True)
+    assert cfg.context_parallel
+    params = init_params(cfg, torch.Generator().manual_seed(3),
+                         device="cpu")
+    toks = torch.from_numpy(_tokens(10, 2, 8))
+    torch.testing.assert_close(
+        forward(params, toks, cfg),
+        forward(params, toks, dataclasses.replace(cfg,
+                                                  context_parallel=False)))
 
 
 def test_config_validates():
