@@ -1,6 +1,6 @@
 """Backend interface: what the facade needs from a collective engine.
 The port's copy of ``accl_tpu/backends/base.py`` (a subset of
-``CallOptions``: no tuning overlay or trace fields), with the device
+``CallOptions``: no trace fields), with the device
 interaction counter (:class:`InteractionCounter`) and the device stream
 ports (:class:`StreamPortMixin`)."""
 
@@ -54,6 +54,9 @@ class CallOptions:
     # the facade's cached plan (accl_tpu_torch.plans): the gang parks its
     # prepared state in plan.engine
     plan: Optional[object] = None
+    # the plan's per-size-bucket register overlay from a loaded tuning
+    # plan (None: the engine's table alone)
+    tuning: Optional[dict] = None
     # the per-call stochastic-rounding seed of a compressed collective
     # (the host-staged path mixes each rank in; the device path rounds
     # deterministically)
@@ -62,6 +65,16 @@ class CallOptions:
     cfg_function: int = 0
     cfg_value: float = 0.0
     cfg_key: int = 0  # tuning register selector for SET_TUNING
+
+    def effective_tuning(self, table: dict) -> dict:
+        """The engine's register table overlaid with this call's
+        per-bucket registers (every rank loads the same plan, so every
+        rank reads the same set)."""
+        if not self.tuning:
+            return table
+        eff = dict(table)
+        eff.update(self.tuning)
+        return eff
 
 
 class InteractionCounter:

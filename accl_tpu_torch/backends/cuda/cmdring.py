@@ -38,8 +38,9 @@ flight), *resident* (a run lingers on its mailbox), *armed* (windows in
 flight).  ``reset()`` halts every run and realigns seqn and head at 0;
 ``halt_sessions()`` (engine shutdown) halts and joins every run.
 
-What the JAX ring has and this one does not (yet): circuit breakers,
-chaos hooks, QoS slot budgets and the window log (ROADMAP A11).
+What the JAX ring has and this one does not (yet): the window log
+(ROADMAP A11b), circuit breakers and chaos hooks (A11c) and QoS slot
+budgets (A11d).
 """
 
 from __future__ import annotations
@@ -548,9 +549,17 @@ class GangCommandRing:
         if not self.enabled or npos == 0:
             return False
         gang = self.gang
+        # an algorithm register (the table, or a call's tuning-plan
+        # overlay) naming another lowering keeps its meaning: the ring is
+        # a lowering of its own and must not shadow the requested one
         if any(gang.tuning.get(k, "xla") != "xla"
                for k in BATCH_TUNING_KEYS):
             return self._fallback("tuning_override")
+        for options_list, _ in entries:
+            for c in options_list:
+                if c.tuning and any(c.tuning.get(k, "xla") != "xla"
+                                    for k in BATCH_TUNING_KEYS):
+                    return self._fallback("tuning_override")
         if t0 is None:
             t0 = time.perf_counter_ns()
         plans = []
@@ -673,11 +682,14 @@ class GangCommandRing:
             dtype = plan["dtype"]
         return WindowShape(len(window), in_ws, out_ws, wires, dtype)
 
-    def _window_posture(self):
+    def _window_posture(self, lead=None):
         """The run posture an arming window gives its run: the
-        ``cmdring_run_windows`` / ``cmdring_linger_us`` tuning registers
-        (0: the ring's env default, ``run_windows`` / ``linger_s``)."""
-        t = self.gang.tuning
+        ``cmdring_run_windows`` / ``cmdring_linger_us`` registers as the
+        window's lead call reads them (its tuning-plan overlay over the
+        gang's table; the table alone without a lead; 0: the ring's env
+        default, ``run_windows`` / ``linger_s``)."""
+        t = (self.gang.tuning if lead is None
+             else lead.effective_tuning(self.gang.tuning))
         rw = int(t.get("cmdring_run_windows", 0) or 0)
         lus = int(t.get("cmdring_linger_us", 0) or 0)
         return (rw if rw > 0 else self.run_windows,
@@ -910,7 +922,7 @@ class GangCommandRing:
         window fails; nothing turns into the inline form)."""
         from .engine import _wait_operands
 
-        run_windows, linger_s = self._window_posture()
+        run_windows, linger_s = self._window_posture(rec.calls[0][0])
         if device.type == "cuda":
             _wait_operands(device, bufs)
             drun = PersistentRun(shape, comm.size, device, run_windows,

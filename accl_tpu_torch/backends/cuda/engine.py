@@ -64,11 +64,13 @@ from ...constants import (
     DEFAULT_TIMEOUT_S,
     ErrorCode,
     FusedCompute,
+    MAX_EAGER_SIZE_LIMIT,
     Operation,
     ROOTED_ALGORITHMS,
     ReduceFunction,
     StreamFlags,
     TUNING_DEFAULTS,
+    TUNING_KEY_NAMES,
     TuningKey,
     WIRE_LANE_DTYPES,
     drain_deadline_s,
@@ -91,7 +93,9 @@ from .cmdring import BATCH_TUNING_KEYS, GangCommandRing, buffer_root
 
 
 def apply_tuning(tuning: dict, options: CallOptions) -> ErrorCode:
-    """Validate and apply one SET_TUNING register write."""
+    """Validate and apply one SET_TUNING register write (the JAX device
+    tier's ``apply_tuning``: every register of the table, with its
+    checks)."""
     try:
         key = TuningKey(int(options.cfg_key))
     except ValueError:
@@ -99,6 +103,7 @@ def apply_tuning(tuning: dict, options: CallOptions) -> ErrorCode:
     val = options.cfg_value
     if val < 0:
         return ErrorCode.CONFIG_ERROR
+    name = TUNING_KEY_NAMES[key]
     if key in ALGORITHM_TUNING_KEYS:
         try:
             algo = AllreduceAlgorithm(int(val))
@@ -107,27 +112,38 @@ def apply_tuning(tuning: dict, options: CallOptions) -> ErrorCode:
         if (key != TuningKey.ALLREDUCE_ALGORITHM
                 and algo not in ROOTED_ALGORITHMS):
             return ErrorCode.CONFIG_ERROR  # no ring form of a rooted op
-        tuning[key.name.lower()] = algo.name.lower()
+        tuning[name] = algo.name.lower()
     elif key == TuningKey.RING_SEGMENTS:
         if int(val) < 1:
             return ErrorCode.CONFIG_ERROR
-        tuning["ring_segments"] = int(val)
-    elif key == TuningKey.WIRE_DTYPE:
+        tuning[name] = int(val)
+    elif key in (TuningKey.WIRE_DTYPE, TuningKey.WIRE_DTYPE_ICI,
+                 TuningKey.WIRE_DTYPE_DCN):
+        # a registered wire lane or 0 (off; on a per-class register,
+        # "defer to wire_dtype")
         if int(val) != 0 and not is_wire_dtype(int(val)):
             return ErrorCode.CONFIG_ERROR
-        tuning["wire_dtype"] = int(val)
+        tuning[name] = int(val)
+    elif key == TuningKey.HIERARCHICAL:
+        if int(val) > 1:
+            return ErrorCode.CONFIG_ERROR
+        tuning[name] = int(val)
     elif key == TuningKey.CMDRING_RUN_WINDOWS:
         # the persistent run's posture (0: the env default), clamped as
         # the env knob is: an unbounded run would hold the device
         if int(val) > CMDRING_MAX_RUN_WINDOWS:
             return ErrorCode.CONFIG_ERROR
-        tuning["cmdring_run_windows"] = int(val)
+        tuning[name] = int(val)
     elif key == TuningKey.CMDRING_LINGER_US:
         if int(val) > 1_000_000:  # above 1 s a run would hold the device
             return ErrorCode.CONFIG_ERROR
-        tuning["cmdring_linger_us"] = int(val)
+        tuning[name] = int(val)
     else:
-        return ErrorCode.CONFIG_ERROR  # a register this engine does not serve
+        # pipeline_threshold and the flat-tree thresholds (stored; the
+        # latter select nothing on the gang tier, as on JAX's gang)
+        if key == TuningKey.GATHER_FLAT_TREE_MAX_FANIN and val < 1:
+            return ErrorCode.CONFIG_ERROR
+        tuning[name] = int(val)
     return ErrorCode.OK
 
 
@@ -802,8 +818,9 @@ class CudaGangContext:
         every operand before it writes any result).  Once it runs, it
         owns the requests' completion: a failure fails the rest, and no
         position runs twice."""
-        if npos == 0 or any(self.tuning.get(k, "xla") != "xla"
-                            for k in BATCH_TUNING_KEYS):
+        if npos == 0 or any(
+                c.effective_tuning(self.tuning).get(k, "xla") != "xla"
+                for e in entries for c in e[0] for k in BATCH_TUNING_KEYS):
             return False
         if any(c.op in (Operation.SEND, Operation.RECV)
                for e in entries for c in e[0]):
@@ -941,7 +958,8 @@ class CudaGangContext:
         if handle is None:
             op, wire = tmpl["op"], (lead.arithcfg.compressed
                                     if tmpl["compressed"] else None)
-            name, extra = resolve_lowering(op, lead, self.tuning, wire)
+            name, extra = resolve_lowering(
+                op, lead, lead.effective_tuning(self.tuning), wire)
             prep_wire = (WIRE_LANE_DTYPES[wire.name]
                          if wire is not None and op != Operation.ALLREDUCE
                          else None)
@@ -987,10 +1005,10 @@ class CudaGangContext:
         mesh = opdriver.Mesh(size, device)
         _wait_operands(device, [c.op0 for c in calls])
         fn = lead.reduce_function
+        tuning = lead.effective_tuning(self.tuning)
         if op == Operation.ALLREDUCE:
             # the wire lane runs inside the allreduce (one rounding)
-            run_allreduce_with_tuning(xs, mesh, fn, wire, self.tuning,
-                                      out=outs)
+            run_allreduce_with_tuning(xs, mesh, fn, wire, tuning, out=outs)
             return writers
         if wire is not None:
             # each contribution rounded once through the wire, every
@@ -1004,7 +1022,7 @@ class CudaGangContext:
         if op == Operation.SCATTER:
             xs = [xs[root]] * size  # only the root's operand is read
         if op in ROOTED_OPS:
-            run_rooted_with_tuning(op, xs, mesh, lead, self.tuning, out=outs)
+            run_rooted_with_tuning(op, xs, mesh, lead, tuning, out=outs)
         elif op == Operation.ALLGATHER:
             opdriver.run_allgather(xs, mesh, out=outs)
         elif op == Operation.ALLTOALL:
@@ -1433,11 +1451,25 @@ class CudaEngine(StreamPortMixin, BaseEngine):
 
     def _apply_config(self, options: CallOptions) -> ErrorCode:
         fn = ConfigFunction(options.cfg_function)
-        if fn == ConfigFunction.SET_TIMEOUT:
+        val = options.cfg_value
+        if fn == ConfigFunction.RESET:
+            # the handle's init-time reset: a fresh gang has nothing to
+            # abandon (the recovery reset, soft_reset, is A11c's)
+            if val != 0:
+                return ErrorCode.COLLECTIVE_NOT_IMPLEMENTED
+        elif fn == ConfigFunction.SET_TIMEOUT:
             # the deadline of parked sends and recvs and of stream pops
-            if options.cfg_value <= 0:
+            if val <= 0:
                 return ErrorCode.CONFIG_ERROR
-            self.timeout_s = float(options.cfg_value)
+            self.timeout_s = float(val)
+        elif fn == ConfigFunction.SET_MAX_EAGER_SIZE:
+            # validated only: the gang has no eager protocol (one device,
+            # no wire); the plan's eager verdict reads the handle's copy
+            if not 0 < val <= MAX_EAGER_SIZE_LIMIT:
+                return ErrorCode.CONFIG_ERROR
+        elif fn == ConfigFunction.SET_MAX_RENDEZVOUS_SIZE:
+            if val <= 0:
+                return ErrorCode.CONFIG_ERROR
         elif fn == ConfigFunction.SET_TUNING:
             code = apply_tuning(self.gang.tuning, options)
             if code == ErrorCode.OK:

@@ -1,7 +1,8 @@
 """Communicators: ordered groups of ranks with per-peer session state.
 The port's copy of ``accl_tpu/communicator.py`` without the elastic-
-membership cutovers (shrink / grow / restore) and the topology
-descriptor.
+membership cutovers (shrink / grow / restore, ROADMAP A11c).  A
+communicator may carry a :class:`~accl_tpu_torch.topology.Topology` in
+its own rank space; :meth:`Communicator.split` derives the subcomm's.
 
 Several communicators may cover overlapping rank sets
 (``ACCL.create_communicator``, :meth:`Communicator.split`); the gang keys
@@ -52,6 +53,12 @@ class Communicator:
         # per-peer monotone sequence numbers (ordering for eager matching)
         self._outbound_seq: Dict[int, int] = {i: 0 for i in range(len(ranks))}
         self._inbound_seq: Dict[int, int] = {i: 0 for i in range(len(ranks))}
+        # the slice / link-class descriptor in THIS communicator's rank
+        # space, or None (flat): attached by the facade at construction
+        # or set_topology, derived by split; _full_topology is kept for
+        # the elastic restore path (A11c), which the port lacks yet
+        self.topology = None
+        self._full_topology = None
 
     # -- introspection ------------------------------------------------------
     @property
@@ -108,20 +115,27 @@ class Communicator:
                 raise ValueError(f"member {m} out of range")
         if self.local_rank not in members:
             return None
-        return Communicator([self.ranks[m] for m in members],
-                            members.index(self.local_rank), comm_id=comm_id)
+        sub = Communicator([self.ranks[m] for m in members],
+                           members.index(self.local_rank), comm_id=comm_id)
+        if self.topology is not None:
+            # member m of the parent becomes rank members.index(m) of the
+            # child, and subtopology() maps slices through that order, so
+            # the subcomm's link classes stay truthful
+            sub.topology = self.topology.subtopology(members)
+        return sub
 
     # -- debug --------------------------------------------------------------
     def as_dict(self) -> dict:
-        """The structured form of :meth:`dump` (no topology: the port has
-        no topology plane yet)."""
+        """The structured form of :meth:`dump` (the topology by its
+        signature, None when flat)."""
         with self._lock:
             return {
                 "id": self.id,
                 "epoch": self.epoch,
                 "size": self.size,
                 "local_rank": self.local_rank,
-                "topology": None,
+                "topology": (None if self.topology is None
+                             else self.topology.signature()),
                 "ranks": [
                     {
                         "address": r.address,
@@ -135,8 +149,11 @@ class Communicator:
             }
 
     def dump(self) -> str:
-        lines = [f"communicator {self.id}: size={self.size} "
-                 f"local={self.local_rank}"]
+        head = (f"communicator {self.id}: size={self.size} "
+                f"local={self.local_rank}")
+        if self.topology is not None:
+            head += f" topology={self.topology.signature()}"
+        lines = [head]
         with self._lock:
             for i, r in enumerate(self.ranks):
                 lines.append(

@@ -34,19 +34,23 @@ class Operation(enum.IntEnum):
 
 
 class ConfigFunction(enum.IntEnum):
-    """Sub-functions of Operation.CONFIG (the subset this port serves)."""
+    """Sub-functions of Operation.CONFIG (the subset this port serves).
+    RESET is the handle's init-time reset (value 0), which a fresh gang
+    accepts with nothing to abandon; the recovery reset (``soft_reset``)
+    is not ported (ROADMAP A11c)."""
 
     RESET = 0
     SET_TIMEOUT = 2
+    SET_MAX_EAGER_SIZE = 3
+    SET_MAX_RENDEZVOUS_SIZE = 4
     SET_TUNING = 5
 
 
 class TuningKey(enum.IntEnum):
-    """Runtime tuning registers.  The port's gang engine honours
-    ALLREDUCE_ALGORITHM, the four rooted algorithm registers (BCAST,
-    REDUCE, SCATTER and GATHER_ALGORITHM), RING_SEGMENTS and WIRE_DTYPE;
-    the other values are kept so register numbers stay the JAX
-    package's."""
+    """Runtime tuning registers, numbered as the JAX package's.  The
+    gang engine stores and validates every one; the flat-tree
+    thresholds (the first five) select nothing on the gang tier, as on
+    JAX's gang."""
 
     GATHER_FLAT_TREE_MAX_FANIN = 0
     GATHER_FLAT_TREE_MAX_COUNT = 1
@@ -90,7 +94,12 @@ ALGORITHM_TUNING_KEYS = (
     TuningKey.GATHER_ALGORITHM,
 )
 
-#: register names the port's gang engine accepts, with their defaults
+#: TuningKey -> the register's name in a tuning table (JAX's table)
+TUNING_KEY_NAMES = {k: k.name.lower() for k in TuningKey}
+
+#: every register the port's gang engine holds, with its default: the
+#: algorithm registers and the JAX package's table
+#: (``accl_tpu/constants.py::TUNING_DEFAULTS``)
 TUNING_DEFAULTS = {
     "allreduce_algorithm": "xla",
     "bcast_algorithm": "xla",
@@ -98,8 +107,34 @@ TUNING_DEFAULTS = {
     "scatter_algorithm": "xla",
     "gather_algorithm": "xla",
     "ring_segments": 1,
+    # flat-vs-tree thresholds of the host tiers (stored, select nothing
+    # on the gang tier)
+    "gather_flat_tree_max_fanin": 2,
+    "gather_flat_tree_max_count": 32 * 1024,
+    "bcast_flat_tree_max_ranks": 3,
+    "reduce_flat_tree_max_ranks": 4,
+    "reduce_flat_tree_max_count": 8 * 1024,
+    # segmented pipelining: payloads above this many bytes split into
+    # ring_segments sub-launches (0: off)
+    "pipeline_threshold": 0,
+    # the wire lane's verdict (0: no automatic compression)
     "wire_dtype": 0,
+    # the persistent sequencer's posture (0: the env defaults)
+    "cmdring_run_windows": 0,
+    "cmdring_linger_us": 0,
+    # hierarchical decomposition on a multi-slice topology (0: flat)
+    "hierarchical": 0,
+    # per-link-class wire verdicts (0: defer to wire_dtype)
+    "wire_dtype_ici": 0,
+    "wire_dtype_dcn": 0,
 }
+
+#: the eager-protocol threshold a handle starts with (bytes), and the
+#: largest SET_MAX_EAGER_SIZE takes
+EAGER_THRESHOLD_DEFAULT = 32 * 1024
+MAX_EAGER_SIZE_LIMIT = 16 * 1024 * 1024
+#: the rendezvous threshold a handle starts with (bytes)
+RENDEZVOUS_THRESHOLD_DEFAULT = 16 * 1024 * 1024
 
 
 class ReduceFunction(enum.IntEnum):

@@ -27,6 +27,19 @@ and :meth:`ACCL.capabilities` reports the plan pool's counters and the
 engine's device interactions.  ``create_buffer(..., host_only=True)``
 makes a host-only buffer, which the gang stages through the host.
 
+The data path's topology plane: a handle takes a
+:class:`~accl_tpu_torch.topology.Topology` (``topology=``, or
+``ACCL_TOPOLOGY`` / ``ACCL_SLICE_SIZE``; :meth:`ACCL.set_topology`), its
+signature is a plan-key axis, and with the ``hierarchical`` register set
+the allreduce, allgather, reduce_scatter and bcast of a multi-slice
+communicator run as stages on derived sub-communicators (the slice, the
+rail, the leaders), chained on done-callbacks into one aggregate
+request.  Above ``pipeline_threshold`` bytes an allreduce or bcast runs
+as ``ring_segments`` sub-calls (segmented pipelining).  A loaded
+:class:`~accl_tpu_torch.tuning.TuningPlan` (:meth:`ACCL.load_tuning_plan`
+or ``ACCL_TUNING_PLAN``) overlays its per-size-bucket registers on every
+reader of a register.
+
 :func:`cuda_group` builds N rank handles over one device — the
 counterpart of ``core.xla_group``.  Collectives are blocking per rank:
 drive each rank from its own thread, or use ``run_async=True``.
@@ -35,15 +48,24 @@ drive each rank from its own thread, or use ``run_async=True``.
 from __future__ import annotations
 
 import os
+import queue
+import threading
+import time
 import zlib
 from typing import List, Optional, Sequence
 
 import torch
 
+from . import hierarchical as _hier
 from . import wire as _wire
 from .arithconfig import DEFAULT_ARITH_CONFIG
 from .backends.base import BaseEngine, CallOptions, tensor_bytes
-from .backends.cuda.engine import CudaEngine, CudaGangContext
+from .backends.cuda.engine import (
+    CudaEngine,
+    CudaGangContext,
+    _record_event,
+    _wait_operands,
+)
 from .buffer import (
     BaseBuffer,
     DeviceBuffer,
@@ -59,21 +81,26 @@ from .constants import (
     ConfigFunction,
     DataType,
     DEFAULT_TIMEOUT_S,
+    EAGER_THRESHOLD_DEFAULT,
     ErrorCode,
     FusedCompute,
     HostFlags,
     Operation,
+    RENDEZVOUS_THRESHOLD_DEFAULT,
     ReduceFunction,
     StreamFlags,
     TuningKey,
     as_datatype,
     drain_deadline_s,
+    dtype_size,
     dtype_to_numpy,
+    dtype_to_torch,
 )
 from .errorfeedback import ResidualStore
 from .ops.driver import resolve_device
 from .plans import CollectivePlan, PlanCache, size_bucket
-from .request import CommandQueue, Request
+from .request import CommandQueue, EventGroup, Request
+from .topology import LinkClass, Topology
 
 #: the collectives whose compressed calls take a per-call stochastic-
 #: rounding seed (the JAX facade derives one for these three)
@@ -101,12 +128,41 @@ class ACCL:
         local_rank: int,
         arith_config: Optional[dict] = None,
         timeout_s: float = DEFAULT_TIMEOUT_S,
+        max_eager_size: int = EAGER_THRESHOLD_DEFAULT,
+        max_rendezvous_size: int = RENDEZVOUS_THRESHOLD_DEFAULT,
+        topology: Optional[Topology] = None,
     ):
         self.engine = engine
         self._arith = dict(arith_config or DEFAULT_ARITH_CONFIG)
         self._world = Communicator(ranks, local_rank, comm_id=0)
         self._communicators: List[Communicator] = [self._world]
         self._timeout_s = float(timeout_s)
+        # the topology plane: the world's slice / link-class descriptor,
+        # given or from ACCL_TOPOLOGY / ACCL_SLICE_SIZE, inherited by
+        # splits; the derived hierarchical subcomms are cached per (comm
+        # id, epoch)
+        if topology is None:
+            topology = Topology.from_env(len(ranks))
+        if topology is not None:
+            if topology.world != len(ranks):
+                raise ValueError(
+                    f"topology describes world={topology.world}, this "
+                    f"group is world={len(ranks)}")
+            self._world.topology = topology
+        self._hier_comms: dict = {}
+        # the adopted TuningPlan (load_tuning_plan / ACCL_TUNING_PLAN):
+        # its per-bucket registers ride the plans into CallOptions.tuning
+        self._tuning_plan = None
+        # per-thread call state: a hierarchical stage or a pipelined
+        # segment being launched on this thread (never decomposed again)
+        self._call_tls = threading.local()
+        # async aggregates (hierarchical / pipelined) not yet drained by
+        # flush(); appended from hop threads too, hence the lock
+        self._aggregates: list = []
+        self._agg_lock = threading.Lock()
+        # the stage thread of hierarchical calls (started at the first)
+        self._hop_q: Optional[queue.SimpleQueue] = None
+        self._hop_lock = threading.Lock()
         # the open batch (None outside one); nested batch() contexts only
         # count depth
         self._pending: Optional[CommandQueue] = None
@@ -125,18 +181,40 @@ class ACCL:
         self._plans.add_invalidation_hook(self._residuals.invalidate)
         self._error_feedback = (
             os.environ.get("ACCL_ERROR_FEEDBACK", "0") == "1")
+        # the init sequence, as JAX's _initialize writes it
+        self._max_eager_size = int(max_eager_size)
+        self._config(ConfigFunction.RESET, 0)
         self._config(ConfigFunction.SET_TIMEOUT, timeout_s)
+        self._config(ConfigFunction.SET_MAX_EAGER_SIZE, max_eager_size)
+        self._config(ConfigFunction.SET_MAX_RENDEZVOUS_SIZE,
+                     max_rendezvous_size)
         self._initialized = True
+        env_plan = os.environ.get("ACCL_TUNING_PLAN")
+        if env_plan:
+            try:
+                self.load_tuning_plan(env_plan, strict=False)
+            except Exception as e:  # a stale plan must not brick startup
+                import sys
 
-    #: config writes that clear the plan pool (JAX's also clear on RESET
-    #: and SET_MAX_EAGER_SIZE, which the port does not serve yet: A11)
-    _PLAN_INVALIDATING = frozenset((ConfigFunction.SET_TUNING,))
+                print(f"[accl] ignoring ACCL_TUNING_PLAN={env_plan!r}: {e}",
+                      file=sys.stderr)
+
+    #: config writes whose effect cached plans embed: a write clears the
+    #: pool (JAX's set)
+    _PLAN_INVALIDATING = frozenset((
+        ConfigFunction.RESET,
+        ConfigFunction.SET_TUNING,
+        ConfigFunction.SET_MAX_EAGER_SIZE,
+    ))
 
     def _config(self, fn: ConfigFunction, value: float, key: int = 0) -> None:
+        self.flush()  # a config write must not overtake queued calls
         req = self.engine.start(CallOptions(
             op=Operation.CONFIG, cfg_function=int(fn), cfg_value=value,
             cfg_key=int(key),
         ))
+        if not req.wait(timeout=drain_deadline_s(self._timeout_s)):
+            raise ACCLError(ErrorCode.DEADLOCK_SUSPECTED, f"config {fn.name}")
         req.check(f"config {fn.name}")
         if fn in self._PLAN_INVALIDATING:
             self._plans.invalidate(fn.name.lower())
@@ -158,13 +236,24 @@ class ACCL:
         self._config(ConfigFunction.SET_TIMEOUT, seconds)
         self._timeout_s = float(seconds)
 
+    def set_max_eager_size(self, nbytes: int) -> None:
+        """The eager-vs-rendezvous threshold in bytes (clears the plan
+        pool; the plans' ``eager`` verdict reads it)."""
+        self._config(ConfigFunction.SET_MAX_EAGER_SIZE, nbytes)
+        self._max_eager_size = int(nbytes)
+
+    def set_max_rendezvous_size(self, nbytes: int) -> None:
+        self._config(ConfigFunction.SET_MAX_RENDEZVOUS_SIZE, nbytes)
+
     def set_tuning(self, key, value) -> None:
-        """Write a tuning register: ``allreduce_algorithm`` ("xla" /
-        "ring" / "pallas_ring" / "pallas_ring_bidir"), the rooted
-        ``bcast_algorithm`` / ``reduce_algorithm`` / ``scatter_algorithm``
-        / ``gather_algorithm`` ("xla" / "pallas_ring"), ``ring_segments``
-        or ``wire_dtype`` (a DataType value or name, a dtype name, or
-        "off" / 0).  ``key`` is
+        """Write a tuning register (any name of JAX's table, e.g.
+        ``allreduce_algorithm`` ("xla" / "ring" / "pallas_ring" /
+        "pallas_ring_bidir"), the rooted ``bcast_algorithm`` /
+        ``reduce_algorithm`` / ``scatter_algorithm`` / ``gather_algorithm``
+        ("xla" / "pallas_ring"), ``ring_segments``,
+        ``pipeline_threshold`` (bytes), ``hierarchical`` (0 / 1), or
+        ``wire_dtype`` / ``wire_dtype_ici`` / ``wire_dtype_dcn`` (a
+        DataType value or name, a dtype name, or "off" / 0)).  ``key`` is
         a :class:`TuningKey`, its name, or its int value."""
         if isinstance(key, str):
             try:
@@ -174,7 +263,8 @@ class ACCL:
         else:
             key = TuningKey(key)
         if isinstance(value, str):
-            if key == TuningKey.WIRE_DTYPE:
+            if key in (TuningKey.WIRE_DTYPE, TuningKey.WIRE_DTYPE_ICI,
+                       TuningKey.WIRE_DTYPE_DCN):
                 value = _wire_dtype_value(value)
             else:
                 try:
@@ -187,6 +277,63 @@ class ACCL:
         # clears the plan pool, and with it the residuals (a register
         # write may change the wire a residual was kept for)
         self._config(ConfigFunction.SET_TUNING, float(value), key=int(key))
+
+    # -- tuning plans (accl_tpu_torch.tuning) --------------------------------
+    def load_tuning_plan(self, plan, strict: bool = True,
+                         apply_defaults: bool = True):
+        """Adopt a measured :class:`~accl_tpu_torch.tuning.TuningPlan`
+        (the object or a JSON path): its defaults apply at once through
+        SET_TUNING / SET_MAX_EAGER_SIZE (unless ``apply_defaults`` is
+        False), and its per-size-bucket registers ride the plans, so each
+        call dispatches with the registers measured best for its bucket.
+        A plan for another world, or raced on another topology, raises
+        (``strict``) or is skipped (returns None).  Returns the plan."""
+        from .tuning import TuningPlan
+
+        if not isinstance(plan, TuningPlan):
+            plan = TuningPlan.load(os.fspath(plan))
+        if plan.world and plan.world != self._world.size:
+            if strict:
+                raise ValueError(
+                    f"tuning plan is for world={plan.world}, "
+                    f"this group is world={self._world.size}")
+            return None
+        if plan.topology is not None:
+            # a hierarchical / per-class winner holds only on the
+            # link-class layout it was raced on
+            here = (None if self._world.topology is None
+                    else self._world.topology.signature())
+            if plan.topology != here:
+                if strict:
+                    raise ValueError(
+                        f"tuning plan was raced on topology "
+                        f"{plan.topology!r}, this group's link-class "
+                        f"layout is {here!r}")
+                return None
+        if apply_defaults:
+            for name, val in sorted((plan.defaults or {}).items()):
+                if name == "max_eager_size":
+                    self.set_max_eager_size(int(val))
+                else:
+                    self.set_tuning(name, val)
+        self._tuning_plan = plan
+        self._plans.invalidate("load_tuning_plan")
+        return plan
+
+    def unload_tuning_plan(self, restore_defaults: bool = True) -> None:
+        """Drop the adopted plan; by default also put every register it
+        may have touched back to ``tuning.REGISTER_DEFAULTS``."""
+        if self._tuning_plan is None:
+            return
+        self._tuning_plan = None
+        if restore_defaults:
+            from .tuning import REGISTER_DEFAULTS
+
+            self.set_max_eager_size(REGISTER_DEFAULTS["max_eager_size"])
+            for name, val in sorted(REGISTER_DEFAULTS.items()):
+                if name != "max_eager_size":
+                    self.set_tuning(name, val)
+        self._plans.invalidate("unload_tuning_plan")
 
     # -- the quantized wire --------------------------------------------------
     @property
@@ -235,12 +382,19 @@ class ACCL:
         contribution, or None when error feedback does not apply (not
         armed, no wire, or not SUM).  The residual is keyed as the JAX
         facade keys it — (comm, epoch, op, count, segment position, link
-        class) — with the port's segment 0 and no link class (-1); the
+        class): a pipelined segment's position, and the comm's uniform
+        link class (-1 when flat or mixed), so a hierarchical stage's
+        per-class wire never blends into another's residual; the
         roundtrip uses this rank's mixed seed."""
         if (not self._error_feedback or wire is None
                 or function != ReduceFunction.SUM):
             return None
-        key = (comm.id, comm.epoch, Operation.ALLREDUCE, n, 0, -1)
+        seg = getattr(self._call_tls, "pipeline_seg_index", 0)
+        lc = -1
+        if comm.topology is not None:
+            cls = comm.topology.comm_link_class()
+            lc = int(cls) if cls is not None else -1
+        key = (comm.id, comm.epoch, Operation.ALLREDUCE, n, seg, lc)
         x = sendbuf.tensor[:n]
         if sendbuf.ready is not None:
             torch.cuda.current_stream(x.device).wait_event(sendbuf.ready)
@@ -290,17 +444,42 @@ class ACCL:
         base = base or self._world
         comm_id = zlib.crc32(
             repr((base.id, tuple(members))).encode()) & 0x7FFFFFFF
+        # split() derives the subcomm's topology from the base's (the
+        # port has no fabric to register it with)
         comm = base.split(members, comm_id=comm_id)
         if comm is not None:
             self._communicators.append(comm)
         return comm
+
+    # -- the topology plane (accl_tpu_torch.topology) ------------------------
+    @property
+    def topology(self) -> Optional[Topology]:
+        """The world communicator's topology (None: flat)."""
+        return self._world.topology
+
+    def set_topology(self, topology: Optional[Topology],
+                     comm: Optional[Communicator] = None) -> None:
+        """Attach (or, with None, detach) a topology to ``comm`` (the
+        world by default).  Collective by contract, like a register
+        write: every rank attaches an equal descriptor.  The plan pool
+        and the derived hierarchical subcomms of ``comm`` drop."""
+        comm = comm or self._world
+        if topology is not None and topology.world != comm.size:
+            raise ValueError(
+                f"topology describes world={topology.world}, "
+                f"communicator {comm.id} is size={comm.size}")
+        comm.topology = topology
+        comm._full_topology = None
+        self._plans.invalidate("set_topology")
+        self._hier_comms = {k: v for k, v in self._hier_comms.items()
+                            if k[0] != comm.id}
 
     # -- capabilities --------------------------------------------------------
     def capabilities(self) -> dict:
         """What this handle's engine can do, and its dispatch counters:
         the keys of the JAX facade's report that the port can fill
         truthfully (the rest -- health, telemetry, monitor, the in-flight
-        window, tuning plans -- come with their planes, ROADMAP A11)."""
+        window -- come with their planes, ROADMAP A11b-A11d)."""
         engine = type(self.engine).__name__
         return {
             "engine": engine,
@@ -314,6 +493,13 @@ class ACCL:
             # one warm gang collective moves it by exactly 1
             "device_interactions": self.engine.device_interactions(),
             "plan_cache": self._plans.stats(),
+            # the adopted measurement-driven TuningPlan, if any
+            "tuning_plan": (
+                None if self._tuning_plan is None else {
+                    "tier": self._tuning_plan.tier,
+                    "world": self._tuning_plan.world,
+                    "collectives": sorted(self._tuning_plan.entries),
+                }),
         }
 
     # -- call plumbing -------------------------------------------------------
@@ -348,6 +534,12 @@ class ACCL:
             return tuning.get("allreduce_algorithm")
         return tuning.get(f"{op.name.lower()}_algorithm")
 
+    #: collectives of segmented pipelining: a contiguous operand slice
+    #: maps onto the same result slice, and every rank holds a buffer
+    #: (REDUCE's stream operands would let one rank split where another
+    #: cannot)
+    _PIPELINE_OPS = frozenset((Operation.ALLREDUCE, Operation.BCAST))
+
     #: collectives the ``wire_dtype`` register's verdict may compress (an
     #: explicit ``compress_dtype`` works on every op that takes one)
     _WIRE_VERDICT_OPS = frozenset((Operation.ALLREDUCE,))
@@ -357,28 +549,45 @@ class ACCL:
                   extra: tuple = ()) -> CollectivePlan:
         """The cached plan of a collective (the JAX facade's ``_plan_for``):
         one per ``(op, comm id, comm epoch, dtype, size bucket, compress
-        dtype, host flags, topology signature, extra)``.  The topology
-        signature stays None until the port has a topology plane and the
-        tuning-plan overlay until it has tuning plans (A11).  A hit
-        returns what an earlier call resolved: the arithmetic config, the
-        compression flags, the ``wire_dtype`` verdict and the algorithm
-        snapshot, and the gang's prepared state in ``plan.engine``."""
+        dtype, host flags, topology signature, extra)``; the signature
+        sits before ``extra`` (``CollectivePlan.fuse`` reads ``key[-1]``).
+        A miss resolves, with the loaded tuning plan's per-bucket overlay
+        over the gang's table: the arithmetic config and compression
+        flags, the wire verdict (the comm's link-class register first,
+        then ``wire_dtype``), the eager verdict, the pipelining and
+        hierarchical verdicts and the algorithm snapshot; ``plan.engine``
+        takes the gang's prepared state."""
         cdt = None if compress_dtype is None else as_datatype(compress_dtype)
         bucket = size_bucket(count)
-        key = (op, comm.id, comm.epoch, dtype, bucket, cdt, int(host), None,
+        topo = comm.topology
+        tsig = None if topo is None else topo.signature()
+        lc = None if topo is None else topo.comm_link_class()
+        key = (op, comm.id, comm.epoch, dtype, bucket, cdt, int(host), tsig,
                extra)
         plan, _ = self._plans.get_with_flag(key)
         if plan is not None:
             return plan
+        overlay = None
+        if self._tuning_plan is not None:
+            overlay = self._tuning_plan.registers_for(
+                op.name.lower(), bucket) or None
+        regs = dict(self.engine.gang.tuning)
+        regs.update(overlay or {})
         if (cdt is None and op in self._WIRE_VERDICT_OPS
                 and "fuse" not in extra):
-            # the wire_dtype register's verdict, unless the lane's arith
-            # pair cannot run this call's reduce function (int8 under MAX
-            # keeps the uncompressed wire); the verdict ops carry the
-            # function as extra[0].  Fused slots keep the plain wire.
+            # the per-link-class ladder: a comm whose wire is uniformly
+            # ICI or DCN reads its class register first, and 0 (or a
+            # mixed comm) defers to wire_dtype.  The lane stays off when
+            # its arith pair cannot run this call's reduce function (int8
+            # under MAX); the verdict ops carry the function as extra[0].
+            # Fused slots keep the plain wire.
+            wd = int(regs.get({LinkClass.ICI: "wire_dtype_ici",
+                               LinkClass.DCN: "wire_dtype_dcn"}.get(lc, ""),
+                              0) or 0)
+            if not wd:
+                wd = int(regs.get("wire_dtype", 0) or 0)
             try:
-                verdict = DataType(int(
-                    self.engine.gang.tuning.get("wire_dtype", 0) or 0))
+                verdict = DataType(wd)
             except ValueError:
                 verdict = DataType.NONE
             pair = (dtype, verdict)
@@ -388,31 +597,53 @@ class ACCL:
                         ReduceFunction(int(extra[0]))))):
                 cdt = verdict
         cfg, flags = self._resolve_arithcfg(dtype, cdt)
+        # the protocol verdict holds for the whole bucket or is None (the
+        # threshold falls inside [2^b, 2^(b+1)) elements)
+        eager_limit = regs.get("max_eager_size", self._max_eager_size)
+        lo = (1 << bucket) * dtype_size(dtype)
+        hi = ((1 << (bucket + 1)) - 1) * dtype_size(dtype)
+        eager = (True if hi <= eager_limit
+                 else False if lo > eager_limit else None)
+        pthresh, psegs = 0, 1
+        if op in self._PIPELINE_OPS:
+            pthresh = int(regs.get("pipeline_threshold", 0) or 0)
+            psegs = int(regs.get("ring_segments", 1) or 1)
+        # the register half of the hierarchical verdict (the count half is
+        # checked per call: counts vary within a bucket)
+        hier = False
+        if topo is not None and "fuse" not in extra:
+            if (op.name.lower() in _hier.HIER_OPS
+                    and _hier.multi_slice(topo)):
+                hier = bool(int(regs.get("hierarchical", 0) or 0))
         plan = CollectivePlan(
             key, cfg, flags,
             wire_dtype=(cfg.compressed
                         if flags & CompressionFlags.ETH_COMPRESSED else None),
-            bucket=bucket, eager=None,
-            algorithm=self._algorithm_snapshot(op),
+            bucket=bucket, eager=eager,
+            algorithm=self._algorithm_snapshot(op), tuning=overlay,
+            pipeline_threshold=pthresh, pipeline_segments=psegs,
+            hierarchical=hier, link_class=lc,
         )
         return self._plans.store(plan)
 
     def _planned(self, op: Operation, comm: Communicator, count: int,
                  dtype: DataType, compress_dtype, run_async: bool, context: str,
-                 extra: tuple = (), seeded: bool = False, **fields):
-        """Plan, build the call's options and launch it (``seeded``: draw
-        the per-call wire seed, for the reduce, allreduce and
-        reduce_scatter)."""
+                 extra: tuple = (), seeded: bool = False,
+                 plan: Optional[CollectivePlan] = None, **fields):
+        """Plan (unless the entry point already did), build the call's
+        options and launch it (``seeded``: draw the per-call wire seed,
+        for the reduce, allreduce and reduce_scatter)."""
         host = self._host_flags(fields.get("op0"), None, fields.get("res"))
-        plan = self._plan_for(op, comm, dtype, count, compress_dtype, host,
-                              extra)
+        if plan is None:
+            plan = self._plan_for(op, comm, dtype, count, compress_dtype,
+                                  host, extra)
         if seeded:
             fields["wire_seed"] = self._derive_wire_seed(
                 comm, op, plan.wire_dtype)
         opts = CallOptions(op=op, comm=comm, count=count,
                            arithcfg=plan.arithcfg,
                            compression=plan.compression, host=host,
-                           plan=plan, **fields)
+                           plan=plan, tuning=plan.tuning, **fields)
         return self._launch(opts, run_async, context)
 
     # -- batched dispatch (the command ring) --------------------------------
@@ -431,10 +662,22 @@ class ACCL:
         """Dispatch everything queued in the open batch; the batch stays
         open.  When it returns, every call of the batch that has been
         launched has finished on the device (a call whose peers have not
-        flushed yet is not launched)."""
+        flushed yet is not launched), and so has every async hierarchical
+        or pipelined aggregate of this handle whose stages have all been
+        launched (the drain point the port keeps in place of JAX's
+        in-flight window, ROADMAP A11d)."""
         for req in self._dispatch_pending():
             if req.done() and req.event is not None:
                 req.event.synchronize()
+        with self._agg_lock:
+            aggs, self._aggregates = self._aggregates, []
+        for agg in aggs:
+            if agg.done():
+                if agg.event is not None:
+                    agg.event.synchronize()
+            else:
+                with self._agg_lock:
+                    self._aggregates.append(agg)
 
     def _dispatch_pending(self) -> list:
         """Dispatch the open batch without waiting (the hook behind
@@ -482,7 +725,10 @@ class ACCL:
 
     def _launch(self, options: CallOptions, run_async: bool,
                 context: str) -> Request:
-        if self._pending is not None:
+        # a hierarchical stage dispatches at once, whatever batch the
+        # caller has opened since its call (it runs on a hop thread)
+        if (self._pending is not None
+                and not getattr(self._call_tls, "hier", False)):
             req = Request(op_name=options.op.name)
             req._pre_wait = self._dispatch_pending  # dispatch on wait
             self._pending.push((options, req))
@@ -521,6 +767,431 @@ class ACCL:
         opts = CallOptions(op=op, comm=comm or self._world, count=count,
                            arithcfg=cfg, compression=flags, **fields)
         return self._launch(opts, run_async, context or op.name.lower())
+
+    # -- aggregates: segmented pipelining and hierarchical stages ------------
+    def _finish_aggregate(self, outer: Request, run_async: bool,
+                          context: str) -> Request:
+        """Return an async aggregate (flush() drains it), or wait for it
+        and raise its failure."""
+        if run_async:
+            with self._agg_lock:
+                # keep those whose device work may still be running
+                self._aggregates = [
+                    q for q in self._aggregates if not q.done()
+                    or (q.event is not None and not q.event.query())]
+                self._aggregates.append(outer)
+            return outer
+        deadline = drain_deadline_s(self._timeout_s)
+        if not outer.wait(timeout=deadline):
+            raise ACCLError(ErrorCode.DEADLOCK_SUSPECTED, context,
+                            details={"op": outer.op_name,
+                                     "timeout_s": deadline})
+        outer.check(context)
+        return outer
+
+    def _pipeline_segments_for(self, plan: CollectivePlan, count: int,
+                               dtype: DataType) -> int:
+        """Sub-calls for this call, from the plan's pipelining verdict; 1
+        when the split does not apply (below the threshold, registers
+        off, or already a segment: segments never split again)."""
+        if (plan.pipeline_segments <= 1
+                or getattr(self._call_tls, "pipelining", False)):
+            return 1
+        nseg = plan.pipeline_for(count * dtype_size(dtype))
+        return min(nseg, count) if count > 0 else 1
+
+    def _launch_pipelined(self, op_name: str, count: int, nseg: int,
+                          run_async: bool, launch_seg,
+                          context: str) -> Request:
+        """Segmented pipelining (the JAX facade's ``_launch_pipelined``):
+        ``count`` split into ``nseg`` contiguous chunks, one async sub-call
+        each (``launch_seg(start, stop)``), back to back; returns ONE
+        aggregate request that completes when the last segment has (the
+        first failing segment's retcode wins), holding every segment's
+        event.  The gang keeps tag 0 on every segment, as JAX's device
+        tier does (its order is the gang's sequence)."""
+        base, rem = divmod(count, nseg)
+        bounds, start = [], 0
+        for i in range(nseg):
+            stop = start + base + (1 if i < rem else 0)
+            if stop > start:
+                bounds.append((start, stop))
+            start = stop
+        outer = Request(op_name=op_name.upper())
+        outer.mark_executing()
+        if self._pending is not None:
+            # segments queued into an open batch: waiting on the
+            # aggregate flushes them, while that batch is still open
+            batch_q = self._pending
+
+            def _pw(batch_q=batch_q):
+                if self._pending is batch_q:
+                    self._dispatch_pending()
+
+            outer._pre_wait = _pw
+        t0 = time.perf_counter_ns()
+        self._call_tls.pipelining = True
+        inner = []
+        try:
+            for i, (s0, s1) in enumerate(bounds):
+                # the segment's position keys its error-feedback residual
+                self._call_tls.pipeline_seg_index = i
+                inner.append(launch_seg(s0, s1))
+        finally:
+            self._call_tls.pipelining = False
+            self._call_tls.pipeline_seg_index = 0
+
+        def _resolve():
+            for q in inner:
+                q.materialize()
+            for q in inner:
+                if q.get_retcode() != ErrorCode.OK:
+                    raise RuntimeError(
+                        "pipelined segment failed: "
+                        f"{ErrorCode.describe(q.get_retcode())}")
+
+        outer.defer_result(_resolve)
+        lock = threading.Lock()
+        left = [len(inner)]
+
+        def _seg_done():
+            with lock:
+                left[0] -= 1
+                if left[0]:
+                    return
+            code, ctx = ErrorCode.OK, None
+            for q in inner:
+                if q.get_retcode() != ErrorCode.OK:
+                    code, ctx = q.get_retcode(), q.error_context
+                    break
+            outer.complete(code, max(time.perf_counter_ns() - t0, 1),
+                           context=ctx,
+                           event=EventGroup([q.event for q in inner]))
+
+        for q in inner:
+            q.add_done_callback(_seg_done)
+        return self._finish_aggregate(outer, run_async, context)
+
+    def _hier_state(self, comm: Communicator) -> dict:
+        """The derived subcomms of ``comm``, cached per (comm id, epoch);
+        a stale epoch's entry is dropped."""
+        key = (comm.id, comm.epoch)
+        st = self._hier_comms.get(key)
+        if st is None:
+            for k in [k for k in self._hier_comms if k[0] == comm.id]:
+                del self._hier_comms[k]
+            st = {}
+            self._hier_comms[key] = st
+        return st
+
+    def _hier_subcomm(self, comm: Communicator, st: dict, name,
+                      members) -> Communicator:
+        """The subcomm over ``members`` of ``comm``, derived once (every
+        member derives the same list from the shared topology, and the
+        id from the membership, so no exchange is needed)."""
+        sub = st.get(name)
+        if sub is None:
+            sub = self.create_communicator(list(members), base=comm)
+            st[name] = sub
+        return sub
+
+    def _hier_eligible_call(self, plan: CollectivePlan, comm: Communicator,
+                            compress_dtype, op_name: str, count: int) -> bool:
+        """The per-call half of the hierarchical verdict: the plan's
+        register half set, no explicit ``compress_dtype`` (honoured
+        exactly, flat), no open batch, not already a stage or a segment,
+        and the (topology, count) shape decomposes.  (JAX also
+        fingerprints the decomposed call for its contract plane, which
+        the port has not yet: ROADMAP A11c.)"""
+        if (not plan.hierarchical or compress_dtype is not None
+                or self._pending is not None
+                or getattr(self._call_tls, "hier", False)
+                or getattr(self._call_tls, "pipelining", False)):
+            return False
+        return _hier.eligible(op_name, comm.topology, count)
+
+    def _launch_hier_stages(self, op_name: str, stages, run_async: bool,
+                            context: str) -> Request:
+        """A hierarchical decomposition as a chain of async stages, ONE
+        aggregate request.  Each stage thunk launches its sub-collective
+        with ``run_async=True`` and returns its request, or None when
+        this rank takes no part in it (a non-leader in the cross-slice
+        stage), which goes straight on.  A stage's completion hands the
+        next to this handle's stage thread (:meth:`_hop`): the callback
+        runs on the gang's executing thread, which holds the
+        communicator's turn, so launching there could deadlock the group;
+        and a rank waiting at a later stage's rendezvous has posted, not
+        blocked.  Device order between stages
+        comes from the buffers' ``ready`` events (the engine waits on them
+        before every launch).  The aggregate holds every stage's event;
+        a failing stage fails it."""
+        outer = Request(op_name=op_name.upper())
+        outer.mark_executing()
+        t0 = time.perf_counter_ns()
+        inner: list = []
+        lock = threading.Lock()
+        state = {"i": 0, "done": False}
+
+        def _finish(code, ctx):
+            with lock:
+                if state["done"]:
+                    return
+                state["done"] = True
+            outer.complete(code, max(time.perf_counter_ns() - t0, 1),
+                           context=ctx,
+                           event=EventGroup([q.event for q in inner]))
+
+        def _advance():
+            while True:
+                with lock:
+                    if state["done"]:
+                        return
+                    idx = state["i"]
+                    state["i"] += 1
+                if idx >= len(stages):
+                    _finish(ErrorCode.OK, None)
+                    return
+                self._call_tls.hier = True
+                try:
+                    req = stages[idx]()
+                except ACCLError as e:
+                    _finish(e.code, dict(e.details) or None)
+                    return
+                except Exception as e:  # a stage fails the aggregate
+                    _finish(ErrorCode.INVALID_OPERATION, {
+                        "op": op_name, "hier_stage": idx,
+                        "error": f"{type(e).__name__}: {e}"[:300]})
+                    return
+                finally:
+                    self._call_tls.hier = False
+                if req is None:
+                    continue  # not a participant: the next stage
+                inner.append(req)
+
+                def _done(q=req):
+                    if q.get_retcode() != ErrorCode.OK:
+                        _finish(q.get_retcode(), q.error_context)
+                    elif not self._hop(_advance):
+                        _finish(ErrorCode.INVALID_OPERATION, {
+                            "op": op_name, "hier_stage": idx + 1,
+                            "error": "the handle was deinitialised"})
+
+                req.add_done_callback(_done)
+                return
+
+        def _resolve():
+            for q in inner:
+                q.materialize()
+
+        outer.defer_result(_resolve)
+        _advance()
+        return self._finish_aggregate(outer, run_async, context)
+
+    def _hop(self, fn) -> bool:
+        """Run ``fn`` on this handle's stage thread, started at the first
+        hop and stopped by :meth:`deinit`; False, with ``fn`` not run, once
+        the handle is deinitialised.  JAX starts a fresh thread a
+        hop; on an H100 80GB HBM3 host a fresh thread's start and first
+        CUDA call cost 0.65-0.85 ms, and a hierarchical allreduce on 2 x
+        4 took 28.1 ms p50 that way against 9.0 with one thread a handle
+        (PERF.md, Findings).  The thread runs one stage launch at a time and never waits
+        on another rank: a launch is a post, and the gang call it may
+        run completes its requests without blocking."""
+        with self._hop_lock:
+            if not self._initialized:
+                return False
+            if self._hop_q is None:
+                self._hop_q = queue.SimpleQueue()
+                threading.Thread(target=self._hop_loop, args=(self._hop_q,),
+                                 name=f"accl-hier-{self.rank}",
+                                 daemon=True).start()
+            self._hop_q.put(fn)
+        return True
+
+    @staticmethod
+    def _hop_loop(q: queue.SimpleQueue) -> None:
+        while True:
+            fn = q.get()
+            if fn is None:
+                return
+            fn()  # _advance completes its aggregate on any failure
+
+    def _scratch(self, dtype: DataType, count: int) -> DeviceBuffer:
+        """A stage's intermediate buffer on this rank's device: its device
+        side uninitialised (the stage that writes it covers every element
+        the next reads) and no host copy of its own."""
+        t = torch.empty(count, dtype=dtype_to_torch(dtype),
+                        device=self.engine.device)
+        return DeviceBuffer(count, dtype, t.device, tensor=t,
+                            host=t.new_zeros((), device="cpu").expand(count))
+
+    def _hier_allreduce(self, comm: Communicator, sendbuf: BaseBuffer,
+                        recvbuf: BaseBuffer, n: int,
+                        function: ReduceFunction,
+                        run_async: bool) -> Request:
+        """Hierarchical allreduce.  Rail mode (symmetric topology, n
+        divisible by the slice size S): intra-slice reduce-scatter ->
+        allreduce over this chunk's rail (n/S elements) -> intra-slice
+        allgather.  Leader mode (any other multi-slice shape): reduce to
+        the slice leader -> allreduce over the leaders -> intra-slice
+        bcast."""
+        topo = comm.topology
+        mode = _hier.allreduce_mode(topo, n)
+        st = self._hier_state(comm)
+        me = comm.local_rank
+        sl = topo.slice_of(me)
+        members = list(topo.slice_members(sl))
+        intra = self._hier_subcomm(comm, st, ("intra", sl), members)
+        if mode == "rail":
+            S = len(topo.slices[0])
+            li = topo.local_index(me)
+            rail = self._hier_subcomm(comm, st, ("rail", li), topo.rail(li))
+            chunk = n // S
+            scratch = self._scratch(sendbuf.dtype, chunk)
+            reduced = self._scratch(sendbuf.dtype, chunk)
+            stages = [
+                lambda: self.reduce_scatter(
+                    sendbuf, scratch, chunk, function=function, comm=intra,
+                    run_async=True),
+                lambda: self.allreduce(
+                    scratch, reduced, chunk, function=function, comm=rail,
+                    run_async=True),
+                lambda: self.allgather(
+                    reduced, recvbuf, chunk, comm=intra, run_async=True),
+            ]
+        else:
+            lead = topo.slice_leader(me)
+            lead_idx = members.index(lead)
+            scratch = self._scratch(sendbuf.dtype, n) if me == lead else None
+
+            def _s1():
+                return self.reduce(sendbuf, scratch, n, root=lead_idx,
+                                   function=function, comm=intra,
+                                   run_async=True)
+
+            def _s2():
+                if me != lead:
+                    return None
+                lcomm = self._hier_subcomm(comm, st, "leaders",
+                                           topo.leaders())
+                return self.allreduce(scratch, recvbuf, n, function=function,
+                                      comm=lcomm, run_async=True)
+
+            def _s3():
+                if intra.size == 1:
+                    return None
+                return self.bcast(recvbuf, n, root=lead_idx, comm=intra,
+                                  run_async=True)
+
+            stages = [_s1, _s2, _s3]
+        return self._launch_hier_stages("allreduce", stages, run_async,
+                                        "allreduce")
+
+    def _hier_allgather(self, comm: Communicator, sendbuf: BaseBuffer,
+                        recvbuf: BaseBuffer, n: int,
+                        run_async: bool) -> Request:
+        """Hierarchical allgather (symmetric contiguous topology):
+        intra-slice allgather -> rail allgather; contiguous slices make
+        the rail's slice-major placement the flat rank-major one."""
+        topo = comm.topology
+        st = self._hier_state(comm)
+        me = comm.local_rank
+        sl = topo.slice_of(me)
+        li = topo.local_index(me)
+        S = len(topo.slices[0])
+        intra = self._hier_subcomm(comm, st, ("intra", sl),
+                                   topo.slice_members(sl))
+        rail = self._hier_subcomm(comm, st, ("rail", li), topo.rail(li))
+        scratch = self._scratch(sendbuf.dtype, S * n)
+        stages = [
+            lambda: self.allgather(sendbuf, scratch, n, comm=intra,
+                                   run_async=True),
+            lambda: self.allgather(scratch, recvbuf, S * n, comm=rail,
+                                   run_async=True),
+        ]
+        return self._launch_hier_stages("allgather", stages, run_async,
+                                        "allgather")
+
+    def _hier_reduce_scatter(self, comm: Communicator, sendbuf: BaseBuffer,
+                             recvbuf: BaseBuffer, n: int,
+                             function: ReduceFunction,
+                             run_async: bool) -> Request:
+        """Hierarchical reduce-scatter (symmetric contiguous topology):
+        the W send blocks permuted
+        (:func:`~accl_tpu_torch.hierarchical.reduce_scatter_permutation`:
+        chunk s*S+i goes through intra block i and rail block s) by one
+        ``index_select`` on the operand's device -> intra-slice
+        reduce-scatter over L*n-element blocks -> rail reduce-scatter
+        over n-element blocks; every rank lands its own reduced chunk."""
+        topo = comm.topology
+        st = self._hier_state(comm)
+        me = comm.local_rank
+        sl = topo.slice_of(me)
+        li = topo.local_index(me)
+        L, S = topo.num_slices, len(topo.slices[0])
+        W = L * S
+        intra = self._hier_subcomm(comm, st, ("intra", sl),
+                                   topo.slice_members(sl))
+        rail = self._hier_subcomm(comm, st, ("rail", li), topo.rail(li))
+        if isinstance(sendbuf, DeviceBuffer):
+            sendbuf.resolve_pending()
+        src = sendbuf.tensor[:W * n]
+        dev = self.engine.device
+        _wait_operands(src.device, [sendbuf])
+        if src.device != dev:  # a host-only operand crosses first
+            src = src.to(dev)
+        idx = st.get("perm")
+        if idx is None:
+            idx = torch.tensor(_hier.reduce_scatter_permutation(topo),
+                               dtype=torch.int64).to(dev)
+            st["perm"] = idx
+        staged = self._scratch(sendbuf.dtype, W * n)
+        torch.index_select(src.view(W, n), 0, idx,
+                           out=staged.tensor.view(W, n))
+        staged.ready = _record_event(dev)
+        self.engine.gang.interactions.bump()  # the permutation's launch
+        scratch = self._scratch(sendbuf.dtype, L * n)
+        stages = [
+            lambda: self.reduce_scatter(staged, scratch, L * n,
+                                        function=function, comm=intra,
+                                        run_async=True),
+            lambda: self.reduce_scatter(scratch, recvbuf, n,
+                                        function=function, comm=rail,
+                                        run_async=True),
+        ]
+        return self._launch_hier_stages("reduce_scatter", stages, run_async,
+                                        "reduce_scatter")
+
+    def _hier_bcast(self, comm: Communicator, buf: BaseBuffer, n: int,
+                    root: int, run_async: bool) -> Request:
+        """Hierarchical bcast (any multi-slice topology): bcast over one
+        representative a slice (the root in its own, the leader
+        elsewhere), then within each slice from its representative."""
+        topo = comm.topology
+        st = self._hier_state(comm)
+        me = comm.local_rank
+        sl = topo.slice_of(me)
+        members = list(topo.slice_members(sl))
+        reps = _hier.bcast_representatives(topo, root)
+        my_rep = int(root) if sl == topo.slice_of(root) else members[0]
+        rep_idx = members.index(my_rep)
+        intra = self._hier_subcomm(comm, st, ("intra", sl), members)
+
+        def _s1():
+            if me not in reps:
+                return None
+            cross = self._hier_subcomm(comm, st, ("bcast", root), reps)
+            return self.bcast(buf, n, root=reps.index(int(root)), comm=cross,
+                              run_async=True)
+
+        def _s2():
+            if intra.size == 1:
+                return None
+            return self.bcast(buf, n, root=rep_idx, comm=intra,
+                              run_async=True)
+
+        return self._launch_hier_stages("bcast", [_s1, _s2], run_async,
+                                        "bcast")
 
     # -- primitives ----------------------------------------------------------
     def copy(self, srcbuf: BaseBuffer, dstbuf: BaseBuffer,
@@ -580,9 +1251,22 @@ class ACCL:
         comm = comm or self._world
         self._check_rank(comm, root)
         n = self._count_of(buf, count)
+        host = self._host_flags(buf, None, buf)
+        plan = self._plan_for(Operation.BCAST, comm, buf.dtype, n,
+                              compress_dtype, host, (root,))
+        if self._hier_eligible_call(plan, comm, compress_dtype, "bcast", n):
+            return self._hier_bcast(comm, buf, n, root, run_async)
+        nseg = self._pipeline_segments_for(plan, n, buf.dtype)
+        if nseg > 1:
+            return self._launch_pipelined(
+                "bcast", n, nseg, run_async,
+                lambda s0, s1: self.bcast(
+                    buf.slice(s0, s1), s1 - s0, root=root, comm=comm,
+                    compress_dtype=compress_dtype, run_async=True),
+                "bcast")
         return self._planned(Operation.BCAST, comm, n, buf.dtype,
                              compress_dtype, run_async, "bcast", (root,),
-                             root_src=root, op0=buf, res=buf)
+                             plan=plan, root_src=root, op0=buf, res=buf)
 
     def scatter(self, sendbuf: Optional[BaseBuffer], recvbuf: BaseBuffer,
                 count: Optional[int] = None, root: int = 0,
@@ -622,9 +1306,15 @@ class ACCL:
                   run_async: bool = False):
         comm = comm or self._world
         n = self._count_of(sendbuf, count)
+        host = self._host_flags(sendbuf, None, recvbuf)
+        plan = self._plan_for(Operation.ALLGATHER, comm, sendbuf.dtype, n,
+                              compress_dtype, host)
+        if self._hier_eligible_call(plan, comm, compress_dtype, "allgather",
+                                    n):
+            return self._hier_allgather(comm, sendbuf, recvbuf, n, run_async)
         return self._planned(Operation.ALLGATHER, comm, n, sendbuf.dtype,
                              compress_dtype, run_async, "allgather",
-                             op0=sendbuf, res=recvbuf)
+                             plan=plan, op0=sendbuf, res=recvbuf)
 
     def reduce(self, sendbuf: Optional[BaseBuffer],
                recvbuf: Optional[BaseBuffer], count: Optional[int] = None,
@@ -685,13 +1375,30 @@ class ACCL:
                   run_async: bool = False):
         """Every rank gets ``function`` over all ranks' ``sendbuf``.  The
         lowering follows the ``allreduce_algorithm`` register; with no
-        ``compress_dtype`` the ``wire_dtype`` register picks the wire."""
+        ``compress_dtype`` the ``wire_dtype`` registers pick the wire.  On
+        a multi-slice topology with ``hierarchical`` set the call runs as
+        stages; above ``pipeline_threshold`` bytes as segments."""
         comm = comm or self._world
         n = self._count_of(sendbuf, count)
         host = self._host_flags(sendbuf, None, recvbuf)
         # the plan carries the wire_dtype register's verdict
         plan = self._plan_for(Operation.ALLREDUCE, comm, sendbuf.dtype, n,
                               compress_dtype, host, (int(function),))
+        # the hierarchical check first, then the split: the stages are
+        # plain calls on the derived subcomms and may split there
+        if self._hier_eligible_call(plan, comm, compress_dtype, "allreduce",
+                                    n):
+            return self._hier_allreduce(comm, sendbuf, recvbuf, n, function,
+                                        run_async)
+        nseg = self._pipeline_segments_for(plan, n, sendbuf.dtype)
+        if nseg > 1:
+            return self._launch_pipelined(
+                "allreduce", n, nseg, run_async,
+                lambda s0, s1: self.allreduce(
+                    sendbuf.slice(s0, s1), recvbuf.slice(s0, s1), s1 - s0,
+                    function=function, comm=comm,
+                    compress_dtype=compress_dtype, run_async=True),
+                "allreduce")
         wire = plan.wire_dtype
         seed = self._derive_wire_seed(comm, Operation.ALLREDUCE, wire)
         staged = self._error_feedback_operand(comm, sendbuf, n, function,
@@ -701,7 +1408,7 @@ class ACCL:
             reduce_function=function, arithcfg=plan.arithcfg,
             compression=plan.compression, host=host,
             op0=sendbuf if staged is None else staged, res=recvbuf,
-            plan=plan, wire_seed=seed)
+            plan=plan, tuning=plan.tuning, wire_seed=seed)
         return self._launch(opts, run_async, "allreduce")
 
     def reduce_scatter(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
@@ -713,11 +1420,18 @@ class ACCL:
         size * count)."""
         comm = comm or self._world
         n = self._count_of(recvbuf, count)
+        host = self._host_flags(sendbuf, None, recvbuf)
+        plan = self._plan_for(Operation.REDUCE_SCATTER, comm, recvbuf.dtype,
+                              n, compress_dtype, host, (int(function),))
+        if self._hier_eligible_call(plan, comm, compress_dtype,
+                                    "reduce_scatter", n):
+            return self._hier_reduce_scatter(comm, sendbuf, recvbuf, n,
+                                             function, run_async)
         return self._planned(Operation.REDUCE_SCATTER, comm, n,
                              recvbuf.dtype, compress_dtype, run_async,
                              "reduce_scatter", (int(function),), seeded=True,
-                             reduce_function=function, op0=sendbuf,
-                             res=recvbuf)
+                             plan=plan, reduce_function=function,
+                             op0=sendbuf, res=recvbuf)
 
     def alltoall(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer,
                  count: Optional[int] = None,
@@ -930,13 +1644,18 @@ class ACCL:
     def deinit(self) -> None:
         if self._initialized:
             self.engine.shutdown()
-            self._initialized = False
+            with self._hop_lock:
+                self._initialized = False  # a later hop fails its aggregate
+                if self._hop_q is not None:
+                    self._hop_q.put(None)  # stops the stage thread
+                    self._hop_q = None
 
 
 def cuda_group(n: int, device=None, **accl_kwargs) -> List[ACCL]:
     """N rank handles whose buffers share one device — on the card unless
     ``device`` asks for another (tests pass ``device="cpu"``); raises when
-    there is no CUDA device to run on."""
+    there is no CUDA device to run on.  ``accl_kwargs`` go to every
+    handle (``topology=``, ``timeout_s=``, ``max_eager_size=``, ...)."""
     dev = resolve_device(device)
     gang = CudaGangContext(dev)
     ranks = [Rank(address=f"{dev}:{i}", session=i) for i in range(n)]

@@ -31,9 +31,6 @@ from .constants import (
 from .ops.driver import resolve_device
 from .wire import is_wire_dtype
 
-#: the JAX gang's register defaults, which this port also starts from
-_JAX_DEFAULTS = {"allreduce_algorithm": "xla", "ring_segments": 1}
-
 _ROOTED_REGISTERS = tuple(k.name.lower() for k in ALGORITHM_TUNING_KEYS
                           if k != TuningKey.ALLREDUCE_ALGORITHM)
 
@@ -74,13 +71,9 @@ def shards_to_numpy(shards, axis: int = 2) -> np.ndarray:
 
 
 def tuning_from_jax(tuning: dict) -> dict:
-    """This port's register dict for a JAX gang register dict.
-
-    Registers the port serves (``allreduce_algorithm``, the four rooted
-    algorithm registers, ``ring_segments``, ``wire_dtype``, the command
-    ring's ``cmdring_run_windows`` / ``cmdring_linger_us``) carry across
-    by name; any other register must still hold its default, or this
-    raises — the port cannot honour it."""
+    """This port's register dict for a JAX gang register dict: every
+    register of JAX's table carries across by name, checked as the
+    port's engine checks a write; a name the table lacks raises."""
     out = dict(TUNING_DEFAULTS)
     for name, value in tuning.items():
         if name == "allreduce_algorithm":
@@ -97,16 +90,15 @@ def tuning_from_jax(tuning: dict) -> dict:
             if int(value) < 1:
                 raise ValueError(f"ring_segments {value} < 1")
             out[name] = int(value)
-        elif name == "wire_dtype":
+        elif name in ("wire_dtype", "wire_dtype_ici", "wire_dtype_dcn"):
             if int(value) and not is_wire_dtype(int(value)):
                 raise ValueError(
                     f"{DataType(int(value)).name} is not a wire lane"
                 )
             out[name] = int(value)
-        elif name in ("cmdring_run_windows", "cmdring_linger_us"):
-            if int(value):  # 0 is the env default, which needs no write
-                out[name] = int(value)
-        elif value not in (0, _JAX_DEFAULTS.get(name), "xla"):
+        elif name in TUNING_DEFAULTS:
+            out[name] = int(value)
+        else:
             raise ValueError(f"register {name}={value!r} is not ported")
     return out
 

@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Mapping, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -97,11 +97,11 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
-def build_all() -> List[str]:
-    """Build every source not yet built, all ``nvcc`` runs in parallel;
-    returns the names built."""
+def build_all(names: Optional[Sequence[str]] = None) -> List[str]:
+    """Build every source not yet built (or those of ``names``), all
+    ``nvcc`` runs in parallel; returns the names built."""
     with _lock:
-        jobs = {name: _start(name) for name in sources()}
+        jobs = {name: _start(name) for name in (names or sources())}
         jobs = {k: v for k, v in jobs.items() if v is not None}
         errors = []
         for name, job in jobs.items():

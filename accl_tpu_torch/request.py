@@ -7,6 +7,10 @@ event alone, so waiting on one call never synchronises the whole device.
 An engine may also park the call's result placement on the request
 (:meth:`Request.defer_result`: a received payload's copy into the
 receiver's buffer); ``wait()`` / ``test()`` / ``check()`` run it first.
+:meth:`Request.add_done_callback` runs a function once the request
+completes (at once if it already has); the facade chains a hierarchical
+call's stages and completes a pipelined call's aggregate on it.  An
+aggregate's ``event`` is an :class:`EventGroup` of its stages' events.
 
 :class:`CommandQueue` holds the facade's open batch: calls queue there
 between ``begin_batch()`` and ``flush()``, and ``drain()`` hands the run
@@ -18,9 +22,29 @@ from __future__ import annotations
 import enum
 import itertools
 import threading
-from typing import Optional
+from typing import Callable, Optional
 
 from .constants import ACCLError, ErrorCode
+
+
+class EventGroup:
+    """The events of several launches, read as one: ``synchronize()``
+    waits for every one, ``query()`` is True once all have passed.  An
+    aggregate request (a hierarchical or pipelined call) holds its
+    stages' events this way, so its ``wait()`` returns only after the
+    last stage's device work."""
+
+    __slots__ = ("events",)
+
+    def __init__(self, events):
+        self.events = [e for e in events if e is not None]
+
+    def synchronize(self) -> None:
+        for e in self.events:
+            e.synchronize()
+
+    def query(self) -> bool:
+        return all(e.query() for e in self.events)
 
 
 class RequestStatus(enum.IntEnum):
@@ -58,6 +82,8 @@ class Request:
         #: called once by the first wait that returns: a command-ring
         #: window is drained there
         self._drain_hook = None
+        #: functions run once at completion (:meth:`add_done_callback`)
+        self._callbacks: list = []
 
     # -- engine side --------------------------------------------------------
     def mark_executing(self) -> None:
@@ -75,7 +101,21 @@ class Request:
         self._duration_ns = int(duration_ns)
         self.event = event
         self._status = RequestStatus.COMPLETED
-        self._done.set()
+        with self._cb_lock:
+            self._done.set()
+            callbacks, self._callbacks = self._callbacks, []
+        for cb in callbacks:
+            cb()
+
+    def add_done_callback(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` once the request completes: at once (on this
+        thread) if it already has, else on the completing thread.  Each
+        callback runs exactly once."""
+        with self._cb_lock:
+            if not self._done.is_set():
+                self._callbacks.append(fn)
+                return
+        fn()
 
     def defer_result(self, resolver, handle=None) -> None:
         """Engine side: park the result placement (the device copy that

@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-path   # phase 4's launch path alone
     python3 chip_smoke.py --dispatch      # phase 3i and facade_dispatch
+    python3 chip_smoke.py --cp            # phase 3j, rows 16-18 at T = 4096
+    python3 chip_smoke.py --topology      # phase 3k and facade_topology
 
 Phases (any failure exits non-zero):
 
@@ -210,6 +212,17 @@ Phases (any failure exits non-zero):
       ``BF16_LOSS_RTOL`` and ``BF16_GRAD_RTOL``), and one cp step against
       one dense step in float32 with 2 layers (loss within 1e-5, updated
       weights within rtol 2e-4, atol 2e-5, JAX's cp test's bounds);
+   k. the topology path (``topology_main_path``; ``--topology`` runs it
+      and ``facade_topology`` alone): the four hierarchical collectives
+      on ``cuda_group(8)`` at bench.py's 2 x 4 and ``cuda_group(4)`` at
+      2 x 2, flat and hierarchical, the ragged leader layout and a count
+      the slice does not divide, on integer-valued float32 at 64 MiB a
+      rank (exact against numpy, hierarchical equal to flat bit for bit,
+      each step launching exactly what its stages imply: K1, rows 9 and
+      10); segmented pipelining (4 launches, 4 device interactions, equal
+      to the unsplit call; async aggregates drained by ``flush()``); the
+      eager register; ``autotune`` on the 4-rank group at 2 x 2 and its
+      plan loaded (each bucket launches its winner's lowering);
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (K3's
    allgather and root-only gather, K4, row 11 and row 13 also by device
@@ -286,7 +299,11 @@ Phases (any failure exits non-zero):
    ``facade_dispatch`` (after ``facade_batch``): the warm
    ``pallas_ring`` allreduce at 256 KiB and 4 MiB on the world and on a
    2-rank sub-communicator (p50, p90, launch p50, interactions a call,
-   the plan hit rate) and 8 x 16 MiB fused against one by one.
+   the plan hit rate) and 8 x 16 MiB fused against one by one; and
+   ``facade_topology``: flat against hierarchical p50 / p90 of the four
+   collectives on the 2 x 4 group at 4 and 64 MiB a rank, the pipelined
+   against the unsplit allreduce on 4 ranks at 64 MiB, and the
+   autotuner's wall time and winners.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -5281,6 +5298,500 @@ def seq_parallel_latency(dev, iters: int = 20, warmup: int = 2) -> dict:
             "tokens": SP_B * SP_T, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 3k: the topology path (hierarchical collectives, segmented
+# pipelining, the eager register, the autotuner)
+# ---------------------------------------------------------------------------
+
+#: bench.py's _bench_topology layout: world 8 in 2 slices of 4
+TOPO_WORLD, TOPO_SLICE = 8, 4
+#: the ragged layout of leader mode
+TOPO_RAGGED = ((0, 1, 2), (3, 4, 5, 6, 7))
+#: the autotuner's race on the 4-rank group (bounded to stay under 60 s)
+TUNE_SIZES = (1 << 16, 1 << 22)
+TUNE_THRESHOLD = 1 << 20
+#: segmented pipelining's threshold: 64 MiB a rank splits into 4
+PIPE_THRESHOLD = 16 * 1024 * 1024
+
+
+def topo_registers(group, **extra) -> None:
+    """Every algorithm register at ``pallas_ring`` (K1, rows 9-11, K3's
+    root-only gather), plus ``extra``, on every rank."""
+    for a in group:
+        for key in ("allreduce_algorithm",) + ROOTED_REGISTERS:
+            a.set_tuning(key, "pallas_ring")
+        for key, value in extra.items():
+            a.set_tuning(key, value)
+
+
+def hier_want(op: str, topo, n: int, hier: bool) -> dict:
+    """The kernels one call launches under ``pallas_ring``: flat, K1 or
+    row 9 once (the data-movement ops run their plain lowerings, as
+    JAX's are XLA's); decomposed, what its stages imply."""
+    from accl_tpu_torch import hierarchical as rules
+
+    if not hier or not rules.eligible(op, topo, n):
+        return ({"ring_allreduce": 1} if op == "allreduce"
+                else {"ring_bcast": 1} if op == "bcast" else {})
+    multi = sum(1 for s in topo.slices if len(s) > 1)
+    if op == "allreduce":
+        if rules.allreduce_mode(topo, n) == "rail":
+            # intra reduce-scatters (plain), K1 over each rail, intra
+            # allgathers (plain)
+            return {"ring_allreduce": len(topo.slices[0])}
+        # row 10 into each slice's leader, K1 over the leaders, row 9
+        return {"ring_reduce": multi, "ring_allreduce": 1,
+                "ring_bcast": multi}
+    if op == "bcast":  # over the representatives, then in each slice
+        return {"ring_bcast": 1 + multi}
+    return {}
+
+
+def hier_case(kc, group, op: str, fn, root: int, data, n: int,
+              totals: dict) -> dict:
+    """One of the four HIER_OPS, flat then hierarchical, on integer-valued
+    float32: both results held against numpy exactly and against each
+    other bit for bit, each run's launches counted alone against
+    ``hier_want``.  Returns the two runs' launches."""
+    import numpy as np
+    import torch
+
+    world = len(group)
+    topo = group[0].topology
+    seg = n // world
+    dev = group[0].engine.device
+    if op == "allreduce":
+        red = data[:, :n].sum(0) if fn.name == "SUM" else data[:, :n].max(0)
+        want = [red] * world
+    elif op == "allgather":
+        want = [data[:, :seg].reshape(-1)] * world
+    elif op == "reduce_scatter":
+        full = (data[:, :seg * world].sum(0) if fn.name == "SUM"
+                else data[:, :seg * world].max(0))
+        want = [full[r * seg:(r + 1) * seg] for r in range(world)]
+    else:
+        want = [data[root, :n]] * world
+    want_t = {}
+    for r in range(world):
+        key = id(want[r])
+        if key not in want_t:
+            want_t[key] = torch.from_numpy(
+                np.ascontiguousarray(want[r])).to(dev)
+    outs, launches = {}, {}
+    count = seg if op in ("allgather", "reduce_scatter") else n
+    for hier in (0, 1):
+        for a in group:
+            a.set_tuning("hierarchical", hier)
+        results = {}
+
+        def rank_main(a, r):
+            if op == "allreduce":
+                s = a.create_buffer_from(data[r, :n])
+                d = a.create_buffer(n, np.float32)
+                a.allreduce(s, d, n, function=fn)
+            elif op == "allgather":
+                s = a.create_buffer_from(data[r, :seg])
+                d = a.create_buffer(seg * world, np.float32)
+                a.allgather(s, d, seg)
+            elif op == "reduce_scatter":
+                s = a.create_buffer_from(data[r, :seg * world])
+                d = a.create_buffer(seg, np.float32)
+                a.reduce_scatter(s, d, seg, function=fn)
+            else:
+                d = a.create_buffer_from(data[r, :n])
+                a.bcast(d, n, root=root)
+            results[r] = d
+
+        torch.cuda.synchronize()
+        reset_launches(kc)
+        run_ranks(group, rank_main, f"3k {op} hierarchical={hier}")
+        torch.cuda.synchronize()
+        got = {k: v for k, v in read_launches(kc).items() if v}
+        want_l = hier_want(op, topo, count, bool(hier))
+        what = (f"3k {topo.signature()} {op} {fn.name} root {root} n {n} "
+                f"hierarchical={hier}")
+        if got != want_l:
+            fail(f"{what}: launches {got}, want {want_l}")
+        for k, v in got.items():
+            totals[k] += v
+        launches[hier] = got
+        outs[hier] = [results[r].device_array() for r in range(world)]
+        for r in range(world):
+            if not torch.equal(outs[hier][r], want_t[id(want[r])]):
+                fail(f"{what} rank {r} differs from numpy")
+    for r in range(world):
+        if not torch.equal(outs[0][r], outs[1][r]):
+            fail(f"3k {op} rank {r}: hierarchical differs from flat")
+    for a in group:
+        a.set_tuning("hierarchical", 0)
+    return launches
+
+
+def tuned_want(op: str, regs: dict, n: int) -> dict:
+    """The kernels a call under a loaded plan's winner launches (every
+    register else at its default, so ``xla``): K1 or row 9 once under a
+    ``pallas_ring*`` winner; a pipelined, hierarchical or plain winner
+    launches none."""
+    algo = regs.get(f"{op}_algorithm", "xla")
+    if algo.startswith("pallas_ring"):
+        return {"ring_allreduce" if op == "allreduce" else "ring_bcast": 1}
+    return {}
+
+
+def topology_main_path(kc) -> dict:
+    """Phase 3k: the topology path, each step's launches counted alone.
+
+    * ``cuda_group(8)`` at bench.py's 2 x 4 (``Topology.from_slice_size(8,
+      4)``) and ``cuda_group(4)`` at 2 x 2, every algorithm register at
+      ``pallas_ring``: the four HIER_OPS, flat and with ``hierarchical``
+      = 1, on integer-valued float32 from the seed, 16M elements (64 MiB)
+      a rank (allgather's result and reduce_scatter's operand hold the 64
+      MiB) — allreduce and reduce_scatter under SUM and MAX, bcast at
+      roots 0 and W - 3 — each held exactly against numpy and
+      hierarchical against flat bit for bit; flat launches K1 (or row 9)
+      once, rail mode K1 once a rail, a hierarchical bcast row 9 once
+      over the representatives and once a slice;
+    * the ragged ``((0, 1, 2), (3, 4, 5, 6, 7))`` (``set_topology``):
+      leader mode, row 10 once a slice, K1 once, row 9 once a slice; and
+      16M + 1 elements on 2 x 4 (the slice does not divide it): leader
+      mode too;
+    * segmented pipelining on ``cuda_group(4)``: ``ring_segments`` 4,
+      ``pipeline_threshold`` 16 MiB, the allreduce and the bcast at 64
+      MiB equal to the unsplit call, 4 launches of K1 (row 9) and 4
+      device interactions; async aggregates drained by ``flush()``;
+    * the eager register: each write re-plans once and the plan's
+      ``eager`` verdict flips at the written size;
+    * ``autotune`` on ``cuda_group(4)`` at 2 x 2 (allreduce and bcast at
+      2^16 and 2^22 elements, ``runs`` 3, ``include_pallas``, segments
+      (1, 4), a 1 MiB pipeline threshold, hierarchical raced), its plan
+      loaded: every candidate of the tier scored, each bucket's call
+      launches its winner's lowering and gives the exact sum; then
+      unloaded.
+
+    Returns ``{"launches", "tune", "steps"}``; ``launches`` leaves out
+    the tuned calls', which follow the race's winners (``steps`` holds
+    them)."""
+    import numpy as np
+    import torch
+
+    import accl_tpu_torch as at
+    from accl_tpu_torch import tuning
+    from accl_tpu_torch.constants import DataType, Operation
+    from accl_tpu_torch.plans import size_bucket
+    from accl_tpu_torch.topology import Topology
+
+    SUM, MAX = at.ReduceFunction.SUM, at.ReduceFunction.MAX
+    totals = {k: 0 for k in kc.KERNELS}
+    rng = np.random.default_rng(SEED + 18)
+    data = rng.integers(-64, 64, (TOPO_WORLD, N_RANK + 1),
+                        dtype=np.int8).astype(np.float32)
+    cases = [("allreduce", SUM, 0), ("allreduce", MAX, 0),
+             ("allgather", SUM, 0), ("reduce_scatter", SUM, 0),
+             ("reduce_scatter", MAX, 0), ("bcast", SUM, 0),
+             ("bcast", SUM, -3)]
+    steps = {}
+    g8 = at.cuda_group(TOPO_WORLD, topology=Topology.from_slice_size(
+        TOPO_WORLD, TOPO_SLICE))
+    try:
+        topo_registers(g8)
+        for op, fn, root in cases:
+            steps[f"2x4 {op} {fn.name} {root % TOPO_WORLD}"] = hier_case(
+                kc, g8, op, fn, root % TOPO_WORLD, data, N_RANK, totals)
+        steps["2x4 allreduce n+1 (leader)"] = hier_case(
+            kc, g8, "allreduce", SUM, 0, data, N_RANK + 1, totals)
+        for a in g8:
+            a.set_topology(Topology(TOPO_RAGGED))
+        for op, fn, root in (("allreduce", SUM, 0), ("allreduce", MAX, 0),
+                             ("bcast", SUM, 0), ("bcast", SUM, 5)):
+            steps[f"ragged {op} {fn.name} {root}"] = hier_case(
+                kc, g8, op, fn, root, data, N_RANK, totals)
+    finally:
+        for a in g8:
+            a.deinit()
+    torch.cuda.empty_cache()
+
+    g4 = at.cuda_group(P_MAIN, topology=Topology.from_slice_size(P_MAIN, 2))
+    d4 = data[:P_MAIN]
+    tune = {}
+    try:
+        topo_registers(g4)
+        for op, fn, root in cases:
+            steps[f"2x2 {op} {fn.name} {root % P_MAIN}"] = hier_case(
+                kc, g4, op, fn, root % P_MAIN, d4, N_RANK, totals)
+        gang = g4[0].engine.gang
+
+        # -- segmented pipelining ------------------------------------------
+        def pipelined(op, threshold):
+            for a in g4:
+                a.set_tuning("ring_segments", 4)
+                a.set_tuning("pipeline_threshold", threshold)
+            res = {}
+
+            def rank_main(a, r):
+                if op == "allreduce":
+                    s = a.create_buffer_from(d4[r, :N_RANK])
+                    res[r] = a.create_buffer(N_RANK, np.float32)
+                    torch.cuda.synchronize()
+                    a.allreduce(s, res[r], N_RANK)
+                else:
+                    res[r] = a.create_buffer_from(d4[r, :N_RANK])
+                    torch.cuda.synchronize()
+                    a.bcast(res[r], N_RANK, root=2)
+
+            torch.cuda.synchronize()
+            reset_launches(kc)
+            ic0 = gang.interactions.read()
+            run_ranks(g4, rank_main, f"3k pipelined {op}")
+            torch.cuda.synchronize()
+            got = {k: v for k, v in read_launches(kc).items() if v}
+            for k, v in got.items():
+                totals[k] += v
+            return ([res[r].device_array() for r in range(P_MAIN)], got,
+                    gang.interactions.read() - ic0)
+
+        for op, kern in (("allreduce", "ring_allreduce"),
+                         ("bcast", "ring_bcast")):
+            whole, got1, ic1 = pipelined(op, 0)
+            split, got4, ic4 = pipelined(op, PIPE_THRESHOLD)
+            if got1 != {kern: 1} or got4 != {kern: 4} or ic4 != 4:
+                fail(f"3k pipelined {op}: unsplit {got1}, split {got4} with "
+                     f"{ic4} interactions, want 1 and 4 {kern}, 4")
+            for r in range(P_MAIN):
+                if not torch.equal(whole[r], split[r]):
+                    fail(f"3k pipelined {op} rank {r} differs from unsplit")
+            steps[f"pipelined {op}"] = {"unsplit": got1, "split": got4,
+                                        "interactions": ic4}
+        # an async aggregate drains at flush()
+        sends = [a.create_buffer_from(d4[r, :N_RANK])
+                 for r, a in enumerate(g4)]
+        recvs = [a.create_buffer(N_RANK, np.float32) for a in g4]
+        reqs = [None] * P_MAIN
+
+        def post(a, r):
+            reqs[r] = a.allreduce(sends[r], recvs[r], run_async=True)
+
+        reset_launches(kc)
+        run_ranks(g4, post, "3k async pipelined allreduce")
+        for a in g4:
+            a.flush()
+        if not all(q.done() for q in reqs) or any(a._aggregates for a in g4):
+            fail("3k: flush() left a pipelined aggregate undrained")
+        for q in reqs:
+            q.check("async pipelined allreduce")
+        for r in range(P_MAIN):
+            if not torch.equal(recvs[r].device_array(),
+                               whole_ar(d4, recvs[r].tensor.device)):
+                fail(f"3k async pipelined allreduce rank {r} off numpy")
+        got = read_launches(kc)
+        if got["ring_allreduce"] != 4:
+            fail(f"3k async pipelined allreduce launched {got}")
+        totals["ring_allreduce"] += 4
+        for a in g4:
+            a.set_tuning("pipeline_threshold", 0)
+            a.set_tuning("ring_segments", 1)
+
+        # -- the eager register --------------------------------------------
+        a0 = g4[0]
+        n_e = 1 << 20  # bucket 20: 4 MiB to 8 MiB - 4 of float32
+        lo, hi = 4 * n_e, 4 * (2 * n_e - 1)
+        verdicts = []
+        for limit, want in ((hi, True), (lo, None), (lo - 1, False)):
+            pc0 = a0.capabilities()["plan_cache"]
+            for a in g4:
+                a.set_max_eager_size(limit)
+            plan = a0._plan_for(Operation.ALLREDUCE, a0.comm,
+                                DataType.FLOAT32, n_e, None, 0, (0,))
+            pc1 = a0.capabilities()["plan_cache"]
+            if (plan.eager is not want
+                    or pc1["invalidations"] != pc0["invalidations"] + 1
+                    or pc1["misses"] != pc0["misses"] + 1):
+                fail(f"3k eager limit {limit}: verdict {plan.eager} (want "
+                     f"{want}), plan pool {pc0} -> {pc1}")
+            verdicts.append([limit, plan.eager])
+        for a in g4:
+            a.set_max_eager_size(tuning.REGISTER_DEFAULTS["max_eager_size"])
+        steps["eager verdicts"] = verdicts
+
+        # -- the autotuner, and its plan loaded ---------------------------
+        for a in g4:
+            a.set_tuning("hierarchical", 0)
+        t0 = time.time()
+        plan = tuning.autotune(
+            g4, collectives=["allreduce", "bcast"], sizes=list(TUNE_SIZES),
+            runs=3, include_pallas=True, segments=(1, 4),
+            pipeline_thresholds=(TUNE_THRESHOLD,))
+        tune["wall_s"] = time.time() - t0
+        if tune["wall_s"] > 60:
+            fail(f"3k autotune took {tune['wall_s']:.1f} s (limit 60)")
+        # every candidate of the card's tier was raced and scored: none
+        # dropped out of the race (a failing one raises in autotune)
+        tier = tuning.detect_tier(g4)
+        for op in ("allreduce", "bcast"):
+            labels = sorted(tuning._cand_label(regs) for regs in
+                            tuning._candidates(
+                                tier, op, P_MAIN, True, (), (1, 4),
+                                (TUNE_THRESHOLD,), race_hierarchical=True))
+            for n in TUNE_SIZES:
+                scored = sorted(plan.entries.get(op, {}).get(
+                    size_bucket(n), {}).get("candidates", {}))
+                if scored != labels:
+                    fail(f"3k autotune {op} n={n} scored {scored}, "
+                         f"want {labels}")
+        print(json.dumps({"tuning_plan": json.loads(plan.to_json())}),
+              flush=True)
+        tune["winners"] = {
+            f"{op} 2^{b}": e["registers"] or "defaults"
+            for op, per in plan.entries.items() for b, e in per.items()}
+        for a in g4:
+            a.load_tuning_plan(plan)
+        for op, per in plan.entries.items():
+            for b, e in per.items():
+                n = int(e["size"])
+                regs = e["registers"]
+                res = {}
+
+                def rank_main(a, r, op=op, n=n):
+                    if op == "allreduce":
+                        s = a.create_buffer_from(d4[r, :n])
+                        res[r] = a.create_buffer(n, np.float32)
+                        torch.cuda.synchronize()
+                        a.allreduce(s, res[r], n)
+                    else:
+                        res[r] = a.create_buffer_from(d4[r, :n])
+                        torch.cuda.synchronize()
+                        a.bcast(res[r], n, root=0)
+
+                torch.cuda.synchronize()
+                reset_launches(kc)
+                run_ranks(g4, rank_main, f"3k tuned {op} 2^{b}")
+                torch.cuda.synchronize()
+                got = {k: v for k, v in read_launches(kc).items() if v}
+                want = tuned_want(op, regs, n)
+                if got != want:
+                    fail(f"3k tuned {op} 2^{b} ({regs}): launches {got}, "
+                         f"want {want}")
+                # kept out of ``totals``: they follow the race's winners
+                p = a0._plan_for(Operation[op.upper()], a0.comm,
+                                 DataType.FLOAT32, n, None, 0, (0,))
+                if (p.tuning or {}) != regs:
+                    fail(f"3k tuned {op} 2^{b}: plan overlay {p.tuning}, "
+                         f"want {regs}")
+                ref = (data[:P_MAIN, :n].sum(0) if op == "allreduce"
+                       else data[0, :n])
+                ref_t = torch.from_numpy(np.ascontiguousarray(ref)).to(
+                    res[0].tensor.device)
+                for r in range(P_MAIN):
+                    if not torch.equal(res[r].device_array(), ref_t):
+                        fail(f"3k tuned {op} 2^{b} rank {r} off numpy")
+                steps[f"tuned {op} 2^{b}"] = got
+        for a in g4:
+            a.unload_tuning_plan()
+        if gang.tuning != dict(at.constants.TUNING_DEFAULTS):
+            fail(f"3k: unload_tuning_plan left {gang.tuning}")
+    finally:
+        for a in g4:
+            a.deinit()
+    torch.cuda.empty_cache()
+    return {"launches": totals, "tune": tune, "steps": steps}
+
+
+def whole_ar(d4, device):
+    """The exact allreduce of ``d4``'s rows at N_RANK, on ``device``."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(
+        d4[:, :N_RANK].sum(0))).to(device)
+
+
+def topology_latency(iters: int = 15) -> dict:
+    """``facade_topology``: host-clock p50 / p90 of one synchronous call on
+    rank 0's thread (as ``facade_latency``), every algorithm register at
+    ``pallas_ring``: the flat and the hierarchical allreduce, allgather,
+    reduce_scatter and bcast on the 2 x 4 group at 4 and 64 MiB a rank
+    (allgather's result, reduce_scatter's operand), and on the 4-rank
+    group the pipelined allreduce (4 segments, 16 MiB threshold) against
+    the unsplit one at 64 MiB."""
+    import numpy as np
+
+    import accl_tpu_torch as at
+    from accl_tpu_torch.topology import Topology
+
+    rows = []
+    sizes = (1024 * 1024, N_RANK)
+
+    def timed(group, label, call, setup):
+        samples = {}
+
+        def rank_main(a, r):
+            bufs = setup(a, r)
+            for i in range(2 + iters):
+                t = time.perf_counter()
+                call(a, bufs)
+                if i >= 2 and r == 0:
+                    samples.setdefault("t", []).append(
+                        time.perf_counter() - t)
+
+        run_ranks(group, rank_main, f"facade_topology {label}")
+        ts = samples["t"]
+        return {"p50_ms": float(np.median(ts)) * 1e3,
+                "p90_ms": float(np.percentile(ts, 90)) * 1e3}
+
+    W = TOPO_WORLD
+    g8 = at.cuda_group(W, topology=Topology.from_slice_size(W, TOPO_SLICE))
+    try:
+        topo_registers(g8)
+        for n in sizes:
+            seg = n // W
+            ops = {
+                "allreduce": (lambda a, r, n=n: (
+                    a.create_buffer(n, np.float32),
+                    a.create_buffer(n, np.float32)),
+                    lambda a, b, n=n: a.allreduce(b[0], b[1], n)),
+                "allgather": (lambda a, r, seg=seg: (
+                    a.create_buffer(seg, np.float32),
+                    a.create_buffer(seg * W, np.float32)),
+                    lambda a, b, seg=seg: a.allgather(b[0], b[1], seg)),
+                "reduce_scatter": (lambda a, r, seg=seg: (
+                    a.create_buffer(seg * W, np.float32),
+                    a.create_buffer(seg, np.float32)),
+                    lambda a, b, seg=seg: a.reduce_scatter(b[0], b[1], seg)),
+                "bcast": (lambda a, r, n=n: (a.create_buffer(n, np.float32),),
+                          lambda a, b, n=n: a.bcast(b[0], n, root=0)),
+            }
+            for op, (setup, call) in ops.items():
+                row = {"op": op, "bytes_per_rank": 4 * n}
+                for hier in (0, 1):
+                    for a in g8:
+                        a.set_tuning("hierarchical", hier)
+                    row["hier" if hier else "flat"] = timed(
+                        g8, f"{op} {n} {hier}", call, setup)
+                row["hier_over_flat_p50"] = (row["hier"]["p50_ms"]
+                                             / row["flat"]["p50_ms"])
+                rows.append(row)
+    finally:
+        for a in g8:
+            a.deinit()
+    g4 = at.cuda_group(P_MAIN)
+    pipelined = {}
+    try:
+        topo_registers(g4, ring_segments=4)
+        for label, threshold in (("unsplit", 0),
+                                 ("pipelined", PIPE_THRESHOLD)):
+            for a in g4:
+                a.set_tuning("pipeline_threshold", threshold)
+            pipelined[label] = timed(
+                g4, f"allreduce {label}",
+                lambda a, b: a.allreduce(b[0], b[1], N_RANK),
+                lambda a, r: (a.create_buffer(N_RANK, np.float32),
+                              a.create_buffer(N_RANK, np.float32)))
+    finally:
+        for a in g4:
+            a.deinit()
+    return {"layout": f"2x{TOPO_SLICE}", "world": W, "rows": rows,
+            "pipelined_allreduce_4_ranks_64mib": pipelined}
+
+
 def main() -> int:
     import torch
 
@@ -5324,6 +5835,21 @@ def main() -> int:
                                                         plain=False)}))
         print(json.dumps({"train_cp": {
             "card": smi.stdout.strip().splitlines()[0], **cp_timing(cp)}}))
+        return 0
+    if sys.argv[1:] == ["--topology"]:  # phase 3k and facade_topology alone
+        probe_phase(kc)
+        print(f"built {kc.build_all(['ring', 'rooted'])}", flush=True)
+        t0 = time.time()
+        topo = topology_main_path(kc)
+        print(f"topology path ok ({time.time() - t0:.1f} s): launches "
+              f"{ {k: v for k, v in topo['launches'].items() if v} }; "
+              f"steps {json.dumps(topo['steps'])}", flush=True)
+        t0 = time.time()
+        print(json.dumps({"facade_topology": {
+            "card": smi.stdout.strip().splitlines()[0],
+            "autotune": topo["tune"], **topology_latency()}}))
+        print(f"facade_topology timing ({time.time() - t0:.1f} s)",
+              flush=True)
         return 0
     if sys.argv[1:] == ["--launch-path"]:  # the launch path alone
         if not kc.probe_copy(torch.ones(8, 128, device=dev)).eq(1).all():
@@ -5551,12 +6077,18 @@ def main() -> int:
     dispatched = dispatch_main_path(kc)
     print(f"dispatch path ok ({time.time() - t0:.1f} s): launches "
           f"{ {k: v for k, v in dispatched.items() if v} }", flush=True)
-    # each kernel's launches over the probe's and the eleven paths' runs
+    t0 = time.time()
+    topo = topology_main_path(kc)
+    print(f"topology path ok ({time.time() - t0:.1f} s): launches "
+          f"{ {k: v for k, v in topo['launches'].items() if v} }; steps "
+          f"{json.dumps(topo['steps'])}", flush=True)
+    # each kernel's launches over the probe's and the twelve paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k]
                 + ringed["launches"][k] + serve["launches"][k]
                 + train["launches"][k] + cp["launches"][k] + compressed[k]
                 + converged[k]
-                + p2p[k] + seqp["launches"][k] + dispatched[k] + probed[k]
+                + p2p[k] + seqp["launches"][k] + dispatched[k]
+                + topo["launches"][k] + probed[k]
                 for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
@@ -5697,6 +6229,8 @@ def main() -> int:
                if name in TC_KERNELS else bound(t["bytes"], t["ops"])),
             "library_ms": t["library_ms"],
         })
+        if topo["launches"][name]:  # phase 3k's share
+            kernels[-1]["launches_topology"] = topo["launches"][name]
         if name == "sequencer":  # the other windows of the bounds table
             kernels[-1].update({
                 "device_ms": seq["device_ms"],
@@ -5927,6 +6461,11 @@ def main() -> int:
     print(json.dumps({"facade_dispatch": {
         "card": smi.stdout.strip().splitlines()[0], **facade}}))
     print(f"facade_dispatch timing ({time.time() - t1:.1f} s)", flush=True)
+    t1 = time.time()
+    print(json.dumps({"facade_topology": {
+        "card": smi.stdout.strip().splitlines()[0],
+        "autotune": topo["tune"], **topology_latency()}}))
+    print(f"facade_topology timing ({time.time() - t1:.1f} s)", flush=True)
     facade = facade_compressed_latency([1024 * 1024, N_RANK])
     print(json.dumps({"facade_compressed": {
         "card": smi.stdout.strip().splitlines()[0], "rows": facade}}))

@@ -112,7 +112,8 @@ def test_import_is_free_of_jax_and_the_jax_package():
         "accl_tpu_torch.models.ring_attention, "
         "accl_tpu_torch.models.ulysses_attention, "
         "accl_tpu_torch.ops.cuda.alltoall, accl_tpu_torch.ops.cuda.attention, "
-        "accl_tpu_torch.plans\n"
+        "accl_tpu_torch.plans, accl_tpu_torch.topology, "
+        "accl_tpu_torch.hierarchical, accl_tpu_torch.tuning\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'accl_tpu'))\n"
         "print(','.join(bad))\n"
