@@ -38,9 +38,18 @@ flight), *resident* (a run lingers on its mailbox), *armed* (windows in
 flight).  ``reset()`` halts every run and realigns seqn and head at 0;
 ``halt_sessions()`` (engine shutdown) halts and joins every run.
 
-What the JAX ring has and this one does not (yet): the window log
-(ROADMAP A11b), circuit breakers and chaos hooks (A11c) and QoS slot
-budgets (A11d).
+The window log (the JAX ring's introspection plane): every window is
+logged exactly once, whichever way it completed (inline, a run, or a
+failure), with its slots' seqn, opcode, retcode and issuing trace id
+beside its host-side timing (``basis: "host"``) and, for a run's window,
+its mailbox timestamps (``mailbox_us``); ``stats()`` carries the log's
+tail and a window-latency histogram, and :meth:`GangCommandRing.
+trace_events` renders the log as Perfetto spans flow-linked to the
+issuing calls.  A window's requests complete at launch (or at post into
+a card run), so its logged duration is the host's, up to the launch.
+
+What the JAX ring has and this one does not (yet): circuit breakers and
+chaos hooks (ROADMAP A11c) and QoS slot budgets (A11d).
 """
 
 from __future__ import annotations
@@ -49,12 +58,14 @@ import os
 import threading
 import time
 import traceback
+from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ...cmdring import (
+    _F,
     SequencerMailbox,
     WindowShape,
     complementary_pair,
@@ -86,6 +97,7 @@ from ...constants import (
     dtype_to_torch,
 )
 from ...ops.cmdring import run_window, status_words
+from ...telemetry import _perf_to_epoch_us
 from ...ops.cuda.cmdring import (
     PersistentRun,
     RunTicket,
@@ -137,13 +149,23 @@ class _Window:
     completes.  ``event`` is the inline launch's CUDA event or a run's
     ticket (None on the CPU); ``done`` is set once its results are in
     place.  It is drained once every rank of it (``ranks``, their world
-    sessions) passed a facade drain point after it ran."""
+    sessions) passed a facade drain point after it ran.  ``slots_info``
+    (per slot: seqn, opcode, the issuing trace id), ``form`` (``inline``
+    or ``mailbox``), ``run`` (the run it rode) and ``logged`` feed the
+    window log."""
 
-    __slots__ = ("window_id", "plans", "calls", "reqs", "widths", "t0",
-                 "event", "done", "ranks", "drained_by", "writes")
+    __slots__ = ("window_id", "comm_id", "plans", "calls", "reqs", "widths",
+                 "t0", "event", "done", "ranks", "drained_by", "writes",
+                 "slots_info", "form", "run", "logged")
 
-    def __init__(self, window_id, plans, calls, reqs, widths, t0, ranks):
+    def __init__(self, window_id, plans, calls, reqs, widths, t0, ranks,
+                 comm_id=0):
         self.window_id = window_id
+        self.comm_id = comm_id
+        self.slots_info: list = []
+        self.form = "inline"
+        self.run = None
+        self.logged = False
         self.plans = plans
         self.calls = calls
         self.reqs = reqs
@@ -229,14 +251,23 @@ class _DeviceMailbox:
         self.run_windows = run.run_windows
         self.linger_s = run.linger_s
         self.index: Dict[int, int] = {}  # window id -> index in the run
+        # the host's post time a window (the run pulls and pushes on the
+        # device, where the host has no clock to read)
+        self._timings: Dict[int, Dict[str, int]] = {}
 
     def post(self, window_id: int, slots, payload) -> bool:
         xs, outs = payload
+        t = time.perf_counter_ns()
         k = self.run.post(slots, xs, outs)
         if k is None:
             return False
         self.index[window_id] = k
+        self._timings[window_id] = {"posted_ns": t}
         return True
+
+    def take_timing(self, window_id: int) -> Optional[Dict[str, int]]:
+        """The window's host timing record, removed."""
+        return self._timings.pop(window_id, None)
 
     def halt(self) -> None:
         self.run.halt()
@@ -307,6 +338,16 @@ class GangCommandRing:
         self.last_window = 0
         self.op_slots: Dict[str, int] = {}
         self.fallbacks: Dict[str, int] = {}
+        # the window log: per-slot facts beside the host-side timing, and
+        # a window-latency log2-us histogram
+        try:
+            log_cap = int(os.environ.get("ACCL_CMDRING_WINDOW_LOG", "64"))
+        except ValueError:
+            log_cap = 64
+        self._window_log = deque(maxlen=max(8, log_cap))
+        self.windows_logged = 0
+        self.window_latency: Dict[int, int] = {}
+        self.window_latency_sum_us = 0.0
 
     # -- introspection -------------------------------------------------------
     def supports(self, op) -> bool:
@@ -396,7 +437,111 @@ class GangCommandRing:
                 "ops": dict(self.op_slots),
                 "fallbacks": dict(self.fallbacks),
                 "mailbox_depth": mailbox_depth,
+                # the window log: windows logged, the latency histogram
+                # (host basis) and the log's tail
+                "windows_logged": self.windows_logged,
+                "window_latency_sum_us": round(
+                    self.window_latency_sum_us, 3),
+                "window_latency_log2_us": {
+                    str(k): v
+                    for k, v in sorted(self.window_latency.items())},
+                "windows": list(self._window_log)[-16:],
             }
+
+    # -- the window log ------------------------------------------------------
+    def _log_window(self, rec: "_Window", status, end_ns: int,
+                    error: Optional[str] = None) -> None:
+        """One completed (or failed) window into the bounded log: per slot
+        its seqn, opcode, retcode and issuing trace id, beside the
+        host-side timing (``basis: "host"``: a window's requests complete
+        at launch, and the host reads no device clock beside the status
+        words); a run's window adds its mailbox timestamps.  Logged
+        exactly once a window, whichever completion path ran."""
+        with self._lock:
+            if rec.logged:
+                return
+            rec.logged = True
+        codes = None if status is None else np.asarray(status)[:, 1]
+        slots = [dict(info, retcode=None if codes is None or k >= len(codes)
+                      else int(codes[k]))
+                 for k, info in enumerate(rec.slots_info)]
+        t0_us = _perf_to_epoch_us(rec.t0)
+        end_us = _perf_to_epoch_us(end_ns)
+        lat_us = max(end_us - t0_us, 0.001)
+        entry = {
+            "window_id": rec.window_id,
+            "comm": rec.comm_id,
+            "form": rec.form,
+            "ts_us": round(t0_us, 3),
+            "dur_us": round(lat_us, 3),
+            "slots": slots,
+            "basis": "host",
+        }
+        if error is not None:
+            entry["error"] = str(error)[:200]
+        if rec.run is not None:
+            timing = rec.run.mbox.take_timing(rec.window_id)
+            if timing is not None:
+                entry["mailbox_us"] = {
+                    k.replace("_ns", "_us"): round(_perf_to_epoch_us(v), 3)
+                    for k, v in timing.items()}
+        with self._lock:
+            self._window_log.append(entry)
+            self.windows_logged += 1
+            b = max(1, int(lat_us)).bit_length() - 1
+            self.window_latency[b] = self.window_latency.get(b, 0) + 1
+            self.window_latency_sum_us += lat_us
+
+    def window_log(self, last: Optional[int] = None) -> List[dict]:
+        with self._lock:
+            log = list(self._window_log)
+        return log if last is None else log[-last:]
+
+    def trace_events(self) -> List[dict]:
+        """The window log as Chrome/Perfetto events: a span a window and
+        a span a slot nested under it (cat ``cmdring``, which
+        ``merge_traces`` dedups across rank files), each slot a flow step
+        on its issuing call's trace id."""
+        pid = os.getpid()
+        log = self.window_log()
+        if not log:
+            return []
+        events: List[dict] = [
+            {"ph": "M", "name": "process_name", "pid": pid, "tid": 2,
+             "args": {"name": f"cmdring (pid {pid})"}},
+            {"ph": "M", "name": "thread_name", "pid": pid, "tid": 2,
+             "args": {"name": "ring windows"}},
+        ]
+        for entry in log:
+            ts, dur = entry["ts_us"], entry["dur_us"]
+            events.append({
+                "name": f"cmdring::window[{len(entry['slots'])}]",
+                "cat": "cmdring", "ph": "X", "ts": ts, "dur": dur,
+                "pid": pid, "tid": 2,
+                "args": {k: v for k, v in entry.items() if k != "slots"},
+            })
+            n = max(1, len(entry["slots"]))
+            for k, slot in enumerate(entry["slots"]):
+                # slots run in order within the window: equal sub-spans
+                s_ts = ts + dur * k / n
+                s_dur = dur / n
+                events.append({
+                    "name": f"cmdring::{slot['opcode'].lower()}",
+                    "cat": "cmdring", "ph": "X", "ts": round(s_ts, 3),
+                    "dur": round(s_dur, 3), "pid": pid, "tid": 2,
+                    "args": dict(slot, window=entry["window_id"]),
+                })
+                if slot.get("trace_id"):
+                    # a step on the issuing call's flow, never an end: the
+                    # call's own s / f pair lives on the rank rows
+                    events.append({
+                        "name": "accl::flow", "cat": "cmdring", "ph": "t",
+                        "id": f"0x{slot['trace_id']:08x}",
+                        "ts": round(s_ts + s_dur / 2, 3),
+                        "pid": pid, "tid": 2,
+                        "args": {"window": entry["window_id"]},
+                    })
+        return events
 
     def _fallback(self, reason: str) -> bool:
         with self._lock:
@@ -757,7 +902,21 @@ class GangCommandRing:
             ranks = [c.comm.ranks[r].session
                      for r, c in enumerate(window[0][0])]
             rec = _Window(window_id, [p for _, _, p in window], calls,
-                          reqs_per_slot, widths, t0, ranks)
+                          reqs_per_slot, widths, t0, ranks, comm.id)
+            # the window log's per-slot facts, at encode time: the seqn
+            # written into the slot words and the issuing call's trace id
+            for k, (_, _, plan) in enumerate(window):
+                tid = None
+                for req in reqs_per_slot[k]:
+                    meta = req._tmeta
+                    if meta and meta.get("trace_id"):
+                        tid = meta["trace_id"]
+                        break
+                rec.slots_info.append({
+                    "seqn": int(slot_rows[k][_F["seqn"]]),
+                    "opcode": self._slot_opcode(plan).name,
+                    "trace_id": tid,
+                })
             live = (session.run is not None and session.run.shape == shape
                     and session.run.mbox.accepting)
             # the stream detector: an earlier window of this session is
@@ -778,16 +937,19 @@ class GangCommandRing:
                    and launches_for(comm.size, n) == 1)
         try:
             if use_run:
+                rec.form = "mailbox"
                 self._post_or_dispatch(comm, session, shape, rec, slots_np,
                                        xs, outs, bufs, device)
             else:
                 self._dispatch_inline(comm, session, shape, rec, slots_np,
                                       xs, outs, bufs, device)
-        except BaseException:
+        except BaseException as e:
             with self._lock:
                 if rec in session.windows:
                     session.windows.remove(rec)
                 self._pending.pop(window_id, None)
+            self._log_window(rec, None, time.perf_counter_ns(),
+                             error=f"{type(e).__name__}: {e}")
             raise
 
     def _wait_written(self, session, rec, window) -> None:
@@ -839,7 +1001,9 @@ class GangCommandRing:
         self._complete(rec, status_words(slots_np), event)
 
     def _complete(self, rec, status, event=None) -> None:
-        dt = time.perf_counter_ns() - rec.t0
+        end = time.perf_counter_ns()
+        dt = end - rec.t0
+        self._log_window(rec, status, end)
         codes = np.asarray(status)[:, 1]
         for k, slot_reqs in enumerate(rec.reqs):
             code = (ErrorCode.OK if int(codes[k]) == CMDRING_ST_OK
@@ -852,7 +1016,9 @@ class GangCommandRing:
     def _fail(self, rec, reason: str) -> None:
         """Fail a window's requests (a run's failure latch): never
         re-executed."""
-        dt = time.perf_counter_ns() - rec.t0
+        end = time.perf_counter_ns()
+        dt = end - rec.t0
+        self._log_window(rec, None, end, error=reason)
         ctx = {"error": reason[:300]}
         for slot_reqs in rec.reqs:
             for req in slot_reqs:
@@ -899,6 +1065,7 @@ class GangCommandRing:
                 self._pending[rec.window_id] = rec
         posted = False
         if live:
+            rec.run = run  # before the post: the run may complete it at once
             posted = run.mbox.post(rec.window_id, slots_np, payload)
             if posted:
                 with self._lock:
@@ -928,6 +1095,7 @@ class GangCommandRing:
             drun = PersistentRun(shape, comm.size, device, run_windows,
                                  linger_s, takes_lanes(slots_np, shape.wires))
             run = _ResidentRun(_DeviceMailbox(drun), shape, drun)
+            rec.run = run
             if not run.mbox.post(rec.window_id, slots_np, payload):
                 drun.join(0.0)
                 raise RuntimeError("a fresh sequencer run refused its "
@@ -945,6 +1113,7 @@ class GangCommandRing:
                 linger_s=linger_s,
                 on_window_done=self._make_window_done(comm.id))
             run = _ResidentRun(mbox, shape)
+            rec.run = run
             ok = mbox.post(rec.window_id, slots_np, payload)
             assert ok  # a fresh mailbox takes its first window
             self._start_thread(comm.id, run, comm.size)

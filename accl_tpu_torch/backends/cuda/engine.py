@@ -1485,6 +1485,48 @@ class CudaEngine(StreamPortMixin, BaseEngine):
     def device_interactions(self) -> int:
         return self.gang.interactions.read()
 
+    # -- the telemetry and monitor planes ------------------------------------
+    def contract_anchor(self):
+        """The gang context: every rank handle of the group shares it, so
+        their skew trackers meet on one judge (``monitor.judge_for``)."""
+        return self.gang
+
+    def skew_exchange_mode(self) -> str:
+        return "board"
+
+    def telemetry_report(self) -> dict:
+        """The gang tier's counters for the telemetry snapshot, under the
+        JAX gang's keys: pending rendezvous slots, the register epoch,
+        parked p2p posts, undrained stream ports and the command ring's
+        ``stats()`` (its window log included).  The planes the port has
+        not yet report what the JAX gang reports with them off:
+        ``inflight`` and ``tenants`` empty (ROADMAP A11d), ``faults``
+        None (A11c)."""
+        with self.gang._lock:
+            pending_slots = len(self.gang._slots)
+        with self._stream_cv:
+            stream_depths = {sid: len(chunks)
+                             for sid, chunks in sorted(self._streams.items())
+                             if chunks}
+        return {
+            "device_interactions": self.gang.interactions.read(),
+            "gang_pending_slots": pending_slots,
+            "gang_tuning_epoch": self.gang.tuning_epoch,
+            "p2p_parked": sum(self.gang.p2p.parked().values()),
+            "stream_depths": stream_depths,
+            "inflight": {},
+            "cmdring": self.gang.cmdring.stats(),
+            "tenants": {},
+            "faults": None,
+            "skew_exchange": "board",
+        }
+
+    def trace_events(self) -> list:
+        """The command ring's window and slot spans (every rank handle
+        shares the gang, so every rank's export embeds the same rows;
+        ``merge_traces`` keeps one copy, cat ``cmdring``)."""
+        return self.gang.cmdring.trace_events()
+
     def drain_windows(self) -> None:
         """A facade drain point: wait for the gang's command-ring windows
         not yet drained."""

@@ -27,6 +27,20 @@ and :meth:`ACCL.capabilities` reports the plan pool's counters and the
 engine's device interactions.  ``create_buffer(..., host_only=True)``
 makes a host-only buffer, which the gang stages through the host.
 
+The telemetry plane (``accl_tpu_torch.telemetry``): every call gets a
+flight record at completion (op, communicator, dtype, sizes, the plan's
+verdicts, its causal trace id and parent), a pipelined or hierarchical
+call one for the aggregate beside its stages' own, and a failure carries
+the recorder's tail in its ``ACCLError``.  :meth:`ACCL.telemetry_snapshot`
+merges it with the engine's counters and the command ring's window log;
+:meth:`ACCL.export_chrome_trace` writes the rank's Perfetto trace
+(``python -m accl_tpu_torch.telemetry merge`` folds the ranks' files);
+the monitor plane (``accl_tpu_torch.monitor``) keeps a skew tracker and
+an anomaly watchdog on every record and serves ``/metrics``,
+``/snapshot``, ``/trace`` and ``/cmdring`` from :meth:`ACCL.start_monitor`
+(or ``ACCL_MONITOR_PORT``), and streams trace files under
+``ACCL_TRACE_STREAM``.  ``ACCL_TELEMETRY=0`` turns the plane off.
+
 The data path's topology plane: a handle takes a
 :class:`~accl_tpu_torch.topology.Topology` (``topology=``, or
 ``ACCL_TOPOLOGY`` / ``ACCL_SLICE_SIZE``; :meth:`ACCL.set_topology`), its
@@ -57,6 +71,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from . import hierarchical as _hier
+from . import monitor as _monitor
 from . import wire as _wire
 from .arithconfig import DEFAULT_ARITH_CONFIG
 from .backends.base import BaseEngine, CallOptions, tensor_bytes
@@ -97,6 +112,16 @@ from .constants import (
     dtype_to_torch,
 )
 from .errorfeedback import ResidualStore
+from .telemetry import (
+    SCHEMA_VERSION,
+    Telemetry,
+    chrome_trace,
+    collective_trace_id,
+    p2p_trace_id,
+    to_json,
+    to_prometheus,
+    wire_snapshot,
+)
 from .ops.driver import resolve_device
 from .plans import CollectivePlan, PlanCache, size_bucket
 from .request import CommandQueue, EventGroup, Request
@@ -154,8 +179,38 @@ class ACCL:
         # its per-bucket registers ride the plans into CallOptions.tuning
         self._tuning_plan = None
         # per-thread call state: a hierarchical stage or a pipelined
-        # segment being launched on this thread (never decomposed again)
+        # segment being launched on this thread (never decomposed again),
+        # the plan verdict of the call being launched and its parent's
+        # trace id (thread-local: concurrent callers on one handle must
+        # not swap each other's)
         self._call_tls = threading.local()
+        # the telemetry plane: flight recorder and metrics (None under
+        # ACCL_TELEMETRY=0), and the monitor plane on it: the skew tracker
+        # and anomaly watchdog on every record, the gang's rank handles
+        # meeting on one judge anchored on the gang context
+        self._telemetry = Telemetry.create(rank=local_rank,
+                                           tier=type(engine).__name__)
+        self._monitor = None
+        if self._telemetry is not None:
+            self._monitor = _monitor.Monitor(
+                rank=local_rank, world=len(ranks),
+                telemetry=self._telemetry,
+                anchor=engine.contract_anchor(),
+                tier=type(engine).__name__)
+            self._monitor.tracker.begin_comm(self._world.id, local_rank,
+                                             len(ranks))
+            engine.set_skew_tracker(self._monitor.tracker)
+        # the causal trace plane: per-comm collective sequence counters
+        # and directed p2p channel counters (every rank advances them
+        # alike, so every rank of a call derives the same id), the
+        # generation (re-keyed by soft_reset, ROADMAP A11c), the latest
+        # id per comm, and the open batch's parent id
+        self._trace_seq: dict = {}
+        self._p2p_seq: dict = {}
+        self._trace_gen = 1
+        self._trace_last: dict = {}
+        self._batch_trace = None
+        self._batch_ctr = 0
         # async aggregates (hierarchical / pipelined) not yet drained by
         # flush(); appended from hop threads too, hence the lock
         self._aggregates: list = []
@@ -189,6 +244,27 @@ class ACCL:
         self._config(ConfigFunction.SET_MAX_RENDEZVOUS_SIZE,
                      max_rendezvous_size)
         self._initialized = True
+        if self._monitor is not None:
+            if _monitor.env_port() is not None:
+                try:
+                    self.start_monitor()
+                except OSError as e:
+                    # in-process ranks race for one port: the first
+                    # handle serves, the rest say so and skip (pass
+                    # port=0 or a port a rank to serve them all)
+                    import sys
+
+                    print(f"[accl] monitor port busy, not serving rank "
+                          f"{local_rank}: {e}", file=sys.stderr)
+            tdir = os.environ.get(_monitor.TRACE_STREAM_ENV)
+            if tdir:
+                try:
+                    self._monitor.start_trace_stream(tdir)
+                except OSError as e:  # a bad dir must not brick startup
+                    import sys
+
+                    print(f"[accl] ignoring ACCL_TRACE_STREAM={tdir!r}: "
+                          f"{e}", file=sys.stderr)
         env_plan = os.environ.get("ACCL_TUNING_PLAN")
         if env_plan:
             try:
@@ -214,7 +290,7 @@ class ACCL:
             cfg_key=int(key),
         ))
         if not req.wait(timeout=drain_deadline_s(self._timeout_s)):
-            raise ACCLError(ErrorCode.DEADLOCK_SUSPECTED, f"config {fn.name}")
+            raise self._deadlock_error(f"config {fn.name}")
         req.check(f"config {fn.name}")
         if fn in self._PLAN_INVALIDATING:
             self._plans.invalidate(fn.name.lower())
@@ -449,6 +525,11 @@ class ACCL:
         comm = base.split(members, comm_id=comm_id)
         if comm is not None:
             self._communicators.append(comm)
+            if self._monitor is not None:
+                # the subcomm's membership registered up front: its skew
+                # windows judge in its own rank space
+                self._monitor.tracker.begin_comm(comm.id, comm.local_rank,
+                                                 comm.size)
         return comm
 
     # -- the topology plane (accl_tpu_torch.topology) ------------------------
@@ -478,8 +559,8 @@ class ACCL:
     def capabilities(self) -> dict:
         """What this handle's engine can do, and its dispatch counters:
         the keys of the JAX facade's report that the port can fill
-        truthfully (the rest -- health, telemetry, monitor, the in-flight
-        window -- come with their planes, ROADMAP A11b-A11d)."""
+        truthfully (the rest -- health, membership, the in-flight window
+        -- come with their planes, ROADMAP A11c-A11e)."""
         engine = type(self.engine).__name__
         return {
             "engine": engine,
@@ -500,6 +581,11 @@ class ACCL:
                     "world": self._tuning_plan.world,
                     "collectives": sorted(self._tuning_plan.entries),
                 }),
+            # the telemetry plane armed (ACCL_TELEMETRY), and the monitor's
+            # services (start_monitor / ACCL_MONITOR_PORT)
+            "telemetry": self._telemetry is not None,
+            "monitor": (self._monitor.service_snapshot()
+                        if self._monitor is not None else None),
         }
 
     # -- call plumbing -------------------------------------------------------
@@ -564,7 +650,8 @@ class ACCL:
         lc = None if topo is None else topo.comm_link_class()
         key = (op, comm.id, comm.epoch, dtype, bucket, cdt, int(host), tsig,
                extra)
-        plan, _ = self._plans.get_with_flag(key)
+        plan, hit = self._plans.get_with_flag(key)
+        self._call_tls.plan_hit = hit  # stamped onto this call's record
         if plan is not None:
             return plan
         overlay = None
@@ -657,6 +744,12 @@ class ACCL:
         self._batch_depth += 1
         if self._pending is None:
             self._pending = CommandQueue()
+            # the batch's parent span id, from the per-handle batch
+            # counter (batches are collective by contract, so every
+            # rank's counter agrees): its calls' records name it
+            self._batch_ctr += 1
+            self._batch_trace = collective_trace_id(
+                "__batch__", 0, self._trace_gen, self._batch_ctr)
 
     def flush(self) -> None:
         """Dispatch everything queued in the open batch; the batch stays
@@ -701,6 +794,7 @@ class ACCL:
         self._batch_depth = 0
         self.flush()
         self._pending = None
+        self._batch_trace = None
         self.engine.drain_windows()  # a drain point of the command ring
 
     def batch(self):
@@ -725,12 +819,17 @@ class ACCL:
 
     def _launch(self, options: CallOptions, run_async: bool,
                 context: str) -> Request:
+        tel = self._telemetry
+        # the trace id is assigned at intake, before dispatch
+        meta = self._call_meta(options) if tel is not None else None
         # a hierarchical stage dispatches at once, whatever batch the
         # caller has opened since its call (it runs on a hop thread)
         if (self._pending is not None
                 and not getattr(self._call_tls, "hier", False)):
             req = Request(op_name=options.op.name)
             req._pre_wait = self._dispatch_pending  # dispatch on wait
+            if tel is not None:
+                tel.attach(req, meta)
             self._pending.push((options, req))
             if run_async:
                 return req
@@ -738,16 +837,151 @@ class ACCL:
             self._dispatch_pending()
         else:
             req = self.engine.start(options)
+            if tel is not None:
+                # after start: a call the engine completed inside start()
+                # is recorded by attach at once
+                tel.attach(req, meta)
         if run_async:
             return req
         deadline = drain_deadline_s(self._timeout_s)
         if not req.wait(timeout=deadline):
-            raise ACCLError(
-                ErrorCode.DEADLOCK_SUSPECTED, context,
-                details={"op": options.op.name, "timeout_s": deadline},
-            )
+            raise self._deadlock_error(context, {
+                "op": options.op.name, "timeout_s": deadline})
         req.check(context)
         return req
+
+    # -- the causal trace plane (accl_tpu_torch.telemetry flows) ------------
+    #: the collectives every rank of a communicator calls in one order:
+    #: their trace ids come from the per-comm sequence counter
+    _CONTRACT_OPS = frozenset((
+        Operation.BCAST, Operation.SCATTER, Operation.GATHER,
+        Operation.ALLGATHER, Operation.REDUCE, Operation.ALLREDUCE,
+        Operation.REDUCE_SCATTER, Operation.ALLTOALL, Operation.BARRIER,
+    ))
+
+    def _assign_trace(self, options: CallOptions) -> tuple:
+        """(trace_id, flow_phase, parent_id) of one call at intake.
+
+        Collectives derive ``collective_trace_id`` from the per-comm
+        intake counter (every rank issues them in one order); plain
+        SEND / RECV derive ``p2p_trace_id`` from the directed channel's
+        match counter (sends and receives on one (comm, src, dst, tag,
+        stream) channel match in order).  Stream-port p2p gets no flow
+        phase: its far end posts no matching record.  The phase is this
+        rank's role in the merged flow: the lowest comm rank starts (s),
+        the highest finishes (f), the rest step (t)."""
+        comm = options.comm
+        if comm is None:
+            return None, None, None
+        parent = getattr(self._call_tls, "parent_trace", None)
+        if parent is None and self._pending is not None:
+            parent = self._batch_trace
+        op = options.op
+        if op in self._CONTRACT_OPS:
+            tid, phase = self._derive_collective_trace(op.name.lower(), comm)
+            return tid, phase, parent
+        if op in (Operation.SEND, Operation.RECV):
+            if op == Operation.SEND:
+                src, dst = comm.local_rank, options.root_dst
+            else:
+                src, dst = options.root_src, comm.local_rank
+            key = (comm.id, src, dst, options.tag, int(options.stream))
+            seqn = self._p2p_seq.get(key, 0)
+            self._p2p_seq[key] = seqn + 1
+            tid = p2p_trace_id(comm.id, src, dst, options.tag, seqn,
+                               stream=int(options.stream))
+            self._trace_last[comm.id] = tid
+            phase = None
+            if options.stream == StreamFlags.NO_STREAM:
+                phase = "s" if op == Operation.SEND else "f"
+            return tid, phase, parent
+        return None, None, parent
+
+    def _derive_collective_trace(self, op_name: str,
+                                 comm: Communicator) -> tuple:
+        """(trace_id, flow_phase) of one collective: consume the comm's
+        intake counter, derive the id, note it as the comm's latest and
+        pick this rank's flow role.  Single calls and the aggregates
+        share it, so their ids and phases agree across ranks."""
+        seqn = self._trace_seq.get(comm.id, 0)
+        self._trace_seq[comm.id] = seqn + 1
+        tid = collective_trace_id(op_name, comm.id, self._trace_gen, seqn)
+        self._trace_last[comm.id] = tid
+        if comm.size < 2:
+            phase = None
+        elif comm.local_rank == 0:
+            phase = "s"
+        elif comm.local_rank == comm.size - 1:
+            phase = "f"
+        else:
+            phase = "t"
+        return tid, phase
+
+    def trace_stamp(self, comm_id: int) -> int:
+        """This rank's latest intake trace id on the communicator, 0 when
+        none (the JAX facade's wire piggyback provider; the port's gang
+        has no wire to stamp)."""
+        return self._trace_last.get(comm_id, 0)
+
+    def _call_meta(self, options: CallOptions) -> dict:
+        """The flight record's facts known at launch: resolved once a call
+        (attribute reads, no device work) and carried to the request's
+        completion by ``Telemetry.attach``.  ``tenant`` stays None until
+        the port has its arbiter (ROADMAP A11d)."""
+        comm = options.comm
+        plan = options.plan
+        dt = options.arithcfg.uncompressed if options.arithcfg else None
+        trace_id, trace_phase, parent_id = self._assign_trace(options)
+        return {
+            "tenant": None,
+            "trace_id": trace_id,
+            "trace_phase": trace_phase,
+            "parent_id": parent_id,
+            "op": options.op.name.lower(),
+            "comm": comm.id if comm is not None else None,
+            "epoch": comm.epoch if comm is not None else None,
+            # comm-relative identity for the skew tracker
+            "comm_rank": comm.local_rank if comm is not None else None,
+            "comm_world": comm.size if comm is not None else None,
+            "dtype": dt.name if dt is not None else None,
+            "count": options.count,
+            "nbytes": options.count * dtype_size(dt) if dt is not None else 0,
+            "bucket": (plan.bucket if plan is not None
+                       else size_bucket(options.count)),
+            "algorithm": plan.algorithm if plan is not None else None,
+            "plan_hit": (getattr(self._call_tls, "plan_hit", None)
+                         if plan is not None else None),
+            "eager": plan.eager if plan is not None else None,
+        }
+
+    def _aggregate_meta(self, op_name: str, plan: CollectivePlan,
+                        comm: Communicator, count: int, dtype: DataType,
+                        trace: tuple, parent_id, **extra) -> dict:
+        """The flight record's facts of a pipelined or hierarchical
+        aggregate: the whole payload, under the aggregate's own trace id
+        (``trace``: its id and phase), beside its stages' own records."""
+        return {
+            "op": op_name, "comm": comm.id, "epoch": comm.epoch,
+            "comm_rank": comm.local_rank, "comm_world": comm.size,
+            "dtype": dtype.name, "count": count,
+            "nbytes": count * dtype_size(dtype),
+            "bucket": plan.bucket, "algorithm": plan.algorithm,
+            "plan_hit": getattr(self._call_tls, "plan_hit", None),
+            "eager": plan.eager, **extra,
+            "trace_id": trace[0], "trace_phase": trace[1],
+            "parent_id": parent_id,
+        }
+
+    def _deadlock_error(self, context: str,
+                        details: Optional[dict] = None) -> ACCLError:
+        """DEADLOCK_SUSPECTED with the flight recorder's tail attached, as
+        the JAX facade's watchdog and timeout paths raise it."""
+        details = dict(details or {})
+        if self._telemetry is not None:
+            self._telemetry.metrics.inc("accl_deadlock_suspected_total")
+            details["flight_recorder"] = self._telemetry.tail_dicts()
+        return ACCLError(ErrorCode.DEADLOCK_SUSPECTED, context,
+                         details=details or None)
 
     @staticmethod
     def _count_of(buf: BaseBuffer, count: Optional[int]) -> int:
@@ -783,9 +1017,8 @@ class ACCL:
             return outer
         deadline = drain_deadline_s(self._timeout_s)
         if not outer.wait(timeout=deadline):
-            raise ACCLError(ErrorCode.DEADLOCK_SUSPECTED, context,
-                            details={"op": outer.op_name,
-                                     "timeout_s": deadline})
+            raise self._deadlock_error(context, {
+                "op": outer.op_name, "timeout_s": deadline})
         outer.check(context)
         return outer
 
@@ -800,7 +1033,8 @@ class ACCL:
         nseg = plan.pipeline_for(count * dtype_size(dtype))
         return min(nseg, count) if count > 0 else 1
 
-    def _launch_pipelined(self, op_name: str, count: int, nseg: int,
+    def _launch_pipelined(self, op_name: str, plan: CollectivePlan,
+                          comm: Communicator, count: int, nseg: int,
                           run_async: bool, launch_seg,
                           context: str) -> Request:
         """Segmented pipelining (the JAX facade's ``_launch_pipelined``):
@@ -809,7 +1043,10 @@ class ACCL:
         aggregate request that completes when the last segment has (the
         first failing segment's retcode wins), holding every segment's
         event.  The gang keeps tag 0 on every segment, as JAX's device
-        tier does (its order is the gang's sequence)."""
+        tier does (its order is the gang's sequence).  The aggregate's
+        flight record covers the whole payload; it takes one trace id
+        of the comm's sequence, and the segments' records name it as
+        their parent."""
         base, rem = divmod(count, nseg)
         bounds, start = [], 0
         for i in range(nseg):
@@ -829,8 +1066,18 @@ class ACCL:
                     self._dispatch_pending()
 
             outer._pre_wait = _pw
+        tel = self._telemetry
+        meta = agg_tid = None
+        if tel is not None:
+            trace = self._derive_collective_trace(op_name, comm)
+            agg_tid = trace[0]
+            meta = self._aggregate_meta(
+                op_name, plan, comm, count, plan.arithcfg.uncompressed,
+                trace, self._batch_trace if self._pending is not None
+                else None)
         t0 = time.perf_counter_ns()
         self._call_tls.pipelining = True
+        self._call_tls.parent_trace = agg_tid
         inner = []
         try:
             for i, (s0, s1) in enumerate(bounds):
@@ -840,6 +1087,7 @@ class ACCL:
         finally:
             self._call_tls.pipelining = False
             self._call_tls.pipeline_seg_index = 0
+            self._call_tls.parent_trace = None
 
         def _resolve():
             for q in inner:
@@ -851,6 +1099,8 @@ class ACCL:
                         f"{ErrorCode.describe(q.get_retcode())}")
 
         outer.defer_result(_resolve)
+        if tel is not None:
+            tel.attach(outer, meta)
         lock = threading.Lock()
         left = [len(inner)]
 
@@ -911,7 +1161,11 @@ class ACCL:
         return _hier.eligible(op_name, comm.topology, count)
 
     def _launch_hier_stages(self, op_name: str, stages, run_async: bool,
-                            context: str) -> Request:
+                            context: str, *,
+                            plan: Optional[CollectivePlan] = None,
+                            comm: Optional[Communicator] = None,
+                            count: int = 0,
+                            dtype: Optional[DataType] = None) -> Request:
         """A hierarchical decomposition as a chain of async stages, ONE
         aggregate request.  Each stage thunk launches its sub-collective
         with ``run_async=True`` and returns its request, or None when
@@ -924,9 +1178,19 @@ class ACCL:
         blocked.  Device order between stages
         comes from the buffers' ``ready`` events (the engine waits on them
         before every launch).  The aggregate holds every stage's event;
-        a failing stage fails it."""
+        a failing stage fails it.  Given the call's ``plan``, ``comm``,
+        ``count`` and ``dtype``, the aggregate's flight record
+        (``hierarchical``) takes one trace id of ``comm``'s sequence, and
+        the stages' records name it as their parent."""
         outer = Request(op_name=op_name.upper())
         outer.mark_executing()
+        tel = self._telemetry if plan is not None else None
+        meta = tid = None
+        if tel is not None:
+            trace = self._derive_collective_trace(op_name, comm)
+            tid = trace[0]
+            meta = self._aggregate_meta(op_name, plan, comm, count, dtype,
+                                        trace, None, hierarchical=True)
         t0 = time.perf_counter_ns()
         inner: list = []
         lock = threading.Lock()
@@ -951,7 +1215,10 @@ class ACCL:
                 if idx >= len(stages):
                     _finish(ErrorCode.OK, None)
                     return
+                # the stage guard and the parent trace id on whatever
+                # thread runs the thunk (the caller's, or the stage thread)
                 self._call_tls.hier = True
+                self._call_tls.parent_trace = tid
                 try:
                     req = stages[idx]()
                 except ACCLError as e:
@@ -964,6 +1231,7 @@ class ACCL:
                     return
                 finally:
                     self._call_tls.hier = False
+                    self._call_tls.parent_trace = None
                 if req is None:
                     continue  # not a participant: the next stage
                 inner.append(req)
@@ -984,6 +1252,8 @@ class ACCL:
                 q.materialize()
 
         outer.defer_result(_resolve)
+        if tel is not None:
+            tel.attach(outer, meta)
         _advance()
         return self._finish_aggregate(outer, run_async, context)
 
@@ -1025,8 +1295,8 @@ class ACCL:
         return DeviceBuffer(count, dtype, t.device, tensor=t,
                             host=t.new_zeros((), device="cpu").expand(count))
 
-    def _hier_allreduce(self, comm: Communicator, sendbuf: BaseBuffer,
-                        recvbuf: BaseBuffer, n: int,
+    def _hier_allreduce(self, plan: CollectivePlan, comm: Communicator,
+                        sendbuf: BaseBuffer, recvbuf: BaseBuffer, n: int,
                         function: ReduceFunction,
                         run_async: bool) -> Request:
         """Hierarchical allreduce.  Rail mode (symmetric topology, n
@@ -1084,11 +1354,12 @@ class ACCL:
                                   run_async=True)
 
             stages = [_s1, _s2, _s3]
-        return self._launch_hier_stages("allreduce", stages, run_async,
-                                        "allreduce")
+        return self._launch_hier_stages(
+            "allreduce", stages, run_async, "allreduce", plan=plan,
+            comm=comm, count=n, dtype=sendbuf.dtype)
 
-    def _hier_allgather(self, comm: Communicator, sendbuf: BaseBuffer,
-                        recvbuf: BaseBuffer, n: int,
+    def _hier_allgather(self, plan: CollectivePlan, comm: Communicator,
+                        sendbuf: BaseBuffer, recvbuf: BaseBuffer, n: int,
                         run_async: bool) -> Request:
         """Hierarchical allgather (symmetric contiguous topology):
         intra-slice allgather -> rail allgather; contiguous slices make
@@ -1109,10 +1380,12 @@ class ACCL:
             lambda: self.allgather(scratch, recvbuf, S * n, comm=rail,
                                    run_async=True),
         ]
-        return self._launch_hier_stages("allgather", stages, run_async,
-                                        "allgather")
+        return self._launch_hier_stages(
+            "allgather", stages, run_async, "allgather", plan=plan,
+            comm=comm, count=n, dtype=sendbuf.dtype)
 
-    def _hier_reduce_scatter(self, comm: Communicator, sendbuf: BaseBuffer,
+    def _hier_reduce_scatter(self, plan: CollectivePlan,
+                             comm: Communicator, sendbuf: BaseBuffer,
                              recvbuf: BaseBuffer, n: int,
                              function: ReduceFunction,
                              run_async: bool) -> Request:
@@ -1159,11 +1432,13 @@ class ACCL:
                                         function=function, comm=rail,
                                         run_async=True),
         ]
-        return self._launch_hier_stages("reduce_scatter", stages, run_async,
-                                        "reduce_scatter")
+        return self._launch_hier_stages(
+            "reduce_scatter", stages, run_async, "reduce_scatter",
+            plan=plan, comm=comm, count=n, dtype=recvbuf.dtype)
 
-    def _hier_bcast(self, comm: Communicator, buf: BaseBuffer, n: int,
-                    root: int, run_async: bool) -> Request:
+    def _hier_bcast(self, plan: CollectivePlan, comm: Communicator,
+                    buf: BaseBuffer, n: int, root: int,
+                    run_async: bool) -> Request:
         """Hierarchical bcast (any multi-slice topology): bcast over one
         representative a slice (the root in its own, the leader
         elsewhere), then within each slice from its representative."""
@@ -1190,8 +1465,9 @@ class ACCL:
             return self.bcast(buf, n, root=rep_idx, comm=intra,
                               run_async=True)
 
-        return self._launch_hier_stages("bcast", [_s1, _s2], run_async,
-                                        "bcast")
+        return self._launch_hier_stages(
+            "bcast", [_s1, _s2], run_async, "bcast", plan=plan, comm=comm,
+            count=n, dtype=buf.dtype)
 
     # -- primitives ----------------------------------------------------------
     def copy(self, srcbuf: BaseBuffer, dstbuf: BaseBuffer,
@@ -1255,11 +1531,11 @@ class ACCL:
         plan = self._plan_for(Operation.BCAST, comm, buf.dtype, n,
                               compress_dtype, host, (root,))
         if self._hier_eligible_call(plan, comm, compress_dtype, "bcast", n):
-            return self._hier_bcast(comm, buf, n, root, run_async)
+            return self._hier_bcast(plan, comm, buf, n, root, run_async)
         nseg = self._pipeline_segments_for(plan, n, buf.dtype)
         if nseg > 1:
             return self._launch_pipelined(
-                "bcast", n, nseg, run_async,
+                "bcast", plan, comm, n, nseg, run_async,
                 lambda s0, s1: self.bcast(
                     buf.slice(s0, s1), s1 - s0, root=root, comm=comm,
                     compress_dtype=compress_dtype, run_async=True),
@@ -1311,7 +1587,8 @@ class ACCL:
                               compress_dtype, host)
         if self._hier_eligible_call(plan, comm, compress_dtype, "allgather",
                                     n):
-            return self._hier_allgather(comm, sendbuf, recvbuf, n, run_async)
+            return self._hier_allgather(plan, comm, sendbuf, recvbuf, n,
+                                        run_async)
         return self._planned(Operation.ALLGATHER, comm, n, sendbuf.dtype,
                              compress_dtype, run_async, "allgather",
                              plan=plan, op0=sendbuf, res=recvbuf)
@@ -1388,12 +1665,12 @@ class ACCL:
         # plain calls on the derived subcomms and may split there
         if self._hier_eligible_call(plan, comm, compress_dtype, "allreduce",
                                     n):
-            return self._hier_allreduce(comm, sendbuf, recvbuf, n, function,
-                                        run_async)
+            return self._hier_allreduce(plan, comm, sendbuf, recvbuf, n,
+                                        function, run_async)
         nseg = self._pipeline_segments_for(plan, n, sendbuf.dtype)
         if nseg > 1:
             return self._launch_pipelined(
-                "allreduce", n, nseg, run_async,
+                "allreduce", plan, comm, n, nseg, run_async,
                 lambda s0, s1: self.allreduce(
                     sendbuf.slice(s0, s1), recvbuf.slice(s0, s1), s1 - s0,
                     function=function, comm=comm,
@@ -1425,7 +1702,7 @@ class ACCL:
                               n, compress_dtype, host, (int(function),))
         if self._hier_eligible_call(plan, comm, compress_dtype,
                                     "reduce_scatter", n):
-            return self._hier_reduce_scatter(comm, sendbuf, recvbuf, n,
+            return self._hier_reduce_scatter(plan, comm, sendbuf, recvbuf, n,
                                              function, run_async)
         return self._planned(Operation.REDUCE_SCATTER, comm, n,
                              recvbuf.dtype, compress_dtype, run_async,
@@ -1641,8 +1918,187 @@ class ACCL:
         return self._collective(Operation.BARRIER, comm, 0, DataType.FLOAT32,
                                 None, run_async)
 
+    # -- the telemetry plane (accl_tpu_torch.telemetry) ----------------------
+    def telemetry_snapshot(self) -> dict:
+        """ONE merged telemetry dict for this rank handle, under the JAX
+        facade's top-level keys: the flight recorder's tail, the metrics
+        registry, the (empty: no fabric) wire trace, the plan cache, the
+        engine's report (the command ring's counters and window log
+        included), the compression plane, and the monitor plane's
+        stragglers, anomalies and services.  The planes the port has not
+        yet hold the JAX facade's value for a plane that is off or has
+        seen nothing: ``contract`` and ``postmortem`` ``{"enabled":
+        False}``, ``faults`` None, ``health``, ``membership``,
+        ``health_events`` and ``tenants`` ``{}`` (ROADMAP A11c, A11d)."""
+        tel = self._telemetry
+        mon = self._monitor
+        engine_report = self.engine.telemetry_report()
+        return {
+            "schema_version": SCHEMA_VERSION,
+            "telemetry_enabled": tel is not None,
+            "rank": self._world.local_rank,
+            "world": self._world.size,
+            "tier": type(self.engine).__name__,
+            "flight_recorder": tel.tail_dicts(64) if tel else [],
+            "flight_recorder_total": tel.recorder.total if tel else 0,
+            "metrics": tel.metrics.snapshot() if tel else {},
+            "wire_trace": wire_snapshot(),
+            "plan_cache": self._plans.stats(),
+            "health": {},
+            "device_interactions": self.engine.device_interactions(),
+            "engine": engine_report,
+            "faults": engine_report.get("faults"),
+            "contract": {"enabled": False},
+            "membership": {},
+            "health_events": {},
+            "tenants": {},
+            "compression": {
+                "sr_calls": self.sr_calls,
+                "error_feedback": dict(self._residuals.stats(),
+                                       enabled=self._error_feedback),
+            },
+            "stragglers": (mon.straggler_snapshot() if mon is not None
+                           else {"enabled": False}),
+            "anomalies": (mon.anomaly_snapshot() if mon is not None
+                          else {"enabled": False}),
+            "monitor": (mon.service_snapshot() if mon is not None
+                        else {"serving": False}),
+            "postmortem": {"enabled": False},
+        }
+
+    def telemetry_prometheus(self) -> str:
+        """The snapshot in Prometheus text exposition format."""
+        return to_prometheus(self.telemetry_snapshot())
+
+    def telemetry_json(self) -> str:
+        """The snapshot as canonical JSON."""
+        return to_json(self.telemetry_snapshot())
+
+    def telemetry_trace_events(self) -> list:
+        """This rank's flight records (and the command ring's window and
+        slot spans, flow-linked to the issuing calls) as Chrome/Perfetto
+        trace events; [] when telemetry is off."""
+        if self._telemetry is None:
+            return []
+        events = self._telemetry.chrome_events()
+        try:
+            events.extend(self.engine.trace_events())
+        except Exception:  # a ring render bug must not kill the export
+            import traceback
+
+            traceback.print_exc()
+        events.sort(key=lambda e: e.get("ts", 0.0))
+        return events
+
+    def export_chrome_trace(self, path: Optional[str] = None) -> dict:
+        """Write (or return) this rank's Perfetto-loadable trace; fold the
+        ranks' files with ``python -m accl_tpu_torch.telemetry merge``."""
+        doc = chrome_trace(self.telemetry_trace_events())
+        if path is not None:
+            import json
+
+            with open(path, "w") as f:
+                json.dump(doc, f)
+        return doc
+
+    # -- the monitor plane (accl_tpu_torch.monitor) --------------------------
+    def start_monitor(self, port: Optional[int] = None) -> int:
+        """Start this rank handle's scrape service: a stdlib HTTP server
+        on an ``accl-monitor`` thread, bound to 127.0.0.1, serving ``/``
+        (a one-screen summary), ``/metrics`` (Prometheus text),
+        ``/snapshot`` (the ``telemetry_snapshot()`` JSON), ``/trace`` (the
+        Chrome trace) and ``/cmdring`` (the command ring's stats and
+        window log).  ``port`` 0 (the default without
+        ``ACCL_MONITOR_PORT``) binds an ephemeral port.  Returns the bound
+        port; idempotent while serving."""
+        if self._monitor is None:
+            raise ACCLError(
+                ErrorCode.INVALID_OPERATION,
+                "telemetry disabled (ACCL_TELEMETRY=0): nothing to serve",
+                details={"op": "start_monitor"},
+            )
+        if self._monitor.server is not None:
+            return self._monitor.server.port
+        if port is None:
+            port = _monitor.env_port() or 0
+
+        def _trace_doc() -> str:
+            import json
+
+            return json.dumps(chrome_trace(self.telemetry_trace_events()))
+
+        def _cmdring_doc() -> str:
+            import json
+
+            ring = self.engine.telemetry_report().get("cmdring")
+            return json.dumps(ring if ring is not None
+                              else {"enabled": False}, default=str)
+
+        srv = _monitor.MonitorServer({
+            "/": (self._monitor_index, "text/plain; charset=utf-8"),
+            "/metrics": (self.telemetry_prometheus,
+                         "text/plain; version=0.0.4; charset=utf-8"),
+            "/snapshot": (self.telemetry_json, "application/json"),
+            "/trace": (_trace_doc, "application/json"),
+            "/cmdring": (_cmdring_doc, "application/json"),
+        }, port=int(port))
+        srv.start()
+        self._monitor.server = srv
+        return srv.port
+
+    def _monitor_index(self) -> str:
+        """The monitor's ``/`` page: the routes and a one-screen summary
+        (the command ring, standing stragglers, the last anomaly)."""
+        lines = [
+            f"accl monitor — rank {self._world.local_rank}/"
+            f"{self._world.size} ({type(self.engine).__name__})",
+            "routes: /metrics /snapshot /trace /cmdring",
+            "",
+        ]
+        ring = self.engine.telemetry_report().get("cmdring") or {}
+        if ring:
+            lines.append(
+                f"cmdring: state={ring.get('state', '?')} "
+                f"refills={ring.get('refills', 0)} "
+                f"dispatches={ring.get('dispatches', 0)} "
+                f"mailbox_depth={ring.get('mailbox_depth', 0)} "
+                f"fallbacks={sum((ring.get('fallbacks') or {}).values())}")
+        else:
+            lines.append("cmdring: (tier has no command ring)")
+        standing = self._monitor.straggler_snapshot().get("standing") or {}
+        for c, v in sorted(standing.items()):
+            lines.append(f"straggler: comm {c} slow_rank={v.get('rank')} "
+                         f"ewma={v.get('ewma_latency_us')}us "
+                         f"streak={v.get('streak')}")
+        if not standing:
+            lines.append("straggler: none standing")
+        anom = self._monitor.anomaly_snapshot()
+        alerts = anom.get("alerts") or []
+        if alerts:
+            a = alerts[-1]
+            lines.append(f"anomaly: {a.get('op')}/b{a.get('size_bucket')} "
+                         f"{a.get('duration_us')}us vs baseline "
+                         f"{a.get('baseline_us')}us "
+                         f"(total {anom.get('alerts_total', 0)})")
+        else:
+            lines.append("anomaly: none")
+        return "\n".join(lines) + "\n"
+
+    def stop_monitor(self) -> bool:
+        """Stop the scrape service (a bounded join of its thread); True
+        when it exited.  No-op when not serving."""
+        if self._monitor is None or self._monitor.server is None:
+            return True
+        srv, self._monitor.server = self._monitor.server, None
+        return srv.stop()
+
     def deinit(self) -> None:
         if self._initialized:
+            # the monitor's services first (bounded joins): a scrape
+            # landing mid-teardown must not race the engine's shutdown
+            if self._monitor is not None:
+                self._monitor.close()
+                self.engine.set_skew_tracker(None)
             self.engine.shutdown()
             with self._hop_lock:
                 self._initialized = False  # a later hop fails its aggregate

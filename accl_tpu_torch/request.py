@@ -12,6 +12,15 @@ completes (at once if it already has); the facade chains a hierarchical
 call's stages and completes a pipelined call's aggregate on it.  An
 aggregate's ``event`` is an :class:`EventGroup` of its stages' events.
 
+The telemetry plane hooks in at completion: the facade arms a request
+through ``Telemetry.attach`` (``_telemetry`` and ``_tmeta``, set under
+``_cb_lock``), and ``complete()`` appends its one flight record.  A
+later failure of a completed request (a parked placement that fails, a
+run's failure latch after its windows completed at post) appends an
+amended record, and ``check()`` ships the flight-recorder tail in the
+``ACCLError``'s details.  A port request completes at launch, so the
+record's ``duration_ns`` is the host launch time, not the device work.
+
 :class:`CommandQueue` holds the facade's open batch: calls queue there
 between ``begin_batch()`` and ``flush()``, and ``drain()`` hands the run
 to ``engine.start_batch`` as one flush.
@@ -84,6 +93,16 @@ class Request:
         self._drain_hook = None
         #: functions run once at completion (:meth:`add_done_callback`)
         self._callbacks: list = []
+        #: the telemetry plane: armed by ``Telemetry.attach``; complete()
+        #: appends one CallRecord (``_recorded`` keeps it to one)
+        self._telemetry = None
+        self._tmeta: Optional[dict] = None
+        self._recorded = False
+        #: the overlap plane's in-flight time and window depth: None, as
+        #: the JAX package records a call that rode no in-flight window
+        #: (the port has none yet, ROADMAP A11d)
+        self.overlap_ns: Optional[int] = None
+        self.inflight_depth: Optional[int] = None
 
     # -- engine side --------------------------------------------------------
     def mark_executing(self) -> None:
@@ -96,6 +115,7 @@ class Request:
         context: Optional[dict] = None,
         event=None,
     ) -> None:
+        prev = self._retcode
         self._retcode = ErrorCode(retcode)
         self.error_context = context
         self._duration_ns = int(duration_ns)
@@ -104,6 +124,22 @@ class Request:
         with self._cb_lock:
             self._done.set()
             callbacks, self._callbacks = self._callbacks, []
+            tel, meta = self._telemetry, self._tmeta
+            first = not self._recorded
+            self._recorded = True
+        if tel is not None and (first or (
+                prev == ErrorCode.OK and self._retcode != ErrorCode.OK)):
+            # one record a call; a completed call failing later (a run's
+            # failure latch) is amended, never counted twice.  A
+            # telemetry failure must never fail the call it observes
+            try:
+                tel.record(meta, self._duration_ns, self._retcode,
+                           self.error_context, amend=not first,
+                           overlap_ns=self.overlap_ns,
+                           inflight_depth=self.inflight_depth,
+                           ring_resident=self.ring_resident)
+            except Exception:  # pragma: no cover - defensive
+                pass
         for cb in callbacks:
             cb()
 
@@ -142,6 +178,15 @@ class Request:
                 self.error_context = {
                     "op": self.op_name,
                     "error": f"{type(e).__name__}: {e}"[:300]}
+                if self._telemetry is not None and self._tmeta is not None:
+                    # the completion-time record said OK: amend it, so
+                    # the failed placement is in the history and counted
+                    try:
+                        self._telemetry.record(
+                            self._tmeta, self._duration_ns, self._retcode,
+                            self.error_context, amend=True)
+                    except Exception:  # pragma: no cover - defensive
+                        pass
         finally:
             self.device_handle = None
 
@@ -186,16 +231,22 @@ class Request:
         return self._retcode
 
     def get_duration_ns(self) -> int:
-        """Host-measured launch duration of the call in nanoseconds."""
+        """Host-measured launch duration of the call in nanoseconds (the
+        JAX gang's runs to the end of the device work; ROADMAP §C)."""
         return self._duration_ns
 
     def check(self, context: str = "") -> None:
         if self._done.is_set():
             self.materialize()
         if self._retcode != ErrorCode.OK:
+            details = self.error_context
+            if self._telemetry is not None:
+                # a failure ships with its recent history
+                details = dict(details or {})
+                details["flight_recorder"] = self._telemetry.tail_dicts()
             raise ACCLError(
                 self._retcode, context or self.op_name,
-                details=self.error_context,
+                details=details,
             )
 
 

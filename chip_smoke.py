@@ -6,6 +6,7 @@
     python3 chip_smoke.py --dispatch      # phase 3i and facade_dispatch
     python3 chip_smoke.py --cp            # phase 3j, rows 16-18 at T = 4096
     python3 chip_smoke.py --topology      # phase 3k and facade_topology
+    python3 chip_smoke.py --telemetry     # phase 3l (telemetry, monitor)
 
 Phases (any failure exits non-zero):
 
@@ -223,6 +224,17 @@ Phases (any failure exits non-zero):
       to the unsplit call; async aggregates drained by ``flush()``); the
       eager register; ``autotune`` on the 4-rank group at 2 x 2 and its
       plan loaded (each bucket launches its winner's lowering);
+   l. the telemetry plane and the monitor (``telemetry_main_path``;
+      ``--telemetry`` runs it and its cost alone) on ``cuda_group(4)``,
+      float32: warm ``pallas_ring`` allreduces at 256 KiB and 64 MiB a
+      rank (one flight record a rank a call, a plan hit, 1 device
+      interaction, K1's plain fold exactly); a batched window of 8
+      allreduces inline and a stream of 3 such windows arming a
+      persistent run (each window logged once, 8 slots, retcodes OK,
+      slot trace ids equal to the records', ``mailbox_us`` on the run's
+      windows); every rank's Chrome trace merged by ``python -m
+      accl_tpu_torch.telemetry merge`` with its flows matched; the
+      scrape routes answering 200 and a trace stream's files loadable;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (K3's
    allgather and root-only gather, K4, row 11 and row 13 also by device
@@ -303,7 +315,12 @@ Phases (any failure exits non-zero):
    ``facade_topology``: flat against hierarchical p50 / p90 of the four
    collectives on the 2 x 4 group at 4 and 64 MiB a rank, the pipelined
    against the unsplit allreduce on 4 ranks at 64 MiB, and the
-   autotuner's wall time and winners.
+   autotuner's wall time and winners; and ``telemetry``: phase 3l's
+   figures and the plane's cost (``telemetry_cost``: the warm 256 KiB
+   ``pallas_ring`` call and launch p50 / p90 with the plane on against a
+   group built under ``ACCL_TELEMETRY=0``, 5 interleaved rounds of 30
+   calls, and the records' ``duration_ns`` p50 beside the same calls'
+   device time by CUDA events).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -314,6 +331,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -5695,6 +5713,475 @@ def topology_main_path(kc) -> dict:
     return {"launches": totals, "tune": tune, "steps": steps}
 
 
+# ---------------------------------------------------------------------------
+# phase 3l: the telemetry plane and the monitor (ROADMAP A11b)
+# ---------------------------------------------------------------------------
+
+#: phase 3l's two sizes a rank (float32): the collectives cell's 256 KiB
+#: and 64 MiB
+TELEM_SIZES = (64 * 1024, N_RANK)
+#: (e)'s rounds and calls a round, each group in turn
+TELEM_ROUNDS, TELEM_CALLS = 5, 30
+#: the cuda sleep holding the stream while the host posts (e)'s async
+#: calls (the device-time pass) or (b)'s stream of windows
+TELEM_SLEEP = 100_000_000
+
+
+def telem_records(a, since: int) -> list:
+    """Rank handle ``a``'s flight records appended after total ``since``."""
+    recs, _ = a._telemetry.recorder.since(since)
+    return recs
+
+
+def telemetry_main_path(kc) -> dict:
+    """Phase 3l: the telemetry plane and the monitor on ``cuda_group(4)``,
+    float32, each step's launches counted:
+
+    (a) warm ``pallas_ring`` allreduces (4 segments) at 256 KiB and 64 MiB
+        a rank: one flight record a rank a call (``plan_hit`` true,
+        ``algorithm`` ``pallas_ring``, retcode 0, one K1 launch), exactly
+        1 device interaction a warm call, results equal to K1's plain
+        fold;
+    (b) a batched window of 8 allreduces at 256 KiB (row 14), inline (the
+        card's ``pallas`` lowering), then a stream of 3 windows under
+        ``xla`` held behind a sleep kernel (the first inline, the next
+        arming a persistent run, the last a mailbox post): every window
+        logged once with 8 slots, retcodes OK, each slot's trace id the
+        flight record's of its call, ``mailbox_us`` on the run's windows;
+    (c) every rank's ``export_chrome_trace``, merged by ``python -m
+        accl_tpu_torch.telemetry merge`` (its flow check on): the merged
+        flows validate;
+    (d) ``start_monitor(port=0)``: ``/metrics``, ``/snapshot``, ``/trace``
+        and ``/cmdring`` answer 200; a group under ``ACCL_TRACE_STREAM``
+        writes a loadable trace file; no monitor or stream thread is
+        left after ``deinit``.
+
+    Returns the launch counts and the checks' figures."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import accl_tpu_torch as at
+    from accl_tpu_torch.constants import CMDRING_ST_OK
+    from accl_tpu_torch.telemetry import validate_flows
+
+    P = P_MAIN
+    SUM = at.ReduceFunction.SUM
+    out = {"launches": {k: 0 for k in kc.KERNELS}}
+    rng = np.random.default_rng(SEED + 41)
+
+    def step(what, rank_main, want):
+        """``rank_main`` on every rank; the kernels it launched must be
+        ``want`` and nothing else."""
+        before = {k: f.launches.count for k, f in kc.KERNELS.items()}
+        run_ranks(group, rank_main, f"3l {what}")
+        moved = {k: f.launches.count - before[k] for k, f in
+                 kc.KERNELS.items() if f.launches.count != before[k]}
+        if moved != want:
+            fail(f"3l {what}: launched {moved}, want {want}")
+        for k, v in moved.items():
+            out["launches"][k] += v
+
+    group = at.cuda_group(P)
+    ring = group[0].engine.gang.cmdring
+    try:
+        if not all(a.capabilities()["telemetry"] for a in group):
+            fail("3l: the telemetry plane is off")
+        # (a) warm pallas_ring allreduces
+        for a in group:
+            a.set_tuning("allreduce_algorithm", "pallas_ring")
+            a.set_tuning("ring_segments", 4)
+        warm = {}
+        for n in TELEM_SIZES:
+            data = rng.standard_normal((P, n), dtype=np.float32)
+            send = [a.create_buffer_from(data[r])
+                    for r, a in enumerate(group)]
+            recv = [a.create_buffer(n, np.float32) for a in group]
+
+            def call(a, r):
+                a.allreduce(send[r], recv[r], n)
+
+            step(f"cold {4 * n} B", call, {"ring_allreduce": 1})
+            step(f"prepared {4 * n} B", call, {"ring_allreduce": 1})
+            totals = [a._telemetry.recorder.total for a in group]
+            ic0 = group[0].capabilities()["device_interactions"]
+            step(f"warm {4 * n} B", call, {"ring_allreduce": 1})
+            ic = group[0].capabilities()["device_interactions"] - ic0
+            if ic != 1:
+                fail(f"3l warm {4 * n} B: {ic} device interactions")
+            for r, a in enumerate(group):
+                recs = telem_records(a, totals[r])
+                if len(recs) != 1:
+                    fail(f"3l warm {4 * n} B rank {r}: {len(recs)} records")
+                rec = recs[0]
+                if (rec.op, rec.plan_hit, rec.algorithm, rec.retcode,
+                        rec.count) != ("allreduce", True, "pallas_ring", 0,
+                                       n):
+                    fail(f"3l warm {4 * n} B rank {r}: {rec.as_dict()}")
+            xs = [b.tensor[:n] for b in send]
+            want = kc.ring_allreduce_plain(xs, SUM, 4)
+            for r in range(P):
+                compare(f"3l warm {4 * n} B rank {r}",
+                        recv[r].device_array(), want[r])
+            ids = {telem_records(a, totals[r])[0].trace_id
+                   for r, a in enumerate(group)}
+            if len(ids) != 1:
+                fail(f"3l warm {4 * n} B: ranks disagree on the trace id")
+            warm[4 * n] = {"interactions_per_call": ic,
+                           "records_per_rank": 1}
+            del send, recv, xs, want
+        out["warm"] = warm
+        for a in group:
+            a.set_tuning("allreduce_algorithm", "xla")
+
+        # (b) batched windows of 8 allreduces on the command ring
+        n = TELEM_SIZES[0]
+        send = [a.create_buffer_from(np.full(n, r + 1.0, np.float32))
+                for r, a in enumerate(group)]
+        outs = [[a.create_buffer(n, np.float32) for _ in range(8)]
+                for a in group]
+        exact = float(sum(range(1, P + 1)))
+
+        def window(a, r):
+            with a.batch():
+                reqs = [a.allreduce(send[r], d, run_async=True)
+                        for d in outs[r]]
+            for q in reqs:
+                if not q.wait(120) or not q.ring_resident:
+                    raise RuntimeError(f"{q.op_name} off the ring")
+                q.check()
+
+        def stream(a, r):
+            reqs = []
+            a.begin_batch()
+            try:
+                for _ in range(3):
+                    reqs += [a.allreduce(send[r], d, run_async=True)
+                             for d in outs[r]]
+                    a._dispatch_pending()
+            finally:
+                a.end_batch()
+            for q in reqs:
+                if not q.wait(120):
+                    raise RuntimeError("a stream window never completed")
+                q.check()
+
+        def logged(since_w, since_r, want_forms):
+            new = ring.stats()["windows_logged"] - since_w
+            log = ring.window_log()[-new:] if new > 0 else []
+            if [w["form"] for w in log] != want_forms:
+                fail(f"3l windows: forms {[w['form'] for w in log]}, "
+                     f"want {want_forms}")
+            ids = [rec.trace_id for rec in telem_records(group[0], since_r)]
+            for k, w in enumerate(log):
+                slots = w["slots"]
+                if len(slots) != 8 or any(
+                        s["retcode"] != CMDRING_ST_OK for s in slots):
+                    fail(f"3l window {w['window_id']}: {slots}")
+                if [s["trace_id"] for s in slots] != ids[8 * k:8 * k + 8]:
+                    fail(f"3l window {w['window_id']}: slot trace ids "
+                         f"{[s['trace_id'] for s in slots]}, records "
+                         f"{ids[8 * k:8 * k + 8]}")
+                if w["basis"] != "host":
+                    fail(f"3l window {w['window_id']}: basis {w['basis']}")
+            for r in range(P):
+                for d in outs[r]:
+                    if not bool((d.device_array() == exact).all()):
+                        fail(f"3l window rank {r}: a sum differs from "
+                             f"{exact}")
+            return log
+
+        w0 = ring.stats()["windows_logged"]
+        r0 = group[0]._telemetry.recorder.total
+        step("inline window", window, {"sequencer": 1})
+        inline = logged(w0, r0, ["inline"])
+        # the stream's buffers exist before the sleep (a fill syncs)
+        ring.lowering = "xla"
+        saved = ring.linger_s
+        ring.linger_s = 0.5
+        try:
+            w0 = ring.stats()["windows_logged"]
+            r0 = group[0]._telemetry.recorder.total
+            torch.cuda.synchronize()
+            torch.cuda._sleep(TELEM_SLEEP)
+            step("stream of 3 windows", stream,
+                 {"sequencer": 1, "sequencer_run": 1})
+            streamed = logged(w0, r0, ["inline", "mailbox", "mailbox"])
+        finally:
+            ring.linger_s = saved
+            ring.lowering = "pallas"
+        for w in streamed[1:]:
+            if "posted_us" not in w.get("mailbox_us", {}):
+                fail(f"3l run window {w['window_id']}: no mailbox_us")
+        out["windows"] = {
+            "inline_dur_us": inline[0]["dur_us"],
+            "stream_dur_us": [w["dur_us"] for w in streamed],
+            "stream_forms": [w["form"] for w in streamed],
+            "mailbox_us": [w.get("mailbox_us") for w in streamed],
+            "windows_logged": ring.stats()["windows_logged"],
+        }
+
+        # (c) per-rank traces through the merge CLI
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = []
+            for r, a in enumerate(group):
+                path = os.path.join(tmp, f"rank{r}.json")
+                a.export_chrome_trace(path)
+                paths.append(path)
+            merged_path = os.path.join(tmp, "merged.json")
+            proc = subprocess.run(
+                [sys.executable, "-m", "accl_tpu_torch.telemetry", "merge",
+                 "--out", merged_path] + paths,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                fail(f"3l merge CLI: {proc.stderr.strip()[-500:]}")
+            with open(merged_path) as f:
+                merged = json.load(f)["traceEvents"]
+        problems = validate_flows(merged)
+        if problems:
+            fail(f"3l merged flows: {problems[:4]}")
+        out["trace"] = {
+            "events": len(merged),
+            "flows": sum(e.get("cat") == "accl.flow" for e in merged),
+            "ring_spans": sum(e.get("cat") == "cmdring"
+                              and e.get("ph") == "X" for e in merged)}
+
+        # (d) the scrape service and the trace stream
+        port = group[0].start_monitor(port=0)
+        scraped = {}
+        for route in ("/metrics", "/snapshot", "/trace", "/cmdring"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                        timeout=30) as resp:
+                body = resp.read()
+                scraped[route] = [resp.status, len(body)]
+            if resp.status != 200:
+                fail(f"3l {route}: status {resp.status}")
+        if not group[0].stop_monitor():
+            fail("3l: the monitor thread did not stop")
+        out["scrapes"] = scraped
+    finally:
+        for a in group:
+            a.deinit()
+    with tempfile.TemporaryDirectory() as tmp:
+        saved_env = {k: os.environ.get(k) for k in (
+            "ACCL_TRACE_STREAM", "ACCL_TRACE_STREAM_INTERVAL_S")}
+        os.environ["ACCL_TRACE_STREAM"] = tmp
+        os.environ["ACCL_TRACE_STREAM_INTERVAL_S"] = "0.05"
+        try:
+            sg = at.cuda_group(2)
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        try:
+            bufs = [(a.create_buffer(1024, np.float32),
+                     a.create_buffer(1024, np.float32)) for a in sg]
+            for _ in range(3):
+                run_ranks(sg, lambda a, r: a.allreduce(*bufs[r]),
+                          "3l trace stream")
+            deadline = time.monotonic() + 30
+            streamed = 0
+            while time.monotonic() < deadline and streamed < 6:
+                streamed = 0
+                for name in os.listdir(tmp):
+                    if name.startswith("accl_trace_rank"):
+                        with open(os.path.join(tmp, name)) as f:
+                            streamed += sum(
+                                e.get("name") == "accl::allreduce"
+                                for e in json.load(f)["traceEvents"])
+                time.sleep(0.05)
+            if streamed != 6:
+                fail(f"3l trace stream: {streamed} allreduce events on "
+                     f"disk, want 6")
+        finally:
+            for a in sg:
+                a.deinit()
+        out["trace_stream_events"] = streamed
+    left = [t.name for t in threading.enumerate() if t.is_alive()
+            and t.name.startswith(("accl-monitor", "accl-trace-stream"))]
+    if left:
+        fail(f"3l: threads left after deinit: {left}")
+    return out
+
+
+def telemetry_cost(kc) -> dict:
+    """Phase 3l (e), the plane's cost: two ``cuda_group(4)``, one with the
+    plane on and one built under ``ACCL_TELEMETRY=0``, warm
+    ``pallas_ring`` allreduces at 256 KiB a rank, ``TELEM_ROUNDS`` rounds
+    of ``TELEM_CALLS`` synchronous calls each, the groups in turn
+    (alternating which goes first): rank 0's call p50 / p90 (host clock)
+    and the gang's launch p50 / p90 (``Request.get_duration_ns``); then
+    the records' ``duration_ns`` p50 (the on group's calls) beside the
+    calls' device time (CUDA events around ``TELEM_CALLS`` async calls
+    posted behind a sleep kernel, so the events bracket the launches'
+    device work and not the host's posting)."""
+    import numpy as np
+    import torch
+
+    import accl_tpu_torch as at
+
+    P, n = P_MAIN, TELEM_SIZES[0]
+    saved = os.environ.get("ACCL_TELEMETRY")
+    groups = {"on": at.cuda_group(P)}
+    os.environ["ACCL_TELEMETRY"] = "0"
+    try:
+        groups["off"] = at.cuda_group(P)
+    finally:
+        if saved is None:
+            os.environ.pop("ACCL_TELEMETRY", None)
+        else:
+            os.environ["ACCL_TELEMETRY"] = saved
+    if groups["off"][0].capabilities()["telemetry"]:
+        fail("3l (e): the off group records")
+    samples = {k: {"call": [], "launch": [], "device_ms": []}
+               for k in groups}
+    records = []
+    launches = {k: 0 for k in kc.KERNELS}
+    try:
+        bufs = {}
+        for k, g in groups.items():
+            for a in g:
+                a.set_tuning("allreduce_algorithm", "pallas_ring")
+                a.set_tuning("ring_segments", 4)
+            bufs[k] = [(a.create_buffer_from(np.full(n, r + 1.0,
+                                                     np.float32)),
+                        a.create_buffer(n, np.float32))
+                       for r, a in enumerate(g)]
+            for _ in range(3):  # cold, prepared, warm
+                run_ranks(g, lambda a, r, b=bufs[k]: a.allreduce(*b[r]),
+                          f"3l (e) warm-up {k}")
+        before = {k: f.launches.count for k, f in kc.KERNELS.items()}
+
+        def sync_pass(k):
+            g, b = groups[k], bufs[k]
+            totals = ([a._telemetry.recorder.total for a in g]
+                      if k == "on" else None)
+
+            def rank_main(a, r):
+                for _ in range(TELEM_CALLS):
+                    t = time.perf_counter()
+                    req = a.allreduce(*b[r])
+                    if r == 0:
+                        samples[k]["call"].append(time.perf_counter() - t)
+                        samples[k]["launch"].append(
+                            req.get_duration_ns() * 1e-9)
+
+            run_ranks(g, rank_main, f"3l (e) {k}")
+            if k == "on":
+                for r, a in enumerate(g):
+                    recs = telem_records(a, totals[r])
+                    if len(recs) != TELEM_CALLS:
+                        fail(f"3l (e) rank {r}: {len(recs)} records for "
+                             f"{TELEM_CALLS} calls")
+                    if r == 0:
+                        records.extend(rec.duration_ns * 1e-9
+                                       for rec in recs)
+
+        def device_pass(k):
+            g, b = groups[k], bufs[k]
+            gate = threading.Barrier(P)
+            ev = {}
+
+            def rank_main(a, r):
+                if r == 0:
+                    torch.cuda.synchronize()
+                    torch.cuda._sleep(TELEM_SLEEP)
+                    ev["start"] = torch.cuda.Event(enable_timing=True)
+                    ev["start"].record()
+                gate.wait(60)
+                reqs = [a.allreduce(*b[r], run_async=True)
+                        for _ in range(TELEM_CALLS)]
+                gate.wait(60)  # every launch is on the stream
+                if r == 0:
+                    ev["end"] = torch.cuda.Event(enable_timing=True)
+                    ev["end"].record()
+                for q in reqs:
+                    q.wait(60)
+                    q.check()
+
+            run_ranks(g, rank_main, f"3l (e) device {k}")
+            ev["end"].synchronize()
+            samples[k]["device_ms"].append(
+                ev["start"].elapsed_time(ev["end"]) / TELEM_CALLS)
+
+        for i in range(TELEM_ROUNDS):
+            order = ("on", "off") if i % 2 == 0 else ("off", "on")
+            for k in order:
+                sync_pass(k)
+            for k in order:
+                device_pass(k)
+        for name, f in kc.KERNELS.items():
+            launches[name] = f.launches.count - before[name]
+        host_us = telemetry_host_us(groups["on"][0], n)
+        want = 2 * TELEM_ROUNDS * 2 * TELEM_CALLS
+        if launches != {**{k: 0 for k in kc.KERNELS},
+                        "ring_allreduce": want}:
+            moved = {k: v for k, v in launches.items() if v}
+            fail(f"3l (e): launched {moved}, want ring_allreduce {want}")
+    finally:
+        for g in groups.values():
+            for a in g:
+                a.deinit()
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q)) * 1e3
+
+    res = {"bytes_per_rank": 4 * n, "rounds": TELEM_ROUNDS,
+           "calls_per_round": TELEM_CALLS}
+    for k, s in samples.items():
+        res[k] = {"call_p50_ms": pct(s["call"], 50),
+                  "call_p90_ms": pct(s["call"], 90),
+                  "launch_p50_ms": pct(s["launch"], 50),
+                  "launch_p90_ms": pct(s["launch"], 90),
+                  "device_ms_per_call": float(np.median(s["device_ms"]))}
+    res["record_duration_p50_ms"] = pct(records, 50)
+    res["host_us"] = host_us
+    res["launches"] = launches
+    return res
+
+
+def telemetry_host_us(a, n: int, iters: int = 2000) -> dict:
+    """The plane's pieces on the host, each timed alone over ``iters``
+    runs on this thread (host clock, microseconds a run): ``call_meta``,
+    a warm allreduce's intake facts (its trace id included), run on
+    every rank's thread; ``record``, one completion's record with the
+    monitor's observers (the skew tracker, the watchdog), and
+    ``record_bare`` without them, both run P times a call on the gang's
+    executing thread.  Run last on ``a``: the intake advances its trace
+    counters."""
+    from accl_tpu_torch.backends.base import CallOptions
+    from accl_tpu_torch.constants import (
+        DataType, ErrorCode, HostFlags, Operation)
+    from accl_tpu_torch.telemetry import Telemetry
+
+    import accl_tpu_torch as at
+
+    fn = int(at.ReduceFunction.SUM)
+    plan = a._plan_for(Operation.ALLREDUCE, a.comm, DataType.FLOAT32, n,
+                       None, HostFlags.NO_HOST, (fn,))
+    opts = CallOptions(op=Operation.ALLREDUCE, comm=a.comm, count=n,
+                       arithcfg=plan.arithcfg, plan=plan)
+    meta = a._call_meta(opts)
+    bare = Telemetry(a.rank, "CudaEngine")
+    out = {}
+    for name, fn_ in (
+            ("call_meta", lambda: a._call_meta(opts)),
+            ("record", lambda: a._telemetry.record(meta, 150_000,
+                                                   ErrorCode.OK)),
+            ("record_bare", lambda: bare.record(meta, 150_000,
+                                                ErrorCode.OK))):
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn_()
+        out[name] = (time.perf_counter() - t) / iters * 1e6
+    return out
+
+
 def whole_ar(d4, device):
     """The exact allreduce of ``d4``'s rows at N_RANK, on ``device``."""
     import numpy as np
@@ -5850,6 +6337,21 @@ def main() -> int:
             "autotune": topo["tune"], **topology_latency()}}))
         print(f"facade_topology timing ({time.time() - t0:.1f} s)",
               flush=True)
+        return 0
+    if sys.argv[1:] == ["--telemetry"]:  # phase 3l and its cost alone
+        probe_phase(kc)
+        print(f"built {kc.build_all(['ring', 'cmdring'])}", flush=True)
+        t0 = time.time()
+        telem = telemetry_main_path(kc)
+        print(f"telemetry path ok ({time.time() - t0:.1f} s): launches "
+              f"{ {k: v for k, v in telem['launches'].items() if v} }",
+              flush=True)
+        t0 = time.time()
+        print(json.dumps({"telemetry": {
+            "card": smi.stdout.strip().splitlines()[0],
+            **{k: v for k, v in telem.items() if k != "launches"},
+            "cost": telemetry_cost(kc)}}))
+        print(f"telemetry timing ({time.time() - t0:.1f} s)", flush=True)
         return 0
     if sys.argv[1:] == ["--launch-path"]:  # the launch path alone
         if not kc.probe_copy(torch.ones(8, 128, device=dev)).eq(1).all():
@@ -6082,13 +6584,18 @@ def main() -> int:
     print(f"topology path ok ({time.time() - t0:.1f} s): launches "
           f"{ {k: v for k, v in topo['launches'].items() if v} }; steps "
           f"{json.dumps(topo['steps'])}", flush=True)
-    # each kernel's launches over the probe's and the twelve paths' runs
+    t0 = time.time()
+    telem = telemetry_main_path(kc)
+    print(f"telemetry path ok ({time.time() - t0:.1f} s): launches "
+          f"{ {k: v for k, v in telem['launches'].items() if v} }",
+          flush=True)
+    # each kernel's launches over the probe's and the thirteen paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k]
                 + ringed["launches"][k] + serve["launches"][k]
                 + train["launches"][k] + cp["launches"][k] + compressed[k]
                 + converged[k]
                 + p2p[k] + seqp["launches"][k] + dispatched[k]
-                + topo["launches"][k] + probed[k]
+                + topo["launches"][k] + telem["launches"][k] + probed[k]
                 for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
@@ -6231,6 +6738,8 @@ def main() -> int:
         })
         if topo["launches"][name]:  # phase 3k's share
             kernels[-1]["launches_topology"] = topo["launches"][name]
+        if telem["launches"][name]:  # phase 3l's share
+            kernels[-1]["launches_telemetry"] = telem["launches"][name]
         if name == "sequencer":  # the other windows of the bounds table
             kernels[-1].update({
                 "device_ms": seq["device_ms"],
@@ -6466,6 +6975,12 @@ def main() -> int:
         "card": smi.stdout.strip().splitlines()[0],
         "autotune": topo["tune"], **topology_latency()}}))
     print(f"facade_topology timing ({time.time() - t1:.1f} s)", flush=True)
+    t1 = time.time()
+    print(json.dumps({"telemetry": {
+        "card": smi.stdout.strip().splitlines()[0],
+        **{k: v for k, v in telem.items() if k != "launches"},
+        "cost": telemetry_cost(kc)}}))
+    print(f"telemetry timing ({time.time() - t1:.1f} s)", flush=True)
     facade = facade_compressed_latency([1024 * 1024, N_RANK])
     print(json.dumps({"facade_compressed": {
         "card": smi.stdout.strip().splitlines()[0], "rows": facade}}))

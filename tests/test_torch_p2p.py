@@ -432,7 +432,10 @@ def test_unmatched_post_times_out_as_jax(kind, jax2, port2):
             else at.ErrorCode.SEND_TIMEOUT)
     assert int(want.code) == int(code) and got.code == code
     keys = ("op", "comm", "peer")
-    assert set(got.details) == {"op", "comm", "peer", "elapsed_s"}
+    # JAX's keys, the flight recorder's tail among them
+    assert set(got.details) == set(want.details) == {
+        "op", "comm", "peer", "elapsed_s", "flight_recorder"}
+    assert got.details["flight_recorder"][-1]["retcode_name"] == code.name
     assert {k: got.details[k] for k in keys} == {
         k: want.details[k] for k in keys}
     assert 0.2 <= got.details["elapsed_s"] and waited < 5.0
