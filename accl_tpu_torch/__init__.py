@@ -17,5 +17,24 @@ from .constants import (  # noqa: F401
     ReduceFunction,
     TuningKey,
 )
+from .contract import (  # noqa: F401
+    ContractVerifier,
+    VERIFY_ENV,
+    VERIFY_INTERVAL_ENV,
+    call_fingerprint,
+)
 from .core import ACCL, cuda_group  # noqa: F401
+from .faults import (  # noqa: F401
+    FAULT_PLAN_ENV,
+    FaultAction,
+    FaultInjector,
+    FaultPlan,
+    FaultRule,
+    PeerDeadError,
+)
+from .membership import (  # noqa: F401
+    CircuitBreaker,
+    ELASTIC_ENV,
+    MembershipView,
+)
 from .request import Request  # noqa: F401

@@ -1,9 +1,10 @@
 """Backend interface: what the facade needs from a collective engine.
 The port's copy of ``accl_tpu/backends/base.py`` (a subset of
 ``CallOptions``: no trace fields), with the device
-interaction counter (:class:`InteractionCounter`), the telemetry and
-monitor planes' engine defaults (the JAX base's) and the device stream
-ports (:class:`StreamPortMixin`)."""
+interaction counter (:class:`InteractionCounter`), the telemetry,
+monitor, fault, contract, membership and postmortem planes' engine
+defaults (the JAX base's) and the device stream ports
+(:class:`StreamPortMixin`)."""
 
 from __future__ import annotations
 
@@ -151,6 +152,44 @@ class BaseEngine:
         """How straggler samples cross ranks: ``"board"`` (a shared
         in-process judge on ``contract_anchor()``) or ``"local"``."""
         return "board" if self.contract_anchor() is not None else "local"
+
+    # -- the fault, contract, membership and postmortem planes -------------
+    #: the facade-armed ContractVerifier (None = verification off)
+    contract_verifier = None
+    #: the facade's membership view (None = off)
+    membership = None
+    #: the facade's health-transition hook ``fn(peer, old, new)``
+    on_health_transition = None
+
+    def set_contract_verifier(self, verifier) -> None:
+        """Arm (or with None disarm) engine-side contract checks: store
+        the handle (the facade's intake screen is the check)."""
+        self.contract_verifier = verifier
+
+    def set_membership(self, view) -> None:
+        """Arm (or with None disarm) the membership plane: store it."""
+        self.membership = view
+
+    def on_membership_cutover(self, plan: dict, addresses: tuple = (),
+                              comm_ids: tuple = ()) -> None:
+        """Engine-side shrink / grow hook: re-arm per-comm session state
+        over the new membership (none by default)."""
+
+    def on_membership_restore(self) -> None:
+        """Engine-side restore hook (soft_reset re-admission): the reset
+        itself already flushed engine state."""
+
+    def drain_inflight(self, timeout=None) -> bool:
+        """A drain point: block until every call this engine launched has
+        finished (bounded); False only on timeout."""
+        return True
+
+    def health_report(self, comm) -> dict:
+        """Per-peer health of ``comm``, keyed by comm-relative rank; the
+        default reports every peer healthy."""
+        return {i: {"state": "ok", "timeouts": 0, "failures": 0,
+                    "last_event": ""}
+                for i in range(comm.size) if i != comm.local_rank}
 
     def telemetry_report(self) -> dict:
         """Engine-side counters for ``ACCL.telemetry_snapshot()``: flat

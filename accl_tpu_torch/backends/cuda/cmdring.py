@@ -48,8 +48,27 @@ trace_events` renders the log as Perfetto spans flow-linked to the
 issuing calls.  A window's requests complete at launch (or at post into
 a card run), so its logged duration is the host's, up to the launch.
 
-What the JAX ring has and this one does not (yet): circuit breakers and
-chaos hooks (ROADMAP A11c) and QoS slot budgets (A11d).
+The fault planes, as the JAX ring's: each communicator has a circuit
+breaker (``breaker_for``, ``ACCL_CMDRING_COOLDOWN_S``); a failed window
+(a dispatch error, a run's failure latch) is a strike, and while the
+breaker is open the ring refuses the comm's batches, counted as
+``circuit_open`` (:func:`circuit_open_total` sums them over the
+process); after the cool-down one probe window runs inline, and its
+completion closes the breaker.  What takes a refused batch is the
+gang's choice: on the CPU JAX's host path, on the card never the plain
+lowering (``CudaGangContext._circuit_refused``).  The chaos hook shows
+each window to the fault injector installed by
+``contract.install_fault_plan`` as one ``RING`` pseudo-message:
+``corrupt`` and ``drop`` write an opcode outside every lowering's range
+into the first slot, so the sequencer reports BAD_OP (status word 2)
+and that slot's requests fail with INVALID_OPERATION at once;
+``delay`` sleeps a bounded time before the doorbell.  ``stats()``
+carries ``breakers`` and ``chaos_faults``; ``reset()`` closes every
+breaker.  ``on_failure(comm_id, error)`` is the facade's postmortem
+hook on a failed window.
+
+What the JAX ring has and this one does not (yet): QoS slot budgets
+(ROADMAP A11d).
 """
 
 from __future__ import annotations
@@ -96,6 +115,7 @@ from ...constants import (
     drain_deadline_s,
     dtype_to_torch,
 )
+from ...membership import CircuitBreaker
 from ...ops.cmdring import run_window, status_words
 from ...telemetry import _perf_to_epoch_us
 from ...ops.cuda.cmdring import (
@@ -120,6 +140,63 @@ BATCH_TUNING_KEYS = (
     "allreduce_algorithm", "reduce_algorithm", "bcast_algorithm",
     "scatter_algorithm", "gather_algorithm",
 )
+
+
+#: the ring's circuit breaker (the membership plane): strikes a comm's
+#: failed windows, opens after the threshold, re-probes after the
+#: cool-down
+CMDRING_BREAKER_COOLDOWN_ENV = "ACCL_CMDRING_COOLDOWN_S"
+CMDRING_BREAKER_COOLDOWN_S = 2.0
+CMDRING_BREAKER_THRESHOLD = 2
+
+#: ``circuit_open`` refusals over every ring of the process
+_circuit_opens = 0
+_circuit_lock = threading.Lock()
+
+
+def circuit_open_total() -> int:
+    """Batches an open breaker refused, over every ring of the
+    process."""
+    return _circuit_opens
+
+
+#: the opcode word chaos poisoning writes into a window's first slot: out
+#: of every lowering's range, so the sequencer reports BAD_OP
+_CHAOS_BAD_OPCODE = 0x7F
+#: the longest sleep a ``delay`` verdict may put before a doorbell
+_CHAOS_MAX_DELAY_S = 1.0
+
+
+class _RingMsgType:
+    """The message type a window shows the fault injector:
+    ``FaultRule(msg_type="RING")`` matches it, an int rule never does."""
+
+    name = "RING"
+
+    def __int__(self) -> int:
+        return -1
+
+    def __str__(self) -> str:
+        return "RING"
+
+
+_RING_MSG_TYPE = _RingMsgType()
+
+
+class _RingRefillMsg:
+    """One window as the fault injector sees it: the host encode (src 0)
+    ringing the doorbell; ``dst`` is None, so only wildcard-dst rules
+    reach it."""
+
+    __slots__ = ("comm_id", "src", "dst", "tag", "msg_type", "seqn")
+
+    def __init__(self, comm_id: int, seqn: int):
+        self.comm_id = comm_id
+        self.src = 0
+        self.dst = None
+        self.tag = 0
+        self.msg_type = _RING_MSG_TYPE
+        self.seqn = seqn
 
 
 def _env_mode() -> str:
@@ -348,6 +425,19 @@ class GangCommandRing:
         self.windows_logged = 0
         self.window_latency: Dict[int, int] = {}
         self.window_latency_sum_us = 0.0
+        # the postmortem hook: on_failure(comm_id, error) for a failed
+        # window (a dispatch error or a run's failure latch)
+        self.on_failure = None
+        # per-comm circuit breakers, and the chaos plane's verdicts applied
+        # to windows, by action
+        try:
+            cooldown = float(os.environ.get(CMDRING_BREAKER_COOLDOWN_ENV,
+                                            CMDRING_BREAKER_COOLDOWN_S))
+        except ValueError:
+            cooldown = CMDRING_BREAKER_COOLDOWN_S
+        self.breaker_cooldown_s = cooldown
+        self._breakers: Dict[int, CircuitBreaker] = {}
+        self.chaos_faults: Dict[str, int] = {}
 
     # -- introspection -------------------------------------------------------
     def supports(self, op) -> bool:
@@ -403,6 +493,7 @@ class GangCommandRing:
         return np.asarray(last[1]).copy()
 
     def stats(self) -> dict:
+        breakers = self._breaker_snapshots()
         with self._lock:
             mboxes = [s.run.mbox for s in self._sessions.values()
                       if s.run is not None]
@@ -436,6 +527,8 @@ class GangCommandRing:
                 if self.dispatches else 0.0,
                 "ops": dict(self.op_slots),
                 "fallbacks": dict(self.fallbacks),
+                "chaos_faults": dict(self.chaos_faults),
+                "breakers": breakers,
                 "mailbox_depth": mailbox_depth,
                 # the window log: windows logged, the latency histogram
                 # (host basis) and the log's tail
@@ -543,9 +636,40 @@ class GangCommandRing:
                     })
         return events
 
+    def _breaker_snapshots(self) -> dict:
+        with self._lock:
+            items = list(self._breakers.items())
+        # the breakers' locks are taken outside the ring's
+        return {str(c): brk.snapshot() for c, brk in items}
+
+    def breaker_for(self, comm_id: int) -> CircuitBreaker:
+        """The communicator's circuit breaker (made at first use)."""
+        with self._lock:
+            brk = self._breakers.get(comm_id)
+            if brk is None:
+                brk = self._breakers[comm_id] = CircuitBreaker(
+                    threshold=CMDRING_BREAKER_THRESHOLD,
+                    cooldown_s=self.breaker_cooldown_s)
+            return brk
+
+    def _window_failed(self, comm_id: int, error: str) -> None:
+        """A failed window: a strike on the comm's breaker, and the
+        facade's postmortem hook."""
+        self.breaker_for(comm_id).record_failure(error.split(":")[0])
+        hook = self.on_failure
+        if hook is not None:
+            try:
+                hook(comm_id, error)
+            except Exception:  # must never mask the failure path
+                pass
+
     def _fallback(self, reason: str) -> bool:
+        global _circuit_opens
         with self._lock:
             self.fallbacks[reason] = self.fallbacks.get(reason, 0) + 1
+        if reason == "circuit_open":
+            with _circuit_lock:
+                _circuit_opens += 1
         return False
 
     def note_fallback(self, reason: str) -> None:
@@ -582,13 +706,40 @@ class GangCommandRing:
         peers = getattr(self.gang, "peers", {})
         return max((e.timeout_s for e in peers.values()), default=30.0)
 
+    def wait_in_flight(self, end: float) -> bool:
+        """Wait until every window in flight has finished on the device
+        (its event or ticket passed, or its CPU run completed it), or
+        until the monotonic time ``end``; False when the time ran out."""
+        with self._lock:
+            windows = [w for s in self._sessions.values()
+                       for w in s.windows] + list(self._pending.values())
+        for w in windows:
+            while True:
+                ev = w.event
+                if ev is None:
+                    if w.done.wait(max(0.0, min(0.05,
+                                                end - time.monotonic()))):
+                        break
+                else:
+                    try:
+                        if ev.query():
+                            break
+                    except RuntimeError:
+                        break
+                    time.sleep(0.0005)
+                if time.monotonic() > end:
+                    return False
+        return True
+
     def reset(self) -> None:
-        """Halt every run (each finishes what it was posted and returns)
-        and realign every session's seqn and head at 0."""
+        """Halt every run (each finishes what it was posted and returns),
+        realign every session's seqn and head at 0 and close every
+        breaker (the full recovery re-closes the ring)."""
         with self._lock:
             runs = [s.run for s in self._sessions.values()
                     if s.run is not None]
             self._sessions.clear()
+            self._breakers.clear()
             self.resets += 1
             self._retired.extend(runs)
         for run in runs:
@@ -694,6 +845,14 @@ class GangCommandRing:
         if not self.enabled or npos == 0:
             return False
         gang = self.gang
+        # the circuit breaker: an open comm's batches are refused until
+        # the cool-down; half-open, one probe window runs inline (no run
+        # to wedge); the probe's completion closes it
+        brk = self.breaker_for(comm.id)
+        verdict = brk.allow()
+        if verdict == CircuitBreaker.OPEN:
+            return self._fallback("circuit_open")
+        probe = verdict == "probe"
         # an algorithm register (the table, or a call's tuning-plan
         # overlay) naming another lowering keeps its meaning: the ring is
         # a lowering of its own and must not shadow the requested one
@@ -774,11 +933,14 @@ class GangCommandRing:
             reqs_per_slot = [[e[1][i] for e in entries]
                              for i in range(lo, lo + len(window))]
             try:
-                self._dispatch_window(comm, window, reqs_per_slot, t0)
+                self._dispatch_window(comm, window, reqs_per_slot, t0,
+                                      probe=probe)
             except Exception as e:
                 # fail this window's slots and the rest; earlier windows
                 # were launched and stay completed.  Never re-execute.
                 traceback.print_exc()
+                self._window_failed(comm.id,
+                                    f"dispatch_error: {type(e).__name__}")
                 ctx = {"comm": comm.id,
                        "error": f"{type(e).__name__}: {e}"[:300]}
                 dt = time.perf_counter_ns() - t0
@@ -873,9 +1035,41 @@ class GangCommandRing:
             outs.append(row_o)
         return xs, outs, bufs
 
-    def _dispatch_window(self, comm, window, reqs_per_slot, t0) -> None:
+    def _chaos_hook(self, comm, slots_np: np.ndarray) -> np.ndarray:
+        """The chaos plane's reach into the ring: the injector installed
+        by ``contract.install_fault_plan`` sees the window as one ``RING``
+        message.  ``corrupt`` / ``drop`` return the words with the first
+        slot's opcode poisoned (the sequencer reports BAD_OP and those
+        requests fail at once, never a hang); ``delay`` sleeps a bounded
+        time before the doorbell."""
+        from ...contract import _injector_for
+
+        inj = _injector_for(None)
+        if inj is None:
+            return slots_np
+        v = inj.on_send(_RingRefillMsg(comm.id,
+                                       int(slots_np[0, _F["seqn"]])))
+        action = None
+        if v.corrupt or v.drop or v.dead_dst:
+            action = "corrupt" if v.corrupt else "drop"
+            slots_np = slots_np.copy()
+            slots_np[0, _F["opcode"]] = _CHAOS_BAD_OPCODE
+        if v.delay_s > 0:
+            with self._lock:
+                self.chaos_faults["delay"] = (
+                    self.chaos_faults.get("delay", 0) + 1)
+            time.sleep(min(float(v.delay_s), _CHAOS_MAX_DELAY_S))
+        if action is not None:
+            with self._lock:
+                self.chaos_faults[action] = (
+                    self.chaos_faults.get(action, 0) + 1)
+        return slots_np
+
+    def _dispatch_window(self, comm, window, reqs_per_slot, t0,
+                         probe: bool = False) -> None:
         """Encode the window and run it: inline (one launch, its requests
-        completing at launch with the window's event), or through a run."""
+        completing at launch with the window's event), or through a run
+        (never a breaker's probe)."""
         n = len(window)
         shape = self._window_shape(comm, window)
         with self._lock:
@@ -928,13 +1122,13 @@ class GangCommandRing:
             for rank, req in zip(rec.ranks, slot_reqs):
                 req._drain_hook = (lambda c=comm.id, w=rec, k=rank:
                                    self._drain_one(c, w, k))
-        slots_np = np.stack(slot_rows)
+        slots_np = self._chaos_hook(comm, np.stack(slot_rows))
         xs, outs, bufs = self._rows(window, shape)
         device = self.gang.device
         self._wait_written(session, rec, window)
         self.gang.interactions.bump()  # THE refill: one per window
         use_run = (self.lowering == "xla" and (live or streaming)
-                   and launches_for(comm.size, n) == 1)
+                   and not probe and launches_for(comm.size, n) == 1)
         try:
             if use_run:
                 rec.form = "mailbox"
@@ -1004,6 +1198,9 @@ class GangCommandRing:
         end = time.perf_counter_ns()
         dt = end - rec.t0
         self._log_window(rec, status, end)
+        # a completed window closes (or restores) the comm's breaker: a
+        # slot's BAD_OP is an opcode error, not a transport failure
+        self.breaker_for(rec.comm_id).success()
         codes = np.asarray(status)[:, 1]
         for k, slot_reqs in enumerate(rec.reqs):
             code = (ErrorCode.OK if int(codes[k]) == CMDRING_ST_OK
@@ -1019,6 +1216,7 @@ class GangCommandRing:
         end = time.perf_counter_ns()
         dt = end - rec.t0
         self._log_window(rec, None, end, error=reason)
+        self._window_failed(rec.comm_id, reason)
         ctx = {"error": reason[:300]}
         for slot_reqs in rec.reqs:
             for req in slot_reqs:

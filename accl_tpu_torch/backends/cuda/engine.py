@@ -39,6 +39,15 @@ read, as the JAX engine's ``defer_store`` delivery does.  Every rank
 shares the device, so the hop is a device copy; a hop between two
 devices is not ported (ROADMAP B14 / A6) and fails the pair.  The stream
 ports hold host bytes, as in the JAX package (:class:`StreamPortMixin`).
+
+Faults, as the JAX gang's: a slot not assembled by the gang's timeout
+completes with RECEIVE_TIMEOUT naming the absent ranks, each of which
+takes a strike in the health map (two make it dead, and later calls
+addressing it fail at intake); ``RESET`` of 1 (``ACCL.soft_reset``)
+drains the device work and abandons the slots, sequence numbers, health
+map and ring sessions; a contract verdict fails a communicator's parked
+slots (``contract_fail``); a membership cutover realigns a reshaped
+communicator's sequence (``realign``).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import traceback
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -76,6 +86,7 @@ from ...constants import (
     drain_deadline_s,
     dtype_to_torch,
 )
+from ...membership import CircuitBreaker
 from ...ops import driver as opdriver
 from ...ops.cuda.combine import combine as kernel_combine
 from ...ops.wire import wire_lane_roundtrip_rows
@@ -401,6 +412,18 @@ class P2PChannel:
             return {"send": sum(map(len, self._sends.values())),
                     "recv": sum(map(len, self._recvs.values()))}
 
+    def dump_parked(self) -> List[str]:
+        """One ``rxbuf`` line per unmatched post, as the JAX channel
+        dumps them (a parked send holds its payload alive)."""
+        lines = []
+        with self._lock:
+            for kind, table in (("SEND", self._sends),
+                                ("RECV", self._recvs)):
+                for (comm_id, tag, src, dst), entries in table.items():
+                    lines += [f"rxbuf p2p-{kind} comm={comm_id} tag={tag} "
+                              f"src={src} dst={dst} PARKED"] * len(entries)
+        return lines
+
     def post_send(self, key, payload, request, timeout_s=None) -> None:
         t0 = time.perf_counter_ns()
         match = None
@@ -510,6 +533,122 @@ class P2PChannel:
         sreq.complete(ErrorCode.OK, max(t1 - send_t0, 1))
 
 
+class _GangSlot:
+    """One gang event being assembled: each rank's entry, the world it
+    waits for, its sequence number and reset generation, and the deadline
+    of its watchdog (``comm`` names the absent ranks when it fires)."""
+
+    __slots__ = ("calls", "world", "seq", "gen", "deadline", "comm")
+
+    def __init__(self, world: int, seq: int, gen: int, timeout_s: float,
+                 comm: Communicator):
+        self.calls: Dict[int, tuple] = {}
+        self.world = world
+        self.seq = seq
+        self.gen = gen
+        self.deadline = time.monotonic() + timeout_s
+        self.comm = comm
+
+    def requests(self):
+        """Every request parked in the slot (batch entries hold lists)."""
+        for _, req in self.calls.values():
+            if isinstance(req, list):
+                yield from req
+            else:
+                yield req
+
+
+class _SlotWatchdog:
+    """The gang's slot timers: one deadline a slot being assembled, on one
+    daemon thread (``accl-gang-watchdog``), which fires ``fire(key, slot)``
+    at a slot's deadline unless the slot was cancelled (it assembled, or
+    a reset or a verdict took it).  Arming wakes the thread only for a
+    deadline earlier than the one it sleeps to, so a warm call, whose
+    slot assembles long before its deadline, costs a dict insert and
+    delete, never a thread wake-up.  The thread is started by an arm and
+    exits once nothing was armed for a second, or at ``stop``."""
+
+    _IDLE_S = 1.0
+
+    def __init__(self, fire):
+        self._fire = fire
+        self._cv = threading.Condition()
+        self._armed: Dict[tuple, _GangSlot] = {}
+        self._thread: Optional[threading.Thread] = None
+        self._stop = False
+        self._wake_at = float("inf")  # when the sleeping thread wakes
+        self._last_arm = 0.0
+
+    def arm(self, key: tuple, slot: _GangSlot) -> None:
+        with self._cv:
+            self._armed[key] = slot
+            self._last_arm = time.monotonic()
+            self._stop = False
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(
+                    target=self._loop, name="accl-gang-watchdog",
+                    daemon=True)
+                self._thread.start()
+            elif slot.deadline < self._wake_at:
+                self._cv.notify()
+
+    def cancel(self, key: tuple) -> None:
+        with self._cv:
+            self._armed.pop(key, None)
+
+    def clear(self) -> None:
+        with self._cv:
+            self._armed.clear()
+
+    def stop(self) -> None:
+        """Cancel every timer and end the thread (a later arm restarts
+        it)."""
+        with self._cv:
+            self._armed.clear()
+            self._stop = True
+            t, self._thread = self._thread, None
+            self._cv.notify()
+        if t is not None and t is not threading.current_thread():
+            t.join(2.0)
+
+    def _sleep_until(self, t: float, now: float) -> None:
+        """Wait on the condition (held) until ``t`` or a notify."""
+        self._wake_at = t
+        self._cv.wait(t - now)
+        self._wake_at = float("inf")
+
+    def _loop(self) -> None:
+        idle_since = time.monotonic()
+        while True:
+            due = []
+            with self._cv:
+                if self._stop:
+                    return
+                now = time.monotonic()
+                if not self._armed:
+                    idle_since = max(idle_since, self._last_arm)
+                    if now - idle_since >= self._IDLE_S:
+                        if self._thread is threading.current_thread():
+                            self._thread = None
+                        return
+                    self._sleep_until(idle_since + self._IDLE_S, now)
+                    continue
+                idle_since = now
+                nxt = min(s.deadline for s in self._armed.values())
+                if nxt > now:
+                    self._sleep_until(nxt, now)
+                    continue
+                for key, slot in list(self._armed.items()):
+                    if slot.deadline <= now:
+                        del self._armed[key]
+                        due.append((key, slot))
+            for key, slot in due:
+                try:
+                    self._fire(key, slot)
+                except Exception:  # a timer must never kill the thread
+                    traceback.print_exc()
+
+
 class CudaGangContext:
     """Shared per-process rendezvous point of every rank handle; every
     rank's buffers lie on ``device`` (the card unless the caller asks for
@@ -518,17 +657,39 @@ class CudaGangContext:
     A communicator's rank i is the rank whose ``Rank.session`` it names
     (JAX's ``submesh``); on one card every member's buffers share the
     device, so a sub-communicator of P members runs the same lowerings
-    over P rows.  Slots and sequence numbers are keyed by ``comm.id``."""
+    over P rows.  Slots and sequence numbers are keyed by ``comm.id``.
+
+    The fault plane, as the JAX gang's: a slot not assembled by its
+    deadline (``timeout_s``) completes with RECEIVE_TIMEOUT naming the
+    absent ranks, each of which takes a strike in the per-session
+    ``health`` map; two strikes mark a session dead, and later calls
+    addressing it fail at intake.  :meth:`soft_reset` drains the device
+    work and abandons every table; :meth:`contract_fail` fails a
+    communicator's parked slots on a contract verdict."""
+
+    _DEAD_AFTER_TIMEOUTS = 2
 
     def __init__(self, device=None):
         self._lock = threading.Lock()
-        self._slots: Dict[tuple, Dict[int, tuple]] = {}
+        self._slots: Dict[tuple, _GangSlot] = {}
         self._seq: Dict[Tuple[int, int], int] = {}
         # a communicator's gang events run in their sequence order, one at
         # a time (the last rank to arrive at event k may come before the
-        # one of event k - 1 has finished it)
+        # one of event k - 1 has finished it): _executed is the next
+        # sequence number to run, _finished the later ones already done
+        # (run, reaped by the watchdog or failed by a verdict), and
+        # _reset_gen the generation soft_reset bumps, which strands no
+        # waiter of an abandoned slot
         self._executed: Dict[int, int] = {}
+        self._finished: Dict[int, set] = {}
+        self._reset_gen = 0
         self._order = threading.Condition()
+        self.timeout_s = DEFAULT_TIMEOUT_S
+        self.watchdog = _SlotWatchdog(self._slot_expired)
+        # per-session health, fed by the slot watchdog; soft_reset
+        # clears it
+        self.health: Dict[int, dict] = {}
+        self._health_listeners: list = []
         self.tuning = dict(TUNING_DEFAULTS)
         # bumped by every register write: prepared state parked on a plan
         # under an older register set is rebuilt, never served
@@ -540,7 +701,50 @@ class CudaGangContext:
         # by session (the destination of a stream_put)
         self.p2p = P2PChannel()
         self.peers: Dict[int, "CudaEngine"] = {}
+        self.live: set = set()  # sessions whose engine is not shut down
 
+    # -- the health map ------------------------------------------------------
+    def add_health_listener(self, fn) -> None:
+        """Register ``fn(session, old, new)``, called on every health
+        transition (the membership plane's hook, one a rank handle)."""
+        if fn not in self._health_listeners:
+            self._health_listeners.append(fn)
+
+    def remove_health_listener(self, fn) -> None:
+        """Deregister (engine deinit): the gang outlives its handles."""
+        if fn in self._health_listeners:
+            self._health_listeners.remove(fn)
+
+    def _health_note_absent(self, session: int) -> None:
+        h = self.health.setdefault(
+            session, {"state": "ok", "timeouts": 0, "failures": 0,
+                      "last_event": ""})
+        old = h["state"]
+        h["timeouts"] += 1
+        h["last_event"] = "gang_timeout"
+        h["state"] = ("dead" if h["timeouts"] >= self._DEAD_AFTER_TIMEOUTS
+                      else "suspect")
+        if h["state"] != old:
+            for fn in list(self._health_listeners):
+                try:
+                    fn(session, old, h["state"])
+                except Exception:  # a listener must never fail the gang
+                    pass
+
+    def dead_rank_in(self, comm: Communicator) -> Optional[int]:
+        """Comm-relative rank of a member other than the local one that
+        the health map holds dead, or None."""
+        if not self.health:
+            return None
+        for i, r in enumerate(comm.ranks):
+            if i == comm.local_rank:
+                continue
+            h = self.health.get(r.session)
+            if h is not None and h["state"] == "dead":
+                return i
+        return None
+
+    # -- gang assembly -------------------------------------------------------
     def submit(self, comm: Communicator, options: CallOptions,
                request: Request) -> None:
         self._submit_entry(comm, (options, request))
@@ -555,33 +759,198 @@ class CudaGangContext:
 
     def _submit_entry(self, comm: Communicator, entry: tuple) -> None:
         with self._lock:
+            dead = self.dead_rank_in(comm)
+            if dead is not None:
+                h = dict(self.health.get(comm.ranks[dead].session, {}))
+        if dead is not None:
+            # fail fast: a member is dead, so a slot would only burn the
+            # deadline again.  No sequence number is consumed; recovery
+            # is the collective soft_reset
+            ctx = {"comm": comm.id, "peer": dead,
+                   "attempts": h.get("timeouts", 0), "elapsed_s": 0.0}
+            opts = entry[0] if isinstance(entry[0], list) else [entry[0]]
+            reqs = entry[1] if isinstance(entry[1], list) else [entry[1]]
+            for o, req in zip(opts, reqs):
+                req.complete(ErrorCode.RECEIVE_TIMEOUT,
+                             context=dict(ctx, op=o.op.name))
+            return
+        with self._lock:
             seq_key = (comm.id, comm.local_rank)
             seq = self._seq.get(seq_key, 0)
             self._seq[seq_key] = seq + 1
             slot_key = (comm.id, seq)
-            slot = self._slots.setdefault(slot_key, {})
-            slot[comm.local_rank] = entry
-            ready = len(slot) == comm.size
+            slot = self._slots.get(slot_key)
+            arm = False
+            if slot is None:
+                slot = _GangSlot(comm.size, seq, self._reset_gen,
+                                 self.timeout_s, comm)
+                self._slots[slot_key] = slot
+                arm = comm.size > 1  # one watchdog a slot
+            slot.calls[comm.local_rank] = entry
+            ready = len(slot.calls) == slot.world
             if ready:
                 del self._slots[slot_key]
         if ready:
+            self.watchdog.cancel(slot_key)
             with self._order:
-                while self._executed.get(comm.id, 0) != seq:
+                while (self._executed.get(comm.id, 0) < seq
+                       and self._reset_gen == slot.gen):
                     self._order.wait()
+                stale = self._reset_gen != slot.gen
+            if stale:  # abandoned by a soft_reset while it waited
+                for req in slot.requests():
+                    if not req.done():
+                        req.complete(ErrorCode.RECEIVE_TIMEOUT)
+                return
             try:
-                self._execute(comm, slot)
+                self._execute(comm, slot.calls)
             finally:
-                with self._order:
-                    self._executed[comm.id] = seq + 1
-                    self._order.notify_all()
+                self._finish_seq(comm.id, seq, slot.gen)
+        elif arm:
+            self.watchdog.arm(slot_key, slot)
+
+    def _finish_seq(self, comm_id: int, seq: int, gen: int) -> None:
+        """Sequence number ``seq`` of a communicator is done (it ran, or
+        its slot was reaped or failed): the next one may run."""
+        with self._order:
+            if gen != self._reset_gen:
+                return
+            nxt = self._executed.get(comm_id, 0)
+            if seq < nxt:  # a late slot of a number already reaped
+                return
+            done = self._finished.setdefault(comm_id, set())
+            done.add(seq)
+            while nxt in done:
+                done.discard(nxt)
+                nxt += 1
+            self._executed[comm_id] = nxt
+            self._order.notify_all()
+
+    def _slot_expired(self, slot_key: tuple, slot: _GangSlot) -> None:
+        """A slot's watchdog: if it is still being assembled, every member
+        that never posted takes a strike and the slot's requests complete
+        with RECEIVE_TIMEOUT naming them."""
+        absent = []
+        with self._lock:
+            live = self._slots.get(slot_key) is slot
+            if live:
+                del self._slots[slot_key]
+                for r in range(slot.world):
+                    if r not in slot.calls:
+                        absent.append(r)
+                        self._health_note_absent(slot.comm.ranks[r].session)
+        if not live:
+            return
+        self._finish_seq(slot_key[0], slot.seq, slot.gen)
+        ctx = {"comm": slot_key[0],
+               "peer": absent if len(absent) != 1 else absent[0],
+               "elapsed_s": round(self.timeout_s, 3)}
+        for req in slot.requests():
+            req.complete(ErrorCode.RECEIVE_TIMEOUT,
+                         context=dict(ctx, op=req.op_name))
+
+    # -- recovery ------------------------------------------------------------
+    def drain_device(self, deadline_s: float, reset_ring: bool = False
+                     ) -> bool:
+        """Wait, bounded, for the device work the gang launched: every
+        command-ring window still in flight, then (on the card) every
+        kernel queued on the current stream.  A request completes at
+        launch, so this is the drain point a reset needs; ``reset_ring``
+        halts the ring's live runs (and realigns it) between the two, so
+        a run lingering on its mailbox returns instead of holding the
+        stream.  False when the bound ran out first."""
+        end = time.monotonic() + deadline_s
+        ok = self.cmdring.wait_in_flight(end)
+        if reset_ring:
+            self.cmdring.reset()
+        if self.device.type == "cuda":
+            ev = _record_event(self.device)
+            while not ev.query():
+                if time.monotonic() > end:
+                    return False
+                time.sleep(0.0005)
+        return ok
+
+    def soft_reset(self) -> None:
+        """The recovery reset (the reference's ``soft_reset``,
+        accl.cpp:57-89), collective by contract: every rank handle issues
+        it with nothing in flight, and each call idempotently clears the
+        shared tables.  The device work drains first (bounded, so a
+        wedged kernel cannot wedge recovery), the command ring halting
+        its runs and realigning at 0 before the stream drains; then the
+        parked slots, the sequence numbers and the health map go, the
+        register epoch bumps (prepared plan state dies), and every parked
+        call completes with RECEIVE_TIMEOUT (its gang never assembled)."""
+        self.drain_device(drain_deadline_s(self.timeout_s), reset_ring=True)
+        with self._lock:
+            slots = list(self._slots.values())
+            self._slots.clear()
+            self._seq.clear()
+            self.health.clear()
+            self.tuning_epoch += 1
+            with self._order:
+                self._reset_gen += 1
+                self._executed.clear()
+                self._finished.clear()
+                self._order.notify_all()
+        self.watchdog.clear()
+        for slot in slots:
+            for req in slot.requests():
+                if not req.done():
+                    req.complete(ErrorCode.RECEIVE_TIMEOUT)
+
+    def contract_fail(self, verdict: dict) -> None:
+        """The contract plane convicted a divergence on
+        ``verdict["comm"]``: every slot parked on it completes with
+        CONTRACT_VIOLATION now (the detecting rank fails before dispatch,
+        so its peers' parked calls would otherwise starve until the
+        watchdog).  Idempotent: every rank's verifier calls it."""
+        from ...contract import verdict_context
+
+        comm_id = verdict.get("comm")
+        with self._lock:
+            keys = [k for k in self._slots if k[0] == comm_id]
+            slots = [(k, self._slots.pop(k)) for k in keys]
+        for key, slot in slots:
+            self.watchdog.cancel(key)
+            self._finish_seq(comm_id, slot.seq, slot.gen)
+            for req in slot.requests():
+                if not req.done():
+                    req.complete(ErrorCode.CONTRACT_VIOLATION,
+                                 context=verdict_context(verdict,
+                                                         req.op_name))
+
+    def realign(self, comm_id: int, local_rank: int) -> None:
+        """A membership cutover re-shaped ``comm_id``: this rank's
+        sequence restarts at 0 under its new comm-relative rank, and so
+        does the comm's order of execution.  Every member realigns at its
+        cutover, before its first call in the new membership, and no
+        event of the new membership can assemble before the last member
+        has, so the restart strands nothing.  (JAX's gang keeps the old
+        numbering, so a joiner, which missed the old membership's calls,
+        never matches again: ROADMAP §C.)"""
+        with self._lock:
+            self._seq[(comm_id, local_rank)] = 0
+        with self._order:
+            self._executed[comm_id] = 0
+            self._finished.pop(comm_id, None)
+            self._order.notify_all()
+
+    def dump_state(self) -> List[str]:
+        """One ``rxbuf`` line per parked gang slot (a collective some rank
+        posted that never assembled), as the JAX gang dumps them."""
+        with self._lock:
+            return [f"rxbuf gang-slot comm={comm_id} seq={seq} PENDING "
+                    f"posted_ranks={sorted(slot.calls)} world={slot.world}"
+                    for (comm_id, seq), slot in self._slots.items()]
 
     @staticmethod
     def _sig(c: CallOptions) -> tuple:
         return (c.op, c.count, c.reduce_function, c.root_src, c.root_dst,
                 c.compression, c.fuse, c.fuse_param)
 
-    def _execute(self, comm: Communicator, slot) -> None:
-        entries = [slot[r] for r in range(comm.size)]
+    def _execute(self, comm: Communicator, calls: Dict[int, tuple]) -> None:
+        entries = [calls[r] for r in range(comm.size)]
         batched = [isinstance(e[0], list) for e in entries]
         if any(batched) and not all(batched):
             # one rank flushed a batch where another posted a single
@@ -631,6 +1000,10 @@ class CudaGangContext:
                       comm, [([c], [q]) for c, q in zip(calls, reqs)], 1,
                       t0=t0)):
                 return  # a one-slot window: the ring completed the calls
+            elif (self.cmdring.eager and self.cmdring.supports(lead.op)
+                  and self._circuit_refused(
+                      comm, [([c], [q]) for c, q in zip(calls, reqs)])):
+                return
             else:
                 code, event = self._run_op(comm, calls, lead)
         except Exception as e:  # the gang boundary: fail every rank's call
@@ -660,6 +1033,8 @@ class CudaGangContext:
 
             traceback.print_exc()
             handled = False
+        if not handled and self._circuit_refused(comm, entries):
+            return
         if not handled:
             handled = self._run_batch_fused(comm, entries, npos)
         if handled:
@@ -667,6 +1042,29 @@ class CudaGangContext:
         for i in range(npos):
             self._execute_calls(comm, [e[0][i] for e in entries],
                                 [e[1][i] for e in entries])
+
+    def _circuit_refused(self, comm: Communicator,
+                         entries: List[tuple]) -> bool:
+        """A batch the ring refused because the comm's breaker is open,
+        on the card: under the ``xla`` registers the ring was the batch's
+        kernel, and the plain lowering is no stand-in for a failing one,
+        so every request fails at once with INVALID_OPERATION naming
+        ``circuit_open`` (True).  A kernel register sends the batch on,
+        position by position, to that kernel; on the CPU it takes JAX's
+        host path (False for both)."""
+        if self.device.type != "cuda":
+            return False
+        brk = self.cmdring.breaker_for(comm.id)
+        if brk.state != CircuitBreaker.OPEN or any(
+                c.effective_tuning(self.tuning).get(k, "xla") != "xla"
+                for e in entries for c in e[0] for k in BATCH_TUNING_KEYS):
+            return False
+        context = {"comm": comm.id, "error": "circuit_open",
+                   "breaker": brk.snapshot()}
+        for _, reqs in entries:
+            for req in reqs:
+                req.complete(ErrorCode.INVALID_OPERATION, context=context)
+        return True
 
     def _execute_p2p_pair(self, comm: Communicator, calls: List[CallOptions],
                           reqs: List[Request]):
@@ -1156,7 +1554,9 @@ class CudaEngine(StreamPortMixin, BaseEngine):
         self.device = torch.device(device)
         self.session = int(session)
         self.timeout_s = DEFAULT_TIMEOUT_S
+        self._mbr_fwd = None
         gang.peers[self.session] = self
+        gang.live.add(self.session)
         self._init_streams()
 
     def start(self, options: CallOptions) -> Request:
@@ -1453,15 +1853,24 @@ class CudaEngine(StreamPortMixin, BaseEngine):
         fn = ConfigFunction(options.cfg_function)
         val = options.cfg_value
         if fn == ConfigFunction.RESET:
-            # the handle's init-time reset: a fresh gang has nothing to
-            # abandon (the recovery reset, soft_reset, is A11c's)
-            if val != 0:
-                return ErrorCode.COLLECTIVE_NOT_IMPLEMENTED
+            # 0: the handle's init-time reset, with nothing to abandon;
+            # 1 or more: the full flush of soft_reset
+            if val >= 1:
+                self.gang.soft_reset()
         elif fn == ConfigFunction.SET_TIMEOUT:
-            # the deadline of parked sends and recvs and of stream pops
+            # the deadline of parked sends and recvs and of stream pops,
+            # and the gang's slot watchdog
             if val <= 0:
                 return ErrorCode.CONFIG_ERROR
             self.timeout_s = float(val)
+            self.gang.timeout_s = float(val)
+        elif fn in (ConfigFunction.SET_RETRY_LIMIT,
+                    ConfigFunction.SET_RETRY_BACKOFF):
+            # validated only: the gang has no host retransmit (its ranks
+            # share a device), as JAX's device tier has none
+            if val < 0 or (val == 0
+                           and fn == ConfigFunction.SET_RETRY_BACKOFF):
+                return ErrorCode.CONFIG_ERROR
         elif fn == ConfigFunction.SET_MAX_EAGER_SIZE:
             # validated only: the gang has no eager protocol (one device,
             # no wire); the plan's eager verdict reads the handle's copy
@@ -1494,14 +1903,96 @@ class CudaEngine(StreamPortMixin, BaseEngine):
     def skew_exchange_mode(self) -> str:
         return "board"
 
+    # -- the contract, membership and postmortem planes ---------------------
+    def set_contract_verifier(self, verifier) -> None:
+        """A verdict must fail the gang's PARKED slots too: the detecting
+        rank raises before dispatch, so its peers' calls would otherwise
+        starve their slot until the watchdog."""
+        self.contract_verifier = verifier
+        if verifier is not None:
+            verifier.add_verdict_listener(self.gang.contract_fail)
+
+    def set_membership(self, view) -> None:
+        """Arm (or with None disarm) the membership plane: the gang's
+        health transitions forward to the facade's hook.  Disarming
+        removes the forwarder from the shared gang."""
+        self.membership = view
+        fwd = self._mbr_fwd
+        if view is None:
+            if fwd is not None:
+                self.gang.remove_health_listener(fwd)
+                self._mbr_fwd = None
+            return
+        if fwd is None:
+            def fwd(session, old, new, eng=self):
+                hook = eng.on_health_transition
+                if hook is not None:
+                    hook(session, old, new)
+
+            self._mbr_fwd = fwd
+            self.gang.add_health_listener(fwd)
+
+    def on_membership_cutover(self, plan: dict, addresses: tuple = (),
+                              comm_ids: tuple = ()) -> None:
+        """After a shrink or grow: drop the health entries of the evicted
+        and admitted sessions, clear the survivors' suspect strikes, and
+        halt the command ring's runs and sessions (they re-arm over the
+        new membership at the next window)."""
+        for s in tuple(plan.get("evict", ())) + tuple(plan.get("admit", ())):
+            self.gang.health.pop(s, None)
+        for h in list(self.gang.health.values()):
+            if h["state"] == "suspect":
+                h["state"] = "ok"
+                h["timeouts"] = 0
+        self.gang.cmdring.reset()
+
+    def drain_inflight(self, timeout=None) -> bool:
+        """A drain point: the gang's device work, bounded."""
+        return self.gang.drain_device(
+            timeout if timeout is not None
+            else drain_deadline_s(self.gang.timeout_s))
+
+    def health_report(self, comm: Communicator) -> Dict[int, dict]:
+        """Per-peer health from the gang's watchdog, keyed by
+        comm-relative rank."""
+        report: Dict[int, dict] = {}
+        for i, r in enumerate(comm.ranks):
+            if i == comm.local_rank:
+                continue
+            h = self.gang.health.get(r.session)
+            report[i] = dict(h) if h else {
+                "state": "ok", "timeouts": 0, "failures": 0,
+                "last_event": ""}
+        return report
+
+    def dump_rx_buffers(self) -> str:
+        """The gang's live rendezvous state, in the JAX gang's ``rxbuf``
+        lines: parked gang slots, unmatched p2p posts and undrained
+        stream ports (a clean engine prints no ``rxbuf`` line)."""
+        lines = ["CUDA gang rx state "
+                 f"(device={self.device}, "
+                 f"device_interactions={self.gang.interactions.read()}):"]
+        lines += self.gang.dump_state()
+        lines += self.gang.p2p.dump_parked()
+        with self._stream_cv:
+            for sid, chunks in sorted(self._streams.items()):
+                if chunks:
+                    lines.append(f"rxbuf stream-port {sid} "
+                                 f"depth={len(chunks)} UNDRAINED")
+        if len(lines) == 1:
+            lines.append("all slots IDLE")
+        return "\n".join(lines)
+
     def telemetry_report(self) -> dict:
         """The gang tier's counters for the telemetry snapshot, under the
         JAX gang's keys: pending rendezvous slots, the register epoch,
         parked p2p posts, undrained stream ports and the command ring's
-        ``stats()`` (its window log included).  The planes the port has
-        not yet report what the JAX gang reports with them off:
-        ``inflight`` and ``tenants`` empty (ROADMAP A11d), ``faults``
-        None (A11c)."""
+        ``stats()`` (its window log, breakers and chaos counts included).
+        ``faults`` is None, as the JAX gang reports it (the injector
+        reaches the gang through ``contract.install_fault_plan``); the
+        planes the port has not yet report what the JAX gang reports
+        with them off: ``inflight`` and ``tenants`` empty (ROADMAP
+        A11d)."""
         with self.gang._lock:
             pending_slots = len(self.gang._slots)
         with self._stream_cv:
@@ -1535,6 +2026,10 @@ class CudaEngine(StreamPortMixin, BaseEngine):
     def shutdown(self) -> None:
         """Cancel this rank's parked sends and recvs (their watchdogs stop
         and their requests fail), and halt and join every command-ring run
-        (no thread or kernel outlives the engine)."""
+        (no thread or kernel outlives the engine); the last engine of the
+        gang stops the slot watchdog."""
         self.gang.p2p.cancel(self.session)
         self.gang.cmdring.halt_sessions()
+        self.gang.live.discard(self.session)
+        if not self.gang.live:
+            self.gang.watchdog.stop()

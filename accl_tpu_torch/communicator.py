@@ -1,8 +1,10 @@
 """Communicators: ordered groups of ranks with per-peer session state.
-The port's copy of ``accl_tpu/communicator.py`` without the elastic-
-membership cutovers (shrink / grow / restore, ROADMAP A11c).  A
-communicator may carry a :class:`~accl_tpu_torch.topology.Topology` in
-its own rank space; :meth:`Communicator.split` derives the subcomm's.
+The port's copy of ``accl_tpu/communicator.py``, with the elastic-
+membership cutovers (:meth:`Communicator.shrink`, :meth:`~Communicator.
+grow`, :meth:`~Communicator.restore`).  A communicator may carry a
+:class:`~accl_tpu_torch.topology.Topology` in its own rank space;
+:meth:`Communicator.split` derives the subcomm's, and a shrink or grow
+carries it through the cutover.
 
 Several communicators may cover overlapping rank sets
 (``ACCL.create_communicator``, :meth:`Communicator.split`); the gang keys
@@ -53,10 +55,14 @@ class Communicator:
         # per-peer monotone sequence numbers (ordering for eager matching)
         self._outbound_seq: Dict[int, int] = {i: 0 for i in range(len(ranks))}
         self._inbound_seq: Dict[int, int] = {i: 0 for i in range(len(ranks))}
+        # the membership plane: the pre-shrink membership stashed by
+        # shrink() so soft_reset can restore it
+        self._full_ranks: Optional[List[Rank]] = None
+        self._full_local: Optional[int] = None
         # the slice / link-class descriptor in THIS communicator's rank
         # space, or None (flat): attached by the facade at construction
-        # or set_topology, derived by split; _full_topology is kept for
-        # the elastic restore path (A11c), which the port lacks yet
+        # or set_topology, derived by split, shrink and grow;
+        # _full_topology mirrors _full_ranks for the restore path
         self.topology = None
         self._full_topology = None
 
@@ -93,10 +99,116 @@ class Communicator:
         """Zero every per-peer sequence counter and start a fresh epoch
         (every member resets, so the counters realign)."""
         with self._lock:
-            self.epoch = next(_comm_epochs)
-            for i in self._outbound_seq:
-                self._outbound_seq[i] = 0
-                self._inbound_seq[i] = 0
+            self._fresh_epoch()
+
+    # -- the membership plane (accl_tpu_torch.membership) -------------------
+    def shrink(self, keep: Sequence[int]) -> Optional[Dict[int, int]]:
+        """Cut this communicator over IN PLACE to the surviving members
+        (``keep``: comm-relative ranks, local rank included): a fresh
+        epoch, every per-peer sequence counter at 0, the topology cut to
+        the survivors.  Returns ``{old comm-relative rank -> new}``; None
+        when the local rank is not a survivor (the evicted side never
+        shrinks)."""
+        keep = sorted(set(int(k) for k in keep))
+        for k in keep:
+            if not 0 <= k < self.size:
+                raise ValueError(f"survivor rank {k} out of range")
+        with self._lock:
+            if self.local_rank not in keep:
+                return None
+            if self._full_ranks is None:
+                self._full_ranks = list(self.ranks)
+                self._full_local = self.local_rank
+            translation = {old: new for new, old in enumerate(keep)}
+            self.ranks = [self.ranks[k] for k in keep]
+            self.local_rank = translation[self.local_rank]
+            if self.topology is not None:
+                if self._full_topology is None:
+                    self._full_topology = self.topology
+                self.topology = self.topology.subtopology(keep)
+            self._fresh_epoch()
+            return translation
+
+    def grow(self, admit: Sequence[int],
+             rank_info: Optional[Dict[int, Rank]] = None,
+             ) -> Optional[Dict[int, int]]:
+        """Cut this communicator over IN PLACE to a GROWN membership
+        (``admit``: world sessions).  Sessions of the pre-shrink
+        membership return to their original slots (so every member
+        derives the same order); new sessions need a :class:`Rank` in
+        ``rank_info`` and append in ascending session order.  Admitted
+        ranks land in singleton slices of the topology.  A fresh epoch,
+        zeroed counters; returns ``{old comm-relative rank -> new}``."""
+        admit = {int(s) for s in admit}
+        with self._lock:
+            base = (list(self._full_ranks) if self._full_ranks is not None
+                    else list(self.ranks))
+            current = {r.session for r in self.ranks}
+            target = current | admit
+            known = {r.session for r in base}
+            extras = []
+            for s in sorted(admit - known):
+                if rank_info is None or s not in rank_info:
+                    raise ValueError(
+                        f"admitted session {s} unknown to this "
+                        "communicator and no rank_info given")
+                extras.append(rank_info[s])
+            new_ranks = [r for r in base if r.session in target] + extras
+            old_index = {r.session: i for i, r in enumerate(self.ranks)}
+            translation = {old_index[r.session]: new
+                           for new, r in enumerate(new_ranks)
+                           if r.session in old_index}
+            local_session = self.ranks[self.local_rank].session
+            if self.topology is not None:
+                if self._full_topology is None:
+                    self._full_topology = self.topology
+                from .topology import Topology
+
+                subs = [[translation[r] for r in s if r in translation]
+                        for s in self.topology.slices]
+                subs = [s for s in subs if s]
+                covered = {r for s in subs for r in s}
+                subs += [[i] for i in range(len(new_ranks))
+                         if i not in covered]
+                self.topology = Topology(subs)
+            self.ranks = new_ranks
+            self.local_rank = next(i for i, r in enumerate(new_ranks)
+                                   if r.session == local_session)
+            if (self._full_ranks is not None
+                    and len(new_ranks) >= len(self._full_ranks)
+                    and known <= {r.session for r in new_ranks}):
+                # grown back to the stashed membership: nothing is left
+                # for soft_reset to re-admit
+                self._full_ranks = None
+                self._full_local = None
+            self._fresh_epoch()
+            return translation
+
+    def restore(self) -> bool:
+        """Undo every shrink: the full pre-shrink membership and topology
+        (soft_reset's re-admission).  False when it never shrank."""
+        with self._lock:
+            if self._full_ranks is None:
+                return False
+            self.ranks = list(self._full_ranks)
+            self.local_rank = int(self._full_local)
+            self._full_ranks = None
+            self._full_local = None
+            if self._full_topology is not None:
+                self.topology = self._full_topology
+                self._full_topology = None
+            self._fresh_epoch()
+            return True
+
+    @property
+    def shrunk(self) -> bool:
+        return self._full_ranks is not None
+
+    def _fresh_epoch(self) -> None:
+        """A cutover's fresh epoch and zeroed counters (lock held)."""
+        self.epoch = next(_comm_epochs)
+        self._outbound_seq = {i: 0 for i in range(len(self.ranks))}
+        self._inbound_seq = {i: 0 for i in range(len(self.ranks))}
 
     # -- derivation ---------------------------------------------------------
     def split(

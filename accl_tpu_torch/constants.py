@@ -35,15 +35,25 @@ class Operation(enum.IntEnum):
 
 class ConfigFunction(enum.IntEnum):
     """Sub-functions of Operation.CONFIG (the subset this port serves).
-    RESET is the handle's init-time reset (value 0), which a fresh gang
-    accepts with nothing to abandon; the recovery reset (``soft_reset``)
-    is not ported (ROADMAP A11c)."""
+
+    ``RESET`` with value 0 is the handle's light init-time reset, which a
+    fresh gang accepts with nothing to abandon; a value of 1 or more is
+    the FULL flush of ``ACCL.soft_reset``: the gang drains its device
+    work, then abandons its parked slots, sequence numbers, health map
+    and command-ring sessions.
+
+    ``SET_RETRY_LIMIT`` / ``SET_RETRY_BACKOFF`` are the retransmit knobs
+    of ``ACCL.set_retry_policy``; the gang has no host retransmit (its
+    ranks share a device), so it validates and stores them, as the JAX
+    gang does."""
 
     RESET = 0
     SET_TIMEOUT = 2
     SET_MAX_EAGER_SIZE = 3
     SET_MAX_RENDEZVOUS_SIZE = 4
     SET_TUNING = 5
+    SET_RETRY_LIMIT = 6
+    SET_RETRY_BACKOFF = 7
 
 
 class TuningKey(enum.IntEnum):
@@ -310,6 +320,12 @@ class ErrorCode(enum.IntFlag):
     TRANSPORT_ERROR = 1 << 18
     DEADLOCK_SUSPECTED = 1 << 20
     CONFIG_ERROR = 1 << 21
+    # a cross-rank divergence convicted by the contract plane
+    # (accl_tpu_torch.contract): some rank issued a different call
+    CONTRACT_VIOLATION = 1 << 22
+    # the membership plane (accl_tpu_torch.membership) cut the rank out:
+    # the call raced an eviction, or this handle was evicted
+    RANK_EVICTED = 1 << 23
 
     @staticmethod
     def describe(code: "ErrorCode") -> str:

@@ -41,6 +41,21 @@ an anomaly watchdog on every record and serves ``/metrics``,
 (or ``ACCL_MONITOR_PORT``), and streams trace files under
 ``ACCL_TRACE_STREAM``.  ``ACCL_TELEMETRY=0`` turns the plane off.
 
+The fault planes (``accl_tpu_torch.faults``, ``.contract``,
+``.membership``): a gang call whose peer never posts fails with
+RECEIVE_TIMEOUT at the timeout and strikes the peer, a dead peer fails
+later calls at intake (``capabilities()["health"]``,
+:meth:`ACCL.dump_communicator`), and :meth:`ACCL.soft_reset` (collective)
+recovers.  :meth:`ACCL.set_contract_verify` (or ``ACCL_VERIFY=1``)
+fingerprints every collective and convicts a diverging rank with
+CONTRACT_VIOLATION before it hangs its peers.  :meth:`ACCL.set_elastic`
+(or ``ACCL_ELASTIC=1``) turns a dead verdict into an eviction the
+survivors agree on: their calls fail once with RANK_EVICTED, they serve
+at the smaller size, and ``soft_reset`` restores the full membership;
+:meth:`ACCL.evict_rank` and :meth:`ACCL.join_rank` are the operator's
+levers.  Under ``ACCL_POSTMORTEM_DIR`` a structured failure writes an
+evidence bundle (``monitor.BlackBox``).
+
 The data path's topology plane: a handle takes a
 :class:`~accl_tpu_torch.topology.Topology` (``topology=``, or
 ``ACCL_TOPOLOGY`` / ``ACCL_SLICE_SIZE``; :meth:`ACCL.set_topology`), its
@@ -65,12 +80,14 @@ import os
 import queue
 import threading
 import time
+import weakref
 import zlib
 from typing import List, Optional, Sequence
 
 import torch
 
 from . import hierarchical as _hier
+from . import membership as _mbr
 from . import monitor as _monitor
 from . import wire as _wire
 from .arithconfig import DEFAULT_ARITH_CONFIG
@@ -111,7 +128,15 @@ from .constants import (
     dtype_to_numpy,
     dtype_to_torch,
 )
+from .contract import (
+    ContractVerifier,
+    anchored,
+    board_for,
+    env_enabled as _verify_env,
+    verdict_context,
+)
 from .errorfeedback import ResidualStore
+from .faults import HealthTransitions
 from .telemetry import (
     SCHEMA_VERSION,
     Telemetry,
@@ -141,6 +166,18 @@ def _wire_dtype_value(name: str) -> int:
     if name.upper() in DataType.__members__:
         return int(DataType[name.upper()])
     return int(as_datatype(name))
+
+
+def _weak(method):
+    """``method`` held weakly: the callback does nothing (None) once its
+    handle is gone."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args, **kwargs):
+        bound = ref()
+        return None if bound is None else bound(*args, **kwargs)
+
+    return call
 
 
 class ACCL:
@@ -200,11 +237,55 @@ class ACCL:
             self._monitor.tracker.begin_comm(self._world.id, local_rank,
                                              len(ranks))
             engine.set_skew_tracker(self._monitor.tracker)
+        # the contract plane (accl_tpu_torch.contract): the opt-in
+        # cross-rank verifier, armed by ACCL_VERIFY=1 or
+        # set_contract_verify(); every collective is fingerprinted into a
+        # per-comm digest the ranks compare on the gang's board
+        self._contract: Optional[ContractVerifier] = None
+        # the membership plane (accl_tpu_torch.membership): always-on
+        # sensing (health transitions, the membership snapshot); the
+        # acting half (shrink on a dead verdict, straggler demotion)
+        # arms by ACCL_ELASTIC=1 or set_elastic().  The agreement rides
+        # the gang's shared board.
+        anchor = engine.contract_anchor()
+        self._membership = _mbr.MembershipView(
+            rank=ranks[local_rank].session, world=len(ranks),
+            board=_mbr.board_for(anchor), ledger=_mbr.ledger_for(anchor),
+            send_fn=None)  # the board exchanges; the gang has no wire
+        self._membership.elastic = _mbr.env_elastic()
+        # the planes a handle owns, and the gang it shares, call back
+        # into it through weak methods: no reference cycle keeps a
+        # dropped handle (and its buffers) alive until a full collection
+        self._membership.handoff_fn = _weak(self._membership_handoff)
+        self._health_events = HealthTransitions()
+        self._demote_seq: dict = {}  # comm id -> routing call index
+        self._demoted_seen: set = set()  # (comm, rank) demotions counted
+        engine.set_membership(self._membership)
+        engine.on_health_transition = _weak(self._on_health_transition)
+        # the postmortem plane (monitor.BlackBox): an evidence bundle on a
+        # structured failure (CONTRACT_VIOLATION, RANK_EVICTED,
+        # DEADLOCK_SUSPECTED, a failed ring window), written only under
+        # ACCL_POSTMORTEM_DIR; the gang's rank handles solicit each other
+        # over a registry anchored on the gang
+        self._blackbox = None
+        if self._telemetry is not None:
+            pm_registry = anchored(anchor, "_accl_blackbox_registry", dict)
+            session = ranks[local_rank].session
+            if pm_registry is not None:
+                pm_registry[session] = _weak(self._postmortem_evidence)
+            self._blackbox = _monitor.BlackBox(
+                rank=session, world=len(ranks),
+                evidence_fn=_weak(self._postmortem_evidence),
+                peers_fn=((lambda reg=pm_registry: reg)
+                          if pm_registry is not None else None),
+                metrics=self._telemetry.metrics)
+            self._ring_hook = _weak(self._on_ring_failure)
+            engine.gang.cmdring.on_failure = self._ring_hook
         # the causal trace plane: per-comm collective sequence counters
         # and directed p2p channel counters (every rank advances them
         # alike, so every rank of a call derives the same id), the
-        # generation (re-keyed by soft_reset, ROADMAP A11c), the latest
-        # id per comm, and the open batch's parent id
+        # generation (re-keyed by soft_reset), the latest id per comm,
+        # and the open batch's parent id
         self._trace_seq: dict = {}
         self._p2p_seq: dict = {}
         self._trace_gen = 1
@@ -244,6 +325,8 @@ class ACCL:
         self._config(ConfigFunction.SET_MAX_RENDEZVOUS_SIZE,
                      max_rendezvous_size)
         self._initialized = True
+        if _verify_env():
+            self.set_contract_verify(True)
         if self._monitor is not None:
             if _monitor.env_port() is not None:
                 try:
@@ -320,6 +403,522 @@ class ACCL:
 
     def set_max_rendezvous_size(self, nbytes: int) -> None:
         self._config(ConfigFunction.SET_MAX_RENDEZVOUS_SIZE, nbytes)
+
+    # -- recovery (the reference's soft_reset) -------------------------------
+    def soft_reset(self) -> None:
+        """Abandon stale engine state after a failed or timed-out
+        collective (the reference's ``ACCL::soft_reset``,
+        accl.cpp:57-89).  Collective by contract: every rank handle calls
+        it, with nothing in flight, before any rank resumes work.  RESET
+        of 1 makes the gang drain its device work and clear its slots,
+        sequence numbers and health map; the facade then restores an
+        elastic shrink's full membership (a fresh epoch), clears the
+        demotions, realigns every per-comm counter (the wire seeds, the
+        communicators' sequences, the contract digests, the skew
+        baselines) and re-keys the trace plane's ids."""
+        self._config(ConfigFunction.RESET, 1)
+        # the membership plane: soft_reset is the restore point (every
+        # evicted rank re-admitted, a fresh epoch), collective like the
+        # reset itself
+        restored = self._membership.restore()
+        if restored is not None:
+            for comm in self._communicators:
+                if comm.restore() and self._contract is not None:
+                    self._contract.begin_comm(
+                        comm.id, comm.local_rank,
+                        tuple(r.session for r in comm.ranks), fresh=False)
+            self.engine.on_membership_restore()
+            self._plans.invalidate("membership_restore")
+            for s in restored.get("readmitted", ()):
+                self._health_events.note(s, "evicted", "restored")
+        elif self._membership.ledger is not None:
+            # demotion-only state clears too: the demote counter restarts
+            # at 0 below, and a stale latched decision must not replay
+            self._membership.ledger.reset()
+        self._demote_seq.clear()
+        self._demoted_seen.clear()
+        self._wire_ctr.clear()
+        for comm in self._communicators:
+            comm.reset_sequences()
+        if self._contract is not None:
+            # verdicts clear and a fresh digest generation starts
+            self._contract.reset()
+        if self._monitor is not None:
+            # skew baselines and standing verdicts belong to the old
+            # regime; the memberships survive
+            self._monitor.reset()
+            for comm in self._communicators:
+                self._monitor.tracker.begin_comm(comm.id, comm.local_rank,
+                                                 comm.size)
+        # the trace plane: a new generation re-keys every id (collective,
+        # so ids keep matching across ranks), and the postmortem latches
+        # clear
+        self._trace_gen += 1
+        self._trace_seq.clear()
+        self._p2p_seq.clear()
+        self._trace_last.clear()
+        if self._blackbox is not None:
+            self._blackbox.reset()
+
+    def set_retry_policy(self, limit: int, backoff_s: float = 0.05) -> None:
+        """The retransmit policy of the JAX package's emulated tiers; the
+        gang validates the knobs and keeps neither (its ranks share a
+        device, so there is no host retransmit)."""
+        self._config(ConfigFunction.SET_RETRY_LIMIT, limit)
+        self._config(ConfigFunction.SET_RETRY_BACKOFF, backoff_s)
+
+    # -- the contract plane (accl_tpu_torch.contract) ------------------------
+    def set_contract_verify(self, enabled: bool = True,
+                            interval: Optional[int] = None
+                            ) -> Optional[ContractVerifier]:
+        """Arm (or with ``enabled=False`` disarm) the cross-rank contract
+        verifier on this handle.  Collective by contract: every rank arms
+        it at the same point of its sequence with the same ``interval``
+        (default ``ACCL_VERIFY_INTERVAL``, 8).  Facade-local: no config
+        write, no device work; a call costs one crc32 and a ring append,
+        and every ``interval`` calls one board post."""
+        if not enabled:
+            v, self._contract = self._contract, None
+            if v is not None:
+                self.engine.set_contract_verifier(None)
+                v.close()
+            return None
+        if self._contract is not None:
+            if interval is None or interval == self._contract.interval:
+                return self._contract
+            self.set_contract_verify(False)
+        tel = self._telemetry
+        v = ContractVerifier(
+            rank=self._world.local_rank, world=self._world.size,
+            interval=interval,
+            board=board_for(self.engine.contract_anchor()),
+            tail_fn=tel.tail_dicts if tel is not None else None,
+            health_fn=lambda: self.engine.health_report(self._world))
+        self._contract = v
+        self.engine.set_contract_verifier(v)
+        # each comm's rank space (comm-relative blame), registered without
+        # a begin marker: arming is not a new comm instance
+        for comm in self._communicators:
+            v.begin_comm(comm.id, comm.local_rank,
+                         tuple(r.session for r in comm.ranks), fresh=False)
+        return v
+
+    def _contract_error(self, verdict: dict, context: str) -> ACCLError:
+        details = verdict_context(verdict, context)
+        if self._telemetry is not None:
+            details["flight_recorder"] = self._telemetry.tail_dicts()
+        return self._structured_failure(ACCLError(
+            ErrorCode.CONTRACT_VIOLATION, context, details=details))
+
+    def _contract_gate(self, options: CallOptions, context: str) -> None:
+        """The contract plane at intake: fingerprint the collective into
+        its comm's digest (exchanging at window boundaries) and fail
+        before dispatch on a standing verdict."""
+        c = self._contract
+        if (c is None or options.comm is None
+                or options.op not in self._CONTRACT_OPS):
+            return
+        cfg = options.arithcfg
+        opname = options.op.name.lower()
+        if options.fuse:
+            # a fused call diverges from its plain base op
+            opname += f".fused{int(options.fuse)}"
+        verdict = c.record(
+            op=opname, comm_id=options.comm.id,
+            dtype=cfg.uncompressed.name if cfg is not None else None,
+            count=options.count,
+            root=f"{options.root_src}/{options.root_dst}",
+            tag=options.tag)
+        if verdict is not None:
+            raise self._contract_error(verdict, context)
+
+    def _hier_fingerprint(self, op_name: str, comm: Communicator,
+                          dtype: DataType, count: int, root: int = 0,
+                          context: str = "") -> None:
+        """The contract record of a hierarchical call on its PARENT comm
+        (op ``"<op>.hier"``): a rank going flat where its peers went
+        hierarchical diverges within one window; the stages fingerprint
+        on their subcomms as any call does."""
+        c = self._contract
+        if c is None:
+            return
+        verdict = c.record(op=f"{op_name}.hier", comm_id=comm.id,
+                           dtype=dtype.name, count=count,
+                           root=f"{root}/0", tag=0)
+        if verdict is not None:
+            raise self._contract_error(verdict, context or op_name)
+
+    # -- the membership plane (accl_tpu_torch.membership) --------------------
+    def set_elastic(self, enabled: bool = True) -> None:
+        """Arm (or disarm) elastic membership: a ``dead`` health verdict
+        proposes eviction, a confirmed majority shrinks the communicators
+        at the next call boundary and the group serves at the new size,
+        and convicted stragglers are demoted out of the barrier's root.
+        Collective by contract (a lone elastic rank would shrink alone).
+        Also read from ``ACCL_ELASTIC=1`` at construction."""
+        self._membership.elastic = bool(enabled)
+
+    def evict_rank(self, rank: int, comm: Optional[Communicator] = None):
+        """Propose evicting ``rank`` (comm-relative in ``comm``, the world
+        by default): the operator's lever.  Collective by contract: every
+        survivor calls it; the eviction confirms by strict majority and
+        this call applies the cutover.  Returns the applied plan, or None
+        when confirmation did not arrive within ``ACCL_EVICT_CONFIRM_S``
+        (the proposal stands)."""
+        comm = comm or self._world
+        self._check_rank(comm, rank)
+        session = comm.ranks[rank].session
+        mv = self._membership
+        if session == self._world.ranks[self._world.local_rank].session:
+            mv.propose({session}, reason="evict_rank_self")
+            raise self._structured_failure(ACCLError(
+                ErrorCode.RANK_EVICTED, "evict_rank",
+                details={"membership": mv.evidence(), "rank": rank}))
+        mv.propose({session}, reason="evict_rank")
+        plan = mv.wait_confirmed(timeout=_mbr.env_confirm_s())
+        if plan is None:
+            return None
+        self._apply_cutover()
+        return plan
+
+    def suggest_root(self, comm: Optional[Communicator] = None) -> int:
+        """The lowest comm-relative rank not demoted as a straggler (the
+        gang's shared ledger holds the demotions): the advisory root for
+        callers that pick their own.  0 when nothing is demoted."""
+        comm = comm or self._world
+        demoted = set(self._membership.demoted(comm.id))
+        if self._membership.ledger is None and self._monitor is not None:
+            demoted |= set(self._monitor.slow_ranks(comm.id))
+        for r in range(comm.size):
+            if r not in demoted:
+                return r
+        return 0
+
+    def join_rank(self, timeout: Optional[float] = None):
+        """The candidate's side of elastic expansion: petition the group
+        for admission, wait (bounded, ``ACCL_JOIN_CONFIRM_S``) for the
+        strict-majority confirm, and cut over to the grown membership,
+        adopting the group's warm-handoff artifacts (contract baselines,
+        tuning plan, plan verdicts).  Survivors apply their half at their
+        next call boundary.  Returns the applied join record, or None
+        when no confirm arrived in time (the petition stands)."""
+        mv = self._membership
+        if not mv.elastic:
+            raise ACCLError(
+                ErrorCode.INVALID_OPERATION,
+                "join_rank needs elastic membership "
+                "(ACCL_ELASTIC=1 / set_elastic())",
+                details={"op": "join_rank"})
+        mv.petition_join()
+        plan = mv.wait_confirmed(
+            timeout=_mbr.env_join_s() if timeout is None else timeout)
+        if plan is None or plan.get("kind") != "join":
+            return None
+        return self._apply_cutover()
+
+    def join_decision(self) -> dict:
+        """The latest APPLIED join record, identical on every member:
+        safe to branch a collective sequence on."""
+        return self._membership.join_decision()
+
+    def _membership_handoff(self) -> dict:
+        """The warm-handoff artifacts a join's confirm carries to the
+        candidate: the contract baselines, the tuning plan, the plan
+        verdicts, the trace generation and the wire-seed counters."""
+        return {
+            "contract": (self._contract.export_handoff()
+                         if self._contract is not None else None),
+            "tuning_plan": (self._tuning_plan.to_json()
+                            if self._tuning_plan is not None else None),
+            "plan_verdicts": self._plans.export_verdicts(),
+            "trace_gen": self._trace_gen,
+            "wire_ctr": {str(k): v for k, v in self._wire_ctr.items()},
+        }
+
+    def _on_health_transition(self, peer, old: str, new: str) -> None:
+        """The gang's health-transition hook (its watchdog's thread):
+        record the edge, and under elastic membership turn a fresh
+        ``dead`` into an eviction proposal."""
+        self._health_events.note(peer, old, new)
+        mv = self._membership
+        if new != "dead" or not mv.elastic:
+            return
+        session = int(peer)
+        if session in mv.evicted:
+            return
+        mv.propose({session}, reason=f"health:{old}->dead",
+                   evidence={"peer": str(peer), "event": f"{old}->dead"})
+
+    def _apply_cutover(self) -> Optional[dict]:
+        """Cut over to the confirmed plan (one-shot: ``take_cutover``):
+        drain the device work, shrink every communicator that held an
+        evicted session (a fresh epoch), fold the ``__shrink__`` marker
+        into the contract digests, re-register the skew tracker's rank
+        spaces and let the gang drop its ring sessions.  A self-evicted
+        handle only marks."""
+        mv = self._membership
+        plan = mv.take_cutover()
+        if plan is None:
+            return None
+        if plan.get("kind") == "join":
+            return self._apply_join(plan)
+        evicted = set(plan["evict"])
+        if mv.self_evicted:
+            return plan
+        self.engine.drain_inflight()
+        shrunk = []
+        for comm in self._communicators:
+            sessions = [r.session for r in comm.ranks]
+            if not evicted & set(sessions):
+                continue
+            keep = [i for i, s in enumerate(sessions) if s not in evicted]
+            if comm.shrink(keep) is None:
+                continue
+            shrunk.append(comm.id)
+            self.engine.gang.realign(comm.id, comm.local_rank)
+            if self._contract is not None:
+                self._contract.shrink_comm(
+                    comm.id, comm.local_rank,
+                    tuple(r.session for r in comm.ranks), plan["epoch"])
+            if self._monitor is not None:
+                self._monitor.tracker.begin_comm(comm.id, comm.local_rank,
+                                                 comm.size)
+        self.engine.on_membership_cutover(plan, comm_ids=tuple(shrunk))
+        # no plan of the old membership may serve the shrunk one
+        self._plans.invalidate("membership_shrink")
+        for s in plan["evict"]:
+            self._health_events.note(s, "dead", "evicted")
+        if self._telemetry is not None:
+            self._telemetry.metrics.inc("accl_membership_evictions_total")
+        if self._blackbox is not None:
+            # one bundle an eviction, latched on the membership epoch
+            self._blackbox.capture(
+                "RANK_EVICTED", "membership_cutover",
+                details={"plan": plan},
+                key=("RANK_EVICTED", self._membership.epoch))
+        return plan
+
+    def _apply_join(self, plan: dict) -> dict:
+        """Apply a consumed JOIN record: grow every communicator that knew
+        an admitted session (original slots, a fresh epoch), migrate the
+        survivors' error-feedback residuals to it, rebase the contract
+        digests on the handoff's baseline with the ``__join__`` marker,
+        re-register the skew tracker, and re-arm the gang.  The candidate
+        also adopts the handoff's artifacts."""
+        mv = self._membership
+        admit = {int(s) for s in plan.get("admit") or ()}
+        local_session = self._world.ranks[self._world.local_rank].session
+        candidate = local_session in admit
+        handoff = plan.get("handoff") or {}
+        self.engine.drain_inflight()
+        cdoc = handoff.get("contract") or {}
+        grown = []
+        for comm in self._communicators:
+            known = ({r.session for r in comm._full_ranks or ()}
+                     | {r.session for r in comm.ranks})
+            hit = admit & known
+            if not hit:
+                continue
+            old_epoch = comm.epoch
+            comm.grow(hit)
+            grown.append(comm.id)
+            self.engine.gang.realign(comm.id, comm.local_rank)
+            if not candidate:
+                # the candidate's own residuals are stale by its absence
+                self._residuals.migrate_epoch(comm.id, old_epoch,
+                                              comm.epoch)
+            if self._contract is not None:
+                entry = (cdoc.get("comms") or {}).get(str(comm.id))
+                base = (None if entry is None
+                        else (entry.get("calls", 0), entry.get("digest", 0)))
+                self._contract.join_comm(
+                    comm.id, comm.local_rank,
+                    tuple(r.session for r in comm.ranks),
+                    plan.get("applied_epoch", mv.epoch), base=base)
+            if self._monitor is not None:
+                self._monitor.tracker.begin_comm(comm.id, comm.local_rank,
+                                                 comm.size)
+        if candidate:
+            # adopt the group's artifacts before the pool clears, so the
+            # first window meets the verdicts and generation it runs
+            if (self._contract is not None
+                    and cdoc.get("generation") is not None):
+                self._contract.adopt_generation(cdoc["generation"])
+            tp = handoff.get("tuning_plan")
+            if tp:
+                try:
+                    from .tuning import TuningPlan
+
+                    self.load_tuning_plan(TuningPlan.from_json(tp),
+                                          strict=False)
+                except Exception:  # a stale plan must never fail a join
+                    pass
+            try:
+                self._wire_ctr.update(
+                    {int(k): int(v)
+                     for k, v in (handoff.get("wire_ctr") or {}).items()})
+            except (TypeError, ValueError):
+                pass
+            gen = handoff.get("trace_gen")
+            if isinstance(gen, int) and gen > self._trace_gen:
+                self._trace_gen = gen
+        self.engine.on_membership_cutover(plan, comm_ids=tuple(grown))
+        # "membership_join" keeps the migrated residuals
+        self._plans.invalidate("membership_join")
+        if candidate:
+            self._plans.adopt_verdicts(handoff.get("plan_verdicts"))
+        for s in sorted(admit):
+            self._health_events.note(s, "evicted", "joined")
+        if self._telemetry is not None:
+            self._telemetry.metrics.inc("accl_membership_joins_total")
+        return plan
+
+    def _membership_report(self) -> dict:
+        """``telemetry_snapshot()["membership"]`` and the ``/membership``
+        route: the elastic state machine's snapshot and the scale
+        advisor's advisory recommendation (no arbiter yet: no tenant
+        histograms feed it)."""
+        doc = self._membership.snapshot()
+        doc["scale_advice"] = (
+            self._monitor.scale_advice(None, self._world.size)
+            if self._monitor is not None else None)
+        return doc
+
+    def _membership_intake(self, options: CallOptions, context: str) -> None:
+        """Before dispatch: apply a cutover confirmed between calls (every
+        survivor applies it before its next collective), and fail a
+        self-evicted handle's comm calls fast."""
+        mv = self._membership
+        comm = options.comm
+        if comm is None:
+            return
+        if mv.self_evicted and (
+                options.op in self._CONTRACT_OPS
+                or options.op in (Operation.SEND, Operation.RECV)):
+            raise self._structured_failure(ACCLError(
+                ErrorCode.RANK_EVICTED, context,
+                details={"membership": mv.evidence(), "comm": comm.id}))
+        if mv.elastic and mv.cutover_ready() and self._pending is None:
+            self._apply_cutover()
+
+    def _membership_after_failure(self, options: CallOptions, req: Request,
+                                  context: str) -> None:
+        """After a synchronous call failed: a timeout during an eviction
+        waits (bounded) for the confirm, applies the cutover and raises
+        RANK_EVICTED, so every survivor fails the same call and resumes
+        aligned at the new size.  Other failures pass through."""
+        mv = self._membership
+        if not mv.elastic or options.comm is None:
+            return
+        code = req.get_retcode()
+        if code & ErrorCode.RANK_EVICTED:
+            self._apply_cutover()
+            return
+        if not code & (ErrorCode.SEND_TIMEOUT | ErrorCode.RECEIVE_TIMEOUT):
+            return
+        if not mv.proposing():
+            return
+        plan = mv.wait_confirmed(timeout=_mbr.env_confirm_s())
+        if plan is None:
+            return  # unconfirmed: the raw timeout surfaces
+        self._apply_cutover()
+        details = {"membership": mv.evidence(), "comm": options.comm.id,
+                   "op": options.op.name}
+        if self._telemetry is not None:
+            details["flight_recorder"] = self._telemetry.tail_dicts()
+        raise self._structured_failure(ACCLError(
+            ErrorCode.RANK_EVICTED, context, details=details))
+
+    def _barrier_root(self, comm: Communicator) -> int:
+        """The barrier's gather root, routed around demoted stragglers:
+        decided from the shared judge's verdict and latched per (comm,
+        call index) on the shared ledger, so every rank reads the same
+        root.  0 unless elastic with a shared judge."""
+        mv = self._membership
+        if (not mv.elastic or mv.ledger is None or self._monitor is None
+                or not self._monitor.tracker.shared_judge):
+            return 0
+        seq = self._demote_seq.get(comm.id, 0)
+        self._demote_seq[comm.id] = seq + 1
+        judge = self._monitor.tracker.judge
+        slow = judge.slow_ranks(comm.id)
+        candidates = mv.ledger.candidates(comm.id) | set(slow)
+        recovered = {r: judge.recovered(comm.id, r)
+                     for r in sorted(candidates)}
+        decision = mv.demote_decision(comm.id, comm.size, seq, slow,
+                                      recovered)
+        metrics = self._telemetry.metrics if self._telemetry else None
+        for r in decision.get("restored", ()):
+            # re-admission lifts the standing verdict
+            judge.clear_slow(comm.id, r)
+            self._health_events.note(r, "demoted", "restored")
+            if metrics is not None:
+                metrics.inc("accl_membership_restores_total")
+            self._demoted_seen.discard((comm.id, r))
+        for r in decision.get("demoted", ()):
+            if (comm.id, r) not in self._demoted_seen:
+                self._demoted_seen.add((comm.id, r))
+                self._health_events.note(r, "ok", "demoted")
+                if metrics is not None:
+                    metrics.inc("accl_membership_demotions_total")
+        return int(decision.get("root", 0))
+
+    # -- the postmortem plane (monitor.BlackBox) -----------------------------
+    #: the structured failures that reach the BlackBox
+    _POSTMORTEM_CODES = (ErrorCode.CONTRACT_VIOLATION
+                         | ErrorCode.RANK_EVICTED
+                         | ErrorCode.DEADLOCK_SUSPECTED)
+
+    def _structured_failure(self, err: ACCLError) -> ACCLError:
+        """The postmortem hook every covered failure passes: capture one
+        evidence bundle (latched) and name it in
+        ``details["postmortem"]``.  One flag check when the plane is
+        off."""
+        bb = self._blackbox
+        if bb is None or not bb.enabled:
+            return err
+        if not err.code & self._POSTMORTEM_CODES:
+            return err
+        if err.code & ErrorCode.RANK_EVICTED:
+            code_name = "RANK_EVICTED"
+            # one bundle an eviction: keyed on the epoch it applies at
+            mv = self._membership
+            key = ("RANK_EVICTED",
+                   mv.epoch + (1 if mv.cutover_ready() else 0))
+        elif err.code & ErrorCode.CONTRACT_VIOLATION:
+            code_name = "CONTRACT_VIOLATION"
+            key = (code_name, err.details.get("comm"))
+        else:
+            code_name = "DEADLOCK_SUSPECTED"
+            key = (code_name, self._trace_gen)
+        path = bb.capture(code_name, context=str(err), details=err.details,
+                          key=key)
+        if path is not None:
+            err.details["postmortem"] = path
+        return err
+
+    def _postmortem_evidence(self) -> dict:
+        """This rank's evidence for a bundle: the flight recorder's tail
+        and the merged snapshot (the ring's window log, the membership
+        events, the skew baselines, the contract digests).  Bounded and
+        side-effect-free: peers call it from their capture."""
+        tel = self._telemetry
+        return {
+            "rank": self._world.local_rank,
+            "session": self._world.ranks[self._world.local_rank].session,
+            "tier": type(self.engine).__name__,
+            "flight_recorder": tel.tail_dicts(64) if tel else [],
+            "snapshot": self.telemetry_snapshot(),
+        }
+
+    def _on_ring_failure(self, comm_id: int, error: str) -> None:
+        """The command ring's failure hook (a dispatch error or a run's
+        failure latch): capture the ring's evidence."""
+        if self._blackbox is not None:
+            self._blackbox.capture(
+                "RING_FAILURE", f"cmdring comm {comm_id}",
+                details={"comm": comm_id, "error": error},
+                key=("RING_FAILURE", comm_id))
 
     def set_tuning(self, key, value) -> None:
         """Write a tuning register (any name of JAX's table, e.g.
@@ -530,6 +1129,13 @@ class ACCL:
                 # windows judge in its own rank space
                 self._monitor.tracker.begin_comm(comm.id, comm.local_rank,
                                                  comm.size)
+            if self._contract is not None:
+                # its rank space, and a begin marker in its digest: a rank
+                # that re-creates a subcomm its peers keep using diverges
+                # at the next window
+                self._contract.begin_comm(
+                    comm.id, comm.local_rank,
+                    tuple(r.session for r in comm.ranks))
         return comm
 
     # -- the topology plane (accl_tpu_torch.topology) ------------------------
@@ -559,8 +1165,8 @@ class ACCL:
     def capabilities(self) -> dict:
         """What this handle's engine can do, and its dispatch counters:
         the keys of the JAX facade's report that the port can fill
-        truthfully (the rest -- health, membership, the in-flight window
-        -- come with their planes, ROADMAP A11c-A11e)."""
+        truthfully (the rest -- the in-flight window and the tier's
+        feature bits -- come with their planes, ROADMAP A11d-A11e)."""
         engine = type(self.engine).__name__
         return {
             "engine": engine,
@@ -586,7 +1192,37 @@ class ACCL:
             "telemetry": self._telemetry is not None,
             "monitor": (self._monitor.service_snapshot()
                         if self._monitor is not None else None),
+            # the per-peer health of the world comm, fed by the gang's
+            # slot watchdog (a "dead" peer fails calls at intake), with
+            # the monitor's standing straggler verdicts as suspect_slow
+            "health": self._annotated_health(self._world),
+            # the membership plane's elastic state (the whole machine is
+            # telemetry_snapshot()["membership"])
+            "membership": {
+                "elastic": self._membership.elastic,
+                "epoch": self._membership.epoch,
+                "evicted": sorted(self._membership.evicted),
+                "demoted": self._membership.demoted(self._world.id),
+                "joins_total": self._membership.joins_total,
+            },
+            # the contract verifier, when armed
+            "contract_verify": (
+                None if self._contract is None else {
+                    "interval": self._contract.interval,
+                    "calls_verified": self._contract.calls_verified,
+                }),
         }
+
+    def _annotated_health(self, comm: Communicator) -> dict:
+        """The gang's health map of ``comm`` with the monitor plane's
+        standing straggler verdicts as ``suspect_slow`` annotations (an
+        annotation only: a slow rank never fails a call)."""
+        health = self.engine.health_report(comm)
+        if self._monitor is not None:
+            for r in self._monitor.slow_ranks(comm.id):
+                if r in health:
+                    health[r]["suspect_slow"] = True
+        return health
 
     # -- call plumbing -------------------------------------------------------
     def _resolve_arithcfg(self, dtype: DataType, compress_dtype) -> tuple:
@@ -643,6 +1279,11 @@ class ACCL:
         then ``wire_dtype``), the eager verdict, the pipelining and
         hierarchical verdicts and the algorithm snapshot; ``plan.engine``
         takes the gang's prepared state."""
+        # a cutover confirmed between calls applies before the plan is
+        # keyed: the plan takes the comm's new epoch and size
+        mv = self._membership
+        if mv.elastic and mv.cutover_ready() and self._pending is None:
+            self._apply_cutover()
         cdt = None if compress_dtype is None else as_datatype(compress_dtype)
         bucket = size_bucket(count)
         topo = comm.topology
@@ -820,6 +1461,10 @@ class ACCL:
     def _launch(self, options: CallOptions, run_async: bool,
                 context: str) -> Request:
         tel = self._telemetry
+        # a confirmed cutover applies before the call, and the contract
+        # fingerprint fails a diverging call before dispatch
+        self._membership_intake(options, context)
+        self._contract_gate(options, context)
         # the trace id is assigned at intake, before dispatch
         meta = self._call_meta(options) if tel is not None else None
         # a hierarchical stage dispatches at once, whatever batch the
@@ -847,8 +1492,17 @@ class ACCL:
         if not req.wait(timeout=deadline):
             raise self._deadlock_error(context, {
                 "op": options.op.name, "timeout_s": deadline})
-        req.check(context)
+        self._membership_after_failure(options, req, context)
+        self._check_failed(req, context)
         return req
+
+    def _check_failed(self, req: Request, context: str) -> None:
+        """``Request.check`` through the postmortem hook: a structured
+        failure surfacing on the synchronous path captures its bundle."""
+        try:
+            req.check(context)
+        except ACCLError as e:
+            raise self._structured_failure(e)
 
     # -- the causal trace plane (accl_tpu_torch.telemetry flows) ------------
     #: the collectives every rank of a communicator calls in one order:
@@ -980,8 +1634,8 @@ class ACCL:
         if self._telemetry is not None:
             self._telemetry.metrics.inc("accl_deadlock_suspected_total")
             details["flight_recorder"] = self._telemetry.tail_dicts()
-        return ACCLError(ErrorCode.DEADLOCK_SUSPECTED, context,
-                         details=details or None)
+        return self._structured_failure(ACCLError(
+            ErrorCode.DEADLOCK_SUSPECTED, context, details=details or None))
 
     @staticmethod
     def _count_of(buf: BaseBuffer, count: Optional[int]) -> int:
@@ -1150,9 +1804,8 @@ class ACCL:
         """The per-call half of the hierarchical verdict: the plan's
         register half set, no explicit ``compress_dtype`` (honoured
         exactly, flat), no open batch, not already a stage or a segment,
-        and the (topology, count) shape decomposes.  (JAX also
-        fingerprints the decomposed call for its contract plane, which
-        the port has not yet: ROADMAP A11c.)"""
+        and the (topology, count) shape decomposes.  The decomposed call
+        is fingerprinted on the parent comm (:meth:`_hier_fingerprint`)."""
         if (not plan.hierarchical or compress_dtype is not None
                 or self._pending is not None
                 or getattr(self._call_tls, "hier", False)
@@ -1312,6 +1965,8 @@ class ACCL:
         sl = topo.slice_of(me)
         members = list(topo.slice_members(sl))
         intra = self._hier_subcomm(comm, st, ("intra", sl), members)
+        self._hier_fingerprint("allreduce", comm, sendbuf.dtype, n,
+                               context="allreduce")
         if mode == "rail":
             S = len(topo.slices[0])
             li = topo.local_index(me)
@@ -1373,6 +2028,8 @@ class ACCL:
         intra = self._hier_subcomm(comm, st, ("intra", sl),
                                    topo.slice_members(sl))
         rail = self._hier_subcomm(comm, st, ("rail", li), topo.rail(li))
+        self._hier_fingerprint("allgather", comm, sendbuf.dtype, n,
+                               context="allgather")
         scratch = self._scratch(sendbuf.dtype, S * n)
         stages = [
             lambda: self.allgather(sendbuf, scratch, n, comm=intra,
@@ -1406,6 +2063,8 @@ class ACCL:
         intra = self._hier_subcomm(comm, st, ("intra", sl),
                                    topo.slice_members(sl))
         rail = self._hier_subcomm(comm, st, ("rail", li), topo.rail(li))
+        self._hier_fingerprint("reduce_scatter", comm, recvbuf.dtype, n,
+                               context="reduce_scatter")
         if isinstance(sendbuf, DeviceBuffer):
             sendbuf.resolve_pending()
         src = sendbuf.tensor[:W * n]
@@ -1451,6 +2110,8 @@ class ACCL:
         my_rep = int(root) if sl == topo.slice_of(root) else members[0]
         rep_idx = members.index(my_rep)
         intra = self._hier_subcomm(comm, st, ("intra", sl), members)
+        self._hier_fingerprint("bcast", comm, buf.dtype, n, root=root,
+                               context="bcast")
 
         def _s1():
             if me not in reps:
@@ -1915,8 +2576,12 @@ class ACCL:
 
     def barrier(self, comm: Optional[Communicator] = None,
                 run_async: bool = False):
+        comm = comm or self._world
+        # the gather root routes around demoted stragglers (0 unless the
+        # demotion routing is armed)
         return self._collective(Operation.BARRIER, comm, 0, DataType.FLOAT32,
-                                None, run_async)
+                                None, run_async,
+                                root_src=self._barrier_root(comm))
 
     # -- the telemetry plane (accl_tpu_torch.telemetry) ----------------------
     def telemetry_snapshot(self) -> dict:
@@ -1924,12 +2589,12 @@ class ACCL:
         facade's top-level keys: the flight recorder's tail, the metrics
         registry, the (empty: no fabric) wire trace, the plan cache, the
         engine's report (the command ring's counters and window log
-        included), the compression plane, and the monitor plane's
-        stragglers, anomalies and services.  The planes the port has not
-        yet hold the JAX facade's value for a plane that is off or has
-        seen nothing: ``contract`` and ``postmortem`` ``{"enabled":
-        False}``, ``faults`` None, ``health``, ``membership``,
-        ``health_events`` and ``tenants`` ``{}`` (ROADMAP A11c, A11d)."""
+        included), the per-peer health, the contract verifier's counters
+        and verdicts, the membership machine with its scale advice, the
+        health-transition events, the compression plane, the monitor
+        plane's stragglers, anomalies and services, and the postmortem
+        bundles.  ``faults`` is None, as on JAX's gang; ``tenants`` stays
+        ``{}`` until the port has its arbiter (ROADMAP A11d)."""
         tel = self._telemetry
         mon = self._monitor
         engine_report = self.engine.telemetry_report()
@@ -1944,13 +2609,15 @@ class ACCL:
             "metrics": tel.metrics.snapshot() if tel else {},
             "wire_trace": wire_snapshot(),
             "plan_cache": self._plans.stats(),
-            "health": {},
+            "health": self._annotated_health(self._world),
             "device_interactions": self.engine.device_interactions(),
             "engine": engine_report,
             "faults": engine_report.get("faults"),
-            "contract": {"enabled": False},
-            "membership": {},
-            "health_events": {},
+            "contract": (self._contract.snapshot()
+                         if self._contract is not None
+                         else {"enabled": False}),
+            "membership": self._membership_report(),
+            "health_events": self._health_events.snapshot(),
             "tenants": {},
             "compression": {
                 "sr_calls": self.sr_calls,
@@ -1963,8 +2630,50 @@ class ACCL:
                           else {"enabled": False}),
             "monitor": (mon.service_snapshot() if mon is not None
                         else {"serving": False}),
-            "postmortem": {"enabled": False},
+            "postmortem": (self._blackbox.snapshot()
+                           if self._blackbox is not None
+                           else {"enabled": False}),
         }
+
+    # -- debug dumps -----------------------------------------------------------
+    def dump_rx_buffers(self, as_dict: bool = False):
+        """The rx-accounting dump (the reference's
+        ``dump_eager_rx_buffers``): the gang's pending slots, parked p2p
+        posts and undrained stream ports as ``rxbuf`` lines.
+        ``as_dict=True`` adds the engine's ``telemetry_report``."""
+        doc = {"engine": type(self.engine).__name__,
+               "lines": self.engine.dump_rx_buffers().splitlines()}
+        if as_dict:
+            doc["report"] = self.engine.telemetry_report()
+            return doc
+        return "\n".join(doc["lines"])
+
+    def dump_communicator(self, comm: Optional[Communicator] = None,
+                          as_dict: bool = False):
+        """The communicator table and its per-peer health; the string
+        form is rendered from the dict, in the JAX facade's lines."""
+        comm = comm or self._world
+        doc = {"comm": comm.as_dict(),
+               "health": self._annotated_health(comm)}
+        if as_dict:
+            return doc
+        c = doc["comm"]
+        lines = [f"communicator {c['id']}: size={c['size']} "
+                 f"local={c['local_rank']}"]
+        for i, r in enumerate(c["ranks"]):
+            lines.append(f"  rank {i}: addr={r['address']} "
+                         f"session={r['session']} "
+                         f"seg={r['max_segment_size']} "
+                         f"seq_out={r['seq_out']} seq_in={r['seq_in']}")
+        for i in sorted(doc["health"]):
+            h = doc["health"][i]
+            line = (f"  health rank {i}: {h.get('state', 'ok')}"
+                    f" timeouts={h.get('timeouts', 0)}"
+                    f" failures={h.get('failures', 0)}")
+            if h.get("last_event"):
+                line += f" last={h['last_event']}"
+            lines.append(line)
+        return "\n".join(lines)
 
     def telemetry_prometheus(self) -> str:
         """The snapshot in Prometheus text exposition format."""
@@ -2007,8 +2716,9 @@ class ACCL:
         on an ``accl-monitor`` thread, bound to 127.0.0.1, serving ``/``
         (a one-screen summary), ``/metrics`` (Prometheus text),
         ``/snapshot`` (the ``telemetry_snapshot()`` JSON), ``/trace`` (the
-        Chrome trace) and ``/cmdring`` (the command ring's stats and
-        window log).  ``port`` 0 (the default without
+        Chrome trace), ``/cmdring`` (the command ring's stats and window
+        log) and ``/membership`` (the membership machine and the scale
+        advisor's advice).  ``port`` 0 (the default without
         ``ACCL_MONITOR_PORT``) binds an ephemeral port.  Returns the bound
         port; idempotent while serving."""
         if self._monitor is None:
@@ -2034,6 +2744,11 @@ class ACCL:
             return json.dumps(ring if ring is not None
                               else {"enabled": False}, default=str)
 
+        def _membership_doc() -> str:
+            import json
+
+            return json.dumps(self._membership_report(), default=str)
+
         srv = _monitor.MonitorServer({
             "/": (self._monitor_index, "text/plain; charset=utf-8"),
             "/metrics": (self.telemetry_prometheus,
@@ -2041,6 +2756,7 @@ class ACCL:
             "/snapshot": (self.telemetry_json, "application/json"),
             "/trace": (_trace_doc, "application/json"),
             "/cmdring": (_cmdring_doc, "application/json"),
+            "/membership": (_membership_doc, "application/json"),
         }, port=int(port))
         srv.start()
         self._monitor.server = srv
@@ -2048,11 +2764,12 @@ class ACCL:
 
     def _monitor_index(self) -> str:
         """The monitor's ``/`` page: the routes and a one-screen summary
-        (the command ring, standing stragglers, the last anomaly)."""
+        (the command ring, the postmortem bundles, standing stragglers,
+        the last anomaly, the membership)."""
         lines = [
             f"accl monitor — rank {self._world.local_rank}/"
             f"{self._world.size} ({type(self.engine).__name__})",
-            "routes: /metrics /snapshot /trace /cmdring",
+            "routes: /metrics /snapshot /trace /cmdring /membership",
             "",
         ]
         ring = self.engine.telemetry_report().get("cmdring") or {}
@@ -2065,6 +2782,11 @@ class ACCL:
                 f"fallbacks={sum((ring.get('fallbacks') or {}).values())}")
         else:
             lines.append("cmdring: (tier has no command ring)")
+        bb = self._blackbox.snapshot() if self._blackbox else {}
+        lines.append(f"postmortem: bundles={bb.get('bundles_written', 0)} "
+                     f"last={bb.get('last_bundle') or '-'}"
+                     if bb.get("enabled")
+                     else "postmortem: disabled (set ACCL_POSTMORTEM_DIR)")
         standing = self._monitor.straggler_snapshot().get("standing") or {}
         for c, v in sorted(standing.items()):
             lines.append(f"straggler: comm {c} slow_rank={v.get('rank')} "
@@ -2082,6 +2804,13 @@ class ACCL:
                          f"(total {anom.get('alerts_total', 0)})")
         else:
             lines.append("anomaly: none")
+        mem = self._membership_report()
+        advice = mem.get("scale_advice") or {}
+        lines.append(f"membership: epoch={mem.get('epoch')} "
+                     f"elastic={mem.get('elastic')} "
+                     f"evicted={sorted(mem.get('evicted') or [])} "
+                     f"joins={mem.get('joins_total', 0)} "
+                     f"scale_advice={advice.get('recommendation', '-')}")
         return "\n".join(lines) + "\n"
 
     def stop_monitor(self) -> bool:
@@ -2099,6 +2828,21 @@ class ACCL:
             if self._monitor is not None:
                 self._monitor.close()
                 self.engine.set_skew_tracker(None)
+            # the contract verifier's, the postmortem registry's and the
+            # membership plane's listeners on the shared gang must not
+            # outlive the handle
+            self.set_contract_verify(False)
+            if self._blackbox is not None:
+                reg = anchored(self.engine.contract_anchor(),
+                               "_accl_blackbox_registry", dict)
+                if reg is not None:
+                    reg.pop(self._blackbox.rank, None)
+                ring = self.engine.gang.cmdring
+                if ring.on_failure is self._ring_hook:
+                    ring.on_failure = None
+            self._membership.close()
+            self.engine.set_membership(None)
+            self.engine.on_health_transition = None
             self.engine.shutdown()
             with self._hop_lock:
                 self._initialized = False  # a later hop fails its aggregate

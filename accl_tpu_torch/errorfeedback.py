@@ -17,9 +17,10 @@ tensors on the operand's device, and the roundtrip is the device wire
 codec (:mod:`accl_tpu_torch.ops.wire`: the compression kernels on the
 card) with the call's per-rank seed, byte for byte what the numpy codec
 gives.  Every event that may change the wire a key's calls ride (a
-register write, disarming) clears the store.  The JAX store's epoch
-migration serves elastic membership cutovers, which the port does not
-have.
+register write, disarming) clears the store, but for an elastic join's
+cutover: it re-epochs the communicators without changing the wire, so the
+survivors' residuals migrate to the new epoch lazily, each at its key's
+first use after the cutover (:meth:`ResidualStore.migrate_epoch`).
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ __all__ = ["ResidualStore"]
 #: entry cap: clearing wholesale past it is correct (zeros are always a
 #: safe residual)
 DEFAULT_MAX_ENTRIES = 64
+#: pending epoch migrations kept before the store clears wholesale
+MAX_MIGRATIONS = 64
 
 
 class ResidualStore:
@@ -48,6 +51,10 @@ class ResidualStore:
         self.max_entries = int(max_entries)
         self._lock = threading.Lock()
         self._entries: Dict[Tuple, torch.Tensor] = {}
+        # (comm id, new epoch) -> (comm id, old epoch): the join
+        # cutovers' lazy re-keys
+        self._migrations: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        self.migrations = 0
         self.updates = 0
         self.invalidations = 0
         self.last_invalidation: Optional[str] = None
@@ -60,6 +67,21 @@ class ResidualStore:
         residual at zeros."""
         with self._lock:
             r = self._entries.get(key)
+            if r is None and self._migrations:
+                # a join re-epoched the comm: walk the chain of mappings
+                # (joins before this key's first use compose) and move
+                # the residual under the new key once
+                src = self._migrations.get((key[0], key[1]))
+                seen = set()
+                while src is not None and src not in seen:
+                    seen.add(src)
+                    old_key = src + key[2:]
+                    r = self._entries.pop(old_key, None)
+                    if r is not None:
+                        self._entries[key] = r
+                        self.migrations += 1
+                        break
+                    src = self._migrations.get(src)
         if r is not None and (r.shape != x.shape or r.dtype != x.dtype
                               or r.device != x.device):
             r = None
@@ -79,11 +101,31 @@ class ResidualStore:
             r = self._entries.get(key)
         return None if r is None else r.clone()
 
-    def invalidate(self, reason: str = "") -> None:
-        """Drop every residual (register writes, disarming: anything that
-        may change the wire verdict a key's calls ride)."""
+    def migrate_epoch(self, comm_id: int, old_epoch: int,
+                      new_epoch: int) -> None:
+        """``comm_id``'s residuals continue under ``new_epoch`` (a join
+        re-epoched it without changing the wire): each key re-keys at
+        its first :meth:`apply` after the cutover.  Past
+        :data:`MAX_MIGRATIONS` pending mappings everything clears."""
         with self._lock:
-            self._entries.clear()
+            if len(self._migrations) >= MAX_MIGRATIONS:
+                self._entries.clear()
+                self._migrations.clear()
+                return
+            if int(old_epoch) != int(new_epoch):
+                self._migrations[(int(comm_id), int(new_epoch))] = (
+                    int(comm_id), int(old_epoch))
+
+    def invalidate(self, reason: str = "") -> None:
+        """Drop every residual (register writes, disarming, soft_reset,
+        a shrink: anything that may change the wire verdict a key's calls
+        ride); a ``membership_join`` keeps the residuals that have a
+        pending migration."""
+        with self._lock:
+            if not (reason.startswith("membership_join")
+                    and self._migrations):
+                self._entries.clear()
+                self._migrations.clear()
             self.invalidations += 1
             self.last_invalidation = reason or None
 
@@ -98,6 +140,8 @@ class ResidualStore:
                 "updates": self.updates,
                 "invalidations": self.invalidations,
                 "last_invalidation": self.last_invalidation,
+                "migrations": self.migrations,
+                "pending_migrations": len(self._migrations),
             }
         norms = [float(torch.linalg.vector_norm(r.double())) for r in entries]
         out["max_residual_norm"] = round(max(norms, default=0.0), 6)

@@ -4,10 +4,10 @@ telemetry plane.
 The port's copy of ``accl_tpu/monitor.py``, whole.  The port's facade
 wires the always-on skew tracker and anomaly watchdog and the two opt-in
 services (the scrape server and the trace stream); :class:`BlackBox`'s
-postmortem wiring and :class:`ScaleAdvisor`'s come with the port's
-fault, membership and contract planes, and the ``/tenants`` route with
-its arbiter.  The port keeps its own :func:`anchored` until it has its
-own contract plane.
+postmortem wiring, :class:`ScaleAdvisor`'s ``/membership`` advice and
+the shared :func:`~accl_tpu_torch.contract.anchored` registry come with
+the port's fault, membership and contract planes; the ``/tenants`` route
+comes with its arbiter.
 
 Role model: the reference's observability is *always on and live* — a
 free-running hardware perf counter copied into exchange memory on every
@@ -113,30 +113,10 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-_board_lock = threading.Lock()
-
-
-def anchored(anchor, attr: str, factory):
-    """One shared exchange object per process-wide ``anchor`` (the JAX
-    package's ``contract.anchored``): get or create the attribute
-    ``attr`` on ``anchor``, so rank handles sharing an engine anchor (the
-    gang context) meet on one instance.  None when the anchor is None
-    (one-process-per-rank tiers) or cannot hold attributes."""
-    if anchor is None:
-        return None
-    with _board_lock:
-        obj = getattr(anchor, attr, None)
-        if obj is None:
-            obj = factory()
-            try:
-                setattr(anchor, attr, obj)
-            except (AttributeError, TypeError):  # slotted/foreign anchor
-                return None
-        return obj
+from .contract import anchored
 
 __all__ = [
     "AnomalyWatchdog",
-    "anchored",
     "BlackBox",
     "Monitor",
     "MonitorServer",

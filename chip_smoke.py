@@ -7,6 +7,8 @@
     python3 chip_smoke.py --cp            # phase 3j, rows 16-18 at T = 4096
     python3 chip_smoke.py --topology      # phase 3k and facade_topology
     python3 chip_smoke.py --telemetry     # phase 3l (telemetry, monitor)
+    python3 chip_smoke.py --faults        # phase 3m (faults, membership,
+                                          # the contract)
 
 Phases (any failure exits non-zero):
 
@@ -235,6 +237,20 @@ Phases (any failure exits non-zero):
       windows); every rank's Chrome trace merged by ``python -m
       accl_tpu_torch.telemetry merge`` with its flows matched; the
       scrape routes answering 200 and a trace stream's files loadable;
+   m. faults, membership and the contract (``faults_main_path``;
+      ``--faults`` runs it and the verifier's cost alone), virtual ranks
+      on the card: (a) a 2-rank gang with rank 1 absent fails
+      RECEIVE_TIMEOUT at the 0.3 s watchdog naming it, suspect then
+      dead, the third call at intake, and after ``soft_reset`` a
+      ``pallas_ring`` allreduce is exact; (b) a seeded ``diverge`` on
+      rank 2 of 4 fails every rank CONTRACT_VIOLATION naming it, and a
+      uniform stream then passes; (c) world 4 under ``set_elastic``
+      with rank 3 silent evicts it, serves at world 3 (K1 at P = 3 at 64
+      MiB a rank, row 9's bcast) exactly, and ``soft_reset`` restores
+      world 4; (d) windows of 8 allreduces: an open breaker takes the
+      per-call path, the probe rides row 14 and closes it, a ``corrupt``
+      plan poisons a window inline and one posted to a live run (row
+      14's device status word reads 2), and ``soft_reset`` recovers;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (K3's
    allgather and root-only gather, K4, row 11 and row 13 also by device
@@ -320,7 +336,11 @@ Phases (any failure exits non-zero):
    ``pallas_ring`` call and launch p50 / p90 with the plane on against a
    group built under ``ACCL_TELEMETRY=0``, 5 interleaved rounds of 30
    calls, and the records' ``duration_ns`` p50 beside the same calls'
-   device time by CUDA events).
+   device time by CUDA events); and ``faults``: phase 3m's figures and
+   the contract verifier's cost (``faults_cost``: the warm 256 KiB
+   ``pallas_ring`` call and launch p50 with the verifier armed against
+   disarmed, 5 interleaved rounds of 30 calls, each p50 with its
+   rounds' range).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -419,6 +439,44 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+#: one record a stream hold: the full collections the run made before
+#: it, what the one before the hold found, its time, and the objects
+#: alive after it (printed as ``gc_holds``)
+GC_HOLDS = []
+
+
+def hold_stream(cycles: int) -> None:
+    """Hold the current stream behind a sleep kernel of ``cycles`` clock
+    cycles, so the host posts windows ahead of the device (the streams,
+    runs and lingers the ring's checks need).  A full garbage collection
+    comes first and is recorded in ``GC_HOLDS``: a collection of the
+    script's heap takes longer than the sleep, and one landing inside the
+    held window would let the device catch up."""
+    import gc
+
+    import torch
+
+    full = gc.get_stats()[2]["collections"]
+    t = time.perf_counter()
+    found = gc.collect()
+    GC_HOLDS.append({"collected": found, "full_before": full,
+                     "ms": (time.perf_counter() - t) * 1e3,
+                     "objects": len(gc.get_objects())})
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cycles)
+
+
+def check_circuit_opens(what: str, want: int) -> None:
+    """Fail unless the command rings' breakers have refused exactly
+    ``want`` batches in this process: only phase 3m (d) opens one, on
+    purpose, and a breaker open anywhere else is a fault."""
+    from accl_tpu_torch.backends.cuda.cmdring import circuit_open_total
+
+    got = circuit_open_total()
+    if got != want:
+        fail(f"{what}: an open breaker refused {got} batches, want {want}")
 
 
 def run_ranks(group, rank_main, what: str) -> None:
@@ -1606,8 +1664,7 @@ def ring_main_path(kc) -> dict:
             # the card runs ahead of the host by nature; a sleep kernel
             # holds the stream so the cold pass's second window finds the
             # first still in flight, as a busy card would
-            torch.cuda.synchronize()
-            torch.cuda._sleep(STREAM_SLEEP)
+            hold_stream(STREAM_SLEEP)
             run_ranks(group, stream, "cold stream")
             st0 = ring.stats()
             run_ranks(group, stream, "warm stream")
@@ -1653,8 +1710,7 @@ def ring_main_path(kc) -> dict:
         ring.linger_s = 0.02
         kseq._descriptor = slow
         try:
-            torch.cuda.synchronize()
-            torch.cuda._sleep(STREAM_SLEEP)
+            hold_stream(STREAM_SLEEP)
             st0 = ring.stats()
             run_ranks(group, stream, "stream with a delayed post")
             st1 = ring.stats()
@@ -1723,8 +1779,7 @@ def ring_main_path(kc) -> dict:
         other = torch.cuda.Stream()
         ring.linger_s = 0.05
         try:
-            torch.cuda.synchronize()
-            torch.cuda._sleep(STREAM_SLEEP)
+            hold_stream(STREAM_SLEEP)
             run_ranks(group, stream, "stream before the starvation check")
         finally:
             ring.linger_s = saved
@@ -1742,7 +1797,10 @@ def ring_main_path(kc) -> dict:
         out["starvation_ms"] = waited * 1e3
         out["starvation_linger_ms"] = linger * 1e3
         if not lingering:
-            fail("starvation check: no run lingered when the kernel came")
+            st = ring.stats()
+            fail(f"starvation check: no run lingered when the kernel came "
+                 f"(fallbacks {st['fallbacks']}, breakers {st['breakers']}, "
+                 f"forms {[w['form'] for w in ring.window_log()[-8:]]})")
         if waited > linger + 1e-3:
             fail(f"a kernel on another stream waited {waited * 1e3:.3f} ms "
                  f"behind a lingering run (linger {linger * 1e3} ms)")
@@ -5904,8 +5962,7 @@ def telemetry_main_path(kc) -> dict:
         try:
             w0 = ring.stats()["windows_logged"]
             r0 = group[0]._telemetry.recorder.total
-            torch.cuda.synchronize()
-            torch.cuda._sleep(TELEM_SLEEP)
+            hold_stream(TELEM_SLEEP)
             step("stream of 3 windows", stream,
                  {"sequencer": 1, "sequencer_run": 1})
             streamed = logged(w0, r0, ["inline", "mailbox", "mailbox"])
@@ -6191,6 +6248,556 @@ def whole_ar(d4, device):
         d4[:, :N_RANK].sum(0))).to(device)
 
 
+# ---------------------------------------------------------------------------
+# phase 3m: faults, membership and the contract (ROADMAP A11c)
+# ---------------------------------------------------------------------------
+
+#: (a)'s watchdog timeout and (c)'s, as JAX's own gang tests set them
+FAULT_TIMEOUT_S, ELASTIC_TIMEOUT_S = 0.3, 1.0
+#: (b)'s and (d)'s calls: 256 KiB float32 a rank; (c) serves at N_RANK
+FAULT_N = 64 * 1024
+#: (d)'s breaker cool-down: long enough that both open-breaker steps
+#: fall inside it
+FAULT_COOLDOWN_S = 1.0
+
+
+def faults_main_path(kc) -> dict:
+    """Phase 3m: the fault, membership and contract planes on the card,
+    virtual ranks, integer-valued float32 (every sum exact), each step's
+    launches counted:
+
+    (a) ``cuda_group(2)`` with rank 1 absent and ``set_timeout(0.3)``: the
+        call fails RECEIVE_TIMEOUT naming peer 1 in under 1 s, the peer
+        is suspect, dead after the second strike, the third call fails
+        at intake (under 0.1 s, ``elapsed_s`` 0.0); both ranks
+        ``soft_reset`` and a ``pallas_ring`` allreduce is exact (one K1);
+    (b) ``cuda_group(4)`` with ``set_contract_verify(True, interval=2)``:
+        a seeded ``diverge`` on rank 2 fails every rank CONTRACT_VIOLATION
+        naming rank 2 in under 15 s; after ``soft_reset`` a uniform
+        stream of ``pallas_ring`` calls passes, exact;
+    (c) ``cuda_group(4)`` under ``set_elastic`` with timeout 1.0 and rank
+        3 silent: the survivors get RANK_EVICTED in under 20 s; at world 3
+        a ``pallas_ring`` allreduce at 64 MiB a rank (K1 at P = 3) and a
+        ``pallas_ring`` bcast (row 9) are exact; after every rank's
+        ``soft_reset`` world 4 is back and the allreduce exact;
+    (d) windows of 8 allreduces at 256 KiB on ``cuda_group(4)``: with the
+        breaker open the plain lowering never stands in for the ring:
+        under the ``xla`` registers the batch fails at once (under 2 s,
+        INVALID_OPERATION naming ``circuit_open``, no launch), under
+        ``pallas_ring`` it runs call by call on K1 (8 launches, no row-14
+        launch, exact), each refusal counted; after the cool-down the
+        probe window rides row 14 (one launch) and closes it; a
+        ``corrupt`` plan poisons a window inline and one posted to a
+        live persistent run (the lowering ``xla``): slot 0 fails
+        INVALID_OPERATION in under 2 s and row 14's device status word
+        reads 2 (BAD_OP), the other slots 1 (OK); ``soft_reset``
+        recovers an exact window.
+
+    Returns the launch counts and the checks' figures."""
+    import numpy as np
+    import torch
+
+    import accl_tpu_torch as at
+    from accl_tpu_torch import contract as tcontract
+    from accl_tpu_torch.faults import FaultPlan, FaultRule
+
+    EC = at.ErrorCode
+    out = {"launches": {k: 0 for k in kc.KERNELS}}
+    rng = np.random.default_rng(SEED + 43)
+
+    def counts():
+        return {k: f.launches.count for k, f in kc.KERNELS.items()}
+
+    def moved_since(before, what, want):
+        moved = {k: f.launches.count - before[k]
+                 for k, f in kc.KERNELS.items()
+                 if f.launches.count != before[k]}
+        if want is not None and moved != want:
+            fail(f"3m {what}: launched {moved}, want {want}")
+        for k, v in moved.items():
+            out["launches"][k] += v
+        return moved
+
+    def ints(n):
+        return rng.integers(-8, 8, size=n).astype(np.float32)
+
+    check_circuit_opens("before phase 3m", 0)
+    # (a) the slot watchdog, the health map, fail-fast and soft_reset
+    g = at.cuda_group(2)
+    try:
+        a = g[0]
+        for x in g:
+            x.set_tuning("allreduce_algorithm", "pallas_ring")
+        a.set_timeout(FAULT_TIMEOUT_S)
+        s = a.create_buffer_from(ints(FAULT_N))
+        d = a.create_buffer(FAULT_N, np.float32)
+        before = counts()
+        strikes = []
+        for _ in range(2):
+            t = time.perf_counter()
+            try:
+                a.allreduce(s, d, FAULT_N)
+                fail("3m (a): a call with an absent peer completed")
+            except at.ACCLError as e:
+                strikes.append((time.perf_counter() - t, e))
+        e = strikes[0][1]
+        if (e.code != EC.RECEIVE_TIMEOUT or e.details.get("peer") != 1
+                or strikes[0][0] >= 1.0):
+            fail(f"3m (a): first strike {e.code} {e.details.get('peer')} "
+                 f"in {strikes[0][0]:.3f} s")
+        health = a.capabilities()["health"][1]
+        if health["state"] != "dead" or health["timeouts"] != 2:
+            fail(f"3m (a): after two strikes {health}")
+        a.set_timeout(10)
+        t = time.perf_counter()
+        try:
+            a.allreduce(s, d, FAULT_N)
+            fail("3m (a): a call to a dead peer completed")
+        except at.ACCLError as e:
+            intake_s = time.perf_counter() - t
+            if (e.code != EC.RECEIVE_TIMEOUT or intake_s >= 0.1
+                    or e.details.get("elapsed_s") != 0.0):
+                fail(f"3m (a): intake {e.code} in {intake_s:.4f} s, "
+                     f"{e.details}")
+        moved_since(before, "(a) strikes", {})
+        run_ranks(g, lambda x, r: x.soft_reset(), "3m (a) soft_reset")
+        if g[0].capabilities()["health"][1]["state"] != "ok":
+            fail("3m (a): soft_reset left the health map")
+        data = np.stack([ints(FAULT_N) for _ in range(2)])
+        bufs = [(x.create_buffer_from(data[r]),
+                 x.create_buffer(FAULT_N, np.float32))
+                for r, x in enumerate(g)]
+        before = counts()
+        run_ranks(g, lambda x, r: x.allreduce(*bufs[r]), "3m (a) recovery")
+        moved_since(before, "(a) recovery", {"ring_allreduce": 1})
+        for r in range(2):
+            if not np.array_equal(bufs[r][1].device_array().cpu().numpy(),
+                                  data.sum(0)):
+                fail(f"3m (a): the recovered allreduce differs, rank {r}")
+        out["watchdog"] = {"timeout_s": FAULT_TIMEOUT_S,
+                           "strike_s": [st[0] for st in strikes],
+                           "intake_s": intake_s}
+    finally:
+        for x in g:
+            x.deinit()
+
+    # (b) the contract verifier: a seeded divergence, then a uniform stream
+    g = at.cuda_group(P_MAIN)
+    try:
+        for x in g:
+            x.set_tuning("allreduce_algorithm", "pallas_ring")
+            x.set_contract_verify(True, interval=2)
+        data = np.stack([ints(FAULT_N) for _ in range(P_MAIN)])
+        bufs = [(x.create_buffer_from(data[r]),
+                 x.create_buffer(FAULT_N, np.float32))
+                for r, x in enumerate(g)]
+        errs = {}
+
+        def diverging(x, r):
+            try:
+                for _ in range(10):
+                    x.allreduce(*bufs[r])
+            except at.ACCLError as e:
+                errs[r] = e
+
+        tcontract.install_fault_plan(FaultPlan(
+            [FaultRule(action="diverge", rank=2, nth=3)], seed=9))
+        before = counts()
+        t = time.perf_counter()
+        try:
+            run_ranks(g, diverging, "3m (b) divergence")
+        finally:
+            tcontract.install_fault_plan(None)
+        verdict_s = time.perf_counter() - t
+        if sorted(errs) != list(range(P_MAIN)) or verdict_s >= 15 or any(
+                e.code != EC.CONTRACT_VIOLATION
+                or e.details.get("diverging_rank") != 2
+                for e in errs.values()):
+            fail(f"3m (b): {verdict_s:.2f} s, "
+                 f"{ {r: (e.code, e.details.get('diverging_rank')) for r, e in errs.items()} }")
+        moved = moved_since(before, "(b) divergence", None)
+        if set(moved) - {"ring_allreduce"}:
+            fail(f"3m (b): the divergence launched {moved}")
+        run_ranks(g, lambda x, r: x.soft_reset(), "3m (b) soft_reset")
+        before = counts()
+        run_ranks(g, lambda x, r: [x.allreduce(*bufs[r]) for _ in range(8)],
+                  "3m (b) uniform stream")
+        moved_since(before, "(b) uniform stream", {"ring_allreduce": 8})
+        snap = g[0].telemetry_snapshot()["contract"]
+        if snap["verdicts"] or snap["comms"]["0"]["calls"] != 8:
+            fail(f"3m (b): the uniform stream's verifier {snap}")
+        for r in range(P_MAIN):
+            if not np.array_equal(bufs[r][1].device_array().cpu().numpy(),
+                                  data.sum(0)):
+                fail(f"3m (b): the uniform stream differs, rank {r}")
+        out["contract"] = {"verdict_s": verdict_s,
+                           "first_mismatch": errs[0].details["contract"][
+                               "first_mismatch"]["got"]["seqn"]}
+    finally:
+        for x in g:
+            x.deinit()
+
+    # (c) elastic membership: kill -> shrink -> serve -> restore
+    g = at.cuda_group(P_MAIN)
+    try:
+        for x in g:
+            x.set_elastic(True)
+            x.set_timeout(ELASTIC_TIMEOUT_S)
+            x.set_tuning("allreduce_algorithm", "pallas_ring")
+            x.set_tuning("bcast_algorithm", "pallas_ring")
+        survivors = g[:3]
+        small = np.stack([ints(FAULT_N) for _ in range(3)])
+        sb = [(x.create_buffer_from(small[r]),
+               x.create_buffer(FAULT_N, np.float32))
+              for r, x in enumerate(survivors)]
+        codes = {}
+
+        def doomed(x, r):
+            codes[r] = []
+            for _ in range(4):
+                try:
+                    x.allreduce(*sb[r])
+                    return
+                except at.ACCLError as e:
+                    codes[r].append(e.code)
+                    if e.code & EC.RANK_EVICTED:
+                        return
+
+        before = counts()
+        t = time.perf_counter()
+        run_ranks(survivors, doomed, "3m (c) eviction")
+        evict_s = time.perf_counter() - t
+        moved_since(before, "(c) eviction", {})
+        if evict_s >= 20 or any(not c or not c[-1] & EC.RANK_EVICTED
+                                for c in codes.values()):
+            fail(f"3m (c): {evict_s:.2f} s, codes {codes}")
+        if [x.size for x in survivors] != [3, 3, 3]:
+            fail(f"3m (c): sizes {[x.size for x in survivors]}")
+        big = np.stack([ints(N_RANK) for _ in range(3)])
+        bb = [(x.create_buffer_from(big[r]),
+               x.create_buffer(N_RANK, np.float32),
+               x.create_buffer_from(big[1] if r == 1 else
+                                    np.zeros(N_RANK, np.float32)))
+              for r, x in enumerate(survivors)]
+
+        def serve(x, r):
+            x.allreduce(bb[r][0], bb[r][1], N_RANK)
+            x.bcast(bb[r][2], N_RANK, root=1)
+
+        before = counts()
+        run_ranks(survivors, serve, "3m (c) serving at world 3")
+        moved_since(before, "(c) serving at world 3",
+                    {"ring_allreduce": 1, "ring_bcast": 1})
+        want = big.sum(0)
+        for r in range(3):
+            if not np.array_equal(bb[r][1].device_array().cpu().numpy(),
+                                  want):
+                fail(f"3m (c): the allreduce at world 3 differs, rank {r}")
+            if not np.array_equal(bb[r][2].device_array().cpu().numpy(),
+                                  big[1]):
+                fail(f"3m (c): the bcast at world 3 differs, rank {r}")
+        del bb
+        for x in g:
+            x.set_timeout(10.0)
+        run_ranks(g, lambda x, r: x.soft_reset(), "3m (c) restore")
+        if [x.size for x in g] != [P_MAIN] * P_MAIN:
+            fail(f"3m (c): restore left sizes {[x.size for x in g]}")
+        full = np.stack([ints(FAULT_N) for _ in range(P_MAIN)])
+        fb = [(x.create_buffer_from(full[r]),
+               x.create_buffer(FAULT_N, np.float32))
+              for r, x in enumerate(g)]
+        before = counts()
+        run_ranks(g, lambda x, r: x.allreduce(*fb[r]), "3m (c) world 4")
+        moved_since(before, "(c) world 4", {"ring_allreduce": 1})
+        for r in range(P_MAIN):
+            if not np.array_equal(fb[r][1].device_array().cpu().numpy(),
+                                  full.sum(0)):
+                fail(f"3m (c): the restored allreduce differs, rank {r}")
+        m = g[0].telemetry_snapshot()["membership"]
+        out["membership"] = {"evict_s": evict_s,
+                             "evictions_total": m["evictions_total"],
+                             "restores_total": m["restores_total"]}
+    finally:
+        for x in g:
+            x.deinit()
+    torch.cuda.empty_cache()
+
+    # (d) the ring's breaker and chaos hook
+    saved = os.environ.get("ACCL_CMDRING_COOLDOWN_S")
+    os.environ["ACCL_CMDRING_COOLDOWN_S"] = str(FAULT_COOLDOWN_S)
+    try:
+        g = at.cuda_group(P_MAIN)
+    finally:
+        if saved is None:
+            os.environ.pop("ACCL_CMDRING_COOLDOWN_S", None)
+        else:
+            os.environ["ACCL_CMDRING_COOLDOWN_S"] = saved
+    ring = g[0].engine.gang.cmdring
+    cid = g[0].comm.id
+    try:
+        data = np.stack([ints(FAULT_N) for _ in range(P_MAIN)])
+        send = [x.create_buffer_from(data[r]) for r, x in enumerate(g)]
+        outs = [[x.create_buffer(FAULT_N, np.float32) for _ in range(8)]
+                for x in g]
+        want = data.sum(0)
+        failed = {}
+
+        def batch(x, r, reqs=None):
+            with x.batch():
+                qs = [x.allreduce(send[r], d, run_async=True)
+                      for d in outs[r]]
+            if reqs is not None:
+                reqs[r] = qs
+                return
+            for q in qs:
+                if not q.wait(60):
+                    raise RuntimeError("a window never completed")
+                q.check()
+
+        def exact(what):
+            for r in range(P_MAIN):
+                for d in outs[r]:
+                    if not np.array_equal(d.device_array().cpu().numpy(),
+                                          want):
+                        fail(f"3m (d) {what}: a sum differs, rank {r}")
+                    d.device_array().zero_()
+
+        before = counts()
+        run_ranks(g, batch, "3m (d) warm window")
+        moved_since(before, "(d) warm window", {"sequencer": 1})
+        exact("warm window")
+        brk = ring.breaker_for(cid)
+        brk.record_failure("TimeoutError")
+        brk.record_failure("TimeoutError")
+        if brk.allow() != "open":
+            fail("3m (d): two strikes left the breaker closed")
+        check_circuit_opens("3m (d) before the open breaker", 0)
+        refused = {}
+
+        def refused_batch(x, r):
+            with x.batch():
+                qs = [x.allreduce(send[r], d, run_async=True)
+                      for d in outs[r]]
+            refused[r] = []
+            for q in qs:
+                if not q.wait(2.0):
+                    raise RuntimeError("a refused window still waits")
+                try:
+                    q.check()
+                    refused[r].append((int(EC.OK), None))
+                except at.ACCLError as e:
+                    refused[r].append((int(e.code), e.details.get("error")))
+
+        before = counts()
+        t = time.perf_counter()
+        run_ranks(g, refused_batch, "3m (d) open breaker, xla")
+        refuse_s = time.perf_counter() - t
+        moved_since(before, "(d) open breaker, xla", {})
+        if refused != {r: [(int(EC.INVALID_OPERATION), "circuit_open")] * 8
+                       for r in range(P_MAIN)} or refuse_s >= 2.0:
+            fail(f"3m (d): the open breaker under xla gave {refused} in "
+                 f"{refuse_s:.3f} s")
+        check_circuit_opens("3m (d) open breaker, xla", 1)
+        for x in g:
+            x.set_tuning("allreduce_algorithm", "pallas_ring")
+        before = counts()
+        run_ranks(g, batch, "3m (d) open breaker, pallas_ring")
+        moved_since(before, "(d) open breaker, pallas_ring",
+                    {"ring_allreduce": 8})
+        check_circuit_opens("3m (d) open breaker, pallas_ring", 2)
+        exact("open breaker, pallas_ring")
+        for x in g:
+            x.set_tuning("allreduce_algorithm", "xla")
+        time.sleep(FAULT_COOLDOWN_S + 0.05)
+        before = counts()
+        run_ranks(g, batch, "3m (d) probe window")
+        moved_since(before, "(d) probe window", {"sequencer": 1})
+        if ring.stats()["breakers"][str(cid)]["state"] != "closed":
+            fail(f"3m (d): the probe left {ring.stats()['breakers']}")
+        exact("probe window")
+
+        def check_poisoned(what, reqs, t, form):
+            """Slot 0 of the poisoned window fails, the rest pass, within
+            2 s; row 14's device status words read BAD_OP (2) for slot 0
+            and OK (1) for the others."""
+            for r in range(P_MAIN):
+                for k, q in enumerate(reqs[r]):
+                    if not q.wait(2.0):
+                        fail(f"3m (d) {what}: slot {k} still waits")
+                    code = q.get_retcode()
+                    if code != (EC.INVALID_OPERATION if k == 0 else EC.OK):
+                        fail(f"3m (d) {what}: rank {r} slot {k} {code}")
+            took = time.perf_counter() - t
+            st = ring.last_status(cid)
+            if st is None or st[:, 1].tolist() != [2] + [1] * 7:
+                fail(f"3m (d) {what}: device status {st}")
+            if took >= 2.0 or ring.window_log()[-1]["form"] != form:
+                fail(f"3m (d) {what}: {took:.3f} s, form "
+                     f"{ring.window_log()[-1]['form']}")
+            return took
+
+        def corrupt_nth(nth):
+            tcontract.install_fault_plan(FaultPlan([FaultRule(
+                action="corrupt", msg_type="RING", nth=nth, count=1)],
+                seed=11))
+
+        chaos = {}
+        reqs = {}
+        corrupt_nth(1)
+        before = counts()
+        t = time.perf_counter()
+        try:
+            run_ranks(g, lambda x, r: batch(x, r, reqs),
+                      "3m (d) poisoned inline window")
+        finally:
+            tcontract.install_fault_plan(None)
+        chaos["inline_s"] = check_poisoned("poisoned inline window", reqs,
+                                           t, "inline")
+        moved_since(before, "(d) poisoned inline window", {"sequencer": 1})
+
+        # a live card run: of a stream of 3 windows held behind a sleep
+        # kernel (the host runs ahead of the device), the first runs
+        # inline, the second arms the run and the third, poisoned, is a
+        # mailbox post into it
+        def stream(x, r):
+            qs = []
+            x.begin_batch()
+            try:
+                for _ in range(3):
+                    qs.append([x.allreduce(send[r], d, run_async=True)
+                               for d in outs[r]])
+                    x._dispatch_pending()
+                reqs[r] = qs[2]
+            finally:
+                x.end_batch()
+            for q in qs[0] + qs[1]:
+                q.wait(60)
+                q.check()
+
+        ring.lowering = "xla"
+        saved_linger = ring.linger_s
+        ring.linger_s = 2.0
+        try:
+            corrupt_nth(3)
+            before = counts()
+            hold_stream(TELEM_SLEEP)
+            t = time.perf_counter()
+            try:
+                run_ranks(g, stream, "3m (d) stream")
+            finally:
+                tcontract.install_fault_plan(None)
+            chaos["run_s"] = check_poisoned("poisoned run window", reqs, t,
+                                            "mailbox")
+            moved_since(before, "(d) stream",
+                        {"sequencer": 1, "sequencer_run": 1})
+        finally:
+            ring.linger_s = saved_linger
+            ring.lowering = "pallas"
+        chaos["faults"] = ring.stats()["chaos_faults"]
+        if chaos["faults"] != {"corrupt": 2}:
+            fail(f"3m (d): chaos counts {chaos['faults']}")
+        run_ranks(g, lambda x, r: x.soft_reset(), "3m (d) soft_reset")
+        before = counts()
+        run_ranks(g, batch, "3m (d) recovered window")
+        moved_since(before, "(d) recovered window", {"sequencer": 1})
+        exact("recovered window")
+        check_circuit_opens("3m (d)", 2)
+        out["ring"] = {"cooldown_s": FAULT_COOLDOWN_S, "refuse_s": refuse_s,
+                       "circuit_open": ring.stats()["fallbacks"].get(
+                           "circuit_open", 0), **chaos}
+    finally:
+        for x in g:
+            x.deinit()
+    return out
+
+
+def faults_cost(kc) -> dict:
+    """Phase 3m (b), the verifier's cost: one ``cuda_group(4)``, warm
+    ``pallas_ring`` allreduces at 256 KiB a rank, ``TELEM_ROUNDS`` rounds
+    of ``TELEM_CALLS`` synchronous calls with the verifier armed
+    (``set_contract_verify(True)``, interval 8) and disarmed in turn
+    (alternating which goes first): rank 0's call p50 (host clock) and
+    the gang's launch p50 (``Request.get_duration_ns``), each as the
+    median of the rounds' p50s with the rounds' range as its spread."""
+    import numpy as np
+
+    import accl_tpu_torch as at
+
+    P, n = P_MAIN, FAULT_N
+    g = at.cuda_group(P)
+    samples = {k: {"call": [], "launch": []} for k in ("on", "off")}
+    try:
+        for a in g:
+            a.set_tuning("allreduce_algorithm", "pallas_ring")
+        bufs = [(a.create_buffer_from(np.full(n, r + 1.0, np.float32)),
+                 a.create_buffer(n, np.float32)) for r, a in enumerate(g)]
+        for _ in range(3):  # cold, prepared, warm
+            run_ranks(g, lambda a, r: a.allreduce(*bufs[r]),
+                      "3m cost warm-up")
+        before = {k: f.launches.count for k, f in kc.KERNELS.items()}
+
+        def one_pass(k):
+            call, launch = [], []
+
+            def rank_main(a, r):
+                a.set_contract_verify(k == "on")
+                for _ in range(TELEM_CALLS):
+                    t = time.perf_counter()
+                    req = a.allreduce(*bufs[r])
+                    if r == 0:
+                        call.append(time.perf_counter() - t)
+                        launch.append(req.get_duration_ns() * 1e-9)
+
+            run_ranks(g, rank_main, f"3m cost {k}")
+            samples[k]["call"].append(float(np.median(call)) * 1e3)
+            samples[k]["launch"].append(float(np.median(launch)) * 1e3)
+
+        for i in range(TELEM_ROUNDS):
+            for k in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                one_pass(k)
+        launches = {k: f.launches.count - before[k]
+                    for k, f in kc.KERNELS.items()
+                    if f.launches.count != before[k]}
+        want = 2 * TELEM_ROUNDS * TELEM_CALLS
+        if launches != {"ring_allreduce": want}:
+            fail(f"3m cost: launched {launches}, want ring_allreduce {want}")
+    finally:
+        for a in g:
+            a.deinit()
+    res = {"bytes_per_rank": 4 * n, "rounds": TELEM_ROUNDS,
+           "calls_per_round": TELEM_CALLS, "interval": 8}
+    for k, s in samples.items():
+        res[k] = {f"{m}_p50_ms": float(np.median(v)) for m, v in s.items()}
+        res[k].update({f"{m}_p50_range_ms": [min(v), max(v)]
+                       for m, v in s.items()})
+    res["call_p50_delta_ms"] = res["on"]["call_p50_ms"] - res["off"][
+        "call_p50_ms"]
+    res["launch_p50_delta_ms"] = res["on"]["launch_p50_ms"] - res["off"][
+        "launch_p50_ms"]
+    res["launches"] = launches
+    res["record_host_us"] = verify_host_us()
+    return res
+
+
+def verify_host_us(iters: int = 2000) -> dict:
+    """The verifier's intake on the host, timed alone on this thread
+    over ``iters`` calls (host clock, microseconds a call):
+    ``ContractVerifier.record`` with no board (a crc32 and a ring
+    append) and with a shared board at interval 8 (a post every 8th
+    call, one poster)."""
+    from accl_tpu_torch.contract import ContractBoard, ContractVerifier
+
+    out = {}
+    for name, board in (("no_board", None), ("board", ContractBoard())):
+        v = ContractVerifier(rank=0, world=1, interval=8, board=board)
+        v.begin_comm(0, 0, (0,))
+        t = time.perf_counter()
+        for _ in range(iters):
+            v.record("allreduce", 0, "FLOAT32", FAULT_N, "0/0", 0)
+        out[name] = (time.perf_counter() - t) / iters * 1e6
+    return out
+
+
 def topology_latency(iters: int = 15) -> dict:
     """``facade_topology``: host-clock p50 / p90 of one synchronous call on
     rank 0's thread (as ``facade_latency``), every algorithm register at
@@ -6352,6 +6959,23 @@ def main() -> int:
             **{k: v for k, v in telem.items() if k != "launches"},
             "cost": telemetry_cost(kc)}}))
         print(f"telemetry timing ({time.time() - t0:.1f} s)", flush=True)
+        return 0
+    if sys.argv[1:] == ["--faults"]:  # phase 3m and the verifier's cost
+        probe_phase(kc)
+        print(f"built {kc.build_all(['ring', 'rooted', 'cmdring'])}",
+              flush=True)
+        t0 = time.time()
+        faults = faults_main_path(kc)
+        print(f"faults path ok ({time.time() - t0:.1f} s): launches "
+              f"{ {k: v for k, v in faults['launches'].items() if v} }",
+              flush=True)
+        t0 = time.time()
+        print(json.dumps({"faults": {
+            "card": smi.stdout.strip().splitlines()[0],
+            **{k: v for k, v in faults.items() if k != "launches"},
+            "cost": faults_cost(kc)}}))
+        print(f"faults timing ({time.time() - t0:.1f} s)", flush=True)
+        check_circuit_opens("after phase 3m", faults["ring"]["circuit_open"])
         return 0
     if sys.argv[1:] == ["--launch-path"]:  # the launch path alone
         if not kc.probe_copy(torch.ones(8, 128, device=dev)).eq(1).all():
@@ -6589,13 +7213,19 @@ def main() -> int:
     print(f"telemetry path ok ({time.time() - t0:.1f} s): launches "
           f"{ {k: v for k, v in telem['launches'].items() if v} }",
           flush=True)
-    # each kernel's launches over the probe's and the thirteen paths' runs
+    t0 = time.time()
+    faults = faults_main_path(kc)
+    print(f"faults path ok ({time.time() - t0:.1f} s): launches "
+          f"{ {k: v for k, v in faults['launches'].items() if v} }",
+          flush=True)
+    # each kernel's launches over the probe's and the fourteen paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k]
                 + ringed["launches"][k] + serve["launches"][k]
                 + train["launches"][k] + cp["launches"][k] + compressed[k]
                 + converged[k]
                 + p2p[k] + seqp["launches"][k] + dispatched[k]
-                + topo["launches"][k] + telem["launches"][k] + probed[k]
+                + topo["launches"][k] + telem["launches"][k]
+                + faults["launches"][k] + probed[k]
                 for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
@@ -6740,6 +7370,8 @@ def main() -> int:
             kernels[-1]["launches_topology"] = topo["launches"][name]
         if telem["launches"][name]:  # phase 3l's share
             kernels[-1]["launches_telemetry"] = telem["launches"][name]
+        if faults["launches"][name]:  # phase 3m's share
+            kernels[-1]["launches_faults"] = faults["launches"][name]
         if name == "sequencer":  # the other windows of the bounds table
             kernels[-1].update({
                 "device_ms": seq["device_ms"],
@@ -6981,6 +7613,12 @@ def main() -> int:
         **{k: v for k, v in telem.items() if k != "launches"},
         "cost": telemetry_cost(kc)}}))
     print(f"telemetry timing ({time.time() - t1:.1f} s)", flush=True)
+    t1 = time.time()
+    print(json.dumps({"faults": {
+        "card": smi.stdout.strip().splitlines()[0],
+        **{k: v for k, v in faults.items() if k != "launches"},
+        "cost": faults_cost(kc)}}))
+    print(f"faults timing ({time.time() - t1:.1f} s)", flush=True)
     facade = facade_compressed_latency([1024 * 1024, N_RANK])
     print(json.dumps({"facade_compressed": {
         "card": smi.stdout.strip().splitlines()[0], "rows": facade}}))
@@ -7017,6 +7655,8 @@ def main() -> int:
     print(json.dumps({"seq_parallel_attention": {
         "card": smi.stdout.strip().splitlines()[0], **seq_lat,
         "gaps": seqp["gaps"]}}))
+    check_circuit_opens("after phase 3m", faults["ring"]["circuit_open"])
+    print(json.dumps({"gc_holds": GC_HOLDS}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -114,7 +114,9 @@ def test_import_is_free_of_jax_and_the_jax_package():
         "accl_tpu_torch.ops.cuda.alltoall, accl_tpu_torch.ops.cuda.attention, "
         "accl_tpu_torch.plans, accl_tpu_torch.topology, "
         "accl_tpu_torch.hierarchical, accl_tpu_torch.tuning, "
-        "accl_tpu_torch.telemetry, accl_tpu_torch.monitor\n"
+        "accl_tpu_torch.telemetry, accl_tpu_torch.monitor, "
+        "accl_tpu_torch.faults, accl_tpu_torch.contract, "
+        "accl_tpu_torch.membership\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'accl_tpu'))\n"
         "print(','.join(bad))\n"

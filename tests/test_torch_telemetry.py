@@ -369,11 +369,9 @@ def test_snapshot_keys_equal_jax(recorded):
     assert set(ts["stragglers"]) == set(ws["stragglers"])
     assert set(ts["anomalies"]) == set(ws["anomalies"])
     assert ts["monitor"] == ws["monitor"]
-    # the ring's stats: JAX's keys but the breaker, chaos and QoS planes'
-    # (ROADMAP A11c, A11d)
+    # the ring's stats: JAX's keys but the QoS plane's (ROADMAP A11d)
     assert set(ws["engine"]["cmdring"]) - set(ts["engine"]["cmdring"]) == {
-        "breakers", "chaos_faults", "slot_budgets", "comm_slots",
-        "budgeted_windows"}
+        "slot_budgets", "comm_slots", "budgeted_windows"}
     assert set(ts["engine"]["cmdring"]) <= set(ws["engine"]["cmdring"])
 
 
@@ -646,17 +644,25 @@ def test_overlap_ns_is_none(port4):
 
 
 def test_unported_plane_sections_hold_off_values(port4):
-    """§C: the sections of the planes the port has not yet (ROADMAP A11c,
-    A11d) stay under JAX's keys with the value of a plane that is off or
-    has seen nothing."""
+    """§C: of the planes' sections only the arbiter's (ROADMAP A11d)
+    still holds the value of a plane that is off: ``tenants`` ``{}``.
+    The fault, contract, membership and postmortem sections hold the JAX
+    gang's live values after the same calls (``faults`` None on both)."""
+    jg = xla_group(P)
+    try:
+        jax_tests._exercise(jg)
+        want = jg[0].telemetry_snapshot()
+    finally:
+        _deinit(jg)
     jax_tests._exercise(port4)
     snap = port4[0].telemetry_snapshot()
-    assert snap["contract"] == {"enabled": False}
-    assert snap["postmortem"] == {"enabled": False}
+    assert snap["contract"] == want["contract"] == {"enabled": False}
+    assert snap["postmortem"] == want["postmortem"]
     assert snap["faults"] is None and snap["engine"]["faults"] is None
-    for key in ("health", "membership", "health_events", "tenants"):
-        assert snap[key] == {}, key
-    assert snap["engine"]["tenants"] == {}
+    assert snap["health"] == want["health"]
+    assert snap["health_events"] == want["health_events"]
+    assert snap["membership"] == want["membership"]
+    assert snap["tenants"] == {} and snap["engine"]["tenants"] == {}
     assert snap["wire_trace"]["events"] == [] or all(
         ev["src"] for ev in snap["wire_trace"]["events"])
 
