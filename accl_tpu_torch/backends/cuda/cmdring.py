@@ -11,20 +11,34 @@ is one refill, the one host interaction of its window:
 * a lone window runs inline: ONE launch of the sequencer kernel
   (``ops/cmdring.py``), which decodes the slot words on the device;
 * a window posted while an earlier window of its session is still in
-  flight (not yet drained at a facade drain point, ``end_batch`` or a
-  request's ``wait``, and on the card its event not yet passed) arms a
-  persistent *run* (one dispatch) and rides it; later windows of that
-  shape are mailbox posts while the run accepts them (``mailbox_posts``),
-  so a warm stream of K windows costs at most one dispatch.  On the CPU
-  a run is a thread (``accl-cmdring-run``) draining the port's
+  flight arms a persistent *run* (one dispatch) and rides it; later
+  windows of that shape are mailbox posts while the run accepts them
+  (``mailbox_posts``), so a warm stream of K windows costs at most one
+  dispatch.  On the card a window is in flight until the gang's
+  in-flight window retired it (its event or its run's ticket passed), as
+  JAX's drainer retires a window; on the CPU, where the plain sequencer
+  has run by the time the launch returns, the stream detector counts a
+  window in flight until every rank of it passed a facade drain point
+  (``end_batch`` or a request's ``wait``).  On the CPU a run is a thread
+  (``accl-cmdring-run``) draining the port's
   :class:`~accl_tpu_torch.cmdring.SequencerMailbox` with the plain
   sequencer; on the card it is one cooperative launch of the persistent
   kernel (``ops.cuda.cmdring.PersistentRun``) polling host-mapped memory,
-  whose windows' requests complete at post time with a ticket in place of
-  an event.  As in the JAX package, the lowering that arms runs (``xla``)
-  is the default off the accelerator; on the card the default is
-  ``pallas``, every window inline, and ``ACCL_CMDRING_LOWERING=xla``
-  arms runs there too (``default_lowering``).
+  each window's ticket standing in for an event.  As in the JAX package,
+  the lowering that arms runs (``xla``) is the default off the
+  accelerator; on the card the default is ``pallas``, every window
+  inline, and ``ACCL_CMDRING_LOWERING=xla`` arms runs there too
+  (``default_lowering``).
+
+Every window, inline or posted, is parked in the gang's in-flight window
+(``ring=True``) under its communicator's id, and its requests complete
+from there once its device work has ended (at once for the CPU's inline
+window, at the run thread's completion for a CPU run's), with the
+window's ``overlap_ns`` and ``inflight_depth``; a failed wait (a run's
+failure latch, the drain deadline) fails them.  A communicator with a QoS
+slot budget (``set_slot_budget``, the arbiter's ``SET_TENANT_RING_SLOTS``)
+has its batches cut into windows of at most that many slots
+(``budgeted_windows``); ``comm_slots`` counts each communicator's slots.
 
 A batch the ring refuses runs position by position through the per-call
 path, with the reason counted in :meth:`GangCommandRing.stats` under the
@@ -45,8 +59,8 @@ beside its host-side timing (``basis: "host"``) and, for a run's window,
 its mailbox timestamps (``mailbox_us``); ``stats()`` carries the log's
 tail and a window-latency histogram, and :meth:`GangCommandRing.
 trace_events` renders the log as Perfetto spans flow-linked to the
-issuing calls.  A window's requests complete at launch (or at post into
-a card run), so its logged duration is the host's, up to the launch.
+issuing calls.  A window is logged when the in-flight window retires it,
+so its logged duration runs from the gang's start to its device end.
 
 The fault planes, as the JAX ring's: each communicator has a circuit
 breaker (``breaker_for``, ``ACCL_CMDRING_COOLDOWN_S``); a failed window
@@ -66,9 +80,6 @@ and that slot's requests fail with INVALID_OPERATION at once;
 carries ``breakers`` and ``chaos_faults``; ``reset()`` closes every
 breaker.  ``on_failure(comm_id, error)`` is the facade's postmortem
 hook on a failed window.
-
-What the JAX ring has and this one does not (yet): QoS slot budgets
-(ROADMAP A11d).
 """
 
 from __future__ import annotations
@@ -224,16 +235,19 @@ def buffer_root(buf) -> int:
 class _Window:
     """One refill window: its slots' plans, calls and requests, and how it
     completes.  ``event`` is the inline launch's CUDA event or a run's
-    ticket (None on the CPU); ``done`` is set once its results are in
-    place.  It is drained once every rank of it (``ranks``, their world
-    sessions) passed a facade drain point after it ran.  ``slots_info``
-    (per slot: seqn, opcode, the issuing trace id), ``form`` (``inline``
-    or ``mailbox``), ``run`` (the run it rode) and ``logged`` feed the
-    window log."""
+    ticket (None on the CPU); ``status`` its slots' status words; ``done``
+    is set once its results are in place; ``settled`` once its requests
+    completed (the in-flight window retired it) or failed, and ``error``
+    names the failure.  It is drained once every rank of it (``ranks``,
+    their world sessions) passed a facade drain point after it ran.
+    ``slots_info`` (per slot: seqn, opcode, the issuing trace id),
+    ``form`` (``inline`` or ``mailbox``), ``run`` (the run it rode) and
+    ``logged`` feed the window log."""
 
     __slots__ = ("window_id", "comm_id", "plans", "calls", "reqs", "widths",
-                 "t0", "event", "done", "ranks", "drained_by", "writes",
-                 "slots_info", "form", "run", "logged")
+                 "t0", "event", "status", "done", "settled", "error",
+                 "ranks", "drained_by", "writes", "slots_info", "form",
+                 "run", "logged")
 
     def __init__(self, window_id, plans, calls, reqs, widths, t0, ranks,
                  comm_id=0):
@@ -249,7 +263,10 @@ class _Window:
         self.widths = widths
         self.t0 = t0
         self.event = None
+        self.status = None
         self.done = threading.Event()
+        self.settled = False
+        self.error: Optional[str] = None
         self.ranks = tuple(ranks)
         self.drained_by: set = set()
         self.writes = {buffer_root(calls[k][r].res)
@@ -263,15 +280,12 @@ class _Window:
         return len(self.drained_by) >= len(self.ranks)
 
     def in_flight(self) -> bool:
-        if self.drained:
-            return False
-        ev = self.event
-        if ev is None:  # the CPU: in flight until a drain point
-            return True
-        try:
-            return not ev.query()
-        except RuntimeError:
-            return False
+        """The stream detector's notion: on the card until the in-flight
+        window retired it; on the CPU (no event) until every rank of it
+        passed a drain point."""
+        if self.event is None:
+            return not self.drained
+        return not self.settled
 
     def wait(self, timeout: float) -> None:
         ev = self.event
@@ -438,6 +452,13 @@ class GangCommandRing:
         self.breaker_cooldown_s = cooldown
         self._breakers: Dict[int, CircuitBreaker] = {}
         self.chaos_faults: Dict[str, int] = {}
+        # the QoS arbiter plane (SET_TENANT_RING_SLOTS): per-comm slot
+        # budgets (a budgeted comm's batches cut into windows of at most
+        # its budget, so a flooder pays extra doorbells instead of taking
+        # whole windows), each comm's slots, and the windows a budget cut
+        self._slot_budgets: Dict[int, int] = {}
+        self.comm_slots: Dict[int, int] = {}
+        self.budgeted_windows = 0
 
     # -- introspection -------------------------------------------------------
     def supports(self, op) -> bool:
@@ -529,6 +550,13 @@ class GangCommandRing:
                 "fallbacks": dict(self.fallbacks),
                 "chaos_faults": dict(self.chaos_faults),
                 "breakers": breakers,
+                # the QoS plane: budgets, each comm's slots (the ring share
+                # the fairness checks read) and the windows a budget cut
+                "slot_budgets": {
+                    str(c): b for c, b in sorted(self._slot_budgets.items())},
+                "comm_slots": {
+                    str(c): n for c, n in sorted(self.comm_slots.items())},
+                "budgeted_windows": self.budgeted_windows,
                 "mailbox_depth": mailbox_depth,
                 # the window log: windows logged, the latency histogram
                 # (host basis) and the log's tail
@@ -676,6 +704,22 @@ class GangCommandRing:
         """Count a ring miss decided outside run_batch (the engine's fused
         host decomposition)."""
         self._fallback(reason)
+
+    def set_slot_budget(self, comm_id: int, slots: Optional[int]) -> None:
+        """The comm's slot budget a window (the QoS arbiter's
+        SET_TENANT_RING_SLOTS): its batches cut into windows of at most
+        ``slots`` slots (clamped to the ring's depth); None clears it.  A
+        budget is configuration and survives ``reset()``."""
+        with self._lock:
+            if slots is None:
+                self._slot_budgets.pop(int(comm_id), None)
+            else:
+                self._slot_budgets[int(comm_id)] = max(
+                    1, min(int(slots), self.depth))
+
+    def slot_budget_of(self, comm_id: int) -> Optional[int]:
+        with self._lock:
+            return self._slot_budgets.get(int(comm_id))
 
     # -- drain points and teardown -------------------------------------------
     def drain(self, rank: int) -> None:
@@ -928,8 +972,15 @@ class GangCommandRing:
             calls, lead, _ = plans[i]
             plans[i] = (calls, lead, self._plan_barrier(comm, window_dtype))
 
-        for lo in range(0, npos, self.depth):
-            window = plans[lo:lo + self.depth]
+        # windows of at most `depth` slots, or of the comm's QoS budget
+        with self._lock:
+            budget = self._slot_budgets.get(comm.id)
+        width = min(self.depth, budget) if budget else self.depth
+        for lo in range(0, npos, width):
+            window = plans[lo:lo + width]
+            if budget and npos > width:
+                with self._lock:
+                    self.budgeted_windows += 1
             reqs_per_slot = [[e[1][i] for e in entries]
                              for i in range(lo, lo + len(window))]
             try:
@@ -1083,6 +1134,7 @@ class GangCommandRing:
                 self.wraps += 1
             self.refills += 1
             self.slots_enqueued += n
+            self.comm_slots[comm.id] = self.comm_slots.get(comm.id, 0) + n
             self.last_window = n
             self.max_window = max(self.max_window, n)
             for _, _, plan in window:
@@ -1191,28 +1243,79 @@ class GangCommandRing:
             self.dispatches += launches_for(comm.size, n)
             session.last = ("host", host, event)
         # the retcodes the device writes, known on the host from the same
-        # words: the requests complete now, at launch, with the event
-        self._complete(rec, status_words(slots_np), event)
+        # words; the requests complete once the event has passed
+        rec.status = status_words(slots_np)
+        if event is None:
+            rec.done.set()  # the CPU's plain sequencer has run
+        self._park(rec)
 
-    def _complete(self, rec, status, event=None) -> None:
-        end = time.perf_counter_ns()
-        dt = end - rec.t0
-        self._log_window(rec, status, end)
+    def _park(self, rec) -> None:
+        """Hand a launched or posted window to the gang's in-flight window
+        (``ring=True``, under its comm's id): its waiter blocks until the
+        window's device work has ended -- its blocking CUDA event, its
+        card run's ticket, or (the CPU) its results being in place, each
+        bounded by the drain deadline -- and the drainer then settles it
+        (:meth:`_settle`) or fails it (:meth:`_fail`)."""
+        ev = rec.event
+        timeout = drain_deadline_s(self.gang_timeout())
+
+        def waiter():
+            if isinstance(ev, RunTicket):
+                if not ev.run.wait_window(ev.k, timeout):
+                    raise RuntimeError(
+                        f"sequencer run failed: {ev.run.failed}")
+            elif ev is not None:
+                if not ev.query():
+                    ev.synchronize()
+            elif not rec.done.wait(timeout):
+                raise TimeoutError("command-ring window never completed "
+                                   "(a run wedged past the drain deadline)")
+            if rec.error is not None:
+                raise RuntimeError(rec.error)
+
+        def on_ready(overlap_ns, depth, ready_ns):
+            self._settle(rec, ready_ns, overlap_ns, depth)
+
+        def on_error(exc):
+            self._fail(rec, f"{type(exc).__name__}: {exc}")
+
+        self.gang.window.park(rec.comm_id, waiter, on_ready, on_error,
+                              ring=True)
+
+    def _settle(self, rec, end: int, overlap_ns: int = 0,
+                depth: Optional[int] = None) -> None:
+        """The window's device work has ended: log it, close its comm's
+        breaker and complete its requests with their slots' retcodes and
+        the in-flight window's facts (once; a failure first wins)."""
+        with self._lock:
+            if rec.settled:
+                return
+            rec.settled = True
+        dt = max(end - rec.t0, 1)
+        self._log_window(rec, rec.status, end)
         # a completed window closes (or restores) the comm's breaker: a
         # slot's BAD_OP is an opcode error, not a transport failure
         self.breaker_for(rec.comm_id).success()
-        codes = np.asarray(status)[:, 1]
+        codes = np.asarray(rec.status)[:, 1]
         for k, slot_reqs in enumerate(rec.reqs):
             code = (ErrorCode.OK if int(codes[k]) == CMDRING_ST_OK
                     else ErrorCode.INVALID_OPERATION)
             for req in slot_reqs:
                 req.ring_resident = True
-                req.complete(code, dt, event=event)
+                req.overlap_ns = overlap_ns or None
+                req.inflight_depth = depth
+                req.complete(code, dt, event=rec.event)
         rec.done.set()
 
     def _fail(self, rec, reason: str) -> None:
-        """Fail a window's requests (a run's failure latch): never
-        re-executed."""
+        """Fail a window's requests (a run's failure latch, a failed or
+        timed-out wait): never re-executed; once (a completion first
+        wins)."""
+        with self._lock:
+            if rec.settled:
+                return
+            rec.settled = True
+            rec.error = reason
         end = time.perf_counter_ns()
         dt = end - rec.t0
         self._log_window(rec, None, end, error=reason)
@@ -1321,16 +1424,19 @@ class GangCommandRing:
         return run
 
     def _posted(self, comm, session, run, rec, slots_np, cuda) -> None:
-        """A window a run took: on the card its requests complete now
-        with the window's ticket; on the CPU when the run completes it."""
+        """A window a run took, parked in the in-flight window: on the card
+        it retires when its ticket passes; on the CPU when the run has
+        completed it (``_make_window_done``)."""
         if not cuda:
             with self._lock:
                 run.windows.append((None, rec))
+            self._park(rec)
             return
         drun = run.device_run
         k = run.mbox.index.pop(rec.window_id)
         ticket = drun.ticket(k)
         rec.event = ticket
+        rec.status = status_words(slots_np)
         with self._lock:
             run.windows.append((k, rec))
             session.last = ("run", drun, k, len(rec.plans))
@@ -1339,7 +1445,7 @@ class GangCommandRing:
                 res = rec.calls[j][r].res
                 if res is not None and not res.is_dummy:
                     res.ready = ticket
-        self._complete(rec, status_words(slots_np), ticket)
+        self._park(rec)
 
     def _run_failed(self, comm_id, run, reason: str) -> None:
         """A card run's failure latch: every window it had not completed
@@ -1399,8 +1505,9 @@ class GangCommandRing:
 
     def _make_window_done(self, comm_id: int):
         """The completion a CPU run's mailbox fires once every rank pushed
-        a window: the results land in the result buffers, then the
-        window's requests complete with their slots' retcodes."""
+        a window: the results land in the result buffers and the window is
+        done, so the in-flight window's waiter returns and its drainer
+        completes the requests with their slots' retcodes."""
 
         def on_done(window_id, status, results, comm_id=comm_id):
             with self._lock:
@@ -1418,6 +1525,7 @@ class GangCommandRing:
             with self._lock:
                 if s is not None:
                     s.last = ("words", np.asarray(status, np.int32))
-            self._complete(rec, status)
+            rec.status = status
+            rec.done.set()
 
         return on_done

@@ -9,8 +9,23 @@ registers) and completes every rank's request.
 
 Streams: the collective launches on the executing thread's current
 stream, after that stream waits on every operand's last-writer event; it
-then records one event, which every rank's request and result buffer
-carry, so a waiter synchronises on that event and not on the device.
+then records one event (``blocking``: a host wait on it sleeps in the
+driver), which every rank's request and result buffer carry, so a waiter
+synchronises on that event and not on the device.
+
+The in-flight window (``overlap.InflightWindow``, the JAX gang's
+``window``): a launched call is parked there under its communicator's id
+with its event as the waiter, and the window's drainer completes every
+rank's request once the event has passed, in launch order per
+communicator; so a request completes when its device work ends, its
+duration runs from the gang's start to that end, and its ``overlap_ns``
+and ``inflight_depth`` are the window's.  Up to ``window.depth`` calls of
+a communicator (or a tenant's window share) are in flight; one more
+waits for the oldest.  The paths JAX's gang parks (the device lowering,
+the prepared path, the fused batch, the command ring's windows) park on
+the CPU too, where the waiter returns at once; anything else that
+launched device work parks on the card, and the rest completes inline
+behind the communicator's parked calls (``drain_key``).
 
 Dispatch: a call whose facade plan (``accl_tpu_torch.plans``) holds the
 gang's prepared state takes the warm path -- its operands held against
@@ -75,6 +90,7 @@ from ...constants import (
     ErrorCode,
     FusedCompute,
     MAX_EAGER_SIZE_LIMIT,
+    MAX_INFLIGHT_WINDOW,
     Operation,
     ROOTED_ALGORITHMS,
     ReduceFunction,
@@ -86,10 +102,12 @@ from ...constants import (
     drain_deadline_s,
     dtype_to_torch,
 )
+from ...arbiter import tenant_config_field, tenant_config_valid
 from ...membership import CircuitBreaker
 from ...ops import driver as opdriver
 from ...ops.cuda.combine import combine as kernel_combine
 from ...ops.wire import wire_lane_roundtrip_rows
+from ...overlap import InflightWindow, device_waiter
 from ...wire import astype, is_wire_dtype, rank_seed, roundtrip, widen
 from ...request import Request
 from ..base import (
@@ -258,6 +276,13 @@ def resolve_lowering(op, lead: CallOptions, tuning: dict,
     raise ValueError(op)  # callers gate on _FAST_OPS
 
 
+#: the config writes of the QoS arbiter plane
+_TENANT_CONFIG = (
+    ConfigFunction.SET_TENANT_CLASS, ConfigFunction.SET_TENANT_WEIGHT,
+    ConfigFunction.SET_TENANT_WINDOW_SHARE,
+    ConfigFunction.SET_TENANT_RING_SLOTS, ConfigFunction.SET_TENANT_RATE,
+)
+
 #: ops of the prepared warm path (BCAST stays on the full path, as in
 #: the JAX engine)
 _FAST_OPS = frozenset((
@@ -285,10 +310,12 @@ ROOTED_OPS = (Operation.REDUCE, Operation.BCAST, Operation.SCATTER,
 
 
 def _record_event(device: torch.device):
-    """An event on the current stream of ``device`` (None on the CPU)."""
+    """An event on the current stream of ``device`` (None on the CPU).
+    Blocking: the in-flight window's drainer, and any host waiter, sleeps
+    in the driver until it passes instead of spinning a core."""
     if device.type != "cuda":
         return None
-    ev = torch.cuda.Event()
+    ev = torch.cuda.Event(blocking=True)
     ev.record(torch.cuda.current_stream(device))
     return ev
 
@@ -696,6 +723,9 @@ class CudaGangContext:
         self.tuning_epoch = 0
         self.device = opdriver.resolve_device(device)
         self.interactions = InteractionCounter()
+        # the in-flight window: launched calls by communicator id, each
+        # completed by the window's drainer once its device work ended
+        self.window = InflightWindow()
         self.cmdring = GangCommandRing(self)
         # point-to-point: the tag-matched channel, and each rank's engine
         # by session (the destination of a stream_put)
@@ -852,15 +882,16 @@ class CudaGangContext:
     # -- recovery ------------------------------------------------------------
     def drain_device(self, deadline_s: float, reset_ring: bool = False
                      ) -> bool:
-        """Wait, bounded, for the device work the gang launched: every
+        """Wait, bounded, for the device work the gang launched: the
+        in-flight window (every parked call completed), every
         command-ring window still in flight, then (on the card) every
-        kernel queued on the current stream.  A request completes at
-        launch, so this is the drain point a reset needs; ``reset_ring``
-        halts the ring's live runs (and realigns it) between the two, so
-        a run lingering on its mailbox returns instead of holding the
+        kernel queued on the current stream.  ``reset_ring`` halts the
+        ring's live runs (and realigns it) before the stream drains, so a
+        run lingering on its mailbox returns instead of holding the
         stream.  False when the bound ran out first."""
         end = time.monotonic() + deadline_s
-        ok = self.cmdring.wait_in_flight(end)
+        ok = self.window.drain(deadline_s)
+        ok = self.cmdring.wait_in_flight(end) and ok
         if reset_ring:
             self.cmdring.reset()
         if self.device.type == "cuda":
@@ -876,11 +907,12 @@ class CudaGangContext:
         accl.cpp:57-89), collective by contract: every rank handle issues
         it with nothing in flight, and each call idempotently clears the
         shared tables.  The device work drains first (bounded, so a
-        wedged kernel cannot wedge recovery), the command ring halting
-        its runs and realigning at 0 before the stream drains; then the
-        parked slots, the sequence numbers and the health map go, the
-        register epoch bumps (prepared plan state dies), and every parked
-        call completes with RECEIVE_TIMEOUT (its gang never assembled)."""
+        wedged kernel cannot wedge recovery): the in-flight window, then
+        the command ring, which halts its runs and realigns at 0 before
+        the stream drains; then the parked slots, the sequence numbers
+        and the health map go, the register epoch bumps (prepared plan
+        state dies), and every parked call completes with
+        RECEIVE_TIMEOUT (its gang never assembled)."""
         self.drain_device(drain_deadline_s(self.timeout_s), reset_ring=True)
         with self._lock:
             slots = list(self._slots.values())
@@ -971,6 +1003,7 @@ class CudaGangContext:
         lead = calls[0]
         t0 = time.perf_counter_ns()
         event, context = None, None
+        launched = False  # a device lowering ran: the window completes it
         p2p = [c.op in (Operation.SEND, Operation.RECV) for c in calls]
         try:
             if all(p2p):
@@ -1005,14 +1038,47 @@ class CudaGangContext:
                       comm, [([c], [q]) for c, q in zip(calls, reqs)])):
                 return
             else:
-                code, event = self._run_op(comm, calls, lead)
+                code, event, launched = self._run_op(comm, calls, lead)
         except Exception as e:  # the gang boundary: fail every rank's call
             code = ErrorCode.INVALID_OPERATION
             context = {"op": lead.op.name,
                        "error": f"{type(e).__name__}: {e}"[:300]}
+        if code == ErrorCode.OK and (launched or event is not None):
+            self._park_inflight(comm.id, reqs, event, t0)
+            return
+        # an inline completion must not overtake the communicator's
+        # parked calls (bounded: a wedged one must not wedge this one)
+        self.window.drain_key(comm.id, drain_deadline_s(self.timeout_s))
         dt = time.perf_counter_ns() - t0
         for req in reqs:
             req.complete(code, dt, context=context, event=event)
+
+    def _park_inflight(self, comm_id, reqs: List[Request], event,
+                       t0: int) -> None:
+        """Hand a launched call to the in-flight window (the JAX gang's
+        ``_park_inflight``): its requests complete once ``event`` has
+        passed (at once on the CPU), with the duration from ``t0`` to that
+        end and the window's ``overlap_ns`` (None when nothing overlapped
+        it) and ``inflight_depth``; a failed wait fails them with
+        INVALID_OPERATION."""
+
+        def on_ready(overlap_ns, depth, ready_ns):
+            dt = max(ready_ns - t0, 1)
+            for req in reqs:
+                req.overlap_ns = overlap_ns or None
+                req.inflight_depth = depth
+                req.complete(ErrorCode.OK, dt, event=event)
+
+        def on_error(exc):
+            dt = max(time.perf_counter_ns() - t0, 1)
+            ctx = {"comm": comm_id,
+                   "error": f"{type(exc).__name__}: {exc}"[:300]}
+            for req in reqs:
+                if not req.done():
+                    req.complete(ErrorCode.INVALID_OPERATION, dt,
+                                 context=dict(ctx, op=req.op_name))
+
+        self.window.park(comm_id, device_waiter(event), on_ready, on_error)
 
     def _execute_batch(self, comm: Communicator, entries: List[tuple]) -> None:
         """A fully matched batch: ``entries[r]`` is rank r's
@@ -1246,6 +1312,7 @@ class CudaGangContext:
             positions.append((calls, lead))
         t0 = time.perf_counter_ns()
         done = 0
+        all_reqs = [req for _, batch_reqs in entries for req in batch_reqs]
         try:
             self.interactions.bump()  # ONE dispatch for the whole batch
             writers = []
@@ -1255,16 +1322,16 @@ class CudaGangContext:
             event = _record_event(self.device)
             for res in writers:
                 res.ready = event
-            code, context = ErrorCode.OK, None
         except Exception as e:
-            event = None
-            code = ErrorCode.INVALID_OPERATION
             context = {"comm": comm.id, "position": done,
                        "error": f"{type(e).__name__}: {e}"[:300]}
-        dt = time.perf_counter_ns() - t0
-        for _, batch_reqs in entries:
-            for req in batch_reqs:
-                req.complete(code, dt, context=context, event=event)
+            self.window.drain_key(comm.id, drain_deadline_s(self.timeout_s))
+            dt = time.perf_counter_ns() - t0
+            for req in all_reqs:
+                req.complete(ErrorCode.INVALID_OPERATION, dt, context=context)
+            return True
+        # one launch: every position completes together, from the window
+        self._park_inflight(comm.id, all_reqs, event, t0)
         return True
 
     def _run_op(self, comm: Communicator, calls: List[CallOptions],
@@ -1272,16 +1339,23 @@ class CudaGangContext:
         """One gang call: the prepared warm path when the call's plan holds
         its state, else the full device path (which parks that state on
         the plan), or the host-staged path when an operand or result is
-        host-only."""
+        host-only.  Returns ``(code, event, launched)``: ``launched`` when
+        a device lowering ran (the call then rides the in-flight
+        window)."""
         op = lead.op
         if op == Operation.BARRIER:
-            # gang assembly IS the barrier: every rank posted the call
-            return ErrorCode.OK, None
+            # gang assembly IS the barrier (every rank posted the call),
+            # and a drain point of the communicator: it passes once the
+            # comm's parked calls completed, or fails within the deadline
+            if not self.window.drain_key(comm.id,
+                                         drain_deadline_s(self.timeout_s)):
+                return ErrorCode.RECEIVE_TIMEOUT, None, False
+            return ErrorCode.OK, None, False
         if op not in IN_W:
-            return ErrorCode.COLLECTIVE_NOT_IMPLEMENTED, None
+            return ErrorCode.COLLECTIVE_NOT_IMPLEMENTED, None, False
         if any(isinstance(b, HostBuffer) for c in calls
                for b in (c.op0, c.res)):
-            return self._run_op_host(comm, calls, lead)
+            return (*self._run_op_host(comm, calls, lead), False)
         fp = lead.plan
         if fp is not None and op in _FAST_OPS:
             # prepared state is keyed by the exact count: the plan is
@@ -1291,7 +1365,7 @@ class CudaGangContext:
             if state is not None and state["tuning_epoch"] == self.tuning_epoch:
                 done = self._run_op_device_prepared(calls, lead, state)
                 if done is not None:
-                    return done
+                    return (*done, True)
             elif all(type(c.op0) is DeviceBuffer for c in calls):
                 # a shape the warm path can take (every rank an operand):
                 # park its template on the plan
@@ -1310,7 +1384,7 @@ class CudaGangContext:
         event = _record_event(self.device)
         for r in writers:
             calls[r].res.ready = event
-        return ErrorCode.OK, event
+        return ErrorCode.OK, event, True
 
     def _run_op_device_prepared(self, calls: List[CallOptions],
                                 lead: CallOptions, state: dict):
@@ -1555,6 +1629,10 @@ class CudaEngine(StreamPortMixin, BaseEngine):
         self.session = int(session)
         self.timeout_s = DEFAULT_TIMEOUT_S
         self._mbr_fwd = None
+        # the QoS arbiter plane's mirror of this handle's SET_TENANT_*
+        # writes: comm id -> {class, weight, window_share, ring_slots,
+        # rate}, as the JAX gang engine keeps it
+        self.tenants: Dict[int, dict] = {}
         gang.peers[self.session] = self
         gang.live.add(self.session)
         self._init_streams()
@@ -1628,6 +1706,10 @@ class CudaEngine(StreamPortMixin, BaseEngine):
             self.gang.submit(options.comm, options, req)
 
     def _complete_local(self, options: CallOptions, req: Request) -> None:
+        """A copy or combine, run on the caller's thread: a launch on the
+        card rides the in-flight window under this rank's own key and
+        completes when its event passed; the CPU's completes at once, as
+        the JAX engine's host-side local ops do."""
         t0 = time.perf_counter_ns()
         try:
             code, event = self._local_op(options)
@@ -1636,6 +1718,10 @@ class CudaEngine(StreamPortMixin, BaseEngine):
                 "op": options.op.name,
                 "error": f"{type(e).__name__}: {e}"[:300],
             })
+            return
+        if code == ErrorCode.OK and event is not None:
+            self.gang._park_inflight(f"local-{self.session}", [req], event,
+                                     t0)
             return
         req.complete(code, time.perf_counter_ns() - t0, event=event)
 
@@ -1884,6 +1970,32 @@ class CudaEngine(StreamPortMixin, BaseEngine):
             if code == ErrorCode.OK:
                 self.gang.tuning_epoch += 1
             return code
+        elif fn == ConfigFunction.SET_INFLIGHT_WINDOW:
+            if not 1 <= val <= MAX_INFLIGHT_WINDOW:
+                return ErrorCode.CONFIG_ERROR
+            # a drain point: nothing launched under the old depth is in
+            # flight when the new one starts admitting (bounded)
+            if not self.gang.window.drain(
+                    drain_deadline_s(self.gang.timeout_s)):
+                return ErrorCode.RECEIVE_TIMEOUT
+            self.gang.window.set_depth(int(val))
+        elif fn in _TENANT_CONFIG:
+            # the QoS arbiter plane, through the validator every tier
+            # shares; WINDOW_SHARE becomes the communicator's depth in the
+            # in-flight window (after a drain, as SET_INFLIGHT_WINDOW) and
+            # RING_SLOTS its command-ring slot budget; class, weight and
+            # rate are the arbiter's, mirrored here
+            if not tenant_config_valid(fn, val):
+                return ErrorCode.CONFIG_ERROR
+            key = int(options.cfg_key)
+            if fn == ConfigFunction.SET_TENANT_WINDOW_SHARE:
+                if not self.gang.window.drain(
+                        drain_deadline_s(self.gang.timeout_s)):
+                    return ErrorCode.RECEIVE_TIMEOUT
+                self.gang.window.set_key_depth(key, int(val))
+            elif fn == ConfigFunction.SET_TENANT_RING_SLOTS:
+                self.gang.cmdring.set_slot_budget(key, int(val))
+            self.tenants.setdefault(key, {})[tenant_config_field(fn)] = val
         return ErrorCode.OK
 
     def create_buffer(self, count: int, dtype, data=None,
@@ -1947,10 +2059,16 @@ class CudaEngine(StreamPortMixin, BaseEngine):
         self.gang.cmdring.reset()
 
     def drain_inflight(self, timeout=None) -> bool:
-        """A drain point: the gang's device work, bounded."""
-        return self.gang.drain_device(
-            timeout if timeout is not None
-            else drain_deadline_s(self.gang.timeout_s))
+        """A drain point (``flush()``, a cutover): the in-flight window
+        until every parked call completed, then the command ring's windows
+        in flight, bounded together by ``timeout`` (default
+        ``drain_deadline_s`` of the gang's timeout).  False when the bound
+        ran out first."""
+        if timeout is None:
+            timeout = drain_deadline_s(self.gang.timeout_s)
+        end = time.monotonic() + timeout
+        ok = self.gang.window.drain(timeout)
+        return self.gang.cmdring.wait_in_flight(end) and ok
 
     def health_report(self, comm: Communicator) -> Dict[int, dict]:
         """Per-peer health from the gang's watchdog, keyed by
@@ -1986,13 +2104,12 @@ class CudaEngine(StreamPortMixin, BaseEngine):
     def telemetry_report(self) -> dict:
         """The gang tier's counters for the telemetry snapshot, under the
         JAX gang's keys: pending rendezvous slots, the register epoch,
-        parked p2p posts, undrained stream ports and the command ring's
-        ``stats()`` (its window log, breakers and chaos counts included).
+        parked p2p posts, undrained stream ports, the in-flight window's
+        ``stats()`` (``inflight``), the command ring's ``stats()`` (its
+        window log, breakers, chaos counts and slot budgets included) and
+        this handle's mirror of its tenant writes (``tenants``).
         ``faults`` is None, as the JAX gang reports it (the injector
-        reaches the gang through ``contract.install_fault_plan``); the
-        planes the port has not yet report what the JAX gang reports
-        with them off: ``inflight`` and ``tenants`` empty (ROADMAP
-        A11d)."""
+        reaches the gang through ``contract.install_fault_plan``)."""
         with self.gang._lock:
             pending_slots = len(self.gang._slots)
         with self._stream_cv:
@@ -2005,9 +2122,10 @@ class CudaEngine(StreamPortMixin, BaseEngine):
             "gang_tuning_epoch": self.gang.tuning_epoch,
             "p2p_parked": sum(self.gang.p2p.parked().values()),
             "stream_depths": stream_depths,
-            "inflight": {},
+            "inflight": self.gang.window.stats(),
             "cmdring": self.gang.cmdring.stats(),
-            "tenants": {},
+            "tenants": {str(k): dict(v)
+                        for k, v in sorted(self.tenants.items())},
             "faults": None,
             "skew_exchange": "board",
         }
@@ -2027,9 +2145,14 @@ class CudaEngine(StreamPortMixin, BaseEngine):
         """Cancel this rank's parked sends and recvs (their watchdogs stop
         and their requests fail), and halt and join every command-ring run
         (no thread or kernel outlives the engine); the last engine of the
-        gang stops the slot watchdog."""
+        gang stops the slot watchdog and the in-flight window (drained,
+        bounded, its drainers joined; a later park completes on the
+        launching thread)."""
         self.gang.p2p.cancel(self.session)
-        self.gang.cmdring.halt_sessions()
         self.gang.live.discard(self.session)
-        if not self.gang.live:
+        last = not self.gang.live
+        if last:  # the runs finish what the window waits on first
+            self.gang.window.stop(drain_deadline_s(self.gang.timeout_s))
+        self.gang.cmdring.halt_sessions()
+        if last:
             self.gang.watchdog.stop()

@@ -45,7 +45,21 @@ class ConfigFunction(enum.IntEnum):
     ``SET_RETRY_LIMIT`` / ``SET_RETRY_BACKOFF`` are the retransmit knobs
     of ``ACCL.set_retry_policy``; the gang has no host retransmit (its
     ranks share a device), so it validates and stores them, as the JAX
-    gang does."""
+    gang does.
+
+    ``SET_INFLIGHT_WINDOW`` sizes the gang's per-communicator in-flight
+    window (``ACCL.set_inflight_window`` / ``ACCL_INFLIGHT_WINDOW``): up
+    to N launched calls of a communicator whose device work has not
+    ended.  The write is a drain point.
+
+    ``SET_TENANT_*`` configure the QoS arbiter plane
+    (``accl_tpu_torch.arbiter``; ``ACCL.set_tenant_class`` /
+    ``ACCL.set_tenant_quota``), keyed by communicator id in ``cfg_key``:
+    CLASS is the :class:`~accl_tpu_torch.arbiter.TenantClass` int, WEIGHT
+    the DRR weight, WINDOW_SHARE the tenant's per-rank share of the
+    in-flight window (the gang's per-key depth, set after a drain),
+    RING_SLOTS its slot budget per command-ring window, RATE a
+    token-bucket bytes/s cap (0 clears)."""
 
     RESET = 0
     SET_TIMEOUT = 2
@@ -54,6 +68,12 @@ class ConfigFunction(enum.IntEnum):
     SET_TUNING = 5
     SET_RETRY_LIMIT = 6
     SET_RETRY_BACKOFF = 7
+    SET_INFLIGHT_WINDOW = 8
+    SET_TENANT_CLASS = 9
+    SET_TENANT_WEIGHT = 10
+    SET_TENANT_WINDOW_SHARE = 11
+    SET_TENANT_RING_SLOTS = 12
+    SET_TENANT_RATE = 13
 
 
 class TuningKey(enum.IntEnum):
@@ -360,6 +380,13 @@ def drain_deadline_s(timeout_s: float) -> float:
     the engine's own deadlines (a parked send or recv, a stream pop) fire
     first and a first build of the kernels does not trip it."""
     return max(60.0, 4.0 * float(timeout_s))
+
+
+#: the in-flight window (``overlap.InflightWindow``): how many launched
+#: calls of one communicator may be in flight before a launch waits for
+#: the oldest (``ACCL.set_inflight_window`` / ``ACCL_INFLIGHT_WINDOW``)
+DEFAULT_INFLIGHT_WINDOW = 4
+MAX_INFLIGHT_WINDOW = 64
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,15 @@ at the smaller size, and ``soft_reset`` restores the full membership;
 levers.  Under ``ACCL_POSTMORTEM_DIR`` a structured failure writes an
 evidence bundle (``monitor.BlackBox``).
 
+The overlap and QoS planes (``accl_tpu_torch.overlap``, ``.arbiter``): a
+request completes when its device work has ended, through the gang's
+in-flight window (:meth:`ACCL.set_inflight_window`, ``flush()`` drains
+it); :meth:`ACCL.set_arbiter` (or ``ACCL_ARBITER=1``) arms the
+deficit-weighted round-robin admission of registered tenants
+(:meth:`ACCL.set_tenant_class`, :meth:`ACCL.set_tenant_quota`: a window
+share, a ring slot budget, a bytes/s cap), whose snapshot is
+``telemetry_snapshot()["tenants"]`` and the monitor's ``/tenants``.
+
 The data path's topology plane: a handle takes a
 :class:`~accl_tpu_torch.topology.Topology` (``topology=``, or
 ``ACCL_TOPOLOGY`` / ``ACCL_SLICE_SIZE``; :meth:`ACCL.set_topology`), its
@@ -86,6 +95,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from . import arbiter as _arb
 from . import hierarchical as _hier
 from . import membership as _mbr
 from . import monitor as _monitor
@@ -166,6 +176,13 @@ def _wire_dtype_value(name: str) -> int:
     if name.upper() in DataType.__members__:
         return int(DataType[name.upper()])
     return int(as_datatype(name))
+
+
+def _deepest(reqs) -> Optional[int]:
+    """The largest in-flight window depth among an aggregate's sub-calls
+    (None when none rode the window), as the JAX facade records it."""
+    depths = [q.inflight_depth for q in reqs if q.inflight_depth]
+    return max(depths) if depths else None
 
 
 def _weak(method):
@@ -262,6 +279,23 @@ class ACCL:
         self._demoted_seen: set = set()  # (comm, rank) demotions counted
         engine.set_membership(self._membership)
         engine.on_health_transition = _weak(self._on_health_transition)
+        # the QoS arbiter plane (accl_tpu_torch.arbiter): one arbiter a
+        # gang (every rank handle meets on one grant order and one
+        # decision latch); registrations and quotas are always taken, the
+        # acting half (DRR queueing, throttles) arms by ACCL_ARBITER=1 or
+        # set_arbiter().  The per-comm admission index keys the latch, and
+        # this handle is one owner of the per-rank window-share bound
+        self._arbiter = _arb.arbiter_for(anchor) or _arb.QosArbiter()
+        if _arb.env_arbiter():
+            self._arbiter.armed = True
+        self._arbiter_seq: dict = {}
+        self._arbiter_owner = ranks[local_rank].session
+        self._arbiter_exchange_ctr = 0
+        if (_arb.env_ledger() and self._arbiter.ledger is None
+                and hasattr(engine, "arbiter_kv")):
+            # the cross-process tenant registry, on a tier with a KV plane
+            self._arbiter.attach_ledger(_arb.TenantLedger(
+                process_key=f"proc-{ranks[local_rank].session}"))
         # the postmortem plane (monitor.BlackBox): an evidence bundle on a
         # structured failure (CONTRACT_VIOLATION, RANK_EVICTED,
         # DEADLOCK_SUSPECTED, a failed ring window), written only under
@@ -292,10 +326,6 @@ class ACCL:
         self._trace_last: dict = {}
         self._batch_trace = None
         self._batch_ctr = 0
-        # async aggregates (hierarchical / pipelined) not yet drained by
-        # flush(); appended from hop threads too, hence the lock
-        self._aggregates: list = []
-        self._agg_lock = threading.Lock()
         # the stage thread of hierarchical calls (started at the first)
         self._hop_q: Optional[queue.SimpleQueue] = None
         self._hop_lock = threading.Lock()
@@ -413,9 +443,12 @@ class ACCL:
         of 1 makes the gang drain its device work and clear its slots,
         sequence numbers and health map; the facade then restores an
         elastic shrink's full membership (a fresh epoch), clears the
-        demotions, realigns every per-comm counter (the wire seeds, the
+        demotions and the arbiter's latched decisions, realigns every
+        per-comm counter (the wire seeds, the admission indices, the
         communicators' sequences, the contract digests, the skew
-        baselines) and re-keys the trace plane's ids."""
+        baselines) and re-keys the trace plane's ids.  The in-flight
+        window is drained first (``_config`` flushes, and RESET drains
+        the gang), so nothing launched before it is in flight after."""
         self._config(ConfigFunction.RESET, 1)
         # the membership plane: soft_reset is the restore point (every
         # evicted rank re-admitted, a fresh epoch), collective like the
@@ -437,6 +470,11 @@ class ACCL:
             self._membership.ledger.reset()
         self._demote_seq.clear()
         self._demoted_seen.clear()
+        # the arbiter: the admission indices restart with the rest of the
+        # sequence space, so the latched decisions go with them (a stale
+        # throttle must not replay); registrations and quotas survive
+        self._arbiter_seq.clear()
+        self._arbiter.reset_ledger()
         self._wire_ctr.clear()
         for comm in self._communicators:
             comm.reset_sequences()
@@ -459,6 +497,16 @@ class ACCL:
         self._trace_last.clear()
         if self._blackbox is not None:
             self._blackbox.reset()
+
+    def set_inflight_window(self, depth: int) -> None:
+        """Size the gang's per-communicator in-flight window: up to
+        ``depth`` launched calls of a communicator may be in flight before
+        a launch waits for the oldest (default
+        :data:`~accl_tpu_torch.constants.DEFAULT_INFLIGHT_WINDOW`, or
+        ``ACCL_INFLIGHT_WINDOW`` read when the gang is made).  The write
+        is a drain point: nothing launched under the old depth is in
+        flight when it returns."""
+        self._config(ConfigFunction.SET_INFLIGHT_WINDOW, int(depth))
 
     def set_retry_policy(self, limit: int, backoff_s: float = 0.05) -> None:
         """The retransmit policy of the JAX package's emulated tiers; the
@@ -776,11 +824,12 @@ class ACCL:
     def _membership_report(self) -> dict:
         """``telemetry_snapshot()["membership"]`` and the ``/membership``
         route: the elastic state machine's snapshot and the scale
-        advisor's advisory recommendation (no arbiter yet: no tenant
-        histograms feed it)."""
+        advisor's advisory recommendation, read from the arbiter's
+        per-tenant latency histograms (``hot_tenants``)."""
         doc = self._membership.snapshot()
         doc["scale_advice"] = (
-            self._monitor.scale_advice(None, self._world.size)
+            self._monitor.scale_advice(self._arbiter.snapshot(),
+                                       self._world.size)
             if self._monitor is not None else None)
         return doc
 
@@ -919,6 +968,125 @@ class ACCL:
                 "RING_FAILURE", f"cmdring comm {comm_id}",
                 details={"comm": comm_id, "error": error},
                 key=("RING_FAILURE", comm_id))
+
+    # -- the QoS arbiter plane (accl_tpu_torch.arbiter) ----------------------
+    def set_arbiter(self, enabled: bool = True) -> None:
+        """Arm (or disarm) the QoS arbiter this handle shares with its
+        gang: registered tenants' collectives pass the deficit-weighted
+        round-robin admission queue at intake, and quota throttles apply.
+        Collective by contract: every rank arms it at the same point of
+        its call sequence (admission delays are uniform per (comm, call
+        index)).  Also read from ``ACCL_ARBITER=1`` at construction."""
+        self._arbiter.armed = bool(enabled)
+
+    def set_tenant_class(self, tenant_class, comm=None,
+                         weight: Optional[int] = None,
+                         name: Optional[str] = None):
+        """Register communicator ``comm`` (default: the world) as a tenant
+        with class ``tenant_class`` (:class:`~accl_tpu_torch.arbiter.
+        TenantClass`, its name or its int) and an optional DRR ``weight``
+        (default: the class's).  Collective by contract; the write rides
+        a config write (a drain point).  Returns the tenant record."""
+        comm = comm or self._world
+        cls = _arb.coerce_class(tenant_class)
+        self._config(ConfigFunction.SET_TENANT_CLASS, int(cls), key=comm.id)
+        if weight is not None:
+            self._config(ConfigFunction.SET_TENANT_WEIGHT, int(weight),
+                         key=comm.id)
+        return self._arbiter.register(comm.id, name=name, cls=cls,
+                                      weight=weight, world=comm.size)
+
+    def set_tenant_quota(self, comm=None,
+                         window_share: Optional[int] = None,
+                         ring_slots: Optional[int] = None,
+                         bytes_per_s: Optional[float] = None):
+        """Quotas of tenant ``comm`` (default: the world): its per-rank
+        share of the in-flight window (the gang's depth for the comm, and
+        the arbiter's outstanding-admission bound), its slot budget per
+        command-ring window, and a token-bucket bytes/s cap (0 clears
+        it).  Collective by contract.  Returns the tenant record, or None
+        when ``comm`` was never registered."""
+        comm = comm or self._world
+        if window_share is not None:
+            self._config(ConfigFunction.SET_TENANT_WINDOW_SHARE,
+                         int(window_share), key=comm.id)
+        if ring_slots is not None:
+            self._config(ConfigFunction.SET_TENANT_RING_SLOTS,
+                         int(ring_slots), key=comm.id)
+        if bytes_per_s is not None:
+            self._config(ConfigFunction.SET_TENANT_RATE, float(bytes_per_s),
+                         key=comm.id)
+        return self._arbiter.set_quota(
+            comm.id, window_share=window_share, ring_slots=ring_slots,
+            bytes_per_s=bytes_per_s)
+
+    def _arbiter_gate(self, options: CallOptions) -> Optional[dict]:
+        """Admission at intake: a registered tenant's collective or p2p
+        call passes the shared DRR queue before dispatch (a bounded wait
+        while its tenant is out of credit or at its window share).
+        Returns the latched decision record, or None (disarmed, an
+        unregistered comm, an op that moves no fabric bytes).  Only
+        collectives consume the comm's admission index (the latch key);
+        p2p is rank-asymmetric and admits unlatched.  A call queued into
+        an open batch is charged, not paced: its dispatch unit is the
+        flushed window, whose quota is the ring slot budget."""
+        arb = self._arbiter
+        comm = options.comm
+        if (not arb.armed or comm is None
+                or options.op not in self._ARBITER_OPS):
+            return None
+        if options.op in self._CONTRACT_OPS:
+            seq = self._arbiter_seq.get(comm.id, 0)
+            self._arbiter_seq[comm.id] = seq + 1
+        else:
+            seq = -1
+        cfg = options.arithcfg
+        cost = options.count * (cfg.uncompressed_elem_bytes
+                                if cfg is not None else 1)
+        return arb.admit(comm.id, seq, cost, self._timeout_s,
+                         self._pending is None, self._arbiter_owner)
+
+    def _arbiter_async(self, options: CallOptions, req: Request,
+                       dec: dict) -> None:
+        """An async admitted call: its completion frees the tenant's
+        slot (when it took one) and folds its latency into the tenant's
+        histogram, on the completing thread."""
+        arb, comm_id = self._arbiter, options.comm.id
+        paced, owner = bool(dec.get("paced")), self._arbiter_owner
+        req.add_done_callback(lambda: arb.complete(
+            comm_id, req.get_duration_ns(), owner=owner, release=paced))
+
+    def _arbiter_done(self, options: CallOptions, req: Request,
+                      dec: dict) -> None:
+        """A synchronous admitted call, accounted on the calling thread
+        after its wait; every 32nd runs the cross-process exchange when a
+        ledger is attached."""
+        self._arbiter.complete(
+            options.comm.id, req.get_duration_ns(),
+            owner=self._arbiter_owner, release=bool(dec.get("paced")))
+        if self._arbiter.ledger is not None:
+            self._arbiter_exchange_ctr += 1
+            if self._arbiter_exchange_ctr % 32 == 1:
+                self.arbiter_ledger_exchange()
+
+    def arbiter_ledger_exchange(self) -> Optional[dict]:
+        """One cross-process tenant-weight exchange through the engine's
+        KV plane (fabric-share rates re-derived); the exchange counters,
+        or None when no ledger is attached or the KV plane is unreachable.
+        The gang has no KV plane, so on the port this is None until the
+        multi-process tier (ROADMAP A6)."""
+        if self._arbiter.ledger is None:
+            return None
+        try:
+            kv = self.engine.arbiter_kv()
+        except Exception:
+            return None
+        try:
+            return self._arbiter.ledger_exchange(
+                kv, is_notfound=getattr(self.engine, "_is_notfound", None))
+        except Exception:  # advisory: admission never waits on it
+            self._arbiter.ledger.errors += 1
+            return None
 
     def set_tuning(self, key, value) -> None:
         """Write a tuning register (any name of JAX's table, e.g.
@@ -1165,8 +1333,8 @@ class ACCL:
     def capabilities(self) -> dict:
         """What this handle's engine can do, and its dispatch counters:
         the keys of the JAX facade's report that the port can fill
-        truthfully (the rest -- the in-flight window and the tier's
-        feature bits -- come with their planes, ROADMAP A11d-A11e)."""
+        truthfully (the tier's other feature bits come with the rest of
+        the facade, ROADMAP A11e)."""
         engine = type(self.engine).__name__
         return {
             "engine": engine,
@@ -1180,6 +1348,9 @@ class ACCL:
             # one warm gang collective moves it by exactly 1
             "device_interactions": self.engine.device_interactions(),
             "plan_cache": self._plans.stats(),
+            # the gang's in-flight window depth (set_inflight_window /
+            # ACCL_INFLIGHT_WINDOW)
+            "inflight_window": int(self.engine.gang.window.depth),
             # the adopted measurement-driven TuningPlan, if any
             "tuning_plan": (
                 None if self._tuning_plan is None else {
@@ -1393,30 +1564,20 @@ class ACCL:
                 "__batch__", 0, self._trace_gen, self._batch_ctr)
 
     def flush(self) -> None:
-        """Dispatch everything queued in the open batch; the batch stays
-        open.  When it returns, every call of the batch that has been
-        launched has finished on the device (a call whose peers have not
-        flushed yet is not launched), and so has every async hierarchical
-        or pipelined aggregate of this handle whose stages have all been
-        launched (the drain point the port keeps in place of JAX's
-        in-flight window, ROADMAP A11d)."""
-        for req in self._dispatch_pending():
-            if req.done() and req.event is not None:
-                req.event.synchronize()
-        with self._agg_lock:
-            aggs, self._aggregates = self._aggregates, []
-        for agg in aggs:
-            if agg.done():
-                if agg.event is not None:
-                    agg.event.synchronize()
-            else:
-                with self._agg_lock:
-                    self._aggregates.append(agg)
+        """Dispatch everything queued in the open batch (the batch stays
+        open), then drain the gang's in-flight window: when it returns,
+        every call the gang launched before it has finished on the device
+        and completed (a call whose peers have not posted yet is not
+        launched; a hierarchical aggregate's next stage is launched when
+        the one before completes).  Bounded by ``drain_deadline_s``: a
+        drain that runs out raises DEADLOCK_SUSPECTED."""
+        self._dispatch_pending()
+        if not self.engine.drain_inflight():
+            raise self._deadlock_error("flush")
 
-    def _dispatch_pending(self) -> list:
-        """Dispatch the open batch without waiting (the hook behind
-        ``Request.wait`` / ``test`` on a queued call); returns its
-        requests."""
+    def _dispatch_pending(self) -> None:
+        """Dispatch the open batch without draining the in-flight window
+        (the hook behind ``Request.wait`` / ``test`` on a queued call)."""
         q = self._pending
         items = q.drain() if q is not None else []
         if items:
@@ -1424,7 +1585,6 @@ class ACCL:
                 req._pre_wait = None  # dispatched: a later wait must not
                 # flush whatever unrelated batch is open then
             self.engine.start_batch(items)
-        return [req for _, req in items]
 
     def end_batch(self) -> None:
         """Close the outermost batch: flush and return to immediate
@@ -1461,40 +1621,65 @@ class ACCL:
     def _launch(self, options: CallOptions, run_async: bool,
                 context: str) -> Request:
         tel = self._telemetry
-        # a confirmed cutover applies before the call, and the contract
-        # fingerprint fails a diverging call before dispatch
+        # a confirmed cutover applies before the call; the arbiter admits
+        # it (it can only delay a whole call, never reorder one within a
+        # comm, so the contract's digest stream is untouched); the
+        # contract fingerprint fails a diverging call before dispatch
         self._membership_intake(options, context)
-        self._contract_gate(options, context)
-        # the trace id is assigned at intake, before dispatch
-        meta = self._call_meta(options) if tel is not None else None
-        # a hierarchical stage dispatches at once, whatever batch the
-        # caller has opened since its call (it runs on a hop thread)
-        if (self._pending is not None
-                and not getattr(self._call_tls, "hier", False)):
-            req = Request(op_name=options.op.name)
-            req._pre_wait = self._dispatch_pending  # dispatch on wait
-            if tel is not None:
-                tel.attach(req, meta)
-            self._pending.push((options, req))
+        qos = self._arbiter_gate(options)
+        # from admission to the completion hooks, any raise (a verdict, a
+        # failed start) frees the tenant's slot; once tracked, the done
+        # callback or the synchronous path's finally owns the release
+        tracked = False
+        try:
+            self._contract_gate(options, context)
+            # the trace id is assigned at intake, before dispatch
+            meta = (self._call_meta(options, qos) if tel is not None
+                    else None)
+            # a hierarchical stage dispatches at once, whatever batch the
+            # caller has opened since its call (it runs on a hop thread)
+            if (self._pending is not None
+                    and not getattr(self._call_tls, "hier", False)):
+                req = Request(op_name=options.op.name)
+                req._pre_wait = self._dispatch_pending  # dispatch on wait
+                if qos is not None and run_async:
+                    self._arbiter_async(options, req, qos)
+                    tracked = True
+                if tel is not None:
+                    tel.attach(req, meta)
+                self._pending.push((options, req))
+                if run_async:
+                    return req
+                # a synchronous call inside a batch dispatches the run
+                self._dispatch_pending()
+            else:
+                req = self.engine.start(options)
+                if qos is not None and run_async:
+                    self._arbiter_async(options, req, qos)
+                    tracked = True
+                if tel is not None:
+                    # after start: a call the engine completed inside
+                    # start() is recorded by attach at once
+                    tel.attach(req, meta)
             if run_async:
                 return req
-            # a synchronous call inside a batch dispatches the whole run
-            self._dispatch_pending()
-        else:
-            req = self.engine.start(options)
-            if tel is not None:
-                # after start: a call the engine completed inside start()
-                # is recorded by attach at once
-                tel.attach(req, meta)
-        if run_async:
+            tracked = True
+            try:
+                deadline = drain_deadline_s(self._timeout_s)
+                if not req.wait(timeout=deadline):
+                    raise self._deadlock_error(context, {
+                        "op": options.op.name, "timeout_s": deadline})
+                self._membership_after_failure(options, req, context)
+                self._check_failed(req, context)
+            finally:
+                if qos is not None:  # freed however the call ends
+                    self._arbiter_done(options, req, qos)
             return req
-        deadline = drain_deadline_s(self._timeout_s)
-        if not req.wait(timeout=deadline):
-            raise self._deadlock_error(context, {
-                "op": options.op.name, "timeout_s": deadline})
-        self._membership_after_failure(options, req, context)
-        self._check_failed(req, context)
-        return req
+        except BaseException:
+            if qos is not None and not tracked and qos.get("paced"):
+                self._arbiter.release(options.comm.id,
+                                      owner=self._arbiter_owner)
+            raise
 
     def _check_failed(self, req: Request, context: str) -> None:
         """``Request.check`` through the postmortem hook: a structured
@@ -1512,6 +1697,10 @@ class ACCL:
         Operation.ALLGATHER, Operation.REDUCE, Operation.ALLREDUCE,
         Operation.REDUCE_SCATTER, Operation.ALLTOALL, Operation.BARRIER,
     ))
+
+    #: the operations the QoS arbiter gates at intake: the collectives
+    #: and plain p2p (local ops and config writes move no fabric bytes)
+    _ARBITER_OPS = _CONTRACT_OPS | {Operation.SEND, Operation.RECV}
 
     def _assign_trace(self, options: CallOptions) -> tuple:
         """(trace_id, flow_phase, parent_id) of one call at intake.
@@ -1577,17 +1766,19 @@ class ACCL:
         has no wire to stamp)."""
         return self._trace_last.get(comm_id, 0)
 
-    def _call_meta(self, options: CallOptions) -> dict:
+    def _call_meta(self, options: CallOptions,
+                   qos: Optional[dict] = None) -> dict:
         """The flight record's facts known at launch: resolved once a call
         (attribute reads, no device work) and carried to the request's
-        completion by ``Telemetry.attach``.  ``tenant`` stays None until
-        the port has its arbiter (ROADMAP A11d)."""
+        completion by ``Telemetry.attach``.  ``tenant`` names the tenant
+        that admitted the call (``qos``, the arbiter's decision), None
+        when the arbiter passed it through."""
         comm = options.comm
         plan = options.plan
         dt = options.arithcfg.uncompressed if options.arithcfg else None
         trace_id, trace_phase, parent_id = self._assign_trace(options)
         return {
-            "tenant": None,
+            "tenant": qos["tenant"] if qos else None,
             "trace_id": trace_id,
             "trace_phase": trace_phase,
             "parent_id": parent_id,
@@ -1659,15 +1850,9 @@ class ACCL:
     # -- aggregates: segmented pipelining and hierarchical stages ------------
     def _finish_aggregate(self, outer: Request, run_async: bool,
                           context: str) -> Request:
-        """Return an async aggregate (flush() drains it), or wait for it
-        and raise its failure."""
+        """Return an async aggregate (its stages ride the in-flight window,
+        which ``flush()`` drains), or wait for it and raise its failure."""
         if run_async:
-            with self._agg_lock:
-                # keep those whose device work may still be running
-                self._aggregates = [
-                    q for q in self._aggregates if not q.done()
-                    or (q.event is not None and not q.event.query())]
-                self._aggregates.append(outer)
             return outer
         deadline = drain_deadline_s(self._timeout_s)
         if not outer.wait(timeout=deadline):
@@ -1768,6 +1953,9 @@ class ACCL:
                 if q.get_retcode() != ErrorCode.OK:
                     code, ctx = q.get_retcode(), q.error_context
                     break
+            # the deepest segment's window depth; each segment recorded
+            # its own overlap_ns, which the aggregate must not count again
+            outer.inflight_depth = _deepest(inner)
             outer.complete(code, max(time.perf_counter_ns() - t0, 1),
                            context=ctx,
                            event=EventGroup([q.event for q in inner]))
@@ -1854,6 +2042,7 @@ class ACCL:
                 if state["done"]:
                     return
                 state["done"] = True
+            outer.inflight_depth = _deepest(inner)
             outer.complete(code, max(time.perf_counter_ns() - t0, 1),
                            context=ctx,
                            event=EventGroup([q.event for q in inner]))
@@ -2592,9 +2781,9 @@ class ACCL:
         included), the per-peer health, the contract verifier's counters
         and verdicts, the membership machine with its scale advice, the
         health-transition events, the compression plane, the monitor
-        plane's stragglers, anomalies and services, and the postmortem
-        bundles.  ``faults`` is None, as on JAX's gang; ``tenants`` stays
-        ``{}`` until the port has its arbiter (ROADMAP A11d)."""
+        plane's stragglers, anomalies and services, the arbiter's tenants
+        and the postmortem bundles.  ``faults`` is None, as on JAX's
+        gang."""
         tel = self._telemetry
         mon = self._monitor
         engine_report = self.engine.telemetry_report()
@@ -2618,7 +2807,7 @@ class ACCL:
                          else {"enabled": False}),
             "membership": self._membership_report(),
             "health_events": self._health_events.snapshot(),
-            "tenants": {},
+            "tenants": self._arbiter.snapshot(),
             "compression": {
                 "sr_calls": self.sr_calls,
                 "error_feedback": dict(self._residuals.stats(),
@@ -2717,8 +2906,8 @@ class ACCL:
         (a one-screen summary), ``/metrics`` (Prometheus text),
         ``/snapshot`` (the ``telemetry_snapshot()`` JSON), ``/trace`` (the
         Chrome trace), ``/cmdring`` (the command ring's stats and window
-        log) and ``/membership`` (the membership machine and the scale
-        advisor's advice).  ``port`` 0 (the default without
+        log), ``/tenants`` (the arbiter's snapshot) and ``/membership``
+        (the membership machine and the scale advisor's advice).  ``port`` 0 (the default without
         ``ACCL_MONITOR_PORT``) binds an ephemeral port.  Returns the bound
         port; idempotent while serving."""
         if self._monitor is None:
@@ -2744,6 +2933,11 @@ class ACCL:
             return json.dumps(ring if ring is not None
                               else {"enabled": False}, default=str)
 
+        def _tenants_doc() -> str:
+            import json
+
+            return json.dumps(self._arbiter.snapshot(), default=str)
+
         def _membership_doc() -> str:
             import json
 
@@ -2756,6 +2950,7 @@ class ACCL:
             "/snapshot": (self.telemetry_json, "application/json"),
             "/trace": (_trace_doc, "application/json"),
             "/cmdring": (_cmdring_doc, "application/json"),
+            "/tenants": (_tenants_doc, "application/json"),
             "/membership": (_membership_doc, "application/json"),
         }, port=int(port))
         srv.start()
@@ -2765,11 +2960,12 @@ class ACCL:
     def _monitor_index(self) -> str:
         """The monitor's ``/`` page: the routes and a one-screen summary
         (the command ring, the postmortem bundles, standing stragglers,
-        the last anomaly, the membership)."""
+        the last anomaly, the membership, one line a tenant)."""
         lines = [
             f"accl monitor — rank {self._world.local_rank}/"
             f"{self._world.size} ({type(self.engine).__name__})",
-            "routes: /metrics /snapshot /trace /cmdring /membership",
+            "routes: /metrics /snapshot /trace /cmdring /tenants "
+            "/membership",
             "",
         ]
         ring = self.engine.telemetry_report().get("cmdring") or {}
@@ -2811,6 +3007,20 @@ class ACCL:
                      f"evicted={sorted(mem.get('evicted') or [])} "
                      f"joins={mem.get('joins_total', 0)} "
                      f"scale_advice={advice.get('recommendation', '-')}")
+        # the arbiter: one line a tenant (class, admissions, live p99)
+        arb = self._arbiter.snapshot()
+        tenants = arb.get("tenants") or {}
+        if not tenants:
+            lines.append(
+                f"tenants: none registered (arbiter "
+                f"{'armed' if arb.get('enabled') else 'disarmed'})")
+        for _cid, t in sorted(tenants.items()):
+            p99 = (t.get("latency") or {}).get("p99_us")
+            lines.append(f"tenant {t.get('name')}: class={t.get('class')} "
+                         f"weight={t.get('weight')} "
+                         f"admitted={t.get('admitted')} "
+                         f"queued={t.get('queued')} "
+                         f"p99={p99 if p99 is not None else '-'}us")
         return "\n".join(lines) + "\n"
 
     def stop_monitor(self) -> bool:

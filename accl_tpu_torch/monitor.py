@@ -6,8 +6,9 @@ wires the always-on skew tracker and anomaly watchdog and the two opt-in
 services (the scrape server and the trace stream); :class:`BlackBox`'s
 postmortem wiring, :class:`ScaleAdvisor`'s ``/membership`` advice and
 the shared :func:`~accl_tpu_torch.contract.anchored` registry come with
-the port's fault, membership and contract planes; the ``/tenants`` route
-comes with its arbiter.
+the port's fault, membership and contract planes; the facade's
+``/tenants`` route serves its arbiter's snapshot, and the advisor reads
+the arbiter's per-tenant latency histograms.
 
 Role model: the reference's observability is *always on and live* — a
 free-running hardware perf counter copied into exchange memory on every

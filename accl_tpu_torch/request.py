@@ -1,8 +1,11 @@
 """Asynchronous request model (the port's copy of ``accl_tpu/request.py``).
 
-An engine completes a request when it has LAUNCHED the call's device
-work; on a CUDA device it also hands over the event recorded on the
-launching stream right after the launch.  ``wait()`` then blocks on that
+The gang engine completes a request when the call's device work has
+ended: its in-flight window (``overlap.InflightWindow``) waits on the
+event recorded on the launching stream right after the launch and then
+completes the request, handing the event over with it (an engine may
+still complete a request whose device work is queued with its event: a
+p2p delivery, a stream port's copy).  ``wait()`` then blocks on that
 event alone, so waiting on one call never synchronises the whole device.
 An engine may also park the call's result placement on the request
 (:meth:`Request.defer_result`: a received payload's copy into the
@@ -18,8 +21,9 @@ through ``Telemetry.attach`` (``_telemetry`` and ``_tmeta``, set under
 later failure of a completed request (a parked placement that fails, a
 run's failure latch after its windows completed at post) appends an
 amended record, and ``check()`` ships the flight-recorder tail in the
-``ACCLError``'s details.  A port request completes at launch, so the
-record's ``duration_ns`` is the host launch time, not the device work.
+``ACCLError``'s details.  A gang call's record carries ``duration_ns``
+from the gang's start to its device end, and the window's
+``overlap_ns`` / ``inflight_depth``.
 
 :class:`CommandQueue` holds the facade's open batch: calls queue there
 between ``begin_batch()`` and ``flush()``, and ``drain()`` hands the run
@@ -98,9 +102,11 @@ class Request:
         self._telemetry = None
         self._tmeta: Optional[dict] = None
         self._recorded = False
-        #: the overlap plane's in-flight time and window depth: None, as
-        #: the JAX package records a call that rode no in-flight window
-        #: (the port has none yet, ROADMAP A11d)
+        #: the overlap plane, stamped by the in-flight window's drainer
+        #: before complete(): how long the call stayed in flight while a
+        #: later launch of its communicator was parked (None when nothing
+        #: overlapped it), and the window depth it was parked at (None
+        #: for a call that rode no window)
         self.overlap_ns: Optional[int] = None
         self.inflight_depth: Optional[int] = None
 
@@ -204,8 +210,8 @@ class Request:
         return self._status
 
     def test(self) -> bool:
-        """Non-blocking: True once the call was launched and its device
-        work has finished (flushes the batch that holds it)."""
+        """Non-blocking: True once the call completed and its device work
+        has finished (flushes the batch that holds it)."""
         self._auto_flush()
         if not self._done.is_set():
             return False
@@ -213,7 +219,7 @@ class Request:
         return self.event is None or self.event.query()
 
     def wait(self, timeout: Optional[float] = None) -> bool:
-        """Block until the call was launched (at most ``timeout`` seconds),
+        """Block until the call completed (at most ``timeout`` seconds),
         then until its device work has finished.  False on timeout.
         Flushes the batch that holds it."""
         self._auto_flush()
@@ -231,8 +237,9 @@ class Request:
         return self._retcode
 
     def get_duration_ns(self) -> int:
-        """Host-measured launch duration of the call in nanoseconds (the
-        JAX gang's runs to the end of the device work; ROADMAP §C)."""
+        """The call's duration in nanoseconds on the host's clock: for a
+        gang call from the gang's start to its device end (the in-flight
+        window's view of it), as the JAX gang measures it."""
         return self._duration_ns
 
     def check(self, context: str = "") -> None:

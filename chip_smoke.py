@@ -9,6 +9,8 @@
     python3 chip_smoke.py --telemetry     # phase 3l (telemetry, monitor)
     python3 chip_smoke.py --faults        # phase 3m (faults, membership,
                                           # the contract)
+    python3 chip_smoke.py --arbiter       # phase 3n (the in-flight
+                                          # window, the QoS arbiter)
 
 Phases (any failure exits non-zero):
 
@@ -251,6 +253,17 @@ Phases (any failure exits non-zero):
       per-call path, the probe rides row 14 and closes it, a ``corrupt``
       plan poisons a window inline and one posted to a live run (row
       14's device status word reads 2), and ``soft_reset`` recovers;
+   n. the in-flight window and the QoS arbiter (``arbiter_main_path``;
+      ``--arbiter`` runs it and its cost alone) on ``cuda_group(4)``: (a)
+      32 async ``pallas_ring`` allreduces of 4 MiB a rank, each behind a
+      ~10 ms sleep kernel, never more than 4 in flight, every record but
+      the last overlapped, then the records' ``duration_ns`` p50 beside
+      the calls' device time; (b) a tenant's ring budget of 2 cuts a
+      batch of 6 into 3 windows of row 14, inline and through one
+      persistent run; (c) a GUARANTEED 256 KiB tenant alone and beside a
+      BEST_EFFORT 64 MiB flooder (window share 1) from two threads a
+      rank: p50 / p99, grant waits, every admission released, ``/tenants``
+      serving the snapshot; (d) no breaker opens;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (K3's
    allgather and root-only gather, K4, row 11 and row 13 also by device
@@ -340,7 +353,9 @@ Phases (any failure exits non-zero):
    the contract verifier's cost (``faults_cost``: the warm 256 KiB
    ``pallas_ring`` call and launch p50 with the verifier armed against
    disarmed, 5 interleaved rounds of 30 calls, each p50 with its
-   rounds' range).
+   rounds' range); and ``arbiter``: phase 3n's figures and the warm 256
+   KiB call at window depth 1 against the default depth
+   (``arbiter_cost``).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -5650,7 +5665,8 @@ def topology_main_path(kc) -> dict:
         run_ranks(g4, post, "3k async pipelined allreduce")
         for a in g4:
             a.flush()
-        if not all(q.done() for q in reqs) or any(a._aggregates for a in g4):
+        if (not all(q.done() for q in reqs)
+                or g4[0].engine.gang.window.in_flight()):
             fail("3k: flush() left a pipelined aggregate undrained")
         for q in reqs:
             q.check("async pipelined allreduce")
@@ -6105,6 +6121,10 @@ def telemetry_cost(kc) -> dict:
             for a in g:
                 a.set_tuning("allreduce_algorithm", "pallas_ring")
                 a.set_tuning("ring_segments", 4)
+                # the device pass posts every call behind a sleep kernel:
+                # a window that holds them all keeps the host from
+                # waiting on the card there
+                a.set_inflight_window(TELEM_CALLS + 2)
             bufs[k] = [(a.create_buffer_from(np.full(n, r + 1.0,
                                                      np.float32)),
                         a.create_buffer(n, np.float32))
@@ -6798,6 +6818,505 @@ def verify_host_us(iters: int = 2000) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3n: the in-flight window and the QoS arbiter (ROADMAP A11d)
+# ---------------------------------------------------------------------------
+
+#: (a)'s burst: async allreduces of 4 MiB float32 a rank under
+#: ``pallas_ring`` at the default depth, each behind a sleep kernel of
+#: ``ARB_BUSY`` cycles (~10 ms) standing in for the compute a collective
+#: overlaps, so the card runs behind the host and the window fills
+ARB_N, ARB_CALLS, ARB_BUSY = 1024 * 1024, 32, 20_000_000
+#: the card's lead at the burst's start (~50 ms, after a full collection):
+#: call 0 overlapped only if call 1 parks before it ends, and with no more
+#: than its own ~10 ms sleep ahead of it a host stall (the rank threads'
+#: start, a collection of the script's heap) let it end first; later
+#: calls have the 3 sleeps of the calls the window holds ahead of them
+ARB_LEAD = 5 * ARB_BUSY
+#: (a)'s duration-to-device calls, and the warm call's size and rounds
+ARB_SYNC_CALLS = 30
+ARB_WARM_N, ARB_ROUNDS = 64 * 1024, 3
+#: (b)'s batch and budget; (c)'s tenants: the GUARANTEED 256 KiB calls on
+#: the world and the BEST_EFFORT 64 MiB flooder on a sub-communicator
+ARB_BATCH, ARB_SLOTS = 6, 2
+ARB_SERVE_CALLS, ARB_FLOOD_CALLS, ARB_FLOOD_DEPTH = 60, 48, 8
+
+
+def _pcts(xs) -> dict:
+    import numpy as np
+
+    return {"p50_ms": float(np.percentile(xs, 50)) * 1e3,
+            "p99_ms": float(np.percentile(xs, 99)) * 1e3}
+
+
+def arbiter_main_path(kc) -> dict:
+    """Phase 3n: the in-flight window and the QoS arbiter on
+    ``cuda_group(4)`` on the card, integer-valued float32 (every sum
+    exact, held against numpy's), each step's launches counted:
+
+    (a) the window: ``ARB_CALLS`` async ``pallas_ring`` allreduces of 4 MiB
+        a rank at the default depth (4), the card kept behind the host by
+        a ~10 ms sleep kernel before each (the ranks meet after each
+        post, so a call's own sleep comes right before its launch and
+        the sleeps do not all queue ahead; a ~50 ms lead before the
+        first): the window never holds more than 4 (a sampler thread
+        and ``max_depth_seen``) and reaches 4; every record but the
+        burst's last has ``overlap_ns`` (a later
+        launch parked while it was in flight; the last has none to
+        witness it); then ``ARB_SYNC_CALLS`` synchronous calls: the
+        records' ``duration_ns`` p50 beside the calls' device time by
+        CUDA events (the same calls posted behind a sleep kernel at a
+        depth that holds them all);
+    (b) the ring's budgets: a tenant's ``ring_slots = 2``, a batch of 6
+        allreduces at 256 KiB rides row 14 in 3 windows of 2 slots (3
+        ``sequencer`` launches, ``budgeted_windows`` +3), then the same
+        batch with the lowering ``xla`` behind a sleep kernel: one inline
+        window, one arming a persistent run, one mailbox post (1
+        ``sequencer``, 1 ``sequencer_run``);
+    (c) two tenants, the arbiter armed: a GUARANTEED tenant's 256 KiB
+        synchronous calls on the world, alone and then beside a
+        BEST_EFFORT flooder's 64 MiB async calls (window share 1, up to 8
+        posted) on a sub-communicator of the four ranks, each rank
+        driving both from two threads; rank 0's call p50 / p99 (host
+        clock) alone and with the flooder, both tenants' grant waits;
+        fails if an admission is never released (``outstanding`` 0) or
+        ``/tenants`` does not serve the arbiter's snapshot;
+    (d) no breaker opens (``circuit_open_total`` unchanged).
+
+    Returns the launch counts and the checks' figures."""
+    import json
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import accl_tpu_torch as at
+    from accl_tpu_torch.backends.cuda.cmdring import circuit_open_total
+    from accl_tpu_torch.constants import DEFAULT_INFLIGHT_WINDOW
+
+    P = P_MAIN
+    out = {"launches": {k: 0 for k in kc.KERNELS}}
+    rng = np.random.default_rng(SEED + 47)
+    opens0 = circuit_open_total()
+
+    def counts():
+        return {k: f.launches.count for k, f in kc.KERNELS.items()}
+
+    def moved_since(before, what, want):
+        moved = {k: f.launches.count - before[k]
+                 for k, f in kc.KERNELS.items()
+                 if f.launches.count != before[k]}
+        if want is not None and moved != want:
+            fail(f"3n {what}: launched {moved}, want {want}")
+        for k, v in moved.items():
+            out["launches"][k] += v
+        return moved
+
+    def ints(shape):
+        return rng.integers(-8, 8, size=shape).astype(np.float32)
+
+    def exact(bufs, want, what):
+        for r, b in enumerate(bufs):
+            if not np.array_equal(b.device_array().cpu().numpy(), want):
+                fail(f"3n {what}: rank {r}'s result differs from the sum")
+
+    g = at.cuda_group(P)
+    window = g[0].engine.gang.window
+    ring = g[0].engine.gang.cmdring
+    try:
+        if window.depth != DEFAULT_INFLIGHT_WINDOW:
+            fail(f"3n: the window's depth is {window.depth}")
+        # (a) the burst
+        for a in g:
+            a.set_tuning("allreduce_algorithm", "pallas_ring")
+        data = ints((P, ARB_N))
+        send = [a.create_buffer_from(data[r]) for r, a in enumerate(g)]
+        outs = [[a.create_buffer(ARB_N, np.float32)
+                 for _ in range(ARB_CALLS)] for a in g]
+        before = counts()
+        for _ in range(3):  # cold, prepared, warm
+            run_ranks(g, lambda a, r: a.allreduce(send[r], outs[r][0]),
+                      "3n (a) warm-up")
+        moved_since(before, "(a) warm-up", {"ring_allreduce": 3})
+        peak, stop = [0], threading.Event()
+
+        def sample():
+            while not stop.is_set():
+                peak[0] = max(peak[0], window.in_flight())
+                time.sleep(1e-3)
+
+        sampler = threading.Thread(target=sample, name="3n-sampler")
+        totals = [a._telemetry.recorder.total for a in g]
+        depth0 = window.stats()["max_depth_seen"]
+
+        step = threading.Barrier(P)
+
+        def burst(a, r):
+            reqs = []
+            for k in range(ARB_CALLS):
+                if r == 0:  # the compute the collectives overlap
+                    torch.cuda._sleep(ARB_BUSY)
+                reqs.append(a.allreduce(send[r], outs[r][k],
+                                        run_async=True))
+                # call k launched (its last poster ran it) before rank 0
+                # puts the next sleep on the stream: each call's own sleep
+                # comes right before it
+                step.wait(120)
+            for q in reqs:
+                if not q.wait(120):
+                    raise RuntimeError("a burst call never completed")
+                q.check()
+
+        before = counts()
+        hold_stream(ARB_LEAD)
+        sampler.start()
+        try:
+            run_ranks(g, burst, "3n (a) burst")
+        finally:
+            stop.set()
+            sampler.join(10)
+        moved_since(before, "(a) burst", {"ring_allreduce": ARB_CALLS})
+        st = window.stats()
+        if peak[0] > 4 or st["max_depth_seen"] != 4 or depth0 > 1:
+            fail(f"3n (a): in flight peaked at {peak[0]}, max_depth_seen "
+                 f"{st['max_depth_seen']} (warm-up {depth0}), want 4")
+        overlapped = []
+        for r, a in enumerate(g):
+            recs = telem_records(a, totals[r])
+            if len(recs) != ARB_CALLS:
+                fail(f"3n (a) rank {r}: {len(recs)} records")
+            flags = [rec.overlap_ns is not None for rec in recs]
+            if flags != [True] * (ARB_CALLS - 1) + [False]:
+                fail(f"3n (a) rank {r}: overlap_ns set on {flags}")
+            if max(rec.inflight_depth for rec in recs) != 4:
+                fail(f"3n (a) rank {r}: depths "
+                     f"{[rec.inflight_depth for rec in recs]}")
+            overlapped += [rec.overlap_ns * 1e-6 for rec in recs[:-1]
+                           if rec.overlap_ns is not None]
+        for k in range(ARB_CALLS):
+            exact([outs[r][k] for r in range(P)], data.sum(0),
+                  f"(a) burst call {k}")
+        out["window"] = {
+            "calls": ARB_CALLS, "bytes_per_rank": 4 * ARB_N,
+            "peak_in_flight": peak[0], "max_depth_seen":
+            st["max_depth_seen"], "overlap_ms_p50":
+            float(np.median(overlapped)), "overlap_ns_total":
+            st["overlap_ns_total"], "launched": st["launched"],
+            "completed": st["completed"]}
+
+        # (a) the records' duration against the calls' device time
+        totals = [a._telemetry.recorder.total for a in g]
+        before = counts()
+        run_ranks(g, lambda a, r: [a.allreduce(send[r], outs[r][1])
+                                   for _ in range(ARB_SYNC_CALLS)],
+                  "3n (a) sync calls")
+        durations = [rec.duration_ns * 1e-6
+                     for rec in telem_records(g[0], totals[0])]
+        for a in g:
+            a.set_inflight_window(ARB_SYNC_CALLS + 2)
+        gate = threading.Barrier(P)
+        ev = {}
+
+        def device_pass(a, r):
+            if r == 0:
+                hold_stream(TELEM_SLEEP)
+                ev["start"] = torch.cuda.Event(enable_timing=True)
+                ev["start"].record()
+            gate.wait(60)
+            reqs = [a.allreduce(send[r], outs[r][1], run_async=True)
+                    for _ in range(ARB_SYNC_CALLS)]
+            gate.wait(60)  # every launch is on the stream
+            if r == 0:
+                ev["end"] = torch.cuda.Event(enable_timing=True)
+                ev["end"].record()
+            for q in reqs:
+                q.wait(120)
+                q.check()
+
+        run_ranks(g, device_pass, "3n (a) device pass")
+        ev["end"].synchronize()
+        device_ms = ev["start"].elapsed_time(ev["end"]) / ARB_SYNC_CALLS
+        for a in g:
+            a.set_inflight_window(DEFAULT_INFLIGHT_WINDOW)
+        moved_since(before, "(a) duration", {
+            "ring_allreduce": 2 * ARB_SYNC_CALLS})
+        exact([outs[r][1] for r in range(P)], data.sum(0), "(a) sync")
+        dur_p50 = float(np.median(durations))
+        out["duration"] = {"record_duration_p50_ms": dur_p50,
+                           "device_ms_per_call": device_ms,
+                           "ratio": dur_p50 / device_ms}
+        print(f"3n (a): window peak {peak[0]}, every record but the last "
+              f"overlapped (p50 {out['window']['overlap_ms_p50']:.3f} ms); "
+              f"records' duration p50 {dur_p50:.4f} ms against "
+              f"{device_ms:.4f} ms of device time a call "
+              f"({dur_p50 / device_ms:.2f}x)", flush=True)
+
+        # (b) the ring's slot budgets
+        for a in g:
+            a.set_tuning("allreduce_algorithm", "xla")
+        run_ranks(g, lambda a, r: a.set_tenant_class("best_effort",
+                                                     name="batch"),
+                  "3n (b) register")
+        run_ranks(g, lambda a, r: a.set_tenant_quota(ring_slots=ARB_SLOTS),
+                  "3n (b) budget")
+        if ring.slot_budget_of(g[0].comm.id) != ARB_SLOTS:
+            fail(f"3n (b): budget {ring.slot_budget_of(g[0].comm.id)}")
+        nb = ARB_WARM_N
+        bdata = ints((P, nb))
+        bsend = [a.create_buffer_from(bdata[r]) for r, a in enumerate(g)]
+        bouts = [[a.create_buffer(nb, np.float32) for _ in range(ARB_BATCH)]
+                 for a in g]
+
+        def batch(a, r):
+            with a.batch():
+                qs = [a.allreduce(bsend[r], d, run_async=True)
+                      for d in bouts[r]]
+            for q in qs:
+                if not q.wait(120) or not q.ring_resident:
+                    raise RuntimeError(f"{q.op_name} off the ring")
+                q.check()
+
+        def budgeted(what, want, lowering):
+            for r in range(P):
+                for d in bouts[r]:
+                    d.tensor.zero_()
+            st0 = ring.stats()
+            before = counts()
+            if lowering == "xla":
+                hold_stream(TELEM_SLEEP)
+            run_ranks(g, batch, f"3n (b) {what}")
+            moved_since(before, f"(b) {what}", want)
+            st1 = ring.stats()
+            sizes = [len(w["slots"]) for w in ring.window_log()[-3:]]
+            res = {k: st1[k] - st0[k] for k in (
+                "refills", "dispatches", "mailbox_posts",
+                "budgeted_windows")}
+            res["window_slots"] = sizes
+            res["comm_slots"] = (st1["comm_slots"][str(g[0].comm.id)]
+                                 - st0["comm_slots"].get(
+                                     str(g[0].comm.id), 0))
+            if (res["budgeted_windows"] < 2 or res["refills"] != 3
+                    or max(sizes) > ARB_SLOTS
+                    or res["comm_slots"] != ARB_BATCH):
+                fail(f"3n (b) {what}: {res}")
+            for k in range(ARB_BATCH):
+                exact([bouts[r][k] for r in range(P)], bdata.sum(0),
+                      f"(b) {what} slot {k}")
+            return res
+
+        out["ring"] = {"inline": budgeted("inline", {"sequencer": 3},
+                                          "pallas")}
+        ring.lowering = "xla"
+        saved = ring.linger_s
+        ring.linger_s = 0.5
+        try:
+            out["ring"]["run"] = budgeted(
+                "persistent run", {"sequencer": 1, "sequencer_run": 1},
+                "xla")
+        finally:
+            ring.linger_s = saved
+            ring.lowering = "pallas"
+            ring.halt_sessions()
+        if out["ring"]["run"]["mailbox_posts"] != 1:
+            fail(f"3n (b) persistent run: {out['ring']['run']}")
+        print(f"3n (b): budget {ARB_SLOTS}, windows {out['ring']}",
+              flush=True)
+    finally:
+        for a in g:
+            a.deinit()
+
+    # (c) two tenants
+    g = at.cuda_group(P)
+    try:
+        for a in g:
+            a.set_tuning("allreduce_algorithm", "pallas_ring")
+        subs = {}
+
+        def split(a, r):
+            subs[r] = a.create_communicator(list(range(P)))
+
+        run_ranks(g, split, "3n (c) sub-communicator")
+        for a in g:
+            a.set_arbiter(True)
+
+        def register(a, r):
+            a.set_tenant_class("guaranteed", name="serve")
+            a.set_tenant_class("best_effort", comm=subs[r], name="bulk")
+            a.set_tenant_quota(comm=subs[r], window_share=1)
+
+        run_ranks(g, register, "3n (c) register")
+        sdata, fdata = ints((P, ARB_WARM_N)), ints((P, N_RANK))
+        ss = [a.create_buffer_from(sdata[r]) for r, a in enumerate(g)]
+        sr = [a.create_buffer(ARB_WARM_N, np.float32) for a in g]
+        fs = [a.create_buffer_from(fdata[r]) for r, a in enumerate(g)]
+        fr = [a.create_buffer(N_RANK, np.float32) for a in g]
+
+        def warm(a, r):
+            for _ in range(3):
+                a.allreduce(ss[r], sr[r])
+                a.allreduce(fs[r], fr[r], comm=subs[r])
+
+        before = counts()
+        run_ranks(g, warm, "3n (c) warm-up")
+        times = {"alone": [], "flooded": []}
+
+        def serve(a, r, key):
+            for _ in range(ARB_SERVE_CALLS):
+                t = time.perf_counter()
+                a.allreduce(ss[r], sr[r])
+                if r == 0:
+                    times[key].append(time.perf_counter() - t)
+
+        run_ranks(g, lambda a, r: serve(a, r, "alone"), "3n (c) alone")
+
+        def flood(a, r):
+            reqs = []
+            for _ in range(ARB_FLOOD_CALLS):
+                reqs.append(a.allreduce(fs[r], fr[r], comm=subs[r],
+                                        run_async=True))
+                if len(reqs) > ARB_FLOOD_DEPTH:
+                    q = reqs.pop(0)
+                    if not q.wait(120):
+                        raise RuntimeError("a flood call never completed")
+                    q.check()
+            for q in reqs:
+                if not q.wait(120):
+                    raise RuntimeError("a flood call never completed")
+                q.check()
+
+        def drive(a, r):
+            errs = []
+
+            def flooder():
+                try:
+                    flood(a, r)
+                except BaseException as e:  # reported below
+                    errs.append(e)
+
+            f = threading.Thread(target=flooder, name=f"3n-flood-{r}")
+            f.start()
+            time.sleep(0.02)  # the flood first
+            serve(a, r, "flooded")
+            f.join(300)
+            if errs or f.is_alive():
+                raise RuntimeError(f"flooder: {errs or 'hung'}")
+
+        run_ranks(g, drive, "3n (c) two tenants")
+        for a in g:
+            a.flush()
+        want_k1 = (2 * 3 + 2 * ARB_SERVE_CALLS + ARB_FLOOD_CALLS)
+        moved_since(before, "(c) two tenants", {"ring_allreduce": want_k1})
+        exact(sr, sdata.sum(0), "(c) serve")
+        exact(fr, fdata.sum(0), "(c) flood")
+        snap = g[0]._arbiter.snapshot()
+        serve_t = snap["tenants"][str(g[0].comm.id)]
+        bulk_t = snap["tenants"][str(subs[0].id)]
+        for name, t in (("serve", serve_t), ("bulk", bulk_t)):
+            if t["outstanding"] != 0 or t["admitted"] != t["completed"]:
+                fail(f"3n (c) {name}: an admission never released: {t}")
+        if bulk_t["admitted"] != P * (3 + ARB_FLOOD_CALLS):
+            fail(f"3n (c): the flooder admitted {bulk_t['admitted']}")
+        port = g[0].start_monitor(0)
+        try:
+            doc = json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/tenants", timeout=10).read())
+        finally:
+            g[0].stop_monitor()
+        if doc != json.loads(json.dumps(g[0]._arbiter.snapshot(),
+                                        default=str)):
+            fail("3n (c): /tenants does not serve the arbiter's snapshot")
+
+        def waits(t):
+            return t["grant_wait_ns_total"] / max(t["admitted"], 1) * 1e-6
+
+        out["tenants"] = {
+            "serve_bytes_per_rank": 4 * ARB_WARM_N,
+            "flood_bytes_per_rank": 4 * N_RANK,
+            "serve_alone": _pcts(times["alone"]),
+            "serve_flooded": _pcts(times["flooded"]),
+            "serve_grant_wait_ms_mean": waits(serve_t),
+            "flood_grant_wait_ms_mean": waits(bulk_t),
+            "flood_queued_peak": bulk_t["queued_peak"],
+            "serve_p99_us_hist": serve_t["latency"]["p99_us"],
+            "flood_p99_us_hist": bulk_t["latency"]["p99_us"],
+            "over_admissions": [serve_t["over_admissions"],
+                                bulk_t["over_admissions"]],
+            "rounds": snap["rounds"], "grant_timeouts":
+            snap["grant_timeouts"]}
+        print(f"3n (c): {json.dumps(out['tenants'])}", flush=True)
+    finally:
+        for a in g:
+            a.deinit()
+    # (d) no breaker opened here
+    out["circuit_open"] = circuit_open_total() - opens0
+    if out["circuit_open"]:
+        fail(f"3n: {out['circuit_open']} batches refused by an open breaker")
+    return out
+
+
+def arbiter_cost(kc) -> dict:
+    """Phase 3n's cost figures: the warm 256 KiB ``pallas_ring`` call on
+    ``cuda_group(4)``, ``ARB_ROUNDS`` rounds of ``TELEM_CALLS``
+    synchronous calls at window depth 1 and at the default depth in turn
+    (alternating which goes first): rank 0's call p50 / p90 (host clock)
+    and the gang's p50 / p90 (``Request.get_duration_ns``, the gang's
+    start to the window's completion).  The window's cost against no
+    window is a two-tree comparison (``scripts/window_cost.py``)."""
+    import numpy as np
+
+    import accl_tpu_torch as at
+    from accl_tpu_torch.constants import DEFAULT_INFLIGHT_WINDOW
+
+    P, n = P_MAIN, ARB_WARM_N
+    g = at.cuda_group(P)
+    samples = {d: {"call": [], "gang": []}
+               for d in (1, DEFAULT_INFLIGHT_WINDOW)}
+    try:
+        for a in g:
+            a.set_tuning("allreduce_algorithm", "pallas_ring")
+            a.set_tuning("ring_segments", 4)
+        bufs = [(a.create_buffer_from(np.full(n, r + 1.0, np.float32)),
+                 a.create_buffer(n, np.float32)) for r, a in enumerate(g)]
+        for _ in range(3):
+            run_ranks(g, lambda a, r: a.allreduce(*bufs[r]), "3n warm-up")
+
+        def rounds(depth):
+            for a in g:
+                a.set_inflight_window(depth)
+
+            def rank_main(a, r):
+                for _ in range(TELEM_CALLS):
+                    t = time.perf_counter()
+                    req = a.allreduce(*bufs[r])
+                    if r == 0:
+                        samples[depth]["call"].append(
+                            time.perf_counter() - t)
+                        samples[depth]["gang"].append(
+                            req.get_duration_ns() * 1e-9)
+
+            run_ranks(g, rank_main, f"3n depth {depth}")
+
+        for i in range(ARB_ROUNDS):
+            order = ((1, DEFAULT_INFLIGHT_WINDOW) if i % 2 == 0
+                     else (DEFAULT_INFLIGHT_WINDOW, 1))
+            for d in order:
+                rounds(d)
+    finally:
+        for a in g:
+            a.deinit()
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q)) * 1e3
+
+    return {"bytes_per_rank": 4 * n, "rounds": ARB_ROUNDS,
+            "calls_per_round": TELEM_CALLS,
+            **{f"depth_{d}": {"call_p50_ms": pct(s["call"], 50),
+                              "call_p90_ms": pct(s["call"], 90),
+                              "gang_p50_ms": pct(s["gang"], 50),
+                              "gang_p90_ms": pct(s["gang"], 90)}
+               for d, s in samples.items()}}
+
+
 def topology_latency(iters: int = 15) -> dict:
     """``facade_topology``: host-clock p50 / p90 of one synchronous call on
     rank 0's thread (as ``facade_latency``), every algorithm register at
@@ -6976,6 +7495,22 @@ def main() -> int:
             "cost": faults_cost(kc)}}))
         print(f"faults timing ({time.time() - t0:.1f} s)", flush=True)
         check_circuit_opens("after phase 3m", faults["ring"]["circuit_open"])
+        return 0
+    if sys.argv[1:] == ["--arbiter"]:  # phase 3n and its cost alone
+        probe_phase(kc)
+        print(f"built {kc.build_all(['ring', 'cmdring'])}", flush=True)
+        t0 = time.time()
+        arb = arbiter_main_path(kc)
+        print(f"arbiter path ok ({time.time() - t0:.1f} s): launches "
+              f"{ {k: v for k, v in arb['launches'].items() if v} }",
+              flush=True)
+        t0 = time.time()
+        print(json.dumps({"arbiter": {
+            "card": smi.stdout.strip().splitlines()[0],
+            **{k: v for k, v in arb.items() if k != "launches"},
+            "cost": arbiter_cost(kc)}}))
+        print(f"arbiter timing ({time.time() - t0:.1f} s)", flush=True)
+        check_circuit_opens("after phase 3n", 0)
         return 0
     if sys.argv[1:] == ["--launch-path"]:  # the launch path alone
         if not kc.probe_copy(torch.ones(8, 128, device=dev)).eq(1).all():
@@ -7218,14 +7753,19 @@ def main() -> int:
     print(f"faults path ok ({time.time() - t0:.1f} s): launches "
           f"{ {k: v for k, v in faults['launches'].items() if v} }",
           flush=True)
-    # each kernel's launches over the probe's and the fourteen paths' runs
+    t0 = time.time()
+    arb = arbiter_main_path(kc)
+    print(f"arbiter path ok ({time.time() - t0:.1f} s): launches "
+          f"{ {k: v for k, v in arb['launches'].items() if v} }",
+          flush=True)
+    # each kernel's launches over the probe's and the fifteen paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k]
                 + ringed["launches"][k] + serve["launches"][k]
                 + train["launches"][k] + cp["launches"][k] + compressed[k]
                 + converged[k]
                 + p2p[k] + seqp["launches"][k] + dispatched[k]
                 + topo["launches"][k] + telem["launches"][k]
-                + faults["launches"][k] + probed[k]
+                + faults["launches"][k] + arb["launches"][k] + probed[k]
                 for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
@@ -7372,6 +7912,8 @@ def main() -> int:
             kernels[-1]["launches_telemetry"] = telem["launches"][name]
         if faults["launches"][name]:  # phase 3m's share
             kernels[-1]["launches_faults"] = faults["launches"][name]
+        if arb["launches"][name]:  # phase 3n's share
+            kernels[-1]["launches_arbiter"] = arb["launches"][name]
         if name == "sequencer":  # the other windows of the bounds table
             kernels[-1].update({
                 "device_ms": seq["device_ms"],
@@ -7619,6 +8161,12 @@ def main() -> int:
         **{k: v for k, v in faults.items() if k != "launches"},
         "cost": faults_cost(kc)}}))
     print(f"faults timing ({time.time() - t1:.1f} s)", flush=True)
+    t1 = time.time()
+    print(json.dumps({"arbiter": {
+        "card": smi.stdout.strip().splitlines()[0],
+        **{k: v for k, v in arb.items() if k != "launches"},
+        "cost": arbiter_cost(kc)}}))
+    print(f"arbiter timing ({time.time() - t1:.1f} s)", flush=True)
     facade = facade_compressed_latency([1024 * 1024, N_RANK])
     print(json.dumps({"facade_compressed": {
         "card": smi.stdout.strip().splitlines()[0], "rows": facade}}))

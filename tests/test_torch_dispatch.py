@@ -438,12 +438,13 @@ def test_capabilities_keys_equal_jax(groups):
     jc, tc = jg[0].capabilities(), tg[0].capabilities()
     assert set(tc) == {"engine", "device_tier", "wire_compression",
                        "arithmetic", "world_size", "device_interactions",
-                       "plan_cache", "tuning_plan", "telemetry", "monitor",
-                       "health", "membership", "contract_verify"}
+                       "plan_cache", "inflight_window", "tuning_plan",
+                       "telemetry", "monitor", "health", "membership",
+                       "contract_verify"}
     assert set(tc["plan_cache"]) == set(jc["plan_cache"])
     for key in ("device_tier", "wire_compression", "arithmetic",
-                "world_size", "tuning_plan", "telemetry", "monitor",
-                "health", "membership", "contract_verify"):
+                "world_size", "inflight_window", "tuning_plan", "telemetry",
+                "monitor", "health", "membership", "contract_verify"):
         assert tc[key] == jc[key]
     assert tc["engine"] == "CudaEngine"
 

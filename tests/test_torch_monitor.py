@@ -422,8 +422,11 @@ def test_start_monitor_scrapes_every_route():
         assert status == 200 and "windows_logged" in json.loads(body)
         status, body = _get(port, "/")
         assert status == 200 and "/cmdring" in body
+        status, body = _get(port, "/tenants")  # the arbiter's snapshot
+        assert status == 200 and json.loads(body) == \
+            a.telemetry_snapshot()["tenants"]
         with pytest.raises(urllib.error.HTTPError) as e:
-            _get(port, "/tenants")  # the arbiter's route is not ported
+            _get(port, "/no-such-route")
         assert e.value.code == 404
         srv = a.capabilities()["monitor"]["server"]
         assert srv["scrapes"]["/metrics"] == 1

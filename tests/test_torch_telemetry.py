@@ -39,10 +39,11 @@ N = 64
 
 #: the flight-record fields held equal (everything but the times; a
 #: communicator's epoch comes from a process-wide counter, so each
-#: record's is held equal to its own handle's communicator's)
+#: record's is held equal to its own handle's communicator's); beside
+#: them, whether ``overlap_ns`` is set
 RECORD_KEYS = ("op", "comm", "epoch", "dtype", "count", "nbytes", "bucket",
                "algorithm", "plan_hit", "eager", "retcode", "ring_resident",
-               "trace_id", "parent_id")
+               "trace_id", "parent_id", "inflight_depth", "tenant")
 
 
 @pytest.fixture
@@ -239,11 +240,16 @@ def recorded():
     """One call sequence on both gangs: an allreduce, a bcast (root 1), a
     batched window of 2 allreduces, an allreduce pipelined into 4
     segments and a send / recv; then every rank's snapshot, capabilities
-    and trace export, and the gang tables' rooted registers."""
+    and trace export, and the gang tables' rooted registers.  Both gangs
+    run with an in-flight window of depth 1, where whether a call
+    overlapped a later launch does not hang on the threads' timing (a
+    launch parks only once the call before it completed)."""
     rows = np.random.default_rng(19).standard_normal((P, N)).astype(
         np.float32)
 
     def sequence(group):
+        for a in group:
+            a.set_inflight_window(1)
         send = [a.create_buffer_from(rows[r].copy())
                 for r, a in enumerate(group)]
         recv = [a.create_buffer(N, np.float32) for a in group]
@@ -308,6 +314,7 @@ def _record_rows(snap, jax_tuning=None, port_tuning=None):
     rows = []
     for rec in snap["flight_recorder"]:
         row = dict((k, rec.get(k)) for k in RECORD_KEYS)
+        row["overlapped"] = rec.get("overlap_ns") is not None
         if jax_tuning is not None and row["algorithm"] is None:
             # §C: JAX's gang table holds no rooted register until one is
             # written (None); the port's holds every register's default
@@ -369,10 +376,11 @@ def test_snapshot_keys_equal_jax(recorded):
     assert set(ts["stragglers"]) == set(ws["stragglers"])
     assert set(ts["anomalies"]) == set(ws["anomalies"])
     assert ts["monitor"] == ws["monitor"]
-    # the ring's stats: JAX's keys but the QoS plane's (ROADMAP A11d)
-    assert set(ws["engine"]["cmdring"]) - set(ts["engine"]["cmdring"]) == {
-        "slot_budgets", "comm_slots", "budgeted_windows"}
-    assert set(ts["engine"]["cmdring"]) <= set(ws["engine"]["cmdring"])
+    # the ring's stats (the QoS plane's budgets included), the in-flight
+    # window's and the arbiter's: JAX's keys
+    assert set(ts["engine"]["cmdring"]) == set(ws["engine"]["cmdring"])
+    assert set(ts["engine"]["inflight"]) == set(ws["engine"]["inflight"])
+    assert set(ts["tenants"]) == set(ws["tenants"])
 
 
 def test_window_log_equal_jax(recorded):
@@ -604,65 +612,162 @@ def test_hierarchical_records_equal_jax():
 # ---------------------------------------------------------------------------
 
 
+def _gate(group, comm_id):
+    """Hold the gang's in-flight window on ``comm_id`` behind a parked
+    entry until the returned event is set: every call of the comm
+    launched meanwhile stays in flight behind it, on either package's
+    gang (the same window), whatever the threads' timing."""
+    import threading
+
+    gate = threading.Event()
+    group[0].engine.gang.window.park(
+        comm_id, lambda: gate.wait(30), lambda *_a: None, lambda _e: None)
+    return gate
+
+
 def test_duration_ns_is_the_launch_time(port4):
-    """§C: a port request completes when its device work is LAUNCHED, so
-    its record (appended at completion, before any wait) carries the
-    gang's launch time, the request's own ``get_duration_ns``."""
+    """(Was §C: a port request completed at launch.)  A gang call now
+    completes when the in-flight window has seen its device work end:
+    held behind the window, a launched call is not done, and its record,
+    appended at completion, carries the duration from the gang's start
+    to that end, the request's own ``get_duration_ns``, and the window
+    depth it was parked at."""
     send = [a.create_buffer_from(np.ones(N, np.float32)) for a in port4]
     recv = [a.create_buffer(N, np.float32) for a in port4]
+    gate = _gate(port4, port4[0].comm.id)
+    held = 0.05
+    t0 = time.perf_counter_ns()
     reqs = run_parallel(port4, lambda a, r: a.allreduce(
         send[r], recv[r], N, run_async=True))
-    for a, q in zip(port4, reqs):
-        assert q.done()  # launched: complete, no wait called yet
-        rec = a._telemetry.recorder.tail(1)[0]
-        assert rec.duration_ns == q.get_duration_ns() > 0
+    time.sleep(held)
+    assert not any(q.done() for q in reqs)  # launched, still in flight
+    assert port4[0].engine.gang.window.in_flight() == 2
+    gate.set()
     for q in reqs:
         assert q.wait(30)
+        q.check()
+    for a, q in zip(port4, reqs):
+        rec = a._telemetry.recorder.tail(1)[0]
+        assert rec.duration_ns == q.get_duration_ns()
+        assert held * 1e9 <= rec.duration_ns <= time.perf_counter_ns() - t0
+        assert rec.inflight_depth == q.inflight_depth == 2
+    port4[0].flush()
+    assert port4[0].engine.gang.window.stats()["in_flight"] == 0
 
 
 def test_overlap_ns_is_none(port4):
-    """§C: no call rides an in-flight window yet (ROADMAP A11d), so no
-    record has ``overlap_ns`` or ``inflight_depth``, as JAX records a call
-    that never rode one, and no overlap counter moves."""
-    send = [a.create_buffer_from(np.ones(4096, np.float32)) for a in port4]
-    recv = [[a.create_buffer(4096, np.float32) for _ in range(4)]
-            for a in port4]
+    """(Was §C: no window, so every ``overlap_ns`` was None.)  The
+    records' ``overlap_ns`` presence, ``inflight_depth`` and ``tenant``
+    equal ``xla_group``'s on the same calls: a registered tenant's burst
+    of 4 async allreduces a rank, launched while the window is held, so
+    each but the last is overlapped by a later launch (depths 2-5 behind
+    the gate); and the ``accl_overlapped_calls_total`` counter and the
+    window's launch counts equal JAX's.  A lone synchronous call after
+    it overlaps nothing: ``overlap_ns`` None, as JAX records it."""
+    send_rows = np.random.default_rng(5).standard_normal((P, 4096)).astype(
+        np.float32)
 
-    def burst(a, r):
-        reqs = [a.allreduce(send[r], d, run_async=True) for d in recv[r]]
-        for q in reqs:
-            assert q.wait(30)
-            assert q.overlap_ns is None and q.inflight_depth is None
+    def run(group):
+        for a in group:
+            a.set_inflight_window(8)
+            a.set_arbiter(True)
+        run_parallel(group, lambda a, r: a.set_tenant_class(
+            "guaranteed", name="serve"))
+        send = [a.create_buffer_from(send_rows[r].copy())
+                for r, a in enumerate(group)]
+        recv = [[a.create_buffer(4096, np.float32) for _ in range(4)]
+                for a in group]
+        gate = _gate(group, group[0].comm.id)
 
-    run_parallel(port4, burst)
-    snap = port4[0].telemetry_snapshot()
-    assert len(snap["flight_recorder"]) == 4
-    for rec in snap["flight_recorder"]:
-        assert "overlap_ns" not in rec and "inflight_depth" not in rec
-    assert not any("overlap" in k for k in snap["metrics"]["counters"])
-    assert snap["engine"]["inflight"] == {}
+        def burst(a, r):
+            return [a.allreduce(send[r], d, run_async=True)
+                    for d in recv[r]]
+
+        reqs = run_parallel(group, burst)
+        gate.set()
+        for qs in reqs:
+            for q in qs:
+                assert q.wait(30)
+                q.check()
+        run_parallel(group, lambda a, r: a.allreduce(send[r], recv[r][0]))
+        out = []
+        for a in group:
+            snap = a.telemetry_snapshot()
+            out.append({
+                "records": [(rec.get("overlap_ns") is not None,
+                             rec.get("inflight_depth"), rec.get("tenant"))
+                            for rec in snap["flight_recorder"]],
+                "counters": {k: v for k, v in
+                             snap["metrics"]["counters"].items()
+                             if k.startswith("accl_overlapped")},
+                "window": {k: snap["engine"]["inflight"][k] for k in (
+                    "depth", "key_depths", "in_flight", "launched",
+                    "completed", "failed", "max_depth_seen")},
+            })
+        return out
+
+    jg = xla_group(P)
+    try:
+        want = run(jg)
+    finally:
+        _deinit(jg)
+    got = run(port4)
+    assert got == want
+    assert got[0]["records"] == [(True, 2, "serve"), (True, 3, "serve"),
+                                 (True, 4, "serve"), (False, 5, "serve"),
+                                 (False, 1, "serve")]
+    assert got[0]["counters"] == {"accl_overlapped_calls_total|allreduce": 3}
 
 
 def test_unported_plane_sections_hold_off_values(port4):
-    """§C: of the planes' sections only the arbiter's (ROADMAP A11d)
-    still holds the value of a plane that is off: ``tenants`` ``{}``.
-    The fault, contract, membership and postmortem sections hold the JAX
-    gang's live values after the same calls (``faults`` None on both)."""
+    """(Was §C: the arbiter's sections held the values of a plane that is
+    off.)  After the same calls, the snapshot's ``tenants`` (the arbiter,
+    armed, one guaranteed tenant with a window share of 2 and a ring
+    budget of 3) equals ``xla_group``'s but for the wait and latency
+    times, and so do the engine report's ``tenants`` mirror and its
+    ``inflight`` counters; the fault, contract, membership and
+    postmortem sections hold the JAX gang's live values (``faults`` None
+    on both)."""
+    timed = ("grant_wait_ns_total", "latency", "throttle_ns_total")
+
+    def run(group):
+        for a in group:
+            a.set_arbiter(True)
+        run_parallel(group, lambda a, r: a.set_tenant_class(
+            "guaranteed", name="serve"))
+        run_parallel(group, lambda a, r: a.set_tenant_quota(
+            window_share=2, ring_slots=3))
+        jax_tests._exercise(group)
+        snap = group[0].telemetry_snapshot()
+        tenants = snap["tenants"]
+        for t in tenants["tenants"].values():
+            for k in timed:
+                t.pop(k)
+        inflight = {k: v for k, v in snap["engine"]["inflight"].items()
+                    if k not in ("max_depth_seen", "overlap_ns_total")}
+        return snap, tenants, inflight
+
     jg = xla_group(P)
     try:
-        jax_tests._exercise(jg)
-        want = jg[0].telemetry_snapshot()
+        want, want_tenants, want_inflight = run(jg)
     finally:
         _deinit(jg)
-    jax_tests._exercise(port4)
-    snap = port4[0].telemetry_snapshot()
+    snap, tenants, inflight = run(port4)
+    assert tenants == want_tenants
+    assert tenants["tenants"]["0"]["admitted"] == P
+    assert tenants["tenants"]["0"]["outstanding"] == 0
+    assert snap["engine"]["tenants"] == want["engine"]["tenants"] == {
+        "0": {"class": 0.0, "window_share": 2.0, "ring_slots": 3.0}}
+    assert inflight == want_inflight
+    assert inflight["key_depths"] == {0: 2}
+    assert snap["engine"]["cmdring"]["slot_budgets"] == \
+        want["engine"]["cmdring"]["slot_budgets"] == {"0": 3}
     assert snap["contract"] == want["contract"] == {"enabled": False}
     assert snap["postmortem"] == want["postmortem"]
     assert snap["faults"] is None and snap["engine"]["faults"] is None
     assert snap["health"] == want["health"]
     assert snap["health_events"] == want["health_events"]
     assert snap["membership"] == want["membership"]
-    assert snap["tenants"] == {} and snap["engine"]["tenants"] == {}
     assert snap["wire_trace"]["events"] == [] or all(
         ev["src"] for ev in snap["wire_trace"]["events"])
 
