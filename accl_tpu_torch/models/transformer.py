@@ -1,14 +1,15 @@
 """The transformer LM on one device: forward, prefill and KV-cache
-generate, the loss and the SGD train step.
+generate, the loss and the SGD train step, dense or with experts.
 
 The counterpart of ``accl_tpu/models/transformer.py`` on one card (tp = 1,
 replicated activations).  Parameters are a plain dict with the JAX tree's
 keys (``embed``, ``pos``, ``ln_f``, ``layers[i]`` with ``wq wk wv wo ln1
-ln2 w1 w2``), weights stored (d_in, d_out) as there, so a JAX tree carries
-across by :func:`params_from_numpy`.  The dtype rules are the JAX
-module's: matmuls in the activation dtype, attention scores and softmax
-statistics in float32, probabilities cast back to v's dtype before P @ V,
-Python-float scales (so bfloat16 activations stay bfloat16).
+ln2`` and ``w1 w2``, or ``moe`` = ``{gate, w1, w2}`` with experts),
+weights stored (d_in, d_out) as there, so a JAX tree carries across by
+:func:`params_from_numpy`.  The dtype rules are the JAX module's: matmuls
+in the activation dtype, attention scores and softmax statistics in
+float32, probabilities cast back to v's dtype before P @ V, Python-float
+scales (so bfloat16 activations stay bfloat16).
 
 Attention lowers as ``cfg.attention`` says: ``"naive"`` (materialized
 scores), ``"blockwise"`` (``ops.attention.blockwise_attention``),
@@ -19,18 +20,22 @@ writes each step's k/v into the cache IN PLACE, and the train step
 writes the updated parameters into their own storage (the port's form
 of JAX's ``donate_argnums``).
 
-Context parallelism (``context_parallel``) runs the ring's ranks on the
-one device: the makers take a mesh with JAX's axes ``("dp", "tp")``
-(:func:`~accl_tpu_torch.ops.driver.make_mesh`), ``dp`` splitting the
-batch and ``tp`` the ring over which the sequence is striped; inside,
-the ranks' striped shards are held as one sequence, and only attention
-splits them (:func:`_block_cp`).
+The makers take a mesh of virtual ranks on one device with JAX's axes
+(:func:`~accl_tpu_torch.ops.driver.make_mesh`): ``("dp", "tp")`` or
+``("dp", "ep", "tp")``.  The batch's rows split over the data axes (dp,
+and ep where it carries experts, :func:`_data_axes`); tp is 1 or, under
+``context_parallel``, the ring over which the sequence is striped.  The
+ranks' activations are held as one tensor: layers that mix no tokens run
+on the whole, attention splits the ring's shards (:func:`_block_cp`),
+and an expert layer routes each rank's tokens on their own, with its own
+capacity, through the expert axis's all-to-all (:func:`_moe`,
+``models/moe.py``), as JAX's ``shard_map`` runs them.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, or tensors already on the CPU); without a card they
-raise.  Tensor parallelism across cards, MoE, sequence and vocab
-parallelism come with later slices, and a config or mesh that asks for
-them is refused.
+raise.  Tensor parallelism across cards (inside an expert too), sequence
+and vocab parallelism come with later slices, and a config or mesh that
+asks for them is refused.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import dataclasses
 import math
 import struct
 from functools import partial
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +54,7 @@ from ..buffer import host_tensor
 from ..ops.attention import blockwise_attention
 from ..ops.cuda.attention import MAX_HEAD_DIM, flash_attention
 from ..ops.driver import Mesh, make_mesh, resolve_device
+from .moe import init_moe_params, moe_ffn
 from .ring_attention import (stripe_sequence, striped_attention,
                              unstripe_sequence)
 
@@ -58,7 +64,6 @@ _AUTO_FUSED_MIN_T = 1024
 
 #: the fields the port refuses, and the slice each waits for
 _LATER = {
-    "n_experts": "the MoE slice (ROADMAP A9d, models/moe.py)",
     "seq_parallel": "the multi-GPU tensor-parallel slice (ROADMAP B14)",
     "vocab_parallel": "the multi-GPU tensor-parallel slice (ROADMAP B14)",
 }
@@ -67,11 +72,14 @@ _LATER = {
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Every field of the JAX ``TransformerConfig``; ``dtype`` is a torch
-    dtype.  ``n_experts > 0``, ``seq_parallel`` and ``vocab_parallel``
-    raise NotImplementedError naming the slice that ports them (after
-    JAX's ValueError for ``context_parallel`` with either of the last
-    two); the ``moe_*`` and ``ep_extends_dp`` fields only matter with
-    experts or a mesh.  ``context_parallel`` stripes the sequence over
+    dtype.  ``seq_parallel`` and ``vocab_parallel`` raise
+    NotImplementedError naming the slice that ports them (after JAX's
+    ValueErrors for ``context_parallel`` or ``n_experts`` with either).
+    ``n_experts > 0`` replaces every block's dense FFN with the top-k
+    routed expert FFN (``models/moe.py``), its bank sharded over the
+    mesh axis ``moe_mesh_axis`` ("dp" or a dedicated "ep");
+    ``ep_extends_dp`` makes a dense config's batch split over an "ep"
+    axis too.  ``context_parallel`` stripes the sequence over
     the mesh's ``tp`` ring (a plain ``forward`` / ``loss_fn`` of token
     tensors runs the dense path, as JAX's with no tp axis).  ``remat``
     recomputes each block on the backward pass
@@ -141,6 +149,84 @@ def _check_axis_compat(cfg) -> None:
             "vocab_parallel: the tp mesh axis becomes the sequence ring "
             "(weights replicated over it)"
         )
+    if cfg.n_experts and cfg.seq_parallel:
+        raise ValueError(
+            "n_experts (MoE) does not compose with seq_parallel — the "
+            "MLP entry would need a sequence gather in front of every "
+            "routed dispatch; use context_parallel for sequence sharding "
+            "with MoE (experts on the expert axis, ring on tp)"
+        )
+    if cfg.n_experts and cfg.moe_mesh_axis == "tp":
+        raise ValueError(
+            "moe_mesh_axis cannot be 'tp': tp carries the within-expert "
+            "column/row split (and the cp ring) — put experts on 'dp' or "
+            "a dedicated 'ep' mesh axis"
+        )
+
+
+class PartitionSpec:
+    """A leaf's mesh axes, one entry a dimension, as
+    ``jax.sharding.PartitionSpec``: None (not split), an axis name, or a
+    tuple of names.  Not a tuple, so the tree functions take it as a
+    leaf; ``tuple(spec)`` gives its entries."""
+
+    def __init__(self, *parts):
+        self.parts = parts
+
+    def __iter__(self):
+        return iter(self.parts)
+
+    def __len__(self):
+        return len(self.parts)
+
+    def __getitem__(self, i):
+        return self.parts[i]
+
+    def __eq__(self, other):
+        return isinstance(other, PartitionSpec) and self.parts == other.parts
+
+    def __hash__(self):
+        return hash(self.parts)
+
+    def __repr__(self):
+        return f"PartitionSpec{self.parts!r}"
+
+
+def param_specs(cfg: TransformerConfig) -> Dict:
+    """JAX's ``param_specs`` (:255) over ``("dp", "tp")`` or ``("dp",
+    "ep", "tp")``: column-parallel weights split their output dim on tp,
+    row-parallel their input dim (everything replicated under
+    ``context_parallel``), and an expert bank its expert dim over
+    ``cfg.moe_mesh_axis`` (and, but under cp, each expert's d_ff over
+    tp).  On one card tp is 1 or the cp ring, so only the expert banks
+    are really split; ZeRO's state layout reads the specs
+    (``parallel/zero.py``)."""
+    P = PartitionSpec
+    _check_axis_compat(cfg)
+    if cfg.context_parallel:
+        layer = {k: P(None, None) if k[0] == "w" else P(None)
+                 for k in ("wq", "wk", "wv", "wo", "w1", "w2", "ln1", "ln2")}
+    else:
+        layer = {"wq": P(None, "tp"), "wk": P(None, "tp"),
+                 "wv": P(None, "tp"), "wo": P("tp", None),
+                 "w1": P(None, "tp"), "w2": P("tp", None),
+                 "ln1": P(None), "ln2": P(None)}
+    if cfg.n_experts:
+        for k_ in ("w1", "w2"):
+            layer.pop(k_)
+        ep_ax = cfg.moe_mesh_axis
+        if cfg.context_parallel:
+            layer["moe"] = {"gate": P(None, None), "w1": P(ep_ax, None, None),
+                            "w2": P(ep_ax, None, None)}
+        else:
+            layer["moe"] = {"gate": P(None, None), "w1": P(ep_ax, None, "tp"),
+                            "w2": P(ep_ax, "tp", None)}
+    out = {"embed": P("tp", None) if cfg.vocab_parallel else P(None, None),
+           "ln_f": P(None),
+           "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+    if not cfg.uses_rope():
+        out["pos"] = P(None, None)
+    return out
 
 
 Params = Dict
@@ -150,9 +236,11 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device=None) -> Params:
     """The JAX ``init_params`` tree (:314): weights normal(0, 0.02) drawn
     from ``generator`` on its own device (in float32, then cast to
-    ``cfg.dtype``), layer norms ones, on ``device`` (the card unless the
-    caller passes ``device="cpu"``).  The draws cannot equal JAX's PRNG:
-    carry a JAX tree across with :func:`params_from_numpy` instead."""
+    ``cfg.dtype``), layer norms ones, and with experts each layer's
+    ``moe`` bank from :func:`init_moe_params` in place of ``w1`` / ``w2``
+    (:346-351), on ``device`` (the card unless the caller passes
+    ``device="cpu"``).  The draws cannot equal JAX's PRNG: carry a JAX
+    tree across with :func:`params_from_numpy` instead."""
     dev = resolve_device(device)
 
     def normal(*shape):
@@ -168,16 +256,22 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         params["pos"] = normal(cfg.max_seq, cfg.d_model)
     d_kv = cfg.kv_heads() * (cfg.d_model // cfg.n_heads)
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        layer = {
             "wq": normal(cfg.d_model, cfg.d_model),
             "wk": normal(cfg.d_model, d_kv),
             "wv": normal(cfg.d_model, d_kv),
             "wo": normal(cfg.d_model, cfg.d_model),
             "ln1": ones(cfg.d_model),
             "ln2": ones(cfg.d_model),
-            "w1": normal(cfg.d_model, cfg.d_ff),
-            "w2": normal(cfg.d_ff, cfg.d_model),
-        })
+        }
+        if cfg.n_experts:
+            layer["moe"] = init_moe_params(cfg.d_model, cfg.d_ff,
+                                           cfg.n_experts, generator,
+                                           cfg.dtype, dev)
+        else:
+            layer["w1"] = normal(cfg.d_model, cfg.d_ff)
+            layer["w2"] = normal(cfg.d_ff, cfg.d_model)
+        params["layers"].append(layer)
     return params
 
 
@@ -322,11 +416,54 @@ def _attention(q, k, v, impl: str = "naive", causal: bool = True):
     return out.reshape(B, H, T, hd)
 
 
-def _mlp(x, lp):
-    """The block's dense MLP half: ln2, up, gelu (tanh form, JAX's
-    default), down, residual."""
+class _Ranks(NamedTuple):
+    """The virtual ranks one activation (B, T, D) holds: ``data`` over its
+    rows (the batch's data axes, rank-major), ``ring`` over its sequence
+    (the cp ring's striped shards, in rank order), and ``ep`` the expert
+    axis's size, its groups runs of ``ep`` consecutive data ranks (dp
+    under experts on dp; ep, minor to dp, on a dedicated axis)."""
+
+    data: int = 1
+    ring: int = 1
+    ep: int = 1
+
+
+def _moe(h, p, cfg, ranks: Optional[_Ranks], capacity_factor: float,
+         with_aux: bool):
+    """The expert FFN on ``h`` (B, T, D), each rank's tokens (B / data,
+    T / ring) routed on their own through the expert axis's all-to-all;
+    without ``ranks`` one rank with every expert local (JAX with no
+    expert axis).  Returns (y, aux): aux each rank's router terms, (R,)
+    float32, ranks ordered (ring, data), or None."""
+    ranks = ranks or _Ranks()
+    B, T, D = h.shape
+    d, r = ranks.data, ranks.ring
+    slabs = (h.reshape(d, B // d, r, T // r, D).permute(2, 0, 1, 3, 4)
+             .reshape(r * d, B // d, T // r, D))
+    out = moe_ffn(slabs, p, ranks.ep, capacity_factor, cfg.moe_top_k,
+                  with_aux)
+    y, aux = out if with_aux else (out, None)
+    y = (y.reshape(r, d, B // d, T // r, D).permute(1, 2, 0, 3, 4)
+         .reshape(B, T, D))
+    return y, aux
+
+
+def _mlp(x, lp, moe_cfg=None, ranks: Optional[_Ranks] = None,
+         with_aux: bool = False, moe_no_drop: bool = False):
+    """The block's MLP half (JAX's ``_mlp`` :569): ln2, then the dense
+    pair (up, gelu in its tanh form, JAX's default, down) or, when the
+    layer carries an expert bank, the routed expert FFN (:func:`_moe`);
+    residual.  ``moe_no_drop`` (decode) routes with capacity factor E, so
+    a step of a few tokens drops none; ``with_aux=True`` returns ``(out,
+    aux)``, aux None for a dense layer."""
     h = _layernorm(x, lp["ln2"])
-    return x + F.gelu(h @ lp["w1"], approximate="tanh") @ lp["w2"]
+    if "moe" in lp:
+        cf = (float(moe_cfg.n_experts) if moe_no_drop
+              else moe_cfg.moe_capacity_factor)
+        y, aux = _moe(h, lp["moe"], moe_cfg, ranks, cf, with_aux)
+        return (x + y, aux) if with_aux else x + y
+    out = x + F.gelu(h @ lp["w1"], approximate="tanh") @ lp["w2"]
+    return (out, None) if with_aux else out
 
 
 def _attn_partial(h, lp, n_heads, attn_impl="naive", causal=True,
@@ -361,12 +498,13 @@ def _attn_partial(h, lp, n_heads, attn_impl="naive", causal=True,
 
 
 def _block(x, lp, n_heads, return_kv=False, attn_impl="naive", causal=True,
-           rope_base=None):
+           rope_base=None, moe_cfg=None, ranks=None, with_aux=False):
     """One transformer block; ``return_kv=True`` also returns the (k, v)
-    head tensors (the prefill path)."""
+    head tensors (the prefill path), ``with_aux=True`` (training)
+    returns ``(out, aux)`` with the layer's router terms."""
     h = _layernorm(x, lp["ln1"])
     o, kv = _attn_partial(h, lp, n_heads, attn_impl, causal, rope_base)
-    out = _mlp(x + o, lp)
+    out = _mlp(x + o, lp, moe_cfg, ranks, with_aux)
     return (out, kv) if return_kv else out
 
 
@@ -403,7 +541,8 @@ def _cp_block_k(t_local: int, attn_impl: str) -> Optional[int]:
     return None  # tiny or ragged shard: whole-hop folds are small
 
 
-def _block_cp(x, lp, n_heads, ring: int, rope_base=None, attn_impl="auto"):
+def _block_cp(x, lp, n_heads, ring: int, rope_base=None, attn_impl="auto",
+              moe_cfg=None, ranks=None, with_aux=False):
     """The context-parallel block (JAX's ``_block_cp`` :708) on the
     ``ring`` ranks' STRIPED shards held as one sequence: ``x`` (B, T, D)
     is their (B, T / ring, D) shards concatenated in rank order.  The
@@ -411,7 +550,9 @@ def _block_cp(x, lp, n_heads, ring: int, rope_base=None, attn_impl="auto"):
     on the whole; attention cuts q, k and v into the ranks' shards for
     the striped causal ring (:func:`striped_attention`, kv heads rotating
     unexpanded under GQA, ``block_k`` from :func:`_cp_block_k`), and rope
-    rotates by each shard's global positions."""
+    rotates by each shard's global positions.  An expert layer routes
+    each (data, ring) rank's striped shard on its own (``ranks``), over
+    the expert axis, as JAX's MoE x cp does."""
     T = x.shape[1]
     t_local = T // ring
     block_k = _cp_block_k(t_local, attn_impl)
@@ -425,18 +566,24 @@ def _block_cp(x, lp, n_heads, ring: int, rope_base=None, attn_impl="auto"):
     o, _ = _attn_partial(h, lp, n_heads, rope_base=rope_base,
                          positions=_striped_positions(T, ring, x.device),
                          attention_fn=attention)
-    return _mlp(x + o, lp)
+    return _mlp(x + o, lp, moe_cfg, ranks, with_aux)
 
 
 def _enter_block_layout(x, cfg, return_kv=False, causal=True,
-                        ring: Optional[int] = None):
+                        ring: Optional[int] = None,
+                        ranks: Optional[_Ranks] = None):
     """The block stack's layout and block (JAX's :773): under context
     parallelism with a ring, ``x`` is ALREADY the ranks' striped shards
     (held as one sequence) and blocks run :func:`_block_cp`; otherwise
-    activations stay whole and blocks run :func:`_block`.  Returns
-    ``(x, block_fn)``."""
+    activations stay whole and blocks run :func:`_block`.  With experts
+    the blocks route over ``ranks`` and, but on the serving path
+    (``return_kv``), return their router terms.  Returns ``(x,
+    block_fn)``."""
     cfg.kv_heads()  # validates n_kv_heads
     rope_base = cfg.rope_base if cfg.uses_rope() else None
+    moe = {}
+    if cfg.n_experts:
+        moe = dict(moe_cfg=cfg, ranks=ranks, with_aux=not return_kv)
     if _cp_active(cfg, ring):
         if return_kv:
             raise ValueError(
@@ -450,28 +597,46 @@ def _enter_block_layout(x, cfg, return_kv=False, causal=True,
                 "ring's load balance argument is the causal mask)"
             )
         return x, partial(_block_cp, n_heads=cfg.n_heads, ring=ring,
-                          rope_base=rope_base, attn_impl=cfg.attention)
+                          rope_base=rope_base, attn_impl=cfg.attention,
+                          **moe)
     return x, partial(_block, n_heads=cfg.n_heads, return_kv=return_kv,
                       attn_impl=cfg.attention, causal=causal,
-                      rope_base=rope_base)
+                      rope_base=rope_base, **moe)
 
 
-def _final_hidden(params, tokens, cfg, ring: Optional[int] = None):
-    """Embed, blocks, final layer norm; with a ``ring``, ``tokens`` (B, T)
-    are its ranks' striped shards held as one sequence."""
-    positions = None
-    if _cp_active(cfg, ring):
-        positions = _striped_positions(tokens.shape[1], ring, tokens.device)
-    x = _embed_tokens(params, tokens, cfg, positions)
-    x, block = _enter_block_layout(x, cfg, ring=ring)
+def _run_blocks(x, params, block, cfg):
+    """``x`` through every layer's block (recomputed on the backward pass
+    under ``cfg.remat``); returns ``(x, aux)``, aux the layer sums of the
+    router terms with experts (JAX's :866-874), else None."""
+    aux = None
     for lp in params["layers"]:
         if cfg.remat and torch.is_grad_enabled():
             from torch.utils.checkpoint import checkpoint
 
-            x = checkpoint(block, x, lp, use_reentrant=False)
+            out = checkpoint(block, x, lp, use_reentrant=False)
         else:
-            x = block(x, lp)
-    return _layernorm(x, params["ln_f"])
+            out = block(x, lp)
+        if not cfg.n_experts:
+            x = out
+            continue
+        x, a = out
+        aux = a if aux is None else {n: aux[n] + a[n] for n in a}
+    return x, aux
+
+
+def _final_hidden(params, tokens, cfg, ring: Optional[int] = None,
+                  ranks: Optional[_Ranks] = None):
+    """Embed, blocks, final layer norm; with a ``ring``, ``tokens`` (B, T)
+    are its ranks' striped shards held as one sequence (each its own
+    expert rank unless ``ranks`` says more).  Returns ``(x, aux)``."""
+    positions = None
+    if _cp_active(cfg, ring):
+        positions = _striped_positions(tokens.shape[1], ring, tokens.device)
+        ranks = ranks or _Ranks(1, ring, 1)
+    x = _embed_tokens(params, tokens, cfg, positions)
+    x, block = _enter_block_layout(x, cfg, ring=ring, ranks=ranks)
+    x, aux = _run_blocks(x, params, block, cfg)
+    return _layernorm(x, params["ln_f"]), aux
 
 
 def _ring_of(tokens, cfg) -> Optional[int]:
@@ -495,13 +660,15 @@ def forward(params, tokens, cfg: TransformerConfig):
     :func:`stripe_sequence` and a contiguous split cut them) returns each
     rank's striped (B, T / P, vocab) logits shard, as JAX's forward does
     inside the makers' ``shard_map``; a (B, T) tensor runs the dense
-    path, as JAX's with no tp axis."""
+    path, as JAX's with no tp axis.  Experts route over one rank, or
+    over each ring rank on its own."""
     ring = _ring_of(tokens, cfg)
     if ring is None:
-        return _lm_logits(_final_hidden(params, tokens, cfg),
+        return _lm_logits(_final_hidden(params, tokens, cfg)[0],
                           params["embed"])
-    z = _lm_logits(_final_hidden(params, torch.cat(tokens, 1), cfg, ring),
-                   params["embed"])
+    z = _lm_logits(
+        _final_hidden(params, torch.cat(tokens, 1), cfg, ring)[0],
+        params["embed"])
     return list(z.split(z.shape[1] // ring, dim=1))
 
 
@@ -511,11 +678,13 @@ def forward(params, tokens, cfg: TransformerConfig):
 
 
 def _block_decode(x_t, lp, cache_k, cache_v, pos: int, n_heads: int,
-                  rope_tables=None):
+                  rope_tables=None, moe_cfg=None, ranks=None):
     """One block for a single decode position: write this step's k/v into
     the cache at ``pos`` (in place), attend over positions <= pos with
     the JAX form's mask over the whole cache.  The cache is (B, Hkv, S,
-    hd); query heads group onto kv head h // G.  Returns x_out."""
+    hd); query heads group onto kv head h // G.  An expert layer routes
+    with the no-drop capacity (JAX's ``moe_no_drop``, :1060).  Returns
+    x_out."""
     B, _, D = x_t.shape
     h = _layernorm(x_t, lp["ln1"])
     q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
@@ -541,20 +710,22 @@ def _block_decode(x_t, lp, cache_k, cache_v, pos: int, n_heads: int,
     attn = torch.matmul(torch.softmax(scores, dim=-1).to(cache_v.dtype),
                         cache_v[:, :, None])
     attn = attn.reshape(B, n_heads, 1, hd).transpose(1, 2).reshape(B, 1, -1)
-    return _mlp(x_t + attn @ lp["wo"], lp)
+    return _mlp(x_t + attn @ lp["wo"], lp, moe_cfg, ranks, moe_no_drop=True)
 
 
 def prefill(params, tokens, cfg: TransformerConfig,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, ranks: Optional[_Ranks] = None):
     """Run the prompt through the model once, building the KV cache.
     Returns (last-position logits (B, vocab), caches): a list of (k, v)
     tensors (B, Hkv, cache_len, hd), kv heads only under GQA.
-    ``cache_len`` defaults to ``cfg.max_seq``."""
+    ``cache_len`` defaults to ``cfg.max_seq``.  Expert layers route over
+    ``ranks`` (one rank by default) with the training capacity, as
+    JAX's prefill does."""
     B, T = tokens.shape
     S = cfg.max_seq if cache_len is None else int(cache_len)
     x = _embed_tokens(params, tokens, cfg)
     hd = cfg.d_model // cfg.n_heads
-    x, block_kv = _enter_block_layout(x, cfg, return_kv=True)
+    x, block_kv = _enter_block_layout(x, cfg, return_kv=True, ranks=ranks)
     caches = []
     for lp in params["layers"]:
         x, (k, v) = block_kv(x, lp)
@@ -584,10 +755,11 @@ def _select_token(logits, generator, temperature: float,
 
 
 def _decode_step(params, caches: List[Tuple[torch.Tensor, torch.Tensor]],
-                 tok, pos: int, cfg: TransformerConfig):
+                 tok, pos: int, cfg: TransformerConfig,
+                 ranks: Optional[_Ranks] = None):
     """One decode step: the tokens ``tok`` (B,) at position ``pos``
-    through every layer (each writing its cache at ``pos``); returns the
-    next logits (B, vocab)."""
+    through every layer (each writing its cache at ``pos``, its experts
+    routed over ``ranks``); returns the next logits (B, vocab)."""
     x = _embed_rows(params["embed"], tok)[:, None, :]
     tables = None
     if cfg.uses_rope():
@@ -597,14 +769,16 @@ def _decode_step(params, caches: List[Tuple[torch.Tensor, torch.Tensor]],
     else:
         x = x + params["pos"][pos:pos + 1][None]
     for lp, (ck, cv) in zip(params["layers"], caches):
-        x = _block_decode(x, lp, ck, cv, pos, cfg.n_heads, tables)
+        x = _block_decode(x, lp, ck, cv, pos, cfg.n_heads, tables,
+                          cfg if cfg.n_experts else None, ranks)
     x = _layernorm(x, params["ln_f"])
     return _lm_logits(x[:, 0], params["embed"])
 
 
 def generate(params, prompt, steps: int, cfg: TransformerConfig,
              temperature: float = 0.0, top_k: Optional[int] = None,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             ranks: Optional[_Ranks] = None):
     """Autoregressive decode on the device of ``params`` and ``prompt``:
     prefill the prompt, then single-token steps through the KV cache.
     Returns the (B, steps) generated ids g_0 .. g_{steps-1} in the
@@ -615,7 +789,9 @@ def generate(params, prompt, steps: int, cfg: TransformerConfig,
     ``temperature > 0`` samples from the temperature-scaled distribution,
     truncated to ``top_k`` logits when given, drawing from ``generator``
     (a ``torch.Generator`` on the params' device, in place of JAX's
-    ``rng`` key): its tokens cannot equal JAX's PRNG stream."""
+    ``rng`` key): its tokens cannot equal JAX's PRNG stream.  ``ranks``
+    (:func:`make_sharded_generate` sets them) are the virtual ranks the
+    expert layers route over."""
     B, T = prompt.shape
     if T + steps > cfg.max_seq and not cfg.uses_rope():
         raise ValueError(
@@ -632,11 +808,11 @@ def generate(params, prompt, steps: int, cfg: TransformerConfig,
             f"prompt on {prompt.device}, params on {params['embed'].device}"
         )
     with torch.no_grad():
-        logits, caches = prefill(params, prompt, cfg, cache_len=T + steps)
+        logits, caches = prefill(params, prompt, cfg, T + steps, ranks)
         tok = _select_token(logits, generator, temperature, top_k)
         toks = [tok]
         for i in range(steps - 1):
-            logits = _decode_step(params, caches, tok, T + i, cfg)
+            logits = _decode_step(params, caches, tok, T + i, cfg, ranks)
             tok = _select_token(logits, generator, temperature, top_k)
             toks.append(tok)
     if steps <= 0:
@@ -656,11 +832,13 @@ def _token_nll(logits, targets):
     return -logp.gather(-1, targets[..., None].long()).squeeze(-1)
 
 
-def _nll(params, tokens, targets, cfg, ring: Optional[int] = None):
-    """Per-token NLL (B, T); with a ``ring``, of its ranks' striped
-    shards held as one sequence."""
-    return _token_nll(_lm_logits(_final_hidden(params, tokens, cfg, ring),
-                                 params["embed"]), targets)
+def _nll(params, tokens, targets, cfg, ring: Optional[int] = None,
+         ranks: Optional[_Ranks] = None):
+    """Per-token NLL (B, T) and the router terms (None, or each rank's
+    layer sums); with a ``ring``, of its ranks' striped shards held as
+    one sequence."""
+    x, aux = _final_hidden(params, tokens, cfg, ring, ranks)
+    return _token_nll(_lm_logits(x, params["embed"]), targets), aux
 
 
 def _ring_mean(nll, dp: int = 1, ring: Optional[int] = None):
@@ -676,21 +854,42 @@ def _ring_mean(nll, dp: int = 1, ring: Optional[int] = None):
     return (local.sum(1) / r).sum(0) / dp
 
 
+def _moe_penalty(cfg, aux):
+    """The router health penalty (JAX's :428): the Switch load balance and
+    the ST-MoE z-loss, each weighted and averaged over layers (``aux``
+    carries their layer sums, one a rank)."""
+    n = float(cfg.n_layers)
+    return (cfg.moe_aux_weight * aux["load_balance"] / n
+            + cfg.moe_router_z_weight * aux["router_z"] / n)
+
+
+def _global_loss(nll, aux, cfg, dp: int = 1, ring: Optional[int] = None):
+    """The global mean loss: :func:`_ring_mean` of the NLL, plus, with
+    experts, the ranks' mean of their own router penalties — each rank
+    adds its penalty to its local loss before the ring and dp means
+    (:930-937, :948-951)."""
+    loss = _ring_mean(nll, dp, ring)
+    if aux is not None:
+        loss = loss + _moe_penalty(cfg, aux).mean()
+    return loss
+
+
 def loss_fn(params, tokens, targets, cfg: TransformerConfig):
     """Mean next-token NLL of a token batch (B, T) against ``targets``
     (B, T), at tp = 1 (the JAX function's non-vocab-parallel branch;
-    vocab parallelism and experts are refused by the config).
+    vocab parallelism is refused by the config), plus the router penalty
+    with experts (one rank, every expert local).
 
     Under ``cfg.context_parallel``, ``tokens`` and ``targets`` given as
     the ring's ranks (lists of striped shards, as :func:`forward` takes
-    them) give the ring mean of each rank's local mean, JAX's cp
+    them) give the ring mean of each rank's local loss, JAX's cp
     branch."""
     ring = _ring_of(tokens, cfg)
     if ring is None:
-        return _ring_mean(_nll(params, tokens, targets, cfg))
-    return _ring_mean(_nll(params, torch.cat(tokens, 1),
-                           torch.cat(targets, 1), cfg, ring),
-                      ring=ring)
+        return _global_loss(*_nll(params, tokens, targets, cfg), cfg)
+    return _global_loss(*_nll(params, torch.cat(tokens, 1),
+                              torch.cat(targets, 1), cfg, ring),
+                        cfg, ring=ring)
 
 
 def _reject_untrainable_attention(cfg) -> None:
@@ -765,12 +964,54 @@ def sgd_update_(leaves: List[torch.Tensor], grads: List[torch.Tensor],
             p.copy_(p.to(cdt) - lr_t * g.to(cdt))
 
 
-def _mesh_dp_tp(cfg, mesh: Optional[Mesh]) -> Tuple[Mesh, int, int]:
-    """``(mesh, dp, tp)`` of a model mesh (None: one rank on the card).
-    A mesh names JAX's axes ``("dp", "tp")``: dp splits the batch, and
-    tp is 1 or, under ``cfg.context_parallel``, the ring.  Dense tensor
-    parallelism and a mesh of more than one rank without axis names come
-    with the multi-GPU slice."""
+def _check_moe_mesh(cfg, mesh: Mesh) -> None:
+    """JAX's divisibility errors for the expert sharding (:190), which name
+    ``n_experts`` and the axis."""
+    if not cfg.n_experts:
+        return
+    ep_ax = cfg.moe_mesh_axis
+    if ep_ax not in mesh.axis_names:
+        raise ValueError(
+            f"moe_mesh_axis {ep_ax!r} is not an axis of this mesh "
+            f"({mesh.axis_names}) — expert parallelism needs its axis "
+            "in the mesh"
+        )
+    ep = mesh.shape[ep_ax]
+    tp = mesh.shape["tp"]
+    if cfg.n_experts % ep:
+        raise ValueError(
+            f"n_experts ({cfg.n_experts}) must divide by {ep_ax} ({ep}) "
+            "— expert parallelism shards the expert bank over "
+            f"the {ep_ax!r} axis"
+        )
+    if not cfg.context_parallel and cfg.d_ff % tp:
+        raise ValueError(
+            f"d_ff ({cfg.d_ff}) must divide by tp ({tp}) — each "
+            "expert's FFN is column/row-split over tp"
+        )
+
+
+def _data_axes(cfg, mesh: Mesh) -> tuple:
+    """The mesh axes the batch (and the loss mean) splits over (JAX's
+    :219): "dp", and the dedicated expert axis when the mesh has one —
+    or, for a config that opts in (``ep_extends_dp``, :131), an "ep"
+    axis as more data parallelism."""
+    ep_ax = cfg.moe_mesh_axis
+    if cfg.n_experts and ep_ax != "dp" and ep_ax in mesh.axis_names:
+        return ("dp", ep_ax)
+    if cfg.ep_extends_dp and "ep" in mesh.axis_names:
+        return ("dp", "ep")
+    return ("dp",)
+
+
+def _mesh_dp_tp(cfg, mesh: Optional[Mesh]) -> Tuple[Mesh, int, int, int]:
+    """``(mesh, data, tp, ep)`` of a model mesh (None: one rank on the
+    card).  A mesh names JAX's axes ``("dp", "tp")`` or ``("dp", "ep",
+    "tp")``: ``data`` is the number of ranks the batch's rows split over
+    (:func:`_data_axes`), ``ep`` the expert axis's size (1 without
+    experts), and tp is 1 or, under ``cfg.context_parallel``, the ring.
+    Dense tensor parallelism and a mesh of more than one rank without
+    axis names come with the multi-GPU slice."""
     mesh = make_mesh(1) if mesh is None else mesh
     if not mesh.axis_names:
         if mesh.size != 1:
@@ -780,17 +1021,25 @@ def _mesh_dp_tp(cfg, mesh: Optional[Mesh]) -> Tuple[Mesh, int, int]:
                 f"name the axes (\"dp\", \"tp\") for data or context "
                 f"parallelism on one device"
             )
-        return mesh, 1, 1
-    if sorted(mesh.axis_names) != ["dp", "tp"]:
-        raise ValueError(f"a model mesh has the axes ('dp', 'tp'), got "
-                         f"{mesh.axis_names}")
-    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+        return mesh, 1, 1, 1
+    if sorted(mesh.axis_names) not in (["dp", "tp"], ["dp", "ep", "tp"]):
+        raise ValueError(f"a model mesh has the axes ('dp', 'tp') or ('dp', "
+                         f"'ep', 'tp'), got {mesh.axis_names}")
+    _check_moe_mesh(cfg, mesh)
+    tp = mesh.shape["tp"]
     if tp > 1 and not cfg.context_parallel:
         raise NotImplementedError(
             f"tensor parallelism over tp = {tp} is not ported yet: it comes "
             f"with the multi-GPU slice (ROADMAP B14, queue item A9c)"
         )
-    return mesh, dp, tp
+    data = math.prod(mesh.shape[a] for a in _data_axes(cfg, mesh))
+    ep = mesh.shape[cfg.moe_mesh_axis] if cfg.n_experts else 1
+    return mesh, data, tp, ep
+
+
+def _mesh_ranks(cfg, data: int, ring: Optional[int], ep: int):
+    """The ranks a maker's expert layers route over (None when dense)."""
+    return _Ranks(data, ring or 1, ep) if cfg.n_experts else None
 
 
 def _check_batch(tokens, device, dp: int) -> None:
@@ -816,34 +1065,37 @@ def make_sharded_train_step(cfg: TransformerConfig, lr: float = 1e-2,
     ``shard(tree)`` copies a parameter tree onto the mesh's device (the
     card unless ``mesh`` says otherwise); ``step(params, tokens,
     targets)`` takes the gradient of the global mean loss (JAX's: each
-    rank's local mean, the ring's mean, the dp mean) with respect to
-    every parameter and returns ``(params, loss)``, the parameters
-    updated to ``p - lr * g`` IN PLACE (rounded as JAX rounds it for
-    this lr's type, :func:`sgd_update_`) and the same tree returned.
-    ``lr`` is any real scalar: a Python number, a NumPy scalar or a 0-d
-    tensor.
+    rank's local mean, plus its router penalty with experts, the ring's
+    mean, the data axes' mean) with respect to every parameter and
+    returns ``(params, loss)``, the parameters updated to ``p - lr * g``
+    IN PLACE (rounded as JAX rounds it for this lr's type,
+    :func:`sgd_update_`) and the same tree returned.  ``lr`` is any real
+    scalar: a Python number, a NumPy scalar or a 0-d tensor.
 
-    ``mesh`` is one rank, or a ``("dp", "tp")`` mesh of virtual ranks on
-    one device (:func:`_mesh_dp_tp`): each dp group takes its rows of
-    the batch; under ``cfg.context_parallel`` the tokens and targets are
+    ``mesh`` is one rank, or a ``("dp", "tp")`` or ``("dp", "ep", "tp")``
+    mesh of virtual ranks on one device (:func:`_mesh_dp_tp`): each data
+    rank takes its rows of the batch, and its experts' tokens route on
+    their own; under ``cfg.context_parallel`` the tokens and targets are
     striped over the tp ring outside the step (``stripe_sequence``) and
     the ranks run :func:`_block_cp`."""
     _reject_untrainable_attention(cfg)
     _lr_scalar(lr)  # refuse what the update cannot hold, before any work
-    mesh, dp, tp = _mesh_dp_tp(cfg, mesh)
+    mesh, data, tp, ep = _mesh_dp_tp(cfg, mesh)
     ring = tp if cfg.context_parallel else None
+    ranks = _mesh_ranks(cfg, data, ring, ep)
 
     def step(params, tokens, targets):
         leaves = _tree_leaves(params)
-        _check_batch(tokens, leaves[0].device, dp)
+        _check_batch(tokens, leaves[0].device, data)
         if ring is not None:
             tokens = stripe_sequence(tokens, ring, axis=1)
             targets = stripe_sequence(targets, ring, axis=1)
         # gradients of aliases: the caller's tensors keep their flags
         live = [p.detach().requires_grad_() for p in leaves]
         it = iter(live)
-        loss = _ring_mean(_nll(_tree_map(lambda _: next(it), params),
-                               tokens, targets, cfg, ring), dp, ring)
+        nll, aux = _nll(_tree_map(lambda _: next(it), params), tokens,
+                        targets, cfg, ring, ranks)
+        loss = _global_loss(nll, aux, cfg, data, ring)
         grads = torch.autograd.grad(loss, live)
         with torch.no_grad():
             sgd_update_(leaves, grads, lr)
@@ -855,19 +1107,21 @@ def make_sharded_train_step(cfg: TransformerConfig, lr: float = 1e-2,
 def make_sharded_forward(cfg: TransformerConfig, mesh: Optional[Mesh] = None):
     """The forward over a mesh (JAX's :1310): ``(fn, shard)``, ``fn(params,
     tokens)`` giving the (B, T, vocab) logits of a (B, T) token batch.
-    Dense on a mesh whose tp is 1; under ``cfg.context_parallel`` the
-    tokens are striped over the tp ring on the way in and the logits
-    unstriped on the way out, so the caller sees token order."""
-    mesh, dp, tp = _mesh_dp_tp(cfg, mesh)
+    Dense on a mesh whose tp is 1, each data rank's experts routing on
+    their own; under ``cfg.context_parallel`` the tokens are striped over
+    the tp ring on the way in and the logits unstriped on the way out, so
+    the caller sees token order."""
+    mesh, data, tp, ep = _mesh_dp_tp(cfg, mesh)
+    ring = tp if cfg.context_parallel else None
+    ranks = _mesh_ranks(cfg, data, ring, ep)
 
     def fn(params, tokens):
-        _check_batch(tokens, params["embed"].device, dp)
-        if not cfg.context_parallel:
-            return forward(params, tokens, cfg)
-        shards = stripe_sequence(tokens, tp, axis=1).split(
-            tokens.shape[1] // tp, dim=1)
-        return unstripe_sequence(torch.cat(forward(params, shards, cfg), 1),
-                                 tp, axis=1)
+        _check_batch(tokens, params["embed"].device, data)
+        if ring is not None:
+            tokens = stripe_sequence(tokens, ring, axis=1)
+        z = _lm_logits(_final_hidden(params, tokens, cfg, ring, ranks)[0],
+                       params["embed"])
+        return z if ring is None else unstripe_sequence(z, ring, axis=1)
 
     return fn, _sharder(mesh)
 
@@ -878,19 +1132,22 @@ def make_sharded_generate(cfg: TransformerConfig, mesh: Optional[Mesh],
     """Generation over a mesh whose tp is 1 (JAX's :1203): ``(fn,
     shard)``, ``fn(params, prompt)`` giving the (B, steps) generated
     tokens of :func:`generate` (``fn(params, prompt, generator)`` when
-    ``temperature > 0``).  Context parallelism has no serving path:
-    decode with ``context_parallel=False``, on the same parameters."""
+    ``temperature > 0``), each data rank's experts routing its own rows
+    of the prompt and of every step.  Context parallelism has no serving
+    path: decode with ``context_parallel=False``, on the same
+    parameters."""
     if cfg.context_parallel:
         raise ValueError(
             "context_parallel has no serving path: decode with "
             "dataclasses.replace(cfg, context_parallel=False) — cp "
             "params are replicated over tp and re-shard directly"
         )
-    mesh, dp, _ = _mesh_dp_tp(cfg, mesh)
+    mesh, data, _, ep = _mesh_dp_tp(cfg, mesh)
+    ranks = _mesh_ranks(cfg, data, None, ep)
 
     def fn(params, prompt, generator=None):
-        _check_batch(prompt, params["embed"].device, dp)
+        _check_batch(prompt, params["embed"].device, data)
         return generate(params, prompt, steps, cfg, temperature=temperature,
-                        top_k=top_k, generator=generator)
+                        top_k=top_k, generator=generator, ranks=ranks)
 
     return fn, _sharder(mesh)

@@ -447,6 +447,8 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
     flash_attention.launches.bump()
     if tma is not None:
         flash_attention.wgmma_launches.bump()
+    if not causal:
+        flash_attention.full_launches.bump()
     return (out, lse) if with_lse else out
 
 
@@ -504,6 +506,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True):
     flash_attention_bwd_dq.launches.bump()
     if tma is not None:
         flash_attention_bwd_dq.wgmma_launches.bump()
+    if not causal:
+        flash_attention_bwd_dq.full_launches.bump()
     return dq
 
 
@@ -547,6 +551,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
     flash_attention_bwd_dkv.launches.bump()
     if tma is not None:
         flash_attention_bwd_dkv.wgmma_launches.bump()
+    if not causal:
+        flash_attention_bwd_dkv.full_launches.bump()
     return _group_sum(dk, Hkv, k.dtype), _group_sum(dv, Hkv, v.dtype)
 
 
@@ -649,6 +655,11 @@ flash_attention_bwd_dkv.launches = LaunchCounter()
 #: of those, the 16-bit launches: the wgmma kernels
 flash_attention_bwd_dq.wgmma_launches = LaunchCounter()
 flash_attention_bwd_dkv.wgmma_launches = LaunchCounter()
+#: of rows 16-18's launches, the non-causal ones (full attention: the
+#: encoder's)
+for _f in (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    _f.full_launches = LaunchCounter()
+del _f
 flash_attention_bwd_delta.launches = LaunchCounter()
 
 

@@ -11,6 +11,8 @@
                                           # the contract)
     python3 chip_smoke.py --arbiter       # phase 3n (the in-flight
                                           # window, the QoS arbiter)
+    python3 chip_smoke.py --models        # phase 3o (MoE, the encoder,
+                                          # ZeRO-1 Adam) and its records
 
 Phases (any failure exits non-zero):
 
@@ -264,6 +266,31 @@ Phases (any failure exits non-zero):
       BEST_EFFORT 64 MiB flooder (window share 1) from two threads a
       rank: p50 / p99, grant waits, every admission released, ``/tenants``
       serving the snapshot; (d) no breaker opens;
+   o. MoE, the encoder and ZeRO-1 Adam (``models_main_path``;
+      ``--models`` runs it and prints its records alone), bfloat16 on a
+      ``("dp", "tp")`` mesh of (4, 1) virtual ranks, each leg's memory
+      reckoned before it and its peak after, each train step launching
+      rows 16-18 and the delta pass once a layer and no other kernel,
+      losses finite and falling: (1) bench.py's serving model with 8
+      experts, top 2 (2.4 B), ``make_sharded_generate`` of 128 steps from
+      (8, 128) under flash and 8 from (8, 1024) under auto (row 16 once a
+      layer each), and in float32 with 2 layers and no drops the KV
+      decode against re-running the sharded forward, tie-aware; (2)
+      bench.py's training model with 8 experts, top 2 (7.0 B), 3 SGD
+      steps with the experts on dp (capacity 768), a profiled step
+      (expert GEMMs, dense GEMMs, routing and dispatch, attention, the
+      rest), one step on ("dp", "ep", "tp") = (2, 2, 1), and the MoE
+      layer's backward twice, the same bits; (3) rows 16-18 and the delta
+      pass with ``causal=False`` at (8, 32, 1024, 128) against their
+      plain versions (phase 2's tolerances) and timed beside SDPA's
+      non-causal forward and backward, then the encoder at the training
+      widths, 3 MLM steps of ``make_sharded_encoder_step`` (a seeded 15 %
+      mask; rows 16-18 counted non-causal), and its float32 ``mlm_loss``
+      and gradients, flash against naive, 2 layers x batch 2; (4)
+      ``make_zero_train_step`` (master weights, clipping at 1.0, a 2-step
+      warmup) on the dense training model and on the MoE model of (2) cut
+      to 2 layers, 3 steps each, the first step's loss and master weights
+      against the plain Adam step on whole tensors;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (K3's
    allgather and root-only gather, K4, row 11 and row 13 also by device
@@ -355,7 +382,14 @@ Phases (any failure exits non-zero):
    disarmed, 5 interleaved rounds of 30 calls, each p50 with its
    rounds' range); and ``arbiter``: phase 3n's figures and the warm 256
    KiB call at window depth 1 against the default depth
-   (``arbiter_cost``).
+   (``arbiter_cost``); and phase 3o's records (``print_models``), a line
+   a leg: ``moe_serve`` (runs A and B: wall time, ms a step, tokens/s),
+   ``moe_train``, ``encoder_train`` and ``zero_adam`` (step ms, tokens/s,
+   peak against reckoned memory, launches by kernel a step, the losses;
+   the MoE step's profiled device time by class and idle share), and
+   ``flash_full_attention`` (rows 16-18 and the delta pass non-causal at
+   (8, 32, 1024, 128): ms, device ms, plain ms, bound, SDPA's forward and
+   backward).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -3520,13 +3554,14 @@ def train_main_path(kc) -> dict:
 
 
 def time_flash_bwd(B: int = TRAIN_B, T: int = TRAIN_T,
-                   plain: bool = True) -> dict:
-    """Phase 4 for rows 16-18 at (B, 32, T, 128) bf16 causal (the
-    training shape by default): the forward with LSE, the delta pass, dQ
-    and dK/dV, each beside its plain version (None unless ``plain``), by
-    CUDA events around the wrapper and by device time alone
+                   plain: bool = True, causal: bool = True) -> dict:
+    """Phase 4 for rows 16-18 at (B, 32, T, 128) bf16, causal or full (the
+    training shape, causal, by default): the forward with LSE, the delta
+    pass, dQ and dK/dV, each beside its plain version (None unless
+    ``plain``), by CUDA events around the wrapper and by device time alone
     (``device_ms``); and ``scaled_dot_product_attention``'s forward and
-    its backward (dQ, dK and dV in one call)."""
+    its backward (dQ, dK and dV in one call).  The operations count the
+    (q, k) pairs the mask keeps."""
     import torch
     import torch.nn.functional as F
 
@@ -3537,43 +3572,44 @@ def time_flash_bwd(B: int = TRAIN_B, T: int = TRAIN_T,
     time_plain = time_ms if plain else (lambda fn, **kw: None)
     q, k, v, do = (torch.randn(B, H, T, D, device=dev, dtype=torch.bfloat16)
                    for _ in range(4))
-    o, lse = ka.flash_attention(q, k, v, True, with_lse=True)
+    o, lse = ka.flash_attention(q, k, v, causal, with_lse=True)
     delta = ka.flash_attention_bwd_delta(do, o)
     sq, sk, sv = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
-    pairs = B * H * T * (T + 1) // 2  # the causal (q, k) pairs, all heads
+    so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
+    # the (q, k) pairs the mask keeps, all heads
+    pairs = B * H * T * (T + 1) // 2 if causal else B * H * T * T
     act = q.numel() * q.element_size()  # bytes of one (B, H, T, D) tensor
     stats = 4 * B * H * T  # bytes of lse or delta
     out = {
         "fwd": dict(
-            ms=time_ms(lambda: ka.flash_attention(q, k, v, True,
+            ms=time_ms(lambda: ka.flash_attention(q, k, v, causal,
                                                   with_lse=True), iters=20),
             device_ms=device_ms(lambda: ka.flash_attention(
-                q, k, v, True, with_lse=True), iters=20),
+                q, k, v, causal, with_lse=True), iters=20),
             plain_ms=time_plain(lambda: ka.flash_attention_plain(
-                q, k, v, True, with_lse=True)),
+                q, k, v, causal, with_lse=True)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), iters=20),
+                q, k, v, is_causal=causal), iters=20),
             library_device_ms=device_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True),
+                                                       is_causal=causal),
                 iters=20),
             bytes=4 * act + stats, ops=4 * D * pairs),
         "flash_attention_bwd_dq": dict(
             ms=time_ms(lambda: ka.flash_attention_bwd_dq(
-                q, k, v, do, lse, delta, True), iters=20),
+                q, k, v, do, lse, delta, causal), iters=20),
             device_ms=device_ms(lambda: ka.flash_attention_bwd_dq(
-                q, k, v, do, lse, delta, True), iters=20),
+                q, k, v, do, lse, delta, causal), iters=20),
             plain_ms=time_plain(lambda: ka.flash_attention_bwd_dq_plain(
-                q, k, v, do, lse, delta, True)),
+                q, k, v, do, lse, delta, causal)),
             bytes=5 * act + 2 * stats, ops=3 * 2 * D * pairs),
         "flash_attention_bwd_dkv": dict(
             ms=time_ms(lambda: ka.flash_attention_bwd_dkv(
-                q, k, v, do, lse, delta, True), iters=20),
+                q, k, v, do, lse, delta, causal), iters=20),
             device_ms=device_ms(lambda: ka.flash_attention_bwd_dkv(
-                q, k, v, do, lse, delta, True), iters=20),
+                q, k, v, do, lse, delta, causal), iters=20),
             plain_ms=time_plain(lambda: ka.flash_attention_bwd_dkv_plain(
-                q, k, v, do, lse, delta, True)),
+                q, k, v, do, lse, delta, causal)),
             bytes=6 * act + 2 * stats, ops=4 * 2 * D * pairs),
         # no one PyTorch call forms rowsum(dO O) in float32 from 16-bit
         # operands (its products would round to bfloat16 first)
@@ -7405,6 +7441,755 @@ def topology_latency(iters: int = 15) -> dict:
             "pipelined_allreduce_4_ranks_64mib": pipelined}
 
 
+# -- phase 3o: MoE, the encoder and ZeRO-1 Adam (ROADMAP A9d) ---------------
+
+#: the expert configuration of every MoE leg: Mixtral 8x7B's expert count
+#: and routing (8 experts, top 2), JAX's default capacity factor 1.5
+MOE = dict(n_experts=8, moe_top_k=2)
+#: leg 1: bench.py's serving model with experts, its position table 8
+#: rows longer so run B's 1024-token prompt decodes 8 steps
+MOE_LONG_STEPS = 8
+MOE_SERVE = dict(SERVE, max_seq=SERVE_LONG + MOE_LONG_STEPS, **MOE)
+#: leg 2: bench.py's training model with experts (about 7.0 B parameters)
+MOE_TRAIN = dict(TRAIN, **MOE)
+#: every leg's mesh: dp 4 x tp 1 virtual ranks (experts on dp), and leg
+#: 2's one step on a dedicated expert axis
+MODEL_MESH, EP_MESH = (4, 1), (2, 2, 1)
+MODEL_STEPS = 3
+#: leg 3: the MLM mask's rate (BERT's 15 %)
+MLM_RATE = 0.15
+#: leg 4: ZeRO-1 Adam (peak lr 1e-3 after a 2-step warmup, clipped at
+#: 1.0, float32 master weights); its MoE model cut to 2 layers so that
+#: its moments and master copy (12 bytes a parameter) fit in 80 GB
+ZERO_ADAM = dict(lr=1e-3, warmup_steps=2, clip_grad_norm=1.0,
+                 master_weights=True)
+ZERO_MOE_LAYERS = 2
+#: a ZeRO step's master weights against the plain Adam step on whole
+#: tensors from a second backward pass: the two passes' gradients may
+#: part in the last bits (the embedding's backward adds rows with
+#: atomics), and Adam's first step g / (|g| + eps) turns that into the
+#: odd element's sign, so the difference is held within 1e-2 of the
+#: update's norm per tensor (relative Frobenius); the losses within 1e-6
+ZERO_UPDATE_RTOL, ZERO_LOSS_RTOL = 1e-2, 1e-6
+#: the profiled MoE step's device time by op (the self device time of the
+#: innermost op that launched each kernel)
+MOE_OP_CLASSES = (
+    ("expert_gemm", ("aten::bmm",)),
+    ("dense_gemm", ("aten::mm", "aten::addmm")),
+    ("routing_dispatch", ("aten::sort", "aten::cumsum", "aten::one_hot",
+                          "aten::index_put_", "aten::_index_put_impl_",
+                          "aten::index", "aten::gather", "aten::scatter",
+                          "aten::scatter_add_", "aten::index_select",
+                          "aten::repeat_interleave", "aten::index_add_")),
+)
+#: and the flash kernels' share: their device time by kernel name (they
+#: launch through ctypes inside the ``_Flash`` autograd Function)
+MOE_FLASH_KEY = "flash"
+
+
+def param_count(params) -> int:
+    from accl_tpu_torch.models.transformer import _tree_leaves
+
+    return sum(p.numel() for p in _tree_leaves(params))
+
+
+def reckon(what: str, **parts) -> dict:
+    """A leg's memory reckoned from its shapes before it runs, GB by part
+    and in all; printed beside the peak the leg then measures."""
+    gb = {k: v / 1e9 for k, v in parts.items()}
+    gb["total"] = sum(gb.values())
+    print(f"{what}: reckoned {gb['total']:.2f} GB ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in gb.items()
+                      if k != "total") + ")", flush=True)
+    return gb
+
+
+def leg_peak(what: str, reckoned: dict) -> float:
+    import torch
+
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{what}: peak {peak:.2f} GB against {reckoned['total']:.2f} GB "
+          f"reckoned (80 GB on the card)", flush=True)
+    if not peak < 80.0:
+        fail(f"{what}: peak memory {peak} GB")
+    return peak
+
+
+def falling(what: str, losses) -> None:
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"{what}: losses {losses} not finite and falling")
+
+
+def steps_launched(kc, what: str, per_step, n_layers: int,
+                   full: bool = False) -> None:
+    """Each step launched each of ``TRAIN_KERNELS`` once a layer and no
+    other kernel (rows 16-18 non-causal under ``full``)."""
+    want = {k: (n_layers if k in TRAIN_KERNELS else 0) for k in kc.KERNELS}
+    for i, (got, fl) in enumerate(per_step):
+        if got != want:
+            fail(f"{what} step {i}: launches {got}, want {want}")
+        if fl != (dict.fromkeys(FULL_KERNELS, n_layers if full else 0)):
+            fail(f"{what} step {i}: non-causal launches {fl}")
+
+
+#: rows 16-18: their launches with causal=False are counted apart
+FULL_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv")
+
+
+def read_full(kc) -> dict:
+    return {k: kc.KERNELS[k].full_launches.count for k in FULL_KERNELS}
+
+
+def reset_full(kc) -> None:
+    for k in FULL_KERNELS:
+        kc.KERNELS[k].full_launches.reset()
+
+
+def timed_steps(kc, step, args, n: int):
+    """``n`` calls of ``step(*args)`` (each returning its loss last, and
+    its new first arguments first), each synchronised, with the launches
+    of each; returns (losses, seconds, per-step launches, args)."""
+    import torch
+
+    losses, secs, per_step = [], [], []
+    for _ in range(n):
+        before, full = read_launches(kc), read_full(kc)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(*args)
+        loss = float(out[-1])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(loss)
+        per_step.append(({k: c - before[k]
+                          for k, c in read_launches(kc).items()},
+                         {k: c - full[k] for k, c in read_full(kc).items()}))
+        args = (*out[:-1], *args[len(out) - 1:])
+    return losses, secs, per_step, args
+
+
+def step_record(secs, tokens: int, peak: float, reckoned: dict,
+                per_step, losses) -> dict:
+    """A leg's phase 5 record: step ms (each step, and the mean of the
+    steps after the first), tokens/s over that mean, peak and reckoned
+    memory, launches by kernel a step, the losses."""
+    import numpy as np
+
+    warm = secs[1:] or secs
+    mean = float(np.mean(warm))
+    return {"step_ms": [s * 1e3 for s in secs], "warm_step_ms": mean * 1e3,
+            "tokens_per_s": tokens / mean, "peak_memory_gb": peak,
+            "reckoned_memory_gb": reckoned,
+            "launches_per_step": {k: v for k, v in per_step[0][0].items()
+                                  if v},
+            "full_launches_per_step": per_step[0][1], "losses": losses}
+
+
+def moe_profile(step, args) -> dict:
+    """One MoE train step under ``torch.profiler``: device time by
+    ``MOE_OP_CLASSES``, the flash kernels as "attention" (the rest
+    "other": layer norms, softmax, gelu, copies such as the all-to-all's
+    transposes, the loss, SGD), the
+    device's busy time against the step's wall time, and the idle
+    share.  None where the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_class = {name: 0.0 for name, _ in MOE_OP_CLASSES}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU:
+            continue
+        ms = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        for name, keys in MOE_OP_CLASSES:
+            if e.key in keys:
+                by_class[name] += ms
+                break
+    by_class["attention"] = sum(
+        e.time_range.elapsed_us() for e in kernels
+        if MOE_FLASH_KEY in e.name.lower()) / 1e3
+    if not busy:
+        return {"wall_ms": wall_ms, "device_ms_by_class": None,
+                "device_busy_ms": None, "idle_share": None}
+    by_class["other"] = busy - sum(by_class.values())
+    return {"wall_ms": wall_ms, "device_ms_by_class": by_class,
+            "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms}
+
+
+def moe_serve_leg(kc, mesh) -> dict:
+    """Leg 1: bench.py's serving model with 8 experts, top 2 (about 2.4 B
+    parameters, bfloat16, random weights from the seed), through
+    ``make_sharded_generate`` on (dp 4, tp 1), each rank's experts
+    routing its own 2 rows.  Run A: 128 steps from an (8, 128) prompt
+    under ``attention="flash"``; run B: 8 steps from an (8, 1024) prompt
+    under ``"auto"``.  Each launches row 16 once a layer (the prefill)
+    and no other kernel.  Check: float32, 2 layers, the no-drop capacity
+    8: 16 greedy steps from an (8, 32) prompt equal re-running the
+    sharded forward under ``"naive"`` each step, tie-aware."""
+    import dataclasses
+
+    import torch
+
+    from accl_tpu_torch.models import (TransformerConfig, init_params,
+                                       make_sharded_forward,
+                                       make_sharded_generate)
+    from accl_tpu_torch.models.transformer import _tree_map
+
+    dev = torch.device("cuda", 0)
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                            **MOE_SERVE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 60)
+    torch.cuda.reset_peak_memory_stats()
+    fn_a, shard = make_sharded_generate(cfg, mesh, SERVE_STEPS)
+    params = init_params(cfg, gen)
+    n = param_count(params)
+    hd = cfg.d_model // cfg.n_heads
+    rk = reckon("moe_serve", weights=2 * n, kv_cache_run_b=(
+        2 * cfg.n_layers * SERVE_B * cfg.n_heads * (SERVE_LONG
+                                                    + MOE_LONG_STEPS)
+        * hd * 2), logits=4 * SERVE_B * cfg.vocab * 2)
+    prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_T), generator=gen,
+                           device=dev, dtype=torch.int32)
+    long = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LONG), generator=gen,
+                         device=dev, dtype=torch.int32)
+    out = {"params": n}
+    auto = dataclasses.replace(cfg, attention="auto")
+    fn_b, _ = make_sharded_generate(auto, mesh, MOE_LONG_STEPS)
+    launches = {k: 0 for k in kc.KERNELS}
+    for run, fn, p, steps in (("run_a", fn_a, prompt, SERVE_STEPS),
+                              ("run_b", fn_b, long, MOE_LONG_STEPS)):
+        reset_launches(kc)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tokens = fn(params, p)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = read_launches(kc)
+        flash_launched_alone(got, cfg.n_layers, f"moe_serve {run}")
+        all_wgmma(kc, f"moe_serve {run}")
+        launches = {k: launches[k] + got[k] for k in launches}
+        if tokens.shape != (SERVE_B, steps) or tokens.dtype != torch.int32 \
+                or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab:
+            fail(f"moe_serve {run}: tokens {tokens.dtype}"
+                 f"{tuple(tokens.shape)}")
+        out[run] = {"prompt": p.shape[1], "steps": steps, "wall_s": wall,
+                    "ms_per_step": wall * 1e3 / steps,
+                    "tokens_per_s": SERVE_B * steps / wall}
+    # run A again, warm: its tokens/s is the leg's figure
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn_a(params, prompt)
+    torch.cuda.synchronize()
+    out["run_a"]["warm_wall_s"] = time.perf_counter() - t
+    out["run_a"]["warm_tokens_per_s"] = (SERVE_B * SERVE_STEPS
+                                         / out["run_a"]["warm_wall_s"])
+    out["peak_memory_gb"] = leg_peak("moe_serve", rk)
+    out["reckoned_memory_gb"] = rk
+
+    # float32, 2 layers, no drops: KV-cache decode == re-running the
+    # sharded forward, tie-aware
+    c32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=2,
+                              moe_capacity_factor=float(cfg.n_experts))
+    p32 = _tree_map(lambda p: p.float(),
+                    dict(params, layers=params["layers"][:2]))
+    del params
+    short, steps = prompt[:, :32], 16
+    got = make_sharded_generate(c32, mesh, steps)[0](p32, short)
+    fwd, _ = make_sharded_forward(dataclasses.replace(c32,
+                                                      attention="naive"),
+                                  mesh)
+    seq, ties = short, 0
+    with torch.no_grad():
+        want = []
+        for _ in range(steps):
+            logits = fwd(p32, seq)[:, -1]
+            nxt = logits.argmax(-1).to(seq.dtype)
+            want.append((nxt, logits))
+            seq = torch.cat([seq, nxt[:, None]], 1)
+    for r in range(SERVE_B):
+        for i in range(steps):
+            if got[r, i] == want[i][0][r]:
+                continue
+            top = want[i][1][r].topk(2).values
+            gap = float(top[0] - top[1])
+            if not gap <= 1e-5:
+                fail(f"moe_serve float32 greedy row {r}: step {i} differs, "
+                     f"top-2 gap {gap}")
+            ties += 1
+            break
+    print(f"moe_serve: run A {out['run_a']['tokens_per_s']:.1f} tokens/s "
+          f"({out['run_a']['warm_tokens_per_s']:.1f} warm), run B "
+          f"{out['run_b']['wall_s']:.3f} s; float32 greedy, 2 layers x "
+          f"{steps} steps: KV decode == re-run forward on "
+          f"{SERVE_B - ties} rows, {ties} part at a tie", flush=True)
+    out["greedy_f32_rows_parted_at_a_tie"] = ties
+    del p32
+    torch.cuda.synchronize()
+    return out, launches
+
+
+def moe_backward_bits(layer) -> None:
+    """The MoE layer's backward at leg 2's shapes (4 ranks of 2 x 1024
+    tokens, d_model 4096, capacity 1.5, top 2), twice: the same bits."""
+    import torch
+
+    from accl_tpu_torch.models import moe_ffn
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 61)
+    x = torch.randn(4, 2, TRAIN_T, TRAIN["d_model"], generator=gen,
+                    device=dev).to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().requires_grad_() for t in (x, *layer.values())]
+        y = moe_ffn(leaves[0], dict(zip(layer, leaves[1:])), ep=4,
+                    capacity_factor=1.5, k=2)
+        runs.append(torch.autograd.grad(y.float().square().sum(), leaves))
+        del y
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail("a repeated MoE backward gave other bits")
+    print("moe_train: the MoE layer's backward repeated bit for bit "
+          "(x, gate, w1, w2)", flush=True)
+
+
+def moe_train_leg(kc, mesh) -> dict:
+    """Leg 2: bench.py's training model with 8 experts, top 2 (about 7.0 B
+    parameters, bfloat16, random weights and an (8, 1024) batch from the
+    seed): ``MODEL_STEPS`` SGD steps of ``make_sharded_train_step`` on
+    (dp 4, tp 1), experts on dp (2 a rank, capacity 768), each launching
+    rows 16-18 (causal) and the delta pass once a layer and no other
+    kernel, losses finite and falling; a profiled step (where the time
+    goes); one step on ("dp", "ep", "tp") = (2, 2, 1); then the MoE
+    layer's backward twice, the same bits."""
+    import dataclasses
+
+    import torch
+
+    from accl_tpu_torch.models import (TransformerConfig, init_params,
+                                       make_sharded_train_step)
+    from accl_tpu_torch.ops.driver import make_mesh
+
+    dev = torch.device("cuda", 0)
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="auto",
+                            **MOE_TRAIN)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 62)
+    torch.cuda.reset_peak_memory_stats()
+    step, shard = make_sharded_train_step(cfg, lr=TRAIN_LR, mesh=mesh)
+    params = init_params(cfg, gen)
+    n = param_count(params)
+    cap = int(1.5 * (TRAIN_B // MODEL_MESH[0]) * TRAIN_T * 2 / 8)
+    D, F_ = cfg.d_model, cfg.d_ff
+    rk = reckon("moe_train", weights=2 * n, gradients=2 * n,
+                sgd_scaled_gradients=2 * n,
+                expert_activations=cfg.n_layers * 3 * 8 * 4 * cap * F_ * 2,
+                other_activations=cfg.n_layers * 12 * TRAIN_B * TRAIN_T * D
+                * 2, logits=3 * TRAIN_B * TRAIN_T * cfg.vocab * 4)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_T), generator=gen,
+                           device=dev, dtype=torch.int32)
+    targets = tokens.roll(-1, dims=1)
+    reset_launches(kc)
+    reset_full(kc)
+    losses, secs, per_step, (params, *_) = timed_steps(
+        kc, step, (params, tokens, targets), MODEL_STEPS)
+    launches = read_launches(kc)
+    all_wgmma(kc, "moe_train steps")
+    steps_launched(kc, "moe_train", per_step, cfg.n_layers)
+    falling("moe_train", losses)
+    rec = step_record(secs, TRAIN_B * TRAIN_T, leg_peak("moe_train", rk), rk,
+                      per_step, losses)
+    rec.update(params=n, capacity_per_expert=cap)
+    print(f"moe_train: {MODEL_STEPS} steps on (dp 4, tp 1), losses "
+          f"{losses}, step ms {rec['step_ms']}, "
+          f"{rec['tokens_per_s']:.0f} tokens/s", flush=True)
+    before = read_launches(kc)
+    rec["profiled_step"] = moe_profile(step, (params, tokens, targets))
+    launches = {k: launches[k] + c - before[k]
+                for k, c in read_launches(kc).items()}
+    print(f"moe_train profiled step: {json.dumps(rec['profiled_step'])}",
+          flush=True)
+    ep_cfg = dataclasses.replace(cfg, moe_mesh_axis="ep")
+    ep_step, _ = make_sharded_train_step(
+        ep_cfg, lr=TRAIN_LR,
+        mesh=make_mesh(EP_MESH, axes=("dp", "ep", "tp")))
+    ep_losses, ep_secs, ep_per, (params, *_) = timed_steps(
+        kc, ep_step, (params, tokens, targets), 1)
+    steps_launched(kc, "moe_train ep", ep_per, cfg.n_layers)
+    launches = {k: launches[k] + ep_per[0][0][k] for k in launches}
+    if not math.isfinite(ep_losses[0]) or not ep_losses[0] < losses[0]:
+        fail(f"moe_train: the ep step's loss {ep_losses[0]} after {losses}")
+    rec["ep_step"] = {"mesh": list(EP_MESH), "loss": ep_losses[0],
+                      "step_ms": ep_secs[0] * 1e3}
+    print(f"moe_train: one step on (dp 2, ep 2, tp 1): loss {ep_losses[0]}, "
+          f"{ep_secs[0] * 1e3:.1f} ms", flush=True)
+    moe_backward_bits(params["layers"][0]["moe"])
+    del params, step, ep_step
+    torch.cuda.synchronize()
+    return rec, launches
+
+
+def check_full_attention(kc, err) -> dict:
+    """Leg 3's kernel checks: rows 16 (with LSE), 17 and 18 and the delta
+    pass with ``causal=False`` at (8, 32, 1024, 128) bf16 against their
+    plain versions, with phase 3e's tolerances (``check_flash``,
+    ``check_flash_bwd``), each launching once through its wgmma kernel
+    and counted non-causal; then their times (phase 4's, full) beside
+    SDPA's non-causal forward and backward."""
+    import torch
+
+    from accl_tpu_torch.ops.cuda import attention as ka
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 63)
+    B, H, T, D = TRAIN_B, TRAIN["n_heads"], TRAIN_T, 128
+    q, k, v, do = (torch.randn(B, H, T, D, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    reset_launches(kc)
+    reset_full(kc)
+    o, lse = ka.flash_attention(q, k, v, False, with_lse=True)
+    delta = ka.flash_attention_bwd_delta(do, o)
+    got = (ka.flash_attention_bwd_dq(q, k, v, do, lse, delta, False),
+           *ka.flash_attention_bwd_dkv(q, k, v, do, lse, delta, False))
+    moved, full = read_launches(kc), read_full(kc)
+    if {k_: c for k_, c in moved.items() if c} != dict.fromkeys(
+            TRAIN_KERNELS, 1) or full != dict.fromkeys(FULL_KERNELS, 1):
+        fail(f"non-causal checks launched {moved}, non-causal {full}")
+    all_wgmma(kc, "non-causal checks")
+    want_o, want_lse = ka.flash_attention_plain(q, k, v, False,
+                                                with_lse=True)
+    plain = ka.flash_attention_bwd_delta_plain(do, o)
+    want = (ka.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, False),
+            *ka.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                              False))
+    torch.cuda.synchronize()
+    errs = {}
+    d = float((lse - want_lse).abs().max())
+    e = float((o.float() - want_o.float()).abs().max())
+    if not d <= 1e-4 or not torch.isfinite(o).all() or not torch.allclose(
+            o.float(), want_o.float(), rtol=1e-2, atol=1e-2):
+        fail(f"non-causal flash: lse off by {d}, o max abs err {e}")
+    errs["flash_attention"] = e
+    mag = (do.float() * o.float()).abs().sum(-1)
+    d = float((delta - plain).abs().max())
+    if not bool(((delta - plain).abs() <= 1e-5 * mag).all()):
+        fail(f"non-causal delta differs from its plain version by {d}")
+    errs["flash_attention_bwd_delta"] = d
+    for name, g, w in zip(("dq", "dkv", "dkv"), got, want):
+        g, w = g.float(), w.float()
+        d = float((g - w).abs().max())
+        if not torch.isfinite(g).all() or not (
+                d <= 1e-2 * float(w.abs().max())
+                and float((g - w).norm() / w.norm()) <= 1e-3):
+            fail(f"non-causal {name}: max abs err {d}")
+        key = f"flash_attention_bwd_{name}"
+        errs[key] = max(errs.get(key, 0.0), d)
+    for key, e in errs.items():
+        err[key] = max(err[key], e)
+    print(f"rows 16-18 and the delta pass at ({B}, {H}, {T}, {D}) bf16, "
+          f"causal=False: one launch each through the wgmma kernels, "
+          f"within tolerance of the plain versions (max abs err "
+          f"{errs})", flush=True)
+    del q, k, v, do, o, lse, delta, got, want, want_o, want_lse, plain, mag
+    torch.cuda.synchronize()
+    timing = time_flash_bwd(B, T, plain=True, causal=False)
+    for name in ("fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_delta"):
+        t = timing[name]
+        t.update(bound(t["bytes"], t["ops"], TC16_OPS_PER_S
+                       if name != "flash_attention_bwd_delta"
+                       else F32_OPS_PER_S))
+    print(f"non-causal timing ({B}, {H}, {T}, {D}) bf16: fwd with LSE "
+          f"{timing['fwd']['ms']:.4f} ms (device "
+          f"{timing['fwd']['device_ms']:.4f}, bound "
+          f"{timing['fwd']['bound_ms']:.4f}, SDPA "
+          f"{timing['fwd']['library_ms']:.4f}); dq "
+          f"{timing['flash_attention_bwd_dq']['ms']:.4f}, dk/dv "
+          f"{timing['flash_attention_bwd_dkv']['ms']:.4f}, delta "
+          f"{timing['flash_attention_bwd_delta']['ms']:.4f} against SDPA's "
+          f"backward {timing['library_bwd_ms']:.4f}", flush=True)
+    return timing
+
+
+def encoder_leg(kc, mesh, err) -> dict:
+    """Leg 3: the encoder at bench.py's training widths (1,346M
+    parameters, bfloat16, non-causal), ``MODEL_STEPS`` MLM steps of
+    ``make_sharded_encoder_step`` on (dp 4, tp 1) over an (8, 1024)
+    batch with a seeded 15 % mask (masked positions carry token 0), each
+    launching rows 16-18 non-causal and the delta pass once a layer and
+    no other kernel, losses finite and falling; before them the kernels'
+    non-causal checks and times (:func:`check_full_attention`); after
+    them ``mlm_loss`` and its gradients under flash against naive in
+    float32 with 2 layers and batch 2 (loss within 1e-5, every gradient
+    within 1e-4 relative, phase 3e's bounds)."""
+    import dataclasses
+
+    import torch
+
+    from accl_tpu_torch.models import (TransformerConfig, init_params,
+                                       make_sharded_encoder_step, mlm_loss)
+    from accl_tpu_torch.models.transformer import _tree_leaves, _tree_map
+
+    timing = check_full_attention(kc, err)
+    dev = torch.device("cuda", 0)
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="auto", **TRAIN)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 64)
+    torch.cuda.reset_peak_memory_stats()
+    step, shard = make_sharded_encoder_step(cfg, lr=TRAIN_LR, mesh=mesh)
+    params = init_params(cfg, gen)
+    n = param_count(params)
+    rk = reckon("encoder", weights=2 * n, gradients=2 * n,
+                sgd_scaled_gradients=2 * n,
+                activations=cfg.n_layers * 16 * TRAIN_B * TRAIN_T
+                * cfg.d_model * 2,
+                logits=3 * TRAIN_B * TRAIN_T * cfg.vocab * 4)
+    targets = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_T), generator=gen,
+                            device=dev, dtype=torch.int32)
+    mask = (torch.rand(TRAIN_B, TRAIN_T, generator=gen, device=dev)
+            < MLM_RATE).float()
+    tokens = torch.where(mask.bool(), 0, targets).to(torch.int32)
+    reset_launches(kc)
+    reset_full(kc)
+    losses, secs, per_step, (params, *_) = timed_steps(
+        kc, step, (params, tokens, targets, mask), MODEL_STEPS)
+    launches, full = read_launches(kc), read_full(kc)
+    all_wgmma(kc, "encoder steps")
+    steps_launched(kc, "encoder", per_step, cfg.n_layers, full=True)
+    falling("encoder", losses)
+    rec = step_record(secs, TRAIN_B * TRAIN_T, leg_peak("encoder", rk), rk,
+                      per_step, losses)
+    rec.update(params=n, masked=int(mask.sum()))
+    print(f"encoder: {MODEL_STEPS} MLM steps on (dp 4, tp 1), {rec['masked']} "
+          f"masked positions, losses {losses}, step ms {rec['step_ms']}, "
+          f"non-causal launches {full}", flush=True)
+
+    # float32, 2 layers, batch 2: flash against naive
+    c32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=2)
+    p32 = _tree_map(lambda p: p.float(),
+                    dict(params, layers=params["layers"][:2]))
+    del params
+    t2, y2, m2 = tokens[:2], targets[:2], mask[:2]
+    res = []
+    for c in (c32, dataclasses.replace(c32, attention="naive")):
+        live = [p.detach().requires_grad_() for p in _tree_leaves(p32)]
+        it = iter(live)
+        loss = mlm_loss(_tree_map(lambda _: next(it), p32), t2, y2, m2, c)
+        res.append((float(loss.detach()), torch.autograd.grad(loss, live)))
+    loss_rel, grad_rel, worst = grad_gap(res[0][0], res[0][1], res[1][0],
+                                         res[1][1], leaf_names(p32))
+    print(f"encoder float32, 2 layers x batch 2: mlm_loss flash vs naive "
+          f"{loss_rel} rel, gradients max rel (Frobenius) {grad_rel} "
+          f"({worst})", flush=True)
+    if not loss_rel <= 1e-5 or not grad_rel <= 1e-4:
+        fail(f"encoder float32: flash vs naive loss {loss_rel}, gradients "
+             f"{grad_rel}")
+    rec.update(f32_flash_vs_naive_loss_rel=loss_rel,
+               f32_flash_vs_naive_grad_rel=grad_rel,
+               full_launches=full)
+    del p32, res
+    torch.cuda.synchronize()
+    return rec, launches, full, timing
+
+
+def zero_reference(params, tokens, targets, cfg, mesh, adam):
+    """The plain Adam step on whole tensors (``zero_adam_update``'s
+    formulas with step 1, ``tests/test_zero.py:91``'s form): the global
+    loss over the mesh's ranks, its gradients clipped by their global
+    norm, m = (1 - b1) g, v = (1 - b2) g g, p - lr_1 (m / bc1) /
+    (sqrt(v / bc2) + eps).  Returns (loss, a copy of the parameters, the
+    clipped gradients, lr_1)."""
+    import torch
+
+    from accl_tpu_torch.models.transformer import (_global_loss,
+                                                   _mesh_dp_tp, _mesh_ranks,
+                                                   _nll, _tree_leaves,
+                                                   _tree_map)
+    from accl_tpu_torch.parallel import schedule_lr
+
+    _, data, tp, ep = _mesh_dp_tp(cfg, mesh)
+    ranks = _mesh_ranks(cfg, data, None, ep)
+    leaves = _tree_leaves(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    it = iter(live)
+    nll, aux = _nll(_tree_map(lambda _: next(it), params), tokens, targets,
+                    cfg, None, ranks)
+    loss = _global_loss(nll, aux, cfg, data)
+    grads = list(torch.autograd.grad(loss, live))
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    scale = adam.clip_grad_norm / torch.clamp(norm, min=adam.clip_grad_norm)
+    for i, g in enumerate(grads):
+        grads[i] = (g.float() * scale).to(g.dtype)
+    lr = float(schedule_lr(adam, 1))
+    return float(loss.detach()), [p.detach().clone() for p in leaves], \
+        grads, lr
+
+
+def zero_update_gap(p0, grads, lr, state_w, adam) -> float:
+    """The largest relative Frobenius difference, over the tensors,
+    between the ZeRO step's master weights and the plain step's
+    ``p0 - lr (m / bc1) / (sqrt(v / bc2) + eps)``, over the plain
+    update's norm."""
+    import torch
+
+    from accl_tpu_torch.models.transformer import _tree_leaves
+
+    bc1, bc2 = 1.0 - adam.b1, 1.0 - adam.b2
+    worst = 0.0
+    for p, g, w in zip(p0, grads, _tree_leaves(state_w)):
+        gs = g.float().reshape(-1)
+        m = (1.0 - adam.b1) * gs
+        v = (1.0 - adam.b2) * gs * gs
+        upd = lr * ((m / bc1) / (torch.sqrt(v / bc2) + adam.eps))
+        want = p.float().reshape(-1) - upd
+        got = w[:want.numel()]
+        norm = float(upd.norm())
+        if norm:
+            worst = max(worst, float((got - want).norm()) / norm)
+    return worst
+
+
+def zero_leg(kc, mesh, moe: bool) -> dict:
+    """Leg 4: ``make_zero_train_step`` on (dp 4, tp 1) with
+    ``ZERO_ADAM`` (float32 master weights, clipping at 1.0, a 2-step
+    warmup): the dense training model (1,346M), or the MoE model of leg 2
+    cut to ``ZERO_MOE_LAYERS`` layers.  The first step's loss and master
+    weights against the plain Adam step on whole tensors
+    (:func:`zero_reference`); ``MODEL_STEPS`` steps launching rows 16-18
+    causal once a layer and no other kernel, losses finite and
+    falling."""
+    import torch
+
+    from accl_tpu_torch.models import TransformerConfig, init_params
+    from accl_tpu_torch.parallel import AdamConfig, make_zero_train_step
+
+    what = "zero_moe" if moe else "zero_dense"
+    dev = torch.device("cuda", 0)
+    fields = dict(MOE_TRAIN, n_layers=ZERO_MOE_LAYERS) if moe else TRAIN
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="auto", **fields)
+    adam = AdamConfig(**ZERO_ADAM)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + (66 if moe else 65))
+    torch.cuda.reset_peak_memory_stats()
+    step, shard, init_state = make_zero_train_step(cfg, mesh, adam)
+    params = init_params(cfg, gen)
+    n = param_count(params)
+    rk = reckon(what, weights=2 * n, gradients=2 * n,
+                clipped_gradients=2 * n, moments_and_master=12 * n,
+                check_copies=4 * n,
+                activations=cfg.n_layers * 16 * TRAIN_B * TRAIN_T
+                * cfg.d_model * 2 * (3 if moe else 1),
+                logits=3 * TRAIN_B * TRAIN_T * cfg.vocab * 4)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_T), generator=gen,
+                           device=dev, dtype=torch.int32)
+    targets = tokens.roll(-1, dims=1)
+    state = init_state(params)
+    loss0, p0, g0, lr1 = zero_reference(params, tokens, targets, cfg, mesh,
+                                        adam)
+    reset_launches(kc)
+    reset_full(kc)
+    losses, secs, per_step, (params, state, *_) = timed_steps(
+        kc, step, (params, state, tokens, targets), 1)
+    loss_rel = abs(losses[0] - loss0) / abs(loss0)
+    gap = zero_update_gap(p0, g0, lr1, state["w"], adam)
+    del p0, g0
+    more = timed_steps(kc, step, (params, state, tokens, targets),
+                       MODEL_STEPS - 1)
+    losses, secs, per_step = (losses + more[0], secs + more[1],
+                              per_step + more[2])
+    params, state = more[3][:2]
+    launches = read_launches(kc)
+    all_wgmma(kc, f"{what} steps")
+    steps_launched(kc, what, per_step, cfg.n_layers)
+    falling(what, losses)
+    rec = step_record(secs, TRAIN_B * TRAIN_T, leg_peak(what, rk), rk,
+                      per_step, losses)
+    print(f"{what}: {MODEL_STEPS} steps on (dp 4, tp 1), {n} parameters, "
+          f"losses {losses}, step ms {rec['step_ms']}; the first step "
+          f"against plain Adam on whole tensors: loss {losses[0]} vs "
+          f"{loss0} ({loss_rel} rel), master weights max rel (Frobenius, "
+          f"of the update) {gap}", flush=True)
+    if not loss_rel <= ZERO_LOSS_RTOL or not gap <= ZERO_UPDATE_RTOL:
+        fail(f"{what}: the first step's loss {loss_rel} rel or master "
+             f"weights {gap} off the plain Adam step")
+    rec.update(params=n, layers=cfg.n_layers, adam=dict(ZERO_ADAM),
+               first_step_loss_rel=loss_rel, first_step_update_rel=gap)
+    del params, state, step
+    torch.cuda.synchronize()
+    return rec, launches
+
+
+def models_main_path(kc, err) -> dict:
+    """Phase 3o: the four legs of ROADMAP A9d's first half (MoE serving,
+    MoE training, the encoder, ZeRO-1 Adam), bfloat16 on one card, each
+    with the launch counters zeroed before its main path and read after.
+    Returns each leg's phase 5 record, the launches by kernel, rows
+    16-18's non-causal launches and their non-causal times."""
+    import torch
+
+    from accl_tpu_torch.ops.driver import make_mesh
+
+    mesh = make_mesh(MODEL_MESH, axes=("dp", "tp"))
+    launches = {k: 0 for k in kc.KERNELS}
+    out = {}
+    # each leg starts from the allocator's cache returned: the earlier
+    # phases' blocks would otherwise fragment the 62 GB leg 4 needs
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out["moe_serve"], got = moe_serve_leg(kc, mesh)
+    launches = {k: launches[k] + got[k] for k in launches}
+    print(f"phase 3o leg 1 (moe_serve) ok ({time.time() - t0:.1f} s)",
+          flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out["moe_train"], got = moe_train_leg(kc, mesh)
+    launches = {k: launches[k] + got[k] for k in launches}
+    print(f"phase 3o leg 2 (moe_train) ok ({time.time() - t0:.1f} s)",
+          flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out["encoder_train"], got, full, timing = encoder_leg(kc, mesh, err)
+    launches = {k: launches[k] + got[k] for k in launches}
+    print(f"phase 3o leg 3 (encoder) ok ({time.time() - t0:.1f} s)",
+          flush=True)
+    out["zero_adam"] = {}
+    for moe in (False, True):
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        key = "moe_2_layers" if moe else "dense"
+        out["zero_adam"][key], got = zero_leg(kc, mesh, moe)
+        launches = {k: launches[k] + got[k] for k in launches}
+        print(f"phase 3o leg 4 (zero_adam {key}) ok "
+              f"({time.time() - t0:.1f} s)", flush=True)
+    torch.cuda.synchronize()
+    return dict(records=out, launches=launches, full=full, timing=timing)
+
+
+def print_models(models, card: str) -> None:
+    """Phase 5's records of phase 3o, one JSON line a leg."""
+    for name, rec in models["records"].items():
+        print(json.dumps({name: {"card": card, **rec}}))
+    t = models["timing"]
+    print(json.dumps({"flash_full_attention": {
+        "card": card, "shape": [TRAIN_B, TRAIN["n_heads"], TRAIN_T, 128],
+        "causal": False, "full_launches_encoder": models["full"],
+        **{k: ({kk: vv for kk, vv in v.items()}
+               if isinstance(v, dict) else v) for k, v in t.items()}}}))
+
+
 def main() -> int:
     import torch
 
@@ -7511,6 +8296,18 @@ def main() -> int:
             "cost": arbiter_cost(kc)}}))
         print(f"arbiter timing ({time.time() - t0:.1f} s)", flush=True)
         check_circuit_opens("after phase 3n", 0)
+        return 0
+    if sys.argv[1:] == ["--models"]:  # phase 3o alone, with its records
+        probe_phase(kc)
+        print(f"built {kc.build_all(['attention', 'attention_bwd'])}",
+              flush=True)
+        t0 = time.time()
+        err = {k: 0.0 for k in kc.KERNELS}
+        models = models_main_path(kc, err)
+        print(f"models path ok ({time.time() - t0:.1f} s): launches "
+              f"{ {k: v for k, v in models['launches'].items() if v} }",
+              flush=True)
+        print_models(models, smi.stdout.strip().splitlines()[0])
         return 0
     if sys.argv[1:] == ["--launch-path"]:  # the launch path alone
         if not kc.probe_copy(torch.ones(8, 128, device=dev)).eq(1).all():
@@ -7758,14 +8555,20 @@ def main() -> int:
     print(f"arbiter path ok ({time.time() - t0:.1f} s): launches "
           f"{ {k: v for k, v in arb['launches'].items() if v} }",
           flush=True)
-    # each kernel's launches over the probe's and the fifteen paths' runs
+    t0 = time.time()
+    models = models_main_path(kc, err)
+    print(f"models path ok ({time.time() - t0:.1f} s): launches "
+          f"{ {k: v for k, v in models['launches'].items() if v} }",
+          flush=True)
+    # each kernel's launches over the probe's and the sixteen paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k]
                 + ringed["launches"][k] + serve["launches"][k]
                 + train["launches"][k] + cp["launches"][k] + compressed[k]
                 + converged[k]
                 + p2p[k] + seqp["launches"][k] + dispatched[k]
                 + topo["launches"][k] + telem["launches"][k]
-                + faults["launches"][k] + arb["launches"][k] + probed[k]
+                + faults["launches"][k] + arb["launches"][k]
+                + models["launches"][k] + probed[k]
                 for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
@@ -7914,6 +8717,22 @@ def main() -> int:
             kernels[-1]["launches_faults"] = faults["launches"][name]
         if arb["launches"][name]:  # phase 3n's share
             kernels[-1]["launches_arbiter"] = arb["launches"][name]
+        if models["launches"][name]:  # phase 3o's share
+            kernels[-1]["launches_models"] = models["launches"][name]
+        if name in TRAIN_KERNELS:  # non-causal, (8, 32, 1024, 128): 3o
+            f = models["timing"]["fwd" if name == "flash_attention"
+                                 else name]
+            kernels[-1].update({
+                "full_launches_encoder": models["full"].get(name, 0),
+                "full_ms": f["ms"], "full_device_ms": f["device_ms"],
+                "full_plain_ms": f["plain_ms"],
+                "full_bound_ms": f["bound_ms"],
+                "full_bound_by": f["bound_by"],
+                "full_library_ms": (
+                    f["library_ms"] if name == "flash_attention"
+                    else None if name == "flash_attention_bwd_delta"
+                    else models["timing"]["library_bwd_ms"]),
+            })
         if name == "sequencer":  # the other windows of the bounds table
             kernels[-1].update({
                 "device_ms": seq["device_ms"],
@@ -8203,6 +9022,7 @@ def main() -> int:
     print(json.dumps({"seq_parallel_attention": {
         "card": smi.stdout.strip().splitlines()[0], **seq_lat,
         "gaps": seqp["gaps"]}}))
+    print_models(models, smi.stdout.strip().splitlines()[0])
     check_circuit_opens("after phase 3m", faults["ring"]["circuit_open"])
     print(json.dumps({"gc_holds": GC_HOLDS}))
     print(smi.stdout.strip().splitlines()[0])

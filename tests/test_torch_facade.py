@@ -117,7 +117,9 @@ def test_import_is_free_of_jax_and_the_jax_package():
         "accl_tpu_torch.telemetry, accl_tpu_torch.monitor, "
         "accl_tpu_torch.faults, accl_tpu_torch.contract, "
         "accl_tpu_torch.membership, accl_tpu_torch.arbiter, "
-        "accl_tpu_torch.overlap\n"
+        "accl_tpu_torch.overlap, accl_tpu_torch.models.moe, "
+        "accl_tpu_torch.models.encoder, accl_tpu_torch.parallel, "
+        "accl_tpu_torch.parallel.zero\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'accl_tpu'))\n"
         "print(','.join(bad))\n"

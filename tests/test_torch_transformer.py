@@ -185,6 +185,23 @@ def test_auto_on_the_cpu_runs_blockwise_from_1024():
     ("n_experts", 4), ("seq_parallel", True), ("vocab_parallel", True),
 ])
 def test_unported_fields_raise(field, value):
+    """seq_parallel and vocab_parallel wait for the multi-GPU slice.
+    Experts are ported (a config with them builds); what of them waits
+    for that slice is tensor parallelism inside an expert: a mesh whose
+    tp splits each expert, and ``moe_ffn``'s ``tp_axis``."""
+    if field == "n_experts":
+        from accl_tpu_torch.models.moe import moe_ffn
+        from accl_tpu_torch.ops.driver import make_mesh
+
+        cfg = TransformerConfig(**{field: value})
+        mesh = make_mesh((1, 2), axes=("dp", "tp"), device="cpu")
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            make_sharded_train_step(cfg, mesh=mesh)
+        params = pt.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")["layers"][0]["moe"]
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            moe_ffn(torch.zeros(1, 2, cfg.d_model), params, tp_axis="tp")
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TransformerConfig(**{field: value})
 
