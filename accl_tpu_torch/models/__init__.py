@@ -5,10 +5,11 @@ ranks — the counterpart of ``accl_tpu/models/transformer.py`` at tp = 1
 or a cp ring; the sequence-parallel attention over P ranks on one device
 (ring, striped and Ulysses attention, and row 15's kernel as
 ``ring_attention_pallas``); the mixture-of-experts FFN
-(``models/moe.py``) and the bidirectional encoder family
-(``models/encoder.py``) — the counterpart of
-``accl_tpu/models/__init__.py:12-42``.  The pipeline and composed
-modules come with the next slice (ROADMAP A9d)."""
+(``models/moe.py``), the bidirectional encoder family
+(``models/encoder.py``), the pipeline schedules over a pp axis of
+virtual ranks (``models/pipeline.py``) and the composed ``("pp", "dp",
+"tp")`` train step (``models/composed.py``) — the counterpart of
+``accl_tpu/models/__init__.py``'s exports."""
 
 from .transformer import (  # noqa: F401
     TransformerConfig,
@@ -40,4 +41,19 @@ from .encoder import (  # noqa: F401
     encoder_forward,
     make_sharded_encoder_step,
     mlm_loss,
+)
+from .composed import (  # noqa: F401
+    interleave_layer_order,
+    make_pp_train_step,
+    stack_params,
+    stacked_param_specs,
+    unstack_params,
+)
+from .pipeline import (  # noqa: F401
+    pipeline_apply,
+    pipeline_apply_interleaved,
+    pipeline_bubble_fraction,
+    pipeline_loss,
+    pipeline_loss_and_grads,
+    pipeline_loss_and_grads_1f1b,
 )

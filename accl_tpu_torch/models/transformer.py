@@ -292,10 +292,16 @@ def _tree_leaves(tree) -> List[torch.Tensor]:
 
 
 def params_from_numpy(tree, device=None):
-    """The port's tree for a JAX parameter tree given as numpy arrays
-    (``jax.tree.map(np.asarray, params)``): same keys and nesting, each
+    """The port's tree for a JAX tree given as numpy arrays
+    (``jax.tree.map(np.asarray, tree)``): same keys and nesting, each
     array copied onto ``device`` (the card unless ``device="cpu"``);
-    bfloat16 arrays keep their bits."""
+    bfloat16 arrays keep their bits.  Every layout the port shares with
+    JAX carries this way: the flagship's per-layer tree, the composed
+    step's STACKED tree (``composed.stack_params``; under ``v_stages > 1``
+    its layers in ``interleave_layer_order``, as JAX's ``shard`` commits
+    them) and a ZeRO state (``m``, ``v``, ``w``: each leaf's flat
+    dp-sliced float32 layout, nested inside the stage split for the
+    composed step; ``step`` a 0-d int32)."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -306,9 +312,10 @@ def params_from_numpy(tree, device=None):
 
 
 def params_to_numpy(params):
-    """The inverse of :func:`params_from_numpy`: the tree as host numpy
-    arrays, same keys and nesting; bfloat16 tensors keep their bits (as
-    ``ml_dtypes.bfloat16`` arrays, the dtype JAX's numpy arrays have)."""
+    """The inverse of :func:`params_from_numpy`, for each of its layouts:
+    the tree as host numpy arrays, same keys and nesting; bfloat16 tensors
+    keep their bits (as ``ml_dtypes.bfloat16`` arrays, the dtype JAX's
+    numpy arrays have)."""
 
     def conv(t):
         t = t.detach().cpu()
@@ -328,8 +335,10 @@ def _layernorm(x, scale):
 
 
 def _embed_rows(embed, ids):
-    """Rows of the replicated embedding table."""
-    return embed[ids]
+    """Rows of the replicated embedding table (``F.embedding``: its
+    backward adds a row's gradients in a fixed order, where indexing's
+    accumulates them in parallel on the CPU, run to run differently)."""
+    return F.embedding(ids, embed)
 
 
 def _embed_tokens(params, tokens, cfg, positions=None):
@@ -1027,14 +1036,30 @@ def _mesh_dp_tp(cfg, mesh: Optional[Mesh]) -> Tuple[Mesh, int, int, int]:
                          f"'ep', 'tp'), got {mesh.axis_names}")
     _check_moe_mesh(cfg, mesh)
     tp = mesh.shape["tp"]
-    if tp > 1 and not cfg.context_parallel:
+    if not cfg.context_parallel:
+        _refuse_dense_tp(tp)
+    data = math.prod(mesh.shape[a] for a in _data_axes(cfg, mesh))
+    ep = mesh.shape[cfg.moe_mesh_axis] if cfg.n_experts else 1
+    return mesh, data, tp, ep
+
+
+def _refuse_dense_tp(tp: int) -> None:
+    """Dense tensor parallelism comes with the multi-GPU slice."""
+    if tp > 1:
         raise NotImplementedError(
             f"tensor parallelism over tp = {tp} is not ported yet: it comes "
             f"with the multi-GPU slice (ROADMAP B14, queue item A9c)"
         )
-    data = math.prod(mesh.shape[a] for a in _data_axes(cfg, mesh))
-    ep = mesh.shape[cfg.moe_mesh_axis] if cfg.n_experts else 1
-    return mesh, data, tp, ep
+
+
+def _mesh_pp_dp_tp(mesh: Mesh) -> Tuple[int, int, int]:
+    """``(pp, dp, tp)`` of the composed pipeline's mesh, JAX's ``("pp",
+    "dp", "tp")`` of virtual ranks on one device (``models/composed.py``
+    refuses tp > 1 after JAX's own checks, :func:`_refuse_dense_tp`)."""
+    if sorted(mesh.axis_names) != ["dp", "pp", "tp"]:
+        raise ValueError(f"the composed pipeline's mesh has the axes ('pp', "
+                         f"'dp', 'tp'), got {mesh.axis_names}")
+    return mesh.shape["pp"], mesh.shape["dp"], mesh.shape["tp"]
 
 
 def _mesh_ranks(cfg, data: int, ring: Optional[int], ep: int):

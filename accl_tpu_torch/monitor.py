@@ -1115,6 +1115,7 @@ class MonitorServer:
         self.scrapes: Dict[str, int] = {p: 0 for p in self.routes}
         self.errors = 0
         self._count_lock = threading.Lock()
+        self._requests: List[threading.Thread] = []
         outer = self
 
         class _Handler(BaseHTTPRequestHandler):
@@ -1164,6 +1165,9 @@ class MonitorServer:
                     args=(request, client_address),
                     name="accl-monitor-req", daemon=True,
                 )
+                with outer._count_lock:  # kept for stop()'s join
+                    outer._requests = [r for r in outer._requests
+                                       if r.is_alive()] + [t]
                 t.start()
 
         self._server = _Server((host, int(port)), _Handler)
@@ -1179,13 +1183,20 @@ class MonitorServer:
         return self
 
     def stop(self, timeout: float = 5.0) -> bool:
-        """Shut the service down; True when the serve thread joined
-        within ``timeout`` (bounded — a wedged handler must not wedge
-        deinit)."""
+        """Shut the service down; True when the serve thread and every
+        request thread (one may still be closing its connection after
+        its reply) joined within ``timeout`` (bounded — a wedged handler
+        must not wedge deinit)."""
+        deadline = time.monotonic() + timeout
         self._server.shutdown()
         self._server.server_close()
         self._thread.join(timeout=timeout)
-        return not self._thread.is_alive()
+        with self._count_lock:
+            requests = list(self._requests)
+        for t in requests:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        return not (self._thread.is_alive()
+                    or any(t.is_alive() for t in requests))
 
     @property
     def serving(self) -> bool:

@@ -13,6 +13,8 @@
                                           # window, the QoS arbiter)
     python3 chip_smoke.py --models        # phase 3o (MoE, the encoder,
                                           # ZeRO-1 Adam) and its records
+    python3 chip_smoke.py --pipeline      # phase 3p (the pipeline, the
+                                          # composed trainer, the example)
 
 Phases (any failure exits non-zero):
 
@@ -291,6 +293,23 @@ Phases (any failure exits non-zero):
       warmup) on the dense training model and on the MoE model of (2) cut
       to 2 layers, 3 steps each, the first step's loss and master weights
       against the plain Adam step on whole tensors;
+   p. the pipeline, the composed trainer and the training example
+      (``pipeline_main_path``; ``--pipeline`` runs it and prints its
+      record alone): bench.py's training model (1,346M, bfloat16,
+      ``attention="flash"``, 8 x 1024) through ``make_pp_train_step`` on
+      (pp 2, dp 2, tp 1) virtual ranks, 4 microbatches, from one seeded
+      set of weights: (a) GPipe, (b) 1F1B, (c) interleaved with 3 chunks
+      a rank, (d) GPipe with ZeRO-1 Adam (``ZERO_ADAM``), 3 steps each,
+      the third under ``torch.profiler``; each step launches rows 16-18
+      and the delta pass once a layer a microbatch (24; row 16 48 under
+      1F1B: its forward tick and its recompute) and no other kernel, by
+      the wrappers' counters and by the profiler's kernel names; losses
+      finite and falling, the first within ``PP_LOSS_RTOL`` of
+      ``make_sharded_train_step``'s on (dp 2, tp 1) with the same batch;
+      peak memory beside the leg's reckoning; (e) the training example
+      (``examples/train.py``): a seeded token file through the native
+      loader (built with g++ here), 4 pipeline steps saved every 2, a
+      resume to 6 equal bit for bit to an uninterrupted 6-step run;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (K3's
    allgather and root-only gather, K4, row 11 and row 13 also by device
@@ -389,7 +408,11 @@ Phases (any failure exits non-zero):
    the MoE step's profiled device time by class and idle share), and
    ``flash_full_attention`` (rows 16-18 and the delta pass non-causal at
    (8, 32, 1024, 128): ms, device ms, plain ms, bound, SDPA's forward and
-   backward).
+   backward); and phase 3p's ``pipeline_train`` (the flagship's loss and
+   step ms on (dp 2, tp 1), then each leg's step ms, tokens/s, the
+   profiled step's device busy ms and idle share, peak against reckoned
+   memory, launches a step by the counters and the profiler, losses, the
+   bubble fraction, and the example's losses and resume).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -8190,6 +8213,298 @@ def print_models(models, card: str) -> None:
                if isinstance(v, dict) else v) for k, v in t.items()}}}))
 
 
+# -- phase 3p: the pipeline, the composed trainer, the loader, the example --
+
+#: the composed mesh: (pp 2, dp 2, tp 1) virtual ranks, 4 microbatches
+PP_MESH, PP_MICROBATCHES = (2, 2, 1), 4
+#: leg (c): the interleaved schedule, 3 chunks a rank (one layer each)
+PP_V_STAGES = 3
+#: the first step's loss against ``make_sharded_train_step`` on (dp 2,
+#: tp 1) with the same weights and batch: both take float32 softmax
+#: statistics, but the pipeline's GEMMs run on microbatches of 2,048 rows
+#: where the flagship's run on 8,192, and their bfloat16 outputs may round
+#: apart (a ulp is 2^-8 relative); the mean of about 8 M token losses
+#: averages that down, so 2e-3 relative is a loose bound
+PP_LOSS_RTOL = 2e-3
+#: the device kernels of rows 16-18 and the delta pass, by the profiler's
+#: kernel name (``csrc/attention.cu``, ``csrc/attention_bwd.cu``)
+PP_PROFILED = (("flash_attention", "flash_fwd_wgmma"),
+               ("flash_attention_bwd_dq", "flash_bwd_dq_wgmma"),
+               ("flash_attention_bwd_dkv", "flash_bwd_dkv_wgmma"),
+               ("flash_attention_bwd_delta", "flash_bwd_delta"))
+#: leg (e): the training example's run (bench-free: its own small model)
+PP_EXAMPLE_STEPS, PP_EXAMPLE_RESUME = 4, 6
+
+
+def profiled_launches(step, args) -> tuple:
+    """One step under ``torch.profiler``: the launches of each of
+    ``PP_PROFILED`` by the device kernel's name, the step's wall ms, the
+    device's busy ms and idle share (None when the profiler records no
+    device time), the ten kernels of most device time (ms, launches),
+    and the step's output."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    counts = {name: sum(key in e.name for e in kernels)
+              for name, key in PP_PROFILED}
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name[:80], (0.0, 0))
+        by_name[e.name[:80]] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return counts, dict(
+        wall_ms=wall_ms, device_busy_ms=busy or None,
+        idle_share=(1.0 - busy / wall_ms) if busy else None,
+        top_kernels_ms_launches=[[k, ms, n] for k, (ms, n) in top]), out
+
+
+def pp_leg(kc, name: str, cfg, p0, tokens, targets, ref_loss: float,
+           schedule: str = "gpipe", v_stages: int = 1, adam=None) -> tuple:
+    """One composed leg: ``make_pp_train_step`` on ``PP_MESH`` from the
+    weights ``p0``, 3 steps (the third profiled), each launching rows
+    16-18 and the delta pass as the schedule implies (once a layer a
+    microbatch; row 16 twice under 1F1B, its forward tick and its
+    recompute) and no other kernel, by the wrappers' counters and by the
+    profiler; the losses finite and falling, the first against the
+    flagship's ``ref_loss``; step ms, tokens/s, peak memory against the
+    leg's reckoning."""
+    import torch
+
+    from accl_tpu_torch.models import make_pp_train_step
+    from accl_tpu_torch.ops.driver import make_mesh
+    from accl_tpu_torch.parallel import AdamConfig
+
+    pp, dp, _ = PP_MESH
+    M = PP_MICROBATCHES
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(PP_MESH, axes=("pp", "dp", "tp"))
+    made = make_pp_train_step(
+        cfg, mesh, M, lr=TRAIN_LR, v_stages=v_stages, schedule=schedule,
+        adam=None if adam is None else AdamConfig(**adam))
+    n = param_count(p0)
+    B, T, D = TRAIN_B, TRAIN_T, cfg.d_model
+    act = cfg.n_layers * 16 * B * T * D * 2
+    parts = dict(weights=2 * n, gradients=2 * n, update_temporary=2 * n,
+                 activations=act if schedule == "gpipe" else act // (M * pp),
+                 logits=3 * B * T * cfg.vocab * 2 // (1 if schedule ==
+                                                      "gpipe" else M),
+                 replica_gradients=2 * pp * dp * cfg.vocab * D * (
+                     2 if schedule == "1f1b" else 1))
+    if adam is not None:
+        parts.update(moments_and_master=12 * n, clipped_gradients=2 * n)
+    rk = reckon(f"pipeline {name}", **parts)
+    params = made[1](p0)
+    args = ((params, made[2](p0), tokens, targets) if adam is not None
+            else (params, tokens, targets))
+    step = made[0]
+    reset_launches(kc)
+    reset_full(kc)
+    losses, secs, per_step, args = timed_steps(kc, step, args, 2)
+    before, full = read_launches(kc), read_full(kc)
+    counts, prof, out = profiled_launches(step, args)
+    losses.append(float(out[-1]))
+    per_step.append(({k: c - before[k] for k, c in read_launches(kc).items()},
+                     {k: c - full[k] for k, c in read_full(kc).items()}))
+    launches = read_launches(kc)
+    all_wgmma(kc, f"pipeline {name} steps")
+    per_layer = {k: cfg.n_layers * M for k in TRAIN_KERNELS}
+    if schedule == "1f1b":
+        per_layer["flash_attention"] *= 2
+    want = {k: per_layer.get(k, 0) for k in kc.KERNELS}
+    for i, (got, full) in enumerate(per_step):
+        if got != want or any(full.values()):
+            fail(f"pipeline {name} step {i}: launches {got} (non-causal "
+                 f"{full}), want {want}")
+    if counts != {k: want[k] for k, _ in PP_PROFILED}:
+        fail(f"pipeline {name}: the profiler counted {counts}, want "
+             f"{ {k: want[k] for k, _ in PP_PROFILED} }")
+    falling(f"pipeline {name}", losses)
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    if not rel <= PP_LOSS_RTOL:
+        fail(f"pipeline {name}: first loss {losses[0]} against the "
+             f"flagship's {ref_loss}: {rel} rel > {PP_LOSS_RTOL}")
+    peak = leg_peak(f"pipeline {name}", rk)
+    warm = secs[1]
+    bubble = pipeline_bubble(schedule, v_stages)
+    rec = {"schedule": schedule, "v_stages": v_stages,
+           "adam": adam, "mesh": list(PP_MESH), "microbatches": M,
+           "step_ms": [s * 1e3 for s in secs] + [prof["wall_ms"]],
+           "warm_step_ms": warm * 1e3, "tokens_per_s": B * T / warm,
+           "profiled_step": prof, "peak_memory_gb": peak,
+           "reckoned_memory_gb": rk, "launches_per_step": {
+               k: v for k, v in want.items() if v},
+           "profiler_launches": counts, "losses": losses,
+           "first_loss_rel_to_flagship": rel, "bubble_fraction": bubble}
+    print(f"pipeline {name}: losses {losses} (first {rel:.2e} rel to the "
+          f"flagship's {ref_loss}); step ms {rec['step_ms']}; launches a "
+          f"step {rec['launches_per_step']} (profiler {counts}); bubble "
+          f"fraction {bubble:.4f}; peak {peak:.2f} GB", flush=True)
+    del args, params, out, made, step
+    torch.cuda.synchronize()
+    return rec, launches
+
+
+def pipeline_bubble(schedule: str, v_stages: int) -> float:
+    from accl_tpu_torch.models import pipeline_bubble_fraction
+
+    return pipeline_bubble_fraction(
+        "interleaved" if v_stages > 1 else schedule, PP_MESH[0],
+        PP_MICROBATCHES, v_stages)
+
+
+def example_leg() -> dict:
+    """Leg (e): the training example on the card: a token file written
+    by ``write_token_file`` from seeded ids into a temporary directory,
+    ``train(parallelism="pipeline", data=..., steps=4, save_every=2)``
+    with a checkpoint directory, then a resume to 6 steps, against an
+    uninterrupted 6-step run: the same final loss and the same saved
+    tree, bit for bit (the loader's library built with g++ first)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from accl_tpu_torch import data
+    from accl_tpu_torch.examples.train import train
+
+    t0 = time.perf_counter()
+    lib = data.build()
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.bin")
+        data.write_token_file(path, np.random.default_rng(SEED).integers(
+            0, 128, 30_000))
+        kw = dict(parallelism="pipeline", data=path, log_every=0,
+                  device="cuda")
+        t0 = time.perf_counter()
+        done, first = train(steps=PP_EXAMPLE_STEPS, save_every=2,
+                            ckpt_dir=os.path.join(tmp, "a"), **kw)
+        _, resumed = train(steps=PP_EXAMPLE_RESUME, save_every=2,
+                           ckpt_dir=os.path.join(tmp, "a"), **kw)
+        _, whole = train(steps=PP_EXAMPLE_RESUME,
+                         save_every=PP_EXAMPLE_RESUME,
+                         ckpt_dir=os.path.join(tmp, "b"), **kw)
+        wall = time.perf_counter() - t0
+        last = f"ckpt_{PP_EXAMPLE_RESUME - 1}.pt"
+        trees = [torch.load(os.path.join(tmp, d, last), map_location="cpu",
+                            weights_only=True)["tree"] for d in ("a", "b")]
+        kept = sorted(os.listdir(os.path.join(tmp, "a")))
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        return torch.equal(a, b)
+
+    if done != PP_EXAMPLE_STEPS or not math.isfinite(first):
+        fail(f"example: {done} steps, loss {first}")
+    if resumed != whole or not same(*trees):
+        fail(f"example: the resumed run's loss {resumed} or tree differs "
+             f"from the uninterrupted run's ({whole})")
+    if kept != ["ckpt_3.pt", "ckpt_5.pt"]:
+        fail(f"example: checkpoints kept {kept}")
+    print(f"pipeline example: loader built in {build_s:.2f} s ({lib.name}); "
+          f"loss {first} after {done} steps, resumed to "
+          f"{PP_EXAMPLE_RESUME}: {resumed} == uninterrupted {whole}, the "
+          f"saved trees equal bit for bit; {wall:.1f} s for the three runs",
+          flush=True)
+    return {"steps": done, "loss_at_4": first, "loss_resumed": resumed,
+            "loss_uninterrupted": whole, "bit_exact": True,
+            "checkpoints_kept": kept, "loader_build_s": build_s,
+            "wall_s": wall}
+
+
+def pipeline_main_path(kc) -> dict:
+    """Phase 3p: the pipeline, the composed ``("pp", "dp", "tp")`` step
+    and the training example at bench.py's training width (1,346M
+    parameters, bfloat16, ``attention="flash"``, batch 8 x 1024) on
+    (pp 2, dp 2, tp 1) virtual ranks, 4 microbatches: (a) GPipe, (b)
+    1F1B, (c) interleaved with 3 chunks a rank, (d) GPipe with ZeRO-1
+    Adam (``ZERO_ADAM``), each from the same seeded weights, each with
+    the counters zeroed before its steps and read after; the first loss
+    of each against ``make_sharded_train_step`` on (dp 2, tp 1) with the
+    same batch (its step also timed, the leg's step beside it); then (e)
+    the training example's checkpoint resume.  Returns the records and
+    the launches by kernel."""
+    import torch
+
+    from accl_tpu_torch.models import (TransformerConfig, init_params,
+                                       make_sharded_train_step)
+    from accl_tpu_torch.models.transformer import _tree_map
+    from accl_tpu_torch.ops.driver import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash", **TRAIN)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 70)
+    p0 = init_params(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_T), generator=gen,
+                           device=dev, dtype=torch.int32)
+    targets = tokens.roll(-1, dims=1)
+    # the flagship on (dp 2, tp 1), the same weights and batch
+    fstep, fshard = make_sharded_train_step(
+        cfg, lr=TRAIN_LR, mesh=make_mesh((PP_MESH[1], 1), axes=("dp", "tp")))
+    fp = fshard(p0)
+    flagship = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fp, loss = fstep(fp, tokens, targets)
+        flagship.append((float(loss), (time.perf_counter() - t) * 1e3))
+    del fp
+    ref_loss = flagship[0][0]
+    print(f"phase 3p: the flagship on (dp 2, tp 1): loss {ref_loss}, step "
+          f"ms {[s for _, s in flagship]}", flush=True)
+    launches = {k: 0 for k in kc.KERNELS}
+    out = {"flagship": {"loss": ref_loss,
+                        "step_ms": [s for _, s in flagship]}}
+    for name, kw in (("gpipe", {}), ("1f1b", dict(schedule="1f1b")),
+                     ("interleaved", dict(v_stages=PP_V_STAGES)),
+                     ("gpipe_zero_adam", dict(adam=ZERO_ADAM))):
+        t0 = time.time()
+        out[name], got = pp_leg(kc, name, cfg, p0, tokens, targets,
+                                ref_loss, **kw)
+        launches = {k: launches[k] + got[k] for k in launches}
+        print(f"phase 3p leg {name} ok ({time.time() - t0:.1f} s)",
+              flush=True)
+    print(f"phase 3p: peak GB 1F1B {out['1f1b']['peak_memory_gb']:.2f} "
+          f"beside GPipe {out['gpipe']['peak_memory_gb']:.2f}; warm step ms "
+          f"GPipe {out['gpipe']['warm_step_ms']:.1f}, 1F1B "
+          f"{out['1f1b']['warm_step_ms']:.1f}, interleaved "
+          f"{out['interleaved']['warm_step_ms']:.1f} beside the flagship's "
+          f"{flagship[1][1]:.1f} (bubble fractions "
+          f"{pipeline_bubble('gpipe', 1):.4f} / "
+          f"{pipeline_bubble('gpipe', PP_V_STAGES):.4f})", flush=True)
+    del p0, tokens, targets
+    torch.cuda.empty_cache()
+    reset_launches(kc)
+    t0 = time.time()
+    out["example"] = example_leg()
+    got = read_launches(kc)
+    launches = {k: launches[k] + got[k] for k in launches}
+    print(f"phase 3p leg example ok ({time.time() - t0:.1f} s)", flush=True)
+    return dict(records=out, launches=launches)
+
+
+def print_pipeline(pipe, card: str) -> None:
+    """Phase 5's record of phase 3p: one JSON line."""
+    print(json.dumps({"pipeline_train": {"card": card,
+                                         **pipe["records"]}}))
+
+
 def main() -> int:
     import torch
 
@@ -8308,6 +8623,17 @@ def main() -> int:
               f"{ {k: v for k, v in models['launches'].items() if v} }",
               flush=True)
         print_models(models, smi.stdout.strip().splitlines()[0])
+        return 0
+    if sys.argv[1:] == ["--pipeline"]:  # phase 3p alone, with its record
+        probe_phase(kc)
+        print(f"built {kc.build_all(['attention', 'attention_bwd'])}",
+              flush=True)
+        t0 = time.time()
+        pipe = pipeline_main_path(kc)
+        print(f"pipeline path ok ({time.time() - t0:.1f} s): launches "
+              f"{ {k: v for k, v in pipe['launches'].items() if v} }",
+              flush=True)
+        print_pipeline(pipe, smi.stdout.strip().splitlines()[0])
         return 0
     if sys.argv[1:] == ["--launch-path"]:  # the launch path alone
         if not kc.probe_copy(torch.ones(8, 128, device=dev)).eq(1).all():
@@ -8560,7 +8886,12 @@ def main() -> int:
     print(f"models path ok ({time.time() - t0:.1f} s): launches "
           f"{ {k: v for k, v in models['launches'].items() if v} }",
           flush=True)
-    # each kernel's launches over the probe's and the sixteen paths' runs
+    t0 = time.time()
+    pipe = pipeline_main_path(kc)
+    print(f"pipeline path ok ({time.time() - t0:.1f} s): launches "
+          f"{ {k: v for k, v in pipe['launches'].items() if v} }",
+          flush=True)
+    # each kernel's launches over the probe's and the seventeen paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k]
                 + ringed["launches"][k] + serve["launches"][k]
                 + train["launches"][k] + cp["launches"][k] + compressed[k]
@@ -8568,7 +8899,7 @@ def main() -> int:
                 + p2p[k] + seqp["launches"][k] + dispatched[k]
                 + topo["launches"][k] + telem["launches"][k]
                 + faults["launches"][k] + arb["launches"][k]
-                + models["launches"][k] + probed[k]
+                + models["launches"][k] + pipe["launches"][k] + probed[k]
                 for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
@@ -9023,6 +9354,7 @@ def main() -> int:
         "card": smi.stdout.strip().splitlines()[0], **seq_lat,
         "gaps": seqp["gaps"]}}))
     print_models(models, smi.stdout.strip().splitlines()[0])
+    print_pipeline(pipe, smi.stdout.strip().splitlines()[0])
     check_circuit_opens("after phase 3m", faults["ring"]["circuit_open"])
     print(json.dumps({"gc_holds": GC_HOLDS}))
     print(smi.stdout.strip().splitlines()[0])

@@ -119,7 +119,9 @@ def test_import_is_free_of_jax_and_the_jax_package():
         "accl_tpu_torch.membership, accl_tpu_torch.arbiter, "
         "accl_tpu_torch.overlap, accl_tpu_torch.models.moe, "
         "accl_tpu_torch.models.encoder, accl_tpu_torch.parallel, "
-        "accl_tpu_torch.parallel.zero\n"
+        "accl_tpu_torch.parallel.zero, accl_tpu_torch.models.pipeline, "
+        "accl_tpu_torch.models.composed, accl_tpu_torch.data, "
+        "accl_tpu_torch.examples.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'accl_tpu'))\n"
         "print(','.join(bad))\n"

@@ -474,6 +474,28 @@ def test_env_port_autostart_and_busy_port(monkeypatch, capsys):
     assert _accl_threads() == []
 
 
+def test_stop_joins_a_request_thread_still_closing(monkeypatch):
+    """A request thread descheduled after its reply (a loaded host) is
+    joined by ``stop()``: no ``accl-monitor`` thread outlives deinit."""
+    from http.server import BaseHTTPRequestHandler
+
+    finish = BaseHTTPRequestHandler.finish
+
+    def slow_finish(self):
+        finish(self)
+        time.sleep(0.8)  # longer than shutdown()'s 0.5 s poll
+
+    monkeypatch.setattr(BaseHTTPRequestHandler, "finish", slow_finish)
+    g = at.cuda_group(1, device="cpu")
+    try:
+        port = g[0].start_monitor(0)
+        assert _get(port, "/metrics")[0] == 200
+    finally:
+        for a in g:
+            a.deinit()
+    assert _accl_threads() == []
+
+
 def test_trace_stream_env_writes_loadable_files(tmp_path, monkeypatch):
     monkeypatch.setenv("ACCL_TRACE_STREAM", str(tmp_path))
     monkeypatch.setenv("ACCL_TRACE_STREAM_INTERVAL_S", "0.05")

@@ -18,7 +18,7 @@ rtol 2e-4, atol 1e-5 (:516; 2e-3, 2e-5 between the two expert layouts,
 ``tests/test_models.py:1516``).  The expert-bank, cp, bfloat16 and
 state-crossing cases are ``tests/test_torch_zero_moe.py``, which reuses
 these helpers.  The trainer's checkpoint cases (``tests/test_zero.py:145``,
-``:163``) wait for the port's ``examples/train.py`` (ROADMAP A9d).
+``:163``) are ``tests/test_torch_trainer.py``'s.
 """
 
 import jax
