@@ -74,9 +74,37 @@
 // chunk at a * n keeps its offset; fp8 rounds stochastically through
 // wire.cuh's sr_round and JAX's conversions (e4m3 overflows to NaN); int8
 // quantizes with one absmax / 127 scale per 256 elements of the whole row,
-// anchored at element 0.  A window with an int8 slot starts with a scale
-// phase: every (slot, rank, segment) scale into a device scratch buffer,
-// then a grid barrier (the co-resident grid), then the fold.
+// anchored at element 0.
+//
+// Bound of the LANES kernel: the same bytes as the plain one, but 40-60
+// instructions an element of rounding (the counter hash, the fp8
+// conversions, the int8 division), each waiting on its rank's loads.
+// Measured on an H100 (scripts/lane_profile.py), the rounding and the
+// latency it leaves open bound it, not the bytes.  So:
+//  * an item is one 256-element int8 segment (kSeg) of a slot's columns
+//    (seg_item: two 16-byte words a lane at 4-byte elements, one at
+//    2-byte), and a rank's words of it are rounded together: its seed,
+//    scale and wire branch taken once a rank (round_seg);
+//  * an int8 segment's scale is the warp's own: the absmax of the words
+//    it loaded, a butterfly over the warp, then segment_scale, with no
+//    scale phase, wherever every int8 slot reads whole segments of its
+//    rows at 16-byte aligned addresses (lane_segments, decided on the
+//    host when a window launches or is planned for a run: its columns,
+//    and so every chunk offset a * n its class reads, a multiple of 256);
+//  * a window whose int8 slot reads partial segments (a chunk at a * n
+//    off the 256-element grid, a ragged tail, a misaligned operand) keeps
+//    a scale phase: every (slot, rank, segment) scale into a device
+//    scratch buffer, then a grid barrier (the co-resident grid), then the
+//    fold, which reads a scale a word (the element path a scale an
+//    element);
+//  * the ranks fold one at a time, at four blocks an SM (kLaneRanks,
+//    kLaneBlocks: more warps hide the rounding's wait better than more
+//    loads in flight a warp).
+// The division stays __fdiv_rn, JAX's eager codec bit for bit (ROADMAP
+// §C); the quantized value stays in float (int8_value).  On 8 x allreduce
+// 1 Mi float32 at P = 4 (an H100 at 700 W) int8 takes 0.152 ms and e4m3
+// 0.138, against 0.387 and 0.262 with 128-element items, a scale phase and
+// a rounding an element at a time; the bound is 0.080.
 //
 // The persistent form (persistent_kernel, the counterpart of JAX's xla
 // lowering session, accl_tpu/ops/pallas/cmdring.py:30-37) is one
@@ -251,6 +279,28 @@ template <> struct Wide<__half> {
   }
 };
 
+// Element e of one rank's operand row through the int8 lane under its
+// segment's `scale`: wire.cuh's quantize_one, dequantized, as JAX's eager
+// codec, with the quantized value kept in float (an integer in [-127,
+// 127], -0 made +0 as the int8 round trip makes it): no conversion to
+// int8 and back, which run at a quarter of the float rate
+template <typename T>
+__device__ __forceinline__ T int8_value(T v, float scale, uint32_t seed,
+                                        int e) {
+  const float x = Wide<T>::widen(v);
+  float q = __fdiv_rn(x, scale);
+  if (seed) {
+    const float u = __fmul_rn(
+        __uint2float_rn(accl::sr_bits((uint32_t)e, seed)),
+        2.3283064365386963e-10f);  // 2^-32
+    q = floorf(__fadd_rn(q, u));
+  } else {
+    q = rintf(q);
+  }
+  q = q == q ? __fadd_rn(fminf(fmaxf(q, -127.0f), 127.0f), 0.0f) : 0.0f;
+  return Wide<T>::narrow(__fmul_rn(q, scale));
+}
+
 // Element e of one rank's operand row through the slot's lane, in the
 // LANES instantiation: `seed` is rank_seed(flags, rank), `sc` that rank's
 // int8 segment scales.  As JAX's wire_lane_roundtrip: the value widened
@@ -265,11 +315,8 @@ __device__ __forceinline__ T lane_value(T v, int wire, uint32_t seed, int e,
   const uint32_t i = (uint32_t)e;
   float y;
   switch (wire) {
-    case DT_I8: {
-      const float scale = sc[e / kSeg];
-      y = __fmul_rn((float)accl::quantize_one(x, scale, i, seed), scale);
-      break;
-    }
+    case DT_I8:
+      return int8_value(v, sc[e / kSeg], seed, e);
     case DT_E4M3:  // 20 dropped mantissa bits, SR above 2^-6
       y = E4M3::widen(E4M3::narrow(
           accl::sr_round(x, i, seed, (1u << 20) - 1, 0.015625f, seed != 0),
@@ -365,32 +412,15 @@ struct Item {
   int n;   // columns of one part (the item's bound); every offset of
   int c0;  // a slot is below 2^31 elements (the wrapper checks)
   int part, P, op, fop, root, peer, wire, cls;
-  // LANES only: the slot's seed word, and its ranks' int8 scales (rank r
-  // at sc + r * maxseg)
+  // LANES only: the slot's seed word, and its ranks' int8 scales from the
+  // scale phase (rank r at sc + r * maxseg; maxseg 0: no scale phase, the
+  // scales come from the warp's registers)
   uint32_t flags;
   int maxseg;
   const float* sc;
 };
 
-// Rank `rank`'s contribution through the slot's lane: the word of
-// elements [e, e + V) of its operand row, or its element e
-template <typename T, bool LANES>
-__device__ __forceinline__ uint4 round_word(uint4 a, const Item& it,
-                                            int rank, int e) {
-  if constexpr (!LANES) {
-    return Lane<T>::rounded(a, it.wire);
-  } else {
-    if (it.wire == 0) return a;
-    const uint32_t seed = accl::rank_seed(it.flags, (uint32_t)rank);
-    const float* sc = it.sc + rank * it.maxseg;
-    alignas(16) T x[Lane<T>::V];
-    *reinterpret_cast<uint4*>(x) = a;
-#pragma unroll
-    for (int k = 0; k < Lane<T>::V; ++k)
-      x[k] = lane_value<T>(x[k], it.wire, seed, e + k, sc);
-    return *reinterpret_cast<const uint4*>(x);
-  }
-}
+// Rank `rank`'s element e through the slot's lane (the element path)
 template <typename T, bool LANES>
 __device__ __forceinline__ T round_elem(T v, const Item& it, int rank,
                                         int e) {
@@ -417,7 +447,7 @@ __device__ __forceinline__ int col(const Item& it, int lane, int u) {
 // acc[u] = the rank-order fold of every rank's wire-rounded word u at
 // element off + column: the loads of NP ranks at a time are all issued
 // before they are folded
-template <typename T, int NP, int U, bool LANES>
+template <typename T, int NP, int U>
 __device__ __forceinline__ void fold_v(uint4 (&acc)[U], const Item& it,
                                        int lane, int off) {
   using L = Lane<T>;
@@ -435,8 +465,7 @@ __device__ __forceinline__ void fold_v(uint4 (&acc)[U], const Item& it,
 #pragma unroll
       for (int u = 0; u < U; ++u)
         if (g + j < it.P) {
-          const uint4 v = round_word<T, LANES>(b[j][u], it, g + j,
-                                               off + col<T, U>(it, lane, u));
+          const uint4 v = L::rounded(b[j][u], it.wire);
           acc[u] = g + j == 0 ? v : L::apply(it.fop, acc[u], v);
         }
   }
@@ -474,7 +503,7 @@ __device__ __forceinline__ void own_v(const Item& it, int lane,
   }
 }
 
-template <typename T, int NP, int U, bool LANES>
+template <typename T, int NP, int U>
 __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
   using L = Lane<T>;
   const int P = it.P;
@@ -495,7 +524,7 @@ __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
           if (g + j < P) {
             const int c = col<T, U>(it, lane, u);
             b[j][u] = L::load(it.in[g + j], c);
-            if (gather) b[j][u] = round_word<T, LANES>(b[j][u], it, g + j, c);
+            if (gather) b[j][u] = L::rounded(b[j][u], it.wire);
           }
 #pragma unroll
       for (int j = 0; j < NP; ++j) {
@@ -519,7 +548,7 @@ __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
     for (int me = all ? 0 : it.part; me < (all ? P : it.part + 1); ++me) {
       if (it.out[me] == nullptr) continue;
       uint4 r[U];
-      fold_v<T, NP, U, LANES>(r, it, lane, me * it.n);
+      fold_v<T, NP, U>(r, it, lane, me * it.n);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (it.op == OPC_APPLY)
@@ -554,11 +583,7 @@ __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
         for (int j = 0; j < NP; ++j)
           if (g + j < P && it.out[g + j] != nullptr)
             L::store(it.out[g + j], c,
-                     L::hop(own[j],
-                            round_word<T, LANES>(
-                                vis[j], it,
-                                accl::ring_mod(g + j - it.peer, P), c),
-                            fp));
+                     L::hop(own[j], L::rounded(vis[j], it.wire), fp));
       }
     }
   } else if (it.cls != CLS_SAME) {  // a mis-encoded slot: its own chunk
@@ -573,16 +598,14 @@ __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int c = col<T, U>(it, lane, u);
-      x[u] = round_word<T, LANES>(L::load(it.in[b], a * it.n + c), it, b,
-                                  a * it.n + c);
-      y[u] = round_word<T, LANES>(L::load(it.in[a], b * it.n + c), it, a,
-                                  b * it.n + c);
+      x[u] = L::rounded(L::load(it.in[b], a * it.n + c), it.wire);
+      y[u] = L::rounded(L::load(it.in[a], b * it.n + c), it.wire);
     }
     store_v<T, U>(it.out[a], b * it.n, it, lane, x);
     if (a != b) store_v<T, U>(it.out[b], a * it.n, it, lane, y);
   } else if (it.op == OPC_ALLREDUCE) {
     uint4 acc[U];
-    fold_v<T, NP, U, LANES>(acc, it, lane, 0);
+    fold_v<T, NP, U>(acc, it, lane, 0);
 #pragma unroll 1
     for (int me = 0; me < P; ++me) store_v<T, U>(it.out[me], 0, it, lane, acc);
   } else if (it.op == OPC_BCAST || it.op == OPC_SEND || it.op == OPC_RECV) {
@@ -590,8 +613,7 @@ __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int c = col<T, U>(it, lane, u);
-      v[u] = round_word<T, LANES>(L::load(it.in[it.root], c), it, it.root,
-                                  c);
+      v[u] = L::rounded(L::load(it.in[it.root], c), it.wire);
     }
 #pragma unroll 1
     for (int me = 0; me < P; ++me) {
@@ -614,11 +636,11 @@ __device__ __forceinline__ void item_v(const Item& it, int lane, T fp) {
 // loads all U chunks of every rank before its fold; every other class
 // takes the tile one chunk at a time (U = 1), which keeps the kernel's
 // registers to those of the allreduce.
-template <typename T, int NP, int U, bool LANES>
+template <typename T, int NP, int U>
 __device__ __forceinline__ void tile_v(const Item& it, int lane, T fp) {
   if (it.cls == CLS_SAME && it.op == OPC_ALLREDUCE) {
     uint4 acc[U];
-    fold_v<T, NP, U, LANES>(acc, it, lane, 0);
+    fold_v<T, NP, U>(acc, it, lane, 0);
 #pragma unroll 1
     for (int me = 0; me < it.P; ++me)
       store_v<T, U>(it.out[me], 0, it, lane, acc);
@@ -628,7 +650,282 @@ __device__ __forceinline__ void tile_v(const Item& it, int lane, T fp) {
   for (int q = 0; q < U; ++q) {
     Item chunk = it;
     chunk.c0 = it.c0 + q * 32 * Lane<T>::V;
-    item_v<T, NP, 1, LANES>(chunk, lane, fp);
+    item_v<T, NP, 1>(chunk, lane, fp);
+  }
+}
+
+// -- the LANES instantiation's item: one int8 segment -----------------------
+// An item of the fp8 / int8 instantiation is one 256-element int8 segment
+// (kSeg) of a slot's columns: lane l holds elements [V l, V l + V) of each
+// of the segment's U = kSeg / 32 V chunks (two 16-byte words a lane for
+// float32, one for 16-bit operands), and a rank's words of one segment are
+// all loaded before any of them is rounded, every rank's of a group of NP
+// before the first is.
+
+// 16-byte words a lane of one segment
+template <typename T> __host__ __device__ constexpr int lanes_u() {
+  return kSeg / (32 * Lane<T>::V);
+}
+// The LANES kernels' ranks a fold step (NP) and blocks an SM (their launch
+// bounds: 64 registers).  Their rounding, 40-60 instructions an element,
+// waits on a rank's loads, and more warps an SM hide that wait better
+// than more loads in flight a warp: on an H100 (scripts/lane_profile.py,
+// 8 x allreduce 1 Mi float32 at P = 4) int8 / e4m3 took 0.1517 / 0.1382
+// ms at one rank a step and four blocks an SM, against 0.1728 / 0.1512
+// at three blocks, 0.2018 / 0.1843 at five, 0.1701 / 0.1471 at two ranks
+// and three blocks and 0.1915 / 0.1875 at four ranks (every rank's words
+// loaded before the first rounds) and two blocks.  Loading the next
+// rank's words during a rounding (0.2004 / 0.1859) or the next segment's
+// (one block an SM, 0.3318 / 0.3571) spends the registers that hold the
+// warps.  The kernels spill at 64 registers (400-2,300 bytes of spill
+// stores in their code); with fewer spills at 80 they ran slower.
+constexpr int kLaneRanks = 1;
+constexpr int kLaneBlocks = 4;
+// the attention hop's group, which the wrapper's HOLD_RANKS assumes:
+// every visiting word of up to 4 ranks read before any store
+constexpr int kHold = 4;
+
+// f(v, u, e) over every element of a lane's words u < U, e its element of
+// the operand row (e0 that of the lane's first word)
+template <typename T, int U, typename F>
+__device__ __forceinline__ void map_words(uint4 (&a)[U], int e0, F f) {
+  constexpr int V = Lane<T>::V;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    alignas(16) T x[V];
+    *reinterpret_cast<uint4*>(x) = a[u];
+#pragma unroll
+    for (int k = 0; k < V; ++k) x[k] = f(x[k], u, e0 + u * 32 * V + k);
+    a[u] = *reinterpret_cast<const uint4*>(x);
+  }
+}
+
+// Rank `rank`'s words of one segment item through the slot's lane, e0 the
+// row element of the lane's first word.  The seed, the int8 scale and the
+// wire's branch are taken once a rank, not once an element.  The int8
+// scale comes from the warp's own registers when the window has no scale
+// phase (maxseg 0: every int8 slot's items are whole, aligned segments):
+// the absmax of the words loaded, then a butterfly over the warp; max
+// with NaN propagation does not depend on order, so it equals the scale
+// phase's.  Else it is the scale phase's, read once a word (a word never
+// straddles a segment).  The division stays __fdiv_rn, JAX's eager codec
+// bit for bit.
+template <typename T, int U>
+__device__ __forceinline__ void round_seg(uint4 (&a)[U], const Item& it,
+                                          int rank, int e0) {
+  constexpr int V = Lane<T>::V;
+  const int wire = it.wire;
+  if (wire == 0) return;
+  const uint32_t seed = accl::rank_seed(it.flags, (uint32_t)rank);
+  switch (wire) {
+    case DT_I8: {
+      float scale[U];
+      if (it.maxseg == 0) {
+        float m = 0.0f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          alignas(16) T x[V];
+          *reinterpret_cast<uint4*>(x) = a[u];
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            m = max_nan(m, fabsf(Wide<T>::widen(x[k])));
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          m = max_nan(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
+        const float sc = accl::segment_scale(m);
+#pragma unroll
+        for (int u = 0; u < U; ++u) scale[u] = sc;
+      } else {
+        const float* sc = it.sc + rank * it.maxseg;
+#pragma unroll
+        for (int u = 0; u < U; ++u) scale[u] = sc[(e0 + u * 32 * V) / kSeg];
+      }
+      map_words<T, U>(a, e0, [&](T v, int u, int e) {
+        return int8_value<T>(v, scale[u], seed, e);
+      });
+      break;
+    }
+    case DT_E4M3:
+      map_words<T, U>(a, e0, [seed](T v, int, int e) {
+        return lane_value<T>(v, DT_E4M3, seed, e, nullptr);
+      });
+      break;
+    case DT_E5M2:
+      map_words<T, U>(a, e0, [seed](T v, int, int e) {
+        return lane_value<T>(v, DT_E5M2, seed, e, nullptr);
+      });
+      break;
+    case DT_BF16:
+      map_words<T, U>(a, e0, [seed](T v, int, int e) {
+        return lane_value<T>(v, DT_BF16, seed, e, nullptr);
+      });
+      break;
+    case DT_F16:
+      map_words<T, U>(a, e0, [seed](T v, int, int e) {
+        return lane_value<T>(v, DT_F16, seed, e, nullptr);
+      });
+      break;
+  }
+}
+
+// acc[u] = the rank-order fold of every rank's segment at element off +
+// column, each rank's words rounded once all NP ranks' words are loaded
+template <typename T, int NP, int U>
+__device__ __forceinline__ void fold_seg(uint4 (&acc)[U], const Item& it,
+                                         int lane, int off) {
+  using L = Lane<T>;
+#pragma unroll 1
+  for (int g = 0; g < it.P; g += NP) {
+    uint4 b[NP][U];
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (g + j < it.P)
+          b[j][u] = L::load(it.in[g + j], off + col<T, U>(it, lane, u));
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      if (g + j < it.P) {
+        round_seg<T, U>(b[j], it, g + j, off + col<T, U>(it, lane, 0));
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          acc[u] = g + j == 0 ? b[j][u] : L::apply(it.fop, acc[u], b[j][u]);
+      }
+  }
+}
+
+// One segment item of every class, as item_v computes it.  A result is
+// stored only once every word it overwrites has been read, as there.
+template <typename T, int NP, int U>
+__device__ __forceinline__ void seg_item(const Item& it, int lane, T fp) {
+  using L = Lane<T>;
+  const int P = it.P;
+  const int c0 = col<T, U>(it, lane, 0);  // the lane's first column
+  if (it.cls == CLS_SOLO) {
+    uint4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = L::load(it.in[0], col<T, U>(it, lane, u));
+    store_v<T, U>(it.out[0], 0, it, lane, v);
+  } else if (it.cls == CLS_AG) {  // out[q][j n + c] = wire(in[j][c])
+    const bool gather = it.op == OPC_ALLGATHER;
+#pragma unroll 1
+    for (int g = 0; g < P; g += NP) {
+      uint4 b[NP][U];
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (g + j < P) b[j][u] = L::load(it.in[g + j], col<T, U>(it, lane, u));
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        if (g + j >= P) continue;
+        if (gather) round_seg<T, U>(b[j], it, g + j, c0);
+#pragma unroll 1
+        for (int k = 0; k < P; ++k)  // a mis-encoded slot tiles its own
+          if (gather) store_v<T, U>(it.out[k], (g + j) * it.n, it, lane, b[j]);
+          else store_v<T, U>(it.out[g + j], k * it.n, it, lane, b[j]);
+      }
+    }
+  } else if ((it.cls == CLS_RS &&
+              (it.op == OPC_REDUCE_SCATTER || it.op == OPC_MATMUL_RS)) ||
+             (it.cls == CLS_APPLY && it.op == OPC_APPLY)) {
+    const bool all = it.part < 0;  // as item_v: rank 0's result stored last
+    uint4 first[U];
+#pragma unroll 1
+    for (int me = all ? 0 : it.part; me < (all ? P : it.part + 1); ++me) {
+      if (it.out[me] == nullptr) continue;
+      uint4 r[U];
+      fold_seg<T, NP, U>(r, it, lane, me * it.n);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (it.op == OPC_APPLY)
+          r[u] = L::apply_update(
+              L::load(it.in[me], P * it.n + col<T, U>(it, lane, u)), fp,
+              r[u]);
+        else if (it.op == OPC_MATMUL_RS)
+          r[u] = L::scale(fp, r[u]);
+        if (all && me == 0) first[u] = r[u];
+      }
+      if (!all || me > 0) store_v<T, U>(it.out[me], 0, it, lane, r);
+    }
+    if (all && it.out[0] != nullptr)
+      store_v<T, U>(it.out[0], 0, it, lane, first);
+  } else if (it.op == OPC_ATTN_HOP &&
+             (it.cls == CLS_ATTN || (it.cls == CLS_RS && P == 2))) {
+    // (own[n:2n] * wire(visiting[:n])) * fp: a group's visiting segments
+    // load before any store, kHold ranks a group whatever NP (up to the
+    // wrapper's HOLD_RANKS in place); the own operand's second half,
+    // which no store of the slot writes, after
+#pragma unroll 1
+    for (int g = 0; g < P; g += kHold) {
+      uint4 vis[kHold][U];
+#pragma unroll
+      for (int j = 0; j < kHold; ++j)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (g + j < P)
+            vis[j][u] = L::load(it.in[accl::ring_mod(g + j - it.peer, P)],
+                                col<T, U>(it, lane, u));
+#pragma unroll
+      for (int j = 0; j < kHold; ++j)
+        if (g + j < P)
+          round_seg<T, U>(vis[j], it, accl::ring_mod(g + j - it.peer, P), c0);
+#pragma unroll
+      for (int j = 0; j < kHold; ++j) {
+        if (g + j >= P || it.out[g + j] == nullptr) continue;
+        uint4 r[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          r[u] = L::hop(L::load(it.in[g + j], it.n + col<T, U>(it, lane, u)),
+                        vis[j][u], fp);
+        store_v<T, U>(it.out[g + j], 0, it, lane, r);
+      }
+    }
+  } else if (it.cls != CLS_SAME) {  // a mis-encoded slot: its own chunk
+    own_v<T, NP, U>(it, lane, it.cls == CLS_RS);
+  } else if (it.op == OPC_ALLTOALL && it.part >= 0) {
+    // rank pair (a <= b): out[a] chunk b <- in[b] chunk a, out[b] chunk a
+    // <- in[a] chunk b, both loaded before either store
+    int a = 0, p = it.part;
+    while (p >= P - a) p -= P - a++;
+    const int b = a + p;
+    uint4 x[U], y[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = col<T, U>(it, lane, u);
+      x[u] = L::load(it.in[b], a * it.n + c);
+      y[u] = L::load(it.in[a], b * it.n + c);
+    }
+    round_seg<T, U>(x, it, b, a * it.n + c0);
+    round_seg<T, U>(y, it, a, b * it.n + c0);
+    store_v<T, U>(it.out[a], b * it.n, it, lane, x);
+    if (a != b) store_v<T, U>(it.out[b], a * it.n, it, lane, y);
+  } else if (it.op == OPC_ALLREDUCE) {
+    uint4 acc[U];
+    fold_seg<T, NP, U>(acc, it, lane, 0);
+#pragma unroll 1
+    for (int me = 0; me < P; ++me) store_v<T, U>(it.out[me], 0, it, lane, acc);
+  } else if (it.op == OPC_BCAST || it.op == OPC_SEND || it.op == OPC_RECV) {
+    uint4 v[U];  // the root's segment, loaded before any store
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      v[u] = L::load(it.in[it.root], col<T, U>(it, lane, u));
+    round_seg<T, U>(v, it, it.root, c0);
+#pragma unroll 1
+    for (int me = 0; me < P; ++me) {
+      if (it.op == OPC_BCAST || me == it.peer) {
+        store_v<T, U>(it.out[me], 0, it, lane, v);
+      } else if (it.out[me] != nullptr) {  // send / recv: the rest keep theirs
+        uint4 own[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          own[u] = L::load(it.in[me], col<T, U>(it, lane, u));
+        store_v<T, U>(it.out[me], 0, it, lane, own);
+      }
+    }
+  } else {  // BARRIER and every other opcode: the own operand
+    own_v<T, NP, U>(it, lane, false);
   }
 }
 
@@ -723,16 +1020,16 @@ __device__ __forceinline__ void item_e(const Item& it, int c, T fp) {
     }
   } else if (it.op == OPC_ATTN_HOP &&
              (it.cls == CLS_ATTN || (it.cls == CLS_RS && P == 2))) {
-    for (int g = 0; g < P; g += NP) {
-      T vis[NP];
+    for (int g = 0; g < P; g += kHold) {  // as seg_item's
+      T vis[kHold];
 #pragma unroll
-      for (int j = 0; j < NP; ++j)
+      for (int j = 0; j < kHold; ++j)
         if (g + j < P) {
           const int src = accl::ring_mod(g + j - it.peer, P);
           vis[j] = round_elem<T, LANES>(ld<T>(it.in[src], c), it, src, c);
         }
 #pragma unroll
-      for (int j = 0; j < NP; ++j)
+      for (int j = 0; j < kHold; ++j)
         if (g + j < P && it.out[g + j] != nullptr)
           st<T>(it.out[g + j], c,
                 Mul<T>::mul(Mul<T>::mul(ld<T>(it.in[g + j], it.n + c),
@@ -827,7 +1124,8 @@ __device__ __forceinline__ void run_item(const Window& w, long long item,
       __fmul_rn((float)words[W_FPARAM], 1.0f / 65536.0f));
   const bool chunked = (it.cls != CLS_SAME && it.cls != CLS_SOLO) || pairs;
   if (it.c0 + E <= it.n && aligned_slot<T>(it, chunked)) {
-    tile_v<T, NP, U, LANES>(it, lane, fp);
+    if constexpr (LANES) seg_item<T, NP, U>(it, lane, fp);
+    else tile_v<T, NP, U>(it, lane, fp);
   } else {
     const int end = it.c0 + E < it.n ? (int)(it.c0 + E) : it.n;
     constexpr int K = 4;  // columns a lane a step of the reductions
@@ -944,15 +1242,13 @@ sequencer_kernel(const __grid_constant__ Window w, int* status,
   run_window<T, NP, U, false>(w, status, scales, bar, coop);
 }
 
-// The LANES instantiation, two blocks an SM: its per-element rounding
-// spills a little at 128 registers (224-370 bytes), and measured faster
-// so than at one block an SM without a spill (190 registers: an int8
-// window of 8 allreduces 0.684 ms on an H100 against 0.388 ms).
+// The LANES instantiation: one segment a tile, one rank a fold step,
+// kLaneBlocks blocks an SM (see kLaneRanks).
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kLaneBlocks)
 sequencer_lanes_kernel(const __grid_constant__ Window w, int* status,
                        unsigned* bar, int coop, float* scales) {
-  run_window<T, 4, 1, true>(w, status, scales, bar, coop);
+  run_window<T, kLaneRanks, lanes_u<T>(), true>(w, status, scales, bar, coop);
 }
 
 template <typename T, int NP, int U, bool LANES>
@@ -1083,14 +1379,15 @@ persistent_kernel(RunCtl* ctl, const Window* descs, int* status,
                                    run_windows, linger_ns);
 }
 
-// the LANES persistent form, two blocks an SM (as sequencer_lanes_kernel)
+// the LANES persistent form, at the bounds of sequencer_lanes_kernel
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kLaneBlocks)
 persistent_lanes_kernel(RunCtl* ctl, const Window* descs, int* status,
                         Window* stage, unsigned* bar, float* scales,
                         int run_windows, long long linger_ns) {
-  persistent_body<T, 4, 1, true>(ctl, descs, status, stage, bar, scales,
-                                 run_windows, linger_ns);
+  persistent_body<T, kLaneRanks, lanes_u<T>(), true>(ctl, descs, status, stage,
+                                               bar, scales, run_windows,
+                                               linger_ns);
 }
 
 // Fill the item prefix; returns whether any slot after the first waits at
@@ -1125,6 +1422,39 @@ int max_segments(const Window& w) {
   return (int)m;
 }
 
+// whether an opcode's slot rounds a contribution through its wire
+bool rounds(int op) {
+  switch (op) {
+    case OPC_ALLREDUCE: case OPC_BCAST: case OPC_REDUCE_SCATTER:
+    case OPC_ALLGATHER: case OPC_ALLTOALL: case OPC_SEND: case OPC_RECV:
+    case OPC_MATMUL_RS: case OPC_APPLY: case OPC_ATTN_HOP:
+      return true;
+  }
+  return false;
+}
+
+// maxseg of a LANES window: 0 (the segment form: no scale phase, each
+// int8 scale from the warp's registers) where every int8 slot that rounds
+// reads whole segments of its rows, that is its columns are a multiple of
+// kSeg (so is every chunk offset a * cols its class reads, and every item
+// is one whole segment) and its operands and results are 16-byte aligned
+// (so every item takes the 16-byte path); else the most segments of one
+// int8 row, for the scale phase
+int lane_segments(const Window& w) {
+  for (int s = 0; s < w.n_slots; ++s) {
+    if (w.wire[s] != DT_I8 || !rounds(w.words[s][W_OPCODE])) continue;
+    if (w.cols[s] % kSeg != 0) return max_segments(w);
+    for (int r = 0; r < w.P; ++r)
+      if ((reinterpret_cast<uintptr_t>(w.in[s * w.P + r]) |
+           reinterpret_cast<uintptr_t>(w.out[s * w.P + r])) % 16 != 0)
+        return max_segments(w);
+  }
+  return 0;
+}
+
+// whether the calling thread's last launch took the LANES segment form
+thread_local int t_segment = 0;
+
 // whether the window takes the LANES instantiation: an fp8 or int8 wire,
 // or a 16-bit wire under a nonzero seed
 bool lanes_of(const Window& w) {
@@ -1152,7 +1482,8 @@ int launch(Window& w, int* status, unsigned* bar, cudaStream_t s,
            float* scales = nullptr, long long scales_len = 0) {
   long long widest = 0;
   bool coop = plan<T, U>(w, &widest);
-  w.maxseg = LANES ? max_segments(w) : 0;
+  w.maxseg = LANES ? lane_segments(w) : 0;
+  t_segment = LANES && w.maxseg == 0;
   if (w.maxseg > 0) {
     coop = true;  // the scale phase ends at a grid barrier
     if (scales == nullptr ||
@@ -1188,8 +1519,7 @@ int launch(Window& w, int* status, unsigned* bar, cudaStream_t s,
 // a lane; at P = 4 timed against 1 and 2 by scripts/tile_variants.py)
 // and 2 for the others, whose per-element arithmetic (16-bit floats
 // through float, 8-byte words) spilled at 4.  The LANES instantiation
-// (float operands alone) takes U = 1: its per-element rounding would
-// spill at the plain kernel's tile.
+// (float operands alone) takes one int8 segment a tile (lanes_u).
 template <typename T> constexpr int tile_u() { return sizeof(T) == 4 ? 4 : 2; }
 
 // the operand types of the LANES instantiation
@@ -1203,7 +1533,8 @@ int launch_for(Window& w, int* status, unsigned* bar, float* scales,
                long long scales_len, cudaStream_t s) {
   if (lanes_of(w)) {
     if constexpr (kFloatLanes<T>)
-      return launch<T, 4, 1, true>(w, status, bar, s, scales, scales_len);
+      return launch<T, kLaneRanks, lanes_u<T>(), true>(w, status, bar, s, scales,
+                                                 scales_len);
     else
       return static_cast<int>(cudaErrorInvalidValue);  // float lanes only
   }
@@ -1255,8 +1586,8 @@ template <typename T>
 void plan_for(Window& w) {
   long long widest = 0;
   if (lanes_of(w)) {
-    plan<T, 1>(w, &widest);
-    w.maxseg = max_segments(w);
+    plan<T, lanes_u<T>()>(w, &widest);
+    w.maxseg = lane_segments(w);
   } else {
     plan<T, tile_u<T>()>(w, &widest);
     w.maxseg = 0;
@@ -1296,6 +1627,10 @@ extern "C" int accl_sequencer(const void* desc, int* status, void* barrier,
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// Whether the calling thread's last accl_sequencer launch took the fp8 /
+// int8 instantiation's segment form (no scale phase): 1, else 0.
+extern "C" int accl_sequencer_segment() { return t_segment; }
 
 // Check the window `desc` and fill its item prefix and maxseg in place, as
 // a launch would: a window posted to a persistent run travels planned.

@@ -128,6 +128,7 @@ def launches_for(P: int, n_slots: int) -> int:
 PROTOTYPES = {"cmdring": {
     "accl_sequencer": (PTR, PTR, PTR, PTR, LL, PTR),
     "accl_sequencer_plan": (PTR,),
+    "accl_sequencer_segment": (),
     "accl_sequencer_run": (PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, LL,
                            PTR),
     "accl_sequencer_ring": (PTR, INT, INT),
@@ -658,7 +659,8 @@ def sequencer(slots, xs: Sequence[Sequence[Optional[torch.Tensor]]],
     (:func:`_cached`), copies the slot words into a copy of the
     cached descriptor and passes it as one pointer.  A launch whose slots
     take the LANES instantiation counts in ``sequencer_lanes.launches``,
-    the others in ``sequencer.launches``."""
+    the others in ``sequencer.launches``; a LANES launch in the segment
+    form (no int8 scale phase) also in ``sequencer_lanes.segment_launches``."""
     words = _words(slots)
     P, dev, stage, packed, per = _packed(words, xs, outs, shape, device)
     if packed is None:
@@ -690,6 +692,8 @@ def sequencer(slots, xs: Sequence[Sequence[Optional[torch.Tensor]]],
             0 if scales is None else scales.numel(), stream)
         check_launch(lib, rc, "sequencer")
         (sequencer_lanes if lanes else sequencer).launches.bump()
+        if lanes and lib.accl_sequencer_segment():
+            sequencer_lanes.segment_launches.bump()
     return status
 
 
@@ -707,6 +711,7 @@ def sequencer_lanes(slots, xs, outs, shape: WindowShape,
 
 
 sequencer_lanes.launches = LaunchCounter()
+sequencer_lanes.segment_launches = LaunchCounter()
 
 
 # ---------------------------------------------------------------------------

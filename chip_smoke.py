@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-path   # phase 4's launch path alone
+    python3 chip_smoke.py --lanes         # row 14's phases 2 and 4 alone
     python3 chip_smoke.py --dispatch      # phase 3i and facade_dispatch
     python3 chip_smoke.py --cp            # phase 3j, rows 16-18 at T = 4096
     python3 chip_smoke.py --topology      # phase 3k and facade_topology
@@ -34,7 +35,8 @@ Phases (any failure exits non-zero):
    sequencer, the quantize's LANES and CLUSTER paths): ptxas's
    registers, spill bytes and stack frame, and fail
    if one spills or keeps a stack frame (the pointer tables are indexed
-   in place, ``__grid_constant__``);
+   in place, ``__grid_constant__``), but for row 14's six fp8 / int8
+   kernels, reported one by one (``lanes_ptxas``);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes — float results must match EXACTLY (same operation
    order, same round-to-nearest-even; NaN positions must agree), except
@@ -70,7 +72,13 @@ Phases (any failure exits non-zero):
    seeded, at P 2, 3, 4, 8 over every class (a per-rank count off the
    256-element segments), bfloat16 and float16 operands, misaligned and
    ragged windows and a seeded 16-bit wire, through the fp8 / int8
-   instantiation; the persistent form (``check_persistent``) over six
+   instantiation; then its segment form (no int8 scale phase) over every
+   class at whole 256-element segments (n 512 and 65,792; P 2, 3, 4, 8;
+   int8, e4m3, e5m2; seeds 0 and 99; float32, bfloat16, float16) and on
+   segments of edge values (a NaN, zeros only, +-inf, the absmax in the
+   last lane), ``sequencer_lanes.segment_launches`` showing which form
+   each window took (the int8 windows off the segments take the scale
+   phase); the persistent form (``check_persistent``) over six
    streams of 4 windows, one launch each, against the same plain
    version with its mapped status words, and its budget and linger
    exits.  K1 also runs its fp8 lanes and its raw int8 cast.  Rows 5-8
@@ -316,7 +324,10 @@ Phases (any failure exits non-zero):
    time alone, their library calls too; the sequencer on 8
    allreduces of 1M float32 per rank, by device time too, beside its
    library call's, with 8 x 64K and the facade's mix at 4 MiB per rank as
-   extra keys of its entry; flash attention at run A's
+   extra keys of its entry, and its fp8 / int8 instantiation on the same
+   window under int8 and e4m3 (seeded, in the segment form, which the
+   phase asserts; no scale crosses memory, so the bound is the plain
+   window's); flash attention at run A's
    (8, 16, 128, 128) bf16 causal, with run B's T = 1024 as extra keys,
    beside ``scaled_dot_product_attention``, bounded by the tensor cores'
    bf16 rate, and with its LSE at the training shape (8, 32, 1024, 128));
@@ -947,14 +958,16 @@ def seq_counts(op: int, N: int, P: int):
 
 
 def seq_window(P, dtype, ops, N, seed, wires=None, offset=0,
-               skew_rank=None, flags=0):
+               skew_rank=None, flags=0, count=None):
     """A window of ``ops`` ((opcode, root, peer) per slot), every slot with
     its own operands and results, made from ``seed`` (the same seed makes
     the same window).  SUM and MAX alternate by slot; floats carry NaNs.
     ``offset`` misaligns every operand by that many elements; with
     ``skew_rank`` only that rank's operands and results, by one element
     (each rank decides its own alignment in the kernel).  A nonzero
-    ``flags`` seeds the wire lanes, slot i with ``flags + 7 i``."""
+    ``flags`` seeds the wire lanes, slot i with ``flags + 7 i``.  A
+    ``count`` gives every slot that count (each class's own widths), in
+    place of one whose operand per rank stays within N."""
     import torch
 
     from accl_tpu_torch.cmdring import (WindowShape, encode_fparam,
@@ -986,6 +999,8 @@ def seq_window(P, dtype, ops, N, seed, wires=None, offset=0,
     slots, xs, outs, in_ws, out_ws, wl = [], [], [], [], [], []
     for i, (op, root, peer) in enumerate(ops):
         n, fuse = seq_counts(op, N, P)
+        if count is not None:
+            n = count
         if op == Op.BARRIER:
             n = 1
         in_w, out_w = ring_widths(base.get(op, Operation.ALLREDUCE), n, P,
@@ -1054,18 +1069,19 @@ def hazard_window(P, dtype, N, seed):
             ar + rs + ag + a2a + bc + c + d + e + f + x)
 
 
-def inplace_window(P, dtype, N, seed):
+def inplace_window(P, dtype, N, seed, wire=None, flags=0):
     """Every result in place over its rank's operand, in the forms the
     kernel keeps: reduce-scatter, fused apply, matmul-reduce-scatter and
     the attention hop at their chunk 0, send / recv, the MPI in-place
     allgather and alltoall (above 4 ranks the wrapper stages the hop's
-    operands).  Returns the window and every buffer it touches."""
+    operands), every slot under ``wire`` seeded from ``flags``.  Returns
+    the window and every buffer it touches."""
     import numpy as np
     import torch
 
     from accl_tpu_torch.cmdring import (WindowShape, encode_fparam,
                                         encode_slot)
-    from accl_tpu_torch.constants import CmdOpcode as Op
+    from accl_tpu_torch.constants import CmdOpcode as Op, torch_to_dtype
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -1088,14 +1104,15 @@ def inplace_window(P, dtype, N, seed):
             (Op.ALLGATHER, n, n, P * n, 0, 0),
             (Op.ALLTOALL, n, P * n, P * n, 0, 0)]
     slots = [encode_slot(i, op, cnt, function=i % 2, root=1, peer=peer,
-                         fparam=f)
+                         fparam=f, flags=flags,
+                         wire=0 if wire is None else int(torch_to_dtype(wire)))
              for i, (op, cnt, _, _, f, peer) in enumerate(spec)]
     xs = [rs, ap, mm, at_, sr,
           [g[r * n:(r + 1) * n] for r, g in enumerate(ag)], a2a]
     outs = [[t[:n] for t in rs], [t[:n] for t in ap], [t[:n] for t in mm],
             [t[:n] for t in at_], sr, ag, a2a]
     shape = WindowShape(len(spec), [s_[2] for s_ in spec],
-                        [s_[3] for s_ in spec], (None,) * len(spec), dtype)
+                        [s_[3] for s_ in spec], (wire,) * len(spec), dtype)
     return (np.stack(slots), xs, outs, shape,
             rs + ap + mm + at_ + sr + ag + a2a)
 
@@ -1195,7 +1212,7 @@ def check_sequencer(err) -> None:
                 cases.append((f"P={P} f32 wire {wire} seed {seed}",
                               lambda s, P=P, w=wire, f=seed: seq_window(
                                   P, F32, mix(P), n_off, s, wires=[w],
-                                  flags=f)))
+                                  flags=f), wire != I8))
         for dtype in (BF16, F16):
             cases.append((f"P=4 {dtype} wire {wire} seed 99",
                           lambda s, d=dtype, w=wire: seq_window(
@@ -1208,17 +1225,56 @@ def check_sequencer(err) -> None:
     # a 16-bit wire under a nonzero seed rounds stochastically (LANES)
     cases.append(("P=4 f32 wire bf16 seed 3", lambda s: seq_window(
         4, F32, mix(4)[:8], n_off, s, wires=[BF16, F16], flags=3)))
-    lanes_cases = 0
-    for k, (tag, build) in enumerate(cases):
+    # the segment form: every class at whole, aligned int8 segments (no
+    # scale phase, each int8 scale from the warp's registers), every wire,
+    # seed and operand type; then one segment each holding a NaN, zeros
+    # only, +-inf, and its absmax in the last lane.  The int8 cases at
+    # n_off above take the scale phase; a window with no int8 slot always
+    # takes the segment form.
+    for n in (512, 65_536 + 256):
+        for P in (2, 3, 4, 8):
+            for wire in (I8, E4M3, E5M2):
+                for seed in (0, 99):
+                    for dtype in (F32, BF16, F16):
+                        cases.append((
+                            f"P={P} {dtype} wire {wire} seed {seed} "
+                            f"n={n} whole segments",
+                            lambda s, P=P, d=dtype, w=wire, f=seed, n=n:
+                            seq_window(P, d, seg_ops(P), n, s, wires=[w],
+                                       flags=f, count=n), True))
+    # every in-place form under a lane: whole segments (n = 65,536), and
+    # n = 65,539 for int8, which takes the scale phase
+    for P, dtype, N, wire, segment in (
+            (4, F32, 5 * 65_536, I8, True), (3, BF16, 4 * 65_536, E4M3, True),
+            (2, F16, 3 * 65_536, E5M2, True), (4, F32, 5 * 65_539, I8, False),
+            (3, F32, 4 * 65_539, E4M3, True)):
+        cases.append((f"P={P} {dtype} N={N} wire {wire} in place",
+                      lambda s, P=P, d=dtype, N=N, w=wire: inplace_window(
+                          P, d, N, s, wire=w, flags=77), segment))
+    for dtype in (F32, BF16, F16):
+        for seed in (0, 99):
+            cases.append((
+                f"P=4 {dtype} wire int8 seed {seed} edge segments",
+                lambda s, d=dtype, f=seed: seg_edges(seq_window(
+                    4, d, seg_ops(4), 512, s, wires=[I8], flags=f,
+                    count=512)), True))
+    lanes_cases = segment_cases = 0
+    for k, (tag, build, *segment) in enumerate(cases):
         got = build(SEED + k)
         want = build(SEED + k)
         lanes = kseq.takes_lanes(got[0], got[3].wires)
         lanes_cases += lanes
         counter = kseq.sequencer_lanes if lanes else kseq.sequencer
         before = counter.launches.count
+        seg_before = kseq.sequencer_lanes.segment_launches.count
         st = kseq.sequencer(*got[:4], device=torch.device("cuda", 0))
         if counter.launches.count == before:
             fail(f"sequencer {tag}: the kernel did not launch")
+        took = kseq.sequencer_lanes.segment_launches.count > seg_before
+        if segment and took != segment[0]:
+            fail(f"sequencer {tag}: the segment form was "
+                 f"{'' if took else 'not '}taken")
+        segment_cases += took
         st_plain = kseq.sequencer_plain(*want[:4])
         torch.cuda.synchronize()
         if not torch.equal(st.cpu(), st_plain.cpu()):
@@ -1236,8 +1292,43 @@ def check_sequencer(err) -> None:
         del got, want
         torch.cuda.synchronize()
     print(f"sequencer: {len(cases)} windows agree with sequencer_plain "
-          f"({lanes_cases} through the fp8 / int8 instantiation)",
-          flush=True)
+          f"({lanes_cases} through the fp8 / int8 instantiation, "
+          f"{segment_cases} of them in its segment form)", flush=True)
+
+
+def seg_ops(P):
+    """Every class that rounds through a wire, one slot each: allreduce,
+    bcast, reduce-scatter, allgather, alltoall, fused apply,
+    matmul-reduce-scatter and the attention hop."""
+    from accl_tpu_torch.constants import CmdOpcode as Op
+
+    return [(Op.ALLREDUCE, 0, 0), (Op.BCAST, P - 1, 0),
+            (Op.REDUCE_SCATTER, 0, 0), (Op.ALLGATHER, 0, 0),
+            (Op.ALLTOALL, 0, 0), (Op.FUSED_APPLY, 0, 0),
+            (Op.FUSED_MATMUL_RS, 0, 0), (Op.FUSED_ATTN_HOP, 0, 1)]
+
+
+def seg_edges(win):
+    """A window's operands with edge values in their int8 segments: on
+    rank 0 mod 4 zeros only in the second (the scale's 1e-30 floor), on
+    rank 1 +inf and -inf in the second, on rank 2 the second's absmax at
+    its last element (the warp's last lane), on rank 3 a NaN in the
+    first; no other NaN in the first two."""
+    for row in win[1]:
+        for r, x in enumerate(row):
+            if x is None:
+                continue
+            x[0] = 0.5
+            if r % 4 == 3:
+                x[5] = float("nan")
+            elif r % 4 == 0:
+                x[256:512] = 0
+            elif r % 4 == 1:
+                x[256] = float("inf")
+                x[300] = float("-inf")
+            elif r % 4 == 2:
+                x[511] = 1000.0
+    return win
 
 
 def seq_mix(P, floats=True):
@@ -2383,17 +2474,21 @@ def time_sequencer(rand) -> dict:
         out[key + "bound"] = bound(nbytes, ops)
         del win
     # the fp8 / int8 instantiation on the main path's window (8 x
-    # allreduce 1 Mi, seeded), by device time; its bound counts each
-    # operand read once, each result written once and the int8 scales
-    # written and read once
+    # allreduce 1 Mi, seeded), by device time; both windows take its
+    # segment form (no int8 scale crosses memory), so the bound counts
+    # each operand read once and each result written once
     for lane in ("int8", "float8_e4m3fn"):
         wire = getattr(torch, lane)
         win = seq_window(P, F32, [(Op.ALLREDUCE, 0, 0)] * 8, SEQ_N,
                          SEED + 5, wires=[wire], flags=12345)
         nbytes, ops = window_bytes(*win)
-        if lane == "int8":
-            nbytes += 8 * P * (-(-SEQ_N // 256)) * 4 * 2
         key = f"{lane}_"
+        seg0 = kseq.sequencer_lanes.segment_launches.count
+        kseq.sequencer(*win)
+        out[key + "segment"] = (
+            kseq.sequencer_lanes.segment_launches.count > seg0)
+        if not out[key + "segment"]:
+            fail(f"phase 4's {lane} window did not take the segment form")
         out[key + "ms"] = time_ms(lambda: kseq.sequencer(*win))
         out[key + "device_ms"] = device_ms(lambda: kseq.sequencer(*win))
         out[key + "plain_ms"] = time_ms(lambda: kseq.sequencer_plain(*win))
@@ -3255,14 +3350,48 @@ def tile_ptxas(kc) -> dict:
                      "registers_max": max(regs),
                      "stack_bytes_max": max(f[1] for f in found),
                      "spill_bytes_max": max(f[2] for f in found)}
-        # row 14's fp8 / int8 kernels run two blocks an SM at 128
-        # registers, with a spill measured cheaper than one block an SM
-        # (csrc/cmdring.cu): reported, not refused
+        # row 14's fp8 / int8 kernels run four blocks an SM at 64
+        # registers, with spills, measured faster than at fewer blocks
+        # with fewer spills (csrc/cmdring.cu, kLaneRanks): reported, not
+        # refused
         if name in ("sequencer_lanes", "sequencer_run_lanes"):
             continue
         if out[name]["stack_bytes_max"] or out[name]["spill_bytes_max"]:
             fail(f"{name}'s kernels keep a stack frame or spill: "
                  f"{out[name]}")
+    return out
+
+
+def lanes_ptxas(kc) -> dict:
+    """Row 14's six fp8 / int8 kernels (``sequencer_lanes_kernel`` and
+    ``persistent_lanes_kernel`` for float32, bfloat16 and float16) in
+    ptxas's lines of ``csrc/cmdring.cu``'s build log: ``{kernel<type>:
+    [registers, stack frame bytes, spill-store bytes]}``."""
+    import re
+
+    names = {"22sequencer_lanes_kernel": "sequencer_lanes_kernel",
+             "23persistent_lanes_kernel": "persistent_lanes_kernel"}
+    types = {"IfE": "float", "I13__nv_bfloat16E": "bf16", "I6__halfE": "f16"}
+    out, entry = {}, None
+    for line in kc._build.build_log("cmdring").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = None
+            for tag, name in names.items():
+                for t, tn in types.items():
+                    if tag + t in m.group(1):
+                        entry = f"{name}<{tn}>"
+                        out[entry] = [0, 0, 0]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and entry:
+            out[entry][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry][0] = int(m.group(1))
+    if len(out) != 6:
+        fail(f"ptxas lines for {len(out)} of row 14's six fp8 / int8 "
+             f"kernels: {sorted(out)}")
     return out
 
 
@@ -8635,6 +8764,25 @@ def main() -> int:
               flush=True)
         print_pipeline(pipe, smi.stdout.strip().splitlines()[0])
         return 0
+    if sys.argv[1:] == ["--lanes"]:  # row 14's phases 2 and 4 alone
+        probe_phase(kc)
+        t0 = time.time()
+        print(f"built {kc.build_all(['cmdring'])} in {time.time() - t0:.1f}"
+              f" s", flush=True)
+        print(f"ptxas, row 14's fp8 / int8 kernels [registers, stack, "
+              f"spill bytes]: {lanes_ptxas(kc)}", flush=True)
+        t0 = time.time()
+        check_sequencer({k: 0.0 for k in kc.KERNELS})
+        print(f"row 14's phase 2 ok ({time.time() - t0:.1f} s)", flush=True)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        seq = time_sequencer(lambda n, dtype: torch.randn(
+            n, generator=gen, device=dev).to(dtype))
+        print(json.dumps({"sequencer_lanes": {
+            "card": smi.stdout.strip().splitlines()[0],
+            **{k: v for k, v in seq.items()
+               if k.startswith(("int8_", "float8_")) or k == "device_ms"}}}))
+        return 0
     if sys.argv[1:] == ["--launch-path"]:  # the launch path alone
         if not kc.probe_copy(torch.ones(8, 128, device=dev)).eq(1).all():
             fail("the probe's copy differs from its input")
@@ -8654,6 +8802,9 @@ def main() -> int:
     cast_regs = cast_ptxas(kc)
     print(f"ptxas, row 5's cast kernels: {cast_regs}", flush=True)
     tile_regs = tile_ptxas(kc)
+    lanes_regs = lanes_ptxas(kc)
+    print(f"ptxas, row 14's fp8 / int8 kernels [registers, stack, spill "
+          f"bytes]: {lanes_regs}", flush=True)
     print(f"ptxas, the tile core's kernels, the sequencer's and the "
           f"quantize's: {tile_regs}", flush=True)
 
@@ -9084,9 +9235,12 @@ def main() -> int:
         if name == "sequencer_lanes":  # int8 above; e4m3 beside it
             kernels[-1].update({
                 "window": "8 x allreduce 1 Mi f32, P = 4, seeded",
+                "segment_form": (seq["int8_segment"]
+                                 and seq["float8_e4m3fn_segment"]),
                 "device_ms": seq["int8_device_ms"],
                 "plain_device_window_ms": seq["device_ms"],
                 "ptxas": tile_regs["sequencer_lanes"],
+                "ptxas_each": lanes_regs,
                 "e4m3_ms": seq["float8_e4m3fn_ms"],
                 "e4m3_device_ms": seq["float8_e4m3fn_device_ms"],
                 "e4m3_plain_ms": seq["float8_e4m3fn_plain_ms"],
