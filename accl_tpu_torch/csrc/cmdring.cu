@@ -109,15 +109,28 @@
 // The persistent form (persistent_kernel, the counterpart of JAX's xla
 // lowering session, accl_tpu/ops/pallas/cmdring.py:30-37) is one
 // cooperative launch that drains a stream of windows from host-mapped
-// memory: block 0's thread 0 polls the doorbell (ld.acquire.sys) until a
-// window is posted, the HALT doorbell rings, the window budget is spent or
-// %globaltimer shows the mailbox idle for the linger; block 0 copies the
-// posted descriptor into a device staging buffer once, a grid barrier
-// publishes it, every block copies it into its shared memory and runs the
-// window as the one-shot kernel does, and after a last barrier the run
-// writes the window's count of done windows with __threadfence_system()
-// and a release store.  An idle run so holds the device for the linger at
-// most.
+// memory.  A window travels in its posted form, the used extents of its
+// Window (planned once a descriptor template on the host: 1,344 bytes at 8
+// slots of 4 ranks, against 14,616), crosses the bus once into one of two
+// device stages, and every block reads it there in place.  When the next
+// window is already posted, the last warp fetches it during the current
+// window, and one grid barrier (the run's own, an arrival count that only
+// grows) both ends the one and publishes the other; else block 0's thread
+// 0 polls the doorbell (ld.acquire.sys) until a window is posted, the HALT
+// doorbell rings, the window budget is spent or %globaltimer shows the
+// mailbox idle for the linger.  A plain run's blocks walk a window's items
+// in lockstep, one item a warp a round.  After each closing barrier the
+// last block's thread 0 writes the count of done windows with
+// __threadfence_system() and a release store.  An idle run so holds the
+// device for the linger at most.  On an H100 at 700 W
+// (scripts/run_profile.py, 8 x allreduce 1 Mi float32 at P = 4, every
+// window posted ahead) a window takes 0.1016 ms of device time in a run,
+// against 0.0947 a one-shot launch and 0.1242 in the earlier form, which
+// moved the whole 14,616-byte descriptor over the bus at every window
+// (0.0114 ms, by the run's clock), copied it into every block's shared
+// memory and met at two grid barriers.  Its LANES form's items run ~1.3x
+// the one-shot's: they read the window from device memory in a 64-register
+// kernel, where the one-shot reads its parameter block.
 //
 // Results that keep their operand's column (in place: allreduce, bcast,
 // send / recv, the MPI in-place allgather, reduce-scatter, fused apply and
@@ -195,7 +208,7 @@ static_assert(offsetof(Window, cls) == 5384, "descriptor layout");
 static_assert(offsetof(Window, n_slots) == 6408, "descriptor layout");
 static_assert(offsetof(Window, in) == 6424, "descriptor layout");
 static_assert(sizeof(Window) == 14616, "descriptor layout");
-static_assert(sizeof(Window) % 8 == 0, "copied in 8-byte words");
+static_assert(sizeof(Window) % 8 == 0, "expanded in 8-byte words");
 
 template <typename T> struct Mul {  // float: no contraction into an FMA
   static __device__ __forceinline__ T mul(T a, T b) { return __fmul_rn(a, b); }
@@ -1198,9 +1211,13 @@ __device__ void scale_phase(const Window& w, float* scales, long long warp,
 
 // One window's work on the calling grid: the status words (block 0), the
 // scale phase of an int8 window, then each phase's items, a grid barrier
-// between phases when `coop`.  One loop for every form, so the item's code
-// is inlined once a kernel.
-template <typename T, int NP, int U, bool LANES>
+// between phases when `coop`.  One loop for every one-shot form, so the
+// item's code is inlined once a kernel.  LOCKSTEP (a plain persistent
+// run): a block's warps take its items round by round, meeting at
+// __syncthreads after each, as a one-shot launch's blocks of one item a
+// warp start and end together (scripts/run_profile.py, an H100: 0.1016 ms
+// a window against 0.1050 with each warp on its own).
+template <typename T, int NP, int U, bool LANES, bool LOCKSTEP = false>
 __device__ __forceinline__ void run_window(const Window& w, int* status,
                                            float* scales, unsigned* bar,
                                            int coop) {
@@ -1224,9 +1241,18 @@ __device__ __forceinline__ void run_window(const Window& w, int* status,
   while (s < w.n_slots) {
     int e = s + 1;
     while (e < w.n_slots && !(coop && w.sync[e])) ++e;
-    for (long long item = w.first[s] + warp; item < w.first[e];
-         item += warps)
-      run_item<T, NP, U, LANES>(w, item, lane, scales);
+    if constexpr (LOCKSTEP) {
+      for (long long base = w.first[s] + (long long)blockIdx.x * kWarps;
+           base < w.first[e]; base += warps) {
+        const long long item = base + threadIdx.x / 32;
+        if (item < w.first[e]) run_item<T, NP, U, LANES>(w, item, lane, scales);
+        __syncthreads();
+      }
+    } else {
+      for (long long item = w.first[s] + warp; item < w.first[e];
+           item += warps)
+        run_item<T, NP, U, LANES>(w, item, lane, scales);
+    }
     if (e < w.n_slots) grid_barrier(bar);
     s = e;
   }
@@ -1264,15 +1290,57 @@ auto sequencer_of() {
 // doorbell) and, on their own 128-byte line, the run's (`done`, the
 // windows completed; `exited`, 0 while the run lives, then why it returned:
 // 1 the HALT doorbell, 2 the window budget, 3 the linger; `closing`, k + 1
-// while the run decides to close at window k, 0 once it took the window).
+// while the run decides to close at window k, 0 once it took the window;
+// `ahead`, the windows it fetched ahead, stored before each `done`).
 struct RunCtl {
   int posted, halt;
   int pad0[30];
-  int done, exited, closing;
-  int pad1[29];
+  int done, exited, closing, ahead;
+  int pad1[28];
 };
 static_assert(sizeof(RunCtl) == 256, "run control layout");
+static_assert(offsetof(RunCtl, done) == 128, "run control layout");
+static_assert(offsetof(RunCtl, ahead) == 140, "run control layout");
 enum : int { EXIT_HALT = 1, EXIT_BUDGET = 2, EXIT_LINGER = 3 };
+
+// A window posted to a run travels in its posted form: the extents of
+// Window's fields that a window of n slots of P ranks uses, each at a
+// 16-byte boundary, in the order below (ops/cuda/cmdring.py::RUN_SEGMENTS).
+// Field i spans per_slot * n + per_rank_slot * n * P + fixed bytes at
+// offset `off` of Window, and is copied in 8-byte words (a 4-byte field
+// of odd n takes its next, unused entry with it).  At 8 slots of 4 ranks
+// that is 1,344 bytes of the 14,616.
+struct RunSeg {
+  int off, per_slot, per_rank_slot, fixed;
+};
+constexpr int kRunSegs = 13;
+__constant__ const RunSeg kRunSeg[kRunSegs] = {
+    {offsetof(Window, n_slots), 0, 0, 16},  // n_slots, P, dtype, maxseg
+    {offsetof(Window, words), 44, 0, 0},
+    {offsetof(Window, in_w), 8, 0, 0},
+    {offsetof(Window, out_w), 8, 0, 0},
+    {offsetof(Window, chunk), 8, 0, 0},
+    {offsetof(Window, cols), 8, 0, 0},
+    {offsetof(Window, first), 8, 0, 8},
+    {offsetof(Window, cls), 4, 0, 0},
+    {offsetof(Window, wire), 4, 0, 0},
+    {offsetof(Window, sync), 4, 0, 0},
+    {offsetof(Window, parts), 4, 0, 0},
+    {offsetof(Window, in), 0, 8, 0},
+    {offsetof(Window, out), 0, 8, 0},
+};
+
+__device__ __forceinline__ int seg_bytes(const RunSeg& g, int n, int P) {
+  return g.per_slot * n + g.per_rank_slot * n * P + g.fixed;
+}
+
+// bytes of the posted form of n slots of P ranks (a multiple of 16)
+__device__ __forceinline__ int run_bytes(int n, int P) {
+  int b = 0;
+#pragma unroll
+  for (int i = 0; i < kRunSegs; ++i) b += (seg_bytes(kRunSeg[i], n, P) + 15) & ~15;
+  return b;
+}
 
 __device__ __forceinline__ int ld_acquire_sys(const int* p) {
   int v;
@@ -1293,101 +1361,261 @@ __device__ __forceinline__ unsigned long long globaltimer() {
   return t;
 }
 
+// A run's stamps, compiled in only under ACCL_RUN_STAMPS (the build of
+// scripts/run_profile.py): per window, %globaltimer at the points below,
+// the copy and work ends over every block (the first and last copy, the
+// last work), and the run's grid.  Read with accl_run_stamps once the run
+// returned.
+constexpr int kMaxRunWindows = 128;  // CMDRING_MAX_RUN_WINDOWS
+enum : int { ST_POLL = 0, ST_SEEN, ST_STAGED, ST_COPY_MIN, ST_COPY_MAX,
+             ST_WORK_MAX, ST_CLOSED, ST_DONE, ST_GRID, ST_N };
+#ifdef ACCL_RUN_STAMPS
+__device__ unsigned long long g_stamps[kMaxRunWindows][ST_N];
+__device__ __forceinline__ void stamp(int k, int i) {
+  g_stamps[k][i] = i == ST_GRID ? gridDim.x : globaltimer();
+}
+// the calling block's stamp i of window k, the earliest or the latest of
+// every block's (its threads synchronised first)
+__device__ __forceinline__ void stamp_blocks(int k, int i, bool latest) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (latest) atomicMax(&g_stamps[k][i], globaltimer());
+    else atomicMin(&g_stamps[k][i], globaltimer());
+  }
+}
+#else
+__device__ __forceinline__ void stamp(int, int) {}
+__device__ __forceinline__ void stamp_blocks(int, int, bool) {}
+#endif
+
+// One warp fetches a window's posted form (`bytes`, a multiple of 16) from
+// host-mapped memory, uncached, 4 loads of 16 bytes in flight a lane (at 8
+// slots of 4 ranks one trip over the bus; 8 took the plain run's kernels
+// past 255 registers, into spills), and writes each field at its place in
+// the device Window `dst`, 8 bytes at a time.
+__device__ __forceinline__ void fetch_posted(const char* src, Window* dst,
+                                             int bytes, int n, int P) {
+  const int lane = threadIdx.x % 32;
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  char* d = reinterpret_cast<char*>(dst);
+  const int words = bytes / 16;
+  for (int base = lane; base < words; base += 4 * 32) {
+    uint4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (base + 32 * u < words) v[u] = __ldcv(s + base + 32 * u);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = 16 * (base + 32 * u);  // its offset in the posted form
+      if (c >= bytes) continue;
+      int start = 0, i = 0, b = seg_bytes(kRunSeg[0], n, P);
+      while (c >= start + ((b + 15) & ~15)) {  // the field it falls in
+        start += (b + 15) & ~15;
+        b = seg_bytes(kRunSeg[++i], n, P);
+      }
+      const int rel = c - start, copied = (b + 7) & ~7;
+      uint2* out = reinterpret_cast<uint2*>(d + kRunSeg[i].off + rel);
+      if (rel < copied) out[0] = make_uint2(v[u].x, v[u].y);
+      if (rel + 8 < copied) out[1] = make_uint2(v[u].z, v[u].w);
+    }
+  }
+  __threadfence();  // the stage before the flag that publishes it
+}
+
+// The run's grid barrier: an arrival count of its own (zero at launch)
+// that only grows, so the last block to arrive releases the rest by its
+// arrival alone (no reset, no generation word): barrier number b of the
+// run is passed once the count reaches (b + 1) x gridDim.x.  `target`
+// (shared memory, thread 0's) holds the count to reach.
+__device__ __forceinline__ void run_barrier(unsigned* count,
+                                            unsigned& target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    target += gridDim.x;
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" :: "l"(count)
+                 : "memory");
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v)
+                   : "l"(count) : "memory");
+    } while ((int)(v - target) < 0);
+  }
+  __syncthreads();
+}
+
+// How window j reached the blocks, in bar[2 + j % 2] (written by one
+// thread before the barrier that publishes it, read by every block after):
+// not fetched ahead (the run waits for it), published at a barrier of its
+// own, fetched ahead (published by window j - 1's closing barrier), or the
+// run ends (kFlagEnd + the exit reason).  bar[4] is the run's barrier
+// count; bar[0..1] the one-shot form's grid barrier, which a window's
+// phases and int8 scale phase use inside the run.
+enum : unsigned { kFlagWait = 0, kFlagPublished = 1, kFlagAhead = 2,
+                  kFlagEnd = 16 };
+
+// The fetching warp: window j fetched into its stage if it is posted
+// (`posted` read with acquire first) and within the budget; whether it was.
+__device__ __forceinline__ bool fetch_ahead(RunCtl* ctl, const char* descs,
+                                            Window* stage, int j,
+                                            int run_windows, int n, int P) {
+  if (j >= run_windows) return false;
+  const int bytes = run_bytes(n, P);
+  int seen = 0;
+  if (threadIdx.x % 32 == 0) seen = ld_acquire_sys(&ctl->posted) > j;
+  seen = __shfl_sync(0xFFFFFFFFu, seen, 0);
+  __syncwarp();
+  if (!seen) return false;
+  if (threadIdx.x % 32 == 0) stamp(j, ST_SEEN);
+  fetch_posted(descs + (long long)j * bytes, stage + j % 2, bytes, n, P);
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) stamp(j, ST_STAGED);
+  return true;
+}
+
 // One run: up to `run_windows` windows posted into `descs` (host-mapped,
-// descriptor k for window k), each run as the one-shot kernel runs it,
-// its status words into status + k * 2 * kMaxSlots (host-mapped).  Block
-// 0's thread 0 polls for window k and copies it into `stage` (device)
-// with block 0; bar[2] carries the decision to every block.
+// window k's posted form at k * run_bytes(n_slots, P)), each run as the
+// one-shot kernel runs it, its status words into status + k * 2 *
+// kMaxSlots (host-mapped).  `stage` holds two Windows in device memory,
+// for windows of even and odd k.
+//
+// A window crosses the bus once, in its posted form, and one warp writes
+// its fields into a stage; a barrier publishes it, and every block reads
+// it in place (as the one-shot kernel reads its parameter block), with no
+// copy of its own.  When window k + 1 is already posted as window k ends,
+// the last warp of the last block (the warp with the fewest items of a
+// grid-stride walk) fetches it after its own items, and window k's closing
+// barrier both ends k and publishes k + 1: one grid barrier a window.
+// Else block 0's thread 0 polls the doorbell (ld.acquire.sys) until the
+// window is posted, the HALT doorbell rings or %globaltimer shows the
+// mailbox idle for the linger, and a barrier of its own publishes the
+// window or the end.  The last block's thread 0 stores `ahead`, then
+// `done` (the window count) with __threadfence_system() and a release
+// store after each closing barrier, and `exited` at the end, while the
+// other threads go on.  An idle run so holds the device for the linger at
+// most.
 //
 // Closing at the linger is a handshake with the host's post (Dekker's):
 // the run stores closing = k + 1, fences, and reads `posted` again; the
 // host stores `posted`, fences, and reads `closing` (accl_sequencer_ring).
 // At least one of the two sees the other's store, so either the run takes
 // window k (and clears `closing`), or the host learns that the run closed
-// without reading it and posts the window elsewhere.
+// without reading it and posts the window elsewhere.  A window is fetched
+// ahead only once its `posted` was read with acquire, and never at the
+// linger.
 template <typename T, int NP, int U, bool LANES>
 __device__ __forceinline__ void persistent_body(
-    RunCtl* ctl, const Window* descs, int* status, Window* stage,
-    unsigned* bar, float* scales, int run_windows, long long linger_ns) {
-  __shared__ Window w;
-  int reason = EXIT_BUDGET;
-  for (int k = 0; k < run_windows; ++k) {
-    if (blockIdx.x == 0) {
-      __shared__ int live;
-      if (threadIdx.x == 0) {
-        int d = 0;
-        const unsigned long long t0 = globaltimer();
-        for (;;) {
-          if (ld_acquire_sys(&ctl->posted) > k) { d = 1; break; }
-          if (ld_acquire_sys(&ctl->halt)) { reason = EXIT_HALT; break; }
-          if ((long long)(globaltimer() - t0) > linger_ns) {
-            *(volatile int*)&ctl->closing = k + 1;
-            fence_sc_sys();
-            if (ld_acquire_sys(&ctl->posted) > k) {
-              st_release_sys(&ctl->closing, 0);
-              d = 1;
+    RunCtl* ctl, const char* descs, int* status, Window* stage,
+    unsigned* bar, float* scales, int run_windows, long long linger_ns,
+    int n_slots, int P) {
+  // what one thread or warp keeps across windows lives in shared memory,
+  // out of the registers of the window's items: the barrier count to
+  // reach (thread 0), the windows fetched ahead (the last block's thread
+  // 0) and whether the fetching warp fetched the next window
+  __shared__ unsigned target;
+  __shared__ int ahead, fetched;
+  if (threadIdx.x == 0) target = 0, ahead = 0, fetched = 0;
+  __syncthreads();
+  volatile unsigned* flag = bar + 2;
+  unsigned f = kFlagWait;
+  int k = 0;
+  for (; k < run_windows; ++k) {
+    if (f != kFlagAhead) {  // wait for window k: block 0's warp 0
+      if (blockIdx.x == 0 && threadIdx.x < 32) {
+        unsigned d = kFlagPublished;
+        if (threadIdx.x == 0) {
+          const unsigned long long t0 = globaltimer();
+          stamp(k, ST_POLL);
+          stamp(k, ST_GRID);
+          for (;;) {
+            if (ld_acquire_sys(&ctl->posted) > k) break;
+            if (ld_acquire_sys(&ctl->halt)) { d = kFlagEnd + EXIT_HALT; break; }
+            if ((long long)(globaltimer() - t0) > linger_ns) {
+              *(volatile int*)&ctl->closing = k + 1;
+              fence_sc_sys();
+              if (ld_acquire_sys(&ctl->posted) > k) {
+                st_release_sys(&ctl->closing, 0);
+                break;
+              }
+              d = kFlagEnd + EXIT_LINGER;
               break;
             }
-            reason = EXIT_LINGER;
-            break;
+            __nanosleep(256);
           }
-          __nanosleep(256);
+          if (d == kFlagPublished) stamp(k, ST_SEEN);
         }
-        live = d;
-        *(volatile unsigned*)(bar + 2) = (unsigned)d;
+        d = __shfl_sync(0xFFFFFFFFu, d, 0);
+        __syncwarp();
+        if (d == kFlagPublished) {
+          const int bytes = run_bytes(n_slots, P);
+          fetch_posted(descs + (long long)k * bytes, stage + k % 2, bytes,
+                       n_slots, P);
+          __syncwarp();
+          if (threadIdx.x == 0) stamp(k, ST_STAGED);
+        }
+        if (threadIdx.x == 0) flag[k % 2] = d;
       }
-      __syncthreads();
-      if (live) {  // the descriptor crosses the bus once, uncached
-        const uint2* src = reinterpret_cast<const uint2*>(descs + k);
-        uint2* dst = reinterpret_cast<uint2*>(stage);
-        for (int i = threadIdx.x; i < (int)(sizeof(Window) / 8);
-             i += blockDim.x)
-          dst[i] = __ldcv(src + i);
-      }
+      run_barrier(bar + 4, target);
+      f = flag[k % 2];
+      if (f >= kFlagEnd) break;
     }
-    grid_barrier(bar);
-    if (*(volatile unsigned*)(bar + 2) == 0u) break;
-    {  // every block's own copy, from L2 (8-byte words: a Window is
-       // 14,616 bytes, not a whole number of 16-byte ones)
-      const uint2* src = reinterpret_cast<const uint2*>(stage);
-      uint2* dst = reinterpret_cast<uint2*>(&w);
-      for (int i = threadIdx.x; i < (int)(sizeof(Window) / 8);
-           i += blockDim.x)
-        dst[i] = __ldcg(src + i);
-      __syncthreads();
+    stamp_blocks(k, ST_COPY_MIN, false);
+    stamp_blocks(k, ST_COPY_MAX, true);
+    // window k + 1, if posted, fetched ahead by the last warp of the last
+    // block: before its items when it already is (they are the fewest of
+    // the grid), else after them
+    const bool fetcher = blockIdx.x == gridDim.x - 1 &&
+                         threadIdx.x / 32 == kWarps - 1;
+    if (fetcher) {
+      const bool got = fetch_ahead(ctl, descs, stage, k + 1, run_windows,
+                                   n_slots, P);
+      if (threadIdx.x % 32 == 0) fetched = got;
+      __syncwarp();
     }
-    run_window<T, NP, U, LANES>(w, status + (long long)k * 2 * kMaxSlots,
-                                scales, bar, 1);
-    grid_barrier(bar);  // every item of window k has finished
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
+    run_window<T, NP, U, LANES, !LANES>(
+        stage[k % 2], status + (long long)k * 2 * kMaxSlots, scales, bar, 1);
+    stamp_blocks(k, ST_WORK_MAX, true);
+    if (blockIdx.x == gridDim.x - 1 && threadIdx.x / 32 == kWarps - 1) {
+      const bool got = fetched || fetch_ahead(ctl, descs, stage, k + 1,
+                                              run_windows, n_slots, P);
+      if (threadIdx.x % 32 == 0) flag[(k + 1) % 2] = got ? kFlagAhead : kFlagWait;
+    }
+    run_barrier(bar + 4, target);  // every item of window k has finished
+    f = flag[(k + 1) % 2];
+    if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
+      stamp(k, ST_CLOSED);
+      if (f == kFlagAhead) *(volatile int*)&ctl->ahead = ++ahead;
       __threadfence_system();
       st_release_sys(&ctl->done, k + 1);
+      stamp(k, ST_DONE);
     }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
     __threadfence_system();
-    st_release_sys(&ctl->exited, reason);
+    st_release_sys(&ctl->exited,
+                   k == run_windows ? EXIT_BUDGET : (int)(f - kFlagEnd));
   }
 }
 
 template <typename T, int NP, int U>
 __global__ void __launch_bounds__(kThreads)
-persistent_kernel(RunCtl* ctl, const Window* descs, int* status,
+persistent_kernel(RunCtl* ctl, const char* descs, int* status,
                   Window* stage, unsigned* bar, float* scales,
-                  int run_windows, long long linger_ns) {
+                  int run_windows, long long linger_ns, int n_slots, int P) {
   persistent_body<T, NP, U, false>(ctl, descs, status, stage, bar, scales,
-                                   run_windows, linger_ns);
+                                   run_windows, linger_ns, n_slots, P);
 }
 
 // the LANES persistent form, at the bounds of sequencer_lanes_kernel
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kLaneBlocks)
-persistent_lanes_kernel(RunCtl* ctl, const Window* descs, int* status,
+persistent_lanes_kernel(RunCtl* ctl, const char* descs, int* status,
                         Window* stage, unsigned* bar, float* scales,
-                        int run_windows, long long linger_ns) {
-  persistent_body<T, kLaneRanks, lanes_u<T>(), true>(ctl, descs, status, stage,
-                                               bar, scales, run_windows,
-                                               linger_ns);
+                        int run_windows, long long linger_ns, int n_slots,
+                        int P) {
+  persistent_body<T, kLaneRanks, lanes_u<T>(), true>(
+      ctl, descs, status, stage, bar, scales, run_windows, linger_ns, n_slots,
+      P);
 }
 
 // Fill the item prefix; returns whether any slot after the first waits at
@@ -1477,11 +1705,13 @@ int co_resident(K kernel) {
   return per_sm * sms;
 }
 
+// grid > 0: a cooperative launch of `grid` blocks whatever the window
+// (scripts/run_profile.py times the one-shot kernel at a run's grid)
 template <typename T, int NP, int U, bool LANES = false>
 int launch(Window& w, int* status, unsigned* bar, cudaStream_t s,
-           float* scales = nullptr, long long scales_len = 0) {
+           float* scales = nullptr, long long scales_len = 0, int grid = 0) {
   long long widest = 0;
-  bool coop = plan<T, U>(w, &widest);
+  bool coop = plan<T, U>(w, &widest) || grid > 0;
   w.maxseg = LANES ? lane_segments(w) : 0;
   t_segment = LANES && w.maxseg == 0;
   if (w.maxseg > 0) {
@@ -1504,6 +1734,7 @@ int launch(Window& w, int* status, unsigned* bar, cudaStream_t s,
     max_blocks = co_resident(sequencer_of<T, NP, U, LANES>());
     if (max_blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   }
+  if (grid > 0) blocks = grid;
   if (blocks > max_blocks) blocks = max_blocks;
   int one = 1;
   void* args[] = {&w, &status, &bar, &one, &scales};
@@ -1530,22 +1761,22 @@ constexpr bool kFloatLanes = std::is_same<T, float>::value ||
 
 template <typename T>
 int launch_for(Window& w, int* status, unsigned* bar, float* scales,
-               long long scales_len, cudaStream_t s) {
+               long long scales_len, cudaStream_t s, int grid = 0) {
   if (lanes_of(w)) {
     if constexpr (kFloatLanes<T>)
       return launch<T, kLaneRanks, lanes_u<T>(), true>(w, status, bar, s, scales,
-                                                 scales_len);
+                                                 scales_len, grid);
     else
       return static_cast<int>(cudaErrorInvalidValue);  // float lanes only
   }
-  return launch<T, 4, tile_u<T>()>(w, status, bar, s);
+  return launch<T, 4, tile_u<T>()>(w, status, bar, s, nullptr, 0, grid);
 }
 
-// the persistent kernel of a dtype, plain or LANES
+// the persistent kernel of a dtype, plain or LANES, on its co-resident grid
 template <typename T>
-int launch_run(bool lanes, RunCtl* ctl, const Window* descs, int* status,
+int launch_run(bool lanes, RunCtl* ctl, const char* descs, int* status,
                Window* stage, unsigned* bar, float* scales, int run_windows,
-               long long linger_ns, cudaStream_t s) {
+               long long linger_ns, int n_slots, int P, cudaStream_t s) {
   const void* fn;
   int blocks;
   if (lanes) {
@@ -1563,7 +1794,7 @@ int launch_run(bool lanes, RunCtl* ctl, const Window* descs, int* status,
   }
   if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   void* args[] = {&ctl, &descs, &status, &stage, &bar, &scales, &run_windows,
-                  &linger_ns};
+                  &linger_ns, &n_slots, &P};
   const cudaError_t rc = cudaLaunchCooperativeKernel(
       fn, dim3((unsigned)blocks), dim3(kThreads), args, 0, s);
   if (rc != cudaSuccess) return static_cast<int>(rc);
@@ -1606,9 +1837,9 @@ void plan_for(Window& w) {
 // 256-element segments of an int8 slot's operand row (null without an
 // int8 slot).  Returns cudaGetLastError() after the launch (0 on
 // success).
-extern "C" int accl_sequencer(const void* desc, int* status, void* barrier,
-                              void* scales, long long scales_len,
-                              void* stream) {
+namespace {
+int sequencer_at(const void* desc, int* status, void* barrier, void* scales,
+                 long long scales_len, void* stream, int grid) {
   Window w;
   memcpy(&w, desc, sizeof(Window));
   const int rc = check(w);
@@ -1616,16 +1847,51 @@ extern "C" int accl_sequencer(const void* desc, int* status, void* barrier,
   unsigned* bar = static_cast<unsigned*>(barrier);
   float* sc = static_cast<float*>(scales);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = scales_len;
   switch (w.dtype) {
-    case DT_F32: return launch_for<float>(w, status, bar, sc, scales_len, s);
+    case DT_F32: return launch_for<float>(w, status, bar, sc, n, s, grid);
     case DT_BF16:
-      return launch_for<__nv_bfloat16>(w, status, bar, sc, scales_len, s);
-    case DT_F16: return launch_for<__half>(w, status, bar, sc, scales_len, s);
-    case DT_I32: return launch_for<int32_t>(w, status, bar, sc, scales_len, s);
-    case DT_F64: return launch_for<double>(w, status, bar, sc, scales_len, s);
-    case DT_I64: return launch_for<int64_t>(w, status, bar, sc, scales_len, s);
+      return launch_for<__nv_bfloat16>(w, status, bar, sc, n, s, grid);
+    case DT_F16: return launch_for<__half>(w, status, bar, sc, n, s, grid);
+    case DT_I32: return launch_for<int32_t>(w, status, bar, sc, n, s, grid);
+    case DT_F64: return launch_for<double>(w, status, bar, sc, n, s, grid);
+    case DT_I64: return launch_for<int64_t>(w, status, bar, sc, n, s, grid);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+}  // namespace
+
+extern "C" int accl_sequencer(const void* desc, int* status, void* barrier,
+                              void* scales, long long scales_len,
+                              void* stream) {
+  return sequencer_at(desc, status, barrier, scales, scales_len, stream, 0);
+}
+
+// scripts/run_profile.py's entry points.  accl_sequencer_grid: the one-shot
+// kernel launched cooperatively at `grid` blocks (capped at co-resident),
+// as a run's grid walks a window; `barrier` two zeroed device words.
+extern "C" int accl_sequencer_grid(const void* desc, int* status,
+                                   void* barrier, void* scales,
+                                   long long scales_len, int grid,
+                                   void* stream) {
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return sequencer_at(desc, status, barrier, scales, scales_len, stream,
+                      grid);
+}
+
+// The run stamps (kMaxRunWindows x ST_N unsigned 64-bit words) into `buf`
+// (write 0) or from it (write 1); cudaErrorNotSupported in a build without
+// ACCL_RUN_STAMPS.
+extern "C" int accl_run_stamps(void* buf, int write) {
+#ifdef ACCL_RUN_STAMPS
+  const size_t n = sizeof(unsigned long long) * kMaxRunWindows * ST_N;
+  return static_cast<int>(write ? cudaMemcpyToSymbol(g_stamps, buf, n)
+                                : cudaMemcpyFromSymbol(buf, g_stamps, n));
+#else
+  (void)buf;
+  (void)write;
+  return static_cast<int>(cudaErrorNotSupported);
+#endif
 }
 
 // Whether the calling thread's last accl_sequencer launch took the fp8 /
@@ -1651,43 +1917,49 @@ extern "C" int accl_sequencer_plan(void* desc) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Launch one persistent run on `stream`: `ctl` (a RunCtl, zeroed), `descs`
-// (run_windows Windows) and `status` (run_windows x 64 x 2 ints) in
-// host-mapped memory; `stage` one Window and `barrier` three zeroed words
-// of device memory; `scales` as for accl_sequencer (the largest window's
-// need; may be null for a run without int8 slots).  `lanes` picks the
-// LANES instantiation for every window of the run.
+// Launch one persistent run on `stream` for windows of `n_slots` slots of
+// `P` ranks: `ctl` (a RunCtl, zeroed), `descs` (run_windows posted forms,
+// each ops/cuda/cmdring.py::run_bytes(n_slots, P) bytes, planned as
+// accl_sequencer_plan plans a window) and `status` (run_windows x 64 x 2
+// ints) in host-mapped memory; `stage` two Windows and `barrier` eight
+// zeroed words of device memory; `scales` as for accl_sequencer (the
+// largest window's need; may be null for a run without int8 slots).
+// `lanes` picks the LANES instantiation for every window of the run.
 extern "C" int accl_sequencer_run(void* ctl, const void* descs, int* status,
                                   void* stage, void* barrier, void* scales,
                                   int dtype, int lanes, int run_windows,
-                                  long long linger_ns, void* stream) {
-  if (run_windows < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                  long long linger_ns, int n_slots, int P,
+                                  void* stream) {
+  if (run_windows < 1 || n_slots < 1 || n_slots > kMaxSlots || P < 1 ||
+      P > kMaxP || n_slots * P > kMaxPtrs)
+    return static_cast<int>(cudaErrorInvalidValue);
   RunCtl* c = static_cast<RunCtl*>(ctl);
-  const Window* d = static_cast<const Window*>(descs);
+  const char* d = static_cast<const char*>(descs);
   Window* st = static_cast<Window*>(stage);
   unsigned* bar = static_cast<unsigned*>(barrier);
   float* sc = static_cast<float*>(scales);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool l = lanes != 0;
+  const int n = n_slots;
   switch (dtype) {
     case DT_F32:
       return launch_run<float>(l, c, d, status, st, bar, sc, run_windows,
-                               linger_ns, s);
+                               linger_ns, n, P, s);
     case DT_BF16:
       return launch_run<__nv_bfloat16>(l, c, d, status, st, bar, sc,
-                                       run_windows, linger_ns, s);
+                                       run_windows, linger_ns, n, P, s);
     case DT_F16:
       return launch_run<__half>(l, c, d, status, st, bar, sc, run_windows,
-                                linger_ns, s);
+                                linger_ns, n, P, s);
     case DT_I32:
       return launch_run<int32_t>(l, c, d, status, st, bar, sc, run_windows,
-                                 linger_ns, s);
+                                 linger_ns, n, P, s);
     case DT_F64:
       return launch_run<double>(l, c, d, status, st, bar, sc, run_windows,
-                                linger_ns, s);
+                                linger_ns, n, P, s);
     case DT_I64:
       return launch_run<int64_t>(l, c, d, status, st, bar, sc, run_windows,
-                                 linger_ns, s);
+                                 linger_ns, n, P, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -130,9 +130,13 @@ PROTOTYPES = {"cmdring": {
     "accl_sequencer_plan": (PTR,),
     "accl_sequencer_segment": (),
     "accl_sequencer_run": (PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, LL,
-                           PTR),
+                           INT, INT, PTR),
     "accl_sequencer_ring": (PTR, INT, INT),
     "accl_mapped_alloc": (PTR, LL),
+    # scripts/run_profile.py's: the one-shot kernel at a run's grid, and
+    # the run's stamps (a build with ACCL_RUN_STAMPS)
+    "accl_sequencer_grid": (PTR, PTR, PTR, PTR, LL, INT, PTR),
+    "accl_run_stamps": (PTR, INT),
 }}
 
 #: ``csrc/cmdring.cu``'s ``Window``, field for field: the descriptor one
@@ -718,15 +722,99 @@ sequencer_lanes.segment_launches = LaunchCounter()
 # the persistent form
 # ---------------------------------------------------------------------------
 
+#: a window's posted form (``csrc/cmdring.cu``'s ``kRunSeg``): the extents
+#: of ``WINDOW``'s fields that n slots of P ranks use, in this order, each
+#: ``(field, bytes a slot, bytes a rank-slot, fixed bytes)``; the first row
+#: is the four header words from ``n_slots`` on
+RUN_SEGMENTS = (("n_slots", 0, 0, 16), ("words", 44, 0, 0),
+                ("in_w", 8, 0, 0), ("out_w", 8, 0, 0), ("chunk", 8, 0, 0),
+                ("cols", 8, 0, 0), ("first", 8, 0, 8), ("cls", 4, 0, 0),
+                ("wire", 4, 0, 0), ("sync", 4, 0, 0), ("parts", 4, 0, 0),
+                ("in", 0, 8, 0), ("out", 0, 8, 0))
+
+
+@functools.lru_cache(maxsize=64)
+def run_layout(n: int, P: int) -> tuple:
+    """The posted form of ``n`` slots of ``P`` ranks: ``((offset in
+    WINDOW, offset in the posted form, bytes copied), ...)`` a field, and
+    the form's size.  Each field starts at a 16-byte boundary and is
+    copied in 8-byte words, so a 4-byte field of odd ``n`` takes its next
+    (unused, zero) entry with it."""
+    rows, c = [], 0
+    for name, per_slot, per_rank, fixed in RUN_SEGMENTS:
+        b = per_slot * n + per_rank * n * P + fixed
+        rows.append((WINDOW.fields[name][1], c, -(-b // 8) * 8))
+        c += -(-b // 16) * 16
+    return tuple(rows), c
+
+
+def run_bytes(n: int, P: int) -> int:
+    """Bytes of the posted form of ``n`` slots of ``P`` ranks."""
+    return run_layout(n, P)[1]
+
+
+def posted_form(d: np.ndarray, n: int, P: int) -> np.ndarray:
+    """The posted form (uint8) of the planned descriptor ``d`` (a
+    ``WINDOW`` record, or its int32 view) of ``n`` slots of ``P``
+    ranks."""
+    full = np.ascontiguousarray(d).reshape(-1).view(np.uint8)
+    rows, size = run_layout(n, P)
+    out = np.zeros(size, np.uint8)
+    for off, c, b in rows:
+        out[c:c + b] = full[off:off + b]
+    return out
+
+
+def expand_posted(form: np.ndarray, n: int, P: int) -> np.ndarray:
+    """The ``WINDOW`` record the run writes the posted form into (each
+    field at its place, here in a zeroed record), as
+    ``csrc/cmdring.cu::fetch_posted`` does."""
+    d = np.zeros((), WINDOW)
+    full = d.reshape(1).view(np.uint8)
+    for off, c, b in run_layout(n, P)[0]:
+        full[off:off + b] = form[c:c + b]
+    return d
+
+
+def _run_descriptor(packed, words, n: int, P: int, lanes: bool,
+                    staged) -> np.ndarray:
+    """A window's posted form for a run: planned once a descriptor
+    template and instantiation (``accl_sequencer_plan`` fills its item
+    prefix and int8 segments, which its slot words do not change), then
+    its slot words copied in; a window with staged operand copies is
+    planned on its own."""
+    if staged:
+        d, _ = _descriptor(packed, words, 0, n, P, staged)
+        _plan(d)
+        return posted_form(d, n, P)
+    key = ("run", lanes)
+    form = packed.get(key)
+    if form is None:
+        d, _ = _descriptor(packed, words, 0, n, P, {})
+        _plan(d)
+        form = packed[key] = posted_form(d, n, P)
+    out = form.copy()
+    _, c, _ = run_layout(n, P)[0][1]
+    out[c:c + 44 * n] = words.reshape(-1).view(np.uint8)
+    return out
+
+
+def _plan(d: np.ndarray) -> None:
+    lib = _build.library("cmdring", PROTOTYPES["cmdring"])
+    check_launch(lib, lib.accl_sequencer_plan(d.ctypes.data), "sequencer plan")
+
+
 #: the run's host-mapped block: its control words (``RunCtl``, 256 bytes:
-#: ``posted`` and ``halt`` at words 0-1, ``done``, ``exited`` and
-#: ``closing`` at words 32-34), then the status words and the descriptors
-#: of up to CMDRING_MAX_RUN_WINDOWS windows
+#: ``posted`` and ``halt`` at words 0-1, ``done``, ``exited``, ``closing``
+#: and ``ahead`` at words 32-35), then the status words and the posted
+#: forms of up to CMDRING_MAX_RUN_WINDOWS windows (the largest, 64 slots of
+#: 8 ranks, bounds a block's size)
 _CTL_BYTES = 256
 _STATUS_BYTES = MAX_SLOTS * 2 * 4
 _DESCS = _CTL_BYTES + CMDRING_MAX_RUN_WINDOWS * _STATUS_BYTES
-_MAPPED_BYTES = _DESCS + CMDRING_MAX_RUN_WINDOWS * WINDOW.itemsize
-_DONE, _EXITED, _CLOSING = 32, 33, 34
+_MAPPED_BYTES = _DESCS + CMDRING_MAX_RUN_WINDOWS * run_bytes(
+    MAX_SLOTS, MAX_RANK_SLOTS // MAX_SLOTS)
+_DONE, _EXITED, _CLOSING, _AHEAD = 32, 33, 34, 35
 #: why a run returned (``exited``)
 EXIT_HALT, EXIT_BUDGET, EXIT_LINGER = 1, 2, 3
 
@@ -774,18 +862,32 @@ class PersistentRun:
     ``csrc/cmdring.cu``'s ``persistent_kernel`` that drains up to
     ``run_windows`` windows of one shape posted into host-mapped memory.
 
-    :meth:`post` packs a window's descriptor as a one-shot launch would,
-    plans it (``accl_sequencer_plan``), writes it into the window's slot
-    of the mapped block and rings the doorbell; :meth:`launch` starts the
-    run (after its first post, whose staged operand copies, if any, go on
-    the stream before it).  The run returns on the HALT doorbell
-    (:meth:`halt`), once its budget is spent, or when its mailbox stays
-    idle for ``linger_s`` by the card's clock.  Closing at the linger is a
-    handshake with the post (``csrc/cmdring.cu``, ``persistent_body``):
-    a post the run closed on without reading returns None, and the
-    caller runs the window elsewhere; it never reaches the run.
-    ``launches`` counts the runs, ``closed_posts`` the posts a closing
-    run refused."""
+    :meth:`post` writes a window's posted form (:func:`run_layout`: the
+    used extents of its descriptor, 1,344 bytes at 8 slots of 4 ranks
+    against the descriptor's 14,616) into the window's slot of the mapped
+    block and rings the doorbell; the form is planned once a descriptor
+    template (:func:`_run_descriptor`), so a warm post copies its slot words
+    into it and makes no call to ``accl_sequencer_plan``.  :meth:`launch`
+    starts the run (after its first post, whose staged operand copies, if
+    any, go on the stream before it).  On the card a window crosses the bus
+    once; when it is posted before the window ahead of it ends, the run
+    fetches it during that window and one grid barrier both ends the one
+    and publishes the other (:meth:`ahead` counts those windows).  The run
+    returns on the HALT doorbell (:meth:`halt`), once its budget is spent,
+    or when its mailbox stays idle for ``linger_s`` by the card's clock.
+    Closing at the linger is a handshake with the post
+    (``csrc/cmdring.cu``, ``persistent_body``): a post the run closed on
+    without reading returns None, and the caller runs the window
+    elsewhere; it never reaches the run.  ``launches`` counts the runs,
+    ``closed_posts`` the posts a closing run refused.
+
+    On an H100 at 700 W (``scripts/run_profile.py``, windows of 8 x
+    allreduce 1 Mi float32 at P = 4, every one posted ahead) a window takes
+    0.1016 ms of device time in a run against 0.0947 a one-shot launch
+    (0.1242 before this design, which moved the whole descriptor over the
+    bus and met at two grid barriers a window); the host's post takes
+    0.06-0.09 ms, most of it ``_packed``'s reading of the window's
+    tensors."""
 
     launches = LaunchCounter()
     closed_posts = LaunchCounter()
@@ -803,9 +905,10 @@ class PersistentRun:
         self.ptr = _mapped_block()
         self.ctl = np.ctypeslib.as_array(
             (ctypes.c_int32 * (_CTL_BYTES // 4)).from_address(self.ptr))
-        self.stage = torch.empty(WINDOW.itemsize, dtype=torch.uint8,
+        self.form_bytes = run_bytes(shape.depth, self.P)
+        self.stage = torch.empty(2 * WINDOW.itemsize, dtype=torch.uint8,
                                  device=device)
-        self.bar = torch.zeros(4, dtype=torch.int32, device=device)
+        self.bar = torch.zeros(8, dtype=torch.int32, device=device)
         maxseg = scale_segments(shape)
         self.scales = (torch.empty(shape.depth * self.P * maxseg,
                                    dtype=torch.float32, device=device)
@@ -818,7 +921,7 @@ class PersistentRun:
         self.fault: Optional[str] = None  # a CUDA error seen by ended()
         self.on_fail = None  # callback(reason), once, on a failure
         self.end_event = None
-        self._final = (0, 0)  # (done, exited) once the block is returned
+        self._final = (0, 0, 0)  # (done, exited, ahead) once returned
         self._lock = threading.Lock()
         _live_runs.add(self)
 
@@ -832,6 +935,12 @@ class PersistentRun:
         """0 while the run lives, else why it returned (EXIT_*)."""
         ctl = self.ctl
         return self._final[1] if ctl is None else int(ctl[_EXITED])
+
+    def ahead(self) -> int:
+        """Windows the run fetched during the window ahead of them (as of
+        its last ``done``)."""
+        ctl = self.ctl
+        return self._final[2] if ctl is None else int(ctl[_AHEAD])
 
     @property
     def accepting(self) -> bool:
@@ -860,13 +969,11 @@ class PersistentRun:
                 return None
             staged = {(i, r): xs[i][r].reshape(-1)[:self.shape.in_ws[i]]
                       .clone() for i, r in stage}
-            d, _ = _descriptor(packed, words, 0, n, P, staged)
-            lib = _build.library("cmdring", PROTOTYPES["cmdring"])
-            check_launch(lib, lib.accl_sequencer_plan(d.ctypes.data),
-                         "sequencer plan")
+            form = _run_descriptor(packed, words, n, P, self.lanes, staged)
             k = self.posted
-            ctypes.memmove(self.ptr + _DESCS + k * WINDOW.itemsize,
-                           d.ctypes.data, WINDOW.itemsize)
+            ctypes.memmove(self.ptr + _DESCS + k * self.form_bytes,
+                           form.ctypes.data, self.form_bytes)
+            lib = _build.library("cmdring", PROTOTYPES["cmdring"])
             closing = lib.accl_sequencer_ring(self.ptr, k + 1, 0)
             if self.launched and closing == k + 1 and not self._took(k):
                 PersistentRun.closed_posts.bump()
@@ -897,7 +1004,8 @@ class PersistentRun:
             self.stage.data_ptr(), self.bar.data_ptr(),
             None if self.scales is None else self.scales.data_ptr(),
             int(torch_to_dtype(self.shape.dtype)), int(self.lanes),
-            self.run_windows, int(self.linger_s * 1e9), stream)
+            self.run_windows, int(self.linger_s * 1e9), self.shape.depth,
+            self.P, stream)
         check_launch(lib, rc, "persistent sequencer")
         PersistentRun.launches.bump()
         self.end_event = torch.cuda.Event()
@@ -980,7 +1088,7 @@ class PersistentRun:
         with self._lock:
             ptr, self.ptr = self.ptr, None
             if ptr is not None:
-                self._final = (self.done(), self.exited())
+                self._final = (self.done(), self.exited(), self.ahead())
                 self.ctl = None
         if ptr is not None:
             ctypes.memset(ptr, 0, _CTL_BYTES)

@@ -78,10 +78,14 @@ Phases (any failure exits non-zero):
    segments of edge values (a NaN, zeros only, +-inf, the absmax in the
    last lane), ``sequencer_lanes.segment_launches`` showing which form
    each window took (the int8 windows off the segments take the scale
-   phase); the persistent form (``check_persistent``) over six
-   streams of 4 windows, one launch each, against the same plain
-   version with its mapped status words, and its budget and linger
-   exits.  K1 also runs its fp8 lanes and its raw int8 cast.  Rows 5-8
+   phase); the persistent form (``check_persistent``) over eleven
+   streams of 4 windows, one launch each (P 2, 3, 4, 8; plain, fp8 and
+   int8 in the segment form and with the scale phase; the in-place forms;
+   two opcode mixes of one shape in one run), and 24 distinct windows at
+   random gaps, some fetched ahead during the window before them, against
+   the same plain version with its mapped status words, and its HALT,
+   budget and linger exits and the closing handshake (bursts of posts
+   around the linger, a post held up inside ``post``).  K1 also runs its fp8 lanes and its raw int8 cast.  Rows 5-8
    (the compression kernels) are held BIT FOR BIT (NaN bits included,
    but for the NaN of an int8 segment's scale): the cast over every
    pair of float32 / bfloat16 / float16 / fp8 e4m3 / e5m2, the
@@ -1353,10 +1357,18 @@ def check_persistent(err) -> dict:
     its first post and fed the rest while it runs, held exactly against
     ``sequencer_plain`` window by window, status words included (read from
     the run's mapped memory), over P 2, 3, 4 and 8, plain, fp8 and int8
-    windows of every class; then the three ways a run returns: the HALT
-    doorbell, its window budget and its linger."""
+    windows of every class (int8 in the segment form and with the scale
+    phase), the in-place forms, and windows of other opcodes in one run;
+    then 24 distinct windows posted at random gaps into one run, some
+    fetched ahead during the window before them and some waited for
+    (``PersistentRun.ahead``), each held against ``sequencer_plain``; then
+    the three ways a run returns: the HALT doorbell, its window budget and
+    its linger, and the closing handshake (``check_closing``)."""
+    import random
+
     import torch
 
+    from accl_tpu_torch.constants import CmdOpcode as Op
     from accl_tpu_torch.ops.cmdring import status_words
     from accl_tpu_torch.ops.cuda import cmdring as kseq
 
@@ -1364,11 +1376,20 @@ def check_persistent(err) -> dict:
     E4M3, E5M2, I8 = torch.float8_e4m3fn, torch.float8_e5m2, torch.int8
     dev = torch.device("cuda", 0)
     n_off = SEQ_N // 4 + 1003
+    AR = (Op.ALLREDUCE, 0, 0)
+    # two windows of one shape (every slot (n, n)), other opcodes: each
+    # takes its own descriptor template in the run
+    mixed = ([AR, (Op.BCAST, 2, 0), (Op.SEND, 1, 3), (Op.RECV, 0, 1), AR,
+              (Op.NOP, 0, 0)],
+             [(Op.BCAST, 1, 0), AR, (Op.RECV, 2, 3), (Op.SEND, 0, 2),
+              (Op.NOP, 0, 0), AR])
     streams = [
         ("P=4 f32 every class", lambda s: seq_window(
             4, F32, seq_mix(4), n_off, s)),
-        ("P=4 f32 int8 seeded", lambda s: seq_window(
+        ("P=4 f32 int8 seeded, scale phase", lambda s: seq_window(
             4, F32, seq_mix(4), n_off, s, wires=[I8], flags=77)),
+        ("P=4 f32 int8 seeded, segment form", lambda s: seq_window(
+            4, F32, [AR] * 8, SEQ_N, s, wires=[I8], flags=12345)),
         ("P=2 bf16 e4m3 seeded", lambda s: seq_window(
             2, BF16, seq_mix(2)[:8], 100_003, s, wires=[E4M3], flags=9)),
         ("P=8 f32 e5m2 seed 0", lambda s: seq_window(
@@ -1376,12 +1397,20 @@ def check_persistent(err) -> dict:
         ("P=3 i32 plain", lambda s: seq_window(
             3, I32, seq_mix(3, False), 100_003, s)),
         ("P=4 f32 8 x allreduce", lambda s: seq_window(
-            4, F32, [seq_mix(4)[0]] * 8, SEQ_N, s)),
+            4, F32, [AR] * 8, SEQ_N, s)),
+        ("P=4 f32 other opcodes in one run", lambda s: seq_window(
+            4, F32, mixed[s % 2], SEQ_N // 4, s)),
+        ("P=4 f32 in place", lambda s: inplace_window(
+            4, F32, SEQ_N // 4 + 3, s)),
+        ("P=3 bf16 e4m3 in place", lambda s: inplace_window(
+            3, BF16, 4 * 65_536, s, wire=E4M3, flags=77)),
+        ("P=4 f32 int8 in place, scale phase", lambda s: inplace_window(
+            4, F32, 5 * 65_539, s, wire=I8, flags=77)),
     ]
     for j, (tag, build) in enumerate(streams):
         got = [build(SEED + 600 + 10 * j + k) for k in range(4)]
         want = [build(SEED + 600 + 10 * j + k) for k in range(4)]
-        slots, xs, _, shape = got[0]
+        slots, xs, _, shape = got[0][:4]
         P = len(xs[0])
         before = kseq.PersistentRun.launches.count
         run = kseq.PersistentRun(shape, P, dev, 8, 0.5,
@@ -1397,15 +1426,13 @@ def check_persistent(err) -> dict:
         for k in ks:
             if not run.wait_window(k, 60.0):
                 fail(f"persistent {tag}: window {k}: {run.failed}")
-        statuses = [run.status(k, got[0][0].shape[0]) for k in ks]
+        statuses = [run.status(k, g[0].shape[0]) for k, g in zip(ks, got)]
         if not run.join(10.0) or run.exited() != kseq.EXIT_HALT:
             fail(f"persistent {tag}: the run did not return on HALT "
                  f"(exited {run.exited()})")
         if kseq.PersistentRun.launches.count != before + 1:
             fail(f"persistent {tag}: not one launch for the stream")
         torch.cuda.synchronize()
-        key = ("sequencer_lanes" if kseq.takes_lanes(slots, shape.wires)
-               else "sequencer")
         for i, (g, w) in enumerate(zip(got, want)):
             kseq.sequencer_plain(*w[:4])
             if (statuses[i] != status_words(g[0])).any():
@@ -1418,6 +1445,53 @@ def check_persistent(err) -> dict:
                             compare(f"persistent {tag} window {i}", o, ref))
         del got, want
         torch.cuda.synchronize()
+    # 24 distinct windows of 8 x allreduce 2 Mi (~0.2 ms each): the first
+    # six posted before the launch (windows 1-5 are fetched ahead), then
+    # every third posted only once the run has drained (it waits for it),
+    # the rest at once, at random a little later
+    rnd = random.Random(SEED + 650)
+    seeds = [SEED + 660 + i for i in range(24)]
+    got = [seq_window(4, F32, [AR] * 8, 2 * SEQ_N, s_) for s_ in seeds]
+    run = kseq.PersistentRun(got[0][3], 4, dev, len(got), 0.5, False)
+    for win in got:  # each window's posted form built first, as a warm
+        run.post(*win[:3])  # ring's are (a run never launched)
+    run.join(1.0)
+    run = kseq.PersistentRun(got[0][3], 4, dev, len(got), 0.5, False)
+    for i, win in enumerate(got):
+        if i == 6:
+            run.launch()
+        if i >= 6 and i % 3 == 0:
+            t_ = time.time()
+            while run.done() < i and time.time() - t_ < 60:
+                time.sleep(1e-5)
+        elif i >= 6:
+            t_ = time.perf_counter() + rnd.uniform(0.0, 1e-4)
+            while time.perf_counter() < t_:  # finer than a sleep
+                pass
+        if run.post(*win[:3]) is None:
+            fail(f"persistent random gaps: window {i} refused")
+    if not run.wait_window(len(got) - 1, 60.0):
+        fail(f"persistent random gaps: {run.failed}")
+    statuses = [run.status(k, 8) for k in range(len(got))]
+    run.join(10.0)
+    ahead = run.ahead()
+    if run.exited() != kseq.EXIT_BUDGET or not 5 <= ahead <= len(got) - 7:
+        fail(f"persistent random gaps: exited {run.exited()}, {ahead} of "
+             f"{len(got)} windows fetched ahead (5 at least, 6 waited for)")
+    torch.cuda.synchronize()
+    for i, (g, s_) in enumerate(zip(got, seeds)):
+        w = seq_window(4, F32, [AR] * 8, 2 * SEQ_N, s_)
+        kseq.sequencer_plain(*w[:4])
+        if (statuses[i] != status_words(g[0])).any():
+            fail(f"persistent random gaps: window {i} status words")
+        for rg, rw in zip(g[2], w[2]):
+            for o, ref in zip(rg, rw):
+                err["sequencer_run"] = max(err["sequencer_run"], compare(
+                    f"persistent random gaps window {i}", o, ref))
+        del w
+    del got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     # the budget and the linger
     win = seq_window(4, F32, seq_mix(4)[:2], 4096, SEED + 700)
     run = kseq.PersistentRun(win[3], 4, dev, 2, 0.5, False)
@@ -1444,29 +1518,37 @@ def check_persistent(err) -> dict:
         fail(f"persistent: the linger did not end the run "
              f"(exited {run.exited()})")
     run.join(1.0)
-    closed = check_closing(kseq, dev, win, err)
+    closed = check_closing(kseq, dev, err)
+    closed["random_gaps_ahead"] = ahead
     print(f"persistent sequencer: {len(streams)} streams of 4 windows agree "
-          f"with sequencer_plain, one launch each; budget and linger "
-          f"(2 ms: returned {lingered * 1e3:.2f} ms after its window) end "
-          f"a run; closing handshake: {closed}", flush=True)
+          f"with sequencer_plain, one launch each; 24 windows at random "
+          f"gaps, {ahead} fetched ahead; budget and linger (2 ms: returned "
+          f"{lingered * 1e3:.2f} ms after its window) end a run; closing "
+          f"handshake: {closed}", flush=True)
     return closed
 
 
-def check_closing(kseq, dev, win, err) -> dict:
-    """The closing handshake between a post and a run lingering out: (a) a
-    post held up inside ``post`` (its descriptor step delayed 100 ms)
-    past a 20 ms linger is refused with None, the run having closed
-    without it (``closed_posts``), and the window then runs on a fresh
-    run, equal to ``sequencer_plain``; (b) 96 posts at random intervals
-    of 0-2 ms into runs of a 1 ms linger, each refused one re-posted to a
-    fresh run: every window's status words right and every result equal
-    to ``sequencer_plain``'s, no window lost."""
+def check_closing(kseq, dev, err) -> dict:
+    """The closing handshake between a post and a run lingering out, on
+    the main path's window (8 x allreduce 1 Mi, ~0.1 ms): (a) a post held
+    up inside ``post`` (its posted form's step delayed 100 ms) past a 20 ms
+    linger is refused with None, the run having closed without it
+    (``closed_posts``), and the window then runs on a fresh run, equal to
+    ``sequencer_plain``; (b) 96 bursts of 1-3 posts at random intervals of
+    0-2 ms into runs of a 1 ms linger (a burst's later posts land while
+    the window before them runs, so the run fetches them ahead and then
+    lingers toward the next burst), each refused post re-posted to a fresh
+    run: every window's status words right and every result equal to
+    ``sequencer_plain``'s, no window lost."""
     import random
 
     import torch
 
+    from accl_tpu_torch.constants import CmdOpcode as Op
     from accl_tpu_torch.ops.cmdring import status_words
 
+    win = seq_window(4, torch.float32, [(Op.ALLREDUCE, 0, 0)] * 8, SEQ_N,
+                     SEED + 710)
     slots, xs, outs, shape = win
     want = [[None if o is None else torch.empty_like(o) for o in row]
             for row in outs]
@@ -1494,17 +1576,17 @@ def check_closing(kseq, dev, win, err) -> dict:
     run.launch()
     check("(a)", run, 0)
     closed0 = kseq.PersistentRun.closed_posts.count
-    real = kseq._descriptor
+    real = kseq._run_descriptor
 
     def slow(*a, **kw):
         time.sleep(0.1)
         return real(*a, **kw)
 
-    kseq._descriptor = slow
+    kseq._run_descriptor = slow
     try:
         k = run.post(slots, xs, outs)
     finally:
-        kseq._descriptor = real
+        kseq._run_descriptor = real
     if (k is not None or run.exited() != kseq.EXIT_LINGER
             or kseq.PersistentRun.closed_posts.count != closed0 + 1):
         fail(f"closing (a): a post delayed past the linger gave {k}, "
@@ -1519,25 +1601,39 @@ def check_closing(kseq, dev, win, err) -> dict:
     check("(a) re-posted", run, 0)
     run.join(5.0)
     results("closing (a) re-posted window")
-    # (b) posts at random intervals around a 1 ms linger
+    # (b) bursts of posts at random intervals around a 1 ms linger
     rnd = random.Random(SEED)
-    runs, closed0 = 0, kseq.PersistentRun.closed_posts.count
-    run = None
+    runs, posts, ahead = 0, 0, 0
+    closed0 = kseq.PersistentRun.closed_posts.count
+    run, taken = None, []
+
+    def settle(tag):  # every window the run took, then the run ends
+        for k_ in taken:
+            check(f"(b) {tag} window {k_}", run, k_)
+        taken.clear()
+
     for i in range(96):
         time.sleep(rnd.uniform(0.0, 0.002))
-        k = None if run is None else run.post(slots, xs, outs)
-        if k is None:
-            if run is not None:
-                run.join(5.0)
-            run = kseq.PersistentRun(shape, len(xs[0]), dev, 128, 0.001,
-                                     False)
-            runs += 1
-            k = run.post(slots, xs, outs)
-            run.launch()
-        check(f"(b) post {i}", run, k)
+        for j in range(rnd.randint(1, 3)):
+            k = (None if run is None or not run.accepting
+                 else run.post(slots, xs, outs))
+            if k is None:
+                if run is not None:
+                    settle(f"burst {i}")
+                    run.join(5.0)
+                    ahead += run.ahead()
+                run = kseq.PersistentRun(shape, len(xs[0]), dev, 128, 0.001,
+                                         False)
+                runs += 1
+                k = run.post(slots, xs, outs)
+                run.launch()
+            taken.append(k)
+            posts += 1
+        settle(f"burst {i}")
     run.join(5.0)
+    ahead += run.ahead()
     results("closing (b) stream")
-    out.update(runs=runs, posts=96,
+    out.update(runs=runs, posts=posts, ahead=ahead,
                closed_posts=kseq.PersistentRun.closed_posts.count - closed0)
     return out
 
@@ -1856,7 +1952,7 @@ def ring_main_path(kc) -> dict:
 
         # (e) a post held up past the linger inside PersistentRun.post
         held = []
-        real = kseq._descriptor
+        real = kseq._run_descriptor
 
         def slow(*a_, **kw):
             f = sys._getframe(1)
@@ -1871,14 +1967,14 @@ def ring_main_path(kc) -> dict:
                 d.tensor.zero_()
         closed0 = kseq.PersistentRun.closed_posts.count
         ring.linger_s = 0.02
-        kseq._descriptor = slow
+        kseq._run_descriptor = slow
         try:
             hold_stream(STREAM_SLEEP)
             st0 = ring.stats()
             run_ranks(group, stream, "stream with a delayed post")
             st1 = ring.stats()
         finally:
-            kseq._descriptor = real
+            kseq._run_descriptor = real
             ring.linger_s = saved
         out["delayed_post"] = dict(
             {k: st1[k] - st0[k] for k in ("refills", "dispatches",
@@ -2513,35 +2609,50 @@ def time_sequencer(rand) -> dict:
 def time_persistent(P, kseq, Op, windows: int = 16) -> dict:
     """Row 14's persistent form on the main path's window: ``windows``
     windows of 8 x allreduce 1 Mi posted into one run (launched after the
-    first post), timed from the first post to the last window's
-    completion on the host clock, per window; twice over, the second
-    kept.  Beside it the one-shot kernel launched once a window over the
-    same windows, the same way."""
+    first post), timed on the host clock per window from before the run
+    is built (``run_ms``, the figure kept since the form was ported) and
+    from its launch (``run_from_launch_ms``) to the last window's
+    completion, with the windows the run fetched ahead; twice over, the
+    second kept.  Beside it the one-shot kernel launched once a window over
+    the same windows, the same way.  Then the same for phase 4's int8 and
+    e4m3 windows (seeded, the segment form) posted into a LANES run
+    (``int8_run_ms``, ...), beside their one-shot launches."""
     import torch
 
     dev = torch.device("cuda", 0)
-    win = seq_window(P, torch.float32, [(Op.ALLREDUCE, 0, 0)] * 8, SEQ_N,
-                     SEED + 6)
+    F32, AR = torch.float32, [(Op.ALLREDUCE, 0, 0)] * 8
+    kinds = (("", seq_window(P, F32, AR, SEQ_N, SEED + 6), False),
+             ("int8_", seq_window(P, F32, AR, SEQ_N, SEED + 5,
+                                  wires=[torch.int8], flags=12345), True),
+             ("float8_e4m3fn_", seq_window(P, F32, AR, SEQ_N, SEED + 5,
+                                           wires=[torch.float8_e4m3fn],
+                                           flags=12345), True))
     out = {}
-    for _pass in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run = kseq.PersistentRun(win[3], P, dev, windows, 0.002, False)
-        for i in range(windows):
-            if run.post(*win[:3]) is None:
-                fail("time_persistent: a post was refused")
-            if i == 0:
-                run.launch()
-        if not run.wait_window(windows - 1, 60.0):
-            fail(f"time_persistent: {run.failed}")
-        out["run_ms"] = (time.perf_counter() - t0) * 1e3 / windows
-        run.join(5.0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(windows):
-            kseq.sequencer(*win)
-        torch.cuda.synchronize()
-        out["oneshot_ms"] = (time.perf_counter() - t0) * 1e3 / windows
+    for key, win, lanes in kinds:
+        for _pass in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run = kseq.PersistentRun(win[3], P, dev, windows, 0.5, lanes)
+            for i in range(windows):
+                if run.post(*win[:3]) is None:
+                    fail("time_persistent: a post was refused")
+                if i == 0:
+                    t1 = time.perf_counter()
+                    run.launch()
+            if not run.wait_window(windows - 1, 60.0):
+                fail(f"time_persistent: {run.failed}")
+            t2 = time.perf_counter()
+            out[key + "run_ms"] = (t2 - t0) * 1e3 / windows
+            out[key + "run_from_launch_ms"] = (t2 - t1) * 1e3 / windows
+            run.join(5.0)
+            out[key + "run_ahead"] = run.ahead()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(windows):
+                kseq.sequencer(*win)
+            torch.cuda.synchronize()
+            out[key + "oneshot_ms"] = (time.perf_counter() - t0) * 1e3 / windows
+        del win
     return out
 
 
@@ -8772,7 +8883,9 @@ def main() -> int:
         print(f"ptxas, row 14's fp8 / int8 kernels [registers, stack, "
               f"spill bytes]: {lanes_ptxas(kc)}", flush=True)
         t0 = time.time()
-        check_sequencer({k: 0.0 for k in kc.KERNELS})
+        err = {k: 0.0 for k in kc.KERNELS}
+        check_sequencer(err)
+        check_persistent(err)
         print(f"row 14's phase 2 ok ({time.time() - t0:.1f} s)", flush=True)
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED)
@@ -8781,7 +8894,8 @@ def main() -> int:
         print(json.dumps({"sequencer_lanes": {
             "card": smi.stdout.strip().splitlines()[0],
             **{k: v for k, v in seq.items()
-               if k.startswith(("int8_", "float8_")) or k == "device_ms"}}}))
+               if k.startswith(("int8_", "float8_", "run_", "oneshot_"))
+               or k == "device_ms"}}}))
         return 0
     if sys.argv[1:] == ["--launch-path"]:  # the launch path alone
         if not kc.probe_copy(torch.ones(8, 128, device=dev)).eq(1).all():
@@ -9250,6 +9364,12 @@ def main() -> int:
             kernels[-1].update({
                 "window": "8 x allreduce 1 Mi f32, P = 4, 16 a run",
                 "oneshot_ms": seq["oneshot_ms"],
+                "from_launch_ms": seq["run_from_launch_ms"],
+                "ahead": seq["run_ahead"],
+                **{f"{lane}{k}": seq[f"{lane}{k}"]
+                   for lane in ("int8_", "float8_e4m3fn_")
+                   for k in ("run_ms", "run_from_launch_ms", "run_ahead",
+                             "oneshot_ms")},
                 "ptxas": tile_regs["sequencer_run"],
                 "ptxas_lanes": tile_regs["sequencer_run_lanes"],
             })
@@ -9371,7 +9491,12 @@ def main() -> int:
         extra = (f"e4m3 device_ms={k['e4m3_device_ms']:.4f} "
                  f"bound_ms={k['e4m3_bound_ms']:.4f}"
                  if name == "sequencer_lanes" else
-                 f"one-shot launches {k['oneshot_ms']:.4f} a window")
+                 f"from the launch {k['from_launch_ms']:.4f}, "
+                 f"{k['ahead']} of 16 fetched ahead; one-shot launches "
+                 f"{k['oneshot_ms']:.4f} a window; int8 run "
+                 f"{k['int8_run_ms']:.4f} (one-shot {k['int8_oneshot_ms']:.4f}),"
+                 f" e4m3 run {k['float8_e4m3fn_run_ms']:.4f} (one-shot "
+                 f"{k['float8_e4m3fn_oneshot_ms']:.4f})")
         print(f"{name}: ms={k['ms']:.4f} "
               f"{'device_ms=%.4f ' % k['device_ms'] if 'device_ms' in k else ''}"
               f"bound_ms={k['bound_ms']:.4f}; {extra}")

@@ -507,6 +507,116 @@ def test_window_layout_equals_the_kernel_struct():
     assert kseq.WINDOW.itemsize == int(size.group(1))
 
 
+
+def _planned_window(P, n, dtype, wire, depth=None):
+    """``pack_window``'s descriptor of a mixed window of every slot class
+    under ``wire`` (its first ``depth`` slots), with an item prefix and
+    int8 segments filled in as ``accl_sequencer_plan`` would fill them
+    (the CPU has no kernel library)."""
+    slots, rows, (d_, in_ws, out_ws, wires) = _window(P, n, dtype, None)
+    depth = d_ if depth is None else depth
+    slots, rows = slots[:depth], rows[:depth]
+    wires = [wire if w_ is None else w_ for w_ in wires[:depth]]
+    for w_ in slots:
+        w_[6] = 77  # a seed word: the lanes' flags
+    shape = tring.WindowShape(depth, in_ws[:depth], out_ws[:depth], wires,
+                              dtype)
+    xs, outs = _tensors(rows, in_ws[:depth], out_ws[:depth], P)
+    in_ptrs = [t.data_ptr() for row in xs for t in row]
+    out_ptrs = [t.data_ptr() for row in outs for t in row]
+    d = kseq.pack_window(kseq._words(slots), shape, P,
+                         [i % 3 == 2 for i in range(depth)], in_ptrs,
+                         out_ptrs)
+    d["first"][:depth + 1] = np.cumsum([0] + list(d["parts"][:depth]) * 1)
+    d["maxseg"] = 5
+    return d, slots
+
+
+@pytest.mark.parametrize("P", [2, 3, 4, 8])
+@pytest.mark.parametrize("wire", [None, "bfloat16", "float16", "float8_e4m3fn",
+                                  "float8_e5m2", "int8"])
+def test_posted_form_expands_to_the_descriptor(P, wire):
+    """A run's window travels in its posted form (the used extents of the
+    descriptor): written into the run's stage as its fetching warp writes
+    it, it is
+    ``pack_window``'s planned descriptor byte for byte, for every slot
+    class and wire, at odd and even depths (a 4-byte field of odd depth
+    carries its next, zero entry)."""
+    for depth in (1, 3, 6, 7):
+        d, _ = _planned_window(P, 12, "float32", wire, depth)
+        form = kseq.posted_form(d, depth, P)
+        assert form.nbytes == kseq.run_bytes(depth, P)
+        assert form.nbytes % 16 == 0
+        got = kseq.expand_posted(form, depth, P)
+        assert got.tobytes() == d.tobytes()
+    # the main path's window, 8 slots of 4 ranks, crosses the bus in
+    # 1,344 bytes of the descriptor's 14,616
+    assert kseq.run_bytes(8, 4) == 1344
+    assert kseq.run_bytes(64, 8) <= (kseq._MAPPED_BYTES - kseq._DESCS) // (
+        tconst.CMDRING_MAX_RUN_WINDOWS)
+
+
+def test_run_descriptor_plans_once_a_template(monkeypatch):
+    """A warm post plans nothing: the posted form of a descriptor template
+    is planned once an instantiation, and each window copies its slot
+    words into it; a window with staged operand copies is planned on its
+    own, with the copies' pointers."""
+    P, depth = 4, 7
+    d, slots = _planned_window(P, 12, "float32", None, depth)
+    plans = []
+
+    def plan(desc):
+        plans.append(1)
+        rec = desc.view(kseq.WINDOW).reshape(())
+        rec["first"][:depth + 1] = np.arange(depth + 1) * 3
+        rec["maxseg"] = 2
+
+    monkeypatch.setattr(kseq, "_plan", plan)
+    packed = {0: (d.reshape(1).view(np.int32), True)}
+    words = kseq._words(slots)
+    forms = []
+    for seqn in (100, 101, 102):
+        w = words.copy()
+        w[:, 0] = seqn + np.arange(depth)
+        forms.append((w, kseq._run_descriptor(packed, w, depth, P, False,
+                                              {})))
+    assert len(plans) == 1
+    for w, form in forms:
+        got = kseq.expand_posted(form, depth, P)
+        np.testing.assert_array_equal(got["words"][:depth], w)
+        assert list(got["first"][:depth + 1]) == list(
+            np.arange(depth + 1) * 3)
+        assert int(got["maxseg"]) == 2
+    kseq._run_descriptor(packed, words, depth, P, True, {})
+    assert len(plans) == 2  # the LANES instantiation plans its own
+    copy = torch.zeros(12)
+    form = kseq._run_descriptor(packed, words, depth, P, False,
+                                {(0, 1): copy})
+    assert len(plans) == 3
+    assert int(kseq.expand_posted(form, depth, P)["in"][1]) == copy.data_ptr()
+
+
+def test_run_layout_equals_the_kernel_table():
+    """``RUN_SEGMENTS`` is ``csrc/cmdring.cu``'s ``kRunSeg`` row for row,
+    and the run's control words sit where the kernel asserts ``RunCtl``'s
+    fields."""
+    import re
+
+    from accl_tpu_torch.ops.cuda import _build
+
+    src = (_build.CSRC / "cmdring.cu").read_text()
+    rows = re.findall(r"\{offsetof\(Window, (\w+)\), (\d+), (\d+), "
+                      r"(\d+)\}", src)
+    assert [(f, int(a), int(b), int(c)) for f, a, b, c in rows] == list(
+        kseq.RUN_SEGMENTS)
+    ctl = dict(re.findall(r"static_assert\(offsetof\(RunCtl, (\w+)\) == "
+                          r"(\d+)", src))
+    assert int(ctl["done"]) == 4 * kseq._DONE
+    assert int(ctl["ahead"]) == 4 * kseq._AHEAD
+    assert kseq._EXITED == kseq._DONE + 1 == kseq._CLOSING - 1
+    assert re.search(r"static_assert\(sizeof\(RunCtl\) == (\d+)",
+                     src).group(1) == str(kseq._CTL_BYTES)
+
 def _hazard_case(P, n):
     """In-place allreduce and reduce-scatter, a bcast writing what slot 0
     reads and writes (WAR, WAW), and an allreduce whose rank-0 result lies
