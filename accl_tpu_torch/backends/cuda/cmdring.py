@@ -129,6 +129,7 @@ from ...constants import (
 from ...membership import CircuitBreaker
 from ...ops.cmdring import run_window, status_words
 from ...telemetry import _perf_to_epoch_us
+from ...utils.profiling import annotate
 from ...ops.cuda.cmdring import (
     PersistentRun,
     RunTicket,
@@ -1182,13 +1183,14 @@ class GangCommandRing:
         use_run = (self.lowering == "xla" and (live or streaming)
                    and not probe and launches_for(comm.size, n) == 1)
         try:
-            if use_run:
-                rec.form = "mailbox"
-                self._post_or_dispatch(comm, session, shape, rec, slots_np,
-                                       xs, outs, bufs, device)
-            else:
-                self._dispatch_inline(comm, session, shape, rec, slots_np,
-                                      xs, outs, bufs, device)
+            with annotate(f"accl::cmdring[{n}]"):
+                if use_run:
+                    rec.form = "mailbox"
+                    self._post_or_dispatch(comm, session, shape, rec,
+                                           slots_np, xs, outs, bufs, device)
+                else:
+                    self._dispatch_inline(comm, session, shape, rec,
+                                          slots_np, xs, outs, bufs, device)
         except BaseException as e:
             with self._lock:
                 if rec in session.windows:

@@ -110,6 +110,7 @@ from ...ops.wire import wire_lane_roundtrip_rows
 from ...overlap import InflightWindow, device_waiter
 from ...wire import astype, is_wire_dtype, rank_seed, roundtrip, widen
 from ...request import Request
+from ...utils.profiling import annotate
 from ..base import (
     BaseEngine,
     CallOptions,
@@ -825,6 +826,10 @@ class CudaGangContext:
             with self._order:
                 while (self._executed.get(comm.id, 0) < seq
                        and self._reset_gen == slot.gen):
+                    # acclint: allow[unbounded-wait] every earlier number
+                    # of the comm ends by _finish_seq: it runs, or its
+                    # slot's watchdog reaps it at the gang timeout, or a
+                    # soft_reset bumps the generation and notifies
                     self._order.wait()
                 stale = self._reset_gen != slot.gen
             if stale:  # abandoned by a soft_reset while it waited
@@ -1027,7 +1032,9 @@ class CudaGangContext:
             elif lead.fuse:
                 # a fused call off the ring: its operand is packed for the
                 # slot, so the plain base op has no correct spelling
-                code, event = self._execute_fused_decomposed(comm, calls)
+                with annotate(f"accl::fused{int(lead.fuse)}_decomposed"):
+                    code, event = self._execute_fused_decomposed(comm,
+                                                                 calls)
             elif (self.cmdring.eager and self.cmdring.supports(lead.op)
                   and self.cmdring.run_batch(
                       comm, [([c], [q]) for c, q in zip(calls, reqs)], 1,
@@ -1038,7 +1045,10 @@ class CudaGangContext:
                       comm, [([c], [q]) for c, q in zip(calls, reqs)])):
                 return
             else:
-                code, event, launched = self._run_op(comm, calls, lead)
+                # the call's named range (the per-call span the
+                # reference's perf counter provides), around its launch
+                with annotate(f"accl::{lead.op.name.lower()}"):
+                    code, event, launched = self._run_op(comm, calls, lead)
         except Exception as e:  # the gang boundary: fail every rank's call
             code = ErrorCode.INVALID_OPERATION
             context = {"op": lead.op.name,
@@ -1316,9 +1326,11 @@ class CudaGangContext:
         try:
             self.interactions.bump()  # ONE dispatch for the whole batch
             writers = []
-            for calls, lead in positions:
-                writers += [calls[r].res for r in self._lower(comm, calls, lead)]
-                done += 1
+            with annotate(f"accl::batch[{len(positions)}]"):
+                for calls, lead in positions:
+                    writers += [calls[r].res
+                                for r in self._lower(comm, calls, lead)]
+                    done += 1
             event = _record_event(self.device)
             for res in writers:
                 res.ready = event

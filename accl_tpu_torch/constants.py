@@ -372,6 +372,7 @@ class ACCLError(RuntimeError):
 
 
 DEFAULT_TIMEOUT_S = 30.0
+DEFAULT_RX_BUFFER_SIZE = 4 * 1024  # bytes per eager RX buffer / segment
 
 
 def drain_deadline_s(timeout_s: float) -> float:

@@ -1332,18 +1332,24 @@ class ACCL:
     # -- capabilities --------------------------------------------------------
     def capabilities(self) -> dict:
         """What this handle's engine can do, and its dispatch counters:
-        the keys of the JAX facade's report that the port can fill
-        truthfully (the tier's other feature bits come with the rest of
-        the facade, ROADMAP A11e)."""
+        the keys of the JAX facade's report (``platform`` names the
+        handle's device as JAX names its backends: ``"gpu"`` on the card,
+        ``"cpu"`` for a ``device="cpu"`` group)."""
         engine = type(self.engine).__name__
         return {
             "engine": engine,
             # by name, as JAX decides it; the port's gang engine is the
             # device tier
             "device_tier": engine == "CudaEngine",
+            # the C++ data plane comes with the host tiers (ROADMAP A12)
+            "native_dataplane": False,
             "wire_compression": sorted(
                 f"{u.name}->{c.name}" for (u, c) in self._arith if u != c),
             "arithmetic": [f.name for f in ReduceFunction],
+            "streams": True,
+            "rendezvous": True,
+            "platform": ("gpu" if self.engine.device.type == "cuda"
+                         else self.engine.device.type),
             "world_size": self._world.size,
             # one warm gang collective moves it by exactly 1
             "device_interactions": self.engine.device_interactions(),
@@ -1832,12 +1838,15 @@ class ACCL:
     def _count_of(buf: BaseBuffer, count: Optional[int]) -> int:
         n = buf.count if count is None else int(count)
         if n < 0:
-            raise ACCLError(ErrorCode.INVALID_COUNT, f"count {n}")
+            raise ACCLError(ErrorCode.INVALID_COUNT, f"count {n}",
+                            details={"count": n, "buffer_count": buf.count})
         return n
 
     def _check_rank(self, comm: Communicator, rank: int) -> None:
         if not 0 <= rank < comm.size:
-            raise ACCLError(ErrorCode.INVALID_RANK, f"rank {rank}")
+            raise ACCLError(ErrorCode.INVALID_RANK, f"rank {rank}",
+                            details={"rank": rank, "comm": comm.id,
+                                     "size": comm.size})
 
     def _collective(self, op: Operation, comm, count: int, dtype: DataType,
                     compress_dtype, run_async: bool, context=None,
@@ -2123,6 +2132,9 @@ class ACCL:
     @staticmethod
     def _hop_loop(q: queue.SimpleQueue) -> None:
         while True:
+            # acclint: allow[unbounded-wait] the stage thread's idle wait:
+            # deinit posts the None that ends it, and every stage it runs
+            # is a post that never blocks on another rank
             fn = q.get()
             if fn is None:
                 return
@@ -2319,7 +2331,14 @@ class ACCL:
             "bcast", [_s1, _s2], run_async, "bcast", plan=plan, comm=comm,
             count=n, dtype=buf.dtype)
 
+    def get_duration(self, request: Request) -> int:
+        """Engine-measured call duration in ns (ref ACCL::get_duration)."""
+        return request.get_duration_ns()
+
     # -- primitives ----------------------------------------------------------
+    def nop(self, run_async: bool = False):
+        return self._launch(CallOptions(op=Operation.NOP), run_async, "nop")
+
     def copy(self, srcbuf: BaseBuffer, dstbuf: BaseBuffer,
              count: Optional[int] = None, run_async: bool = False):
         n = self._count_of(srcbuf, count)

@@ -1105,11 +1105,15 @@ class MonitorServer:
     (``/metrics`` Prometheus, ``/snapshot`` JSON, ``/trace`` Chrome
     trace; ``/`` lists them).  Render functions run on the request
     thread — they must be the cheap, side-effect-free snapshot surface
-    the telemetry plane already guarantees."""
+    the telemetry plane already guarantees.  A route given as ``(fn,
+    content_type, True)`` is called with the request's query, parsed by
+    ``urllib.parse.parse_qs`` (``utils.profiling.start_server``'s
+    ``/capture?ms=N``)."""
 
-    def __init__(self, routes: Dict[str, Tuple[Callable[[], str], str]],
+    def __init__(self, routes: Dict[str, tuple],
                  port: int = 0, host: str = "127.0.0.1"):
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs
 
         self.routes = dict(routes)
         self.scrapes: Dict[str, int] = {p: 0 for p in self.routes}
@@ -1120,7 +1124,7 @@ class MonitorServer:
 
         class _Handler(BaseHTTPRequestHandler):
             def do_GET(self):  # noqa: N802 - stdlib handler contract
-                path = self.path.split("?", 1)[0]
+                path, _, query = self.path.partition("?")
                 if path == "/" and "/" not in outer.routes:
                     body = "\n".join(sorted(outer.routes)) + "\n"
                     self._reply(200, body, "text/plain; charset=utf-8")
@@ -1129,9 +1133,10 @@ class MonitorServer:
                 if route is None:
                     self._reply(404, f"no such route {path}\n", "text/plain")
                     return
-                fn, ctype = route
+                fn, ctype = route[:2]
                 try:
-                    body = fn()
+                    body = (fn(parse_qs(query)) if route[2:] == (True,)
+                            else fn())
                 except Exception as e:  # a render failure must not kill
                     with outer._count_lock:  # the server
                         outer.errors += 1

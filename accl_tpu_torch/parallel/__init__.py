@@ -1,9 +1,20 @@
-"""accl_tpu_torch.parallel: ZeRO-1 Adam over virtual dp ranks on one
-device — the counterpart of ``accl_tpu/parallel/zero.py`` as
-``accl_tpu/parallel/__init__.py:15-23`` exports it.  The JAX package's
-topology and multi-host modules come with the platform and multi-process
-tiers (ROADMAP A7, A6)."""
+"""accl_tpu_torch.parallel: the topology bootstrap, the multi-host meshes
+and ZeRO-1 Adam over virtual dp ranks on one device — the counterpart of
+``accl_tpu/parallel``, exporting the same names."""
 
+from .topology import (  # noqa: F401
+    Design,
+    bootstrap,
+    device_memory_report,
+    generate_ranks,
+    mesh_from_topology,
+)
+from .multihost import (  # noqa: F401
+    MultihostContext,
+    bootstrap_multihost,
+    dp_over_dcn_mesh,
+    hybrid_mesh,
+)
 from .zero import (  # noqa: F401
     AdamConfig,
     clip_by_global_norm,

@@ -16,6 +16,8 @@
                                           # ZeRO-1 Adam) and its records
     python3 chip_smoke.py --pipeline      # phase 3p (the pipeline, the
                                           # composed trainer, the example)
+    python3 chip_smoke.py --platform      # phase 3q (bootstrap, traces,
+                                          # device memory, hybrid meshes)
 
 Phases (any failure exits non-zero):
 
@@ -322,6 +324,23 @@ Phases (any failure exits non-zero):
       (``examples/train.py``): a seeded token file through the native
       loader (built with g++ here), 4 pipeline steps saved every 2, a
       resume to 6 equal bit for bit to an uninterrupted 6-step run;
+   q. the platform layer (``platform_main_path``; ``--platform`` runs it
+      and prints its record alone): (a) ``bootstrap(Design.ICI, 4)``
+      inside ``utils.trace``: under ``pallas_ring`` an allreduce at 64
+      MiB and at 256 KiB a rank (K1), then under ``xla`` a batched window
+      of 8 x allreduce 1 Mi float32 (row 14), each result equal to its plain
+      version (K1's ``ring_allreduce_plain``, the window's rank-order
+      fold); (b) in the written Chrome trace, every ``accl::allreduce``
+      range encloses, on its thread, the launch of
+      ``ring_allreduce_kernel`` and the ``accl::cmdring[8]`` range the
+      sequencer's, each launch correlated to its kernel's device event;
+      (c) ``device_memory_report()`` before and after 4 x 64 MiB
+      (``bytes_in_use`` up by 256 MiB at least, ``bytes_limit`` the
+      card's total) and ``device_memory_profile()``'s segments holding
+      the four tensors; (d) bench.py's training model (nothing cut) one
+      step on ``hybrid_mesh("dp", {"tp": 1}, devices=[cuda] * 2)`` and
+      one on ``make_mesh((2, 1), ...)`` from the same weights, losses
+      and parameters equal bit for bit;
 4. time each kernel at those shapes beside its bound, its plain version
    and one PyTorch library call computing the same function (K3's
    allgather and root-only gather, K4, row 11 and row 13 also by device
@@ -427,7 +446,11 @@ Phases (any failure exits non-zero):
    step ms on (dp 2, tp 1), then each leg's step ms, tokens/s, the
    profiled step's device busy ms and idle share, peak against reckoned
    memory, launches a step by the counters and the profiler, losses, the
-   bubble fraction, and the example's losses and resume).
+   bubble fraction, and the example's losses and resume); and phase
+   3q's ``platform`` (its figures, one ``utils.annotate`` enter / exit
+   over 10^5 iterations with no profiler and with one active, and the
+   warm 256 KiB ``pallas_ring`` call's p50 / p90 and launch p50 / p90 on
+   ``bootstrap(Design.ICI, 4)``).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON object, the last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -589,7 +612,7 @@ def run_ranks(group, rank_main, what: str) -> None:
 
 def facade_latency(sizes, algos, iters: int = 20) -> list:
     """p50 and p90 of the facade allreduce per (register, elements per
-    rank), and the p50 of the gang's launch time (the host time from the
+    rank), and the p50 and p90 of the gang's launch time (the host time from the
     last rank's arrival to every request's completion, kernel launch
     included, device time not).  Every (size, register) pair runs twice
     over; only the second pass is kept, so no pair pays the first pass's
@@ -631,6 +654,7 @@ def facade_latency(sizes, algos, iters: int = 20) -> list:
             "algo": algo, "bytes_per_rank": nbytes, "p50_ms": p50 * 1e3,
             "p90_ms": float(np.percentile(times, 90)) * 1e3,
             "launch_p50_ms": float(np.median(launch)) * 1e3,
+            "launch_p90_ms": float(np.percentile(launch, 90)) * 1e3,
             "busbw_GBps": nbytes * 2 * (P_MAIN - 1) / P_MAIN / p50 / 1e9,
         })
     return rows
@@ -8745,6 +8769,337 @@ def print_pipeline(pipe, card: str) -> None:
                                          **pipe["records"]}}))
 
 
+#: phase 3q's window: 8 x allreduce of 1 Mi float32 a rank (row 14)
+PLAT_WIN, PLAT_WIN_N = 8, 1024 * 1024
+#: the launch events of the CUDA runtime and driver in a Chrome trace
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def trace_links(events) -> tuple:
+    """A written Chrome trace's host ranges (``user_annotation``), its
+    launch calls and its kernels keyed by correlation id."""
+    ranges, launches, kernels = [], [], {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat")
+        corr = e.get("args", {}).get("correlation")
+        if cat == "user_annotation":
+            ranges.append(e)
+        elif cat in LAUNCH_CATS and "Launch" in e.get("name", ""):
+            launches.append(e)
+        elif cat == "kernel" and corr is not None:
+            kernels[corr] = e
+    return ranges, launches, kernels
+
+
+def ranges_enclose(events, name: str, kernel: str) -> list:
+    """Every host range called ``name`` must enclose, on its own thread, a
+    launch call whose kernel (by correlation id) is ``kernel``; fails
+    otherwise.  Returns, a range each, [range us, launch us, kernel us,
+    kernel name]."""
+    ranges, launches, kernels = trace_links(events)
+    mine = [r for r in ranges if r["name"] == name]
+    if not mine:
+        fail(f"the trace holds no {name!r} range")
+    if not any(kernel in k["name"] for k in kernels.values()):
+        fail(f"the trace holds no device event of {kernel}: kernels "
+             f"{sorted({k['name'][:60] for k in kernels.values()})}")
+    found = []
+    for r in mine:
+        lo, hi = r["ts"], r["ts"] + r["dur"]
+        hit = None
+        for la in launches:
+            k = kernels.get(la.get("args", {}).get("correlation"))
+            if (k is not None and kernel in k["name"]
+                    and la["pid"] == r["pid"] and la["tid"] == r["tid"]
+                    and lo <= la["ts"] and la["ts"] + la["dur"] <= hi):
+                hit = (la, k)
+                break
+        if hit is None:
+            near = [(la["name"], la["tid"], la["ts"] - lo,
+                     (kernels.get(la.get("args", {}).get("correlation"))
+                      or {}).get("name", "no device event")[:60])
+                    for la in launches if lo - 1e3 <= la["ts"] <= hi + 1e3]
+            fail(f"{name} range at {lo} us ({r['dur']} us, tid "
+                 f"{r['tid']}) encloses no launch of {kernel}; launches "
+                 f"near it: {near[:8]}")
+        found.append([r["dur"], hit[0]["dur"], hit[1]["dur"],
+                      hit[1]["name"][:80]])
+    return found
+
+
+def platform_trace(kc, logdir: str) -> dict:
+    """Phase 3q (a)-(b): on ``bootstrap(Design.ICI, 4)``, once untraced
+    and once inside ``utils.trace(logdir)``: under the ``pallas_ring``
+    register an allreduce at 64 MiB and at 256 KiB a rank (K1), then under
+    ``xla`` (a kernel register keeps a batch off the ring) a batched
+    window of 8 x allreduce 1 Mi float32 (row 14), each result equal to
+    its plain version; then the written trace's ``accl::allreduce`` and
+    ``accl::cmdring[8]`` ranges must each enclose their kernel's launch,
+    correlated to its device event."""
+    import numpy as np
+    import torch
+
+    import accl_tpu_torch as at
+    from accl_tpu_torch import utils
+    from accl_tpu_torch.parallel import Design, bootstrap
+
+    sizes = (N_RANK, 64 * 1024)
+    rng = np.random.default_rng(SEED + 28)
+    data = {n: rng.standard_normal((P_MAIN, n), dtype=np.float32)
+            for n in sizes}
+    wdata = rng.standard_normal((P_MAIN, PLAT_WIN_N), dtype=np.float32)
+    group = bootstrap(Design.ICI, P_MAIN)
+    ring = group[0].engine.gang.cmdring
+    bufs = {}
+    try:
+        for r, a in enumerate(group):
+            a.set_tuning("ring_segments", 4)
+            bufs[r] = dict(
+                {n: (a.create_buffer_from(data[n][r]),
+                     a.create_buffer(n, np.float32)) for n in sizes},
+                w=(a.create_buffer_from(wdata[r]),
+                   [a.create_buffer(PLAT_WIN_N, np.float32)
+                    for _ in range(PLAT_WIN)]))
+
+        def rank_main(a, r):
+            b = bufs[r]
+            a.set_tuning("allreduce_algorithm", "pallas_ring")
+            for n in sizes:
+                a.allreduce(*b[n], n)
+            # the ring takes a window only under the xla registers (a
+            # kernel register sends a batch off it: JAX's tuning_override)
+            a.set_tuning("allreduce_algorithm", "xla")
+            s, ds = b["w"]
+            with a.batch():
+                reqs = [a.allreduce(s, d, PLAT_WIN_N, run_async=True)
+                        for d in ds]
+            for q in reqs:
+                if not q.wait(120) or not q.ring_resident:
+                    raise RuntimeError(f"{q.op_name} off the ring")
+                q.check()
+
+        reset_launches(kc)
+        d0 = ring.dispatches
+        # one untraced round first: the trace then holds warm calls (a
+        # first launch loads its module, ~7 ms)
+        run_ranks(group, rank_main, "phase 3q warm calls")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with utils.trace(logdir):
+            run_ranks(group, rank_main, "phase 3q traced calls")
+            torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t
+        launches = read_launches(kc)
+        dispatched = ring.dispatches - d0
+        for n in sizes:
+            xs = [bufs[r][n][0].tensor for r in range(P_MAIN)]
+            want = kc.ring_allreduce_plain(xs, at.ReduceFunction.SUM, 4)
+            for r in range(P_MAIN):
+                compare(f"phase 3q allreduce {4 * n} B/rank rank {r}",
+                        bufs[r][n][1].tensor, want[r])
+        fold = torch.from_numpy(wdata[0].copy())
+        for row in wdata[1:]:
+            fold = fold + torch.from_numpy(row)
+        for r in range(P_MAIN):
+            for k, d in enumerate(bufs[r]["w"][1]):
+                compare(f"phase 3q window slot {k} rank {r}",
+                        d.tensor.cpu(), fold)
+    finally:
+        for a in group:
+            a.deinit()
+    want = {k: 0 for k in launches}
+    want.update(ring_allreduce=2 * len(sizes), sequencer=2)
+    if launches != want or dispatched != 2:
+        fail(f"phase 3q: launches {launches}, ring dispatches {dispatched};"
+             f" want {want}, 2 dispatches")
+    (name,) = os.listdir(logdir)
+    path = os.path.join(logdir, name)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    enclosed = {
+        "accl::allreduce": ranges_enclose(events, "accl::allreduce",
+                                          "ring_allreduce_kernel"),
+        f"accl::cmdring[{PLAT_WIN}]": ranges_enclose(
+            events, f"accl::cmdring[{PLAT_WIN}]", "sequencer_kernel"),
+    }
+    if len(enclosed["accl::allreduce"]) != len(sizes):
+        fail(f"phase 3q: {len(enclosed['accl::allreduce'])} "
+             f"accl::allreduce ranges for {len(sizes)} calls")
+    return dict(launches=launches, enclosed=enclosed, traced_s=traced_s,
+                trace_bytes=os.path.getsize(path), trace_events=len(events))
+
+
+def platform_memory() -> dict:
+    """Phase 3q (c): ``device_memory_report()`` before and after 4 x 64
+    MiB: ``bytes_in_use`` rises by at least 256 MiB, ``bytes_limit`` is
+    ``torch.cuda.mem_get_info``'s total, and ``device_memory_profile()``
+    unpickles into segments that hold the four tensors."""
+    import pickle
+
+    import torch
+
+    from accl_tpu_torch.parallel import device_memory_report
+    from accl_tpu_torch.utils import device_memory_profile
+
+    mib = 1024 * 1024
+    before = device_memory_report()
+    held = [torch.empty(64 * mib // 4, device="cuda") for _ in range(4)]
+    after = device_memory_report()
+    snap = pickle.loads(device_memory_profile())
+    total = torch.cuda.mem_get_info(0)[1]
+    rise = after[0]["bytes_in_use"] - before[0]["bytes_in_use"]
+    if (len(after) != torch.cuda.device_count()
+            or after[0]["platform"] != "gpu"
+            or after[0]["kind"] != torch.cuda.get_device_name(0)):
+        fail(f"device_memory_report: {after}")
+    if rise < 256 * mib or after[0]["bytes_limit"] != total:
+        fail(f"device_memory_report: bytes_in_use rose {rise}, want >= "
+             f"{256 * mib}; bytes_limit {after[0]['bytes_limit']} against "
+             f"mem_get_info's {total}")
+    segs = [(s["address"], s["address"] + s["total_size"])
+            for s in snap["segments"] if s["device"] == 0]
+    for x in held:
+        lo, hi = x.data_ptr(), x.data_ptr() + x.numel() * x.element_size()
+        if not any(a <= lo and hi <= b for a, b in segs):
+            fail(f"device_memory_profile: no segment holds [{lo}, {hi})")
+    del held
+    return {"bytes_in_use_before": before[0]["bytes_in_use"],
+            "bytes_in_use_after": after[0]["bytes_in_use"],
+            "bytes_limit": after[0]["bytes_limit"],
+            "segments": len(segs),
+            "segment_bytes": sum(b - a for a, b in segs)}
+
+
+def platform_hybrid_step(kc) -> dict:
+    """Phase 3q (d): bench.py's training model (1,346M, bfloat16,
+    ``attention="auto"``, 8 x 1024, nothing cut) takes one step on
+    ``hybrid_mesh("dp", {"tp": 1}, devices=[cuda] * 2)`` and one on
+    ``make_mesh((2, 1), axes=("dp", "tp"))`` from the same seeded
+    weights; the losses and every parameter agree bit for bit."""
+    import torch
+
+    from accl_tpu_torch.models import (TransformerConfig, init_params,
+                                       make_sharded_train_step)
+    from accl_tpu_torch.models.transformer import _tree_leaves
+    from accl_tpu_torch.ops.driver import make_mesh
+    from accl_tpu_torch.parallel import hybrid_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="auto", **TRAIN)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 28)
+    p0 = init_params(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_T), generator=gen,
+                           device=dev, dtype=torch.int32)
+    targets = tokens.roll(-1, dims=1)
+    hyb = hybrid_mesh("dp", {"tp": 1}, devices=[dev] * 2)
+    plain = make_mesh((2, 1), dev, axes=("dp", "tp"))
+    out, params = {}, {}
+    reset_launches(kc)
+    for name, mesh in (("hybrid", hyb), ("plain", plain)):
+        step, shard = make_sharded_train_step(cfg, lr=TRAIN_LR, mesh=mesh)
+        p = shard(p0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, loss = step(p, tokens, targets)
+        torch.cuda.synchronize()
+        out[name] = {"loss": float(loss),
+                     "step_ms": (time.perf_counter() - t) * 1e3}
+        params[name] = p
+    launches = read_launches(kc)
+    if not math.isfinite(out["hybrid"]["loss"]) or (
+            out["hybrid"]["loss"] != out["plain"]["loss"]):
+        fail(f"phase 3q: hybrid-mesh step {out}")
+    for i, (a, b) in enumerate(zip(_tree_leaves(params["hybrid"]),
+                                   _tree_leaves(params["plain"]))):
+        if not torch.equal(a, b):
+            fail(f"phase 3q: parameter {i} differs between the hybrid-mesh"
+                 f" and the plain-mesh step")
+    want = {k: (2 * cfg.n_layers if k in TRAIN_KERNELS else 0)
+            for k in kc.KERNELS}
+    if launches != want:
+        fail(f"phase 3q: two steps launched {launches}, want {want}")
+    del p0, params
+    torch.cuda.empty_cache()
+    return dict(out, mesh=[list(hyb.axis_names), list(hyb.axis_sizes)],
+                launches=launches)
+
+
+def platform_main_path(kc) -> dict:
+    """Phase 3q, the platform layer (ROADMAP A7) on the card: (a)-(b)
+    :func:`platform_trace`, (c) :func:`platform_memory`, (d)
+    :func:`platform_hybrid_step`.  Returns the records and the launches
+    by kernel."""
+    import tempfile
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as logdir:
+        traced = platform_trace(kc, logdir)
+    print(f"phase 3q (a)-(b) ok ({time.time() - t0:.1f} s): launches "
+          f"{ {k: v for k, v in traced['launches'].items() if v} }; "
+          f"ranges [range us, launch us, kernel us, kernel] "
+          f"{json.dumps(traced['enclosed'])}", flush=True)
+    t0 = time.time()
+    memory = platform_memory()
+    print(f"phase 3q (c) ok ({time.time() - t0:.1f} s): {memory}",
+          flush=True)
+    t0 = time.time()
+    hybrid = platform_hybrid_step(kc)
+    print(f"phase 3q (d) ok ({time.time() - t0:.1f} s): "
+          f"{ {k: v for k, v in hybrid.items() if k != 'launches'} }",
+          flush=True)
+    launches = {k: traced["launches"][k] + hybrid["launches"][k]
+                for k in kc.KERNELS}
+    return dict(launches=launches, records={
+        "trace": {k: v for k, v in traced.items() if k != "launches"},
+        "memory": memory,
+        "hybrid_step": {k: v for k, v in hybrid.items() if k != "launches"},
+    })
+
+
+def annotate_ns(n: int = 100_000) -> dict:
+    """One ``utils.annotate`` enter / exit, timed alone over ``n``
+    iterations (host clock): with no profiler, then inside an active
+    ``torch.profiler`` session (CPU activity, every thread)."""
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    from accl_tpu_torch.utils import annotate
+
+    def loop():
+        t = time.perf_counter_ns()
+        for _ in range(n):
+            with annotate("accl::bench"):
+                pass
+        return (time.perf_counter_ns() - t) / n
+
+    loop()  # warm
+    idle = loop()
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)):
+        active = loop()
+    return {"iterations": n, "idle_ns": idle, "profiling_ns": active,
+            "cuda_initialized": torch.cuda.is_initialized()}
+
+
+def print_platform(plat, card: str) -> None:
+    """Phase 5's record of phase 3q and the platform layer's costs:
+    :func:`annotate_ns`, and the warm 256 KiB ``pallas_ring`` allreduce's
+    call and launch p50 / p90 (``facade_latency``'s, the gang's ranges
+    included) beside the prepared path's launch p50 that ``PERF.md``
+    records, 0.11-0.15 ms."""
+    (warm,) = facade_latency([64 * 1024], ["pallas_ring"], iters=30)
+    print(json.dumps({"platform": {
+        "card": card, **plat["records"], "annotate": annotate_ns(),
+        "allreduce_256kib": dict(
+            warm, recorded_launch_p50_ms=[0.11, 0.15])}}))
+
+
 def main() -> int:
     import torch
 
@@ -8874,6 +9229,19 @@ def main() -> int:
               f"{ {k: v for k, v in pipe['launches'].items() if v} }",
               flush=True)
         print_pipeline(pipe, smi.stdout.strip().splitlines()[0])
+        return 0
+    if sys.argv[1:] == ["--platform"]:  # phase 3q alone, with its record
+        probe_phase(kc)
+        print(f"built {kc.build_all(['ring', 'cmdring', 'attention',
+                                      'attention_bwd'])}", flush=True)
+        t0 = time.time()
+        plat = platform_main_path(kc)
+        print(f"platform path ok ({time.time() - t0:.1f} s): launches "
+              f"{ {k: v for k, v in plat['launches'].items() if v} }",
+              flush=True)
+        t0 = time.time()
+        print_platform(plat, smi.stdout.strip().splitlines()[0])
+        print(f"platform timing ({time.time() - t0:.1f} s)", flush=True)
         return 0
     if sys.argv[1:] == ["--lanes"]:  # row 14's phases 2 and 4 alone
         probe_phase(kc)
@@ -9156,7 +9524,12 @@ def main() -> int:
     print(f"pipeline path ok ({time.time() - t0:.1f} s): launches "
           f"{ {k: v for k, v in pipe['launches'].items() if v} }",
           flush=True)
-    # each kernel's launches over the probe's and the seventeen paths' runs
+    t0 = time.time()
+    plat = platform_main_path(kc)
+    print(f"platform path ok ({time.time() - t0:.1f} s): launches "
+          f"{ {k: v for k, v in plat['launches'].items() if v} }",
+          flush=True)
+    # each kernel's launches over the probe's and the eighteen paths' runs
     launches = {k: launches[k] + rooted[k] + batched[k]
                 + ringed["launches"][k] + serve["launches"][k]
                 + train["launches"][k] + cp["launches"][k] + compressed[k]
@@ -9164,7 +9537,8 @@ def main() -> int:
                 + p2p[k] + seqp["launches"][k] + dispatched[k]
                 + topo["launches"][k] + telem["launches"][k]
                 + faults["launches"][k] + arb["launches"][k]
-                + models["launches"][k] + pipe["launches"][k] + probed[k]
+                + models["launches"][k] + pipe["launches"][k]
+                + plat["launches"][k] + probed[k]
                 for k in launches}
 
     # -- phase 4: timing at the main path's shapes ---------------------------
@@ -9315,6 +9689,8 @@ def main() -> int:
             kernels[-1]["launches_arbiter"] = arb["launches"][name]
         if models["launches"][name]:  # phase 3o's share
             kernels[-1]["launches_models"] = models["launches"][name]
+        if plat["launches"][name]:  # phase 3q's share
+            kernels[-1]["launches_platform"] = plat["launches"][name]
         if name in TRAIN_KERNELS:  # non-causal, (8, 32, 1024, 128): 3o
             f = models["timing"]["fwd" if name == "flash_attention"
                                  else name]
@@ -9634,6 +10010,9 @@ def main() -> int:
         "gaps": seqp["gaps"]}}))
     print_models(models, smi.stdout.strip().splitlines()[0])
     print_pipeline(pipe, smi.stdout.strip().splitlines()[0])
+    t0 = time.time()
+    print_platform(plat, smi.stdout.strip().splitlines()[0])
+    print(f"platform timing ({time.time() - t0:.1f} s)", flush=True)
     check_circuit_opens("after phase 3m", faults["ring"]["circuit_open"])
     print(json.dumps({"gc_holds": GC_HOLDS}))
     print(smi.stdout.strip().splitlines()[0])

@@ -1,6 +1,7 @@
 """Time the warm 256 KiB allreduce of the port's gang on one GPU, for a
-comparison of two trees of the package (one with the in-flight window,
-one without) on the same card.
+comparison of two trees of the package on the same card (one with the
+in-flight window and one without; one with the gang's named ranges and
+one without).
 
     PYTHONSAFEPATH=1 PYTHONPATH=<tree> python3 scripts/window_cost.py
 

@@ -436,17 +436,15 @@ def test_one_member_communicator(port, algo):
 def test_capabilities_keys_equal_jax(groups):
     jg, tg = groups
     jc, tc = jg[0].capabilities(), tg[0].capabilities()
-    assert set(tc) == {"engine", "device_tier", "wire_compression",
-                       "arithmetic", "world_size", "device_interactions",
-                       "plan_cache", "inflight_window", "tuning_plan",
-                       "telemetry", "monitor", "health", "membership",
-                       "contract_verify"}
+    assert set(tc) == set(jc)  # every key of JAX's report
     assert set(tc["plan_cache"]) == set(jc["plan_cache"])
     for key in ("device_tier", "wire_compression", "arithmetic",
                 "world_size", "inflight_window", "tuning_plan", "telemetry",
-                "monitor", "health", "membership", "contract_verify"):
+                "monitor", "health", "membership", "contract_verify",
+                "streams", "rendezvous", "platform"):
         assert tc[key] == jc[key]
     assert tc["engine"] == "CudaEngine"
+    assert tc["native_dataplane"] is False  # until the host tiers (A12)
 
 
 # ---------------------------------------------------------------------------

@@ -121,7 +121,9 @@ def test_import_is_free_of_jax_and_the_jax_package():
         "accl_tpu_torch.models.encoder, accl_tpu_torch.parallel, "
         "accl_tpu_torch.parallel.zero, accl_tpu_torch.models.pipeline, "
         "accl_tpu_torch.models.composed, accl_tpu_torch.data, "
-        "accl_tpu_torch.examples.train\n"
+        "accl_tpu_torch.examples.train, accl_tpu_torch.utils, "
+        "accl_tpu_torch.parallel.topology, accl_tpu_torch.parallel.multihost, "
+        "accl_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'accl_tpu'))\n"
         "print(','.join(bad))\n"
@@ -520,6 +522,58 @@ def test_bad_registers_and_calls_raise():
     finally:
         for a in g:
             a.deinit()
+
+
+def test_capabilities_report():
+    """test_aux.py:262 on the port, beside ``xla_group(2)``'s report."""
+    jg, tg = xla_group(2), at.cuda_group(2, device="cpu")
+    try:
+        for caps in (jg[0].capabilities(), tg[0].capabilities()):
+            assert caps["world_size"] == 2
+            assert "SUM" in caps["arithmetic"] and "MAX" in caps["arithmetic"]
+            assert any("FLOAT16" in w for w in caps["wire_compression"])
+            assert any("FLOAT8" in w for w in caps["wire_compression"])
+            assert caps["streams"] and caps["rendezvous"]
+            assert isinstance(caps["device_tier"], bool)
+            assert caps["platform"] == "cpu"
+        jc, tc = jg[0].capabilities(), tg[0].capabilities()
+        for key in ("world_size", "arithmetic", "wire_compression",
+                    "streams", "rendezvous", "device_tier", "platform"):
+            assert tc[key] == jc[key], key
+        assert tc["native_dataplane"] is False  # until ROADMAP A12
+    finally:
+        for a in jg + tg:
+            a.deinit()
+
+
+def test_nop_and_get_duration_equal_jax(groups):
+    """``nop`` completes on every rank without a device call, as JAX's;
+    ``get_duration`` is the request's engine-measured ns, on a nop and on
+    an allreduce."""
+    jg, tg = groups
+    count = 256
+    rows = np.random.default_rng(14).standard_normal((P, count)).astype(
+        np.float32)
+
+    def work(a, r):
+        ic0 = a.capabilities()["device_interactions"]
+        q = a.nop()
+        nq = a.nop(run_async=True)
+        assert nq.wait(60)
+        s = a.create_buffer_from(rows[r].copy())
+        d = a.create_buffer(count, np.float32)
+        ar = a.allreduce(s, d, count, run_async=True)
+        assert ar.wait(60)
+        return (int(q.get_retcode()), int(nq.get_retcode()),
+                a.get_duration(q), a.get_duration(nq),
+                a.get_duration(ar) == ar.get_duration_ns(),
+                a.get_duration(ar) > 0, ic0)
+
+    want, got = _run_both(groups, work)
+    for w, g in zip(want, got):
+        assert g[:6] == w[:6]
+        assert g[:2] == (int(at.ErrorCode.OK),) * 2
+        assert g[4] and g[5]
 
 
 @pytest.mark.parametrize(
